@@ -1,0 +1,148 @@
+"""``protected_matmul`` — the paper's contribution as a PyTorch op (port
+of ``repro.core.protected``).
+
+Every linear layer calls this instead of ``x @ w``.  The active policy
+resolves the scheme per GEMM shape; the scheme's registered executor runs
+and returns (y, CheckResult):
+
+  none     — plain matmul, clean check;
+  global   — plain matmul (cuBLAS on the card) + the global row check
+             against the weight's row checksum;
+  block_*  — the fused ABFT matmul (``kernels/ops.py``): K1 for CUDA
+             tensors, its plain version for CPU tensors.  There is no
+             switch that routes a CUDA tensor anywhere else;
+  replica  — K1 in replica mode (ablation baseline).
+
+The global path's f32 threshold assumes f32 accumulation: on the card,
+TF32 and reduced-precision bf16 reductions must be off (the serving
+engine and ``chip_smoke.py`` set both flags).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import checksums
+from repro_torch.core.checksums import CheckResult
+from repro_torch.core.faults import FaultSpec, inject_output_fault
+from repro_torch.core.hardware import DEFAULT, HardwareSpec
+from repro_torch.core.intensity import GemmDims
+from repro_torch.core.policy import (
+    FixedPolicy,
+    IntensityGuidedPolicy,
+    ProtectionPolicy,
+    default_registry,
+)
+from repro_torch.core.schemes import BlockShape, Scheme
+
+F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class ABFTConfig:
+    """Execution knobs of the protected GEMMs plus the selection policy.
+    ``policy=None`` means ``IntensityGuidedPolicy()``; ``hardware`` is the
+    roofline the policy selects against (the H100 by default)."""
+
+    enabled: bool = True
+    hardware: HardwareSpec = DEFAULT
+    blocks: BlockShape = BlockShape()
+    c_factor: float = 16.0
+    # fused-ABFT flash decode (K3) for decode attention; plain attention
+    # outside any kernel otherwise
+    flash_attention: bool = False
+    policy: ProtectionPolicy | None = None
+
+    def effective_policy(self) -> ProtectionPolicy:
+        if not self.enabled:
+            return FixedPolicy(Scheme.NONE)
+        return self.policy if self.policy is not None \
+            else IntensityGuidedPolicy()
+
+    def resolve(self, dims: GemmDims, first_layer: bool = False):
+        return self.effective_policy().select(
+            dims, self.hardware, first_layer=first_layer, cfg=self).scheme
+
+    @staticmethod
+    def from_policy(policy: ProtectionPolicy, **kw) -> "ABFTConfig":
+        return ABFTConfig(policy=policy, **kw)
+
+
+def _gemm_dims(x, w, out_dtype) -> GemmDims:
+    m = 1
+    for d in x.shape[:-1]:
+        m *= d
+    return GemmDims(m=m, k=x.shape[-1], n=w.shape[-1], batch=1,
+                    dtype_bytes=x.element_size(),
+                    out_dtype_bytes=out_dtype.itemsize)
+
+
+def protected_matmul(x, w, cfg: ABFTConfig = ABFTConfig(), *, wsums=None,
+                     out_dtype=None, fault: FaultSpec | None = None,
+                     first_layer: bool = False, site: str = "unlabeled"):
+    """ABFT-protected ``y = x @ w``; x: (..., m, k), w: (k, n).  Returns
+    (y, CheckResult).  ``site`` is the plan-facing layer tag."""
+    out_dtype = out_dtype or x.dtype
+    scheme = cfg.resolve(_gemm_dims(x, w, out_dtype),
+                         first_layer=first_layer)
+    executor = default_registry().executor(scheme)
+    return executor(x, w, cfg, wsums=wsums, out_dtype=out_dtype,
+                    fault=fault)
+
+
+# ------------------------------------------------------------- executors
+
+def _plain_dot(x, w, out_dtype, fault):
+    # f32 accumulation; the product is rounded to the operand dtype, then
+    # cast to the output dtype
+    y = torch.matmul(x, w).to(out_dtype)
+    if fault is not None:
+        y = inject_output_fault(y, fault)
+    return y
+
+
+def _exec_none(x, w, cfg, *, wsums, out_dtype, fault):
+    return _plain_dot(x, w, out_dtype, fault), CheckResult.clean(x.device)
+
+
+def _exec_global(x, w, cfg, *, wsums, out_dtype, fault):
+    y = _plain_dot(x, w, out_dtype, fault)
+    if wsums is None:
+        wsums = (checksums.weight_row_checksum(w),
+                 checksums.weight_abs_checksum(w))
+    x2 = x.reshape(-1, x.shape[-1])
+    y2 = y.reshape(-1, y.shape[-1])
+    check = checksums.global_row_check(x2, wsums[0], wsums[1], y2,
+                                       c_factor=cfg.c_factor)
+    if x.dtype != F32 and y.dtype == F32:
+        # a low-precision product widened for the output (the bf16 model's
+        # f32 head) carries the operand dtype's rounding: absorb it like
+        # the output-quantization term
+        tau = check.threshold + 0.5 * checksums.eps_of(x.dtype) * \
+            y2.abs().sum(dim=-1)
+        check = CheckResult(flag=checksums.flag_from(check.residual, tau),
+                            residual=check.residual, threshold=tau)
+    return y, check
+
+
+def _block_executor(mode: str):
+    def _exec(x, w, cfg, *, wsums, out_dtype, fault):
+        from repro_torch.kernels import ops
+
+        return ops.abft_matmul(x, w, mode=mode, blocks=cfg.blocks,
+                               out_dtype=out_dtype, fault=fault,
+                               c_factor=cfg.c_factor)
+
+    return _exec
+
+
+for _name, _exec in (
+    ("none", _exec_none),
+    ("global", _exec_global),
+    ("block_1s", _block_executor("1s")),
+    ("block_2s", _block_executor("2s")),
+    ("replica", _block_executor("replica")),
+):
+    default_registry().set_executor(_name, _exec)

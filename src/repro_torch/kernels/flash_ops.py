@@ -1,0 +1,66 @@
+"""Wrappers for fused-ABFT decode attention (port of the decode half of
+``repro.kernels.flash_ops``).  CUDA tensors launch K3
+(``kernels/flash_attention.py``) or raise; CPU tensors take its plain
+version.  The dense cache is read in place: no kv-head repeat and no pad
+copy (the reference wrapper does both before its kernel)."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.checksums import ATOL, CheckResult, flag_from, tolerance_scale
+from repro_torch.kernels.flash_attention import (
+    flash_decode_kernel,
+    flash_decode_ref,
+)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _attn_check(rs, bs, rp, bp, d: int, s: int,
+                c_factor: float) -> CheckResult:
+    """Fold the residual/bound vectors of both attention GEMMs (scores:
+    depth ``d``; PV: depth ``s``) into one CheckResult."""
+    tau_s = ATOL + tolerance_scale(d, c=c_factor) * bs
+    tau_pv = ATOL + tolerance_scale(s, c=c_factor) * bp
+    flag = torch.logical_or(flag_from(rs, tau_s), flag_from(rp, tau_pv))
+    residual = torch.stack([rs.max(), rp.max()])
+    threshold = torch.stack([tau_s.min(), tau_pv.min()])
+    return CheckResult(flag=flag, residual=residual, threshold=threshold)
+
+
+def _lengths(lengths, B: int, device) -> torch.Tensor:
+    return torch.as_tensor(lengths, dtype=torch.int32).to(
+        device).expand(B).contiguous()
+
+
+def flash_decode(q, k_cache, v_cache, lengths, *, bk: int = 128,
+                 c_factor: float = 16.0):
+    """Decode attention against a ragged dense cache.  q: (B, 1, H, D);
+    k_cache/v_cache: (B, S, KV, D[v]); lengths: (B,) valid lengths."""
+    B, _, _, D = q.shape
+    S = k_cache.shape[1]
+    block = min(bk, _round_up(S, 8))
+    run = flash_decode_kernel if (q.is_cuda or k_cache.is_cuda) \
+        else flash_decode_ref
+    out, rs, bs, rp, bp = run(q, k_cache, v_cache, None,
+                              _lengths(lengths, B, q.device), block=block)
+    return out, _attn_check(rs, bs, rp, bp, D, S, c_factor)
+
+
+def flash_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
+                       c_factor: float = 16.0):
+    """Decode attention against a paged cache.  k_pool/v_pool:
+    (NB, BS, KV, D[v]); block_tables: (B, W) int32 (sentinel tails are
+    clamped; the lengths mask makes their contribution exactly zero)."""
+    B, _, _, D = q.shape
+    BS = v_pool.shape[1]
+    W = block_tables.shape[1]
+    run = flash_decode_kernel if (q.is_cuda or k_pool.is_cuda) \
+        else flash_decode_ref
+    out, rs, bs, rp, bp = run(q, k_pool, v_pool,
+                              block_tables.to(torch.int32).contiguous(),
+                              _lengths(lengths, B, q.device), block=BS)
+    return out, _attn_check(rs, bs, rp, bp, D, W * BS, c_factor)

@@ -1,0 +1,62 @@
+"""Wrapper around the fused ABFT matmul (port of ``repro.kernels.ops``).
+
+Clamps the logical blocks for thin GEMMs (aligned to 8), translates the
+fault's output coordinates to (block, offset) pairs and turns the
+per-block residual/bound into a threshold and a NaN-safe flag.  A CUDA
+operand launches K1 (``kernels/abft_matmul.py``) or raises; CPU operands
+take its plain version (``kernels/ref.py``).  Nothing is padded here: the
+kernel masks ragged edges itself.
+
+The threshold mirrors the reference kernel path
+(``repro/kernels/ops.py``): ``ATOL + tolerance_scale(K) * bnd``, without
+the output- and weight-quantization terms that the reference's
+``use_pallas=False`` emulation adds (``repro/core/protected.py``).
+"""
+
+from __future__ import annotations
+
+from repro_torch.core.checksums import ATOL, CheckResult, flag_from, tolerance_scale
+from repro_torch.core.faults import FaultSpec
+from repro_torch.core.schemes import BlockShape
+from repro_torch.kernels.abft_matmul import abft_matmul_kernel
+from repro_torch.kernels.ref import abft_matmul_ref
+
+
+def _round_up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+def _clamp_block(dim: int, block: int, align: int = 8) -> int:
+    return min(block, _round_up(dim, align))
+
+
+def abft_matmul(x, w, *, mode: str = "1s", blocks: BlockShape = BlockShape(),
+                out_dtype=None, fault: FaultSpec | None = None,
+                c_factor: float = 16.0):
+    """``y = x @ w`` plus the fused integrity check.  x: (..., m, k), w:
+    (k, n).  Returns (y, CheckResult); the residual is per (block, row)
+    for '1s'/'replica', per block for '2s'."""
+    out_dtype = out_dtype or x.dtype
+    *lead, m0, k0 = x.shape
+    kw, n0 = w.shape
+    if k0 != kw:
+        raise ValueError(f"contraction mismatch {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    x2 = x.reshape(-1, k0)
+    m = x2.shape[0]
+    bm = _clamp_block(m, blocks.bm)
+    bk = _clamp_block(k0, blocks.bk)
+    bn = _clamp_block(n0, blocks.bn)
+    f = fault if fault is not None else FaultSpec.none()
+    fidx = (f.row // bm, f.col // bn, f.row % bm, f.col % bn,
+            int(f.enabled), f.bit)
+    run = abft_matmul_kernel if (x2.is_cuda or w.is_cuda) \
+        else abft_matmul_ref
+    y, res, bnd = run(x2, w, fidx, f.delta, mode=mode, bm=bm, bk=bk, bn=bn,
+                      out_dtype=out_dtype)
+    # the reference takes the depth of its zero-padded operand (a multiple
+    # of bk) for the threshold; kept so both packages flag alike
+    tau = ATOL + tolerance_scale(_round_up(k0, bk), c=c_factor) * bnd
+    return (y.reshape(*lead, m0, n0),
+            CheckResult(flag=flag_from(res, tau), residual=res,
+                        threshold=tau))

@@ -1,0 +1,189 @@
+"""Shared NN building blocks (port of ``repro.models.layers``).  Every GEMM
+routes through ``protected_matmul``.  Norms, rotary embeddings and the
+attention used outside the fused kernels are plain PyTorch, as the
+reference computes them in XLA outside any kernel.  Params are plain
+dicts of tensors; flags are 0-d bool tensors on the compute device, read
+on the host once per engine step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.faults import FaultSpec
+from repro_torch.core.protected import ABFTConfig, protected_matmul
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+# Injection sites (static ids), as in the reference.
+SITES = {
+    "qkv": 0, "attn_out": 1, "mlp_up": 2, "mlp_down": 3,
+    "router": 4, "expert_up": 5, "expert_down": 6,
+    "lm_head": 7, "ssm_in": 8, "ssm_out": 9,
+    "cross_qkv": 10, "cross_out": 11, "q_a": 12, "kv_a": 13,
+}
+
+
+class ModelFault(NamedTuple):
+    """A single-fault campaign target inside a full model."""
+
+    layer: int
+    site: int
+    spec: FaultSpec
+
+    @staticmethod
+    def none() -> "ModelFault":
+        return ModelFault(layer=0, site=0, spec=FaultSpec.none())
+
+    @staticmethod
+    def at(layer: int, site: str, spec: FaultSpec) -> "ModelFault":
+        return ModelFault(layer=int(layer), site=SITES[site], spec=spec)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerCtx:
+    """Per-forward context: the ABFT config, the fault target and the
+    current layer index (set by the stack loop)."""
+
+    abft: ABFTConfig = ABFTConfig()
+    fault: ModelFault | None = None
+    layer_idx: int | None = None
+
+    def with_layer(self, idx: int) -> "LayerCtx":
+        return dataclasses.replace(self, layer_idx=idx)
+
+
+def dense(x, w, ctx: LayerCtx, site: str, b=None, out_dtype=None,
+          tag: str | None = None):
+    """ABFT-protected ``x @ w (+ b)``.  Returns (y, flag)."""
+    fault = None
+    f = ctx.fault
+    if f is not None and f.spec.enabled and f.site == SITES[site] and (
+            ctx.layer_idx is None or f.layer == ctx.layer_idx):
+        fault = f.spec
+    y, chk = protected_matmul(x, w, ctx.abft, out_dtype=out_dtype or x.dtype,
+                              fault=fault, site=tag or site)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y, chk.flag
+
+
+def or_flags(*flags):
+    return torch.stack(flags).any()
+
+
+# ---------------------------------------------------------------- norms
+
+def rms_norm(x, w, eps: float = 1e-6):
+    xf = x.to(F32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
+
+
+# ---------------------------------------------------------------- rope
+
+def rope_tables(positions, head_dim: int, theta: float):
+    """positions: (..., L) int -> (cos, sin) of shape (..., L, head_dim/2)
+    (full rotation: partial ``rope_pct`` is not ported)."""
+    dev = positions.device
+    freqs = 1.0 / (torch.tensor(theta, dtype=F32, device=dev) ** (
+        torch.arange(0, head_dim, 2, dtype=F32, device=dev) / head_dim))
+    ang = positions.to(F32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, L, H, D); split-half rotation of all D dims."""
+    x1, x2 = x[..., : x.shape[-1] // 2], x[..., x.shape[-1] // 2:]
+    c = cos[:, :, None, :].to(x.dtype)
+    s = sin[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# ---------------------------------------------------------------- attention
+
+def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512, k_chunk: int = 1024,
+                      scale: float | None = None, lengths=None):
+    """Memory-bounded attention with online softmax over query and key
+    chunks (the reference's flash-style XLA path, as Python loops).
+    q: (B, Lq, H, Dk); k: (B, Lk, KV, Dk); v: (B, Lk, KV, Dv); ``lengths``
+    (B,) masks keys at positions >= lengths[b].  Returns (B, Lq, H, Dv)."""
+    B, Lq, H, Dk = q.shape
+    Lk, KV, Dv = v.shape[1], v.shape[2], v.shape[3]
+    G = H // KV
+    scale = scale if scale is not None else Dk ** -0.5
+    qc, kc = min(q_chunk, Lq), min(k_chunk, Lk)
+    nq, nk = -(-Lq // qc), -(-Lk // kc)
+    pad = torch.nn.functional.pad
+    qp = pad(q, (0, 0, 0, 0, 0, nq * qc - Lq))
+    kp = pad(k, (0, 0, 0, 0, 0, nk * kc - Lk))
+    vp = pad(v, (0, 0, 0, 0, 0, nk * kc - Lk))
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qg = qp[:, qi * qc:(qi + 1) * qc].reshape(B, qc, KV, G, Dk).to(F32)
+        q_pos = qi * qc + torch.arange(qc, device=dev)
+        m = torch.full((B, qc, KV, G), NEG_INF, dtype=F32, device=dev)
+        l = torch.zeros((B, qc, KV, G), dtype=F32, device=dev)
+        acc = torch.zeros((B, qc, KV, G, Dv), dtype=F32, device=dev)
+        for ki in range(nk):
+            kblk = kp[:, ki * kc:(ki + 1) * kc].to(F32)
+            vblk = vp[:, ki * kc:(ki + 1) * kc].to(F32)
+            k_pos = ki * kc + torch.arange(kc, device=dev)
+            s = torch.einsum("bqkgd,bskd->bqkgs", qg, kblk) * scale
+            mask = (k_pos[None, :] < Lk).expand(qc, kc)
+            if causal:
+                mask = mask & (q_pos[:, None] >= k_pos[None, :])
+            mask = mask[None, :, None, None, :]
+            if lengths is not None:
+                row_ok = k_pos[None, :] < lengths.to(dev)[:, None]
+                mask = mask & row_ok[:, None, None, None, :]
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bqkgs,bskv->bqkgv", p, vblk)
+            m = m_new
+        out = acc / l.clamp_min(1e-30)[..., None]
+        outs.append(out.reshape(B, qc, H, Dv).to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :Lq]
+
+
+def decode_attention(q, k_cache, v_cache, length, scale=None):
+    """Single-token attention against a (B, S, KV, D) cache.
+    q: (B, 1, H, Dk); ``length``: (B,) valid positions.  Returns
+    (B, 1, H, Dv)."""
+    B, _, H, Dk = q.shape
+    S, KV, Dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
+    G = H // KV
+    scale = scale if scale is not None else Dk ** -0.5
+    qg = q.reshape(B, KV, G, Dk).to(F32)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(F32)) * scale
+    pos = torch.arange(S, device=q.device)
+    valid = pos[None, :] < length.to(q.device).reshape(-1, 1)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskv->bkgv", p.to(v_cache.dtype).to(F32),
+                       v_cache.to(F32))
+    return out.reshape(B, 1, H, Dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------- mlp
+
+def mlp(x, p, ctx: LayerCtx, act: str = "silu",
+        tags: tuple = ("mlp.up", "mlp.down")):
+    """SwiGLU MLP; its three GEMMs are ABFT-protected."""
+    if act != "silu":
+        raise NotImplementedError(f"mlp act {act!r} is not ported")
+    up_tag, down_tag = tags
+    up, f1 = dense(x, p["up"], ctx, "mlp_up", tag=up_tag)
+    gate, f2 = dense(x, p["gate"], ctx, "mlp_up", tag=up_tag)
+    h = torch.nn.functional.silu(gate.to(F32)).to(x.dtype) * up
+    out, f3 = dense(h, p["down"], ctx, "mlp_down", tag=down_tag)
+    return out, or_flags(f1, f2, f3)

@@ -1,0 +1,234 @@
+"""Model assembly for dense GQA decoder stacks (port of the
+``attn:dense:0`` part of ``repro.models.model``).
+
+The reference scans stacked per-segment params; the port keeps one dict
+of tensors per layer and runs the stack as a Python loop.
+``params_from_reference`` turns the reference's ``Model.init_params``
+tree (converted to numpy) into the port's layout.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import LayerCtx, dense, mlp, or_flags, rms_norm
+
+F32 = torch.float32
+
+
+def layer_tags(cfg: ModelConfig) -> list:
+    """Per-layer "mixer:ffn:cross" tags (copy of the reference's)."""
+    tags = []
+    for i in range(cfg.n_layers):
+        mixer = cfg.layer_kind(i)
+        if mixer == "attn" and cfg.attention == "mla":
+            mixer = "mla"
+        ffn = cfg.ffn_kind(i) if (cfg.d_ff or cfg.n_experts) else "none"
+        cross = (
+            "1"
+            if cfg.cross_attn_every
+            and i % cfg.cross_attn_every == cfg.cross_attn_every - 2
+            else "0"
+        )
+        tags.append(f"{mixer}:{ffn}:{cross}")
+    return tags
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port serves dense GQA decoders with SwiGLU MLPs, RMSNorm and
+    full rotary embeddings (llama3.2-1b); anything else is not ported."""
+    ok = (cfg.attention == "gqa" and cfg.act == "silu"
+          and cfg.norm == "rmsnorm" and not cfg.qk_norm
+          and not cfg.qkv_bias and cfg.rope_pct == 1.0
+          and not cfg.pad_heads_to and not cfg.pad_kv_heads_to
+          and not cfg.is_encoder_decoder and not cfg.mtp_depth
+          and all(t == "attn:dense:0" for t in layer_tags(cfg)))
+    if not ok:
+        raise NotImplementedError(
+            f"architecture {cfg.name!r} is not ported: the PyTorch port "
+            f"serves dense GQA decoders (llama3.2-1b)")
+
+
+def _to_torch(a, device, dtype):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a).view(np.uint16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_reference(cfg: ModelConfig, np_params, *, device="cpu",
+                          dtype=None) -> dict:
+    """The reference's ``Model.init_params`` tree (leaves converted to
+    numpy) -> the port's params.  Each ``segments[i]["pos{q}"]`` subtree
+    carries a leading ``repeats`` axis; layer ``off + r * P + q`` of
+    segment i is slice r of its ``pos{q}`` subtree."""
+    check_supported(cfg)
+
+    def conv(tree, r=None):
+        if isinstance(tree, dict):
+            return {k: conv(v, r) for k, v in tree.items()}
+        return _to_torch(tree if r is None else np.asarray(tree)[r],
+                         device, dtype)
+
+    layers = []
+    for seg in np_params["segments"]:
+        P = len(seg)
+        reps = np.asarray(seg["pos0"]["mixer_norm"]["w"]).shape[0]
+        for r in range(reps):
+            for q in range(P):
+                layers.append(conv(seg[f"pos{q}"], r))
+    out = {"embed": conv(np_params["embed"]),
+           "final_norm": conv(np_params["final_norm"]), "layers": layers}
+    if "lm_head" in np_params:
+        out["lm_head"] = conv(np_params["lm_head"])
+    return out
+
+
+class Model:
+    """Eager model wrapper for one dense GQA architecture."""
+
+    def __init__(self, cfg: ModelConfig):
+        check_supported(cfg)
+        self.cfg = cfg
+
+    # -------------------------------------------------- init
+    def init_params(self, seed: int = 0, dtype=torch.bfloat16,
+                    device="cpu") -> dict:
+        """Seeded N(0, 0.02) weights (the reference's init law; a torch
+        generator, so not the reference's numbers), unit norm gains."""
+        cfg = self.cfg
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        hd = cfg.resolved_head_dim
+
+        def w(*shape):
+            return (0.02 * torch.randn(shape, generator=gen, dtype=F32,
+                                       device=device)).to(dtype)
+
+        def ones():
+            return {"w": torch.ones((cfg.d_model,), dtype=dtype,
+                                    device=device)}
+
+        params = {"embed": w(cfg.vocab_size, cfg.d_model),
+                  "final_norm": ones(), "layers": []}
+        for _ in range(cfg.n_layers):
+            params["layers"].append({
+                "mixer_norm": ones(),
+                "mixer": {"wq": w(cfg.d_model, cfg.n_heads * hd),
+                          "wk": w(cfg.d_model, cfg.n_kv_heads * hd),
+                          "wv": w(cfg.d_model, cfg.n_kv_heads * hd),
+                          "wo": w(cfg.n_heads * hd, cfg.d_model)},
+                "ffn_norm": ones(),
+                "ffn": {"up": w(cfg.d_model, cfg.d_ff),
+                        "gate": w(cfg.d_model, cfg.d_ff),
+                        "down": w(cfg.d_ff, cfg.d_model)},
+            })
+        if not cfg.tie_embeddings:
+            params["lm_head"] = w(cfg.d_model, cfg.vocab_size)
+        return params
+
+    # -------------------------------------------------- cache
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device="cpu") -> list:
+        return [attn.init_gqa_cache(self.cfg, batch, max_len, dtype, device)
+                for _ in range(self.cfg.n_layers)]
+
+    def init_paged_cache(self, num_blocks: int, block_size: int,
+                         dtype=torch.bfloat16, device="cpu") -> list:
+        from repro_torch.serve.paged_cache import init_paged_gqa_cache
+
+        return [init_paged_gqa_cache(self.cfg, num_blocks, block_size, dtype,
+                                     device)
+                for _ in range(self.cfg.n_layers)]
+
+    # -------------------------------------------------- layers
+    def apply_layer(self, x, lp, ctx: LayerCtx, positions, mode: str, cache,
+                    pos=None, slots=None, lengths=None, tables=None):
+        """One decoder layer (mode: prefill | decode).  Returns (x, flag)."""
+        cfg = self.cfg
+        h = rms_norm(x, lp["mixer_norm"]["w"], cfg.norm_eps)
+        if mode == "prefill":
+            if tables is not None:
+                a, f = attn.gqa_paged_prefill(h, lp["mixer"], cfg, ctx,
+                                              positions, cache, tables,
+                                              lengths)
+            else:
+                a, f = attn.gqa_prefill(h, lp["mixer"], cfg, ctx, positions,
+                                        cache, slots=slots, lengths=lengths)
+        elif tables is not None:
+            a, f = attn.gqa_paged_decode(h, lp["mixer"], cfg, ctx, pos,
+                                         cache, tables)
+        else:
+            a, f = attn.gqa_decode(h, lp["mixer"], cfg, ctx, pos, cache)
+        x = x + a
+        h = rms_norm(x, lp["ffn_norm"]["w"], cfg.norm_eps)
+        o, f2 = mlp(h, lp["ffn"], ctx, act=cfg.act)
+        return x + o, or_flags(f, f2)
+
+    def run_stack(self, x, params, ctx: LayerCtx, positions, mode: str,
+                  caches, pos=None, slots=None, lengths=None, tables=None):
+        flags = []
+        for i, (lp, cache) in enumerate(zip(params["layers"], caches)):
+            x, f = self.apply_layer(x, lp, ctx.with_layer(i), positions,
+                                    mode, cache, pos=pos, slots=slots,
+                                    lengths=lengths, tables=tables)
+            flags.append(f)
+        return x, torch.stack(flags).any()
+
+    def _head(self, params, x, ctx):
+        w = (params["embed"].t().to(x.dtype) if self.cfg.tie_embeddings
+             else params["lm_head"])
+        return dense(x, w, ctx, "lm_head", out_dtype=F32)
+
+    # -------------------------------------------------- prefill / decode
+    def prefill(self, params, tokens, cache, ctx: LayerCtx, slots=None,
+                lengths=None, block_tables=None):
+        """Prefill ``cache`` from tokens (B, L).  With ``slots``/``lengths``
+        the cache is engine-deep and rows are ragged prompts padded to L;
+        logits come from each row's last valid token.  ``block_tables``
+        (B, W) selects the paged pools.  Returns (logits (B, 1, V) f32,
+        cache, flag); the cache is updated in place."""
+        cfg = self.cfg
+        B, L = tokens.shape
+        x = params["embed"][tokens]
+        positions = torch.arange(L, device=tokens.device).expand(B, L)
+        x, flag = self.run_stack(x, params, ctx, positions, "prefill", cache,
+                                 slots=slots, lengths=lengths,
+                                 tables=block_tables)
+        x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+        if lengths is not None:
+            idx = (lengths.to(x.device).long() - 1).clamp_min(0)
+            last = x[torch.arange(B, device=x.device), idx][:, None]
+        else:
+            last = x[:, -1:, :]
+        logits, f_head = self._head(params, last, ctx)
+        return logits, cache, or_flags(flag, f_head)
+
+    def decode(self, params, token, cache, pos, ctx: LayerCtx,
+               block_tables=None):
+        """token: (B, 1); pos: (B,) per-slot cursor.  Each row writes its
+        KV at its own cursor and attends its own prefix.  Returns
+        (logits (B, 1, V) f32, cache, flag)."""
+        cfg = self.cfg
+        B = token.shape[0]
+        pos = torch.as_tensor(pos, dtype=torch.int32,
+                              device=token.device).expand(B).contiguous()
+        x = params["embed"][token]
+        x, flag = self.run_stack(x, params, ctx, None, "decode", cache,
+                                 pos=pos, tables=block_tables)
+        x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+        logits, f_head = self._head(params, x, ctx)
+        return logits, cache, or_flags(flag, f_head)
+
+    def protection_plan(self, hw, policy=None, *, phase: str = "serve",
+                        n_tokens: int = 1, dtype_bytes: int = 2):
+        from repro_torch.core.policy import ProtectionPlan
+
+        return ProtectionPlan.for_model(self.cfg, hw=hw, policy=policy,
+                                        phase=phase, n_tokens=n_tokens,
+                                        dtype_bytes=dtype_bytes)

@@ -1,0 +1,154 @@
+"""K1 (fused ABFT matmul): the port's plain version, through its wrapper
+``repro_torch.kernels.ops.abft_matmul``, against the reference wrapper
+``repro.kernels.ops.abft_matmul`` running the Pallas kernel in interpret
+mode.  Same numpy inputs (seeded) on both sides, f32.
+
+Tolerances: y within 5e-4 (the k-chunked f32 sums run in another order,
+as ``tests/test_kernels.py`` allows against its oracle); bounds within
+1e-5 relative (sums of magnitudes, order only); thresholds likewise;
+clean residuals are rounding noise, so they are compared against the
+threshold (never above it on either side) rather than element-wise.
+
+Mirrored caveat: the threshold is the reference kernel path's
+``ATOL + tolerance_scale(K_padded) * bnd``, without the quantization terms
+of the reference's ``use_pallas=False`` emulation
+(``repro/core/protected.py`` vs ``repro/kernels/ops.py``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.faults import FaultSpec as JFault
+from repro.core.schemes import BlockShape as JBlocks
+from repro.kernels import ops as jops
+from repro_torch.core.faults import FaultSpec
+from repro_torch.core.schemes import BlockShape
+from repro_torch.kernels import ops
+from repro_torch.kernels.abft_matmul import (
+    abft_matmul_kernel,
+    gemv_path,
+    split_k,
+)
+from repro_torch.kernels.ref import abft_matmul_ref
+
+torch.set_num_threads(1)
+
+SHAPES = [(4, 64, 128), (1, 96, 40), (96, 200, 130), (130, 514, 258)]
+MODES = ["1s", "2s", "replica"]
+BLOCKS = (64, 64, 64)
+
+
+def _inputs(seed, m, k, n):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((m, k)).astype(np.float32),
+            rng.standard_normal((k, n)).astype(np.float32))
+
+
+def _both(x, w, mode, jf=None, tf=None, blocks=BLOCKS):
+    yj, cj = jops.abft_matmul(jnp.asarray(x), jnp.asarray(w), mode=mode,
+                              blocks=JBlocks(*blocks), fault=jf,
+                              out_dtype=jnp.float32)
+    yt, ct = ops.abft_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                             mode=mode, blocks=BlockShape(*blocks),
+                             fault=tf, out_dtype=torch.float32)
+    return (np.asarray(yj), cj), (yt.numpy(), ct)
+
+
+def _ratio_argmax(chk, to_np):
+    r = to_np(chk.residual) / to_np(chk.threshold)
+    return np.unravel_index(int(np.nanargmax(r)), r.shape)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_version_matches_reference_kernel(shape, mode):
+    x, w = _inputs(1, *shape)
+    (yj, cj), (yt, ct) = _both(x, w, mode)
+    np.testing.assert_allclose(yt, yj, rtol=5e-4, atol=5e-4)
+    assert ct.residual.shape == cj.residual.shape
+    np.testing.assert_allclose(ct.threshold.numpy(),
+                               np.asarray(cj.threshold), rtol=1e-5)
+    assert not bool(cj.flag) and not bool(ct.flag)
+    assert (ct.residual.numpy() <= ct.threshold.numpy()).all()
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kind", ["value", "bitflip"])
+@pytest.mark.parametrize("shape", [(4, 64, 128), (96, 200, 130)])
+def test_faults_flag_at_the_same_block_and_row(shape, kind, mode):
+    m, k, n = shape
+    x, w = _inputs(2, m, k, n)
+    row, col = m - 1, n // 2 + 3
+    if kind == "value":
+        jf, tf = JFault.value(row, col, 1e3), FaultSpec.value(row, col, 1e3)
+    else:
+        jf, tf = (JFault.bitflip(row, col, 30),
+                  FaultSpec.bitflip(row, col, 30))
+    (yj, cj), (yt, ct) = _both(x, w, mode, jf, tf)
+    assert bool(cj.flag) and bool(ct.flag)
+    at_j = _ratio_argmax(cj, np.asarray)
+    at_t = _ratio_argmax(ct, lambda t: t.numpy())
+    assert at_j == at_t
+    bm = min(64, -(-m // 8) * 8)
+    bn = min(64, -(-n // 8) * 8)
+    want = (row // bm, col // bn) + (() if mode == "2s" else (row % bm,))
+    assert tuple(int(a) for a in at_t) == want
+    # the faulted output element itself is corrupted identically
+    np.testing.assert_allclose(yt[row, col], yj[row, col], rtol=1e-5)
+
+
+def test_default_blocks_clamp_for_thin_gemms():
+    x, w = _inputs(3, 4, 2048, 512)
+    yt, ct = ops.abft_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    yj, cj = jops.abft_matmul(jnp.asarray(x), jnp.asarray(w))
+    assert ct.residual.shape == cj.residual.shape == (1, 2, 8)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=5e-4,
+                               atol=5e-4)
+
+
+def test_strided_head_view_matches_contiguous():
+    """The tied head reads ``embed.T`` through its strides."""
+    rng = np.random.default_rng(4)
+    emb = torch.from_numpy(rng.standard_normal((136, 64)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
+    a = abft_matmul_ref(x, emb.t(), mode="1s", bm=8, bk=64, bn=136,
+                        out_dtype=torch.float32)
+    b = abft_matmul_ref(x, emb.t().contiguous(), mode="1s", bm=8, bk=64,
+                        bn=136, out_dtype=torch.float32)
+    for u, v in zip(a, b):     # same values; einsum may reorder sums
+        torch.testing.assert_close(u, v, rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_wrapper_never_falls_back_for_cpu_tensors():
+    x, w = _inputs(5, 4, 64, 64)
+    with pytest.raises(ValueError):
+        abft_matmul_kernel(torch.from_numpy(x), torch.from_numpy(w),
+                           mode="1s", bm=8, bk=64, bn=64,
+                           out_dtype=torch.float32)
+
+
+def test_split_k_covers_k_and_aligns_replica():
+    for m, k, n in [(4, 2048, 2048), (4, 8192, 2048), (512, 2048, 128256),
+                    (4, 200, 512)]:
+        for mode in MODES:
+            bk = min(512, -(-k // 8) * 8)
+            for gemv in (False, mode != "replica" and m <= 8):
+                S, kc = split_k(m, k, n, min(256, -(-m // 8) * 8), bk,
+                                min(256, -(-n // 8) * 8), mode, gemv)
+                assert (S - 1) * kc < k <= S * kc
+                if mode == "replica":
+                    assert kc % bk == 0
+                if gemv:     # whole 32-row iterations of the GEMV pass
+                    assert kc % 32 == 0
+
+
+def test_gemv_path_terms():
+    x = torch.zeros(4, 64)
+    w = torch.zeros(64, 128)
+    assert gemv_path(x, w, 128, "1s") and gemv_path(x, w, 64, "2s")
+    assert not gemv_path(x, w, 128, "replica")
+    assert not gemv_path(torch.zeros(9, 64), w, 128, "1s")
+    assert not gemv_path(x, torch.zeros(128, 64).t(), 128, "1s")
+    assert not gemv_path(x, w, 40, "1s")

@@ -1,0 +1,225 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
+skips without a card.  The file imports no JAX (the GPU machine has
+none), so it runs there as
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: y in f32 within 1e-4 x max|y| (f32 sums over K in another
+order); y in bf16 within 2^-7 x max|y| (one bf16 rounding of either
+side); bounds within 1e-5 relative (sums of magnitudes, order only);
+decode attention within 1e-5 (f32) or 2^-7 (bf16) of max|out|.  Clean
+residuals are rounding noise and are held against the threshold only.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, scaled_down
+from repro_torch.core.faults import FaultSpec
+from repro_torch.core.protected import ABFTConfig
+from repro_torch.core.schemes import BlockShape
+from repro_torch.kernels import abft_matmul as am
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_ops, ops
+from repro_torch.kernels.ref import abft_matmul_ref
+from repro_torch.models.model import Model
+from repro_torch.serve.engine import Request, ServeEngine
+
+pytestmark = pytest.mark.cuda
+
+MODES = ("1s", "2s", "replica")
+DTYPES = (torch.float32, torch.bfloat16)
+# (M, K, N): the decode GEMV pass (M <= 8), the tiled pass, ragged edges
+K1_SHAPES = [(4, 2048, 512), (8, 512, 256), (40, 2048, 512),
+             (130, 514, 258), (3, 200, 136)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return torch.device("cuda")
+
+
+def _blocks(m, k, n, blocks=BlockShape()):
+    return tuple(min(b, -(-d // 8) * 8)
+                 for b, d in ((blocks.bm, m), (blocks.bk, k), (blocks.bn, n)))
+
+
+def _k1_inputs(dev, m, k, n, dtype, seed, transposed=False):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    wshape = (n, k) if transposed else (k, n)
+    w = torch.from_numpy(0.05 * rng.standard_normal(wshape).astype(
+        np.float32))
+    x, w = x.to(dev, dtype), w.to(dev, dtype)
+    return x, (w.t() if transposed else w)
+
+
+def _y_tol(y_ref, dtype):
+    scale = y_ref.float().abs().max().item()
+    return (1e-4 if dtype == torch.float32 else 2 ** -7) * scale
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_k1_kernel_matches_plain_version(dev, shape, mode, dtype):
+    m, k, n = shape
+    x, w = _k1_inputs(dev, m, k, n, dtype, seed=1)
+    bm, bk, bn = _blocks(m, k, n)
+    kw = dict(mode=mode, bm=bm, bk=bk, bn=bn, out_dtype=dtype)
+    before = am.KERNEL.launches
+    y, res, bnd = am.abft_matmul_kernel(x, w, **kw)
+    assert am.KERNEL.launches == before + 1
+    yp, resp, bndp = abft_matmul_ref(x, w, **kw)
+    torch.cuda.synchronize()
+    assert res.shape == resp.shape and bnd.shape == bndp.shape
+    err = (y.float() - yp.float()).abs().max().item()
+    assert err <= _y_tol(yp, dtype)
+    torch.testing.assert_close(bnd, bndp, rtol=1e-5, atol=1e-30)
+    _, chk = ops.abft_matmul(x, w, mode=mode, out_dtype=dtype)
+    assert not bool(chk.flag)
+
+
+@pytest.mark.parametrize("m", [4, 40])
+def test_k1_reads_the_tied_head_through_its_strides(dev, m):
+    """W = embed.T (a transposed view, never copied), f32 output."""
+    x, w = _k1_inputs(dev, m, 256, 1000, torch.bfloat16, seed=2,
+                      transposed=True)
+    assert w.stride() == (1, 256)
+    for mode in MODES:
+        kw = dict(mode=mode, bm=_blocks(m, 256, 1000)[0], bk=256, bn=256,
+                  out_dtype=torch.float32)
+        y, _, bnd = am.abft_matmul_kernel(x, w, **kw)
+        yp, _, bndp = abft_matmul_ref(x, w, **kw)
+        torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(bnd, bndp, rtol=1e-5, atol=1e-30)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m", [4, 40])
+def test_k1_flags_faults_at_their_block_and_row(dev, m, mode):
+    x, w = _k1_inputs(dev, m, 1024, 768, torch.float32, seed=3)
+    row, col = m - 1, 768 // 2 + 3
+    bm, _, bn = _blocks(m, 1024, 768)
+    want = (row // bm, col // bn) + (() if mode == "2s" else (row % bm,))
+    clean, _ = ops.abft_matmul(x, w, mode=mode)
+    # an exponent flip that scales the element up by >= 2^32 (a flip that
+    # shrinks it to ~0 can hide under a two-sided block threshold)
+    bit = 30 if clean[row, col].abs().item() < 2 else 29
+    for fault in (FaultSpec.value(row, col, 1e4),
+                  FaultSpec.bitflip(row, col, bit)):
+        y, chk = ops.abft_matmul(x, w, mode=mode, fault=fault)
+        assert bool(chk.flag)
+        ratio = (chk.residual / chk.threshold).nan_to_num(float("inf"))
+        at = np.unravel_index(int(ratio.argmax().item()), ratio.shape)
+        assert tuple(int(a) for a in at) == want
+        diff = (y != clean).nonzero().tolist()
+        assert diff == [[row, col]]       # only the faulted element
+
+
+@pytest.mark.parametrize("m", [4, 40])
+def test_k1_is_bit_for_bit_deterministic(dev, m):
+    """No floating-point atomics: a retry reproduces its attempt exactly."""
+    x, w = _k1_inputs(dev, m, 8192, 2048, torch.bfloat16, seed=4)
+    runs = [ops.abft_matmul(x, w) for _ in range(3)]
+    for y, chk in runs[1:]:
+        assert torch.equal(y, runs[0][0])
+        assert torch.equal(chk.residual, runs[0][1].residual)
+
+
+def test_k1_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x, w = _k1_inputs(dev, 4, 64, 64, torch.float32, seed=5)
+    kw = dict(mode="1s", bm=8, bk=64, bn=64, out_dtype=torch.float32)
+    with pytest.raises(TypeError):
+        am.abft_matmul_kernel(x, w.to(torch.bfloat16), **kw)
+    strided = torch.empty(4, 128, device=dev)[:, ::2]   # column stride 2
+    with pytest.raises(ValueError):
+        am.abft_matmul_kernel(strided, w, **kw)
+    with pytest.raises(ValueError):
+        am.abft_matmul_kernel(x.cpu(), w, **kw)
+
+
+def _k3_case(dev, dtype, seed=0, B=4, KV=8, G=4, D=64, BS=16, S=256):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    W = S // BS
+    NB = B * W + 5
+    q = torch.randn(B, 1, KV * G, D, generator=gen)
+    kp = 3 * torch.randn(NB, BS, KV, D, generator=gen)
+    vp = 3 * torch.randn(NB, BS, KV, D, generator=gen)
+    kd = 3 * torch.randn(B, S, KV, D, generator=gen)
+    vd = 3 * torch.randn(B, S, KV, D, generator=gen)
+    table = torch.randperm(NB, generator=gen)[:B * W].reshape(B, W)
+    table = table.to(torch.int32)
+    table[0, 1:] = NB                                # sentinel tail
+    lengths = torch.tensor([1, 17, 100, 255], dtype=torch.int32)
+    to = lambda t: t.to(dev, dtype)               # noqa: E731
+    return (to(q), to(kp), to(vp), to(kd), to(vd), table.to(dev),
+            lengths.to(dev))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_k3_kernel_matches_plain_version(dev, kind, dtype):
+    q, kp, vp, kd, vd, table, lengths = _k3_case(dev, dtype)
+    args = (kp, vp, table, 16) if kind == "paged" else (kd, vd, None, 128)
+    before = fa.KERNEL.launches
+    got = fa.flash_decode_kernel(q, *args[:3], lengths, block=args[3])
+    assert fa.KERNEL.launches == before + 1
+    ref = fa.flash_decode_ref(q, *args[:3], lengths, block=args[3])
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    scale = ref[0].float().abs().max().item()
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= \
+        tol * scale
+    for g, r in ((got[2], ref[2]), (got[4], ref[4])):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-30)
+    if kind == "paged":
+        _, chk = flash_ops.flash_decode_paged(q, kp, vp, table, lengths)
+    else:
+        _, chk = flash_ops.flash_decode(q, kd, vd, lengths)
+    assert not bool(chk.flag)
+
+
+def test_k3_ignores_data_past_each_length(dev):
+    q, kp, vp, kd, vd, table, lengths = _k3_case(dev, torch.float32)
+    a = fa.flash_decode_kernel(q, kd, vd, None, lengths, block=128)
+    pos = torch.arange(kd.shape[1], device=dev)
+    past = (pos[None, :] >= lengths[:, None])[:, :, None, None]
+    kd2 = torch.where(past, torch.full_like(kd, 1e3), kd)
+    vd2 = torch.where(past, torch.full_like(vd, -1e3), vd)
+    b = fa.flash_decode_kernel(q, kd2, vd2, None, lengths, block=128)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_small_engine_streams_on_the_card_equal_the_cpu(dev):
+    """Scaled-down f32 llama3.2-1b: the engine on the card (K1, K3) and on
+    the CPU (their plain versions) give the same greedy streams, and the
+    card run launched both kernels."""
+    cfg = scaled_down(get_config("llama3.2-1b"), n_layers=2)
+    model = Model(cfg)
+    params = model.init_params(3, dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 256, size=int(n)).astype(np.int32)
+               for n in rng.integers(3, 40, size=5)]
+    streams = {}
+    for d in ("cpu", dev):
+        for kind in ("dense", "paged"):
+            eng = ServeEngine(model, params, slots=2, max_len=64,
+                              dtype=torch.float32, device=d,
+                              cache_kind=kind,
+                              abft=ABFTConfig(flash_attention=True))
+            k1, k3 = am.KERNEL.launches, fa.KERNEL.launches
+            streams[(str(d), kind)] = eng.run(
+                [Request(uid=i, prompt=p, max_new_tokens=8)
+                 for i, p in enumerate(prompts)])
+            if str(d) != "cpu":
+                assert am.KERNEL.launches > k1 and fa.KERNEL.launches > k3
+    assert len({str(s) for s in streams.values()}) == 1

@@ -1,0 +1,187 @@
+"""Serving-engine parity: the port's ``ServeEngine`` against the
+reference ``ServeEngine`` on scaled-down llama3.2-1b (2 layers, f32, the
+reference's parameters through numpy), mixed-length requests.  The
+reference runs as its own tests run it on the CPU: ``use_pallas=False``.
+
+Greedy streams, ``faults_detected``/``retries``/``hard_faults``/
+``evictions`` and the per-step ``selection_trace`` must be EQUAL, under
+the same ``fault_at`` / ``admit_fault_at`` and the same HardwareSpec.
+
+Mirrored caveat (global scheme): ``global_row_check`` ignores
+``c_factor`` and uses the default c=16, as the reference does
+(``repro/core/checksums.py``).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget, scaled_down as jscaled
+from repro.core import FaultSpec as JFault
+from repro.core.hardware import TPU_V5E as JTPU
+from repro.core.policy import (
+    FixedPolicy as JFixed,
+    IntensityGuidedPolicy as JGuided,
+)
+from repro.core.protected import ABFTConfig as JABFT
+from repro.core.schemes import Scheme as JScheme
+from repro.models import ModelFault as JMF, build_model
+from repro.serve.engine import (
+    RecoveryPolicy as JRecovery,
+    Request as JRequest,
+    ServeEngine as JEngine,
+)
+from repro_torch.configs import get_config, scaled_down
+from repro_torch.core.faults import FaultSpec
+from repro_torch.core.hardware import TPU_V5E
+from repro_torch.core.policy import FixedPolicy, IntensityGuidedPolicy
+from repro_torch.core.protected import ABFTConfig
+from repro_torch.core.schemes import Scheme
+from repro_torch.models.layers import ModelFault
+from repro_torch.models.model import Model, params_from_reference
+from repro_torch.serve import executor
+from repro_torch.serve.engine import RecoveryPolicy, Request, ServeEngine
+
+torch.set_num_threads(1)
+
+COUNTERS = ("faults_detected", "retries", "hard_faults", "evictions",
+            "rejections", "steps", "tokens")
+# name: (policy, flash, cache, max_retries, fault_at step, admit fault uid)
+SCENARIOS = {
+    "clean": ("guided", False, "dense", 1, None, None),
+    "decode_fault": ("guided", False, "dense", 1, 2, None),
+    "decode_evict": ("guided", False, "dense", 0, 2, None),
+    "prefill_evict": ("guided", False, "dense", 0, None, 1),
+    "global_fault": ("global", False, "dense", 1, 2, None),
+    "paged_flash_fault": ("guided", True, "paged", 1, 3, None),
+}
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = jscaled(jget("llama3.2-1b"), n_layers=2)
+    jm = build_model(jcfg)
+    jp = jm.init_params(jax.random.PRNGKey(0), dtype=jnp.float32)
+    cfg = scaled_down(get_config("llama3.2-1b"), n_layers=2)
+    tp = params_from_reference(cfg, jax.tree_util.tree_map(np.asarray, jp))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 256, size=int(n)).astype(np.int32)
+               for n in rng.integers(3, 24, size=5)]
+    return jm, jp, Model(cfg), tp, prompts
+
+
+def _run_ref(setup, name):
+    jm, jp, _, _, prompts = setup
+    pol, flash, cache, retries, fat, auid = SCENARIOS[name]
+    policy = JGuided() if pol == "guided" else JFixed(JScheme.GLOBAL)
+    eng = JEngine(jm, jp, slots=2, max_len=64,
+                  abft=JABFT.from_policy(policy, use_pallas=False,
+                                         hardware=JTPU,
+                                         flash_attention=flash),
+                  dtype=jnp.float32, cache_kind=cache,
+                  policy=JRecovery(max_retries=retries))
+    fault = JMF.at(0, "mlp_down", JFault.value(0, 1, 1e5))
+    reqs = [JRequest(uid=i, prompt=p, max_new_tokens=6)
+            for i, p in enumerate(prompts)]
+    out = eng.run(reqs, fault_at=None if fat is None else (fat, fault),
+                  admit_fault_at=None if auid is None else (auid, fault))
+    return out, {k: getattr(eng.stats, k) for k in COUNTERS}, \
+        eng.stats.selection_trace, {r.uid: r.error for r in reqs}
+
+
+def _run_port(setup, name, cache=None):
+    _, _, tm, tp, prompts = setup
+    pol, flash, kind, retries, fat, auid = SCENARIOS[name]
+    policy = IntensityGuidedPolicy() if pol == "guided" \
+        else FixedPolicy(Scheme.GLOBAL)
+    eng = ServeEngine(tm, tp, slots=2, max_len=64,
+                      abft=ABFTConfig.from_policy(policy, hardware=TPU_V5E,
+                                                  flash_attention=flash),
+                      dtype=torch.float32, device="cpu",
+                      cache_kind=cache or kind,
+                      policy=RecoveryPolicy(max_retries=retries))
+    fault = ModelFault.at(0, "mlp_down", FaultSpec.value(0, 1, 1e5))
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=6)
+            for i, p in enumerate(prompts)]
+    out = eng.run(reqs, fault_at=None if fat is None else (fat, fault),
+                  admit_fault_at=None if auid is None else (auid, fault))
+    return out, {k: getattr(eng.stats, k) for k in COUNTERS}, \
+        eng.stats.selection_trace, {r.uid: r.error for r in reqs}
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_streams_counters_and_trace_match_reference(setup, name):
+    ref, got = _run_ref(setup, name), _run_port(setup, name)
+    assert got[0] == ref[0], "greedy streams differ"
+    assert got[1] == ref[1], "engine counters differ"
+    assert got[2] == ref[2], "selection traces differ"
+    assert got[3] == ref[3], "per-request errors differ"
+
+
+def test_fault_runs_recover_or_evict_as_expected(setup):
+    clean = _run_port(setup, "clean")
+    fixed = _run_port(setup, "decode_fault")
+    assert fixed[1]["faults_detected"] == 1 and fixed[1]["retries"] == 1
+    assert fixed[0] == clean[0]        # in-place retry rewrote every cell
+    evict = _run_port(setup, "decode_evict")
+    assert evict[1]["hard_faults"] == 1 and evict[1]["evictions"] >= 1
+    assert "hard_fault:decode" in evict[3].values()
+    pre = _run_port(setup, "prefill_evict")
+    assert pre[3][1] == "hard_fault:prefill"
+
+
+@pytest.mark.parametrize("name", ["clean", "decode_fault"])
+def test_paged_streams_equal_dense_streams(setup, name):
+    dense = _run_port(setup, name, cache="dense")
+    paged = _run_port(setup, name, cache="paged")
+    assert paged[0] == dense[0] and paged[1] == dense[1]
+
+
+def test_entry_points_need_cuda_or_an_explicit_cpu(setup, monkeypatch):
+    _, _, tm, tp, _ = setup
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        ServeEngine(tm, tp, slots=1, max_len=16)
+    with pytest.raises(RuntimeError):
+        executor.resolve_device("cuda")
+    assert executor.resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("opt", [dict(temperature=0.7), dict(chunk_tokens=8),
+                                 dict(prefix_sharing=True),
+                                 dict(spec_decode="ngram"), dict(mesh=2),
+                                 dict(telemetry=object()),
+                                 dict(fault_model=object())])
+def test_unported_options_raise(setup, opt):
+    _, _, tm, tp, _ = setup
+    with pytest.raises(NotImplementedError):
+        ServeEngine(tm, tp, slots=1, max_len=16, device="cpu", **opt)
+
+
+def test_cache_stats_and_prompt_too_long(setup):
+    _, _, tm, tp, _ = setup
+    eng = ServeEngine(tm, tp, slots=2, max_len=32, dtype=torch.float32,
+                      device="cpu", cache_kind="paged", block_size=8)
+    big = Request(uid=0, prompt=np.arange(1, 31, dtype=np.int32),
+                  max_new_tokens=8)
+    ok = Request(uid=1, prompt=np.arange(1, 6, dtype=np.int32),
+                 max_new_tokens=3)
+    res = eng.run([big, ok])
+    assert big.error == "prompt_too_long" and eng.stats.rejections == 1
+    assert len(res[1]) == 3
+    st = eng.cache_stats()
+    assert st["kind"] == "paged" and st["blocks_used"] == 0
+    # layers x {k, v} x blocks x block_size x kv heads x head_dim x f32
+    assert st["bytes_total"] == 2 * 2 * 8 * 8 * 2 * 16 * 4
+    eng.pool.check_invariants()
+
+
+def test_config_dataclass_has_no_pallas_switch():
+    fields = {f.name for f in dataclasses.fields(ABFTConfig)}
+    assert "use_pallas" not in fields
+    assert {"policy", "hardware", "blocks", "c_factor",
+            "flash_attention"} <= fields
