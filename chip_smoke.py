@@ -3,13 +3,16 @@
     python3 chip_smoke.py            # every phase, one card
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version at the shapes the serving
-path gives it, serves full-width llama3.2-1b (random weights from a seed)
-through ``repro_torch.serve.engine.ServeEngine`` on the dense and the
-paged cache, with a fault-injected run and a ``global``-scheme run, and
-times the kernels at the decode step's shapes.  Each phase prints one
-JSON line; any failure exits non-zero.  The last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+holds each against its plain PyTorch version at the shapes its path gives
+it, and drives full-width llama3.2-1b (random weights from a seed) three
+ways: served through ``repro_torch.serve.engine.ServeEngine`` on the dense
+and the paged cache (with a fault-injected run and a ``global``-scheme
+run), a full-sequence ``Model.forward`` with the flash attention kernel on
+and off, and four f32 training steps through
+``repro_torch.train.trainer.Trainer``.  Then it times the kernels at their
+paths' shapes.  Each phase prints one JSON line; any failure exits
+non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -19,20 +22,27 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "k1", "k3", "engine", "timing")
+PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
+          "timing")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
+PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
 # the llama3.2-1b GEMMs (K, N) and token counts K1 is checked at
 K1_SHAPES = {"q": (2048, 2048), "kv": (2048, 512), "up": (2048, 8192),
              "down": (8192, 2048), "head": (2048, 128256)}
 K1_M = (4, 8, 40, 512)
 ENGINE_ARCH = "llama3.2-1b"
+# K2 at llama3.2-1b's attention shapes: (B, H, KV, D)
+K2_HEADS = (2, 32, 8, 64)
+FWD_B, FWD_L = 2, 1024          # the forward phase's batch
+TRAIN_B, TRAIN_L, TRAIN_STEPS = 4, 128, 4
 
 
 def emit(phase: str, **kw) -> None:
@@ -234,6 +244,381 @@ def k3_checks(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ K2
+
+def _k2_inputs(gen, dev, B, L, H, KV, D, dtype, Lk=None):
+    Lk = L if Lk is None else Lk
+    q = torch.randn(B, L, H, D, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Lk, KV, D, generator=gen, device=dev).to(dtype)
+    v = (3 * torch.randn(B, Lk, KV, D, generator=gen, device=dev)).to(dtype)
+    return q, k, v
+
+
+def _k2_blocks(L, Lk=None, b=128):
+    Lk = L if Lk is None else Lk
+    bq, bk = min(b, -(-L // 8) * 8), min(b, -(-Lk // 8) * 8)
+    return dict(bq=bq, bk=bk, lq_pad=-(-L // bq) * bq, lk_pad=-(-Lk // bk) * bk)
+
+
+def k2_checks(dev) -> dict:
+    """K2 against its plain version at llama3.2-1b's heads (B=2, H=32,
+    KV=8, D=64): causal at L in {1, 7, 128, 333, 1024} and non-causal at
+    L=256, bf16 and f32; non-causal padding raises; clean inputs raise no
+    flag; a fault in the second q block is flagged at its row; a repeat is
+    bit-for-bit.
+
+    Tolerances: o in f32 within 1e-5 x max|o| (softmax sums in another
+    order); o in bf16 element by element within 2^-7 |o_ref| + 1e-5 x
+    max|o| (that f32 difference, then one bf16 rounding of either side,
+    at most one ulp of the element: a late row, where |o| is far below
+    the first rows' max, is held to its own size); the two bounds within 1e-4 relative (magnitude sums, order only); the two
+    residuals are rounding noise: each side's stays under its threshold.
+    A faulted PV residual (1e4) agrees within 1e-4 relative."""
+    from repro_torch.core.checksums import ATOL, tolerance_scale
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.kernels.flash_attention import (
+        f32_bits,
+        flash_attention_kernel,
+        flash_attention_ref,
+    )
+    from repro_torch.kernels.flash_ops import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    B, H, KV, D = K2_HEADS
+    worst = {}
+    worst_share = 0.0       # the bf16 elementwise error / its tolerance
+    cases = 0
+
+    def tau(bnd, depth):
+        return ATOL + tolerance_scale(depth) * bnd
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for L, causal in ((1, True), (7, True), (128, True), (333, True),
+                          (1024, True), (256, False)):
+            q, k, v = _k2_inputs(gen, dev, B, L, H, KV, D, dtype)
+            kw = dict(causal=causal, **_k2_blocks(L))
+            got = flash_attention_kernel(q, k, v, **kw)
+            ref = flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            o_ref = ref[0].float()
+            scale = o_ref.abs().max().item()
+            diff = (got[0].float() - o_ref).abs()
+            err = diff.max().item()
+            if dtype == torch.bfloat16:
+                share = (diff / (2 ** -7 * o_ref.abs() + 1e-5 * scale)
+                         ).max().item()
+                worst_share = max(worst_share, share)
+                need(share <= 1, f"K2 o L={L} causal={causal} bf16: an "
+                     f"element off by {share} x its tolerance")
+            else:
+                need(err <= 1e-5 * scale, f"K2 o L={L} causal={causal} "
+                     f"f32: err {err} > {1e-5 * scale}")
+            for gi, ri, nm in ((got[2], ref[2], "bnd_s"),
+                               (got[4], ref[4], "bnd_pv")):
+                rel = ((gi - ri).abs() / ri.abs().clamp_min(1e-30)).max()
+                need(rel.item() <= 1e-4, f"K2 {nm} L={L} {dtype}: rel "
+                     f"{rel.item()}")
+            for side in (got, ref):
+                need(bool((side[1] <= tau(side[2], D)).all())
+                     and bool((side[3] <= tau(side[4], L)).all()),
+                     f"K2 clean residual over threshold L={L} {dtype}")
+            _, chk = flash_attention(q, k, v, causal=causal)
+            need(not bool(chk.flag), f"K2 false flag L={L} {dtype}")
+            key = f"{str(dtype)[6:]}"
+            worst[key] = max(worst.get(key, 0.0), err)
+            cases += 1
+            if L == 1024:
+                again = flash_attention_kernel(q, k, v, **kw)
+                need(all(torch.equal(a, b) for a, b in zip(got, again)),
+                     f"K2 repeat not bit-for-bit {dtype}")
+                row, col, delta = 200, 5, 1e4        # q block 1 of 8
+                _, chk = flash_attention(
+                    q, k, v, causal=True,
+                    fault=FaultSpec.value(row, col, delta))
+                need(bool(chk.flag), f"K2 missed fault {dtype}")
+                fi = (row // 128, 0, row % 128, col, 1, f32_bits(delta))
+                gf = flash_attention_kernel(q, k, v, fi, **kw)
+                rf = flash_attention_ref(q, k, v, fi, **kw)
+                for who, rp in (("kernel", gf[3]), ("plain", rf[3])):
+                    at = rp.reshape(B, H, -1).argmax(-1)
+                    need(bool((at == row).all()),
+                         f"K2 {who} fault not at row {row}")
+                rel = ((gf[3][:, :, 1, row % 128] - rf[3][:, :, 1, row % 128])
+                       .abs() / rf[3][:, :, 1, row % 128]).max().item()
+                need(rel <= 1e-4, f"K2 faulted residual rel {rel}")
+    q, k, v = _k2_inputs(gen, dev, B, 300, H, KV, D, torch.bfloat16)
+    try:
+        flash_attention(q, k, v, causal=False)
+    except ValueError:
+        pass
+    else:
+        fail("K2 non-causal padding did not raise")
+    return {"cases": cases, "max_abs_err": worst,
+            "bf16_worst_err_over_tolerance": worst_share, "heads": K2_HEADS}
+
+
+def k2_timing(dev) -> dict:
+    """K2 at the forward phase's shapes (B=2, L=1024, llama heads, bf16),
+    one launch: kernel, plain version, ``scaled_dot_product_attention``
+    (causal, GQA) and the bound.  Bytes: q, k, v and o once, and the four
+    (B, H, L) check vectors; operations at the bf16 tensor-core rate: S
+    over every (query, key) pair, since the score check is taken before
+    the causal mask (2 B H L^2 D), and PV over the pairs the mask admits
+    (2 B H D L(L+1)/2), as p is exactly 0 on the others."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_kernel,
+        flash_attention_ref,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, H, KV, D = K2_HEADS
+    L = FWD_L
+    q, k, v = _k2_inputs(gen, dev, B, L, H, KV, D, torch.bfloat16)
+    kw = dict(causal=True, **_k2_blocks(L))
+    o = flash_attention_kernel(q, k, v, **kw)[0]
+    op = flash_attention_ref(q, k, v, **kw)[0]
+    err = (o.float() - op.float()).abs().max().item()
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def lib():
+        torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    byts = 2 * (2 * B * L * H * D + 2 * B * L * KV * D) + 4 * 4 * B * H * L
+    flops = 2.0 * B * H * L * L * D + 2.0 * B * H * D * L * (L + 1) / 2
+    t_b, t_f = byts / HBM_BW, flops / PEAK_BF16
+    rec = {"B": B, "L": L, "H": H, "KV": KV, "D": D,
+           "ms": timed_graph(lambda: flash_attention_kernel(q, k, v, **kw),
+                             iters=10),
+           "plain_ms": timed_graph(lambda: flash_attention_ref(q, k, v, **kw),
+                                   iters=3),
+           "library_ms": timed_graph(lib, iters=10),
+           "bound_ms": max(t_b, t_f) * 1e3,
+           "bound_by": "bytes" if t_b >= t_f else "operations",
+           "bytes": byts, "flops": flops, "max_abs_err": err}
+    emit("k2_timing", **rec)
+    return rec
+
+
+# ------------------------------------------------------------------ forward
+
+def forward_runs(dev) -> dict:
+    """Full-width llama3.2-1b in bf16 (seed 0): ``Model.forward`` at
+    B=2, L=1024 under ``IntensityGuidedPolicy`` on ``NVIDIA_H100_SXM``,
+    with the flash kernel (K2) and with the chunked path.  A fault on
+    layer 1's ``attn_out`` GEMM is flagged.  The flash run launches K2
+    once per layer.
+
+    Tolerance: the two bf16 paths round each layer's attention output
+    differently, and 16 layers of bf16 activations amplify that (2.5% of
+    max|logits| between the two on an H100).  So both are held against
+    the same weights run in f32 (chunked path): the flash path's error
+    may exceed the chunked path's own by at most 50%, and the two paths
+    differ by at most 2.5 times the chunked path's error."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import IntensityGuidedPolicy
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.kernels import abft_matmul, flash_attention
+    from repro_torch.models.layers import LayerCtx, ModelFault
+    from repro_torch.models.model import Model
+
+    K1, K2 = abft_matmul.KERNEL, flash_attention.FULL_KERNEL
+    cfg = get_config(ENGINE_ARCH)
+    model = Model(cfg)
+    params = model.init_params(0, dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, size=(FWD_B, FWD_L)).astype(np.int64)).to(dev)
+
+    def ctx(flash, fault=None):
+        return LayerCtx(abft=ABFTConfig.from_policy(
+            IntensityGuidedPolicy(), hardware=NVIDIA_H100_SXM,
+            flash_attention=flash), fault=fault)
+
+    def run(flash, fault=None):
+        with torch.no_grad():
+            return model.forward(params, {"tokens": tokens},
+                                 ctx(flash, fault), device=dev)
+
+    run(True)                                     # warm-up
+    torch.cuda.synchronize()
+    K1.launches = K2.launches = 0                 # counts of THIS run only
+    t = time.perf_counter()
+    flash = run(True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = {"abft_matmul": K1.launches, "flash_attention": K2.launches}
+    need(launches["flash_attention"] == cfg.n_layers,
+         f"forward launched K2 {launches['flash_attention']} times, "
+         f"expected {cfg.n_layers}")
+    need(launches["abft_matmul"] > 0, "forward launched no K1")
+    chunked = run(False)
+    torch.cuda.synchronize()
+    lf, lc = flash.logits, chunked.logits
+    need(lf.shape == (FWD_B, FWD_L, cfg.vocab_size)
+         and lf.dtype == torch.float32, f"logits {tuple(lf.shape)}")
+    need(bool(torch.isfinite(lf).all()), "non-finite logits")
+    need(not bool(flash.flag) and not bool(chunked.flag),
+         "clean forward raised a flag")
+    params32 = {"embed": params["embed"].float(),
+                "final_norm": {"w": params["final_norm"]["w"].float()},
+                "layers": [{g: {n: w.float() for n, w in sub.items()}
+                            for g, sub in lp.items()}
+                           for lp in params["layers"]]}
+    with torch.no_grad():
+        l32 = model.forward(params32, {"tokens": tokens}, ctx(False),
+                            device=dev).logits
+    del params32
+    scale = lc.abs().max().item()
+    err = (lf - lc).abs().max().item()
+    err_c = (lc - l32).abs().max().item()
+    err_f = (lf - l32).abs().max().item()
+    need(err_f <= 1.5 * err_c, f"flash vs f32 err {err_f} > 1.5 x the "
+         f"chunked path's {err_c}")
+    need(err <= 2.5 * err_c, f"flash vs chunked logits: err {err} > 2.5 x "
+         f"{err_c} (chunked vs f32)")
+    agree = (lf.argmax(-1) == lc.argmax(-1)).float().mean().item()
+    faulted = run(True, ModelFault.at(1, "attn_out",
+                                      FaultSpec.value(0, 2, 1e4)))
+    need(bool(faulted.flag), "attn_out fault not flagged")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run(True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    ms = 1e3 * float(np.median(times))
+    rec = dict(B=FWD_B, L=FWD_L, dtype="bfloat16", launches=launches,
+               first_ms=1e3 * dt, ms=ms,
+               tokens_per_s=FWD_B * FWD_L / (ms / 1e3),
+               logits_max_abs_diff_flash_vs_chunked=err,
+               logits_max_abs_err_chunked_vs_f32=err_c,
+               logits_max_abs_err_flash_vs_f32=err_f,
+               logits_scale=scale, argmax_agreement=agree,
+               fault_flagged=True)
+    emit("forward", **rec)
+    del params, flash, chunked, faulted, l32
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ------------------------------------------------------------------ train
+
+def train_runs(dev, workdir: str) -> dict:
+    """Full-width llama3.2-1b in f32 (seed 0) through ``Trainer``:
+    ``SyntheticLM`` batches of 4 x 128 tokens, four AdamW steps at lr
+    3e-4 under ``--abft auto`` (every forward GEMM on K1).  The loss is
+    finite and falls; a ``mlp_down`` fault raises the step's flag; two
+    clean steps from one state give bit-identical params.  K1 launches
+    per step count the forward twice (the per-layer recompute).
+
+    One clean step from the trained state is held against the same step
+    under ``--abft off`` (plain ``torch.matmul`` on the card), which
+    checks K1's forward and the autograd backward at full width.  Both
+    are f32 with sums in another order, so: loss within 1e-5 relative;
+    ``grad_norm`` within 1e-4 relative (the backward through 16 layers
+    carries the forward's rounding); each leaf's update within 1e-3 of
+    its norm (AdamW divides by sqrt(v), which magnifies the f32 noise of
+    the smallest gradients; a wrong gradient moves a leaf by O(1))."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import abft_matmul, flash_attention
+    from repro_torch.launch.train import abft_config
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.models.model import Model
+    from repro_torch.train import OptConfig, TrainConfig, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    K1, K2 = abft_matmul.KERNEL, flash_attention.FULL_KERNEL
+    cfg = get_config(ENGINE_ARCH)
+    model = Model(cfg)
+    params = model.init_params(0, dtype=torch.float32, device=dev)
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4))
+    dcfg = DataConfig(global_batch=TRAIN_B, seq_len=TRAIN_L,
+                      vocab_size=cfg.vocab_size)
+    trainer = Trainer(model, params, tcfg, dcfg,
+                      TrainerConfig(steps=TRAIN_STEPS, ckpt_every=10 ** 9,
+                                    ckpt_dir=workdir),
+                      abft=abft_config("auto"), device=dev)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K1.launches = K2.launches = 0                 # counts of THIS run only
+    t = time.perf_counter()
+    hist = trainer.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = {"abft_matmul": K1.launches, "flash_attention": K2.launches}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    need(len(hist) == TRAIN_STEPS and all(np.isfinite(losses)),
+         f"train losses {losses}")
+    need(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    need(launches["abft_matmul"] > 0, "training launched no K1")
+    need(not trainer.events, f"clean training raised events "
+         f"{trainer.events}")
+    step_ms = [1e3 * h["time_s"] for h in hist]
+
+    step = make_train_step(model, abft_config("auto"), tcfg, device=dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in trainer.data.batch(TRAIN_STEPS).items()}
+    K1.launches = 0
+    _, _, met = step(trainer.params, trainer.opt_state, batch,
+                     fault=ModelFault.at(0, "mlp_down",
+                                         FaultSpec.value(0, 1, 1e5)))
+    need(bool(met["abft_flag"]), "faulted train step not flagged")
+    per_step = K1.launches
+    del met
+    pa, _, ma = step(trainer.params, trainer.opt_state, batch)
+    pa = tree_leaves(pa)
+    need(not bool(ma["abft_flag"]), "clean train step flagged")
+    pb, _, _ = step(trainer.params, trainer.opt_state, batch)
+    same = all(torch.equal(a, b) for a, b in zip(pa, tree_leaves(pb)))
+    need(same, "two clean steps from one state differ")
+    del pb
+    po, _, mo = make_train_step(model, abft_config("off"), tcfg,
+                                device=dev)(trainer.params, trainer.opt_state,
+                                            batch)
+    vs_off = {"loss_rel": abs(ma["loss"].item() - mo["loss"].item())
+              / abs(mo["loss"].item()),
+              "grad_norm_rel": abs(ma["grad_norm"].item()
+                                   - mo["grad_norm"].item())
+              / mo["grad_norm"].item(),
+              "update_rel_worst_leaf": 0.0,
+              "update_max_abs_rel_worst_leaf": 0.0}
+    for p0, a, o in zip(tree_leaves(trainer.params), pa, tree_leaves(po)):
+        da, do = a - p0, o - p0
+        vs_off["update_rel_worst_leaf"] = max(
+            vs_off["update_rel_worst_leaf"],
+            ((da - do).norm() / do.norm().clamp_min(1e-30)).item())
+        vs_off["update_max_abs_rel_worst_leaf"] = max(
+            vs_off["update_max_abs_rel_worst_leaf"],
+            ((da - do).abs().max() / do.abs().max().clamp_min(1e-30))
+            .item())
+    del po, pa
+    need(vs_off["loss_rel"] <= 1e-5 and vs_off["grad_norm_rel"] <= 1e-4
+         and vs_off["update_rel_worst_leaf"] <= 1e-3,
+         f"train step on K1 differs from the plain step: {vs_off}")
+    rec = dict(B=TRAIN_B, L=TRAIN_L, steps=TRAIN_STEPS, losses=losses,
+               step_ms=step_ms, step_ms_median=float(np.median(step_ms[1:])),
+               seconds=dt,
+               tokens_per_s=TRAIN_B * TRAIN_L * TRAIN_STEPS / dt,
+               peak_memory_gb=peak / 1e9, launches=launches,
+               k1_launches_per_step=per_step,
+               forward_gemms=7 * cfg.n_layers + 1,
+               faulted_step_flagged=True, clean_steps_bit_identical=True,
+               step_vs_abft_off=vs_off)
+    emit("train", **rec)
+    out = {"rec": rec, "params": trainer.params}
+    del trainer
+    return out
+
+
 # ------------------------------------------------------------------ engine
 
 def engine_runs(dev) -> dict:
@@ -411,14 +796,16 @@ def _gemm_bound(m, k, n, in_bytes, out_bytes, gm_gn_rows):
     byts = m * k * in_bytes + k * n * in_bytes + m * n * out_bytes \
         + 2 * 4 * gm_gn_rows
     flops = 2.0 * m * k * n
-    t_b, t_f = byts / HBM_BW, flops / PEAK_BF16
+    peak = PEAK_BF16 if in_bytes == 2 else PEAK_F32
+    t_b, t_f = byts / HBM_BW, flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
 def k1_timing(dev, params, m: int) -> dict:
-    """K1 over one step's GEMMs at M=m, using the engine's own weights
-    (distinct per layer, so weights come from HBM as in a real step):
-    kernel, plain version, torch.matmul, and the bound.  ``ms`` etc. are
+    """K1 over one step's GEMMs at M=m, using a run's own weights
+    (distinct per layer, so weights come from HBM as in a real step), in
+    their dtype: kernel, plain version, torch.matmul, and the bound (bf16
+    at the tensor-core rate, f32 at the CUDA-core rate).  ``ms`` etc. are
     device times (CUDA-graph replay); ``ms_eager`` includes the host
     launch overhead of the eager loop."""
     from repro_torch.kernels.abft_matmul import abft_matmul_kernel
@@ -438,10 +825,11 @@ def k1_timing(dev, params, m: int) -> dict:
     tot = {"ms": 0.0, "ms_eager": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "bound_ms": 0.0, "gemms": 0}
     bound_by = set()
+    dtype = params["embed"].dtype
     for name, ws in groups.items():
         k, n = ws[0].shape
-        out_dtype = torch.float32 if name == "head" else torch.bfloat16
-        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        out_dtype = torch.float32 if name == "head" else dtype
+        x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
         bm, bk, bn = (min(b, -(-d // 8) * 8) for b, d in
                       ((256, m), (512, k), (256, n)))
         kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
@@ -459,7 +847,8 @@ def k1_timing(dev, params, m: int) -> dict:
                 torch.matmul(x, w)
 
         rows = -(-m // bm) * -(-n // bn) * bm
-        b_ms, by = _gemm_bound(m, k, n, 2, out_dtype.itemsize, rows)
+        b_ms, by = _gemm_bound(m, k, n, dtype.itemsize, out_dtype.itemsize,
+                               rows)
         rec = {"gemms": len(ws), "m": m, "k": k, "n": n,
                "ms": timed_graph(kern, iters=5),
                "ms_eager": timed(kern, iters=5),
@@ -474,7 +863,8 @@ def k1_timing(dev, params, m: int) -> dict:
         tot["gemms"] += len(ws)
     tot["bound_by"] = "bytes" if bound_by == {"bytes"} else (
         "operations" if bound_by == {"operations"} else "mixed")
-    emit("k1_timing", m=m, per_shape=per, step_total=tot)
+    emit("k1_timing", m=m, dtype=str(dtype)[6:], per_shape=per,
+         step_total=tot)
     return tot
 
 
@@ -564,6 +954,8 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(PHASES))
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    if "timing" in phases and not {"engine", "forward"} <= phases:
+        fail("the timing phase needs the engine and forward phases")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -594,35 +986,56 @@ def main(argv=None) -> int:
                 for n in library.SOURCES})
     if "k1" in phases:
         emit("k1_check", **k1_checks(dev))
+    if "k2" in phases:
+        emit("k2_check", **k2_checks(dev))
     if "k3" in phases:
         emit("k3_check", **k3_checks(dev))
     kernels = None
+    eng_out = fwd = None
     if "engine" in phases:
         eng_out = engine_runs(dev)
         emit("decode_profile", **decode_profile(dev, eng_out))
-        if "timing" in phases:
-            launches = eng_out["dense"]["launches"]
-            t1 = k1_timing(dev, eng_out["params"], 4)
-            k1_timing(dev, eng_out["params"], 512)
-            t3 = k3_timing(dev, eng_out["engine"], eng_out["prompts"])
-            kernels = [
-                {"name": "abft_matmul", "route": "cuda",
-                 "source": abft_matmul.KERNEL.source,
-                 "replaces": "src/repro/kernels/abft_matmul.py:188",
-                 "launches": launches["abft_matmul"],
-                 "max_abs_err": k1_max_err(dev, eng_out["params"]),
-                 "ms": t1["ms"], "plain_ms": t1["plain_ms"],
-                 "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
-                 "library_ms": t1["library_ms"]},
-                {"name": "flash_decode", "route": "cuda",
-                 "source": flash_attention.KERNEL.source,
-                 "replaces": "src/repro/kernels/flash_attention.py:267",
-                 "launches": launches["flash_decode"],
-                 "max_abs_err": t3["max_abs_err"],
-                 "ms": t3["ms"], "plain_ms": t3["plain_ms"],
-                 "bound_ms": t3["bound_ms"], "bound_by": t3["bound_by"],
-                 "library_ms": t3["library_ms"]},
-            ]
+    if "forward" in phases:
+        fwd = forward_runs(dev)
+    train_params = None
+    if "train" in phases:
+        with tempfile.TemporaryDirectory() as workdir:
+            tr = train_runs(dev, workdir)
+        train_params = tr["params"]
+    if "timing" in phases:
+        launches = eng_out["dense"]["launches"]
+        t1 = k1_timing(dev, eng_out["params"], 4)
+        k1_timing(dev, eng_out["params"], 512)
+        if train_params is not None:
+            k1_timing(dev, train_params, TRAIN_B * TRAIN_L)
+        t3 = k3_timing(dev, eng_out["engine"], eng_out["prompts"])
+        t2 = k2_timing(dev)
+        kernels = [
+            {"name": "abft_matmul", "route": "cuda",
+             "source": abft_matmul.KERNEL.source,
+             "replaces": "src/repro/kernels/abft_matmul.py:188",
+             "launches": launches["abft_matmul"],
+             "max_abs_err": k1_max_err(dev, eng_out["params"]),
+             "ms": t1["ms"], "plain_ms": t1["plain_ms"],
+             "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
+             "library_ms": t1["library_ms"]},
+            {"name": "flash_attention", "route": "cuda",
+             "source": flash_attention.FULL_KERNEL.source,
+             "replaces": "src/repro/kernels/flash_attention.py:343",
+             "launches": fwd["launches"]["flash_attention"],
+             "max_abs_err": t2["max_abs_err"],
+             "ms": t2["ms"], "plain_ms": t2["plain_ms"],
+             "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
+             "library_ms": t2["library_ms"]},
+            {"name": "flash_decode", "route": "cuda",
+             "source": flash_attention.KERNEL.source,
+             "replaces": "src/repro/kernels/flash_attention.py:267",
+             "launches": launches["flash_decode"],
+             "max_abs_err": t3["max_abs_err"],
+             "ms": t3["ms"], "plain_ms": t3["plain_ms"],
+             "bound_ms": t3["bound_ms"], "bound_by": t3["bound_by"],
+             "library_ms": t3["library_ms"]},
+        ]
     for line in smi:
         print(line)
     if kernels is not None:

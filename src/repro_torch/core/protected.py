@@ -50,8 +50,8 @@ class ABFTConfig:
     hardware: HardwareSpec = DEFAULT
     blocks: BlockShape = BlockShape()
     c_factor: float = 16.0
-    # fused-ABFT flash decode (K3) for decode attention; plain attention
-    # outside any kernel otherwise
+    # fused-ABFT flash attention: K2 for the full-sequence forward, K3 for
+    # decode attention; plain attention outside any kernel otherwise
     flash_attention: bool = False
     policy: ProtectionPolicy | None = None
 
@@ -95,9 +95,21 @@ def protected_matmul(x, w, cfg: ABFTConfig = ABFTConfig(), *, wsums=None,
 # ------------------------------------------------------------- executors
 
 def _plain_dot(x, w, out_dtype, fault):
-    # f32 accumulation; the product is rounded to the operand dtype, then
-    # cast to the output dtype
-    y = torch.matmul(x, w).to(out_dtype)
+    """``x @ w`` with f32 accumulation, cast once to ``out_dtype``.  A
+    low-precision product widened for an f32 output (the bf16 model's
+    tied head) returns the f32 accumulator itself, as the reference's
+    ``preferred_element_type=f32`` does: on the card through cuBLAS's
+    ``mm(..., out_dtype=f32)``, on the CPU (which has no such kernel) as
+    an f32 product of the widened operands."""
+    if out_dtype == F32 and x.dtype != F32:
+        x2 = x.reshape(-1, x.shape[-1])
+        if x2.is_cuda:
+            y = torch.mm(x2, w, out_dtype=F32)
+        else:
+            y = x2.float() @ w.float()
+        y = y.reshape(*x.shape[:-1], w.shape[-1])
+    else:
+        y = torch.matmul(x, w).to(out_dtype)
     if fault is not None:
         y = inject_output_fault(y, fault)
     return y
@@ -114,17 +126,8 @@ def _exec_global(x, w, cfg, *, wsums, out_dtype, fault):
                  checksums.weight_abs_checksum(w))
     x2 = x.reshape(-1, x.shape[-1])
     y2 = y.reshape(-1, y.shape[-1])
-    check = checksums.global_row_check(x2, wsums[0], wsums[1], y2,
-                                       c_factor=cfg.c_factor)
-    if x.dtype != F32 and y.dtype == F32:
-        # a low-precision product widened for the output (the bf16 model's
-        # f32 head) carries the operand dtype's rounding: absorb it like
-        # the output-quantization term
-        tau = check.threshold + 0.5 * checksums.eps_of(x.dtype) * \
-            y2.abs().sum(dim=-1)
-        check = CheckResult(flag=checksums.flag_from(check.residual, tau),
-                            residual=check.residual, threshold=tau)
-    return y, check
+    return y, checksums.global_row_check(x2, wsums[0], wsums[1], y2,
+                                         c_factor=cfg.c_factor)
 
 
 def _block_executor(mode: str):

@@ -1,12 +1,20 @@
-"""K3: fused-ABFT paged flash decode, the CUDA kernel
-``csrc/flash_decode.cu``, and its plain PyTorch version.
+"""K2 and K3: fused-ABFT flash attention over a full sequence
+(``csrc/flash_attention.cu``) and paged flash decode
+(``csrc/flash_decode.cu``), the CUDA kernels and their plain PyTorch
+versions.
 
-Replaces the TPU kernel ``repro.kernels.flash_attention.
-flash_decode_paged_kernel`` (and its dense form ``flash_decode_kernel``,
-the same body through an identity block table).  The flash attention
-kernel for full sequences (``flash_attention_kernel``, K2) is not on the
-serving path and is not ported yet.
+K2 replaces the TPU kernel ``repro.kernels.flash_attention.
+flash_attention_kernel`` (body ``_kernel``): causal or non-causal
+attention with the two fused checks and the ``(6,)`` delta fault on the
+output accumulator.  q (B, Lq, H, D) and k/v (B, Lk, KV, D[v]) are read in
+place through their strides (query head h on kv head h // G); the padded
+lengths ``Lq_pad``/``Lk_pad`` (block multiples) are what the reference
+pads to, and rows/keys past the true lengths count as zeros.  Returns
+(o (B, Lq, H, Dv), res_s, bnd_s, res_pv, bnd_pv), the check arrays of
+shape (B, H, gq, bq) as the reference's vmapped kernel returns them.
 
+K3 replaces ``flash_decode_paged_kernel`` (and its dense form
+``flash_decode_kernel``, the same body through an identity block table).
 Shapes follow the reference's wrappers: q (B, 1, H, D) with heads stored
 kv-major (kv, group); a dense cache (B, S, KV, D) or paged pools
 (NB, BS, KV, D) with a (B, W) int32 block table; lengths (B,) int32.
@@ -24,7 +32,117 @@ F32 = torch.float32
 NEG_INF = -1e30
 KERNEL = library.Kernel("flash_decode",
                         "src/repro_torch/kernels/csrc/flash_decode.cu")
+FULL_KERNEL = library.Kernel(
+    "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128       # K2 keeps a 4 x 8 register tile over <= 128 cols
+MAX_BK = 128
+
+
+def f32_bits(x: float) -> int:
+    """The int32 whose bits are the f32 ``x`` (the reference's fault
+    vector carries the delta so)."""
+    return int(torch.tensor(x, dtype=F32).view(torch.int32).item())
+
+
+def flash_attention_kernel(q, k, v, fault=(0, 0, 0, 0, 0, 0), *, bq: int,
+                           bk: int, causal: bool, lq_pad: int, lk_pad: int,
+                           scale: float | None = None):
+    """Launch K2.  ``fault`` is the reference's (6,) int vector
+    [q_block, 0, row, col, enabled, delta_bits]; ``bq``/``bk`` are the
+    logical blocks and ``lq_pad``/``lk_pad`` their multiples that the
+    reference pads q and k/v to."""
+    B, Lq, H, D = q.shape
+    Lk, KV, DV = k.shape[1], k.shape[2], v.shape[3]
+    if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
+        raise ValueError("flash_attention_kernel takes CUDA tensors on one "
+                         "device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share f32 or bf16")
+    if (k.dim() != 4 or v.dim() != 4 or k.shape[0] != B or v.shape[0] != B
+            or v.shape[1] != Lk or v.shape[2] != KV or k.shape[3] != D
+            or H % KV):
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}"
+                         f" v {tuple(v.shape)}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("q, k and v need a unit stride in the head dim")
+    if D > MAX_HEAD_DIM or DV > MAX_HEAD_DIM or not 0 < bk <= MAX_BK \
+            or bq <= 0 or lq_pad % bq or lk_pad % bk or lq_pad < Lq \
+            or lk_pad < Lk:
+        raise ValueError(f"unsupported blocks/dims: D={D} Dv={DV} bq={bq} "
+                         f"bk={bk} pads=({lq_pad}, {lk_pad})")
+    scale = scale if scale is not None else D ** -0.5
+    dev = q.device
+    out = torch.empty((B, Lq, H, DV), dtype=q.dtype, device=dev)
+    gq = lq_pad // bq
+    rs, bs, rp, bp = (torch.empty((B, H, gq, bq), dtype=F32, device=dev)
+                      for _ in range(4))
+    fq, _, frow, fcol, fen, fbits = (int(x) for x in fault)
+    P = library.ptr
+    err = library.library("flash_attention").flash_attention_launch(
+        P(q), P(k), P(v), P(out), P(rs), P(bs), P(rp), P(bp), B, H, KV, Lq,
+        Lk, lq_pad, lk_pad, D, DV, bq, bk, int(causal), q.stride(0),
+        q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), float(scale), fq, frow, fcol,
+        fen, fbits, _DTYPES[q.dtype], library.stream())
+    library.check(err, FULL_KERNEL.name)
+    FULL_KERNEL.launches += 1
+    return out, rs, bs, rp, bp
+
+
+def flash_attention_ref(q, k, v, fault=(0, 0, 0, 0, 0, 0), *, bq: int,
+                        bk: int, causal: bool, lq_pad: int, lk_pad: int,
+                        scale: float | None = None):
+    """Plain version of K2: the Pallas body's arithmetic on the zero-padded
+    operands, all (batch, head, q block) programs at once, one k block at
+    a time in order as the TPU grid walks them."""
+    B, Lq, H, D = q.shape
+    Lk, KV, DV = k.shape[1], k.shape[2], v.shape[3]
+    G = H // KV
+    scale = scale if scale is not None else D ** -0.5
+    gq, gk = lq_pad // bq, lk_pad // bk
+    dev = q.device
+    pad = torch.nn.functional.pad
+    qf = pad(q.to(F32), (0, 0, 0, 0, 0, lq_pad - Lq))
+    kf = pad(k.to(F32), (0, 0, 0, 0, 0, lk_pad - Lk))
+    vf = pad(v.to(F32), (0, 0, 0, 0, 0, lk_pad - Lk))
+    qf = qf.permute(0, 2, 1, 3).reshape(B, H, gq, bq, D)
+    kf = kf.repeat_interleave(G, dim=2).permute(0, 2, 1, 3)   # (B,H,Lk,D)
+    vf = vf.repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    m = torch.full((B, H, gq, bq), NEG_INF, dtype=F32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, H, gq, bq, DV), dtype=F32, device=dev)
+    chk, bndc, ress, bnds = (torch.zeros_like(m) for _ in range(4))
+    q_pos = torch.arange(lq_pad, device=dev).reshape(gq, bq, 1)
+    for j in range(gk):
+        kb = kf[:, :, j * bk:(j + 1) * bk]
+        vb = vf[:, :, j * bk:(j + 1) * bk]
+        s = torch.einsum("bhiqd,bhkd->bhiqk", qf, kb) * scale
+        k_sum, k_abs = kb.sum(2), kb.abs().sum(2)              # (B, H, D)
+        chk_s = torch.einsum("bhiqd,bhd->bhiq", qf, k_sum) * scale
+        bnd_s = torch.einsum("bhiqd,bhd->bhiq", qf.abs(), k_abs) * abs(scale)
+        ress = torch.maximum(ress, (chk_s - s.sum(-1)).abs())
+        bnds = torch.maximum(bnds, bnd_s)
+        if causal:
+            k_pos = j * bk + torch.arange(bk, device=dev)
+            s = torch.where(q_pos >= k_pos, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        m = m_new
+        acc = acc * corr[..., None] + torch.einsum("bhiqk,bhkv->bhiqv", p, vb)
+        chk = chk * corr + torch.einsum("bhiqk,bhk->bhiq", p, vb.sum(-1))
+        bndc = bndc * corr + torch.einsum("bhiqk,bhk->bhiq", p,
+                                          vb.abs().sum(-1))
+    fq, _, frow, fcol, fen, fbits = (int(x) for x in fault)
+    if fen == 1 and 0 <= fq < gq and 0 <= frow < bq and 0 <= fcol < DV:
+        delta = torch.tensor(fbits, dtype=torch.int32).view(F32).item()
+        acc[:, :, fq, frow, fcol] += delta
+    o = acc / l.clamp_min(1e-30)[..., None]
+    o = o.reshape(B, H, lq_pad, DV).permute(0, 2, 1, 3)[:, :Lq]
+    rp = (chk - acc.sum(-1)).abs()
+    return o.to(q.dtype), ress, bnds, rp, bndc
 
 
 def flash_decode_kernel(q, k_cache, v_cache, table, lengths, *, block: int,

@@ -1,15 +1,21 @@
-"""Wrappers for fused-ABFT decode attention (port of the decode half of
-``repro.kernels.flash_ops``).  CUDA tensors launch K3
-(``kernels/flash_attention.py``) or raise; CPU tensors take its plain
-version.  The dense cache is read in place: no kv-head repeat and no pad
-copy (the reference wrapper does both before its kernel)."""
+"""Wrappers for fused-ABFT attention (port of ``repro.kernels.flash_ops``):
+``flash_attention`` over a full sequence (K2) and ``flash_decode`` /
+``flash_decode_paged`` for decode (K3), all in ``kernels/flash_attention.py``.
+CUDA tensors launch the kernel or raise; CPU tensors take its plain
+version.  q/k/v and the dense cache are read in place: no kv-head repeat
+and no pad copy (the reference wrapper does both before its kernel).
+"""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.checksums import ATOL, CheckResult, flag_from, tolerance_scale
+from repro_torch.core.faults import FaultSpec
 from repro_torch.kernels.flash_attention import (
+    f32_bits,
+    flash_attention_kernel,
+    flash_attention_ref,
     flash_decode_kernel,
     flash_decode_ref,
 )
@@ -29,6 +35,36 @@ def _attn_check(rs, bs, rp, bp, d: int, s: int,
     residual = torch.stack([rs.max(), rp.max()])
     threshold = torch.stack([tau_s.min(), tau_pv.min()])
     return CheckResult(flag=flag, residual=residual, threshold=threshold)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
+                    bk: int = 128, fault: FaultSpec | None = None,
+                    c_factor: float = 16.0):
+    """Fused-ABFT attention.  q: (B, Lq, H, D); k/v: (B, Lk, KV, D[v]).
+    Returns (out (B, Lq, H, Dv), CheckResult) covering both attention
+    GEMMs (scores and PV).  ``fault`` adds its delta to the output
+    accumulator at (row, col) of every (batch, head), as the reference's
+    shared fault vector does.  No backward exists (the reference kernel has
+    none either): called while autograd records, it raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash attention has no backward (neither has the reference "
+            "kernel): train with flash_attention=False")
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    bq_eff = min(bq, _round_up(Lq, 8))
+    bk_eff = min(bk, _round_up(Lk, 8))
+    lq_pad, lk_pad = _round_up(Lq, bq_eff), _round_up(Lk, bk_eff)
+    if not causal and lk_pad != Lk:
+        raise ValueError("non-causal padding not supported; pad caller")
+    f = fault if fault is not None else FaultSpec.none()
+    fi = (f.row // bq_eff, 0, f.row % bq_eff, f.col, int(f.enabled),
+          f32_bits(f.delta))
+    run = flash_attention_kernel if (q.is_cuda or k.is_cuda) \
+        else flash_attention_ref
+    out, rs, bs, rp, bp = run(q, k, v, fi, bq=bq_eff, bk=bk_eff,
+                              causal=causal, lq_pad=lq_pad, lk_pad=lk_pad)
+    return out, _attn_check(rs, bs, rp, bp, D, Lk, c_factor)
 
 
 def _lengths(lengths, B: int, device) -> torch.Tensor:

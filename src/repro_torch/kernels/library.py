@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("abft_matmul", "flash_decode")
+SOURCES = ("abft_matmul", "flash_attention", "flash_decode")
 
 _LIBS: dict = {}
 
@@ -90,6 +90,10 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
         fn = lib.abft_matmul_launch
         fn.argtypes = [p] * 8 + [i, i, i, ll, ll, ll] + [i] * 9 + [i] * 6 \
             + [f, p]
+        fn.restype = i
+    elif name == "flash_attention":
+        fn = lib.flash_attention_launch
+        fn.argtypes = [p] * 8 + [i] * 12 + [ll] * 9 + [f] + [i] * 6 + [p]
         fn.restype = i
     else:
         fn = lib.flash_decode_launch

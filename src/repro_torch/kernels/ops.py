@@ -7,6 +7,12 @@ operand launches K1 (``kernels/abft_matmul.py``) or raises; CPU operands
 take its plain version (``kernels/ref.py``).  Nothing is padded here: the
 kernel masks ragged edges itself.
 
+``abft_matmul`` is differentiable (``_AbftMatmul``): the backward is the
+reference's XLA backward of its emulation (``repro/core/protected.py``),
+``dX = dY W^T`` and ``dW = X^T dY`` as plain ``torch.matmul`` products,
+unprotected — the reference declares ``protect_backward`` and never reads
+it, and no TPU kernel has a backward kernel.
+
 The threshold mirrors the reference kernel path
 (``repro/kernels/ops.py``): ``ATOL + tolerance_scale(K) * bnd``, without
 the output- and weight-quantization terms that the reference's
@@ -14,6 +20,8 @@ the output- and weight-quantization terms that the reference's
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core.checksums import ATOL, CheckResult, flag_from, tolerance_scale
 from repro_torch.core.faults import FaultSpec
@@ -28,6 +36,36 @@ def _round_up(x: int, mult: int) -> int:
 
 def _clamp_block(dim: int, block: int, align: int = 8) -> int:
     return min(block, _round_up(dim, align))
+
+
+class _AbftMatmul(torch.autograd.Function):
+    """K1 (CUDA operands) or its plain version (CPU operands) with the
+    reference's backward.  Residual and bound carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x2, w, fidx, delta, mode, bm, bk, bn, out_dtype):
+        run = abft_matmul_kernel if (x2.is_cuda or w.is_cuda) \
+            else abft_matmul_ref
+        y, res, bnd = run(x2, w, fidx, delta, mode=mode, bm=bm, bk=bk,
+                          bn=bn, out_dtype=out_dtype)
+        ctx.mark_non_differentiable(res, bnd)
+        ctx.save_for_backward(x2, w)
+        return y, res, bnd
+
+    @staticmethod
+    def backward(ctx, gy, _gres, _gbnd):
+        x2, w = ctx.saved_tensors
+        gx = gw = None
+        g = gy.to(w.dtype)
+        if ctx.needs_input_grad[0]:
+            gx = torch.matmul(g, w.t())
+        if ctx.needs_input_grad[1]:
+            # dW in W's own layout: for the tied head (W = embed.T, a
+            # transposed view) the product is formed as (dY^T X)^T, so the
+            # view's backward hands ``embed`` a contiguous gradient
+            gw = (torch.matmul(g.t(), x2).t() if w.stride(0) == 1
+                  and w.stride(1) != 1 else torch.matmul(x2.t(), g))
+        return gx, gw, None, None, None, None, None, None, None
 
 
 def abft_matmul(x, w, *, mode: str = "1s", blocks: BlockShape = BlockShape(),
@@ -50,10 +88,8 @@ def abft_matmul(x, w, *, mode: str = "1s", blocks: BlockShape = BlockShape(),
     f = fault if fault is not None else FaultSpec.none()
     fidx = (f.row // bm, f.col // bn, f.row % bm, f.col % bn,
             int(f.enabled), f.bit)
-    run = abft_matmul_kernel if (x2.is_cuda or w.is_cuda) \
-        else abft_matmul_ref
-    y, res, bnd = run(x2, w, fidx, f.delta, mode=mode, bm=bm, bk=bk, bn=bn,
-                      out_dtype=out_dtype)
+    y, res, bnd = _AbftMatmul.apply(x2, w, fidx, f.delta, mode, bm, bk, bn,
+                                    out_dtype)
     # the reference takes the depth of its zero-padded operand (a multiple
     # of bk) for the threshold; kept so both packages flag alike
     tau = ATOL + tolerance_scale(_round_up(k0, bk), c=c_factor) * bnd

@@ -1,8 +1,10 @@
 """GQA attention sublayer (port of the GQA half of
 ``repro.models.attention``).  Projections run through the ABFT-protected
-``dense``; prefill attention is the plain chunked path, decode attention
-is the fused-ABFT flash decode kernel (K3) when
-``ABFTConfig.flash_attention`` is set, plain attention otherwise.
+``dense``.  With ``ABFTConfig.flash_attention`` set, full-sequence
+attention (``gqa_forward``) runs the fused-ABFT flash attention kernel
+(K2) and decode attention the fused-ABFT flash decode kernel (K3); plain
+attention outside any kernel otherwise.  Serving prefill attention is the
+plain chunked path, as in the reference.
 
 KV caches are updated IN PLACE (the reference returns new immutable
 caches).  The serving engine's detect->retry loop stays sound because a
@@ -46,6 +48,29 @@ def _qkv(x, p, cfg: ModelConfig, ctx: LayerCtx, positions):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return q, k, v, or_flags(f1, f2, f3)
+
+
+def _attend_full(q, k, v, ctx: LayerCtx, causal: bool):
+    """Full-sequence attention core: the fused-ABFT flash kernel (K2) when
+    the config enables it, else the plain chunked path."""
+    if ctx.abft.flash_attention:
+        from repro_torch.kernels.flash_ops import flash_attention
+
+        out, chk = flash_attention(q, k, v, causal=causal)
+        return out, chk.flag
+    return (chunked_attention(q, k, v, causal=causal),
+            torch.zeros((), dtype=torch.bool, device=q.device))
+
+
+def gqa_forward(x, p, cfg: ModelConfig, ctx: LayerCtx, positions,
+                causal: bool = True):
+    """Full-sequence attention (training / scoring).  x: (B, L, D)."""
+    B, L, _ = x.shape
+    q, k, v, flag = _qkv(x, p, cfg, ctx, positions)
+    out, f_attn = _attend_full(q, k, v, ctx, causal)
+    out, f = dense(out.reshape(B, L, -1), p["wo"], ctx, "attn_out",
+                   tag="attn.o")
+    return out, or_flags(flag, f_attn, f)
 
 
 def _row_scatter(cache_leaf, new, pos) -> None:

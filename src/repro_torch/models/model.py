@@ -9,8 +9,11 @@ tree (converted to numpy) into the port's layout.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -38,8 +41,8 @@ def layer_tags(cfg: ModelConfig) -> list:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense GQA decoders with SwiGLU MLPs, RMSNorm and
-    full rotary embeddings (llama3.2-1b); anything else is not ported."""
+    """The port runs dense GQA decoders with SwiGLU MLPs, RMSNorm and full
+    rotary embeddings (llama3.2-1b); anything else is not ported."""
     ok = (cfg.attention == "gqa" and cfg.act == "silu"
           and cfg.norm == "rmsnorm" and not cfg.qk_norm
           and not cfg.qkv_bias and cfg.rope_pct == 1.0
@@ -49,7 +52,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if not ok:
         raise NotImplementedError(
             f"architecture {cfg.name!r} is not ported: the PyTorch port "
-            f"serves dense GQA decoders (llama3.2-1b)")
+            f"serves and trains dense GQA decoders (llama3.2-1b)")
 
 
 def _to_torch(a, device, dtype):
@@ -88,6 +91,13 @@ def params_from_reference(cfg: ModelConfig, np_params, *, device="cpu",
     if "lm_head" in np_params:
         out["lm_head"] = conv(np_params["lm_head"])
     return out
+
+
+class ForwardOut(NamedTuple):
+    logits: torch.Tensor
+    flag: torch.Tensor
+    aux_loss: torch.Tensor
+    mtp_logits: object = None
 
 
 class Model:
@@ -149,10 +159,14 @@ class Model:
     # -------------------------------------------------- layers
     def apply_layer(self, x, lp, ctx: LayerCtx, positions, mode: str, cache,
                     pos=None, slots=None, lengths=None, tables=None):
-        """One decoder layer (mode: prefill | decode).  Returns (x, flag)."""
+        """One decoder layer (mode: full | prefill | decode).  ``full`` is
+        causal attention over the whole sequence with no cache (the
+        training/scoring forward).  Returns (x, flag)."""
         cfg = self.cfg
         h = rms_norm(x, lp["mixer_norm"]["w"], cfg.norm_eps)
-        if mode == "prefill":
+        if mode == "full":
+            a, f = attn.gqa_forward(h, lp["mixer"], cfg, ctx, positions)
+        elif mode == "prefill":
             if tables is not None:
                 a, f = attn.gqa_paged_prefill(h, lp["mixer"], cfg, ctx,
                                               positions, cache, tables,
@@ -171,12 +185,24 @@ class Model:
         return x + o, or_flags(f, f2)
 
     def run_stack(self, x, params, ctx: LayerCtx, positions, mode: str,
-                  caches, pos=None, slots=None, lengths=None, tables=None):
+                  caches, pos=None, slots=None, lengths=None, tables=None,
+                  remat: bool = False):
+        """The layer loop.  ``caches`` is None in mode ``full``.  ``remat``
+        recomputes each layer in the backward pass instead of keeping its
+        activations (the reference's ``jax.checkpoint`` per layer); it
+        changes no number and applies only while autograd records."""
+        layers = params["layers"]
+        caches = caches if caches is not None else [None] * len(layers)
+        remat = remat and torch.is_grad_enabled()
         flags = []
-        for i, (lp, cache) in enumerate(zip(params["layers"], caches)):
-            x, f = self.apply_layer(x, lp, ctx.with_layer(i), positions,
-                                    mode, cache, pos=pos, slots=slots,
-                                    lengths=lengths, tables=tables)
+        for i, (lp, cache) in enumerate(zip(layers, caches)):
+            kw = dict(pos=pos, slots=slots, lengths=lengths, tables=tables)
+            args = (x, lp, ctx.with_layer(i), positions, mode, cache)
+            if remat:
+                x, f = checkpoint(self.apply_layer, *args, use_reentrant=False,
+                                  **kw)
+            else:
+                x, f = self.apply_layer(*args, **kw)
             flags.append(f)
         return x, torch.stack(flags).any()
 
@@ -184,6 +210,38 @@ class Model:
         w = (params["embed"].t().to(x.dtype) if self.cfg.tie_embeddings
              else params["lm_head"])
         return dense(x, w, ctx, "lm_head", out_dtype=F32)
+
+    # -------------------------------------------------- forward (train)
+    def forward(self, params, batch, ctx: LayerCtx,
+                device=None) -> ForwardOut:
+        """Full-sequence causal forward (training and scoring).  batch:
+        {"tokens": (B, L)}; returns ForwardOut with f32 logits (B, L, V)
+        and the OR of every GEMM's and attention's flag.  Runs on
+        ``device`` (CUDA unless the caller passes ``"cpu"``), where the
+        params must already live.  Encoder memory and vision inputs are not
+        ported."""
+        from repro_torch.serve.executor import resolve_device
+
+        dev = resolve_device(device)
+        if params["embed"].device.type != dev.type:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"forward runs on {dev}")
+        extra = set(batch) - {"tokens", "labels"}
+        if extra:
+            raise NotImplementedError(
+                f"batch inputs {sorted(extra)} (encoder memory / vision) "
+                f"are not ported")
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"]).to(dev).long()
+        B, L = tokens.shape
+        x = params["embed"][tokens]
+        positions = torch.arange(L, device=dev).expand(B, L)
+        x, flag = self.run_stack(x, params, ctx, positions, "full", None,
+                                 remat=True)
+        x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+        logits, f_head = self._head(params, x, ctx)
+        return ForwardOut(logits=logits, flag=or_flags(flag, f_head),
+                          aux_loss=torch.zeros((), dtype=F32, device=dev))
 
     # -------------------------------------------------- prefill / decode
     def prefill(self, params, tokens, cache, ctx: LayerCtx, slots=None,

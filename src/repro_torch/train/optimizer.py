@@ -1,0 +1,194 @@
+"""Optimizers (port of ``repro.train.optimizer``): AdamW (bf16-moment
+option), SGD-momentum, global-norm clipping and int8 gradient compression
+with error feedback.
+
+State is an ``AdamWState`` of tensor trees mirroring the params tree.
+Updates are functional, as in the reference: they return new tensors and
+leave params and state as they were, so a step whose ABFT flag was raised
+can be re-executed from the same state.
+
+Weight decay applies to leaves of two or more dims *in the reference's
+layout*, where the per-layer params are stacked along a leading repeats
+axis (``jax.lax.scan``): every leaf under ``params["layers"]`` counts one
+dim more, so the per-layer norm gains are decayed there and here, and
+only the top-level vectors (the final norm) are not.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.tree import (
+    tree_leaves,
+    tree_leaves_with_path,
+    tree_map,
+    tree_unflatten,
+)
+
+F32 = torch.float32
+_MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    moment_dtype: str = "float32"     # "bfloat16" for >=100B (memory)
+    compress_grads: bool = False      # int8 + error feedback
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor
+    mu: object
+    nu: object
+    err: object      # error-feedback residuals (0-d zeros when compression off)
+
+
+def _is_pair(x) -> bool:
+    return type(x) is tuple
+
+
+def _unzip(tree, n: int) -> list:
+    """A tree of n-tuples -> n trees."""
+    return [tree_map(lambda t, i=i: t[i], tree, is_leaf=_is_pair)
+            for i in range(n)]
+
+
+def decayed(params):
+    """A bool tree: which leaves take weight decay (see the module note)."""
+    return tree_unflatten(params, [
+        p.dim() + (1 if path[:1] == ("layers",) else 0) >= 2
+        for path, p in tree_leaves_with_path(params)])
+
+
+def init_opt_state(params, cfg: OptConfig) -> AdamWState:
+    mdt = _MOMENT_DTYPES[cfg.moment_dtype]
+    dev = tree_leaves(params)[0].device
+
+    def zeros(dtype):
+        return tree_map(lambda p: torch.zeros(p.shape, dtype=dtype,
+                                              device=p.device), params)
+
+    return AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=dev),
+        mu=zeros(mdt),
+        nu=zeros(mdt),
+        err=(zeros(torch.bfloat16) if cfg.compress_grads else tree_map(
+            lambda p: torch.zeros((), dtype=F32, device=p.device), params)),
+    )
+
+
+def global_norm(tree) -> torch.Tensor:
+    total = 0
+    for leaf in tree_leaves(tree):
+        total = total + torch.sum(leaf.to(F32) ** 2)
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return tree_map(lambda g: (g.to(F32) * scale).to(g.dtype), grads), norm
+
+
+# ------------------------------------------------------- gradient compression
+
+def compress_int8(g: torch.Tensor):
+    """Symmetric per-tensor int8 quantization.  Returns (q, scale)."""
+    gf = g.to(F32)
+    amax = torch.clamp(gf.abs().max(), min=1e-12)
+    scale = amax / 127.0
+    q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def decompress_int8(q, scale):
+    return q.to(F32) * scale
+
+
+def compress_with_feedback(g, err):
+    """Error-feedback compression: quantize (g + residual), carry the
+    quantization error to the next step."""
+    gf = g.to(F32) + err.to(F32)
+    q, scale = compress_int8(gf)
+    deq = decompress_int8(q, scale)
+    new_err = (gf - deq).to(err.dtype)
+    return deq.to(g.dtype), new_err
+
+
+# ------------------------------------------------------- adamw
+
+@torch.no_grad()
+def adamw_update(grads, state: AdamWState, params, cfg: OptConfig):
+    """One AdamW step.  Returns (new_params, new_state, metrics)."""
+    if cfg.compress_grads:
+        grads, new_err = _unzip(
+            tree_map(compress_with_feedback, grads, state.err), 2)
+    else:
+        new_err = state.err
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    step = state.step + 1
+    stepf = step.to(F32)
+    b1c = 1.0 - torch.pow(cfg.b1, stepf)
+    b2c = 1.0 - torch.pow(cfg.b2, stepf)
+    mdt = _MOMENT_DTYPES[cfg.moment_dtype]
+
+    def upd(p, g, m, v, decay):
+        gf = g.to(F32)
+        m_new = cfg.b1 * m.to(F32) + (1 - cfg.b1) * gf
+        v_new = cfg.b2 * v.to(F32) + (1 - cfg.b2) * gf * gf
+        m_hat = m_new / b1c
+        v_hat = v_new / b2c
+        delta = m_hat / (torch.sqrt(v_hat) + cfg.eps)
+        if decay:               # decoupled weight decay (module note)
+            delta = delta + cfg.weight_decay * p.to(F32)
+        p_new = p.to(F32) - cfg.lr * delta
+        return p_new.to(p.dtype), m_new.to(mdt), v_new.to(mdt)
+
+    new_params, new_mu, new_nu = _unzip(
+        tree_map(upd, params, grads, state.mu, state.nu, decayed(params)),
+        3)
+    new_state = AdamWState(step=step, mu=new_mu, nu=new_nu, err=new_err)
+    return new_params, new_state, {"grad_norm": gnorm}
+
+
+@torch.no_grad()
+def sgd_update(grads, state: AdamWState, params, cfg: OptConfig):
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    step = state.step + 1
+
+    def upd(p, g, m):
+        m_new = cfg.b1 * m.to(F32) + g.to(F32)
+        p_new = p.to(F32) - cfg.lr * m_new
+        return p_new.to(p.dtype), m_new.to(m.dtype)
+
+    new_params, new_mu = _unzip(tree_map(upd, params, grads, state.mu), 2)
+    return new_params, state._replace(step=step, mu=new_mu), {
+        "grad_norm": gnorm}
+
+
+def update(grads, state, params, cfg: OptConfig):
+    if cfg.name == "adamw":
+        return adamw_update(grads, state, params, cfg)
+    if cfg.name == "sgd":
+        return sgd_update(grads, state, params, cfg)
+    raise ValueError(f"unknown optimizer {cfg.name!r}")
+
+
+def lr_schedule(step, base_lr: float, warmup: int = 100,
+                total: int = 10000, min_ratio: float = 0.1):
+    """Linear warmup + cosine decay (f32, as the reference)."""
+    s = torch.as_tensor(step).to(F32)
+    warm = s / max(warmup, 1)
+    prog = torch.clamp((s - warmup) / max(total - warmup, 1), 0.0, 1.0)
+    cos = min_ratio + (1 - min_ratio) * 0.5 * (1 + torch.cos(math.pi * prog))
+    return base_lr * torch.where(s < warmup, warm, cos)

@@ -9,8 +9,9 @@ none), so it runs there as
 Tolerances: y in f32 within 1e-4 x max|y| (f32 sums over K in another
 order); y in bf16 within 2^-7 x max|y| (one bf16 rounding of either
 side); bounds within 1e-5 relative (sums of magnitudes, order only);
-decode attention within 1e-5 (f32) or 2^-7 (bf16) of max|out|.  Clean
-residuals are rounding noise and are held against the threshold only.
+decode and full-sequence attention within 1e-5 (f32) or 2^-7 (bf16) of
+max|out|.  Clean residuals are rounding noise and are held against the
+threshold only.
 """
 
 import numpy as np
@@ -223,3 +224,147 @@ def test_small_engine_streams_on_the_card_equal_the_cpu(dev):
             if str(d) != "cpu":
                 assert am.KERNEL.launches > k1 and fa.KERNEL.launches > k3
     assert len({str(s) for s in streams.values()}) == 1
+
+
+# ------------------------------------------------------------------ K2
+
+K2_CASES = [(1, True), (7, True), (130, True), (333, True), (256, False)]
+
+
+def _k2_case(dev, dtype, L, seed=0, B=2, H=8, KV=2, D=64):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(B, L, H, D, generator=gen)
+    k = torch.randn(B, L, KV, D, generator=gen)
+    v = 3 * torch.randn(B, L, KV, D, generator=gen)
+    return tuple(t.to(dev, dtype) for t in (q, k, v))
+
+
+def _k2_kw(L, causal, b=128):
+    bq = min(b, -(-L // 8) * 8)
+    return dict(bq=bq, bk=bq, causal=causal, lq_pad=-(-L // bq) * bq,
+                lk_pad=-(-L // bq) * bq)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L,causal", K2_CASES)
+def test_k2_kernel_matches_plain_version(dev, L, causal, dtype):
+    """o within 1e-5 (f32) or 2^-7 (bf16) of max|o|; both bounds within
+    1e-5 relative; clean residuals are noise and raise no flag."""
+    q, k, v = _k2_case(dev, dtype, L)
+    kw = _k2_kw(L, causal)
+    before = fa.FULL_KERNEL.launches
+    got = fa.flash_attention_kernel(q, k, v, **kw)
+    assert fa.FULL_KERNEL.launches == before + 1
+    ref = fa.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    scale = ref[0].float().abs().max().item()
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= \
+        tol * scale
+    for g, r in ((got[2], ref[2]), (got[4], ref[4])):
+        assert g.shape == r.shape
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-30)
+    _, chk = flash_ops.flash_attention(q, k, v, causal=causal)
+    assert not bool(chk.flag)
+
+
+def test_k2_reads_strided_qkv_in_place(dev):
+    """q/k/v as views of one fused projection (non-contiguous strides)."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    B, L, H, KV, D = 2, 100, 8, 2, 64
+    fused = torch.randn(B, L, (H + 2 * KV) * D, generator=gen).to(dev)
+    q = fused[..., :H * D].view(B, L, H, D)
+    k = fused[..., H * D:(H + KV) * D].view(B, L, KV, D)
+    v = fused[..., (H + KV) * D:].view(B, L, KV, D)
+    assert not q.is_contiguous()
+    kw = _k2_kw(L, True)
+    got = fa.flash_attention_kernel(q, k, v, **kw)
+    ref = fa.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), **kw)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[4], ref[4], rtol=1e-5, atol=1e-30)
+
+
+def test_k2_flags_a_fault_at_its_row_in_every_head(dev):
+    from repro_torch.kernels.flash_attention import f32_bits
+
+    q, k, v = _k2_case(dev, torch.float32, 300)
+    row, col = 170, 9                     # q block 1 of 3
+    _, chk = flash_ops.flash_attention(
+        q, k, v, causal=True, fault=FaultSpec.value(row, col, 1e4))
+    assert bool(chk.flag)
+    fi = (row // 128, 0, row % 128, col, 1, f32_bits(1e4))
+    out, _, _, rp, _ = fa.flash_attention_kernel(q, k, v, fi,
+                                                 **_k2_kw(300, True))
+    at = rp.reshape(rp.shape[0], rp.shape[1], -1).argmax(-1)
+    assert bool((at == row).all())
+    clean = fa.flash_attention_kernel(q, k, v, **_k2_kw(300, True))[0]
+    diff = (out != clean).nonzero()
+    assert bool((diff[:, 1] == row).all()) and bool((diff[:, 3] == col).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k2_is_bit_for_bit_deterministic(dev, dtype):
+    q, k, v = _k2_case(dev, dtype, 1024, seed=4)
+    kw = _k2_kw(1024, True)
+    runs = [fa.flash_attention_kernel(q, k, v, **kw) for _ in range(3)]
+    for r in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(r, runs[0]))
+
+
+def test_k2_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q, k, v = _k2_case(dev, torch.float32, 64)
+    kw = _k2_kw(64, True)
+    with pytest.raises(TypeError):
+        fa.flash_attention_kernel(q, k.bfloat16(), v, **kw)
+    with pytest.raises(ValueError):
+        fa.flash_attention_kernel(q.cpu(), k, v, **kw)
+    with pytest.raises(ValueError):               # head dim over 128
+        big = torch.zeros(2, 64, 8, 192, device=dev)
+        fa.flash_attention_kernel(big, big[:, :, :2], big[:, :, :2], **kw)
+    with pytest.raises(ValueError):               # column stride 2
+        s = torch.zeros(2, 64, 8, 128, device=dev)[..., ::2]
+        fa.flash_attention_kernel(s, k, v, **kw)
+    with pytest.raises(ValueError):               # non-causal padding
+        flash_ops.flash_attention(q[:, :60], k[:, :60], v[:, :60],
+                                  causal=False)
+    q.requires_grad_()
+    with pytest.raises(NotImplementedError):
+        flash_ops.flash_attention(q, k, v)
+
+
+def test_small_train_step_on_the_card_equals_the_cpu(dev):
+    """Scaled-down f32 llama3.2-1b, one AdamW step from the same params
+    and batch on the card (K1) and on the CPU (its plain version): loss
+    within 1e-5 relative and params within 1e-5 absolute (lr / 30: the
+    gradients agree to f32 rounding, and AdamW's normalization turns
+    that into up to ~1% of lr where |g| is near eps)."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.serve.executor import tree_to
+    from repro_torch.train import OptConfig, TrainConfig, init_opt_state
+    from repro_torch.train import make_train_step
+
+    cfg = scaled_down(get_config("llama3.2-1b"), n_layers=2)
+    model = Model(cfg)
+    params = model.init_params(5, dtype=torch.float32)
+    batch = SyntheticLM(DataConfig(global_batch=2, seq_len=64,
+                                   vocab_size=cfg.vocab_size)).batch(0)
+    out = {}
+    for d in ("cpu", dev):
+        p = tree_to(params, d)
+        step = make_train_step(model, ABFTConfig(), TrainConfig(
+            opt=OptConfig()), device=d)
+        k1 = am.KERNEL.launches
+        newp, _, met = step(p, init_opt_state(p, OptConfig()),
+                            {k: torch.from_numpy(v).to(d)
+                             for k, v in batch.items()})
+        if str(d) != "cpu":
+            assert am.KERNEL.launches > k1
+        assert not bool(met["abft_flag"])
+        out[str(d)] = (float(met["loss"]),
+                       [t.cpu() for t in tree_leaves(newp)])
+    (lc, pc), (lg, pg) = out["cpu"], out[str(dev)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(pg, pc):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
