@@ -20,6 +20,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -37,7 +39,8 @@ PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
 # the llama3.2-1b GEMMs (K, N) and token counts K1 is checked at
 K1_SHAPES = {"q": (2048, 2048), "kv": (2048, 512), "up": (2048, 8192),
              "down": (8192, 2048), "head": (2048, 128256)}
-K1_M = (4, 8, 40, 512)
+K1_M = (4, 8, 40, 333, 512, 2048)     # 2048: the forward's B x L rows
+K1_FAULT_M = (4, 512, 2048)
 ENGINE_ARCH = "llama3.2-1b"
 # K2 at llama3.2-1b's attention shapes: (B, H, KV, D)
 K2_HEADS = (2, 32, 8, 64)
@@ -85,11 +88,26 @@ def timed_graph(fn, iters: int = 10) -> float:
     return timed(graph.replay, iters=iters, warmup=1)
 
 
+def tensor_core_instructions(so) -> dict:
+    """Counts of tensor-core instructions (``HGMMA`` for wgmma, ``HMMA``
+    for mma.sync) in the SASS of a built kernel library, read with the
+    CUDA toolkit's ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\s{op}\.", sass))
+            for op in ("HGMMA", "HMMA")}
+
+
 # ------------------------------------------------------------------ K1
 
 def k1_checks(dev) -> dict:
     """K1 against its plain version: three modes x bf16/f32 x llama GEMM
-    shapes at M in {4, 8, 40, 512}, the tied head through ``embed.T``.
+    shapes at M in ``K1_M``, the tied head through
+    ``embed.T``: every pass-1 route (tensor cores for bf16 1s/2s, the
+    GEMV for f32 decode — and for bf16 decode forced, as k1_timing times
+    it — CUDA-core tiles for f32 and replica).  The worst clean residual /
+    threshold of each route taken must stay under 1.
 
     Tolerances: y in f32 agrees within 1e-4 x max|y| (f32 sums over K <=
     8192 in another order); y in bf16 within 2^-7 x max|y| (one bf16
@@ -99,13 +117,14 @@ def k1_checks(dev) -> dict:
     from repro_torch.core.faults import FaultSpec
     from repro_torch.core.schemes import BlockShape
     from repro_torch.kernels import ops
-    from repro_torch.kernels.abft_matmul import abft_matmul_kernel
+    from repro_torch.kernels.abft_matmul import abft_matmul_kernel, routes
     from repro_torch.kernels.ref import abft_matmul_ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
     shapes = K1_SHAPES
     worst = 0.0
     cases = 0
+    ratios = {}             # route -> worst clean residual / threshold
     for dtype in (torch.bfloat16, torch.float32):
         ws = {}
         for name, (k, n) in shapes.items():
@@ -125,30 +144,46 @@ def k1_checks(dev) -> dict:
                                   ((256, m), (512, k), (256, n)))
                     kw = dict(mode=mode, bm=bm, bk=bk, bn=bn,
                               out_dtype=out_dtype)
-                    y, res, bnd = abft_matmul_kernel(x, w, **kw)
                     yp, resp, bndp = abft_matmul_ref(x, w, **kw)
-                    torch.cuda.synchronize()
                     scale = yp.float().abs().max().item()
-                    err = (y.float() - yp.float()).abs().max().item()
                     tol = (1e-4 if out_dtype == torch.float32
                            else 2 ** -7) * scale
-                    need(err <= tol, f"K1 y {name} m={m} {mode} {dtype}: "
-                         f"err {err} > {tol}")
-                    worst = max(worst, err / max(scale, 1e-30))
-                    berr = ((bnd - bndp).abs() / bndp.abs().clamp_min(
-                        1e-30)).max().item()
-                    need(berr <= 1e-4, f"K1 bnd {name} m={m} {mode}: {berr}")
+                    # the route taken, and the GEMV that k1_timing times
+                    # in its place at bf16 decode
+                    can = routes(x, w, bn, mode)
+                    for r in (can[0], *(c for c in can[1:] if c == "gemv")):
+                        y, res, bnd = abft_matmul_kernel(x, w, **kw, force=r)
+                        torch.cuda.synchronize()
+                        err = (y.float() - yp.float()).abs().max().item()
+                        need(err <= tol, f"K1 y {name} m={m} {mode} {dtype} "
+                             f"{r}: err {err} > {tol}")
+                        worst = max(worst, err / max(scale, 1e-30))
+                        berr = ((bnd - bndp).abs() / bndp.abs().clamp_min(
+                            1e-30)).max().item()
+                        need(berr <= 1e-4,
+                             f"K1 bnd {name} m={m} {mode} {r}: {berr}")
                     _, chk = ops.abft_matmul(x, w, mode=mode,
                                              out_dtype=out_dtype)
                     need(not bool(chk.flag),
                          f"K1 false flag {name} m={m} {mode} {dtype}")
+                    r = f"k1_{can[0]}_{str(dtype)[6:]}"
+                    ratios[r] = max(ratios.get(r, 0.0), _ratio(chk))
                     cases += 1
-                    if m in (K1_M[0], K1_M[-1]):
+                    if m in K1_FAULT_M:
                         _k1_fault_check(ops, FaultSpec, x, w, mode,
                                         out_dtype, name)
         del ws
+    need(all(v < 1 for v in ratios.values()),
+         f"K1 clean residual at or over its threshold: {ratios}")
     return {"cases": cases, "max_rel_err_y": worst,
+            "worst_clean_residual_over_threshold": ratios,
             "blocks": BlockShape().__dict__}
+
+
+def _ratio(chk) -> float:
+    """Worst clean residual / threshold of a CheckResult (the reference's
+    thresholds; a flag is raised at > 1)."""
+    return (chk.residual / chk.threshold).max().item()
 
 
 def _k1_fault_check(ops, FaultSpec, x, w, mode, out_dtype, name):
@@ -280,12 +315,14 @@ def k2_checks(dev) -> dict:
         f32_bits,
         flash_attention_kernel,
         flash_attention_ref,
+        tc_path,
     )
     from repro_torch.kernels.flash_ops import flash_attention
 
     gen = torch.Generator(device=dev).manual_seed(8)
     B, H, KV, D = K2_HEADS
     worst = {}
+    ratios = {}             # route -> worst clean residual / threshold
     worst_share = 0.0       # the bf16 elementwise error / its tolerance
     cases = 0
 
@@ -322,6 +359,11 @@ def k2_checks(dev) -> dict:
                 need(bool((side[1] <= tau(side[2], D)).all())
                      and bool((side[3] <= tau(side[4], L)).all()),
                      f"K2 clean residual over threshold L={L} {dtype}")
+            r = "k2_" + ("tc" if tc_path(q, k, v, kw["bk"]) else "cuda_core") \
+                + f"_{str(dtype)[6:]}"
+            ratios[r] = max(ratios.get(r, 0.0),
+                            (got[1] / tau(got[2], D)).max().item(),
+                            (got[3] / tau(got[4], L)).max().item())
             _, chk = flash_attention(q, k, v, causal=causal)
             need(not bool(chk.flag), f"K2 false flag L={L} {dtype}")
             key = f"{str(dtype)[6:]}"
@@ -353,8 +395,11 @@ def k2_checks(dev) -> dict:
         pass
     else:
         fail("K2 non-causal padding did not raise")
+    need(all(v < 1 for v in ratios.values()),
+         f"K2 clean residual at or over its threshold: {ratios}")
     return {"cases": cases, "max_abs_err": worst,
-            "bf16_worst_err_over_tolerance": worst_share, "heads": K2_HEADS}
+            "bf16_worst_err_over_tolerance": worst_share,
+            "worst_clean_residual_over_threshold": ratios, "heads": K2_HEADS}
 
 
 def k2_timing(dev) -> dict:
@@ -807,7 +852,10 @@ def k1_timing(dev, params, m: int) -> dict:
     their dtype: kernel, plain version, torch.matmul, and the bound (bf16
     at the tensor-core rate, f32 at the CUDA-core rate).  ``ms`` etc. are
     device times (CUDA-graph replay); ``ms_eager`` includes the host
-    launch overhead of the eager loop."""
+    launch overhead of the eager loop.  At decode (bf16, M <= 8) the
+    row-major GEMMs, which take the tensor-core pass 1, are also timed on
+    the GEMV pass 1 forced in its place (``fork``): the numbers behind
+    the route."""
     from repro_torch.kernels.abft_matmul import abft_matmul_kernel
     from repro_torch.kernels.ref import abft_matmul_ref
 
@@ -825,6 +873,7 @@ def k1_timing(dev, params, m: int) -> dict:
     tot = {"ms": 0.0, "ms_eager": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "bound_ms": 0.0, "gemms": 0}
     bound_by = set()
+    fork = {"gemms": 0, "gemv_ms": 0.0, "tc_ms": 0.0}
     dtype = params["embed"].dtype
     for name, ws in groups.items():
         k, n = ws[0].shape
@@ -855,6 +904,15 @@ def k1_timing(dev, params, m: int) -> dict:
                "plain_ms": timed_graph(plain, iters=2),
                "library_ms": timed_graph(lib, iters=5),
                "bound_ms": b_ms * len(ws), "bound_by": by}
+        if dtype == torch.bfloat16 and m <= 8 and name != "head":
+            def kern_gemv():
+                for w in ws:
+                    abft_matmul_kernel(x, w, **kw, force="gemv")
+
+            rec["gemv_ms"] = timed_graph(kern_gemv, iters=5)
+            fork["gemms"] += len(ws)
+            fork["tc_ms"] += rec["ms"]
+            fork["gemv_ms"] += rec["gemv_ms"]
         per[name] = rec
         bound_by.add(by)
         for key in ("ms", "ms_eager", "plain_ms", "library_ms",
@@ -864,7 +922,7 @@ def k1_timing(dev, params, m: int) -> dict:
     tot["bound_by"] = "bytes" if bound_by == {"bytes"} else (
         "operations" if bound_by == {"operations"} else "mixed")
     emit("k1_timing", m=m, dtype=str(dtype)[6:], per_shape=per,
-         step_total=tot)
+         step_total=tot, **({"fork": fork} if fork["gemms"] else {}))
     return tot
 
 
@@ -979,11 +1037,17 @@ def main(argv=None) -> int:
     built = library.build_all(force=True)
     for lib in library.SOURCES:
         library.library(lib)
+    tensor_core = {n: tensor_core_instructions(library.BUILD / f"lib{n}.so")
+                   for n in library.SOURCES}
     emit("build", seconds=time.perf_counter() - t, sources=built,
+         tensor_core_instructions=tensor_core,
          ptxas={n: [ln.strip() for ln in
                     (library.BUILD / f"{n}.log").read_text().splitlines()
                     if "registers" in ln or "spill" in ln][:6]
                 for n in library.SOURCES})
+    need(tensor_core["abft_matmul"]["HGMMA"] > 0
+         and tensor_core["flash_attention"]["HMMA"] > 0,
+         f"tensor-core instructions missing from the SASS: {tensor_core}")
     if "k1" in phases:
         emit("k1_check", **k1_checks(dev))
     if "k2" in phases:
@@ -1005,7 +1069,8 @@ def main(argv=None) -> int:
     if "timing" in phases:
         launches = eng_out["dense"]["launches"]
         t1 = k1_timing(dev, eng_out["params"], 4)
-        k1_timing(dev, eng_out["params"], 512)
+        t1_pre = k1_timing(dev, eng_out["params"], 512)
+        t1_fwd = k1_timing(dev, eng_out["params"], FWD_B * FWD_L)
         if train_params is not None:
             k1_timing(dev, train_params, TRAIN_B * TRAIN_L)
         t3 = k3_timing(dev, eng_out["engine"], eng_out["prompts"])
@@ -1018,7 +1083,12 @@ def main(argv=None) -> int:
              "max_abs_err": k1_max_err(dev, eng_out["params"]),
              "ms": t1["ms"], "plain_ms": t1["plain_ms"],
              "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
-             "library_ms": t1["library_ms"]},
+             "library_ms": t1["library_ms"],
+             "by_shape": {f"{name}_m{m}": {key: rec[key] for key in (
+                 "ms", "plain_ms", "bound_ms", "library_ms")}
+                 for name, m, rec in (("decode", 4, t1),
+                                      ("prefill", 512, t1_pre),
+                                      ("forward", FWD_B * FWD_L, t1_fwd))}},
             {"name": "flash_attention", "route": "cuda",
              "source": flash_attention.FULL_KERNEL.source,
              "replaces": "src/repro/kernels/flash_attention.py:343",

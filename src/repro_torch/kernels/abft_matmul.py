@@ -1,14 +1,19 @@
 """K1: fused block-ABFT matmul, the CUDA kernel ``csrc/abft_matmul.cu``.
 
 Replaces the TPU kernel ``repro.kernels.abft_matmul.abft_matmul_kernel``.
-``abft_matmul_kernel`` checks its operands, allocates the outputs and the
-split-K scratch with ``torch.empty``, launches on the current stream and
-counts the launch in ``KERNEL.launches``.  Its plain version is
+``abft_matmul_kernel`` checks its operands, picks pass 1's route
+(``route``: tensor cores for bf16, the GEMV for f32 decode, or CUDA-core
+tiles),
+allocates the outputs and the scratch of its ``plan`` with
+``torch.empty``, launches on the current stream and counts the launch in
+``KERNEL.launches``.  Its plain version is
 ``kernels/ref.py::abft_matmul_ref``; the user-facing wrapper (block
 clamping, fault translation, threshold and flag) is ``kernels/ops.py``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -19,15 +24,27 @@ MODES = ("1s", "2s", "replica")
 KERNEL = library.Kernel("abft_matmul",
                         "src/repro_torch/kernels/csrc/abft_matmul.cu")
 
-TN, TK = 64, 32          # CUDA tile columns and stage depth (see the .cu)
+TN, TK = 64, 32          # CUDA-core tile columns and stage depth (.cu)
+TC_TN, TC_TK = 128, 64   # tensor-core tile columns and stage depth
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {"tiled": 0, "gemv": 1, "tc": 2, "tc_kmajor": 3}
 _SMS = 132               # H100 SXM streaming multiprocessors
 
 
 def rows_per_thread(bm: int) -> int:
-    """CUDA tile height is 8 * rows_per_thread: 8 rows for decode-thin
-    GEMMs, up to 64 rows for prefill."""
+    """CUDA-core tile height is 8 * rows_per_thread: 8 rows for
+    decode-thin GEMMs, up to 64 rows for prefill."""
     return 1 if bm <= 8 else 4 if bm <= 32 else 8
+
+
+def tc_rows(bm: int) -> int:
+    """Tensor-core tile height: one consumer warpgroup (64 rows) for
+    logical blocks of at most 64 rows, two (128 rows) above."""
+    return 64 if bm <= 64 else 128
+
+
+def _aligned(t: torch.Tensor, stride: int) -> bool:
+    return (stride * t.element_size()) % 16 == 0 and t.data_ptr() % 16 == 0
 
 
 def gemv_path(x, w, bn: int, mode: str) -> bool:
@@ -40,22 +57,73 @@ def gemv_path(x, w, bn: int, mode: str) -> bool:
             and (w.stride(0) * esz) % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
+def routes(x, w, bn: int, mode: str) -> tuple:
+    """Every pass-1 route that can take these operands, the preferred
+    one first:
+
+    - ``tc`` / ``tc_kmajor``: the tensor-core pass 1 — bf16 operands,
+      mode 1s or 2s, rows of x 16-byte aligned (unit column stride), and W
+      either row-major (``tc``) or column-major (``tc_kmajor``: the tied
+      head's ``embed.T``) with its rows, resp. columns, 16-byte aligned;
+    - ``gemv``: ``gemv_path`` (decode, M <= 8, row-major W): f32 decode.
+      bf16 decode prefers the tensor cores: on an H100 (700 W) they take
+      the decode step's 112 row-major GEMMs at M=4 in 2.22 ms where the
+      GEMV takes 3.36 (``chip_smoke.py``, ``k1_timing`` ``fork``);
+    - ``tiled``: the CUDA-core pass 1, which takes anything — f32 operands
+      (TF32 stays off), mode replica, and bf16 operands whose rows are not
+      16-byte aligned."""
+    out = []
+    if (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
+            and mode != "replica" and x.stride(1) == 1
+            and _aligned(x, x.stride(0))):
+        if w.stride(1) == 1 and _aligned(w, w.stride(0)):
+            out.append("tc")
+        elif w.stride(0) == 1 and _aligned(w, w.stride(1)):
+            out.append("tc_kmajor")
+    if gemv_path(x, w, bn, mode):
+        out.append("gemv")
+    return (*out, "tiled")
+
+
+def route(x, w, bn: int, mode: str) -> str:
+    """Which pass 1 runs, decided before the launch: the first of
+    ``routes``."""
+    return routes(x, w, bn, mode)[0]
+
+
+def tile(r: str, bm: int) -> tuple:
+    """(rows, columns) of pass 1's CUDA-block tile on route ``r``: the
+    geometry the scratch and the K split are sized by, passed to the
+    launch, which rejects any other."""
+    if r.startswith("tc"):
+        return tc_rows(bm), TC_TN
+    if r == "gemv":         # all M <= 8 rows in one tile
+        return 8, TN
+    return 8 * rows_per_thread(bm), TN
+
+
 def split_k(m: int, k: int, n: int, bm: int, bk: int, bn: int,
-            mode: str, gemv: bool = False) -> tuple:
-    """(slices, depth) of the K split: enough CUDA blocks for two waves
-    over the SMs.  Tiled pass 1: slices at least 256 deep and — for the
-    replica checksum, which flushes per logical k-block — aligned to
-    ``bk``.  GEMV pass 1: one block per 64 columns, slices a multiple of
-    its 32 k-rows per iteration, at most 16 of them."""
+            mode: str, gemv: bool = False, tc: bool = False) -> tuple:
+    """(slices, depth) of the K split.  CUDA-core routes: enough CUDA
+    blocks for two waves over the SMs; tiled slices at least 256 deep and
+    — for the replica checksum, which flushes per logical k-block —
+    aligned to ``bk``; GEMV slices a multiple of its 32 k-rows per
+    iteration, at most 16 of them.  Tensor-core route: one slice (y and
+    the row sums straight from the epilogue) unless the tiles fill under
+    half the SMs; then ``SMs // tiles`` slices of whole 64-deep stages, at
+    least 256 deep."""
     if gemv:    # at most 16 slices: pass 2 sums them element by element
         tiles, unit, floor = -(-n // TN), 32, max(32, -(-k // 16))
+        want = max(1, -(-2 * _SMS // tiles))
     else:
-        rm = rows_per_thread(bm)
-        tiles = (-(-n // bn) * -(-bn // TN)) * (
-            -(-m // bm) * -(-bm // (8 * rm)))
-        unit = bk if mode == "replica" else TK
-        floor = min(256, k)
-    want = max(1, -(-2 * _SMS // tiles))
+        tm, tn = tile("tc" if tc else "tiled", bm)
+        tiles = -(-n // bn) * -(-bn // tn) * -(-m // bm) * -(-bm // tm)
+        if tc:
+            unit, floor = TC_TK, min(256, k)
+            want = max(1, _SMS // tiles)
+        else:
+            unit, floor = (bk if mode == "replica" else TK), min(256, k)
+            want = max(1, -(-2 * _SMS // tiles))
 
     def up(v: int) -> int:
         return -(-v // unit) * unit
@@ -64,10 +132,49 @@ def split_k(m: int, k: int, n: int, bm: int, bk: int, bn: int,
     return -(-k // kc), kc
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch's pass-1 route, K split and scratch shapes."""
+
+    route: str
+    tile: tuple
+    slices: int
+    depth: int
+    scratch: dict
+
+
+def plan(x, w, *, mode: str, bm: int, bk: int, bn: int,
+         force: str | None = None) -> Plan:
+    """The launch ``abft_matmul_kernel`` makes for these operands, on
+    ``route``'s pass 1 or on ``force``, which must be one of ``routes``'s
+    (to time one route against another).  Scratch: the per-slice partial accumulators (none on the single-slice
+    tensor-core route, whose epilogue stores y), the per-(slice, row,
+    column tile) partial checksums and bounds, and — tensor-core route
+    only — the per-(row, column tile) partial row sums of the
+    accumulator."""
+    m, k = x.shape
+    n = w.shape[1]
+    can = routes(x, w, bn, mode)
+    if force is not None and force not in can:
+        raise ValueError(f"route {force!r} cannot take these operands; "
+                         f"these can: {can}")
+    r = force or can[0]
+    tc = r.startswith("tc")
+    S, kc = split_k(m, k, n, bm, bk, bn, mode, gemv=r == "gemv", tc=tc)
+    tm, tn = tile(r, bm)
+    gx = -(-n // bn) * -(-bn // tn)
+    scratch = {"part_acc": (0,) if tc and S == 1 else (S, m, n),
+               "part_chk": (S, m, gx), "part_bnd": (S, m, gx),
+               "part_rs": (m, gx) if tc else (0,)}
+    return Plan(r, (tm, tn), S, kc, scratch)
+
+
 def abft_matmul_kernel(x, w, fault=(0, 0, 0, 0, 0, -1), delta: float = 0.0,
-                       *, mode: str, bm: int, bk: int, bn: int, out_dtype):
+                       *, mode: str, bm: int, bk: int, bn: int, out_dtype,
+                       force: str | None = None):
     """x: (M, K) with unit column stride, w: (K, N) with any strides (the
-    tied head passes ``embed.T``) -> (y, res, bnd) as ``abft_matmul_ref``."""
+    tied head passes ``embed.T``) -> (y, res, bnd) as ``abft_matmul_ref``.
+    The pass-1 route is ``plan``'s (``route``'s unless ``force``d)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
@@ -86,26 +193,23 @@ def abft_matmul_kernel(x, w, fault=(0, 0, 0, 0, 0, -1), delta: float = 0.0,
     m, k = x.shape
     n = w.shape[1]
     gm, gn = -(-m // bm), -(-n // bn)
-    gemv = gemv_path(x, w, bn, mode)
-    rm = 0 if gemv else rows_per_thread(bm)
-    S, kc = split_k(m, k, n, bm, bk, bn, mode, gemv)
-    gx = gn * -(-bn // TN)
+    p = plan(x, w, mode=mode, bm=bm, bk=bk, bn=bn, force=force)
     dev = x.device
     y = torch.empty((m, n), dtype=out_dtype, device=dev)
     rshape = (gm, gn) if mode == "2s" else (gm, gn, bm)
     res = torch.empty(rshape, dtype=F32, device=dev)
     bnd = torch.empty(rshape, dtype=F32, device=dev)
-    part_acc = torch.empty((S, m, n), dtype=F32, device=dev)
-    part_chk = torch.empty((S, m, gx), dtype=F32, device=dev)
-    part_bnd = torch.empty((S, m, gx), dtype=F32, device=dev)
+    part = {name: torch.empty(shape, dtype=F32, device=dev)
+            for name, shape in p.scratch.items()}
     bi, bj, r, c, enabled, bit = (int(v) for v in fault)
     P = library.ptr
     err = library.library("abft_matmul").abft_matmul_launch(
-        P(x), P(w), P(y), P(res), P(bnd), P(part_acc), P(part_chk),
-        P(part_bnd), m, k, n, x.stride(0), w.stride(0), w.stride(1),
-        bm, bk, bn, S, kc, rm, MODES.index(mode), _DTYPES[x.dtype],
-        _DTYPES[out_dtype], enabled, bi, bj, r, c, bit, float(delta),
-        library.stream())
+        P(x), P(w), P(y), P(res), P(bnd), P(part["part_acc"]),
+        P(part["part_chk"]), P(part["part_bnd"]), P(part["part_rs"]),
+        m, k, n, x.stride(0), w.stride(0), w.stride(1), bm, bk, bn,
+        p.slices, p.depth, _ROUTES[p.route], *p.tile,
+        MODES.index(mode), _DTYPES[x.dtype], _DTYPES[out_dtype], enabled,
+        bi, bj, r, c, bit, float(delta), library.stream())
     library.check(err, KERNEL.name)
     KERNEL.launches += 1
     return y, res, bnd

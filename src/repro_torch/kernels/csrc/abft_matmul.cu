@@ -13,33 +13,49 @@
 // have read the tiles and before the y store and the row sum.
 //
 // What bounds it on the H100: at decode (M = 4 tokens) the weight bytes —
-// the whole GEMM is a stream of W at 3.35 TB/s; at prefill (M ~ 1k) the
-// multiply-adds, here on CUDA cores (67 TFLOP/s f32), far from the 989
-// TFLOP/s bf16 tensor-core roofline.
+// the whole GEMM is a stream of W at 3.35 TB/s; at prefill and in the
+// full-sequence forward (M = 512 .. 2048) the multiply-adds: 989 TFLOP/s
+// on the bf16 tensor cores, 67 TFLOP/s in f32 on the CUDA cores.
 //
 // Design.  The logical BlockShape (default 256/512/256, clamped by the
 // wrapper) fixes the residual's shape and the cost model; it is kept apart
-// from the CUDA tile.  A 256 x 256 f32 accumulator does not fit one CUDA
-// block, so each CUDA block owns a TM x 64 sub-tile (TM = 8, 32 or 64 rows,
-// 4 x RM outputs per thread, plain FMA) of ONE logical block and one slice
-// of K, and never straddles a logical block or a logical bk boundary.
-// Pass 1 writes its partial accumulators and per-row partial checksums to
-// scratch; pass 2 sums the K slices in a fixed order, applies the fault,
-// stores y and reduces rows over the logical block's bn columns.  There
-// are no floating-point atomics: every sum has a fixed order, so a retry
-// reproduces the attempt bit for bit.  At decode (M <= 8 rows, row-major
-// W) a GEMV-shaped pass 1 replaces the tiled one: 16-byte loads, whole
-// 128-byte lines per 8-lane group, the checksum from the same registers.
-// K slicing (split-K over CUDA blocks)
-// is what fills the 132 SMs at decode, where one block row of 4 tokens would
-// otherwise give only N/64 CUDA blocks.  Ragged edges are masked in the
-// loads (zero fill) — nothing is padded or copied.  B is read through its
-// row and column strides, so the tied head W = embed^T is read in place.
-// wgmma/TMA is later work.
+// from the CUDA tile, which never straddles a logical block.  Pass 1 has
+// three routes, picked by the wrapper before the launch, which also passes
+// the tile it sized the scratch for (kernels/abft_matmul.py::route, tile):
+//   - tensor cores (bf16, modes 1s/2s, 16-byte aligned rows; decode
+//     included, where it beats the GEMV on bf16): the paper's
+//     split — the product on the matrix unit, the checksums on the
+//     otherwise idle CUDA cores from the same shared-memory tiles, no extra
+//     HBM traffic.  A CUDA block owns a 64 or 128 x 128 tile; TMA keeps a
+//     ring of stages in flight (128-byte swizzle, zero fill past the
+//     edges); MMA warpgroups run wgmma m64n128k16 (W row-major through the
+//     transpose flag, the tied head's embed^T K-major: no copy of it) and
+//     take their rows' checksums A . bsum; checksum warpgroups take the
+//     stage's column sums bsum, babs of W in f32 (abft_tc_pass1).  With one
+//     K slice the epilogue applies the fault and stores y itself and pass 2
+//     only folds per-row partials (abft_tc_pass2); with a few tiles K is
+//     split and abft_tc_reduce sums the slices first;
+//   - decode GEMV (f32, M <= 8, row-major W): 16-byte loads, whole
+//     128-byte lines per 8-lane group, the checksum from the same
+//     registers (its bf16 form is only launched when forced, to time it
+//     against the tensor cores);
+//   - CUDA-core tiles (f32 operands — TF32 stays off — and mode replica):
+//     a TM x 64 tile (TM = 8, 32 or 64 rows, 4 x RM outputs a thread,
+//     plain FMA) of one logical block and one K slice.
+// The CUDA-core routes write partial accumulators and per-row partial
+// checksums to scratch; pass 2 sums the K slices in a fixed order, applies
+// the fault, stores y and reduces rows over the logical block's bn
+// columns.  There are no floating-point atomics: every sum has a fixed
+// order, so a retry reproduces the attempt bit for bit.  K slicing is what
+// fills the 132 SMs where one block row gives few tiles.  Ragged edges are
+// masked in the loads (zero fill) — nothing is padded or copied.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -62,6 +78,8 @@ struct Geo {
   int gm, gn;             // logical grid
   int row_tiles;          // CUDA row tiles per logical block row
   int col_tiles;          // CUDA column tiles per logical block column
+  int tn;                 // CUDA tile columns (TN, or TC_TN on tensor cores)
+  int tm;                 // CUDA tile rows of the tensor-core route
   int S, kc;              // K slices and their depth
   long long lda;          // row stride of A (unit column stride)
   long long sbk, sbn;     // strides of B along k and n
@@ -352,6 +370,535 @@ abft_gemv_pass1(const TI* __restrict__ A, const TI* __restrict__ B, Geo g,
   }
 }
 
+// ------------------------------------------------ tensor-core pass 1
+
+constexpr int TC_TN = 128;   // CUDA tile columns (one m64n128 wgmma)
+constexpr int TC_TK = 64;    // k depth of a stage: one 128-byte smem row
+
+__device__ __forceinline__ float fault_value(const Fault& f, float v) {
+  return f.bit >= 0 ? __uint_as_float(__float_as_uint(v) ^ (1u << f.bit))
+                    : v + f.delta;
+}
+
+__device__ __forceinline__ float sum8(const float* x) {
+  return ((x[0] + x[1]) + (x[2] + x[3])) + ((x[4] + x[5]) + (x[6] + x[7]));
+}
+__device__ __forceinline__ float asum8(const float* x) {
+  return ((fabsf(x[0]) + fabsf(x[1])) + (fabsf(x[2]) + fabsf(x[3]))) +
+         ((fabsf(x[4]) + fabsf(x[5])) + (fabsf(x[6]) + fabsf(x[7])));
+}
+
+// Shared memory of the tensor-core pass 1 (bytes): 1 KB of slack to align
+// the ring to the 128-byte swizzle's 1024-byte atom, the ring of NS
+// stages (A then B), each stage's column sums, the cross-warp partials,
+// and a full, a sums-ready and an empty mbarrier a stage.
+template <int WG>
+struct TcSmem {
+  static constexpr int TM = 64 * WG;
+  static constexpr int MT = 128 * WG;             // MMA threads
+  static constexpr int CK = 128 * WG;             // checksum threads
+  static constexpr int NS = WG == 2 ? 5 : 4;      // stages in the ring
+  // the producer refills the slot of stage it - 2 after the column sums of
+  // stage it: the MMA warps released it an iteration ago, so the checksum
+  // warps never wait on the MMA warps of the current stage
+  static constexpr int LAG = 2;
+  static constexpr int A_BYTES = TM * 128;        // TM rows x 64 bf16
+  static constexpr int B_BYTES = TC_TN * 128;     // 128 cols x 64 bf16
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int RING = NS * STAGE;
+  static constexpr int CW = CK / 32;
+  static constexpr int F32S = NS * 2 * 64 + CW * 2 * 64;
+  static constexpr int BYTES = 1024 + RING + 4 * F32S + 24 * NS;
+};
+
+// Pass 1 on the tensor cores, bf16 operands, modes 1s/2s.  One CUDA block
+// owns a (64 WG) x 128 tile of ONE logical block and one K slice, with
+// three roles over a ring of NS stages:
+//   - one thread (the first checksum thread) loads A and B by TMA (128-byte
+//     swizzle, zero fill out of bounds), each stage completing on its full
+//     mbarrier, and refills a slot once its empty mbarrier says both
+//     consumers are done with it;
+//   - WG checksum warpgroups take each stage's column sums of B on the
+//     CUDA cores in f32: bsum[k] = sum_c B[k, c] and babs[k] =
+//     sum_c |B[k, c]| over the tile's columns inside the logical block (a
+//     box may reach into the next block: those columns are masked here
+//     and never stored), and signal them on the stage's sums-ready
+//     mbarrier;
+//   - WG MMA warpgroups read each stage's A tile once, by ldmatrix into
+//     registers, and issue wgmma with A from those registers and B from
+//     shared memory; once a stage's wgmma has retired, the same registers
+//     give their rows' checksums on the CUDA cores: chk[row] +=
+//     A[row, :] . bsum and bnd[row] += |A[row, :]| . babs.  At the end
+//     they store y (or the partial accumulator) and the rows' partial
+//     rowsum(acc).
+// On the H100 the checksums' shared-memory reads compete with the tensor
+// cores' operand fetch: the CUDA-core phases, not the wgmma, set the pace
+// of a stage (PERF.md).
+// A is K-major in shared memory; B is K-major (KMAJ: a column-major W, the
+// tied head's embed^T) or MN-major (a row-major W, in two 64-column
+// swizzle atoms 8 KB apart; wgmma's transpose flag).  With one K slice
+// (g.S == 1) the epilogue applies the fault and stores y itself;
+// otherwise it stores the partial accumulator for abft_tc_reduce.
+template <int WG, bool KMAJ>
+__global__ void __launch_bounds__(256 * WG, 1)
+abft_tc_pass1(const __grid_constant__ CUtensorMap tma_a,
+              const __grid_constant__ CUtensorMap tma_b, Geo g, Fault f,
+              void* __restrict__ Y, int out_bf16,
+              float* __restrict__ part_acc, float* __restrict__ part_chk,
+              float* __restrict__ part_bnd, float* __restrict__ part_rs) {
+  using L = TcSmem<WG>;
+  constexpr int TM = L::TM, MT = L::MT, CK = L::CK, NS = L::NS;
+  const int rt_all = blockIdx.x, cx = blockIdx.y, s = blockIdx.z;
+  const int i = rt_all / g.row_tiles, rt = rt_all % g.row_tiles;
+  const int j = cx / g.col_tiles, sub = cx % g.col_tiles;
+  const int row0 = i * g.bm + rt * TM;
+  const int row_end = min(min(row0 + TM, (i + 1) * g.bm), g.M);
+  const int col0 = j * g.bn + sub * TC_TN;
+  const int col_end = min(min(col0 + TC_TN, (j + 1) * g.bn), g.N);
+  const int k0 = s * g.kc;
+  const int k1 = min(k0 + g.kc, g.K);
+  if (row0 >= row_end || col0 >= col_end || k0 >= k1) return;
+  const int lim = col_end - col0;      // live columns of the tile
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hk::smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  uint8_t* ring_p = smem_raw + (ring - raw);
+  float* sums = reinterpret_cast<float*>(ring_p + L::RING);  // NS x {s, a}
+  float* red = sums + NS * 2 * 64;     // CW x {sum, abs} x 64 (K-major B)
+  const uint32_t full = ring + L::RING + 4 * L::F32S;
+  const uint32_t empty = full + 8 * NS;
+  const uint32_t ready = empty + 8 * NS;
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int nk = (k1 - k0 + TC_TK - 1) / TC_TK;
+  const long long pbase = (long long)s * g.M;
+  const int gx = g.gn * g.col_tiles;
+
+  auto issue = [&](int it) {           // the producer: stage it by TMA
+    const int st = it % NS, kt = k0 + it * TC_TK;
+    const uint32_t sa = ring + st * L::STAGE, sb = sa + L::A_BYTES;
+    const uint32_t bar = full + st * 8;
+    hk::mbar_expect_tx(bar, L::STAGE);
+    hk::tma_load_2d(sa, &tma_a, bar, kt, row0);
+    if (KMAJ) {
+      hk::tma_load_2d(sb, &tma_b, bar, kt, col0);
+    } else {
+      hk::tma_load_2d(sb, &tma_b, bar, col0, kt);
+      hk::tma_load_2d(sb + 8192, &tma_b, bar, col0 + 64, kt);
+    }
+  };
+  if (tid == 0) {
+    for (int st = 0; st < NS; ++st) {
+      hk::mbar_init(full + st * 8, 1);
+      hk::mbar_init(empty + st * 8, MT / 32 + 1);
+      hk::mbar_init(ready + st * 8, 1);
+    }
+    hk::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == MT)
+    for (int p = 0; p < NS && p < nk; ++p) issue(p);
+
+  if (tid < MT) {
+    // ------------------------------------------------ MMA warpgroups
+    const int wg = tid >> 7, wq = (tid >> 5) & 3;
+    const int gr = lane >> 2, qd = lane & 3;
+    // A reaches the tensor cores from registers (ldmatrix from the stage's
+    // swizzled tile, the m16n8k16 A-fragment layout): the same registers
+    // give this thread's share of its two rows' checksums, so A is read
+    // from shared memory once a stage.  Two chains per quantity.
+    float chk_r[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    float bnd_r[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    float acc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+    using Frag = uint32_t[TC_TK / 16][4];
+    auto fetch_a = [&](int it, Frag& dst) {   // A fragments of stage it
+      const int st = it % NS;
+      hk::mbar_wait(full + st * 8, (it / NS) & 1);
+      const uint32_t sa = ring + st * L::STAGE;
+#pragma unroll
+      for (int kk = 0; kk < TC_TK / 16; ++kk) {
+        const int r = wg * 64 + wq * 16 + (lane & 15);
+        const int c = kk * 2 + (lane >> 4);
+        hk::ldmatrix_x4(dst[kk], sa + r * 128 + ((c ^ (r & 7)) << 4));
+      }
+    };
+    // chk[row] += A . bsum, bnd[row] += |A| . babs over this thread's k of
+    // stage it (fragment register 2 j + h holds row gr + 8 h, k = 16 kk +
+    // 8 j + 2 qd and + 1), once its column sums are ready
+    auto row_checksums = [&](int it, const Frag& fa) {
+      const int st = it % NS;
+      hk::mbar_wait(ready + st * 8, (it / NS) & 1);
+      const float* bsum = sums + st * 128;
+      const float* babs = bsum + 64;
+#pragma unroll
+      for (int kk = 0; kk < TC_TK / 16; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int k = kk * 16 + jj * 8 + 2 * qd;
+          const float2 bs = *reinterpret_cast<const float2*>(bsum + k);
+          const float2 ba = *reinterpret_cast<const float2*>(babs + k);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 x = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&fa[kk][2 * jj + h]));
+            float& c = chk_r[h][kk & 1];
+            float& bd = bnd_r[h][kk & 1];
+            c = fmaf(x.y, bs.y, fmaf(x.x, bs.x, c));
+            bd = fmaf(fabsf(x.y), ba.y, fmaf(fabsf(x.x), ba.x, bd));
+          }
+        }
+      }
+    };
+    // one stage: wgmma(it) from `cur` (A of stage it) runs while, once
+    // wgmma(it - 1) has retired, `prev` (A of stage it - 1) gives that
+    // stage's row checksums and is refilled with A of stage it + 1.  The
+    // two register buffers alternate, so no wgmma's A registers are
+    // touched while it is in flight.
+    auto step = [&](int it, Frag& cur, Frag& prev) {
+      const uint32_t sb = ring + (it % NS) * L::STAGE + L::A_BYTES;
+#pragma unroll
+      for (int e = 0; e < 64; ++e) hk::fence_operand(acc[e]);
+      hk::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TC_TK / 16; ++kk) {
+        const uint64_t db = KMAJ
+            ? hk::wgmma_desc(sb + kk * 32, 16, 1024)
+            : hk::wgmma_desc(sb + kk * 16 * 128, 8192, 1024);
+        hk::wgmma_m64n128k16_rs<KMAJ ? 0 : 1>(acc, cur[kk], db);
+      }
+      hk::wgmma_commit();
+      hk::wgmma_wait<1>();               // wgmma(it - 1) has retired
+#pragma unroll
+      for (int e = 0; e < 64; ++e) hk::fence_operand(acc[e]);
+      if (it >= 1) {
+        row_checksums(it - 1, prev);
+        __syncwarp();       // every lane is done reading the stage's sums
+        if (lane == 0) hk::mbar_arrive(empty + ((it - 1) % NS) * 8);
+      }
+      if (it + 1 < nk) fetch_a(it + 1, prev);
+    };
+    Frag fa0, fa1;
+    fetch_a(0, fa0);
+    for (int it = 0; it < nk; it += 2) {
+      step(it, fa0, fa1);
+      if (it + 1 < nk) step(it + 1, fa1, fa0);
+    }
+    hk::wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < 64; ++e) hk::fence_operand(acc[e]);
+    if (nk & 1)
+      row_checksums(nk - 1, fa0);
+    else
+      row_checksums(nk - 1, fa1);
+
+    // epilogue.  Accumulator fragment of m64n128: warp w of the warpgroup
+    // owns rows 16 w + lane / 4 (+ 8); register 4 nb + 2 h + e holds
+    // column 8 nb + 2 (lane % 4) + e of row half h.
+    const bool split = g.S > 1;
+    const bool pairs = (g.N & 1) == 0;
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + wg * 64 + wq * 16 + (lane >> 2) + 8 * h;
+      if (row >= row_end) continue;
+      const long long yrow = split ? (pbase + row) * g.N
+                                   : (long long)row * g.N;
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) {
+        const int col = col0 + nb * 8 + (lane & 3) * 2;
+        if (col >= col_end) continue;
+        float v0 = acc[nb * 4 + h * 2], v1 = acc[nb * 4 + h * 2 + 1];
+        const bool both = col + 1 < col_end;
+        if (split) {
+          if (both && pairs) {
+            *reinterpret_cast<float2*>(&part_acc[yrow + col]) =
+                make_float2(v0, v1);
+          } else {
+            part_acc[yrow + col] = v0;
+            if (both) part_acc[yrow + col + 1] = v1;
+          }
+          continue;
+        }
+        if (f.enabled && f.bi == i && f.bj == j &&
+            row - i * g.bm == f.row) {
+          if (col - j * g.bn == f.col) v0 = fault_value(f, v0);
+          if (both && col + 1 - j * g.bn == f.col) v1 = fault_value(f, v1);
+        }
+        if (out_bf16) {
+          __nv_bfloat16* y = reinterpret_cast<__nv_bfloat16*>(Y) + yrow +
+                             col;
+          if (both && pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(y) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            y[0] = __float2bfloat16(v0);
+            if (both) y[1] = __float2bfloat16(v1);
+          }
+        } else {
+          float* y = reinterpret_cast<float*>(Y) + yrow + col;
+          if (both && pairs) {
+            *reinterpret_cast<float2*>(y) = make_float2(v0, v1);
+          } else {
+            y[0] = v0;
+            if (both) y[1] = v1;
+          }
+        }
+        rs[h] += both ? v0 + v1 : v0;
+      }
+    }
+    if (!split) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+        const int row = row0 + wg * 64 + wq * 16 + (lane >> 2) + 8 * h;
+        if ((lane & 3) == 0 && row < row_end)
+          part_rs[(long long)row * gx + cx] = rs[h];
+      }
+    }
+    // each row's checksums: its quad's four shares, in a fixed order
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float c = chk_r[h][0] + chk_r[h][1], bd = bnd_r[h][0] + bnd_r[h][1];
+      c += __shfl_xor_sync(0xffffffffu, c, 1);
+      c += __shfl_xor_sync(0xffffffffu, c, 2);
+      bd += __shfl_xor_sync(0xffffffffu, bd, 1);
+      bd += __shfl_xor_sync(0xffffffffu, bd, 2);
+      const int row = row0 + wg * 64 + wq * 16 + gr + 8 * h;
+      if (qd == 0 && row < row_end) {
+        const long long o = (pbase + row) * gx + cx;
+        part_chk[o] = c;
+        part_bnd[o] = bd;
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------- checksum warpgroups
+  const int ct = tid - MT, cwarp = ct >> 5;
+  for (int it = 0; it < nk; ++it) {
+    const int st = it % NS;
+    hk::mbar_wait(full + st * 8, (it / NS) & 1);
+    const uint8_t* pb = ring_p + st * L::STAGE + L::A_BYTES;
+    float* bsum = sums + st * 128;
+    float* babs = bsum + 64;
+    // the stage's column sums of B over the tile's live columns
+    if (KMAJ) {
+      const int c = ct & 7, ng = ct >> 3;
+      constexpr int G = CK / 8;
+      float sm[8], ab[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sm[e] = ab[e] = 0.f;
+#pragma unroll
+      for (int n = ng; n < TC_TN; n += G) {
+        if (n < lim) {
+          float x[8];
+          hk::unpack8(*reinterpret_cast<const uint4*>(
+                          pb + n * 128 + ((c ^ (n & 7)) << 4)), x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            sm[e] += x[e];
+            ab[e] += fabsf(x[e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sm[e] += __shfl_xor_sync(0xffffffffu, sm[e], 8);
+        sm[e] += __shfl_xor_sync(0xffffffffu, sm[e], 16);
+        ab[e] += __shfl_xor_sync(0xffffffffu, ab[e], 8);
+        ab[e] += __shfl_xor_sync(0xffffffffu, ab[e], 16);
+      }
+      if (lane < 8) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          red[(cwarp * 2) * 64 + c * 8 + e] = sm[e];
+          red[(cwarp * 2 + 1) * 64 + c * 8 + e] = ab[e];
+        }
+      }
+      hk::named_bar_sync(1, CK);
+      if (ct < 128) {
+        const int k = ct & 63, which = ct >> 6;
+        float t = 0.f;
+#pragma unroll
+        for (int w = 0; w < L::CW; ++w) t += red[(w * 2 + which) * 64 + k];
+        (which ? babs : bsum)[k] = t;
+      }
+    } else {
+      constexpr int TPK = CK / 64, CPT = 16 / TPK;
+      const int kk = ct / TPK, p = ct % TPK;
+      float sm = 0.f, ab = 0.f;
+#pragma unroll
+      for (int q = 0; q < CPT; ++q) {
+        const int c16 = q * TPK + p;
+        float x[8];
+        hk::unpack8(*reinterpret_cast<const uint4*>(
+                        pb + (c16 >> 3) * 8192 + kk * 128 +
+                        (((c16 & 7) ^ (kk & 7)) << 4)), x);
+        if (c16 * 8 + 8 > lim) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (c16 * 8 + e >= lim) x[e] = 0.f;
+        }
+        sm += sum8(x);
+        ab += asum8(x);
+      }
+#pragma unroll
+      for (int o = 1; o < TPK; o <<= 1) {
+        sm += __shfl_xor_sync(0xffffffffu, sm, o);
+        ab += __shfl_xor_sync(0xffffffffu, ab, o);
+      }
+      if (p == 0) {
+        bsum[kk] = sm;
+        babs[kk] = ab;
+      }
+    }
+    // the sums of stage it are ready and this group is done with its B
+    // tile; refill the slot of stage it - LAG once the MMA warps release it
+    hk::named_bar_sync(1, CK);
+    if (ct == 0) {
+      hk::mbar_arrive(ready + st * 8);
+      hk::mbar_arrive(empty + st * 8);
+      const int old = it - L::LAG;
+      if (old >= 0 && old + NS < nk) {
+        hk::mbar_wait(empty + (old % NS) * 8, (old / NS) & 1);
+        issue(old + NS);
+      }
+    }
+  }
+}
+
+// After a split tensor-core pass 1: one CUDA block per 16 rows of a
+// pass-1 tile (a warp per row, lanes over the tile's columns) sums the K
+// slices' partial accumulators in a fixed order, applies the fault,
+// stores y and the row's partial rowsum(acc), and folds the slices'
+// partial checksums into slice 0.
+constexpr int TC_RED_ROWS = 16;
+
+__global__ void __launch_bounds__(256)
+abft_tc_reduce(const float* __restrict__ part_acc,
+               float* __restrict__ part_chk, float* __restrict__ part_bnd,
+               Geo g, Fault f, void* __restrict__ Y, int out_bf16,
+               float* __restrict__ part_rs) {
+  const int chunks = g.tm / TC_RED_ROWS;
+  const int rt_all = blockIdx.x / chunks, chunk = blockIdx.x % chunks;
+  const int cx = blockIdx.y;
+  const int i = rt_all / g.row_tiles, rt = rt_all % g.row_tiles;
+  const int j = cx / g.col_tiles, sub = cx % g.col_tiles;
+  const int row0 = i * g.bm + rt * g.tm;
+  const int row_end = min(min(row0 + g.tm, (i + 1) * g.bm), g.M);
+  const int col0 = j * g.bn + sub * TC_TN;
+  const int col_end = min(min(col0 + TC_TN, (j + 1) * g.bn), g.N);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gx = g.gn * g.col_tiles;
+  const long long slice = (long long)g.M * g.N;
+  for (int row = row0 + chunk * TC_RED_ROWS + warp;
+       row < min(row_end, row0 + (chunk + 1) * TC_RED_ROWS); row += 8) {
+    float rs = 0.f;
+#pragma unroll
+    for (int q = 0; q < TC_TN / 32; ++q) {
+      const int col = col0 + q * 32 + lane;
+      if (col >= col_end) continue;
+      const float* p = part_acc + (long long)row * g.N + col;
+      float v = 0.f;
+      for (int s = 0; s < g.S; ++s) v += p[s * slice];
+      if (f.enabled && f.bi == i && f.bj == j && row - i * g.bm == f.row &&
+          col - j * g.bn == f.col)
+        v = fault_value(f, v);
+      if (out_bf16)
+        reinterpret_cast<__nv_bfloat16*>(Y)[(long long)row * g.N + col] =
+            __float2bfloat16(v);
+      else
+        reinterpret_cast<float*>(Y)[(long long)row * g.N + col] = v;
+      rs += v;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      rs += __shfl_xor_sync(0xffffffffu, rs, o);
+    if (lane == 0) {
+      const long long o = (long long)row * gx + cx;
+      float c = 0.f, b = 0.f;
+      for (int s = 0; s < g.S; ++s) {
+        c += part_chk[s * (long long)g.M * gx + o];
+        b += part_bnd[s * (long long)g.M * gx + o];
+      }
+      part_chk[o] = c;
+      part_bnd[o] = b;
+      part_rs[o] = rs;
+    }
+  }
+}
+
+// Pass 2 of the tensor-core route (y already stored): one CUDA block per
+// logical (block_i, block_j) sums each row's per-tile partials in a fixed
+// order into the residual and bound.  Rows and columns past the problem
+// edge are the TPU kernel's zero padding: their checksums are 0, and a
+// fault that lands there enters the row sum here.
+template <bool TWO_SIDED>
+__global__ void __launch_bounds__(256)
+abft_tc_pass2(const float* __restrict__ part_chk,
+              const float* __restrict__ part_bnd,
+              const float* __restrict__ part_rs, Geo g, Fault f,
+              float* __restrict__ res, float* __restrict__ bnd) {
+  const int j = blockIdx.x, i = blockIdx.y, tid = threadIdx.x;
+  const int gx = g.gn * g.col_tiles;
+  float t_sum = 0.f, t_chk = 0.f, t_bnd = 0.f;
+  for (int rl = tid; rl < g.bm; rl += 256) {
+    const int row = i * g.bm + rl;
+    float c = 0.f, b = 0.f, rs = 0.f;
+    if (row < g.M) {
+      for (int sub = 0; sub < g.col_tiles; ++sub) {
+        if (j * g.bn + sub * g.tn >= g.N) break;
+        const long long idx = (long long)row * gx + j * g.col_tiles + sub;
+        c += part_chk[idx];
+        b += part_bnd[idx];
+        rs += part_rs[idx];
+      }
+    }
+    if (f.enabled && f.bi == i && f.bj == j && f.row == rl && f.col >= 0 &&
+        f.col < g.bn && (row >= g.M || j * g.bn + f.col >= g.N))
+      rs += fault_value(f, 0.f);
+    if (TWO_SIDED) {
+      t_sum += rs;
+      t_chk += c;
+      t_bnd += b;
+    } else {
+      const long long o = ((long long)i * g.gn + j) * g.bm + rl;
+      res[o] = fabsf(c - rs);
+      bnd[o] = b;
+    }
+  }
+  if (TWO_SIDED) {
+    __shared__ float w_s[8][3];
+    const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      t_sum += __shfl_xor_sync(0xffffffffu, t_sum, o);
+      t_chk += __shfl_xor_sync(0xffffffffu, t_chk, o);
+      t_bnd += __shfl_xor_sync(0xffffffffu, t_bnd, o);
+    }
+    if (lane == 0) {
+      w_s[warp][0] = t_sum;
+      w_s[warp][1] = t_chk;
+      w_s[warp][2] = t_bnd;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float s_ = 0.f, c = 0.f, b = 0.f;
+      for (int w = 0; w < 8; ++w) {
+        s_ += w_s[w][0];
+        c += w_s[w][1];
+        b += w_s[w][2];
+      }
+      res[(long long)i * g.gn + j] = fabsf(c - s_);
+      bnd[(long long)i * g.gn + j] = b;
+    }
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -415,7 +962,7 @@ abft_pass2(const float* __restrict__ part_acc,
       if (row_ok) {
         for (int s = 0; s < g.S; ++s)
           for (int sub = 0; sub < g.col_tiles; ++sub) {
-            if (j * g.bn + sub * TN >= g.N) break;
+            if (j * g.bn + sub * g.tn >= g.N) break;
             const long long idx =
                 ((long long)s * g.M + row) * gx + j * g.col_tiles + sub;
             c += part_chk[idx];
@@ -482,18 +1029,90 @@ void dispatch_pass1(int rm, const void* A, const void* B, const Geo& g,
   else launch_pass1<TI, 8>(A, B, g, replica, pa, pc, pb, st);
 }
 
+// cuTensorMapEncodeTiled from the driver, through the runtime (no link
+// against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) == cudaSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+#endif
+  }
+  return fn;
+}
+
+// 2-d bf16 tensor map: `inner` x `outer` elements, `stride` bytes between
+// outer rows, boxes of box_inner x box_outer with the 128-byte swizzle
+bool tensor_map(CUtensorMap* m, const void* base, long long inner,
+                long long outer, long long stride, int box_inner,
+                int box_outer) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int WG, bool KMAJ>
+cudaError_t launch_tc(const void* A, const void* B, const Geo& g,
+                      const Fault& f, void* Y, int out_bf16, float* pa,
+                      float* pc, float* pb, float* pr, cudaStream_t st) {
+  CUtensorMap ta, tb;
+  const bool ok =
+      tensor_map(&ta, A, g.K, g.M, g.lda * 2, TC_TK, 64 * WG) &&
+      (KMAJ ? tensor_map(&tb, B, g.K, g.N, g.sbn * 2, TC_TK, TC_TN)
+            : tensor_map(&tb, B, g.N, g.K, g.sbk * 2, 64, TC_TK));
+  if (!ok) return cudaErrorInvalidValue;
+  static unsigned long long capped = 0;   // devices, one bit each
+  cudaError_t err = hk::raise_smem_cap(abft_tc_pass1<WG, KMAJ>,
+                                       TcSmem<WG>::BYTES, &capped);
+  if (err != cudaSuccess) return err;
+  dim3 grid(g.gm * g.row_tiles, g.gn * g.col_tiles, g.S);
+  abft_tc_pass1<WG, KMAJ><<<grid, 256 * WG, TcSmem<WG>::BYTES, st>>>(
+      ta, tb, g, f, Y, out_bf16, pa, pc, pb, pr);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// route: 0 = CUDA-core tiled pass 1 (tile tm x tn = 8, 32 or 64 x 64),
+// 1 = the decode GEMV pass 1 (M <= 8, modes 1s/2s, row-major W with
+// 16-byte aligned rows, bn % 64 == 0; tile 8 x 64; K slices a multiple of
+// 32 deep), 2 / 3 = the tensor-core pass 1 (bf16, modes 1s/2s, 16-byte
+// aligned rows of A and of W; W row-major for 2, K-major for 3; tile 64 or
+// 128 x 128; K slices a multiple of 64 deep; with S > 1 abft_tc_reduce
+// folds the slices).  The tile comes from the caller, which sized the
+// scratch and the K split by it; any other tile is rejected.
 // mode: 0 = '1s', 1 = '2s', 2 = 'replica'.  dtypes: 0 = f32, 1 = bf16.
-// rm: rows per thread of the CUDA tile (1, 4 or 8; TM = 8 * rm), or 0 for
-// the decode fast path (M <= 8, modes 1s/2s, row-major W with 16-byte
-// aligned rows, bn % 64 == 0; K slices a multiple of 32 deep).
-// Returns cudaGetLastError() after both launches.
+// part_rs (M x column tiles) is used by the tensor-core route only.
+// Returns cudaGetLastError() after the last launch.
 extern "C" int abft_matmul_launch(
     const void* A, const void* B, void* Y, void* res, void* bnd,
-    void* part_acc, void* part_chk, void* part_bnd,
+    void* part_acc, void* part_chk, void* part_bnd, void* part_rs,
     int M, int K, int N, long long lda, long long sbk, long long sbn,
-    int bm, int bk, int bn, int S, int kc, int rm, int mode,
+    int bm, int bk, int bn, int S, int kc, int route, int tm, int tn,
+    int mode,
     int in_dtype, int out_dtype,
     int f_enabled, int f_bi, int f_bj, int f_row, int f_col, int f_bit,
     float f_delta, void* stream) {
@@ -502,8 +1121,6 @@ extern "C" int abft_matmul_launch(
   g.bm = bm; g.bk = bk; g.bn = bn;
   g.gm = (M + bm - 1) / bm;
   g.gn = (N + bn - 1) / bn;
-  g.row_tiles = rm ? (bm + 8 * rm - 1) / (8 * rm) : 1;
-  g.col_tiles = (bn + TN - 1) / TN;
   g.S = S; g.kc = kc;
   g.lda = lda; g.sbk = sbk; g.sbn = sbn;
   Fault f{f_enabled, f_bi, f_bj, f_row, f_col, f_bit, f_delta};
@@ -511,15 +1128,59 @@ extern "C" int abft_matmul_launch(
   float* pa = (float*)part_acc;
   float* pc = (float*)part_chk;
   float* pb = (float*)part_bnd;
-  const bool replica = mode == 2;
-  if (in_dtype == 1)
-    dispatch_pass1<__nv_bfloat16>(rm, A, B, g, replica, pa, pc, pb, st);
-  else
-    dispatch_pass1<float>(rm, A, B, g, replica, pa, pc, pb, st);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid2(g.gn, g.gm);
   const bool two = mode == 1;
+  if (route >= 2) {
+    if (in_dtype != 1 || mode == 2 || (tm != 64 && tm != 128) ||
+        tn != TC_TN)
+      return (int)cudaErrorInvalidValue;
+    const int wgs = tm / 64;
+    g.tm = tm;
+    g.row_tiles = (bm + g.tm - 1) / g.tm;
+    g.col_tiles = (bn + TC_TN - 1) / TC_TN;
+    g.tn = TC_TN;
+    cudaError_t err;
+    if (wgs == 2)
+      err = route == 3
+          ? launch_tc<2, true>(A, B, g, f, Y, out_dtype, pa, pc, pb,
+                               (float*)part_rs, st)
+          : launch_tc<2, false>(A, B, g, f, Y, out_dtype, pa, pc, pb,
+                                (float*)part_rs, st);
+    else
+      err = route == 3
+          ? launch_tc<1, true>(A, B, g, f, Y, out_dtype, pa, pc, pb,
+                               (float*)part_rs, st)
+          : launch_tc<1, false>(A, B, g, f, Y, out_dtype, pa, pc, pb,
+                                (float*)part_rs, st);
+    if (err != cudaSuccess) return (int)err;
+    if (S > 1) {
+      dim3 grid(g.gm * g.row_tiles * (g.tm / TC_RED_ROWS),
+                g.gn * g.col_tiles);
+      abft_tc_reduce<<<grid, 256, 0, st>>>(pa, pc, pb, g, f, Y, out_dtype,
+                                           (float*)part_rs);
+    }
+    dim3 grid2(g.gn, g.gm);
+    if (two) abft_tc_pass2<true><<<grid2, 256, 0, st>>>(
+        pc, pb, (const float*)part_rs, g, f, (float*)res, (float*)bnd);
+    else abft_tc_pass2<false><<<grid2, 256, 0, st>>>(
+        pc, pb, (const float*)part_rs, g, f, (float*)res, (float*)bnd);
+    return (int)cudaGetLastError();
+  } else {
+    const bool gemv = route == 1;
+    if (tn != TN || (gemv ? (tm != 8 || M > 8 || mode == 2 || bn % TN)
+                          : (tm != 8 && tm != 32 && tm != 64)))
+      return (int)cudaErrorInvalidValue;
+    g.row_tiles = gemv ? 1 : (bm + tm - 1) / tm;
+    g.col_tiles = (bn + TN - 1) / TN;
+    g.tn = TN;
+    const int r = gemv ? 0 : tm / 8;
+    if (in_dtype == 1)
+      dispatch_pass1<__nv_bfloat16>(r, A, B, g, mode == 2, pa, pc, pb, st);
+    else
+      dispatch_pass1<float>(r, A, B, g, mode == 2, pa, pc, pb, st);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid2(g.gn, g.gm);
   if (out_dtype == 1) {
     if (two) abft_pass2<__nv_bfloat16, true><<<grid2, 256, 0, st>>>(
         pa, pc, pb, g, f, (__nv_bfloat16*)Y, (float*)res, (float*)bnd);
@@ -533,3 +1194,4 @@ extern "C" int abft_matmul_launch(
   }
   return (int)cudaGetLastError();
 }
+

@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -267,21 +269,13 @@ extern "C" int flash_decode_launch(
   const int smem = flash_decode_smem_bytes(G, D, DV, T);
   dim3 grid(B, KV);
   cudaStream_t st = (cudaStream_t)stream;
-  // raise the dynamic shared-memory cap once per instantiation, to the
-  // whole 227 KB a block may use (outside any CUDA-graph capture that
-  // later launches replay)
-  static bool configured[2] = {false, false};
-  if (!configured[dtype == 1]) {
-    cudaError_t err = dtype == 1
-        ? cudaFuncSetAttribute(flash_decode_kernel<__nv_bfloat16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               232448)
-        : cudaFuncSetAttribute(flash_decode_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               232448);
-    if (err != cudaSuccess) return (int)err;
-    configured[dtype == 1] = true;
-  }
+  // the dynamic shared-memory cap goes to the whole 227 KB a block may use
+  static unsigned long long capped[2] = {0, 0};   // devices, one bit each
+  cudaError_t err = dtype == 1
+      ? hk::raise_smem_cap(flash_decode_kernel<__nv_bfloat16>, 232448,
+                           &capped[1])
+      : hk::raise_smem_cap(flash_decode_kernel<float>, 232448, &capped[0]);
+  if (err != cudaSuccess) return (int)err;
   if (dtype == 1)
     flash_decode_kernel<__nv_bfloat16><<<grid, NT, smem, st>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)kc,

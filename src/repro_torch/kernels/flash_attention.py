@@ -6,7 +6,8 @@ versions.
 K2 replaces the TPU kernel ``repro.kernels.flash_attention.
 flash_attention_kernel`` (body ``_kernel``): causal or non-causal
 attention with the two fused checks and the ``(6,)`` delta fault on the
-output accumulator.  q (B, Lq, H, D) and k/v (B, Lk, KV, D[v]) are read in
+output accumulator.  bf16 runs on the tensor cores, f32 on the CUDA cores
+(``tc_path`` decides before the launch).  q (B, Lq, H, D) and k/v (B, Lk, KV, D[v]) are read in
 place through their strides (query head h on kv head h // G); the padded
 lengths ``Lq_pad``/``Lk_pad`` (block multiples) are what the reference
 pads to, and rows/keys past the true lengths count as zeros.  Returns
@@ -39,6 +40,21 @@ MAX_HEAD_DIM = 128       # K2 keeps a 4 x 8 register tile over <= 128 cols
 MAX_BK = 128
 
 
+def tc_path(q, k, v, bk: int) -> bool:
+    """K2's route: the tensor-core kernel takes bf16 q/k/v whose head dims
+    and k block ``bk`` are multiples of 8 and whose rows (every batch,
+    position and head stride) and base pointers are 16-byte aligned, so
+    that each 16-byte chunk of a row lands by one cp.async.  Everything
+    else — f32 (TF32 stays off), or bf16 that breaks an alignment term —
+    runs on the CUDA-core kernel."""
+    return (q.dtype == torch.bfloat16
+            and all(t.dtype == torch.bfloat16 for t in (k, v))
+            and q.shape[3] % 8 == 0 and v.shape[3] % 8 == 0 and bk % 8 == 0
+            and all(t.data_ptr() % 16 == 0 and all(s % 8 == 0
+                                                   for s in t.stride()[:3])
+                    for t in (q, k, v)))
+
+
 def f32_bits(x: float) -> int:
     """The int32 whose bits are the f32 ``x`` (the reference's fault
     vector carries the delta so)."""
@@ -51,7 +67,7 @@ def flash_attention_kernel(q, k, v, fault=(0, 0, 0, 0, 0, 0), *, bq: int,
     """Launch K2.  ``fault`` is the reference's (6,) int vector
     [q_block, 0, row, col, enabled, delta_bits]; ``bq``/``bk`` are the
     logical blocks and ``lq_pad``/``lk_pad`` their multiples that the
-    reference pads q and k/v to."""
+    reference pads q and k/v to.  ``tc_path`` picks the kernel."""
     B, Lq, H, D = q.shape
     Lk, KV, DV = k.shape[1], k.shape[2], v.shape[3]
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
@@ -79,7 +95,10 @@ def flash_attention_kernel(q, k, v, fault=(0, 0, 0, 0, 0, 0), *, bq: int,
                       for _ in range(4))
     fq, _, frow, fcol, fen, fbits = (int(x) for x in fault)
     P = library.ptr
-    err = library.library("flash_attention").flash_attention_launch(
+    lib = library.library("flash_attention")
+    launch = lib.flash_attention_tc_launch if tc_path(q, k, v, bk) \
+        else lib.flash_attention_launch
+    err = launch(
         P(q), P(k), P(v), P(out), P(rs), P(bs), P(rp), P(bp), B, H, KV, Lq,
         Lk, lq_pad, lk_pad, D, DV, bq, bk, int(causal), q.stride(0),
         q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),

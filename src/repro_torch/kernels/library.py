@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
 started together) into a shared library with a plain C interface under
 ``kernels/build/`` (listed in ``.gitignore``), at the first CUDA use —
 never at import, since a machine without ``nvcc`` must still import the
-package.  A library is rebuilt when its source is newer.  Wrappers call
+package.  A library is rebuilt when its source, or any shared header
+``csrc/*.cuh``, is newer.  Wrappers call
 the C entry points through ``ctypes`` with pointers and the current
 stream as ``c_void_p`` and raise on a non-zero ``cudaError_t``.
 """
@@ -48,8 +49,10 @@ def _nvcc() -> str:
 
 def _stale(name: str) -> bool:
     so = BUILD / f"lib{name}.so"
-    return not so.exists() or so.stat().st_mtime < (
-        CSRC / f"{name}.cu").stat().st_mtime
+    if not so.exists():
+        return True
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return so.stat().st_mtime < max(d.stat().st_mtime for d in deps)
 
 
 def build_all(force: bool = False) -> dict:
@@ -88,13 +91,15 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
                    ctypes.c_float)
     if name == "abft_matmul":
         fn = lib.abft_matmul_launch
-        fn.argtypes = [p] * 8 + [i, i, i, ll, ll, ll] + [i] * 9 + [i] * 6 \
+        fn.argtypes = [p] * 9 + [i, i, i, ll, ll, ll] + [i] * 11 + [i] * 6 \
             + [f, p]
         fn.restype = i
     elif name == "flash_attention":
-        fn = lib.flash_attention_launch
-        fn.argtypes = [p] * 8 + [i] * 12 + [ll] * 9 + [f] + [i] * 6 + [p]
-        fn.restype = i
+        for fn in (lib.flash_attention_launch,
+                   lib.flash_attention_tc_launch):
+            fn.argtypes = [p] * 8 + [i] * 12 + [ll] * 9 + [f] + [i] * 6 \
+                + [p]
+            fn.restype = i
     else:
         fn = lib.flash_decode_launch
         fn.argtypes = [p] * 10 + [i] * 9 + [ll, f, i, p]

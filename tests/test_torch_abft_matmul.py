@@ -29,7 +29,11 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.abft_matmul import (
     abft_matmul_kernel,
     gemv_path,
+    plan,
+    route,
+    routes,
     split_k,
+    tile,
 )
 from repro_torch.kernels.ref import abft_matmul_ref
 
@@ -152,3 +156,134 @@ def test_gemv_path_terms():
     assert not gemv_path(torch.zeros(9, 64), w, 128, "1s")
     assert not gemv_path(x, torch.zeros(128, 64).t(), 128, "1s")
     assert not gemv_path(x, w, 40, "1s")
+
+
+BF16 = torch.bfloat16
+
+
+def _op(m, k, n, dtype=BF16, head=False):
+    """Operands of the shapes only (values unused): W row-major, or the
+    tied head's ``embed.T`` view."""
+    x = torch.empty(m, k, dtype=dtype)
+    w = torch.empty(n, k, dtype=dtype).t() if head else \
+        torch.empty(k, n, dtype=dtype)
+    return x, w
+
+
+def _blocks(m, k, n):
+    return dict(bm=min(256, -(-m // 8) * 8), bk=min(512, -(-k // 8) * 8),
+                bn=min(256, -(-n // 8) * 8))
+
+
+@pytest.mark.parametrize("case,want", [
+    (dict(m=4, k=2048, n=512, mode="1s"), "tc"),             # decode
+    (dict(m=4, k=2048, n=512, mode="2s", dtype=torch.float32), "gemv"),
+    (dict(m=512, k=2048, n=2048, mode="1s"), "tc"),          # prefill
+    (dict(m=2048, k=8192, n=2048, mode="2s"), "tc"),         # forward down
+    (dict(m=16, k=2048, n=512, mode="1s"), "tc"),            # M > 8
+    (dict(m=4, k=2048, n=1000, mode="1s", head=True), "tc_kmajor"),
+    (dict(m=512, k=2048, n=1000, mode="1s", head=True), "tc_kmajor"),
+    (dict(m=512, k=2048, n=2048, mode="1s", dtype=torch.float32), "tiled"),
+    (dict(m=512, k=2048, n=2048, mode="replica"), "tiled"),
+    (dict(m=4, k=2048, n=512, mode="replica"), "tiled"),
+    (dict(m=130, k=514, n=258, mode="1s"), "tiled"),         # rows of 1028 B
+])
+def test_route_picks_pass_one_from_documented_terms(case, want):
+    case = dict(case)
+    mode, dtype = case.pop("mode"), case.pop("dtype", BF16)
+    head = case.pop("head", False)
+    x, w = _op(case["m"], case["k"], case["n"], dtype, head)
+    assert route(x, w, _blocks(**case)["bn"], mode) == want
+
+
+def test_route_sends_unaligned_bf16_rows_to_the_cuda_core_pass():
+    x = torch.empty(40, 2049, dtype=BF16)[:, 1:]      # base 2 B off 16
+    w = torch.empty(2048, 512, dtype=BF16)
+    assert x.stride(1) == 1 and x.data_ptr() % 16 != 0
+    assert route(x, w, 256, "1s") == "tiled"
+    assert route(torch.empty(40, 2048, dtype=BF16), w, 256, "1s") == "tc"
+    wu = torch.empty(2048, 513, dtype=BF16)[:, :512]   # rows of 1026 B
+    assert route(torch.empty(40, 2048, dtype=BF16), wu, 256, "1s") == \
+        "tiled"
+
+
+@pytest.mark.parametrize("m,k,n,head,slices", [
+    (2048, 2048, 2048, False, 1),    # q/o at the forward: 256 tiles
+    (2048, 8192, 2048, False, 1),    # down
+    (2048, 2048, 512, False, 2),     # k/v: 64 tiles fill half the SMs
+    (512, 2048, 2048, False, 2),     # q/o at a 512-token prefill
+    (512, 2048, 512, False, 8),      # k/v at 512: 16 tiles
+    (512, 2048, 8192, False, 1),     # up/gate
+    (512, 2048, 128256, True, 1),    # the tied head
+    (4, 2048, 128256, True, 1),      # the tied head at decode
+])
+def test_tensor_core_split_and_scratch_shapes(m, k, n, head, slices):
+    x, w = _op(m, k, n, head=head)
+    b = _blocks(m, k, n)
+    p = plan(x, w, mode="1s", **b)
+    assert p.route == ("tc_kmajor" if head else "tc")
+    assert p.slices == slices
+    assert (p.slices - 1) * p.depth < k <= p.slices * p.depth
+    assert p.depth % 64 == 0                 # whole 64-deep stages
+    gx = -(-n // b["bn"]) * -(-b["bn"] // 128)
+    assert p.scratch["part_chk"] == p.scratch["part_bnd"] == (slices, m, gx)
+    assert p.scratch["part_rs"] == (m, gx)
+    # one slice: the epilogue stores y; more: partial accumulators
+    assert p.scratch["part_acc"] == ((0,) if slices == 1
+                                     else (slices, m, n))
+
+
+def test_cuda_core_routes_keep_their_scratch():
+    x, w = _op(4, 2048, 512, dtype=torch.float32)
+    p = plan(x, w, mode="1s", **_blocks(4, 2048, 512))
+    assert p.route == "gemv" and p.scratch["part_rs"] == (0,)
+    assert p.scratch["part_acc"] == (p.slices, 4, 512)
+    assert p.scratch["part_chk"] == (p.slices, 4, 8)          # 64-col tiles
+    x, w = _op(512, 2048, 2048, dtype=torch.float32)
+    p = plan(x, w, mode="1s", **_blocks(512, 2048, 2048))
+    assert p.route == "tiled" and p.scratch["part_chk"][2] == 32
+
+
+@pytest.mark.parametrize("case,want", [
+    (dict(m=4, k=2048, n=512), ("tc", "gemv", "tiled")),       # decode
+    (dict(m=4, k=2048, n=512, dtype=torch.float32), ("gemv", "tiled")),
+    (dict(m=4, k=2048, n=1000, head=True), ("tc_kmajor", "tiled")),
+    (dict(m=512, k=2048, n=2048), ("tc", "tiled")),
+    (dict(m=512, k=2048, n=2048, mode="replica"), ("tiled",)),
+])
+def test_routes_lists_every_route_that_can_take_the_operands(case, want):
+    case = dict(case)
+    mode, dtype = case.pop("mode", "1s"), case.pop("dtype", BF16)
+    x, w = _op(case["m"], case["k"], case["n"], dtype, case.pop("head",
+                                                                False))
+    assert routes(x, w, _blocks(**case)["bn"], mode) == want
+
+
+@pytest.mark.parametrize("r,bm,want", [
+    ("tc", 8, (64, 128)), ("tc", 64, (64, 128)), ("tc", 256, (128, 128)),
+    ("tc_kmajor", 40, (64, 128)), ("gemv", 8, (8, 64)),
+    ("tiled", 8, (8, 64)), ("tiled", 32, (32, 64)), ("tiled", 256, (64, 64)),
+])
+def test_tile_is_the_geometry_the_launch_gets(r, bm, want):
+    assert tile(r, bm) == want
+
+
+def test_forced_route_sizes_its_own_scratch_and_split():
+    x, w = _op(4, 2048, 2048)
+    b = _blocks(4, 2048, 2048)
+    p = plan(x, w, mode="1s", **b)
+    assert p.route == "tc" and p.tile == (64, 128)
+    assert p.slices == 8 and p.depth == 256       # 16 tiles of 132 SMs
+    assert p.scratch["part_rs"] == (4, 16)
+    assert p.scratch["part_acc"] == (8, 4, 2048)
+    p = plan(x, w, mode="1s", **b, force="gemv")
+    assert p.route == "gemv" and p.tile == (8, 64)
+    assert p.scratch["part_rs"] == (0,) and p.scratch["part_chk"][2] == 32
+    assert plan(x, w, mode="1s", **b, force="tiled").route == "tiled"
+
+
+@pytest.mark.parametrize("force", ["tc", "tc_kmajor", "gemv", "bogus"])
+def test_forced_route_that_cannot_take_the_operands_raises(force):
+    x, w = _op(512, 2048, 2048, dtype=torch.float32)
+    with pytest.raises(ValueError):
+        plan(x, w, mode="1s", **_blocks(512, 2048, 2048), force=force)

@@ -368,3 +368,239 @@ def test_small_train_step_on_the_card_equals_the_cpu(dev):
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     for a, b in zip(pg, pc):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+# ------------------------------------------- tensor-core routes (K1, K2)
+
+BF16 = torch.bfloat16
+# (M, K, N, W layout): one slice (the epilogue stores y) and split K
+K1_TC_CASES = [(16, 2048, 512, "row"), (40, 2048, 512, "row"),
+               (333, 2048, 512, "row"), (512, 2048, 2048, "row"),
+               (2048, 512, 2048, "row"), (40, 256, 1000, "kmajor"),
+               (333, 512, 1000, "kmajor"), (512, 2048, 4096, "kmajor"),
+               (2048, 512, 1000, "kmajor")]
+
+
+def _tc_case(dev, m, k, n, layout, seed):
+    x, w = _k1_inputs(dev, m, k, n, BF16, seed=seed,
+                      transposed=layout == "kmajor")
+    out = torch.float32 if layout == "kmajor" else BF16   # the tied head
+    return x, w, out
+
+
+@pytest.mark.parametrize("mode", ["1s", "2s"])
+@pytest.mark.parametrize("case", K1_TC_CASES)
+def test_k1_tensor_core_route_matches_plain_version(dev, case, mode):
+    """y within 2^-7 (bf16) or 1e-4 (f32) of max|y|, bounds within 1e-5
+    relative, the reference's residual shapes, no clean flag."""
+    m, k, n, layout = case
+    x, w, out = _tc_case(dev, m, k, n, layout, seed=6)
+    bm, bk, bn = _blocks(m, k, n)
+    kw = dict(mode=mode, bm=bm, bk=bk, bn=bn, out_dtype=out)
+    plan = am.plan(x, w, mode=mode, bm=bm, bk=bk, bn=bn)
+    assert plan.route == ("tc_kmajor" if layout == "kmajor" else "tc")
+    y, res, bnd = am.abft_matmul_kernel(x, w, **kw)
+    yp, resp, bndp = abft_matmul_ref(x, w, **kw)
+    torch.cuda.synchronize()
+    assert res.shape == resp.shape and bnd.shape == bndp.shape
+    err = (y.float() - yp.float()).abs().max().item()
+    assert err <= _y_tol(yp, out)
+    torch.testing.assert_close(bnd, bndp, rtol=1e-5, atol=1e-30)
+    _, chk = ops.abft_matmul(x, w, mode=mode, out_dtype=out)
+    assert not bool(chk.flag)
+    assert (chk.residual / chk.threshold).max().item() < 1
+
+
+def test_k1_tensor_core_route_splits_k_only_for_few_tiles(dev):
+    x, w, _ = _tc_case(dev, 512, 2048, 2048, "row", seed=7)
+    assert am.plan(x, w, mode="1s", **dict(zip(
+        ("bm", "bk", "bn"), _blocks(512, 2048, 2048)))).slices == 2
+    x, w, _ = _tc_case(dev, 2048, 512, 2048, "row", seed=7)
+    assert am.plan(x, w, mode="1s", **dict(zip(
+        ("bm", "bk", "bn"), _blocks(2048, 512, 2048)))).slices == 1
+
+
+@pytest.mark.parametrize("m", [512, 2048])
+def test_k1_tensor_core_route_raises_no_flag_on_down(dev, m):
+    """The deepest GEMM (mlp down, K = 8192): tensor-core f32 accumulation
+    stays under the reference's threshold."""
+    x, w = _k1_inputs(dev, m, 8192, 2048, BF16, seed=8)
+    for mode in ("1s", "2s"):
+        _, chk = ops.abft_matmul(x, w, mode=mode)
+        assert not bool(chk.flag)
+        assert (chk.residual / chk.threshold).max().item() < 1
+
+
+@pytest.mark.parametrize("mode", ["1s", "2s"])
+@pytest.mark.parametrize("case", [(333, 2048, 512, "row"),
+                                  (512, 2048, 2048, "row"),
+                                  (40, 256, 1000, "kmajor")])
+def test_k1_tensor_core_route_flags_faults_at_their_block_and_row(
+        dev, case, mode):
+    m, k, n, layout = case
+    x, w, out = _tc_case(dev, m, k, n, layout, seed=9)
+    row, col = m - 1, n // 2 + 3
+    bm, _, bn = _blocks(m, k, n)
+    want = (row // bm, col // bn) + (() if mode == "2s" else (row % bm,))
+    clean, _ = ops.abft_matmul(x, w, mode=mode, out_dtype=out)
+    bit = 30 if clean[row, col].float().abs().item() < 2 else 29
+    for fault in (FaultSpec.value(row, col, 1e4),
+                  FaultSpec.bitflip(row, col, bit)):
+        y, chk = ops.abft_matmul(x, w, mode=mode, out_dtype=out,
+                                 fault=fault)
+        assert bool(chk.flag)
+        ratio = (chk.residual / chk.threshold).nan_to_num(float("inf"))
+        at = np.unravel_index(int(ratio.argmax().item()), ratio.shape)
+        assert tuple(int(a) for a in at) == want
+        diff = (y != clean).nonzero().tolist()
+        assert diff == [[row, col]]       # only the faulted element
+
+
+@pytest.mark.parametrize("mode", ["1s", "2s"])
+def test_k1_tensor_core_route_fault_in_the_zero_padding(dev, mode):
+    """A fault on a row past M (the logical block's zero padding) enters
+    the residual there, as in the plain version."""
+    x, w, out = _tc_case(dev, 333, 512, 512, "row", seed=10)
+    bm, bk, bn = _blocks(333, 512, 512)
+    fault = (1, 1, 400 - 256, 7, 1, -1)          # row 400 of 512 padded
+    kw = dict(mode=mode, bm=bm, bk=bk, bn=bn, out_dtype=out)
+    _, res, _ = am.abft_matmul_kernel(x, w, fault, 1e4, **kw)
+    _, resp, _ = abft_matmul_ref(x, w, fault, 1e4, **kw)
+    assert res.argmax().item() == resp.argmax().item()
+    torch.testing.assert_close(res.max(), resp.max(), rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("case", [(512, 2048, 2048, "row"),
+                                  (2048, 512, 2048, "row"),
+                                  (333, 512, 1000, "kmajor")])
+def test_k1_tensor_core_route_is_bit_for_bit_deterministic(dev, case):
+    x, w, out = _tc_case(dev, *case, seed=11)
+    bm, bk, bn = _blocks(*case[:3])
+    kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=out)
+    runs = [am.abft_matmul_kernel(x, w, **kw) for _ in range(3)]
+    for r in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(r, runs[0]))
+
+
+@pytest.mark.parametrize("mode", ["1s", "2s"])
+@pytest.mark.parametrize("n", [512, 2048, 8192])
+def test_k1_tensor_core_route_at_decode_matches_plain_version(dev, n, mode):
+    """bf16 decode (M=4, row-major W) takes the tensor-core pass 1; the
+    GEMV pass 1, forced on the same operands as chip_smoke.py times it,
+    agrees with the plain version too."""
+    x, w = _k1_inputs(dev, 4, 2048, n, BF16, seed=17)
+    bm, bk, bn = _blocks(4, 2048, n)
+    kw = dict(mode=mode, bm=bm, bk=bk, bn=bn, out_dtype=BF16)
+    assert am.plan(x, w, mode=mode, bm=bm, bk=bk, bn=bn).route == "tc"
+    yp, resp, bndp = abft_matmul_ref(x, w, **kw)
+    for force in (None, "gemv"):
+        y, res, bnd = am.abft_matmul_kernel(x, w, **kw, force=force)
+        assert res.shape == resp.shape
+        assert (y.float() - yp.float()).abs().max().item() <= \
+            _y_tol(yp, BF16)
+        torch.testing.assert_close(bnd, bndp, rtol=1e-5, atol=1e-30)
+    _, chk = ops.abft_matmul(x, w, mode=mode)
+    assert not bool(chk.flag)
+
+
+def test_k1_launch_rejects_a_tile_its_scratch_was_not_sized_for(
+        dev, monkeypatch):
+    x, w = _k1_inputs(dev, 40, 512, 512, BF16, seed=18)
+    bm, bk, bn = _blocks(40, 512, 512)
+    kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=BF16)
+    for r, bad in (("tc", (32, am.TC_TN)), ("tiled", (64, am.TC_TN))):
+        with monkeypatch.context() as mp:
+            mp.setattr(am, "tile", lambda r_, bm_, bad=bad: bad)
+            with pytest.raises(RuntimeError):
+                am.abft_matmul_kernel(x, w, **kw, force=r)
+    am.abft_matmul_kernel(x, w, **kw)          # the right tile launches
+
+
+K2_TC_CASES = [(1, True), (7, True), (128, True), (333, True),
+               (1024, True), (256, False)]
+
+
+@pytest.mark.parametrize("L,causal", K2_TC_CASES)
+def test_k2_tensor_core_kernel_matches_plain_version(dev, L, causal):
+    """bf16 on the tensor-core kernel: o element by element within
+    2^-7 |o_ref| + 1e-5 max|o| (one bf16 rounding of either side), both
+    bounds within 1e-5 relative, clean residuals under the thresholds."""
+    from repro_torch.core.checksums import ATOL, tolerance_scale
+
+    q, k, v = _k2_case(dev, BF16, L, seed=12)
+    kw = _k2_kw(L, causal)
+    assert fa.tc_path(q, k, v, kw["bk"])
+    got = fa.flash_attention_kernel(q, k, v, **kw)
+    ref = fa.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o = ref[0].float()
+    tol = 2 ** -7 * o.abs() + 1e-5 * o.abs().max()
+    assert bool(((got[0].float() - o).abs() <= tol).all())
+    for g, r in ((got[2], ref[2]), (got[4], ref[4])):
+        assert g.shape == r.shape
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-30)
+    D = q.shape[-1]
+    assert bool((got[1] <= ATOL + tolerance_scale(D) * got[2]).all())
+    assert bool((got[3] <= ATOL + tolerance_scale(L) * got[4]).all())
+
+
+def test_k2_tensor_core_kernel_reads_strided_qkv_in_place(dev):
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    B, L, H, KV, D = 2, 100, 8, 2, 64
+    fused = torch.randn(B, L, (H + 2 * KV) * D, generator=gen).to(dev, BF16)
+    q = fused[..., :H * D].view(B, L, H, D)
+    k = fused[..., H * D:(H + KV) * D].view(B, L, KV, D)
+    v = fused[..., (H + KV) * D:].view(B, L, KV, D)
+    kw = _k2_kw(L, True)
+    assert not q.is_contiguous() and fa.tc_path(q, k, v, kw["bk"])
+    got = fa.flash_attention_kernel(q, k, v, **kw)
+    ref = fa.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), **kw)
+    o = ref[0].float()
+    assert (got[0].float() - o).abs().max().item() <= \
+        2 ** -7 * o.abs().max().item()
+    torch.testing.assert_close(got[4], ref[4], rtol=1e-5, atol=1e-30)
+
+
+def test_k2_unaligned_bf16_takes_the_cuda_core_kernel(dev):
+    q, k, v = _k2_case(dev, BF16, 64, seed=14)
+    flat = torch.empty(q.numel() + 1, dtype=BF16, device=dev)
+    qs = flat[1:].view(q.shape)                   # base 2 B off 16
+    qs.copy_(q)
+    kw = _k2_kw(64, True)
+    assert not fa.tc_path(qs, k, v, kw["bk"])
+    got = fa.flash_attention_kernel(qs, k, v, **kw)
+    ref = fa.flash_attention_ref(q, k, v, **kw)
+    assert (got[0].float() - ref[0].float()).abs().max().item() <= \
+        2 ** -7 * ref[0].float().abs().max().item()
+
+
+def test_k2_tensor_core_kernel_flags_a_fault_at_its_row_in_every_head(dev):
+    from repro_torch.kernels.flash_attention import f32_bits
+
+    q, k, v = _k2_case(dev, BF16, 300, seed=15)
+    kw = _k2_kw(300, True)
+    assert fa.tc_path(q, k, v, kw["bk"])
+    row, col = 170, 9                     # q block 1 of 3
+    _, chk = flash_ops.flash_attention(
+        q, k, v, causal=True, fault=FaultSpec.value(row, col, 1e4))
+    assert bool(chk.flag)
+    fi = (row // 128, 0, row % 128, col, 1, f32_bits(1e4))
+    out, _, _, rp, _ = fa.flash_attention_kernel(q, k, v, fi, **kw)
+    at = rp.reshape(rp.shape[0], rp.shape[1], -1).argmax(-1)
+    assert bool((at == row).all())
+    rref = fa.flash_attention_ref(q, k, v, fi, **kw)[3]
+    torch.testing.assert_close(rp[:, :, 1, row % 128],
+                               rref[:, :, 1, row % 128], rtol=1e-4, atol=0)
+    clean = fa.flash_attention_kernel(q, k, v, **kw)[0]
+    diff = (out != clean).nonzero()
+    assert bool((diff[:, 1] == row).all()) and bool((diff[:, 3] == col).all())
+
+
+def test_k2_tensor_core_kernel_is_bit_for_bit_deterministic(dev):
+    q, k, v = _k2_case(dev, BF16, 1024, seed=16, H=32, KV=8)
+    kw = _k2_kw(1024, True)
+    assert fa.tc_path(q, k, v, kw["bk"])
+    runs = [fa.flash_attention_kernel(q, k, v, **kw) for _ in range(3)]
+    for r in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(r, runs[0]))

@@ -142,3 +142,27 @@ def test_fault_bits_round_trip():
         bits = f32_bits(x)
         back = torch.tensor(bits, dtype=torch.int32).view(torch.float32)
         assert back.item() == np.float32(x)
+
+
+def test_tensor_core_route_terms():
+    """K2's bf16 tensor-core kernel takes 16-byte-aligned rows (strided
+    views of a fused projection included); f32, odd head dims, key blocks
+    that are not multiples of 8 and misaligned bases take the CUDA-core
+    kernel."""
+    from repro_torch.kernels.flash_attention import tc_path
+
+    bf = torch.bfloat16
+    B, L, H, KV, D = 2, 64, 8, 2, 64
+    q, k, v = (torch.zeros(B, L, n, D, dtype=bf) for n in (H, KV, KV))
+    assert tc_path(q, k, v, 64)
+    assert not tc_path(q.float(), k.float(), v.float(), 64)
+    assert not tc_path(q, k, v, 60)
+    q60, k60, v60 = (torch.zeros(B, L, n, 60, dtype=bf) for n in (H, KV, KV))
+    assert not tc_path(q60, k60, v60, 64)
+    fused = torch.zeros(B, L, (H + 2 * KV) * D, dtype=bf)
+    qs = fused[..., :H * D].view(B, L, H, D)
+    ks = fused[..., H * D:(H + KV) * D].view(B, L, KV, D)
+    vs = fused[..., (H + KV) * D:].view(B, L, KV, D)
+    assert not qs.is_contiguous() and tc_path(qs, ks, vs, 64)
+    off = torch.zeros(q.numel() + 1, dtype=bf)[1:].view(q.shape)
+    assert not tc_path(off, k, v, 64)
