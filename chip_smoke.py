@@ -40,7 +40,7 @@ PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
 K1_SHAPES = {"q": (2048, 2048), "kv": (2048, 512), "up": (2048, 8192),
              "down": (8192, 2048), "head": (2048, 128256)}
 K1_M = (4, 8, 40, 333, 512, 2048)     # 2048: the forward's B x L rows
-K1_FAULT_M = (4, 512, 2048)
+K1_FAULT_M = (4, 40, 333, 512, 2048)
 ENGINE_ARCH = "llama3.2-1b"
 # K2 at llama3.2-1b's attention shapes: (B, H, KV, D)
 K2_HEADS = (2, 32, 8, 64)
@@ -106,8 +106,10 @@ def k1_checks(dev) -> dict:
     shapes at M in ``K1_M``, the tied head through
     ``embed.T``: every pass-1 route (tensor cores for bf16 1s/2s, the
     GEMV for f32 decode — and for bf16 decode forced, as k1_timing times
-    it — CUDA-core tiles for f32 and replica).  The worst clean residual /
-    threshold of each route taken must stay under 1.
+    it — the SIMT pass for f32 1s/2s above 8 rows — and the CUDA-core
+    tiles forced in its place, as k1_timing times them — CUDA-core tiles
+    for replica).  A repeat of the SIMT pass is bit-for-bit.  The worst
+    clean residual / threshold of each route taken must stay under 1.
 
     Tolerances: y in f32 agrees within 1e-4 x max|y| (f32 sums over K <=
     8192 in another order); y in bf16 within 2^-7 x max|y| (one bf16
@@ -148,12 +150,20 @@ def k1_checks(dev) -> dict:
                     scale = yp.float().abs().max().item()
                     tol = (1e-4 if out_dtype == torch.float32
                            else 2 ** -7) * scale
-                    # the route taken, and the GEMV that k1_timing times
-                    # in its place at bf16 decode
+                    # the route taken, and the GEMV (bf16 decode) or the
+                    # tiles (f32) that k1_timing times in its place
                     can = routes(x, w, bn, mode)
-                    for r in (can[0], *(c for c in can[1:] if c == "gemv")):
+                    fork = [c for c in can[1:] if c == "gemv"
+                            or (can[0] == "simt" and c == "tiled")]
+                    for r in (can[0], *fork):
                         y, res, bnd = abft_matmul_kernel(x, w, **kw, force=r)
                         torch.cuda.synchronize()
+                        if r == "simt" and mode == "1s":
+                            again = abft_matmul_kernel(x, w, **kw)
+                            need(all(torch.equal(a, b) for a, b in
+                                     zip((y, res, bnd), again)),
+                                 f"K1 simt repeat not bit-for-bit {name} "
+                                 f"m={m}")
                         err = (y.float() - yp.float()).abs().max().item()
                         need(err <= tol, f"K1 y {name} m={m} {mode} {dtype} "
                              f"{r}: err {err} > {tol}")
@@ -222,29 +232,51 @@ def _k1_fault_check(ops, FaultSpec, x, w, mode, out_dtype, name):
 
 # ------------------------------------------------------------------ K3
 
+def _k3_close(got, ref, tol, what):
+    """K3's outputs against a plain version's: o within ``tol`` x max|o|,
+    the two bounds within 1e-4 relative.  Returns the output's error."""
+    scale = ref[0].float().abs().max().item()
+    err = (got[0].float() - ref[0].float()).abs().max().item()
+    need(err <= tol * scale, f"K3 {what}: out err {err} (max|o| {scale})")
+    for gi, ri, nm in ((got[2], ref[2], "bnd_s"), (got[4], ref[4],
+                                                    "bnd_pv")):
+        rel = ((gi - ri).abs() / ri.abs().clamp_min(1e-30)).max().item()
+        need(rel <= 1e-4, f"K3 {what} {nm} rel {rel}")
+    return err
+
+
 def k3_checks(dev) -> dict:
-    """K3 against its plain version, dense and paged: B=4, KV=8, gq=4,
-    d=64, BS=16, ragged lengths, a permuted table with sentinel tails and
-    garbage in every slot past a row's length.
+    """K3 against its plain versions, dense and paged, at the serving
+    engine's shapes: B=4, KV=8, gq=4, d=64, S=512 (its max_len), BS=16,
+    ragged lengths, a permuted table with sentinel tails and garbage in
+    every slot past a row's length.  Every forced split count 1..W (32
+    paged; 4 dense at the 128-key block) against the plain split walk
+    (``flash_decode_split_ref``) and the sequential walk; the
+    ``decode_splits`` launch twice, bit-for-bit.  Then other head groups
+    and row widths (G = 3, 6, 16; d = 80, 96 in bf16, 128 in f32), each
+    at a few split counts against the sequential walk.
 
     Tolerances: outputs within 2^-7 x max|o| in bf16 (one rounding of
     either side) and 1e-5 x max|o| in f32 (softmax sums in another
     order); bounds within 1e-4 relative; no flag on clean inputs."""
     from repro_torch.kernels.flash_attention import (
+        decode_splits,
         flash_decode_kernel,
         flash_decode_ref,
+        flash_decode_split_ref,
     )
     from repro_torch.kernels.flash_ops import flash_decode, flash_decode_paged
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    B, KV, G, D, BS, S = 4, 8, 4, 64, 16, 256
+    B, KV, G, D, BS, S = 4, 8, 4, 64, 16, 512
     W = S // BS
     NB = B * W + 7
-    lengths = torch.tensor([1, 17, 100, 255], dtype=torch.int32, device=dev)
+    lengths = torch.tensor([1, 17, 300, 511], dtype=torch.int32, device=dev)
     perm = torch.randperm(NB, generator=gen, device=dev)[:B * W]
     table = perm.reshape(B, W).to(torch.int32).contiguous()
     table[0, 1:] = NB                          # sentinel tail
     out = {}
+    cases = 0
     for dtype in (torch.bfloat16, torch.float32):
         q = torch.randn(B, 1, KV * G, D, generator=gen, device=dev).to(dtype)
         # garbage everywhere, including slots past each row's length
@@ -260,22 +292,64 @@ def k3_checks(dev) -> dict:
         for kind, args in (("paged", (kp, vp, table, BS)),
                            ("dense", (kd, vd, None, 128))):
             kc, vc, tb, block = args
-            got = flash_decode_kernel(q, kc, vc, tb, lengths, block=block)
-            ref = flash_decode_ref(q, kc, vc, tb, lengths, block=block)
-            torch.cuda.synchronize()
-            scale = ref[0].float().abs().max().item()
-            err = (got[0].float() - ref[0].float()).abs().max().item()
-            need(err <= tol * scale, f"K3 {kind} {dtype} out err {err}")
-            for gi, ri, nm in ((got[2], ref[2], "bnd_s"),
-                               (got[4], ref[4], "bnd_pv")):
-                rel = ((gi - ri).abs() / ri.abs().clamp_min(1e-30)).max()
-                need(rel.item() <= 1e-4, f"K3 {kind} {nm} rel {rel.item()}")
+            width = W if kind == "paged" else -(-S // block)
+            seq = flash_decode_ref(q, kc, vc, tb, lengths, block=block)
+            worst = 0.0
+            for splits in range(1, width + 1):
+                got = flash_decode_kernel(q, kc, vc, tb, lengths,
+                                          block=block, splits=splits)
+                ref = flash_decode_split_ref(q, kc, vc, tb, lengths,
+                                             block=block, splits=splits)
+                torch.cuda.synchronize()
+                for who, r in (("split", ref), ("walk", seq)):
+                    worst = max(worst, _k3_close(
+                        got, r, tol, f"{kind} {dtype} splits={splits} vs "
+                        f"{who}"))
+                cases += 1
+            chosen = decode_splits(B, KV, width, block, G)
+            a = flash_decode_kernel(q, kc, vc, tb, lengths, block=block)
+            b = flash_decode_kernel(q, kc, vc, tb, lengths, block=block)
+            need(all(torch.equal(u, v) for u, v in zip(a, b)),
+                 f"K3 {kind} {dtype} repeat not bit-for-bit")
             if kind == "paged":
                 _, chk = flash_decode_paged(q, kp, vp, table, lengths)
             else:
                 _, chk = flash_decode(q, kd, vd, lengths)
             need(not bool(chk.flag), f"K3 false flag {kind} {dtype}")
-            out[f"{kind}_{str(dtype)[6:]}_max_abs_err"] = err
+            out[f"{kind}_{str(dtype)[6:]}_max_abs_err"] = worst
+            out[f"{kind}_splits"] = {"W": width, "chosen": chosen}
+    # other head groups and row widths: G = 3 and 6 round up to an
+    # instantiation, G = 16 takes two CTAs a kv head, d = 80 and 96 (bf16)
+    # pad their rows of 10 and 12 units to 16, d = 128 (f32) fills 32
+    # units and takes one chunk buffer a warp
+    shapes = {}
+    for g2, d2, dt in ((3, 64, torch.bfloat16), (6, 96, torch.bfloat16),
+                       (16, 64, torch.bfloat16), (4, 80, torch.bfloat16),
+                       (2, 128, torch.float32)):
+        kv2 = 2
+        tol = 2 ** -7 if dt == torch.bfloat16 else 1e-5
+        q2 = torch.randn(B, 1, kv2 * g2, d2, generator=gen,
+                         device=dev).to(dt)
+        kp2, vp2 = ((3 * torch.randn(NB, BS, kv2, d2, generator=gen,
+                                     device=dev)).to(dt) for _ in range(2))
+        kd2, vd2 = ((3 * torch.randn(B, S, kv2, d2, generator=gen,
+                                     device=dev)).to(dt) for _ in range(2))
+        worst = 0.0
+        for kind, (kc, vc, tb, block) in (("paged", (kp2, vp2, table, BS)),
+                                          ("dense", (kd2, vd2, None, 128))):
+            width = W if kind == "paged" else -(-S // block)
+            seq = flash_decode_ref(q2, kc, vc, tb, lengths, block=block)
+            for splits in sorted({1, 3, width,
+                                  decode_splits(B, kv2, width, block, g2)}):
+                got = flash_decode_kernel(q2, kc, vc, tb, lengths,
+                                          block=block, splits=splits)
+                worst = max(worst, _k3_close(
+                    got, seq, tol, f"{kind} G={g2} d={d2} {dt} "
+                    f"splits={splits}"))
+                cases += 1
+        shapes[f"G{g2}_d{d2}_{str(dt)[6:]}_max_abs_err"] = worst
+    out["other_shapes"] = shapes
+    out["cases"] = cases
     return out
 
 
@@ -852,10 +926,11 @@ def k1_timing(dev, params, m: int) -> dict:
     their dtype: kernel, plain version, torch.matmul, and the bound (bf16
     at the tensor-core rate, f32 at the CUDA-core rate).  ``ms`` etc. are
     device times (CUDA-graph replay); ``ms_eager`` includes the host
-    launch overhead of the eager loop.  At decode (bf16, M <= 8) the
-    row-major GEMMs, which take the tensor-core pass 1, are also timed on
-    the GEMV pass 1 forced in its place (``fork``): the numbers behind
-    the route."""
+    launch overhead of the eager loop.  The numbers behind two route
+    choices (``fork``): at decode (bf16, M <= 8) the row-major GEMMs,
+    which take the tensor-core pass 1, are also timed on the GEMV pass 1
+    forced in their place; in f32 above 8 rows (the train step) every
+    GEMM, which takes the SIMT pass 1, also on the CUDA-core tiles."""
     from repro_torch.kernels.abft_matmul import abft_matmul_kernel
     from repro_torch.kernels.ref import abft_matmul_ref
 
@@ -873,8 +948,12 @@ def k1_timing(dev, params, m: int) -> dict:
     tot = {"ms": 0.0, "ms_eager": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "bound_ms": 0.0, "gemms": 0}
     bound_by = set()
-    fork = {"gemms": 0, "gemv_ms": 0.0, "tc_ms": 0.0}
     dtype = params["embed"].dtype
+    bf16 = dtype == torch.bfloat16
+    forced = "gemv" if bf16 and m <= 8 else ("tiled" if not bf16 and m > 8
+                                             else None)
+    fork = {"route": "tc" if bf16 else "simt", "forced": forced,
+            "gemms": 0, "ms": 0.0, "forced_ms": 0.0}
     for name, ws in groups.items():
         k, n = ws[0].shape
         out_dtype = torch.float32 if name == "head" else dtype
@@ -904,15 +983,15 @@ def k1_timing(dev, params, m: int) -> dict:
                "plain_ms": timed_graph(plain, iters=2),
                "library_ms": timed_graph(lib, iters=5),
                "bound_ms": b_ms * len(ws), "bound_by": by}
-        if dtype == torch.bfloat16 and m <= 8 and name != "head":
-            def kern_gemv():
+        if forced and not (forced == "gemv" and name == "head"):
+            def kern_forced():
                 for w in ws:
-                    abft_matmul_kernel(x, w, **kw, force="gemv")
+                    abft_matmul_kernel(x, w, **kw, force=forced)
 
-            rec["gemv_ms"] = timed_graph(kern_gemv, iters=5)
+            rec[f"{forced}_ms"] = timed_graph(kern_forced, iters=5)
             fork["gemms"] += len(ws)
-            fork["tc_ms"] += rec["ms"]
-            fork["gemv_ms"] += rec["gemv_ms"]
+            fork["ms"] += rec["ms"]
+            fork["forced_ms"] += rec[f"{forced}_ms"]
         per[name] = rec
         bound_by.add(by)
         for key in ("ms", "ms_eager", "plain_ms", "library_ms",
@@ -927,9 +1006,21 @@ def k1_timing(dev, params, m: int) -> dict:
 
 
 def k3_timing(dev, eng, prompts) -> dict:
-    """K3 over one decode step's 16 layers on the engine's dense cache
-    at the lengths of the first four requests' last decode step."""
+    """K3 over one decode step's 16 layers at the lengths of the first
+    four requests' last decode step: on the engine's dense cache (the
+    128-key block) and on paged pools of 16-key blocks holding the same
+    keys through a permuted table (the paged engine's layout, W = 32).
+    Each at the ``decode_splits`` count and at ``splits=1`` (one CTA a
+    row and kv head), against the plain version,
+    ``scaled_dot_product_attention`` (GQA, length mask) and the bound:
+    the valid keys' K and V bytes, q, o and the check vectors once; QK and
+    PV over the valid keys at the bf16 tensor-core rate.  Every layer's
+    launch at the chosen count is held against the plain version (o
+    within 2^-7 x max|o|, bounds within 1e-4 relative).  Then one layer
+    at a long context (8192 keys, B = 1 and 4), chosen count against
+    ``splits=1`` and SDPA: the traffic the split merge is for."""
     from repro_torch.kernels.flash_attention import (
+        decode_splits,
         flash_decode_kernel,
         flash_decode_ref,
     )
@@ -943,15 +1034,20 @@ def k3_timing(dev, eng, prompts) -> dict:
     gen = torch.Generator(device=dev).manual_seed(6)
     q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(torch.bfloat16)
     S = caches[0]["k"].shape[1]
-    block = min(128, -(-S // 8) * 8)
-
-    def kern():
-        for c in caches:
-            flash_decode_kernel(q, c["k"], c["v"], None, lengths, block=block)
-
-    def plain():
-        for c in caches:
-            flash_decode_ref(q, c["k"], c["v"], None, lengths, block=block)
+    dense_block, BS = min(128, -(-S // 8) * 8), 16
+    Wp = -(-S // BS)
+    perm = torch.randperm(B * Wp, generator=gen, device=dev)
+    table = perm.reshape(B, Wp).to(torch.int32).contiguous()
+    pools = []                      # the same keys, paged
+    for c in caches:
+        pk = torch.empty(B * Wp, BS, KV, D, dtype=c["k"].dtype, device=dev)
+        pv = torch.empty_like(pk)
+        pk[table.long()] = c["k"][:, :Wp * BS].reshape(B, Wp, BS, KV, D)
+        pv[table.long()] = c["v"][:, :Wp * BS].reshape(B, Wp, BS, KV, D)
+        pools.append((pk, pv))
+    layouts = {"dense": ([(c["k"], c["v"]) for c in caches], None,
+                         dense_block, -(-S // dense_block)),
+               "paged": (pools, table, BS, Wp)}
 
     mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])
     mask = mask[:, None, None, :]
@@ -963,26 +1059,98 @@ def k3_timing(dev, eng, prompts) -> dict:
                 qt, c["k"].transpose(1, 2), c["v"].transpose(1, 2),
                 attn_mask=mask, enable_gqa=True)
 
-    o = flash_decode_kernel(q, caches[0]["k"], caches[0]["v"], None,
-                            lengths, block=block)[0]
-    op = flash_decode_ref(q, caches[0]["k"], caches[0]["v"], None, lengths,
-                          block=block)[0]
-    err = (o.float() - op.float()).abs().max().item()
     valid = int(lengths.sum().item())
     byts = len(caches) * (2 * valid * KV * D * 2 + 2 * B * H * D * 2
                           + 4 * B * H * 4 + B * 4)
     flops = len(caches) * 4.0 * valid * H * D
     t_b, t_f = byts / HBM_BW, flops / PEAK_BF16
-    rec = {"launches_timed": len(caches), "B": B, "S": S, "block": block,
-           "lengths": lengths.tolist(), "ms": timed_graph(kern, iters=10),
-           "ms_eager": timed(kern, iters=10),
-           "plain_ms": timed_graph(plain, iters=2),
-           "library_ms": timed_graph(lib, iters=10),
+    library_ms = timed_graph(lib, iters=10)
+    rec = {"launches_timed": len(caches), "B": B, "S": S,
+           "lengths": lengths.tolist(), "library_ms": library_ms,
            "bound_ms": max(t_b, t_f) * 1e3,
-           "bound_by": "bytes" if t_b >= t_f else "operations",
-           "max_abs_err": err}
+           "bound_by": "bytes" if t_b >= t_f else "operations"}
+    for kind, (kv, tb, block, width) in layouts.items():
+        chosen = decode_splits(B, KV, width, block)
+
+        def kern(splits=None):
+            for kc, vc in kv:
+                flash_decode_kernel(q, kc, vc, tb, lengths, block=block,
+                                    splits=splits)
+
+        def plain():
+            for kc, vc in kv:
+                flash_decode_ref(q, kc, vc, tb, lengths, block=block)
+
+        worst = 0.0
+        for li, (kc, vc) in enumerate(kv):
+            got = flash_decode_kernel(q, kc, vc, tb, lengths, block=block)
+            ref = flash_decode_ref(q, kc, vc, tb, lengths, block=block)
+            worst = max(worst, _k3_close(
+                got, ref, 2 ** -7, f"timing {kind} layer {li} "
+                f"splits={chosen}"))
+        rec[kind] = {
+            "block": block, "W": width, "splits": chosen,
+            "ms": timed_graph(kern, iters=20),
+            "ms_splits_1": timed_graph(lambda: kern(1), iters=20),
+            "ms_eager": timed(kern, iters=10),
+            "plain_ms": timed_graph(plain, iters=2),
+            "max_abs_err": worst}
+    for key in ("ms", "plain_ms", "max_abs_err"):
+        rec[key] = rec["dense"][key]
+    del pools
+    rec["long_context"] = _k3_long_context(dev, H, KV, D)
     emit("k3_timing", **rec)
     return rec
+
+
+def _k3_long_context(dev, H, KV, D, S=8192) -> dict:
+    """One layer's K3 launch at ``S`` keys a row, full lengths, B = 1 and
+    4, on a dense cache (128-key blocks) and 16-key pools: the chosen
+    split count against ``splits=1`` and SDPA, each held against the
+    plain version first."""
+    from repro_torch.kernels.flash_attention import (
+        decode_splits,
+        flash_decode_kernel,
+        flash_decode_ref,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out = {}
+    for B in (1, 4):
+        q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(
+            torch.bfloat16)
+        kd, vd = (torch.randn(B, S, KV, D, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+        W = S // 16
+        table = torch.randperm(B * W, generator=gen, device=dev).reshape(
+            B, W).to(torch.int32).contiguous()
+        kp = torch.empty(B * W, 16, KV, D, dtype=kd.dtype, device=dev)
+        vp = torch.empty_like(kp)
+        kp[table.long()] = kd.reshape(B, W, 16, KV, D)
+        vp[table.long()] = vd.reshape(B, W, 16, KV, D)
+        qt = q.transpose(1, 2)
+        sdpa = timed_graph(lambda: torch.nn.functional.
+                           scaled_dot_product_attention(
+                               qt, kd.transpose(1, 2), vd.transpose(1, 2),
+                               enable_gqa=True), iters=20)
+        for kind, (kc, vc, tb, block) in (("dense", (kd, vd, None, 128)),
+                                          ("paged", (kp, vp, table, 16))):
+            width = S // block
+            chosen = decode_splits(B, KV, width, block, H // KV)
+            got = flash_decode_kernel(q, kc, vc, tb, lengths, block=block)
+            ref = flash_decode_ref(q, kc, vc, tb, lengths, block=block)
+            _k3_close(got, ref, 2 ** -7, f"long context B={B} {kind}")
+            out[f"B{B}_{kind}"] = {
+                "keys": S, "splits": chosen,
+                "ms": timed_graph(lambda: flash_decode_kernel(
+                    q, kc, vc, tb, lengths, block=block), iters=20),
+                "ms_splits_1": timed_graph(lambda: flash_decode_kernel(
+                    q, kc, vc, tb, lengths, block=block, splits=1),
+                    iters=20),
+                "library_ms": sdpa,
+                "bound_ms": 2 * B * S * KV * D * 2 / HBM_BW * 1e3}
+    return out
 
 
 def k1_max_err(dev, params) -> float:
@@ -1071,10 +1239,10 @@ def main(argv=None) -> int:
         t1 = k1_timing(dev, eng_out["params"], 4)
         t1_pre = k1_timing(dev, eng_out["params"], 512)
         t1_fwd = k1_timing(dev, eng_out["params"], FWD_B * FWD_L)
-        if train_params is not None:
-            k1_timing(dev, train_params, TRAIN_B * TRAIN_L)
         t3 = k3_timing(dev, eng_out["engine"], eng_out["prompts"])
         t2 = k2_timing(dev)
+        t1_train = (k1_timing(dev, train_params, TRAIN_B * TRAIN_L)
+                    if train_params is not None else None)
         kernels = [
             {"name": "abft_matmul", "route": "cuda",
              "source": abft_matmul.KERNEL.source,
@@ -1088,7 +1256,9 @@ def main(argv=None) -> int:
                  "ms", "plain_ms", "bound_ms", "library_ms")}
                  for name, m, rec in (("decode", 4, t1),
                                       ("prefill", 512, t1_pre),
-                                      ("forward", FWD_B * FWD_L, t1_fwd))}},
+                                      ("forward", FWD_B * FWD_L, t1_fwd),
+                                      ("train_f32", TRAIN_B * TRAIN_L,
+                                       t1_train)) if rec is not None}},
             {"name": "flash_attention", "route": "cuda",
              "source": flash_attention.FULL_KERNEL.source,
              "replaces": "src/repro/kernels/flash_attention.py:343",
@@ -1104,7 +1274,10 @@ def main(argv=None) -> int:
              "max_abs_err": t3["max_abs_err"],
              "ms": t3["ms"], "plain_ms": t3["plain_ms"],
              "bound_ms": t3["bound_ms"], "bound_by": t3["bound_by"],
-             "library_ms": t3["library_ms"]},
+             "library_ms": t3["library_ms"],
+             "by_layout": {kind: {key: t3[kind][key] for key in (
+                 "splits", "ms", "ms_splits_1", "plain_ms")}
+                 for kind in ("dense", "paged")}},
         ]
     for line in smi:
         print(line)

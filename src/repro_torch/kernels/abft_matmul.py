@@ -2,8 +2,8 @@
 
 Replaces the TPU kernel ``repro.kernels.abft_matmul.abft_matmul_kernel``.
 ``abft_matmul_kernel`` checks its operands, picks pass 1's route
-(``route``: tensor cores for bf16, the GEMV for f32 decode, or CUDA-core
-tiles),
+(``route``: tensor cores for bf16, the GEMV for f32 decode, the SIMT
+register-blocked GEMM for f32 above 8 rows, or CUDA-core tiles),
 allocates the outputs and the scratch of its ``plan`` with
 ``torch.empty``, launches on the current stream and counts the launch in
 ``KERNEL.launches``.  Its plain version is
@@ -26,8 +26,10 @@ KERNEL = library.Kernel("abft_matmul",
 
 TN, TK = 64, 32          # CUDA-core tile columns and stage depth (.cu)
 TC_TN, TC_TK = 128, 64   # tensor-core tile columns and stage depth
+ST_K = 16                # SIMT stage depth
+SIMT_TILE = (128, 128)   # SIMT tile rows and columns
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTES = {"tiled": 0, "gemv": 1, "tc": 2, "tc_kmajor": 3}
+_ROUTES = {"tiled": 0, "gemv": 1, "tc": 2, "tc_kmajor": 3, "simt": 4}
 _SMS = 132               # H100 SXM streaming multiprocessors
 
 
@@ -57,6 +59,24 @@ def gemv_path(x, w, bn: int, mode: str) -> bool:
             and (w.stride(0) * esz) % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
+def _w_aligned(w) -> bool:
+    """W row-major with 16-byte rows, or K-major (``embed.T``) with
+    16-byte columns."""
+    return ((w.stride(1) == 1 and _aligned(w, w.stride(0)))
+            or (w.stride(0) == 1 and _aligned(w, w.stride(1))))
+
+
+def simt_path(x, w, bn: int, mode: str) -> bool:
+    """The SIMT pass 1 takes f32 operands, mode 1s or 2s, more than 8 rows
+    (the GEMV keeps f32 decode), rows of x 16-byte aligned (unit column
+    stride), W row-major or K-major with 16-byte rows or columns, and
+    bn % 4 == 0 (whole float4 column groups)."""
+    return (x.dtype == torch.float32 and w.dtype == torch.float32
+            and mode != "replica" and x.shape[0] > 8 and bn % 4 == 0
+            and x.stride(1) == 1 and _aligned(x, x.stride(0))
+            and _w_aligned(w))
+
+
 def routes(x, w, bn: int, mode: str) -> tuple:
     """Every pass-1 route that can take these operands, the preferred
     one first:
@@ -69,9 +89,11 @@ def routes(x, w, bn: int, mode: str) -> tuple:
       bf16 decode prefers the tensor cores: on an H100 (700 W) they take
       the decode step's 112 row-major GEMMs at M=4 in 2.22 ms where the
       GEMV takes 3.36 (``chip_smoke.py``, ``k1_timing`` ``fork``);
-    - ``tiled``: the CUDA-core pass 1, which takes anything — f32 operands
-      (TF32 stays off), mode replica, and bf16 operands whose rows are not
-      16-byte aligned."""
+    - ``simt``: ``simt_path`` (f32, M > 8, 1s/2s, aligned; W row-major or
+      ``embed.T``): the register-blocked CUDA-core GEMM with the checksums
+      from its shared-memory tiles (TF32 stays off);
+    - ``tiled``: the CUDA-core pass 1, which takes anything — mode
+      replica, and operands whose rows are not 16-byte aligned."""
     out = []
     if (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
             and mode != "replica" and x.stride(1) == 1
@@ -82,6 +104,8 @@ def routes(x, w, bn: int, mode: str) -> tuple:
             out.append("tc_kmajor")
     if gemv_path(x, w, bn, mode):
         out.append("gemv")
+    if simt_path(x, w, bn, mode):
+        out.append("simt")
     return (*out, "tiled")
 
 
@@ -94,32 +118,38 @@ def route(x, w, bn: int, mode: str) -> str:
 def tile(r: str, bm: int) -> tuple:
     """(rows, columns) of pass 1's CUDA-block tile on route ``r``: the
     geometry the scratch and the K split are sized by, passed to the
-    launch, which rejects any other."""
+    launch, which rejects any other.  ``simt`` takes 128 x 128 inside a
+    logical block; a smaller clamped block masks its rows and columns
+    within that tile."""
     if r.startswith("tc"):
         return tc_rows(bm), TC_TN
+    if r == "simt":
+        return SIMT_TILE
     if r == "gemv":         # all M <= 8 rows in one tile
         return 8, TN
     return 8 * rows_per_thread(bm), TN
 
 
 def split_k(m: int, k: int, n: int, bm: int, bk: int, bn: int,
-            mode: str, gemv: bool = False, tc: bool = False) -> tuple:
+            mode: str, gemv: bool = False, tc: bool = False,
+            simt: bool = False) -> tuple:
     """(slices, depth) of the K split.  CUDA-core routes: enough CUDA
     blocks for two waves over the SMs; tiled slices at least 256 deep and
     — for the replica checksum, which flushes per logical k-block —
     aligned to ``bk``; GEMV slices a multiple of its 32 k-rows per
-    iteration, at most 16 of them.  Tensor-core route: one slice (y and
-    the row sums straight from the epilogue) unless the tiles fill under
-    half the SMs; then ``SMs // tiles`` slices of whole 64-deep stages, at
-    least 256 deep."""
+    iteration, at most 16 of them.  Tensor-core and SIMT routes: one
+    slice (y and the row sums straight from the epilogue) unless the
+    tiles fill under half the SMs; then ``SMs // tiles`` slices of whole
+    stages (64 deep on the tensor cores, 16 on SIMT), at least 256
+    deep."""
     if gemv:    # at most 16 slices: pass 2 sums them element by element
         tiles, unit, floor = -(-n // TN), 32, max(32, -(-k // 16))
         want = max(1, -(-2 * _SMS // tiles))
     else:
-        tm, tn = tile("tc" if tc else "tiled", bm)
+        tm, tn = tile("tc" if tc else "simt" if simt else "tiled", bm)
         tiles = -(-n // bn) * -(-bn // tn) * -(-m // bm) * -(-bm // tm)
-        if tc:
-            unit, floor = TC_TK, min(256, k)
+        if tc or simt:
+            unit, floor = (TC_TK if tc else ST_K), min(256, k)
             want = max(1, _SMS // tiles)
         else:
             unit, floor = (bk if mode == "replica" else TK), min(256, k)
@@ -147,11 +177,11 @@ def plan(x, w, *, mode: str, bm: int, bk: int, bn: int,
          force: str | None = None) -> Plan:
     """The launch ``abft_matmul_kernel`` makes for these operands, on
     ``route``'s pass 1 or on ``force``, which must be one of ``routes``'s
-    (to time one route against another).  Scratch: the per-slice partial accumulators (none on the single-slice
-    tensor-core route, whose epilogue stores y), the per-(slice, row,
-    column tile) partial checksums and bounds, and — tensor-core route
-    only — the per-(row, column tile) partial row sums of the
-    accumulator."""
+    (to time one route against another).  Scratch: the per-slice partial
+    accumulators (none on the single-slice tensor-core and SIMT routes,
+    whose epilogue stores y), the per-(slice, row, column tile) partial
+    checksums and bounds, and — tensor-core and SIMT routes only — the
+    per-(row, column tile) partial row sums of the accumulator."""
     m, k = x.shape
     n = w.shape[1]
     can = routes(x, w, bn, mode)
@@ -159,13 +189,15 @@ def plan(x, w, *, mode: str, bm: int, bk: int, bn: int,
         raise ValueError(f"route {force!r} cannot take these operands; "
                          f"these can: {can}")
     r = force or can[0]
-    tc = r.startswith("tc")
-    S, kc = split_k(m, k, n, bm, bk, bn, mode, gemv=r == "gemv", tc=tc)
+    tc, simt = r.startswith("tc"), r == "simt"
+    S, kc = split_k(m, k, n, bm, bk, bn, mode, gemv=r == "gemv", tc=tc,
+                    simt=simt)
     tm, tn = tile(r, bm)
     gx = -(-n // bn) * -(-bn // tn)
-    scratch = {"part_acc": (0,) if tc and S == 1 else (S, m, n),
+    wide = tc or simt       # the epilogue stores y and the row sums
+    scratch = {"part_acc": (0,) if wide and S == 1 else (S, m, n),
                "part_chk": (S, m, gx), "part_bnd": (S, m, gx),
-               "part_rs": (m, gx) if tc else (0,)}
+               "part_rs": (m, gx) if wide else (0,)}
     return Plan(r, (tm, tn), S, kc, scratch)
 
 

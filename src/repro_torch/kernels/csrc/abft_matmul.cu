@@ -15,7 +15,12 @@
 // What bounds it on the H100: at decode (M = 4 tokens) the weight bytes —
 // the whole GEMM is a stream of W at 3.35 TB/s; at prefill and in the
 // full-sequence forward (M = 512 .. 2048) the multiply-adds: 989 TFLOP/s
-// on the bf16 tensor cores, 67 TFLOP/s in f32 on the CUDA cores.
+// on the bf16 tensor cores, 67 TFLOP/s in f32 on the CUDA cores (the f32
+// train step; TF32 stays off).  In f32 the old CUDA-core tile (64 x 64,
+// 32 FMAs per 12 shared-memory reads, scalar loads, no load in flight
+// during the FMAs, a serial checksum phase on 64 of 128 threads and an
+// (S, M, N) round trip through HBM on every K split) ran far below that
+// peak; the SIMT route below is a register-blocked SGEMM (PERF.md).
 //
 // Design.  The logical BlockShape (default 256/512/256, clamped by the
 // wrapper) fixes the residual's shape and the cost model; it is kept apart
@@ -39,10 +44,20 @@
 //     128-byte lines per 8-lane group, the checksum from the same
 //     registers (its bf16 form is only launched when forced, to time it
 //     against the tensor cores);
-//   - CUDA-core tiles (f32 operands — TF32 stays off — and mode replica):
-//     a TM x 64 tile (TM = 8, 32 or 64 rows, 4 x RM outputs a thread,
-//     plain FMA) of one logical block and one K slice.
-// The CUDA-core routes write partial accumulators and per-row partial
+//   - SIMT (f32, M > 8, modes 1s/2s, 16-byte aligned rows; W row-major or
+//     the tied head's embed^T): a 128 x 128 tile (a smaller clamped block
+//     masks its rows and columns within it) of 256 threads with 8 x 8
+//     accumulators each, A
+//     k-major through registers one stage ahead, a ring of 16-deep B
+//     stages by cp.async, and the paper's split again: the column sums of
+//     each B stage and the rows' A . bsum on all threads from the same
+//     shared-memory tiles (abft_simt_pass1).  The same epilogue and pass 2
+//     as the tensor-core route: one K slice stores y and the row sums, no
+//     (S, M, N) round trip;
+//   - CUDA-core tiles (mode replica, and operands whose rows are not
+//     16-byte aligned): a TM x 64 tile (TM = 8, 32 or 64 rows, 4 x RM
+//     outputs a thread, plain FMA) of one logical block and one K slice.
+// The GEMV and tiled routes write partial accumulators and per-row partial
 // checksums to scratch; pass 2 sums the K slices in a fixed order, applies
 // the fault, stores y and reduces rows over the logical block's bn
 // columns.  There are no floating-point atomics: every sum has a fixed
@@ -771,7 +786,326 @@ abft_tc_pass1(const __grid_constant__ CUtensorMap tma_a,
   }
 }
 
-// After a split tensor-core pass 1: one CUDA block per 16 rows of a
+// ------------------------------------------------ SIMT pass 1 (f32)
+
+constexpr int ST_K = 16;    // k depth of a stage
+constexpr int ST_NS = 4;    // B stages in the ring (ST_NS - 1 in flight)
+constexpr int ST_TM = 128;  // tile rows
+constexpr int ST_TN = 128;  // tile columns
+
+// Shared memory of the SIMT pass 1 (bytes): A double-buffered k-major, the
+// ring of B stages k-major, the stages' column sums (two parities).  The
+// epilogue's cross-warp partials reuse A's buffers.
+struct SimtSmem {
+  static constexpr int A_F = 2 * ST_K * ST_TM;
+  static constexpr int B_F = ST_NS * ST_K * ST_TN;
+  static constexpr int BYTES = 4 * (A_F + B_F + 2 * 2 * ST_K);
+};
+
+__device__ __forceinline__ float4 ld4_masked(const float* p, int ok, int n) {
+  // the four consecutive floats at p, of which the first n exist (ok = 0:
+  // none); 16-byte aligned when n >= 4
+  if (ok && n >= 4) return __ldg(reinterpret_cast<const float4*>(p));
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (ok && n > 0) v.x = __ldg(p);
+  if (ok && n > 1) v.y = __ldg(p + 1);
+  if (ok && n > 2) v.z = __ldg(p + 2);
+  return v;
+}
+
+// Pass 1 on the CUDA cores for f32 operands, modes 1s/2s (TF32 stays off:
+// plain FMA).  One CUDA block owns a TM x TN = 128 x 128 tile of ONE
+// logical block and one K slice (rows and columns past the block's end
+// are masked); TM * TN / 64 threads each hold 8 x 8
+// accumulators in registers: rows 4 ty + {0..3} and TM/2 + 4 ty + {0..3},
+// columns 4 tx + {0..3} and TN/2 + 4 tx + {0..3}, so every operand read is
+// a float4 and a warp's B reads cover 128 consecutive bytes.
+//   - A (rows of x, k contiguous) goes to shared memory k-major, transposed
+//     on its way through registers: the next stage's float4 loads are
+//     issued before the current stage is multiplied and stored after it;
+//   - B: a row-major W fills a ring of ST_NS stages by 16-byte cp.async
+//     (zero fill past the tile), ST_NS - 1 stages in flight; a K-major W
+//     (the tied head's embed^T) goes the way A goes, ST_NS - 1 stages
+//     ahead.
+//   - Checksums, all threads, every stage: the column sums bsum[k] =
+//     sum_c B[k, c] and babs[k] = sum_c |B[k, c]| over the tile's live
+//     columns (the zero fill masks the rest) by fixed shuffle trees, one
+//     stage ahead of the product; then each row's chk += A . bsum and
+//     bnd += |A| . babs, TN/64 threads a row.  About 2/TM of the product's
+//     FMAs.
+// One barrier a stage.  With one K slice the epilogue applies the fault,
+// stores y and the rows' partial row sums (part_rs) for abft_tc_pass2;
+// with several it stores the partial accumulator for abft_tc_reduce.
+template <bool KMAJ>
+__global__ void __launch_bounds__(ST_TM * ST_TN / 64)
+abft_simt_pass1(const float* __restrict__ A, const float* __restrict__ B,
+                Geo g, Fault f, void* __restrict__ Y, int out_bf16,
+                float* __restrict__ part_acc, float* __restrict__ part_chk,
+                float* __restrict__ part_bnd, float* __restrict__ part_rs) {
+  constexpr int TM = ST_TM, TN = ST_TN, NT = TM * TN / 64;
+  constexpr int BK = ST_K, NS = ST_NS, LOOK = ST_NS - 1;
+  constexpr int AL = TM * BK / 4 / NT;   // float4 of A a thread, a stage
+  constexpr int BL = TN * BK / 4 / NT;   // float4 of B a thread, a stage
+  constexpr int KH = NT / TM;            // threads per row (checksums)
+  constexpr int CG = NT / BK;            // threads per k row (column sums)
+  constexpr int CQ = TN / 4 / CG;        // float4 a thread (column sums)
+  const int rt_all = blockIdx.x, cx = blockIdx.y, s = blockIdx.z;
+  const int i = rt_all / g.row_tiles, rt = rt_all % g.row_tiles;
+  const int j = cx / g.col_tiles, sub = cx % g.col_tiles;
+  const int row0 = i * g.bm + rt * TM;
+  const int row_end = min(min(row0 + TM, (i + 1) * g.bm), g.M);
+  const int col0 = j * g.bn + sub * TN;
+  const int col_end = min(min(col0 + TN, (j + 1) * g.bn), g.N);
+  const int k0 = s * g.kc;
+  const int k1 = min(k0 + g.kc, g.K);
+  if (row0 >= row_end || col0 >= col_end || k0 >= k1) return;
+
+  extern __shared__ float4 smem4[];
+  float* As = reinterpret_cast<float*>(smem4);   // [2][BK][TM]
+  float* Bs = As + SimtSmem::A_F;        // [NS][BK][TN]
+  float* sums = Bs + SimtSmem::B_F;      // [2][{sum, abs}][BK]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wx = warp % (TN / 64), wy = warp / (TN / 64);
+  const int tx = wx * 8 + (lane & 7), ty = wy * 4 + (lane >> 3);
+  const int nk = (k1 - k0 + BK - 1) / BK;
+
+  float4 ra[AL];
+  float4 rb[KMAJ ? BL : 1];
+  auto load_a = [&](int it) {
+    const int kt = k0 + it * BK;
+#pragma unroll
+    for (int a = 0; a < AL; ++a) {
+      const int idx = tid + a * NT, r = idx % TM, kq = idx / TM;
+      const int row = row0 + r, k = kt + kq * 4;
+      ra[a] = ld4_masked(A + (long long)row * g.lda + k, row < row_end,
+                         k1 - k);
+    }
+  };
+  auto store_a = [&](int par) {
+    float* as = As + par * BK * TM;
+#pragma unroll
+    for (int a = 0; a < AL; ++a) {
+      const int idx = tid + a * NT, r = idx % TM, kq = idx / TM;
+      as[(kq * 4 + 0) * TM + r] = ra[a].x;
+      as[(kq * 4 + 1) * TM + r] = ra[a].y;
+      as[(kq * 4 + 2) * TM + r] = ra[a].z;
+      as[(kq * 4 + 3) * TM + r] = ra[a].w;
+    }
+  };
+  auto load_b = [&](int it) {          // K-major W: columns k-contiguous
+    const int kt = k0 + it * BK;
+#pragma unroll
+    for (int b = 0; b < BL; ++b) {
+      const int idx = tid + b * NT, c = idx % TN, kq = idx / TN;
+      const int col = col0 + c, k = kt + kq * 4;
+      rb[b] = ld4_masked(B + (long long)col * g.sbn + k, col < col_end,
+                         k1 - k);
+    }
+  };
+  auto store_b = [&](int it) {
+    float* bs = Bs + (it % NS) * BK * TN;
+#pragma unroll
+    for (int b = 0; b < BL; ++b) {
+      const int idx = tid + b * NT, c = idx % TN, kq = idx / TN;
+      bs[(kq * 4 + 0) * TN + c] = rb[b].x;
+      bs[(kq * 4 + 1) * TN + c] = rb[b].y;
+      bs[(kq * 4 + 2) * TN + c] = rb[b].z;
+      bs[(kq * 4 + 3) * TN + c] = rb[b].w;
+    }
+  };
+  auto issue_b = [&](int it) {         // row-major W: cp.async, zero fill
+    if (it < nk) {
+      const int kt = k0 + it * BK;
+      float* bs = Bs + (it % NS) * BK * TN;
+#pragma unroll
+      for (int b = 0; b < BL; ++b) {
+        const int idx = tid + b * NT, kk = idx / (TN / 4), c4 = idx % (TN / 4);
+        const int k = kt + kk, col = col0 + c4 * 4;
+        const int bytes = k < k1 ? max(0, min(16, (col_end - col) * 4)) : 0;
+        hk::cp_async16(hk::smem_u32(bs + kk * TN + c4 * 4),
+                       bytes ? B + (long long)k * g.sbk + col : B, bytes);
+      }
+    }
+    hk::cp_async_commit();
+  };
+  // column sums of stage it over the tile's columns, CG threads a k row
+  auto col_sums = [&](int it) {
+    const float* bs = Bs + (it % NS) * BK * TN;
+    const int kk = tid / CG, p = tid % CG;
+    float sm = 0.f, ab = 0.f;
+#pragma unroll
+    for (int q = 0; q < CQ; ++q) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(bs + kk * TN + (q * CG + p) * 4);
+      sm += (v.x + v.y) + (v.z + v.w);
+      ab += (fabsf(v.x) + fabsf(v.y)) + (fabsf(v.z) + fabsf(v.w));
+    }
+#pragma unroll
+    for (int o = 1; o < CG; o <<= 1) {
+      sm += __shfl_xor_sync(0xffffffffu, sm, o);
+      ab += __shfl_xor_sync(0xffffffffu, ab, o);
+    }
+    if (p == 0) {
+      sums[(it & 1) * 2 * BK + kk] = sm;
+      sums[(it & 1) * 2 * BK + BK + kk] = ab;
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+  float chk_r = 0.f, bnd_r = 0.f;      // row tid % TM, k share tid / TM
+
+  load_a(0);
+  store_a(0);
+#pragma unroll
+  for (int p = 0; p < LOOK; ++p) {
+    if (KMAJ) {
+      if (p < nk) {
+        load_b(p);
+        store_b(p);
+      }
+    } else {
+      issue_b(p);
+    }
+  }
+  if (!KMAJ) hk::cp_async_wait<0>();
+  __syncthreads();
+  col_sums(0);
+
+  for (int it = 0; it < nk; ++it) {
+    // B of stage it + 1 has landed (the groups of it + 2 .. it + LOOK - 1
+    // may still be in flight); A of stage it and the sums of stage it are
+    // stored; every thread is done with stage it - 1's slots
+    if (!KMAJ) hk::cp_async_wait<LOOK - 2>();
+    __syncthreads();
+    const int nxt = it + LOOK;
+    if (KMAJ) {
+      if (nxt < nk) load_b(nxt);
+    } else {
+      issue_b(nxt);
+    }
+    if (it + 1 < nk) {
+      load_a(it + 1);
+      col_sums(it + 1);
+    }
+    const float* as = As + (it & 1) * BK * TM;
+    const float* bs = Bs + (it % NS) * BK * TN;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + kk * TM + ty * 4);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(as + kk * TM + TM / 2 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * TN + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(bs + kk * TN + TN / 2 + tx * 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+    }
+    {   // this stage's row checksums: KH threads a row, BK / KH k each
+      const float* bsum = sums + (it & 1) * 2 * BK;
+      const int r = tid % TM, kb = (tid / TM) * (BK / KH);
+#pragma unroll
+      for (int kk = 0; kk < BK / KH; ++kk) {
+        const float a = as[(kb + kk) * TM + r];
+        chk_r = fmaf(a, bsum[kb + kk], chk_r);
+        bnd_r = fmaf(fabsf(a), bsum[BK + kb + kk], bnd_r);
+      }
+    }
+    if (it + 1 < nk) store_a((it + 1) & 1);
+    if (KMAJ && nxt < nk) store_b(nxt);
+  }
+  if (!KMAJ) hk::cp_async_wait<0>();
+  __syncthreads();                      // A's buffers become the partials
+
+  float* red = As;                      // [3][2][TM]: row sums, chk, bnd
+  const bool split = g.S > 1;
+  const long long pbase = (long long)s * g.M;
+  const int gx = g.gn * g.col_tiles;
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int r = (a < 4 ? 0 : TM / 2) + ty * 4 + (a & 3);
+    const int row = row0 + r;
+    float rs = 0.f;
+    if (row < row_end) {
+      const long long yrow = split ? (pbase + row) * g.N : (long long)row * g.N;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = col0 + h * (TN / 2) + tx * 4;
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = acc[a][h * 4 + e];
+        const bool all4 = col + 4 <= col_end && (g.N & 3) == 0;
+        if (split) {
+          if (all4) {
+            *reinterpret_cast<float4*>(&part_acc[yrow + col]) =
+                make_float4(v[0], v[1], v[2], v[3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (col + e < col_end) part_acc[yrow + col + e] = v[e];
+          }
+          continue;
+        }
+        if (f.enabled && f.bi == i && f.bj == j && row - i * g.bm == f.row) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + e - j * g.bn == f.col && col + e < col_end)
+              v[e] = fault_value(f, v[e]);
+        }
+        if (out_bf16) {
+          __nv_bfloat16* y = reinterpret_cast<__nv_bfloat16*>(Y) + yrow + col;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + e < col_end) y[e] = __float2bfloat16(v[e]);
+        } else {
+          float* y = reinterpret_cast<float*>(Y) + yrow + col;
+          if (all4) {
+            *reinterpret_cast<float4*>(y) = make_float4(v[0], v[1], v[2], v[3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (col + e < col_end) y[e] = v[e];
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < col_end) rs += v[e];
+      }
+    }
+    // the row's share over this warp's 8 column groups, a fixed tree
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+    if ((lane & 7) == 0) red[wx * TM + r] = rs;
+  }
+  red[2 * TM + (tid / TM) * TM + tid % TM] = chk_r;
+  red[4 * TM + (tid / TM) * TM + tid % TM] = bnd_r;
+  __syncthreads();
+  if (tid < TM && row0 + tid < row_end) {
+    float rs = 0.f, c = 0.f, b = 0.f;
+#pragma unroll
+    for (int w = 0; w < TN / 64; ++w) rs += red[w * TM + tid];
+#pragma unroll
+    for (int h = 0; h < KH; ++h) {
+      c += red[2 * TM + h * TM + tid];
+      b += red[4 * TM + h * TM + tid];
+    }
+    const long long o = (pbase + row0 + tid) * gx + cx;
+    part_chk[o] = c;
+    part_bnd[o] = b;
+    if (!split) part_rs[(long long)(row0 + tid) * gx + cx] = rs;
+  }
+}
+
+// After a split tensor-core or SIMT pass 1: one CUDA block per 16 rows of a
 // pass-1 tile (a warp per row, lanes over the tile's columns) sums the K
 // slices' partial accumulators in a fixed order, applies the fault,
 // stores y and the row's partial rowsum(acc), and folds the slices'
@@ -790,16 +1124,15 @@ abft_tc_reduce(const float* __restrict__ part_acc,
   const int j = cx / g.col_tiles, sub = cx % g.col_tiles;
   const int row0 = i * g.bm + rt * g.tm;
   const int row_end = min(min(row0 + g.tm, (i + 1) * g.bm), g.M);
-  const int col0 = j * g.bn + sub * TC_TN;
-  const int col_end = min(min(col0 + TC_TN, (j + 1) * g.bn), g.N);
+  const int col0 = j * g.bn + sub * g.tn;
+  const int col_end = min(min(col0 + g.tn, (j + 1) * g.bn), g.N);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gx = g.gn * g.col_tiles;
   const long long slice = (long long)g.M * g.N;
   for (int row = row0 + chunk * TC_RED_ROWS + warp;
        row < min(row_end, row0 + (chunk + 1) * TC_RED_ROWS); row += 8) {
     float rs = 0.f;
-#pragma unroll
-    for (int q = 0; q < TC_TN / 32; ++q) {
+    for (int q = 0; q < g.tn / 32; ++q) {
       const int col = col0 + q * 32 + lane;
       if (col >= col_end) continue;
       const float* p = part_acc + (long long)row * g.N + col;
@@ -832,7 +1165,7 @@ abft_tc_reduce(const float* __restrict__ part_acc,
   }
 }
 
-// Pass 2 of the tensor-core route (y already stored): one CUDA block per
+// Pass 2 of the tensor-core and SIMT routes (y already stored): one CUDA block per
 // logical (block_i, block_j) sums each row's per-tile partials in a fixed
 // order into the residual and bound.  Rows and columns past the problem
 // edge are the TPU kernel's zero padding: their checksums are 0, and a
@@ -1094,6 +1427,21 @@ cudaError_t launch_tc(const void* A, const void* B, const Geo& g,
   return cudaGetLastError();
 }
 
+template <bool KMAJ>
+cudaError_t launch_simt(const void* A, const void* B, const Geo& g,
+                        const Fault& f, void* Y, int out_bf16, float* pa,
+                        float* pc, float* pb, float* pr, cudaStream_t st) {
+  constexpr int bytes = SimtSmem::BYTES;
+  static unsigned long long capped = 0;   // devices, one bit each
+  cudaError_t err =
+      hk::raise_smem_cap(abft_simt_pass1<KMAJ>, bytes, &capped);
+  if (err != cudaSuccess) return err;
+  dim3 grid(g.gm * g.row_tiles, g.gn * g.col_tiles, g.S);
+  abft_simt_pass1<KMAJ><<<grid, ST_TM * ST_TN / 64, bytes, st>>>(
+      (const float*)A, (const float*)B, g, f, Y, out_bf16, pa, pc, pb, pr);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // route: 0 = CUDA-core tiled pass 1 (tile tm x tn = 8, 32 or 64 x 64),
@@ -1102,10 +1450,14 @@ cudaError_t launch_tc(const void* A, const void* B, const Geo& g,
 // 32 deep), 2 / 3 = the tensor-core pass 1 (bf16, modes 1s/2s, 16-byte
 // aligned rows of A and of W; W row-major for 2, K-major for 3; tile 64 or
 // 128 x 128; K slices a multiple of 64 deep; with S > 1 abft_tc_reduce
-// folds the slices).  The tile comes from the caller, which sized the
-// scratch and the K split by it; any other tile is rejected.
+// folds the slices), 4 = the SIMT pass 1 (f32, modes 1s/2s, 16-byte
+// aligned rows of A, W row-major (sbn == 1) or K-major (sbk == 1) with
+// 16-byte aligned rows or columns, bn % 4 == 0; tile 128 x 128; K
+// slices a multiple of 16 deep; the same pass 2 as routes 2 / 3).
+// The tile comes from the caller, which sized the scratch and the K split
+// by it; any other tile is rejected.
 // mode: 0 = '1s', 1 = '2s', 2 = 'replica'.  dtypes: 0 = f32, 1 = bf16.
-// part_rs (M x column tiles) is used by the tensor-core route only.
+// part_rs (M x column tiles) is used by routes 2 to 4 only.
 // Returns cudaGetLastError() after the last launch.
 extern "C" int abft_matmul_launch(
     const void* A, const void* B, void* Y, void* res, void* bnd,
@@ -1130,16 +1482,25 @@ extern "C" int abft_matmul_launch(
   float* pb = (float*)part_bnd;
   const bool two = mode == 1;
   if (route >= 2) {
-    if (in_dtype != 1 || mode == 2 || (tm != 64 && tm != 128) ||
-        tn != TC_TN)
+    const bool simt = route == 4;
+    if (simt ? (in_dtype != 0 || mode == 2 || tm != ST_TM || tn != ST_TN ||
+                bn % 4 || (sbn != 1 && sbk != 1))
+             : (in_dtype != 1 || mode == 2 || (tm != 64 && tm != 128) ||
+                tn != TC_TN))
       return (int)cudaErrorInvalidValue;
     const int wgs = tm / 64;
     g.tm = tm;
+    g.tn = tn;
     g.row_tiles = (bm + g.tm - 1) / g.tm;
-    g.col_tiles = (bn + TC_TN - 1) / TC_TN;
-    g.tn = TC_TN;
+    g.col_tiles = (bn + g.tn - 1) / g.tn;
     cudaError_t err;
-    if (wgs == 2)
+    if (simt)
+      err = sbn == 1
+          ? launch_simt<false>(A, B, g, f, Y, out_dtype, pa, pc, pb,
+                               (float*)part_rs, st)
+          : launch_simt<true>(A, B, g, f, Y, out_dtype, pa, pc, pb,
+                              (float*)part_rs, st);
+    else if (wgs == 2)
       err = route == 3
           ? launch_tc<2, true>(A, B, g, f, Y, out_dtype, pa, pc, pb,
                                (float*)part_rs, st)

@@ -20,7 +20,10 @@ Shapes follow the reference's wrappers: q (B, 1, H, D) with heads stored
 kv-major (kv, group); a dense cache (B, S, KV, D) or paged pools
 (NB, BS, KV, D) with a (B, W) int32 block table; lengths (B,) int32.
 Returns (out (B, 1, H, Dv), res_s, bnd_s, res_pv, bnd_pv), the four check
-vectors of shape (B, KV, G).
+vectors of shape (B, KV, G).  The kernel splits each row's block walk
+over ``decode_splits`` CTAs and merges them (flash decoding);
+``flash_decode_split_ref`` is that split and merge in plain PyTorch,
+``flash_decode_ref`` the sequential walk.
 """
 
 from __future__ import annotations
@@ -38,6 +41,52 @@ FULL_KERNEL = library.Kernel(
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128       # K2 keeps a 4 x 8 register tile over <= 128 cols
 MAX_BK = 128
+_SMS = 132               # H100 SXM streaming multiprocessors
+DECODE_HEADS = 8         # query heads a K3 CTA holds at most
+MAX_SPLITS = 64          # K3's split merge stages the splits' stats
+_SMEM_MAX = 232448       # shared memory a CTA may use on the H100 (bytes)
+_TICKETS: dict = {}      # (device, stream, capture) -> K3's split tickets
+
+
+def decode_splits(B: int, KV: int, W: int, T: int, G: int = 1) -> int:
+    """K3's split count for B rows x KV kv heads (of G query heads each:
+    ceil(G / 8) CTAs a kv head) over a table of W blocks of T keys: at
+    most one wave of CTAs over the SMs (a CTA is 8 warps and takes an SM's
+    registers: two waves of 4-warp CTAs), each split a run of whole blocks
+    (the score check's partition) of at least 32 keys (two 16-key warp
+    chunks).  It reads shapes only, never the lengths: the launch shape is
+    fixed (a CUDA graph can capture it) and a retry runs the same split."""
+    ctas = B * KV * -(-G // DECODE_HEADS)
+    want = min(MAX_SPLITS, max(1, _SMS // ctas))
+    per = max(-(-W // want), -(-32 // T))
+    return -(-W // per)
+
+
+def _decode_units_ok(d: int, esz: int) -> bool:
+    """K3 reads a row in whole 16-byte units, at most 32 of them."""
+    return d * esz % 16 == 0 and 16 <= d * esz <= 512
+
+
+def _tickets(lib, device, n: int) -> torch.Tensor:
+    """The tickets (one int32 a row, kv head and head group) that elect
+    the CTA merging the splits; every launch leaves them zero.  One buffer
+    a (device, stream, graph capture), grown as needed.  Eager launches
+    on a stream are ordered, so no two draw tickets at once, and an
+    outgrown buffer goes back to the allocator, which hands it out on that
+    stream only after them.  The launches captured in one CUDA graph share
+    a buffer of that graph's own, taken from its pool and zeroed by its
+    own node before the first of them: every replay starts from zero, and
+    no eager launch or other graph shares its tickets (two replays of one
+    graph must not run at once, as for any graph)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    capture = (lib.flash_decode_capture_id(stream)
+               if torch.cuda.is_current_stream_capturing() else 0)
+    key = (device, stream, capture)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
 
 
 def tc_path(q, k, v, bk: int) -> bool:
@@ -165,10 +214,16 @@ def flash_attention_ref(q, k, v, fault=(0, 0, 0, 0, 0, 0), *, bq: int,
 
 
 def flash_decode_kernel(q, k_cache, v_cache, table, lengths, *, block: int,
-                        scale: float | None = None):
+                        scale: float | None = None,
+                        splits: int | None = None):
     """Launch K3.  ``table is None`` selects the dense cache (identity
     table over ``block``-sized k-blocks); otherwise the pools' block size
-    is ``block`` and sentinel table entries are clamped in the kernel."""
+    is ``block`` and sentinel table entries are clamped in the kernel.
+    ``splits`` CTAs walk each row (``decode_splits`` unless forced, to
+    time one count against another; 1 is the single-CTA walk); a count
+    outside 1..min(W, 64) raises.  Rows of q, K and V are read in whole
+    16-byte units, at most 32 of them; any G = H / KV (at most 8 heads a
+    CTA)."""
     B, _, H, D = q.shape
     dense = table is None
     KV, DV = k_cache.shape[2], v_cache.shape[3]
@@ -200,28 +255,43 @@ def flash_decode_kernel(q, k_cache, v_cache, table, lengths, *, block: int,
         W, tstride = table.shape[1], table.stride(0)
     scale = scale if scale is not None else D ** -0.5
     G = H // KV
-    out = torch.empty((B, 1, H, DV), dtype=q.dtype, device=q.device)
-    rs, bs, rp, bp = (torch.empty((B, KV, G), dtype=F32, device=q.device)
+    esz = q.element_size()
+    lib = library.library("flash_decode")
+    if not (_decode_units_ok(D, esz) and _decode_units_ok(DV, esz)) \
+            or lib.flash_decode_smem_bytes(G, D, DV, esz) > _SMEM_MAX:
+        raise ValueError(f"K3 takes rows of 1 to 32 16-byte units: D={D} "
+                         f"Dv={DV} {q.dtype}")
+    if splits is None:
+        splits = decode_splits(B, KV, W, block, G)
+    if not 1 <= splits <= min(W, MAX_SPLITS):
+        raise ValueError(f"splits={splits} outside 1..{min(W, MAX_SPLITS)}"
+                         f" (the table's {W} blocks, at most {MAX_SPLITS})")
+    per = -(-W // splits)
+    dev = q.device
+    out = torch.empty((B, 1, H, DV), dtype=q.dtype, device=dev)
+    rs, bs, rp, bp = (torch.empty((B, KV, G), dtype=F32, device=dev)
                       for _ in range(4))
+    scratch = torch.empty((lib.flash_decode_scratch_floats(
+        B, KV, G, DV, esz, splits),), dtype=F32, device=dev)
+    tickets = (_tickets(lib, dev, B * KV * -(-G // DECODE_HEADS))
+               if splits > 1 else None)
     P = library.ptr
-    err = library.library("flash_decode").flash_decode_launch(
+    err = lib.flash_decode_launch(
         P(q), P(k_cache), P(v_cache), P(table) if not dense else None,
-        P(lengths), P(out), P(rs), P(bs), P(rp), P(bp), B, KV, G, D, DV,
-        block, W, NB, int(dense), tstride, float(scale), _DTYPES[q.dtype],
-        library.stream())
+        P(lengths), P(out), P(rs), P(bs), P(rp), P(bp), P(scratch),
+        P(tickets) if tickets is not None else None, B, KV, G, D, DV, block, W, NB, int(dense), splits, per,
+        tstride, float(scale), _DTYPES[q.dtype], library.stream())
     library.check(err, KERNEL.name)
     KERNEL.launches += 1
     return out, rs, bs, rp, bp
 
 
-def flash_decode_ref(q, k_cache, v_cache, table, lengths, *, block: int,
-                     scale: float | None = None):
-    """Plain version of K3 (the Pallas body's arithmetic, block by block,
-    every block of the table walked as the TPU grid does)."""
-    B, _, H, D = q.shape
-    KV, DV = k_cache.shape[2], v_cache.shape[3]
-    G = H // KV
-    scale = scale if scale is not None else D ** -0.5
+def _decode_blocks(q, k_cache, v_cache, table, block: int):
+    """The plain versions' view of the cache: per row, W blocks of
+    ``block`` keys (B, W, block, KV, D[v]), gathered through the clamped
+    table for pools, zero-padded for a dense cache."""
+    B = q.shape[0]
+    KV, D, DV = k_cache.shape[2], k_cache.shape[3], v_cache.shape[3]
     if table is None:
         S = k_cache.shape[1]
         W = -(-S // block)
@@ -230,18 +300,26 @@ def flash_decode_ref(q, k_cache, v_cache, table, lengths, *, block: int,
             B, W, block, KV, D)
         vb = torch.nn.functional.pad(v_cache, pad).reshape(
             B, W, block, KV, DV)
-    else:
-        idx = table.long().clamp(0, k_cache.shape[0] - 1)
-        kb, vb = k_cache[idx], v_cache[idx]       # (B, W, BS, KV, D)
-        W = table.shape[1]
-    dev = q.device
-    qf = q[:, 0].reshape(B, KV, G, D).to(F32)
-    lens = lengths.to(dev).reshape(B, 1)
+        return kb, vb
+    idx = table.long().clamp(0, k_cache.shape[0] - 1)
+    return k_cache[idx], v_cache[idx]             # (B, W, BS, KV, D)
+
+
+def _decode_walk(qf, kb, vb, lens, block: int, j_lo: int, j_hi: int,
+                 scale: float):
+    """The Pallas body's arithmetic over blocks j_lo .. j_hi - 1 of every
+    row, one block at a time as the TPU grid walks them.  Returns the
+    online-softmax state (m, l, acc, chk, bndc, ress, bnds).  p is masked
+    to the valid keys, so a walk whose keys all lie past the length keeps
+    l = 0 and acc = 0 (m stays at the finite sentinel)."""
+    B, KV, G, _ = qf.shape
+    DV = vb.shape[-1]
+    dev = qf.device
     m = torch.full((B, KV, G), NEG_INF, dtype=F32, device=dev)
     l = torch.zeros((B, KV, G), dtype=F32, device=dev)
     acc = torch.zeros((B, KV, G, DV), dtype=F32, device=dev)
     chk, bndc, ress, bnds = (torch.zeros_like(l) for _ in range(4))
-    for j in range(W):
+    for j in range(j_lo, j_hi):
         k = kb[:, j].to(F32)                                 # (B, T, KV, D)
         v = vb[:, j].to(F32)
         s = torch.einsum("bkgd,btkd->bkgt", qf, k) * scale
@@ -256,7 +334,8 @@ def flash_decode_ref(q, k_cache, v_cache, table, lengths, *, block: int,
         bnds = torch.maximum(bnds, bnd_s)
         s = torch.where(vm > 0, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
+        p = torch.where(vm > 0, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
         m = m_new
@@ -264,6 +343,61 @@ def flash_decode_ref(q, k_cache, v_cache, table, lengths, *, block: int,
         chk = chk * corr + torch.einsum("bkgt,btk->bkg", p, v.sum(-1))
         bndc = bndc * corr + torch.einsum("bkgt,btk->bkg", p,
                                           v.abs().sum(-1))
+    return m, l, acc, chk, bndc, ress, bnds
+
+
+def _decode_finish(q, acc, l, chk, bndc, ress, bnds):
+    B, _, H, _ = q.shape
     out = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
     rp = (chk - acc.sum(-1)).abs()
-    return out.reshape(B, 1, H, DV), ress, bnds, rp, bndc
+    return out.reshape(B, 1, H, acc.shape[-1]), ress, bnds, rp, bndc
+
+
+def _decode_inputs(q, k_cache, v_cache, table, lengths, block, scale):
+    B, _, H, D = q.shape
+    KV = k_cache.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    kb, vb = _decode_blocks(q, k_cache, v_cache, table, block)
+    qf = q[:, 0].reshape(B, KV, H // KV, D).to(F32)
+    lens = lengths.to(q.device).reshape(B, 1)
+    return qf, kb, vb, lens, scale
+
+
+def flash_decode_ref(q, k_cache, v_cache, table, lengths, *, block: int,
+                     scale: float | None = None):
+    """Plain version of K3 (the Pallas body's arithmetic, block by block,
+    every block of the table walked as the TPU grid does)."""
+    qf, kb, vb, lens, scale = _decode_inputs(q, k_cache, v_cache, table,
+                                             lengths, block, scale)
+    m, l, acc, chk, bndc, ress, bnds = _decode_walk(
+        qf, kb, vb, lens, block, 0, kb.shape[1], scale)
+    return _decode_finish(q, acc, l, chk, bndc, ress, bnds)
+
+
+def flash_decode_split_ref(q, k_cache, v_cache, table, lengths, *,
+                           block: int, splits: int,
+                           scale: float | None = None):
+    """Plain version of K3's split walk and merge: split s walks blocks
+    [s * per, (s + 1) * per) with per = ceil(W / splits), from a fresh
+    state; the splits merge in order: m = max m_s, w_s = exp(m_s - m), l,
+    acc, chk and bndc the w_s-weighted sums, the score residual and bound
+    maxima; then o = acc / l and the PV residual |chk - rowsum(acc)|.
+    Used by the tests only."""
+    qf, kb, vb, lens, scale = _decode_inputs(q, k_cache, v_cache, table,
+                                             lengths, block, scale)
+    W = kb.shape[1]
+    if not 1 <= splits <= W:
+        raise ValueError(f"splits={splits} outside 1..{W}")
+    per = -(-W // splits)
+    parts = [_decode_walk(qf, kb, vb, lens, block, s * per,
+                          min((s + 1) * per, W), scale)
+             for s in range(splits)]
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    wts = [torch.exp(p[0] - m) for p in parts]
+    l = sum(w * p[1] for w, p in zip(wts, parts))
+    acc = sum(w[..., None] * p[2] for w, p in zip(wts, parts))
+    chk = sum(w * p[3] for w, p in zip(wts, parts))
+    bndc = sum(w * p[4] for w, p in zip(wts, parts))
+    ress = torch.stack([p[5] for p in parts]).amax(0)
+    bnds = torch.stack([p[6] for p in parts]).amax(0)
+    return _decode_finish(q, acc, l, chk, bndc, ress, bnds)

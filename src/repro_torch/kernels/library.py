@@ -102,8 +102,14 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
             fn.restype = i
     else:
         fn = lib.flash_decode_launch
-        fn.argtypes = [p] * 10 + [i] * 9 + [ll, f, i, p]
+        fn.argtypes = [p] * 12 + [i] * 11 + [ll, f, i, p]
         fn.restype = i
+        lib.flash_decode_smem_bytes.argtypes = [i] * 4
+        lib.flash_decode_smem_bytes.restype = i
+        lib.flash_decode_scratch_floats.argtypes = [i] * 6
+        lib.flash_decode_scratch_floats.restype = ll
+        lib.flash_decode_capture_id.argtypes = [p]
+        lib.flash_decode_capture_id.restype = ctypes.c_ulonglong
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -32,6 +32,7 @@ from repro_torch.kernels.abft_matmul import (
     plan,
     route,
     routes,
+    simt_path,
     split_k,
     tile,
 )
@@ -183,7 +184,16 @@ def _blocks(m, k, n):
     (dict(m=16, k=2048, n=512, mode="1s"), "tc"),            # M > 8
     (dict(m=4, k=2048, n=1000, mode="1s", head=True), "tc_kmajor"),
     (dict(m=512, k=2048, n=1000, mode="1s", head=True), "tc_kmajor"),
-    (dict(m=512, k=2048, n=2048, mode="1s", dtype=torch.float32), "tiled"),
+    (dict(m=512, k=2048, n=2048, mode="1s", dtype=torch.float32), "simt"),
+    (dict(m=512, k=2048, n=2048, mode="2s", dtype=torch.float32), "simt"),
+    (dict(m=9, k=2048, n=512, mode="1s", dtype=torch.float32), "simt"),
+    (dict(m=8, k=2048, n=512, mode="1s", dtype=torch.float32), "gemv"),
+    (dict(m=512, k=2048, n=1000, mode="2s", dtype=torch.float32,
+          head=True), "simt"),                               # f32 tied head
+    (dict(m=4, k=2048, n=1000, mode="1s", dtype=torch.float32,
+          head=True), "tiled"),                              # M <= 8, K-major
+    (dict(m=512, k=2048, n=2048, mode="replica", dtype=torch.float32),
+     "tiled"),
     (dict(m=512, k=2048, n=2048, mode="replica"), "tiled"),
     (dict(m=4, k=2048, n=512, mode="replica"), "tiled"),
     (dict(m=130, k=514, n=258, mode="1s"), "tiled"),         # rows of 1028 B
@@ -241,7 +251,10 @@ def test_cuda_core_routes_keep_their_scratch():
     assert p.scratch["part_chk"] == (p.slices, 4, 8)          # 64-col tiles
     x, w = _op(512, 2048, 2048, dtype=torch.float32)
     p = plan(x, w, mode="1s", **_blocks(512, 2048, 2048))
+    assert p.route == "simt" and p.scratch["part_chk"][2] == 16
+    p = plan(x, w, mode="replica", **_blocks(512, 2048, 2048))
     assert p.route == "tiled" and p.scratch["part_chk"][2] == 32
+    assert p.scratch["part_rs"] == (0,)
 
 
 @pytest.mark.parametrize("case,want", [
@@ -250,6 +263,9 @@ def test_cuda_core_routes_keep_their_scratch():
     (dict(m=4, k=2048, n=1000, head=True), ("tc_kmajor", "tiled")),
     (dict(m=512, k=2048, n=2048), ("tc", "tiled")),
     (dict(m=512, k=2048, n=2048, mode="replica"), ("tiled",)),
+    (dict(m=512, k=2048, n=2048, dtype=torch.float32), ("simt", "tiled")),
+    (dict(m=4, k=2048, n=512, mode="2s", dtype=torch.float32),
+     ("gemv", "tiled")),
 ])
 def test_routes_lists_every_route_that_can_take_the_operands(case, want):
     case = dict(case)
@@ -263,9 +279,23 @@ def test_routes_lists_every_route_that_can_take_the_operands(case, want):
     ("tc", 8, (64, 128)), ("tc", 64, (64, 128)), ("tc", 256, (128, 128)),
     ("tc_kmajor", 40, (64, 128)), ("gemv", 8, (8, 64)),
     ("tiled", 8, (8, 64)), ("tiled", 32, (32, 64)), ("tiled", 256, (64, 64)),
+    ("simt", 256, (128, 128)), ("simt", 64, (128, 128)),
+    ("simt", 40, (128, 128)), ("simt", 72, (128, 128)),
 ])
 def test_tile_is_the_geometry_the_launch_gets(r, bm, want):
     assert tile(r, bm) == want
+
+
+@pytest.mark.parametrize("m,n", [(512, 2048), (512, 64), (40, 40),
+                                 (64, 136)])
+def test_simt_clamped_blocks_keep_the_one_tile(m, n):
+    """A block clamped to a few rows or columns runs in the 128 x 128
+    tile (masked), and the plan sizes its scratch by that tile."""
+    x, w = _op(m, 256, n, dtype=F32)
+    p = plan(x, w, mode="1s", **_blocks(m, 256, n))
+    assert p.route == "simt" and p.tile == (128, 128)
+    b = _blocks(m, 256, n)
+    assert p.scratch["part_rs"] == (m, -(-n // b["bn"]) * -(-b["bn"] // 128))
 
 
 def test_forced_route_sizes_its_own_scratch_and_split():
@@ -287,3 +317,55 @@ def test_forced_route_that_cannot_take_the_operands_raises(force):
     x, w = _op(512, 2048, 2048, dtype=torch.float32)
     with pytest.raises(ValueError):
         plan(x, w, mode="1s", **_blocks(512, 2048, 2048), force=force)
+
+
+F32 = torch.float32
+
+
+def test_route_sends_unaligned_f32_rows_to_the_tiled_pass():
+    """simt needs 16-byte rows of x and of W (or of embed.T's columns)."""
+    w = torch.empty(2048, 512)
+    x = torch.empty(40, 2049)[:, 1:]                  # base 4 B off 16
+    assert route(x, w, 256, "1s") == "tiled"
+    assert route(torch.empty(40, 2048), w, 256, "1s") == "simt"
+    wu = torch.empty(2048, 513)[:, :512]              # rows of 2052 B
+    assert route(torch.empty(40, 2048), wu, 256, "1s") == "tiled"
+    xu = torch.empty(130, 514)                        # rows of 2056 B
+    assert route(xu, torch.empty(514, 256), 256, "1s") == "tiled"
+    assert not simt_path(torch.empty(40, 2048), w, 250, "1s")   # bn % 4
+
+
+@pytest.mark.parametrize("m,k,n,head,slices,tm", [
+    (512, 2048, 2048, False, 2, 128),    # q/o: 64 tiles fill under half
+    (512, 2048, 512, False, 8, 128),     # k/v: 16 tiles
+    (512, 2048, 8192, False, 1, 128),    # up/gate: 256 tiles
+    (512, 8192, 2048, False, 2, 128),    # down
+    (512, 2048, 128256, True, 1, 128),   # the tied head (embed.T)
+    (2048, 2048, 2048, False, 1, 128),   # 256 tiles
+    (40, 1024, 768, False, 4, 128),      # a clamped 40-row block
+    (333, 2048, 1000, True, 4, 128),     # ragged rows, K-major W
+])
+def test_simt_split_and_scratch_shapes(m, k, n, head, slices, tm):
+    x, w = _op(m, k, n, dtype=F32, head=head)
+    b = _blocks(m, k, n)
+    p = plan(x, w, mode="1s", **b)
+    assert p.route == "simt" and p.tile == (tm, 128)
+    assert p.slices == slices
+    assert (p.slices - 1) * p.depth < k <= p.slices * p.depth
+    assert p.depth % 16 == 0                 # whole 16-deep stages
+    gx = -(-n // b["bn"]) * -(-b["bn"] // 128)
+    assert p.scratch["part_chk"] == p.scratch["part_bnd"] == (slices, m, gx)
+    assert p.scratch["part_rs"] == (m, gx)
+    assert p.scratch["part_acc"] == ((0,) if slices == 1
+                                     else (slices, m, n))
+
+
+def test_simt_forced_on_bf16_or_replica_raises():
+    x, w = _op(512, 2048, 2048)
+    with pytest.raises(ValueError):
+        plan(x, w, mode="1s", **_blocks(512, 2048, 2048), force="simt")
+    x, w = _op(512, 2048, 2048, dtype=F32)
+    with pytest.raises(ValueError):
+        plan(x, w, mode="replica", **_blocks(512, 2048, 2048), force="simt")
+    p = plan(x, w, mode="1s", **_blocks(512, 2048, 2048), force="tiled")
+    assert p.route == "tiled" and p.tile == (64, 64)

@@ -604,3 +604,267 @@ def test_k2_tensor_core_kernel_is_bit_for_bit_deterministic(dev):
     runs = [fa.flash_attention_kernel(q, k, v, **kw) for _ in range(3)]
     for r in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(r, runs[0]))
+
+
+# ------------------------------------------- SIMT route (K1 f32) and split K3
+
+F32 = torch.float32
+# (M, K, N, W layout): the f32 train step's six GEMM shapes at 4 x 128
+# tokens (q/o, k/v, up/gate, down, the tied head) and ragged edges
+K1_SIMT_CASES = [(512, 2048, 2048, "row"), (512, 2048, 512, "row"),
+                 (512, 2048, 8192, "row"), (512, 8192, 2048, "row"),
+                 (512, 2048, 128256, "kmajor"), (40, 1024, 768, "row"),
+                 (333, 2048, 512, "row"), (333, 512, 1000, "kmajor"),
+                 (2048, 512, 1000, "kmajor")]
+
+
+@pytest.mark.parametrize("mode", ["1s", "2s"])
+@pytest.mark.parametrize("case", K1_SIMT_CASES)
+def test_k1_simt_route_matches_plain_version(dev, case, mode):
+    """f32 on the SIMT pass 1: y within 1e-4 x max|y| (f32 sums over K in
+    another order), bounds within 1e-5 relative, the reference's residual
+    shapes, no clean flag."""
+    m, k, n, layout = case
+    x, w = _k1_inputs(dev, m, k, n, F32, seed=21,
+                      transposed=layout == "kmajor")
+    bm, bk, bn = _blocks(m, k, n)
+    kw = dict(mode=mode, bm=bm, bk=bk, bn=bn, out_dtype=F32)
+    assert am.plan(x, w, mode=mode, bm=bm, bk=bk, bn=bn).route == "simt"
+    y, res, bnd = am.abft_matmul_kernel(x, w, **kw)
+    yp, resp, bndp = abft_matmul_ref(x, w, **kw)
+    torch.cuda.synchronize()
+    assert res.shape == resp.shape and bnd.shape == bndp.shape
+    assert (y - yp).abs().max().item() <= _y_tol(yp, F32)
+    torch.testing.assert_close(bnd, bndp, rtol=1e-5, atol=1e-30)
+    _, chk = ops.abft_matmul(x, w, mode=mode, out_dtype=F32)
+    assert not bool(chk.flag)
+    assert (chk.residual / chk.threshold).max().item() < 1
+
+
+@pytest.mark.parametrize("mode", ["1s", "2s"])
+@pytest.mark.parametrize("case", [(333, 2048, 512, "row"),
+                                  (512, 2048, 2048, "row"),
+                                  (512, 2048, 8192, "row"),
+                                  (333, 512, 1000, "kmajor")])
+def test_k1_simt_route_flags_faults_at_their_block_and_row(dev, case, mode):
+    """One K slice (the epilogue applies the fault) and split K (the slice
+    reduce applies it): flagged at the fault's block and row, and only the
+    faulted element of y changes."""
+    m, k, n, layout = case
+    x, w = _k1_inputs(dev, m, k, n, F32, seed=22,
+                      transposed=layout == "kmajor")
+    row, col = m - 1, n // 2 + 3
+    bm, _, bn = _blocks(m, k, n)
+    want = (row // bm, col // bn) + (() if mode == "2s" else (row % bm,))
+    clean, _ = ops.abft_matmul(x, w, mode=mode)
+    bit = 30 if clean[row, col].abs().item() < 2 else 29
+    for fault in (FaultSpec.value(row, col, 1e4),
+                  FaultSpec.bitflip(row, col, bit)):
+        y, chk = ops.abft_matmul(x, w, mode=mode, fault=fault)
+        assert bool(chk.flag)
+        ratio = (chk.residual / chk.threshold).nan_to_num(float("inf"))
+        at = np.unravel_index(int(ratio.argmax().item()), ratio.shape)
+        assert tuple(int(a) for a in at) == want
+        diff = (y != clean).nonzero().tolist()
+        assert diff == [[row, col]]
+
+
+@pytest.mark.parametrize("case", [(512, 2048, 2048, "row"),
+                                  (512, 2048, 8192, "row"),
+                                  (333, 512, 1000, "kmajor")])
+def test_k1_simt_route_is_bit_for_bit_deterministic(dev, case):
+    m, k, n, layout = case
+    x, w = _k1_inputs(dev, m, k, n, F32, seed=23,
+                      transposed=layout == "kmajor")
+    bm, bk, bn = _blocks(m, k, n)
+    kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=F32)
+    runs = [am.abft_matmul_kernel(x, w, **kw) for _ in range(3)]
+    for r in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(r, runs[0]))
+
+
+def test_k1_simt_launch_rejects_a_tile_its_scratch_was_not_sized_for(
+        dev, monkeypatch):
+    x, w = _k1_inputs(dev, 40, 512, 512, F32, seed=24)
+    bm, bk, bn = _blocks(40, 512, 512)
+    kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=F32)
+    for bad in ((32, 128), (64, 96), (64, 128), (256, 128)):
+        with monkeypatch.context() as mp:
+            mp.setattr(am, "tile", lambda r_, bm_, bad=bad: bad)
+            with pytest.raises(RuntimeError):
+                am.abft_matmul_kernel(x, w, **kw, force="simt")
+    am.abft_matmul_kernel(x, w, **kw, force="simt")   # the right tile
+
+
+def test_k1_simt_and_tiled_agree_on_the_same_operands(dev):
+    """The fork chip_smoke.py times: the SIMT and the tiled pass 1 on one
+    GEMM give y within 1e-4 x max|y| and the same residual shape."""
+    x, w = _k1_inputs(dev, 512, 2048, 2048, F32, seed=25)
+    bm, bk, bn = _blocks(512, 2048, 2048)
+    kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=F32)
+    a = am.abft_matmul_kernel(x, w, **kw, force="simt")
+    b = am.abft_matmul_kernel(x, w, **kw, force="tiled")
+    assert a[1].shape == b[1].shape
+    assert (a[0] - b[0]).abs().max().item() <= _y_tol(b[0], F32)
+    torch.testing.assert_close(a[2], b[2], rtol=1e-5, atol=1e-30)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_k3_every_split_count_matches_plain_version(dev, kind, dtype):
+    """Every forced split count 1..W against the plain split walk and the
+    sequential walk: outputs within 1e-5 (f32) or 2^-7 (bf16) x max|o|,
+    bounds within 1e-4 relative, no clean flag; garbage past each length
+    (a permuted table with a sentinel tail) changes nothing."""
+    q, kp, vp, kd, vd, table, lengths = _k3_case(dev, dtype)
+    args = (kp, vp, table, 16) if kind == "paged" else (kd, vd, None, 32)
+    T = args[3]
+    W = table.shape[1] if kind == "paged" else -(-kd.shape[1] // T)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    seq = fa.flash_decode_ref(q, *args[:3], lengths, block=T)
+    for splits in range(1, W + 1):
+        got = fa.flash_decode_kernel(q, *args[:3], lengths, block=T,
+                                     splits=splits)
+        ref = fa.flash_decode_split_ref(q, *args[:3], lengths, block=T,
+                                        splits=splits)
+        torch.cuda.synchronize()
+        for r in (ref, seq):
+            scale = r[0].float().abs().max().item()
+            assert (got[0].float() - r[0].float()).abs().max().item() <= \
+                tol * scale, splits
+            for g, rr in ((got[2], r[2]), (got[4], r[4])):
+                torch.testing.assert_close(g, rr, rtol=1e-4, atol=1e-30)
+        from repro_torch.core.checksums import ATOL, tolerance_scale
+        D = q.shape[-1]
+        assert bool((got[1] <= ATOL + tolerance_scale(D) * got[2]).all())
+        assert bool((got[3] <= ATOL + tolerance_scale(W * T) * got[4]).all())
+
+
+def test_k3_split_ignores_data_past_each_length(dev):
+    q, kp, vp, kd, vd, table, lengths = _k3_case(dev, torch.bfloat16)
+    pos = torch.arange(kd.shape[1], device=dev)
+    past = (pos[None, :] >= lengths[:, None])[:, :, None, None]
+    kd2 = torch.where(past, torch.full_like(kd, 1e3), kd)
+    vd2 = torch.where(past, torch.full_like(vd, -1e3), vd)
+    for splits in (1, 2, 5, 8):
+        a = fa.flash_decode_kernel(q, kd, vd, None, lengths, block=32,
+                                   splits=splits)
+        b = fa.flash_decode_kernel(q, kd2, vd2, None, lengths, block=32,
+                                   splits=splits)
+        for u, v in zip(a, b):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_k3_split_is_bit_for_bit_deterministic(dev, kind):
+    """The merge runs in split order whichever CTA is elected: repeats
+    (the decode_splits default, and a forced count) are bit-identical."""
+    q, kp, vp, kd, vd, table, lengths = _k3_case(dev, torch.bfloat16)
+    args = (kp, vp, table, 16) if kind == "paged" else (kd, vd, None, 128)
+    for splits in (None, 2):
+        runs = [fa.flash_decode_kernel(q, *args[:3], lengths, block=args[3],
+                                       splits=splits) for _ in range(4)]
+        for r in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(r, runs[0]))
+
+
+def test_k3_rejects_a_split_count_the_table_cannot_take(dev):
+    q, kp, vp, kd, vd, table, lengths = _k3_case(dev, F32)
+    for bad in (0, table.shape[1] + 1):
+        with pytest.raises(ValueError):
+            fa.flash_decode_kernel(q, kp, vp, table, lengths, block=16,
+                                   splits=bad)
+    for d in (6, 160):          # rows of 24 and 640 bytes (f32)
+        with pytest.raises(ValueError):
+            qd = torch.zeros(*q.shape[:3], d, dtype=F32, device=dev)
+            kv = torch.zeros(*kd.shape[:3], d, dtype=F32, device=dev)
+            fa.flash_decode_kernel(qd, kv, kv, None, lengths, block=128)
+
+
+# (G, d, dtype): G = 3 and 6 round up to an instantiated head group, 16
+# takes two CTAs a kv head; d = 80 and 96 (bf16) pad 10 and 12 units to
+# 16, d = 80 (f32) 20 to 32
+K3_SHAPES = [(3, 64, BF16), (6, 96, BF16), (16, 64, BF16), (4, 80, BF16),
+             (3, 80, F32), (2, 128, F32)]
+
+
+@pytest.mark.parametrize("G,D,dtype", K3_SHAPES)
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_k3_takes_any_head_group_and_row_width(dev, kind, G, D, dtype):
+    """Head groups that are no instantiation and rows that are no power of
+    two of 16-byte units, against the sequential plain version at several
+    split counts: outputs within 1e-5 (f32) or 2^-7 (bf16) x max|o|,
+    bounds within 1e-4 relative."""
+    q, kp, vp, kd, vd, table, lengths = _k3_case(dev, dtype, seed=31, KV=2,
+                                                 G=G, D=D)
+    args = (kp, vp, table, 16) if kind == "paged" else (kd, vd, None, 32)
+    T = args[3]
+    W = table.shape[1] if kind == "paged" else -(-kd.shape[1] // T)
+    tol = 1e-5 if dtype == F32 else 2 ** -7
+    seq = fa.flash_decode_ref(q, *args[:3], lengths, block=T)
+    for splits in sorted({1, 3, W, fa.decode_splits(4, 2, W, T, G)}):
+        got = fa.flash_decode_kernel(q, *args[:3], lengths, block=T,
+                                     splits=splits)
+        torch.cuda.synchronize()
+        assert got[0].shape == seq[0].shape and got[1].shape == seq[1].shape
+        scale = seq[0].float().abs().max().item()
+        assert (got[0].float() - seq[0].float()).abs().max().item() <= \
+            tol * scale, splits
+        for g, r in ((got[2], seq[2]), (got[4], seq[4])):
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-30)
+
+
+def test_k3_launches_on_two_streams_at_once_agree_with_one(dev):
+    """Each stream draws split tickets from a buffer of its own: K3 launched
+    on two streams at once gives, bit for bit, what it gives on one."""
+    q, kp, vp, kd, vd, table, lengths = _k3_case(dev, BF16, seed=32)
+    want = fa.flash_decode_kernel(q, kp, vp, table, lengths, block=16,
+                                  splits=8)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = [[], []]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for _ in range(16):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(fa.flash_decode_kernel(
+                    q, kp, vp, table, lengths, block=16, splits=8))
+    torch.cuda.synchronize()
+    for runs in outs:
+        for r in runs:
+            assert all(torch.equal(a, b) for a, b in zip(r, want))
+
+
+def test_k3_captured_in_a_graph_replays_its_eager_result(dev):
+    """Launches captured in a graph keep tickets of their own (two
+    launches share the graph's buffer): replays, with eager launches on
+    the capture stream between them (one of which grows that stream's
+    buffer), equal the eager launches bit for bit."""
+    q, kp, vp, kd, vd, table, lengths = _k3_case(dev, BF16, seed=33)
+    want = fa.flash_decode_kernel(q, kd, vd, None, lengths, block=32,
+                                  splits=4)
+    want2 = fa.flash_decode_kernel(q, kp, vp, table, lengths, block=16,
+                                   splits=8)
+    gen = torch.Generator(device="cpu").manual_seed(34)
+    qb = torch.randn(8, 1, 40, 64, generator=gen).to(dev, BF16)
+    kb = torch.randn(8, 64, 40, 64, generator=gen).to(dev, BF16)
+    lb = torch.full((8,), 64, dtype=torch.int32, device=dev)
+    st = torch.cuda.Stream()
+    st.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=st):
+        got = fa.flash_decode_kernel(q, kd, vd, None, lengths, block=32,
+                                     splits=4)
+        got2 = fa.flash_decode_kernel(q, kp, vp, table, lengths, block=16,
+                                      splits=8)
+    for i in range(4):
+        with torch.cuda.stream(st):
+            if i == 1:       # 320 tickets: the stream's buffer grows
+                fa.flash_decode_kernel(qb, kb, kb, None, lb, block=32,
+                                       splits=2)
+            fa.flash_decode_kernel(q, kd, vd, None, lengths, block=32,
+                                   splits=4)
+            graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all(torch.equal(a, b) for a, b in zip(got2, want2))
