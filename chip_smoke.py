@@ -9,8 +9,13 @@ ways: served through ``repro_torch.serve.engine.ServeEngine`` on the dense
 and the paged cache (with a fault-injected run and a ``global``-scheme
 run), a full-sequence ``Model.forward`` with the flash attention kernel on
 and off, and four f32 training steps through
-``repro_torch.train.trainer.Trainer``.  Then it times the kernels at their
-paths' shapes.  Each phase prints one JSON line; any failure exits
+``repro_torch.train.trainer.Trainer``.  The ``campaign`` phase runs the
+reference's fault-campaign protocol on the served path (seeded fault
+models, shadow classification, hard faults, adaptive escalation,
+sampling, the cost of tracing) and ``profile`` times ``block_1s`` against
+``global`` per GEMM shape with ``build_profile_table`` and serves under
+the resulting ``ProfileGuidedPolicy``.  Then it times the kernels at
+their paths' shapes.  Each phase prints one JSON line; any failure exits
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
 """
@@ -32,7 +37,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
-          "timing")
+          "campaign", "profile", "timing")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -740,6 +745,21 @@ def train_runs(dev, workdir: str) -> dict:
 
 # ------------------------------------------------------------------ engine
 
+def engine_inputs(dev) -> tuple:
+    """Full-width llama3.2-1b weights (bf16, seed 0) on the card and the
+    8 prompts of 16-256 tokens every engine run serves."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    cfg = get_config(ENGINE_ARCH)
+    params = Model(cfg).init_params(0, dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 257, size=8)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in lens]
+    return params, prompts
+
+
 def engine_runs(dev) -> dict:
     from repro_torch.configs import get_config, scaled_down
     from repro_torch.core.faults import FaultSpec
@@ -755,11 +775,7 @@ def engine_runs(dev) -> dict:
     K1, K3 = abft_matmul.KERNEL, flash_attention.KERNEL
     cfg = get_config(ENGINE_ARCH)
     model = Model(cfg)
-    params = model.init_params(0, dtype=torch.bfloat16, device=dev)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(16, 257, size=8)
-    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
-               for n in lens]
+    params, prompts = engine_inputs(dev)
 
     def serve(cache_kind, policy, fault_at=None, label=""):
         abft = ABFTConfig.from_policy(policy, hardware=NVIDIA_H100_SXM,
@@ -859,7 +875,7 @@ def engine_runs(dev) -> dict:
          "small f32 engine: card streams differ from the CPU reference")
     emit("engine_small_reference", streams_equal=True)
     return {"dense": rec_dense, "engine": eng, "params": params,
-            "prompts": prompts}
+            "prompts": prompts, "streams": dense}
 
 
 def decode_profile(dev, eng_out, steps: int = 4) -> dict:
@@ -907,6 +923,432 @@ def decode_profile(dev, eng_out, steps: int = 4) -> dict:
             "kernels_per_step": sum(r[2] for r in by_name),
             "top": [{"kernel": k[:80], "ms_per_step": ms,
                      "launches_per_step": n} for k, ms, n in by_name[:10]]}
+
+
+# ------------------------------------------------------------------ campaign
+
+CAMPAIGN_RATE = 0.25        # transient faults per engine step
+CAMPAIGN_MAG = 1e4          # value faults: far above every threshold
+
+
+def _serve_run(model, params, prompts, dev, label, *, policy=None,
+               abft_on=True, fault_model=None, telemetry=None, retries=1,
+               fault_at=None, level_plan=None, classify=None, **engine_kw):
+    """One full-width engine run (bf16, 4 slots, max_len 512, flash on,
+    16 new tokens a request) with per-call bookkeeping: wall time, decode
+    step times, the shadow runs' time, and per admit/step the protection
+    level and K1's launches.  ``level_plan`` forces the protection level
+    a step runs at (a fault-free twin of an adaptive run)."""
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import IntensityGuidedPolicy
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.kernels import abft_matmul, flash_attention
+    from repro_torch.serve.engine import (
+        RecoveryPolicy,
+        Request,
+        ServeEngine,
+    )
+
+    K1, K3 = abft_matmul.KERNEL, flash_attention.KERNEL
+    abft = ABFTConfig.from_policy(policy or IntensityGuidedPolicy(),
+                                  hardware=NVIDIA_H100_SXM,
+                                  flash_attention=True, enabled=abft_on)
+    eng = ServeEngine(model, params, slots=4, max_len=512, abft=abft,
+                      dtype=torch.bfloat16, device=dev,
+                      fault_model=fault_model, telemetry=telemetry,
+                      classify_injections=classify,
+                      policy=RecoveryPolicy(max_retries=retries),
+                      **engine_kw)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+    shadow, t_dec, calls = [], [], []
+    shadow_fn, admit, step = eng._shadow_outcome, eng.admit, eng.step
+
+    def timed_shadow(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = shadow_fn(*a)
+        torch.cuda.synchronize()
+        shadow.append(time.perf_counter() - t)
+        return r
+
+    def traced_admit(*a, **k):
+        before = K1.launches
+        r = admit(*a, **k)
+        calls.append(("admit", eng.protection_level, K1.launches - before,
+                      any(q.error is None for q in r)))
+        return r
+
+    def traced_step(*a, **k):
+        i = len([c for c in calls if c[0] == "step"])
+        if level_plan is not None and i < len(level_plan) \
+                and level_plan[i] != eng.protection_level:
+            eng._set_protection_level(level_plan[i], {})
+        before = K1.launches
+        t = time.perf_counter()
+        r = step(*a, **k)
+        torch.cuda.synchronize()
+        if r:
+            t_dec.append(time.perf_counter() - t)
+        calls.append(("step", eng.protection_level, K1.launches - before,
+                      bool(r)))
+        return r
+
+    eng._shadow_outcome = timed_shadow
+    eng.admit, eng.step = traced_admit, traced_step
+    torch.cuda.synchronize()
+    K1.launches = K3.launches = 0            # counts of THIS run only
+    t0 = time.perf_counter()
+    results = eng.run(reqs, fault_at=fault_at)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    st = eng.stats
+    rec = dict(label=label, seconds=dt, tokens=st.tokens,
+               tokens_per_s=st.tokens / dt,
+               decode_step_ms_median=(1e3 * float(np.median(t_dec))
+                                      if t_dec else None),
+               launches={"abft_matmul": K1.launches,
+                         "flash_decode": K3.launches},
+               faults_injected=st.faults_injected,
+               faults_corrected=st.faults_corrected,
+               faults_uncorrected=st.faults_uncorrected,
+               sdc_faults=st.sdc_faults, masked_faults=st.masked_faults,
+               faults_detected=st.faults_detected, retries=st.retries,
+               hard_faults=st.hard_faults, evictions=st.evictions,
+               shadow_runs=len(shadow), shadow_ms=1e3 * sum(shadow),
+               escalations=st.protection_escalations,
+               deescalations=st.protection_deescalations)
+    need(all(0 <= t < model.cfg.vocab_size for s in results.values()
+             for t in s), f"campaign {label}: token out of range")
+    return {"results": results, "rec": rec, "eng": eng, "reqs": reqs,
+            "calls": calls,
+            "levels": [c[1] for c in calls if c[0] == "step"]}
+
+
+def _accounted(rec) -> bool:
+    return rec["faults_injected"] == (
+        rec["faults_corrected"] + rec["faults_uncorrected"]
+        + rec["sdc_faults"] + rec["masked_faults"])
+
+
+def campaign_runs(dev, params, prompts, ref_streams=None) -> dict:
+    """The reference's campaign protocol (``benchmarks/fault_campaign.py``)
+    at full width on the card, every item a gate: clean, a protected
+    transient campaign, its replay, a disabled fault model, an ``abft
+    off`` campaign (the shadow stream must see SDCs), a sticky fault
+    becoming a hard fault, adaptive escalation (K1 silent while
+    escalated) and de-escalation, sampling, and the cost of tracing."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.faults import FaultModel, FaultSpec
+    from repro_torch.core.policy import (
+        ErrorAdaptivePolicy,
+        FixedPolicy,
+        IntensityGuidedPolicy,
+    )
+    from repro_torch.core.schemes import Scheme
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.models.model import Model
+    from repro_torch.obs import EngineTelemetry
+    from repro_torch.serve.engine import Request
+
+    cfg = get_config(ENGINE_ARCH)
+    model = Model(cfg)
+
+    def run(label, **kw):
+        out = _serve_run(model, params, prompts, dev, label, **kw)
+        emit("campaign", **out["rec"])
+        return out
+
+    def fm(rate=CAMPAIGN_RATE, **kw):
+        base = dict(transient_rate=rate, seed=0, layers=cfg.n_layers,
+                    dtype=torch.float32, magnitude=CAMPAIGN_MAG)
+        base.update(kw)
+        return FaultModel(**base)
+
+    summary = {}
+    run("warmup")
+    clean = run("clean")
+    clean_streams = clean["results"]
+    if ref_streams is not None:
+        need(clean_streams == ref_streams,
+             "campaign clean run differs from the engine phase's streams")
+    # protected transient campaign + replay + disabled
+    f1 = fm()
+    prot = run("protected", fault_model=f1)
+    pr = prot["rec"]
+    need(pr["launches"]["abft_matmul"] > 0
+         and pr["launches"]["flash_decode"] > 0,
+         "protected campaign did not launch K1 and K3")
+    need(pr["faults_injected"] > 0 and pr["sdc_faults"] == 0,
+         f"protected campaign: {pr}")
+    need(_accounted(pr), "protected campaign: outcomes do not add up")
+    need(prot["results"] == clean_streams,
+         "protected campaign streams differ from the clean run")
+    f2 = fm()
+    rep = run("replay", fault_model=f2)
+    need(f1.schedule == f2.schedule
+         and prot["eng"].stats.injection_log
+         == rep["eng"].stats.injection_log
+         and rep["results"] == prot["results"], "replay is not identical")
+    off0 = run("disabled", fault_model=fm(rate=0.0))
+    need(off0["results"] == clean_streams
+         and off0["rec"]["faults_injected"] == 0,
+         "a rate-0 fault model changed the streams")
+    eff = pr["faults_injected"] - pr["masked_faults"]
+    det = pr["faults_corrected"] + pr["faults_uncorrected"]
+    summary["protected"] = dict(
+        coverage=det / eff if eff else 1.0,
+        sdc_rate=pr["sdc_faults"] / pr["faults_injected"],
+        overhead=pr["seconds"] / clean["rec"]["seconds"],
+        faults_injected=pr["faults_injected"],
+        schedule_len=len(f1.schedule))
+    # unprotected campaign: the shadow stream must see the corruption
+    off = run("abft_off", abft_on=False, fault_model=fm())
+    orc = off["rec"]
+    need(orc["sdc_faults"] > 0 and _accounted(orc),
+         f"abft off campaign saw no SDC: {orc}")
+    summary["abft_off"] = dict(
+        sdc_rate=orc["sdc_faults"] / orc["faults_injected"],
+        faults_injected=orc["faults_injected"],
+        shadow_runs=orc["shadow_runs"], shadow_ms=orc["shadow_ms"],
+        shadow_ms_per_run=orc["shadow_ms"] / max(orc["shadow_runs"], 1),
+        overhead=orc["seconds"] / clean["rec"]["seconds"])
+    # sticky permanent fault under block_1s, one retry: a hard fault
+    perm = run("permanent", policy=FixedPolicy(Scheme.BLOCK_1S),
+               fault_model=fm(rate=0.0, permanent_rate=0.2,
+                              permanent_duration=4, sites=("mlp_down",)))
+    prc = perm["rec"]
+    errs = {r.error for r in perm["reqs"] if r.error}
+    need(prc["hard_faults"] >= 1 and prc["faults_uncorrected"] >= 1
+         and prc["evictions"] >= 1 and errs == {"hard_fault:decode"},
+         f"sticky fault did not become a hard fault: {prc} {errs}")
+    need(all(len(perm["results"][r.uid]) == 16 for r in perm["reqs"]
+             if not r.error), "a surviving request is incomplete")
+    eng = perm["eng"]
+    eng.fault_model = None
+    alive = eng.run([Request(uid=100 + i, prompt=p, max_new_tokens=16)
+                     for i, p in enumerate(prompts[:4])])
+    need(all(len(s) == 16 for s in alive.values()),
+         "engine did not serve on after the hard fault")
+    summary["permanent"] = dict(hard_faults=prc["hard_faults"],
+                                evictions=prc["evictions"])
+    # adaptive: escalation under the elevated rate, K1 silent while there
+    ada_tel = EngineTelemetry(trace=True)
+    adaptive = ErrorAdaptivePolicy(IntensityGuidedPolicy(),
+                                   deescalate_after=4)
+    ada = run("adaptive", policy=adaptive, fault_model=fm(),
+              telemetry=ada_tel)
+    arc = ada["rec"]
+    need(arc["escalations"] >= 1, "adaptive campaign never escalated")
+    need(all(n == 0 for _, lvl, n, _ in ada["calls"] if lvl == 1),
+         "K1 launched while escalated")
+    need(ada_tel.counters_match(ada["eng"].stats), "counters drifted")
+    need(arc["sdc_faults"] == 0 and arc["hard_faults"] == 0
+         and _accounted(arc), f"adaptive campaign: {arc}")
+    twin = run("adaptive_twin", policy=ErrorAdaptivePolicy(
+        IntensityGuidedPolicy(), deescalate_after=10 ** 9),
+        level_plan=ada["levels"])
+    need(twin["results"] == ada["results"],
+         "adaptive streams differ from a fault-free run at the same levels")
+    instants = [{k: e["args"][k] for k in ("level", "direction")
+                 if k in e["args"]} | {"ts_ms": e["ts"] / 1e3}
+                for e in ada_tel.tracer.events
+                if e["name"] == "protection_escalation"]
+    # de-escalation: one fault escalates, four quiet steps return
+    one = ModelFault.at(1, "mlp_up", FaultSpec.value(0, 5, CAMPAIGN_MAG))
+    res = run("adaptive_resume", policy=ErrorAdaptivePolicy(
+        IntensityGuidedPolicy(), deescalate_after=4), fault_at=(2, one))
+    rrc = res["rec"]
+    lv = res["levels"]
+    back = [i for i in range(1, len(lv)) if lv[i - 1] == 1 and lv[i] == 0]
+    need(rrc["escalations"] == 1 and rrc["deescalations"] == 1 and back,
+         f"adaptive engine did not return to level 0: {lv}")
+    steps_after = [c for c in res["calls"] if c[0] == "step"][back[0]:]
+    need(all(n > 0 for _, lvl, n, ran in steps_after if lvl == 0 and ran),
+         "K1 did not resume after de-escalation")
+    twin2 = run("adaptive_resume_twin", policy=ErrorAdaptivePolicy(
+        IntensityGuidedPolicy(), deescalate_after=10 ** 9), level_plan=lv)
+    need(twin2["results"] == res["results"],
+         "resumed adaptive streams differ from the fault-free twin")
+    quiet = run("adaptive_quiet", policy=ErrorAdaptivePolicy(
+        IntensityGuidedPolicy(), deescalate_after=4),
+        fault_model=fm(rate=0.0))
+    need(quiet["results"] == clean_streams
+         and quiet["eng"].stats.selection_trace
+         == clean["eng"].stats.selection_trace
+         and quiet["rec"]["escalations"] == 0,
+         "quiet adaptive engine differs from the base policy")
+    summary["adaptive"] = dict(
+        escalations=arc["escalations"], deescalations=arc["deescalations"],
+        levels=ada["levels"], escalation_instants=instants,
+        k1_launches_by_level={lvl: sum(n for _, l2, n, _ in ada["calls"]
+                                       if l2 == lvl) for lvl in (0, 1)},
+        resume_levels=lv)
+    # sampling: seeded replay, and a corrected campaign under sampling
+    samp = dict(temperature=0.8, top_k=50, seed=0)
+    s1 = run("sampled", **samp)
+    s2 = run("sampled_again", **samp)
+    sf = run("sampled_campaign", fault_model=fm(), **samp)
+    need(s1["results"] == s2["results"], "sampled runs do not replay")
+    need(sf["results"] == s1["results"] and sf["rec"]["sdc_faults"] == 0
+         and sf["rec"]["faults_injected"] > 0,
+         "faulted sampled run differs from the clean sampled run")
+    summary["sampling"] = dict(
+        agree_with_greedy=float(np.mean([
+            a == b for k in clean_streams
+            for a, b in zip(clean_streams[k], s1["results"][k])])),
+        retries=sf["rec"]["retries"])
+    # the cost of --trace-out: clean and traced runs in turns (the host's
+    # spread between identical runs is large; medians of four each)
+    pairs = [(run(f"untraced_{i}"),
+              run(f"traced_{i}", telemetry=EngineTelemetry(trace=True)))
+             for i in range(4)]
+    for _, t in pairs:
+        need(t["results"] == clean_streams, "tracing changed the streams")
+
+    def med(runs, key):
+        return float(np.median([r["rec"][key] for r in runs]))
+
+    plain, traced = [p[0] for p in pairs], [p[1] for p in pairs]
+    summary["trace_overhead"] = dict(
+        untraced_tokens_per_s=[r["rec"]["tokens_per_s"] for r in plain],
+        traced_tokens_per_s=[r["rec"]["tokens_per_s"] for r in traced],
+        untraced_decode_step_ms=[r["rec"]["decode_step_ms_median"]
+                                 for r in plain],
+        traced_decode_step_ms=[r["rec"]["decode_step_ms_median"]
+                               for r in traced],
+        tokens_per_s_ratio=med(traced, "tokens_per_s")
+        / med(plain, "tokens_per_s"),
+        decode_step_ms_ratio=med(traced, "decode_step_ms_median")
+        / med(plain, "decode_step_ms_median"),
+        events=len(traced[0]["eng"].telemetry.tracer.events))
+    emit("campaign_summary", **summary)
+    return {"clean": clean, "summary": summary}
+
+
+# ------------------------------------------------------------------ profile
+
+def _eager_call_ms(d, dev) -> dict:
+    """What the eager engine pays a call of each scheme at shape ``d``:
+    mean ms over back-to-back calls (host launch cost and device time,
+    whichever paces; warm L2), beside the profiler's device time."""
+    from repro_torch.core.policy import FixedPolicy
+    from repro_torch.core.protected import ABFTConfig, protected_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(d.m, d.k, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn(d.k, d.n, generator=gen, device=dev).to(torch.bfloat16)
+    od = torch.float32 if d.out_dtype_bytes == 4 else torch.bfloat16
+    out = {}
+    for sc in ("block_1s", "global"):
+        cfg = ABFTConfig.from_policy(FixedPolicy(sc))
+        out[f"{sc}_eager_ms"] = timed(
+            lambda: protected_matmul(x, w, cfg, out_dtype=od), iters=20)
+    return out
+
+
+def profile_runs(dev, params, prompts, clean_streams=None) -> dict:
+    """``build_profile_table`` on the card: ``block_1s`` (K1) against
+    ``global`` (cuBLAS + the checksum reductions) at the plan's GEMM dims
+    for a decode step (M = 4) and a 512-token admission, and at every
+    shape the engine run reaches (recorded from ``protected_matmul``).
+    Then two engine runs under the
+    resulting ``ProfileGuidedPolicy``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import (
+        IntensityGuidedPolicy,
+        ProfileGuidedPolicy,
+        ProtectionPlan,
+    )
+    from repro_torch.core.profiler import build_profile_table
+    from repro_torch.models.model import Model
+
+    cfg = get_config(ENGINE_ARCH)
+    model = Model(cfg)
+
+    import repro_torch.core.protected as protected
+
+    seen: set = set()
+    gemm_dims = protected._gemm_dims
+
+    def recording(x, w, out_dtype):
+        d = gemm_dims(x, w, out_dtype)
+        seen.add(d)
+        return d
+
+    protected._gemm_dims = recording      # every GEMM the run executes
+    try:
+        seen_run = _serve_run(model, params, prompts, dev,
+                              "profile_shapes")
+    finally:
+        protected._gemm_dims = gemm_dims
+    if clean_streams is None:
+        clean_streams = seen_run["results"]
+    dims = []
+    for m in (4, 512):
+        plan = ProtectionPlan.for_model(cfg, hw=NVIDIA_H100_SXM,
+                                        n_tokens=m, phase="serve")
+        for e in plan.entries:
+            d = e.layer.dims
+            if e.layer.name == "lm_head":     # the head's output is f32
+                d = dataclasses.replace(d, out_dtype_bytes=4)
+            dims.append(d)
+    dims += sorted(seen, key=dataclasses.astuple)
+    dims = list(dict.fromkeys(dims))
+    times: dict = {}
+    t = time.perf_counter()
+    table = build_profile_table(dims, times=times, dtype=torch.bfloat16,
+                                device=dev, iters=7)
+    wall = time.perf_counter() - t
+    analytic = IntensityGuidedPolicy()
+    rows = []
+    for d in dims:
+        ms = {str(getattr(s, "value", s)): 1e3 * v
+              for s, v in times[d].items()}
+        rows.append({"m": d.m, "k": d.k, "n": d.n,
+                     "out_bytes": d.out_dtype_bytes,
+                     "block_1s_ms": ms["block_1s"], "global_ms": ms["global"],
+                     "winner": table[d].value,
+                     "intensity_guided": analytic.select(
+                         d, NVIDIA_H100_SXM).scheme_name,
+                     "in_run": d in seen,
+                     **_eager_call_ms(d, dev)})
+    emit("profile_table", shapes=rows, seconds=wall,
+         global_wins=sum(r["winner"] == "global" for r in rows))
+    pol = ProfileGuidedPolicy(table=table, fallback=analytic)
+    runs = [_serve_run(model, params, prompts, dev, label, policy=pol)
+            for label in ("profile_guided", "profile_guided_again")]
+    a, b = runs
+    need(not any(r.error for r in a["reqs"]), "profile-guided run errors")
+    need(a["rec"]["faults_detected"] == 0, "profile-guided false flag")
+    need(a["results"] == b["results"], "profile-guided run does not replay")
+    ran = {d: table[d].value for d in seen}
+    k1 = a["rec"]["launches"]["abft_matmul"]
+    need((k1 > 0) == ("block_1s" in ran.values()),
+         f"K1 launches {k1} do not follow the table {set(ran.values())}")
+    if set(ran.values()) == {"block_1s"}:
+        need(a["results"] == clean_streams,
+             "profile-guided streams differ from the clean run")
+    agree = float(np.mean([x == y for k in clean_streams
+                           for x, y in zip(clean_streams[k],
+                                           a["results"][k])]))
+    eng = a["eng"]
+    plan_rows = [{"name": e["name"], **{k: e["dims"][k] for k in "mkn"},
+                  "scheme": e["scheme"], "reason": e["reason"]}
+                 for e in json.loads(eng.plan.to_json())["layers"]]
+    out = dict(a["rec"], plan_rows=plan_rows,
+               run_shapes={f'{d.m}x{d.k}x{d.n}/{d.out_dtype_bytes}': s
+                           for d, s in ran.items()},
+               streams_equal_clean=a["results"] == clean_streams,
+               token_agreement_with_clean=agree,
+               tokens_per_s_again=b["rec"]["tokens_per_s"],
+               decode_step_ms_median_again=b["rec"][
+                   "decode_step_ms_median"])
+    emit("profile_guided", **out)
+    return out
 
 
 # ------------------------------------------------------------------ timing
@@ -1227,6 +1669,19 @@ def main(argv=None) -> int:
     if "engine" in phases:
         eng_out = engine_runs(dev)
         emit("decode_profile", **decode_profile(dev, eng_out))
+    if "campaign" in phases or "profile" in phases:
+        if eng_out is not None:
+            params, prompts = eng_out["params"], eng_out["prompts"]
+            ref_streams = eng_out["streams"]
+        else:
+            params, prompts = engine_inputs(dev)
+            ref_streams = None
+        if "campaign" in phases:
+            camp = campaign_runs(dev, params, prompts, ref_streams)
+            ref_streams = camp["clean"]["results"]
+        if "profile" in phases:
+            profile_runs(dev, params, prompts, ref_streams)
+        del params
     if "forward" in phases:
         fwd = forward_runs(dev)
     train_params = None

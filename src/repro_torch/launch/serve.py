@@ -1,31 +1,52 @@
 """Serving CLI: continuous batching + ABFT recovery stats (port of
-``repro.launch.serve`` for the options this slice ports).
+``repro.launch.serve`` for the options this port has).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
       --scale full --dtype bfloat16 --flash-attention \
-      [--cache paged] [--inject-faults] [--abft auto|global|block_1s|off]
+      [--cache paged] [--inject-faults] [--abft auto|global|block_1s|off] \
+      [--fault-rate 0.2 --fault-kind transient --adaptive] \
+      [--temperature 0.8 --top-k 50] [--plan-out plan.json] \
+      [--metrics-out m.json] [--trace-out t.json] [--log-events]
 
 Runs on the CUDA device unless ``--device cpu`` is given.  Block schemes
 always run the fused ABFT kernel on the card (its plain version on the
 CPU).  Weights are random, made from ``--seed``.
+
+Fault-campaign flags: ``--fault-rate`` attaches a seeded f32
+``FaultModel`` (Bernoulli-per-step injection; ``--fault-kind permanent``
+makes faults sticky for ``--fault-duration`` steps), and every injected
+fault is classified as corrected / uncorrected / SDC / masked.
+``--adaptive`` wraps the base policy in an ``ErrorAdaptivePolicy`` that
+escalates to ``global`` when the observed detection rate reaches
+``--escalate-threshold``.  Telemetry flags: ``--metrics-out`` writes the
+metrics snapshot + fault-rate surface + engine stats as one JSON
+artifact (``benchmarks/check_telemetry_schema.py`` validates it);
+``--trace-out`` writes a Chrome-trace/Perfetto JSON; ``--log-events``
+streams every trace event as a JSON line to stderr.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ALL_ARCHS, get_config, scaled_down
-from repro_torch.core.faults import FaultSpec
-from repro_torch.core.policy import FixedPolicy, IntensityGuidedPolicy
+from repro_torch.core.faults import FaultModel, FaultSpec
+from repro_torch.core.policy import (
+    ErrorAdaptivePolicy,
+    FixedPolicy,
+    IntensityGuidedPolicy,
+)
 from repro_torch.core.protected import ABFTConfig
 from repro_torch.core.schemes import Scheme
 from repro_torch.models.layers import ModelFault
 from repro_torch.models.model import Model
+from repro_torch.obs import ENGINE_COUNTERS, EngineTelemetry
 from repro_torch.serve.engine import RecoveryPolicy, Request, ServeEngine
 from repro_torch.serve.executor import resolve_device
 
@@ -49,13 +70,47 @@ def main(argv=None) -> int:
                     help="decode attention through the fused-ABFT flash "
                          "decode kernel")
     ap.add_argument("--inject-faults", action="store_true")
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="per-step Bernoulli fault probability: attaches "
+                         "a seeded FaultModel (0 = no campaign)")
+    ap.add_argument("--fault-kind", default="transient",
+                    choices=["transient", "permanent"],
+                    help="one-step transients or sticky permanent faults")
+    ap.add_argument("--fault-duration", type=int, default=8,
+                    help="steps a sticky permanent fault persists")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="FaultModel seed (same seed -> same schedule)")
+    ap.add_argument("--fault-magnitude", type=float, default=1e4,
+                    help="injected value delta (0 = random exponent-bit "
+                         "flips in the f32 accumulator instead)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="wrap the base policy in ErrorAdaptivePolicy: "
+                         "escalate to global protection under observed "
+                         "faults, de-escalate with hysteresis")
+    ap.add_argument("--escalate-threshold", type=float, default=0.05,
+                    help="detections-per-step rate that escalates "
+                         "(--adaptive)")
     ap.add_argument("--max-retries", type=int, default=1)
     ap.add_argument("--raise-on-hard-fault", action="store_true")
     ap.add_argument("--cache", choices=["dense", "paged"], default="dense")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--num-blocks", type=int, default=None)
     ap.add_argument("--admit-lookahead", type=int, default=8)
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--plan-out", default=None,
+                    help="write the engine's ProtectionPlan as JSON")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy; >0 samples per slot")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="weights and sampling seed")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the telemetry snapshot + engine stats as "
+                         "JSON")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome-trace/Perfetto JSON of the run")
+    ap.add_argument("--log-events", action="store_true",
+                    help="stream every trace event as a JSON line to "
+                         "stderr")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -71,15 +126,42 @@ def main(argv=None) -> int:
     else:
         pol = (IntensityGuidedPolicy() if args.abft == "auto"
                else FixedPolicy(Scheme(args.abft)))
+        if args.adaptive:
+            pol = ErrorAdaptivePolicy(
+                pol, detection_threshold=args.escalate_threshold)
         abft = ABFTConfig.from_policy(pol,
                                       flash_attention=args.flash_attention)
+    fault_model = None
+    if args.fault_rate > 0:
+        fault_model = FaultModel(
+            transient_rate=(args.fault_rate
+                            if args.fault_kind == "transient" else 0.0),
+            permanent_rate=(args.fault_rate
+                            if args.fault_kind == "permanent" else 0.0),
+            permanent_duration=args.fault_duration,
+            seed=args.fault_seed, layers=cfg.n_layers,
+            dtype=torch.float32, magnitude=args.fault_magnitude or None)
+    telemetry = None
+    if args.metrics_out or args.trace_out or args.log_events:
+        sink = None
+        if args.log_events:
+            def sink(ev):
+                print(json.dumps(ev), file=sys.stderr)
+        telemetry = EngineTelemetry(
+            trace=bool(args.trace_out or args.log_events), trace_sink=sink)
     engine = ServeEngine(
         model, params, slots=args.slots, max_len=args.max_len, abft=abft,
         dtype=dtype, device=device, cache_kind=args.cache,
         block_size=args.block_size, num_blocks=args.num_blocks,
         admit_lookahead=args.admit_lookahead,
+        temperature=args.temperature, top_k=args.top_k, seed=args.seed,
+        telemetry=telemetry, fault_model=fault_model,
         policy=RecoveryPolicy(max_retries=args.max_retries,
                               evict_on_hard_fault=not args.raise_on_hard_fault))
+    if args.plan_out:
+        with open(args.plan_out, "w") as fh:
+            fh.write(engine.plan.to_json())
+        print(f"wrote protection plan -> {args.plan_out}")
     rng = np.random.default_rng(0)
     reqs = [Request(uid=i,
                     prompt=rng.integers(1, cfg.vocab_size,
@@ -96,21 +178,55 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    schemes = sorted({e["scheme"] for e in engine.stats.selection_trace})
+    if telemetry is not None:
+        # TTFT/ITL histograms: the CLI owns arrival time
+        for r in reqs:
+            if r.times:
+                telemetry.observe_ttft(r.times[0] - t0)
+            for a, b in zip(r.times, r.times[1:]):
+                telemetry.observe_itl(b - a)
+    st = engine.stats
+    schemes = sorted({e["scheme"] for e in st.selection_trace})
     print(json.dumps({
         "device": str(device),
         "requests": len(results),
-        "tokens": engine.stats.tokens,
-        "tokens_per_s": engine.stats.tokens / dt,
-        "faults_detected": engine.stats.faults_detected,
-        "retries": engine.stats.retries,
-        "hard_faults": engine.stats.hard_faults,
-        "evictions": engine.stats.evictions,
-        "rejections": engine.stats.rejections,
+        "tokens": st.tokens,
+        "tokens_per_s": st.tokens / dt,
+        "faults_detected": st.faults_detected,
+        "retries": st.retries,
+        "hard_faults": st.hard_faults,
+        "evictions": st.evictions,
+        "rejections": st.rejections,
+        "decode_only_steps": st.decode_only_steps,
+        "campaign": ({
+            "faults_injected": st.faults_injected,
+            "faults_corrected": st.faults_corrected,
+            "faults_uncorrected": st.faults_uncorrected,
+            "sdc_faults": st.sdc_faults,
+            "masked_faults": st.masked_faults,
+            "schedule": fault_model.schedule,
+        } if fault_model is not None else None),
+        "protection_level": engine.protection_level,
+        "protection_escalations": st.protection_escalations,
+        "protection_deescalations": st.protection_deescalations,
         "step_schemes": schemes,
         "errors": {r.uid: r.error for r in reqs if r.error},
         "cache": engine.cache_stats(),
+        "telemetry": (telemetry.faults.snapshot()
+                      if telemetry is not None else None),
     }))
+    if args.metrics_out:
+        artifact = telemetry.snapshot()
+        artifact["engine_stats"] = {
+            k: getattr(st, a) for k, a in ENGINE_COUNTERS.items()}
+        artifact["counters_match_stats"] = telemetry.counters_match(st)
+        with open(args.metrics_out, "w") as fh:
+            json.dump(artifact, fh, indent=2)
+        print(f"wrote metrics snapshot -> {args.metrics_out}")
+    if args.trace_out:
+        telemetry.tracer.write(args.trace_out)
+        print(f"wrote trace ({len(telemetry.tracer.events)} events) -> "
+              f"{args.trace_out}")
     return 0
 
 

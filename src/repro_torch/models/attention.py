@@ -73,16 +73,29 @@ def gqa_forward(x, p, cfg: ModelConfig, ctx: LayerCtx, positions,
     return out, or_flags(flag, f_attn, f)
 
 
+def decode_cells(pos) -> tuple:
+    """Index of the dense cache cells a decode step writes: row b at its
+    cursor ``pos[b]``, every row (inactive ones at their reset cursor)."""
+    pos = pos.long()
+    return torch.arange(pos.shape[0], device=pos.device), pos
+
+
+def prefill_cells(slots, L: int) -> tuple:
+    """Index of the dense cache cells a prefill writes: rows ``slots`` at
+    positions [0, L)."""
+    slots = slots.long()
+    return slots[:, None], torch.arange(L, device=slots.device)[None, :]
+
+
 def _row_scatter(cache_leaf, new, pos) -> None:
     """Per-row decode write: ``new[b, 0]`` lands at ``cache_leaf[b, pos[b]]``."""
-    rows = torch.arange(new.shape[0], device=cache_leaf.device)
-    cache_leaf[rows, pos.to(cache_leaf.device).long()] = \
+    cache_leaf[decode_cells(pos.to(cache_leaf.device))] = \
         new[:, 0].to(cache_leaf.dtype)
 
 
 def _slot_prefill_write(cache_leaf, new, slots, L: int) -> None:
     """Write ``new`` (A, L, ...) into rows ``slots`` at positions [0, L)."""
-    cache_leaf[slots.to(cache_leaf.device).long(), :L] = \
+    cache_leaf[prefill_cells(slots.to(cache_leaf.device), L)] = \
         new.to(cache_leaf.dtype)
 
 

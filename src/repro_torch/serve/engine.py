@@ -1,10 +1,11 @@
-"""Serving engine: continuous-batched greedy decode with ABFT
-detect->recompute recovery (port of ``repro.serve.engine``, the dense and
-paged cache paths).
+"""Serving engine: continuous-batched decode with ABFT detect->recompute
+recovery, fault campaigns and adaptive protection (port of
+``repro.serve.engine``, the dense and paged cache paths).
 
 ``ServeEngine`` orchestrates three layers: the host ``Scheduler``
-(requests, slots, block tables), the ``LocalExecutor`` (params and cache
-on the device) and the ``ModelRunner`` (eager prefill/decode).
+(requests, slots, block tables), the ``LocalExecutor`` (params, cache and
+the per-slot sampling generators on the device) and the ``ModelRunner``
+(eager prefill/decode and the sampler).
 
 ``admit(pending)`` prefills up to ``len(free_slots())`` requests in one
 model call straight into their cache rows; ``step()`` decodes one token
@@ -12,33 +13,70 @@ for every active slot; ``run(requests, fault_at=, admit_fault_at=)``
 drives both to completion.  Every executed step records the plan's
 ``for_step`` selection in ``stats.selection_trace``.
 
+Sampling: greedy argmax by default; ``temperature > 0`` (with ``top_k``)
+draws through one ``torch.Generator`` per slot, seeded from ``seed``.
+Generator states are saved before an attempt and restored before every
+retry and shadow run, and on a hard fault, so a retry redraws the same
+token and a slot's draws depend only on its own accepted steps.
+
 Recovery: a raised ABFT flag re-executes the step up to
 ``RecoveryPolicy.max_retries`` times; if the flag persists the affected
 requests are evicted (or ``RuntimeError`` under
-``evict_on_hard_fault=False``).  The reference retries from its
-immutable pre-step cache; the port writes the KV cache in place, and a
-retry is sound only because it rewrites exactly the (slot, position)
-cells — or (block, offset) cells under unchanged tables — that its
-attempt wrote, before any of them is read.  Block tables change only
-outside the attempt/retry window.
+``evict_on_hard_fault=False``).  A sticky permanent campaign fault
+corrupts the retry like the attempt, which is how a faulty unit becomes a
+hard fault.  The reference retries from its immutable pre-step cache; the
+port writes the KV cache in place, and a retry is sound only because it
+rewrites exactly the (slot, position) cells — or (block, offset) cells
+under unchanged tables — that its attempt wrote, before any of them is
+read.  Block tables change only outside the attempt/retry window.
+
+Fault campaigns: a ``fault_model`` (core/faults.FaultModel) is polled once
+per ``step()`` when no explicit fault is given.  Every injected fault —
+campaign, ``fault_at`` or admission — is recorded in
+``stats.injection_log`` with where it landed and how it resolved
+(corrected / uncorrected / sdc / masked).  An undetected fault is
+classified by a shadow run: the cells the faulted attempt wrote are
+gathered, the step re-runs clean (generators restored), tokens and those
+cells are compared, and the faulted cells are scattered back so the
+faulted result stays committed, as in the reference (which compares whole
+pre-/post-step cache trees; nothing else differs).
+
+Adaptive protection: an ``ErrorAdaptivePolicy`` is split into one
+immutable (ABFT config, ``LayerCtx``, plan, runner) set per level; each
+step first feeds the telemetry's fault-rate snapshot to the policy and
+swaps the active set when it changes level.  An adaptive engine gets an
+``EngineTelemetry`` (tracing off) implicitly.
+
+Telemetry (``telemetry=EngineTelemetry(...)``, repro_torch/obs): every
+``EngineStats`` counter is mirrored after each ``admit()``/``step()``,
+per-step deltas feed the fault-rate monitor, and with tracing on the
+phases are spans (``admit``, ``prefill``, ``decode_step``,
+``abft_check``, ``abft_retry``) fenced with ``torch.cuda.synchronize`` on
+the card, plus instants (``fault_detected``, ``hard_fault``,
+``scheme_flip``, ``plan_row``, ``protection_escalation``,
+``fault_injected``, ``evict``, ``reject``).  Without telemetry the spans
+are no-ops.
 
 Options of the reference that this slice does not port raise
-``NotImplementedError``: sampling (``temperature > 0``), chunked
-prefill, prefix sharing, speculative decoding, sharding (``mesh``),
-telemetry, fault campaigns (``fault_model``) and adaptive policies.
+``NotImplementedError``: chunked prefill, prefix sharing, speculative
+decoding and sharding (``mesh``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.core.policy import FixedPolicy, IntensityGuidedPolicy
+from repro_torch.core.policy import ErrorAdaptivePolicy
 from repro_torch.core.protected import ABFTConfig
+from repro_torch.models import attention
 from repro_torch.models.layers import LayerCtx, ModelFault
 from repro_torch.models.model import Model
+from repro_torch.obs.trace import Tracer
+from repro_torch.serve import paged_cache
 from repro_torch.serve.executor import LocalExecutor, resolve_device
 from repro_torch.serve.paged_cache import BlockPool, pytree_bytes
 from repro_torch.serve.runner import ModelRunner
@@ -54,6 +92,9 @@ from repro_torch.serve.scheduler import (
 __all__ = ["ServeEngine", "Request", "RecoveryPolicy", "EngineStats",
            "PRE_PREFILL_ERRORS"]
 
+# shared no-op tracer for engines without telemetry
+_NULL_TRACER = Tracer(enabled=False)
+
 
 def _unported(**opts) -> None:
     on = [k for k, v in opts.items() if v]
@@ -68,16 +109,13 @@ class ServeEngine:
                  device=None, policy: RecoveryPolicy = RecoveryPolicy(),
                  cache_kind: str = "dense", block_size: int = 16,
                  num_blocks: int | None = None, admit_lookahead: int = 8,
-                 temperature: float = 0.0, chunk_tokens=None,
-                 prefix_sharing: bool = False, spec_decode=None,
-                 mesh=None, telemetry=None, fault_model=None):
-        _unported(temperature=temperature > 0.0, chunk_tokens=chunk_tokens,
-                  prefix_sharing=prefix_sharing, spec_decode=spec_decode,
-                  mesh=mesh, telemetry=telemetry, fault_model=fault_model)
-        pol = abft.effective_policy()
-        if not isinstance(pol, (FixedPolicy, IntensityGuidedPolicy)):
-            raise NotImplementedError(
-                f"policy {type(pol).__name__} is not ported yet")
+                 temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+                 telemetry=None, fault_model=None,
+                 classify_injections: bool | None = None,
+                 chunk_tokens=None, prefix_sharing: bool = False,
+                 spec_decode=None, mesh=None):
+        _unported(chunk_tokens=chunk_tokens, prefix_sharing=prefix_sharing,
+                  spec_decode=spec_decode, mesh=mesh)
         if slots < 1:
             raise ValueError("slots must be >= 1")
         self.device = resolve_device(device)
@@ -92,11 +130,44 @@ class ServeEngine:
         self.abft = abft
         self.policy = policy
         self.cache_kind = cache_kind
+        self.temperature = float(temperature)
+        # campaign injection: polled once per step(); undetected faults
+        # are shadow-classified whenever a fault model is attached
+        self.fault_model = fault_model
+        self.classify_injections = bool(
+            classify_injections if classify_injections is not None
+            else fault_model is not None)
+        self._injection_meta: dict | None = None
         self.executor = LocalExecutor(model, params, dtype=dtype,
                                       device=self.device)
-        self.ctx = LayerCtx(abft=abft)
-        self.plan = self.executor.protection_plan(abft, slots=slots)
+        # adaptive protection: one immutable (config, ctx, plan, runner)
+        # set per level; the mutable policy never rides in a LayerCtx
+        eff = abft.effective_policy()
+        self.adaptive = eff if isinstance(eff, ErrorAdaptivePolicy) \
+            else None
+        if self.adaptive is not None:
+            level_cfgs = (
+                dataclasses.replace(abft, policy=self.adaptive.base),
+                dataclasses.replace(abft, policy=self.adaptive.escalated))
+        else:
+            level_cfgs = (abft,)
+        self._level_ctx = tuple(LayerCtx(abft=c) for c in level_cfgs)
+        self.protection_level = 0
+        self.ctx = self._level_ctx[0]
+        # the adaptive policy reads the fault-rate monitor, so an adaptive
+        # engine gets a (trace-off) telemetry object implicitly
+        if telemetry is None and self.adaptive is not None:
+            from repro_torch.obs.telemetry import EngineTelemetry
+
+            telemetry = EngineTelemetry()
+        self.telemetry = telemetry
+        self._tr = telemetry.tracer if telemetry is not None \
+            else _NULL_TRACER
         self._last_scheme: str | None = None
+        self._level_plans = tuple(
+            self.executor.protection_plan(c, slots=slots)
+            for c in level_cfgs)
+        self.plan = self._level_plans[0]
         if cache_kind == "paged":
             width = -(-max_len // block_size)
             if num_blocks is None:
@@ -111,8 +182,14 @@ class ServeEngine:
             raise ValueError(f"unknown cache_kind {cache_kind!r}")
         self.scheduler = Scheduler(slots=slots, max_len=max_len,
                                    admit_lookahead=admit_lookahead,
-                                   stats=EngineStats(), pool=pool)
-        self.runner = ModelRunner(model, self.ctx)
+                                   stats=EngineStats(), tracer=self._tr,
+                                   pool=pool)
+        self._level_runners = tuple(
+            ModelRunner(model, ctx, temperature=temperature, top_k=top_k)
+            for ctx in self._level_ctx)
+        self.runner = self._level_runners[0]
+        self.executor.init_generators(seed, slots)
+        self._emit_plan_rows()
 
     # ------------------------------------------------ state facade
     @property
@@ -122,6 +199,14 @@ class ServeEngine:
     @property
     def cache(self):
         return self.executor.cache
+
+    @property
+    def generators(self) -> list:
+        return self.executor.gens
+
+    @property
+    def model_parallel(self) -> int:
+        return self.executor.model_parallel
 
     @property
     def stats(self) -> EngineStats:
@@ -155,6 +240,170 @@ class ServeEngine:
             self.scheduler.finish(req, error, evict=True)
             self.scheduler.release(int(slot))
 
+    # ------------------------------------------------ sampling state
+    def _gens_for(self, rows) -> list | None:
+        """The generators of ``rows`` (None entries draw nothing); None
+        under greedy decoding, which draws nothing at all."""
+        if self.temperature <= 0.0:
+            return None
+        return [self.generators[int(s)] if s is not None else None
+                for s in rows]
+
+    @staticmethod
+    def _save_gens(gens) -> list | None:
+        return None if gens is None else [
+            g.get_state() if g is not None else None for g in gens]
+
+    @staticmethod
+    def _restore_gens(gens, states) -> None:
+        if gens is None:
+            return
+        for g, st in zip(gens, states):
+            if g is not None:
+                g.set_state(st)
+
+    # ------------------------------------------------ telemetry
+    def attach_telemetry(self, telemetry) -> None:
+        """Attach (or replace) an ``EngineTelemetry`` mid-lifecycle; the
+        telemetry object must be fresh (counter mirroring is monotonic)."""
+        self.telemetry = telemetry
+        self._tr = telemetry.tracer if telemetry is not None \
+            else _NULL_TRACER
+        self.scheduler.tracer = self._tr
+        self._emit_plan_rows()
+
+    def _emit_plan_rows(self) -> None:
+        """One ``plan_row`` instant per protection-plan entry: which scheme
+        each GEMM site runs at the current protection level."""
+        if not self._tr.enabled:
+            return
+        for row in self.plan.report_rows():
+            args = {"model_parallel": self.model_parallel,
+                    "protection_level": self.protection_level}
+            args.update(row)
+            self._tr.instant("plan_row", args)
+
+    def _sync_telemetry(self) -> None:
+        """Mirror EngineStats into the registry and feed the fault-rate
+        monitor (one observation per admit/step)."""
+        if self.telemetry is None:
+            return
+        self.telemetry.sync(
+            self.stats, active_slots=len(self.active),
+            blocks_used=(self.pool.blocks_used
+                         if self.pool is not None else None),
+            blocks_free=(self.pool.blocks_free
+                         if self.pool is not None else None))
+
+    # ------------------------------------------------ adaptive protection
+    def _set_protection_level(self, level: int, evidence: dict) -> None:
+        """Swap the active (ctx, plan, runner) set to ``level``, emit a
+        ``protection_escalation`` instant with the rate evidence, re-emit
+        the plan rows and re-baseline the fault-rate monitor."""
+        self.protection_level = level
+        self.ctx = self._level_ctx[level]
+        self.plan = self._level_plans[level]
+        self.runner = self._level_runners[level]
+        if level:
+            self.stats.protection_escalations += 1
+        else:
+            self.stats.protection_deescalations += 1
+        args = {"level": level,
+                "direction": "escalate" if level else "deescalate"}
+        for k in ("window_detection_rate", "window_hard_fault_rate",
+                  "ewma_detections_per_step", "ewma_hard_faults_per_step"):
+            if k in evidence:
+                args[k] = evidence[k]
+        self._tr.instant("protection_escalation", args)
+        self._emit_plan_rows()
+        if self.telemetry is not None:
+            self.telemetry.faults.reset()
+
+    def _maybe_adapt(self) -> None:
+        if self.adaptive is None or self.telemetry is None:
+            return
+        snap = self.telemetry.faults.snapshot()
+        if self.adaptive.update(snap):
+            self._set_protection_level(self.adaptive.level, snap)
+
+    # ------------------------------------------------ injection bookkeeping
+    def _take_injection_meta(self, default_source: str) -> dict:
+        """Claim the pending injection metadata (set by step()/run()) or
+        synthesize one for a directly-passed fault."""
+        meta = self._injection_meta
+        self._injection_meta = None
+        if meta is None:
+            meta = {"source": default_source, "kind": "manual"}
+        return meta
+
+    def _record_injection(self, meta: dict, phase: str, outcome: str,
+                          **extra) -> None:
+        entry = dict(meta)
+        entry["engine_step"] = self.stats.steps
+        entry["phase"] = phase
+        entry["outcome"] = outcome
+        entry.update(extra)
+        self.stats.record_injection(entry)
+        self._tr.instant("fault_injected", {
+            "phase": phase, "outcome": outcome,
+            "kind": entry.get("kind"), "source": entry.get("source")})
+
+    def _gather(self, cells) -> list:
+        return [leaf[cells] for layer in self.cache
+                for leaf in (layer["k"], layer["v"])]
+
+    def _scatter(self, cells, values) -> None:
+        leaves = [leaf for layer in self.cache
+                  for leaf in (layer["k"], layer["v"])]
+        for leaf, v in zip(leaves, values):
+            leaf[cells] = v
+
+    def _shadow_outcome(self, emitted, cells, rerun) -> tuple:
+        """Classify an UNDETECTED injection: keep the cache cells the
+        faulted attempt wrote, re-run the step clean (``rerun``), compare
+        tokens and those cells, then scatter the faulted cells back so the
+        faulted result stays committed.  SDC: the emitted tokens differ;
+        masked: they agree (``state_match`` says whether the cells did)."""
+        faulted = self._gather(cells)
+        s_emitted, _ = rerun()
+        tokens_match = bool(torch.equal(emitted, s_emitted))
+        state_match = all(bool(torch.equal(a, b))
+                          for a, b in zip(faulted, self._gather(cells)))
+        self._scatter(cells, faulted)
+        outcome = "masked" if tokens_match else "sdc"
+        return outcome, {"tokens_match": tokens_match,
+                         "state_match": state_match}
+
+    def _resolve(self, phase: str, attempt, first, flag, meta, retry_fault,
+                 cells) -> tuple:
+        """The detect->retry window of one model call: on a raised flag
+        retry with ``retry_fault`` (None, or the sticky fault itself) up to
+        ``max_retries`` times; record a tracked injection's outcome, shadow-
+        classifying it when undetected.  Returns (emitted, flag)."""
+        with self._tr.span("abft_check", {"phase": phase}):
+            faulted = bool(flag)
+        if faulted:
+            self.stats.faults_detected += 1
+            self._tr.instant("fault_detected", {"phase": phase})
+            for _ in range(self.policy.max_retries):
+                self.stats.retries += 1
+                with self._tr.span("abft_retry", {"phase": phase}) as sp:
+                    first, flag = attempt(retry_fault)
+                    sp.fence(first, flag)
+                if not bool(flag):
+                    break
+            if meta is not None:
+                self._record_injection(
+                    meta, phase,
+                    "uncorrected" if bool(flag) else "corrected")
+        elif meta is not None:
+            outcome, extra = ("undetected", {})
+            if self.classify_injections:
+                outcome, extra = self._shadow_outcome(
+                    first, cells(), lambda: attempt(None))
+            self._record_injection(meta, phase, outcome, **extra)
+        return first, flag
+
     # ------------------------------------------------ admission
     def admit(self, pending: list, fault: ModelFault | None = None,
               fault_uid: int | None = None) -> list:
@@ -162,6 +411,15 @@ class ServeEngine:
         and returns them; each ends up active, done, or rejected/evicted
         with ``error`` set.  ``fault`` is injected only if the request
         ``fault_uid`` reaches prefill."""
+        with self._tr.span("admit") as sp:
+            consumed = self._admit_impl(pending, fault, fault_uid)
+            sp.set_args(consumed=len(consumed),
+                        admitted=len([r for r in consumed
+                                      if r.error is None]))
+        self._sync_telemetry()
+        return consumed
+
+    def _admit_impl(self, pending: list, fault, fault_uid) -> list:
         batch = self.scheduler.select_admission(pending)
         admitted, slot_list = batch.admitted, batch.slot_list
         if not admitted:
@@ -178,22 +436,38 @@ class ServeEngine:
         args = (self.params, self._dev(toks), self.cache,
                 self._dev(slot_ids), self._dev(lengths),
                 self._tables(slot_ids))
+        gens = self._gens_for(slot_ids)
+        saved = self._save_gens(gens)
 
-        first, flag = self.runner.prefill(*args, fault)
+        def attempt(fa):
+            # every attempt draws from the pre-admission generator states
+            self._restore_gens(gens, saved)
+            return self.runner.prefill(*args, fa, gens)
+
+        def cells():
+            if self.pool is None:
+                return attention.prefill_cells(args[3], Lpad)
+            return paged_cache.prefill_cells(self.cache[0]["k"], args[5],
+                                             args[4], Lpad)
+
+        meta = self._take_injection_meta("admit_fault") \
+            if fault is not None else None
+        with self._tr.span("prefill", {"rows": len(admitted),
+                                       "tokens": int(lengths.sum())}) as sp:
+            first, flag = attempt(fault)
+            sp.fence(first, flag)
+        # the clean retry rewrites every cache cell the faulted attempt
+        # wrote (same rows, positions [0, Lpad)); admission retries run
+        # clean, as the reference's do
+        first, flag = self._resolve("prefill", attempt, first, flag, meta,
+                                    None, cells)
         if bool(flag):
-            self.stats.faults_detected += 1
-            for _ in range(self.policy.max_retries):
-                self.stats.retries += 1
-                # the clean retry rewrites every cache cell the faulted
-                # attempt wrote (same rows, positions [0, Lpad))
-                first, flag = self.runner.prefill(*args, None)
-                if not bool(flag):
-                    break
-            if bool(flag):
-                self.stats.hard_faults += 1
-                self._finish_evicted(zip(slot_ids, admitted),
-                                     "hard_fault:prefill")
-                return batch.consumed
+            self.stats.hard_faults += 1
+            self._tr.instant("hard_fault", {"phase": "prefill"})
+            self._restore_gens(gens, saved)
+            self._finish_evicted(zip(slot_ids, admitted),
+                                 "hard_fault:prefill")
+            return batch.consumed
 
         self._observe_step_mix(0, int(lengths.sum()))
         first = first.cpu().numpy()
@@ -213,11 +487,31 @@ class ServeEngine:
 
     # ------------------------------------------------ decoding
     def step(self, fault: ModelFault | None = None) -> dict:
-        """One decode step for all active slots.  Returns {uid: token}."""
+        """One decode step for all active slots.  Returns {uid: token}.
+
+        With a ``fault_model`` attached and no explicit ``fault``, the
+        campaign process is polled for this step's injection.  An adaptive
+        policy re-evaluates the protection level BEFORE the step."""
         before = self.stats.steps
+        t0 = time.perf_counter()
+        self._maybe_adapt()
+        if fault is None and self.fault_model is not None:
+            ev = self.fault_model.poll()
+            if ev is not None:
+                fault = ev.model_fault
+                self._injection_meta = {"source": "campaign",
+                                        **ev.describe()}
         out = self._decode_core(fault)
         if self.stats.steps > before:
             self._observe_step_mix(self._last_decode_tokens, 0)
+        # a fault that found no executing call (idle engine) corrupted
+        # nothing: drop its unclaimed metadata
+        self._injection_meta = None
+        if self.telemetry is not None:
+            if self.stats.steps > before:
+                self.telemetry.observe_step_latency(
+                    time.perf_counter() - t0)
+            self._sync_telemetry()
         return out
 
     def _observe_step_mix(self, decode_tokens: int,
@@ -233,6 +527,12 @@ class ServeEngine:
         if self._last_scheme is not None and \
                 sel.scheme_name != self._last_scheme:
             self.stats.scheme_flips += 1
+            self._tr.instant("scheme_flip", {
+                "intensity": sel.arithmetic_intensity,
+                "scheme": sel.scheme_name,
+                "decode": decode_tokens, "prefill": prefill_tokens,
+                "model_parallel": self.model_parallel,
+            })
         self._last_scheme = sel.scheme_name
 
     def _decode_core(self, fault: ModelFault | None = None) -> dict:
@@ -247,27 +547,47 @@ class ServeEngine:
             mask[s] = True
         args = (self.params, self._dev(toks), self.cache,
                 self._dev(self.pos.copy()), self._dev(mask), self._tables())
-        nxt, flag = self.runner.decode(*args, fault)
+        gens = self._gens_for([s if mask[s] else None
+                               for s in range(self.slots)])
+        saved = self._save_gens(gens)
+        meta = self._take_injection_meta("manual") \
+            if fault is not None else None
+        # a sticky permanent fault models a faulty UNIT: it corrupts the
+        # retry exactly like the attempt; other faults retry clean
+        retry_f = fault if (meta is not None
+                            and meta.get("kind") == "permanent") else None
+
+        def attempt(fa):
+            # the retry rewrites the same (slot, pos) cells of every layer
+            # before reading them, and redraws from the same states
+            self._restore_gens(gens, saved)
+            return self.runner.decode(*args, fa, gens)
+
+        def cells():
+            if self.pool is None:
+                return attention.decode_cells(args[3])
+            return paged_cache.decode_cells(self.cache[0]["k"], args[5],
+                                            args[3])
+
+        with self._tr.span("decode_step",
+                           {"tokens": len(self.active)}) as sp:
+            nxt, flag = attempt(fault)
+            sp.fence(nxt, flag)
         self.stats.steps += 1
         if self.pool is not None:
             self.stats.observe_blocks_used(self.pool.blocks_used)
+        nxt, flag = self._resolve("decode", attempt, nxt, flag, meta,
+                                  retry_f, cells)
         if bool(flag):
-            # detection -> recompute: the retry rewrites the same
-            # (slot, pos) cells of every layer before reading them
-            self.stats.faults_detected += 1
-            for _ in range(self.policy.max_retries):
-                self.stats.retries += 1
-                nxt, flag = self.runner.decode(*args, None)
-                if not bool(flag):
-                    break
-            if bool(flag):
-                self.stats.hard_faults += 1
-                if not self.policy.evict_on_hard_fault:
-                    raise RuntimeError("persistent fault after retry")
-                victims = list(self.active.items())
-                self.active.clear()
-                self._finish_evicted(victims, "hard_fault:decode")
-                return {}
+            self.stats.hard_faults += 1
+            self._tr.instant("hard_fault", {"phase": "decode"})
+            self._restore_gens(gens, saved)
+            if not self.policy.evict_on_hard_fault:
+                raise RuntimeError("persistent fault after retry")
+            victims = list(self.active.items())
+            self.active.clear()
+            self._finish_evicted(victims, "hard_fault:decode")
+            return {}
         out = {}
         nxt = nxt.cpu().numpy()
         finished = []
@@ -294,7 +614,8 @@ class ServeEngine:
         fault)`` arms a decode-step fault from that step index on (it
         fires at the first step that actually decodes);
         ``admit_fault_at=(uid, fault)`` injects into the admission batch
-        containing that request."""
+        containing that request.  Where an armed fault landed is recorded
+        in ``stats.injection_log`` (``source="fault_at"``)."""
         pending = list(requests)
         results = {r.uid: r.generated for r in requests if r.done}
         self.scheduler.drain_finished()
@@ -312,7 +633,12 @@ class ServeEngine:
                         admit_fault_at = None
                 else:
                     self.admit(pending)
-            fault = fault_at[1] if armed and step_i >= fault_at[0] else None
+            fault = None
+            if armed and step_i >= fault_at[0]:
+                fault = fault_at[1]
+                self._injection_meta = {
+                    "source": "fault_at", "kind": "manual",
+                    "armed_step": fault_at[0], "run_step": step_i}
             before = self.stats.steps
             self.step(fault)
             if fault is not None and self.stats.steps > before:

@@ -1,9 +1,11 @@
 """Executor layer of the serving engine (port of ``LocalExecutor``): the
-device residency of params and cache, and the engine's protection plan.
-Sharded serving (``MeshExecutor``) is not ported."""
+device residency of params, cache and the per-slot sampling generators,
+and the engine's protection plan.  Sharded serving (``MeshExecutor``) is
+not ported."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.models.model import Model
@@ -47,6 +49,15 @@ class LocalExecutor:
         self.dtype = dtype
         self.dtype_bytes = dtype.itemsize
         self.cache = None
+        self.gens: list = []
+
+    def init_generators(self, seed: int, slots: int) -> None:
+        """One ``torch.Generator`` per slot on the engine's device, each
+        seeded from ``seed`` through numpy's ``SeedSequence`` (the slots'
+        streams are independent)."""
+        seeds = np.random.SeedSequence(int(seed)).generate_state(slots)
+        self.gens = [torch.Generator(device=self.device).manual_seed(int(s))
+                     for s in seeds]
 
     def init_dense_cache(self, slots: int, max_len: int) -> None:
         self.cache = self.model.init_cache(slots, max_len, dtype=self.dtype,

@@ -127,28 +127,53 @@ def init_paged_gqa_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def paged_scatter_prefill(pool, new, tables, lengths) -> None:
-    """Write an admission batch into the pool in place.  new: (A, L, ...);
-    tables: (A, W); positions >= lengths[a] (and sentinel blocks) drop."""
+def _prefill_index(pool, tables, lengths, L: int):
+    """(blk, off, keep) of a paged prefill of ``L`` padded tokens, each
+    (A, L): the cells written are ``(blk[keep], off[keep])``; positions
+    >= lengths[a] and sentinel blocks drop."""
     nb, bs = pool.shape[0], pool.shape[1]
-    A, L = new.shape[0], new.shape[1]
     t = torch.arange(L, device=pool.device)
     col = (t // bs).clamp(max=tables.shape[1] - 1)
     blk = tables.to(pool.device).long()[:, col]                 # (A, L)
-    off = (t % bs).expand(A, L)
+    off = (t % bs).expand(blk.shape[0], L)
     keep = (t[None, :] < lengths.to(pool.device)[:, None]) & (blk < nb)
+    return blk, off, keep
+
+
+def _decode_index(pool, tables, pos):
+    """(blk, off, keep) of a paged decode write, each (B,): row b writes at
+    its own cursor; sentinel tables (inactive slots) drop."""
+    nb, bs = pool.shape[0], pool.shape[1]
+    pos = pos.to(pool.device).long()
+    rows = torch.arange(tables.shape[0], device=pool.device)
+    blk = tables.to(pool.device).long()[rows, pos // bs]
+    return blk, pos % bs, blk < nb
+
+
+def prefill_cells(pool, tables, lengths, L: int) -> tuple:
+    """Index of the pool cells ``paged_scatter_prefill`` writes."""
+    blk, off, keep = _prefill_index(pool, tables, lengths, L)
+    return blk[keep], off[keep]
+
+
+def decode_cells(pool, tables, pos) -> tuple:
+    """Index of the pool cells ``paged_scatter_decode`` writes."""
+    blk, off, keep = _decode_index(pool, tables, pos)
+    return blk[keep], off[keep]
+
+
+def paged_scatter_prefill(pool, new, tables, lengths) -> None:
+    """Write an admission batch into the pool in place.  new: (A, L, ...);
+    tables: (A, W); positions >= lengths[a] (and sentinel blocks) drop."""
+    blk, off, keep = _prefill_index(pool, tables, lengths, new.shape[1])
     pool[blk[keep], off[keep]] = new[keep].to(pool.dtype)
 
 
 def paged_scatter_decode(pool, new, tables, pos) -> None:
     """Write one entry per slot at its own cursor, in place.  new: (B, ...);
     tables: (B, W); pos: (B,).  Sentinel tables (inactive slots) drop."""
-    nb, bs = pool.shape[0], pool.shape[1]
-    pos = pos.to(pool.device).long()
-    rows = torch.arange(new.shape[0], device=pool.device)
-    blk = tables.to(pool.device).long()[rows, pos // bs]
-    keep = blk < nb
-    pool[blk[keep], (pos % bs)[keep]] = new[keep].to(pool.dtype)
+    blk, off, keep = _decode_index(pool, tables, pos)
+    pool[blk[keep], off[keep]] = new[keep].to(pool.dtype)
 
 
 def paged_gather(pool, tables):

@@ -2,7 +2,8 @@
 without prefix plans or chunk cursors).
 
 Host-side request/slot/block bookkeeping: ``Request`` lifecycle,
-``EngineStats``, the slot table with per-slot position cursors,
+``EngineStats`` (with the fault-campaign outcome counters and the
+injection log), the slot table with per-slot position cursors,
 admission screening (budget/length checks, paged block allocation,
 bounded head-of-line lookahead) and the paged decode growth guard.  All
 of it is mutated strictly outside the attempt/retry window.
@@ -51,6 +52,17 @@ class EngineStats:
     evictions: int = 0         # resident requests that lost their slot
     rejections: int = 0        # screened out before prefill
     prompt_tokens_total: int = 0
+    # counters of reference features this port has not ported (prefix
+    # sharing, chunked prefill, speculative decoding): always 0 here,
+    # kept so the exported telemetry has the reference's schema
+    prefix_tokens_shared: int = 0
+    cow_copies: int = 0
+    prefill_chunks: int = 0
+    chunk_retries: int = 0
+    chunk_budget_retunes: int = 0
+    draft_proposed: int = 0
+    draft_accepted: int = 0
+    verify_retries: int = 0
     mixed_steps: int = 0
     decode_only_steps: int = 0
     prefill_only_steps: int = 0
@@ -60,6 +72,23 @@ class EngineStats:
     selection_count: int = 0
     selection_stride: int = 1
     scheme_flips: int = 0
+    # fault-campaign classification (shadow-stream harness): every
+    # injected fault — campaign or hand-armed — is classified by outcome;
+    # faults_injected = corrected + uncorrected + sdc + masked once the
+    # step resolves.  sdc: undetected AND the clean shadow run disagrees.
+    faults_injected: int = 0
+    faults_corrected: int = 0      # detected, retry re-executed clean
+    faults_uncorrected: int = 0    # detected, persisted through retries
+    sdc_faults: int = 0            # undetected, outputs provably corrupt
+    masked_faults: int = 0         # undetected, outputs provably clean
+    # adaptive protection (ErrorAdaptivePolicy) level changes
+    protection_escalations: int = 0
+    protection_deescalations: int = 0
+    # ground truth on injection placement: one entry per injected fault,
+    # {"engine_step", "phase", "source", "kind", "layer", "site", "row",
+    #  "col", "bit", "outcome", ...}, bounded like the selection trace
+    injection_log: list = dataclasses.field(default_factory=list)
+    injections_dropped: int = 0    # log entries lost to the bound
     blocks_used_sum: int = 0
     blocks_used_count: int = 0
     blocks_used_peak: int = 0
@@ -92,6 +121,24 @@ class EngineStats:
                 self.selection_trace = self.selection_trace[1::2]
                 self.selection_stride *= 2
 
+    _OUTCOME_COUNTER = {
+        "corrected": "faults_corrected",
+        "uncorrected": "faults_uncorrected",
+        "sdc": "sdc_faults",
+        "masked": "masked_faults",
+    }
+
+    def record_injection(self, entry: dict) -> None:
+        """Classify one injected fault (see ``injection_log``)."""
+        self.faults_injected += 1
+        attr = self._OUTCOME_COUNTER.get(entry.get("outcome"))
+        if attr is not None:
+            setattr(self, attr, getattr(self, attr) + 1)
+        if len(self.injection_log) < self.MAX_TRACE:
+            self.injection_log.append(entry)
+        else:
+            self.injections_dropped += 1
+
 
 def _pad_len(n: int) -> int:
     """Bucket prefill lengths to multiples of 8 (the reference's jit
@@ -107,14 +154,18 @@ class AdmissionBatch:
 
 
 class Scheduler:
-    """Host-side slot/block/request bookkeeping."""
+    """Host-side slot/block/request bookkeeping.  ``tracer`` receives the
+    ``reject``/``evict`` instants; the engine rebinds it when telemetry
+    is attached."""
 
     def __init__(self, *, slots: int, max_len: int, admit_lookahead: int,
-                 stats: EngineStats, pool: BlockPool | None = None):
+                 stats: EngineStats, tracer,
+                 pool: BlockPool | None = None):
         self.slots = slots
         self.max_len = max_len
         self.admit_lookahead = int(admit_lookahead)
         self.stats = stats
+        self.tracer = tracer
         self.pool = pool
         self.pos = np.zeros((slots,), np.int32)      # per-slot write cursor
         self.active: dict = {}                        # slot -> Request
@@ -137,8 +188,10 @@ class Scheduler:
         req.done = True
         if reject:
             self.stats.rejections += 1
+            self.tracer.instant("reject", {"uid": req.uid, "error": error})
         if evict:
             self.stats.evictions += 1
+            self.tracer.instant("evict", {"uid": req.uid, "error": error})
         self.done_events.append(req)
 
     def drain_finished(self) -> list:

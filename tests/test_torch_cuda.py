@@ -868,3 +868,132 @@ def test_k3_captured_in_a_graph_replays_its_eager_result(dev):
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         assert all(torch.equal(a, b) for a, b in zip(got2, want2))
+
+
+# ------------------------------------------------------------ campaigns
+
+def _campaign_engine(dev, dtype, cache, **kw):
+    cfg = scaled_down(get_config("llama3.2-1b"), n_layers=2)
+    model = Model(cfg)
+    params = model.init_params(3, dtype=dtype)
+    return ServeEngine(model, params, slots=2, max_len=64, dtype=dtype,
+                       device=dev, cache_kind=cache,
+                       abft=ABFTConfig(flash_attention=True), **kw)
+
+
+def _campaign_reqs(n=5, new_tokens=8):
+    rng = np.random.default_rng(5)
+    return [Request(uid=i, prompt=rng.integers(1, 256, size=int(L)).astype(
+        np.int32), max_new_tokens=new_tokens)
+        for i, L in enumerate(rng.integers(3, 40, size=n))]
+
+
+def _fault_model(**kw):
+    from repro_torch.core.faults import FaultModel
+
+    base = dict(transient_rate=0.3, seed=1, layers=2, dtype=torch.float32,
+                magnitude=1e4)
+    base.update(kw)
+    return FaultModel(**base)
+
+
+# bf16 takes K1's tensor-core routes (tc; the tied head tc_kmajor), f32
+# the GEMV at decode and simt at admission
+CAMPAIGN_ROUTES = [(torch.bfloat16, "dense"), (torch.bfloat16, "paged"),
+                   (torch.float32, "dense"), (torch.float32, "paged")]
+
+
+@pytest.mark.parametrize("dtype,cache", CAMPAIGN_ROUTES)
+def test_protected_campaign_on_the_card_corrects_every_fault(dev, dtype,
+                                                             cache):
+    clean = _campaign_engine(dev, dtype, cache).run(_campaign_reqs())
+    eng = _campaign_engine(dev, dtype, cache, fault_model=_fault_model())
+    k1 = am.KERNEL.launches
+    got = eng.run(_campaign_reqs())
+    st = eng.stats
+    assert am.KERNEL.launches > k1
+    assert st.faults_injected > 0 and st.sdc_faults == 0
+    assert st.faults_injected == (st.faults_corrected
+                                  + st.faults_uncorrected
+                                  + st.masked_faults)
+    assert got == clean
+
+
+@pytest.mark.parametrize("dtype,cache", CAMPAIGN_ROUTES)
+def test_shadow_runs_on_the_card_leave_no_trace(dev, dtype, cache):
+    """Sub-threshold value faults go undetected, so every one is shadow-
+    classified through K1: after every step the cache equals, bit for
+    bit, that of a twin engine that never runs a shadow."""
+    kw = dict(magnitude=1e-5, transient_rate=0.5)
+    a = _campaign_engine(dev, dtype, cache, fault_model=_fault_model(**kw))
+    b = _campaign_engine(dev, dtype, cache, fault_model=_fault_model(**kw),
+                         classify_injections=False)
+    pa, pb = _campaign_reqs(), _campaign_reqs()
+    k1 = am.KERNEL.launches
+    while pa or a.active:
+        if pa and a.free_slots():
+            a.admit(pa)
+            b.admit(pb)
+        assert a.step() == b.step()
+        for la, lb in zip(a.cache, b.cache):
+            assert torch.equal(la["k"], lb["k"])
+            assert torch.equal(la["v"], lb["v"])
+    assert am.KERNEL.launches > k1
+    st = a.stats
+    assert st.faults_detected == 0 and st.faults_injected > 0
+    assert st.masked_faults + st.sdc_faults == st.faults_injected
+    assert {e["outcome"] for e in b.stats.injection_log} == {"undetected"}
+
+
+def test_sticky_fault_on_the_card_becomes_a_hard_fault(dev):
+    from repro_torch.serve.engine import RecoveryPolicy
+
+    eng = _campaign_engine(
+        dev, torch.bfloat16, "dense", policy=RecoveryPolicy(max_retries=1),
+        fault_model=_fault_model(transient_rate=0.0, permanent_rate=1.0,
+                                 permanent_duration=2, sites=("mlp_down",)))
+    reqs = _campaign_reqs()
+    eng.run(reqs)
+    st = eng.stats
+    assert st.hard_faults >= 1 and st.faults_uncorrected >= 1
+    assert st.evictions >= 1
+    assert {r.error for r in reqs if r.error} == {"hard_fault:decode"}
+    eng.fault_model = None                  # the engine serves on
+    out = eng.run(_campaign_reqs(n=2))
+    assert all(len(s) == 8 for s in out.values())
+
+
+def test_sampling_retry_on_the_card_redraws_the_same_token(dev):
+    from repro_torch.models.layers import ModelFault
+
+    kw = dict(temperature=0.8, top_k=20, seed=5)
+    clean = _campaign_engine(dev, torch.bfloat16, "paged", **kw)
+    out_clean = clean.run(_campaign_reqs())
+    eng = _campaign_engine(dev, torch.bfloat16, "paged", **kw)
+    fault = ModelFault.at(1, "qkv", FaultSpec.value(0, 3, 1e4))
+    out = eng.run(_campaign_reqs(), fault_at=(2, fault))
+    assert eng.stats.retries == 1 and out == out_clean
+    assert all(torch.equal(x.get_state(), y.get_state())
+               for x, y in zip(clean.generators, eng.generators))
+
+
+@pytest.mark.parametrize("dtype,cache", CAMPAIGN_ROUTES)
+def test_bitflip_campaign_on_the_card_holds_the_invariants(dev, dtype,
+                                                           cache):
+    """f32 exponent-bit flips land in K1's f32 accumulator on each route
+    (``fault_value``): every injection is accounted for, the campaign
+    replays from its seed, and every detection is corrected."""
+    runs = []
+    for _ in range(2):
+        fm = _fault_model(magnitude=None, transient_rate=0.4)
+        eng = _campaign_engine(dev, dtype, cache, fault_model=fm)
+        out = eng.run(_campaign_reqs())
+        runs.append((out, fm.schedule, eng.stats.injection_log))
+        st = eng.stats
+        assert st.faults_injected == len(st.injection_log) > 0
+        assert st.faults_injected == (st.faults_corrected
+                                      + st.faults_uncorrected
+                                      + st.sdc_faults + st.masked_faults)
+        assert st.faults_uncorrected == 0 and st.hard_faults == 0
+        assert all(23 <= e["bit"] < 31 for e in st.injection_log)
+    assert runs[0] == runs[1]

@@ -151,15 +151,38 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(setup, monkeypatch):
     assert executor.resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("opt", [dict(temperature=0.7), dict(chunk_tokens=8),
+@pytest.mark.parametrize("opt", [dict(chunk_tokens="auto"),
+                                 dict(chunk_tokens=8),
                                  dict(prefix_sharing=True),
                                  dict(spec_decode="ngram"), dict(mesh=2),
-                                 dict(telemetry=object()),
-                                 dict(fault_model=object())])
+                                 dict(spec_decode="self_draft"),
+                                 dict(prefix_sharing=True,
+                                      cache_kind="paged")])
 def test_unported_options_raise(setup, opt):
     _, _, tm, tp, _ = setup
     with pytest.raises(NotImplementedError):
         ServeEngine(tm, tp, slots=1, max_len=16, device="cpu", **opt)
+
+
+def test_ported_options_construct(setup):
+    """Sampling, telemetry, fault campaigns and the profile-guided and
+    error-adaptive policies no longer raise."""
+    from repro_torch.core.faults import FaultModel
+    from repro_torch.core.policy import (
+        ErrorAdaptivePolicy,
+        ProfileGuidedPolicy,
+    )
+    from repro_torch.obs import EngineTelemetry
+
+    _, _, tm, tp, _ = setup
+    for opt in (dict(temperature=0.7, top_k=5),
+                dict(telemetry=EngineTelemetry()),
+                dict(fault_model=FaultModel(transient_rate=0.1)),
+                dict(abft=ABFTConfig(policy=ProfileGuidedPolicy())),
+                dict(abft=ABFTConfig(policy=ErrorAdaptivePolicy()))):
+        eng = ServeEngine(tm, tp, slots=1, max_len=16, device="cpu", **opt)
+        assert eng.run([Request(uid=0, prompt=np.arange(1, 4),
+                                max_new_tokens=2)])[0]
 
 
 def test_cache_stats_and_prompt_too_long(setup):

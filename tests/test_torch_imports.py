@@ -68,6 +68,10 @@ def test_module_walk_finds_the_slice():
                  "repro_torch.serve.engine", "repro_torch.launch.serve",
                  "repro_torch.train.trainer", "repro_torch.launch.train",
                  "repro_torch.checkpoint.checkpoint",
-                 "repro_torch.data.pipeline", "repro_torch.runtime.elastic"):
+                 "repro_torch.data.pipeline", "repro_torch.runtime.elastic",
+                 "repro_torch.obs", "repro_torch.obs.metrics",
+                 "repro_torch.obs.trace", "repro_torch.obs.faultrate",
+                 "repro_torch.obs.telemetry", "repro_torch.core.selector",
+                 "repro_torch.core.profiler"):
         assert name in mods
     assert pkgutil  # the subprocess walks packages the same way
