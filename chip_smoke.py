@@ -23,6 +23,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -37,7 +38,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
-          "campaign", "profile", "timing")
+          "campaign", "profile", "timing", "family")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -51,6 +52,9 @@ ENGINE_ARCH = "llama3.2-1b"
 K2_HEADS = (2, 32, 8, 64)
 FWD_B, FWD_L = 2, 1024          # the forward phase's batch
 TRAIN_B, TRAIN_L, TRAIN_STEPS = 4, 128, 4
+# the dense family at full width, smallest first; the score's batch
+FAMILY_ARCHS = ("stablelm-1.6b", "qwen3-14b", "qwen1.5-32b")
+SCORE_B, SCORE_L = 1, 1024
 
 
 def emit(phase: str, **kw) -> None:
@@ -481,8 +485,10 @@ def k2_checks(dev) -> dict:
             "worst_clean_residual_over_threshold": ratios, "heads": K2_HEADS}
 
 
-def k2_timing(dev) -> dict:
-    """K2 at the forward phase's shapes (B=2, L=1024, llama heads, bf16),
+def k2_timing(dev, heads=K2_HEADS, L: int = FWD_L,
+              arch: str = ENGINE_ARCH) -> dict:
+    """K2 at the forward phase's shapes (B=2, L=1024, llama heads, bf16;
+    ``heads`` = (B, H, KV, D) and ``L`` for another path's),
     one launch: kernel, plain version, ``scaled_dot_product_attention``
     (causal, GQA) and the bound.  Bytes: q, k, v and o once, and the four
     (B, H, L) check vectors; operations at the bf16 tensor-core rate: S
@@ -495,8 +501,7 @@ def k2_timing(dev) -> dict:
     )
 
     gen = torch.Generator(device=dev).manual_seed(9)
-    B, H, KV, D = K2_HEADS
-    L = FWD_L
+    B, H, KV, D = heads
     q, k, v = _k2_inputs(gen, dev, B, L, H, KV, D, torch.bfloat16)
     kw = dict(causal=True, **_k2_blocks(L))
     o = flash_attention_kernel(q, k, v, **kw)[0]
@@ -511,7 +516,7 @@ def k2_timing(dev) -> dict:
     byts = 2 * (2 * B * L * H * D + 2 * B * L * KV * D) + 4 * 4 * B * H * L
     flops = 2.0 * B * H * L * L * D + 2.0 * B * H * D * L * (L + 1) / 2
     t_b, t_f = byts / HBM_BW, flops / PEAK_BF16
-    rec = {"B": B, "L": L, "H": H, "KV": KV, "D": D,
+    rec = {"arch": arch, "B": B, "L": L, "H": H, "KV": KV, "D": D,
            "ms": timed_graph(lambda: flash_attention_kernel(q, k, v, **kw),
                              iters=10),
            "plain_ms": timed_graph(lambda: flash_attention_ref(q, k, v, **kw),
@@ -745,13 +750,13 @@ def train_runs(dev, workdir: str) -> dict:
 
 # ------------------------------------------------------------------ engine
 
-def engine_inputs(dev) -> tuple:
-    """Full-width llama3.2-1b weights (bf16, seed 0) on the card and the
-    8 prompts of 16-256 tokens every engine run serves."""
+def engine_inputs(dev, arch: str = ENGINE_ARCH) -> tuple:
+    """Full-width weights of ``arch`` (bf16, seed 0), made on the card,
+    and the 8 prompts of 16-256 tokens every engine run serves."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
-    cfg = get_config(ENGINE_ARCH)
+    cfg = get_config(arch)
     params = Model(cfg).init_params(0, dtype=torch.bfloat16, device=dev)
     rng = np.random.default_rng(0)
     lens = rng.integers(16, 257, size=8)
@@ -760,76 +765,92 @@ def engine_inputs(dev) -> tuple:
     return params, prompts
 
 
+def engine_serve(model, params, prompts, dev, cache_kind, policy, *,
+                 fault_at=None, label="", phase="engine",
+                 max_new_tokens=16):
+    """One bf16 engine run (4 slots, max_len 512, flash on) of ``prompts``
+    under ``policy`` on ``NVIDIA_H100_SXM``, every admission and decode
+    step timed to a synchronize; K1 and K3 counted from 0 for this run.
+    Emits the run's line under ``phase``; returns (streams, record,
+    engine)."""
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.kernels import abft_matmul, flash_attention
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    K1, K3 = abft_matmul.KERNEL, flash_attention.KERNEL
+    abft = ABFTConfig.from_policy(policy, hardware=NVIDIA_H100_SXM,
+                                  flash_attention=True)
+    eng = ServeEngine(model, params, slots=4, max_len=512, abft=abft,
+                      dtype=torch.bfloat16, device=dev,
+                      cache_kind=cache_kind)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new_tokens)
+            for i, p in enumerate(prompts)]
+    t_pre, t_dec = [], []
+    admit, step = eng.admit, eng.step
+
+    def timed_admit(*a, **k):
+        t = time.perf_counter()
+        r = admit(*a, **k)
+        torch.cuda.synchronize()
+        t_pre.append(time.perf_counter() - t)
+        return r
+
+    def timed_step(*a, **k):
+        t = time.perf_counter()
+        r = step(*a, **k)
+        torch.cuda.synchronize()
+        if r:
+            t_dec.append(time.perf_counter() - t)
+        return r
+
+    eng.admit, eng.step = timed_admit, timed_step
+    torch.cuda.synchronize()
+    K1.launches = K3.launches = 0        # counts of THIS run only
+    t0 = time.perf_counter()
+    results = eng.run(reqs, fault_at=fault_at)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    del eng.admit, eng.step         # the timers close a cycle through eng
+    launches = {"abft_matmul": K1.launches, "flash_decode": K3.launches}
+    errors = {r.uid: r.error for r in reqs if r.error}
+    need(not errors, f"{phase} {label}: errors {errors}")
+    need(all(len(results[i]) == max_new_tokens for i in range(len(reqs))),
+         f"{phase} {label}: incomplete streams")
+    need(all(0 <= t < model.cfg.vocab_size for s in results.values()
+             for t in s), f"{phase} {label}: token out of range")
+    st = eng.stats
+    rec = dict(label=label, cache=cache_kind, tokens=st.tokens,
+               seconds=dt, tokens_per_s=st.tokens / dt,
+               prefill_ms=[1e3 * t for t in t_pre],
+               decode_step_ms_median=1e3 * float(np.median(t_dec)),
+               decode_steps=len(t_dec), launches=launches,
+               faults_detected=st.faults_detected, retries=st.retries,
+               hard_faults=st.hard_faults,
+               selection_trace=[f'{e["decode"]}+{e["prefill"]}:'
+                                f'{e["scheme"]}'
+                                for e in st.selection_trace])
+    emit(phase, **rec)
+    return results, rec, eng
+
+
 def engine_runs(dev) -> dict:
     from repro_torch.configs import get_config, scaled_down
     from repro_torch.core.faults import FaultSpec
-    from repro_torch.core.hardware import NVIDIA_H100_SXM
     from repro_torch.core.policy import FixedPolicy, IntensityGuidedPolicy
     from repro_torch.core.protected import ABFTConfig
     from repro_torch.core.schemes import Scheme
-    from repro_torch.kernels import abft_matmul, flash_attention
     from repro_torch.models.layers import ModelFault
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import Request, ServeEngine
 
-    K1, K3 = abft_matmul.KERNEL, flash_attention.KERNEL
     cfg = get_config(ENGINE_ARCH)
     model = Model(cfg)
     params, prompts = engine_inputs(dev)
 
     def serve(cache_kind, policy, fault_at=None, label=""):
-        abft = ABFTConfig.from_policy(policy, hardware=NVIDIA_H100_SXM,
-                                      flash_attention=True)
-        eng = ServeEngine(model, params, slots=4, max_len=512, abft=abft,
-                          dtype=torch.bfloat16, device=dev,
-                          cache_kind=cache_kind)
-        reqs = [Request(uid=i, prompt=p, max_new_tokens=16)
-                for i, p in enumerate(prompts)]
-        t_pre, t_dec = [], []
-        admit, step = eng.admit, eng.step
-
-        def timed_admit(*a, **k):
-            t = time.perf_counter()
-            r = admit(*a, **k)
-            torch.cuda.synchronize()
-            t_pre.append(time.perf_counter() - t)
-            return r
-
-        def timed_step(*a, **k):
-            t = time.perf_counter()
-            r = step(*a, **k)
-            torch.cuda.synchronize()
-            if r:
-                t_dec.append(time.perf_counter() - t)
-            return r
-
-        eng.admit, eng.step = timed_admit, timed_step
-        torch.cuda.synchronize()
-        K1.launches = K3.launches = 0        # counts of THIS run only
-        t0 = time.perf_counter()
-        results = eng.run(reqs, fault_at=fault_at)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = {"abft_matmul": K1.launches, "flash_decode": K3.launches}
-        errors = {r.uid: r.error for r in reqs if r.error}
-        need(not errors, f"engine {label}: errors {errors}")
-        need(all(len(results[i]) == 16 for i in range(len(reqs))),
-             f"engine {label}: incomplete streams")
-        need(all(0 <= t < cfg.vocab_size for s in results.values()
-                 for t in s), f"engine {label}: token out of range")
-        st = eng.stats
-        rec = dict(label=label, cache=cache_kind, tokens=st.tokens,
-                   seconds=dt, tokens_per_s=st.tokens / dt,
-                   prefill_ms=[1e3 * t for t in t_pre],
-                   decode_step_ms_median=1e3 * float(np.median(t_dec)),
-                   decode_steps=len(t_dec), launches=launches,
-                   faults_detected=st.faults_detected, retries=st.retries,
-                   hard_faults=st.hard_faults,
-                   selection_trace=[f'{e["decode"]}+{e["prefill"]}:'
-                                    f'{e["scheme"]}'
-                                    for e in st.selection_trace])
-        emit("engine", **rec)
-        return results, rec, eng
+        return engine_serve(model, params, prompts, dev, cache_kind, policy,
+                            fault_at=fault_at, label=label)
 
     intensity = IntensityGuidedPolicy()
     serve("dense", intensity, label="warmup")
@@ -1351,6 +1372,312 @@ def profile_runs(dev, params, prompts, clean_streams=None) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ family
+
+def free_memory() -> None:
+    """Collect what reference cycles keep alive (an engine, and through it
+    its weights and cache), then hand the cached blocks back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_plan(cfg) -> dict:
+    """The plan ``IntensityGuidedPolicy`` compiles for ``cfg`` on the
+    H100 at a decode step (M = 4), a prefill admission (M = 512) and the
+    score's rows (M = 1024): (site, m, k, n, intensity, scheme) a row."""
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import IntensityGuidedPolicy, ProtectionPlan
+
+    out = {}
+    for name, n in (("decode", 4), ("prefill", 512), ("score", 1024)):
+        plan = ProtectionPlan.for_model(cfg, hw=NVIDIA_H100_SXM,
+                                        policy=IntensityGuidedPolicy(),
+                                        phase=name, n_tokens=n)
+        out[name] = [(r["layer"], r["m"], r["k"], r["n"], r["ai"],
+                      r["scheme"]) for r in plan.report_rows()]
+    return out
+
+
+def family_checks(dev, cfg, params) -> dict:
+    """K1 and K2 against their plain versions at ``cfg``'s shapes, before
+    its main path runs.  K1: each GEMM site's real weights (K up to
+    27392, N up to 152064) at M = 4 (a decode step) and 1024 (the score's
+    rows), mode 1s on the route the path takes, and a value fault and a
+    bit flip in ``mlp.down`` flagged at their block and row.  K2: causal
+    bf16 at B = 1, L = 1024 with ``cfg``'s heads (D = 64 or 128, G = 1 or
+    5).  K3 is held against its plain version layer by layer in
+    ``k3_timing`` on the engine's own cache.
+
+    Tolerances as ``k1_checks`` and ``k2_checks``: y within 2^-7 x max|y|
+    in bf16 (one rounding of either side; 1e-4 in f32, the head's output)
+    at the deepest K; bounds within 1e-4 relative; clean residuals under
+    the threshold on both sides."""
+    from repro_torch.core.checksums import ATOL, tolerance_scale
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.abft_matmul import abft_matmul_kernel, route
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_kernel,
+        flash_attention_ref,
+        tc_path,
+    )
+    from repro_torch.kernels.ref import abft_matmul_ref
+
+    lp = params["layers"][0]
+    gemms = {"q": lp["mixer"]["wq"], "kv": lp["mixer"]["wk"],
+             "o": lp["mixer"]["wo"], "up": lp["ffn"]["up"],
+             "down": lp["ffn"]["down"],
+             "head": params["lm_head"] if "lm_head" in params
+             else params["embed"].t()}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ratios, worst, worst_abs, routes_taken = {}, 0.0, 0.0, {}
+    for m in (4, 1024):
+        for name, w in gemms.items():
+            k, n = w.shape
+            x = torch.randn(m, k, generator=gen, device=dev).to(w.dtype)
+            out_dtype = torch.float32 if name == "head" else w.dtype
+            bm, bk, bn = (min(b, -(-d // 8) * 8) for b, d in
+                          ((256, m), (512, k), (256, n)))
+            kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+            y, _, bnd = abft_matmul_kernel(x, w, **kw)
+            yp, _, bndp = abft_matmul_ref(x, w, **kw)
+            scale = yp.float().abs().max().item()
+            tol = (1e-4 if out_dtype == torch.float32 else 2 ** -7) * scale
+            err = (y.float() - yp.float()).abs().max().item()
+            need(err <= tol, f"K1 {cfg.name} {name} m={m}: err {err} > "
+                 f"{tol}")
+            berr = ((bnd - bndp).abs() / bndp.abs().clamp_min(1e-30)).max()
+            need(berr.item() <= 1e-4, f"K1 {cfg.name} bnd {name} m={m}: "
+                 f"{berr.item()}")
+            del y, yp, bnd, bndp
+            _, chk = ops.abft_matmul(x, w, mode="1s", out_dtype=out_dtype)
+            need(not bool(chk.flag), f"K1 false flag {cfg.name} {name} "
+                 f"m={m} (K={k})")
+            ratios[f"{name}_m{m}"] = _ratio(chk)
+            routes_taken[f"{name}_m{m}"] = route(x, w, bn, "1s")
+            worst = max(worst, err / max(scale, 1e-30))
+            worst_abs = max(worst_abs, err)
+            if name == "down":
+                _k1_fault_check(ops, FaultSpec, x, w, "1s", out_dtype,
+                                f"{cfg.name} down")
+    need(all(v < 1 for v in ratios.values()),
+         f"K1 clean residual at or over its threshold: {ratios}")
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = _k2_inputs(gen, dev, 1, 1024, H, KV, D, torch.bfloat16)
+    kw = dict(causal=True, **_k2_blocks(1024))
+    got = flash_attention_kernel(q, k, v, **kw)
+    ref = flash_attention_ref(q, k, v, **kw)
+    o_ref = ref[0].float()
+    share = ((got[0].float() - o_ref).abs()
+             / (2 ** -7 * o_ref.abs() + 1e-5 * o_ref.abs().max())).max()
+    need(share.item() <= 1, f"K2 {cfg.name}: an element off by "
+         f"{share.item()} x its tolerance")
+    for gi, ri, nm in ((got[2], ref[2], "bnd_s"), (got[4], ref[4], "bnd_pv")):
+        rel = ((gi - ri).abs() / ri.abs().clamp_min(1e-30)).max().item()
+        need(rel <= 1e-4, f"K2 {cfg.name} {nm}: rel {rel}")
+    k2_ratio = max(
+        (got[1] / (ATOL + tolerance_scale(D) * got[2])).max().item(),
+        (got[3] / (ATOL + tolerance_scale(1024) * got[4])).max().item())
+    need(k2_ratio < 1, f"K2 {cfg.name} clean residual over threshold")
+    return {"k1_max_rel_err_y": worst, "k1_max_abs_err": worst_abs,
+            "k1_routes": routes_taken,
+            "k1_worst_clean_residual_over_threshold": max(ratios.values()),
+            "k2_tc": tc_path(q, k, v, kw["bk"]),
+            "k2_bf16_worst_err_over_tolerance": share.item(),
+            "k2_max_abs_err": (got[0].float() - o_ref).abs().max().item(),
+            "k2_worst_clean_residual_over_threshold": k2_ratio}
+
+
+def _forward_f32_layerwise(model, params, tokens):
+    """Final hidden states of ``params`` run in f32, cast one layer at a
+    time (the whole model in f32 does not fit beside its bf16 weights at
+    14B and 32B): plain matmuls (ABFT off, TF32 off) and chunked
+    attention, through the model's own ``apply_layer``."""
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.layers import LayerCtx, norm
+
+    cfg = model.cfg
+    ctx = LayerCtx(abft=ABFTConfig(enabled=False))
+    B, L = tokens.shape
+    x = params["embed"][tokens].float()
+    positions = torch.arange(L, device=tokens.device).expand(B, L)
+    for i, lp in enumerate(params["layers"]):
+        x, _ = model.apply_layer(x, tree_map(lambda t: t.float(), lp),
+                                 ctx.with_layer(i), positions, "full", None)
+    return norm(x, tree_map(lambda t: t.float(), params["final_norm"]),
+                cfg.norm, cfg.norm_eps)
+
+
+def family_score(dev, model, params) -> dict:
+    """``Model.forward`` at B = 1 x L = 1024 under ``IntensityGuidedPolicy``
+    on K2 and on the chunked path, held against each other with the
+    ``forward`` phase's tolerance: both against the same weights run in
+    f32 (layer by layer; the head in column chunks), the flash path's
+    error at most 1.5 x the chunked path's own, and the two paths apart
+    by at most 2.5 x the chunked path's error.  Neither raises a flag;
+    K2 launches once a layer."""
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import IntensityGuidedPolicy
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.kernels import abft_matmul, flash_attention
+    from repro_torch.models.layers import LayerCtx
+
+    K1, K2 = abft_matmul.KERNEL, flash_attention.FULL_KERNEL
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, size=(SCORE_B, SCORE_L)).astype(np.int64)).to(dev)
+
+    def run(flash):
+        ctx = LayerCtx(abft=ABFTConfig.from_policy(
+            IntensityGuidedPolicy(), hardware=NVIDIA_H100_SXM,
+            flash_attention=flash))
+        torch.cuda.synchronize()
+        K1.launches = K2.launches = 0             # counts of THIS run only
+        t = time.perf_counter()
+        with torch.no_grad():
+            out = model.forward(params, {"tokens": tokens}, ctx, device=dev)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t), {
+            "abft_matmul": K1.launches, "flash_attention": K2.launches}
+
+    flash, ms_flash, launches = run(True)
+    chunked, ms_chunked, _ = run(False)
+    lf, lc = flash.logits, chunked.logits
+    need(lf.shape == (SCORE_B, SCORE_L, cfg.vocab_size)
+         and lf.dtype == torch.float32, f"logits {tuple(lf.shape)}")
+    need(bool(torch.isfinite(lf).all()) and bool(torch.isfinite(lc).all()),
+         "non-finite logits")
+    need(not bool(flash.flag) and not bool(chunked.flag),
+         f"{cfg.name}: clean forward raised a flag")
+    need(launches["flash_attention"] == cfg.n_layers,
+         f"{cfg.name}: forward launched K2 {launches['flash_attention']} "
+         f"times, expected {cfg.n_layers}")
+    need(launches["abft_matmul"] > 0, f"{cfg.name}: forward launched no K1")
+    with torch.no_grad():
+        h32 = _forward_f32_layerwise(model, params, tokens)
+        head = params["lm_head"] if "lm_head" in params \
+            else params["embed"].t()
+        err = err_c = err_f = 0.0
+        for c0 in range(0, cfg.vocab_size, 16384):
+            c1 = min(c0 + 16384, cfg.vocab_size)
+            l32 = h32 @ head[:, c0:c1].float()
+            err = max(err, (lf[..., c0:c1] - lc[..., c0:c1]).abs().max()
+                      .item())
+            err_c = max(err_c, (lc[..., c0:c1] - l32).abs().max().item())
+            err_f = max(err_f, (lf[..., c0:c1] - l32).abs().max().item())
+        del h32, l32
+    need(err_f <= 1.5 * err_c, f"{cfg.name}: flash vs f32 err {err_f} > "
+         f"1.5 x the chunked path's {err_c}")
+    need(err <= 2.5 * err_c, f"{cfg.name}: flash vs chunked logits: err "
+         f"{err} > 2.5 x {err_c} (chunked vs f32)")
+    agree = (lf.argmax(-1) == lc.argmax(-1)).float().mean().item()
+    rec = dict(B=SCORE_B, L=SCORE_L, launches=launches, ms=ms_flash,
+               chunked_ms=ms_chunked,
+               tokens_per_s=SCORE_B * SCORE_L / (ms_flash / 1e3),
+               logits_max_abs_diff_flash_vs_chunked=err,
+               logits_max_abs_err_chunked_vs_f32=err_c,
+               logits_max_abs_err_flash_vs_f32=err_f,
+               logits_scale=lc.abs().max().item(), argmax_agreement=agree)
+    del flash, chunked, lf, lc
+    return rec
+
+
+def family_arch(dev, arch: str) -> dict:
+    """One dense-family config at full width (published dims, every
+    layer; bf16 weights from seed 0, made on the card): the plan, the
+    kernel checks at its shapes, serving (dense and paged streams equal,
+    a clean run raises no flag, an ``mlp_down`` fault is recomputed to
+    the clean streams), scoring, and the kernels' times at its shapes.
+    Frees its weights before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.policy import IntensityGuidedPolicy
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch)
+    model = Model(cfg)
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, prompts = engine_inputs(dev, arch)
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    emit("family_plan", arch=arch, init_s=time.perf_counter() - t0,
+         weights_gb=weights / 1e9, **family_plan(cfg))
+    checks = family_checks(dev, cfg, params)
+    emit("family_check", arch=arch, **checks)
+
+    def serve(cache_kind, fault_at=None, label="", reqs=None, new=16):
+        return engine_serve(model, params, prompts if reqs is None else reqs,
+                            dev, cache_kind, IntensityGuidedPolicy(),
+                            fault_at=fault_at, label=f"{arch} {label}",
+                            phase="family_engine", max_new_tokens=new)
+
+    serve("dense", label="warmup", reqs=prompts[:1], new=2)
+    free_memory()
+    dense, rec_dense, eng = serve("dense", label="dense")
+    t3 = k3_timing(dev, eng, prompts, long_context=False)
+    del eng
+    free_memory()
+    paged, rec_paged, _ = serve("paged", label="paged")
+    free_memory()
+    fault = ModelFault.at(0, "mlp_down", FaultSpec.value(0, 1, 1e5))
+    faulted, rec_fault, _ = serve("dense", fault_at=(3, fault),
+                                  label="dense_fault")
+    free_memory()
+    for rec in (rec_dense, rec_paged):
+        need(rec["launches"]["abft_matmul"] > 0
+             and rec["launches"]["flash_decode"] > 0,
+             f"{arch} {rec['label']}: K1 or K3 never launched")
+        need(rec["faults_detected"] == 0, f"{arch} {rec['label']}: a clean "
+             f"run raised a flag")
+    need(paged == dense, f"{arch}: paged streams differ from dense")
+    need(rec_fault["faults_detected"] >= 1 and rec_fault["retries"] >= 1,
+         f"{arch}: injected fault not detected and retried")
+    need(faulted == dense, f"{arch}: faulted run's streams differ from the "
+         f"clean run")
+    score = family_score(dev, model, params)
+    free_memory()
+    t1 = k1_timing(dev, params, 4, arch=arch)
+    t2 = k2_timing(dev, (SCORE_B, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.resolved_head_dim), SCORE_L, arch=arch)
+    peak = torch.cuda.max_memory_allocated()
+    rec = dict(
+        arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim),
+        weights_gb=weights / 1e9,
+        decode_bound_ms=weights / HBM_BW * 1e3,
+        tokens_per_s=rec_dense["tokens_per_s"],
+        paged_tokens_per_s=rec_paged["tokens_per_s"],
+        decode_step_ms_median=rec_dense["decode_step_ms_median"],
+        paged_decode_step_ms_median=rec_paged["decode_step_ms_median"],
+        prefill_ms_per_admission=rec_dense["prefill_ms"],
+        launches=rec_dense["launches"],
+        paged_launches=rec_paged["launches"],
+        dense_equals_paged=True, fault_recomputed=True,
+        fault_run=dict(faults_detected=rec_fault["faults_detected"],
+                       retries=rec_fault["retries"]),
+        schemes=sorted({e.split(":")[1]
+                        for e in rec_dense["selection_trace"]}),
+        score=score, peak_memory_gb=peak / 1e9,
+        seconds=time.perf_counter() - t0,
+        k1_decode=t1, k2=t2, k3={key: t3[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")})
+    emit("family", **rec)
+    del params
+    free_memory()
+    return {"rec": rec, "checks": checks, "k1": t1, "k2": t2, "k3": t3}
+
+
+def family_runs(dev) -> dict:
+    """stablelm-1.6b, qwen3-14b and qwen1.5-32b, one after another."""
+    return {arch: family_arch(dev, arch) for arch in FAMILY_ARCHS}
+
+
 # ------------------------------------------------------------------ timing
 
 def _gemm_bound(m, k, n, in_bytes, out_bytes, gm_gn_rows):
@@ -1362,7 +1689,7 @@ def _gemm_bound(m, k, n, in_bytes, out_bytes, gm_gn_rows):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def k1_timing(dev, params, m: int) -> dict:
+def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH) -> dict:
     """K1 over one step's GEMMs at M=m, using a run's own weights
     (distinct per layer, so weights come from HBM as in a real step), in
     their dtype: kernel, plain version, torch.matmul, and the bound (bf16
@@ -1383,7 +1710,8 @@ def k1_timing(dev, params, m: int) -> dict:
         "o": [l["mixer"]["wo"] for l in layers],
         "up_gate": [l["ffn"][w] for l in layers for w in ("up", "gate")],
         "down": [l["ffn"]["down"] for l in layers],
-        "head": [params["embed"].t()],
+        "head": [params["lm_head"] if "lm_head" in params
+                 else params["embed"].t()],
     }
     gen = torch.Generator(device=dev).manual_seed(4)
     per = {}
@@ -1442,13 +1770,13 @@ def k1_timing(dev, params, m: int) -> dict:
         tot["gemms"] += len(ws)
     tot["bound_by"] = "bytes" if bound_by == {"bytes"} else (
         "operations" if bound_by == {"operations"} else "mixed")
-    emit("k1_timing", m=m, dtype=str(dtype)[6:], per_shape=per,
+    emit("k1_timing", arch=arch, m=m, dtype=str(dtype)[6:], per_shape=per,
          step_total=tot, **({"fork": fork} if fork["gemms"] else {}))
     return tot
 
 
-def k3_timing(dev, eng, prompts) -> dict:
-    """K3 over one decode step's 16 layers at the lengths of the first
+def k3_timing(dev, eng, prompts, long_context: bool = True) -> dict:
+    """K3 over one decode step's layers at the lengths of the first
     four requests' last decode step: on the engine's dense cache (the
     128-key block) and on paged pools of 16-key blocks holding the same
     keys through a permuted table (the paged engine's layout, W = 32).
@@ -1458,9 +1786,9 @@ def k3_timing(dev, eng, prompts) -> dict:
     the valid keys' K and V bytes, q, o and the check vectors once; QK and
     PV over the valid keys at the bf16 tensor-core rate.  Every layer's
     launch at the chosen count is held against the plain version (o
-    within 2^-7 x max|o|, bounds within 1e-4 relative).  Then one layer
-    at a long context (8192 keys, B = 1 and 4), chosen count against
-    ``splits=1`` and SDPA: the traffic the split merge is for."""
+    within 2^-7 x max|o|, bounds within 1e-4 relative).  Then, with
+    ``long_context``, one layer at 8192 keys (B = 1 and 4), chosen count
+    against ``splits=1`` and SDPA: the traffic the split merge is for."""
     from repro_torch.kernels.flash_attention import (
         decode_splits,
         flash_decode_kernel,
@@ -1507,7 +1835,7 @@ def k3_timing(dev, eng, prompts) -> dict:
     flops = len(caches) * 4.0 * valid * H * D
     t_b, t_f = byts / HBM_BW, flops / PEAK_BF16
     library_ms = timed_graph(lib, iters=10)
-    rec = {"launches_timed": len(caches), "B": B, "S": S,
+    rec = {"arch": cfg.name, "launches_timed": len(caches), "B": B, "S": S,
            "lengths": lengths.tolist(), "library_ms": library_ms,
            "bound_ms": max(t_b, t_f) * 1e3,
            "bound_by": "bytes" if t_b >= t_f else "operations"}
@@ -1540,7 +1868,8 @@ def k3_timing(dev, eng, prompts) -> dict:
     for key in ("ms", "plain_ms", "max_abs_err"):
         rec[key] = rec["dense"][key]
     del pools
-    rec["long_context"] = _k3_long_context(dev, H, KV, D)
+    if long_context:
+        rec["long_context"] = _k3_long_context(dev, H, KV, D)
     emit("k3_timing", **rec)
     return rec
 
@@ -1614,6 +1943,31 @@ def k1_max_err(dev, params) -> float:
         yp = abft_matmul_ref(x, w, **kw)[0]
         worst = max(worst, (y.float() - yp.float()).abs().max().item())
     return worst
+
+
+def _add_family(kernels, fam) -> None:
+    """Each kernel's line gets ``by_arch``: its launches on that arch's
+    main path (the dense serving run for K1 and K3, the score for K2) and
+    its times, bound and error at that arch's shapes."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for entry in kernels:
+        entry["by_arch"] = {}
+        for arch, f in fam.items():
+            rec = f["rec"]
+            if entry["name"] == "abft_matmul":
+                row = {"launches": rec["launches"]["abft_matmul"],
+                       "max_abs_err": f["checks"]["k1_max_abs_err"],
+                       **{k: f["k1"][k] for k in keys}}
+            elif entry["name"] == "flash_attention":
+                row = {"launches": rec["score"]["launches"]
+                       ["flash_attention"],
+                       "max_abs_err": f["k2"]["max_abs_err"],
+                       **{k: f["k2"][k] for k in keys}}
+            else:
+                row = {"launches": rec["launches"]["flash_decode"],
+                       "max_abs_err": f["k3"]["max_abs_err"],
+                       **{k: f["k3"][k] for k in keys}}
+            entry["by_arch"][arch] = row
 
 
 def main(argv=None) -> int:
@@ -1734,6 +2088,13 @@ def main(argv=None) -> int:
                  "splits", "ms", "ms_splits_1", "plain_ms")}
                  for kind in ("dense", "paged")}},
         ]
+    if "family" in phases:
+        # drop every earlier phase's weights, engines and caches
+        eng_out = fwd = train_params = camp = tr = None
+        free_memory()
+        fam = family_runs(dev)
+        if kernels is not None:
+            _add_family(kernels, fam)
     for line in smi:
         print(line)
     if kernels is not None:

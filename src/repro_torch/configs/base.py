@@ -1,5 +1,4 @@
-"""Model configuration schema + registry (copy of ``repro.configs.base``;
-the port registers only the architectures it serves).
+"""Model configuration schema + registry (copy of ``repro.configs.base``).
 
 One ``ModelConfig`` describes any architecture in the pool: dense decoder
 LMs, MoE, hybrid SSM+attention, pure SSM, encoder-decoder, and VLM
@@ -133,6 +132,12 @@ class ModelConfig:
                 or self.moe_every == 1:
             return "moe"
         return "dense"
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for MODEL_FLOPS and reporting)."""
+        from repro_torch.models.counting import count_params
+
+        return count_params(self)
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

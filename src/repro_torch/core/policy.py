@@ -665,8 +665,8 @@ class ProtectionPlan:
     policy: ProtectionPolicy
     entries: tuple = ()
     step_shape: StepShape | None = None
-    # tensor-parallel width the entries were compiled for (always 1 in
-    # the port; kept so plan JSON has the reference's layout)
+    # tensor-parallel width the entries were compiled for: a plan built
+    # with model_parallel=k describes ONE shard's post-sharding GEMMs
     model_parallel: int = 1
 
     def __post_init__(self):
@@ -694,19 +694,31 @@ class ProtectionPlan:
                   dtype_bytes: int = 2,
                   model_parallel: int = 1) -> "ProtectionPlan":
         """Compile a plan for a ModelConfig: per-GEMM-site descriptors
-        with the true first layer flagged (single device: tensor
-        parallelism is not ported, so ``model_parallel`` must be 1)."""
+        with the true first layer flagged from the model's layer plan.
+
+        ``model_parallel=k`` compiles the plan from one device's
+        POST-sharding GEMM shapes on a k-wide model axis
+        (``counting.shard_gemms``) — the per-shard plan a sharded serving
+        executor would install (sharded serving itself is not ported).
+        The step fast path shrinks with it: the representative per-token
+        projection is column-parallel, so its n dim is d_ff/k per
+        device."""
         from repro_torch.models.counting import layer_specs
 
-        if int(model_parallel) != 1:
-            raise NotImplementedError(
-                "sharded protection plans are not ported yet")
-        return cls.build(
-            layer_specs(cfg, n_tokens, dtype_bytes=dtype_bytes),
+        mp = max(1, int(model_parallel))
+        d_ff = cfg.d_ff or cfg.d_model
+        if mp > 1 and d_ff % mp == 0:
+            d_ff //= mp
+        plan = cls.build(
+            layer_specs(cfg, n_tokens, dtype_bytes=dtype_bytes,
+                        model_parallel=mp),
             hw=hw, policy=policy, model=cfg.name, phase=phase,
-            step_shape=StepShape(d_model=cfg.d_model,
-                                 d_ff=cfg.d_ff or cfg.d_model,
-                                 dtype_bytes=dtype_bytes))
+            step_shape=StepShape(
+                d_model=cfg.d_model, d_ff=d_ff, dtype_bytes=dtype_bytes),
+        )
+        if mp != 1:
+            plan = dataclasses.replace(plan, model_parallel=mp)
+        return plan
 
     # ---------------------------------------------------------- lookups
     def scheme_for(self, layer_name: str) -> str:

@@ -2,13 +2,16 @@
 ``repro.launch.serve`` for the options this port has).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
-      --scale full --dtype bfloat16 --flash-attention \
+      --arch qwen3-14b --scale full --dtype bfloat16 --flash-attention \
       [--cache paged] [--inject-faults] [--abft auto|global|block_1s|off] \
       [--fault-rate 0.2 --fault-kind transient --adaptive] \
       [--temperature 0.8 --top-k 50] [--plan-out plan.json] \
       [--metrics-out m.json] [--trace-out t.json] [--log-events]
 
-Runs on the CUDA device unless ``--device cpu`` is given.  Block schemes
+``--arch`` takes every registered config; the port serves the dense
+family (llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b) and exits
+with the ``NotImplementedError`` message on the others.  Runs on the CUDA
+device unless ``--device cpu`` is given.  Block schemes
 always run the fused ABFT kernel on the card (its plain version on the
 CPU).  Weights are random, made from ``--seed``.
 
@@ -113,12 +116,15 @@ def main(argv=None) -> int:
                          "stderr")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
-    dtype = _DTYPES[args.dtype]
     cfg = get_config(args.arch)
     if args.scale == "smoke":
         cfg = scaled_down(cfg)
-    model = Model(cfg)
+    try:
+        model = Model(cfg)
+    except NotImplementedError as e:
+        raise SystemExit(f"error: {e}")
+    device = resolve_device(args.device)
+    dtype = _DTYPES[args.dtype]
     params = model.init_params(args.seed, dtype=dtype, device=device)
     if args.abft == "off":
         abft = ABFTConfig(enabled=False,

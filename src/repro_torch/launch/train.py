@@ -4,7 +4,9 @@
       --arch llama3.2-1b --scale full --steps 20 --batch 4 --seq 128 \
       --abft auto|global|block_1s|off [--ckpt-dir DIR] [--resume]
 
-Runs on the CUDA device unless ``--device cpu`` is given.  Params are f32
+``--arch`` takes every registered config and exits with the
+``NotImplementedError`` message on those the port does not run.  Runs on
+the CUDA device unless ``--device cpu`` is given.  Params are f32
 (the reference trains in f32 too), random from ``--seed``.  Every
 block-protected forward GEMM runs the fused ABFT kernel on the card; there
 is no switch that routes it elsewhere.  Full-sequence attention is the
@@ -81,9 +83,12 @@ def main(argv=None) -> int:
 
     if args.distributed:
         raise NotImplementedError("--distributed training is not ported")
-    device = resolve_device(args.device)
     cfg = scale_config(get_config(args.arch), args.scale)
-    model = Model(cfg)
+    try:
+        model = Model(cfg)
+    except NotImplementedError as e:
+        raise SystemExit(f"error: {e}")
+    device = resolve_device(args.device)
     params = model.init_params(args.seed, dtype=torch.float32, device=device)
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"arch={cfg.name} scale={args.scale} params~{n_params/1e6:.1f}M "

@@ -1,6 +1,7 @@
 """GQA attention sublayer (port of the GQA half of
-``repro.models.attention``).  Projections run through the ABFT-protected
-``dense``.  With ``ABFTConfig.flash_attention`` set, full-sequence
+``repro.models.attention``, with the dense family's ``qkv_bias``,
+``qk_norm`` and partial rotary).  Projections run through the
+ABFT-protected ``dense``.  With ``ABFTConfig.flash_attention`` set, full-sequence
 attention (``gqa_forward``) runs the fused-ABFT flash attention kernel
 (K2) and decode attention the fused-ABFT flash decode kernel (K3); plain
 attention outside any kernel otherwise.  Serving prefill attention is the
@@ -25,6 +26,7 @@ from repro_torch.models.layers import (
     decode_attention,
     dense,
     or_flags,
+    rms_norm,
     rope_tables,
 )
 from repro_torch.serve.paged_cache import (
@@ -35,18 +37,26 @@ from repro_torch.serve.paged_cache import (
 
 
 def _qkv(x, p, cfg: ModelConfig, ctx: LayerCtx, positions):
+    """The q/k/v projections of every attention path: protected GEMMs,
+    then the ``qkv_bias`` biases, RMSNorm over the head dim (``qk_norm``)
+    and rotary embeddings on the first ``rope_pct`` of each head (the
+    rest passes through, and reaches the cache unrotated)."""
     B, L, _ = x.shape
     hd = cfg.resolved_head_dim
-    q, f1 = dense(x, p["wq"], ctx, "qkv", tag="attn.q")
-    k, f2 = dense(x, p["wk"], ctx, "qkv", tag="attn.k")
-    v, f3 = dense(x, p["wv"], ctx, "qkv", tag="attn.v")
+    q, f1 = dense(x, p["wq"], ctx, "qkv", b=p.get("bq"), tag="attn.q")
+    k, f2 = dense(x, p["wk"], ctx, "qkv", b=p.get("bk"), tag="attn.k")
+    v, f3 = dense(x, p["wv"], ctx, "qkv", b=p.get("bv"), tag="attn.v")
     q = q.reshape(B, L, cfg.n_heads, hd)
     k = k.reshape(B, L, cfg.n_kv_heads, hd)
     v = v.reshape(B, L, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if cfg.rope_theta:
-        cos, sin = rope_tables(positions, hd, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        cos, sin, rot = rope_tables(positions, hd, cfg.rope_theta,
+                                    cfg.rope_pct)
+        q = apply_rope(q, cos, sin, rot)
+        k = apply_rope(k, cos, sin, rot)
     return q, k, v, or_flags(f1, f2, f3)
 
 
@@ -175,6 +185,24 @@ def gqa_paged_decode(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache,
     out, f = dense(out.reshape(B, 1, -1), p["wo"], ctx, "attn_out",
                    tag="attn.o")
     return out, or_flags(flag, f_attn, f)
+
+
+def init_gqa(cfg: ModelConfig, w, vec) -> dict:
+    """GQA params from the model's leaf makers: ``w(*shape)`` a seeded
+    weight, ``vec(n, fill)`` a constant vector (the reference's
+    ``init_gqa``: biases start at 0, q/k norm gains at 1)."""
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    p = {"wq": w(cfg.d_model, H * hd), "wk": w(cfg.d_model, KV * hd),
+         "wv": w(cfg.d_model, KV * hd), "wo": w(H * hd, cfg.d_model)}
+    if cfg.qkv_bias:
+        p["bq"] = vec(H * hd, 0.0)
+        p["bk"] = vec(KV * hd, 0.0)
+        p["bv"] = vec(KV * hd, 0.0)
+    if cfg.qk_norm:
+        p["q_norm"] = vec(hd, 1.0)
+        p["k_norm"] = vec(hd, 1.0)
+    return p
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

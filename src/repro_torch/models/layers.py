@@ -84,24 +84,45 @@ def rms_norm(x, w, eps: float = 1e-6):
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
 
 
+def layer_norm(x, w, b, eps: float = 1e-5):
+    xf = x.to(F32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return out.to(x.dtype) * w.to(x.dtype) + b.to(x.dtype)
+
+
+def norm(x, p, kind: str, eps: float):
+    """The config's norm: ``layernorm`` reads p["w"] and p["b"],
+    ``rmsnorm`` p["w"]."""
+    if kind == "layernorm":
+        return layer_norm(x, p["w"], p["b"], eps)
+    return rms_norm(x, p["w"], eps)
+
+
 # ---------------------------------------------------------------- rope
 
-def rope_tables(positions, head_dim: int, theta: float):
-    """positions: (..., L) int -> (cos, sin) of shape (..., L, head_dim/2)
-    (full rotation: partial ``rope_pct`` is not ported)."""
+def rope_tables(positions, head_dim: int, theta: float, pct: float = 1.0):
+    """positions: (..., L) int -> (cos, sin, rot): cos/sin of shape
+    (..., L, rot/2), where ``rot`` (the rotated leading dims of each head,
+    even) is ``head_dim * pct`` rounded down to even."""
+    rot = int(head_dim * pct) // 2 * 2
     dev = positions.device
     freqs = 1.0 / (torch.tensor(theta, dtype=F32, device=dev) ** (
-        torch.arange(0, head_dim, 2, dtype=F32, device=dev) / head_dim))
+        torch.arange(0, rot, 2, dtype=F32, device=dev) / rot))
     ang = positions.to(F32)[..., None] * freqs
-    return torch.cos(ang), torch.sin(ang)
+    return torch.cos(ang), torch.sin(ang), rot
 
 
-def apply_rope(x, cos, sin):
-    """x: (B, L, H, D); split-half rotation of all D dims."""
-    x1, x2 = x[..., : x.shape[-1] // 2], x[..., x.shape[-1] // 2:]
+def apply_rope(x, cos, sin, rot: int):
+    """x: (B, L, H, D); split-half rotation of the first ``rot`` dims,
+    the other D - rot dims pass through unrotated."""
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
     c = cos[:, :, None, :].to(x.dtype)
     s = sin[:, :, None, :].to(x.dtype)
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return torch.cat([out, xp], dim=-1) if rot < x.shape[-1] else out
 
 
 # ---------------------------------------------------------------- attention

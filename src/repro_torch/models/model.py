@@ -1,5 +1,6 @@
 """Model assembly for dense GQA decoder stacks (port of the
-``attn:dense:0`` part of ``repro.models.model``).
+``attn:dense:0`` part of ``repro.models.model``: llama3.2-1b and the dense
+family, qwen3-14b, stablelm-1.6b and qwen1.5-32b).
 
 The reference scans stacked per-segment params; the port keeps one dict
 of tensors per layer and runs the stack as a Python loop.
@@ -17,7 +18,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import LayerCtx, dense, mlp, or_flags, rms_norm
+from repro_torch.models.layers import LayerCtx, dense, mlp, norm, or_flags
 
 F32 = torch.float32
 
@@ -41,18 +42,21 @@ def layer_tags(cfg: ModelConfig) -> list:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs dense GQA decoders with SwiGLU MLPs, RMSNorm and full
-    rotary embeddings (llama3.2-1b); anything else is not ported."""
+    """The port runs dense GQA decoders with SwiGLU MLPs: RMSNorm or
+    LayerNorm, with or without q/k norm, QKV biases and partial rotary
+    (llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b); anything else
+    (MoE, MLA, SSM, encoder-decoder, cross-attention, MTP, TP head
+    padding) is not ported."""
     ok = (cfg.attention == "gqa" and cfg.act == "silu"
-          and cfg.norm == "rmsnorm" and not cfg.qk_norm
-          and not cfg.qkv_bias and cfg.rope_pct == 1.0
+          and cfg.norm in ("rmsnorm", "layernorm")
           and not cfg.pad_heads_to and not cfg.pad_kv_heads_to
           and not cfg.is_encoder_decoder and not cfg.mtp_depth
           and all(t == "attn:dense:0" for t in layer_tags(cfg)))
     if not ok:
         raise NotImplementedError(
             f"architecture {cfg.name!r} is not ported: the PyTorch port "
-            f"serves and trains dense GQA decoders (llama3.2-1b)")
+            f"serves and trains dense GQA decoders (llama3.2-1b, "
+            f"qwen3-14b, stablelm-1.6b, qwen1.5-32b)")
 
 
 def _to_torch(a, device, dtype):
@@ -111,29 +115,31 @@ class Model:
     def init_params(self, seed: int = 0, dtype=torch.bfloat16,
                     device="cpu") -> dict:
         """Seeded N(0, 0.02) weights (the reference's init law; a torch
-        generator, so not the reference's numbers), unit norm gains."""
+        generator, so not the reference's numbers), unit norm and q/k
+        norm gains, zero LayerNorm shifts and QKV biases."""
         cfg = self.cfg
         gen = torch.Generator(device=device).manual_seed(int(seed))
-        hd = cfg.resolved_head_dim
 
         def w(*shape):
             return (0.02 * torch.randn(shape, generator=gen, dtype=F32,
                                        device=device)).to(dtype)
 
-        def ones():
-            return {"w": torch.ones((cfg.d_model,), dtype=dtype,
-                                    device=device)}
+        def vec(n, fill):
+            return torch.full((n,), fill, dtype=dtype, device=device)
+
+        def norm_p():
+            p = {"w": vec(cfg.d_model, 1.0)}
+            if cfg.norm == "layernorm":
+                p["b"] = vec(cfg.d_model, 0.0)
+            return p
 
         params = {"embed": w(cfg.vocab_size, cfg.d_model),
-                  "final_norm": ones(), "layers": []}
+                  "final_norm": norm_p(), "layers": []}
         for _ in range(cfg.n_layers):
             params["layers"].append({
-                "mixer_norm": ones(),
-                "mixer": {"wq": w(cfg.d_model, cfg.n_heads * hd),
-                          "wk": w(cfg.d_model, cfg.n_kv_heads * hd),
-                          "wv": w(cfg.d_model, cfg.n_kv_heads * hd),
-                          "wo": w(cfg.n_heads * hd, cfg.d_model)},
-                "ffn_norm": ones(),
+                "mixer_norm": norm_p(),
+                "mixer": attn.init_gqa(cfg, w, vec),
+                "ffn_norm": norm_p(),
                 "ffn": {"up": w(cfg.d_model, cfg.d_ff),
                         "gate": w(cfg.d_model, cfg.d_ff),
                         "down": w(cfg.d_ff, cfg.d_model)},
@@ -163,7 +169,7 @@ class Model:
         causal attention over the whole sequence with no cache (the
         training/scoring forward).  Returns (x, flag)."""
         cfg = self.cfg
-        h = rms_norm(x, lp["mixer_norm"]["w"], cfg.norm_eps)
+        h = norm(x, lp["mixer_norm"], cfg.norm, cfg.norm_eps)
         if mode == "full":
             a, f = attn.gqa_forward(h, lp["mixer"], cfg, ctx, positions)
         elif mode == "prefill":
@@ -180,7 +186,7 @@ class Model:
         else:
             a, f = attn.gqa_decode(h, lp["mixer"], cfg, ctx, pos, cache)
         x = x + a
-        h = rms_norm(x, lp["ffn_norm"]["w"], cfg.norm_eps)
+        h = norm(x, lp["ffn_norm"], cfg.norm, cfg.norm_eps)
         o, f2 = mlp(h, lp["ffn"], ctx, act=cfg.act)
         return x + o, or_flags(f, f2)
 
@@ -238,7 +244,7 @@ class Model:
         positions = torch.arange(L, device=dev).expand(B, L)
         x, flag = self.run_stack(x, params, ctx, positions, "full", None,
                                  remat=True)
-        x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+        x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         logits, f_head = self._head(params, x, ctx)
         return ForwardOut(logits=logits, flag=or_flags(flag, f_head),
                           aux_loss=torch.zeros((), dtype=F32, device=dev))
@@ -258,7 +264,7 @@ class Model:
         x, flag = self.run_stack(x, params, ctx, positions, "prefill", cache,
                                  slots=slots, lengths=lengths,
                                  tables=block_tables)
-        x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+        x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         if lengths is not None:
             idx = (lengths.to(x.device).long() - 1).clamp_min(0)
             last = x[torch.arange(B, device=x.device), idx][:, None]
@@ -279,7 +285,7 @@ class Model:
         x = params["embed"][token]
         x, flag = self.run_stack(x, params, ctx, None, "decode", cache,
                                  pos=pos, tables=block_tables)
-        x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+        x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         logits, f_head = self._head(params, x, ctx)
         return logits, cache, or_flags(flag, f_head)
 

@@ -106,16 +106,21 @@ def _unported(**opts) -> None:
 class ServeEngine:
     def __init__(self, model: Model, params, *, slots: int, max_len: int,
                  abft: ABFTConfig = ABFTConfig(), dtype=torch.bfloat16,
-                 device=None, policy: RecoveryPolicy = RecoveryPolicy(),
+                 hints=None, device=None,
+                 policy: RecoveryPolicy = RecoveryPolicy(),
                  cache_kind: str = "dense", block_size: int = 16,
                  num_blocks: int | None = None, admit_lookahead: int = 8,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                  telemetry=None, fault_model=None,
                  classify_injections: bool | None = None,
                  chunk_tokens=None, prefix_sharing: bool = False,
-                 spec_decode=None, mesh=None):
+                 spec_decode=None, mesh=None,
+                 draft_len: int | str | None = None, draft_window: int = 8,
+                 draft_units: int = 1):
         _unported(chunk_tokens=chunk_tokens, prefix_sharing=prefix_sharing,
-                  spec_decode=spec_decode, mesh=mesh)
+                  spec_decode=spec_decode, mesh=mesh,
+                  hints=hints is not None, draft_len=draft_len is not None,
+                  draft_window=draft_window != 8, draft_units=draft_units != 1)
         if slots < 1:
             raise ValueError("slots must be >= 1")
         self.device = resolve_device(device)
@@ -211,6 +216,10 @@ class ServeEngine:
     @property
     def stats(self) -> EngineStats:
         return self.scheduler.stats
+
+    @stats.setter
+    def stats(self, value: EngineStats) -> None:
+        self.scheduler.stats = value
 
     @property
     def pos(self):

@@ -997,3 +997,114 @@ def test_bitflip_campaign_on_the_card_holds_the_invariants(dev, dtype,
         assert st.faults_uncorrected == 0 and st.hard_faults == 0
         assert all(23 <= e["bit"] < 31 for e in st.injection_log)
     assert runs[0] == runs[1]
+
+
+# ------------------------------------------------------- the dense family
+
+# small members of the dense family with their real head dims: qwen3-14b
+# (q/k norm, G = 5, D = 128), stablelm-1.6b (LayerNorm, MHA, D = 64 with
+# 16 rotated dims), qwen1.5-32b (QKV biases, MHA, D = 128)
+FAMILY = {"qwen3-14b": dict(n_heads=10, n_kv_heads=2, head_dim=128),
+          "stablelm-1.6b": dict(n_heads=4, n_kv_heads=4, head_dim=64),
+          "qwen1.5-32b": dict(n_heads=4, n_kv_heads=4, head_dim=128)}
+
+
+def _family(arch, dtype, seed=0):
+    """A scaled-down family member with seeded nonzero biases, LayerNorm
+    shifts and gains (1 + N(0, 0.1); biases N(0, 0.1)), on the CPU."""
+    from repro_torch.core.tree import tree_leaves_with_path
+
+    cfg = scaled_down(get_config(arch), **FAMILY[arch])
+    model = Model(cfg)
+    params = model.init_params(seed, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(seed + 1)
+    for path, leaf in tree_leaves_with_path(params):
+        if path[-1] in ("w", "q_norm", "k_norm"):
+            leaf.add_(0.1 * torch.randn(leaf.shape, generator=gen))
+        elif path[-1] in ("b", "bq", "bk", "bv"):
+            leaf.add_(0.1 * torch.randn(leaf.shape, generator=gen))
+    from repro_torch.core.tree import tree_map
+
+    return model, tree_map(lambda t: t.to(dtype), params)
+
+
+def _to(params, dev):
+    from repro_torch.core.tree import tree_map
+
+    return tree_map(lambda t: t.to(dev), params)
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY))
+def test_family_engine_on_the_card_equals_the_cpu(dev, arch):
+    """f32 serving, flash on, dense and paged: the card (K1 with the
+    biases after it, K3 over the q/k-normed, partially rotated cache) and
+    the CPU (their plain versions) give the same greedy streams."""
+    model, params = _family(arch, torch.float32)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, 256, size=int(n)).astype(np.int32)
+               for n in rng.integers(3, 40, size=5)]
+    streams = {}
+    for d in ("cpu", dev):
+        p = _to(params, d)
+        for kind in ("dense", "paged"):
+            eng = ServeEngine(model, p, slots=2, max_len=64,
+                              dtype=torch.float32, device=d,
+                              cache_kind=kind,
+                              abft=ABFTConfig(flash_attention=True))
+            k1, k3 = am.KERNEL.launches, fa.KERNEL.launches
+            streams[(str(d), kind)] = eng.run(
+                [Request(uid=i, prompt=q, max_new_tokens=8)
+                 for i, q in enumerate(prompts)])
+            assert eng.stats.faults_detected == 0
+            if str(d) != "cpu":
+                assert am.KERNEL.launches > k1 and fa.KERNEL.launches > k3
+    assert len({str(s) for s in streams.values()}) == 1
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY))
+def test_family_forward_on_the_card_matches_the_cpu(dev, arch):
+    """f32 ``Model.forward`` with K2 (CUDA-core route) on the card
+    against the CPU's plain versions: logits within 1e-4 absolute and
+    relative (f32 sums in another order), no flag, one K2 launch a
+    layer."""
+    from repro_torch.models.layers import LayerCtx
+
+    model, params = _family(arch, torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        1, 256, size=(2, 48)))
+    ctx = LayerCtx(abft=ABFTConfig(flash_attention=True))
+    with torch.no_grad():
+        want = model.forward(params, {"tokens": toks}, ctx, device="cpu")
+        k2 = fa.FULL_KERNEL.launches
+        got = model.forward(_to(params, dev), {"tokens": toks}, ctx,
+                            device=dev)
+    assert fa.FULL_KERNEL.launches == k2 + model.cfg.n_layers
+    assert not bool(got.flag) and not bool(want.flag)
+    torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY))
+def test_family_bf16_forward_on_the_card_tracks_f32(dev, arch):
+    """bf16 ``Model.forward`` on the card (K1 and K2 on the tensor cores)
+    against the same bf16 weights run in f32 on the CPU: logits within
+    1/16 of max|logits| (bf16 activations through two layers, each op
+    rounding to 2^-9 relative, amplified by the norms), no flag, and the
+    chunked path on the card within the same distance."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.layers import LayerCtx
+
+    model, params = _family(arch, torch.bfloat16)
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        1, 256, size=(2, 160)))
+    with torch.no_grad():
+        ref = model.forward(tree_map(lambda t: t.float(), params),
+                            {"tokens": toks}, LayerCtx(), device="cpu")
+        pd = _to(params, dev)
+        scale = ref.logits.abs().max().item()
+        for flash in (True, False):
+            got = model.forward(pd, {"tokens": toks}, LayerCtx(
+                abft=ABFTConfig(flash_attention=flash)), device=dev)
+            assert not bool(got.flag)
+            err = (got.logits.cpu() - ref.logits).abs().max().item()
+            assert err <= scale / 16, (flash, err, scale)

@@ -208,3 +208,48 @@ def test_config_dataclass_has_no_pallas_switch():
     assert "use_pallas" not in fields
     assert {"policy", "hardware", "blocks", "c_factor",
             "flash_attention"} <= fields
+
+
+def test_stats_setter_resets_the_counters_as_the_reference(setup):
+    """``eng.stats = EngineStats()`` (the serve sweep's reset after its
+    warm-up) replaces the scheduler's stats on both engines; the second
+    run's counters and selection trace are then equal."""
+    from repro.serve.scheduler import EngineStats as JStats
+    from repro_torch.serve.scheduler import EngineStats
+
+    jm, jp, tm, tp, prompts = setup
+    jeng = JEngine(jm, jp, slots=2, max_len=64,
+                   abft=JABFT.from_policy(JGuided(), use_pallas=False,
+                                          hardware=JTPU),
+                   dtype=jnp.float32)
+    teng = ServeEngine(tm, tp, slots=2, max_len=64,
+                       abft=ABFTConfig.from_policy(IntensityGuidedPolicy(),
+                                                   hardware=TPU_V5E),
+                       dtype=torch.float32, device="cpu")
+    for eng, req, fresh in ((jeng, JRequest, JStats),
+                            (teng, Request, EngineStats)):
+        eng.run([req(uid=0, prompt=prompts[0], max_new_tokens=3)])
+        assert eng.stats.tokens == 3
+        new = fresh()
+        eng.stats = new
+        assert eng.stats is new and eng.scheduler.stats is new
+        eng.run([req(uid=i, prompt=p, max_new_tokens=4)
+                 for i, p in enumerate(prompts[1:])])
+    assert {k: getattr(teng.stats, k) for k in COUNTERS} == \
+        {k: getattr(jeng.stats, k) for k in COUNTERS}
+    assert teng.stats.selection_trace == jeng.stats.selection_trace
+    assert teng.stats.tokens == 4 * (len(prompts) - 1)
+
+
+@pytest.mark.parametrize("opt", [dict(hints={"dp": 1}), dict(draft_len=4),
+                                 dict(draft_len="auto"),
+                                 dict(draft_window=4), dict(draft_units=2)])
+def test_reference_options_raise_not_implemented(setup, opt):
+    """The reference's sharding hints and speculation options are accepted
+    and refused with NotImplementedError (not a TypeError); their
+    defaults construct."""
+    _, _, tm, tp, _ = setup
+    with pytest.raises(NotImplementedError):
+        ServeEngine(tm, tp, slots=1, max_len=16, device="cpu", **opt)
+    ServeEngine(tm, tp, slots=1, max_len=16, device="cpu", hints=None,
+                draft_len=None, draft_window=8, draft_units=1)

@@ -72,6 +72,15 @@ def test_module_walk_finds_the_slice():
                  "repro_torch.obs", "repro_torch.obs.metrics",
                  "repro_torch.obs.trace", "repro_torch.obs.faultrate",
                  "repro_torch.obs.telemetry", "repro_torch.core.selector",
-                 "repro_torch.core.profiler"):
+                 "repro_torch.core.profiler", "repro_torch.models.counting",
+                 "repro_torch.configs.qwen3_14b",
+                 "repro_torch.configs.stablelm_1_6b",
+                 "repro_torch.configs.qwen1_5_32b",
+                 "repro_torch.configs.qwen2_moe_a2_7b",
+                 "repro_torch.configs.deepseek_v3_671b",
+                 "repro_torch.configs.jamba_v0_1_52b",
+                 "repro_torch.configs.mamba2_1_3b",
+                 "repro_torch.configs.whisper_tiny",
+                 "repro_torch.configs.llama3_2_vision_11b"):
         assert name in mods
     assert pkgutil  # the subprocess walks packages the same way

@@ -91,11 +91,23 @@ def test_h100_is_the_default_and_cmr():
 
 
 def test_unported_architectures_and_sharding_raise():
+    """Plans are host logic for every config and mesh width; serving an
+    unported architecture or a mesh raises."""
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine
+
     cfg = get_config("llama3.2-1b")
+    assert ProtectionPlan.for_model(cfg, model_parallel=2).model_parallel \
+        == 2
+    mla = dataclasses.replace(scaled_down(cfg), attention="mla")
+    assert ProtectionPlan.for_model(get_config("deepseek-v3-671b")).entries
+    for bad in (mla, get_config("mamba2-1.3b")):
+        with pytest.raises(NotImplementedError):
+            Model(bad)
+    small = Model(scaled_down(cfg))
+    params = small.init_params(0, dtype=torch.float32)
     with pytest.raises(NotImplementedError):
-        ProtectionPlan.for_model(cfg, model_parallel=2)
-    with pytest.raises(NotImplementedError):
-        ProtectionPlan.for_model(
-            dataclasses.replace(scaled_down(cfg), attention="mla"))
+        ServeEngine(small, params, slots=1, max_len=16, device="cpu",
+                    mesh=2)
     with pytest.raises(KeyError):
-        get_config("mamba2-1.3b")
+        get_config("gpt-2")

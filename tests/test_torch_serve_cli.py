@@ -80,3 +80,30 @@ def test_serve_cli_log_events_streams_json_lines(capsys):
     events = [json.loads(ln) for ln in err if ln.startswith("{")]
     assert events and {"fault_detected", "abft_retry"} <= {
         e["name"] for e in events}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "stablelm-1.6b",
+                                  "qwen1.5-32b"])
+def test_serve_cli_runs_the_dense_family(capsys, arch):
+    """``--arch`` takes the dense family (scaled down by ``--scale
+    smoke``), paged, flash on, with an injected fault recovered."""
+    rc = serve.main(["--device", "cpu", "--arch", arch, "--requests", "3",
+                     "--new-tokens", "5", "--slots", "2", "--cache",
+                     "paged", "--flash-attention", "--inject-faults"])
+    assert rc == 0
+    line = _stats_line(capsys.readouterr().out)
+    assert line["tokens"] == 15 and line["errors"] == {}
+    assert line["faults_detected"] == line["retries"] == 1
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "deepseek-v3-671b",
+                                  "whisper-tiny"])
+def test_cli_refuses_an_unported_arch_with_its_message(arch):
+    """Every registered config is an ``--arch`` choice; one the port does
+    not run exits with the ``NotImplementedError`` message."""
+    from repro_torch.launch import train
+
+    for main in (serve.main, train.main):
+        with pytest.raises(SystemExit) as exc:
+            main(["--device", "cpu", "--arch", arch])
+        assert f"architecture {arch!r} is not ported" in str(exc.value)
