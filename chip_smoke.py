@@ -15,9 +15,12 @@ models, shadow classification, hard faults, adaptive escalation,
 sampling, the cost of tracing) and ``profile`` times ``block_1s`` against
 ``global`` per GEMM shape with ``build_profile_table`` and serves under
 the resulting ``ProfileGuidedPolicy``.  Then it times the kernels at
-their paths' shapes.  Each phase prints one JSON line; any failure exits
-non-zero.  The last line is ``{"ok": true, "device": {...}}``.  Imports
-nothing of JAX.
+their paths' shapes.  ``sharing`` serves prefix and long-prompt traffic
+with prefix sharing and chunked prefill (llama3.2-1b, then qwen3-14b),
+every greedy stream held to the plain paged run's, faults included, and
+``family`` serves and scores the rest of the dense family.  Each phase
+prints JSON lines; any failure exits non-zero.  The last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
-          "campaign", "profile", "timing", "family")
+          "campaign", "profile", "timing", "sharing", "family")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -47,6 +50,10 @@ K1_SHAPES = {"q": (2048, 2048), "kv": (2048, 512), "up": (2048, 8192),
              "down": (8192, 2048), "head": (2048, 128256)}
 K1_M = (4, 8, 40, 333, 512, 2048)     # 2048: the forward's B x L rows
 K1_FAULT_M = (4, 40, 333, 512, 2048)
+# the serving prefill's rows, where K1 runs one K slice: a short suffix
+# (one row, 8 padded tokens), a 256-token chunk, chunk batches of 2 and 4
+# rows, and an admission of 4 prompts padded to 512 tokens
+K1_ONE_SLICE_M = (8, 256, 512, 1024, 2048)
 ENGINE_ARCH = "llama3.2-1b"
 # K2 at llama3.2-1b's attention shapes: (B, H, KV, D)
 K2_HEADS = (2, 32, 8, 64)
@@ -119,6 +126,9 @@ def k1_checks(dev) -> dict:
     tiles forced in its place, as k1_timing times them — CUDA-core tiles
     for replica).  A repeat of the SIMT pass is bit-for-bit.  The worst
     clean residual / threshold of each route taken must stay under 1.
+    The same shapes and modes again with ``one_slice`` (the plan the
+    serving prefill runs: one K slice at any M) at the prefill's rows
+    ``K1_ONE_SLICE_M``, with the same gates and the fault checks.
 
     Tolerances: y in f32 agrees within 1e-4 x max|y| (f32 sums over K <=
     8192 in another order); y in bf16 within 2^-7 x max|y| (one bf16
@@ -131,11 +141,14 @@ def k1_checks(dev) -> dict:
     from repro_torch.kernels.abft_matmul import abft_matmul_kernel, routes
     from repro_torch.kernels.ref import abft_matmul_ref
 
+    from repro_torch.kernels.abft_matmul import plan
+
     gen = torch.Generator(device=dev).manual_seed(1)
     shapes = K1_SHAPES
     worst = 0.0
     cases = 0
     ratios = {}             # route -> worst clean residual / threshold
+    one_abs = {}            # dtype -> worst |y - plain| with one slice
     for dtype in (torch.bfloat16, torch.float32):
         ws = {}
         for name, (k, n) in shapes.items():
@@ -191,10 +204,54 @@ def k1_checks(dev) -> dict:
                     if m in K1_FAULT_M:
                         _k1_fault_check(ops, FaultSpec, x, w, mode,
                                         out_dtype, name)
+        for m in K1_ONE_SLICE_M:
+            for name, w in ws.items():
+                k, n = w.shape
+                x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+                out_dtype = torch.float32 if name == "head" else dtype
+                for mode in ("1s", "2s", "replica"):
+                    bm, bk, bn = (min(b, -(-d // 8) * 8) for b, d in
+                                  ((256, m), (512, k), (256, n)))
+                    kw = dict(mode=mode, bm=bm, bk=bk, bn=bn,
+                              out_dtype=out_dtype)
+                    p = plan(x, w, mode=mode, bm=bm, bk=bk, bn=bn,
+                             one_slice=True)
+                    need(p.slices == 1 or p.route == "gemv",
+                         f"K1 one_slice {name} m={m} {mode}: {p.slices} "
+                         f"slices on {p.route}")
+                    yp, _, bndp = abft_matmul_ref(x, w, **kw)
+                    y, _, bnd = abft_matmul_kernel(x, w, **kw,
+                                                   one_slice=True)
+                    torch.cuda.synchronize()
+                    scale = yp.float().abs().max().item()
+                    tol = (1e-4 if out_dtype == torch.float32
+                           else 2 ** -7) * scale
+                    err = (y.float() - yp.float()).abs().max().item()
+                    need(err <= tol, f"K1 one_slice y {name} m={m} {mode} "
+                         f"{dtype} {p.route}: err {err} > {tol}")
+                    worst = max(worst, err / max(scale, 1e-30))
+                    key = str(dtype)[6:]
+                    one_abs[key] = max(one_abs.get(key, 0.0), err)
+                    berr = ((bnd - bndp).abs() / bndp.abs().clamp_min(
+                        1e-30)).max().item()
+                    need(berr <= 1e-4, f"K1 one_slice bnd {name} m={m} "
+                         f"{mode} {p.route}: {berr}")
+                    _, chk = ops.abft_matmul(x, w, mode=mode,
+                                             out_dtype=out_dtype,
+                                             one_slice=True)
+                    need(not bool(chk.flag), f"K1 one_slice false flag "
+                         f"{name} m={m} {mode} {dtype}")
+                    r = f"k1_{p.route}_{key}_one_slice"
+                    ratios[r] = max(ratios.get(r, 0.0), _ratio(chk))
+                    cases += 1
+                    if m in (8, 256, 2048):
+                        _k1_fault_check(ops, FaultSpec, x, w, mode,
+                                        out_dtype, name, one_slice=True)
         del ws
     need(all(v < 1 for v in ratios.values()),
          f"K1 clean residual at or over its threshold: {ratios}")
     return {"cases": cases, "max_rel_err_y": worst,
+            "one_slice_max_abs_err": one_abs,
             "worst_clean_residual_over_threshold": ratios,
             "blocks": BlockShape().__dict__}
 
@@ -205,9 +262,11 @@ def _ratio(chk) -> float:
     return (chk.residual / chk.threshold).max().item()
 
 
-def _k1_fault_check(ops, FaultSpec, x, w, mode, out_dtype, name):
+def _k1_fault_check(ops, FaultSpec, x, w, mode, out_dtype, name,
+                    one_slice: bool = False):
     """A value fault and a bit-flip fault are flagged at their (block_i,
-    block_j, row) by the kernel and by the plain version alike.  Both
+    block_j, row) by the kernel (with ``one_slice``, on that plan) and by
+    the plain version alike.  Both
     faults are far above the threshold: the two-sided scalar threshold
     of a 256 x 256 block at K = 8192 is ~1e3, and a flip that shrinks an
     element of magnitude ~3 to ~0 is below any block check's noise."""
@@ -224,7 +283,7 @@ def _k1_fault_check(ops, FaultSpec, x, w, mode, out_dtype, name):
     for fault in (FaultSpec.value(row, col, 1e5),
                   FaultSpec.bitflip(row, col, 30 if v < 2 else 29)):
         _, chk = ops.abft_matmul(x, w, mode=mode, out_dtype=out_dtype,
-                                 fault=fault)
+                                 fault=fault, one_slice=one_slice)
         fidx = (row // bm, col // bn, row % bm, col % bn, 1, fault.bit)
         _, resp, _ = abft_matmul_ref(x, w, fidx, fault.delta, mode=mode,
                                      bm=bm, bk=bk, bn=bn,
@@ -1402,8 +1461,10 @@ def family_checks(dev, cfg, params) -> dict:
     """K1 and K2 against their plain versions at ``cfg``'s shapes, before
     its main path runs.  K1: each GEMM site's real weights (K up to
     27392, N up to 152064) at M = 4 (a decode step) and 1024 (the score's
-    rows), mode 1s on the route the path takes, and a value fault and a
-    bit flip in ``mlp.down`` flagged at their block and row.  K2: causal
+    rows), and with ``one_slice`` (the serving prefill's plan) at M = 256
+    (a chunk) and 1024 (an admission), mode 1s on the route the path
+    takes, and a value fault and a bit flip in ``mlp.down`` flagged at
+    their block and row.  K2: causal
     bf16 at B = 1, L = 1024 with ``cfg``'s heads (D = 64 or 128, G = 1 or
     5).  K3 is held against its plain version layer by layer in
     ``k3_timing`` on the engine's own cache.
@@ -1431,7 +1492,8 @@ def family_checks(dev, cfg, params) -> dict:
              else params["embed"].t()}
     gen = torch.Generator(device=dev).manual_seed(11)
     ratios, worst, worst_abs, routes_taken = {}, 0.0, 0.0, {}
-    for m in (4, 1024):
+    one_abs = 0.0
+    for m, one in ((4, False), (1024, False), (256, True), (1024, True)):
         for name, w in gemms.items():
             k, n = w.shape
             x = torch.randn(m, k, generator=gen, device=dev).to(w.dtype)
@@ -1439,27 +1501,31 @@ def family_checks(dev, cfg, params) -> dict:
             bm, bk, bn = (min(b, -(-d // 8) * 8) for b, d in
                           ((256, m), (512, k), (256, n)))
             kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
-            y, _, bnd = abft_matmul_kernel(x, w, **kw)
+            tag = f"{name}_m{m}" + ("_one_slice" if one else "")
+            y, _, bnd = abft_matmul_kernel(x, w, **kw, one_slice=one)
             yp, _, bndp = abft_matmul_ref(x, w, **kw)
             scale = yp.float().abs().max().item()
             tol = (1e-4 if out_dtype == torch.float32 else 2 ** -7) * scale
             err = (y.float() - yp.float()).abs().max().item()
-            need(err <= tol, f"K1 {cfg.name} {name} m={m}: err {err} > "
-                 f"{tol}")
+            need(err <= tol, f"K1 {cfg.name} {tag}: err {err} > {tol}")
             berr = ((bnd - bndp).abs() / bndp.abs().clamp_min(1e-30)).max()
-            need(berr.item() <= 1e-4, f"K1 {cfg.name} bnd {name} m={m}: "
+            need(berr.item() <= 1e-4, f"K1 {cfg.name} bnd {tag}: "
                  f"{berr.item()}")
             del y, yp, bnd, bndp
-            _, chk = ops.abft_matmul(x, w, mode="1s", out_dtype=out_dtype)
-            need(not bool(chk.flag), f"K1 false flag {cfg.name} {name} "
-                 f"m={m} (K={k})")
-            ratios[f"{name}_m{m}"] = _ratio(chk)
-            routes_taken[f"{name}_m{m}"] = route(x, w, bn, "1s")
+            _, chk = ops.abft_matmul(x, w, mode="1s", out_dtype=out_dtype,
+                                     one_slice=one)
+            need(not bool(chk.flag), f"K1 false flag {cfg.name} {tag} "
+                 f"(K={k})")
+            ratios[tag] = _ratio(chk)
+            routes_taken[tag] = route(x, w, bn, "1s")
             worst = max(worst, err / max(scale, 1e-30))
-            worst_abs = max(worst_abs, err)
+            if one:
+                one_abs = max(one_abs, err)
+            else:
+                worst_abs = max(worst_abs, err)
             if name == "down":
                 _k1_fault_check(ops, FaultSpec, x, w, "1s", out_dtype,
-                                f"{cfg.name} down")
+                                f"{cfg.name} down", one_slice=one)
     need(all(v < 1 for v in ratios.values()),
          f"K1 clean residual at or over its threshold: {ratios}")
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -1480,6 +1546,7 @@ def family_checks(dev, cfg, params) -> dict:
         (got[3] / (ATOL + tolerance_scale(1024) * got[4])).max().item())
     need(k2_ratio < 1, f"K2 {cfg.name} clean residual over threshold")
     return {"k1_max_rel_err_y": worst, "k1_max_abs_err": worst_abs,
+            "k1_one_slice_max_abs_err": one_abs,
             "k1_routes": routes_taken,
             "k1_worst_clean_residual_over_threshold": max(ratios.values()),
             "k2_tc": tc_path(q, k, v, kw["bk"]),
@@ -1678,6 +1745,436 @@ def family_runs(dev) -> dict:
     return {arch: family_arch(dev, arch) for arch in FAMILY_ARCHS}
 
 
+# ------------------------------------------------------------------ sharing
+
+SHARE_SLOTS, SHARE_MAX_LEN, SHARE_BLOCK = 4, 2048, 16
+SHARE_CHUNK = 256                   # the fixed chunk budget of the phase
+SYS_LEN = 512                       # the shared system prefix
+
+
+def sharing_traffic(vocab: int, seed: int = 0) -> tuple:
+    """(prefix, long) traffic, drawn from ``seed``: lists of (prompt,
+    new tokens, arrival iteration).  Prefix: eight prompts of one
+    512-token system prefix and a unique 16-128-token suffix, then two
+    identical prompts (the COW of a shared tail), 32 new tokens each,
+    arriving one every other step (so a sharer is resident when the next
+    arrives).  Long: two short prompts (48 tokens, 128 new) at step 0 and
+    six prompts of 1024-1536 tokens (16 new) pending from step 4."""
+    rng = np.random.default_rng(seed)
+    sys_p = rng.integers(1, vocab, size=SYS_LEN)
+    prefix = [np.concatenate([sys_p, rng.integers(1, vocab, size=int(n))])
+              for n in rng.integers(16, 129, size=8)]
+    twin = np.concatenate([sys_p, rng.integers(1, vocab, size=40)])
+    prefix += [twin, twin.copy()]
+    short = [rng.integers(1, vocab, size=48) for _ in range(2)]
+    long = [rng.integers(1, vocab, size=int(n))
+            for n in rng.integers(1024, 1537, size=6)]
+    return ([(p.astype(np.int32), 32, 2 * i) for i, p in enumerate(prefix)],
+            [(p.astype(np.int32), 128, 0) for p in short]
+            + [(p.astype(np.int32), 16, 4) for p in long])
+
+
+def share_serve(model, params, traffic, dev, label, *, fault=None,
+                fault_at=None, fault_uid=None, capture=None,
+                max_retries=1, temperature=0.0, top_k=0, **kw) -> dict:
+    """One full-width bf16 engine run (4 slots, max_len 2048, block 16,
+    flash on, ``IntensityGuidedPolicy`` on the H100) of ``traffic`` through
+    ``admit``/``step``, each request pending from its arrival iteration.
+    ``fault``: with ``fault_uid``, an admission fault on that request;
+    with ``fault_at`` an int, a step fault at that iteration; with
+    ``fault_at="mixed"``, a step fault at the first iteration that
+    carries decodes and chunks (it lands on the chunk); with ``"sharers"``,
+    at the first decode step with two requests resident and a block
+    shared.
+    ``check_invariants`` after every iteration; K1 and K3 counted from 0
+    for this run; TTFT from each request's arrival, every step timed to a
+    synchronize.  ``capture`` collects each request's prompt KV cells
+    (first, middle and last layer) once it turns active.  Returns the
+    run's record."""
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import IntensityGuidedPolicy
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.kernels import abft_matmul, flash_attention
+    from repro_torch.serve.engine import (
+        RecoveryPolicy,
+        Request,
+        ServeEngine,
+    )
+
+    K1, K3 = abft_matmul.KERNEL, flash_attention.KERNEL
+    abft = ABFTConfig.from_policy(IntensityGuidedPolicy(),
+                                  hardware=NVIDIA_H100_SXM,
+                                  flash_attention=True)
+    eng = ServeEngine(model, params, slots=SHARE_SLOTS,
+                      max_len=SHARE_MAX_LEN, block_size=SHARE_BLOCK,
+                      abft=abft, dtype=torch.bfloat16, device=dev,
+                      policy=RecoveryPolicy(max_retries=max_retries),
+                      temperature=temperature, top_k=top_k, seed=0, **kw)
+    auto_budget = eng.chunk_tokens
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=n)
+            for i, (p, n, _) in enumerate(traffic)]
+    due = {r.uid: a for r, (_, _, a) in zip(reqs, traffic)}
+    pending, later = [], list(reqs)
+    layers = (0, model.cfg.n_layers // 2, model.cfg.n_layers - 1)
+    torch.cuda.synchronize()
+    K1.launches = K3.launches = 0          # counts of THIS run only
+    t0 = time.perf_counter()
+    arrival, fault_it = {}, None
+    step_ms, decode_ms, it = [], [], 0
+    while pending or later or eng.active or eng._prefill_cursors:
+        now = time.perf_counter()
+        for r in [r for r in later if due[r.uid] <= it]:
+            arrival[r.uid] = now
+            pending.append(r)
+            later.remove(r)
+        if pending and eng.free_slots():
+            if fault is not None and fault_uid is not None:
+                eng.admit(pending, fault=fault, fault_uid=fault_uid)
+            else:
+                eng.admit(pending)
+        step_fault = None
+        if fault is not None and fault_it is None and fault_uid is None:
+            mixed = bool(eng.active and eng._prefill_cursors)
+            sharers = (eng.pool is not None and eng.pool.blocks_shared > 0
+                       and len(eng.active) >= 2
+                       and not eng._prefill_cursors)
+            if fault_at == it or (fault_at == "mixed" and mixed) or (
+                    fault_at == "sharers" and sharers):
+                step_fault, fault_it = fault, it
+        ts = time.perf_counter()
+        chunked = bool(eng._prefill_cursors)
+        out = eng.step(step_fault)
+        torch.cuda.synchronize()
+        dt = 1e3 * (time.perf_counter() - ts)
+        step_ms.append(dt)
+        if out and not chunked:
+            decode_ms.append(dt)
+        if eng.pool is not None:
+            eng.pool.check_invariants()
+        if capture is not None:
+            for s, r in eng.active.items():
+                if r.uid in capture:
+                    continue
+                n = len(r.prompt)
+                if eng.pool is not None:
+                    t = torch.as_tensor(eng.pool.tables[s], device=dev)
+                    pos = torch.arange(n, device=dev)
+                    idx = (t[pos // SHARE_BLOCK].long(), pos % SHARE_BLOCK)
+                else:
+                    idx = (s, slice(0, n))
+                capture[r.uid] = [eng.cache[i][k][idx].clone()
+                                  for i in layers for k in ("k", "v")]
+        it += 1
+        need(it < 4000, f"sharing {label}: the run does not end")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    st = eng.stats
+    rec = dict(
+        label=label, seconds=seconds, iterations=it, fault_at=fault_it,
+        launches={"abft_matmul": K1.launches, "flash_decode": K3.launches},
+        streams={r.uid: list(r.generated) for r in reqs},
+        errors={r.uid: r.error for r in reqs if r.error},
+        ttft_ms={r.uid: 1e3 * (r.times[0] - arrival[r.uid])
+                 for r in reqs if r.times},
+        step_ms_median=float(np.median(step_ms)),
+        decode_step_ms_median=(float(np.median(decode_ms))
+                               if decode_ms else None),
+        prompt_tokens=st.prompt_tokens_total,
+        prefill_tokens_computed=sum(e["prefill"]
+                                    for e in st.selection_trace),
+        blocks_used_peak=st.blocks_used_peak,
+        blocks_used_mean=st.blocks_used_mean,
+        blocks_used_median=st.blocks_used_median,
+        blocks_shared_peak=st.blocks_shared_peak,
+        auto_budget=auto_budget if kw.get("chunk_tokens") == "auto"
+        else None,
+        chunk_tokens=eng.chunk_tokens,
+        schemes=sorted({e["scheme"] for e in st.selection_trace}),
+        scheme_flips=st.scheme_flips,
+        **{k: getattr(st, k) for k in (
+            "steps", "tokens", "faults_detected", "retries", "hard_faults",
+            "evictions", "prefix_tokens_shared", "cow_copies",
+            "prefill_chunks", "chunk_retries", "chunk_budget_retunes",
+            "mixed_steps", "decode_only_steps", "prefill_only_steps")})
+    rec["times"] = {r.uid: list(r.times) for r in reqs}
+    rec["arrival"] = arrival
+    need(rec["launches"]["abft_matmul"] > 0
+         and rec["launches"]["flash_decode"] > 0,
+         f"sharing {label}: K1 or K3 never launched {rec['launches']}")
+    if eng.pool is not None:
+        need(eng.pool.blocks_free == eng.pool.num_blocks,
+             f"sharing {label}: blocks leaked")
+    out = {k: v for k, v in rec.items()
+           if k not in ("streams", "times", "arrival")}
+    emit("sharing_run", **out)
+    del eng
+    return rec
+
+
+def _itl(rec, uids, lo, hi) -> dict:
+    """p50 / p99 inter-token gap (ms) of streams ``uids`` between host
+    times ``lo`` and ``hi``."""
+    gaps = [1e3 * (b - a) for u in uids
+            for a, b in zip(rec["times"][u], rec["times"][u][1:])
+            if lo <= a and b <= hi]
+    need(gaps, f"sharing {rec['label']}: no inter-token gap in the window")
+    return {"p50": float(np.percentile(gaps, 50)),
+            "p99": float(np.percentile(gaps, 99)),
+            "max": float(max(gaps)), "gaps": len(gaps)}
+
+
+def _kv_diff(a: dict, b: dict) -> float:
+    """Largest |difference| between two runs' captured prompt KV cells."""
+    worst = 0.0
+    for uid in a.keys() & b.keys():
+        for x, y in zip(a[uid], b[uid]):
+            worst = max(worst, (x.float() - y.float()).abs().max().item())
+    return worst
+
+
+def _same_streams(rec, ref, what, clean: bool = True) -> None:
+    need(not rec["errors"], f"sharing {what}: errors {rec['errors']}")
+    need(rec["streams"] == ref["streams"],
+         f"sharing {what}: greedy streams differ from the reference run")
+    need(not clean or rec["faults_detected"] == 0,
+         f"sharing {what}: a clean run raised a flag")
+
+
+def sharing_llama(dev, params=None) -> dict:
+    """Full-width llama3.2-1b: the prefix and long-prompt traffic through
+    the reference run (paged, neither feature) and every feature, faults
+    included; the gates of the slice (see ``main``'s docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.models.model import Model
+
+    cfg = get_config(ENGINE_ARCH)
+    model = Model(cfg)
+    if params is None:
+        params, _ = engine_inputs(dev)
+    prefix, long = sharing_traffic(cfg.vocab_size)
+
+    def run(traffic, label, **kw):
+        return share_serve(model, params, traffic, dev, label, **kw)
+
+    run(prefix[:2], "warmup", cache_kind="paged", prefix_sharing=True,
+        chunk_tokens=SHARE_CHUNK)
+    kv_ref, kv_chunk, kv_share = {}, {}, {}
+    ref = run(prefix, "prefix_reference", cache_kind="paged",
+              capture=kv_ref)
+    share = run(prefix, "prefix_sharing", cache_kind="paged",
+                prefix_sharing=True, capture=kv_share)
+    _same_streams(share, ref, "prefix_sharing")
+    need(share["prefix_tokens_shared"] > 0 and share["cow_copies"] > 0
+         and share["blocks_shared_peak"] > 0,
+         "sharing: no prefix shared, block shared or tail copied")
+    need(share["blocks_used_peak"] < ref["blocks_used_peak"]
+         and share["blocks_used_mean"] < ref["blocks_used_mean"],
+         "sharing: no fewer pool blocks than without it")
+    runs = {"prefix_reference": ref, "prefix_sharing": share}
+    for label, kw in (
+            ("prefix_chunk256_dense", dict(chunk_tokens=SHARE_CHUNK)),
+            ("prefix_chunk256_paged", dict(cache_kind="paged",
+                                           chunk_tokens=SHARE_CHUNK,
+                                           capture=kv_chunk)),
+            ("prefix_chunk_auto", dict(cache_kind="paged",
+                                       chunk_tokens="auto")),
+            ("prefix_sharing_chunk256", dict(cache_kind="paged",
+                                             prefix_sharing=True,
+                                             chunk_tokens=SHARE_CHUNK))):
+        rec = run(prefix, label, **kw)
+        _same_streams(rec, ref, label)
+        need(rec["prefill_chunks"] > 0, f"sharing {label}: no chunk ran")
+        runs[label] = rec
+    both = runs["prefix_sharing_chunk256"]
+    need(both["prefix_tokens_shared"] > 0 and both["cow_copies"] > 0,
+         "sharing+chunking: no prefix shared or tail copied")
+    kv = {"chunk_vs_whole": _kv_diff(kv_chunk, kv_ref),
+          "suffix_vs_whole": _kv_diff(kv_share, kv_ref),
+          "requests": len(kv_ref.keys() & kv_chunk.keys())}
+    emit("sharing_kv_cells", **kv)
+
+    # sampling: four requests, one per slot, so every slot's draws are
+    # the same sequence however the prompts were prefilled
+    samp = {}
+    for label, kw in (("sampled", dict(cache_kind="paged")),
+                      ("sampled_chunk256", dict(cache_kind="paged",
+                                                chunk_tokens=SHARE_CHUNK))):
+        samp[label] = run(prefix[:4], label, temperature=0.8, top_k=50,
+                          **kw)
+    need(samp["sampled"]["streams"] == samp["sampled_chunk256"]["streams"],
+         "sharing: sampled streams differ between chunked and unchunked")
+
+    # faults: a chunk fault retried alone; a decode fault with sharers
+    # resident; a persistent admission fault evicting one sharer
+    fault = ModelFault.at(0, "mlp_down", FaultSpec.value(0, 1, 1e5))
+    cf = run(prefix, "chunk_fault", cache_kind="paged", prefix_sharing=True,
+             chunk_tokens=SHARE_CHUNK, fault=fault, fault_at="mixed")
+    _same_streams(cf, ref, "chunk_fault", clean=False)
+    need(cf["fault_at"] is not None and cf["faults_detected"] == 1
+         and cf["chunk_retries"] == 1 and cf["retries"] == 1
+         and cf["hard_faults"] == 0,
+         f"chunk fault: not retried alone ({cf['chunk_retries']} chunk "
+         f"retries, {cf['retries']} retries)")
+    need(cf["steps"] == both["steps"], "chunk fault: the step count moved")
+    df = run(prefix, "decode_fault_sharers", cache_kind="paged",
+             prefix_sharing=True, fault=fault, fault_at="sharers")
+    _same_streams(df, ref, "decode_fault_sharers", clean=False)
+    need(df["fault_at"] is not None and df["faults_detected"] == 1
+         and df["retries"] == 1,
+         "decode fault with sharers: not detected and retried")
+    # uid 9 is the second twin: it shares uid 8's blocks, its tail copied
+    ev = run(prefix, "evict_one_sharer", cache_kind="paged",
+             prefix_sharing=True, max_retries=0, fault=fault, fault_uid=9)
+    need(ev["errors"].get(9) == "hard_fault:prefill"
+         and set(ev["errors"].values()) == {"hard_fault:prefill"},
+         f"persistent fault: evicted {ev['errors']}")
+    survivors = [u for u in ev["streams"] if u not in ev["errors"]]
+    need(8 in survivors and all(ev["streams"][u] == ref["streams"][u]
+                                for u in survivors),
+         "persistent fault: a surviving sharer's stream changed")
+    need(ev["hard_faults"] == 1, "persistent fault: no hard fault")
+
+    # long prompts beside two resident short streams
+    lref = run(long, "long_reference", cache_kind="paged")
+    lchunk = run(long, "long_chunk256", cache_kind="paged",
+                 chunk_tokens=SHARE_CHUNK)
+    _same_streams(lchunk, lref, "long_chunk256")
+    need(lchunk["mixed_steps"] > 0, "long: no step mixed decode and chunks")
+    itl = {}
+    for rec in (lref, lchunk):
+        lo = min(rec["arrival"][u] for u in range(2, 8))
+        hi = max(rec["times"][u][0] for u in range(2, 8))
+        itl[rec["label"]] = _itl(rec, (0, 1), lo, hi)
+    emit("sharing_itl", **itl)
+    runs.update(samp, chunk_fault=cf, decode_fault_sharers=df,
+                evict_one_sharer=ev, long_reference=lref,
+                long_chunk256=lchunk)
+    t_chunk = k1_timing(dev, params, SHARE_CHUNK, one_slice=True)
+    t_chunk_split = k1_timing(dev, params, SHARE_CHUNK)
+    attn = prefill_attention_timing(dev, cfg)
+    summary = dict(
+        arch=ENGINE_ARCH,
+        ttft_ms={k: runs[k]["ttft_ms"] for k in (
+            "prefix_reference", "prefix_sharing", "prefix_sharing_chunk256",
+            "long_reference", "long_chunk256")},
+        itl_short_streams=itl,
+        decode_step_ms={k: r["decode_step_ms_median"]
+                        for k, r in runs.items()},
+        prefill_tokens={k: (r["prefill_tokens_computed"],
+                            r["prompt_tokens"]) for k, r in runs.items()},
+        blocks_used={k: (r["blocks_used_peak"], r["blocks_used_mean"])
+                     for k, r in runs.items()},
+        auto_budget=runs["prefix_chunk_auto"]["auto_budget"],
+        auto_retunes=runs["prefix_chunk_auto"]["chunk_budget_retunes"],
+        auto_schemes=runs["prefix_chunk_auto"]["schemes"],
+        kv_cells_max_abs_diff=kv,
+        launches={k: r["launches"] for k, r in runs.items()},
+        k1_chunk={"one_slice": t_chunk, "split": t_chunk_split},
+        prefill_attention_ms=attn)
+    emit("sharing", **summary)
+    return summary
+
+
+def prefill_attention_timing(dev, cfg) -> dict:
+    """One layer's serving prefill attention at ``cfg``'s heads, bf16:
+    the row-wise path the serving prefill runs (``spans``: fixed 512 x
+    1024 f32 blocks, a row at a time) against the batched path the plain
+    engine ran before it (``lengths`` only), on an engine admission (4
+    rows padded to 256, lengths 256/192/128/64) and on one 256-token
+    chunk at logical 1280 over its 1536 keys.  Milliseconds between CUDA
+    events around eager calls: the host's launches are in them.  Both
+    paths' outputs agree within 2^-7 x max|out| (the same f32 math in
+    blocks of other shapes)."""
+    from repro_torch.models.layers import chunked_attention
+
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {}
+    for name, (B, Lq, Lk, off, lens) in {
+            "admission_4x256": (4, 256, 256, 0, (256, 192, 128, 64)),
+            "chunk_256_at_1280": (1, 256, 1536, 1280, (1536,))}.items():
+        q = torch.randn(B, Lq, H, D, generator=gen, device=dev).to(
+            torch.bfloat16)
+        k = torch.randn(B, Lk, KV, D, generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = torch.randn(B, Lk, KV, D, generator=gen, device=dev).to(
+            torch.bfloat16)
+        lengths = torch.tensor(lens, device=dev)
+        spans = [(off, n) for n in lens]
+
+        def batched():
+            return chunked_attention(q, k, v, causal=True, q_offset=off,
+                                     lengths=lengths)
+
+        def rowwise():
+            return chunked_attention(q, k, v, causal=True, spans=spans)
+
+        a, b = batched().float(), rowwise().float()
+        valid = torch.zeros(B, Lq, dtype=torch.bool, device=dev)
+        for i, n in enumerate(lens):
+            valid[i, :n - off] = True
+        err = (a - b)[valid].abs().max().item()
+        need(err <= 2 ** -7 * a[valid].abs().max().item(),
+             f"prefill attention {cfg.name} {name}: paths differ by {err}")
+        out[name] = {"batched_ms": timed(batched, iters=5),
+                     "rowwise_ms": timed(rowwise, iters=5),
+                     "layers": cfg.n_layers}
+    return out
+
+
+def sharing_qwen(dev) -> dict:
+    """qwen3-14b at full width (G = 5, q/k norm): the prefix traffic under
+    sharing with chunks of 256 against its unshared, unchunked run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    arch = "qwen3-14b"
+    cfg = get_config(arch)
+    model = Model(cfg)
+    free_memory()
+    params, _ = engine_inputs(dev, arch)
+    prefix, _ = sharing_traffic(cfg.vocab_size)
+    ref = share_serve(model, params, prefix, dev, f"{arch} reference",
+                      cache_kind="paged")
+    both = share_serve(model, params, prefix, dev,
+                       f"{arch} sharing_chunk256", cache_kind="paged",
+                       prefix_sharing=True, chunk_tokens=SHARE_CHUNK)
+    _same_streams(both, ref, f"{arch} sharing_chunk256")
+    need(both["prefix_tokens_shared"] > 0 and both["prefill_chunks"] > 0,
+         f"{arch}: no prefix shared or no chunk ran")
+    rec = dict(arch=arch, streams_equal=True,
+               prefill_attention_ms=prefill_attention_timing(dev, cfg),
+               decode_step_ms={"reference": ref["decode_step_ms_median"],
+                               "sharing_chunk256":
+                                   both["decode_step_ms_median"]},
+               ttft_ms={"reference": ref["ttft_ms"],
+                        "sharing_chunk256": both["ttft_ms"]},
+               prefill_tokens={"reference": (ref["prefill_tokens_computed"],
+                                             ref["prompt_tokens"]),
+                               "sharing_chunk256": (
+                                   both["prefill_tokens_computed"],
+                                   both["prompt_tokens"])},
+               blocks_used_peak={"reference": ref["blocks_used_peak"],
+                                 "sharing_chunk256":
+                                     both["blocks_used_peak"]},
+               launches={"reference": ref["launches"],
+                         "sharing_chunk256": both["launches"]},
+               seconds=ref["seconds"] + both["seconds"])
+    emit("sharing_family", **rec)
+    del params
+    free_memory()
+    return rec
+
+
+def sharing_runs(dev, params=None) -> dict:
+    out = {"llama": sharing_llama(dev, params)}
+    free_memory()
+    out["qwen"] = sharing_qwen(dev)
+    return out
+
+
 # ------------------------------------------------------------------ timing
 
 def _gemm_bound(m, k, n, in_bytes, out_bytes, gm_gn_rows):
@@ -1689,7 +2186,8 @@ def _gemm_bound(m, k, n, in_bytes, out_bytes, gm_gn_rows):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH) -> dict:
+def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
+              one_slice: bool = False) -> dict:
     """K1 over one step's GEMMs at M=m, using a run's own weights
     (distinct per layer, so weights come from HBM as in a real step), in
     their dtype: kernel, plain version, torch.matmul, and the bound (bf16
@@ -1699,7 +2197,9 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH) -> dict:
     choices (``fork``): at decode (bf16, M <= 8) the row-major GEMMs,
     which take the tensor-core pass 1, are also timed on the GEMV pass 1
     forced in their place; in f32 above 8 rows (the train step) every
-    GEMM, which takes the SIMT pass 1, also on the CUDA-core tiles."""
+    GEMM, which takes the SIMT pass 1, also on the CUDA-core tiles.
+    ``one_slice``: the kernel runs one K slice at any M, as the serving
+    prefill paths run it, and no fork is timed."""
     from repro_torch.kernels.abft_matmul import abft_matmul_kernel
     from repro_torch.kernels.ref import abft_matmul_ref
 
@@ -1722,6 +2222,8 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH) -> dict:
     bf16 = dtype == torch.bfloat16
     forced = "gemv" if bf16 and m <= 8 else ("tiled" if not bf16 and m > 8
                                              else None)
+    if one_slice:
+        forced = None
     fork = {"route": "tc" if bf16 else "simt", "forced": forced,
             "gemms": 0, "ms": 0.0, "forced_ms": 0.0}
     for name, ws in groups.items():
@@ -1734,7 +2236,7 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH) -> dict:
 
         def kern():
             for w in ws:
-                abft_matmul_kernel(x, w, **kw)
+                abft_matmul_kernel(x, w, **kw, one_slice=one_slice)
 
         def plain():
             for w in ws:
@@ -1770,7 +2272,8 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH) -> dict:
         tot["gemms"] += len(ws)
     tot["bound_by"] = "bytes" if bound_by == {"bytes"} else (
         "operations" if bound_by == {"operations"} else "mixed")
-    emit("k1_timing", arch=arch, m=m, dtype=str(dtype)[6:], per_shape=per,
+    emit("k1_timing", arch=arch, m=m, dtype=str(dtype)[6:],
+         one_slice=one_slice, per_shape=per,
          step_total=tot, **({"fork": fork} if fork["gemms"] else {}))
     return tot
 
@@ -1945,6 +2448,30 @@ def k1_max_err(dev, params) -> float:
     return worst
 
 
+def _add_sharing(kernels, share) -> None:
+    """K1's line gets the chunk shape (M = 256, one K slice) with the
+    launches of the chunked paged run; K1's and K3's lines get their
+    launches on every run of the ``sharing`` phase."""
+    runs = share["llama"]["launches"]
+    fam = share["qwen"]["launches"]
+    for entry in kernels:
+        key = {"abft_matmul": "abft_matmul",
+               "flash_decode": "flash_decode"}.get(entry["name"])
+        if key is None:
+            continue
+        entry["sharing_launches"] = {
+            **{k: v[key] for k, v in runs.items()},
+            **{f"qwen3-14b {k}": v[key] for k, v in fam.items()}}
+        if key == "abft_matmul":
+            t = share["llama"]["k1_chunk"]
+            entry["by_shape"]["chunk_m256"] = {
+                "launches": runs["prefix_chunk256_paged"][key],
+                **{k: t["one_slice"][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                "split_ms": t["split"]["ms"]}
+
+
 def _add_family(kernels, fam) -> None:
     """Each kernel's line gets ``by_arch``: its launches on that arch's
     main path (the dense serving run for K1 and K3, the score for K2) and
@@ -1957,6 +2484,8 @@ def _add_family(kernels, fam) -> None:
             if entry["name"] == "abft_matmul":
                 row = {"launches": rec["launches"]["abft_matmul"],
                        "max_abs_err": f["checks"]["k1_max_abs_err"],
+                       "one_slice_max_abs_err":
+                           f["checks"]["k1_one_slice_max_abs_err"],
                        **{k: f["k1"][k] for k in keys}}
             elif entry["name"] == "flash_attention":
                 row = {"launches": rec["score"]["launches"]
@@ -2012,8 +2541,10 @@ def main(argv=None) -> int:
     need(tensor_core["abft_matmul"]["HGMMA"] > 0
          and tensor_core["flash_attention"]["HMMA"] > 0,
          f"tensor-core instructions missing from the SASS: {tensor_core}")
+    k1_res = None
     if "k1" in phases:
-        emit("k1_check", **k1_checks(dev))
+        k1_res = k1_checks(dev)
+        emit("k1_check", **k1_res)
     if "k2" in phases:
         emit("k2_check", **k2_checks(dev))
     if "k3" in phases:
@@ -2046,7 +2577,9 @@ def main(argv=None) -> int:
     if "timing" in phases:
         launches = eng_out["dense"]["launches"]
         t1 = k1_timing(dev, eng_out["params"], 4)
-        t1_pre = k1_timing(dev, eng_out["params"], 512)
+        # the serving prefill runs one K slice; the split plan beside it
+        t1_pre = k1_timing(dev, eng_out["params"], 512, one_slice=True)
+        t1_pre_split = k1_timing(dev, eng_out["params"], 512)
         t1_fwd = k1_timing(dev, eng_out["params"], FWD_B * FWD_L)
         t3 = k3_timing(dev, eng_out["engine"], eng_out["prompts"])
         t2 = k2_timing(dev)
@@ -2058,6 +2591,8 @@ def main(argv=None) -> int:
              "replaces": "src/repro/kernels/abft_matmul.py:188",
              "launches": launches["abft_matmul"],
              "max_abs_err": k1_max_err(dev, eng_out["params"]),
+             "one_slice_max_abs_err": (k1_res["one_slice_max_abs_err"]
+                                       if k1_res is not None else None),
              "ms": t1["ms"], "plain_ms": t1["plain_ms"],
              "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
              "library_ms": t1["library_ms"],
@@ -2065,6 +2600,7 @@ def main(argv=None) -> int:
                  "ms", "plain_ms", "bound_ms", "library_ms")}
                  for name, m, rec in (("decode", 4, t1),
                                       ("prefill", 512, t1_pre),
+                                      ("prefill_split", 512, t1_pre_split),
                                       ("forward", FWD_B * FWD_L, t1_fwd),
                                       ("train_f32", TRAIN_B * TRAIN_L,
                                        t1_train)) if rec is not None}},
@@ -2088,6 +2624,11 @@ def main(argv=None) -> int:
                  "splits", "ms", "ms_splits_1", "plain_ms")}
                  for kind in ("dense", "paged")}},
         ]
+    if "sharing" in phases:
+        share = sharing_runs(dev, eng_out["params"]
+                             if eng_out is not None else None)
+        if kernels is not None:
+            _add_sharing(kernels, share)
     if "family" in phases:
         # drop every earlier phase's weights, engines and caches
         eng_out = fwd = train_params = camp = tr = None

@@ -1,7 +1,7 @@
 """ProtectionPolicy API — the single protection surface (paper §5.3).
 
-Port of ``repro.core.policy`` (everything but the chunk-budget and
-draft-length autotuners, whose engine features are not ported):
+Port of ``repro.core.policy`` (everything but the draft-length
+autotuner, whose engine feature is not ported):
 
 ``SchemeRegistry``
     Every scheme registers a cost model, an executor, and a
@@ -671,6 +671,7 @@ class ProtectionPlan:
 
     def __post_init__(self):
         object.__setattr__(self, "_step_cache", {})
+        object.__setattr__(self, "_tune_cache", {})
 
     # ---------------------------------------------------------- builders
     @classmethod
@@ -784,6 +785,66 @@ class ProtectionPlan:
             sel = self.policy.select(self.step_dims(tokens), self.hardware)
             self._step_cache[tokens] = sel
         return sel
+
+    def tune_chunk_budget(self, decode_tokens: int = 0, *, lo: int = 8,
+                          hi: int = 4096, quantum: int = 8,
+                          tput_margin: float | None = 0.1) -> int:
+        """Roofline chunk-budget autotuning (ROADMAP item): the smallest
+        per-step token budget that (a) clears the device CMR — strictly,
+        via ``compute_bound_ai`` — AND (b) keeps modeled per-token step
+        time within ``tput_margin`` of the best attainable budget under
+        ``hi``.  (a) alone lands exactly on the roofline knee, where the
+        redundant-work and fixed-op terms are not yet amortized; (b)
+        walks just far enough past the knee that a fixed-budget sweep
+        cannot beat the tuned budget's throughput by more than the
+        margin.  ``tput_margin=None`` disables (b) and returns the bare
+        crossing.
+
+        The floor tracks occupancy: the budget always exceeds
+        ``decode_tokens`` by at least one quantum, so resident decodes
+        (packed first) can never starve prefill progress.  When the step
+        geometry cannot reach the CMR below ``hi`` (small models, huge
+        CMR), the cap is returned — the maximum-intensity budget
+        attainable.  Budgets are quantized to ``quantum`` (the engine's
+        chunk-length bucketing, serve/engine._pad_len)."""
+        q = max(1, int(quantum))
+        key = (int(decode_tokens), int(lo), int(hi), q, tput_margin)
+        got = self._tune_cache.get(key)
+        if got is not None:
+            return got
+        floor = max(int(lo), int(decode_tokens) + q)
+        floor = -(-floor // q) * q
+        cap = max(floor, (int(hi) // q) * q)
+
+        def clears(b: int) -> bool:
+            return compute_bound_ai(self.step_intensity(b), self.hardware)
+
+        if clears(floor):
+            best = floor
+        elif not clears(cap):
+            best = cap
+        else:
+            # AI is monotone in tokens: binary-search the crossing
+            lo_b, hi_b = floor, cap          # !clears(lo_b), clears(hi_b)
+            while hi_b - lo_b > q:
+                mid = ((lo_b + hi_b) // 2) // q * q
+                if mid <= lo_b:
+                    mid = lo_b + q
+                if clears(mid):
+                    hi_b = mid
+                else:
+                    lo_b = mid
+            best = hi_b
+        if tput_margin is not None and best < cap:
+            # per-token step time decreases as the budget amortizes the
+            # scheme's fixed terms: advance until within the margin of
+            # the cap's per-token time
+            target = (1.0 + tput_margin) * self.modeled_step_time(cap) / cap
+            while best < cap and \
+                    self.modeled_step_time(best) / best > target:
+                best += q
+        self._tune_cache[key] = best
+        return best
 
     # ---------------------------------------------------------- serialization
     def to_json(self, indent: int | None = 2) -> str:

@@ -54,6 +54,10 @@ class ABFTConfig:
     # decode attention; plain attention outside any kernel otherwise
     flash_attention: bool = False
     policy: ProtectionPolicy | None = None
+    # K1 runs pass 1 as one K slice at any M (``abft_matmul.split_k``):
+    # the serving prefill paths, so a row gets the same bits whatever the
+    # height of the GEMM it sits in (whole prompt, suffix or chunk)
+    one_slice: bool = False
 
     def effective_policy(self) -> ProtectionPolicy:
         if not self.enabled:
@@ -136,7 +140,8 @@ def _block_executor(mode: str):
 
         return ops.abft_matmul(x, w, mode=mode, blocks=cfg.blocks,
                                out_dtype=out_dtype, fault=fault,
-                               c_factor=cfg.c_factor)
+                               c_factor=cfg.c_factor,
+                               one_slice=cfg.one_slice)
 
     return _exec
 

@@ -132,7 +132,7 @@ def tile(r: str, bm: int) -> tuple:
 
 def split_k(m: int, k: int, n: int, bm: int, bk: int, bn: int,
             mode: str, gemv: bool = False, tc: bool = False,
-            simt: bool = False) -> tuple:
+            simt: bool = False, one_slice: bool = False) -> tuple:
     """(slices, depth) of the K split.  CUDA-core routes: enough CUDA
     blocks for two waves over the SMs; tiled slices at least 256 deep and
     — for the replica checksum, which flushes per logical k-block —
@@ -141,7 +141,10 @@ def split_k(m: int, k: int, n: int, bm: int, bk: int, bn: int,
     slice (y and the row sums straight from the epilogue) unless the
     tiles fill under half the SMs; then ``SMs // tiles`` slices of whole
     stages (64 deep on the tensor cores, 16 on SIMT), at least 256
-    deep."""
+    deep.  ``one_slice`` (not the GEMV): a single slice of the whole
+    depth at any M, so a row's f32 sum runs in one order whatever the
+    height of the GEMM around it (tensor-core, SIMT and CUDA-core tiles
+    accumulate each output in the same order whatever row they hold)."""
     if gemv:    # at most 16 slices: pass 2 sums them element by element
         tiles, unit, floor = -(-n // TN), 32, max(32, -(-k // 16))
         want = max(1, -(-2 * _SMS // tiles))
@@ -158,6 +161,8 @@ def split_k(m: int, k: int, n: int, bm: int, bk: int, bn: int,
     def up(v: int) -> int:
         return -(-v // unit) * unit
 
+    if one_slice and not gemv:
+        return 1, up(k)
     kc = max(up(-(-k // want)), up(floor))
     return -(-k // kc), kc
 
@@ -174,14 +179,15 @@ class Plan:
 
 
 def plan(x, w, *, mode: str, bm: int, bk: int, bn: int,
-         force: str | None = None) -> Plan:
+         force: str | None = None, one_slice: bool = False) -> Plan:
     """The launch ``abft_matmul_kernel`` makes for these operands, on
     ``route``'s pass 1 or on ``force``, which must be one of ``routes``'s
     (to time one route against another).  Scratch: the per-slice partial
     accumulators (none on the single-slice tensor-core and SIMT routes,
     whose epilogue stores y), the per-(slice, row, column tile) partial
     checksums and bounds, and — tensor-core and SIMT routes only — the
-    per-(row, column tile) partial row sums of the accumulator."""
+    per-(row, column tile) partial row sums of the accumulator.
+    ``one_slice``: ``split_k``'s."""
     m, k = x.shape
     n = w.shape[1]
     can = routes(x, w, bn, mode)
@@ -191,7 +197,7 @@ def plan(x, w, *, mode: str, bm: int, bk: int, bn: int,
     r = force or can[0]
     tc, simt = r.startswith("tc"), r == "simt"
     S, kc = split_k(m, k, n, bm, bk, bn, mode, gemv=r == "gemv", tc=tc,
-                    simt=simt)
+                    simt=simt, one_slice=one_slice)
     tm, tn = tile(r, bm)
     gx = -(-n // bn) * -(-bn // tn)
     wide = tc or simt       # the epilogue stores y and the row sums
@@ -203,10 +209,11 @@ def plan(x, w, *, mode: str, bm: int, bk: int, bn: int,
 
 def abft_matmul_kernel(x, w, fault=(0, 0, 0, 0, 0, -1), delta: float = 0.0,
                        *, mode: str, bm: int, bk: int, bn: int, out_dtype,
-                       force: str | None = None):
+                       force: str | None = None, one_slice: bool = False):
     """x: (M, K) with unit column stride, w: (K, N) with any strides (the
     tied head passes ``embed.T``) -> (y, res, bnd) as ``abft_matmul_ref``.
-    The pass-1 route is ``plan``'s (``route``'s unless ``force``d)."""
+    The pass-1 route is ``plan``'s (``route``'s unless ``force``d);
+    ``one_slice`` runs it as one K slice at any M (``split_k``)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
@@ -225,7 +232,8 @@ def abft_matmul_kernel(x, w, fault=(0, 0, 0, 0, 0, -1), delta: float = 0.0,
     m, k = x.shape
     n = w.shape[1]
     gm, gn = -(-m // bm), -(-n // bn)
-    p = plan(x, w, mode=mode, bm=bm, bk=bk, bn=bn, force=force)
+    p = plan(x, w, mode=mode, bm=bm, bk=bk, bn=bn, force=force,
+             one_slice=one_slice)
     dev = x.device
     y = torch.empty((m, n), dtype=out_dtype, device=dev)
     rshape = (gm, gn) if mode == "2s" else (gm, gn, bm)

@@ -43,11 +43,14 @@ class _AbftMatmul(torch.autograd.Function):
     reference's backward.  Residual and bound carry no gradient."""
 
     @staticmethod
-    def forward(ctx, x2, w, fidx, delta, mode, bm, bk, bn, out_dtype):
-        run = abft_matmul_kernel if (x2.is_cuda or w.is_cuda) \
-            else abft_matmul_ref
-        y, res, bnd = run(x2, w, fidx, delta, mode=mode, bm=bm, bk=bk,
-                          bn=bn, out_dtype=out_dtype)
+    def forward(ctx, x2, w, fidx, delta, mode, bm, bk, bn, out_dtype,
+                one_slice):
+        kw = dict(mode=mode, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+        if x2.is_cuda or w.is_cuda:
+            y, res, bnd = abft_matmul_kernel(x2, w, fidx, delta, **kw,
+                                             one_slice=one_slice)
+        else:
+            y, res, bnd = abft_matmul_ref(x2, w, fidx, delta, **kw)
         ctx.mark_non_differentiable(res, bnd)
         ctx.save_for_backward(x2, w)
         return y, res, bnd
@@ -65,15 +68,17 @@ class _AbftMatmul(torch.autograd.Function):
             # view's backward hands ``embed`` a contiguous gradient
             gw = (torch.matmul(g.t(), x2).t() if w.stride(0) == 1
                   and w.stride(1) != 1 else torch.matmul(x2.t(), g))
-        return gx, gw, None, None, None, None, None, None, None
+        return gx, gw, None, None, None, None, None, None, None, None
 
 
 def abft_matmul(x, w, *, mode: str = "1s", blocks: BlockShape = BlockShape(),
                 out_dtype=None, fault: FaultSpec | None = None,
-                c_factor: float = 16.0):
+                c_factor: float = 16.0, one_slice: bool = False):
     """``y = x @ w`` plus the fused integrity check.  x: (..., m, k), w:
     (k, n).  Returns (y, CheckResult); the residual is per (block, row)
-    for '1s'/'replica', per block for '2s'."""
+    for '1s'/'replica', per block for '2s'.  ``one_slice``: K1 runs pass
+    1 as one K slice at any M (``abft_matmul.split_k``); the plain
+    version has no split."""
     out_dtype = out_dtype or x.dtype
     *lead, m0, k0 = x.shape
     kw, n0 = w.shape
@@ -89,7 +94,7 @@ def abft_matmul(x, w, *, mode: str = "1s", blocks: BlockShape = BlockShape(),
     fidx = (f.row // bm, f.col // bn, f.row % bm, f.col % bn,
             int(f.enabled), f.bit)
     y, res, bnd = _AbftMatmul.apply(x2, w, fidx, f.delta, mode, bm, bk, bn,
-                                    out_dtype)
+                                    out_dtype, one_slice)
     # the reference takes the depth of its zero-padded operand (a multiple
     # of bk) for the threshold; kept so both packages flag alike
     tau = ATOL + tolerance_scale(_round_up(k0, bk), c=c_factor) * bnd

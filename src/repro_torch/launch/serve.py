@@ -3,7 +3,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
       --arch qwen3-14b --scale full --dtype bfloat16 --flash-attention \
-      [--cache paged] [--inject-faults] [--abft auto|global|block_1s|off] \
+      [--cache paged [--prefix-sharing]] [--chunk-tokens N|auto] \
+      [--inject-faults] [--abft auto|global|block_1s|off] \
       [--fault-rate 0.2 --fault-kind transient --adaptive] \
       [--temperature 0.8 --top-k 50] [--plan-out plan.json] \
       [--metrics-out m.json] [--trace-out t.json] [--log-events]
@@ -26,6 +27,9 @@ metrics snapshot + fault-rate surface + engine stats as one JSON
 artifact (``benchmarks/check_telemetry_schema.py`` validates it);
 ``--trace-out`` writes a Chrome-trace/Perfetto JSON; ``--log-events``
 streams every trace event as a JSON line to stderr.
+``--prefix-sharing`` (paged cache) shares resident prompt blocks with
+copy-on-write; ``--chunk-tokens`` sets the chunked-prefill step budget
+(an int, or ``auto`` for the roofline-tuned budget).
 """
 
 from __future__ import annotations
@@ -54,6 +58,13 @@ from repro_torch.serve.engine import RecoveryPolicy, Request, ServeEngine
 from repro_torch.serve.executor import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _chunk_tokens(v: str):
+    """--chunk-tokens value: an int budget or 'auto' (roofline-tuned)."""
+    if str(v).lower() == "auto":
+        return "auto"
+    return int(v)
 
 
 def main(argv=None) -> int:
@@ -99,6 +110,15 @@ def main(argv=None) -> int:
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--num-blocks", type=int, default=None)
     ap.add_argument("--admit-lookahead", type=int, default=8)
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="refcounted prefix sharing + copy-on-write "
+                         "(paged cache)")
+    ap.add_argument("--chunk-tokens", type=_chunk_tokens, default=None,
+                    help="chunked-prefill step token budget (decode tokens "
+                         "pack first, prompt chunks fill the rest), or "
+                         "'auto': the smallest budget whose mixed step "
+                         "clears the device CMR, re-tuned as occupancy "
+                         "drifts")
     ap.add_argument("--plan-out", default=None,
                     help="write the engine's ProtectionPlan as JSON")
     ap.add_argument("--temperature", type=float, default=0.0,
@@ -160,6 +180,7 @@ def main(argv=None) -> int:
         dtype=dtype, device=device, cache_kind=args.cache,
         block_size=args.block_size, num_blocks=args.num_blocks,
         admit_lookahead=args.admit_lookahead,
+        prefix_sharing=args.prefix_sharing, chunk_tokens=args.chunk_tokens,
         temperature=args.temperature, top_k=args.top_k, seed=args.seed,
         telemetry=telemetry, fault_model=fault_model,
         policy=RecoveryPolicy(max_retries=args.max_retries,
@@ -203,6 +224,10 @@ def main(argv=None) -> int:
         "hard_faults": st.hard_faults,
         "evictions": st.evictions,
         "rejections": st.rejections,
+        "prefix_hit_rate": st.prefix_hit_rate,
+        "cow_copies": st.cow_copies,
+        "prefill_chunks": st.prefill_chunks,
+        "mixed_steps": st.mixed_steps,
         "decode_only_steps": st.decode_only_steps,
         "campaign": ({
             "faults_injected": st.faults_injected,
@@ -215,6 +240,8 @@ def main(argv=None) -> int:
         "protection_level": engine.protection_level,
         "protection_escalations": st.protection_escalations,
         "protection_deescalations": st.protection_deescalations,
+        "chunk_tokens": engine.chunk_tokens,
+        "chunk_budget_retunes": st.chunk_budget_retunes,
         "step_schemes": schemes,
         "errors": {r.uid: r.error for r in reqs if r.error},
         "cache": engine.cache_stats(),

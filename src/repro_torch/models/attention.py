@@ -5,7 +5,9 @@ ABFT-protected ``dense``.  With ``ABFTConfig.flash_attention`` set, full-sequenc
 attention (``gqa_forward``) runs the fused-ABFT flash attention kernel
 (K2) and decode attention the fused-ABFT flash decode kernel (K3); plain
 attention outside any kernel otherwise.  Serving prefill attention is the
-plain chunked path, as in the reference.
+plain chunked path, as in the reference, run row by row at fixed chunk
+shapes (``chunked_attention(spans=...)``) so that a prompt prefilled
+whole, as the suffix of a shared prefix or in chunks gets bit-identical KV.
 
 KV caches are updated IN PLACE (the reference returns new immutable
 caches).  The serving engine's detect->retry loop stays sound because a
@@ -90,11 +92,17 @@ def decode_cells(pos) -> tuple:
     return torch.arange(pos.shape[0], device=pos.device), pos
 
 
-def prefill_cells(slots, L: int) -> tuple:
+def prefill_cells(slots, L: int, starts=None, lengths=None) -> tuple:
     """Index of the dense cache cells a prefill writes: rows ``slots`` at
-    positions [0, L)."""
+    positions [0, L), or — with ``starts`` — row a at positions
+    ``starts[a] + t`` for ``t < lengths[a]`` (a suffix or a chunk)."""
     slots = slots.long()
-    return slots[:, None], torch.arange(L, device=slots.device)[None, :]
+    t = torch.arange(L, device=slots.device)
+    if starts is None:
+        return slots[:, None], t[None, :]
+    keep = t[None, :] < lengths.to(slots.device)[:, None]
+    pos = starts.to(slots.device).long()[:, None] + t[None, :]
+    return slots[:, None].expand(-1, L)[keep], pos[keep]
 
 
 def _row_scatter(cache_leaf, new, pos) -> None:
@@ -109,21 +117,51 @@ def _slot_prefill_write(cache_leaf, new, slots, L: int) -> None:
         new.to(cache_leaf.dtype)
 
 
+def _slot_prefill_write_at(cache_leaf, new, slots, starts, lengths) -> None:
+    """Write ``new`` (A, L, ...) into rows ``slots`` at per-row offsets:
+    ``new[a, t]`` lands at ``starts[a] + t`` for ``t < lengths[a]``.
+    Padding positions (and padding rows, lengths 0) are masked out and
+    never written — not even onto row 0's slot, which padding rows alias."""
+    dev = cache_leaf.device
+    cells = prefill_cells(slots.to(dev), new.shape[1], starts.to(dev),
+                          lengths.to(dev))
+    keep = (torch.arange(new.shape[1], device=dev)[None, :]
+            < lengths.to(dev)[:, None])
+    cache_leaf[cells] = new[keep].to(cache_leaf.dtype)
+
+
 def gqa_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, positions, cache,
-                slots=None, lengths=None):
+                slots=None, lengths=None, starts=None, spans=None):
     """Prefill: attend the prompt and fill the cache.  cache k/v:
     (B, S_max, KV, hd).  With ``slots``/``lengths`` (continuous batching)
     x is the padded admission batch, rows scatter into the engine rows
-    ``slots`` and attention is masked at each row's length."""
+    ``slots`` and attention is masked at each row's length.
+
+    ``starts`` (A,) selects the resumable-chunk path: x holds one
+    mid-prompt chunk per row starting at logical position ``starts[a]``
+    (``positions`` carries the offset, so rotary matches the whole-prompt
+    prefill).  The chunk's k/v land behind the resident prefix and the
+    chunk attends the slot's cache rows with a per-row causal offset.
+    ``spans``: ``chunked_attention``'s (row-wise attention)."""
     B, L, _ = x.shape
     q, k, v, flag = _qkv(x, p, cfg, ctx, positions)
-    out = chunked_attention(q, k, v, causal=True, lengths=lengths)
-    if slots is None:
-        cache["k"][:, :L] = k.to(cache["k"].dtype)
-        cache["v"][:, :L] = v.to(cache["v"].dtype)
+    if starts is None:
+        out = chunked_attention(q, k, v, causal=True, lengths=lengths,
+                                spans=spans)
+        if slots is None:
+            cache["k"][:, :L] = k.to(cache["k"].dtype)
+            cache["v"][:, :L] = v.to(cache["v"].dtype)
+        else:
+            _slot_prefill_write(cache["k"], k, slots, L)
+            _slot_prefill_write(cache["v"], v, slots, L)
     else:
-        _slot_prefill_write(cache["k"], k, slots, L)
-        _slot_prefill_write(cache["v"], v, slots, L)
+        assert slots is not None, "chunked prefill needs slot targets"
+        _slot_prefill_write_at(cache["k"], k, slots, starts, lengths)
+        _slot_prefill_write_at(cache["v"], v, slots, starts, lengths)
+        rows = slots.to(cache["k"].device).long()
+        out = chunked_attention(q, cache["k"][rows], cache["v"][rows],
+                                causal=True, q_offset=starts,
+                                lengths=starts + lengths, spans=spans)
     out, f = dense(out.reshape(B, L, -1), p["wo"], ctx, "attn_out",
                    tag="attn.o")
     return out, or_flags(flag, f)
@@ -150,14 +188,29 @@ def gqa_decode(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache):
 
 
 def gqa_paged_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, positions,
-                      cache, tables, lengths):
+                      cache, tables, lengths, starts=None, spans=None):
     """Paged prefill: the same ragged attention as the dense path; k/v
-    scatter into the pools through ``tables`` (A, W)."""
+    scatter into the pools through ``tables`` (A, W).
+
+    ``starts`` (A,) selects the suffix path (a shared prefix's suffix, or
+    a prompt chunk): row a's tokens start at logical position
+    ``starts[a]``; their k/v scatter behind the resident prefix, then the
+    rows attend the slot's gathered logical KV with a per-row causal
+    offset and total-length key masking.  ``spans``: ``gqa_prefill``'s."""
     B, L, _ = x.shape
     q, k, v, flag = _qkv(x, p, cfg, ctx, positions)
-    out = chunked_attention(q, k, v, causal=True, lengths=lengths)
-    paged_scatter_prefill(cache["k"], k, tables, lengths)
-    paged_scatter_prefill(cache["v"], v, tables, lengths)
+    if starts is None:
+        out = chunked_attention(q, k, v, causal=True, lengths=lengths,
+                                spans=spans)
+        paged_scatter_prefill(cache["k"], k, tables, lengths)
+        paged_scatter_prefill(cache["v"], v, tables, lengths)
+    else:
+        paged_scatter_prefill(cache["k"], k, tables, lengths, starts=starts)
+        paged_scatter_prefill(cache["v"], v, tables, lengths, starts=starts)
+        out = chunked_attention(
+            q, paged_gather(cache["k"], tables),
+            paged_gather(cache["v"], tables), causal=True, q_offset=starts,
+            lengths=starts + lengths, spans=spans)
     out, f = dense(out.reshape(B, L, -1), p["wo"], ctx, "attn_out",
                    tag="attn.o")
     return out, or_flags(flag, f)

@@ -127,12 +127,33 @@ def apply_rope(x, cos, sin, rot: int):
 
 # ---------------------------------------------------------------- attention
 
-def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512, k_chunk: int = 1024,
-                      scale: float | None = None, lengths=None):
+def chunked_attention(q, k, v, *, causal: bool, q_offset=0, q_chunk: int = 512,
+                      k_chunk: int = 1024, scale: float | None = None,
+                      lengths=None, spans=None):
     """Memory-bounded attention with online softmax over query and key
     chunks (the reference's flash-style XLA path, as Python loops).
     q: (B, Lq, H, Dk); k: (B, Lk, KV, Dk); v: (B, Lk, KV, Dv); ``lengths``
-    (B,) masks keys at positions >= lengths[b].  Returns (B, Lq, H, Dv)."""
+    (B,) masks keys at positions >= lengths[b].  ``q_offset``: logical
+    position of query 0, a scalar or a (B,) vector when each row starts at
+    its own position (a prefix's suffix, a prompt chunk: row b's query t
+    sits at ``q_offset[b] + t`` for the causal mask; keys are addressed
+    from logical 0).  Masked keys get exactly zero weight.
+
+    ``spans`` (the serving prefill paths): per row, on the host, its
+    (``q_offset``, ``lengths``) pair, which then replace those two.  Each
+    row runs alone through chunks of exactly ``q_chunk`` queries and
+    ``k_chunk`` keys, the keys' chunks aligned to logical 0, so every
+    product has one shape whatever the batch, the padding or the chunking
+    around a row.  A query's output then depends only on its own row's
+    keys and position: a prompt prefilled whole, as a suffix behind a
+    shared prefix, or in chunks gets bit-identical KV and logits.  Key
+    chunks that every query of a query chunk masks are skipped (an exact
+    no-op), and a row with no query of its own (a padding row: keys end
+    at its offset) is zeros.  Returns (B, Lq, H, Dv)."""
+    if spans is not None:
+        return _rowwise_attention(q, k, v, spans, causal=causal,
+                                  q_chunk=q_chunk, k_chunk=k_chunk,
+                                  scale=scale)
     B, Lq, H, Dk = q.shape
     Lk, KV, Dv = v.shape[1], v.shape[2], v.shape[3]
     G = H // KV
@@ -144,10 +165,12 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512, k_chunk: int
     kp = pad(k, (0, 0, 0, 0, 0, nk * kc - Lk))
     vp = pad(v, (0, 0, 0, 0, 0, nk * kc - Lk))
     dev = q.device
+    off = torch.as_tensor(q_offset, device=dev).long()
+    off = off.reshape(-1, 1) if off.dim() else off.reshape(1, 1)  # (B|1, 1)
     outs = []
     for qi in range(nq):
         qg = qp[:, qi * qc:(qi + 1) * qc].reshape(B, qc, KV, G, Dk).to(F32)
-        q_pos = qi * qc + torch.arange(qc, device=dev)
+        q_pos = off + qi * qc + torch.arange(qc, device=dev)   # (B|1, qc)
         m = torch.full((B, qc, KV, G), NEG_INF, dtype=F32, device=dev)
         l = torch.zeros((B, qc, KV, G), dtype=F32, device=dev)
         acc = torch.zeros((B, qc, KV, G, Dv), dtype=F32, device=dev)
@@ -156,24 +179,80 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512, k_chunk: int
             vblk = vp[:, ki * kc:(ki + 1) * kc].to(F32)
             k_pos = ki * kc + torch.arange(kc, device=dev)
             s = torch.einsum("bqkgd,bskd->bqkgs", qg, kblk) * scale
-            mask = (k_pos[None, :] < Lk).expand(qc, kc)
+            mask = (k_pos[None, None, :] < Lk).expand(q_pos.shape[0], qc, kc)
             if causal:
-                mask = mask & (q_pos[:, None] >= k_pos[None, :])
-            mask = mask[None, :, None, None, :]
+                mask = mask & (q_pos[:, :, None] >= k_pos[None, None, :])
+            mask = mask[:, :, None, None, :]
             if lengths is not None:
                 row_ok = k_pos[None, :] < lengths.to(dev)[:, None]
                 mask = mask & row_ok[:, None, None, None, :]
-            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bqkgs,bskv->bqkgv", p, vblk)
-            m = m_new
+            m, l, acc = _online_softmax_step(s, mask, vblk, m, l, acc)
         out = acc / l.clamp_min(1e-30)[..., None]
         outs.append(out.reshape(B, qc, H, Dv).to(q.dtype))
     return torch.cat(outs, dim=1)[:, :Lq]
+
+
+def _online_softmax_step(s, mask, vblk, m, l, acc) -> tuple:
+    """Fold one key chunk's scores ``s`` (masked keys to NEG_INF, so they
+    weigh exactly 0) into the running max ``m``, sum ``l`` and output
+    ``acc``."""
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(-1)
+    acc = acc * corr[..., None] + torch.einsum("bqkgs,bskv->bqkgv", p, vblk)
+    return m_new, l, acc
+
+
+def _rowwise_attention(q, k, v, spans, *, causal, q_chunk, k_chunk,
+                       scale):
+    """``chunked_attention(spans=...)``: one row at a time, fixed chunk
+    shapes (see there)."""
+    B, Lq, H, Dk = q.shape
+    Lk, KV, Dv = v.shape[1], v.shape[2], v.shape[3]
+    G = H // KV
+    scale = scale if scale is not None else Dk ** -0.5
+    qc, kc = q_chunk, k_chunk
+    nq, nk = -(-Lq // qc), -(-Lk // kc)
+    pad = torch.nn.functional.pad
+    qp = pad(q, (0, 0, 0, 0, 0, nq * qc - Lq))
+    kp = pad(k, (0, 0, 0, 0, 0, nk * kc - Lk))
+    vp = pad(v, (0, 0, 0, 0, 0, nk * kc - Lk))
+    dev = q.device
+    ar_q = torch.arange(qc, device=dev)
+    ar_k = torch.arange(kc, device=dev)
+    rows = []
+    for b, (off, n_valid) in enumerate(spans):
+        n_valid = min(int(n_valid), Lk)
+        if n_valid <= off:
+            rows.append(torch.zeros((1, Lq, H, Dv), dtype=q.dtype,
+                                    device=dev))
+            continue
+        outs = []
+        for qi in range(nq):
+            qg = qp[b:b + 1, qi * qc:(qi + 1) * qc].reshape(
+                1, qc, KV, G, Dk).to(F32)
+            q0 = int(off) + qi * qc
+            q_pos = q0 + ar_q
+            last = min(n_valid, q0 + qc) if causal else n_valid
+            m = torch.full((1, qc, KV, G), NEG_INF, dtype=F32, device=dev)
+            l = torch.zeros((1, qc, KV, G), dtype=F32, device=dev)
+            acc = torch.zeros((1, qc, KV, G, Dv), dtype=F32, device=dev)
+            for ki in range(max(1, -(-last // kc))):
+                kblk = kp[b:b + 1, ki * kc:(ki + 1) * kc].to(F32)
+                vblk = vp[b:b + 1, ki * kc:(ki + 1) * kc].to(F32)
+                k_pos = ki * kc + ar_k
+                s = torch.einsum("bqkgd,bskd->bqkgs", qg, kblk) * scale
+                mask = (k_pos < n_valid)[None, :].expand(qc, kc)
+                if causal:
+                    mask = mask & (q_pos[:, None] >= k_pos[None, :])
+                m, l, acc = _online_softmax_step(
+                    s, mask[None, :, None, None, :], vblk, m, l, acc)
+            out = acc / l.clamp_min(1e-30)[..., None]
+            outs.append(out.reshape(1, qc, H, Dv).to(q.dtype))
+        rows.append(torch.cat(outs, dim=1)[:, :Lq])
+    return torch.cat(rows, dim=0)
 
 
 def decode_attention(q, k_cache, v_cache, length, scale=None):

@@ -164,10 +164,14 @@ class Model:
 
     # -------------------------------------------------- layers
     def apply_layer(self, x, lp, ctx: LayerCtx, positions, mode: str, cache,
-                    pos=None, slots=None, lengths=None, tables=None):
+                    pos=None, slots=None, lengths=None, tables=None,
+                    prefix_lens=None, spans=None):
         """One decoder layer (mode: full | prefill | decode).  ``full`` is
         causal attention over the whole sequence with no cache (the
-        training/scoring forward).  Returns (x, flag)."""
+        training/scoring forward).  ``prefix_lens`` (prefill): the logical
+        start of each row's tokens (a suffix or a chunk); ``spans``: each
+        row's (start, end) on the host for row-wise attention.  Returns
+        (x, flag)."""
         cfg = self.cfg
         h = norm(x, lp["mixer_norm"], cfg.norm, cfg.norm_eps)
         if mode == "full":
@@ -176,10 +180,12 @@ class Model:
             if tables is not None:
                 a, f = attn.gqa_paged_prefill(h, lp["mixer"], cfg, ctx,
                                               positions, cache, tables,
-                                              lengths)
+                                              lengths, starts=prefix_lens,
+                                              spans=spans)
             else:
                 a, f = attn.gqa_prefill(h, lp["mixer"], cfg, ctx, positions,
-                                        cache, slots=slots, lengths=lengths)
+                                        cache, slots=slots, lengths=lengths,
+                                        starts=prefix_lens, spans=spans)
         elif tables is not None:
             a, f = attn.gqa_paged_decode(h, lp["mixer"], cfg, ctx, pos,
                                          cache, tables)
@@ -192,7 +198,7 @@ class Model:
 
     def run_stack(self, x, params, ctx: LayerCtx, positions, mode: str,
                   caches, pos=None, slots=None, lengths=None, tables=None,
-                  remat: bool = False):
+                  remat: bool = False, prefix_lens=None, spans=None):
         """The layer loop.  ``caches`` is None in mode ``full``.  ``remat``
         recomputes each layer in the backward pass instead of keeping its
         activations (the reference's ``jax.checkpoint`` per layer); it
@@ -202,7 +208,8 @@ class Model:
         remat = remat and torch.is_grad_enabled()
         flags = []
         for i, (lp, cache) in enumerate(zip(layers, caches)):
-            kw = dict(pos=pos, slots=slots, lengths=lengths, tables=tables)
+            kw = dict(pos=pos, slots=slots, lengths=lengths, tables=tables,
+                      prefix_lens=prefix_lens, spans=spans)
             args = (x, lp, ctx.with_layer(i), positions, mode, cache)
             if remat:
                 x, f = checkpoint(self.apply_layer, *args, use_reentrant=False,
@@ -249,21 +256,64 @@ class Model:
         return ForwardOut(logits=logits, flag=or_flags(flag, f_head),
                           aux_loss=torch.zeros((), dtype=F32, device=dev))
 
+    # -------------------------------------------------- sharing / chunking
+    @property
+    def supports_prefix_sharing(self) -> bool:
+        """A token's cached KV is a pure function of the token prefix in
+        an attention-only decoder without per-request memory — every
+        stack the port runs (``check_supported``)."""
+        cfg = self.cfg
+        return not (cfg.is_encoder_decoder or cfg.vision_dim
+                    or cfg.cross_attn_every)
+
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """A prompt resumes mid-sequence from resident KV: the same
+        condition as prefix sharing."""
+        return self.supports_prefix_sharing
+
+    def copy_paged_blocks(self, cache, src, dst) -> list:
+        """``pool[dst[i]] <- pool[src[i]]`` on every layer's k and v pool,
+        in place — the COW payload move."""
+        dev = cache[0]["k"].device
+        src = torch.as_tensor(src, dtype=torch.long, device=dev)
+        dst = torch.as_tensor(dst, dtype=torch.long, device=dev)
+        for layer in cache:
+            for leaf in layer.values():
+                leaf[dst] = leaf[src]
+        return cache
+
     # -------------------------------------------------- prefill / decode
     def prefill(self, params, tokens, cache, ctx: LayerCtx, slots=None,
-                lengths=None, block_tables=None):
+                lengths=None, block_tables=None, prefix_lens=None):
         """Prefill ``cache`` from tokens (B, L).  With ``slots``/``lengths``
         the cache is engine-deep and rows are ragged prompts padded to L;
         logits come from each row's last valid token.  ``block_tables``
-        (B, W) selects the paged pools.  Returns (logits (B, 1, V) f32,
-        cache, flag); the cache is updated in place."""
+        (B, W) selects the paged pools.  ``prefix_lens`` (B,): tokens hold
+        only each row's tail (the suffix of a shared prefix, or one
+        chunk), whose first token sits at logical position
+        ``prefix_lens[b]``; rotary, causal masks and cache targets follow
+        the logical positions.  With ``lengths``, attention runs row by row
+        (``chunked_attention(spans=...)``) on each row's span, read to the
+        host once here.  Returns (logits (B, 1, V) f32, cache, flag); the
+        cache is updated in place."""
         cfg = self.cfg
         B, L = tokens.shape
         x = params["embed"][tokens]
         positions = torch.arange(L, device=tokens.device).expand(B, L)
+        if prefix_lens is not None:
+            positions = prefix_lens.to(tokens.device).long()[:, None] \
+                + positions
+        spans = None
+        if lengths is not None:
+            lens = lengths.tolist()
+            offs = prefix_lens.tolist() if prefix_lens is not None \
+                else [0] * B
+            spans = [(o, o + n) for o, n in zip(offs, lens)]
         x, flag = self.run_stack(x, params, ctx, positions, "prefill", cache,
                                  slots=slots, lengths=lengths,
-                                 tables=block_tables)
+                                 tables=block_tables,
+                                 prefix_lens=prefix_lens, spans=spans)
         x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         if lengths is not None:
             idx = (lengths.to(x.device).long() - 1).clamp_min(0)

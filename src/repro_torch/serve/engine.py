@@ -57,9 +57,34 @@ the card, plus instants (``fault_detected``, ``hard_fault``,
 ``fault_injected``, ``evict``, ``reject``).  Without telemetry the spans
 are no-ops.
 
+Prefix sharing (``prefix_sharing=True``, paged only): admission matches
+each prompt against a content-hash index of resident blocks
+(``PrefixIndex``), aliases the slot's leading table entries onto the
+longest cached prefix (full blocks refcounted, a partial tail copied on
+write) and prefills only the unshared suffix at its logical positions.
+The index registers a prompt only after its prefill read back a clean
+flag, and loses an entry when its block is physically freed, so evicting
+one sharer never frees or corrupts a block a live request reads.
+
+Chunked prefill (``chunk_tokens=N`` or ``"auto"``): admission only
+allocates (slot, blocks, prefix plan, COW) and parks the prompt behind a
+``ChunkCursor``; each ``step()`` packs every resident decode token first
+and fills the rest of the budget with FIFO prompt chunks, each resuming at
+its logical position.  A fault detected in a chunk retries only that
+chunk; the step's decode call and earlier chunks never run again.
+``"auto"`` takes the budget from the plan's ``tune_chunk_budget`` and
+re-tunes it as occupancy drifts.
+
+Greedy streams under sharing and chunking equal the unshared, unchunked
+engine's, bit for bit on the card too: the prefill entry points run K1 as
+one K slice whatever M (``ABFTConfig.one_slice``) and attention row by
+row at fixed chunk shapes (``chunked_attention(spans=...)``), so a
+prompt row gets the same KV whether it was prefilled whole, as a suffix
+or in chunks.
+
 Options of the reference that this slice does not port raise
-``NotImplementedError``: chunked prefill, prefix sharing, speculative
-decoding and sharding (``mesh``).
+``NotImplementedError``: speculative decoding (``spec_decode`` and the
+``draft_*`` options), sharding (``mesh``) and ``hints``.
 """
 
 from __future__ import annotations
@@ -78,19 +103,21 @@ from repro_torch.models.model import Model
 from repro_torch.obs.trace import Tracer
 from repro_torch.serve import paged_cache
 from repro_torch.serve.executor import LocalExecutor, resolve_device
-from repro_torch.serve.paged_cache import BlockPool, pytree_bytes
+from repro_torch.serve.paged_cache import BlockPool, PrefixIndex, pytree_bytes
 from repro_torch.serve.runner import ModelRunner
 from repro_torch.serve.scheduler import (
     PRE_PREFILL_ERRORS,
+    ChunkCursor,
     EngineStats,
     RecoveryPolicy,
     Request,
     Scheduler,
     _pad_len,
+    _pad_rows,
 )
 
 __all__ = ["ServeEngine", "Request", "RecoveryPolicy", "EngineStats",
-           "PRE_PREFILL_ERRORS"]
+           "ChunkCursor", "PRE_PREFILL_ERRORS"]
 
 # shared no-op tracer for engines without telemetry
 _NULL_TRACER = Tracer(enabled=False)
@@ -117,8 +144,7 @@ class ServeEngine:
                  spec_decode=None, mesh=None,
                  draft_len: int | str | None = None, draft_window: int = 8,
                  draft_units: int = 1):
-        _unported(chunk_tokens=chunk_tokens, prefix_sharing=prefix_sharing,
-                  spec_decode=spec_decode, mesh=mesh,
+        _unported(spec_decode=spec_decode, mesh=mesh,
                   hints=hints is not None, draft_len=draft_len is not None,
                   draft_window=draft_window != 8, draft_units=draft_units != 1)
         if slots < 1:
@@ -173,6 +199,31 @@ class ServeEngine:
             self.executor.protection_plan(c, slots=slots)
             for c in level_cfgs)
         self.plan = self._level_plans[0]
+        # chunked prefill: per-step token budget; "auto" asks the plan for
+        # the smallest budget whose mixed step clears the device CMR and
+        # re-tunes it as occupancy drifts (_retune_chunk_budget)
+        self.chunk_auto = chunk_tokens == "auto"
+        if self.chunk_auto:
+            chunk_tokens = self.plan.tune_chunk_budget(lo=8, hi=max_len)
+        if chunk_tokens is not None:
+            if not isinstance(chunk_tokens, int):
+                raise ValueError(
+                    f"chunk_tokens must be an int or 'auto', got "
+                    f"{chunk_tokens!r}")
+            if chunk_tokens < 1:
+                raise ValueError("chunk_tokens must be >= 1")
+            if not model.supports_chunked_prefill:
+                raise ValueError(
+                    "chunk_tokens requires an attention-only decoder "
+                    "(SSM / cross-attention state cannot resume a prompt "
+                    "mid-sequence)")
+        self.chunk_tokens = chunk_tokens
+        # pre-escalation budget, restored on de-escalation (the adaptive
+        # policy's shrink_chunk scales it while escalated)
+        self._chunk_tokens_base = chunk_tokens \
+            if isinstance(chunk_tokens, int) else None
+        # admission-campaign fault awaiting its target's first chunk
+        self._pending_prefill_fault: tuple | None = None
         if cache_kind == "paged":
             width = -(-max_len // block_size)
             if num_blocks is None:
@@ -185,10 +236,20 @@ class ServeEngine:
             self.executor.init_dense_cache(slots, max_len)
         else:
             raise ValueError(f"unknown cache_kind {cache_kind!r}")
+        index = None
+        if prefix_sharing:
+            if pool is None:
+                raise ValueError("prefix_sharing requires cache_kind='paged'")
+            if not model.supports_prefix_sharing:
+                raise ValueError(
+                    "prefix_sharing requires an attention-only decoder "
+                    "(no SSM / cross-attention state outside the block "
+                    "pool)")
+            index = PrefixIndex(block_size)
         self.scheduler = Scheduler(slots=slots, max_len=max_len,
                                    admit_lookahead=admit_lookahead,
                                    stats=EngineStats(), tracer=self._tr,
-                                   pool=pool)
+                                   pool=pool, index=index)
         self._level_runners = tuple(
             ModelRunner(model, ctx, temperature=temperature, top_k=top_k)
             for ctx in self._level_ctx)
@@ -232,6 +293,18 @@ class ServeEngine:
     @property
     def pool(self):
         return self.scheduler.pool
+
+    @property
+    def index(self):
+        return self.scheduler.index
+
+    @index.setter
+    def index(self, value) -> None:
+        self.scheduler.index = value
+
+    @property
+    def _prefill_cursors(self) -> dict:
+        return self.scheduler.prefill_cursors
 
     def free_slots(self) -> list:
         return self.scheduler.free_slots()
@@ -299,14 +372,18 @@ class ServeEngine:
             return
         self.telemetry.sync(
             self.stats, active_slots=len(self.active),
+            prefill_cursors=len(self._prefill_cursors),
             blocks_used=(self.pool.blocks_used
                          if self.pool is not None else None),
             blocks_free=(self.pool.blocks_free
-                         if self.pool is not None else None))
+                         if self.pool is not None else None),
+            chunk_budget=(self.chunk_tokens
+                          if isinstance(self.chunk_tokens, int) else None))
 
     # ------------------------------------------------ adaptive protection
     def _set_protection_level(self, level: int, evidence: dict) -> None:
-        """Swap the active (ctx, plan, runner) set to ``level``, emit a
+        """Swap the active (ctx, plan, runner) set to ``level``, shrink a
+        fixed chunk budget while escalated (``shrink_chunk``), emit a
         ``protection_escalation`` instant with the rate evidence, re-emit
         the plan rows and re-baseline the fault-rate monitor."""
         self.protection_level = level
@@ -317,6 +394,14 @@ class ServeEngine:
             self.stats.protection_escalations += 1
         else:
             self.stats.protection_deescalations += 1
+        if self._chunk_tokens_base is not None and not self.chunk_auto \
+                and self.adaptive is not None:
+            if level and self.adaptive.shrink_chunk < 1.0:
+                self.chunk_tokens = max(8, (int(
+                    self._chunk_tokens_base * self.adaptive.shrink_chunk)
+                    // 8) * 8)
+            else:
+                self.chunk_tokens = self._chunk_tokens_base
         args = {"level": level,
                 "direction": "escalate" if level else "deescalate"}
         for k in ("window_detection_rate", "window_hard_fault_rate",
@@ -387,7 +472,8 @@ class ServeEngine:
                  cells) -> tuple:
         """The detect->retry window of one model call: on a raised flag
         retry with ``retry_fault`` (None, or the sticky fault itself) up to
-        ``max_retries`` times; record a tracked injection's outcome, shadow-
+        ``max_retries`` times (a chunk's retries also count in
+        ``chunk_retries``); record a tracked injection's outcome, shadow-
         classifying it when undetected.  Returns (emitted, flag)."""
         with self._tr.span("abft_check", {"phase": phase}):
             faulted = bool(flag)
@@ -396,6 +482,8 @@ class ServeEngine:
             self._tr.instant("fault_detected", {"phase": phase})
             for _ in range(self.policy.max_retries):
                 self.stats.retries += 1
+                if phase == "prefill_chunk":
+                    self.stats.chunk_retries += 1
                 with self._tr.span("abft_retry", {"phase": phase}) as sp:
                     first, flag = attempt(retry_fault)
                     sp.fence(first, flag)
@@ -428,6 +516,19 @@ class ServeEngine:
         self._sync_telemetry()
         return consumed
 
+    def _copy_cow_blocks(self, cow_pairs: list) -> None:
+        """Commit COW payload moves BEFORE any attempt, so the
+        detect->retry window sees stable tables and block contents
+        (plain data movement, not a protected GEMM)."""
+        if not cow_pairs:
+            return
+        with self._tr.span("cow_copy", {"pairs": len(cow_pairs)}) as sp:
+            self.model.copy_paged_blocks(self.cache,
+                                         [src for src, _ in cow_pairs],
+                                         [dst for _, dst in cow_pairs])
+            sp.fence(self.cache[0]["k"])
+        self.stats.cow_copies += len(cow_pairs)
+
     def _admit_impl(self, pending: list, fault, fault_uid) -> list:
         batch = self.scheduler.select_admission(pending)
         admitted, slot_list = batch.admitted, batch.slot_list
@@ -436,12 +537,27 @@ class ServeEngine:
         if fault is not None and fault_uid is not None and not any(
                 r.uid == fault_uid for r in admitted):
             fault = None
+        if self.chunk_tokens is not None:
+            # chunked admission allocates only: the prompts become chunk
+            # cursors and step() co-schedules their chunks with decodes;
+            # an admission fault fires at the target's first chunk
+            self._copy_cow_blocks(batch.cow_pairs)
+            self.scheduler.park_prefill(batch)
+            if fault is not None and fault_uid is not None:
+                self._pending_prefill_fault = (fault_uid, fault)
+            return batch.consumed
         slot_ids = np.asarray(slot_list, np.int32)
-        lengths = np.asarray([len(r.prompt) for r in admitted], np.int32)
+        full_lens = np.asarray([len(r.prompt) for r in admitted], np.int32)
+        prefix = np.asarray([p.match_len if p is not None else 0
+                             for p in batch.prefix_plans], np.int32)
+        lengths = full_lens - prefix        # valid suffix tokens per row
         Lpad = min(_pad_len(int(lengths.max())), self.max_len)
         toks = np.zeros((len(admitted), Lpad), np.int64)
         for i, r in enumerate(admitted):
-            toks[i, :lengths[i]] = r.prompt
+            toks[i, :lengths[i]] = r.prompt[prefix[i]:]
+        # COW payload moves are committed BEFORE the attempt
+        self._copy_cow_blocks(batch.cow_pairs)
+        starts = self._dev(prefix) if prefix.any() else None
         args = (self.params, self._dev(toks), self.cache,
                 self._dev(slot_ids), self._dev(lengths),
                 self._tables(slot_ids))
@@ -451,13 +567,15 @@ class ServeEngine:
         def attempt(fa):
             # every attempt draws from the pre-admission generator states
             self._restore_gens(gens, saved)
+            if starts is not None:
+                return self.runner.prefill_prefix(*args, starts, fa, gens)
             return self.runner.prefill(*args, fa, gens)
 
         def cells():
             if self.pool is None:
                 return attention.prefill_cells(args[3], Lpad)
             return paged_cache.prefill_cells(self.cache[0]["k"], args[5],
-                                             args[4], Lpad)
+                                             args[4], Lpad, starts)
 
         meta = self._take_injection_meta("admit_fault") \
             if fault is not None else None
@@ -466,11 +584,13 @@ class ServeEngine:
             first, flag = attempt(fault)
             sp.fence(first, flag)
         # the clean retry rewrites every cache cell the faulted attempt
-        # wrote (same rows, positions [0, Lpad)); admission retries run
-        # clean, as the reference's do
+        # wrote (same rows and positions); admission retries run clean,
+        # as the reference's do
         first, flag = self._resolve("prefill", attempt, first, flag, meta,
                                     None, cells)
         if bool(flag):
+            # persistent fault: evict the admission batch; releasing drops
+            # refcounts only, so a shared block a live request holds stays
             self.stats.hard_faults += 1
             self._tr.instant("hard_fault", {"phase": "prefill"})
             self._restore_gens(gens, saved)
@@ -485,18 +605,26 @@ class ServeEngine:
             req.generated.append(int(first[i]))
             req.times.append(now)
             self.stats.tokens += 1
-            self.stats.prompt_tokens_total += int(lengths[i])
+            self.stats.prompt_tokens_total += int(full_lens[i])
+            self.stats.prefix_tokens_shared += int(prefix[i])
             if len(req.generated) >= req.max_new_tokens:
                 self.scheduler.finish(req)
                 self.scheduler.release(int(slot))
                 continue
             self.active[int(slot)] = req
-            self.pos[int(slot)] = int(lengths[i])
+            self.pos[int(slot)] = int(full_lens[i])
+            if self.index is not None:
+                # registered only after the flag read back clean: the
+                # index never names blocks holding a faulty attempt's data
+                self.index.add(req.prompt, self.pool.tables[int(slot)])
         return batch.consumed
 
     # ------------------------------------------------ decoding
     def step(self, fault: ModelFault | None = None) -> dict:
-        """One decode step for all active slots.  Returns {uid: token}.
+        """One engine step.  Returns {uid: token} for decoded slots.
+        Unchunked: one decode step for all active slots.  Chunked: one
+        budgeted step, every resident decode token first, then prompt
+        chunks from the cursor queue in the rest of the budget.
 
         With a ``fault_model`` attached and no explicit ``fault``, the
         campaign process is polled for this step's injection.  An adaptive
@@ -510,9 +638,12 @@ class ServeEngine:
                 fault = ev.model_fault
                 self._injection_meta = {"source": "campaign",
                                         **ev.describe()}
-        out = self._decode_core(fault)
-        if self.stats.steps > before:
-            self._observe_step_mix(self._last_decode_tokens, 0)
+        if self.chunk_tokens is not None:
+            out = self._step_chunked(fault)
+        else:
+            out = self._decode_core(fault)
+            if self.stats.steps > before:
+                self._observe_step_mix(self._last_decode_tokens, 0)
         # a fault that found no executing call (idle engine) corrupted
         # nothing: drop its unclaimed metadata
         self._injection_meta = None
@@ -544,9 +675,153 @@ class ServeEngine:
             })
         self._last_scheme = sel.scheme_name
 
+    def _retune_chunk_budget(self) -> None:
+        """Auto budget: re-tuned from the resident decode tokens (its
+        floor) as occupancy drifts."""
+        budget = self.plan.tune_chunk_budget(
+            decode_tokens=len(self.active), lo=8, hi=self.max_len)
+        if budget != self.chunk_tokens:
+            self.chunk_tokens = budget
+            self.stats.chunk_budget_retunes += 1
+
+    def _step_chunked(self, fault: ModelFault | None = None) -> dict:
+        """One budgeted mixed step: decode first (every resident stream
+        advances every step), then prompt chunks in ``chunk_tokens -
+        n_decode``.  A step fault lands on the chunk batch when one is
+        scheduled, else on the decode call; each call retries on its own."""
+        if self.chunk_auto:
+            self._retune_chunk_budget()
+        n_decode = len(self.active)
+        rows = self.scheduler.plan_chunks(
+            max(0, self.chunk_tokens - n_decode))
+        prefill_tokens = sum(take for _, _, take, _ in rows)
+        chunk_fault = fault if rows else None
+        decode_fault = fault if not rows else None
+        out = {}
+        before = self.stats.steps
+        self._last_decode_tokens = 0
+        if self.active:
+            out = self._decode_core(decode_fault)
+        if rows:
+            if not self._run_prefill_chunk(rows, chunk_fault):
+                prefill_tokens = 0     # discarded: never actually served
+            if self.stats.steps == before:
+                # a chunk-only step still counts, so run()'s fault_at
+                # disarm sees it and never re-injects a consumed fault
+                self.stats.steps += 1
+        if self.stats.steps > before:
+            self._observe_step_mix(self._last_decode_tokens, prefill_tokens)
+        return out
+
+    def _run_prefill_chunk(self, rows: list, fault) -> bool:
+        """Execute one co-scheduled chunk batch.  Cursors and tables change
+        only outside the attempt/retry window; a detected fault re-runs
+        the chunk alone, rewriting exactly the cells its attempt wrote.
+        Returns False when a persistent fault evicted the batch."""
+        A = len(rows)
+        slot_list = [s for s, _, _, _ in rows]
+        # a pending admission fault is consumed by the first chunk batch
+        # holding its target (one fault per call: a step fault already
+        # routed here retires it)
+        pending_src = False
+        if self._pending_prefill_fault is not None:
+            uid, pf = self._pending_prefill_fault
+            if any(cur.req.uid == uid for _, cur, _, _ in rows):
+                if fault is None:
+                    fault = pf
+                    pending_src = True
+                self._pending_prefill_fault = None
+        meta = None
+        if fault is not None:
+            meta = self._take_injection_meta(
+                "admit_fault" if pending_src else "manual")
+        Apad = _pad_rows(A, self.slots)
+        Lpad = min(_pad_len(max(take for _, _, take, _ in rows)),
+                   self.max_len)
+        toks = np.zeros((Apad, Lpad), np.int64)
+        slot_ids = np.full((Apad,), slot_list[0], np.int32)
+        lengths = np.zeros((Apad,), np.int32)
+        starts = np.zeros((Apad,), np.int32)
+        final = np.zeros((Apad,), bool)
+        for i, (slot, cur, take, fin) in enumerate(rows):
+            toks[i, :take] = cur.req.prompt[cur.filled:cur.filled + take]
+            slot_ids[i] = slot
+            lengths[i] = take
+            starts[i] = cur.filled
+            final[i] = fin
+        # padding rows alias row 0's slot with lengths 0: they write no
+        # cache cell and draw nothing (no generator, final False)
+        args = (self.params, self._dev(toks), self.cache,
+                self._dev(slot_ids), self._dev(lengths),
+                self._tables(slot_ids), self._dev(starts), self._dev(final))
+        gens = self._gens_for([slot_ids[i] if final[i] else None
+                               for i in range(Apad)])
+        saved = self._save_gens(gens)
+        retry_f = fault if (meta is not None
+                            and meta.get("kind") == "permanent") else None
+
+        def attempt(fa):
+            self._restore_gens(gens, saved)
+            return self.runner.prefill_chunk(*args, fa, gens)
+
+        def cells():
+            if self.pool is None:
+                return attention.prefill_cells(args[3], Lpad, args[6],
+                                               args[4])
+            return paged_cache.prefill_cells(self.cache[0]["k"], args[5],
+                                             args[4], Lpad, args[6])
+
+        with self._tr.span("prefill_chunk",
+                           {"rows": A, "tokens": int(lengths.sum())}) as sp:
+            first, flag = attempt(fault)
+            sp.fence(first, flag)
+        first, flag = self._resolve("prefill_chunk", attempt, first, flag,
+                                    meta, retry_f, cells)
+        if bool(flag):
+            # persistent chunk fault: evict only this batch (its earlier
+            # chunks die with its blocks; refcounts keep a shared prefix a
+            # live sharer holds)
+            self.stats.hard_faults += 1
+            self._tr.instant("hard_fault", {"phase": "prefill_chunk"})
+            self._restore_gens(gens, saved)
+            for slot, cur, _, _ in rows:
+                self.scheduler.finish(cur.req, "hard_fault:prefill",
+                                      evict=True)
+                del self._prefill_cursors[slot]
+                self.scheduler.release(slot)
+                if self._pending_prefill_fault is not None and \
+                        self._pending_prefill_fault[0] == cur.req.uid:
+                    self._pending_prefill_fault = None
+            return False
+        self.stats.prefill_chunks += A
+        first = first.cpu().numpy()
+        now = time.perf_counter()
+        for i, (slot, cur, take, fin) in enumerate(rows):
+            cur.filled += take
+            self.pos[slot] = cur.filled
+            if not fin:
+                continue
+            req = cur.req
+            req.generated.append(int(first[i]))
+            req.times.append(now)
+            self.stats.tokens += 1
+            self.stats.prompt_tokens_total += cur.total
+            self.stats.prefix_tokens_shared += cur.prefix
+            del self._prefill_cursors[slot]
+            if len(req.generated) >= req.max_new_tokens:
+                self.scheduler.finish(req)
+                self.scheduler.release(slot)
+                continue
+            self.active[slot] = req
+            if self.index is not None:
+                self.index.add(req.prompt, self.pool.tables[slot])
+        return True
+
     def _decode_core(self, fault: ModelFault | None = None) -> dict:
         self._last_decode_tokens = 0
-        self.scheduler.grow_for_decode()
+        # the growth/COW guard runs BEFORE the step; its COW payload
+        # moves are committed here on the device
+        self._copy_cow_blocks(self.scheduler.grow_for_decode())
         if not self.active:
             return {}
         toks = np.zeros((self.slots, 1), np.int64)
@@ -585,6 +860,8 @@ class ServeEngine:
         self.stats.steps += 1
         if self.pool is not None:
             self.stats.observe_blocks_used(self.pool.blocks_used)
+            self.stats.blocks_shared_peak = max(
+                self.stats.blocks_shared_peak, self.pool.blocks_shared)
         nxt, flag = self._resolve("decode", attempt, nxt, flag, meta,
                                   retry_f, cells)
         if bool(flag):
@@ -630,7 +907,7 @@ class ServeEngine:
         self.scheduler.drain_finished()
         step_i = 0
         armed = fault_at is not None
-        while pending or self.active:
+        while pending or self.active or self._prefill_cursors:
             if pending and self.free_slots():
                 if admit_fault_at is not None:
                     uid, afault = admit_fault_at
@@ -658,14 +935,18 @@ class ServeEngine:
         return results
 
     def cache_stats(self) -> dict:
-        """Cache geometry and occupancy (``utilization`` of paged caches
-        is against allocated tokens)."""
+        """Cache geometry and occupancy.  Paged ``utilization`` is live
+        logical tokens over allocated tokens; under prefix sharing it may
+        exceed 1.0 (several slots count one shared block) — that excess is
+        the sharing win.  Also ``blocks_shared`` and ``prefix_hit_rate``."""
         stats = {
             "kind": self.cache_kind,
             "slots": self.slots,
             "max_len": self.max_len,
             "bytes_total": pytree_bytes(self.cache),
-            "active_tokens": int(sum(int(self.pos[s]) for s in self.active)),
+            "active_tokens": int(
+                sum(int(self.pos[s]) for s in self.active)
+                + sum(int(self.pos[s]) for s in self._prefill_cursors)),
         }
         if self.pool is not None:
             allocated = self.pool.blocks_used * self.pool.block_size
@@ -673,14 +954,17 @@ class ServeEngine:
                          blocks_total=self.pool.num_blocks,
                          blocks_used=self.pool.blocks_used,
                          blocks_free=self.pool.blocks_free,
+                         blocks_shared=self.pool.blocks_shared,
                          tokens_capacity=self.pool.num_blocks
                          * self.pool.block_size,
                          tokens_allocated=allocated)
         else:
             stats["tokens_capacity"] = self.slots * self.max_len
             stats["tokens_allocated"] = stats["tokens_capacity"]
+            stats["blocks_shared"] = 0
         alloc = stats["tokens_allocated"]
         stats["utilization"] = stats["active_tokens"] / alloc if alloc else 0.0
         stats["fragmentation"] = (max(0.0, 1.0 - stats["utilization"])
                                   if alloc else 0.0)
+        stats["prefix_hit_rate"] = self.stats.prefix_hit_rate
         return stats

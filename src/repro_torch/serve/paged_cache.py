@@ -1,5 +1,5 @@
-"""Paged KV cache: block-table memory manager and device ops (port of
-``repro.serve.paged_cache`` without prefix sharing).
+"""Paged KV cache: block-table memory manager, prefix index and device
+ops (port of ``repro.serve.paged_cache``).
 
 Per layer the KV tensors are pools ``(num_blocks, block_size, KV, D)``;
 the host ``BlockPool`` owns the free list and one block table per slot,
@@ -8,9 +8,22 @@ logical position ``t`` of slot ``s`` lives at
 ``pool[table[s, t // block_size], t % block_size]``.  Writes routed to the
 sentinel are dropped; gathers read sentinel blocks as zeros.
 
+Prefix sharing: every physical block carries a refcount (1 when drawn
+from the free list, +1 per table entry that aliases it through
+``try_admit_prefix``); ``free_slot`` returns a block to the free list only
+when its last reference drops, so evicting one sharer never frees a block
+a live request still reads.  ``PrefixIndex`` maps hash chains over fully
+prefilled blocks (and each prompt's partial tail) to physical ids; lookups
+re-verify the stored tokens, entries are added only after a prompt's
+prefill read back a clean flag and purged when their block is physically
+freed.  A slot that must write into a block another slot references
+first redirects its table entry (``try_cow``) and the engine copies the
+payload on the device, before any attempt runs.
+
 The port updates the pools in place.  A retry after an ABFT flag is still
-sound: tables only change outside the attempt/retry window, and a retry
-rewrites exactly the (block, offset) cells its attempt wrote.
+sound: tables, refcounts and COW copies only change outside the
+attempt/retry window, and a retry rewrites exactly the (block, offset)
+cells its attempt wrote.
 """
 
 from __future__ import annotations
@@ -35,8 +48,9 @@ def blocks_for(n_tokens: int, block_size: int) -> int:
 
 @dataclasses.dataclass
 class BlockPool:
-    """Host-side free-list allocator + per-slot block tables.  Freed
-    blocks go to the head of the free list (LIFO)."""
+    """Host-side free-list allocator + per-slot block tables with
+    per-block refcounts.  Freed blocks go to the head of the free list
+    (LIFO)."""
 
     num_blocks: int
     block_size: int
@@ -54,6 +68,24 @@ class BlockPool:
     @property
     def blocks_used(self) -> int:
         return self.num_blocks - len(self._free)
+
+    @property
+    def blocks_shared(self) -> int:
+        """Physical blocks referenced by more than one table entry."""
+        return int((self.refcount > 1).sum())
+
+    def ref_of(self, block: int) -> int:
+        return int(self.refcount[block])
+
+    def slot_blocks(self, slot: int) -> int:
+        return int(self._used[slot])
+
+    def capacity_tokens(self, slot: int) -> int:
+        """Tokens the slot's current allocation can hold."""
+        return self.slot_blocks(slot) * self.block_size
+
+    def can_admit(self, n_tokens: int) -> bool:
+        return blocks_for(n_tokens, self.block_size) <= self.blocks_free
 
     def reset(self) -> None:
         self._free = list(range(self.num_blocks - 1, -1, -1))
@@ -89,8 +121,57 @@ class BlockPool:
         self._used[slot] = need
         return True
 
+    def grow(self, slot: int, n_tokens: int) -> None:
+        if not self.try_grow(slot, n_tokens):
+            raise PoolExhausted(
+                f"slot {slot}: grow to {n_tokens} tokens failed "
+                f"({self.blocks_free} blocks free)")
+
+    def try_admit_prefix(self, slot: int, n_tokens: int,
+                         shared_ids) -> bool:
+        """Admission with a shared prefix: the slot's leading table
+        entries alias ``shared_ids`` (refcount +1 each, no free-list
+        draw), the rest of ``blocks_for(n_tokens)`` come fresh.
+        All-or-nothing."""
+        assert self._used[slot] == 0, f"slot {slot} already allocated"
+        need = blocks_for(n_tokens, self.block_size)
+        k = len(shared_ids)
+        assert k <= need, "shared prefix longer than the prompt"
+        if need > self.table_width or need - k > len(self._free):
+            return False
+        for i, blk in enumerate(shared_ids):
+            assert self.refcount[blk] >= 1, f"sharing a free block {blk}"
+            self.tables[slot, i] = int(blk)
+            self.refcount[blk] += 1
+        for i in range(k, need):
+            blk = self._free.pop()
+            self.tables[slot, i] = blk
+            self.refcount[blk] = 1
+        self._used[slot] = need
+        return True
+
+    def try_cow(self, slot: int, idx: int):
+        """Copy-on-write: if table entry ``idx`` of ``slot`` aliases a
+        block another entry also references, redirect it to a fresh
+        block and return ``(src, dst)`` for the device copy; None when the
+        block is exclusively owned.  Raises ``PoolExhausted`` when a copy
+        is needed and the free list is empty."""
+        assert 0 <= idx < int(self._used[slot])
+        src = int(self.tables[slot, idx])
+        if self.refcount[src] <= 1:
+            return None
+        if not self._free:
+            raise PoolExhausted(f"COW for slot {slot} needs a free block")
+        dst = self._free.pop()
+        self.refcount[src] -= 1
+        self.refcount[dst] = 1
+        self.tables[slot, idx] = dst
+        return src, dst
+
     def free_slot(self, slot: int) -> list:
-        """Drop the slot's blocks; returns the physically freed ids."""
+        """Drop the slot's references; blocks whose refcount reaches zero
+        return to the free list.  Returns the physically freed ids.
+        Idempotent."""
         n = int(self._used[slot])
         freed = []
         for b in range(n - 1, -1, -1):
@@ -105,12 +186,17 @@ class BlockPool:
         return freed
 
     def check_invariants(self) -> None:
+        """Refcounts and the free list agree exactly with the tables."""
         assert len(self._free) == len(set(self._free)), "free-list dup"
         refs = np.zeros((self.num_blocks,), np.int32)
         for s in range(self.slots):
             for b in range(int(self._used[s])):
                 refs[int(self.tables[s, b])] += 1
         assert (refs == self.refcount).all(), "refcount != table references"
+        on_free = np.zeros((self.num_blocks,), bool)
+        on_free[self._free] = True
+        assert ((self.refcount == 0) == on_free).all(), (
+            "a block is on the free list iff its refcount is 0")
         assert self.blocks_free + self.blocks_used == self.num_blocks
 
     def device_tables(self, rows=None, device="cpu") -> torch.Tensor:
@@ -118,6 +204,123 @@ class BlockPool:
         t = self.tables if rows is None else self.tables[np.asarray(rows)]
         return torch.from_numpy(np.ascontiguousarray(t)).to(device)
 
+
+# ---------------------------------------------------------------- prefix index
+
+_ROOT = "prefix-index-root"
+
+
+@dataclasses.dataclass
+class PrefixMatch:
+    """A prefix lookup: the physical blocks the new slot aliases (full
+    blocks, plus at most one partial tail the caller must COW before
+    writing its suffix into it) and the matched token count."""
+
+    shared_ids: list
+    match_len: int
+    partial: bool          # last entry of shared_ids is a partial block
+
+    @property
+    def full_blocks(self) -> int:
+        return len(self.shared_ids) - (1 if self.partial else 0)
+
+
+class PrefixIndex:
+    """Content-hash index over cached prompt blocks.  Full blocks are
+    keyed by a hash chain ``key_i = hash((key_{i-1}, tokens_i))``, so a
+    block matches only behind the exact prefix that produced its KV; each
+    chain node also keeps the partial tails registered under it.  Every
+    entry stores its tokens and lookups re-verify them: a hash collision
+    is a miss, never a wrong share."""
+
+    def __init__(self, block_size: int):
+        self.block_size = int(block_size)
+        self._full: dict = {}       # chain key -> (block_id, tokens)
+        self._partial: dict = {}    # chain key -> [(block_id, tokens), ...]
+        self._by_block: dict = {}   # block_id -> set of (kind, key)
+
+    def _note(self, block: int, kind: str, key) -> None:
+        self._by_block.setdefault(int(block), set()).add((kind, key))
+
+    @staticmethod
+    def _chain(parent, tokens: tuple):
+        return hash((parent, tokens))
+
+    def add(self, prompt, table_row) -> None:
+        """Register a fully prefilled prompt: one chain entry per full
+        block and its partial tail.  First writer wins."""
+        toks = tuple(int(t) for t in prompt)
+        bs = self.block_size
+        key = _ROOT
+        for i in range(len(toks) // bs):
+            blk_toks = toks[i * bs:(i + 1) * bs]
+            key = self._chain(key, blk_toks)
+            if key not in self._full:
+                blk = int(table_row[i])
+                self._full[key] = (blk, blk_toks)
+                self._note(blk, "full", key)
+        rem = len(toks) % bs
+        if rem:
+            tail = toks[len(toks) - rem:]
+            cand = self._partial.setdefault(key, [])
+            if not any(t == tail for _, t in cand):
+                blk = int(table_row[len(toks) // bs])
+                cand.append((blk, tail))
+                self._note(blk, "partial", key)
+
+    def match(self, prompt) -> PrefixMatch:
+        """Longest cached prefix of ``prompt``, capped at ``len(prompt) -
+        1`` tokens so the suffix prefill always has a token to sample
+        from.  A partial tail (or a cached full block the cap cut short)
+        is shared up to the longest common lead of its tokens."""
+        toks = tuple(int(t) for t in prompt)
+        bs = self.block_size
+        cap = len(toks) - 1
+        ids, key, matched = [], _ROOT, 0
+        while matched + bs <= cap:
+            blk_toks = toks[matched:matched + bs]
+            nxt = self._chain(key, blk_toks)
+            ent = self._full.get(nxt)
+            if ent is None or ent[1] != blk_toks:     # miss or hash clash
+                break
+            ids.append(ent[0])
+            key = nxt
+            matched += bs
+        best_blk, best_m = None, 0
+        candidates = list(self._partial.get(key, []))
+        if matched + bs <= len(toks):
+            ent = self._full.get(self._chain(key, toks[matched:matched + bs]))
+            if ent is not None:
+                candidates.append((ent[0], ent[1]))
+        for blk, cand_toks in candidates:
+            m = 0
+            lim = min(len(cand_toks), cap - matched)
+            while m < lim and cand_toks[m] == toks[matched + m]:
+                m += 1
+            if m > best_m:
+                best_blk, best_m = blk, m
+        if best_m > 0:
+            ids.append(best_blk)
+            return PrefixMatch(ids, matched + best_m, partial=True)
+        return PrefixMatch(ids, matched, partial=False)
+
+    def purge(self, freed_blocks) -> None:
+        """Remove every entry naming a physically freed block."""
+        for blk in freed_blocks:
+            for kind, key in self._by_block.pop(int(blk), ()):
+                if kind == "full":
+                    ent = self._full.get(key)
+                    if ent is not None and ent[0] == int(blk):
+                        del self._full[key]
+                else:
+                    cand = self._partial.get(key)
+                    if cand is not None:
+                        cand[:] = [c for c in cand if c[0] != int(blk)]
+                        if not cand:
+                            del self._partial[key]
+
+
+# ---------------------------------------------------------------- device ops
 
 def init_paged_gqa_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                          dtype, device) -> dict:
@@ -127,16 +330,22 @@ def init_paged_gqa_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _prefill_index(pool, tables, lengths, L: int):
+def _prefill_index(pool, tables, lengths, L: int, starts=None):
     """(blk, off, keep) of a paged prefill of ``L`` padded tokens, each
-    (A, L): the cells written are ``(blk[keep], off[keep])``; positions
-    >= lengths[a] and sentinel blocks drop."""
+    (A, L): token t of row a sits at logical position ``starts[a] + t``
+    (``starts`` None: 0); the cells written are ``(blk[keep],
+    off[keep])``; positions >= lengths[a] and sentinel blocks drop."""
     nb, bs = pool.shape[0], pool.shape[1]
-    t = torch.arange(L, device=pool.device)
-    col = (t // bs).clamp(max=tables.shape[1] - 1)
-    blk = tables.to(pool.device).long()[:, col]                 # (A, L)
-    off = (t % bs).expand(blk.shape[0], L)
-    keep = (t[None, :] < lengths.to(pool.device)[:, None]) & (blk < nb)
+    dev = pool.device
+    t = torch.arange(L, device=dev)
+    tb = tables.to(dev).long()
+    logical = t.expand(tb.shape[0], L)
+    if starts is not None:
+        logical = starts.to(dev).long()[:, None] + logical
+    col = (logical // bs).clamp(max=tb.shape[1] - 1)
+    blk = torch.gather(tb, 1, col)                              # (A, L)
+    off = logical % bs
+    keep = (t[None, :] < lengths.to(dev)[:, None]) & (blk < nb)
     return blk, off, keep
 
 
@@ -150,9 +359,9 @@ def _decode_index(pool, tables, pos):
     return blk, pos % bs, blk < nb
 
 
-def prefill_cells(pool, tables, lengths, L: int) -> tuple:
+def prefill_cells(pool, tables, lengths, L: int, starts=None) -> tuple:
     """Index of the pool cells ``paged_scatter_prefill`` writes."""
-    blk, off, keep = _prefill_index(pool, tables, lengths, L)
+    blk, off, keep = _prefill_index(pool, tables, lengths, L, starts)
     return blk[keep], off[keep]
 
 
@@ -162,10 +371,14 @@ def decode_cells(pool, tables, pos) -> tuple:
     return blk[keep], off[keep]
 
 
-def paged_scatter_prefill(pool, new, tables, lengths) -> None:
+def paged_scatter_prefill(pool, new, tables, lengths, starts=None) -> None:
     """Write an admission batch into the pool in place.  new: (A, L, ...);
-    tables: (A, W); positions >= lengths[a] (and sentinel blocks) drop."""
-    blk, off, keep = _prefill_index(pool, tables, lengths, new.shape[1])
+    tables: (A, W); ``new[a, t]`` lands at logical position ``starts[a] +
+    t`` (``starts`` None: t — the suffix of a shared prefix or a prompt
+    chunk resumes behind its resident KV); positions >= lengths[a] (and
+    sentinel blocks) drop, so padding rows (lengths 0) write nothing."""
+    blk, off, keep = _prefill_index(pool, tables, lengths, new.shape[1],
+                                    starts)
     pool[blk[keep], off[keep]] = new[keep].to(pool.dtype)
 
 

@@ -1,6 +1,9 @@
 """Model-runner layer of the serving engine (port of
-``repro.serve.runner``): the eager ``decode`` and ``prefill`` entry
-points with the slot-masked sampler.
+``repro.serve.runner``): the eager ``decode``, ``prefill``,
+``prefill_prefix`` and ``prefill_chunk`` entry points with the
+slot-masked sampler.  The prefill entry points run K1 with
+``ABFTConfig.one_slice`` set (one K slice whatever M), so a prompt's rows
+get the same bits prefilled whole, as a suffix or in chunks.
 
 Sampling contract: greedy argmax (``temperature == 0``) draws nothing.
 With ``temperature > 0`` each row draws from ``softmax(logits / T)``
@@ -65,10 +68,33 @@ class ModelRunner:
 
     @torch.no_grad()
     def prefill(self, p, toks, cache, slot_ids, lengths, tables, fault,
-                gens=None):
+                gens=None, prefix_lens=None):
         """Prefill an admission batch into its cache rows; returns (first
         sampled token per row, flag)."""
+        ctx = dataclasses.replace(
+            self.ctx, fault=fault,
+            abft=dataclasses.replace(self.ctx.abft, one_slice=True))
         logits, _, flag = self.model.prefill(
-            p, toks, cache, dataclasses.replace(self.ctx, fault=fault),
-            slots=slot_ids, lengths=lengths, block_tables=tables)
+            p, toks, cache, ctx, slots=slot_ids, lengths=lengths,
+            block_tables=tables, prefix_lens=prefix_lens)
         return self.sample(logits[:, 0, :], gens), flag
+
+    def prefill_prefix(self, p, toks, cache, slot_ids, lengths, tables,
+                       prefix_lens, fault, gens=None):
+        """Prefill only each row's unshared suffix, whose first token sits
+        at logical position ``prefix_lens[a]`` (prefix sharing)."""
+        return self.prefill(p, toks, cache, slot_ids, lengths, tables,
+                            fault, gens, prefix_lens=prefix_lens)
+
+    def prefill_chunk(self, p, toks, cache, slot_ids, lengths, tables,
+                      starts, final, fault, gens=None):
+        """One co-scheduled prefill chunk per row, starting at logical
+        position ``starts[a]``.  Only rows whose chunk completes the prompt
+        (``final``) emit a token (-1 elsewhere); the engine hands those
+        rows' generators alone, so a prompt's draws do not depend on how
+        it was chunked and padding rows never draw."""
+        first, flag = self.prefill(p, toks, cache, slot_ids, lengths,
+                                   tables, fault, gens, prefix_lens=starts)
+        first = torch.where(final.to(first.device), first,
+                            torch.full_like(first, -1))
+        return first, flag

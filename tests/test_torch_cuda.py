@@ -1108,3 +1108,60 @@ def test_family_bf16_forward_on_the_card_tracks_f32(dev, arch):
             assert not bool(got.flag)
             err = (got.logits.cpu() - ref.logits).abs().max().item()
             assert err <= scale / 16, (flash, err, scale)
+
+
+# ------------------------------------------------- sharing and chunking
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k1_row_invariant_rows_equal_whatever_m(dev, dtype):
+    """With ``one_slice`` pass 1 is one K slice at every M, and a row's
+    output is bit-identical in a thin GEMM (a prompt chunk) and in a tall
+    one (the whole prompt): tensor cores (bf16) and SIMT (f32)."""
+    x, w = _k1_inputs(dev, 1536, 2048, 2048, dtype, seed=11)
+    kw = dict(mode="1s", out_dtype=dtype, one_slice=True)
+    for m in (16, 256, 1536):
+        bm, bk, bn = _blocks(m, 2048, 2048)
+        assert am.plan(x[:m], w, mode="1s", bm=bm, bk=bk, bn=bn,
+                       one_slice=True).slices == 1
+    whole, _ = ops.abft_matmul(x, w, **kw)
+    parts = [ops.abft_matmul(x[a:a + n], w, **kw)[0]
+             for a, n in ((0, 16), (16, 256), (272, 1264))]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts), whole)
+
+
+def test_chunked_and_shared_streams_on_the_card_equal_unchunked(dev):
+    """Scaled-down bf16 llama3.2-1b with K1 and K3 on the card: prefix
+    sharing, chunked prefill (dense and paged, an odd budget, ``auto``)
+    and both together give the plain paged engine's greedy streams
+    exactly (bit-identical KV: one-slice K1, row-wise
+    attention), and every run launched both kernels."""
+    cfg = scaled_down(get_config("llama3.2-1b"), n_layers=2)
+    model = Model(cfg)
+    params = model.init_params(3, dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(5)
+    sys_p = rng.integers(1, 256, size=40)
+    prompts = [np.concatenate([sys_p, rng.integers(1, 256, size=int(n))])
+               for n in (5, 17, 30)]
+    prompts += [prompts[1].copy(), rng.integers(1, 256, size=90)]
+    runs = {"plain": dict(cache_kind="paged"),
+            "share": dict(cache_kind="paged", prefix_sharing=True),
+            "chunk_dense": dict(chunk_tokens=24),
+            "chunk_odd": dict(cache_kind="paged", chunk_tokens=13),
+            "chunk_auto": dict(cache_kind="paged", chunk_tokens="auto"),
+            "both": dict(cache_kind="paged", prefix_sharing=True,
+                         chunk_tokens=16)}
+    streams = {}
+    for name, kw in runs.items():
+        eng = ServeEngine(model, params, slots=2, max_len=160,
+                          dtype=torch.bfloat16, device=dev, block_size=8,
+                          abft=ABFTConfig(flash_attention=True), **kw)
+        k1, k3 = am.KERNEL.launches, fa.KERNEL.launches
+        streams[name] = eng.run([Request(uid=i, prompt=p, max_new_tokens=8)
+                                 for i, p in enumerate(prompts)])
+        assert am.KERNEL.launches > k1 and fa.KERNEL.launches > k3
+        assert eng.stats.faults_detected == 0
+        if eng.pool is not None:
+            eng.pool.check_invariants()
+    for name in runs:
+        assert streams[name] == streams["plain"], name

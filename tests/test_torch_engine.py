@@ -159,9 +159,25 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(setup, monkeypatch):
                                  dict(prefix_sharing=True,
                                       cache_kind="paged")])
 def test_unported_options_raise(setup, opt):
+    """Speculative decoding and ``mesh`` are not ported and raise
+    ``NotImplementedError``.  Chunked prefill and paged prefix sharing are
+    ported and construct; dense prefix sharing raises the reference's
+    ``ValueError``."""
     _, _, tm, tp, _ = setup
-    with pytest.raises(NotImplementedError):
-        ServeEngine(tm, tp, slots=1, max_len=16, device="cpu", **opt)
+
+    def make():
+        return ServeEngine(tm, tp, slots=1, max_len=16, device="cpu", **opt)
+
+    if "spec_decode" in opt or "mesh" in opt:
+        with pytest.raises(NotImplementedError):
+            make()
+    elif opt.get("prefix_sharing") and opt.get("cache_kind") != "paged":
+        with pytest.raises(ValueError, match="requires cache_kind='paged'"):
+            make()
+    else:
+        eng = make()
+        assert eng.run([Request(uid=0, prompt=np.arange(1, 4),
+                                max_new_tokens=2)])[0]
 
 
 def test_ported_options_construct(setup):

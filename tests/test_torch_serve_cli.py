@@ -107,3 +107,39 @@ def test_cli_refuses_an_unported_arch_with_its_message(arch):
         with pytest.raises(SystemExit) as exc:
             main(["--device", "cpu", "--arch", arch])
         assert f"architecture {arch!r} is not ported" in str(exc.value)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--cache", "paged", "--prefix-sharing"],
+    ["--chunk-tokens", "8"],
+    ["--chunk-tokens", "auto", "--cache", "paged", "--prefix-sharing",
+     "--inject-faults"],
+], ids=["prefix_sharing", "chunk_8", "chunk_auto_shared_fault"])
+def test_serve_cli_prefix_sharing_and_chunked_prefill(tmp_path, capsys,
+                                                      flags):
+    """``--prefix-sharing`` and ``--chunk-tokens N|auto`` on the CPU: the
+    same tokens as the plain run, the chunk spans and counters, and a
+    metrics artifact and trace that pass the reference's schema gate."""
+    metrics, trace = (str(tmp_path / n) for n in ("m.json", "t.json"))
+    base = ["--device", "cpu", "--requests", "4", "--new-tokens", "5",
+            "--slots", "2"]
+    assert serve.main(base) == 0
+    plain = _stats_line(capsys.readouterr().out)
+    assert serve.main(base + ["--metrics-out", metrics, "--trace-out",
+                              trace] + flags) == 0
+    line = _stats_line(capsys.readouterr().out)
+    assert line["tokens"] == plain["tokens"] == 20
+    assert line["errors"] == {}
+    chunked = "--chunk-tokens" in flags
+    assert (line["prefill_chunks"] > 0) == chunked
+    assert isinstance(line["chunk_tokens"], int) == chunked
+    if "--inject-faults" in flags:
+        assert line["faults_detected"] == line["retries"] == 1
+    with open(metrics) as fh:
+        doc = json.load(fh)
+    with open(trace) as fh:
+        tdoc = json.load(fh)
+    assert doc["counters_match_stats"] is True
+    assert _checker().check(doc, tdoc) == []
+    names = {e["name"] for e in tdoc["traceEvents"]}
+    assert ("prefill_chunk" in names) == chunked
