@@ -17,7 +17,10 @@ sampling, the cost of tracing) and ``profile`` times ``block_1s`` against
 the resulting ``ProfileGuidedPolicy``.  Then it times the kernels at
 their paths' shapes.  ``sharing`` serves prefix and long-prompt traffic
 with prefix sharing and chunked prefill (llama3.2-1b, then qwen3-14b),
-every greedy stream held to the plain paged run's, faults included, and
+every greedy stream held to the plain paged run's, faults included;
+``spec`` serves copy and fresh traffic with speculative decoding (n-gram
+and self-draft proposers, the K+1-row verify step through K1), every
+greedy stream held to the unsped run's, faults included; and
 ``family`` serves and scores the rest of the dense family.  Each phase
 prints JSON lines; any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -41,7 +44,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
-          "campaign", "profile", "timing", "sharing", "family")
+          "campaign", "profile", "timing", "sharing", "spec", "family")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -54,6 +57,9 @@ K1_FAULT_M = (4, 40, 333, 512, 2048)
 # (one row, 8 padded tokens), a 256-token chunk, chunk batches of 2 and 4
 # rows, and an admission of 4 prompts padded to 512 tokens
 K1_ONE_SLICE_M = (8, 256, 512, 1024, 2048)
+# the speculative verify step's slots (x 9 rows at K = 8), where K1 runs
+# the decode step's K split: at 16 slots it differs from the unpinned one
+K1_SPLIT_SLOTS = (4, 16)
 ENGINE_ARCH = "llama3.2-1b"
 # K2 at llama3.2-1b's attention shapes: (B, H, KV, D)
 K2_HEADS = (2, 32, 8, 64)
@@ -128,7 +134,9 @@ def k1_checks(dev) -> dict:
     clean residual / threshold of each route taken must stay under 1.
     The same shapes and modes again with ``one_slice`` (the plan the
     serving prefill runs: one K slice at any M) at the prefill's rows
-    ``K1_ONE_SLICE_M``, with the same gates and the fault checks.
+    ``K1_ONE_SLICE_M``, with the same gates and the fault checks; and
+    with ``split_rows`` (the verify step's plan: the decode step's K
+    split) at 4 x 9 and 16 x 9 rows, with the same gates.
 
     Tolerances: y in f32 agrees within 1e-4 x max|y| (f32 sums over K <=
     8192 in another order); y in bf16 within 2^-7 x max|y| (one bf16
@@ -149,6 +157,7 @@ def k1_checks(dev) -> dict:
     cases = 0
     ratios = {}             # route -> worst clean residual / threshold
     one_abs = {}            # dtype -> worst |y - plain| with one slice
+    split_abs = {}          # dtype, rows -> the same with split_rows
     for dtype in (torch.bfloat16, torch.float32):
         ws = {}
         for name, (k, n) in shapes.items():
@@ -247,11 +256,52 @@ def k1_checks(dev) -> dict:
                     if m in (8, 256, 2048):
                         _k1_fault_check(ops, FaultSpec, x, w, mode,
                                         out_dtype, name, one_slice=True)
+        # the verify step's plan: B x T rows with the decode step's K
+        # split (``split_rows=B``), 4 and 16 slots at K = 8
+        for slots in K1_SPLIT_SLOTS:
+            m = slots * 9
+            for name, w in ws.items():
+                k, n = w.shape
+                x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+                out_dtype = torch.float32 if name == "head" else dtype
+                for mode in ("1s", "2s", "replica"):
+                    bm, bk, bn = (min(b, -(-d // 8) * 8) for b, d in
+                                  ((256, m), (512, k), (256, n)))
+                    kw = dict(mode=mode, bm=bm, bk=bk, bn=bn,
+                              out_dtype=out_dtype)
+                    p = plan(x, w, mode=mode, bm=bm, bk=bk, bn=bn,
+                             split_rows=slots)
+                    yp, _, bndp = abft_matmul_ref(x, w, **kw)
+                    y, _, bnd = abft_matmul_kernel(x, w, **kw,
+                                                   split_rows=slots)
+                    torch.cuda.synchronize()
+                    scale = yp.float().abs().max().item()
+                    tol = (1e-4 if out_dtype == torch.float32
+                           else 2 ** -7) * scale
+                    err = (y.float() - yp.float()).abs().max().item()
+                    need(err <= tol, f"K1 split_rows={slots} y {name} m={m} "
+                         f"{mode} {dtype} {p.route}: err {err} > {tol}")
+                    worst = max(worst, err / max(scale, 1e-30))
+                    key = f"{str(dtype)[6:]}_{slots}x9"
+                    split_abs[key] = max(split_abs.get(key, 0.0), err)
+                    berr = ((bnd - bndp).abs() / bndp.abs().clamp_min(
+                        1e-30)).max().item()
+                    need(berr <= 1e-4, f"K1 split_rows bnd {name} m={m} "
+                         f"{mode} {p.route}: {berr}")
+                    _, chk = ops.abft_matmul(x.reshape(slots, 9, k), w,
+                                             mode=mode, out_dtype=out_dtype,
+                                             decode_rows=slots)
+                    need(not bool(chk.flag), f"K1 decode_rows false flag "
+                         f"{name} m={m} {mode} {dtype}")
+                    r = f"k1_{p.route}_{str(dtype)[6:]}_split_rows"
+                    ratios[r] = max(ratios.get(r, 0.0), _ratio(chk))
+                    cases += 1
         del ws
     need(all(v < 1 for v in ratios.values()),
          f"K1 clean residual at or over its threshold: {ratios}")
     return {"cases": cases, "max_rel_err_y": worst,
             "one_slice_max_abs_err": one_abs,
+            "split_rows_max_abs_err": split_abs,
             "worst_clean_residual_over_threshold": ratios,
             "blocks": BlockShape().__dict__}
 
@@ -2175,6 +2225,483 @@ def sharing_runs(dev, params=None) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ spec
+
+SPEC_SLOTS, SPEC_MAX_LEN, SPEC_BLOCK, SPEC_NEW = 4, 1024, 16, 64
+SPEC_CHUNK = 256
+
+
+def spec_traffic(vocab: int, seed: int = 0) -> dict:
+    """Copy and fresh traffic, drawn from ``seed``: lists of prompts.
+    Copy: eight prompts of 128-512 random tokens that repeat one random
+    span of 8-32 tokens three times, the last copy at the end (the
+    prompt-lookup case of code editing and quoting answers).  Fresh:
+    eight prompts of 128-512 random tokens (drafts mostly miss)."""
+    rng = np.random.default_rng(seed)
+    copy, fresh = [], []
+    for n in rng.integers(128, 513, size=8):
+        span = rng.integers(1, vocab, size=int(rng.integers(8, 33)))
+        body = rng.integers(1, vocab, size=int(n) - 3 * len(span))
+        cuts = np.sort(rng.choice(len(body), size=2, replace=False))
+        copy.append(np.concatenate([body[:cuts[0]], span,
+                                    body[cuts[0]:cuts[1]], span,
+                                    body[cuts[1]:], span]).astype(np.int32))
+    for n in rng.integers(128, 513, size=8):
+        fresh.append(rng.integers(1, vocab, size=int(n)).astype(np.int32))
+    return {"copy": copy, "fresh": fresh}
+
+
+class _TimedProposer:
+    """A proposer that adds its host time to ``ms``."""
+
+    def __init__(self, inner):
+        self.inner, self.name, self.ms = inner, inner.name, 0.0
+
+    def propose(self, req, k):
+        t = time.perf_counter()
+        out = self.inner.propose(req, k)
+        self.ms += 1e3 * (time.perf_counter() - t)
+        return out
+
+
+class _OracleProposer:
+    """Proposes the unsped run's own next tokens: every draft is accepted
+    (streams are bit-equal), so the run shows the verify step's ceiling,
+    which random weights keep the real proposers from reaching."""
+
+    name = "oracle"
+
+    def __init__(self, streams):
+        self.streams = streams
+
+    def propose(self, req, k):
+        n = len(req.generated)
+        return np.asarray(self.streams[req.uid][n:n + k], np.int32)
+
+
+def spec_serve(model, params, prompts, dev, label, *, policy=None,
+               fault_model=None, fault_step=None, max_retries=1,
+               temperature=0.0, top_k=0, phase="spec_run", **kw) -> dict:
+    """One full-width bf16 engine run (4 slots, max_len 1024, block 16,
+    flash off, ``IntensityGuidedPolicy`` on the H100 unless ``policy``)
+    of ``prompts`` (64 new tokens each, all pending from the start)
+    through ``admit``/``step``.  Every step is timed to a synchronize; K1
+    and K3 counted from 0 for this run, and K1 must launch on every step
+    that ran a verify (or decode) call (not under a fixed plain
+    ``policy``, whose product is ``torch.matmul``), K2 and K3 never (flash
+    is off: the self-draft's ``full`` forward takes
+    ``chunked_attention``).  ``k1_verify_launches_by_m``: K1's launches
+    inside the verify calls, by the call's GEMM height M = slots x T.
+    ``fault_step``: a
+    ``(step, fault)`` injected at that engine step; ``fault_model``: a
+    campaign.  ``check_invariants`` after every paged step.  Returns the
+    run's record (streams and errors included)."""
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import IntensityGuidedPolicy
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.kernels import abft_matmul, flash_attention
+    from repro_torch.serve.engine import (
+        RecoveryPolicy,
+        Request,
+        ServeEngine,
+    )
+
+    K1, K2 = abft_matmul.KERNEL, flash_attention.FULL_KERNEL
+    K3 = flash_attention.KERNEL
+    abft = ABFTConfig.from_policy(policy or IntensityGuidedPolicy(),
+                                  hardware=NVIDIA_H100_SXM)
+    eng = ServeEngine(model, params, slots=SPEC_SLOTS, max_len=SPEC_MAX_LEN,
+                      block_size=SPEC_BLOCK, abft=abft,
+                      dtype=torch.bfloat16, device=dev,
+                      policy=RecoveryPolicy(max_retries=max_retries),
+                      temperature=temperature, top_k=top_k, seed=0,
+                      fault_model=fault_model, **kw)
+    if eng.spec is not None:
+        eng.spec = _TimedProposer(eng.spec)
+    auto_k = eng.draft_len
+    by_m: dict = {}
+
+    def counted(inner):
+        def verify(*a):
+            k1 = K1.launches
+            out = inner(*a)
+            m = a[1].shape[0] * a[1].shape[1]
+            by_m[m] = by_m.get(m, 0) + K1.launches - k1
+            return out
+        return verify
+
+    for r in eng._level_runners:
+        r.verify = counted(r.verify)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=SPEC_NEW)
+            for i, p in enumerate(prompts)]
+    pending = list(reqs)
+    step_ms, steps_k1, it = [], [], 0
+    torch.cuda.synchronize()
+    K1.launches = K2.launches = K3.launches = 0    # THIS run's counts
+    t0 = time.perf_counter()
+    while pending or eng.active or eng._prefill_cursors:
+        if pending and eng.free_slots():
+            eng.admit(pending)
+        fault = None
+        if fault_step is not None and it == fault_step[0]:
+            fault = fault_step[1]
+        before, k1 = eng.stats.steps, K1.launches
+        active = bool(eng.active)
+        ts = time.perf_counter()
+        eng.step(fault)
+        torch.cuda.synchronize()
+        if eng.stats.steps > before and active:
+            step_ms.append(1e3 * (time.perf_counter() - ts))
+            steps_k1.append(K1.launches - k1)
+        if eng.pool is not None:
+            eng.pool.check_invariants()
+        it += 1
+        need(it < 2000, f"spec {label}: the run does not end")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    st = eng.stats
+    verify = eng.spec is not None
+    rec = dict(
+        label=label, seconds=seconds, steps=len(step_ms),
+        tokens=st.tokens, tokens_per_s=st.tokens / seconds,
+        step_ms_median=float(np.median(step_ms)),
+        step_kind="verify" if verify else "decode",
+        k1_launches_per_step_min=min(steps_k1),
+        launches={"abft_matmul": K1.launches,
+                  "flash_attention": K2.launches,
+                  "flash_decode": K3.launches},
+        k1_verify_launches_by_m=dict(sorted(by_m.items())),
+        streams={r.uid: list(r.generated) for r in reqs},
+        errors={r.uid: r.error for r in reqs if r.error},
+        **{k: getattr(st, k) for k in (
+            "faults_detected", "retries", "verify_retries", "hard_faults",
+            "evictions", "draft_proposed", "draft_accepted", "scheme_flips",
+            "prefix_tokens_shared", "prefill_chunks", "cow_copies")})
+    rec["acceptance"] = (st.draft_accepted / st.draft_proposed
+                         if st.draft_proposed else None)
+    # tokens a resident-slot step emits (admission emits one a request)
+    rec["tokens_per_step"] = (st.tokens - len(reqs)) / max(1, len(step_ms))
+    rec["proposer_ms_per_step"] = (eng.spec.ms / max(1, len(step_ms))
+                                   if verify else None)
+    rec["draft_len"] = eng.draft_len if verify else None
+    rec["auto_draft_len"] = auto_k if kw.get("draft_len") == "auto" \
+        else None
+    rec["schemes"] = sorted({e["scheme"] for e in st.selection_trace})
+    if policy is None:
+        need(min(steps_k1) > 0, f"spec {label}: a step launched no K1")
+    need(K2.launches == 0 and K3.launches == 0,
+         f"spec {label}: K2 or K3 launched with flash off")
+    if eng.pool is not None:
+        need(eng.pool.blocks_free == eng.pool.num_blocks,
+             f"spec {label}: blocks leaked")
+    emit(phase, **{k: v for k, v in rec.items() if k != "streams"})
+    del eng
+    return rec
+
+
+def _same_spec_streams(rec, ref, what, clean: bool = True) -> None:
+    need(not rec["errors"], f"spec {what}: errors {rec['errors']}")
+    need(rec["streams"] == ref["streams"],
+         f"spec {what}: greedy streams differ from the unsped run")
+    need(not clean or rec["faults_detected"] == 0,
+         f"spec {what}: a clean run raised a flag")
+
+
+def norm_row_order(dev) -> dict:
+    """Whether a norm over the (slots, T) rows of a verify step reduces
+    each row in the order of decode's (slots, 1) rows, at the dense
+    family's norm widths: ``rms_norm`` over d_model 2048 (llama3.2-1b)
+    and 5120 (qwen3-14b), ``layer_norm`` over 2048 (stablelm-1.6b), and
+    qwen3-14b's q/k norms over head_dim 128 (40 and 8 heads a row).  For
+    slots 1, 4, 8 and 16 and T 2, 5 and 9: ``f32`` — the row reductions
+    (mean of squares; mean and variance) bit-equal; ``out`` — the norm's
+    bf16 output bit-equal (a coarser probe: an f32 ulp rarely moves a
+    bf16 rounding); ``per_step`` — the verify path's own (``per_step``)
+    output bit-equal.  Observations: the gates are the streams and the
+    card tests."""
+    from repro_torch.models.layers import layer_norm, per_step, rms_norm
+
+    def rms_red(x):
+        xf = x.float()
+        return (xf * xf).mean(dim=-1, keepdim=True)
+
+    def ln_red(x):
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        return torch.cat([mu, ((xf - mu) ** 2).mean(dim=-1, keepdim=True)],
+                         -1)
+
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(
+            torch.bfloat16)
+
+    cases = {"rms_norm_2048": ((2048,), rms_red, rms_norm, (rnd(2048),)),
+             "rms_norm_5120": ((5120,), rms_red, rms_norm, (rnd(5120),)),
+             "layer_norm_2048": ((2048,), ln_red, layer_norm,
+                                 (rnd(2048), rnd(2048))),
+             "q_norm_40x128": ((40, 128), rms_red, rms_norm, (rnd(128),)),
+             "k_norm_8x128": ((8, 128), rms_red, rms_norm, (rnd(128),))}
+    out = {}
+    for name, (width, red, fn, args) in cases.items():
+        rec = {}
+        for slots in (1, 4, 8, 16):
+            eq = {"f32": True, "out": True, "per_step": True}
+            for T in (2, 5, 9):
+                x = rnd(slots, T, *width)
+                steps = [x[:, t:t + 1].contiguous() for t in range(T)]
+                dec_red = torch.cat([red(s) for s in steps], 1)
+                dec = torch.cat([fn(s, *args) for s in steps], 1)
+                eq["f32"] &= bool(torch.equal(red(x), dec_red))
+                eq["out"] &= bool(torch.equal(fn(x, *args), dec))
+                eq["per_step"] &= bool(torch.equal(
+                    per_step(fn, x, *args), dec))
+            rec[slots] = eq
+        out[name] = rec
+    return out
+
+
+def spec_row_order(dev, params, cfg) -> dict:
+    """What the verify path's design rests on, observed at the phase's
+    shapes (4 slots, K = 8: 36 rows; 16 slots: 144): whether the plain
+    batched version of each op gives a decode row's bits (the verify path
+    does not use them where they do not), and whether the verify path
+    does.  Observations, not gates: the gates are the streams."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import decode_attention, verify_attention
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    lp = params["layers"][0]
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    out = {}
+    for slots in (4, 16):
+        for name, w in (("down", lp["ffn"]["down"]),
+                        ("q", lp["mixer"]["wq"])):
+            xw = torch.randn(slots, 9, w.shape[0], generator=g,
+                             device=dev).to(torch.bfloat16)
+            rows = torch.cat([ops.abft_matmul(xw[:, t:t + 1].contiguous(),
+                                              w)[0] for t in range(9)], 1)
+            out[f"k1_{name}_unpinned_equal_{slots}"] = bool(torch.equal(
+                ops.abft_matmul(xw, w)[0], rows))
+            out[f"k1_{name}_pinned_equal_{slots}"] = bool(torch.equal(
+                ops.abft_matmul(xw, w, decode_rows=slots)[0], rows))
+            mm = torch.cat([torch.matmul(xw[:, t:t + 1].contiguous(), w)
+                            for t in range(9)], 1)
+            out[f"matmul_{name}_equal_{slots}"] = bool(torch.equal(
+                torch.matmul(xw, w), mm))
+    k = torch.randn(4, SPEC_MAX_LEN, KV, hd, generator=g,
+                    device=dev).to(torch.bfloat16)
+    q = torch.randn(4, 9, H, hd, generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.tensor([130, 250, 511, 900], dtype=torch.int32, device=dev)
+    rows = torch.cat([decode_attention(q[:, t:t + 1].contiguous(), k, k,
+                                       pos + 1 + t) for t in range(9)], 1)
+    out["verify_attention_equal"] = bool(torch.equal(
+        verify_attention(q, k, k, pos + 1), rows))
+    # a batched alternative: the T queries of a row as one einsum
+    kf = k.float()
+    qg = q.float().reshape(4, 9, KV, H // KV, hd)
+    s = torch.einsum("btkgd,bskd->btkgs", qg, kf) * hd ** -0.5
+    lim = (pos + 1)[:, None] + torch.arange(9, device=dev)[None, :]
+    valid = torch.arange(SPEC_MAX_LEN, device=dev)[None, None, :] < \
+        lim[:, :, None]
+    s = torch.where(valid[:, :, None, None, :], s,
+                    torch.full_like(s, -1e30))
+    p = torch.softmax(s, -1).to(k.dtype).float()
+    batched = torch.einsum("btkgs,bskv->btkgv", p, kf).reshape(
+        4, 9, H, hd).to(q.dtype)
+    out["attention_batched_equal"] = bool(torch.equal(batched, rows))
+    out["norms"] = norm_row_order(dev)
+    emit("spec_row_order", **out)
+    return out
+
+
+def spec_llama(dev, params=None) -> dict:
+    """Full-width llama3.2-1b: copy and fresh traffic unsped (dense,
+    paged) and with n-gram drafts at K = 4 and ``"auto"`` (dense, paged);
+    on copy traffic also an oracle proposer at K = 4 and 8, self-draft
+    (2 layers over 16 tokens), n-gram with sharing and chunks of 256, a
+    verify fault, a sticky campaign fault, sampling, and a ``global``
+    pair (an observation).  Every greedy stream held to the unsped run's
+    on the same traffic; K1 at the verify step's M = 36; the row-order
+    observations."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.faults import FaultModel, FaultSpec
+    from repro_torch.core.policy import FixedPolicy
+    from repro_torch.core.schemes import Scheme
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.models.model import Model
+
+    cfg = get_config(ENGINE_ARCH)
+    model = Model(cfg)
+    if params is None:
+        params, _ = engine_inputs(dev)
+    traffic = spec_traffic(cfg.vocab_size)
+
+    def run(kind, label, **kw):
+        return spec_serve(model, params, traffic[kind], dev,
+                          f"{kind} {label}", **kw)
+
+    ngram4 = dict(spec_decode="ngram", draft_len=4)
+    spec_serve(model, params, traffic["copy"][:2], dev, "warmup",
+               **ngram4)
+    runs = {}
+    for kind in ("copy", "fresh"):
+        ref = runs[f"{kind} unsped"] = run(kind, "unsped")
+        refp = runs[f"{kind} unsped_paged"] = run(kind, "unsped_paged",
+                                                  cache_kind="paged")
+        _same_spec_streams(refp, ref, f"{kind} unsped_paged")
+        for label, kw in (("ngram_k4", ngram4),
+                          ("ngram_k4_paged", dict(ngram4,
+                                                  cache_kind="paged")),
+                          ("ngram_auto", dict(spec_decode="ngram",
+                                              draft_len="auto")),
+                          ("ngram_auto_paged", dict(spec_decode="ngram",
+                                                    draft_len="auto",
+                                                    cache_kind="paged"))):
+            rec = runs[f"{kind} {label}"] = run(kind, label, **kw)
+            _same_spec_streams(rec, ref, f"{kind} {label}")
+            need(rec["draft_proposed"] > 0, f"spec {label}: no draft")
+    ref = runs["copy unsped"]
+    oracle = _OracleProposer(ref["streams"])
+    for label, kw in (
+            ("oracle_k4", dict(spec_decode=oracle, draft_len=4)),
+            ("oracle_k8", dict(spec_decode=oracle, draft_len=8)),
+            ("self_draft_2at16", dict(spec_decode="self_draft", draft_len=4,
+                                      draft_units=2, draft_window=16)),
+            ("ngram_k4_sharing_chunk256", dict(
+                ngram4, cache_kind="paged", prefix_sharing=True,
+                chunk_tokens=SPEC_CHUNK))):
+        rec = runs[f"copy {label}"] = run("copy", label, **kw)
+        _same_spec_streams(rec, ref, label)
+    need(runs["copy ngram_k4_sharing_chunk256"]["prefill_chunks"] > 0,
+         "spec sharing+chunks: no chunk ran")
+    need(runs["copy oracle_k4"]["acceptance"] == 1.0,
+         "spec oracle: a draft of the unsped stream was rejected")
+    m36 = runs["copy oracle_k8"]["k1_verify_launches_by_m"].get(
+        SPEC_SLOTS * 9, 0)
+    need(m36 > 0, "spec oracle_k8: no verify call of 36 rows launched K1")
+
+    # a fault at a verify step: retried, the window only
+    fault = ModelFault.at(0, "mlp_down", FaultSpec.value(0, 1, 1e5))
+    rec = runs["copy verify_fault"] = run("copy", "verify_fault",
+                                          fault_step=(3, fault), **ngram4)
+    _same_spec_streams(rec, ref, "verify_fault", clean=False)
+    need(rec["faults_detected"] == 1 and rec["verify_retries"] == 1
+         and rec["retries"] == 1 and rec["hard_faults"] == 0,
+         f"spec verify fault: not retried within the window ({rec})")
+    need(rec["steps"] == runs["copy ngram_k4"]["steps"],
+         "spec verify fault: the step count moved")
+    # a sticky permanent fault: the resident slots are evicted
+    # (seed 6: one onset, at the 7th step, for one step; the next at the
+    # 194th, past the run's end)
+    fm = FaultModel(transient_rate=0.0, permanent_rate=0.03,
+                    permanent_duration=1, seed=6, layers=cfg.n_layers,
+                    dtype=torch.float32, magnitude=1e4,
+                    sites=("mlp_down",))
+    rec = runs["copy sticky_fault"] = run("copy", "sticky_fault",
+                                          fault_model=fm, **ngram4)
+    survivors = [u for u in rec["streams"] if u not in rec["errors"]]
+    need(rec["hard_faults"] == 1 and len(rec["errors"]) == SPEC_SLOTS
+         and set(rec["errors"].values()) == {"hard_fault:verify"},
+         f"spec sticky fault: the resident slots were not evicted with "
+         f"hard_fault:verify ({rec['errors']})")
+    need(survivors and all(rec["streams"][u] == ref["streams"][u]
+                           for u in survivors),
+         "spec sticky fault: a surviving stream changed")
+    # sampling through the rejection rule
+    rec = runs["copy sampled"] = run("copy", "sampled", temperature=0.8,
+                                     top_k=50, **ngram4)
+    need(not rec["errors"] and all(
+        len(s) == SPEC_NEW and all(0 <= t < cfg.vocab_size for t in s)
+        for s in rec["streams"].values()), "spec sampled: bad stream")
+    need(rec["acceptance"] is not None, "spec sampled: no draft")
+    # the plain product of ``global`` and ``none`` (``torch.matmul``, not
+    # K1): a verify step runs it at the decode step's shape step by step
+    plain = {}
+    for scheme in (Scheme.GLOBAL, Scheme.NONE):
+        pol = FixedPolicy(scheme)
+        pref = runs[f"copy {scheme.value}_unsped"] = run(
+            "copy", f"{scheme.value}_unsped", policy=pol)
+        rec = runs[f"copy {scheme.value}_ngram_k4"] = run(
+            "copy", f"{scheme.value}_ngram_k4", policy=pol, **ngram4)
+        _same_spec_streams(rec, pref, f"{scheme.value}_ngram_k4")
+        need(rec["launches"]["abft_matmul"] == 0,
+             f"spec {scheme.value}: K1 launched under a plain scheme")
+        plain[scheme.value] = True
+    verify_t = k1_timing(dev, params, SPEC_SLOTS * 9, split_rows=SPEC_SLOTS)
+    summary = dict(
+        arch=ENGINE_ARCH,
+        tokens_per_s={k: r["tokens_per_s"] for k, r in runs.items()},
+        step_ms={k: (r["step_kind"], r["step_ms_median"])
+                 for k, r in runs.items()},
+        acceptance={k: r["acceptance"] for k, r in runs.items()},
+        tokens_per_step={k: r["tokens_per_step"] for k, r in runs.items()},
+        proposer_ms_per_step={k: r["proposer_ms_per_step"]
+                              for k, r in runs.items()},
+        auto_draft_len={k: r["auto_draft_len"] for k, r in runs.items()
+                        if r["auto_draft_len"] is not None},
+        launches={k: r["launches"] for k, r in runs.items()},
+        plain_scheme_streams_equal=plain,
+        k1_verify_m36=verify_t,
+        k1_verify_m36_launches=m36,
+        row_order=spec_row_order(dev, params, cfg))
+    emit("spec", **summary)
+    return summary
+
+
+def spec_qwen(dev) -> dict:
+    """qwen3-14b at full width (G = 5, q/k norm): copy traffic unsped,
+    with ngram ``"auto"`` and with the oracle at K = 8 (every step at T >
+    1 while a draft is left: the batched q/k norms at 4 x 9 rows), dense;
+    streams equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    arch = "qwen3-14b"
+    cfg = get_config(arch)
+    model = Model(cfg)
+    free_memory()
+    params, _ = engine_inputs(dev, arch)
+    copy = spec_traffic(cfg.vocab_size)["copy"]
+    ref = spec_serve(model, params, copy, dev, f"{arch} unsped")
+    auto = spec_serve(model, params, copy, dev, f"{arch} ngram_auto",
+                      spec_decode="ngram", draft_len="auto")
+    _same_spec_streams(auto, ref, f"{arch} ngram_auto")
+    oracle = spec_serve(model, params, copy, dev, f"{arch} oracle_k8",
+                        spec_decode=_OracleProposer(ref["streams"]),
+                        draft_len=8)
+    _same_spec_streams(oracle, ref, f"{arch} oracle_k8")
+    need(oracle["acceptance"] == 1.0,
+         f"spec {arch} oracle: a draft of the unsped stream was rejected")
+    rec = dict(arch=arch, streams_equal=True,
+               tokens_per_s={"unsped": ref["tokens_per_s"],
+                             "ngram_auto": auto["tokens_per_s"],
+                             "oracle_k8": oracle["tokens_per_s"]},
+               step_ms={"decode": ref["step_ms_median"],
+                        "verify": auto["step_ms_median"],
+                        "verify_oracle_k8": oracle["step_ms_median"]},
+               acceptance=auto["acceptance"],
+               tokens_per_step=auto["tokens_per_step"],
+               oracle_tokens_per_step=oracle["tokens_per_step"],
+               auto_draft_len=auto["auto_draft_len"],
+               launches={"unsped": ref["launches"],
+                         "ngram_auto": auto["launches"],
+                         "oracle_k8": oracle["launches"]})
+    emit("spec_family", **rec)
+    del params
+    free_memory()
+    return rec
+
+
+def spec_runs(dev, params=None) -> dict:
+    out = {"llama": spec_llama(dev, params)}
+    free_memory()
+    out["qwen"] = spec_qwen(dev)
+    return out
+
+
 # ------------------------------------------------------------------ timing
 
 def _gemm_bound(m, k, n, in_bytes, out_bytes, gm_gn_rows):
@@ -2187,7 +2714,8 @@ def _gemm_bound(m, k, n, in_bytes, out_bytes, gm_gn_rows):
 
 
 def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
-              one_slice: bool = False) -> dict:
+              one_slice: bool = False,
+              split_rows: int | None = None) -> dict:
     """K1 over one step's GEMMs at M=m, using a run's own weights
     (distinct per layer, so weights come from HBM as in a real step), in
     their dtype: kernel, plain version, torch.matmul, and the bound (bf16
@@ -2199,7 +2727,9 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
     forced in their place; in f32 above 8 rows (the train step) every
     GEMM, which takes the SIMT pass 1, also on the CUDA-core tiles.
     ``one_slice``: the kernel runs one K slice at any M, as the serving
-    prefill paths run it, and no fork is timed."""
+    prefill paths run it, and no fork is timed; ``split_rows``: the K
+    split is that row count's, as the speculative verify step runs it
+    (``abft_matmul.plan``), and no fork is timed."""
     from repro_torch.kernels.abft_matmul import abft_matmul_kernel
     from repro_torch.kernels.ref import abft_matmul_ref
 
@@ -2222,7 +2752,7 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
     bf16 = dtype == torch.bfloat16
     forced = "gemv" if bf16 and m <= 8 else ("tiled" if not bf16 and m > 8
                                              else None)
-    if one_slice:
+    if one_slice or split_rows is not None:
         forced = None
     fork = {"route": "tc" if bf16 else "simt", "forced": forced,
             "gemms": 0, "ms": 0.0, "forced_ms": 0.0}
@@ -2236,7 +2766,8 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
 
         def kern():
             for w in ws:
-                abft_matmul_kernel(x, w, **kw, one_slice=one_slice)
+                abft_matmul_kernel(x, w, **kw, one_slice=one_slice,
+                                   split_rows=split_rows)
 
         def plain():
             for w in ws:
@@ -2273,7 +2804,7 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
     tot["bound_by"] = "bytes" if bound_by == {"bytes"} else (
         "operations" if bound_by == {"operations"} else "mixed")
     emit("k1_timing", arch=arch, m=m, dtype=str(dtype)[6:],
-         one_slice=one_slice, per_shape=per,
+         one_slice=one_slice, split_rows=split_rows, per_shape=per,
          step_total=tot, **({"fork": fork} if fork["gemms"] else {}))
     return tot
 
@@ -2472,6 +3003,28 @@ def _add_sharing(kernels, share) -> None:
                 "split_ms": t["split"]["ms"]}
 
 
+def _add_spec(kernels, spec) -> None:
+    """Each kernel's line gets ``spec_launches``, its launches on every
+    run of the ``spec`` phase (K2 and K3: 0, flash is off, each counted
+    and held to 0); K1's gets the verify step's shape (4 slots x (K+1) =
+    36 rows, the decode split) with K1's launches inside the verify calls
+    of 36 rows in the copy-traffic oracle K=8 run."""
+    runs = spec["llama"]["launches"]
+    fam = spec["qwen"]["launches"]
+    for entry in kernels:
+        key = entry["name"]
+        entry["spec_launches"] = {
+            **{k: v[key] for k, v in runs.items()},
+            **{f"qwen3-14b {k}": v[key] for k, v in fam.items()}}
+        if key == "abft_matmul":
+            t = spec["llama"]["k1_verify_m36"]
+            entry["by_shape"]["verify_m36"] = {
+                "launches": spec["llama"]["k1_verify_m36_launches"],
+                **{k: t[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
+
+
 def _add_family(kernels, fam) -> None:
     """Each kernel's line gets ``by_arch``: its launches on that arch's
     main path (the dense serving run for K1 and K3, the score for K2) and
@@ -2593,6 +3146,8 @@ def main(argv=None) -> int:
              "max_abs_err": k1_max_err(dev, eng_out["params"]),
              "one_slice_max_abs_err": (k1_res["one_slice_max_abs_err"]
                                        if k1_res is not None else None),
+             "split_rows_max_abs_err": (k1_res["split_rows_max_abs_err"]
+                                        if k1_res is not None else None),
              "ms": t1["ms"], "plain_ms": t1["plain_ms"],
              "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
              "library_ms": t1["library_ms"],
@@ -2629,6 +3184,11 @@ def main(argv=None) -> int:
                              if eng_out is not None else None)
         if kernels is not None:
             _add_sharing(kernels, share)
+    if "spec" in phases:
+        spec = spec_runs(dev, eng_out["params"]
+                         if eng_out is not None else None)
+        if kernels is not None:
+            _add_spec(kernels, spec)
     if "family" in phases:
         # drop every earlier phase's weights, engines and caches
         eng_out = fwd = train_params = camp = tr = None

@@ -1,7 +1,6 @@
 """ProtectionPolicy API — the single protection surface (paper §5.3).
 
-Port of ``repro.core.policy`` (everything but the draft-length
-autotuner, whose engine feature is not ported):
+Port of ``repro.core.policy``:
 
 ``SchemeRegistry``
     Every scheme registers a cost model, an executor, and a
@@ -843,6 +842,37 @@ class ProtectionPlan:
             while best < cap and \
                     self.modeled_step_time(best) / best > target:
                 best += q
+        self._tune_cache[key] = best
+        return best
+
+    def tune_draft_len(self, batch: int = 1, *, lo: int = 1, hi: int = 8,
+                       accept_rate: float = 0.7,
+                       tput_margin: float = 0.0) -> int:
+        """Roofline draft-length autotuning for speculative decoding: the
+        LARGEST K in ``[lo, hi]`` whose modeled time per EMITTED token of a
+        verify step (``batch * (K+1)`` tokens through the decode GEMMs, on
+        ``modeled_step_time``) beats plain decode's per-token time by at
+        least ``tput_margin``.  With independent per-draft acceptance
+        probability a = ``accept_rate``, a slot emits ``a(1-a^K)/(1-a) + 1``
+        tokens a step (the accepted prefix plus the bonus token).  Returns
+        0 when no K wins.  Memoized with the chunk budget's cache."""
+        b = max(1, int(batch))
+        a = min(max(float(accept_rate), 0.0), 1.0)
+        key = ("draft", b, int(lo), int(hi), a, float(tput_margin))
+        got = self._tune_cache.get(key)
+        if got is not None:
+            return got
+        base = self.modeled_step_time(b) / b     # plain decode, s/token
+
+        def per_token(k: int) -> float:
+            emitted = (k + 1.0) if a >= 1.0 \
+                else a * (1.0 - a ** k) / (1.0 - a) + 1.0
+            return self.modeled_step_time(b * (k + 1)) / (b * emitted)
+
+        best = 0
+        for k in range(max(1, int(lo)), max(1, int(hi)) + 1):
+            if per_token(k) < base * (1.0 - float(tput_margin)):
+                best = k
         self._tune_cache[key] = best
         return best
 

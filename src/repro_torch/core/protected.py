@@ -58,6 +58,11 @@ class ABFTConfig:
     # the serving prefill paths, so a row gets the same bits whatever the
     # height of the GEMM it sits in (whole prompt, suffix or chunk)
     one_slice: bool = False
+    # each row of a (B, T, k) GEMM with B == decode_rows is summed in the
+    # order of the decode step's B-row GEMM, by K1 (``kernels/ops``) and
+    # by the plain product of ``none``/``global`` (``_plain_dot``): the
+    # speculative verify step, so its rows get decode's bits
+    decode_rows: int | None = None
 
     def effective_policy(self) -> ProtectionPolicy:
         if not self.enabled:
@@ -98,14 +103,23 @@ def protected_matmul(x, w, cfg: ABFTConfig = ABFTConfig(), *, wsums=None,
 
 # ------------------------------------------------------------- executors
 
-def _plain_dot(x, w, out_dtype, fault):
+def _plain_dot(x, w, out_dtype, fault, decode_rows=None):
     """``x @ w`` with f32 accumulation, cast once to ``out_dtype``.  A
     low-precision product widened for an f32 output (the bf16 model's
     tied head) returns the f32 accumulator itself, as the reference's
     ``preferred_element_type=f32`` does: on the card through cuBLAS's
     ``mm(..., out_dtype=f32)``, on the CPU (which has no such kernel) as
-    an f32 product of the widened operands."""
-    if out_dtype == F32 and x.dtype != F32:
+    an f32 product of the widened operands.
+
+    ``decode_rows`` (a speculative verify step on the card, x of shape
+    (B, T, k) with B == ``decode_rows``): each step t runs as its own
+    product at the decode step's shape (B, 1, k), since the library picks
+    its kernel, and so a row's summation order, by the row count."""
+    if decode_rows is not None and x.is_cuda and x.dim() == 3 \
+            and x.shape[0] == decode_rows and x.shape[1] > 1:
+        y = torch.cat([_plain_dot(x[:, t:t + 1].contiguous(), w, out_dtype,
+                                  None) for t in range(x.shape[1])], dim=1)
+    elif out_dtype == F32 and x.dtype != F32:
         x2 = x.reshape(-1, x.shape[-1])
         if x2.is_cuda:
             y = torch.mm(x2, w, out_dtype=F32)
@@ -120,11 +134,12 @@ def _plain_dot(x, w, out_dtype, fault):
 
 
 def _exec_none(x, w, cfg, *, wsums, out_dtype, fault):
-    return _plain_dot(x, w, out_dtype, fault), CheckResult.clean(x.device)
+    return (_plain_dot(x, w, out_dtype, fault, cfg.decode_rows),
+            CheckResult.clean(x.device))
 
 
 def _exec_global(x, w, cfg, *, wsums, out_dtype, fault):
-    y = _plain_dot(x, w, out_dtype, fault)
+    y = _plain_dot(x, w, out_dtype, fault, cfg.decode_rows)
     if wsums is None:
         wsums = (checksums.weight_row_checksum(w),
                  checksums.weight_abs_checksum(w))
@@ -141,7 +156,8 @@ def _block_executor(mode: str):
         return ops.abft_matmul(x, w, mode=mode, blocks=cfg.blocks,
                                out_dtype=out_dtype, fault=fault,
                                c_factor=cfg.c_factor,
-                               one_slice=cfg.one_slice)
+                               one_slice=cfg.one_slice,
+                               decode_rows=cfg.decode_rows)
 
     return _exec
 

@@ -66,20 +66,24 @@ def _w_aligned(w) -> bool:
             or (w.stride(0) == 1 and _aligned(w, w.stride(1))))
 
 
-def simt_path(x, w, bn: int, mode: str) -> bool:
+def simt_path(x, w, bn: int, mode: str, one_slice: bool = False) -> bool:
     """The SIMT pass 1 takes f32 operands, mode 1s or 2s, more than 8 rows
-    (the GEMV keeps f32 decode), rows of x 16-byte aligned (unit column
-    stride), W row-major or K-major with 16-byte rows or columns, and
-    bn % 4 == 0 (whole float4 column groups)."""
+    (the GEMV keeps f32 decode) or any rows under ``one_slice``, rows of x
+    16-byte aligned (unit column stride), W row-major or K-major with
+    16-byte rows or columns, and bn % 4 == 0 (whole float4 column
+    groups)."""
     return (x.dtype == torch.float32 and w.dtype == torch.float32
-            and mode != "replica" and x.shape[0] > 8 and bn % 4 == 0
-            and x.stride(1) == 1 and _aligned(x, x.stride(0))
-            and _w_aligned(w))
+            and mode != "replica" and (x.shape[0] > 8 or one_slice)
+            and bn % 4 == 0 and x.stride(1) == 1
+            and _aligned(x, x.stride(0)) and _w_aligned(w))
 
 
-def routes(x, w, bn: int, mode: str) -> tuple:
+def routes(x, w, bn: int, mode: str, one_slice: bool = False) -> tuple:
     """Every pass-1 route that can take these operands, the preferred
-    one first:
+    one first.  ``one_slice`` (the serving prefill) leaves the GEMV out:
+    its K split comes from (K, N) alone, so an f32 chunk of at most 8
+    rows takes the one-slice SIMT pass 1 that whole prompts take and sums
+    each row in their order:
 
     - ``tc`` / ``tc_kmajor``: the tensor-core pass 1 — bf16 operands,
       mode 1s or 2s, rows of x 16-byte aligned (unit column stride), and W
@@ -102,17 +106,17 @@ def routes(x, w, bn: int, mode: str) -> tuple:
             out.append("tc")
         elif w.stride(0) == 1 and _aligned(w, w.stride(1)):
             out.append("tc_kmajor")
-    if gemv_path(x, w, bn, mode):
+    if not one_slice and gemv_path(x, w, bn, mode):
         out.append("gemv")
-    if simt_path(x, w, bn, mode):
+    if simt_path(x, w, bn, mode, one_slice):
         out.append("simt")
     return (*out, "tiled")
 
 
-def route(x, w, bn: int, mode: str) -> str:
+def route(x, w, bn: int, mode: str, one_slice: bool = False) -> str:
     """Which pass 1 runs, decided before the launch: the first of
     ``routes``."""
-    return routes(x, w, bn, mode)[0]
+    return routes(x, w, bn, mode, one_slice)[0]
 
 
 def tile(r: str, bm: int) -> tuple:
@@ -179,7 +183,8 @@ class Plan:
 
 
 def plan(x, w, *, mode: str, bm: int, bk: int, bn: int,
-         force: str | None = None, one_slice: bool = False) -> Plan:
+         force: str | None = None, one_slice: bool = False,
+         split_rows: int | None = None) -> Plan:
     """The launch ``abft_matmul_kernel`` makes for these operands, on
     ``route``'s pass 1 or on ``force``, which must be one of ``routes``'s
     (to time one route against another).  Scratch: the per-slice partial
@@ -187,16 +192,23 @@ def plan(x, w, *, mode: str, bm: int, bk: int, bn: int,
     whose epilogue stores y), the per-(slice, row, column tile) partial
     checksums and bounds, and — tensor-core and SIMT routes only — the
     per-(row, column tile) partial row sums of the accumulator.
-    ``one_slice``: ``split_k``'s."""
+    ``one_slice``: ``split_k``'s.  ``split_rows``: the K split is the one
+    a GEMM of that many rows takes on the same route (its clamped block
+    and row tiles), whatever M — a speculative verify step's rows then
+    sum in the decode step's order."""
     m, k = x.shape
     n = w.shape[1]
-    can = routes(x, w, bn, mode)
+    can = routes(x, w, bn, mode, one_slice)
     if force is not None and force not in can:
         raise ValueError(f"route {force!r} cannot take these operands; "
                          f"these can: {can}")
     r = force or can[0]
     tc, simt = r.startswith("tc"), r == "simt"
-    S, kc = split_k(m, k, n, bm, bk, bn, mode, gemv=r == "gemv", tc=tc,
+    sm, sbm = m, bm
+    if split_rows is not None:     # ops' block clamp at split_rows <= m
+        sm = int(split_rows)
+        sbm = min(bm, -(-sm // 8) * 8)
+    S, kc = split_k(sm, k, n, sbm, bk, bn, mode, gemv=r == "gemv", tc=tc,
                     simt=simt, one_slice=one_slice)
     tm, tn = tile(r, bm)
     gx = -(-n // bn) * -(-bn // tn)
@@ -209,11 +221,13 @@ def plan(x, w, *, mode: str, bm: int, bk: int, bn: int,
 
 def abft_matmul_kernel(x, w, fault=(0, 0, 0, 0, 0, -1), delta: float = 0.0,
                        *, mode: str, bm: int, bk: int, bn: int, out_dtype,
-                       force: str | None = None, one_slice: bool = False):
+                       force: str | None = None, one_slice: bool = False,
+                       split_rows: int | None = None):
     """x: (M, K) with unit column stride, w: (K, N) with any strides (the
     tied head passes ``embed.T``) -> (y, res, bnd) as ``abft_matmul_ref``.
     The pass-1 route is ``plan``'s (``route``'s unless ``force``d);
-    ``one_slice`` runs it as one K slice at any M (``split_k``)."""
+    ``one_slice`` runs it as one K slice at any M (``split_k``);
+    ``split_rows`` pins the K split to that row count's (``plan``)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
@@ -233,7 +247,7 @@ def abft_matmul_kernel(x, w, fault=(0, 0, 0, 0, 0, -1), delta: float = 0.0,
     n = w.shape[1]
     gm, gn = -(-m // bm), -(-n // bn)
     p = plan(x, w, mode=mode, bm=bm, bk=bk, bn=bn, force=force,
-             one_slice=one_slice)
+             one_slice=one_slice, split_rows=split_rows)
     dev = x.device
     y = torch.empty((m, n), dtype=out_dtype, device=dev)
     rshape = (gm, gn) if mode == "2s" else (gm, gn, bm)

@@ -26,7 +26,7 @@ import torch
 from repro_torch.core.checksums import ATOL, CheckResult, flag_from, tolerance_scale
 from repro_torch.core.faults import FaultSpec
 from repro_torch.core.schemes import BlockShape
-from repro_torch.kernels.abft_matmul import abft_matmul_kernel
+from repro_torch.kernels.abft_matmul import abft_matmul_kernel, route
 from repro_torch.kernels.ref import abft_matmul_ref
 
 
@@ -44,11 +44,12 @@ class _AbftMatmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2, w, fidx, delta, mode, bm, bk, bn, out_dtype,
-                one_slice):
+                one_slice, split_rows):
         kw = dict(mode=mode, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
         if x2.is_cuda or w.is_cuda:
             y, res, bnd = abft_matmul_kernel(x2, w, fidx, delta, **kw,
-                                             one_slice=one_slice)
+                                             one_slice=one_slice,
+                                             split_rows=split_rows)
         else:
             y, res, bnd = abft_matmul_ref(x2, w, fidx, delta, **kw)
         ctx.mark_non_differentiable(res, bnd)
@@ -68,36 +69,76 @@ class _AbftMatmul(torch.autograd.Function):
             # view's backward hands ``embed`` a contiguous gradient
             gw = (torch.matmul(g.t(), x2).t() if w.stride(0) == 1
                   and w.stride(1) != 1 else torch.matmul(x2.t(), g))
-        return gx, gw, None, None, None, None, None, None, None, None
+        return gx, gw, None, None, None, None, None, None, None, None, None
 
 
 def abft_matmul(x, w, *, mode: str = "1s", blocks: BlockShape = BlockShape(),
                 out_dtype=None, fault: FaultSpec | None = None,
-                c_factor: float = 16.0, one_slice: bool = False):
+                c_factor: float = 16.0, one_slice: bool = False,
+                decode_rows: int | None = None):
     """``y = x @ w`` plus the fused integrity check.  x: (..., m, k), w:
     (k, n).  Returns (y, CheckResult); the residual is per (block, row)
     for '1s'/'replica', per block for '2s'.  ``one_slice``: K1 runs pass
     1 as one K slice at any M (``abft_matmul.split_k``); the plain
-    version has no split."""
+    version has no split.
+
+    ``decode_rows`` (a speculative verify step, x of shape (B, T, k) with
+    B == ``decode_rows``): K1 sums every row in the order of the decode
+    step's GEMM of B rows.  Where the B * T rows take the decode shape's
+    route (bf16 on the tensor cores; f32 SIMT above 8 slots) one launch
+    takes them all with the decode shape's K split
+    (``abft_matmul.plan(split_rows=)``); where they cannot (the f32 GEMV,
+    or the CUDA-core tiles of the f32 tied head, at B <= 8) each step t
+    runs as its own launch at exactly the decode shape.  The plain
+    version ignores it."""
     out_dtype = out_dtype or x.dtype
     *lead, m0, k0 = x.shape
     kw, n0 = w.shape
     if k0 != kw:
         raise ValueError(f"contraction mismatch {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
+    f = fault if fault is not None else FaultSpec.none()
     x2 = x.reshape(-1, k0)
+    split_rows = None
+    if decode_rows is not None and x.is_cuda and x.dim() == 3 \
+            and x.shape[0] == decode_rows and m0 > 1:
+        bn = _clamp_block(n0, blocks.bn)
+        if route(x[:, 0], w, bn, mode) != route(x2, w, bn, mode):
+            return _per_step(x, w, mode, blocks, out_dtype, f, c_factor)
+        split_rows = int(decode_rows)
     m = x2.shape[0]
     bm = _clamp_block(m, blocks.bm)
     bk = _clamp_block(k0, blocks.bk)
     bn = _clamp_block(n0, blocks.bn)
-    f = fault if fault is not None else FaultSpec.none()
     fidx = (f.row // bm, f.col // bn, f.row % bm, f.col % bn,
             int(f.enabled), f.bit)
     y, res, bnd = _AbftMatmul.apply(x2, w, fidx, f.delta, mode, bm, bk, bn,
-                                    out_dtype, one_slice)
+                                    out_dtype, one_slice, split_rows)
     # the reference takes the depth of its zero-padded operand (a multiple
     # of bk) for the threshold; kept so both packages flag alike
     tau = ATOL + tolerance_scale(_round_up(k0, bk), c=c_factor) * bnd
     return (y.reshape(*lead, m0, n0),
             CheckResult(flag=flag_from(res, tau), residual=res,
                         threshold=tau))
+
+
+def _per_step(x, w, mode, blocks, out_dtype, f, c_factor):
+    """``abft_matmul`` of x (B, T, k) as T launches of the rows x[:, t]
+    (each the decode step's GEMM); the fault's row ``b * T + t`` lands on
+    row b of launch t.  Residuals and thresholds are stacked by step."""
+    B, T, _ = x.shape
+    ys, checks = [], []
+    for t in range(T):
+        ft = f
+        if f.enabled:
+            ft = (f._replace(row=f.row // T) if f.row % T == t
+                  else FaultSpec.none())
+        y, chk = abft_matmul(x[:, t].contiguous(), w, mode=mode,
+                             blocks=blocks, out_dtype=out_dtype, fault=ft,
+                             c_factor=c_factor)
+        ys.append(y)
+        checks.append(chk)
+    return (torch.stack(ys, dim=1),
+            CheckResult(flag=torch.stack([c.flag for c in checks]).any(),
+                        residual=torch.cat([c.residual for c in checks]),
+                        threshold=torch.cat([c.threshold for c in checks])))

@@ -4,6 +4,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
       --arch qwen3-14b --scale full --dtype bfloat16 --flash-attention \
       [--cache paged [--prefix-sharing]] [--chunk-tokens N|auto] \
+      [--spec-decode ngram|self-draft [--draft-len K|auto] \
+       [--draft-model UNITS@WINDOW]] \
       [--inject-faults] [--abft auto|global|block_1s|off] \
       [--fault-rate 0.2 --fault-kind transient --adaptive] \
       [--temperature 0.8 --top-k 50] [--plan-out plan.json] \
@@ -30,6 +32,12 @@ streams every trace event as a JSON line to stderr.
 ``--prefix-sharing`` (paged cache) shares resident prompt blocks with
 copy-on-write; ``--chunk-tokens`` sets the chunked-prefill step budget
 (an int, or ``auto`` for the roofline-tuned budget).
+``--spec-decode`` turns on speculative decoding (``ngram`` prompt lookup,
+or ``self-draft`` through the first UNITS layers over a WINDOW of context,
+``--draft-model``), ``--draft-len`` its draft length (an int, or ``auto``
+for the roofline-tuned K); it needs flash attention off.  The stats line
+then carries a ``spec_decode`` block (proposer, draft length, proposed and
+accepted drafts, acceptance rate, verify retries).
 """
 
 from __future__ import annotations
@@ -62,6 +70,13 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _chunk_tokens(v: str):
     """--chunk-tokens value: an int budget or 'auto' (roofline-tuned)."""
+    if str(v).lower() == "auto":
+        return "auto"
+    return int(v)
+
+
+def _draft_len(v: str):
+    """--draft-len value: an int K or 'auto' (roofline-tuned)."""
     if str(v).lower() == "auto":
         return "auto"
     return int(v)
@@ -119,6 +134,21 @@ def main(argv=None) -> int:
                          "'auto': the smallest budget whose mixed step "
                          "clears the device CMR, re-tuned as occupancy "
                          "drifts")
+    ap.add_argument("--spec-decode", default=None,
+                    choices=["ngram", "self-draft"],
+                    help="speculative decoding proposer: 'ngram' (prompt "
+                         "lookup) or 'self-draft' (truncated-depth greedy "
+                         "draft from the same weights); the K+1-token "
+                         "verify step runs the ABFT-checked path and "
+                         "greedy streams equal the unsped engine's")
+    ap.add_argument("--draft-len", type=_draft_len, default="auto",
+                    help="draft tokens per verify step: an int K or "
+                         "'auto' (the largest K whose modeled time per "
+                         "emitted token beats plain decode)")
+    ap.add_argument("--draft-model", default=None, metavar="UNITS@WINDOW",
+                    help="self-draft truncation 'units@window' (e.g. "
+                         "'2@16'): layers kept and trailing context seen "
+                         "(only with --spec-decode self-draft)")
     ap.add_argument("--plan-out", default=None,
                     help="write the engine's ProtectionPlan as JSON")
     ap.add_argument("--temperature", type=float, default=0.0,
@@ -135,6 +165,12 @@ def main(argv=None) -> int:
                     help="stream every trace event as a JSON line to "
                          "stderr")
     args = ap.parse_args(argv)
+    draft_units, draft_window = 1, 8
+    if args.draft_model:
+        if args.spec_decode != "self-draft":
+            ap.error("--draft-model requires --spec-decode self-draft")
+        u, _, w = args.draft_model.partition("@")
+        draft_units, draft_window = int(u), int(w or 8)
 
     cfg = get_config(args.arch)
     if args.scale == "smoke":
@@ -183,6 +219,10 @@ def main(argv=None) -> int:
         prefix_sharing=args.prefix_sharing, chunk_tokens=args.chunk_tokens,
         temperature=args.temperature, top_k=args.top_k, seed=args.seed,
         telemetry=telemetry, fault_model=fault_model,
+        spec_decode=(args.spec_decode.replace("-", "_")
+                     if args.spec_decode else None),
+        draft_len=args.draft_len if args.spec_decode else None,
+        draft_units=draft_units, draft_window=draft_window,
         policy=RecoveryPolicy(max_retries=args.max_retries,
                               evict_on_hard_fault=not args.raise_on_hard_fault))
     if args.plan_out:
@@ -242,6 +282,15 @@ def main(argv=None) -> int:
         "protection_deescalations": st.protection_deescalations,
         "chunk_tokens": engine.chunk_tokens,
         "chunk_budget_retunes": st.chunk_budget_retunes,
+        "spec_decode": ({
+            "proposer": engine.spec.name,
+            "draft_len": engine.draft_len,
+            "draft_proposed": st.draft_proposed,
+            "draft_accepted": st.draft_accepted,
+            "accept_rate": (st.draft_accepted / st.draft_proposed
+                            if st.draft_proposed else None),
+            "verify_retries": st.verify_retries,
+        } if engine.spec is not None else None),
         "step_schemes": schemes,
         "errors": {r.uid: r.error for r in reqs if r.error},
         "cache": engine.cache_stats(),

@@ -30,8 +30,10 @@ from repro_torch.models.layers import (
     or_flags,
     rms_norm,
     rope_tables,
+    verify_attention,
 )
 from repro_torch.serve.paged_cache import (
+    index_write,
     paged_gather,
     paged_scatter_decode,
     paged_scatter_prefill,
@@ -103,6 +105,28 @@ def prefill_cells(slots, L: int, starts=None, lengths=None) -> tuple:
     keep = t[None, :] < lengths.to(slots.device)[:, None]
     pos = starts.to(slots.device).long()[:, None] + t[None, :]
     return slots[:, None].expand(-1, L)[keep], pos[keep]
+
+
+def verify_write_index(pos, valid, T: int, depth: int) -> tuple:
+    """(cells, src) of a dense verify window of width T: row b's token t
+    lands at ``pos[b] + t`` while ``t < valid[b]`` and inside the cache
+    ``depth`` (dropped, never clamped: a clamp would write a near-budget
+    window back onto committed keys); ``src`` indexes those tokens in the
+    window's (B * T) rows.  Built once a verify call (one host read, the
+    mask's ``nonzero``) and shared by every layer's write
+    (``paged_cache.index_write``)."""
+    pos = pos.long()
+    t = torch.arange(T, device=pos.device)
+    keep = (t[None, :] < valid.to(pos.device)[:, None]) & \
+        (pos[:, None] + t[None, :] < depth)
+    b, t = keep.nonzero(as_tuple=True)
+    return (b, pos[b] + t), b * T + t
+
+
+def verify_cells(pos, valid, depth: int) -> tuple:
+    """Index of the dense cache cells a verify step writes (retries and
+    shadow runs)."""
+    return verify_write_index(pos, valid, int(valid.max()), depth)[0]
 
 
 def _row_scatter(cache_leaf, new, pos) -> None:
@@ -187,6 +211,24 @@ def gqa_decode(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache):
     return out, or_flags(flag, f_attn, f)
 
 
+def gqa_verify(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache, index):
+    """Speculative verify: x (B, T, D) holds each row's last committed
+    token followed by its draft window; row b writes its first ``valid[b]``
+    k/v rows at positions ``pos[b]..`` (``index``: the window's
+    ``verify_write_index``) and every query attends its own causal prefix
+    (``verify_attention``).  Rows past ``valid`` pad shorter windows:
+    their writes drop and their logits are discarded."""
+    B, T, _ = x.shape
+    positions = pos.long()[:, None] + torch.arange(T, device=x.device)
+    q, k, v, flag = _qkv(x, p, cfg, ctx, positions)
+    index_write(cache["k"], k, index)
+    index_write(cache["v"], v, index)
+    out = verify_attention(q, cache["k"], cache["v"], pos + 1)
+    out, f = dense(out.reshape(B, T, -1), p["wo"], ctx, "attn_out",
+                   tag="attn.o")
+    return out, or_flags(flag, f)
+
+
 def gqa_paged_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, positions,
                       cache, tables, lengths, starts=None, spans=None):
     """Paged prefill: the same ragged attention as the dense path; k/v
@@ -238,6 +280,25 @@ def gqa_paged_decode(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache,
     out, f = dense(out.reshape(B, 1, -1), p["wo"], ctx, "attn_out",
                    tag="attn.o")
     return out, or_flags(flag, f_attn, f)
+
+
+def gqa_paged_verify(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache,
+                     index, tables):
+    """Paged speculative verify: the window's k/v scatter behind the
+    committed prefix through the block tables (``index``: the suffix
+    scatter's ``prefill_write_index`` with starts at the cursors, rows
+    past ``valid`` dropped), then each query attends the gathered logical
+    KV as ``gqa_verify``'s do."""
+    B, T, _ = x.shape
+    positions = pos.long()[:, None] + torch.arange(T, device=x.device)
+    q, k, v, flag = _qkv(x, p, cfg, ctx, positions)
+    index_write(cache["k"], k, index)
+    index_write(cache["v"], v, index)
+    out = verify_attention(q, paged_gather(cache["k"], tables),
+                           paged_gather(cache["v"], tables), pos + 1)
+    out, f = dense(out.reshape(B, T, -1), p["wo"], ctx, "attn_out",
+                   tag="attn.o")
+    return out, or_flags(flag, f)
 
 
 def init_gqa(cfg: ModelConfig, w, vec) -> dict:

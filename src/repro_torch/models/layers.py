@@ -259,19 +259,59 @@ def decode_attention(q, k_cache, v_cache, length, scale=None):
     """Single-token attention against a (B, S, KV, D) cache.
     q: (B, 1, H, Dk); ``length``: (B,) valid positions.  Returns
     (B, 1, H, Dv)."""
+    return _decode_core(q, k_cache.to(F32), v_cache.to(F32), v_cache.dtype,
+                        length.to(q.device), scale)
+
+
+def _decode_core(q, kf, vf, v_dtype, length, scale):
+    """``decode_attention`` on caches already widened to f32 (``v_dtype``:
+    the cache's own type, which the probabilities round through)."""
     B, _, H, Dk = q.shape
-    S, KV, Dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
+    S, KV, Dv = kf.shape[1], kf.shape[2], vf.shape[3]
     G = H // KV
     scale = scale if scale is not None else Dk ** -0.5
     qg = q.reshape(B, KV, G, Dk).to(F32)
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(F32)) * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qg, kf) * scale
     pos = torch.arange(S, device=q.device)
-    valid = pos[None, :] < length.to(q.device).reshape(-1, 1)
+    valid = pos[None, :] < length.reshape(-1, 1)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskv->bkgv", p.to(v_cache.dtype).to(F32),
-                       v_cache.to(F32))
+    out = torch.einsum("bkgs,bskv->bkgv", p.to(v_dtype).to(F32), vf)
     return out.reshape(B, 1, H, Dv).to(q.dtype)
+
+
+def verify_attention(q, k_cache, v_cache, length, scale=None):
+    """Speculative-verify attention: T consecutive queries a row against a
+    (B, S, KV, D) cache.  q: (B, T, H, Dk); row b's query t sits at
+    logical position ``length[b] - 1 + t`` and attends ``length[b] + t``
+    positions (``length`` is what ``decode_attention`` gets for the first
+    query).  Returns (B, T, H, Dv).
+
+    Each query runs through ``decode_attention``'s own ops at its shapes,
+    one step t at a time (the caches widened once), so row t is bit for
+    bit what decode computes at that position on any device: a batched
+    product over T * G query rows would let the library pick another
+    kernel, and another summation order, than decode's G rows.  T = 1 is
+    ``decode_attention`` exactly."""
+    kf, vf = k_cache.to(F32), v_cache.to(F32)
+    length = length.to(q.device)
+    return torch.cat([
+        _decode_core(q[:, t:t + 1].contiguous(), kf, vf, v_cache.dtype,
+                     length + t, scale) for t in range(q.shape[1])], dim=1)
+
+
+def per_step(fn, x, *args, **kw):
+    """``fn`` applied to each step ``x[:, t:t+1]`` of a (B, T, ...)
+    tensor, made contiguous as decode's own (B, 1, ...) input is, and the
+    results concatenated along dim 1.  A verify step runs its d_model
+    norms this way: the library sizes a row reduction's thread block by
+    the row count, so on the card B rows and B * T rows sum a row of 2048
+    or 5120 in different orders when B < 16.  The q/k norms over the head
+    dim (128) give decode's sums batched, and stay batched."""
+    if x.shape[1] == 1:
+        return fn(x, *args, **kw)
+    return torch.cat([fn(x[:, t:t + 1].contiguous(), *args, **kw)
+                      for t in range(x.shape[1])], dim=1)
 
 
 # ---------------------------------------------------------------- mlp

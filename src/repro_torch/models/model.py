@@ -10,6 +10,7 @@ tree (converted to numpy) into the port's layout.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -18,7 +19,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import LayerCtx, dense, mlp, norm, or_flags
+from repro_torch.models.layers import (
+    LayerCtx,
+    dense,
+    mlp,
+    norm,
+    or_flags,
+    per_step,
+)
 
 F32 = torch.float32
 
@@ -165,15 +173,20 @@ class Model:
     # -------------------------------------------------- layers
     def apply_layer(self, x, lp, ctx: LayerCtx, positions, mode: str, cache,
                     pos=None, slots=None, lengths=None, tables=None,
-                    prefix_lens=None, spans=None):
-        """One decoder layer (mode: full | prefill | decode).  ``full`` is
-        causal attention over the whole sequence with no cache (the
-        training/scoring forward).  ``prefix_lens`` (prefill): the logical
-        start of each row's tokens (a suffix or a chunk); ``spans``: each
-        row's (start, end) on the host for row-wise attention.  Returns
+                    prefix_lens=None, spans=None, window=None):
+        """One decoder layer (mode: full | prefill | decode | verify).
+        ``full`` is causal attention over the whole sequence with no cache
+        (the training/scoring forward).  ``prefix_lens`` (prefill): the
+        logical start of each row's tokens (a suffix or a chunk);
+        ``spans``: each row's (start, end) on the host for row-wise
+        attention.  ``verify``: T tokens a row from cursor ``pos``, written
+        to the cache through ``window`` (the call's write index); its
+        d_model norms run one step at a time at decode's shapes
+        (``per_step``).  Returns
         (x, flag)."""
         cfg = self.cfg
-        h = norm(x, lp["mixer_norm"], cfg.norm, cfg.norm_eps)
+        nrm = functools.partial(per_step, norm) if mode == "verify" else norm
+        h = nrm(x, lp["mixer_norm"], cfg.norm, cfg.norm_eps)
         if mode == "full":
             a, f = attn.gqa_forward(h, lp["mixer"], cfg, ctx, positions)
         elif mode == "prefill":
@@ -186,19 +199,27 @@ class Model:
                 a, f = attn.gqa_prefill(h, lp["mixer"], cfg, ctx, positions,
                                         cache, slots=slots, lengths=lengths,
                                         starts=prefix_lens, spans=spans)
+        elif mode == "verify":
+            if tables is not None:
+                a, f = attn.gqa_paged_verify(h, lp["mixer"], cfg, ctx, pos,
+                                             cache, window, tables)
+            else:
+                a, f = attn.gqa_verify(h, lp["mixer"], cfg, ctx, pos, cache,
+                                       window)
         elif tables is not None:
             a, f = attn.gqa_paged_decode(h, lp["mixer"], cfg, ctx, pos,
                                          cache, tables)
         else:
             a, f = attn.gqa_decode(h, lp["mixer"], cfg, ctx, pos, cache)
         x = x + a
-        h = norm(x, lp["ffn_norm"], cfg.norm, cfg.norm_eps)
+        h = nrm(x, lp["ffn_norm"], cfg.norm, cfg.norm_eps)
         o, f2 = mlp(h, lp["ffn"], ctx, act=cfg.act)
         return x + o, or_flags(f, f2)
 
     def run_stack(self, x, params, ctx: LayerCtx, positions, mode: str,
                   caches, pos=None, slots=None, lengths=None, tables=None,
-                  remat: bool = False, prefix_lens=None, spans=None):
+                  remat: bool = False, prefix_lens=None, spans=None,
+                  window=None):
         """The layer loop.  ``caches`` is None in mode ``full``.  ``remat``
         recomputes each layer in the backward pass instead of keeping its
         activations (the reference's ``jax.checkpoint`` per layer); it
@@ -209,7 +230,7 @@ class Model:
         flags = []
         for i, (lp, cache) in enumerate(zip(layers, caches)):
             kw = dict(pos=pos, slots=slots, lengths=lengths, tables=tables,
-                      prefix_lens=prefix_lens, spans=spans)
+                      prefix_lens=prefix_lens, spans=spans, window=window)
             args = (x, lp, ctx.with_layer(i), positions, mode, cache)
             if remat:
                 x, f = checkpoint(self.apply_layer, *args, use_reentrant=False,
@@ -336,6 +357,38 @@ class Model:
         x, flag = self.run_stack(x, params, ctx, None, "decode", cache,
                                  pos=pos, tables=block_tables)
         x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+        logits, f_head = self._head(params, x, ctx)
+        return logits, cache, or_flags(flag, f_head)
+
+    def verify(self, params, tokens, cache, pos, ctx: LayerCtx, valid,
+               block_tables=None):
+        """Speculative verify: score T = K+1 positions a slot in one call.
+        tokens: (B, T), row b its last committed token and its (padded)
+        draft window; pos: (B,) cursors; ``valid`` (B,): the usable window
+        a row (K_b + 1); rows past it write no cache cell and their logits
+        are discarded.  Token t of row b sits at ``pos[b] + t``, its k/v
+        land there and logits[b, t] predicts position ``pos[b] + t + 1``.
+        Every row is computed in the decode step's order (d_model norms
+        and attention one step at a time, K1 pinned to the B-row GEMM and
+        the plain product run step by step through
+        ``ABFTConfig.decode_rows``, which the runner sets), so row t's
+        logits are bit for bit decode's at that position.  Returns (logits
+        (B, T, V) f32, cache, flag)."""
+        from repro_torch.serve.paged_cache import prefill_write_index
+
+        cfg = self.cfg
+        B, T = tokens.shape
+        pos = torch.as_tensor(pos, dtype=torch.int32,
+                              device=tokens.device).expand(B).contiguous()
+        pool = cache[0]["k"]
+        # every layer writes the same cells: one index a call
+        window = (attn.verify_write_index(pos, valid, T, pool.shape[1])
+                  if block_tables is None else
+                  prefill_write_index(pool, block_tables, valid, T, pos))
+        x = params["embed"][tokens]
+        x, flag = self.run_stack(x, params, ctx, None, "verify", cache,
+                                 pos=pos, tables=block_tables, window=window)
+        x = per_step(norm, x, params["final_norm"], cfg.norm, cfg.norm_eps)
         logits, f_head = self._head(params, x, ctx)
         return logits, cache, or_flags(flag, f_head)
 

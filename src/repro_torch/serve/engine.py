@@ -82,9 +82,24 @@ row at fixed chunk shapes (``chunked_attention(spans=...)``), so a
 prompt row gets the same KV whether it was prefilled whole, as a suffix
 or in chunks.
 
-Options of the reference that this slice does not port raise
-``NotImplementedError``: speculative decoding (``spec_decode`` and the
-``draft_*`` options), sharding (``mesh``) and ``hints``.
+Speculative decoding (``spec_decode="ngram"|"self_draft"`` or a
+proposer object, ``serve/spec_decode.py``): each step proposes up to
+``draft_len`` tokens a slot (clamped to the slot's remaining budget),
+scores every slot's K+1 window in ONE ``verify`` call through the same
+ABFT-checked GEMMs and detect->retry window as decode, and accepts on the
+host (greedy: the longest matching draft prefix plus a bonus token;
+sampling: the rejection rule, drawn from the slot's generator after the
+call is accepted).  ``draft_len="auto"`` (or None) takes K from the plan's
+``tune_draft_len`` and re-tunes it as occupancy drifts; a fixed K shrinks
+by the adaptive policy's ``shrink_draft`` while escalated.  A detected
+fault retries only the window; a sticky one evicts every resident slot
+with ``"hard_fault:verify"``.  Greedy streams equal the unsped engine's
+token for token, on the card too: ``Model.verify`` computes every row in
+the decode step's order.  Speculation needs the plain attention path
+(``flash_attention`` off), as in the reference.
+
+Options of the reference that this port does not have raise
+``NotImplementedError``: sharding (``mesh``) and ``hints``.
 """
 
 from __future__ import annotations
@@ -115,6 +130,12 @@ from repro_torch.serve.scheduler import (
     _pad_len,
     _pad_rows,
 )
+from repro_torch.serve.spec_decode import (
+    greedy_accept,
+    make_proposer,
+    rejection_sample,
+    target_probs,
+)
 
 __all__ = ["ServeEngine", "Request", "RecoveryPolicy", "EngineStats",
            "ChunkCursor", "PRE_PREFILL_ERRORS"]
@@ -144,9 +165,7 @@ class ServeEngine:
                  spec_decode=None, mesh=None,
                  draft_len: int | str | None = None, draft_window: int = 8,
                  draft_units: int = 1):
-        _unported(spec_decode=spec_decode, mesh=mesh,
-                  hints=hints is not None, draft_len=draft_len is not None,
-                  draft_window=draft_window != 8, draft_units=draft_units != 1)
+        _unported(mesh=mesh, hints=hints is not None)
         if slots < 1:
             raise ValueError("slots must be >= 1")
         self.device = resolve_device(device)
@@ -162,6 +181,7 @@ class ServeEngine:
         self.policy = policy
         self.cache_kind = cache_kind
         self.temperature = float(temperature)
+        self.top_k = int(top_k)
         # campaign injection: polled once per step(); undetected faults
         # are shadow-classified whenever a fault model is attached
         self.fault_model = fault_model
@@ -254,6 +274,39 @@ class ServeEngine:
             ModelRunner(model, ctx, temperature=temperature, top_k=top_k)
             for ctx in self._level_ctx)
         self.runner = self._level_runners[0]
+        # speculative decoding: drafts run unprotected (a wrong draft costs
+        # throughput, never output); the K+1-token verify call is the
+        # integrity boundary
+        self.spec = None
+        self.draft_len = 0
+        self.draft_auto = draft_len in (None, "auto")
+        self._draft_len_base: int | None = None
+        self._last_decode_tokens = 0
+        if spec_decode is not None:
+            if not model.supports_chunked_prefill:
+                raise ValueError(
+                    "spec_decode requires an attention-only decoder (SSM "
+                    "recurrence cannot roll back to the last accepted "
+                    "position)")
+            if abft.flash_attention:
+                raise ValueError(
+                    "spec_decode requires the plain attention path: the "
+                    "fused flash_decode kernel cannot reproduce the "
+                    "multi-token verify stream bit for bit (the greedy "
+                    "byte-equality gate)")
+            if self.draft_auto:
+                self.draft_len = max(1, self.plan.tune_draft_len(
+                    batch=slots))
+            else:
+                if not isinstance(draft_len, int) or draft_len < 1:
+                    raise ValueError(
+                        f"draft_len must be a positive int or 'auto', "
+                        f"got {draft_len!r}")
+                self.draft_len = draft_len
+                self._draft_len_base = draft_len
+            self.spec = make_proposer(
+                spec_decode, model, self._level_ctx[0], lambda: self.params,
+                units=draft_units, window=draft_window)
         self.executor.init_generators(seed, slots)
         self._emit_plan_rows()
 
@@ -362,6 +415,8 @@ class ServeEngine:
         for row in self.plan.report_rows():
             args = {"model_parallel": self.model_parallel,
                     "protection_level": self.protection_level}
+            if self.spec is not None:
+                args["draft_len"] = self.draft_len
             args.update(row)
             self._tr.instant("plan_row", args)
 
@@ -378,12 +433,15 @@ class ServeEngine:
             blocks_free=(self.pool.blocks_free
                          if self.pool is not None else None),
             chunk_budget=(self.chunk_tokens
-                          if isinstance(self.chunk_tokens, int) else None))
+                          if isinstance(self.chunk_tokens, int) else None),
+            draft_len=self.draft_len if self.spec is not None else None)
 
     # ------------------------------------------------ adaptive protection
     def _set_protection_level(self, level: int, evidence: dict) -> None:
         """Swap the active (ctx, plan, runner) set to ``level``, shrink a
-        fixed chunk budget while escalated (``shrink_chunk``), emit a
+        fixed chunk budget and a fixed draft length while escalated
+        (``shrink_chunk``, ``shrink_draft``: a smaller verify window is a
+        smaller retry blast radius), emit a
         ``protection_escalation`` instant with the rate evidence, re-emit
         the plan rows and re-baseline the fault-rate monitor."""
         self.protection_level = level
@@ -402,6 +460,12 @@ class ServeEngine:
                     // 8) * 8)
             else:
                 self.chunk_tokens = self._chunk_tokens_base
+        if self._draft_len_base is not None and self.adaptive is not None:
+            if level and self.adaptive.shrink_draft < 1.0:
+                self.draft_len = max(1, int(
+                    self._draft_len_base * self.adaptive.shrink_draft))
+            else:
+                self.draft_len = self._draft_len_base
         args = {"level": level,
                 "direction": "escalate" if level else "deescalate"}
         for k in ("window_detection_rate", "window_hard_fault_rate",
@@ -473,8 +537,9 @@ class ServeEngine:
         """The detect->retry window of one model call: on a raised flag
         retry with ``retry_fault`` (None, or the sticky fault itself) up to
         ``max_retries`` times (a chunk's retries also count in
-        ``chunk_retries``); record a tracked injection's outcome, shadow-
-        classifying it when undetected.  Returns (emitted, flag)."""
+        ``chunk_retries``, a verify window's in ``verify_retries``); record
+        a tracked injection's outcome, shadow-classifying it when
+        undetected.  Returns (emitted, flag)."""
         with self._tr.span("abft_check", {"phase": phase}):
             faulted = bool(flag)
         if faulted:
@@ -484,6 +549,8 @@ class ServeEngine:
                 self.stats.retries += 1
                 if phase == "prefill_chunk":
                     self.stats.chunk_retries += 1
+                elif phase == "verify":
+                    self.stats.verify_retries += 1
                 with self._tr.span("abft_retry", {"phase": phase}) as sp:
                     first, flag = attempt(retry_fault)
                     sp.fence(first, flag)
@@ -641,7 +708,7 @@ class ServeEngine:
         if self.chunk_tokens is not None:
             out = self._step_chunked(fault)
         else:
-            out = self._decode_core(fault)
+            out = self._serve_core(fault)
             if self.stats.steps > before:
                 self._observe_step_mix(self._last_decode_tokens, 0)
         # a fault that found no executing call (idle engine) corrupted
@@ -701,7 +768,7 @@ class ServeEngine:
         before = self.stats.steps
         self._last_decode_tokens = 0
         if self.active:
-            out = self._decode_core(decode_fault)
+            out = self._serve_core(decode_fault)
         if rows:
             if not self._run_prefill_chunk(rows, chunk_fault):
                 prefill_tokens = 0     # discarded: never actually served
@@ -892,6 +959,133 @@ class ServeEngine:
             del self.active[s]
             self.scheduler.release(s)
         self._last_decode_tokens = len(out)
+        return out
+
+    # ------------------------------------------------ speculative decoding
+    def _serve_core(self, fault: ModelFault | None = None) -> dict:
+        """One resident-slot step: the verify core when a proposer is
+        attached, else plain decode.  Leaves ``_last_decode_tokens`` at
+        the step's decode-side token count (window tokens for verify), so
+        the step's scheme selection sees the multiplied intensity."""
+        self._last_decode_tokens = 0
+        if self.spec is not None:
+            return self._verify_core(fault)
+        return self._decode_core(fault)
+
+    def _retune_draft_len(self) -> None:
+        """Auto draft length, re-tuned from live occupancy (the verify
+        step's token count is batch x (K+1)); ``shrink_draft`` applies
+        while escalated."""
+        k = max(1, self.plan.tune_draft_len(
+            batch=max(1, len(self.active))))
+        if self.adaptive is not None and self.protection_level \
+                and self.adaptive.shrink_draft < 1.0:
+            k = max(1, int(k * self.adaptive.shrink_draft))
+        self.draft_len = k
+
+    def _verify_core(self, fault: ModelFault | None = None) -> dict:
+        """One speculative verify step for every active slot: propose up
+        to ``draft_len`` tokens a slot (clamped to the slot's remaining
+        budget), score each slot's K_s+1 window in ONE ``verify`` call
+        (T = the longest window), then accept on the host.  Cursors move only after acceptance, so
+        a detected fault re-runs the window alone, rewriting exactly the
+        cells its attempt wrote; a sticky fault exhausts the retries and
+        evicts every resident slot.  Returns {uid: last emitted token}."""
+        if self.draft_auto:
+            self._retune_draft_len()
+        proposals: dict = {}
+        for s, req in sorted(self.active.items()):
+            budget = min(self.draft_len,
+                         req.max_new_tokens - len(req.generated) - 1)
+            d = (np.asarray(self.spec.propose(req, budget), np.int32)
+                 if budget > 0 else np.zeros((0,), np.int32))
+            proposals[s] = d[:max(0, budget)]
+            self.stats.draft_proposed += len(proposals[s])
+        # the paged growth/COW guard covers the whole window
+        self._copy_cow_blocks(self.scheduler.grow_for_verify(
+            {s: len(d) for s, d in proposals.items()}))
+        if not self.active:
+            return {}
+        # the window's width is the longest proposal's (the reference pads
+        # every step to draft_len + 1 for one jit shape; eager PyTorch has
+        # none to keep, and every row is computed in decode's order at any
+        # T, so a step whose drafts all missed costs what decode does)
+        T = 1 + max(len(proposals[s]) for s in self.active)
+        toks = np.zeros((self.slots, T), np.int64)
+        valid = np.zeros((self.slots,), np.int32)
+        for s, req in self.active.items():
+            d = proposals[s]
+            toks[s, 0] = req.generated[-1]
+            toks[s, 1:1 + len(d)] = d
+            valid[s] = len(d) + 1
+        window_tokens = int(valid.sum())
+        args = (self.params, self._dev(toks), self.cache,
+                self._dev(self.pos.copy()), self._dev(valid), self._tables())
+        meta = self._take_injection_meta("manual") \
+            if fault is not None else None
+        retry_f = fault if (meta is not None
+                            and meta.get("kind") == "permanent") else None
+
+        def attempt(fa):
+            return self.runner.verify(*args, fa)
+
+        def cells():
+            if self.pool is None:
+                return attention.verify_cells(args[3], args[4],
+                                              self.max_len)
+            return paged_cache.prefill_cells(self.cache[0]["k"], args[5],
+                                             args[4], T, args[3])
+
+        with self._tr.span("verify_step",
+                           {"tokens": window_tokens,
+                            "draft_len": self.draft_len}) as sp:
+            logits, flag = attempt(fault)
+            sp.fence(logits, flag)
+        self.stats.steps += 1
+        if self.pool is not None:
+            self.stats.observe_blocks_used(self.pool.blocks_used)
+            self.stats.blocks_shared_peak = max(
+                self.stats.blocks_shared_peak, self.pool.blocks_shared)
+        logits, flag = self._resolve("verify", attempt, logits, flag, meta,
+                                     retry_f, cells)
+        if bool(flag):
+            self.stats.hard_faults += 1
+            self._tr.instant("hard_fault", {"phase": "verify"})
+            if not self.policy.evict_on_hard_fault:
+                raise RuntimeError("persistent fault after retry")
+            victims = list(self.active.items())
+            self.active.clear()
+            self._finish_evicted(victims, "hard_fault:verify")
+            return {}
+        greedy = self.temperature <= 0.0
+        targets = (torch.argmax(logits, dim=-1).cpu().numpy() if greedy
+                   else None)
+        out = {}
+        finished = []
+        now = time.perf_counter()
+        for s, req in list(self.active.items()):
+            d = proposals[s]
+            if greedy:
+                emitted = greedy_accept(d, targets[s, :len(d) + 1])
+            else:
+                rows = logits[s, :len(d) + 1].float().cpu().numpy()
+                emitted = rejection_sample(
+                    d, target_probs(rows, self.temperature, self.top_k),
+                    self.generators[s])
+            self.stats.draft_accepted += len(emitted) - 1
+            for t in emitted:
+                req.generated.append(int(t))
+                req.times.append(now)
+                self.stats.tokens += 1
+            self.pos[s] += len(emitted)
+            out[req.uid] = int(emitted[-1])
+            if len(req.generated) >= req.max_new_tokens:
+                self.scheduler.finish(req)
+                finished.append(s)
+        for s in finished:
+            del self.active[s]
+            self.scheduler.release(s)
+        self._last_decode_tokens = window_tokens
         return out
 
     def run(self, requests: list, fault_at: tuple | None = None,

@@ -359,10 +359,28 @@ def _decode_index(pool, tables, pos):
     return blk, pos % bs, blk < nb
 
 
+def prefill_write_index(pool, tables, lengths, L: int,
+                        starts=None) -> tuple:
+    """(cells, src) of a paged prefill of ``L`` padded tokens a row: the
+    (block, offset) cells written and, for each, the index of its token
+    among the (A * L) rows.  One host read (the mask's ``nonzero``); a
+    speculative verify step builds it once and every layer writes through
+    it (``index_write``)."""
+    blk, off, keep = _prefill_index(pool, tables, lengths, L, starts)
+    a, t = keep.nonzero(as_tuple=True)
+    return (blk[a, t], off[a, t]), a * L + t
+
+
+def index_write(leaf, new, index) -> None:
+    """Write ``new`` (A, L, ...) into ``leaf`` through a ``(cells, src)``
+    index: integer indices only, so the write waits on nothing."""
+    cells, src = index
+    leaf[cells] = new.reshape(-1, *new.shape[2:])[src].to(leaf.dtype)
+
+
 def prefill_cells(pool, tables, lengths, L: int, starts=None) -> tuple:
     """Index of the pool cells ``paged_scatter_prefill`` writes."""
-    blk, off, keep = _prefill_index(pool, tables, lengths, L, starts)
-    return blk[keep], off[keep]
+    return prefill_write_index(pool, tables, lengths, L, starts)[0]
 
 
 def decode_cells(pool, tables, pos) -> tuple:
@@ -377,9 +395,8 @@ def paged_scatter_prefill(pool, new, tables, lengths, starts=None) -> None:
     t`` (``starts`` None: t — the suffix of a shared prefix or a prompt
     chunk resumes behind its resident KV); positions >= lengths[a] (and
     sentinel blocks) drop, so padding rows (lengths 0) write nothing."""
-    blk, off, keep = _prefill_index(pool, tables, lengths, new.shape[1],
-                                    starts)
-    pool[blk[keep], off[keep]] = new[keep].to(pool.dtype)
+    index_write(pool, new, prefill_write_index(pool, tables, lengths,
+                                               new.shape[1], starts))
 
 
 def paged_scatter_decode(pool, new, tables, pos) -> None:

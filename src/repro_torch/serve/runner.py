@@ -1,9 +1,11 @@
 """Model-runner layer of the serving engine (port of
 ``repro.serve.runner``): the eager ``decode``, ``prefill``,
-``prefill_prefix`` and ``prefill_chunk`` entry points with the
+``prefill_prefix``, ``prefill_chunk`` and ``verify`` entry points with the
 slot-masked sampler.  The prefill entry points run K1 with
 ``ABFTConfig.one_slice`` set (one K slice whatever M), so a prompt's rows
-get the same bits prefilled whole, as a suffix or in chunks.
+get the same bits prefilled whole, as a suffix or in chunks; ``verify``
+runs it with ``ABFTConfig.decode_rows`` set to the slot count, so a
+verify row gets the bits the decode step computes at its position.
 
 Sampling contract: greedy argmax (``temperature == 0``) draws nothing.
 With ``temperature > 0`` each row draws from ``softmax(logits / T)``
@@ -98,3 +100,20 @@ class ModelRunner:
         first = torch.where(final.to(first.device), first,
                             torch.full_like(first, -1))
         return first, flag
+
+    @torch.no_grad()
+    def verify(self, p, toks, cache, pos, valid, tables, fault):
+        """Speculative verify: score T = K+1 positions a slot in one call.
+        ``toks`` (B, T): each row's last committed token and its padded
+        draft window; ``valid`` (B,): the usable window a row.  Returns
+        (all T logits rows (B, T, V) f32, flag); acceptance and sampling
+        run on the host (``serve/spec_decode.py``), so the call draws
+        nothing and a retry redraws nothing.  Inactive rows (valid 0)
+        write nothing; their logits are never read."""
+        ctx = dataclasses.replace(
+            self.ctx, fault=fault,
+            abft=dataclasses.replace(self.ctx.abft,
+                                     decode_rows=toks.shape[0]))
+        logits, _, flag = self.model.verify(p, toks, cache, pos, ctx, valid,
+                                            block_tables=tables)
+        return logits, flag

@@ -377,25 +377,41 @@ class Scheduler:
         return rows
 
     def grow_for_decode(self) -> list:
-        """Paged guard: claim the block each cursor is about to enter and
-        copy on write any block another slot still references, BEFORE the
-        step (tables stay frozen across the attempt/retry window); a slot
-        that cannot grow is evicted with an error.  Returns the COW
-        (src, dst) pairs whose payload the engine copies on the device."""
+        """Paged decode guard: a decode step is a verify window of zero
+        drafts (``grow_for_verify``)."""
+        return self.grow_for_verify({})
+
+    def grow_for_verify(self, window: dict) -> list:
+        """Paged guard of a step that writes ``window[slot] + 1`` rows from
+        each cursor (``window[slot]``: the slot's draft count, 0 when
+        absent — a plain decode step).  Claims blocks through the window's
+        last write and copies on write every shared block the window
+        touches, BEFORE the step (tables stay frozen across the
+        attempt/retry window); a slot that cannot grow is evicted with an
+        error.  Returns the COW (src, dst) pairs whose payload the engine
+        copies on the device."""
         cow_pairs: list = []
         if self.pool is None:
             return cow_pairs
+        bs = self.pool.block_size
         for s in sorted(self.active):
-            idx = int(self.pos[s]) // self.pool.block_size
-            if idx < self.pool.slot_blocks(s) and \
-                    self.pool.refcount[self.pool.tables[s, idx]] > 1:
-                if self.pool.blocks_free == 0:
-                    req = self.active.pop(s)
-                    self.finish(req, "oom:kv_blocks", evict=True)
-                    self.release(s)
-                    continue
-                cow_pairs.append(self.pool.try_cow(s, idx))
-            if not self.pool.try_grow(s, int(self.pos[s]) + 1):
+            k_s = int(window.get(s, 0))
+            first = int(self.pos[s]) // bs
+            last = min((int(self.pos[s]) + k_s) // bs,
+                       self.pool.slot_blocks(s) - 1)
+            evicted = False
+            for idx in range(first, last + 1):
+                if self.pool.refcount[self.pool.tables[s, idx]] > 1:
+                    if self.pool.blocks_free == 0:
+                        req = self.active.pop(s)
+                        self.finish(req, "oom:kv_blocks", evict=True)
+                        self.release(s)
+                        evicted = True
+                        break
+                    cow_pairs.append(self.pool.try_cow(s, idx))
+            if evicted:
+                continue
+            if not self.pool.try_grow(s, int(self.pos[s]) + k_s + 1):
                 req = self.active.pop(s)
                 self.finish(req, "oom:kv_blocks", evict=True)
                 self.release(s)

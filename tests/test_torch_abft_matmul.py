@@ -369,3 +369,57 @@ def test_simt_forced_on_bf16_or_replica_raises():
         plan(x, w, mode="replica", **_blocks(512, 2048, 2048), force="simt")
     p = plan(x, w, mode="1s", **_blocks(512, 2048, 2048), force="tiled")
     assert p.route == "tiled" and p.tile == (64, 64)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("mode", ["1s", "2s"])
+def test_one_slice_leaves_the_gemv_out_for_thin_f32_chunks(m, mode):
+    """A prefill chunk of at most 8 f32 rows under ``one_slice`` takes the
+    one-slice SIMT pass 1 that a whole prompt (M > 8) takes, not the GEMV
+    (whose split comes from (K, N) alone): every row sums in the whole
+    prompt's order.  Without ``one_slice`` (decode) the GEMV stays."""
+    k, n = 2048, 512
+    x, w = _op(m, k, n, dtype=torch.float32)
+    b = _blocks(m, k, n)
+    p = plan(x, w, mode=mode, **b, one_slice=True)
+    assert p.route == "simt" and p.slices == 1 and p.depth >= k
+    assert "gemv" not in routes(x, w, b["bn"], mode, one_slice=True)
+    whole = plan(*_op(512, k, n, dtype=torch.float32), mode=mode,
+                 **_blocks(512, k, n), one_slice=True)
+    assert (whole.route, whole.slices, whole.depth) == \
+        (p.route, p.slices, p.depth)
+    assert plan(x, w, mode=mode, **b).route == "gemv"
+    # bf16 keeps the tensor cores either way
+    xb, wb = _op(m, k, n)
+    assert plan(xb, wb, mode=mode, **b, one_slice=True).route == "tc"
+
+
+@pytest.mark.parametrize("slots", [1, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+@pytest.mark.parametrize("k,n,head", [(2048, 2048, False),
+                                      (2048, 512, False),
+                                      (8192, 2048, False),
+                                      (2048, 128256, True)])
+def test_split_rows_pins_the_verify_split_to_decode(slots, dtype, k, n,
+                                                    head):
+    """``split_rows=slots``: a verify GEMM of slots x (K+1) rows, K = 1..8,
+    gets the K split of the decode GEMM of ``slots`` rows on the same
+    route, whatever its own row tiles (from 129 rows the unpinned split
+    halves)."""
+    xd, w = _op(slots, k, n, dtype=dtype, head=head)
+    dec = plan(xd, w, mode="1s", **_blocks(slots, k, n))
+    for K in range(1, 9):
+        m = slots * (K + 1)
+        x, w = _op(m, k, n, dtype=dtype, head=head)
+        p = plan(x, w, mode="1s", **_blocks(m, k, n), split_rows=slots)
+        if p.route != dec.route:
+            # f32 at <= 8 slots: the GEMV (or the head's tiles) cannot take
+            # the verify rows; ops runs those one step at a time
+            assert dtype == torch.float32 and slots <= 8
+            continue
+        assert (p.slices, p.depth) == (dec.slices, dec.depth), (m, K)
+        assert p.scratch["part_chk"][:2] == (p.slices, m)
+    x, w = _op(16 * 9, 2048, 2048)
+    assert plan(x, w, mode="1s", **_blocks(144, 2048, 2048)).slices == 4
+    assert plan(x, w, mode="1s", **_blocks(144, 2048, 2048),
+                split_rows=16).slices == 8

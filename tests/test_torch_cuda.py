@@ -1165,3 +1165,212 @@ def test_chunked_and_shared_streams_on_the_card_equal_unchunked(dev):
             eng.pool.check_invariants()
     for name in runs:
         assert streams[name] == streams["plain"], name
+
+
+def test_k1_one_slice_f32_chunks_of_at_most_8_rows_equal_whole(dev):
+    """An f32 prefill chunk of 1, 4 or 8 rows under ``one_slice`` takes the
+    one-slice SIMT pass 1 (not the GEMV) and gets, bit for bit, the rows
+    of the whole prompt's GEMM."""
+    x, w = _k1_inputs(dev, 512, 2048, 2048, torch.float32, seed=12)
+    kw = dict(mode="1s", out_dtype=torch.float32, one_slice=True)
+    whole, _ = ops.abft_matmul(x, w, **kw)
+    for a, n in ((0, 1), (5, 4), (100, 8), (504, 8)):
+        bm, bk, bn = _blocks(n, 2048, 2048)
+        assert am.plan(x[a:a + n], w, mode="1s", bm=bm, bk=bk, bn=bn,
+                       one_slice=True).route == "simt"
+        part, _ = ops.abft_matmul(x[a:a + n], w, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[a:a + n]), (a, n)
+
+
+# ------------------------------------------------- speculative verify
+
+# llama3.2-1b's GEMMs (K, N, tied head)
+VERIFY_GEMMS = [(2048, 2048, False), (2048, 512, False), (2048, 8192, False),
+                (8192, 2048, False), (2048, 128256, True)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("slots", [1, 4, 8, 16])
+def test_k1_verify_rows_equal_decode_rows(dev, slots, dtype):
+    """A verify GEMM of slots x (K+1) rows (``decode_rows=slots``), K = 1
+    to 8, gives row (b, t) bit for bit the decode GEMM's row b fed step
+    t alone, at llama3.2-1b's shapes: bf16 on the tensor cores with the
+    decode split pinned; f32 through the decode route step by step where
+    the rows cannot take it (the GEMV, the head's tiles)."""
+    for i, (k, n, head) in enumerate(VERIFY_GEMMS):
+        _, w = _k1_inputs(dev, 1, k, n, dtype, seed=40 + i, transposed=head)
+        for K in range(1, 9):
+            T = K + 1
+            g = torch.Generator(device=dev).manual_seed(100 * K + i)
+            x = torch.randn(slots, T, k, generator=g, device=dev).to(dtype)
+            out_dtype = torch.float32 if head else dtype
+            ver, chk = ops.abft_matmul(x, w, out_dtype=out_dtype,
+                                       decode_rows=slots)
+            assert not bool(chk.flag)
+            for t in range(T):
+                dec, _ = ops.abft_matmul(x[:, t:t + 1].contiguous(), w,
+                                         out_dtype=out_dtype)
+                assert torch.equal(ver[:, t], dec[:, 0]), (k, n, K, t)
+
+
+@pytest.mark.parametrize("slots", [1, 4, 8, 16])
+def test_verify_norms_equal_decode_norms(dev, slots):
+    """The verify path's norms over slots x T rows, T = 2 to 9, give each
+    step the decode step's bits: ``rms_norm`` and ``layer_norm`` over
+    d_model one step at a time (``per_step``), and qwen3-14b's q/k norms
+    (40 and 8 heads of 128) batched, as ``attention._qkv`` runs them."""
+    from repro_torch.models.layers import layer_norm, per_step, rms_norm
+
+    g = torch.Generator(device=dev).manual_seed(slots)
+    w = torch.randn(2048, generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn(2048, generator=g, device=dev).to(torch.bfloat16)
+    wq = torch.randn(128, generator=g, device=dev).to(torch.bfloat16)
+    for T in range(2, 10):
+        x = torch.randn(slots, T, 2048, generator=g,
+                        device=dev).to(torch.bfloat16)
+        q = torch.randn(slots, T, 40, 128, generator=g,
+                        device=dev).to(torch.bfloat16)
+        k = torch.randn(slots, T, 8, 128, generator=g,
+                        device=dev).to(torch.bfloat16)
+        for fn, t_in, args, stepwise in ((rms_norm, x, (w, 1e-5), True),
+                                         (layer_norm, x, (w, b, 1e-5), True),
+                                         (rms_norm, q, (wq, 1e-6), False),
+                                         (rms_norm, k, (wq, 1e-6), False)):
+            got = per_step(fn, t_in, *args) if stepwise else fn(t_in, *args)
+            for t in range(T):
+                dec = fn(t_in[:, t:t + 1].contiguous(), *args)
+                assert torch.equal(got[:, t:t + 1], dec), (fn, T, t)
+
+
+def test_batched_d_model_norm_sums_differ_from_decode(dev):
+    """Why the verify step runs its d_model norms one step at a time: at 4
+    slots a batched row reduction over 4 x 9 rows of 2048 sums rows in
+    another order than decode's over 4 rows (the library's thread block
+    for a row reduction depends on the row count below 16 rows), so the
+    f32 mean of squares differs in some row.  If this starts to fail, the
+    library reduces a row alike at both counts and ``per_step`` can go."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(4, 9, 2048, generator=g, device=dev).to(torch.bfloat16)
+
+    def mean_sq(a):              # ``rms_norm``'s reduction
+        af = a.float()
+        return (af * af).mean(dim=-1)
+
+    dec = torch.cat([mean_sq(x[:, t:t + 1].contiguous()) for t in range(9)],
+                    1)
+    assert not torch.equal(mean_sq(x), dec)
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_verify_attention_rows_equal_decode_attention(dev, kind):
+    """``verify_attention`` row t equals ``decode_attention`` at length
+    ``pos + 1 + t`` bit for bit, at llama3.2-1b's heads (H 32, KV 8, D
+    64) over a 1024-deep bf16 cache, dense or gathered from pools."""
+    from repro_torch.models.layers import decode_attention, verify_attention
+    from repro_torch.serve.paged_cache import paged_gather
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, S, H, KV, D = 4, 1024, 32, 8, 64
+    k = torch.randn(B, S, KV, D, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, S, KV, D, generator=g, device=dev).to(torch.bfloat16)
+    if kind == "paged":
+        perm = torch.randperm(B * S // 16, generator=g, device=dev)
+        pk = torch.empty_like(k.reshape(-1, 16, KV, D))
+        pv = torch.empty_like(pk)
+        pk[perm] = k.reshape(-1, 16, KV, D)
+        pv[perm] = v.reshape(-1, 16, KV, D)
+        tables = perm.reshape(B, S // 16).int()
+        k, v = paged_gather(pk, tables), paged_gather(pv, tables)
+    pos = torch.tensor([0, 37, 511, 1014], dtype=torch.int32, device=dev)
+    for T in (1, 5, 9):
+        q = torch.randn(B, T, H, D, generator=g,
+                        device=dev).to(torch.bfloat16)
+        got = verify_attention(q, k, v, pos + 1)
+        for t in range(T):
+            dec = decode_attention(q[:, t:t + 1].contiguous(), k, v,
+                                   pos + 1 + t)
+            assert torch.equal(got[:, t:t + 1], dec), (T, t)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_spec_streams_on_the_card_equal_unsped(dev, dtype):
+    """Scaled-down llama3.2-1b with K1 on the card, flash off: ngram at
+    K = 4 and ``"auto"`` (dense and paged) and self-draft give the unsped
+    engine's greedy streams exactly, K1 launched on every run, no clean
+    flag (f32 runs the verify GEMMs step by step through the GEMV)."""
+    cfg = scaled_down(get_config("llama3.2-1b"), n_layers=2)
+    model = Model(cfg)
+    params = model.init_params(5, dtype=dtype, device=dev)
+    rng = np.random.default_rng(8)
+    prompts = []
+    for n in (6, 11, 9):
+        span = rng.integers(1, 256, size=n)
+        prompts.append(np.concatenate(
+            [rng.integers(1, 256, size=20), span,
+             rng.integers(1, 256, size=5), span]).astype(np.int32))
+    prompts.append(rng.integers(1, 256, size=30).astype(np.int32))
+    runs = {"plain": {}, "plain_paged": dict(cache_kind="paged"),
+            "k4": dict(spec_decode="ngram", draft_len=4),
+            "k4_paged": dict(spec_decode="ngram", draft_len=4,
+                             cache_kind="paged"),
+            "auto": dict(spec_decode="ngram", draft_len="auto"),
+            "self": dict(spec_decode="self_draft", draft_len=3,
+                         draft_units=1, draft_window=16)}
+    streams, accepted = {}, 0
+    for name, kw in runs.items():
+        eng = ServeEngine(model, params, slots=2, max_len=160, dtype=dtype,
+                          device=dev, block_size=8, **kw)
+        k1 = am.KERNEL.launches
+        streams[name] = eng.run([Request(uid=i, prompt=p, max_new_tokens=16)
+                                 for i, p in enumerate(prompts)])
+        assert am.KERNEL.launches > k1
+        assert eng.stats.faults_detected == 0
+        accepted += eng.stats.draft_accepted
+        if eng.pool is not None:
+            eng.pool.check_invariants()
+    for name in runs:
+        assert streams[name] == streams["plain"], name
+    assert accepted > 0
+
+
+@pytest.mark.parametrize("scheme", ["global", "none"])
+def test_spec_streams_on_the_card_equal_unsped_plain_schemes(dev, scheme):
+    """Scaled-down bf16 llama3.2-1b under a plain scheme (``global``,
+    ``none``: ``torch.matmul``, no K1), flash off: ngram at K = 4 (dense
+    and paged) gives the unsped engine's greedy streams exactly (the
+    verify step runs the plain product step by step at the decode
+    shape), and K1 never launches."""
+    from repro_torch.core.policy import FixedPolicy
+    from repro_torch.core.schemes import Scheme
+
+    cfg = scaled_down(get_config("llama3.2-1b"), n_layers=2)
+    model = Model(cfg)
+    params = model.init_params(5, dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(9)
+    prompts = []
+    for n in (6, 11, 9, 7):
+        span = rng.integers(1, 256, size=n)
+        prompts.append(np.concatenate(
+            [rng.integers(1, 256, size=20), span,
+             rng.integers(1, 256, size=5), span]).astype(np.int32))
+    abft = ABFTConfig.from_policy(FixedPolicy(Scheme(scheme)))
+    runs = {"plain": {}, "k4": dict(spec_decode="ngram", draft_len=4),
+            "k4_paged": dict(spec_decode="ngram", draft_len=4,
+                             cache_kind="paged")}
+    streams, accepted = {}, 0
+    k1 = am.KERNEL.launches
+    for name, kw in runs.items():
+        eng = ServeEngine(model, params, slots=4, max_len=160,
+                          dtype=torch.bfloat16, device=dev, block_size=8,
+                          abft=abft, **kw)
+        streams[name] = eng.run([Request(uid=i, prompt=p, max_new_tokens=16)
+                                 for i, p in enumerate(prompts)])
+        assert eng.stats.faults_detected == 0
+        accepted += eng.stats.draft_accepted
+        if eng.pool is not None:
+            eng.pool.check_invariants()
+    assert am.KERNEL.launches == k1
+    for name in runs:
+        assert streams[name] == streams["plain"], name
+    assert accepted > 0

@@ -159,16 +159,16 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(setup, monkeypatch):
                                  dict(prefix_sharing=True,
                                       cache_kind="paged")])
 def test_unported_options_raise(setup, opt):
-    """Speculative decoding and ``mesh`` are not ported and raise
-    ``NotImplementedError``.  Chunked prefill and paged prefix sharing are
-    ported and construct; dense prefix sharing raises the reference's
-    ``ValueError``."""
+    """``mesh`` is not ported and raises ``NotImplementedError``.  Chunked
+    prefill, paged prefix sharing and speculative decoding (both
+    proposers) are ported, construct and serve; dense prefix sharing
+    raises the reference's ``ValueError``."""
     _, _, tm, tp, _ = setup
 
     def make():
         return ServeEngine(tm, tp, slots=1, max_len=16, device="cpu", **opt)
 
-    if "spec_decode" in opt or "mesh" in opt:
+    if "mesh" in opt:
         with pytest.raises(NotImplementedError):
             make()
     elif opt.get("prefix_sharing") and opt.get("cache_kind") != "paged":
@@ -259,13 +259,21 @@ def test_stats_setter_resets_the_counters_as_the_reference(setup):
 
 @pytest.mark.parametrize("opt", [dict(hints={"dp": 1}), dict(draft_len=4),
                                  dict(draft_len="auto"),
-                                 dict(draft_window=4), dict(draft_units=2)])
+                                 dict(draft_window=4), dict(draft_units=2),
+                                 dict(mesh=2)])
 def test_reference_options_raise_not_implemented(setup, opt):
-    """The reference's sharding hints and speculation options are accepted
-    and refused with NotImplementedError (not a TypeError); their
-    defaults construct."""
-    _, _, tm, tp, _ = setup
-    with pytest.raises(NotImplementedError):
-        ServeEngine(tm, tp, slots=1, max_len=16, device="cpu", **opt)
+    """Of the reference's options, sharding (``mesh``) and ``hints`` are
+    refused with NotImplementedError (not a TypeError).  The draft options
+    construct wherever the reference's do: without ``spec_decode`` both
+    engines accept and ignore them.  The defaults construct."""
+    jm, jp, tm, tp, _ = setup
+    if "hints" in opt or "mesh" in opt:
+        with pytest.raises(NotImplementedError):
+            ServeEngine(tm, tp, slots=1, max_len=16, device="cpu", **opt)
+    else:
+        jeng = JEngine(jm, jp, slots=1, max_len=16, dtype=jnp.float32, **opt)
+        teng = ServeEngine(tm, tp, slots=1, max_len=16, device="cpu", **opt)
+        assert jeng.spec is None and teng.spec is None
+        assert teng.draft_len == jeng.draft_len == 0
     ServeEngine(tm, tp, slots=1, max_len=16, device="cpu", hints=None,
-                draft_len=None, draft_window=8, draft_units=1)
+                mesh=None, draft_len=None, draft_window=8, draft_units=1)

@@ -66,6 +66,7 @@ def test_module_walk_finds_the_slice():
     for name in ("repro_torch.kernels.ops", "repro_torch.kernels.ref",
                  "repro_torch.kernels.flash_ops",
                  "repro_torch.serve.engine", "repro_torch.launch.serve",
+                 "repro_torch.serve.spec_decode",
                  "repro_torch.train.trainer", "repro_torch.launch.train",
                  "repro_torch.checkpoint.checkpoint",
                  "repro_torch.data.pipeline", "repro_torch.runtime.elastic",

@@ -143,3 +143,52 @@ def test_serve_cli_prefix_sharing_and_chunked_prefill(tmp_path, capsys,
     assert _checker().check(doc, tdoc) == []
     names = {e["name"] for e in tdoc["traceEvents"]}
     assert ("prefill_chunk" in names) == chunked
+
+
+@pytest.mark.parametrize("flags", [
+    ["--spec-decode", "ngram"],
+    ["--spec-decode", "ngram", "--draft-len", "3", "--cache", "paged",
+     "--inject-faults"],
+    ["--spec-decode", "self-draft", "--draft-len", "auto",
+     "--draft-model", "2@16"],
+], ids=["ngram_auto", "ngram_3_paged_fault", "self_draft_2at16"])
+def test_serve_cli_speculative_decoding(tmp_path, capsys, flags):
+    """``--spec-decode ngram|self-draft`` with ``--draft-len 3|auto`` and
+    ``--draft-model 2@16`` on the CPU: the same token count as the plain
+    run, no error, the ``spec_decode`` block of the stats line (and none
+    without the flag), a recovered verify fault, and a metrics artifact
+    and trace that pass the reference's schema gate."""
+    metrics, trace = (str(tmp_path / n) for n in ("m.json", "t.json"))
+    base = ["--device", "cpu", "--requests", "4", "--new-tokens", "6",
+            "--slots", "2"]
+    assert serve.main(base) == 0
+    plain = _stats_line(capsys.readouterr().out)
+    assert plain["spec_decode"] is None
+    assert serve.main(base + ["--metrics-out", metrics, "--trace-out",
+                              trace] + flags) == 0
+    line = _stats_line(capsys.readouterr().out)
+    assert line["tokens"] == plain["tokens"] == 24 and line["errors"] == {}
+    spec = line["spec_decode"]
+    assert spec["proposer"] == flags[1].replace("-", "_")
+    assert spec["draft_len"] == (3 if "3" in flags else spec["draft_len"])
+    assert spec["draft_len"] >= 1
+    assert 0 <= spec["draft_accepted"] <= spec["draft_proposed"]
+    if spec["draft_proposed"]:
+        assert spec["accept_rate"] == pytest.approx(
+            spec["draft_accepted"] / spec["draft_proposed"])
+    if "--inject-faults" in flags:
+        assert line["faults_detected"] == spec["verify_retries"] == 1
+    with open(metrics) as fh:
+        doc = json.load(fh)
+    with open(trace) as fh:
+        tdoc = json.load(fh)
+    assert doc["counters_match_stats"] is True
+    assert _checker().check(doc, tdoc) == []
+    assert "verify_step" in {e["name"] for e in tdoc["traceEvents"]}
+
+
+def test_serve_cli_draft_model_needs_self_draft(capsys):
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--spec-decode", "ngram",
+                    "--draft-model", "2@16"])
+    assert "--draft-model requires" in capsys.readouterr().err
