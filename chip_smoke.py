@@ -20,8 +20,10 @@ with prefix sharing and chunked prefill (llama3.2-1b, then qwen3-14b),
 every greedy stream held to the plain paged run's, faults included;
 ``spec`` serves copy and fresh traffic with speculative decoding (n-gram
 and self-draft proposers, the K+1-row verify step through K1), every
-greedy stream held to the unsped run's, faults included; and
-``family`` serves and scores the rest of the dense family.  Each phase
+greedy stream held to the unsped run's, faults included;
+``family`` serves and scores the rest of the dense family; and ``moe``
+holds K1 batched over experts against its plain version, then serves,
+scores and times full-width qwen2-moe-a2.7b.  Each phase
 prints JSON lines; any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -29,6 +31,8 @@ prints JSON lines; any failure exits non-zero.  The last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -44,7 +48,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
-          "campaign", "profile", "timing", "sharing", "spec", "family")
+          "campaign", "profile", "timing", "sharing", "spec", "family",
+          "moe")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -68,6 +73,16 @@ TRAIN_B, TRAIN_L, TRAIN_STEPS = 4, 128, 4
 # the dense family at full width, smallest first; the score's batch
 FAMILY_ARCHS = ("stablelm-1.6b", "qwen3-14b", "qwen1.5-32b")
 SCORE_B, SCORE_L = 1, 1024
+# the second arch of the sharing and spec phases: qwen3-14b at full width
+# and 10 of its 40 layers (its gates hold the paths at another arch's
+# widths, which the depth does not change; the run keeps to its time)
+SIDE_ARCH, SIDE_LAYERS = "qwen3-14b", 10
+
+
+def side_config():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(SIDE_ARCH), n_layers=SIDE_LAYERS)
 
 
 def emit(phase: str, **kw) -> None:
@@ -859,13 +874,14 @@ def train_runs(dev, workdir: str) -> dict:
 
 # ------------------------------------------------------------------ engine
 
-def engine_inputs(dev, arch: str = ENGINE_ARCH) -> tuple:
-    """Full-width weights of ``arch`` (bf16, seed 0), made on the card,
-    and the 8 prompts of 16-256 tokens every engine run serves."""
+def engine_inputs(dev, arch: str = ENGINE_ARCH, cfg=None) -> tuple:
+    """Full-width weights of ``arch`` (bf16, seed 0), or of ``cfg`` where
+    given, made on the card, and the 8 prompts of 16-256 tokens every
+    engine run serves."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     params = Model(cfg).init_params(0, dtype=torch.bfloat16, device=dev)
     rng = np.random.default_rng(0)
     lens = rng.integers(16, 257, size=8)
@@ -879,15 +895,16 @@ def engine_serve(model, params, prompts, dev, cache_kind, policy, *,
                  max_new_tokens=16):
     """One bf16 engine run (4 slots, max_len 512, flash on) of ``prompts``
     under ``policy`` on ``NVIDIA_H100_SXM``, every admission and decode
-    step timed to a synchronize; K1 and K3 counted from 0 for this run.
-    Emits the run's line under ``phase``; returns (streams, record,
-    engine)."""
+    step timed to a synchronize; K1 (its expert-batched launches apart,
+    also per decode step) and K3 counted from 0 for this run.  Emits the
+    run's line under ``phase``; returns (streams, record, engine)."""
     from repro_torch.core.hardware import NVIDIA_H100_SXM
     from repro_torch.core.protected import ABFTConfig
     from repro_torch.kernels import abft_matmul, flash_attention
     from repro_torch.serve.engine import Request, ServeEngine
 
     K1, K3 = abft_matmul.KERNEL, flash_attention.KERNEL
+    K1B = abft_matmul.BATCHED
     abft = ABFTConfig.from_policy(policy, hardware=NVIDIA_H100_SXM,
                                   flash_attention=True)
     eng = ServeEngine(model, params, slots=4, max_len=512, abft=abft,
@@ -895,7 +912,7 @@ def engine_serve(model, params, prompts, dev, cache_kind, policy, *,
                       cache_kind=cache_kind)
     reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new_tokens)
             for i, p in enumerate(prompts)]
-    t_pre, t_dec = [], []
+    t_pre, t_dec, step_batched = [], [], []
     admit, step = eng.admit, eng.step
 
     def timed_admit(*a, **k):
@@ -906,22 +923,25 @@ def engine_serve(model, params, prompts, dev, cache_kind, policy, *,
         return r
 
     def timed_step(*a, **k):
+        b0 = K1B.launches
         t = time.perf_counter()
         r = step(*a, **k)
         torch.cuda.synchronize()
         if r:
             t_dec.append(time.perf_counter() - t)
+            step_batched.append(K1B.launches - b0)
         return r
 
     eng.admit, eng.step = timed_admit, timed_step
     torch.cuda.synchronize()
-    K1.launches = K3.launches = 0        # counts of THIS run only
+    K1.launches = K3.launches = K1B.launches = 0   # THIS run's counts
     t0 = time.perf_counter()
     results = eng.run(reqs, fault_at=fault_at)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     del eng.admit, eng.step         # the timers close a cycle through eng
-    launches = {"abft_matmul": K1.launches, "flash_decode": K3.launches}
+    launches = {"abft_matmul": K1.launches, "flash_decode": K3.launches,
+                "abft_matmul_batched": K1B.launches}
     errors = {r.uid: r.error for r in reqs if r.error}
     need(not errors, f"{phase} {label}: errors {errors}")
     need(all(len(results[i]) == max_new_tokens for i in range(len(reqs))),
@@ -934,6 +954,9 @@ def engine_serve(model, params, prompts, dev, cache_kind, policy, *,
                prefill_ms=[1e3 * t for t in t_pre],
                decode_step_ms_median=1e3 * float(np.median(t_dec)),
                decode_steps=len(t_dec), launches=launches,
+               batched_launches_per_step={
+                   str(v): step_batched.count(v)
+                   for v in sorted(set(step_batched))},
                faults_detected=st.faults_detected, retries=st.retries,
                hard_faults=st.hard_faults,
                selection_trace=[f'{e["decode"]}+{e["prefill"]}:'
@@ -1507,22 +1530,45 @@ def family_plan(cfg) -> dict:
     return out
 
 
+def _gemm_sites(params) -> dict:
+    """The 2-D GEMM sites of layer 0 and the head: name -> (weight, output
+    dtype).  A dense FFN gives ``up`` and ``down``; an MoE FFN gives the
+    router (N = E, f32 out) and the shared experts' ``shared_up`` and
+    ``shared_down`` (its expert GEMMs are ``moe_k1_checks``')."""
+    lp = params["layers"][0]
+    bf, f32 = params["embed"].dtype, torch.float32
+    sites = {"q": (lp["mixer"]["wq"], bf), "kv": (lp["mixer"]["wk"], bf),
+             "o": (lp["mixer"]["wo"], bf)}
+    ffn = lp["ffn"]
+    if "router" in ffn:
+        sites["router"] = (ffn["router"], f32)
+        if "shared" in ffn:
+            sites["shared_up"] = (ffn["shared"]["up"], bf)
+            sites["shared_down"] = (ffn["shared"]["down"], bf)
+    else:
+        sites["up"], sites["down"] = (ffn["up"], bf), (ffn["down"], bf)
+    sites["head"] = (params["lm_head"] if "lm_head" in params
+                     else params["embed"].t(), f32)
+    return sites
+
+
 def family_checks(dev, cfg, params) -> dict:
     """K1 and K2 against their plain versions at ``cfg``'s shapes, before
-    its main path runs.  K1: each GEMM site's real weights (K up to
-    27392, N up to 152064) at M = 4 (a decode step) and 1024 (the score's
-    rows), and with ``one_slice`` (the serving prefill's plan) at M = 256
-    (a chunk) and 1024 (an admission), mode 1s on the route the path
-    takes, and a value fault and a bit flip in ``mlp.down`` flagged at
-    their block and row.  K2: causal
+    its main path runs.  K1: each 2-D GEMM site's real weights
+    (``_gemm_sites``; K up to 27392, N from 60 to 152064) at M = 4 (a
+    decode step) and 1024 (the score's rows), and with ``one_slice`` (the
+    serving prefill's plan) at M = 256 (a chunk) and 1024 (an admission),
+    mode 1s on the route the path takes, and a value fault and a bit flip
+    in the FFN's down projection (``down``, or ``shared_down``) flagged
+    at their block and row.  K2: causal
     bf16 at B = 1, L = 1024 with ``cfg``'s heads (D = 64 or 128, G = 1 or
     5).  K3 is held against its plain version layer by layer in
     ``k3_timing`` on the engine's own cache.
 
     Tolerances as ``k1_checks`` and ``k2_checks``: y within 2^-7 x max|y|
-    in bf16 (one rounding of either side; 1e-4 in f32, the head's output)
-    at the deepest K; bounds within 1e-4 relative; clean residuals under
-    the threshold on both sides."""
+    in bf16 (one rounding of either side; 1e-4 in f32, the head's and the
+    router's output) at the deepest K; bounds within 1e-4 relative; clean
+    residuals under the threshold on both sides."""
     from repro_torch.core.checksums import ATOL, tolerance_scale
     from repro_torch.core.faults import FaultSpec
     from repro_torch.kernels import ops
@@ -1534,20 +1580,14 @@ def family_checks(dev, cfg, params) -> dict:
     )
     from repro_torch.kernels.ref import abft_matmul_ref
 
-    lp = params["layers"][0]
-    gemms = {"q": lp["mixer"]["wq"], "kv": lp["mixer"]["wk"],
-             "o": lp["mixer"]["wo"], "up": lp["ffn"]["up"],
-             "down": lp["ffn"]["down"],
-             "head": params["lm_head"] if "lm_head" in params
-             else params["embed"].t()}
+    gemms = _gemm_sites(params)
     gen = torch.Generator(device=dev).manual_seed(11)
     ratios, worst, worst_abs, routes_taken = {}, 0.0, 0.0, {}
     one_abs = 0.0
     for m, one in ((4, False), (1024, False), (256, True), (1024, True)):
-        for name, w in gemms.items():
+        for name, (w, out_dtype) in gemms.items():
             k, n = w.shape
             x = torch.randn(m, k, generator=gen, device=dev).to(w.dtype)
-            out_dtype = torch.float32 if name == "head" else w.dtype
             bm, bk, bn = (min(b, -(-d // 8) * 8) for b, d in
                           ((256, m), (512, k), (256, n)))
             kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
@@ -1573,9 +1613,9 @@ def family_checks(dev, cfg, params) -> dict:
                 one_abs = max(one_abs, err)
             else:
                 worst_abs = max(worst_abs, err)
-            if name == "down":
+            if name in ("down", "shared_down"):
                 _k1_fault_check(ops, FaultSpec, x, w, "1s", out_dtype,
-                                f"{cfg.name} down", one_slice=one)
+                                f"{cfg.name} {name}", one_slice=one)
     need(all(v < 1 for v in ratios.values()),
          f"K1 clean residual at or over its threshold: {ratios}")
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -1620,8 +1660,9 @@ def _forward_f32_layerwise(model, params, tokens):
     x = params["embed"][tokens].float()
     positions = torch.arange(L, device=tokens.device).expand(B, L)
     for i, lp in enumerate(params["layers"]):
-        x, _ = model.apply_layer(x, tree_map(lambda t: t.float(), lp),
-                                 ctx.with_layer(i), positions, "full", None)
+        x, _, _ = model.apply_layer(x, tree_map(lambda t: t.float(), lp),
+                                    ctx.with_layer(i), positions, "full",
+                                    None)
     return norm(x, tree_map(lambda t: t.float(), params["final_norm"]),
                 cfg.norm, cfg.norm_eps)
 
@@ -2175,16 +2216,16 @@ def prefill_attention_timing(dev, cfg) -> dict:
 
 
 def sharing_qwen(dev) -> dict:
-    """qwen3-14b at full width (G = 5, q/k norm): the prefix traffic under
-    sharing with chunks of 256 against its unshared, unchunked run."""
-    from repro_torch.configs import get_config
+    """qwen3-14b at full width (G = 5, q/k norm; ``SIDE_LAYERS`` layers):
+    the prefix traffic under sharing with chunks of 256 against its
+    unshared, unchunked run."""
     from repro_torch.models.model import Model
 
-    arch = "qwen3-14b"
-    cfg = get_config(arch)
+    arch = SIDE_ARCH
+    cfg = side_config()
     model = Model(cfg)
     free_memory()
-    params, _ = engine_inputs(dev, arch)
+    params, _ = engine_inputs(dev, cfg=cfg)
     prefix, _ = sharing_traffic(cfg.vocab_size)
     ref = share_serve(model, params, prefix, dev, f"{arch} reference",
                       cache_kind="paged")
@@ -2194,7 +2235,7 @@ def sharing_qwen(dev) -> dict:
     _same_streams(both, ref, f"{arch} sharing_chunk256")
     need(both["prefix_tokens_shared"] > 0 and both["prefill_chunks"] > 0,
          f"{arch}: no prefix shared or no chunk ran")
-    rec = dict(arch=arch, streams_equal=True,
+    rec = dict(arch=arch, layers=cfg.n_layers, streams_equal=True,
                prefill_attention_ms=prefill_attention_timing(dev, cfg),
                decode_step_ms={"reference": ref["decode_step_ms_median"],
                                "sharing_chunk256":
@@ -2652,18 +2693,17 @@ def spec_llama(dev, params=None) -> dict:
 
 
 def spec_qwen(dev) -> dict:
-    """qwen3-14b at full width (G = 5, q/k norm): copy traffic unsped,
-    with ngram ``"auto"`` and with the oracle at K = 8 (every step at T >
-    1 while a draft is left: the batched q/k norms at 4 x 9 rows), dense;
-    streams equal."""
-    from repro_torch.configs import get_config
+    """qwen3-14b at full width (G = 5, q/k norm; ``SIDE_LAYERS`` layers):
+    copy traffic unsped, with ngram ``"auto"`` and with the oracle at K =
+    8 (every step at T > 1 while a draft is left: the batched q/k norms at
+    4 x 9 rows), dense; streams equal."""
     from repro_torch.models.model import Model
 
-    arch = "qwen3-14b"
-    cfg = get_config(arch)
+    arch = SIDE_ARCH
+    cfg = side_config()
     model = Model(cfg)
     free_memory()
-    params, _ = engine_inputs(dev, arch)
+    params, _ = engine_inputs(dev, cfg=cfg)
     copy = spec_traffic(cfg.vocab_size)["copy"]
     ref = spec_serve(model, params, copy, dev, f"{arch} unsped")
     auto = spec_serve(model, params, copy, dev, f"{arch} ngram_auto",
@@ -2675,7 +2715,7 @@ def spec_qwen(dev) -> dict:
     _same_spec_streams(oracle, ref, f"{arch} oracle_k8")
     need(oracle["acceptance"] == 1.0,
          f"spec {arch} oracle: a draft of the unsped stream was rejected")
-    rec = dict(arch=arch, streams_equal=True,
+    rec = dict(arch=arch, layers=cfg.n_layers, streams_equal=True,
                tokens_per_s={"unsped": ref["tokens_per_s"],
                              "ngram_auto": auto["tokens_per_s"],
                              "oracle_k8": oracle["tokens_per_s"]},
@@ -2700,6 +2740,500 @@ def spec_runs(dev, params=None) -> dict:
     free_memory()
     out["qwen"] = spec_qwen(dev)
     return out
+
+
+# ------------------------------------------------------------------ moe
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+# expert capacity at a decode step of 4 slots and at an admission of 4
+# prompts padded to 256 tokens (1024 tokens, top-4 of 60, factor 1.25)
+MOE_C = (4, 88)
+MOE_E = 60                          # its routed experts; (K, N) a GEMM
+MOE_SHAPES = {"up": (2048, 1408), "down": (1408, 2048)}
+
+
+def _moe_clamp(C, k, n):
+    return tuple(min(b, -(-d // 8) * 8) for b, d in
+                 ((256, C), (512, k), (256, n)))
+
+
+def _moe_fault_check(x, w, mode, name) -> None:
+    """A value fault at (C - 1, N / 2 + 3) — not batched, so in every
+    expert — is flagged in every expert at its (block_i, block_j, row),
+    by the kernel and by the plain version alike."""
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import abft_matmul_batched_ref
+
+    E, C, k = x.shape
+    n = w.shape[2]
+    row, col = C - 1, n // 2 + 3
+    bm, bk, bn = _moe_clamp(C, k, n)
+    fault = FaultSpec.value(row, col, 1e5)
+    _, chk = ops.abft_matmul_batched(x, w, mode=mode, fault=fault)
+    fidx = (row // bm, col // bn, row % bm, col % bn, 1, -1)
+    _, resp, _ = abft_matmul_batched_ref(x, w, fidx, 1e5, mode=mode, bm=bm,
+                                         bk=bk, bn=bn, out_dtype=x.dtype)
+    need(bool(chk.flag), f"batched K1 missed the fault {name} {mode}")
+    flagged = (chk.residual > chk.threshold).reshape(E, -1).any(1)
+    need(bool(flagged.all()), f"batched K1 {name} {mode}: the fault "
+         f"flagged in {int(flagged.sum())} of {E} experts")
+    want = (row // bm, col // bn) + (() if mode == "2s" else (row % bm,))
+    flat = int(np.ravel_multi_index(want, tuple(chk.residual.shape[1:])))
+    for who, res in (("kernel", chk.residual), ("plain", resp)):
+        at = res.nan_to_num(float("inf")).reshape(E, -1).argmax(1)
+        need(bool((at == flat).all()), f"batched K1 {who} fault {name} "
+             f"{mode}: not at {want} in every expert")
+
+
+def moe_k1_checks(dev) -> dict:
+    """K1 batched over experts against its plain version
+    (``abft_matmul_batched_ref``), one launch a call: qwen2-moe-a2.7b's
+    expert GEMMs (E = 60; K, N = 2048, 1408 and 1408, 2048) at the
+    capacities of a decode step (C = 4), an admission (88) and a ragged
+    one (13): bf16 1s and 2s on the tensor cores, replica on the CUDA-core
+    tiles, f32 1s on the GEMV (C = 4) and the SIMT pass (13, 88); then
+    the scaled-down shapes (E = 8; K, N = 64, 32 and 32, 64; C = 2 and 8),
+    whose K of 32 is a ragged TMA box, and an expert stride that is no
+    16-byte multiple (the tiles).  A value fault is flagged in every
+    expert at its block and row.
+
+    Tolerances as ``k1_checks``: y within 2^-7 x max|y| in bf16 (one
+    rounding of either side), 1e-4 x max|y| in f32 (sums in another
+    order); bounds within 1e-4 relative; clean residuals under the
+    threshold on both sides (rounding noise, not comparable element by
+    element)."""
+    from repro_torch.core.checksums import ATOL, tolerance_scale
+    from repro_torch.kernels import abft_matmul
+    from repro_torch.kernels.abft_matmul import abft_matmul_kernel, plan
+    from repro_torch.kernels.ref import abft_matmul_batched_ref
+
+    K1, K1B = abft_matmul.KERNEL, abft_matmul.BATCHED
+    gen = torch.Generator(device=dev).manual_seed(19)
+    ratios, worst, cases, routes_taken = {}, {}, 0, {}
+
+    def case(E, C, k, n, dtype, mode, name, fault=False, odd=False):
+        nonlocal cases
+        if odd:     # expert e starts 2 e bytes off a 16-byte boundary
+            buf = (0.02 * torch.randn(E * (k * n + 1), generator=gen,
+                                      device=dev)).to(dtype)
+            w = buf.as_strided((E, k, n), (k * n + 1, n, 1))
+        else:
+            w = (0.02 * torch.randn(E, k, n, generator=gen,
+                                    device=dev)).to(dtype)
+        x = torch.randn(E, C, k, generator=gen, device=dev).to(dtype)
+        bm, bk, bn = _moe_clamp(C, k, n)
+        kw = dict(mode=mode, bm=bm, bk=bk, bn=bn, out_dtype=dtype)
+        tau_of = (lambda b: ATOL
+                  + tolerance_scale(-(-k // bk) * bk) * b)
+        yp, resp, bndp = abft_matmul_batched_ref(x, w, **kw)
+        l0, b0 = K1.launches, K1B.launches
+        y, res, bnd = abft_matmul_kernel(x, w, **kw)
+        torch.cuda.synchronize()
+        need(K1.launches - l0 == 1 and K1B.launches - b0 == 1,
+             f"batched K1 {name}: {K1.launches - l0} launches for one call")
+        need(res.shape == resp.shape and y.shape == yp.shape,
+             f"batched K1 {name}: shapes {tuple(res.shape)}")
+        scale = yp.float().abs().max().item()
+        tol = (1e-4 if dtype == torch.float32 else 2 ** -7) * scale
+        err = (y.float() - yp.float()).abs().max().item()
+        tag = f"{name} E={E} C={C} K={k} N={n} {str(dtype)[6:]} {mode}"
+        need(err <= tol, f"batched K1 y {tag}: err {err} > {tol}")
+        berr = ((bnd - bndp).abs() / bndp.abs().clamp_min(1e-30)).max()
+        need(berr.item() <= 1e-4, f"batched K1 bnd {tag}: {berr.item()}")
+        r = ("tiled" if odd else plan(x[0], w[0], mode=mode, bm=bm, bk=bk,
+                                      bn=bn, experts=E).route)
+        key = f"{r}_{str(dtype)[6:]}_{mode}"
+        ratios[key] = max(ratios.get(key, 0.0),
+                          (res / tau_of(bnd)).max().item(),
+                          (resp / tau_of(bndp)).max().item())
+        worst[key] = max(worst.get(key, 0.0), err)
+        routes_taken[tag] = r
+        cases += 1
+        if fault:
+            _moe_fault_check(x, w, mode, name)
+
+    for name, (k, n) in MOE_SHAPES.items():
+        for C in (*MOE_C, 13):
+            for mode in ("1s", "2s"):
+                case(MOE_E, C, k, n, torch.bfloat16, mode, name,
+                     fault=C != 13)
+            case(MOE_E, C, k, n, torch.float32, "1s", name, fault=C == 4)
+        case(MOE_E, 4, k, n, torch.bfloat16, "replica", name, fault=True)
+    for (k, n), name in (((64, 32), "small_up"), ((32, 64), "small_down")):
+        for C in (2, 8):
+            for dtype in (torch.bfloat16, torch.float32):
+                case(8, C, k, n, dtype, "1s", name, fault=True)
+        case(8, 8, k, n, torch.bfloat16, "1s", f"{name}_odd_stride",
+             odd=True)
+    need(all(v < 1 for v in ratios.values()),
+         f"batched K1 clean residual at or over its threshold: {ratios}")
+    return {"cases": cases, "max_abs_err_y": worst,
+            "worst_clean_residual_over_threshold": ratios,
+            "routes": sorted(set(routes_taken.values()))}
+
+
+def moe_k1_timing(dev, params) -> dict:
+    """One MoE layer's expert GEMMs (layer 0: up and gate at K, N = 2048,
+    1408, down at 1408, 2048; E = 60) at each capacity of ``MOE_C``, bf16
+    mode 1s, by CUDA-graph replay: K1 batched (3 launches), its plain
+    version, ``torch.bmm`` and the bound (each input read and each output
+    written once, the residual and bound arrays included; 2 E C K N FLOP
+    at the bf16 tensor-core rate)."""
+    from repro_torch.kernels.abft_matmul import abft_matmul_kernel
+    from repro_torch.kernels.ref import abft_matmul_batched_ref
+
+    ffn = params["layers"][0]["ffn"]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    for C in MOE_C:
+        calls = []
+        b_ms, by = 0.0, set()
+        for wname in ("w_up", "w_gate", "w_down"):
+            w = ffn[wname]
+            E, k, n = w.shape
+            x = torch.randn(E, C, k, generator=gen, device=dev).to(w.dtype)
+            bm, bk, bn = _moe_clamp(C, k, n)
+            calls.append((x, w, dict(mode="1s", bm=bm, bk=bk, bn=bn,
+                                     out_dtype=w.dtype)))
+            t, b = _gemm_bound(C, k, n, 2, 2,
+                               -(-C // bm) * -(-n // bn) * bm)
+            b_ms += E * t
+            by.add(b)
+
+        def kern():
+            for x, w, kw in calls:
+                abft_matmul_kernel(x, w, **kw)
+
+        def plain():
+            for x, w, kw in calls:
+                abft_matmul_batched_ref(x, w, **kw)
+
+        def lib():
+            for x, w, _ in calls:
+                torch.bmm(x, w)
+
+        out[f"experts_c{C}"] = {
+            "C": C, "gemms": 3, "launches": 3,
+            "ms": timed_graph(kern, iters=10),
+            "ms_eager": timed(kern, iters=10),
+            "plain_ms": timed_graph(plain, iters=3),
+            "library_ms": timed_graph(lib, iters=10),
+            "bound_ms": b_ms,
+            "bound_by": by.pop() if len(by) == 1 else "mixed"}
+    emit("moe_k1_timing", **out)
+    return out
+
+
+@contextlib.contextmanager
+def _routing_log():
+    """Records each MoE layer's top-k expert ids, sorted within a token,
+    while the block is open (wraps ``moe.top_k``; one entry a layer)."""
+    from repro_torch.models import moe as moe_mod
+
+    top_k, log = moe_mod.top_k, []
+
+    def logged(probs, k):
+        vals, idx = top_k(probs, k)
+        log.append(idx.sort(-1).values)
+        return vals, idx
+
+    moe_mod.top_k = logged
+    try:
+        yield log
+    finally:
+        moe_mod.top_k = top_k
+
+
+def _routing_diff(a, b, pos_err, L) -> dict:
+    """Two runs' routing logs (one (T, K) entry a layer, T = 1 x L) and one
+    run's per-position logit error: the share of tokens whose top-k set
+    differs in each layer, the positions routed alike in every layer and
+    the error there, and the error before the first position whose
+    routing differs in any layer (attention carries a difference only
+    forward, so those positions saw the same experts at every step)."""
+    differ = torch.stack([(x != y).any(-1) for x, y in zip(a, b)])
+    alike = ~differ.any(0)
+    first = int(differ.any(0).float().argmax().item()) \
+        if bool(differ.any()) else L
+    err = pos_err.reshape(-1)
+    return {"differs_share_per_layer": differ.float().mean(1).tolist(),
+            "positions_routed_alike": int(alike.sum().item()),
+            "max_abs_err_routed_alike": (err[alike].max().item()
+                                         if bool(alike.any()) else None),
+            "max_abs_err_routed_apart": (err[~alike].max().item()
+                                         if not bool(alike.all()) else None),
+            "first_position_routed_apart": first,
+            "max_abs_err_before_it": (err[:first].max().item()
+                                      if first else None)}
+
+
+def moe_score(dev, model, params) -> dict:
+    """``Model.forward`` at 1 x 1024 under ``IntensityGuidedPolicy`` with
+    K2 on: logits finite and of the expected shape, no flag, K2 once a
+    layer, K1 batched three times a MoE layer, and the load-balance loss
+    (recorded, a sum over the layers); the chunked path beside it, and
+    both against the same weights run in f32 layer by layer (the head in
+    column chunks): errors and argmax agreement recorded (a router near a
+    tie may send a token elsewhere on another path, and the token's later
+    positions with it).  The routing of each path is logged and held
+    against the f32 run's (``_routing_diff``): the error at positions
+    routed alike separates arithmetic from routing, and there too the
+    flash path's error is at most 1.5 x the chunked path's."""
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import IntensityGuidedPolicy
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.kernels import abft_matmul, flash_attention
+    from repro_torch.models.layers import LayerCtx
+
+    K1, K1B = abft_matmul.KERNEL, abft_matmul.BATCHED
+    K2 = flash_attention.FULL_KERNEL
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, size=(SCORE_B, SCORE_L)).astype(np.int64)).to(dev)
+
+    def run(flash):
+        ctx = LayerCtx(abft=ABFTConfig.from_policy(
+            IntensityGuidedPolicy(), hardware=NVIDIA_H100_SXM,
+            flash_attention=flash))
+        torch.cuda.synchronize()
+        K1.launches = K1B.launches = K2.launches = 0     # THIS run's
+        t = time.perf_counter()
+        with torch.no_grad(), _routing_log() as routes:
+            out = model.forward(params, {"tokens": tokens}, ctx, device=dev)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t), {
+            "abft_matmul": K1.launches, "abft_matmul_batched": K1B.launches,
+            "flash_attention": K2.launches}, routes
+
+    flash, ms, launches, routes_f = run(True)
+    chunked, ms_chunked, _, routes_c = run(False)
+    lf = flash.logits
+    need(lf.shape == (SCORE_B, SCORE_L, cfg.vocab_size)
+         and lf.dtype == torch.float32, f"moe logits {tuple(lf.shape)}")
+    need(bool(torch.isfinite(lf).all()), "moe: non-finite logits")
+    need(not bool(flash.flag) and not bool(chunked.flag),
+         "moe: clean forward raised a flag")
+    need(launches["flash_attention"] == cfg.n_layers,
+         f"moe: K2 launched {launches['flash_attention']} times")
+    need(launches["abft_matmul_batched"] == 3 * cfg.n_layers,
+         f"moe: batched K1 launched {launches['abft_matmul_batched']} "
+         f"times, expected {3 * cfg.n_layers}")
+    aux = float(flash.aux_loss)
+    need(np.isfinite(aux), "moe: aux loss not finite")
+    lc = chunked.logits
+    with torch.no_grad():
+        with _routing_log() as routes_32:
+            h32 = _forward_f32_layerwise(model, params, tokens)
+        head = params["lm_head"]
+        pos_f = torch.zeros(lf.shape[:2], device=dev)
+        pos_c = torch.zeros(lf.shape[:2], device=dev)
+        best32 = torch.full(lf.shape[:2], -float("inf"), device=dev)
+        arg32 = torch.zeros(lf.shape[:2], dtype=torch.long, device=dev)
+        for c0 in range(0, cfg.vocab_size, 16384):
+            c1 = min(c0 + 16384, cfg.vocab_size)
+            l32 = h32 @ head[:, c0:c1].float()
+            pos_f = torch.maximum(pos_f, (lf[..., c0:c1] - l32).abs()
+                                  .amax(-1))
+            pos_c = torch.maximum(pos_c, (lc[..., c0:c1] - l32).abs()
+                                  .amax(-1))
+            m, a = l32.max(-1)
+            take = m > best32
+            best32 = torch.where(take, m, best32)
+            arg32 = torch.where(take, a + c0, arg32)
+        del h32, l32
+    err_f, err_c = pos_f.max().item(), pos_c.max().item()
+    need(err_f <= 1.5 * err_c, f"moe: flash vs f32 err {err_f} > 1.5 x "
+         f"the chunked path's {err_c}")
+    need(len(routes_f) == len(routes_c) == len(routes_32) == cfg.n_layers,
+         f"moe: routing logged for {len(routes_f)}, {len(routes_c)}, "
+         f"{len(routes_32)} layers")
+    routing = {"flash_vs_f32": _routing_diff(routes_f, routes_32, pos_f,
+                                             SCORE_L),
+               "chunked_vs_f32": _routing_diff(routes_c, routes_32, pos_c,
+                                               SCORE_L),
+               "flash_vs_chunked": _routing_diff(
+                   routes_f, routes_c, (lf - lc).abs().amax(-1), SCORE_L)}
+    alike_f = routing["flash_vs_f32"]["max_abs_err_routed_alike"]
+    alike_c = routing["chunked_vs_f32"]["max_abs_err_routed_alike"]
+    need(alike_f is not None and alike_c is not None
+         and alike_f <= 1.5 * alike_c,
+         f"moe: at positions routed as the f32 run routes them, flash vs "
+         f"f32 err {alike_f} > 1.5 x the chunked path's {alike_c}")
+    rec = dict(B=SCORE_B, L=SCORE_L, launches=launches, ms=ms,
+               chunked_ms=ms_chunked, aux_loss=aux,
+               aux_loss_per_layer=aux / cfg.n_layers,
+               logits_max_abs_err_flash_vs_f32=err_f,
+               logits_max_abs_err_chunked_vs_f32=err_c,
+               argmax_agreement_flash_vs_f32=(
+                   lf.argmax(-1) == arg32).float().mean().item(),
+               argmax_agreement_chunked_vs_f32=(
+                   lc.argmax(-1) == arg32).float().mean().item(),
+               argmax_agreement_flash_vs_chunked=(
+                   lf.argmax(-1) == chunked.logits.argmax(-1)).float()
+               .mean().item(),
+               logits_max_abs_diff_flash_vs_chunked=(
+                   lf - chunked.logits).abs().max().item(),
+               logits_scale=lf.abs().max().item(), routing=routing)
+    del flash, chunked, lf, lc
+    emit("moe_score", **rec)
+    return rec
+
+
+def moe_runs(dev) -> dict:
+    """qwen2-moe-a2.7b at full width (published dims, all 24 layers; bf16
+    weights from seed 0, made on the card): the batched K1 against its
+    plain version, the plan, serving (4 slots, max_len 512, 8 requests of
+    16-256 tokens, 16 new each, flash on: dense and paged streams equal,
+    no clean flag, K1 batched three times a MoE layer each decode step,
+    an ``expert_up`` and a ``router`` fault each flagged and recomputed
+    to the clean streams, a ``global`` run), the decode step's profile,
+    the score at 1 x 1024 and the expert GEMMs' times.  Before serving,
+    every 2-D K1 site (attention, router, shared experts, head) and K2 at
+    its heads are held against their plain versions at full width
+    (``family_checks``), and K3 on the dense engine's cache layer by layer
+    (``k3_timing``).  Frees its weights before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.policy import FixedPolicy, IntensityGuidedPolicy
+    from repro_torch.core.schemes import Scheme
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.models.model import Model, layer_tags
+
+    t0 = time.perf_counter()
+    checks = moe_k1_checks(dev)
+    emit("moe_k1_check", **checks)
+    cfg = get_config(MOE_ARCH)
+    model = Model(cfg)
+    n_moe = sum(t == "attn:moe:0" for t in layer_tags(cfg))
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params, prompts = engine_inputs(dev, MOE_ARCH)
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    emit("moe_plan", arch=MOE_ARCH, init_s=time.perf_counter() - t1,
+         weights_gb=weights / 1e9, moe_layers=n_moe, **family_plan(cfg))
+    fchecks = family_checks(dev, cfg, params)
+    emit("moe_family_check", arch=MOE_ARCH, **fchecks)
+
+    def serve(cache_kind, policy=None, fault_at=None, label="", reqs=None,
+              new=16):
+        return engine_serve(model, params, prompts if reqs is None else reqs,
+                            dev, cache_kind, policy or IntensityGuidedPolicy(),
+                            fault_at=fault_at, label=f"{MOE_ARCH} {label}",
+                            phase="moe_engine", max_new_tokens=new)
+
+    serve("dense", label="warmup", reqs=prompts[:1], new=2)
+    free_memory()
+    dense, rec_dense, eng = serve("dense", label="dense")
+    prof = decode_profile(dev, {"engine": eng, "params": params,
+                                "prompts": prompts, "dense": rec_dense})
+    emit("moe_decode_profile", **prof)
+    t3 = k3_timing(dev, eng, prompts, long_context=False)
+    del eng
+    free_memory()
+    paged, rec_paged, _ = serve("paged", label="paged")
+    free_memory()
+    for rec in (rec_dense, rec_paged):
+        need(rec["launches"]["abft_matmul"] > 0
+             and rec["launches"]["flash_decode"] > 0,
+             f"moe {rec['label']}: K1 or K3 never launched")
+        need(rec["batched_launches_per_step"] == {
+            str(3 * n_moe): rec["decode_steps"]},
+             f"moe {rec['label']}: batched K1 launches a decode step "
+             f"{rec['batched_launches_per_step']}, expected {3 * n_moe}")
+        need(rec["faults_detected"] == 0, f"moe {rec['label']}: a clean "
+             f"run raised a flag")
+    need(paged == dense, "moe: paged streams differ from dense")
+    faults = {}
+    for site in ("expert_up", "router"):
+        fault = ModelFault.at(1, site, FaultSpec.value(0, 1, 1e5))
+        faulted, rec_fault, _ = serve("dense", fault_at=(3, fault),
+                                      label=f"dense_{site}_fault")
+        free_memory()
+        need(rec_fault["faults_detected"] >= 1
+             and rec_fault["retries"] >= 1,
+             f"moe: {site} fault not detected and retried")
+        need(faulted == dense, f"moe: the {site} fault run's streams "
+             f"differ from the clean run")
+        faults[site] = dict(faults_detected=rec_fault["faults_detected"],
+                            retries=rec_fault["retries"])
+    glob, rec_glob, _ = serve("dense", FixedPolicy(Scheme.GLOBAL),
+                              label="dense_global")
+    free_memory()
+    need(rec_glob["faults_detected"] == 0, "moe: global scheme false flag")
+    need(rec_glob["launches"]["abft_matmul"] == 0,
+         "moe: the global run launched K1")
+    score = moe_score(dev, model, params)
+    free_memory()
+    timing = moe_k1_timing(dev, params)
+    t2 = k2_timing(dev, (SCORE_B, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.resolved_head_dim), SCORE_L, arch=MOE_ARCH)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    free_memory()
+    agree_g = float(np.mean([a == b for k in dense
+                             for a, b in zip(dense[k], glob[k])]))
+    rec = dict(
+        arch=MOE_ARCH, layers=cfg.n_layers, experts=cfg.n_experts,
+        top_k=cfg.experts_per_token, weights_gb=weights / 1e9,
+        decode_bound_ms=weights / HBM_BW * 1e3,
+        tokens_per_s=rec_dense["tokens_per_s"],
+        paged_tokens_per_s=rec_paged["tokens_per_s"],
+        decode_step_ms_median=rec_dense["decode_step_ms_median"],
+        paged_decode_step_ms_median=rec_paged["decode_step_ms_median"],
+        prefill_ms_per_admission=rec_dense["prefill_ms"],
+        launches=rec_dense["launches"],
+        paged_launches=rec_paged["launches"],
+        batched_launches_per_step=rec_dense["batched_launches_per_step"],
+        dense_equals_paged=True, faults_recomputed=faults,
+        global_tokens_per_s=rec_glob["tokens_per_s"],
+        global_decode_step_ms_median=rec_glob["decode_step_ms_median"],
+        dense_vs_global_tokens=agree_g,
+        schemes=sorted({e.split(":")[1]
+                        for e in rec_dense["selection_trace"]}),
+        decode_device_ms=prof["device_ms_per_step"],
+        decode_idle_share=prof["idle_share"],
+        score=score, peak_memory_gb=peak / 1e9,
+        seconds=time.perf_counter() - t0)
+    emit("moe", **rec)
+    return {"rec": rec, "checks": checks, "timing": timing,
+            "family_checks": fchecks, "k2": t2, "k3": t3}
+
+
+def _add_moe(kernels, moe) -> None:
+    """K1's line gets ``moe``: its launches (all, and batched over
+    experts) on the dense MoE serving run, the worst errors of the batched
+    checks and of the 2-D sites' checks at full width, and the expert
+    GEMMs' times at C = 4 and 88; K2's and K3's lines get ``by_arch``
+    rows for the MoE arch: launches on the score and the serving run,
+    times, bound and error at its shapes."""
+    rec = moe["rec"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for entry in kernels:
+        if entry["name"] == "abft_matmul":
+            entry["moe"] = {
+                "launches": rec["launches"]["abft_matmul"],
+                "batched_launches": rec["launches"]["abft_matmul_batched"],
+                "batched_launches_per_step":
+                    rec["batched_launches_per_step"],
+                "max_abs_err": max(moe["checks"]["max_abs_err_y"].values()),
+                "sites_max_abs_err":
+                    moe["family_checks"]["k1_max_abs_err"],
+                "by_shape": {name: {"launches": t["launches"],
+                                    **{k: t[k] for k in keys}}
+                             for name, t in moe["timing"].items()}}
+            continue
+        if entry["name"] == "flash_attention":
+            t, n = moe["k2"], rec["score"]["launches"]["flash_attention"]
+        else:
+            t, n = moe["k3"], rec["launches"]["flash_decode"]
+        entry.setdefault("by_arch", {})[MOE_ARCH] = {
+            "launches": n, "max_abs_err": t["max_abs_err"],
+            **{k: t[k] for k in keys}}
 
 
 # ------------------------------------------------------------------ timing
@@ -2992,7 +3526,8 @@ def _add_sharing(kernels, share) -> None:
             continue
         entry["sharing_launches"] = {
             **{k: v[key] for k, v in runs.items()},
-            **{f"qwen3-14b {k}": v[key] for k, v in fam.items()}}
+            **{f"{SIDE_ARCH} ({SIDE_LAYERS} layers) {k}": v[key]
+               for k, v in fam.items()}}
         if key == "abft_matmul":
             t = share["llama"]["k1_chunk"]
             entry["by_shape"]["chunk_m256"] = {
@@ -3015,7 +3550,8 @@ def _add_spec(kernels, spec) -> None:
         key = entry["name"]
         entry["spec_launches"] = {
             **{k: v[key] for k, v in runs.items()},
-            **{f"qwen3-14b {k}": v[key] for k, v in fam.items()}}
+            **{f"{SIDE_ARCH} ({SIDE_LAYERS} layers) {k}": v[key]
+               for k, v in fam.items()}}
         if key == "abft_matmul":
             t = spec["llama"]["k1_verify_m36"]
             entry["by_shape"]["verify_m36"] = {
@@ -3196,6 +3732,12 @@ def main(argv=None) -> int:
         fam = family_runs(dev)
         if kernels is not None:
             _add_family(kernels, fam)
+    if "moe" in phases:
+        eng_out = fwd = train_params = camp = tr = fam = None
+        free_memory()
+        moe = moe_runs(dev)
+        if kernels is not None:
+            _add_moe(kernels, moe)
     for line in smi:
         print(line)
     if kernels is not None:

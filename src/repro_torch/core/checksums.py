@@ -73,11 +73,18 @@ def global_row_check(x, w_sum, w_abs_sum, y,
     Mirrors a caveat of the reference: ``c_factor`` is accepted but the
     threshold uses ``tolerance_scale(k)`` with its default c=16
     (``repro/core/checksums.py``: ``global_row_check``).  Kept as is so
-    the two packages flag the same GEMMs."""
+    the two packages flag the same GEMMs.
+
+    Batched over experts: x (E, m, k), y (E, m, n) and w_sum/w_abs_sum
+    (E, k), one expert's check per row of each."""
     k = x.shape[-1]
     xf = x.to(F32)
-    check = xf @ w_sum
-    bound = torch.abs(xf) @ w_abs_sum
+    if w_sum.dim() > 1:
+        check = torch.matmul(xf, w_sum[..., None])[..., 0]
+        bound = torch.matmul(torch.abs(xf), w_abs_sum[..., None])[..., 0]
+    else:
+        check = xf @ w_sum
+        bound = torch.abs(xf) @ w_abs_sum
     yf = y.to(F32)
     residual = torch.abs(check - yf.sum(dim=-1))
     tau = ATOL + tolerance_scale(k) * bound

@@ -34,6 +34,7 @@ from repro_torch.core.policy import (
     IntensityGuidedPolicy,
     ProtectionPolicy,
     default_registry,
+    scheme_name_of,
 )
 from repro_torch.core.schemes import BlockShape, Scheme
 
@@ -99,6 +100,43 @@ def protected_matmul(x, w, cfg: ABFTConfig = ABFTConfig(), *, wsums=None,
     executor = default_registry().executor(scheme)
     return executor(x, w, cfg, wsums=wsums, out_dtype=out_dtype,
                     fault=fault)
+
+
+_BLOCK_MODES = {"block_1s": "1s", "block_2s": "2s", "replica": "replica"}
+
+
+def protected_matmul_batched(x, w, cfg: ABFTConfig = ABFTConfig(), *,
+                             out_dtype=None, fault: FaultSpec | None = None,
+                             site: str = "unlabeled"):
+    """``protected_matmul`` of E expert GEMMs x (E, C, k) @ w (E, k, n) in
+    one call: the reference's ``jax.vmap`` of it over an MoE layer's
+    experts.  The scheme is the one the policy picks for one expert's
+    GEMM (m = C), as under the vmap.  Block schemes run K1 batched over
+    the experts, one launch (``kernels/ops.abft_matmul_batched``);
+    ``none`` and ``global`` a batched plain product, ``global`` checked
+    against each expert's weight checksums.  The fault is not batched: it
+    lands in every expert.  Schemes registered beyond the built-in ones
+    have no batched executor and raise.  Returns (y (E, C, n), flag: any
+    expert's)."""
+    out_dtype = out_dtype or x.dtype
+    name = scheme_name_of(cfg.resolve(_gemm_dims(x[0], w[0], out_dtype)))
+    if name in _BLOCK_MODES:
+        from repro_torch.kernels import ops
+
+        y, chk = ops.abft_matmul_batched(
+            x, w, mode=_BLOCK_MODES[name], blocks=cfg.blocks,
+            out_dtype=out_dtype, fault=fault, c_factor=cfg.c_factor,
+            one_slice=cfg.one_slice)
+        return y, chk.flag
+    if name not in ("none", "global"):
+        raise NotImplementedError(
+            f"scheme {name!r} has no executor batched over experts")
+    y = _plain_dot(x, w, out_dtype, fault)
+    if name == "none":
+        return y, CheckResult.clean(x.device).flag
+    return y, checksums.global_row_check(
+        x, checksums.weight_row_checksum(w),
+        checksums.weight_abs_checksum(w), y, c_factor=cfg.c_factor).flag
 
 
 # ------------------------------------------------------------- executors

@@ -6,9 +6,12 @@ Replaces the TPU kernel ``repro.kernels.abft_matmul.abft_matmul_kernel``.
 register-blocked GEMM for f32 above 8 rows, or CUDA-core tiles),
 allocates the outputs and the scratch of its ``plan`` with
 ``torch.empty``, launches on the current stream and counts the launch in
-``KERNEL.launches``.  Its plain version is
-``kernels/ref.py::abft_matmul_ref``; the user-facing wrapper (block
-clamping, fault translation, threshold and flag) is ``kernels/ops.py``.
+``KERNEL.launches``.  Given 3-d operands, x (E, M, K) and w (E, K, N), it
+runs the E expert GEMMs of an MoE layer in one launch, the expert on a
+grid axis (the TPU kernel under ``jax.vmap``).  Its plain versions are
+``kernels/ref.py::abft_matmul_ref`` and ``abft_matmul_batched_ref``; the
+user-facing wrappers (block clamping, fault translation, threshold and
+flag) are in ``kernels/ops.py``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ F32 = torch.float32
 MODES = ("1s", "2s", "replica")
 KERNEL = library.Kernel("abft_matmul",
                         "src/repro_torch/kernels/csrc/abft_matmul.cu")
+# the launches of KERNEL that ran a batch of expert GEMMs (3-d operands)
+BATCHED = library.Kernel("abft_matmul_batched", KERNEL.source)
 
 TN, TK = 64, 32          # CUDA-core tile columns and stage depth (.cu)
 TC_TN, TC_TK = 128, 64   # tensor-core tile columns and stage depth
@@ -136,7 +141,8 @@ def tile(r: str, bm: int) -> tuple:
 
 def split_k(m: int, k: int, n: int, bm: int, bk: int, bn: int,
             mode: str, gemv: bool = False, tc: bool = False,
-            simt: bool = False, one_slice: bool = False) -> tuple:
+            simt: bool = False, one_slice: bool = False,
+            experts: int = 1) -> tuple:
     """(slices, depth) of the K split.  CUDA-core routes: enough CUDA
     blocks for two waves over the SMs; tiled slices at least 256 deep and
     — for the replica checksum, which flushes per logical k-block —
@@ -148,13 +154,16 @@ def split_k(m: int, k: int, n: int, bm: int, bk: int, bn: int,
     deep.  ``one_slice`` (not the GEMV): a single slice of the whole
     depth at any M, so a row's f32 sum runs in one order whatever the
     height of the GEMM around it (tensor-core, SIMT and CUDA-core tiles
-    accumulate each output in the same order whatever row they hold)."""
+    accumulate each output in the same order whatever row they hold).
+    ``experts``: the launch runs that many GEMMs of this shape (the
+    expert axis), so its tiles are counted that many times over."""
     if gemv:    # at most 16 slices: pass 2 sums them element by element
-        tiles, unit, floor = -(-n // TN), 32, max(32, -(-k // 16))
+        tiles, unit, floor = experts * -(-n // TN), 32, max(32, -(-k // 16))
         want = max(1, -(-2 * _SMS // tiles))
     else:
         tm, tn = tile("tc" if tc else "simt" if simt else "tiled", bm)
-        tiles = -(-n // bn) * -(-bn // tn) * -(-m // bm) * -(-bm // tm)
+        tiles = experts * (-(-n // bn) * -(-bn // tn) * -(-m // bm)
+                           * -(-bm // tm))
         if tc or simt:
             unit, floor = (TC_TK if tc else ST_K), min(256, k)
             want = max(1, _SMS // tiles)
@@ -184,7 +193,7 @@ class Plan:
 
 def plan(x, w, *, mode: str, bm: int, bk: int, bn: int,
          force: str | None = None, one_slice: bool = False,
-         split_rows: int | None = None) -> Plan:
+         split_rows: int | None = None, experts: int = 1) -> Plan:
     """The launch ``abft_matmul_kernel`` makes for these operands, on
     ``route``'s pass 1 or on ``force``, which must be one of ``routes``'s
     (to time one route against another).  Scratch: the per-slice partial
@@ -195,7 +204,9 @@ def plan(x, w, *, mode: str, bm: int, bk: int, bn: int,
     ``one_slice``: ``split_k``'s.  ``split_rows``: the K split is the one
     a GEMM of that many rows takes on the same route (its clamped block
     and row tiles), whatever M — a speculative verify step's rows then
-    sum in the decode step's order."""
+    sum in the decode step's order.  ``experts`` (x and w one expert's
+    operands of a batched launch): the K split counts every expert's
+    tiles, and each scratch array gets a leading expert axis."""
     m, k = x.shape
     n = w.shape[1]
     can = routes(x, w, bn, mode, one_slice)
@@ -209,14 +220,25 @@ def plan(x, w, *, mode: str, bm: int, bk: int, bn: int,
         sm = int(split_rows)
         sbm = min(bm, -(-sm // 8) * 8)
     S, kc = split_k(sm, k, n, sbm, bk, bn, mode, gemv=r == "gemv", tc=tc,
-                    simt=simt, one_slice=one_slice)
+                    simt=simt, one_slice=one_slice, experts=experts)
     tm, tn = tile(r, bm)
     gx = -(-n // bn) * -(-bn // tn)
     wide = tc or simt       # the epilogue stores y and the row sums
     scratch = {"part_acc": (0,) if wide and S == 1 else (S, m, n),
                "part_chk": (S, m, gx), "part_bnd": (S, m, gx),
                "part_rs": (m, gx) if wide else (0,)}
+    if experts > 1:
+        scratch = {k_: v if v == (0,) else (experts, *v)
+                   for k_, v in scratch.items()}
     return Plan(r, (tm, tn), S, kc, scratch)
+
+
+def _expert_aligned(x, w) -> bool:
+    """The expert strides of 3-d operands keep every expert's rows on
+    16-byte boundaries (the vector loads of every route but ``tiled``,
+    and TMA's strides)."""
+    return ((x.stride(0) * x.element_size()) % 16 == 0
+            and (w.stride(0) * w.element_size()) % 16 == 0)
 
 
 def abft_matmul_kernel(x, w, fault=(0, 0, 0, 0, 0, -1), delta: float = 0.0,
@@ -227,7 +249,14 @@ def abft_matmul_kernel(x, w, fault=(0, 0, 0, 0, 0, -1), delta: float = 0.0,
     tied head passes ``embed.T``) -> (y, res, bnd) as ``abft_matmul_ref``.
     The pass-1 route is ``plan``'s (``route``'s unless ``force``d);
     ``one_slice`` runs it as one K slice at any M (``split_k``);
-    ``split_rows`` pins the K split to that row count's (``plan``)."""
+    ``split_rows`` pins the K split to that row count's (``plan``).
+
+    Batched (an MoE layer's expert GEMMs): x (E, M, K) and w (E, K, N),
+    each expert's operands strided as above -> y (E, M, N) and res, bnd
+    (E, gm, gn, bm) or (E, gm, gn) as ``abft_matmul_batched_ref``, in one
+    launch.  Route and K split are the per-expert GEMM's (the split
+    counts all E experts' tiles); expert strides that are not 16-byte
+    multiples leave only ``tiled``.  The fault lands in every expert."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
@@ -238,19 +267,34 @@ def abft_matmul_kernel(x, w, fault=(0, 0, 0, 0, 0, -1), delta: float = 0.0,
                         f"and {w.dtype}")
     if out_dtype not in _DTYPES:
         raise TypeError(f"unsupported out_dtype {out_dtype}")
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+    batched = x.dim() == 3
+    if x.dim() != w.dim() or x.dim() not in (2, 3) \
+            or x.shape[-1] != w.shape[-2] \
+            or (batched and x.shape[0] != w.shape[0]):
         raise ValueError(f"bad shapes {tuple(x.shape)} @ {tuple(w.shape)}")
-    if x.stride(1) != 1 or min(w.stride()) < 0:
+    if x.stride(-1) != 1 or min(w.stride()) < 0 or min(x.stride()) < 0:
         raise ValueError("x needs a unit column stride, w non-negative "
                          "strides")
-    m, k = x.shape
-    n = w.shape[1]
+    E = x.shape[0] if batched else 1
+    x2, w2 = (x[0], w[0]) if batched else (x, w)
+    m, k = x2.shape
+    n = w2.shape[1]
+    if batched:
+        sae, sbe = x.stride(0), w.stride(0)
+        if not _expert_aligned(x, w):
+            if force not in (None, "tiled"):
+                raise ValueError(f"route {force!r} needs 16-byte expert "
+                                 f"strides")
+            force = "tiled"
+    else:   # one GEMM: no expert stride is read
+        sae = sbe = 0
     gm, gn = -(-m // bm), -(-n // bn)
-    p = plan(x, w, mode=mode, bm=bm, bk=bk, bn=bn, force=force,
-             one_slice=one_slice, split_rows=split_rows)
+    p = plan(x2, w2, mode=mode, bm=bm, bk=bk, bn=bn, force=force,
+             one_slice=one_slice, split_rows=split_rows, experts=E)
     dev = x.device
-    y = torch.empty((m, n), dtype=out_dtype, device=dev)
-    rshape = (gm, gn) if mode == "2s" else (gm, gn, bm)
+    lead = (E,) if batched else ()
+    y = torch.empty((*lead, m, n), dtype=out_dtype, device=dev)
+    rshape = (*lead, gm, gn) if mode == "2s" else (*lead, gm, gn, bm)
     res = torch.empty(rshape, dtype=F32, device=dev)
     bnd = torch.empty(rshape, dtype=F32, device=dev)
     part = {name: torch.empty(shape, dtype=F32, device=dev)
@@ -260,10 +304,12 @@ def abft_matmul_kernel(x, w, fault=(0, 0, 0, 0, 0, -1), delta: float = 0.0,
     err = library.library("abft_matmul").abft_matmul_launch(
         P(x), P(w), P(y), P(res), P(bnd), P(part["part_acc"]),
         P(part["part_chk"]), P(part["part_bnd"]), P(part["part_rs"]),
-        m, k, n, x.stride(0), w.stride(0), w.stride(1), bm, bk, bn,
-        p.slices, p.depth, _ROUTES[p.route], *p.tile,
+        m, k, n, x2.stride(0), w2.stride(0), w2.stride(1), E, sae, sbe,
+        bm, bk, bn, p.slices, p.depth, _ROUTES[p.route], *p.tile,
         MODES.index(mode), _DTYPES[x.dtype], _DTYPES[out_dtype], enabled,
         bi, bj, r, c, bit, float(delta), library.stream())
     library.check(err, KERNEL.name)
     KERNEL.launches += 1
+    if batched:
+        BATCHED.launches += 1
     return y, res, bnd

@@ -64,6 +64,20 @@
 // order, so a retry reproduces the attempt bit for bit.  K slicing is what
 // fills the 132 SMs where one block row gives few tiles.  Ragged edges are
 // masked in the loads (zero fill) — nothing is padded or copied.
+//
+// Expert axis (an MoE layer's E expert GEMMs, the TPU kernel under
+// jax.vmap): one launch takes all E GEMMs of one shape (C, K) x (K, N),
+// the expert folded into every launch's z axis (E x K slices on pass 1).
+// A CTA offsets A, B, Y, the residuals and the scratch by its expert's
+// strides; the tensor-core route reads through 3-d TMA maps (expert
+// outermost), so a box past an expert's C, K or N edge is zero-filled
+// instead of reading the next expert's rows.  Logical blocks, tiles and
+// the K split are the per-expert GEMM's (the split counts all E
+// experts' tiles).  At decode (C = 4) the launch is a stream of all E
+// experts' weights, bound by HBM; the fault, not batched, lands in every
+// expert.  The batched kernels are their own instantiations (BATCHED):
+// folding the expert offsets into the single-GEMM kernels slowed their
+// split-K reduce by 40% and the SIMT pass by 5-9% on the H100 (PERF.md).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -105,16 +119,34 @@ struct Fault {
   float delta;
 };
 
+// The expert axis of a batched launch: E GEMMs of one shape, A and B of
+// expert e sae and sbe elements after expert 0's.  Only the kernels
+// instantiated with BATCHED read it.
+struct Experts {
+  int E;
+  long long sae, sbe;
+};
+
 // Pass 1: partial products and partial checksums of one CUDA tile over one
 // K slice.  REPLICA selects the replica checksum; otherwise the one-sided
 // checksum (also the per-row input of the two-sided fold).
-template <typename TI, int RM, bool REPLICA>
+template <typename TI, int RM, bool REPLICA, bool BATCHED>
 __global__ void __launch_bounds__(NT)
 abft_pass1(const TI* __restrict__ A, const TI* __restrict__ B, Geo g,
-           float* __restrict__ part_acc, float* __restrict__ part_chk,
-           float* __restrict__ part_bnd) {
+           Experts xp, float* __restrict__ part_acc,
+           float* __restrict__ part_chk, float* __restrict__ part_bnd) {
   constexpr int TM = 8 * RM;
-  const int cx = blockIdx.x, ry = blockIdx.y, s = blockIdx.z;
+  const int cx = blockIdx.x, ry = blockIdx.y;
+  const int s = BATCHED ? blockIdx.z % g.S : blockIdx.z;
+  if constexpr (BATCHED) {     // expert blockIdx.z / S's operands, scratch
+    const int ex = blockIdx.z / g.S;
+    const long long rows = (long long)ex * g.S * g.M;
+    A += ex * xp.sae;
+    B += ex * xp.sbe;
+    part_acc += rows * g.N;
+    part_chk += rows * g.gn * g.col_tiles;
+    part_bnd += rows * g.gn * g.col_tiles;
+  }
   const int j = cx / g.col_tiles, sub = cx % g.col_tiles;
   const int i = ry / g.row_tiles, rt = ry % g.row_tiles;
   const int col0 = j * g.bn + sub * TN;
@@ -284,12 +316,21 @@ __device__ __forceinline__ void load8(const float* p, float* w) {
 // checksum uses the same registers: chk += x * sum(w[k, 8 cols]).  Partials
 // are reduced over groups by shuffles and over warps through shared memory,
 // in a fixed order, into the same scratch layout as the tiled pass 1.
-template <typename TI, int MR>
+template <typename TI, int MR, bool BATCHED>
 __global__ void __launch_bounds__(256)
 abft_gemv_pass1(const TI* __restrict__ A, const TI* __restrict__ B, Geo g,
-                float* __restrict__ part_acc, float* __restrict__ part_chk,
-                float* __restrict__ part_bnd) {
+                Experts xp, float* __restrict__ part_acc,
+                float* __restrict__ part_chk, float* __restrict__ part_bnd) {
   const int cx = blockIdx.x, s = blockIdx.y;
+  if constexpr (BATCHED) {     // expert blockIdx.z's operands, scratch
+    const int ex = blockIdx.z;
+    const long long rows = (long long)ex * g.S * g.M;
+    A += ex * xp.sae;
+    B += ex * xp.sbe;
+    part_acc += rows * g.N;
+    part_chk += rows * g.gn * g.col_tiles;
+    part_bnd += rows * g.gn * g.col_tiles;
+  }
   const int col0 = cx * TN;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = lane >> 3, c8 = (lane & 7) * 8;
@@ -454,7 +495,7 @@ struct TcSmem {
 // swizzle atoms 8 KB apart; wgmma's transpose flag).  With one K slice
 // (g.S == 1) the epilogue applies the fault and stores y itself;
 // otherwise it stores the partial accumulator for abft_tc_reduce.
-template <int WG, bool KMAJ>
+template <int WG, bool KMAJ, bool BATCHED>
 __global__ void __launch_bounds__(256 * WG, 1)
 abft_tc_pass1(const __grid_constant__ CUtensorMap tma_a,
               const __grid_constant__ CUtensorMap tma_b, Geo g, Fault f,
@@ -463,7 +504,18 @@ abft_tc_pass1(const __grid_constant__ CUtensorMap tma_a,
               float* __restrict__ part_bnd, float* __restrict__ part_rs) {
   using L = TcSmem<WG>;
   constexpr int TM = L::TM, MT = L::MT, CK = L::CK, NS = L::NS;
-  const int rt_all = blockIdx.x, cx = blockIdx.y, s = blockIdx.z;
+  const int rt_all = blockIdx.x, cx = blockIdx.y;
+  const int s = BATCHED ? blockIdx.z % g.S : blockIdx.z;
+  const int ex = BATCHED ? blockIdx.z / g.S : 0;
+  if constexpr (BATCHED) {     // expert ex's outputs and scratch; A and B
+    const long long rows = (long long)ex * g.M;   // through the maps
+    const int gx = g.gn * g.col_tiles;
+    Y = static_cast<char*>(Y) + rows * g.N * (out_bf16 ? 2 : 4);
+    part_acc += rows * g.S * g.N;
+    part_chk += rows * g.S * gx;
+    part_bnd += rows * g.S * gx;
+    part_rs += rows * gx;
+  }
   const int i = rt_all / g.row_tiles, rt = rt_all % g.row_tiles;
   const int j = cx / g.col_tiles, sub = cx % g.col_tiles;
   const int row0 = i * g.bm + rt * TM;
@@ -490,17 +542,27 @@ abft_tc_pass1(const __grid_constant__ CUtensorMap tma_a,
   const long long pbase = (long long)s * g.M;
   const int gx = g.gn * g.col_tiles;
 
-  auto issue = [&](int it) {           // the producer: stage it by TMA
+  // the producer: stage it by TMA.  Batched, the maps are 3-d, the
+  // expert outermost, so a box past an expert's M, K or N edge is
+  // zero-filled and never reads the next expert's rows
+  auto load = [&](uint32_t dst, const CUtensorMap* m, uint32_t bar, int c0,
+                  int c1) {
+    if constexpr (BATCHED)
+      hk::tma_load_3d(dst, m, bar, c0, c1, ex);
+    else
+      hk::tma_load_2d(dst, m, bar, c0, c1);
+  };
+  auto issue = [&](int it) {
     const int st = it % NS, kt = k0 + it * TC_TK;
     const uint32_t sa = ring + st * L::STAGE, sb = sa + L::A_BYTES;
     const uint32_t bar = full + st * 8;
     hk::mbar_expect_tx(bar, L::STAGE);
-    hk::tma_load_2d(sa, &tma_a, bar, kt, row0);
+    load(sa, &tma_a, bar, kt, row0);
     if (KMAJ) {
-      hk::tma_load_2d(sb, &tma_b, bar, kt, col0);
+      load(sb, &tma_b, bar, kt, col0);
     } else {
-      hk::tma_load_2d(sb, &tma_b, bar, col0, kt);
-      hk::tma_load_2d(sb + 8192, &tma_b, bar, col0 + 64, kt);
+      load(sb, &tma_b, bar, col0, kt);
+      load(sb + 8192, &tma_b, bar, col0 + 64, kt);
     }
   };
   if (tid == 0) {
@@ -836,12 +898,13 @@ __device__ __forceinline__ float4 ld4_masked(const float* p, int ok, int n) {
 // One barrier a stage.  With one K slice the epilogue applies the fault,
 // stores y and the rows' partial row sums (part_rs) for abft_tc_pass2;
 // with several it stores the partial accumulator for abft_tc_reduce.
-template <bool KMAJ>
+template <bool KMAJ, bool BATCHED>
 __global__ void __launch_bounds__(ST_TM * ST_TN / 64)
 abft_simt_pass1(const float* __restrict__ A, const float* __restrict__ B,
-                Geo g, Fault f, void* __restrict__ Y, int out_bf16,
-                float* __restrict__ part_acc, float* __restrict__ part_chk,
-                float* __restrict__ part_bnd, float* __restrict__ part_rs) {
+                Geo g, Experts xp, Fault f, void* __restrict__ Y,
+                int out_bf16, float* __restrict__ part_acc,
+                float* __restrict__ part_chk, float* __restrict__ part_bnd,
+                float* __restrict__ part_rs) {
   constexpr int TM = ST_TM, TN = ST_TN, NT = TM * TN / 64;
   constexpr int BK = ST_K, NS = ST_NS, LOOK = ST_NS - 1;
   constexpr int AL = TM * BK / 4 / NT;   // float4 of A a thread, a stage
@@ -849,7 +912,20 @@ abft_simt_pass1(const float* __restrict__ A, const float* __restrict__ B,
   constexpr int KH = NT / TM;            // threads per row (checksums)
   constexpr int CG = NT / BK;            // threads per k row (column sums)
   constexpr int CQ = TN / 4 / CG;        // float4 a thread (column sums)
-  const int rt_all = blockIdx.x, cx = blockIdx.y, s = blockIdx.z;
+  const int rt_all = blockIdx.x, cx = blockIdx.y;
+  const int s = BATCHED ? blockIdx.z % g.S : blockIdx.z;
+  if constexpr (BATCHED) {     // expert blockIdx.z / S's arrays
+    const int ex = blockIdx.z / g.S;
+    const long long rows = (long long)ex * g.M;
+    const int gx = g.gn * g.col_tiles;
+    A += ex * xp.sae;
+    B += ex * xp.sbe;
+    Y = static_cast<char*>(Y) + rows * g.N * (out_bf16 ? 2 : 4);
+    part_acc += rows * g.S * g.N;
+    part_chk += rows * g.S * gx;
+    part_bnd += rows * g.S * gx;
+    part_rs += rows * gx;
+  }
   const int i = rt_all / g.row_tiles, rt = rt_all % g.row_tiles;
   const int j = cx / g.col_tiles, sub = cx % g.col_tiles;
   const int row0 = i * g.bm + rt * TM;
@@ -1112,6 +1188,7 @@ abft_simt_pass1(const float* __restrict__ A, const float* __restrict__ B,
 // partial checksums into slice 0.
 constexpr int TC_RED_ROWS = 16;
 
+template <bool BATCHED>
 __global__ void __launch_bounds__(256)
 abft_tc_reduce(const float* __restrict__ part_acc,
                float* __restrict__ part_chk, float* __restrict__ part_bnd,
@@ -1120,6 +1197,15 @@ abft_tc_reduce(const float* __restrict__ part_acc,
   const int chunks = g.tm / TC_RED_ROWS;
   const int rt_all = blockIdx.x / chunks, chunk = blockIdx.x % chunks;
   const int cx = blockIdx.y;
+  if constexpr (BATCHED) {     // expert blockIdx.z's arrays
+    const long long rows = (long long)blockIdx.z * g.M;
+    const int gx = g.gn * g.col_tiles;
+    Y = static_cast<char*>(Y) + rows * g.N * (out_bf16 ? 2 : 4);
+    part_acc += rows * g.S * g.N;
+    part_chk += rows * g.S * gx;
+    part_bnd += rows * g.S * gx;
+    part_rs += rows * gx;
+  }
   const int i = rt_all / g.row_tiles, rt = rt_all % g.row_tiles;
   const int j = cx / g.col_tiles, sub = cx % g.col_tiles;
   const int row0 = i * g.bm + rt * g.tm;
@@ -1170,7 +1256,7 @@ abft_tc_reduce(const float* __restrict__ part_acc,
 // order into the residual and bound.  Rows and columns past the problem
 // edge are the TPU kernel's zero padding: their checksums are 0, and a
 // fault that lands there enters the row sum here.
-template <bool TWO_SIDED>
+template <bool TWO_SIDED, bool BATCHED>
 __global__ void __launch_bounds__(256)
 abft_tc_pass2(const float* __restrict__ part_chk,
               const float* __restrict__ part_bnd,
@@ -1178,6 +1264,15 @@ abft_tc_pass2(const float* __restrict__ part_chk,
               float* __restrict__ res, float* __restrict__ bnd) {
   const int j = blockIdx.x, i = blockIdx.y, tid = threadIdx.x;
   const int gx = g.gn * g.col_tiles;
+  if constexpr (BATCHED) {     // expert blockIdx.z's arrays
+    const long long rows = (long long)blockIdx.z * g.M;
+    part_chk += rows * g.S * gx;
+    part_bnd += rows * g.S * gx;
+    part_rs += rows * gx;
+    const long long blocks = (long long)blockIdx.z * g.gm * g.gn;
+    res += blocks * (TWO_SIDED ? 1 : g.bm);
+    bnd += blocks * (TWO_SIDED ? 1 : g.bm);
+  }
   float t_sum = 0.f, t_chk = 0.f, t_bnd = 0.f;
   for (int rl = tid; rl < g.bm; rl += 256) {
     const int row = i * g.bm + rl;
@@ -1242,7 +1337,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // over its bm rows, lanes over its bn columns.  Rows/columns past the
 // problem edge are the TPU kernel's zero padding: they enter the row sum
 // (and may carry the fault) but are never stored.
-template <typename TO, bool TWO_SIDED>
+template <typename TO, bool TWO_SIDED, bool BATCHED>
 __global__ void __launch_bounds__(256)
 abft_pass2(const float* __restrict__ part_acc,
            const float* __restrict__ part_chk,
@@ -1252,6 +1347,16 @@ abft_pass2(const float* __restrict__ part_acc,
   const int j = blockIdx.x, i = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gx = g.gn * g.col_tiles;
+  if constexpr (BATCHED) {     // expert blockIdx.z's arrays
+    const long long rows = (long long)blockIdx.z * g.M;
+    part_acc += rows * g.S * g.N;
+    part_chk += rows * g.S * gx;
+    part_bnd += rows * g.S * gx;
+    Y += rows * g.N;
+    const long long blocks = (long long)blockIdx.z * g.gm * g.gn;
+    res += blocks * (TWO_SIDED ? 1 : g.bm);
+    bnd += blocks * (TWO_SIDED ? 1 : g.bm);
+  }
   const bool here = f.enabled && f.bi == i && f.bj == j;
   __shared__ float w_res[8], w_chk[8], w_bnd[8];
   float t_sum = 0.f, t_chk = 0.f, t_bnd = 0.f;   // two-sided, lane 0
@@ -1333,33 +1438,38 @@ abft_pass2(const float* __restrict__ part_acc,
   }
 }
 
-template <typename TI, int RM>
-void launch_pass1(const void* A, const void* B, const Geo& g, bool replica,
-                  float* pa, float* pc, float* pb, cudaStream_t st) {
-  dim3 grid(g.gn * g.col_tiles, g.gm * g.row_tiles, g.S);
+template <typename TI, int RM, bool BATCHED>
+void launch_pass1(const void* A, const void* B, const Geo& g,
+                  const Experts& xp, bool replica, float* pa, float* pc,
+                  float* pb, cudaStream_t st) {
+  dim3 grid(g.gn * g.col_tiles, g.gm * g.row_tiles, xp.E * g.S);
   if (replica)
-    abft_pass1<TI, RM, true><<<grid, NT, 0, st>>>(
-        (const TI*)A, (const TI*)B, g, pa, pc, pb);
+    abft_pass1<TI, RM, true, BATCHED><<<grid, NT, 0, st>>>(
+        (const TI*)A, (const TI*)B, g, xp, pa, pc, pb);
   else
-    abft_pass1<TI, RM, false><<<grid, NT, 0, st>>>(
-        (const TI*)A, (const TI*)B, g, pa, pc, pb);
+    abft_pass1<TI, RM, false, BATCHED><<<grid, NT, 0, st>>>(
+        (const TI*)A, (const TI*)B, g, xp, pa, pc, pb);
 }
 
-template <typename TI>
+template <typename TI, bool BATCHED>
 void dispatch_pass1(int rm, const void* A, const void* B, const Geo& g,
-                    bool replica, float* pa, float* pc, float* pb,
-                    cudaStream_t st) {
+                    const Experts& xp, bool replica, float* pa, float* pc,
+                    float* pb, cudaStream_t st) {
   if (rm == 0) {        // decode fast path (the wrapper checked its terms)
-    dim3 grid((g.N + TN - 1) / TN, g.S);
+    dim3 grid((g.N + TN - 1) / TN, g.S, xp.E);
     if (g.M <= 4)
-      abft_gemv_pass1<TI, 4><<<grid, 256, 0, st>>>(
-          (const TI*)A, (const TI*)B, g, pa, pc, pb);
+      abft_gemv_pass1<TI, 4, BATCHED><<<grid, 256, 0, st>>>(
+          (const TI*)A, (const TI*)B, g, xp, pa, pc, pb);
     else
-      abft_gemv_pass1<TI, 8><<<grid, 256, 0, st>>>(
-          (const TI*)A, (const TI*)B, g, pa, pc, pb);
-  } else if (rm == 1) launch_pass1<TI, 1>(A, B, g, replica, pa, pc, pb, st);
-  else if (rm == 4) launch_pass1<TI, 4>(A, B, g, replica, pa, pc, pb, st);
-  else launch_pass1<TI, 8>(A, B, g, replica, pa, pc, pb, st);
+      abft_gemv_pass1<TI, 8, BATCHED><<<grid, 256, 0, st>>>(
+          (const TI*)A, (const TI*)B, g, xp, pa, pc, pb);
+  } else if (rm == 1) {
+    launch_pass1<TI, 1, BATCHED>(A, B, g, xp, replica, pa, pc, pb, st);
+  } else if (rm == 4) {
+    launch_pass1<TI, 4, BATCHED>(A, B, g, xp, replica, pa, pc, pb, st);
+  } else {
+    launch_pass1<TI, 8, BATCHED>(A, B, g, xp, replica, pa, pc, pb, st);
+  }
 }
 
 // cuTensorMapEncodeTiled from the driver, through the runtime (no link
@@ -1390,55 +1500,140 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// 2-d bf16 tensor map: `inner` x `outer` elements, `stride` bytes between
-// outer rows, boxes of box_inner x box_outer with the 128-byte swizzle
+// bf16 tensor map: `inner` x `outer` elements, `stride` bytes between
+// outer rows, boxes of box_inner x box_outer with the 128-byte swizzle;
+// with experts > 1 a third dimension of `experts`, `estride` bytes
+// apart, and boxes one expert deep (the box's shared-memory image is the
+// 2-d box's)
 bool tensor_map(CUtensorMap* m, const void* base, long long inner,
-                long long outer, long long stride, int box_inner,
-                int box_outer) {
+                long long outer, long long stride, long long experts,
+                long long estride, int box_inner, int box_outer) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)stride};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)outer,
+                              (cuuint64_t)experts};
+  const cuuint64_t strides[2] = {(cuuint64_t)stride, (cuuint64_t)estride};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer,
+                             1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, experts > 1 ? 3 : 2,
+            const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int WG, bool KMAJ>
+template <int WG, bool KMAJ, bool BATCHED>
 cudaError_t launch_tc(const void* A, const void* B, const Geo& g,
-                      const Fault& f, void* Y, int out_bf16, float* pa,
-                      float* pc, float* pb, float* pr, cudaStream_t st) {
+                      const Experts& xp, const Fault& f, void* Y,
+                      int out_bf16, float* pa, float* pc, float* pb,
+                      float* pr, cudaStream_t st) {
   CUtensorMap ta, tb;
   const bool ok =
-      tensor_map(&ta, A, g.K, g.M, g.lda * 2, TC_TK, 64 * WG) &&
-      (KMAJ ? tensor_map(&tb, B, g.K, g.N, g.sbn * 2, TC_TK, TC_TN)
-            : tensor_map(&tb, B, g.N, g.K, g.sbk * 2, 64, TC_TK));
+      tensor_map(&ta, A, g.K, g.M, g.lda * 2, xp.E, xp.sae * 2, TC_TK,
+                 64 * WG) &&
+      (KMAJ ? tensor_map(&tb, B, g.K, g.N, g.sbn * 2, xp.E, xp.sbe * 2,
+                         TC_TK, TC_TN)
+            : tensor_map(&tb, B, g.N, g.K, g.sbk * 2, xp.E, xp.sbe * 2, 64,
+                         TC_TK));
   if (!ok) return cudaErrorInvalidValue;
   static unsigned long long capped = 0;   // devices, one bit each
-  cudaError_t err = hk::raise_smem_cap(abft_tc_pass1<WG, KMAJ>,
+  cudaError_t err = hk::raise_smem_cap(abft_tc_pass1<WG, KMAJ, BATCHED>,
                                        TcSmem<WG>::BYTES, &capped);
   if (err != cudaSuccess) return err;
-  dim3 grid(g.gm * g.row_tiles, g.gn * g.col_tiles, g.S);
-  abft_tc_pass1<WG, KMAJ><<<grid, 256 * WG, TcSmem<WG>::BYTES, st>>>(
-      ta, tb, g, f, Y, out_bf16, pa, pc, pb, pr);
+  dim3 grid(g.gm * g.row_tiles, g.gn * g.col_tiles, xp.E * g.S);
+  abft_tc_pass1<WG, KMAJ, BATCHED>
+      <<<grid, 256 * WG, TcSmem<WG>::BYTES, st>>>(ta, tb, g, f, Y, out_bf16,
+                                                  pa, pc, pb, pr);
   return cudaGetLastError();
 }
 
-template <bool KMAJ>
+template <bool KMAJ, bool BATCHED>
 cudaError_t launch_simt(const void* A, const void* B, const Geo& g,
-                        const Fault& f, void* Y, int out_bf16, float* pa,
-                        float* pc, float* pb, float* pr, cudaStream_t st) {
+                        const Experts& xp, const Fault& f, void* Y,
+                        int out_bf16, float* pa, float* pc, float* pb,
+                        float* pr, cudaStream_t st) {
   constexpr int bytes = SimtSmem::BYTES;
   static unsigned long long capped = 0;   // devices, one bit each
   cudaError_t err =
-      hk::raise_smem_cap(abft_simt_pass1<KMAJ>, bytes, &capped);
+      hk::raise_smem_cap(abft_simt_pass1<KMAJ, BATCHED>, bytes, &capped);
   if (err != cudaSuccess) return err;
-  dim3 grid(g.gm * g.row_tiles, g.gn * g.col_tiles, g.S);
-  abft_simt_pass1<KMAJ><<<grid, ST_TM * ST_TN / 64, bytes, st>>>(
-      (const float*)A, (const float*)B, g, f, Y, out_bf16, pa, pc, pb, pr);
+  dim3 grid(g.gm * g.row_tiles, g.gn * g.col_tiles, xp.E * g.S);
+  abft_simt_pass1<KMAJ, BATCHED><<<grid, ST_TM * ST_TN / 64, bytes, st>>>(
+      (const float*)A, (const float*)B, g, xp, f, Y, out_bf16, pa, pc, pb,
+      pr);
+  return cudaGetLastError();
+}
+
+// The wide routes (2 to 4): pass 1, the split's reduce, pass 2.
+template <bool BATCHED>
+cudaError_t run_wide(int route, const void* A, const void* B, const Geo& g,
+                     const Experts& xp, const Fault& f, void* Y,
+                     int out_dtype, bool two, float* pa, float* pc,
+                     float* pb, float* pr, void* res, void* bnd,
+                     cudaStream_t st) {
+  cudaError_t err;
+  if (route == 4)
+    err = g.sbn == 1
+        ? launch_simt<false, BATCHED>(A, B, g, xp, f, Y, out_dtype, pa, pc,
+                                      pb, pr, st)
+        : launch_simt<true, BATCHED>(A, B, g, xp, f, Y, out_dtype, pa, pc,
+                                     pb, pr, st);
+  else if (g.tm == 128)
+    err = route == 3
+        ? launch_tc<2, true, BATCHED>(A, B, g, xp, f, Y, out_dtype, pa, pc,
+                                      pb, pr, st)
+        : launch_tc<2, false, BATCHED>(A, B, g, xp, f, Y, out_dtype, pa,
+                                       pc, pb, pr, st);
+  else
+    err = route == 3
+        ? launch_tc<1, true, BATCHED>(A, B, g, xp, f, Y, out_dtype, pa, pc,
+                                      pb, pr, st)
+        : launch_tc<1, false, BATCHED>(A, B, g, xp, f, Y, out_dtype, pa,
+                                       pc, pb, pr, st);
+  if (err != cudaSuccess) return err;
+  if (g.S > 1) {
+    dim3 grid(g.gm * g.row_tiles * (g.tm / TC_RED_ROWS),
+              g.gn * g.col_tiles, xp.E);
+    abft_tc_reduce<BATCHED><<<grid, 256, 0, st>>>(pa, pc, pb, g, f, Y,
+                                                  out_dtype, pr);
+  }
+  dim3 grid2(g.gn, g.gm, xp.E);
+  if (two) abft_tc_pass2<true, BATCHED><<<grid2, 256, 0, st>>>(
+      pc, pb, pr, g, f, (float*)res, (float*)bnd);
+  else abft_tc_pass2<false, BATCHED><<<grid2, 256, 0, st>>>(
+      pc, pb, pr, g, f, (float*)res, (float*)bnd);
+  return cudaGetLastError();
+}
+
+// The CUDA-core routes (0, 1): pass 1 into the per-slice partials, pass 2.
+template <bool BATCHED>
+cudaError_t run_cuda_core(int r, int in_dtype, const void* A,
+                          const void* B, const Geo& g, const Experts& xp,
+                          const Fault& f, void* Y, int out_dtype, int mode,
+                          float* pa, float* pc, float* pb, void* res,
+                          void* bnd, cudaStream_t st) {
+  const bool two = mode == 1;
+  if (in_dtype == 1)
+    dispatch_pass1<__nv_bfloat16, BATCHED>(r, A, B, g, xp, mode == 2, pa,
+                                           pc, pb, st);
+  else
+    dispatch_pass1<float, BATCHED>(r, A, B, g, xp, mode == 2, pa, pc, pb,
+                                   st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid2(g.gn, g.gm, xp.E);
+  if (out_dtype == 1) {
+    if (two) abft_pass2<__nv_bfloat16, true, BATCHED><<<grid2, 256, 0, st>>>(
+        pa, pc, pb, g, f, (__nv_bfloat16*)Y, (float*)res, (float*)bnd);
+    else abft_pass2<__nv_bfloat16, false, BATCHED><<<grid2, 256, 0, st>>>(
+        pa, pc, pb, g, f, (__nv_bfloat16*)Y, (float*)res, (float*)bnd);
+  } else {
+    if (two) abft_pass2<float, true, BATCHED><<<grid2, 256, 0, st>>>(
+        pa, pc, pb, g, f, (float*)Y, (float*)res, (float*)bnd);
+    else abft_pass2<float, false, BATCHED><<<grid2, 256, 0, st>>>(
+        pa, pc, pb, g, f, (float*)Y, (float*)res, (float*)bnd);
+  }
   return cudaGetLastError();
 }
 
@@ -1458,11 +1653,18 @@ cudaError_t launch_simt(const void* A, const void* B, const Geo& g,
 // by it; any other tile is rejected.
 // mode: 0 = '1s', 1 = '2s', 2 = 'replica'.  dtypes: 0 = f32, 1 = bf16.
 // part_rs (M x column tiles) is used by routes 2 to 4 only.
+// E > 1 batches E independent GEMMs of the same shape over an expert
+// axis (the TPU kernel under jax.vmap): A and B of expert e start sae and
+// sbe elements after expert 0's (16-byte multiples on routes 1 to 4), Y
+// is (E, M, N), res and bnd (E, gm, gn[, bm]), every scratch array gets a
+// leading E; the expert is a grid axis of every launch, and the fault is
+// applied in every expert.  E == 1 runs the single-GEMM kernels.
 // Returns cudaGetLastError() after the last launch.
 extern "C" int abft_matmul_launch(
     const void* A, const void* B, void* Y, void* res, void* bnd,
     void* part_acc, void* part_chk, void* part_bnd, void* part_rs,
     int M, int K, int N, long long lda, long long sbk, long long sbn,
+    int E, long long sae, long long sbe,
     int bm, int bk, int bn, int S, int kc, int route, int tm, int tn,
     int mode,
     int in_dtype, int out_dtype,
@@ -1475,11 +1677,14 @@ extern "C" int abft_matmul_launch(
   g.gn = (N + bn - 1) / bn;
   g.S = S; g.kc = kc;
   g.lda = lda; g.sbk = sbk; g.sbn = sbn;
+  if (E < 1 || (long long)E * S > 65535) return (int)cudaErrorInvalidValue;
+  const Experts xp{E, sae, sbe};
   Fault f{f_enabled, f_bi, f_bj, f_row, f_col, f_bit, f_delta};
   cudaStream_t st = (cudaStream_t)stream;
   float* pa = (float*)part_acc;
   float* pc = (float*)part_chk;
   float* pb = (float*)part_bnd;
+  float* pr = (float*)part_rs;
   const bool two = mode == 1;
   if (route >= 2) {
     const bool simt = route == 4;
@@ -1488,71 +1693,27 @@ extern "C" int abft_matmul_launch(
              : (in_dtype != 1 || mode == 2 || (tm != 64 && tm != 128) ||
                 tn != TC_TN))
       return (int)cudaErrorInvalidValue;
-    const int wgs = tm / 64;
     g.tm = tm;
     g.tn = tn;
     g.row_tiles = (bm + g.tm - 1) / g.tm;
     g.col_tiles = (bn + g.tn - 1) / g.tn;
-    cudaError_t err;
-    if (simt)
-      err = sbn == 1
-          ? launch_simt<false>(A, B, g, f, Y, out_dtype, pa, pc, pb,
-                               (float*)part_rs, st)
-          : launch_simt<true>(A, B, g, f, Y, out_dtype, pa, pc, pb,
-                              (float*)part_rs, st);
-    else if (wgs == 2)
-      err = route == 3
-          ? launch_tc<2, true>(A, B, g, f, Y, out_dtype, pa, pc, pb,
-                               (float*)part_rs, st)
-          : launch_tc<2, false>(A, B, g, f, Y, out_dtype, pa, pc, pb,
-                                (float*)part_rs, st);
-    else
-      err = route == 3
-          ? launch_tc<1, true>(A, B, g, f, Y, out_dtype, pa, pc, pb,
-                               (float*)part_rs, st)
-          : launch_tc<1, false>(A, B, g, f, Y, out_dtype, pa, pc, pb,
-                                (float*)part_rs, st);
-    if (err != cudaSuccess) return (int)err;
-    if (S > 1) {
-      dim3 grid(g.gm * g.row_tiles * (g.tm / TC_RED_ROWS),
-                g.gn * g.col_tiles);
-      abft_tc_reduce<<<grid, 256, 0, st>>>(pa, pc, pb, g, f, Y, out_dtype,
-                                           (float*)part_rs);
-    }
-    dim3 grid2(g.gn, g.gm);
-    if (two) abft_tc_pass2<true><<<grid2, 256, 0, st>>>(
-        pc, pb, (const float*)part_rs, g, f, (float*)res, (float*)bnd);
-    else abft_tc_pass2<false><<<grid2, 256, 0, st>>>(
-        pc, pb, (const float*)part_rs, g, f, (float*)res, (float*)bnd);
-    return (int)cudaGetLastError();
-  } else {
-    const bool gemv = route == 1;
-    if (tn != TN || (gemv ? (tm != 8 || M > 8 || mode == 2 || bn % TN)
-                          : (tm != 8 && tm != 32 && tm != 64)))
-      return (int)cudaErrorInvalidValue;
-    g.row_tiles = gemv ? 1 : (bm + tm - 1) / tm;
-    g.col_tiles = (bn + TN - 1) / TN;
-    g.tn = TN;
-    const int r = gemv ? 0 : tm / 8;
-    if (in_dtype == 1)
-      dispatch_pass1<__nv_bfloat16>(r, A, B, g, mode == 2, pa, pc, pb, st);
-    else
-      dispatch_pass1<float>(r, A, B, g, mode == 2, pa, pc, pb, st);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    return (int)(E > 1
+        ? run_wide<true>(route, A, B, g, xp, f, Y, out_dtype, two, pa, pc,
+                         pb, pr, res, bnd, st)
+        : run_wide<false>(route, A, B, g, xp, f, Y, out_dtype, two, pa, pc,
+                          pb, pr, res, bnd, st));
   }
-  dim3 grid2(g.gn, g.gm);
-  if (out_dtype == 1) {
-    if (two) abft_pass2<__nv_bfloat16, true><<<grid2, 256, 0, st>>>(
-        pa, pc, pb, g, f, (__nv_bfloat16*)Y, (float*)res, (float*)bnd);
-    else abft_pass2<__nv_bfloat16, false><<<grid2, 256, 0, st>>>(
-        pa, pc, pb, g, f, (__nv_bfloat16*)Y, (float*)res, (float*)bnd);
-  } else {
-    if (two) abft_pass2<float, true><<<grid2, 256, 0, st>>>(
-        pa, pc, pb, g, f, (float*)Y, (float*)res, (float*)bnd);
-    else abft_pass2<float, false><<<grid2, 256, 0, st>>>(
-        pa, pc, pb, g, f, (float*)Y, (float*)res, (float*)bnd);
-  }
-  return (int)cudaGetLastError();
+  const bool gemv = route == 1;
+  if (tn != TN || (gemv ? (tm != 8 || M > 8 || mode == 2 || bn % TN)
+                        : (tm != 8 && tm != 32 && tm != 64)))
+    return (int)cudaErrorInvalidValue;
+  g.row_tiles = gemv ? 1 : (bm + tm - 1) / tm;
+  g.col_tiles = (bn + TN - 1) / TN;
+  g.tn = TN;
+  const int r = gemv ? 0 : tm / 8;
+  return (int)(E > 1
+      ? run_cuda_core<true>(r, in_dtype, A, B, g, xp, f, Y, out_dtype, mode,
+                            pa, pc, pb, res, bnd, st)
+      : run_cuda_core<false>(r, in_dtype, A, B, g, xp, f, Y, out_dtype,
+                             mode, pa, pc, pb, res, bnd, st));
 }
-

@@ -94,6 +94,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
          "r"(bar) : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* tmap,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(bar) : "memory");
+}
+
 // ---------------------------------------------------------------- wgmma
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -91,8 +91,8 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
                    ctypes.c_float)
     if name == "abft_matmul":
         fn = lib.abft_matmul_launch
-        fn.argtypes = [p] * 9 + [i, i, i, ll, ll, ll] + [i] * 11 + [i] * 6 \
-            + [f, p]
+        fn.argtypes = [p] * 9 + [i, i, i, ll, ll, ll] + [i, ll, ll] \
+            + [i] * 11 + [i] * 6 + [f, p]
         fn.restype = i
     elif name == "flash_attention":
         for fn in (lib.flash_attention_launch,

@@ -7,7 +7,13 @@ operand launches K1 (``kernels/abft_matmul.py``) or raises; CPU operands
 take its plain version (``kernels/ref.py``).  Nothing is padded here: the
 kernel masks ragged edges itself.
 
-``abft_matmul`` is differentiable (``_AbftMatmul``): the backward is the
+``abft_matmul_batched`` is the same over an expert axis, x (E, C, k) @ w
+(E, k, n) in one launch: the reference's ``jax.vmap`` of ``abft_matmul``
+over an MoE layer's experts (``repro/models/moe.py``), blocks clamped and
+thresholded per expert, the fault (not a vmapped argument there) in
+every expert.
+
+Both are differentiable (``_AbftMatmul``): the backward is the
 reference's XLA backward of its emulation (``repro/core/protected.py``),
 ``dX = dY W^T`` and ``dW = X^T dY`` as plain ``torch.matmul`` products,
 unprotected — the reference declares ``protect_backward`` and never reads
@@ -27,7 +33,7 @@ from repro_torch.core.checksums import ATOL, CheckResult, flag_from, tolerance_s
 from repro_torch.core.faults import FaultSpec
 from repro_torch.core.schemes import BlockShape
 from repro_torch.kernels.abft_matmul import abft_matmul_kernel, route
-from repro_torch.kernels.ref import abft_matmul_ref
+from repro_torch.kernels.ref import abft_matmul_batched_ref, abft_matmul_ref
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -40,7 +46,9 @@ def _clamp_block(dim: int, block: int, align: int = 8) -> int:
 
 class _AbftMatmul(torch.autograd.Function):
     """K1 (CUDA operands) or its plain version (CPU operands) with the
-    reference's backward.  Residual and bound carry no gradient."""
+    reference's backward, for x2 (M, K) @ w (K, N) or, batched over
+    experts, x2 (E, M, K) @ w (E, K, N).  Residual and bound carry no
+    gradient."""
 
     @staticmethod
     def forward(ctx, x2, w, fidx, delta, mode, bm, bk, bn, out_dtype,
@@ -50,6 +58,8 @@ class _AbftMatmul(torch.autograd.Function):
             y, res, bnd = abft_matmul_kernel(x2, w, fidx, delta, **kw,
                                              one_slice=one_slice,
                                              split_rows=split_rows)
+        elif x2.dim() == 3:
+            y, res, bnd = abft_matmul_batched_ref(x2, w, fidx, delta, **kw)
         else:
             y, res, bnd = abft_matmul_ref(x2, w, fidx, delta, **kw)
         ctx.mark_non_differentiable(res, bnd)
@@ -62,8 +72,10 @@ class _AbftMatmul(torch.autograd.Function):
         gx = gw = None
         g = gy.to(w.dtype)
         if ctx.needs_input_grad[0]:
-            gx = torch.matmul(g, w.t())
-        if ctx.needs_input_grad[1]:
+            gx = torch.matmul(g, w.transpose(-1, -2))
+        if ctx.needs_input_grad[1] and w.dim() == 3:
+            gw = torch.matmul(x2.transpose(-1, -2), g)
+        elif ctx.needs_input_grad[1]:
             # dW in W's own layout: for the tied head (W = embed.T, a
             # transposed view) the product is formed as (dY^T X)^T, so the
             # view's backward hands ``embed`` a contiguous gradient
@@ -120,6 +132,37 @@ def abft_matmul(x, w, *, mode: str = "1s", blocks: BlockShape = BlockShape(),
     return (y.reshape(*lead, m0, n0),
             CheckResult(flag=flag_from(res, tau), residual=res,
                         threshold=tau))
+
+
+def abft_matmul_batched(x, w, *, mode: str = "1s",
+                        blocks: BlockShape = BlockShape(), out_dtype=None,
+                        fault: FaultSpec | None = None,
+                        c_factor: float = 16.0, one_slice: bool = False):
+    """``y[e] = x[e] @ w[e]`` for every expert e, plus the fused check, in
+    one K1 launch (CUDA operands) or through the batched plain version
+    (CPU operands).  x: (E, m, k) with unit column stride, w: (E, k, n).
+    Blocks are clamped to one expert's GEMM (m, k, n), as under the
+    reference's vmap; the residual is per (expert, block, row) for
+    '1s'/'replica', per (expert, block) for '2s'; the flag is any
+    expert's.  The fault's (row, col) lands in every expert."""
+    out_dtype = out_dtype or x.dtype
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
+            or x.shape[2] != w.shape[1]:
+        raise ValueError(f"batched shapes mismatch {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    _, m0, k0 = x.shape
+    n0 = w.shape[2]
+    f = fault if fault is not None else FaultSpec.none()
+    bm = _clamp_block(m0, blocks.bm)
+    bk = _clamp_block(k0, blocks.bk)
+    bn = _clamp_block(n0, blocks.bn)
+    fidx = (f.row // bm, f.col // bn, f.row % bm, f.col % bn,
+            int(f.enabled), f.bit)
+    y, res, bnd = _AbftMatmul.apply(x, w, fidx, f.delta, mode, bm, bk, bn,
+                                    out_dtype, one_slice, None)
+    tau = ATOL + tolerance_scale(_round_up(k0, bk), c=c_factor) * bnd
+    return y, CheckResult(flag=flag_from(res, tau), residual=res,
+                          threshold=tau)
 
 
 def _per_step(x, w, mode, blocks, out_dtype, f, c_factor):

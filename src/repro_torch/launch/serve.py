@@ -12,8 +12,9 @@
       [--metrics-out m.json] [--trace-out t.json] [--log-events]
 
 ``--arch`` takes every registered config; the port serves the dense
-family (llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b) and exits
-with the ``NotImplementedError`` message on the others.  Runs on the CUDA
+family (llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b) and the MoE
+qwen2-moe-a2.7b, and exits with the ``NotImplementedError`` message on
+the others (and on ``--spec-decode`` with an MoE stack).  Runs on the CUDA
 device unless ``--device cpu`` is given.  Block schemes
 always run the fused ABFT kernel on the card (its plain version on the
 CPU).  Weights are random, made from ``--seed``.
@@ -211,20 +212,25 @@ def main(argv=None) -> int:
                 print(json.dumps(ev), file=sys.stderr)
         telemetry = EngineTelemetry(
             trace=bool(args.trace_out or args.log_events), trace_sink=sink)
-    engine = ServeEngine(
-        model, params, slots=args.slots, max_len=args.max_len, abft=abft,
-        dtype=dtype, device=device, cache_kind=args.cache,
-        block_size=args.block_size, num_blocks=args.num_blocks,
-        admit_lookahead=args.admit_lookahead,
-        prefix_sharing=args.prefix_sharing, chunk_tokens=args.chunk_tokens,
-        temperature=args.temperature, top_k=args.top_k, seed=args.seed,
-        telemetry=telemetry, fault_model=fault_model,
-        spec_decode=(args.spec_decode.replace("-", "_")
-                     if args.spec_decode else None),
-        draft_len=args.draft_len if args.spec_decode else None,
-        draft_units=draft_units, draft_window=draft_window,
-        policy=RecoveryPolicy(max_retries=args.max_retries,
-                              evict_on_hard_fault=not args.raise_on_hard_fault))
+    try:
+        engine = ServeEngine(
+            model, params, slots=args.slots, max_len=args.max_len, abft=abft,
+            dtype=dtype, device=device, cache_kind=args.cache,
+            block_size=args.block_size, num_blocks=args.num_blocks,
+            admit_lookahead=args.admit_lookahead,
+            prefix_sharing=args.prefix_sharing,
+            chunk_tokens=args.chunk_tokens,
+            temperature=args.temperature, top_k=args.top_k, seed=args.seed,
+            telemetry=telemetry, fault_model=fault_model,
+            spec_decode=(args.spec_decode.replace("-", "_")
+                         if args.spec_decode else None),
+            draft_len=args.draft_len if args.spec_decode else None,
+            draft_units=draft_units, draft_window=draft_window,
+            policy=RecoveryPolicy(
+                max_retries=args.max_retries,
+                evict_on_hard_fault=not args.raise_on_hard_fault))
+    except NotImplementedError as e:
+        raise SystemExit(f"error: {e}")
     if args.plan_out:
         with open(args.plan_out, "w") as fh:
             fh.write(engine.plan.to_json())

@@ -14,7 +14,11 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.faults import FaultSpec
-from repro_torch.core.protected import ABFTConfig, protected_matmul
+from repro_torch.core.protected import (
+    ABFTConfig,
+    protected_matmul,
+    protected_matmul_batched,
+)
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -57,19 +61,34 @@ class LayerCtx:
         return dataclasses.replace(self, layer_idx=idx)
 
 
-def dense(x, w, ctx: LayerCtx, site: str, b=None, out_dtype=None,
-          tag: str | None = None):
-    """ABFT-protected ``x @ w (+ b)``.  Returns (y, flag)."""
-    fault = None
+def _site_fault(ctx: LayerCtx, site: str) -> FaultSpec | None:
+    """The context's fault if it targets this site of this layer."""
     f = ctx.fault
     if f is not None and f.spec.enabled and f.site == SITES[site] and (
             ctx.layer_idx is None or f.layer == ctx.layer_idx):
-        fault = f.spec
+        return f.spec
+    return None
+
+
+def dense(x, w, ctx: LayerCtx, site: str, b=None, out_dtype=None,
+          tag: str | None = None):
+    """ABFT-protected ``x @ w (+ b)``.  Returns (y, flag)."""
     y, chk = protected_matmul(x, w, ctx.abft, out_dtype=out_dtype or x.dtype,
-                              fault=fault, site=tag or site)
+                              fault=_site_fault(ctx, site), site=tag or site)
     if b is not None:
         y = y + b.to(y.dtype)
     return y, chk.flag
+
+
+def batched_dense(x_e, w_e, ctx: LayerCtx, site: str,
+                  tag: str | None = None):
+    """Per-expert protected GEMMs x_e (E, C, D) @ w_e (E, D, F) in one
+    call (the reference's ``moe._batched_dense``, a ``jax.vmap`` of
+    ``dense``): the scheme of one expert's GEMM, the site's fault in
+    every expert.  Returns (y (E, C, F), flag: any expert's)."""
+    return protected_matmul_batched(x_e, w_e, ctx.abft,
+                                    fault=_site_fault(ctx, site),
+                                    site=tag or site)
 
 
 def or_flags(*flags):

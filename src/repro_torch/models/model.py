@@ -1,15 +1,18 @@
-"""Model assembly for dense GQA decoder stacks (port of the
-``attn:dense:0`` part of ``repro.models.model``: llama3.2-1b and the dense
-family, qwen3-14b, stablelm-1.6b and qwen1.5-32b).
+"""Model assembly for GQA decoder stacks with dense or MoE FFNs (port of
+the ``attn:dense:0`` and ``attn:moe:0`` part of ``repro.models.model``:
+llama3.2-1b, the dense family qwen3-14b, stablelm-1.6b and qwen1.5-32b,
+and qwen2-moe-a2.7b; mixed dense + MoE stacks such as
+``first_dense_layers=1``).
 
-The reference scans stacked per-segment params; the port keeps one dict
-of tensors per layer and runs the stack as a Python loop.
+The reference scans stacked per-segment params (``seg_plan``); the port
+keeps one dict of tensors per layer and runs the stack as a Python loop.
 ``params_from_reference`` turns the reference's ``Model.init_params``
-tree (converted to numpy) into the port's layout.
+tree (converted to numpy) into the port's layout, segment by segment.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -19,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     LayerCtx,
     dense,
@@ -49,22 +53,55 @@ def layer_tags(cfg: ModelConfig) -> list:
     return tags
 
 
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """A run of layers: ``repeats`` copies of the tags in ``unit``."""
+
+    unit: tuple
+    repeats: int
+
+
+def seg_plan(cfg: ModelConfig) -> list:
+    """The reference's segment plan (copy): (a) the smallest period of
+    the tags, (b) contiguous uniform runs (at most four), (c) one
+    unrolled segment."""
+    tags = layer_tags(cfg)
+    n = len(tags)
+    if n == 0:
+        return []
+    for p in range(1, min(12, n) + 1):
+        if n % p == 0 and all(tags[i] == tags[i % p] for i in range(n)):
+            return [Segment(unit=tuple(tags[:p]), repeats=n // p)]
+    segs = []
+    start = 0
+    for i in range(1, n + 1):
+        if i == n or tags[i] != tags[start]:
+            segs.append(Segment(unit=(tags[start],), repeats=i - start))
+            start = i
+    if len(segs) <= 4:
+        return segs
+    return [Segment(unit=tuple(tags), repeats=1)]
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs dense GQA decoders with SwiGLU MLPs: RMSNorm or
-    LayerNorm, with or without q/k norm, QKV biases and partial rotary
-    (llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b); anything else
-    (MoE, MLA, SSM, encoder-decoder, cross-attention, MTP, TP head
-    padding) is not ported."""
+    """The port runs GQA decoders with SwiGLU FFNs, dense or MoE (routed
+    experts with optional shared ones) in any mix: RMSNorm or LayerNorm,
+    with or without q/k norm, QKV biases and partial rotary
+    (llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b,
+    qwen2-moe-a2.7b); anything else (MLA, SSM, encoder-decoder,
+    cross-attention, MTP, TP head padding) is not ported."""
     ok = (cfg.attention == "gqa" and cfg.act == "silu"
           and cfg.norm in ("rmsnorm", "layernorm")
           and not cfg.pad_heads_to and not cfg.pad_kv_heads_to
           and not cfg.is_encoder_decoder and not cfg.mtp_depth
-          and all(t == "attn:dense:0" for t in layer_tags(cfg)))
+          and all(t in ("attn:dense:0", "attn:moe:0")
+                  for t in layer_tags(cfg)))
     if not ok:
         raise NotImplementedError(
             f"architecture {cfg.name!r} is not ported: the PyTorch port "
-            f"serves and trains dense GQA decoders (llama3.2-1b, "
-            f"qwen3-14b, stablelm-1.6b, qwen1.5-32b)")
+            f"serves and trains GQA decoders with dense or MoE FFNs "
+            f"(llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b, "
+            f"qwen2-moe-a2.7b)")
 
 
 def _to_torch(a, device, dtype):
@@ -80,9 +117,11 @@ def _to_torch(a, device, dtype):
 def params_from_reference(cfg: ModelConfig, np_params, *, device="cpu",
                           dtype=None) -> dict:
     """The reference's ``Model.init_params`` tree (leaves converted to
-    numpy) -> the port's params.  Each ``segments[i]["pos{q}"]`` subtree
-    carries a leading ``repeats`` axis; layer ``off + r * P + q`` of
-    segment i is slice r of its ``pos{q}`` subtree."""
+    numpy) -> the port's params.  ``segments[i]`` follows ``seg_plan``'s
+    segment i; each of its ``pos{q}`` subtrees carries a leading
+    ``repeats`` axis, and layer ``off + r * P + q`` is slice r of
+    ``pos{q}`` (MoE leaves included: ``router``, ``w_up``, ``w_gate``,
+    ``w_down``, ``shared``)."""
     check_supported(cfg)
 
     def conv(tree, r=None):
@@ -91,13 +130,20 @@ def params_from_reference(cfg: ModelConfig, np_params, *, device="cpu",
         return _to_torch(tree if r is None else np.asarray(tree)[r],
                          device, dtype)
 
+    plan = seg_plan(cfg)
+    if len(plan) != len(np_params["segments"]):
+        raise ValueError(f"{len(np_params['segments'])} segments in the "
+                         f"tree, {len(plan)} in {cfg.name!r}'s plan")
     layers = []
-    for seg in np_params["segments"]:
-        P = len(seg)
-        reps = np.asarray(seg["pos0"]["mixer_norm"]["w"]).shape[0]
-        for r in range(reps):
-            for q in range(P):
-                layers.append(conv(seg[f"pos{q}"], r))
+    for seg, sp in zip(plan, np_params["segments"]):
+        reps = np.asarray(sp["pos0"]["mixer_norm"]["w"]).shape[0]
+        if len(sp) != len(seg.unit) or reps != seg.repeats:
+            raise ValueError(f"segment of {len(sp)} x {reps} layers where "
+                             f"the plan has {len(seg.unit)} x "
+                             f"{seg.repeats}")
+        for r in range(seg.repeats):
+            for q in range(len(seg.unit)):
+                layers.append(conv(sp[f"pos{q}"], r))
     out = {"embed": conv(np_params["embed"]),
            "final_norm": conv(np_params["final_norm"]), "layers": layers}
     if "lm_head" in np_params:
@@ -113,7 +159,7 @@ class ForwardOut(NamedTuple):
 
 
 class Model:
-    """Eager model wrapper for one dense GQA architecture."""
+    """Eager model wrapper for one GQA architecture (dense or MoE FFNs)."""
 
     def __init__(self, cfg: ModelConfig):
         check_supported(cfg)
@@ -124,7 +170,8 @@ class Model:
                     device="cpu") -> dict:
         """Seeded N(0, 0.02) weights (the reference's init law; a torch
         generator, so not the reference's numbers), unit norm and q/k
-        norm gains, zero LayerNorm shifts and QKV biases."""
+        norm gains, zero LayerNorm shifts and QKV biases; a dense or an
+        MoE FFN a layer as ``layer_tags`` says."""
         cfg = self.cfg
         gen = torch.Generator(device=device).manual_seed(int(seed))
 
@@ -143,14 +190,16 @@ class Model:
 
         params = {"embed": w(cfg.vocab_size, cfg.d_model),
                   "final_norm": norm_p(), "layers": []}
-        for _ in range(cfg.n_layers):
+        for tag in layer_tags(cfg):
+            ffn = (moe_mod.init_moe(cfg, w) if tag == "attn:moe:0" else
+                   {"up": w(cfg.d_model, cfg.d_ff),
+                    "gate": w(cfg.d_model, cfg.d_ff),
+                    "down": w(cfg.d_ff, cfg.d_model)})
             params["layers"].append({
                 "mixer_norm": norm_p(),
                 "mixer": attn.init_gqa(cfg, w, vec),
                 "ffn_norm": norm_p(),
-                "ffn": {"up": w(cfg.d_model, cfg.d_ff),
-                        "gate": w(cfg.d_model, cfg.d_ff),
-                        "down": w(cfg.d_ff, cfg.d_model)},
+                "ffn": ffn,
             })
         if not cfg.tie_embeddings:
             params["lm_head"] = w(cfg.d_model, cfg.vocab_size)
@@ -182,8 +231,10 @@ class Model:
         attention.  ``verify``: T tokens a row from cursor ``pos``, written
         to the cache through ``window`` (the call's write index); its
         d_model norms run one step at a time at decode's shapes
-        (``per_step``).  Returns
-        (x, flag)."""
+        (``per_step``).  An MoE FFN (its params hold a ``router``) routes
+        the call's tokens, padding rows included, as the reference's.
+        Returns (x, flag, aux): aux the MoE FFN's load-balance loss,
+        None for a dense FFN (only ``forward`` reads it)."""
         cfg = self.cfg
         nrm = functools.partial(per_step, norm) if mode == "verify" else norm
         h = nrm(x, lp["mixer_norm"], cfg.norm, cfg.norm_eps)
@@ -213,8 +264,15 @@ class Model:
             a, f = attn.gqa_decode(h, lp["mixer"], cfg, ctx, pos, cache)
         x = x + a
         h = nrm(x, lp["ffn_norm"], cfg.norm, cfg.norm_eps)
-        o, f2 = mlp(h, lp["ffn"], ctx, act=cfg.act)
-        return x + o, or_flags(f, f2)
+        aux = None
+        if "router" in lp["ffn"]:
+            if mode == "verify":
+                raise NotImplementedError(
+                    "speculative verify on MoE layers is not ported")
+            o, f2, aux = moe_mod.moe_forward(h, lp["ffn"], cfg, ctx)
+        else:
+            o, f2 = mlp(h, lp["ffn"], ctx, act=cfg.act)
+        return x + o, or_flags(f, f2), aux
 
     def run_stack(self, x, params, ctx: LayerCtx, positions, mode: str,
                   caches, pos=None, slots=None, lengths=None, tables=None,
@@ -223,22 +281,28 @@ class Model:
         """The layer loop.  ``caches`` is None in mode ``full``.  ``remat``
         recomputes each layer in the backward pass instead of keeping its
         activations (the reference's ``jax.checkpoint`` per layer); it
-        changes no number and applies only while autograd records."""
+        changes no number and applies only while autograd records.
+        Returns (x, flag, aux): aux the MoE layers' load-balance losses
+        summed (0 without any)."""
         layers = params["layers"]
         caches = caches if caches is not None else [None] * len(layers)
         remat = remat and torch.is_grad_enabled()
-        flags = []
+        flags, auxes = [], []
         for i, (lp, cache) in enumerate(zip(layers, caches)):
             kw = dict(pos=pos, slots=slots, lengths=lengths, tables=tables,
                       prefix_lens=prefix_lens, spans=spans, window=window)
             args = (x, lp, ctx.with_layer(i), positions, mode, cache)
             if remat:
-                x, f = checkpoint(self.apply_layer, *args, use_reentrant=False,
-                                  **kw)
+                x, f, a = checkpoint(self.apply_layer, *args,
+                                     use_reentrant=False, **kw)
             else:
-                x, f = self.apply_layer(*args, **kw)
+                x, f, a = self.apply_layer(*args, **kw)
             flags.append(f)
-        return x, torch.stack(flags).any()
+            if a is not None:
+                auxes.append(a)
+        aux = (torch.stack(auxes).sum() if auxes
+               else torch.zeros((), dtype=F32, device=x.device))
+        return x, torch.stack(flags).any(), aux
 
     def _head(self, params, x, ctx):
         w = (params["embed"].t().to(x.dtype) if self.cfg.tie_embeddings
@@ -270,19 +334,23 @@ class Model:
         B, L = tokens.shape
         x = params["embed"][tokens]
         positions = torch.arange(L, device=dev).expand(B, L)
-        x, flag = self.run_stack(x, params, ctx, positions, "full", None,
-                                 remat=True)
+        x, flag, aux = self.run_stack(x, params, ctx, positions, "full",
+                                      None, remat=True)
         x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         logits, f_head = self._head(params, x, ctx)
         return ForwardOut(logits=logits, flag=or_flags(flag, f_head),
-                          aux_loss=torch.zeros((), dtype=F32, device=dev))
+                          aux_loss=aux)
 
     # -------------------------------------------------- sharing / chunking
     @property
     def supports_prefix_sharing(self) -> bool:
         """A token's cached KV is a pure function of the token prefix in
         an attention-only decoder without per-request memory — every
-        stack the port runs (``check_supported``)."""
+        stack the port runs (``check_supported``) — with one caveat the
+        reference shares: an MoE layer's capacity, and so which tokens
+        its experts drop, depends on every token in the call, so a shared
+        or chunked MoE stream follows the reference's, not the plain
+        run's."""
         cfg = self.cfg
         return not (cfg.is_encoder_decoder or cfg.vision_dim
                     or cfg.cross_attn_every)
@@ -331,10 +399,10 @@ class Model:
             offs = prefix_lens.tolist() if prefix_lens is not None \
                 else [0] * B
             spans = [(o, o + n) for o, n in zip(offs, lens)]
-        x, flag = self.run_stack(x, params, ctx, positions, "prefill", cache,
-                                 slots=slots, lengths=lengths,
-                                 tables=block_tables,
-                                 prefix_lens=prefix_lens, spans=spans)
+        x, flag, _ = self.run_stack(x, params, ctx, positions, "prefill",
+                                    cache, slots=slots, lengths=lengths,
+                                    tables=block_tables,
+                                    prefix_lens=prefix_lens, spans=spans)
         x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         if lengths is not None:
             idx = (lengths.to(x.device).long() - 1).clamp_min(0)
@@ -354,8 +422,8 @@ class Model:
         pos = torch.as_tensor(pos, dtype=torch.int32,
                               device=token.device).expand(B).contiguous()
         x = params["embed"][token]
-        x, flag = self.run_stack(x, params, ctx, None, "decode", cache,
-                                 pos=pos, tables=block_tables)
+        x, flag, _ = self.run_stack(x, params, ctx, None, "decode", cache,
+                                    pos=pos, tables=block_tables)
         x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         logits, f_head = self._head(params, x, ctx)
         return logits, cache, or_flags(flag, f_head)
@@ -386,8 +454,9 @@ class Model:
                   if block_tables is None else
                   prefill_write_index(pool, block_tables, valid, T, pos))
         x = params["embed"][tokens]
-        x, flag = self.run_stack(x, params, ctx, None, "verify", cache,
-                                 pos=pos, tables=block_tables, window=window)
+        x, flag, _ = self.run_stack(x, params, ctx, None, "verify", cache,
+                                    pos=pos, tables=block_tables,
+                                    window=window)
         x = per_step(norm, x, params["final_norm"], cfg.norm, cfg.norm_eps)
         logits, f_head = self._head(params, x, ctx)
         return logits, cache, or_flags(flag, f_head)

@@ -99,7 +99,8 @@ the decode step's order.  Speculation needs the plain attention path
 (``flash_attention`` off), as in the reference.
 
 Options of the reference that this port does not have raise
-``NotImplementedError``: sharding (``mesh``) and ``hints``.
+``NotImplementedError``: sharding (``mesh``) and ``hints``, and
+speculative decoding on a stack with MoE layers.
 """
 
 from __future__ import annotations
@@ -114,7 +115,7 @@ from repro_torch.core.policy import ErrorAdaptivePolicy
 from repro_torch.core.protected import ABFTConfig
 from repro_torch.models import attention
 from repro_torch.models.layers import LayerCtx, ModelFault
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, layer_tags
 from repro_torch.obs.trace import Tracer
 from repro_torch.serve import paged_cache
 from repro_torch.serve.executor import LocalExecutor, resolve_device
@@ -283,6 +284,12 @@ class ServeEngine:
         self._draft_len_base: int | None = None
         self._last_decode_tokens = 0
         if spec_decode is not None:
+            if any(t.split(":")[1] == "moe" for t in layer_tags(model.cfg)):
+                raise NotImplementedError(
+                    "spec_decode on MoE stacks is not ported yet: the "
+                    "reference pads every verify window to K+1 tokens, "
+                    "the port to the longest proposal, and under MoE the "
+                    "window's width sets the experts' capacity")
             if not model.supports_chunked_prefill:
                 raise ValueError(
                     "spec_decode requires an attention-only decoder (SSM "

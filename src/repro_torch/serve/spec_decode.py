@@ -138,8 +138,8 @@ class SelfDraftProposer:
         out = []
         for _ in range(int(k)):
             x = params["embed"][t][None]                   # (1, W, D)
-            h, _ = self.model.run_stack(x, sub, self.ctx, p[None], "full",
-                                        None)
+            h, _, _ = self.model.run_stack(x, sub, self.ctx, p[None],
+                                           "full", None)
             h = norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
             logits, _ = self.model._head(params, h[:, -1:, :], self.ctx)
             nxt = torch.argmax(logits[0, -1])

@@ -1374,3 +1374,174 @@ def test_spec_streams_on_the_card_equal_unsped_plain_schemes(dev, scheme):
     for name in runs:
         assert streams[name] == streams["plain"], name
     assert accepted > 0
+
+
+# ------------------------------------------------------ K1 over experts
+
+# (E, C, K, N): decode capacity, an admission's, a ragged one; the
+# scaled-down expert GEMMs (K = 32: a ragged TMA box); unaligned rows
+K1_MOE_SHAPES = [(6, 4, 2048, 1408), (6, 88, 1408, 2048),
+                 (5, 13, 256, 384), (8, 2, 32, 64), (8, 8, 64, 32),
+                 (4, 5, 40, 24)]
+
+
+def _moe_inputs(dev, E, C, K, N, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((E, C, K)).astype(np.float32))
+    w = torch.from_numpy((0.05 * rng.standard_normal((E, K, N))).astype(
+        np.float32))
+    return x.to(dev, dtype), w.to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", K1_MOE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k1_batched_over_experts_matches_plain_version(dev, shape, mode,
+                                                       dtype):
+    """One launch for all experts, each expert's y, residual and bound as
+    the batched plain version's."""
+    from repro_torch.kernels.ref import abft_matmul_batched_ref
+
+    E, C, K, N = shape
+    x, w = _moe_inputs(dev, E, C, K, N, dtype, seed=sum(shape))
+    bm, bk, bn = _blocks(C, K, N)
+    kw = dict(mode=mode, bm=bm, bk=bk, bn=bn, out_dtype=dtype)
+    before, batched = am.KERNEL.launches, am.BATCHED.launches
+    y, res, bnd = am.abft_matmul_kernel(x, w, **kw)
+    assert am.KERNEL.launches == before + 1
+    assert am.BATCHED.launches == batched + 1
+    yp, resp, bndp = abft_matmul_batched_ref(x, w, **kw)
+    torch.cuda.synchronize()
+    assert y.shape == yp.shape and res.shape == resp.shape
+    err = (y.float() - yp.float()).abs().max().item()
+    assert err <= _y_tol(yp, dtype)
+    torch.testing.assert_close(bnd, bndp, rtol=1e-5, atol=1e-30)
+    _, chk = ops.abft_matmul_batched(x, w, mode=mode, out_dtype=dtype)
+    assert not bool(chk.flag)
+
+
+@pytest.mark.parametrize("mode", ["1s", "2s", "replica"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [4, 40])
+def test_k1_batched_flags_the_fault_in_every_expert(dev, C, dtype, mode):
+    E, K, N = 6, 512, 384
+    x, w = _moe_inputs(dev, E, C, K, N, dtype, seed=C)
+    row, col = C - 1, N // 2 + 3
+    bm, _, bn = _blocks(C, K, N)
+    want = (row // bm, col // bn) + (() if mode == "2s" else (row % bm,))
+    flat = int(np.ravel_multi_index(want, (-(-C // bm), -(-N // bn))
+                                    + (() if mode == "2s" else (bm,))))
+    clean, _ = ops.abft_matmul_batched(x, w, mode=mode)
+    y, chk = ops.abft_matmul_batched(x, w, mode=mode,
+                                     fault=FaultSpec.value(row, col, 1e4))
+    assert bool(chk.flag)
+    ratio = (chk.residual / chk.threshold).reshape(E, -1)
+    assert (ratio.argmax(1) == flat).all()
+    assert ((ratio > 1).sum(1) == 1).all()
+    diff = (y != clean).nonzero().tolist()
+    assert diff == [[e, row, col] for e in range(E)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k1_batched_is_bit_for_bit_deterministic(dev, dtype):
+    x, w = _moe_inputs(dev, 60, 4, 2048, 1408, dtype, seed=8)
+    runs = [ops.abft_matmul_batched(x, w) for _ in range(3)]
+    for y, chk in runs[1:]:
+        assert torch.equal(y, runs[0][0])
+        assert torch.equal(chk.residual, runs[0][1].residual)
+
+
+def test_k1_batched_odd_expert_stride_takes_the_tiles(dev):
+    """Experts that do not start on 16-byte boundaries leave only the
+    CUDA-core tiles, which read any stride."""
+    from repro_torch.kernels.ref import abft_matmul_batched_ref
+
+    E, C, K, N = 4, 8, 64, 32
+    buf = torch.randn(E * (K * N + 1), device=dev).to(torch.bfloat16)
+    w = buf.as_strided((E, K, N), (K * N + 1, N, 1))
+    x = torch.randn(E, C, K, device=dev).to(torch.bfloat16)
+    kw = dict(mode="1s", bm=8, bk=64, bn=32, out_dtype=torch.bfloat16)
+    y, _, bnd = am.abft_matmul_kernel(x, w, **kw)
+    yp, _, bndp = abft_matmul_batched_ref(x, w, **kw)
+    assert (y.float() - yp.float()).abs().max().item() <= _y_tol(
+        yp, torch.bfloat16)
+    torch.testing.assert_close(bnd, bndp, rtol=1e-5, atol=1e-30)
+    with pytest.raises(ValueError):
+        am.abft_matmul_kernel(x, w, **kw, force="tc")
+
+
+def test_k1_batched_wrapper_raises_rather_than_falls_back(dev):
+    x, w = _moe_inputs(dev, 3, 4, 64, 32, torch.float32, seed=1)
+    kw = dict(mode="1s", bm=8, bk=64, bn=32, out_dtype=torch.float32)
+    with pytest.raises(ValueError):
+        am.abft_matmul_kernel(x, w.cpu(), **kw)
+    with pytest.raises(ValueError):
+        am.abft_matmul_kernel(x, w[:2], **kw)
+    with pytest.raises(ValueError):
+        am.abft_matmul_kernel(x, w[0], **kw)
+    with pytest.raises(TypeError):
+        am.abft_matmul_kernel(x, w.to(torch.bfloat16), **kw)
+
+
+@pytest.mark.parametrize("fdl", [0, 1])
+def test_small_moe_engine_on_the_card_equals_the_cpu(dev, fdl):
+    """Scaled-down f32 qwen2-moe-a2.7b (and a dense first layer): the
+    engine on the card (K1 batched over experts among the kernels) and on
+    the CPU give the same greedy streams, dense and paged; K1 ran three
+    batched launches a MoE layer a decode step."""
+    cfg = scaled_down(get_config("qwen2-moe-a2.7b"), first_dense_layers=fdl)
+    n_moe = cfg.n_layers - fdl
+    model = Model(cfg)
+    params = model.init_params(3, dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 256, size=int(n)).astype(np.int32)
+               for n in rng.integers(3, 40, size=5)]
+    streams = {}
+    for d in ("cpu", dev):
+        for kind in ("dense", "paged"):
+            eng = ServeEngine(model, params, slots=2, max_len=64,
+                              dtype=torch.float32, device=d,
+                              cache_kind=kind,
+                              abft=ABFTConfig(flash_attention=True))
+            reqs = [Request(uid=i, prompt=p, max_new_tokens=8)
+                    for i, p in enumerate(prompts)]
+            if str(d) != "cpu":
+                eng.admit(reqs[:2])
+                b0 = am.BATCHED.launches
+                eng.step()
+                assert am.BATCHED.launches - b0 == 3 * n_moe
+                reqs = [Request(uid=i, prompt=p, max_new_tokens=8)
+                        for i, p in enumerate(prompts)]
+                eng = ServeEngine(model, params, slots=2, max_len=64,
+                                  dtype=torch.float32, device=d,
+                                  cache_kind=kind,
+                                  abft=ABFTConfig(flash_attention=True))
+            streams[(str(d), kind)] = eng.run(reqs)
+    assert len({str(s) for s in streams.values()}) == 1
+
+
+@pytest.mark.parametrize("fdl", [0, 1])
+def test_small_moe_forward_on_the_card_equals_the_cpu(dev, fdl):
+    """The same scaled-down f32 stacks through ``Model.forward``: logits
+    on the card within 1e-4 of the CPU's (f32 sums in another order),
+    equal flags, the aux loss within 1e-5 relative."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.layers import LayerCtx
+
+    cfg = scaled_down(get_config("qwen2-moe-a2.7b"), first_dense_layers=fdl)
+    model = Model(cfg)
+    params = model.init_params(3, dtype=torch.float32)
+    tokens = torch.from_numpy(
+        np.random.default_rng(5).integers(1, 256, size=(2, 24)))
+    out = {}
+    for d in ("cpu", dev):
+        with torch.no_grad():
+            out[str(d)] = model.forward(tree_map(lambda t: t.to(d), params),
+                                        {"tokens": tokens.to(d)},
+                                        LayerCtx(), device=d)
+    a, b = out["cpu"], out[str(dev)]
+    assert (a.logits - b.logits.cpu()).abs().max().item() <= 1e-4
+    assert bool(a.flag) == bool(b.flag.cpu())
+    assert abs(float(a.aux_loss) - float(b.aux_loss)) \
+        <= 1e-5 * abs(float(a.aux_loss))

@@ -162,11 +162,19 @@ def test_unported_options_raise(setup, opt):
     """``mesh`` is not ported and raises ``NotImplementedError``.  Chunked
     prefill, paged prefix sharing and speculative decoding (both
     proposers) are ported, construct and serve; dense prefix sharing
-    raises the reference's ``ValueError``."""
+    raises the reference's ``ValueError``.  Speculative decoding on a
+    stack with MoE layers is not ported and raises
+    ``NotImplementedError``."""
     _, _, tm, tp, _ = setup
 
     def make():
         return ServeEngine(tm, tp, slots=1, max_len=16, device="cpu", **opt)
+
+    if "spec_decode" in opt:
+        moe = Model(scaled_down(get_config("qwen2-moe-a2.7b")))
+        with pytest.raises(NotImplementedError, match="MoE"):
+            ServeEngine(moe, moe.init_params(0, dtype=torch.float32),
+                        slots=1, max_len=16, device="cpu", **opt)
 
     if "mesh" in opt:
         with pytest.raises(NotImplementedError):

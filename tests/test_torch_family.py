@@ -108,9 +108,9 @@ def _ctxs(flash, fault, use_pallas=False):
 
 
 def test_the_family_is_served_and_the_rest_is_not():
-    for arch in ("llama3.2-1b",) + ARCHS:
+    for arch in ("llama3.2-1b", "qwen2-moe-a2.7b") + ARCHS:
         Model(get_config(arch))
-    for arch in ("qwen2-moe-a2.7b", "deepseek-v3-671b", "jamba-v0.1-52b",
+    for arch in ("deepseek-v3-671b", "jamba-v0.1-52b",
                  "mamba2-1.3b", "whisper-tiny", "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError):
             Model(get_config(arch))

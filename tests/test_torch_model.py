@@ -144,12 +144,12 @@ def test_unported_architectures_raise():
 
     cfg = scaled_down(get_config("llama3.2-1b"), n_layers=2)
     for ok in (dict(qk_norm=True), dict(qkv_bias=True), dict(rope_pct=0.25),
-               dict(norm="layernorm")):
+               dict(norm="layernorm"),
+               dict(n_experts=4, experts_per_token=2, moe_d_ff=32)):
         Model(dataclasses.replace(cfg, **ok))
     for bad in (dict(act="gelu"), dict(attention="mla"), dict(family="ssm"),
                 dict(norm="scalenorm"), dict(pad_heads_to=8),
                 dict(pad_kv_heads_to=4), dict(mtp_depth=1),
-                dict(is_encoder_decoder=True), dict(cross_attn_every=2),
-                dict(n_experts=4, experts_per_token=2, moe_d_ff=32)):
+                dict(is_encoder_decoder=True), dict(cross_attn_every=2)):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(cfg, **bad))
