@@ -21,9 +21,14 @@ every greedy stream held to the plain paged run's, faults included;
 ``spec`` serves copy and fresh traffic with speculative decoding (n-gram
 and self-draft proposers, the K+1-row verify step through K1), every
 greedy stream held to the unsped run's, faults included;
-``family`` serves and scores the rest of the dense family; and ``moe``
+``family`` serves and scores the rest of the dense family; ``moe``
 holds K1 batched over experts against its plain version, then serves,
-scores and times full-width qwen2-moe-a2.7b.  Each phase
+scores and times full-width qwen2-moe-a2.7b; and ``mla`` does the same
+for deepseek-v3-671b at its published widths and 4 layers with its MTP
+head (MLA on K1 alone: K2 and K3 held to 0 launches), and serves the
+all-dense 3-layer MLA stack cut from its weights under prefix sharing,
+chunked prefill and speculation, every greedy stream held to the plain
+run's.  Each phase
 prints JSON lines; any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -49,7 +54,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
           "campaign", "profile", "timing", "sharing", "spec", "family",
-          "moe")
+          "moe", "mla")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -896,15 +901,15 @@ def engine_serve(model, params, prompts, dev, cache_kind, policy, *,
     """One bf16 engine run (4 slots, max_len 512, flash on) of ``prompts``
     under ``policy`` on ``NVIDIA_H100_SXM``, every admission and decode
     step timed to a synchronize; K1 (its expert-batched launches apart,
-    also per decode step) and K3 counted from 0 for this run.  Emits the
-    run's line under ``phase``; returns (streams, record, engine)."""
+    also per decode step), K2 and K3 counted from 0 for this run.  Emits
+    the run's line under ``phase``; returns (streams, record, engine)."""
     from repro_torch.core.hardware import NVIDIA_H100_SXM
     from repro_torch.core.protected import ABFTConfig
     from repro_torch.kernels import abft_matmul, flash_attention
     from repro_torch.serve.engine import Request, ServeEngine
 
     K1, K3 = abft_matmul.KERNEL, flash_attention.KERNEL
-    K1B = abft_matmul.BATCHED
+    K1B, K2 = abft_matmul.BATCHED, flash_attention.FULL_KERNEL
     abft = ABFTConfig.from_policy(policy, hardware=NVIDIA_H100_SXM,
                                   flash_attention=True)
     eng = ServeEngine(model, params, slots=4, max_len=512, abft=abft,
@@ -934,14 +939,15 @@ def engine_serve(model, params, prompts, dev, cache_kind, policy, *,
 
     eng.admit, eng.step = timed_admit, timed_step
     torch.cuda.synchronize()
-    K1.launches = K3.launches = K1B.launches = 0   # THIS run's counts
+    K1.launches = K3.launches = K1B.launches = K2.launches = 0  # this run
     t0 = time.perf_counter()
     results = eng.run(reqs, fault_at=fault_at)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     del eng.admit, eng.step         # the timers close a cycle through eng
     launches = {"abft_matmul": K1.launches, "flash_decode": K3.launches,
-                "abft_matmul_batched": K1B.launches}
+                "abft_matmul_batched": K1B.launches,
+                "flash_attention": K2.launches}
     errors = {r.uid: r.error for r in reqs if r.error}
     need(not errors, f"{phase} {label}: errors {errors}")
     need(all(len(results[i]) == max_new_tokens for i in range(len(reqs))),
@@ -1531,36 +1537,50 @@ def family_plan(cfg) -> dict:
 
 
 def _gemm_sites(params) -> dict:
-    """The 2-D GEMM sites of layer 0 and the head: name -> (weight, output
-    dtype).  A dense FFN gives ``up`` and ``down``; an MoE FFN gives the
-    router (N = E, f32 out) and the shared experts' ``shared_up`` and
-    ``shared_down`` (its expert GEMMs are ``moe_k1_checks``')."""
+    """The 2-D GEMM sites of layer 0 (and of the first MoE layer, when
+    layer 0 is dense), the head and the MTP head: name -> (weight, output
+    dtype).  A GQA mixer gives ``q``, ``kv`` and ``o``; an MLA mixer
+    ``q_a``, ``q_b``, ``kv_a`` and ``o``.  A dense FFN gives ``up`` and
+    ``down``; an MoE FFN gives the router (N = E, f32 out) and the shared
+    experts' ``shared_up`` and ``shared_down`` (its expert GEMMs are
+    ``moe_k1_checks``' and ``mla_k1_checks``').  ``mtp_proj``: the MTP
+    head's projection (K = 2 d_model)."""
     lp = params["layers"][0]
     bf, f32 = params["embed"].dtype, torch.float32
-    sites = {"q": (lp["mixer"]["wq"], bf), "kv": (lp["mixer"]["wk"], bf),
-             "o": (lp["mixer"]["wo"], bf)}
+    mx = lp["mixer"]
+    if "wq_a" in mx:
+        sites = {"q_a": (mx["wq_a"], bf), "q_b": (mx["wq_b"], bf),
+                 "kv_a": (mx["wkv_a"], bf), "o": (mx["wo"], bf)}
+    else:
+        sites = {"q": (mx["wq"], bf), "kv": (mx["wk"], bf),
+                 "o": (mx["wo"], bf)}
     ffn = lp["ffn"]
-    if "router" in ffn:
+    if "router" not in ffn:
+        sites["up"], sites["down"] = (ffn["up"], bf), (ffn["down"], bf)
+        ffn = next((l["ffn"] for l in params["layers"]
+                    if "router" in l["ffn"]), None)
+    if ffn is not None:
         sites["router"] = (ffn["router"], f32)
         if "shared" in ffn:
             sites["shared_up"] = (ffn["shared"]["up"], bf)
             sites["shared_down"] = (ffn["shared"]["down"], bf)
-    else:
-        sites["up"], sites["down"] = (ffn["up"], bf), (ffn["down"], bf)
     sites["head"] = (params["lm_head"] if "lm_head" in params
                      else params["embed"].t(), f32)
+    if "mtp" in params:
+        sites["mtp_proj"] = (params["mtp"]["proj"], bf)
     return sites
 
 
-def family_checks(dev, cfg, params) -> dict:
+def family_checks(dev, cfg, params, k2: bool = True) -> dict:
     """K1 and K2 against their plain versions at ``cfg``'s shapes, before
     its main path runs.  K1: each 2-D GEMM site's real weights
     (``_gemm_sites``; K up to 27392, N from 60 to 152064) at M = 4 (a
     decode step) and 1024 (the score's rows), and with ``one_slice`` (the
     serving prefill's plan) at M = 256 (a chunk) and 1024 (an admission),
     mode 1s on the route the path takes, and a value fault and a bit flip
-    in the FFN's down projection (``down``, or ``shared_down``) flagged
-    at their block and row.  K2: causal
+    in the FFN's down projection (``down``, ``shared_down``) and MLA's
+    latent projections (``q_a``, ``kv_a``) flagged at their block and
+    row.  K2 (unless ``k2`` is off: MLA never reaches it): causal
     bf16 at B = 1, L = 1024 with ``cfg``'s heads (D = 64 or 128, G = 1 or
     5).  K3 is held against its plain version layer by layer in
     ``k3_timing`` on the engine's own cache.
@@ -1613,11 +1633,17 @@ def family_checks(dev, cfg, params) -> dict:
                 one_abs = max(one_abs, err)
             else:
                 worst_abs = max(worst_abs, err)
-            if name in ("down", "shared_down"):
+            if name in ("down", "shared_down", "q_a", "kv_a"):
                 _k1_fault_check(ops, FaultSpec, x, w, "1s", out_dtype,
                                 f"{cfg.name} {name}", one_slice=one)
     need(all(v < 1 for v in ratios.values()),
          f"K1 clean residual at or over its threshold: {ratios}")
+    rec = {"k1_max_rel_err_y": worst, "k1_max_abs_err": worst_abs,
+           "k1_one_slice_max_abs_err": one_abs,
+           "k1_routes": routes_taken,
+           "k1_worst_clean_residual_over_threshold": max(ratios.values())}
+    if not k2:
+        return rec
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q, k, v = _k2_inputs(gen, dev, 1, 1024, H, KV, D, torch.bfloat16)
     kw = dict(causal=True, **_k2_blocks(1024))
@@ -1635,11 +1661,7 @@ def family_checks(dev, cfg, params) -> dict:
         (got[1] / (ATOL + tolerance_scale(D) * got[2])).max().item(),
         (got[3] / (ATOL + tolerance_scale(1024) * got[4])).max().item())
     need(k2_ratio < 1, f"K2 {cfg.name} clean residual over threshold")
-    return {"k1_max_rel_err_y": worst, "k1_max_abs_err": worst_abs,
-            "k1_one_slice_max_abs_err": one_abs,
-            "k1_routes": routes_taken,
-            "k1_worst_clean_residual_over_threshold": max(ratios.values()),
-            "k2_tc": tc_path(q, k, v, kw["bk"]),
+    return {**rec, "k2_tc": tc_path(q, k, v, kw["bk"]),
             "k2_bf16_worst_err_over_tolerance": share.item(),
             "k2_max_abs_err": (got[0].float() - o_ref).abs().max().item(),
             "k2_worst_clean_residual_over_threshold": k2_ratio}
@@ -2448,12 +2470,14 @@ def _same_spec_streams(rec, ref, what, clean: bool = True) -> None:
          f"spec {what}: a clean run raised a flag")
 
 
-def norm_row_order(dev) -> dict:
+def norm_row_order(dev, only=None) -> dict:
     """Whether a norm over the (slots, T) rows of a verify step reduces
     each row in the order of decode's (slots, 1) rows, at the dense
     family's norm widths: ``rms_norm`` over d_model 2048 (llama3.2-1b)
     and 5120 (qwen3-14b), ``layer_norm`` over 2048 (stablelm-1.6b), and
-    qwen3-14b's q/k norms over head_dim 128 (40 and 8 heads a row).  For
+    qwen3-14b's q/k norms over head_dim 128 (40 and 8 heads a row); and
+    deepseek-v3's: d_model 7168 and MLA's latent norms over 512
+    (``kv_a_norm``) and 1536 (``q_a_norm``).  ``only``: those cases.  For
     slots 1, 4, 8 and 16 and T 2, 5 and 9: ``f32`` — the row reductions
     (mean of squares; mean and variance) bit-equal; ``out`` — the norm's
     bf16 output bit-equal (a coarser probe: an f32 ulp rarely moves a
@@ -2483,9 +2507,14 @@ def norm_row_order(dev) -> dict:
              "layer_norm_2048": ((2048,), ln_red, layer_norm,
                                  (rnd(2048), rnd(2048))),
              "q_norm_40x128": ((40, 128), rms_red, rms_norm, (rnd(128),)),
-             "k_norm_8x128": ((8, 128), rms_red, rms_norm, (rnd(128),))}
+             "k_norm_8x128": ((8, 128), rms_red, rms_norm, (rnd(128),)),
+             "rms_norm_7168": ((7168,), rms_red, rms_norm, (rnd(7168),)),
+             "kv_a_norm_512": ((512,), rms_red, rms_norm, (rnd(512),)),
+             "q_a_norm_1536": ((1536,), rms_red, rms_norm, (rnd(1536),))}
     out = {}
     for name, (width, red, fn, args) in cases.items():
+        if only is not None and name not in only:
+            continue
         rec = {}
         for slots in (1, 4, 8, 16):
             eq = {"f32": True, "out": True, "per_step": True}
@@ -3236,6 +3265,700 @@ def _add_moe(kernels, moe) -> None:
             **{k: t[k] for k in keys}}
 
 
+# ------------------------------------------------------------------ mla
+
+MLA_ARCH = "deepseek-v3-671b"
+# published widths cut to 4 layers (3 dense + 1 MoE: the least depth that
+# holds an MoE layer and the most that fits; with the MTP head 26.7e9
+# parameters, 53.4 GB in bf16); the first 3 layers' weights form the
+# all-dense MLA stack
+MLA_LAYERS, MLA_DENSE_LAYERS = 4, 3
+MLA_SHAPES = {"up": (7168, 2048), "down": (2048, 7168)}
+MLA_MAX_LEN, MLA_CHUNK, MLA_NEW, MLA_SPEC_K = 1024, 256, 16, 4
+# the score's logits gate: error against f32 routed alike, as a share of
+# the logits' scale (bf16 through 4 layers: ~0.005)
+MLA_SCORE_TOL = 0.05
+
+
+def mla_config():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+
+
+def mla_k1_checks(dev) -> dict:
+    """K1 batched over deepseek-v3's 256 experts (K, N = 7168, 2048 and
+    2048, 7168), bf16 mode 1s, against its plain version at the
+    capacities of a decode step (C = 4) and of an admission of 4 x 256
+    tokens (``moe.capacity``: 40), with a value fault flagged in every
+    expert at its block and row (``_moe_fault_check``); then one layer's
+    three expert GEMMs timed at both (the gate GEMM reads the up weights
+    again: 7.5 GB apart, no cache holds them).  Run on the card before
+    the model loads: the plain version widens a GEMM's 7.5 GB of weights
+    to f32 (15 GB), on random weights of the real shapes.  Tolerances as
+    ``moe_k1_checks``.  Timing: K1 and ``torch.bmm`` by CUDA-graph
+    replay, the plain version eagerly (its 15 GB widening a GEMM takes
+    milliseconds; the host's share is under 1%), the bound each input
+    read and each output written once (7.52 GB a GEMM)."""
+    from repro_torch.core.checksums import ATOL, tolerance_scale
+    from repro_torch.kernels import abft_matmul
+    from repro_torch.kernels.abft_matmul import abft_matmul_kernel
+    from repro_torch.kernels.ref import abft_matmul_batched_ref
+    from repro_torch.models.moe import capacity
+
+    cfg = mla_config()
+    E, bf = cfg.n_experts, torch.bfloat16
+    c_admit = capacity(cfg, 4 * 256)
+    K1, K1B = abft_matmul.KERNEL, abft_matmul.BATCHED
+    gen = torch.Generator(device=dev).manual_seed(29)
+    ws = {name: (0.02 * torch.randn(E, k, n, generator=gen, device=dev))
+          .to(bf) for name, (k, n) in MLA_SHAPES.items()}
+    ratio, worst, cases = 0.0, 0.0, 0
+    for name, w in ws.items():
+        _, k, n = w.shape
+        for C in (4, c_admit):
+            x = torch.randn(E, C, k, generator=gen, device=dev).to(bf)
+            bm, bk, bn = _moe_clamp(C, k, n)
+            kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=bf)
+            yp, resp, bndp = abft_matmul_batched_ref(x, w, **kw)
+            l0, b0 = K1.launches, K1B.launches
+            y, res, bnd = abft_matmul_kernel(x, w, **kw)
+            torch.cuda.synchronize()
+            need(K1.launches - l0 == 1 and K1B.launches - b0 == 1,
+                 f"mla batched K1 {name} C={C}: not one launch")
+            scale = yp.float().abs().max().item()
+            err = (y.float() - yp.float()).abs().max().item()
+            need(err <= 2 ** -7 * scale, f"mla batched K1 y {name} C={C}: "
+                 f"err {err}")
+            berr = ((bnd - bndp).abs() / bndp.abs().clamp_min(1e-30)).max()
+            need(berr.item() <= 1e-4, f"mla batched K1 bnd {name} C={C}")
+            tau = ATOL + tolerance_scale(-(-k // bk) * bk) * bnd
+            taup = ATOL + tolerance_scale(-(-k // bk) * bk) * bndp
+            ratio = max(ratio, (res / tau).max().item(),
+                        (resp / taup).max().item())
+            worst = max(worst, err)
+            del y, yp, res, resp, bnd, bndp
+            _moe_fault_check(x, w, "1s", f"mla {name} C={C}")
+            cases += 1
+    need(ratio < 1, f"mla batched K1 clean residual at {ratio} of its "
+         f"threshold")
+    timing = {}
+    for C in (4, c_admit):
+        calls, b_ms, by = [], 0.0, set()
+        for w in (ws["up"], ws["up"], ws["down"]):
+            _, k, n = w.shape
+            x = torch.randn(E, C, k, generator=gen, device=dev).to(bf)
+            bm, bk, bn = _moe_clamp(C, k, n)
+            calls.append((x, w, dict(mode="1s", bm=bm, bk=bk, bn=bn,
+                                     out_dtype=bf)))
+            t, b = _gemm_bound(C, k, n, 2, 2,
+                               -(-C // bm) * -(-n // bn) * bm)
+            b_ms += E * t
+            by.add(b)
+
+        def kern():
+            for x, w, kw in calls:
+                abft_matmul_kernel(x, w, **kw)
+
+        def plain():
+            for x, w, kw in calls:
+                abft_matmul_batched_ref(x, w, **kw)
+
+        def lib():
+            for x, w, _ in calls:
+                torch.bmm(x, w)
+
+        timing[f"experts_c{C}"] = {
+            "C": C, "E": E, "gemms": 3, "launches": 3,
+            "ms": timed_graph(kern, iters=10),
+            "ms_eager": timed(kern, iters=10),
+            "plain_ms": timed(plain, iters=2, warmup=1),
+            "library_ms": timed_graph(lib, iters=10),
+            "bound_ms": b_ms, "bound_by": by.pop()}
+        del calls
+    del ws
+    free_memory()
+    rec = {"cases": cases, "capacity_admission": c_admit,
+           "max_abs_err_y": worst,
+           "worst_clean_residual_over_threshold": ratio}
+    emit("mla_k1_check", **rec)
+    emit("mla_k1_timing", **timing)
+    return {"checks": rec, "timing": timing}
+
+
+def mla_serve(model, params, traffic, dev, label, *, cache_kind="dense",
+              flash=False, capture=None, **kw) -> dict:
+    """One bf16 engine run (4 slots, max_len ``MLA_MAX_LEN``, block 16,
+    ``IntensityGuidedPolicy`` on the H100) of ``traffic`` ((prompt, new
+    tokens, arrival iteration) a request) through ``admit``/``step``; K1
+    (2-D and batched over experts), K2 and K3 counted from 0 for this run
+    and K2 and K3 held to 0 (MLA never takes them, ``flash`` on or off);
+    every step timed to a synchronize; ``check_invariants`` after every
+    paged step.  ``capture`` collects each request's prompt latent cells
+    (every layer) once it turns active.  Returns the run's record."""
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import IntensityGuidedPolicy
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.kernels import abft_matmul, flash_attention
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    K1, K1B = abft_matmul.KERNEL, abft_matmul.BATCHED
+    K2, K3 = flash_attention.FULL_KERNEL, flash_attention.KERNEL
+    abft = ABFTConfig.from_policy(IntensityGuidedPolicy(),
+                                  hardware=NVIDIA_H100_SXM,
+                                  flash_attention=flash)
+    eng = ServeEngine(model, params, slots=4, max_len=MLA_MAX_LEN,
+                      block_size=16, abft=abft, dtype=torch.bfloat16,
+                      device=dev, cache_kind=cache_kind, seed=0, **kw)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=n)
+            for i, (p, n, _) in enumerate(traffic)]
+    due = {r.uid: a for r, (_, _, a) in zip(reqs, traffic)}
+    pending, later, step_ms, it = [], list(reqs), [], 0
+    torch.cuda.synchronize()
+    K1.launches = K1B.launches = K2.launches = K3.launches = 0  # this run
+    t0 = time.perf_counter()
+    while pending or later or eng.active or eng._prefill_cursors:
+        for r in [r for r in later if due[r.uid] <= it]:
+            pending.append(r)
+            later.remove(r)
+        if pending and eng.free_slots():
+            eng.admit(pending)
+        ts = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - ts))
+        if eng.pool is not None:
+            eng.pool.check_invariants()
+        if capture is not None:
+            for s, r in eng.active.items():
+                if r.uid in capture:
+                    continue
+                pos = torch.arange(len(r.prompt), device=dev)
+                if eng.pool is not None:
+                    t = torch.as_tensor(eng.pool.tables[s], device=dev)
+                    idx = (t[pos // 16].long(), pos % 16)
+                else:
+                    idx = (s, pos)
+                capture[r.uid] = [leaf[idx].clone() for layer in eng.cache
+                                  for leaf in layer.values()]
+        it += 1
+        need(it < 4000, f"mla {label}: the run does not end")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    st = eng.stats
+    rec = dict(
+        label=label, cache=cache_kind, seconds=seconds, iterations=it,
+        tokens=st.tokens, tokens_per_s=st.tokens / seconds,
+        step_ms_median=float(np.median(step_ms)),
+        launches={"abft_matmul": K1.launches,
+                  "abft_matmul_batched": K1B.launches,
+                  "flash_attention": K2.launches,
+                  "flash_decode": K3.launches},
+        streams={r.uid: list(r.generated) for r in reqs},
+        errors={r.uid: r.error for r in reqs if r.error},
+        prompt_tokens=st.prompt_tokens_total,
+        prefill_tokens_computed=sum(e["prefill"]
+                                    for e in st.selection_trace),
+        **{k: getattr(st, k) for k in (
+            "steps", "faults_detected", "retries", "hard_faults",
+            "evictions", "prefix_tokens_shared", "cow_copies",
+            "prefill_chunks", "draft_proposed", "draft_accepted")})
+    rec["acceptance"] = (st.draft_accepted / st.draft_proposed
+                         if st.draft_proposed else None)
+    need(not rec["errors"], f"mla {label}: errors {rec['errors']}")
+    need(K1.launches > 0, f"mla {label}: K1 never launched")
+    need(K2.launches == 0 and K3.launches == 0,
+         f"mla {label}: K2 or K3 launched on the MLA path")
+    need(rec["faults_detected"] == 0, f"mla {label}: a clean run flagged")
+    if eng.pool is not None:
+        need(eng.pool.blocks_free == eng.pool.num_blocks,
+             f"mla {label}: blocks leaked")
+    emit("mla_run", **{k: v for k, v in rec.items() if k != "streams"})
+    del eng
+    return rec
+
+
+def _cells_equal(a: dict, b: dict, what: str) -> None:
+    need(a.keys() == b.keys(), f"mla {what}: captured {sorted(a)} vs "
+         f"{sorted(b)}")
+    for uid in a:
+        need(all(torch.equal(x, y) for x, y in zip(a[uid], b[uid],
+                                                    strict=True)),
+             f"mla {what}: request {uid}'s prompt latent cells differ")
+
+
+def absorb_row_order(dev, params) -> dict:
+    """The absorbed product ``q_nope @ w_uk`` (layer 0's, 128 heads,
+    K = 128, N = 512) on the card: whether a row's bits depend on the
+    call's row count when batched (a 1024-row prefill against the same
+    rows in 8-row calls), and whether ``_absorb``'s fixed row blocks and
+    its stepwise order give every call the same bits (a suffix, a chunk;
+    a verify step against decode).  Observations behind the design; the
+    gates are the streams and the cells."""
+    from repro_torch.models.attention import _absorb
+
+    w = params["layers"][0]["mixer"]["w_uk"]
+    g = torch.Generator(device=dev).manual_seed(31)
+    a = torch.randn(1, 1024, w.shape[0], w.shape[1], generator=g,
+                    device=dev).to(torch.bfloat16)
+    out = {}
+    for order in (None, "rows"):
+        whole = _absorb(a, w, torch.bfloat16, order)
+        parts = torch.cat([_absorb(a[:, s:s + 8], w, torch.bfloat16, order)
+                           for s in range(0, 1024, 8)], 1)
+        tail = _absorb(a[:, 1000:], w, torch.bfloat16, order)
+        out[order or "batched"] = {
+            "rows_8_equal_1024": bool(torch.equal(whole, parts)),
+            "suffix_24_equal_1024": bool(torch.equal(whole[:, 1000:],
+                                                     tail))}
+    v = torch.randn(4, 9, w.shape[0], w.shape[1], generator=g,
+                    device=dev).to(torch.bfloat16)
+    dec = torch.cat([_absorb(v[:, t:t + 1].contiguous(), w, torch.bfloat16)
+                     for t in range(9)], 1)
+    out["verify_36_rows"] = {
+        "batched_equal_decode": bool(torch.equal(
+            _absorb(v, w, torch.bfloat16), dec)),
+        "steps_equal_decode": bool(torch.equal(
+            _absorb(v, w, torch.bfloat16, "steps"), dec))}
+    return out
+
+
+def _mla_f32_layerwise(model, params, tokens, routes) -> tuple:
+    """``_forward_f32_layerwise`` for the MLA + MoE stack with its MTP
+    head: every leaf widened to f32 a layer at a time except the expert
+    weights (45 GB in f32 beside 53 GB of bf16), which the expert GEMMs
+    widen 32 experts at a time (f32 products of the same bf16 values).
+    Each MoE layer takes the experts ``routes`` gives it (one (T, K)
+    entry a MoE layer, in order: another run's routing), weighted by its
+    own f32 probabilities, so both runs drop the same tokens at capacity;
+    the experts its own probabilities pick are logged.  Returns the final
+    hidden states, the MTP head's pre-head hidden states (f32) and that
+    log."""
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import LayerCtx, norm
+
+    cfg = model.cfg
+    ctx = LayerCtx(abft=ABFTConfig(enabled=False))
+
+    def widen(tree):
+        if isinstance(tree, dict):
+            return {k: (v if k in ("w_up", "w_gate", "w_down")
+                        else widen(v)) for k, v in tree.items()}
+        return tree.float()
+
+    def grouped(x_e, w_e, ctx, site, tag=None):
+        y = torch.empty(x_e.shape[:2] + (w_e.shape[2],), dtype=x_e.dtype,
+                        device=x_e.device)
+        for e0 in range(0, w_e.shape[0], 32):
+            y[e0:e0 + 32] = torch.bmm(x_e[e0:e0 + 32].float(),
+                                      w_e[e0:e0 + 32].float())
+        return y, torch.zeros((), dtype=torch.bool, device=x_e.device)
+
+    own, forced = [], iter(routes)
+    top_k = moe_mod.top_k
+
+    def routed(probs, k):
+        own.append(top_k(probs, k)[1].sort(-1).values)
+        idx = next(forced)
+        return probs.gather(-1, idx), idx
+
+    B, L = tokens.shape
+    positions = torch.arange(L, device=tokens.device).expand(B, L)
+    batched, moe_mod.batched_dense = moe_mod.batched_dense, grouped
+    moe_mod.top_k = routed
+    try:
+        x = params["embed"][tokens].float()
+        for i, lp in enumerate(params["layers"]):
+            x, _, _ = model.apply_layer(x, widen(lp), ctx.with_layer(i),
+                                        positions, "full", None)
+        h = norm(x, widen(params["final_norm"]), cfg.norm, cfg.norm_eps)
+        mp = params["mtp"]
+        nxt = params["embed"][torch.roll(tokens, -1, 1)].float()
+        comb = torch.cat([norm(h, widen(mp["norm"]), "rmsnorm",
+                               cfg.norm_eps), nxt], -1)
+        hm, _, _ = model.apply_layer(comb @ mp["proj"].float(),
+                                     widen(mp["layer"]), ctx, positions,
+                                     "full", None)
+    finally:
+        moe_mod.batched_dense = batched
+        moe_mod.top_k = top_k
+    return h, hm, own
+
+
+def mla_score(dev, model, params) -> dict:
+    """``Model.forward`` of the 4-layer model at 1 x 1024 under
+    ``IntensityGuidedPolicy`` with ``flash_attention`` on (MLA ignores
+    it: K2 launches 0 times): logits and ``mtp_logits`` finite, (1, 1024,
+    V) f32, no flag; K1 batched three times in each MoE layer (layer 3
+    and the MTP head's); the MTP loss term (``mtp_loss_coef`` x the NLL of
+    token t + 2, the tokens as their own labels).  Both held against the
+    same weights run in f32 layer by layer (``_mla_f32_layerwise``; the
+    heads in column chunks) routed as this run routes, so both drop the
+    same tokens at an expert's capacity (40 of a 1024-token call's 8192
+    assignments an expert: a token routed apart moves which later tokens
+    drop): the logits within ``MLA_SCORE_TOL`` of their scale at every
+    position, the MTP logits' error recorded; and the experts the f32
+    run's own probabilities pick against this run's (``_routing_diff``,
+    the share routed apart a layer)."""
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import IntensityGuidedPolicy
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.kernels import abft_matmul, flash_attention
+    from repro_torch.models.layers import LayerCtx
+    from repro_torch.train.train_step import TrainConfig
+
+    K1, K1B = abft_matmul.KERNEL, abft_matmul.BATCHED
+    K2 = flash_attention.FULL_KERNEL
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, size=(SCORE_B, SCORE_L)).astype(np.int64)).to(dev)
+    ctx = LayerCtx(abft=ABFTConfig.from_policy(
+        IntensityGuidedPolicy(), hardware=NVIDIA_H100_SXM,
+        flash_attention=True))
+    torch.cuda.synchronize()
+    K1.launches = K1B.launches = K2.launches = 0        # THIS run's
+    t = time.perf_counter()
+    with torch.no_grad(), _routing_log() as routes:
+        out = model.forward(params, {"tokens": tokens}, ctx, device=dev)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    launches = {"abft_matmul": K1.launches,
+                "abft_matmul_batched": K1B.launches,
+                "flash_attention": K2.launches}
+    lg, lm = out.logits, out.mtp_logits
+    shape = (SCORE_B, SCORE_L, cfg.vocab_size)
+    need(lm is not None and lg.shape == lm.shape == shape
+         and lg.dtype == lm.dtype == torch.float32,
+         f"mla score: logits {tuple(lg.shape)}, mtp {lm is not None}")
+    need(bool(torch.isfinite(lg).all()) and bool(torch.isfinite(lm).all()),
+         "mla score: non-finite logits")
+    need(not bool(out.flag), "mla score: clean forward raised a flag")
+    need(K2.launches == 0, f"mla score: K2 launched {K2.launches} times")
+    need(K1B.launches == 6, f"mla score: batched K1 launched "
+         f"{K1B.launches} times, expected 3 in each of 2 MoE layers")
+    need(len(routes) == 2, f"mla score: {len(routes)} MoE layers routed")
+    labels = torch.roll(tokens, -1, 1)
+    labels[:, -1] = -1
+    mask = (labels >= 0).float()
+    m2 = mask * torch.roll(mask, -1, 1)
+    lp2 = torch.gather(torch.log_softmax(lm, -1), -1,
+                       torch.roll(labels, -1, 1).clamp_min(0)[..., None])
+    mtp_nll = float(-(lp2[..., 0] * m2).sum() / mask.sum())
+    with torch.no_grad():
+        h32, hm32, routes_32 = _mla_f32_layerwise(model, params, tokens,
+                                                  routes)
+        head = params["lm_head"]
+        err = torch.zeros(lg.shape[:2], device=dev)
+        err_m = torch.zeros(lg.shape[:2], device=dev)
+        best32 = torch.full(lg.shape[:2], -float("inf"), device=dev)
+        arg32 = torch.zeros(lg.shape[:2], dtype=torch.long, device=dev)
+        for c0 in range(0, cfg.vocab_size, 16384):
+            w = head[:, c0:c0 + 16384].float()
+            l32 = h32 @ w
+            err = torch.maximum(err, (lg[..., c0:c0 + 16384] - l32)
+                                .abs().amax(-1))
+            m, a = l32.max(-1)
+            arg32 = torch.where(m > best32, a + c0, arg32)
+            best32 = torch.maximum(best32, m)
+            err_m = torch.maximum(err_m, (lm[..., c0:c0 + 16384]
+                                          - hm32 @ w).abs().amax(-1))
+        del h32, hm32
+    main = _routing_diff(routes[:1], routes_32[:1], err, SCORE_L)
+    both = _routing_diff(routes, routes_32, err_m, SCORE_L)
+    scale = lg.abs().max().item()
+    worst = err.max().item()
+    rec = dict(B=SCORE_B, L=SCORE_L, launches=launches, ms=ms,
+               aux_loss=float(out.aux_loss), mtp_nll=mtp_nll,
+               mtp_loss_term=TrainConfig().mtp_loss_coef * mtp_nll,
+               logits_scale=scale, mtp_logits_scale=lm.abs().max().item(),
+               logits_max_abs_err_vs_f32=worst,
+               mtp_logits_max_abs_err_vs_f32=err_m.max().item(),
+               argmax_agreement_vs_f32=(lg.argmax(-1) == arg32).float()
+               .mean().item(),
+               routing_vs_f32_own=main, mtp_routing_vs_f32_own=both)
+    del out, lg, lm
+    emit("mla_score", **rec)
+    need(worst <= MLA_SCORE_TOL * scale, f"mla score: logits vs f32 "
+         f"routed alike {worst} > {MLA_SCORE_TOL} x scale {scale}")
+    return rec
+
+
+def mla_dense_stack(dev, model, params) -> dict:
+    """The all-dense MLA stack: the first ``MLA_DENSE_LAYERS`` layers of
+    the same weights (no copy), served with flash off on share traffic
+    (the prefix prompts of ``sharing_traffic``: four of one 512-token
+    system prefix and the COW twins, arriving one every other step) and
+    copy traffic (``spec_traffic``'s first six), ``MLA_NEW`` new tokens a
+    request.  Gates: dense streams equal paged; under prefix sharing,
+    chunks of ``MLA_CHUNK`` (dense and paged) and both, the greedy
+    streams equal the plain run's and every request's prompt latent cells
+    (every layer) are bit-equal to the plain dense run's; n-gram and an
+    oracle proposer (the unsped run's own tokens) at K = ``MLA_SPEC_K``,
+    dense and paged, give the unsped streams, the oracle accepting every
+    draft."""
+    from repro_torch.models.model import Model, layer_tags
+
+    cfg = dataclasses.replace(model.cfg, n_layers=MLA_DENSE_LAYERS)
+    need(set(layer_tags(cfg)) == {"mla:dense:0"},
+         f"mla dense stack tags {layer_tags(cfg)}")
+    m3 = Model(cfg)
+    p3 = {k: params[k] for k in ("embed", "final_norm", "lm_head")}
+    p3["layers"] = params["layers"][:MLA_DENSE_LAYERS]
+    prefix = sharing_traffic(cfg.vocab_size)[0]
+    share_t = [(p, MLA_NEW, 2 * i)
+               for i, (p, _, _) in enumerate(prefix[:4] + prefix[-2:])]
+    copy_t = [(p, MLA_NEW, 0)
+              for p in spec_traffic(cfg.vocab_size)["copy"][:6]]
+    runs, cells = {}, {}
+
+    def run(name, traffic, kind, capture=False, **kw):
+        c = {} if capture else None
+        runs[name] = mla_serve(m3, p3, traffic, dev, f"dense_stack {name}",
+                               cache_kind=kind, capture=c, **kw)
+        if capture:
+            cells[name] = c
+        return runs[name]
+
+    plain = run("share_plain", share_t, "dense", capture=True)
+    for name, kind, kw in (
+            ("share_plain_paged", "paged", {}),
+            ("shared", "paged", dict(prefix_sharing=True)),
+            ("chunk_dense", "dense", dict(chunk_tokens=MLA_CHUNK)),
+            ("chunk_paged", "paged", dict(chunk_tokens=MLA_CHUNK)),
+            ("shared_chunks", "paged", dict(prefix_sharing=True,
+                                            chunk_tokens=MLA_CHUNK))):
+        rec = run(name, share_t, kind, capture=True, **kw)
+        need(rec["streams"] == plain["streams"],
+             f"mla dense stack {name}: streams differ from the plain run")
+        _cells_equal(cells[name], cells["share_plain"], name)
+    need(runs["shared"]["prefix_tokens_shared"] > 0
+         and runs["shared"]["cow_copies"] > 0,
+         "mla dense stack: nothing shared or copied on write")
+    need(runs["chunk_dense"]["prefill_chunks"] > len(share_t),
+         "mla dense stack: no prompt was chunked")
+    unsped = {kind: run(f"copy_unsped_{kind}", copy_t, kind)
+              for kind in ("dense", "paged")}
+    need(unsped["dense"]["streams"] == unsped["paged"]["streams"],
+         "mla dense stack: copy traffic dense streams differ from paged")
+    for kind in ("dense", "paged"):
+        for prop in ("ngram", "oracle"):
+            spec = (_OracleProposer(unsped[kind]["streams"])
+                    if prop == "oracle" else "ngram")
+            rec = run(f"{prop}_k{MLA_SPEC_K}_{kind}", copy_t, kind,
+                      spec_decode=spec, draft_len=MLA_SPEC_K)
+            need(rec["streams"] == unsped[kind]["streams"],
+                 f"mla dense stack {prop} {kind}: streams differ from "
+                 f"unsped")
+            need(rec["draft_proposed"] > 0, f"mla dense stack {prop} "
+                 f"{kind}: nothing proposed")
+            if prop == "oracle":
+                need(rec["draft_accepted"] == rec["draft_proposed"],
+                     f"mla dense stack oracle {kind}: a draft rejected")
+    out = {name: {k: r[k] for k in (
+        "seconds", "steps", "tokens_per_s", "step_ms_median", "launches",
+        "prompt_tokens", "prefill_tokens_computed", "prefix_tokens_shared",
+        "cow_copies", "prefill_chunks", "draft_proposed", "draft_accepted",
+        "acceptance")} for name, r in runs.items()}
+    emit("mla_dense_stack", layers=MLA_DENSE_LAYERS, streams_equal=True,
+         latent_cells_equal=True, runs=out)
+    return out
+
+
+def mla_runs(dev) -> dict:
+    """deepseek-v3-671b at its published widths, cut to ``MLA_LAYERS``
+    layers (3 dense + 1 MoE) with its MTP head (bf16 weights from seed 0,
+    made on the card): K1 batched over its 256 experts against its plain
+    version and timed (``mla_k1_checks``, before the model loads); every
+    2-D K1 site against its plain version (``family_checks``: q_a, q_b,
+    kv_a, o, the dense FFN, the router, the shared expert, the head and
+    the MTP projection; faults at q_a, kv_a and the down projections);
+    serving (4 slots, max_len 512, 8 requests of 16-256 tokens, 16 new
+    each, flash on, which MLA ignores: dense and paged streams equal, no
+    clean flag, K1 batched three times a decode step, K2 and K3 never; a
+    fault at ``kv_a`` in layer 0, ``q_a`` in layer 3 and ``expert_up``
+    in layer 3 each flagged and recomputed to the clean streams; a
+    ``global`` run; prefix sharing with chunks of 256 on the prefix
+    traffic; ``spec_decode`` raising ``NotImplementedError``); the
+    decode step's profile; the all-dense 3-layer stack
+    (``mla_dense_stack``); the score (``mla_score``); K1 over a decode
+    step's 2-D GEMMs against ``torch.matmul``; the observations
+    ``absorb_row_order`` and ``norm_row_order`` at MLA's widths.  Frees
+    its weights before it returns."""
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.policy import FixedPolicy, IntensityGuidedPolicy
+    from repro_torch.core.schemes import Scheme
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.models.model import Model, layer_tags
+    from repro_torch.serve.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    batched = mla_k1_checks(dev)
+    cfg = mla_config()
+    model = Model(cfg)
+    n_moe = sum(t.endswith(":moe:0") for t in layer_tags(cfg))
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params, prompts = engine_inputs(dev, cfg=cfg)
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    mtp_bytes = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(params["mtp"]))
+    emit("mla_plan", arch=MLA_ARCH, layers=cfg.n_layers,
+         tags=layer_tags(cfg), init_s=time.perf_counter() - t1,
+         weights_gb=weights / 1e9, mtp_gb=mtp_bytes / 1e9,
+         **family_plan(cfg))
+    fchecks = family_checks(dev, cfg, params, k2=False)
+    emit("mla_family_check", arch=MLA_ARCH, **fchecks)
+
+    def serve(cache_kind, policy=None, fault_at=None, label="", reqs=None,
+              new=16):
+        return engine_serve(model, params, prompts if reqs is None else reqs,
+                            dev, cache_kind, policy or IntensityGuidedPolicy(),
+                            fault_at=fault_at, label=f"{MLA_ARCH} {label}",
+                            phase="mla_engine", max_new_tokens=new)
+
+    serve("dense", label="warmup", reqs=prompts[:1], new=2)
+    dense, rec_dense, eng = serve("dense", label="dense")
+    prof = decode_profile(dev, {"engine": eng, "params": params,
+                                "prompts": prompts, "dense": rec_dense})
+    emit("mla_decode_profile", **prof)
+    del eng
+    free_memory()
+    paged, rec_paged, _ = serve("paged", label="paged")
+    for rec in (rec_dense, rec_paged):
+        need(rec["launches"]["abft_matmul"] > 0,
+             f"mla {rec['label']}: K1 never launched")
+        need(rec["launches"]["flash_decode"] == 0
+             and rec["launches"]["flash_attention"] == 0,
+             f"mla {rec['label']}: K2 or K3 launched {rec['launches']}")
+        need(rec["batched_launches_per_step"] == {
+            str(3 * n_moe): rec["decode_steps"]},
+             f"mla {rec['label']}: batched K1 launches a decode step "
+             f"{rec['batched_launches_per_step']}, expected {3 * n_moe}")
+        need(rec["faults_detected"] == 0, f"mla {rec['label']}: a clean "
+             f"run raised a flag")
+    need(paged == dense, "mla: paged streams differ from dense")
+    faults = {}
+    for layer, site in ((0, "kv_a"), (3, "q_a"), (3, "expert_up")):
+        fault = ModelFault.at(layer, site, FaultSpec.value(0, 1, 1e5))
+        faulted, rec_fault, _ = serve("dense", fault_at=(3, fault),
+                                      label=f"dense_{site}_l{layer}_fault")
+        need(rec_fault["faults_detected"] >= 1
+             and rec_fault["retries"] >= 1,
+             f"mla: {site} (layer {layer}) fault not detected and retried")
+        need(faulted == dense, f"mla: the {site} fault run's streams "
+             f"differ from the clean run")
+        faults[f"{site}_l{layer}"] = dict(
+            faults_detected=rec_fault["faults_detected"],
+            retries=rec_fault["retries"])
+    glob, rec_glob, _ = serve("dense", FixedPolicy(Scheme.GLOBAL),
+                              label="dense_global")
+    free_memory()
+    need(rec_glob["faults_detected"] == 0, "mla: global scheme false flag")
+    need(rec_glob["launches"]["abft_matmul"] == 0,
+         "mla: the global run launched K1")
+    try:
+        ServeEngine(model, params, slots=4, max_len=512,
+                    dtype=torch.bfloat16, device=dev, spec_decode="ngram")
+        fail("mla: spec_decode on the MoE stack did not raise")
+    except NotImplementedError as e:
+        need("MoE" in str(e), f"mla: spec_decode raised {e}")
+    free_memory()
+    shared4 = mla_serve(
+        model, params, [(p, MLA_NEW, a) for p, _, a in
+                        sharing_traffic(cfg.vocab_size)[0]], dev,
+        "4-layer shared_chunks", cache_kind="paged", flash=True,
+        prefix_sharing=True, chunk_tokens=MLA_CHUNK)
+    need(shared4["prefill_tokens_computed"] < shared4["prompt_tokens"],
+         "mla: sharing computed every prompt token")
+    free_memory()
+    stack = mla_dense_stack(dev, model, params)
+    free_memory()
+    score = mla_score(dev, model, params)
+    free_memory()
+    t1 = k1_timing(dev, params, 4, arch=MLA_ARCH)
+    observe = {"absorb_row_order": absorb_row_order(dev, params),
+               "norm_row_order": norm_row_order(
+                   dev, only=("rms_norm_7168", "kv_a_norm_512",
+                              "q_a_norm_1536"))}
+    emit("mla_row_order", **observe)
+    peak = torch.cuda.max_memory_allocated()
+    decode_bytes = weights - mtp_bytes - params["embed"].numel() \
+        * params["embed"].element_size()
+    del params
+    free_memory()
+    agree_g = float(np.mean([a == b for k in dense
+                             for a, b in zip(dense[k], glob[k])]))
+    rec = dict(
+        arch=MLA_ARCH, layers=cfg.n_layers, experts=cfg.n_experts,
+        top_k=cfg.experts_per_token, weights_gb=weights / 1e9,
+        decode_bytes_gb=decode_bytes / 1e9,
+        decode_bound_ms=decode_bytes / HBM_BW * 1e3,
+        tokens_per_s=rec_dense["tokens_per_s"],
+        paged_tokens_per_s=rec_paged["tokens_per_s"],
+        decode_step_ms_median=rec_dense["decode_step_ms_median"],
+        paged_decode_step_ms_median=rec_paged["decode_step_ms_median"],
+        prefill_ms_per_admission=rec_dense["prefill_ms"],
+        launches=rec_dense["launches"],
+        paged_launches=rec_paged["launches"],
+        batched_launches_per_step=rec_dense["batched_launches_per_step"],
+        dense_equals_paged=True, faults_recomputed=faults,
+        global_tokens_per_s=rec_glob["tokens_per_s"],
+        dense_vs_global_tokens=agree_g,
+        shared_chunks_4_layers={k: shared4[k] for k in (
+            "prompt_tokens", "prefill_tokens_computed",
+            "prefix_tokens_shared", "cow_copies", "prefill_chunks",
+            "step_ms_median", "launches")},
+        schemes=sorted({e.split(":")[1]
+                        for e in rec_dense["selection_trace"]}),
+        decode_device_ms=prof["device_ms_per_step"],
+        decode_idle_share=prof["idle_share"],
+        k1_decode_step=t1, score=score, peak_memory_gb=peak / 1e9,
+        seconds=time.perf_counter() - t0)
+    emit("mla", **rec)
+    return {"rec": rec, "batched": batched, "family_checks": fchecks,
+            "k1": t1, "stack": stack}
+
+
+def _add_mla(kernels, mla) -> None:
+    """K1's line gets ``mla``: its launches (2-D and batched over
+    experts) on the dense serving run of the 4-layer model, the worst
+    errors of the batched checks at E = 256 and of the 2-D sites' checks,
+    and the times of a layer's expert GEMMs at C = 4 and 40 and of a
+    decode step's 2-D GEMMs; K2's and K3's lines get ``mla_launches``:
+    0 on every run of the MLA path (each counted and held to 0)."""
+    rec = mla["rec"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for entry in kernels:
+        if entry["name"] == "abft_matmul":
+            entry["mla"] = {
+                "launches": rec["launches"]["abft_matmul"],
+                "batched_launches": rec["launches"]["abft_matmul_batched"],
+                "batched_launches_per_step":
+                    rec["batched_launches_per_step"],
+                "max_abs_err": mla["batched"]["checks"]["max_abs_err_y"],
+                "sites_max_abs_err":
+                    mla["family_checks"]["k1_max_abs_err"],
+                "by_shape": {
+                    **{name: {"launches": t["launches"],
+                              **{k: t[k] for k in keys}}
+                       for name, t in mla["batched"]["timing"].items()},
+                    "decode_step_m4": {"launches": mla["k1"]["gemms"],
+                                       **{k: mla["k1"][k] for k in keys}}}}
+        else:
+            key = entry["name"]
+            entry["mla_launches"] = {
+                "serve_dense": rec["launches"][key],
+                "serve_paged": rec["paged_launches"][key],
+                "score": rec["score"]["launches"].get(key, 0),
+                **{f"dense_stack {n}": r["launches"][key]
+                   for n, r in mla["stack"].items()}}
+
+
 # ------------------------------------------------------------------ timing
 
 def _gemm_bound(m, k, n, in_bytes, out_bytes, gm_gn_rows):
@@ -3245,6 +3968,30 @@ def _gemm_bound(m, k, n, in_bytes, out_bytes, gm_gn_rows):
     peak = PEAK_BF16 if in_bytes == 2 else PEAK_F32
     t_b, t_f = byts / HBM_BW, flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def _step_gemm_groups(params) -> dict:
+    """A step's 2-D GEMM weights, grouped by shape: GQA's ``q``, ``kv``
+    and ``o`` or MLA's ``q_a``, ``q_b``, ``kv_a`` and ``o``; the dense
+    FFNs' ``up_gate`` and ``down``; the MoE layers' ``router`` (f32 out)
+    and shared experts' ``shared_up_gate`` and ``shared_down``; the head.
+    The expert GEMMs (batched) are timed apart."""
+    layers = params["layers"]
+    names = {"q": ("wq",), "kv": ("wk", "wv"), "q_a": ("wq_a",),
+             "q_b": ("wq_b",), "kv_a": ("wkv_a",), "o": ("wo",)}
+    groups = {g: [l["mixer"][w] for l in layers for w in ws
+                  if w in l["mixer"]] for g, ws in names.items()}
+    dense = [l["ffn"] for l in layers if "router" not in l["ffn"]]
+    moe = [l["ffn"] for l in layers if "router" in l["ffn"]]
+    groups["up_gate"] = [f[w] for f in dense for w in ("up", "gate")]
+    groups["down"] = [f["down"] for f in dense]
+    groups["router"] = [f["router"] for f in moe]
+    shared = [f["shared"] for f in moe if "shared" in f]
+    groups["shared_up_gate"] = [s[w] for s in shared for w in ("up", "gate")]
+    groups["shared_down"] = [s["down"] for s in shared]
+    groups["head"] = [params["lm_head"] if "lm_head" in params
+                      else params["embed"].t()]
+    return {g: ws for g, ws in groups.items() if ws}
 
 
 def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
@@ -3267,16 +4014,7 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
     from repro_torch.kernels.abft_matmul import abft_matmul_kernel
     from repro_torch.kernels.ref import abft_matmul_ref
 
-    layers = params["layers"]
-    groups = {
-        "q": [l["mixer"]["wq"] for l in layers],
-        "kv": [l["mixer"][w] for l in layers for w in ("wk", "wv")],
-        "o": [l["mixer"]["wo"] for l in layers],
-        "up_gate": [l["ffn"][w] for l in layers for w in ("up", "gate")],
-        "down": [l["ffn"]["down"] for l in layers],
-        "head": [params["lm_head"] if "lm_head" in params
-                 else params["embed"].t()],
-    }
+    groups = _step_gemm_groups(params)
     gen = torch.Generator(device=dev).manual_seed(4)
     per = {}
     tot = {"ms": 0.0, "ms_eager": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
@@ -3292,7 +4030,7 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
             "gemms": 0, "ms": 0.0, "forced_ms": 0.0}
     for name, ws in groups.items():
         k, n = ws[0].shape
-        out_dtype = torch.float32 if name == "head" else dtype
+        out_dtype = torch.float32 if name in ("head", "router") else dtype
         x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
         bm, bk, bn = (min(b, -(-d // 8) * 8) for b, d in
                       ((256, m), (512, k), (256, n)))
@@ -3320,7 +4058,8 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
                "plain_ms": timed_graph(plain, iters=2),
                "library_ms": timed_graph(lib, iters=5),
                "bound_ms": b_ms * len(ws), "bound_by": by}
-        if forced and not (forced == "gemv" and name == "head"):
+        if forced and not (forced == "gemv" and name in ("head",
+                                                         "router")):
             def kern_forced():
                 for w in ws:
                     abft_matmul_kernel(x, w, **kw, force=forced)
@@ -3738,6 +4477,12 @@ def main(argv=None) -> int:
         moe = moe_runs(dev)
         if kernels is not None:
             _add_moe(kernels, moe)
+    if "mla" in phases:
+        eng_out = fwd = train_params = camp = tr = fam = None
+        free_memory()
+        mla = mla_runs(dev)
+        if kernels is not None:
+            _add_mla(kernels, mla)
     for line in smi:
         print(line)
     if kernels is not None:

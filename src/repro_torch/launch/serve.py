@@ -12,9 +12,10 @@
       [--metrics-out m.json] [--trace-out t.json] [--log-events]
 
 ``--arch`` takes every registered config; the port serves the dense
-family (llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b) and the MoE
-qwen2-moe-a2.7b, and exits with the ``NotImplementedError`` message on
-the others (and on ``--spec-decode`` with an MoE stack).  Runs on the CUDA
+family (llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b), the MoE
+qwen2-moe-a2.7b and the MLA deepseek-v3-671b, and exits with the
+``NotImplementedError`` message on the others (and on ``--spec-decode``
+with an MoE stack).  Runs on the CUDA
 device unless ``--device cpu`` is given.  Block schemes
 always run the fused ABFT kernel on the card (its plain version on the
 CPU).  Weights are random, made from ``--seed``.

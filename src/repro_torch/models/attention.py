@@ -1,10 +1,10 @@
-"""GQA attention sublayer (port of the GQA half of
-``repro.models.attention``, with the dense family's ``qkv_bias``,
-``qk_norm`` and partial rotary).  Projections run through the
-ABFT-protected ``dense``.  With ``ABFTConfig.flash_attention`` set, full-sequence
+"""Attention sublayers (port of ``repro.models.attention``): GQA, with the
+dense family's ``qkv_bias``, ``qk_norm`` and partial rotary, and absorbed
+MLA (deepseek-v3).  Projections run through the ABFT-protected
+``dense``.  With ``ABFTConfig.flash_attention`` set, GQA's full-sequence
 attention (``gqa_forward``) runs the fused-ABFT flash attention kernel
-(K2) and decode attention the fused-ABFT flash decode kernel (K3); plain
-attention outside any kernel otherwise.  Serving prefill attention is the
+(K2) and its decode attention the fused-ABFT flash decode kernel (K3);
+plain attention outside any kernel otherwise.  Serving prefill attention is the
 plain chunked path, as in the reference, run row by row at fixed chunk
 shapes (``chunked_attention(spans=...)``) so that a prompt prefilled
 whole, as the suffix of a shared prefix or in chunks gets bit-identical KV.
@@ -14,6 +14,18 @@ caches).  The serving engine's detect->retry loop stays sound because a
 retried call rewrites exactly the cells its faulted attempt wrote: the
 same (slot, position) rows of the dense cache, or the same (block,
 offset) cells of the pools under unchanged block tables.
+
+MLA runs the reference's absorbed form: one latent "KV head" of width
+``kv_lora_rank + qk_rope_head_dim`` is both the key (all of it) and the
+value (its first ``kv_lora_rank``, a view), cached as the one leaf
+``latent``; each head's query is ``q_nope @ w_uk`` beside its roped
+``q_pe``, and the attended latent goes back through ``w_uv``.  The two
+absorbed products and the attention core stay outside ABFT, as the
+reference marks them, and never take the flash kernels, whatever the
+config says.  They run in f32 (TF32 off on the card) in a fixed order
+where a bit identity needs it: the serving prefill runs them at one row
+block shape (``ABSORB_ROWS``), a verify step one step at a time at the
+decode step's shape, with its latent norms.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from repro_torch.models.layers import (
     decode_attention,
     dense,
     or_flags,
+    per_step,
     rms_norm,
     rope_tables,
     verify_attention,
@@ -38,6 +51,8 @@ from repro_torch.serve.paged_cache import (
     paged_scatter_decode,
     paged_scatter_prefill,
 )
+
+F32 = torch.float32
 
 
 def _qkv(x, p, cfg: ModelConfig, ctx: LayerCtx, positions):
@@ -324,3 +339,232 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+GQA = dict(forward=gqa_forward, prefill=gqa_prefill,
+           paged_prefill=gqa_paged_prefill, decode=gqa_decode,
+           paged_decode=gqa_paged_decode, verify=gqa_verify,
+           paged_verify=gqa_paged_verify)
+
+
+# ---------------------------------------------------------------- MLA
+
+# the serving prefill's row block for the absorbed products: every call
+# runs them on blocks of exactly this many rows, so a prompt row gets the
+# same sums prefilled whole, as a suffix or in chunks
+ABSORB_ROWS = 256
+
+
+def _absorb(a, w, dtype, order=None):
+    """The absorbed per-head product ``a`` (B, L, H, i) @ ``w`` (H, i, o)
+    in f32, rounded to ``dtype`` (the reference's f32 einsum).  ``order``:
+    None, one batched product over the B * L rows; ``"rows"`` (the serving
+    prefill), blocks of ``ABSORB_ROWS`` rows, the last one zero-padded;
+    ``"steps"`` (verify), one product a step ``a[:, t]`` at the decode
+    step's (H, B, i) shape."""
+    if order == "steps":
+        return per_step(_absorb, a, w, dtype)
+    B, L, H, i = a.shape
+    af = a.to(F32).permute(2, 0, 1, 3).reshape(H, B * L, i)
+    wf = w.to(F32)
+    if order == "rows":
+        n, r = B * L, ABSORB_ROWS
+        af = torch.nn.functional.pad(af, (0, 0, 0, -(-n // r) * r - n))
+        y = torch.cat([torch.bmm(af[:, s:s + r], wf)
+                       for s in range(0, af.shape[1], r)], dim=1)[:, :n]
+    else:
+        y = torch.bmm(af, wf)
+    return y.reshape(H, B, L, -1).permute(1, 2, 0, 3).to(dtype)
+
+
+def _latent_norm(t, w, eps: float, order):
+    """``rms_norm``; one step at a time under ``order == "steps"``."""
+    if order == "steps":
+        return per_step(rms_norm, t, w, eps)
+    return rms_norm(t, w, eps)
+
+
+def _mla_q(x, p, cfg: ModelConfig, ctx: LayerCtx, positions, order=None):
+    """Absorbed queries (B, L, H, kv_lora + rope), the softmax scale and
+    the flag.  The scale is the pre-absorption ``(dn + dr) ** -0.5``.
+    ``order``: ``_absorb``'s; ``"steps"`` also runs the ``q_a`` norm one
+    step at a time."""
+    B, L, _ = x.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    qa, f1 = dense(x, p["wq_a"], ctx, "q_a", tag="mla.q_a")
+    qa = _latent_norm(qa, p["q_a_norm"], cfg.norm_eps, order)
+    q, f2 = dense(qa, p["wq_b"], ctx, "qkv", tag="mla.q_b")
+    q = q.reshape(B, L, cfg.n_heads, dn + dr)
+    cos, sin, rot = rope_tables(positions, dr, cfg.rope_theta)
+    q_pe = apply_rope(q[..., dn:], cos, sin, rot)
+    q_abs = _absorb(q[..., :dn], p["w_uk"], x.dtype, order)
+    return (torch.cat([q_abs, q_pe], dim=-1), (dn + dr) ** -0.5,
+            or_flags(f1, f2))
+
+
+def _mla_latent(x, p, cfg: ModelConfig, ctx: LayerCtx, positions,
+                order=None):
+    """The latent rows (B, L, kv_lora + rope): the normed ``c_kv`` and
+    ``k_pe`` roped as one head; ``"steps"`` runs the norm a step at a
+    time."""
+    c, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    kv, f = dense(x, p["wkv_a"], ctx, "kv_a", tag="mla.kv_a")
+    c_kv = _latent_norm(kv[..., :c].contiguous(), p["kv_a_norm"],
+                        cfg.norm_eps, order)
+    cos, sin, rot = rope_tables(positions, dr, cfg.rope_theta)
+    k_pe = apply_rope(kv[:, :, None, c:], cos, sin, rot)[:, :, 0]
+    return torch.cat([c_kv, k_pe], dim=-1), f
+
+
+def _mla_attend(q_full, scale, latent, p, cfg: ModelConfig, ctx: LayerCtx,
+                decode_len=None, lengths=None, q_offset=0, verify_len=None,
+                spans=None, order=None):
+    """Attention over ``latent`` (B, S, kv_lora + rope) as MQA: the keys
+    are all of it, the values its first ``kv_lora_rank`` (a view, no
+    copy); then the values' un-absorption through ``w_uv`` and ``wo``.
+    ``verify_len``, ``decode_len`` or neither pick verify, decode or
+    chunked attention (``spans``: row-wise), never a flash kernel."""
+    B, L = q_full.shape[:2]
+    kv = latent[:, :, None, :]
+    vv = latent[:, :, None, :cfg.kv_lora_rank]
+    if verify_len is not None:
+        o = verify_attention(q_full, kv, vv, verify_len, scale=scale)
+    elif decode_len is not None:
+        o = decode_attention(q_full, kv, vv, decode_len, scale=scale)
+    else:
+        o = chunked_attention(q_full, kv, vv, causal=True, scale=scale,
+                              lengths=lengths, q_offset=q_offset,
+                              spans=spans)
+    out = _absorb(o, p["w_uv"], q_full.dtype, order)
+    return dense(out.reshape(B, L, -1), p["wo"], ctx, "attn_out",
+                 tag="mla.out")
+
+
+def mla_forward(x, p, cfg: ModelConfig, ctx: LayerCtx, positions):
+    """Full-sequence causal MLA (training / scoring)."""
+    q, scale, f1 = _mla_q(x, p, cfg, ctx, positions)
+    latent, f2 = _mla_latent(x, p, cfg, ctx, positions)
+    out, f3 = _mla_attend(q, scale, latent, p, cfg, ctx)
+    return out, or_flags(f1, f2, f3)
+
+
+def mla_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, positions, cache,
+                slots=None, lengths=None, starts=None, spans=None):
+    """``gqa_prefill`` for MLA: the latent rows land in ``cache["latent"]``
+    (B, S_max, kv_lora + rope); ``starts`` attends the slots' cache rows.
+    With ``spans`` (the serving prefill) the absorbed products run at
+    ``ABSORB_ROWS``-row blocks."""
+    order = "rows" if spans is not None else None
+    q, scale, f1 = _mla_q(x, p, cfg, ctx, positions, order)
+    latent, f2 = _mla_latent(x, p, cfg, ctx, positions)
+    leaf = cache["latent"]
+    if starts is None:
+        out, f3 = _mla_attend(q, scale, latent, p, cfg, ctx,
+                              lengths=lengths, spans=spans, order=order)
+        if slots is None:
+            leaf[:, :x.shape[1]] = latent.to(leaf.dtype)
+        else:
+            _slot_prefill_write(leaf, latent, slots, x.shape[1])
+    else:
+        assert slots is not None, "chunked prefill needs slot targets"
+        _slot_prefill_write_at(leaf, latent, slots, starts, lengths)
+        out, f3 = _mla_attend(q, scale, leaf[slots.to(leaf.device).long()],
+                              p, cfg, ctx, lengths=starts + lengths,
+                              q_offset=starts, spans=spans, order=order)
+    return out, or_flags(f1, f2, f3)
+
+
+def mla_decode(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache):
+    """One-token MLA decode: each row writes its latent at its cursor and
+    attends its own prefix."""
+    q, scale, f1 = _mla_q(x, p, cfg, ctx, pos[:, None])
+    latent, f2 = _mla_latent(x, p, cfg, ctx, pos[:, None])
+    _row_scatter(cache["latent"], latent, pos)
+    out, f3 = _mla_attend(q, scale, cache["latent"], p, cfg, ctx,
+                          decode_len=pos + 1)
+    return out, or_flags(f1, f2, f3)
+
+
+def mla_verify(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache, index):
+    """Speculative verify (``gqa_verify``'s contract): the window's
+    latents land through ``index``; the latent norms and the absorbed
+    products run one step at a time at the decode step's shapes."""
+    positions = pos.long()[:, None] + torch.arange(x.shape[1],
+                                                   device=x.device)
+    q, scale, f1 = _mla_q(x, p, cfg, ctx, positions, "steps")
+    latent, f2 = _mla_latent(x, p, cfg, ctx, positions, "steps")
+    index_write(cache["latent"], latent, index)
+    out, f3 = _mla_attend(q, scale, cache["latent"], p, cfg, ctx,
+                          verify_len=pos + 1, order="steps")
+    return out, or_flags(f1, f2, f3)
+
+
+def mla_paged_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, positions,
+                      cache, tables, lengths, starts=None, spans=None):
+    """``gqa_paged_prefill`` for MLA: latent rows scatter into the
+    (NB, BS, kv_lora + rope) pool through ``tables``."""
+    order = "rows" if spans is not None else None
+    q, scale, f1 = _mla_q(x, p, cfg, ctx, positions, order)
+    latent, f2 = _mla_latent(x, p, cfg, ctx, positions)
+    pool = cache["latent"]
+    if starts is None:
+        out, f3 = _mla_attend(q, scale, latent, p, cfg, ctx,
+                              lengths=lengths, spans=spans, order=order)
+        paged_scatter_prefill(pool, latent, tables, lengths)
+    else:
+        paged_scatter_prefill(pool, latent, tables, lengths, starts=starts)
+        out, f3 = _mla_attend(q, scale, paged_gather(pool, tables), p, cfg,
+                              ctx, lengths=starts + lengths,
+                              q_offset=starts, spans=spans, order=order)
+    return out, or_flags(f1, f2, f3)
+
+
+def mla_paged_decode(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache,
+                     tables):
+    """Paged MLA decode: scatter at the cursor's block, attend the
+    gathered latents."""
+    q, scale, f1 = _mla_q(x, p, cfg, ctx, pos[:, None])
+    latent, f2 = _mla_latent(x, p, cfg, ctx, pos[:, None])
+    paged_scatter_decode(cache["latent"], latent[:, 0], tables, pos)
+    out, f3 = _mla_attend(q, scale, paged_gather(cache["latent"], tables),
+                          p, cfg, ctx, decode_len=pos + 1)
+    return out, or_flags(f1, f2, f3)
+
+
+def mla_paged_verify(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache,
+                     index, tables):
+    """Paged speculative verify: ``mla_verify`` on the gathered latents."""
+    positions = pos.long()[:, None] + torch.arange(x.shape[1],
+                                                   device=x.device)
+    q, scale, f1 = _mla_q(x, p, cfg, ctx, positions, "steps")
+    latent, f2 = _mla_latent(x, p, cfg, ctx, positions, "steps")
+    index_write(cache["latent"], latent, index)
+    out, f3 = _mla_attend(q, scale, paged_gather(cache["latent"], tables),
+                          p, cfg, ctx, verify_len=pos + 1, order="steps")
+    return out, or_flags(f1, f2, f3)
+
+
+MLA = dict(forward=mla_forward, prefill=mla_prefill,
+           paged_prefill=mla_paged_prefill, decode=mla_decode,
+           paged_decode=mla_paged_decode, verify=mla_verify,
+           paged_verify=mla_paged_verify)
+
+
+def init_mla(cfg: ModelConfig, w, vec) -> dict:
+    """MLA params (the reference's ``init_mla`` leaves): the q and kv
+    down-projections and their norms, ``wq_b``, the head-major
+    up-projections ``w_uk`` (H, dn, c) and ``w_uv`` (H, c, dv), ``wo``."""
+    H, d = cfg.n_heads, cfg.d_model
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    c = cfg.kv_lora_rank
+    return {"wq_a": w(d, cfg.q_lora_rank),
+            "q_a_norm": vec(cfg.q_lora_rank, 1.0),
+            "wq_b": w(cfg.q_lora_rank, H * (dn + dr)),
+            "wkv_a": w(d, c + dr), "kv_a_norm": vec(c, 1.0),
+            "w_uk": w(H, dn, c), "w_uv": w(H, c, dv), "wo": w(H * dv, d)}
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> dict:
+    shape = (batch, max_len, cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+    return {"latent": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,8 +1,8 @@
-"""Model assembly for GQA decoder stacks with dense or MoE FFNs (port of
-the ``attn:dense:0`` and ``attn:moe:0`` part of ``repro.models.model``:
+"""Model assembly for GQA and MLA decoder stacks with dense or MoE FFNs
+(port of the ``{attn,mla}:{dense,moe}:0`` part of ``repro.models.model``:
 llama3.2-1b, the dense family qwen3-14b, stablelm-1.6b and qwen1.5-32b,
-and qwen2-moe-a2.7b; mixed dense + MoE stacks such as
-``first_dense_layers=1``).
+qwen2-moe-a2.7b and deepseek-v3-671b with its multi-token prediction head;
+mixed dense + MoE stacks such as ``first_dense_layers=3``).
 
 The reference scans stacked per-segment params (``seg_plan``); the port
 keeps one dict of tensors per layer and runs the stack as a Python loop.
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -83,25 +84,40 @@ def seg_plan(cfg: ModelConfig) -> list:
     return [Segment(unit=tuple(tags), repeats=1)]
 
 
+TAGS = ("attn:dense:0", "attn:moe:0", "mla:dense:0", "mla:moe:0")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs GQA decoders with SwiGLU FFNs, dense or MoE (routed
-    experts with optional shared ones) in any mix: RMSNorm or LayerNorm,
-    with or without q/k norm, QKV biases and partial rotary
-    (llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b,
-    qwen2-moe-a2.7b); anything else (MLA, SSM, encoder-decoder,
-    cross-attention, MTP, TP head padding) is not ported."""
-    ok = (cfg.attention == "gqa" and cfg.act == "silu"
+    """The port runs GQA or MLA decoders with SwiGLU FFNs, dense or MoE
+    (routed experts with optional shared ones) in any mix: RMSNorm or
+    LayerNorm, with or without q/k norm, QKV biases and partial rotary,
+    and at most one multi-token prediction head (llama3.2-1b, qwen3-14b,
+    stablelm-1.6b, qwen1.5-32b, qwen2-moe-a2.7b, deepseek-v3-671b); MLA
+    needs its latent ranks and head dims.  Anything else (SSM,
+    encoder-decoder, cross-attention, MTP deeper than 1, TP head padding)
+    is not ported."""
+    mla_dims = (cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_nope_head_dim,
+                cfg.qk_rope_head_dim, cfg.v_head_dim)
+    ok = (cfg.attention in ("gqa", "mla") and cfg.act == "silu"
+          and (cfg.attention == "gqa" or all(d > 0 for d in mla_dims))
           and cfg.norm in ("rmsnorm", "layernorm")
           and not cfg.pad_heads_to and not cfg.pad_kv_heads_to
-          and not cfg.is_encoder_decoder and not cfg.mtp_depth
-          and all(t in ("attn:dense:0", "attn:moe:0")
-                  for t in layer_tags(cfg)))
+          and not cfg.is_encoder_decoder and cfg.mtp_depth <= 1
+          and all(t in TAGS for t in layer_tags(cfg)))
     if not ok:
         raise NotImplementedError(
             f"architecture {cfg.name!r} is not ported: the PyTorch port "
-            f"serves and trains GQA decoders with dense or MoE FFNs "
-            f"(llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b, "
-            f"qwen2-moe-a2.7b)")
+            f"serves and trains GQA and MLA decoders with dense or MoE "
+            f"FFNs (llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b, "
+            f"qwen2-moe-a2.7b, deepseek-v3-671b)")
+
+
+def cache_leaf(cache) -> torch.Tensor:
+    """The first layer's first cache leaf.  Every leaf of every layer
+    (GQA's ``k`` and ``v``, MLA's ``latent``) leads with the same two dims,
+    (slots, depth) or (blocks, block size), which is what the cell indices
+    and the verify window are built from."""
+    return next(iter(cache[0].values()))
 
 
 def _to_torch(a, device, dtype):
@@ -121,7 +137,8 @@ def params_from_reference(cfg: ModelConfig, np_params, *, device="cpu",
     segment i; each of its ``pos{q}`` subtrees carries a leading
     ``repeats`` axis, and layer ``off + r * P + q`` is slice r of
     ``pos{q}`` (MoE leaves included: ``router``, ``w_up``, ``w_gate``,
-    ``w_down``, ``shared``)."""
+    ``w_down``, ``shared``).  The MTP head's ``mtp`` subtree (``proj``,
+    ``layer``, ``norm``) has no repeats axis and crosses over whole."""
     check_supported(cfg)
 
     def conv(tree, r=None):
@@ -146,8 +163,9 @@ def params_from_reference(cfg: ModelConfig, np_params, *, device="cpu",
                 layers.append(conv(sp[f"pos{q}"], r))
     out = {"embed": conv(np_params["embed"]),
            "final_norm": conv(np_params["final_norm"]), "layers": layers}
-    if "lm_head" in np_params:
-        out["lm_head"] = conv(np_params["lm_head"])
+    for key in ("lm_head", "mtp"):
+        if key in np_params:
+            out[key] = conv(np_params[key])
     return out
 
 
@@ -159,7 +177,8 @@ class ForwardOut(NamedTuple):
 
 
 class Model:
-    """Eager model wrapper for one GQA architecture (dense or MoE FFNs)."""
+    """Eager model wrapper for one GQA or MLA architecture (dense or MoE
+    FFNs, an optional MTP head)."""
 
     def __init__(self, cfg: ModelConfig):
         check_supported(cfg)
@@ -169,15 +188,28 @@ class Model:
     def init_params(self, seed: int = 0, dtype=torch.bfloat16,
                     device="cpu") -> dict:
         """Seeded N(0, 0.02) weights (the reference's init law; a torch
-        generator, so not the reference's numbers), unit norm and q/k
-        norm gains, zero LayerNorm shifts and QKV biases; a dense or an
-        MoE FFN a layer as ``layer_tags`` says."""
+        generator, so not the reference's numbers), unit norm, q/k norm
+        and latent norm gains, zero LayerNorm shifts and QKV biases; a
+        GQA or MLA mixer and a dense or an MoE FFN a layer as
+        ``layer_tags`` says; with ``mtp_depth`` the MTP head (``proj``
+        (2 d, d), a layer of the last layer's kind, an RMSNorm gain).  A
+        weight of more than ``2**30`` elements (deepseek-v3's expert
+        stacks) is drawn in slices of its leading axis, so its f32 draw
+        never needs 4 bytes an element beside the model."""
         cfg = self.cfg
         gen = torch.Generator(device=device).manual_seed(int(seed))
 
         def w(*shape):
-            return (0.02 * torch.randn(shape, generator=gen, dtype=F32,
-                                       device=device)).to(dtype)
+            if math.prod(shape) <= 1 << 30:
+                return (0.02 * torch.randn(shape, generator=gen, dtype=F32,
+                                           device=device)).to(dtype)
+            out = torch.empty(shape, dtype=dtype, device=device)
+            step = max(1, (1 << 30) // math.prod(shape[1:]))
+            for i in range(0, shape[0], step):
+                rows = (min(step, shape[0] - i),) + shape[1:]
+                out[i:i + step] = 0.02 * torch.randn(
+                    rows, generator=gen, dtype=F32, device=device)
+            return out
 
         def vec(n, fill):
             return torch.full((n,), fill, dtype=dtype, device=device)
@@ -188,42 +220,57 @@ class Model:
                 p["b"] = vec(cfg.d_model, 0.0)
             return p
 
-        params = {"embed": w(cfg.vocab_size, cfg.d_model),
-                  "final_norm": norm_p(), "layers": []}
-        for tag in layer_tags(cfg):
-            ffn = (moe_mod.init_moe(cfg, w) if tag == "attn:moe:0" else
-                   {"up": w(cfg.d_model, cfg.d_ff),
-                    "gate": w(cfg.d_model, cfg.d_ff),
-                    "down": w(cfg.d_ff, cfg.d_model)})
-            params["layers"].append({
+        def layer(tag):
+            mixer, ffn, _ = tag.split(":")
+            return {
                 "mixer_norm": norm_p(),
-                "mixer": attn.init_gqa(cfg, w, vec),
+                "mixer": (attn.init_mla if mixer == "mla"
+                          else attn.init_gqa)(cfg, w, vec),
                 "ffn_norm": norm_p(),
-                "ffn": ffn,
-            })
+                "ffn": (moe_mod.init_moe(cfg, w) if ffn == "moe" else
+                        {"up": w(cfg.d_model, cfg.d_ff),
+                         "gate": w(cfg.d_model, cfg.d_ff),
+                         "down": w(cfg.d_ff, cfg.d_model)}),
+            }
+
+        tags = layer_tags(cfg)
+        params = {"embed": w(cfg.vocab_size, cfg.d_model),
+                  "final_norm": norm_p(),
+                  "layers": [layer(tag) for tag in tags]}
         if not cfg.tie_embeddings:
             params["lm_head"] = w(cfg.d_model, cfg.vocab_size)
+        if cfg.mtp_depth:
+            params["mtp"] = {"proj": w(2 * cfg.d_model, cfg.d_model),
+                             "layer": layer(tags[-1]),
+                             "norm": {"w": vec(cfg.d_model, 1.0)}}
         return params
 
     # -------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device="cpu") -> list:
-        return [attn.init_gqa_cache(self.cfg, batch, max_len, dtype, device)
+        """One dict a layer: GQA's ``k`` and ``v`` (B, S, KV, D), or MLA's
+        ``latent`` (B, S, kv_lora + rope)."""
+        make = (attn.init_mla_cache if self.cfg.attention == "mla"
+                else attn.init_gqa_cache)
+        return [make(self.cfg, batch, max_len, dtype, device)
                 for _ in range(self.cfg.n_layers)]
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          dtype=torch.bfloat16, device="cpu") -> list:
-        from repro_torch.serve.paged_cache import init_paged_gqa_cache
+        from repro_torch.serve import paged_cache
 
-        return [init_paged_gqa_cache(self.cfg, num_blocks, block_size, dtype,
-                                     device)
+        make = (paged_cache.init_paged_mla_cache
+                if self.cfg.attention == "mla"
+                else paged_cache.init_paged_gqa_cache)
+        return [make(self.cfg, num_blocks, block_size, dtype, device)
                 for _ in range(self.cfg.n_layers)]
 
     # -------------------------------------------------- layers
     def apply_layer(self, x, lp, ctx: LayerCtx, positions, mode: str, cache,
                     pos=None, slots=None, lengths=None, tables=None,
                     prefix_lens=None, spans=None, window=None):
-        """One decoder layer (mode: full | prefill | decode | verify).
+        """One decoder layer (mode: full | prefill | decode | verify), its
+        mixer GQA or MLA as the config's ``attention`` says.
         ``full`` is causal attention over the whole sequence with no cache
         (the training/scoring forward).  ``prefix_lens`` (prefill): the
         logical start of each row's tokens (a suffix or a chunk);
@@ -236,32 +283,33 @@ class Model:
         Returns (x, flag, aux): aux the MoE FFN's load-balance loss,
         None for a dense FFN (only ``forward`` reads it)."""
         cfg = self.cfg
+        mix = attn.MLA if cfg.attention == "mla" else attn.GQA
         nrm = functools.partial(per_step, norm) if mode == "verify" else norm
         h = nrm(x, lp["mixer_norm"], cfg.norm, cfg.norm_eps)
         if mode == "full":
-            a, f = attn.gqa_forward(h, lp["mixer"], cfg, ctx, positions)
+            a, f = mix["forward"](h, lp["mixer"], cfg, ctx, positions)
         elif mode == "prefill":
             if tables is not None:
-                a, f = attn.gqa_paged_prefill(h, lp["mixer"], cfg, ctx,
-                                              positions, cache, tables,
-                                              lengths, starts=prefix_lens,
-                                              spans=spans)
+                a, f = mix["paged_prefill"](h, lp["mixer"], cfg, ctx,
+                                            positions, cache, tables,
+                                            lengths, starts=prefix_lens,
+                                            spans=spans)
             else:
-                a, f = attn.gqa_prefill(h, lp["mixer"], cfg, ctx, positions,
-                                        cache, slots=slots, lengths=lengths,
-                                        starts=prefix_lens, spans=spans)
+                a, f = mix["prefill"](h, lp["mixer"], cfg, ctx, positions,
+                                      cache, slots=slots, lengths=lengths,
+                                      starts=prefix_lens, spans=spans)
         elif mode == "verify":
             if tables is not None:
-                a, f = attn.gqa_paged_verify(h, lp["mixer"], cfg, ctx, pos,
-                                             cache, window, tables)
+                a, f = mix["paged_verify"](h, lp["mixer"], cfg, ctx, pos,
+                                           cache, window, tables)
             else:
-                a, f = attn.gqa_verify(h, lp["mixer"], cfg, ctx, pos, cache,
-                                       window)
+                a, f = mix["verify"](h, lp["mixer"], cfg, ctx, pos, cache,
+                                     window)
         elif tables is not None:
-            a, f = attn.gqa_paged_decode(h, lp["mixer"], cfg, ctx, pos,
-                                         cache, tables)
+            a, f = mix["paged_decode"](h, lp["mixer"], cfg, ctx, pos, cache,
+                                       tables)
         else:
-            a, f = attn.gqa_decode(h, lp["mixer"], cfg, ctx, pos, cache)
+            a, f = mix["decode"](h, lp["mixer"], cfg, ctx, pos, cache)
         x = x + a
         h = nrm(x, lp["ffn_norm"], cfg.norm, cfg.norm_eps)
         aux = None
@@ -313,11 +361,12 @@ class Model:
     def forward(self, params, batch, ctx: LayerCtx,
                 device=None) -> ForwardOut:
         """Full-sequence causal forward (training and scoring).  batch:
-        {"tokens": (B, L)}; returns ForwardOut with f32 logits (B, L, V)
-        and the OR of every GEMM's and attention's flag.  Runs on
-        ``device`` (CUDA unless the caller passes ``"cpu"``), where the
-        params must already live.  Encoder memory and vision inputs are not
-        ported."""
+        {"tokens": (B, L)}; returns ForwardOut with f32 logits (B, L, V),
+        the OR of every GEMM's and attention's flag, the MoE layers' aux
+        loss and, with an MTP head in the params, its f32 ``mtp_logits``
+        (B, L, V) (``_mtp``).  Runs on ``device`` (CUDA unless the caller
+        passes ``"cpu"``), where the params must already live.  Encoder
+        memory and vision inputs are not ported."""
         from repro_torch.serve.executor import resolve_device
 
         dev = resolve_device(device)
@@ -338,8 +387,31 @@ class Model:
                                       None, remat=True)
         x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         logits, f_head = self._head(params, x, ctx)
-        return ForwardOut(logits=logits, flag=or_flags(flag, f_head),
-                          aux_loss=aux)
+        flag = or_flags(flag, f_head)
+        mtp_logits = None
+        if cfg.mtp_depth and "mtp" in params:
+            mtp_logits, f_mtp = self._mtp(params, x, tokens, ctx, positions)
+            flag = or_flags(flag, f_mtp)
+        return ForwardOut(logits=logits, flag=flag, aux_loss=aux,
+                          mtp_logits=mtp_logits)
+
+    def _mtp(self, params, h, tokens, ctx, positions):
+        """The multi-token prediction head (depth 1), as the reference's:
+        the final hidden state, RMS-normed, beside the embedding of the
+        next token (``roll`` wraps: the last position sees token 0), through
+        ``proj`` (fault site ``mlp_up``), one layer of the last layer's
+        kind and the head.  The layer runs with the top-level ctx (no layer
+        index), so a fault at a site fires there whatever its layer, and
+        its MoE aux loss is discarded."""
+        mp = params["mtp"]
+        emb_next = params["embed"][torch.roll(tokens, -1, 1)]
+        comb = torch.cat([norm(h, mp["norm"], "rmsnorm", self.cfg.norm_eps),
+                          emb_next], dim=-1)
+        hm, f1 = dense(comb, mp["proj"], ctx, "mlp_up", tag="mtp.proj")
+        hm, f2, _ = self.apply_layer(hm, mp["layer"], ctx, positions, "full",
+                                     None)
+        logits, f3 = self._head(params, hm, ctx)
+        return logits, or_flags(f1, f2, f3)
 
     # -------------------------------------------------- sharing / chunking
     @property
@@ -362,9 +434,9 @@ class Model:
         return self.supports_prefix_sharing
 
     def copy_paged_blocks(self, cache, src, dst) -> list:
-        """``pool[dst[i]] <- pool[src[i]]`` on every layer's k and v pool,
-        in place — the COW payload move."""
-        dev = cache[0]["k"].device
+        """``pool[dst[i]] <- pool[src[i]]`` on every layer's pools (k and
+        v, or the latent), in place — the COW payload move."""
+        dev = cache_leaf(cache).device
         src = torch.as_tensor(src, dtype=torch.long, device=dev)
         dst = torch.as_tensor(dst, dtype=torch.long, device=dev)
         for layer in cache:
@@ -437,18 +509,18 @@ class Model:
         are discarded.  Token t of row b sits at ``pos[b] + t``, its k/v
         land there and logits[b, t] predicts position ``pos[b] + t + 1``.
         Every row is computed in the decode step's order (d_model norms
-        and attention one step at a time, K1 pinned to the B-row GEMM and
-        the plain product run step by step through
-        ``ABFTConfig.decode_rows``, which the runner sets), so row t's
-        logits are bit for bit decode's at that position.  Returns (logits
-        (B, T, V) f32, cache, flag)."""
+        and attention one step at a time, and MLA's latent norms and
+        absorbed products; K1 pinned to the B-row GEMM and the plain
+        product run step by step through ``ABFTConfig.decode_rows``, which
+        the runner sets), so row t's logits are bit for bit decode's at
+        that position.  Returns (logits (B, T, V) f32, cache, flag)."""
         from repro_torch.serve.paged_cache import prefill_write_index
 
         cfg = self.cfg
         B, T = tokens.shape
         pos = torch.as_tensor(pos, dtype=torch.int32,
                               device=tokens.device).expand(B).contiguous()
-        pool = cache[0]["k"]
+        pool = cache_leaf(cache)
         # every layer writes the same cells: one index a call
         window = (attn.verify_write_index(pos, valid, T, pool.shape[1])
                   if block_tables is None else

@@ -115,7 +115,7 @@ from repro_torch.core.policy import ErrorAdaptivePolicy
 from repro_torch.core.protected import ABFTConfig
 from repro_torch.models import attention
 from repro_torch.models.layers import LayerCtx, ModelFault
-from repro_torch.models.model import Model, layer_tags
+from repro_torch.models.model import Model, cache_leaf, layer_tags
 from repro_torch.obs.trace import Tracer
 from repro_torch.serve import paged_cache
 from repro_torch.serve.executor import LocalExecutor, resolve_device
@@ -513,14 +513,16 @@ class ServeEngine:
             "phase": phase, "outcome": outcome,
             "kind": entry.get("kind"), "source": entry.get("source")})
 
+    def _leaves(self) -> list:
+        """Every cache leaf of every layer (GQA's k and v, MLA's latent):
+        all index their cells by the same leading two dims."""
+        return [leaf for layer in self.cache for leaf in layer.values()]
+
     def _gather(self, cells) -> list:
-        return [leaf[cells] for layer in self.cache
-                for leaf in (layer["k"], layer["v"])]
+        return [leaf[cells] for leaf in self._leaves()]
 
     def _scatter(self, cells, values) -> None:
-        leaves = [leaf for layer in self.cache
-                  for leaf in (layer["k"], layer["v"])]
-        for leaf, v in zip(leaves, values):
+        for leaf, v in zip(self._leaves(), values):
             leaf[cells] = v
 
     def _shadow_outcome(self, emitted, cells, rerun) -> tuple:
@@ -600,7 +602,7 @@ class ServeEngine:
             self.model.copy_paged_blocks(self.cache,
                                          [src for src, _ in cow_pairs],
                                          [dst for _, dst in cow_pairs])
-            sp.fence(self.cache[0]["k"])
+            sp.fence(cache_leaf(self.cache))
         self.stats.cow_copies += len(cow_pairs)
 
     def _admit_impl(self, pending: list, fault, fault_uid) -> list:
@@ -648,8 +650,8 @@ class ServeEngine:
         def cells():
             if self.pool is None:
                 return attention.prefill_cells(args[3], Lpad)
-            return paged_cache.prefill_cells(self.cache[0]["k"], args[5],
-                                             args[4], Lpad, starts)
+            return paged_cache.prefill_cells(cache_leaf(self.cache),
+                                             args[5], args[4], Lpad, starts)
 
         meta = self._take_injection_meta("admit_fault") \
             if fault is not None else None
@@ -842,8 +844,8 @@ class ServeEngine:
             if self.pool is None:
                 return attention.prefill_cells(args[3], Lpad, args[6],
                                                args[4])
-            return paged_cache.prefill_cells(self.cache[0]["k"], args[5],
-                                             args[4], Lpad, args[6])
+            return paged_cache.prefill_cells(cache_leaf(self.cache),
+                                             args[5], args[4], Lpad, args[6])
 
         with self._tr.span("prefill_chunk",
                            {"rows": A, "tokens": int(lengths.sum())}) as sp:
@@ -924,8 +926,8 @@ class ServeEngine:
         def cells():
             if self.pool is None:
                 return attention.decode_cells(args[3])
-            return paged_cache.decode_cells(self.cache[0]["k"], args[5],
-                                            args[3])
+            return paged_cache.decode_cells(cache_leaf(self.cache),
+                                            args[5], args[3])
 
         with self._tr.span("decode_step",
                            {"tokens": len(self.active)}) as sp:
@@ -1040,8 +1042,8 @@ class ServeEngine:
             if self.pool is None:
                 return attention.verify_cells(args[3], args[4],
                                               self.max_len)
-            return paged_cache.prefill_cells(self.cache[0]["k"], args[5],
-                                             args[4], T, args[3])
+            return paged_cache.prefill_cells(cache_leaf(self.cache),
+                                             args[5], args[4], T, args[3])
 
         with self._tr.span("verify_step",
                            {"tokens": window_tokens,

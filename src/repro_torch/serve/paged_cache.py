@@ -1,7 +1,9 @@
 """Paged KV cache: block-table memory manager, prefix index and device
 ops (port of ``repro.serve.paged_cache``).
 
-Per layer the KV tensors are pools ``(num_blocks, block_size, KV, D)``;
+Per layer the KV tensors are pools ``(num_blocks, block_size, KV, D)``
+(GQA's k and v) or ``(num_blocks, block_size, kv_lora + rope)`` (MLA's
+latent);
 the host ``BlockPool`` owns the free list and one block table per slot,
 padded with the out-of-range ``SENTINEL`` (== num_blocks).  A token at
 logical position ``t`` of slot ``s`` lives at
@@ -328,6 +330,16 @@ def init_paged_gqa_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     shape = (num_blocks, block_size, cfg.n_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_paged_mla_cache(cfg: ModelConfig, num_blocks: int,
+                         block_size: int, dtype, device) -> dict:
+    """MLA's one pool leaf, the latent (NB, BS, kv_lora + rope): the
+    scatters, the gather and the COW copy index its two leading dims, as
+    they do the GQA pools'."""
+    shape = (num_blocks, block_size,
+             cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+    return {"latent": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def _prefill_index(pool, tables, lengths, L: int, starts=None):

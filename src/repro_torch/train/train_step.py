@@ -1,6 +1,7 @@
 """Train-step construction (port of ``repro.train.train_step``): CE loss
-with z-loss and aux loss, microbatched gradient accumulation in f32, the
-OR of the forward's ABFT flags, and the optimizer update.
+with z-loss, aux loss and the MTP head's loss, microbatched gradient
+accumulation in f32, the OR of the forward's ABFT flags, and the
+optimizer update.
 
 The step differentiates ``Model.forward`` with autograd.  Every
 block-protected forward GEMM runs K1 (its plain version on the CPU);
@@ -38,8 +39,10 @@ class TrainConfig:
 def make_loss_fn(model: Model, abft: ABFTConfig, tcfg: TrainConfig,
                  hints=None, device=None) -> Callable:
     """loss_fn(params, batch, fault=None) -> (loss, metrics), on
-    ``device`` (CUDA unless the caller passes ``"cpu"``).  Models with MTP
-    heads are refused by ``Model`` itself; sharding hints are not
+    ``device`` (CUDA unless the caller passes ``"cpu"``).  With MTP logits
+    the loss gains ``mtp_loss_coef`` x the MTP head's NLL of token t + 2
+    (labels rolled one more step, the mask times its roll), over the main
+    loss's denominator, as the reference's.  Sharding hints are not
     ported."""
     if hints is not None:
         raise NotImplementedError("sharding hints are not ported")
@@ -58,6 +61,12 @@ def make_loss_fn(model: Model, abft: ABFTConfig, tcfg: TrainConfig,
         nll = -torch.sum(logp * mask) / denom
         loss = nll + tcfg.z_loss_coef * torch.sum((logz ** 2) * mask) / denom
         loss = loss + tcfg.aux_loss_coef * out.aux_loss
+        if out.mtp_logits is not None:
+            l2 = torch.roll(labels, -1, 1)
+            m2 = mask * torch.roll(mask, -1, 1)
+            lp2 = torch.gather(torch.log_softmax(out.mtp_logits.to(F32), -1),
+                               -1, l2.clamp_min(0)[..., None])[..., 0]
+            loss = loss - tcfg.mtp_loss_coef * torch.sum(lp2 * m2) / denom
         metrics = {"loss": nll, "aux_loss": out.aux_loss,
                    "abft_flag": out.flag}
         return loss, metrics

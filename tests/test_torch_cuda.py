@@ -1545,3 +1545,155 @@ def test_small_moe_forward_on_the_card_equals_the_cpu(dev, fdl):
     assert bool(a.flag) == bool(b.flag.cpu())
     assert abs(float(a.aux_loss) - float(b.aux_loss)) \
         <= 1e-5 * abs(float(a.aux_loss))
+
+
+# ------------------------------------------------------------------ MLA
+
+def _mla_layer(dev, dtype=torch.bfloat16):
+    """One MLA layer at deepseek-v3's published widths (128 heads, latent
+    ranks 1536 / 512, head dims 128 + 64), seeded weights on the card."""
+    from repro_torch.models import attention as attn
+
+    cfg = get_config("deepseek-v3-671b")
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def w(*shape):
+        return (0.02 * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+
+    def vec(n, fill):
+        return torch.full((n,), fill, dtype=dtype, device=dev)
+
+    return cfg, attn.init_mla(cfg, w, vec), gen
+
+
+def test_mla_serving_prefill_is_bit_equal_whole_suffix_and_chunks(dev):
+    """At deepseek-v3's widths in bf16 on the card: a 600-token prompt
+    prefilled whole (beside a second row), as the suffix behind its first
+    512 tokens, and in chunks of 256 gives bit-equal latent cells and
+    last-row outputs (row-wise attention, the absorbed products in
+    ``ABSORB_ROWS``-row blocks, K1 as one K slice)."""
+    import dataclasses
+
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import LayerCtx
+
+    cfg, p, gen = _mla_layer(dev)
+    L = 600
+    x = torch.randn(2, L, cfg.d_model, generator=gen, device=dev).to(
+        torch.bfloat16)
+    ctx = LayerCtx(abft=dataclasses.replace(ABFTConfig(), one_slice=True))
+
+    def run(cuts, rows=1):
+        cache = attn.init_mla_cache(cfg, 2, 1024, torch.bfloat16, dev)
+        out = None
+        for s, e in zip(cuts[:-1], cuts[1:]):
+            n = e - s
+            kw = dict(slots=torch.arange(rows, device=dev),
+                      lengths=torch.full((rows,), n, device=dev))
+            if s:
+                kw["starts"] = torch.full((rows,), s, device=dev)
+            pos = torch.arange(s, e, device=dev).expand(rows, n)
+            out, flag = attn.mla_prefill(x[:rows, s:e], p, cfg, ctx, pos,
+                                         cache, spans=[(s, e)] * rows, **kw)
+            assert not bool(flag)
+        return out[0, -1], cache["latent"][0, :L]
+
+    o_whole, c_whole = run([0, L], rows=2)
+    for cuts in ([0, 512, L], [0, 256, 512, L]):
+        o, c = run(cuts)
+        assert torch.equal(c, c_whole), cuts
+        assert torch.equal(o, o_whole), cuts
+
+
+@pytest.mark.parametrize("slots", [1, 4])
+def test_mla_verify_rows_equal_decode_rows(dev, slots):
+    """At deepseek-v3's widths in bf16 on the card: each row of a verify
+    window of T = 5 (latent norms and absorbed products a step at a time,
+    K1 on the decode split) is bit for bit what the decode step computes
+    at its position, latents and outputs."""
+    import dataclasses
+
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import LayerCtx
+
+    cfg, p, gen = _mla_layer(dev)
+    T = 5
+    x = torch.randn(slots, T, cfg.d_model, generator=gen, device=dev).to(
+        torch.bfloat16)
+    pos = torch.arange(slots, device=dev, dtype=torch.int32) * 7 + 40
+    seed = torch.randn(slots, 128, 576, generator=gen, device=dev).to(
+        torch.bfloat16)
+    ver = {"latent": seed.clone()}
+    dec = {"latent": seed.clone()}
+    vctx = LayerCtx(abft=dataclasses.replace(ABFTConfig(),
+                                             decode_rows=slots))
+    index = attn.verify_write_index(pos, torch.full((slots,), T,
+                                                    device=dev), T, 128)
+    out_v, _ = attn.mla_verify(x, p, cfg, vctx, pos, ver, index)
+    for t in range(T):
+        out_d, _ = attn.mla_decode(x[:, t:t + 1].contiguous(), p, cfg,
+                                   LayerCtx(), pos + t, dec)
+        assert torch.equal(out_v[:, t:t + 1], out_d), t
+    assert torch.equal(ver["latent"], dec["latent"])
+
+
+def test_small_mla_engine_on_the_card_equals_the_cpu(dev):
+    """Scaled-down f32 deepseek-v3 (an MLA dense layer and an MLA MoE
+    layer): the engine on the card (K1 among the kernels, K2 and K3
+    never) and on the CPU give the same greedy streams, dense, paged and
+    paged with prefix sharing and chunks of 8."""
+    cfg = scaled_down(get_config("deepseek-v3-671b"))
+    model = Model(cfg)
+    params = model.init_params(3, dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    sys_p = rng.integers(1, 256, size=12)
+    prompts = [np.concatenate([sys_p, rng.integers(1, 256, size=int(n))])
+               .astype(np.int32) for n in rng.integers(3, 30, size=5)]
+    streams = {}
+    for d in ("cpu", dev):
+        for name, kw in (("dense", {}), ("paged", dict(cache_kind="paged")),
+                         ("shared_chunks", dict(cache_kind="paged",
+                                                prefix_sharing=True,
+                                                chunk_tokens=8))):
+            eng = ServeEngine(model, params, slots=2, max_len=64,
+                              dtype=torch.float32, device=d, block_size=8,
+                              abft=ABFTConfig(flash_attention=True), **kw)
+            k1, k2, k3 = (am.KERNEL.launches, fa.FULL_KERNEL.launches,
+                          fa.KERNEL.launches)
+            streams[(str(d), name)] = eng.run(
+                [Request(uid=i, prompt=p, max_new_tokens=8)
+                 for i, p in enumerate(prompts)])
+            assert eng.stats.faults_detected == 0
+            if str(d) != "cpu":
+                assert am.KERNEL.launches > k1
+                assert fa.FULL_KERNEL.launches == k2
+                assert fa.KERNEL.launches == k3
+    assert len({str(s) for s in streams.values()}) == 1
+
+
+def test_small_mla_forward_on_the_card_equals_the_cpu(dev):
+    """Scaled-down f32 deepseek-v3 through ``Model.forward``: logits and
+    ``mtp_logits`` on the card within 1e-4 of the CPU's (f32 sums in
+    another order), equal flags, the aux loss within 1e-5 relative."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.layers import LayerCtx
+
+    model = Model(scaled_down(get_config("deepseek-v3-671b")))
+    params = model.init_params(3, dtype=torch.float32)
+    tokens = torch.from_numpy(
+        np.random.default_rng(5).integers(1, 256, size=(2, 24)))
+    out = {}
+    for d in ("cpu", dev):
+        with torch.no_grad():
+            out[str(d)] = model.forward(tree_map(lambda t: t.to(d), params),
+                                        {"tokens": tokens.to(d)},
+                                        LayerCtx(), device=d)
+    a, b = out["cpu"], out[str(dev)]
+    assert (a.logits - b.logits.cpu()).abs().max().item() <= 1e-4
+    assert (a.mtp_logits - b.mtp_logits.cpu()).abs().max().item() <= 1e-4
+    assert bool(a.flag) == bool(b.flag.cpu())
+    assert abs(float(a.aux_loss) - float(b.aux_loss)) \
+        <= 1e-5 * abs(float(a.aux_loss))

@@ -163,7 +163,7 @@ def test_unported_options_raise(setup, opt):
     prefill, paged prefix sharing and speculative decoding (both
     proposers) are ported, construct and serve; dense prefix sharing
     raises the reference's ``ValueError``.  Speculative decoding on a
-    stack with MoE layers is not ported and raises
+    stack with MoE layers (GQA or MLA) is not ported and raises
     ``NotImplementedError``."""
     _, _, tm, tp, _ = setup
 
@@ -171,10 +171,11 @@ def test_unported_options_raise(setup, opt):
         return ServeEngine(tm, tp, slots=1, max_len=16, device="cpu", **opt)
 
     if "spec_decode" in opt:
-        moe = Model(scaled_down(get_config("qwen2-moe-a2.7b")))
-        with pytest.raises(NotImplementedError, match="MoE"):
-            ServeEngine(moe, moe.init_params(0, dtype=torch.float32),
-                        slots=1, max_len=16, device="cpu", **opt)
+        for arch in ("qwen2-moe-a2.7b", "deepseek-v3-671b"):
+            moe = Model(scaled_down(get_config(arch)))
+            with pytest.raises(NotImplementedError, match="MoE"):
+                ServeEngine(moe, moe.init_params(0, dtype=torch.float32),
+                            slots=1, max_len=16, device="cpu", **opt)
 
     if "mesh" in opt:
         with pytest.raises(NotImplementedError):

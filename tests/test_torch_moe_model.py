@@ -48,7 +48,8 @@ from repro_torch.train.train_step import TrainConfig, make_train_step
 torch.set_num_threads(1)
 
 ARCH = "qwen2-moe-a2.7b"
-SERVED = ("llama3.2-1b", "qwen3-14b", "stablelm-1.6b", "qwen1.5-32b", ARCH)
+SERVED = ("llama3.2-1b", "qwen3-14b", "stablelm-1.6b", "qwen1.5-32b", ARCH,
+          "deepseek-v3-671b")
 SLOTS, MAX_LEN, BS = 3, 32, 8
 
 

@@ -96,7 +96,7 @@ def test_serve_cli_runs_the_dense_family(capsys, arch):
     assert line["faults_detected"] == line["retries"] == 1
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "deepseek-v3-671b",
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b",
                                   "whisper-tiny"])
 def test_cli_refuses_an_unported_arch_with_its_message(arch):
     """Every registered config is an ``--arch`` choice; one the port does
