@@ -25,10 +25,14 @@ greedy stream held to the unsped run's, faults included;
 holds K1 batched over experts against its plain version, then serves,
 scores and times full-width qwen2-moe-a2.7b; and ``mla`` does the same
 for deepseek-v3-671b at its published widths and 4 layers with its MTP
-head (MLA on K1 alone: K2 and K3 held to 0 launches), and serves the
-all-dense 3-layer MLA stack cut from its weights under prefix sharing,
-chunked prefill and speculation, every greedy stream held to the plain
-run's.  Each phase
+head (MLA on K1 alone: K2 and K3 held to 0 launches), speculates on it
+(every stream that met no expert overflow held to the unsped run's), and
+serves the all-dense 3-layer MLA stack cut from its weights under prefix
+sharing, chunked prefill and speculation, every greedy stream held to the
+plain run's; ``ssm`` serves, faults and scores the Mamba2 family
+(mamba2-1.3b whole, jamba-v0.1-52b at its published widths and one
+8-layer unit of its interleave), each recovered stream and every slot's
+recurrent state held to the clean run's.  Each phase
 prints JSON lines; any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -54,7 +58,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
           "campaign", "profile", "timing", "sharing", "spec", "family",
-          "moe", "mla")
+          "moe", "mla", "ssm")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -1537,29 +1541,46 @@ def family_plan(cfg) -> dict:
 
 
 def _gemm_sites(params) -> dict:
-    """The 2-D GEMM sites of layer 0 (and of the first MoE layer, when
-    layer 0 is dense), the head and the MTP head: name -> (weight, output
-    dtype).  A GQA mixer gives ``q``, ``kv`` and ``o``; an MLA mixer
-    ``q_a``, ``q_b``, ``kv_a`` and ``o``.  A dense FFN gives ``up`` and
-    ``down``; an MoE FFN gives the router (N = E, f32 out) and the shared
-    experts' ``shared_up`` and ``shared_down`` (its expert GEMMs are
-    ``moe_k1_checks``' and ``mla_k1_checks``').  ``mtp_proj``: the MTP
-    head's projection (K = 2 d_model)."""
-    lp = params["layers"][0]
+    """The 2-D GEMM sites of the first layer of each kind (attention
+    mixer, Mamba2 mixer, dense FFN, MoE FFN), the head and the MTP head:
+    name -> (weight, output dtype).  A GQA mixer gives ``q``, ``kv`` and
+    ``o``; an MLA mixer ``q_a``, ``q_b``, ``kv_a`` and ``o``; a Mamba2
+    mixer ``ssm_in_z``, ``ssm_in_x``, ``ssm_in_bc``, ``ssm_in_dt`` and
+    ``ssm_out``.  A dense FFN gives ``up`` and ``down``; an MoE FFN gives
+    the router (N = E, f32 out) and the shared experts' ``shared_up`` and
+    ``shared_down`` (its expert GEMMs are ``moe_k1_checks``',
+    ``mla_k1_checks``' and ``ssm_batched_checks``').  ``mtp_proj``: the
+    MTP head's projection (K = 2 d_model)."""
+    layers = params["layers"]
     bf, f32 = params["embed"].dtype, torch.float32
-    mx = lp["mixer"]
-    if "wq_a" in mx:
-        sites = {"q_a": (mx["wq_a"], bf), "q_b": (mx["wq_b"], bf),
-                 "kv_a": (mx["wkv_a"], bf), "o": (mx["wo"], bf)}
-    else:
-        sites = {"q": (mx["wq"], bf), "kv": (mx["wk"], bf),
-                 "o": (mx["wo"], bf)}
-    ffn = lp["ffn"]
-    if "router" not in ffn:
-        sites["up"], sites["down"] = (ffn["up"], bf), (ffn["down"], bf)
-        ffn = next((l["ffn"] for l in params["layers"]
-                    if "router" in l["ffn"]), None)
+
+    def first(pred):
+        return next((lp for lp in layers if pred(lp)), None)
+
+    sites = {}
+    att = first(lambda lp: "A_log" not in lp["mixer"])
+    if att is not None:
+        mx = att["mixer"]
+        if "wq_a" in mx:
+            sites.update(q_a=(mx["wq_a"], bf), q_b=(mx["wq_b"], bf),
+                         kv_a=(mx["wkv_a"], bf), o=(mx["wo"], bf))
+        else:
+            sites.update(q=(mx["wq"], bf), kv=(mx["wk"], bf),
+                         o=(mx["wo"], bf))
+    ssm = first(lambda lp: "A_log" in lp["mixer"])
+    if ssm is not None:
+        mx = ssm["mixer"]
+        sites.update(ssm_in_z=(mx["in_z"], bf), ssm_in_x=(mx["in_x"], bf),
+                     ssm_in_bc=(mx["in_bc"], bf),
+                     ssm_in_dt=(mx["in_dt"], bf),
+                     ssm_out=(mx["out_proj"], bf))
+    dense = first(lambda lp: "ffn" in lp and "router" not in lp["ffn"])
+    if dense is not None:
+        sites["up"] = (dense["ffn"]["up"], bf)
+        sites["down"] = (dense["ffn"]["down"], bf)
+    ffn = first(lambda lp: "ffn" in lp and "router" in lp["ffn"])
     if ffn is not None:
+        ffn = ffn["ffn"]
         sites["router"] = (ffn["router"], f32)
         if "shared" in ffn:
             sites["shared_up"] = (ffn["shared"]["up"], bf)
@@ -1578,9 +1599,9 @@ def family_checks(dev, cfg, params, k2: bool = True) -> dict:
     decode step) and 1024 (the score's rows), and with ``one_slice`` (the
     serving prefill's plan) at M = 256 (a chunk) and 1024 (an admission),
     mode 1s on the route the path takes, and a value fault and a bit flip
-    in the FFN's down projection (``down``, ``shared_down``) and MLA's
-    latent projections (``q_a``, ``kv_a``) flagged at their block and
-    row.  K2 (unless ``k2`` is off: MLA never reaches it): causal
+    in the FFN's down projection (``down``, ``shared_down``), MLA's
+    latent projections (``q_a``, ``kv_a``) and Mamba2's ``ssm_in_x`` and
+    ``ssm_out`` flagged at their block and row.  K2 (unless ``k2`` is off: MLA never reaches it): causal
     bf16 at B = 1, L = 1024 with ``cfg``'s heads (D = 64 or 128, G = 1 or
     5).  K3 is held against its plain version layer by layer in
     ``k3_timing`` on the engine's own cache.
@@ -1633,7 +1654,8 @@ def family_checks(dev, cfg, params, k2: bool = True) -> dict:
                 one_abs = max(one_abs, err)
             else:
                 worst_abs = max(worst_abs, err)
-            if name in ("down", "shared_down", "q_a", "kv_a"):
+            if name in ("down", "shared_down", "q_a", "kv_a", "ssm_in_x",
+                        "ssm_out"):
                 _k1_fault_check(ops, FaultSpec, x, w, "1s", out_dtype,
                                 f"{cfg.name} {name}", one_slice=one)
     need(all(v < 1 for v in ratios.values()),
@@ -1682,9 +1704,9 @@ def _forward_f32_layerwise(model, params, tokens):
     x = params["embed"][tokens].float()
     positions = torch.arange(L, device=tokens.device).expand(B, L)
     for i, lp in enumerate(params["layers"]):
-        x, _, _ = model.apply_layer(x, tree_map(lambda t: t.float(), lp),
-                                    ctx.with_layer(i), positions, "full",
-                                    None)
+        x, _, _, _ = model.apply_layer(x, tree_map(lambda t: t.float(), lp),
+                                       ctx.with_layer(i), positions, "full",
+                                       None)
     return norm(x, tree_map(lambda t: t.float(), params["final_norm"]),
                 cfg.norm, cfg.norm_eps)
 
@@ -2902,20 +2924,21 @@ def moe_k1_checks(dev) -> dict:
             "routes": sorted(set(routes_taken.values()))}
 
 
-def moe_k1_timing(dev, params) -> dict:
-    """One MoE layer's expert GEMMs (layer 0: up and gate at K, N = 2048,
-    1408, down at 1408, 2048; E = 60) at each capacity of ``MOE_C``, bf16
-    mode 1s, by CUDA-graph replay: K1 batched (3 launches), its plain
-    version, ``torch.bmm`` and the bound (each input read and each output
-    written once, the residual and bound arrays included; 2 E C K N FLOP
-    at the bf16 tensor-core rate)."""
+def moe_k1_timing(dev, params, caps=MOE_C, phase="moe_k1_timing") -> dict:
+    """The first MoE layer's expert GEMMs (qwen2-moe's layer 0: up and
+    gate at K, N = 2048, 1408, down at 1408, 2048; E = 60) at each
+    capacity of ``caps``, bf16 mode 1s, by CUDA-graph replay: K1 batched
+    (3 launches), its plain version, ``torch.bmm`` and the bound (each
+    input read and each output written once, the residual and bound
+    arrays included; 2 E C K N FLOP at the bf16 tensor-core rate)."""
     from repro_torch.kernels.abft_matmul import abft_matmul_kernel
     from repro_torch.kernels.ref import abft_matmul_batched_ref
 
-    ffn = params["layers"][0]["ffn"]
+    ffn = next(lp["ffn"] for lp in params["layers"]
+               if "ffn" in lp and "router" in lp["ffn"])
     gen = torch.Generator(device=dev).manual_seed(23)
     out = {}
-    for C in MOE_C:
+    for C in caps:
         calls = []
         b_ms, by = 0.0, set()
         for wname in ("w_up", "w_gate", "w_down"):
@@ -2950,7 +2973,7 @@ def moe_k1_timing(dev, params) -> dict:
             "library_ms": timed_graph(lib, iters=10),
             "bound_ms": b_ms,
             "bound_by": by.pop() if len(by) == 1 else "mixed"}
-    emit("moe_k1_timing", **out)
+    emit(phase, **out)
     return out
 
 
@@ -3286,6 +3309,41 @@ def mla_config():
     return dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
 
 
+def _batched_case(dev, gen, w, C, name) -> tuple:
+    """K1 batched over w's experts (bf16 mode 1s) against its plain
+    version at capacity C on random rows: one launch, y within 2^-7 x
+    max|y|, bounds within 1e-4 relative, a value fault flagged in every
+    expert at its block and row (``_moe_fault_check``).  Returns the
+    worst y error and clean residual over threshold."""
+    from repro_torch.core.checksums import ATOL, tolerance_scale
+    from repro_torch.kernels import abft_matmul
+    from repro_torch.kernels.abft_matmul import abft_matmul_kernel
+    from repro_torch.kernels.ref import abft_matmul_batched_ref
+
+    K1, K1B = abft_matmul.KERNEL, abft_matmul.BATCHED
+    E, k, n = w.shape
+    x = torch.randn(E, C, k, generator=gen, device=dev).to(w.dtype)
+    bm, bk, bn = _moe_clamp(C, k, n)
+    kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=w.dtype)
+    yp, resp, bndp = abft_matmul_batched_ref(x, w, **kw)
+    l0, b0 = K1.launches, K1B.launches
+    y, res, bnd = abft_matmul_kernel(x, w, **kw)
+    torch.cuda.synchronize()
+    need(K1.launches - l0 == 1 and K1B.launches - b0 == 1,
+         f"batched K1 {name}: not one launch")
+    scale = yp.float().abs().max().item()
+    err = (y.float() - yp.float()).abs().max().item()
+    need(err <= 2 ** -7 * scale, f"batched K1 y {name}: err {err}")
+    berr = ((bnd - bndp).abs() / bndp.abs().clamp_min(1e-30)).max()
+    need(berr.item() <= 1e-4, f"batched K1 bnd {name}")
+    tau = ATOL + tolerance_scale(-(-k // bk) * bk) * bnd
+    taup = ATOL + tolerance_scale(-(-k // bk) * bk) * bndp
+    ratio = max((res / tau).max().item(), (resp / taup).max().item())
+    del y, yp, res, resp, bnd, bndp
+    _moe_fault_check(x, w, "1s", name)
+    return err, ratio
+
+
 def mla_k1_checks(dev) -> dict:
     """K1 batched over deepseek-v3's 256 experts (K, N = 7168, 2048 and
     2048, 7168), bf16 mode 1s, against its plain version at the
@@ -3300,7 +3358,6 @@ def mla_k1_checks(dev) -> dict:
     replay, the plain version eagerly (its 15 GB widening a GEMM takes
     milliseconds; the host's share is under 1%), the bound each input
     read and each output written once (7.52 GB a GEMM)."""
-    from repro_torch.core.checksums import ATOL, tolerance_scale
     from repro_torch.kernels import abft_matmul
     from repro_torch.kernels.abft_matmul import abft_matmul_kernel
     from repro_torch.kernels.ref import abft_matmul_batched_ref
@@ -3315,31 +3372,9 @@ def mla_k1_checks(dev) -> dict:
           .to(bf) for name, (k, n) in MLA_SHAPES.items()}
     ratio, worst, cases = 0.0, 0.0, 0
     for name, w in ws.items():
-        _, k, n = w.shape
         for C in (4, c_admit):
-            x = torch.randn(E, C, k, generator=gen, device=dev).to(bf)
-            bm, bk, bn = _moe_clamp(C, k, n)
-            kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=bf)
-            yp, resp, bndp = abft_matmul_batched_ref(x, w, **kw)
-            l0, b0 = K1.launches, K1B.launches
-            y, res, bnd = abft_matmul_kernel(x, w, **kw)
-            torch.cuda.synchronize()
-            need(K1.launches - l0 == 1 and K1B.launches - b0 == 1,
-                 f"mla batched K1 {name} C={C}: not one launch")
-            scale = yp.float().abs().max().item()
-            err = (y.float() - yp.float()).abs().max().item()
-            need(err <= 2 ** -7 * scale, f"mla batched K1 y {name} C={C}: "
-                 f"err {err}")
-            berr = ((bnd - bndp).abs() / bndp.abs().clamp_min(1e-30)).max()
-            need(berr.item() <= 1e-4, f"mla batched K1 bnd {name} C={C}")
-            tau = ATOL + tolerance_scale(-(-k // bk) * bk) * bnd
-            taup = ATOL + tolerance_scale(-(-k // bk) * bk) * bndp
-            ratio = max(ratio, (res / tau).max().item(),
-                        (resp / taup).max().item())
-            worst = max(worst, err)
-            del y, yp, res, resp, bnd, bndp
-            _moe_fault_check(x, w, "1s", f"mla {name} C={C}")
-            cases += 1
+            err, r = _batched_case(dev, gen, w, C, f"mla {name} C={C}")
+            worst, ratio, cases = max(worst, err), max(ratio, r), cases + 1
     need(ratio < 1, f"mla batched K1 clean residual at {ratio} of its "
          f"threshold")
     timing = {}
@@ -3387,7 +3422,7 @@ def mla_k1_checks(dev) -> dict:
 
 
 def mla_serve(model, params, traffic, dev, label, *, cache_kind="dense",
-              flash=False, capture=None, **kw) -> dict:
+              flash=False, capture=None, hook=None, **kw) -> dict:
     """One bf16 engine run (4 slots, max_len ``MLA_MAX_LEN``, block 16,
     ``IntensityGuidedPolicy`` on the H100) of ``traffic`` ((prompt, new
     tokens, arrival iteration) a request) through ``admit``/``step``; K1
@@ -3395,7 +3430,8 @@ def mla_serve(model, params, traffic, dev, label, *, cache_kind="dense",
     and K2 and K3 held to 0 (MLA never takes them, ``flash`` on or off);
     every step timed to a synchronize; ``check_invariants`` after every
     paged step.  ``capture`` collects each request's prompt latent cells
-    (every layer) once it turns active.  Returns the run's record."""
+    (every layer) once it turns active; ``hook(engine)`` runs once the
+    engine is built.  Returns the run's record."""
     from repro_torch.core.hardware import NVIDIA_H100_SXM
     from repro_torch.core.policy import IntensityGuidedPolicy
     from repro_torch.core.protected import ABFTConfig
@@ -3410,6 +3446,8 @@ def mla_serve(model, params, traffic, dev, label, *, cache_kind="dense",
     eng = ServeEngine(model, params, slots=4, max_len=MLA_MAX_LEN,
                       block_size=16, abft=abft, dtype=torch.bfloat16,
                       device=dev, cache_kind=cache_kind, seed=0, **kw)
+    if hook is not None:
+        hook(eng)
     reqs = [Request(uid=i, prompt=p, max_new_tokens=n)
             for i, (p, n, _) in enumerate(traffic)]
     due = {r.uid: a for r, (_, _, a) in zip(reqs, traffic)}
@@ -3523,17 +3561,17 @@ def absorb_row_order(dev, params) -> dict:
     return out
 
 
-def _mla_f32_layerwise(model, params, tokens, routes) -> tuple:
-    """``_forward_f32_layerwise`` for the MLA + MoE stack with its MTP
-    head: every leaf widened to f32 a layer at a time except the expert
-    weights (45 GB in f32 beside 53 GB of bf16), which the expert GEMMs
-    widen 32 experts at a time (f32 products of the same bf16 values).
-    Each MoE layer takes the experts ``routes`` gives it (one (T, K)
-    entry a MoE layer, in order: another run's routing), weighted by its
-    own f32 probabilities, so both runs drop the same tokens at capacity;
-    the experts its own probabilities pick are logged.  Returns the final
-    hidden states, the MTP head's pre-head hidden states (f32) and that
-    log."""
+def _f32_layerwise_routed(model, params, tokens, routes) -> tuple:
+    """``_forward_f32_layerwise`` for a stack with MoE layers, and its MTP
+    head where it has one: every leaf widened to f32 a layer at a time
+    except the expert weights (deepseek's: 45 GB in f32 beside 53 GB of
+    bf16), which the expert GEMMs widen 32 experts at a time (f32
+    products of the same bf16 values).  Each MoE layer takes the experts
+    ``routes`` gives it (one (T, K) entry a MoE layer, in order: another
+    run's routing), weighted by its own f32 probabilities, so both runs
+    drop the same tokens at capacity; the experts its own probabilities
+    pick are logged.  Returns the final hidden states, the MTP head's
+    pre-head hidden states (f32; None without the head) and that log."""
     from repro_torch.core.protected import ABFTConfig
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.layers import LayerCtx, norm
@@ -3547,7 +3585,7 @@ def _mla_f32_layerwise(model, params, tokens, routes) -> tuple:
                         else widen(v)) for k, v in tree.items()}
         return tree.float()
 
-    def grouped(x_e, w_e, ctx, site, tag=None):
+    def grouped(x_e, w_e, ctx, site, tag=None, split_rows=None):
         y = torch.empty(x_e.shape[:2] + (w_e.shape[2],), dtype=x_e.dtype,
                         device=x_e.device)
         for e0 in range(0, w_e.shape[0], 32):
@@ -3570,16 +3608,18 @@ def _mla_f32_layerwise(model, params, tokens, routes) -> tuple:
     try:
         x = params["embed"][tokens].float()
         for i, lp in enumerate(params["layers"]):
-            x, _, _ = model.apply_layer(x, widen(lp), ctx.with_layer(i),
-                                        positions, "full", None)
+            x, _, _, _ = model.apply_layer(x, widen(lp), ctx.with_layer(i),
+                                           positions, "full", None)
         h = norm(x, widen(params["final_norm"]), cfg.norm, cfg.norm_eps)
-        mp = params["mtp"]
-        nxt = params["embed"][torch.roll(tokens, -1, 1)].float()
-        comb = torch.cat([norm(h, widen(mp["norm"]), "rmsnorm",
-                               cfg.norm_eps), nxt], -1)
-        hm, _, _ = model.apply_layer(comb @ mp["proj"].float(),
-                                     widen(mp["layer"]), ctx, positions,
-                                     "full", None)
+        hm = None
+        if "mtp" in params:
+            mp = params["mtp"]
+            nxt = params["embed"][torch.roll(tokens, -1, 1)].float()
+            comb = torch.cat([norm(h, widen(mp["norm"]), "rmsnorm",
+                                   cfg.norm_eps), nxt], -1)
+            hm, _, _, _ = model.apply_layer(comb @ mp["proj"].float(),
+                                            widen(mp["layer"]), ctx,
+                                            positions, "full", None)
     finally:
         moe_mod.batched_dense = batched
         moe_mod.top_k = top_k
@@ -3593,14 +3633,14 @@ def mla_score(dev, model, params) -> dict:
     V) f32, no flag; K1 batched three times in each MoE layer (layer 3
     and the MTP head's); the MTP loss term (``mtp_loss_coef`` x the NLL of
     token t + 2, the tokens as their own labels).  Both held against the
-    same weights run in f32 layer by layer (``_mla_f32_layerwise``; the
+    same weights run in f32 layer by layer (``_f32_layerwise_routed``; the
     heads in column chunks) routed as this run routes, so both drop the
     same tokens at an expert's capacity (40 of a 1024-token call's 8192
     assignments an expert: a token routed apart moves which later tokens
-    drop): the logits within ``MLA_SCORE_TOL`` of their scale at every
-    position, the MTP logits' error recorded; and the experts the f32
-    run's own probabilities pick against this run's (``_routing_diff``,
-    the share routed apart a layer)."""
+    drop): the logits and the MTP logits each within ``MLA_SCORE_TOL`` of
+    their own scale at every position; and the experts the f32 run's own
+    probabilities pick against this run's (``_routing_diff``, the share
+    routed apart a layer)."""
     from repro_torch.core.hardware import NVIDIA_H100_SXM
     from repro_torch.core.policy import IntensityGuidedPolicy
     from repro_torch.core.protected import ABFTConfig
@@ -3647,8 +3687,8 @@ def mla_score(dev, model, params) -> dict:
                        torch.roll(labels, -1, 1).clamp_min(0)[..., None])
     mtp_nll = float(-(lp2[..., 0] * m2).sum() / mask.sum())
     with torch.no_grad():
-        h32, hm32, routes_32 = _mla_f32_layerwise(model, params, tokens,
-                                                  routes)
+        h32, hm32, routes_32 = _f32_layerwise_routed(model, params, tokens,
+                                                     routes)
         head = params["lm_head"]
         err = torch.zeros(lg.shape[:2], device=dev)
         err_m = torch.zeros(lg.shape[:2], device=dev)
@@ -3682,6 +3722,11 @@ def mla_score(dev, model, params) -> dict:
     emit("mla_score", **rec)
     need(worst <= MLA_SCORE_TOL * scale, f"mla score: logits vs f32 "
          f"routed alike {worst} > {MLA_SCORE_TOL} x scale {scale}")
+    # the MTP head adds one MoE layer behind the stack: the same bound
+    m_worst, m_scale = rec["mtp_logits_max_abs_err_vs_f32"], \
+        rec["mtp_logits_scale"]
+    need(m_worst <= MLA_SCORE_TOL * m_scale, f"mla score: MTP logits vs "
+         f"f32 routed alike {m_worst} > {MLA_SCORE_TOL} x scale {m_scale}")
     return rec
 
 
@@ -3766,6 +3811,169 @@ def mla_dense_stack(dev, model, params) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _drop_log(cfg):
+    """Every MoE layer call's drops while the block is open: the token
+    indices an expert dropped at capacity and those experts, by
+    ``moe_forward``'s dispatch rule (each token's experts in ascending
+    id, an expert's rows in token order, rows past ``capacity(cfg, T)``
+    dropped).  Wraps ``moe.top_k``; reads each call's drops to the host."""
+    from repro_torch.models import moe as moe_mod
+
+    top_k, log = moe_mod.top_k, []
+
+    def logged(probs, k):
+        vals, idx = top_k(probs, k)
+        flat = idx.sort(-1).values.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        se = flat[order]
+        pos = torch.arange(flat.numel(), device=flat.device) \
+            - torch.searchsorted(se, se, side="left")
+        drop = pos >= moe_mod.capacity(cfg, idx.shape[0])
+        log.append(((order // k)[drop].tolist(), se[drop].tolist()))
+        return vals, idx
+
+    moe_mod.top_k = logged
+    try:
+        yield log
+    finally:
+        moe_mod.top_k = top_k
+
+
+def _charge_drops(log, drops, verify_calls):
+    """An engine hook (``mla_serve``'s ``hook``) that charges each token a
+    model call dropped to the request in its row: ``drops[uid]`` counts
+    them by expert, and each verify call appends its own count by expert
+    to ``verify_calls``.  A decode or verify row is a slot (its request read
+    from ``active`` during the call; an inactive slot's padding charges
+    no one); a prefill row is its admission slot, read once ``admit``
+    returns.  Only a row's valid tokens are charged (a prefill row's
+    ``lengths``, a verify row's ``valid``): a padding token's output is
+    never read, though it takes an expert's capacity in token order."""
+    def hook(eng):
+        pending = []
+
+        def charge(slot_uid):
+            for slot, e in pending:
+                uid = slot_uid(slot)
+                if uid is not None:
+                    per = drops.setdefault(uid, {})
+                    per[e] = per.get(e, 0) + 1
+            pending.clear()
+
+        def active_uid(slot):
+            req = eng.active.get(int(slot))
+            return req.uid if req is not None else None
+
+        def wrap(runner, name):
+            inner = getattr(runner, name)
+
+            def call(p, toks, *a, **k):
+                mark = len(log)
+                B, T = toks.shape[:2]
+                slots = (a[1].tolist() if name == "prefill"
+                         else list(range(B)))
+                valid = a[2].tolist() if name != "decode" else [1] * B
+                out = inner(p, toks, *a, **k)
+                start = len(pending)
+                for tok, experts in log[mark:]:
+                    pending.extend((slots[t // T], e)
+                                   for t, e in zip(tok, experts)
+                                   if t % T < valid[t // T])
+                if name == "verify":
+                    per = {}
+                    for _, e in pending[start:]:
+                        per[e] = per.get(e, 0) + 1
+                    verify_calls.append(per)
+                if name != "prefill":
+                    charge(active_uid)
+                return out
+
+            setattr(runner, name, call)
+
+        for runner in eng._level_runners:
+            for name in ("prefill", "decode", "verify"):
+                wrap(runner, name)
+        admit = eng.admit
+
+        def admitted(*a, **k):
+            out = admit(*a, **k)
+            charge(active_uid)
+            return out
+
+        eng.admit = admitted
+
+    return hook
+
+
+def mla_moe_spec(dev, model, params) -> dict:
+    """Speculation on the 4-layer MLA + MoE model (flash off): copy
+    traffic (``spec_traffic``'s first six prompts, ``MLA_NEW`` new tokens
+    each) unsped, then through n-gram and an oracle proposer (the unsped
+    run's own tokens) at K = ``MLA_SPEC_K``.  The verify window is the
+    reference's K + 1 tokens a slot, and its 4 x 5 rows set each expert's
+    capacity, so its drops differ from decode's; every call's drops are
+    charged to the requests in their rows (``_drop_log``,
+    ``_charge_drops``), in the unsped run too, and each verify call's
+    drops are counted by expert.  Gates: the oracle's
+    drafts accepted (random weights give n-gram lookup little to find:
+    its proposals are recorded, and its verify windows run K + 1 wide
+    all the same); every stream that met no drop in either run equals its
+    unsped stream, and at least one such stream exists; K1 launched, K2
+    and K3 never.  Records how many streams were held equal and the drops
+    of the others by expert."""
+    cfg = model.cfg
+    traffic = [(p, MLA_NEW, 0)
+               for p in spec_traffic(cfg.vocab_size)["copy"][:6]]
+    runs, drops, calls = {}, {}, {}
+    with _drop_log(cfg) as log:
+        for name in ("unsped", "ngram", "oracle"):
+            drops[name], calls[name] = {}, []
+            kw = {}
+            if name != "unsped":
+                kw = dict(spec_decode=("ngram" if name == "ngram" else
+                                       _OracleProposer(
+                                           runs["unsped"]["streams"])),
+                          draft_len=MLA_SPEC_K)
+            runs[name] = mla_serve(
+                model, params, traffic, dev, f"4-layer spec {name}",
+                hook=_charge_drops(log, drops[name], calls[name]), **kw)
+    base = runs["unsped"]["streams"]
+    out = {"runs": {}, "K": MLA_SPEC_K, "requests": len(traffic),
+           "unsped_drops": {str(u): d for u, d in drops["unsped"].items()}}
+    for name in ("ngram", "oracle"):
+        rec = runs[name]
+        need(name == "ngram" or rec["draft_accepted"] > 0,
+             f"mla spec {name}: no draft accepted")
+        clean = [u for u in base
+                 if u not in drops["unsped"] and u not in drops[name]]
+        differ = [u for u in base if rec["streams"][u] != base[u]]
+        need(not set(clean) & set(differ), f"mla spec {name}: streams "
+             f"{sorted(set(clean) & set(differ))} met no drop and differ "
+             f"from the unsped run")
+        need(clean, f"mla spec {name}: every stream met a drop")
+        by_expert = {}
+        for per in calls[name]:
+            for e, n in per.items():
+                by_expert[str(e)] = by_expert.get(str(e), 0) + n
+        out["runs"][name] = {
+            "verify_calls": len(calls[name]),
+            "verify_calls_with_drops": sum(1 for per in calls[name] if per),
+            "verify_drops_by_expert": by_expert,
+            "streams_held_equal": len(clean),
+            "streams_with_drops": len(base) - len(clean),
+            "streams_differing": len(differ),
+            "drops": {str(u): d for u, d in drops[name].items()},
+            **{k: rec[k] for k in ("seconds", "steps", "tokens_per_s",
+                                   "step_ms_median", "launches",
+                                   "draft_proposed", "draft_accepted",
+                                   "acceptance")}}
+    out["runs"]["unsped"] = {k: runs["unsped"][k] for k in (
+        "seconds", "steps", "tokens_per_s", "step_ms_median", "launches")}
+    emit("mla_moe_spec", **out)
+    return out
+
+
 def mla_runs(dev) -> dict:
     """deepseek-v3-671b at its published widths, cut to ``MLA_LAYERS``
     layers (3 dense + 1 MoE) with its MTP head (bf16 weights from seed 0,
@@ -3780,8 +3988,8 @@ def mla_runs(dev) -> dict:
     fault at ``kv_a`` in layer 0, ``q_a`` in layer 3 and ``expert_up``
     in layer 3 each flagged and recomputed to the clean streams; a
     ``global`` run; prefix sharing with chunks of 256 on the prefix
-    traffic; ``spec_decode`` raising ``NotImplementedError``); the
-    decode step's profile; the all-dense 3-layer stack
+    traffic; n-gram and oracle speculation at K = 4 on copy traffic
+    (``mla_moe_spec``)); the decode step's profile; the all-dense 3-layer stack
     (``mla_dense_stack``); the score (``mla_score``); K1 over a decode
     step's 2-D GEMMs against ``torch.matmul``; the observations
     ``absorb_row_order`` and ``norm_row_order`` at MLA's widths.  Frees
@@ -3792,7 +4000,6 @@ def mla_runs(dev) -> dict:
     from repro_torch.core.tree import tree_leaves
     from repro_torch.models.layers import ModelFault
     from repro_torch.models.model import Model, layer_tags
-    from repro_torch.serve.engine import ServeEngine
 
     t0 = time.perf_counter()
     batched = mla_k1_checks(dev)
@@ -3861,12 +4068,7 @@ def mla_runs(dev) -> dict:
     need(rec_glob["faults_detected"] == 0, "mla: global scheme false flag")
     need(rec_glob["launches"]["abft_matmul"] == 0,
          "mla: the global run launched K1")
-    try:
-        ServeEngine(model, params, slots=4, max_len=512,
-                    dtype=torch.bfloat16, device=dev, spec_decode="ngram")
-        fail("mla: spec_decode on the MoE stack did not raise")
-    except NotImplementedError as e:
-        need("MoE" in str(e), f"mla: spec_decode raised {e}")
+    spec4 = mla_moe_spec(dev, model, params)
     free_memory()
     shared4 = mla_serve(
         model, params, [(p, MLA_NEW, a) for p, _, a in
@@ -3913,6 +4115,7 @@ def mla_runs(dev) -> dict:
             "prompt_tokens", "prefill_tokens_computed",
             "prefix_tokens_shared", "cow_copies", "prefill_chunks",
             "step_ms_median", "launches")},
+        spec_4_layers=spec4,
         schemes=sorted({e.split(":")[1]
                         for e in rec_dense["selection_trace"]}),
         decode_device_ms=prof["device_ms_per_step"],
@@ -3921,7 +4124,7 @@ def mla_runs(dev) -> dict:
         seconds=time.perf_counter() - t0)
     emit("mla", **rec)
     return {"rec": rec, "batched": batched, "family_checks": fchecks,
-            "k1": t1, "stack": stack}
+            "k1": t1, "stack": stack, "spec": spec4}
 
 
 def _add_mla(kernels, mla) -> None:
@@ -3956,7 +4159,407 @@ def _add_mla(kernels, mla) -> None:
                 "serve_paged": rec["paged_launches"][key],
                 "score": rec["score"]["launches"].get(key, 0),
                 **{f"dense_stack {n}": r["launches"][key]
-                   for n, r in mla["stack"].items()}}
+                   for n, r in mla["stack"].items()},
+                **{f"4-layer {n}": r["launches"][key]
+                   for n, r in mla["spec"]["runs"].items()}}
+
+
+# ------------------------------------------------------------------ ssm
+
+SSM_ARCHS = ("mamba2-1.3b", "jamba-v0.1-52b")
+# jamba at its published widths cut to 8 of its 32 layers: one unit of
+# its interleave (mamba:moe, mamba:dense x 3 around attn:moe at 4), so
+# every layer kind it has runs (13.3e9 parameters, 26.5 GB in bf16; the
+# whole model's 102.9 GB does not fit the card); mamba2-1.3b runs whole
+JAMBA_LAYERS = 8
+# the score's logits gate: error against the f32 run (routed alike), as
+# a share of the logits' scale (MLA_SCORE_TOL's bound)
+SSM_SCORE_TOL = 0.05
+# decode-time faults a stack's engine cell recovers: (layer, site)
+SSM_FAULTS = {"mamba2-1.3b": ((1, "ssm_in"), (47, "ssm_out")),
+              "jamba-v0.1-52b": ((0, "ssm_in"), (2, "expert_up"),
+                                 (4, "qkv"))}
+
+
+def ssm_config(arch):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch.startswith("jamba"):
+        cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS)
+    return cfg
+
+
+def _ssm_states(eng) -> list:
+    """Copies of every per-slot state leaf of ``eng``'s cache."""
+    return [t.clone() for layer, st in zip(eng.cache, eng.model.state_layers)
+            if st for t in layer.values()]
+
+
+def _states_equal(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def ssm_batched_checks(dev, cfg, params) -> dict:
+    """K1 batched over jamba's 16 experts (K, N = 4096, 14336 and 14336,
+    4096; the model's own layer-0 weights), bf16 mode 1s, against its
+    plain version at the capacities of a decode step (C = 4) and of an
+    admission of 4 x 256 tokens (``moe.capacity``: 160), one launch a
+    call, with a value fault flagged in every expert at its block and row
+    (``_moe_fault_check``); then the layer's three expert GEMMs timed at
+    both (``moe_k1_timing``).  Tolerances as ``moe_k1_checks``."""
+    from repro_torch.models.moe import capacity
+
+    ffn = params["layers"][0]["ffn"]
+    caps = (capacity(cfg, 4), capacity(cfg, 4 * 256))
+    gen = torch.Generator(device=dev).manual_seed(37)
+    ratio, worst, cases = 0.0, 0.0, 0
+    for name in ("w_up", "w_down"):
+        for C in caps:
+            err, r = _batched_case(dev, gen, ffn[name], C,
+                                   f"jamba {name} C={C}")
+            worst, ratio, cases = max(worst, err), max(ratio, r), cases + 1
+    need(ratio < 1, f"ssm batched K1 clean residual at {ratio} of its "
+         f"threshold")
+    free_memory()
+    rec = {"E": cfg.n_experts, "capacities": caps, "cases": cases,
+           "max_abs_err_y": worst,
+           "worst_clean_residual_over_threshold": ratio}
+    emit("ssm_k1_batched_check", arch=cfg.name, **rec)
+    return {"checks": rec,
+            "timing": moe_k1_timing(dev, params, caps,
+                                    phase="ssm_k1_batched_timing")}
+
+
+def ssm_score(dev, model, params) -> dict:
+    """``Model.forward`` at 1 x 1024 under ``IntensityGuidedPolicy`` with
+    ``flash_attention`` on: logits finite, (1, 1024, V) f32, no flag; K2
+    once an attention layer (none in mamba2), K1 batched three times a
+    MoE layer.  Held against the same weights run in f32 layer by layer
+    (``_f32_layerwise_routed``: plain f32 products, MoE layers routed as
+    this run routes, so both drop the same tokens at capacity; the head
+    in column chunks): the logits within ``SSM_SCORE_TOL`` of their scale
+    at every position; the argmax agreement and, with MoE layers, the
+    experts the f32 run's own probabilities pick (``_routing_diff``)
+    recorded."""
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import IntensityGuidedPolicy
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.kernels import abft_matmul, flash_attention
+    from repro_torch.models.layers import LayerCtx
+    from repro_torch.models.model import layer_tags
+
+    K1, K1B = abft_matmul.KERNEL, abft_matmul.BATCHED
+    K2 = flash_attention.FULL_KERNEL
+    cfg = model.cfg
+    tags = layer_tags(cfg)
+    n_moe = sum(t.split(":")[1] == "moe" for t in tags)
+    n_attn = sum(t.startswith("attn") for t in tags)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, size=(SCORE_B, SCORE_L)).astype(np.int64)).to(dev)
+    ctx = LayerCtx(abft=ABFTConfig.from_policy(
+        IntensityGuidedPolicy(), hardware=NVIDIA_H100_SXM,
+        flash_attention=True))
+    torch.cuda.synchronize()
+    K1.launches = K1B.launches = K2.launches = 0        # THIS run's
+    t = time.perf_counter()
+    with torch.no_grad(), _routing_log() as routes:
+        out = model.forward(params, {"tokens": tokens}, ctx, device=dev)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    launches = {"abft_matmul": K1.launches,
+                "abft_matmul_batched": K1B.launches,
+                "flash_attention": K2.launches}
+    lg = out.logits
+    need(lg.shape == (SCORE_B, SCORE_L, cfg.vocab_size)
+         and lg.dtype == torch.float32, f"ssm score: logits "
+         f"{tuple(lg.shape)}")
+    need(bool(torch.isfinite(lg).all()), f"{cfg.name} score: non-finite "
+         f"logits")
+    need(not bool(out.flag), f"{cfg.name} score: a clean forward flagged")
+    need(K2.launches == n_attn, f"{cfg.name} score: K2 launched "
+         f"{K2.launches} times, expected {n_attn}")
+    need(K1B.launches == 3 * n_moe and len(routes) == n_moe,
+         f"{cfg.name} score: batched K1 launched {K1B.launches} times, "
+         f"{len(routes)} MoE layers routed; expected {3 * n_moe}, {n_moe}")
+    need(K1.launches > 0, f"{cfg.name} score: K1 never launched")
+    with torch.no_grad():
+        h32, _, routes_32 = _f32_layerwise_routed(model, params, tokens,
+                                                  routes)
+        head = params["lm_head"] if "lm_head" in params \
+            else params["embed"].t()
+        err = torch.zeros(lg.shape[:2], device=dev)
+        best32 = torch.full(lg.shape[:2], -float("inf"), device=dev)
+        arg32 = torch.zeros(lg.shape[:2], dtype=torch.long, device=dev)
+        for c0 in range(0, cfg.vocab_size, 16384):
+            l32 = h32 @ head[:, c0:c0 + 16384].float()
+            err = torch.maximum(err, (lg[..., c0:c0 + 16384] - l32)
+                                .abs().amax(-1))
+            m, a = l32.max(-1)
+            arg32 = torch.where(m > best32, a + c0, arg32)
+            best32 = torch.maximum(best32, m)
+        del h32, l32
+    scale = lg.abs().max().item()
+    worst = err.max().item()
+    rec = dict(B=SCORE_B, L=SCORE_L, launches=launches, ms=ms,
+               tokens_per_s=SCORE_B * SCORE_L / (ms / 1e3),
+               aux_loss=float(out.aux_loss), logits_scale=scale,
+               logits_max_abs_err_vs_f32=worst,
+               tolerance=SSM_SCORE_TOL * scale,
+               argmax_agreement_vs_f32=(lg.argmax(-1) == arg32).float()
+               .mean().item())
+    if n_moe:
+        rec["routing_vs_f32_own"] = _routing_diff(routes, routes_32, err,
+                                                  SCORE_L)
+    del out, lg
+    emit("ssm_score", arch=cfg.name, **rec)
+    need(worst <= SSM_SCORE_TOL * scale, f"{cfg.name} score: logits vs "
+         f"f32 {worst} > {SSM_SCORE_TOL} x scale {scale}")
+    return rec
+
+
+def ssm_arch(dev, arch) -> dict:
+    """One SSM-family config at published widths (mamba2-1.3b whole,
+    jamba-v0.1-52b cut to ``JAMBA_LAYERS``; bf16 weights from seed 0,
+    made on the card): the plan; K1 at every 2-D site against its plain
+    version (``family_checks``; faults at ``ssm_in_x`` and ``ssm_out``),
+    K2 at the attention heads and K1 batched over the experts
+    (``ssm_batched_checks``) where the stack has them; serving (4 slots,
+    max_len 512, 8 requests of 16-256 tokens, 16 new each, flash on):
+    dense and paged streams equal, no clean flag, K1 every run, K3 once an
+    attention layer a decode step (never in mamba2), K1 batched three
+    times a MoE layer a decode step; each fault of ``SSM_FAULTS`` at
+    decode step 3 detected, retried and giving the clean streams, with
+    every slot's ``ssm``/``conv_*`` state after the run bit-equal to the
+    clean run's; a sticky ``ssm_out`` fault evicting its residents with
+    ``hard_fault:decode``; ``global`` clean without K1; a protected
+    campaign corrected to the clean streams and an unprotected one whose
+    shadow runs record ``tokens_match`` and ``state_match``; the decode
+    profile; K3 held layer by layer on the engine's cache (``k3_timing``);
+    the score (``ssm_score``); K1 over a decode step's 2-D GEMMs and K2 at
+    the score's shape timed.  Frees its weights before it returns."""
+    from repro_torch.core.faults import FaultModel, FaultSpec
+    from repro_torch.core.policy import FixedPolicy, IntensityGuidedPolicy
+    from repro_torch.core.schemes import Scheme
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.models.model import Model, layer_tags
+
+    t0 = time.perf_counter()
+    cfg = ssm_config(arch)
+    model = Model(cfg)
+    tags = layer_tags(cfg)
+    n_moe = sum(t.split(":")[1] == "moe" for t in tags)
+    n_attn = sum(t.startswith("attn") for t in tags)
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params, prompts = engine_inputs(dev, cfg=cfg)
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    emit("ssm_plan", arch=arch, layers=cfg.n_layers, tags=tags,
+         init_s=time.perf_counter() - t1, weights_gb=weights / 1e9,
+         **family_plan(cfg))
+    batched = ssm_batched_checks(dev, cfg, params) if n_moe else None
+    fchecks = family_checks(dev, cfg, params, k2=bool(n_attn))
+    emit("ssm_family_check", arch=arch, **fchecks)
+
+    def serve(cache_kind="dense", policy=None, fault_at=None, label="",
+              reqs=None, new=16):
+        return engine_serve(model, params, prompts if reqs is None else reqs,
+                            dev, cache_kind, policy or IntensityGuidedPolicy(),
+                            fault_at=fault_at, label=f"{arch} {label}",
+                            phase="ssm_engine", max_new_tokens=new)
+
+    serve(label="warmup", reqs=prompts[:1], new=2)
+    free_memory()
+    dense, rec_dense, eng = serve(label="dense")
+    clean_state = _ssm_states(eng)
+    prof = decode_profile(dev, {"engine": eng, "params": params,
+                                "prompts": prompts, "dense": rec_dense})
+    emit("ssm_decode_profile", arch=arch, **prof)
+    t3 = k3_timing(dev, eng, prompts, long_context=False) \
+        if n_attn else None
+    del eng
+    free_memory()
+    paged, rec_paged, _ = serve("paged", label="paged")
+    free_memory()
+    for rec in (rec_dense, rec_paged):
+        lc = rec["launches"]
+        need(lc["abft_matmul"] > 0, f"{arch} {rec['label']}: K1 never "
+             f"launched")
+        need(lc["flash_decode"] == n_attn * rec["decode_steps"],
+             f"{arch} {rec['label']}: K3 launched {lc['flash_decode']} "
+             f"times over {rec['decode_steps']} decode steps, expected "
+             f"{n_attn} a step")
+        need(n_attn or lc["flash_attention"] == 0,
+             f"{arch} {rec['label']}: K2 launched without attention")
+        need(not n_moe or rec["batched_launches_per_step"] == {
+            str(3 * n_moe): rec["decode_steps"]},
+             f"{arch} {rec['label']}: batched K1 launches a decode step "
+             f"{rec['batched_launches_per_step']}, expected {3 * n_moe}")
+        need(rec["faults_detected"] == 0, f"{arch} {rec['label']}: a clean "
+             f"run raised a flag")
+    need(paged == dense, f"{arch}: paged streams differ from dense")
+    faults = {}
+    for layer, site in SSM_FAULTS[arch]:
+        fault = ModelFault.at(layer, site, FaultSpec.value(0, 1, 1e5))
+        faulted, rec_fault, eng = serve(fault_at=(3, fault),
+                                        label=f"dense_{site}_l{layer}_fault")
+        same_state = _states_equal(_ssm_states(eng), clean_state)
+        del eng
+        free_memory()
+        need(rec_fault["faults_detected"] >= 1
+             and rec_fault["retries"] >= 1,
+             f"{arch}: {site} (layer {layer}) fault not detected and "
+             f"retried")
+        need(faulted == dense, f"{arch}: the {site} fault run's streams "
+             f"differ from the clean run")
+        need(same_state, f"{arch}: after the {site} fault run a slot's "
+             f"state differs from the clean run's")
+        faults[f"{site}_l{layer}"] = dict(
+            faults_detected=rec_fault["faults_detected"],
+            retries=rec_fault["retries"], state_equal=True)
+    glob, rec_glob, _ = serve(policy=FixedPolicy(Scheme.GLOBAL),
+                              label="dense_global")
+    free_memory()
+    need(rec_glob["faults_detected"] == 0, f"{arch}: global false flag")
+    need(rec_glob["launches"]["abft_matmul"] == 0,
+         f"{arch}: the global run launched K1")
+
+    def fm(**kw):
+        base = dict(transient_rate=CAMPAIGN_RATE, seed=0,
+                    layers=cfg.n_layers, dtype=torch.float32,
+                    magnitude=CAMPAIGN_MAG, sites=("ssm_in", "ssm_out"))
+        base.update(kw)
+        return FaultModel(**base)
+
+    def run(label, **kw):
+        out = _serve_run(model, params, prompts, dev, f"{arch} {label}",
+                         **kw)
+        emit("ssm_campaign", **out["rec"])
+        free_memory()
+        return out
+
+    perm = run("permanent", policy=FixedPolicy(Scheme.BLOCK_1S),
+               fault_model=fm(transient_rate=0.0, permanent_rate=0.2,
+                              permanent_duration=4, sites=("ssm_out",)))
+    prc = perm["rec"]
+    errs = {r.error for r in perm["reqs"] if r.error}
+    need(prc["hard_faults"] >= 1 and prc["evictions"] >= 1
+         and errs == {"hard_fault:decode"},
+         f"{arch}: sticky fault did not become a hard fault: {prc} {errs}")
+    prot = run("protected", fault_model=fm())
+    pr = prot["rec"]
+    need(pr["faults_injected"] > 0 and pr["sdc_faults"] == 0
+         and _accounted(pr), f"{arch} protected campaign: {pr}")
+    need(prot["results"] == dense, f"{arch}: the protected campaign's "
+         f"streams differ from the clean run")
+    off = run("abft_off", abft_on=False, fault_model=fm(), classify=True)
+    orc = off["rec"]
+    log = off["eng"].stats.injection_log
+    need(orc["faults_injected"] > 0 and _accounted(orc)
+         and orc["faults_detected"] == 0
+         and all("state_match" in e and "tokens_match" in e for e in log),
+         f"{arch}: unprotected campaign not shadow-classified: {orc}")
+    campaign = dict(
+        permanent=dict(hard_faults=prc["hard_faults"],
+                       evictions=prc["evictions"]),
+        protected={k: pr[k] for k in ("faults_injected", "faults_corrected",
+                                      "seconds")},
+        abft_off={**{k: orc[k] for k in ("faults_injected", "sdc_faults",
+                                         "masked_faults", "shadow_runs",
+                                         "shadow_ms")},
+                  "state_match": sum(bool(e["state_match"]) for e in log),
+                  "tokens_match": sum(bool(e["tokens_match"])
+                                      for e in log)})
+    del perm, prot, off
+    free_memory()
+    score = ssm_score(dev, model, params)
+    free_memory()
+    t1 = k1_timing(dev, params, 4, arch=arch)
+    t2 = (k2_timing(dev, (SCORE_B, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.resolved_head_dim), SCORE_L, arch=arch)
+          if n_attn else None)
+    peak = torch.cuda.max_memory_allocated()
+    state_bytes = sum(t.numel() * t.element_size() for t in clean_state)
+    del params, clean_state
+    free_memory()
+    agree_g = float(np.mean([a == b for k in dense
+                             for a, b in zip(dense[k], glob[k])]))
+    rec = dict(
+        arch=arch, layers=cfg.n_layers, tags=sorted(set(tags)),
+        weights_gb=weights / 1e9, state_gb=state_bytes / 1e9,
+        decode_bound_ms=(weights + 2 * state_bytes) / HBM_BW * 1e3,
+        tokens_per_s=rec_dense["tokens_per_s"],
+        paged_tokens_per_s=rec_paged["tokens_per_s"],
+        decode_step_ms_median=rec_dense["decode_step_ms_median"],
+        paged_decode_step_ms_median=rec_paged["decode_step_ms_median"],
+        prefill_ms_per_admission=rec_dense["prefill_ms"],
+        launches=rec_dense["launches"],
+        paged_launches=rec_paged["launches"],
+        batched_launches_per_step=rec_dense["batched_launches_per_step"],
+        dense_equals_paged=True, faults_recomputed=faults,
+        campaign=campaign, global_tokens_per_s=rec_glob["tokens_per_s"],
+        dense_vs_global_tokens=agree_g,
+        schemes=sorted({e.split(":")[1]
+                        for e in rec_dense["selection_trace"]}),
+        decode_device_ms=prof["device_ms_per_step"],
+        decode_idle_share=prof["idle_share"],
+        kernels_per_decode_step=prof["kernels_per_step"],
+        k1_decode_step=t1, score=score, peak_memory_gb=peak / 1e9,
+        seconds=time.perf_counter() - t0)
+    emit("ssm", **rec)
+    return {"rec": rec, "checks": fchecks, "batched": batched, "k1": t1,
+            "k2": t2, "k3": t3}
+
+
+def ssm_runs(dev) -> dict:
+    """mamba2-1.3b, then jamba-v0.1-52b (``ssm_arch``)."""
+    out = {}
+    for arch in SSM_ARCHS:
+        out[arch] = ssm_arch(dev, arch)
+        free_memory()
+    return out
+
+
+def _add_ssm(kernels, ssm) -> None:
+    """Each kernel's line gets ``by_arch`` rows for the SSM family: its
+    launches on the dense serving run (K1, K3) or the score (K2), and its
+    time, plain time, bound and library time at that arch's shapes (K1: a
+    decode step's 2-D GEMMs, and jamba's expert GEMMs at C = 4 and 160;
+    K2: the score's attention layer; K3: the decode step's layer on the
+    engine's cache).  mamba2 has no attention: K2 and K3 launch 0 times
+    and have no shape to time (null)."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for entry in kernels:
+        rows = entry.setdefault("by_arch", {})
+        for arch, out in ssm.items():
+            rec = out["rec"]
+            if entry["name"] == "abft_matmul":
+                row = {"launches": rec["launches"]["abft_matmul"],
+                       "batched_launches":
+                           rec["launches"]["abft_matmul_batched"],
+                       "max_abs_err": out["checks"]["k1_max_abs_err"],
+                       **{k: out["k1"][k] for k in keys}}
+                if out["batched"] is not None:
+                    row["batched_max_abs_err"] = \
+                        out["batched"]["checks"]["max_abs_err_y"]
+                    row["by_shape"] = {
+                        name: {"launches": t["launches"],
+                               **{k: t[k] for k in keys}}
+                        for name, t in out["batched"]["timing"].items()}
+            else:
+                flash = entry["name"] == "flash_attention"
+                t = out["k2"] if flash else out["k3"]
+                n = (rec["score"]["launches"]["flash_attention"] if flash
+                     else rec["launches"]["flash_decode"])
+                row = {"launches": n,
+                       "max_abs_err": None if t is None
+                       else t["max_abs_err"],
+                       **{k: None if t is None else t[k] for k in keys}}
+            rows[arch] = row
 
 
 # ------------------------------------------------------------------ timing
@@ -3972,17 +4575,21 @@ def _gemm_bound(m, k, n, in_bytes, out_bytes, gm_gn_rows):
 
 def _step_gemm_groups(params) -> dict:
     """A step's 2-D GEMM weights, grouped by shape: GQA's ``q``, ``kv``
-    and ``o`` or MLA's ``q_a``, ``q_b``, ``kv_a`` and ``o``; the dense
+    and ``o``, MLA's ``q_a``, ``q_b``, ``kv_a`` and ``o``, Mamba2's
+    ``ssm_in_zx``, ``ssm_in_bc``, ``ssm_in_dt`` and ``ssm_out``; the dense
     FFNs' ``up_gate`` and ``down``; the MoE layers' ``router`` (f32 out)
     and shared experts' ``shared_up_gate`` and ``shared_down``; the head.
     The expert GEMMs (batched) are timed apart."""
     layers = params["layers"]
     names = {"q": ("wq",), "kv": ("wk", "wv"), "q_a": ("wq_a",),
-             "q_b": ("wq_b",), "kv_a": ("wkv_a",), "o": ("wo",)}
+             "q_b": ("wq_b",), "kv_a": ("wkv_a",), "o": ("wo",),
+             "ssm_in_zx": ("in_z", "in_x"), "ssm_in_bc": ("in_bc",),
+             "ssm_in_dt": ("in_dt",), "ssm_out": ("out_proj",)}
     groups = {g: [l["mixer"][w] for l in layers for w in ws
                   if w in l["mixer"]] for g, ws in names.items()}
-    dense = [l["ffn"] for l in layers if "router" not in l["ffn"]]
-    moe = [l["ffn"] for l in layers if "router" in l["ffn"]]
+    ffns = [l["ffn"] for l in layers if "ffn" in l]
+    dense = [f for f in ffns if "router" not in f]
+    moe = [f for f in ffns if "router" in f]
     groups["up_gate"] = [f[w] for f in dense for w in ("up", "gate")]
     groups["down"] = [f["down"] for f in dense]
     groups["router"] = [f["router"] for f in moe]
@@ -4005,13 +4612,14 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
     launch overhead of the eager loop.  The numbers behind two route
     choices (``fork``): at decode (bf16, M <= 8) the row-major GEMMs,
     which take the tensor-core pass 1, are also timed on the GEMV pass 1
-    forced in their place; in f32 above 8 rows (the train step) every
+    forced in their place where it can take them (not the tied head's
+    columns, nor N < 64); in f32 above 8 rows (the train step) every
     GEMM, which takes the SIMT pass 1, also on the CUDA-core tiles.
     ``one_slice``: the kernel runs one K slice at any M, as the serving
     prefill paths run it, and no fork is timed; ``split_rows``: the K
     split is that row count's, as the speculative verify step runs it
     (``abft_matmul.plan``), and no fork is timed."""
-    from repro_torch.kernels.abft_matmul import abft_matmul_kernel
+    from repro_torch.kernels.abft_matmul import abft_matmul_kernel, routes
     from repro_torch.kernels.ref import abft_matmul_ref
 
     groups = _step_gemm_groups(params)
@@ -4058,8 +4666,7 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
                "plain_ms": timed_graph(plain, iters=2),
                "library_ms": timed_graph(lib, iters=5),
                "bound_ms": b_ms * len(ws), "bound_by": by}
-        if forced and not (forced == "gemv" and name in ("head",
-                                                         "router")):
+        if forced and forced in routes(x, ws[0], bn, "1s"):
             def kern_forced():
                 for w in ws:
                     abft_matmul_kernel(x, w, **kw, force=forced)
@@ -4103,7 +4710,8 @@ def k3_timing(dev, eng, prompts, long_context: bool = True) -> dict:
     )
 
     cfg = eng.model.cfg
-    caches = eng.cache
+    caches = [c for c, st in zip(eng.cache, eng.model.state_layers)
+              if not st]               # the attention layers' caches
     B = 4
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     lengths = torch.tensor([len(p) + 15 for p in prompts[:B]],
@@ -4483,6 +5091,12 @@ def main(argv=None) -> int:
         mla = mla_runs(dev)
         if kernels is not None:
             _add_mla(kernels, mla)
+    if "ssm" in phases:
+        eng_out = fwd = train_params = camp = tr = fam = moe = mla = None
+        free_memory()
+        ssm = ssm_runs(dev)
+        if kernels is not None:
+            _add_ssm(kernels, ssm)
     for line in smi:
         print(line)
     if kernels is not None:

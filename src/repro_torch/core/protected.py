@@ -107,7 +107,8 @@ _BLOCK_MODES = {"block_1s": "1s", "block_2s": "2s", "replica": "replica"}
 
 def protected_matmul_batched(x, w, cfg: ABFTConfig = ABFTConfig(), *,
                              out_dtype=None, fault: FaultSpec | None = None,
-                             site: str = "unlabeled"):
+                             site: str = "unlabeled",
+                             split_rows: int | None = None):
     """``protected_matmul`` of E expert GEMMs x (E, C, k) @ w (E, k, n) in
     one call: the reference's ``jax.vmap`` of it over an MoE layer's
     experts.  The scheme is the one the policy picks for one expert's
@@ -116,7 +117,8 @@ def protected_matmul_batched(x, w, cfg: ABFTConfig = ABFTConfig(), *,
     ``none`` and ``global`` a batched plain product, ``global`` checked
     against each expert's weight checksums.  The fault is not batched: it
     lands in every expert.  Schemes registered beyond the built-in ones
-    have no batched executor and raise.  Returns (y (E, C, n), flag: any
+    have no batched executor and raise.  ``split_rows``: K1's
+    (``ops.abft_matmul_batched``).  Returns (y (E, C, n), flag: any
     expert's)."""
     out_dtype = out_dtype or x.dtype
     name = scheme_name_of(cfg.resolve(_gemm_dims(x[0], w[0], out_dtype)))
@@ -126,7 +128,7 @@ def protected_matmul_batched(x, w, cfg: ABFTConfig = ABFTConfig(), *,
         y, chk = ops.abft_matmul_batched(
             x, w, mode=_BLOCK_MODES[name], blocks=cfg.blocks,
             out_dtype=out_dtype, fault=fault, c_factor=cfg.c_factor,
-            one_slice=cfg.one_slice)
+            one_slice=cfg.one_slice, split_rows=split_rows)
         return y, chk.flag
     if name not in ("none", "global"):
         raise NotImplementedError(

@@ -137,14 +137,19 @@ def abft_matmul(x, w, *, mode: str = "1s", blocks: BlockShape = BlockShape(),
 def abft_matmul_batched(x, w, *, mode: str = "1s",
                         blocks: BlockShape = BlockShape(), out_dtype=None,
                         fault: FaultSpec | None = None,
-                        c_factor: float = 16.0, one_slice: bool = False):
+                        c_factor: float = 16.0, one_slice: bool = False,
+                        split_rows: int | None = None):
     """``y[e] = x[e] @ w[e]`` for every expert e, plus the fused check, in
     one K1 launch (CUDA operands) or through the batched plain version
     (CPU operands).  x: (E, m, k) with unit column stride, w: (E, k, n).
     Blocks are clamped to one expert's GEMM (m, k, n), as under the
     reference's vmap; the residual is per (expert, block, row) for
     '1s'/'replica', per (expert, block) for '2s'; the flag is any
-    expert's.  The fault's (row, col) lands in every expert."""
+    expert's.  The fault's (row, col) lands in every expert.
+    ``split_rows`` (a speculative verify step: the decode step's expert
+    capacity): K1 sums every row in the order of an expert GEMM of that
+    many rows, where both take one route (``abft_matmul.plan``); the
+    plain version ignores it."""
     out_dtype = out_dtype or x.dtype
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
@@ -158,8 +163,13 @@ def abft_matmul_batched(x, w, *, mode: str = "1s",
     bn = _clamp_block(n0, blocks.bn)
     fidx = (f.row // bm, f.col // bn, f.row % bm, f.col % bn,
             int(f.enabled), f.bit)
+    if split_rows is not None and (
+            not x.is_cuda or split_rows >= m0
+            or route(x[0, :split_rows], w[0], bn, mode)
+            != route(x[0], w[0], bn, mode)):
+        split_rows = None
     y, res, bnd = _AbftMatmul.apply(x, w, fidx, f.delta, mode, bm, bk, bn,
-                                    out_dtype, one_slice, None)
+                                    out_dtype, one_slice, split_rows)
     tau = ATOL + tolerance_scale(_round_up(k0, bk), c=c_factor) * bnd
     return y, CheckResult(flag=flag_from(res, tau), residual=res,
                           threshold=tau)

@@ -13,9 +13,12 @@
 
 ``--arch`` takes every registered config; the port serves the dense
 family (llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b), the MoE
-qwen2-moe-a2.7b and the MLA deepseek-v3-671b, and exits with the
-``NotImplementedError`` message on the others (and on ``--spec-decode``
-with an MoE stack).  Runs on the CUDA
+qwen2-moe-a2.7b, the MLA deepseek-v3-671b, the SSM mamba2-1.3b and the
+hybrid jamba-v0.1-52b, and exits with the ``NotImplementedError`` message
+on the others (whisper-tiny, llama-3.2-vision-11b); a stack with a Mamba2
+layer exits with the reference's ``ValueError`` message on
+``--prefix-sharing``, ``--chunk-tokens`` and ``--spec-decode``.  Runs on
+the CUDA
 device unless ``--device cpu`` is given.  Block schemes
 always run the fused ABFT kernel on the card (its plain version on the
 CPU).  Weights are random, made from ``--seed``.
@@ -230,7 +233,7 @@ def main(argv=None) -> int:
             policy=RecoveryPolicy(
                 max_retries=args.max_retries,
                 evict_on_hard_fault=not args.raise_on_hard_fault))
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         raise SystemExit(f"error: {e}")
     if args.plan_out:
         with open(args.plan_out, "w") as fh:

@@ -5,7 +5,9 @@
       --abft auto|global|block_1s|off [--ckpt-dir DIR] [--resume]
 
 ``--arch`` takes every registered config and exits with the
-``NotImplementedError`` message on those the port does not run.  Runs on
+``NotImplementedError`` message on those the port does not run (whisper-tiny,
+llama-3.2-vision-11b); mamba2-1.3b and jamba-v0.1-52b train through the
+Mamba2 mixer's full-sequence forward.  Runs on
 the CUDA device unless ``--device cpu`` is given.  Params are f32
 (the reference trains in f32 too), random from ``--seed``.  Every
 block-protected forward GEMM runs the fused ABFT kernel on the card; there

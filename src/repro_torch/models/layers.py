@@ -81,14 +81,15 @@ def dense(x, w, ctx: LayerCtx, site: str, b=None, out_dtype=None,
 
 
 def batched_dense(x_e, w_e, ctx: LayerCtx, site: str,
-                  tag: str | None = None):
+                  tag: str | None = None, split_rows: int | None = None):
     """Per-expert protected GEMMs x_e (E, C, D) @ w_e (E, D, F) in one
     call (the reference's ``moe._batched_dense``, a ``jax.vmap`` of
     ``dense``): the scheme of one expert's GEMM, the site's fault in
-    every expert.  Returns (y (E, C, F), flag: any expert's)."""
+    every expert; ``split_rows`` K1's (``ops.abft_matmul_batched``).
+    Returns (y (E, C, F), flag: any expert's)."""
     return protected_matmul_batched(x_e, w_e, ctx.abft,
                                     fault=_site_fault(ctx, site),
-                                    site=tag or site)
+                                    site=tag or site, split_rows=split_rows)
 
 
 def or_flags(*flags):
@@ -117,6 +118,13 @@ def norm(x, p, kind: str, eps: float):
     if kind == "layernorm":
         return layer_norm(x, p["w"], p["b"], eps)
     return rms_norm(x, p["w"], eps)
+
+
+def gated_rms_norm(x, z, w, eps: float = 1e-6):
+    """Mamba2's output norm: ``rms_norm(x * silu(z))``, the gate taken in
+    f32 and cast to x's dtype before the product."""
+    gate = torch.nn.functional.silu(z.to(F32)).to(x.dtype)
+    return rms_norm(x * gate, w, eps)
 
 
 # ---------------------------------------------------------------- rope

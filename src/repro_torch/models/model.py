@@ -1,8 +1,10 @@
-"""Model assembly for GQA and MLA decoder stacks with dense or MoE FFNs
-(port of the ``{attn,mla}:{dense,moe}:0`` part of ``repro.models.model``:
-llama3.2-1b, the dense family qwen3-14b, stablelm-1.6b and qwen1.5-32b,
-qwen2-moe-a2.7b and deepseek-v3-671b with its multi-token prediction head;
-mixed dense + MoE stacks such as ``first_dense_layers=3``).
+"""Model assembly for decoder stacks of GQA, MLA and Mamba2 mixers with
+dense, MoE or no FFNs (port of the ``{attn,mla,mamba}:{dense,moe,none}:0``
+part of ``repro.models.model``: llama3.2-1b, the dense family qwen3-14b,
+stablelm-1.6b and qwen1.5-32b, qwen2-moe-a2.7b, deepseek-v3-671b with its
+multi-token prediction head, the SSM stack mamba2-1.3b and the hybrid
+jamba-v0.1-52b; mixed dense + MoE stacks such as
+``first_dense_layers=3``).
 
 The reference scans stacked per-segment params (``seg_plan``); the port
 keeps one dict of tensors per layer and runs the stack as a Python loop.
@@ -23,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     LayerCtx,
@@ -84,40 +87,39 @@ def seg_plan(cfg: ModelConfig) -> list:
     return [Segment(unit=tuple(tags), repeats=1)]
 
 
-TAGS = ("attn:dense:0", "attn:moe:0", "mla:dense:0", "mla:moe:0")
+TAGS = ("attn:dense:0", "attn:moe:0", "mla:dense:0", "mla:moe:0",
+        "mamba:none:0", "mamba:dense:0", "mamba:moe:0")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs GQA or MLA decoders with SwiGLU FFNs, dense or MoE
-    (routed experts with optional shared ones) in any mix: RMSNorm or
-    LayerNorm, with or without q/k norm, QKV biases and partial rotary,
-    and at most one multi-token prediction head (llama3.2-1b, qwen3-14b,
-    stablelm-1.6b, qwen1.5-32b, qwen2-moe-a2.7b, deepseek-v3-671b); MLA
-    needs its latent ranks and head dims.  Anything else (SSM,
-    encoder-decoder, cross-attention, MTP deeper than 1, TP head padding)
-    is not ported."""
+    """The port runs GQA, MLA or Mamba2 decoders with SwiGLU FFNs, dense,
+    MoE (routed experts with optional shared ones) or none, in any mix:
+    RMSNorm or LayerNorm, with or without q/k norm, QKV biases and partial
+    rotary, and at most one multi-token prediction head (llama3.2-1b,
+    qwen3-14b, stablelm-1.6b, qwen1.5-32b, qwen2-moe-a2.7b,
+    deepseek-v3-671b, mamba2-1.3b, jamba-v0.1-52b); MLA needs its latent
+    ranks and head dims, Mamba2 its state and head dims.  Anything else
+    (encoder-decoder, cross-attention, vision inputs, MTP deeper than 1,
+    TP head padding) is not ported."""
     mla_dims = (cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_nope_head_dim,
                 cfg.qk_rope_head_dim, cfg.v_head_dim)
     ok = (cfg.attention in ("gqa", "mla") and cfg.act == "silu"
           and (cfg.attention == "gqa" or all(d > 0 for d in mla_dims))
           and cfg.norm in ("rmsnorm", "layernorm")
           and not cfg.pad_heads_to and not cfg.pad_kv_heads_to
-          and not cfg.is_encoder_decoder and cfg.mtp_depth <= 1
-          and all(t in TAGS for t in layer_tags(cfg)))
+          and not cfg.is_encoder_decoder and not cfg.vision_dim
+          and cfg.mtp_depth <= 1
+          and all(t in TAGS for t in layer_tags(cfg))
+          and (cfg.ssm_state > 0 and cfg.ssm_head_dim > 0
+               and cfg.d_inner % cfg.ssm_head_dim == 0
+               or not any(t.startswith("mamba") for t in layer_tags(cfg))))
     if not ok:
         raise NotImplementedError(
             f"architecture {cfg.name!r} is not ported: the PyTorch port "
-            f"serves and trains GQA and MLA decoders with dense or MoE "
-            f"FFNs (llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b, "
-            f"qwen2-moe-a2.7b, deepseek-v3-671b)")
-
-
-def cache_leaf(cache) -> torch.Tensor:
-    """The first layer's first cache leaf.  Every leaf of every layer
-    (GQA's ``k`` and ``v``, MLA's ``latent``) leads with the same two dims,
-    (slots, depth) or (blocks, block size), which is what the cell indices
-    and the verify window are built from."""
-    return next(iter(cache[0].values()))
+            f"serves and trains GQA, MLA and Mamba2 decoders with dense, "
+            f"MoE or no FFNs (llama3.2-1b, qwen3-14b, stablelm-1.6b, "
+            f"qwen1.5-32b, qwen2-moe-a2.7b, deepseek-v3-671b, mamba2-1.3b, "
+            f"jamba-v0.1-52b)")
 
 
 def _to_torch(a, device, dtype):
@@ -130,6 +132,17 @@ def _to_torch(a, device, dtype):
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+def _layer_kind(lp) -> str:
+    """The "mixer:ffn:0" tag a layer's params make: a Mamba2 mixer holds
+    ``A_log``, an MLA one ``wkv_a``; an MoE FFN holds a ``router``; a layer
+    without an FFN has no ``ffn``."""
+    mx = lp["mixer"]
+    mixer = "mamba" if "A_log" in mx else "mla" if "wkv_a" in mx else "attn"
+    ffn = ("none" if "ffn" not in lp
+           else "moe" if "router" in lp["ffn"] else "dense")
+    return f"{mixer}:{ffn}:0"
+
+
 def params_from_reference(cfg: ModelConfig, np_params, *, device="cpu",
                           dtype=None) -> dict:
     """The reference's ``Model.init_params`` tree (leaves converted to
@@ -138,14 +151,17 @@ def params_from_reference(cfg: ModelConfig, np_params, *, device="cpu",
     ``repeats`` axis, and layer ``off + r * P + q`` is slice r of
     ``pos{q}`` (MoE leaves included: ``router``, ``w_up``, ``w_gate``,
     ``w_down``, ``shared``).  The MTP head's ``mtp`` subtree (``proj``,
-    ``layer``, ``norm``) has no repeats axis and crosses over whole."""
+    ``layer``, ``norm``) has no repeats axis and crosses over whole.  A
+    Mamba2 mixer's ``A_log``, ``D`` and ``dt_bias`` stay f32 whatever
+    ``dtype``, as the reference keeps them; each segment position must
+    hold the mixer and the FFN its tag names."""
     check_supported(cfg)
 
-    def conv(tree, r=None):
+    def conv(tree, r=None, key=None):
         if isinstance(tree, dict):
-            return {k: conv(v, r) for k, v in tree.items()}
+            return {k: conv(v, r, k) for k, v in tree.items()}
         return _to_torch(tree if r is None else np.asarray(tree)[r],
-                         device, dtype)
+                         device, None if key in mb.F32_LEAVES else dtype)
 
     plan = seg_plan(cfg)
     if len(plan) != len(np_params["segments"]):
@@ -158,6 +174,11 @@ def params_from_reference(cfg: ModelConfig, np_params, *, device="cpu",
             raise ValueError(f"segment of {len(sp)} x {reps} layers where "
                              f"the plan has {len(seg.unit)} x "
                              f"{seg.repeats}")
+        for q, tag in enumerate(seg.unit):
+            kind = _layer_kind(sp[f"pos{q}"])
+            if kind != tag:
+                raise ValueError(f"segment position {q} holds a {kind} "
+                                 f"layer where the plan has {tag}")
         for r in range(seg.repeats):
             for q in range(len(seg.unit)):
                 layers.append(conv(sp[f"pos{q}"], r))
@@ -183,6 +204,9 @@ class Model:
     def __init__(self, cfg: ModelConfig):
         check_supported(cfg)
         self.cfg = cfg
+        # per layer: whether its cache is a Mamba2 layer's per-slot state
+        self.state_layers = tuple(t.startswith("mamba")
+                                  for t in layer_tags(cfg))
 
     # -------------------------------------------------- init
     def init_params(self, seed: int = 0, dtype=torch.bfloat16,
@@ -190,28 +214,29 @@ class Model:
         """Seeded N(0, 0.02) weights (the reference's init law; a torch
         generator, so not the reference's numbers), unit norm, q/k norm
         and latent norm gains, zero LayerNorm shifts and QKV biases; a
-        GQA or MLA mixer and a dense or an MoE FFN a layer as
-        ``layer_tags`` says; with ``mtp_depth`` the MTP head (``proj``
-        (2 d, d), a layer of the last layer's kind, an RMSNorm gain).  A
+        GQA, MLA or Mamba2 mixer and a dense, an MoE or no FFN a layer as
+        ``layer_tags`` says (``mamba.init_mamba``'s laws for that mixer);
+        with ``mtp_depth`` the MTP head (``proj`` (2 d, d), a layer of the
+        last layer's kind, an RMSNorm gain).  A
         weight of more than ``2**30`` elements (deepseek-v3's expert
         stacks) is drawn in slices of its leading axis, so its f32 draw
         never needs 4 bytes an element beside the model."""
         cfg = self.cfg
         gen = torch.Generator(device=device).manual_seed(int(seed))
 
-        def w(*shape):
+        def w(*shape, scale=0.02):
             if math.prod(shape) <= 1 << 30:
-                return (0.02 * torch.randn(shape, generator=gen, dtype=F32,
-                                           device=device)).to(dtype)
+                return (scale * torch.randn(shape, generator=gen, dtype=F32,
+                                            device=device)).to(dtype)
             out = torch.empty(shape, dtype=dtype, device=device)
             step = max(1, (1 << 30) // math.prod(shape[1:]))
             for i in range(0, shape[0], step):
                 rows = (min(step, shape[0] - i),) + shape[1:]
-                out[i:i + step] = 0.02 * torch.randn(
+                out[i:i + step] = scale * torch.randn(
                     rows, generator=gen, dtype=F32, device=device)
             return out
 
-        def vec(n, fill):
+        def vec(n, fill, dtype=dtype):
             return torch.full((n,), fill, dtype=dtype, device=device)
 
         def norm_p():
@@ -222,16 +247,16 @@ class Model:
 
         def layer(tag):
             mixer, ffn, _ = tag.split(":")
-            return {
-                "mixer_norm": norm_p(),
-                "mixer": (attn.init_mla if mixer == "mla"
-                          else attn.init_gqa)(cfg, w, vec),
-                "ffn_norm": norm_p(),
-                "ffn": (moe_mod.init_moe(cfg, w) if ffn == "moe" else
-                        {"up": w(cfg.d_model, cfg.d_ff),
-                         "gate": w(cfg.d_model, cfg.d_ff),
-                         "down": w(cfg.d_ff, cfg.d_model)}),
-            }
+            init = {"mla": attn.init_mla, "mamba": mb.init_mamba}.get(
+                mixer, attn.init_gqa)
+            lp = {"mixer_norm": norm_p(), "mixer": init(cfg, w, vec)}
+            if ffn != "none":
+                lp["ffn_norm"] = norm_p()
+                lp["ffn"] = (moe_mod.init_moe(cfg, w) if ffn == "moe" else
+                             {"up": w(cfg.d_model, cfg.d_ff),
+                              "gate": w(cfg.d_model, cfg.d_ff),
+                              "down": w(cfg.d_ff, cfg.d_model)})
+            return lp
 
         tags = layer_tags(cfg)
         params = {"embed": w(cfg.vocab_size, cfg.d_model),
@@ -248,29 +273,52 @@ class Model:
     # -------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device="cpu") -> list:
-        """One dict a layer: GQA's ``k`` and ``v`` (B, S, KV, D), or MLA's
-        ``latent`` (B, S, kv_lora + rope)."""
+        """One dict a layer: GQA's ``k`` and ``v`` (B, S, KV, D), MLA's
+        ``latent`` (B, S, kv_lora + rope), or a Mamba2 layer's per-slot
+        state (``mamba.init_mamba_cache``)."""
         make = (attn.init_mla_cache if self.cfg.attention == "mla"
                 else attn.init_gqa_cache)
-        return [make(self.cfg, batch, max_len, dtype, device)
-                for _ in range(self.cfg.n_layers)]
+        return [mb.init_mamba_cache(self.cfg, batch, dtype, device)
+                if st else make(self.cfg, batch, max_len, dtype, device)
+                for st in self.state_layers]
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
-                         dtype=torch.bfloat16, device="cpu") -> list:
+                         dtype=torch.bfloat16, device="cpu",
+                         slots: int | None = None) -> list:
+        """Attention layers get (num_blocks, block_size, ...) pools; a
+        Mamba2 layer keeps its constant-size state a slot
+        (``paged_cache.init_paged_mamba_cache``), so a stack with one
+        needs ``slots``."""
         from repro_torch.serve import paged_cache
 
-        make = (paged_cache.init_paged_mla_cache
-                if self.cfg.attention == "mla"
+        cfg = self.cfg
+        if slots is None and any(self.state_layers):
+            raise ValueError(f"{cfg.name}: a paged cache with Mamba2 layers "
+                             f"needs the slot count")
+        make = (paged_cache.init_paged_mla_cache if cfg.attention == "mla"
                 else paged_cache.init_paged_gqa_cache)
-        return [make(self.cfg, num_blocks, block_size, dtype, device)
-                for _ in range(self.cfg.n_layers)]
+        return [paged_cache.init_paged_mamba_cache(cfg, slots, dtype, device)
+                if st else make(cfg, num_blocks, block_size, dtype, device)
+                for st in self.state_layers]
+
+    def kv_leaf(self, cache):
+        """The first attention layer's first cache leaf, None in a stack
+        without attention.  Every attention leaf of every layer (GQA's
+        ``k`` and ``v``, MLA's ``latent``) leads with the same two dims,
+        (slots, depth) or (blocks, block size), which is what the cell
+        indices and the verify window are built from; a Mamba2 layer's
+        leaves lead with the slot alone."""
+        for layer, st in zip(cache, self.state_layers):
+            if not st:
+                return next(iter(layer.values()))
+        return None
 
     # -------------------------------------------------- layers
     def apply_layer(self, x, lp, ctx: LayerCtx, positions, mode: str, cache,
                     pos=None, slots=None, lengths=None, tables=None,
                     prefix_lens=None, spans=None, window=None):
         """One decoder layer (mode: full | prefill | decode | verify), its
-        mixer GQA or MLA as the config's ``attention`` says.
+        mixer GQA, MLA or Mamba2 as its params say (``_mamba``).
         ``full`` is causal attention over the whole sequence with no cache
         (the training/scoring forward).  ``prefix_lens`` (prefill): the
         logical start of each row's tokens (a suffix or a chunk);
@@ -279,48 +327,82 @@ class Model:
         to the cache through ``window`` (the call's write index); its
         d_model norms run one step at a time at decode's shapes
         (``per_step``).  An MoE FFN (its params hold a ``router``) routes
-        the call's tokens, padding rows included, as the reference's.
-        Returns (x, flag, aux): aux the MoE FFN's load-balance loss,
-        None for a dense FFN (only ``forward`` reads it)."""
+        all the call's tokens, padding rows and a verify window's rows
+        included, as the reference's; a layer without ``ffn`` has none.
+        Returns (x, flag, aux, cache): aux the MoE FFN's load-balance
+        loss, None otherwise (only ``forward`` reads it); cache the
+        layer's cache after the call: the same dict, written in place,
+        except after a Mamba2 decode step, whose next state comes back in
+        a new dict (None in mode ``full``)."""
         cfg = self.cfg
-        mix = attn.MLA if cfg.attention == "mla" else attn.GQA
         nrm = functools.partial(per_step, norm) if mode == "verify" else norm
         h = nrm(x, lp["mixer_norm"], cfg.norm, cfg.norm_eps)
-        if mode == "full":
-            a, f = mix["forward"](h, lp["mixer"], cfg, ctx, positions)
-        elif mode == "prefill":
-            if tables is not None:
-                a, f = mix["paged_prefill"](h, lp["mixer"], cfg, ctx,
-                                            positions, cache, tables,
-                                            lengths, starts=prefix_lens,
-                                            spans=spans)
-            else:
-                a, f = mix["prefill"](h, lp["mixer"], cfg, ctx, positions,
-                                      cache, slots=slots, lengths=lengths,
-                                      starts=prefix_lens, spans=spans)
-        elif mode == "verify":
-            if tables is not None:
-                a, f = mix["paged_verify"](h, lp["mixer"], cfg, ctx, pos,
-                                           cache, window, tables)
-            else:
-                a, f = mix["verify"](h, lp["mixer"], cfg, ctx, pos, cache,
-                                     window)
-        elif tables is not None:
-            a, f = mix["paged_decode"](h, lp["mixer"], cfg, ctx, pos, cache,
-                                       tables)
+        if "A_log" in lp["mixer"]:
+            a, f, cache = self._mamba(h, lp["mixer"], ctx, mode, cache,
+                                      slots, lengths, prefix_lens)
         else:
-            a, f = mix["decode"](h, lp["mixer"], cfg, ctx, pos, cache)
+            mix = attn.MLA if cfg.attention == "mla" else attn.GQA
+            if mode == "full":
+                a, f = mix["forward"](h, lp["mixer"], cfg, ctx, positions)
+            elif mode == "prefill":
+                if tables is not None:
+                    a, f = mix["paged_prefill"](h, lp["mixer"], cfg, ctx,
+                                                positions, cache, tables,
+                                                lengths, starts=prefix_lens,
+                                                spans=spans)
+                else:
+                    a, f = mix["prefill"](h, lp["mixer"], cfg, ctx,
+                                          positions, cache, slots=slots,
+                                          lengths=lengths,
+                                          starts=prefix_lens, spans=spans)
+            elif mode == "verify":
+                if tables is not None:
+                    a, f = mix["paged_verify"](h, lp["mixer"], cfg, ctx, pos,
+                                               cache, window, tables)
+                else:
+                    a, f = mix["verify"](h, lp["mixer"], cfg, ctx, pos,
+                                         cache, window)
+            elif tables is not None:
+                a, f = mix["paged_decode"](h, lp["mixer"], cfg, ctx, pos,
+                                           cache, tables)
+            else:
+                a, f = mix["decode"](h, lp["mixer"], cfg, ctx, pos, cache)
         x = x + a
-        h = nrm(x, lp["ffn_norm"], cfg.norm, cfg.norm_eps)
         aux = None
-        if "router" in lp["ffn"]:
-            if mode == "verify":
-                raise NotImplementedError(
-                    "speculative verify on MoE layers is not ported")
-            o, f2, aux = moe_mod.moe_forward(h, lp["ffn"], cfg, ctx)
-        else:
-            o, f2 = mlp(h, lp["ffn"], ctx, act=cfg.act)
-        return x + o, or_flags(f, f2), aux
+        if "ffn" in lp:
+            h = nrm(x, lp["ffn_norm"], cfg.norm, cfg.norm_eps)
+            if "router" in lp["ffn"]:
+                o, f2, aux = moe_mod.moe_forward(h, lp["ffn"], cfg, ctx)
+            else:
+                o, f2 = mlp(h, lp["ffn"], ctx, act=cfg.act)
+            x = x + o
+            f = or_flags(f, f2)
+        return x, f, aux, cache
+
+    def _mamba(self, h, p, ctx: LayerCtx, mode: str, cache, slots, lengths,
+               prefix_lens):
+        """A Mamba2 mixer in ``mode``: (out, flag, cache after the call).
+        Its state lives a slot, so the paged engine's block tables do not
+        reach it.  Speculative verify and a mid-prompt resume (prefix
+        sharing, chunked prefill) raise the reference's refusals: the
+        recurrence cannot roll back to the last accepted token, nor resume
+        from cached KV."""
+        cfg = self.cfg
+        if mode == "verify":
+            raise ValueError("speculative verify cannot roll the SSM "
+                             "recurrence state back to the last accepted "
+                             "position")
+        if prefix_lens is not None:
+            raise ValueError("prefix sharing / chunked prefill cannot resume "
+                             "the SSM recurrence state mid-prompt")
+        if mode == "full":
+            a, f = mb.mamba_forward(h, p, cfg, ctx)
+            return a, f, None
+        if mode == "prefill":
+            a, f = mb.mamba_prefill(h, p, cfg, ctx, cache, slots=slots,
+                                    lengths=lengths)
+            return a, f, cache
+        return mb.mamba_decode(h, p, cfg, ctx, cache)
 
     def run_stack(self, x, params, ctx: LayerCtx, positions, mode: str,
                   caches, pos=None, slots=None, lengths=None, tables=None,
@@ -330,27 +412,30 @@ class Model:
         recomputes each layer in the backward pass instead of keeping its
         activations (the reference's ``jax.checkpoint`` per layer); it
         changes no number and applies only while autograd records.
-        Returns (x, flag, aux): aux the MoE layers' load-balance losses
-        summed (0 without any)."""
+        Returns (x, flag, aux, caches): aux the MoE layers' load-balance
+        losses summed (0 without any); caches a new list of each layer's
+        cache after the call (``apply_layer``), None in mode ``full``."""
         layers = params["layers"]
-        caches = caches if caches is not None else [None] * len(layers)
+        full = caches is None
+        caches = [None] * len(layers) if full else caches
         remat = remat and torch.is_grad_enabled()
-        flags, auxes = [], []
+        flags, auxes, out = [], [], []
         for i, (lp, cache) in enumerate(zip(layers, caches)):
             kw = dict(pos=pos, slots=slots, lengths=lengths, tables=tables,
                       prefix_lens=prefix_lens, spans=spans, window=window)
             args = (x, lp, ctx.with_layer(i), positions, mode, cache)
             if remat:
-                x, f, a = checkpoint(self.apply_layer, *args,
-                                     use_reentrant=False, **kw)
+                x, f, a, c = checkpoint(self.apply_layer, *args,
+                                        use_reentrant=False, **kw)
             else:
-                x, f, a = self.apply_layer(*args, **kw)
+                x, f, a, c = self.apply_layer(*args, **kw)
             flags.append(f)
+            out.append(c)
             if a is not None:
                 auxes.append(a)
         aux = (torch.stack(auxes).sum() if auxes
                else torch.zeros((), dtype=F32, device=x.device))
-        return x, torch.stack(flags).any(), aux
+        return x, torch.stack(flags).any(), aux, None if full else out
 
     def _head(self, params, x, ctx):
         w = (params["embed"].t().to(x.dtype) if self.cfg.tie_embeddings
@@ -383,8 +468,8 @@ class Model:
         B, L = tokens.shape
         x = params["embed"][tokens]
         positions = torch.arange(L, device=dev).expand(B, L)
-        x, flag, aux = self.run_stack(x, params, ctx, positions, "full",
-                                      None, remat=True)
+        x, flag, aux, _ = self.run_stack(x, params, ctx, positions, "full",
+                                         None, remat=True)
         x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         logits, f_head = self._head(params, x, ctx)
         flag = or_flags(flag, f_head)
@@ -408,8 +493,8 @@ class Model:
         comb = torch.cat([norm(h, mp["norm"], "rmsnorm", self.cfg.norm_eps),
                           emb_next], dim=-1)
         hm, f1 = dense(comb, mp["proj"], ctx, "mlp_up", tag="mtp.proj")
-        hm, f2, _ = self.apply_layer(hm, mp["layer"], ctx, positions, "full",
-                                     None)
+        hm, f2, _, _ = self.apply_layer(hm, mp["layer"], ctx, positions,
+                                        "full", None)
         logits, f3 = self._head(params, hm, ctx)
         return logits, or_flags(f1, f2, f3)
 
@@ -417,15 +502,15 @@ class Model:
     @property
     def supports_prefix_sharing(self) -> bool:
         """A token's cached KV is a pure function of the token prefix in
-        an attention-only decoder without per-request memory — every
-        stack the port runs (``check_supported``) — with one caveat the
-        reference shares: an MoE layer's capacity, and so which tokens
-        its experts drop, depends on every token in the call, so a shared
-        or chunked MoE stream follows the reference's, not the plain
-        run's."""
+        an attention-only decoder without per-request memory, with one
+        caveat the reference shares: an MoE layer's capacity, and so which
+        tokens its experts drop, depends on every token in the call, so a
+        shared or chunked MoE stream follows the reference's, not the
+        plain run's.  A Mamba2 layer carries recurrent state outside the
+        block pool, so a stack with one shares nothing."""
         cfg = self.cfg
         return not (cfg.is_encoder_decoder or cfg.vision_dim
-                    or cfg.cross_attn_every)
+                    or cfg.cross_attn_every or any(self.state_layers))
 
     @property
     def supports_chunked_prefill(self) -> bool:
@@ -434,13 +519,14 @@ class Model:
         return self.supports_prefix_sharing
 
     def copy_paged_blocks(self, cache, src, dst) -> list:
-        """``pool[dst[i]] <- pool[src[i]]`` on every layer's pools (k and
-        v, or the latent), in place — the COW payload move."""
-        dev = cache_leaf(cache).device
+        """``pool[dst[i]] <- pool[src[i]]`` on every attention layer's
+        pools (k and v, or the latent), in place — the COW payload move.
+        Per-slot state is never touched."""
+        dev = self.kv_leaf(cache).device
         src = torch.as_tensor(src, dtype=torch.long, device=dev)
         dst = torch.as_tensor(dst, dtype=torch.long, device=dev)
-        for layer in cache:
-            for leaf in layer.values():
+        for layer, st in zip(cache, self.state_layers):
+            for leaf in ([] if st else layer.values()):
                 leaf[dst] = leaf[src]
         return cache
 
@@ -471,10 +557,10 @@ class Model:
             offs = prefix_lens.tolist() if prefix_lens is not None \
                 else [0] * B
             spans = [(o, o + n) for o, n in zip(offs, lens)]
-        x, flag, _ = self.run_stack(x, params, ctx, positions, "prefill",
-                                    cache, slots=slots, lengths=lengths,
-                                    tables=block_tables,
-                                    prefix_lens=prefix_lens, spans=spans)
+        x, flag, _, _ = self.run_stack(x, params, ctx, positions, "prefill",
+                                       cache, slots=slots, lengths=lengths,
+                                       tables=block_tables,
+                                       prefix_lens=prefix_lens, spans=spans)
         x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         if lengths is not None:
             idx = (lengths.to(x.device).long() - 1).clamp_min(0)
@@ -488,14 +574,18 @@ class Model:
                block_tables=None):
         """token: (B, 1); pos: (B,) per-slot cursor.  Each row writes its
         KV at its own cursor and attends its own prefix.  Returns
-        (logits (B, 1, V) f32, cache, flag)."""
+        (logits (B, 1, V) f32, cache, flag): the attention layers' dicts
+        of ``cache`` written in place, a Mamba2 layer's next state in a new
+        dict, ``cache`` itself left as it was (``mamba.mamba_decode``);
+        the returned list is what the step commits."""
         cfg = self.cfg
         B = token.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int32,
                               device=token.device).expand(B).contiguous()
         x = params["embed"][token]
-        x, flag, _ = self.run_stack(x, params, ctx, None, "decode", cache,
-                                    pos=pos, tables=block_tables)
+        x, flag, _, cache = self.run_stack(x, params, ctx, None, "decode",
+                                           cache, pos=pos,
+                                           tables=block_tables)
         x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         logits, f_head = self._head(params, x, ctx)
         return logits, cache, or_flags(flag, f_head)
@@ -513,22 +603,30 @@ class Model:
         absorbed products; K1 pinned to the B-row GEMM and the plain
         product run step by step through ``ABFTConfig.decode_rows``, which
         the runner sets), so row t's logits are bit for bit decode's at
-        that position.  Returns (logits (B, T, V) f32, cache, flag)."""
+        that position.  An MoE layer routes the call's B x T rows at once,
+        as the reference's: its capacity is the window's, so a row equals
+        decode's only where no expert overflowed in either call.  A stack
+        with a Mamba2 layer raises ``ValueError``.  Returns (logits
+        (B, T, V) f32, cache, flag)."""
         from repro_torch.serve.paged_cache import prefill_write_index
 
         cfg = self.cfg
         B, T = tokens.shape
         pos = torch.as_tensor(pos, dtype=torch.int32,
                               device=tokens.device).expand(B).contiguous()
-        pool = cache_leaf(cache)
+        if any(self.state_layers):
+            raise ValueError("speculative verify cannot roll the SSM "
+                             "recurrence state back to the last accepted "
+                             "position")
+        pool = self.kv_leaf(cache)
         # every layer writes the same cells: one index a call
         window = (attn.verify_write_index(pos, valid, T, pool.shape[1])
                   if block_tables is None else
                   prefill_write_index(pool, block_tables, valid, T, pos))
         x = params["embed"][tokens]
-        x, flag, _ = self.run_stack(x, params, ctx, None, "verify", cache,
-                                    pos=pos, tables=block_tables,
-                                    window=window)
+        x, flag, _, _ = self.run_stack(x, params, ctx, None, "verify",
+                                       cache, pos=pos, tables=block_tables,
+                                       window=window)
         x = per_step(norm, x, params["final_norm"], cfg.norm, cfg.norm_eps)
         logits, f_head = self._head(params, x, ctx)
         return logits, cache, or_flags(flag, f_head)

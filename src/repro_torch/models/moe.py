@@ -24,6 +24,13 @@ reference's JAX ops pin them and PyTorch's do not:
   ``index_add_`` would sum in another order from run to run, so a
   recomputed step, or the paged twin of a dense run, could round
   differently.
+
+A speculative verify call (``ABFTConfig.decode_rows`` set) routes all its
+B x T rows at once, as the reference's, so its capacity is the window's.
+Its GEMMs sum each row in the decode step's order: the router and the
+shared experts take the (B, T, D) operand (``dense``'s row pinning) and
+the expert GEMMs the K split of the decode step's capacity, so a row
+whose experts dropped nothing in either call gets decode's bits.
 """
 
 from __future__ import annotations
@@ -84,11 +91,15 @@ def moe_forward(x, p, cfg: ModelConfig, ctx: LayerCtx):
     C = capacity(cfg, T)
     dev = x.device
     xf = x.reshape(T, D)
+    # a verify call's operands keep their (B, T) rows (module docstring)
+    pin = ctx.abft.decode_rows
+    xr = x if pin is not None else xf
+    split = capacity(cfg, pin) if pin is not None else None
 
     # --- routing: the router GEMM is protected, its output and softmax f32
-    logits, f_router = dense(xf, p["router"], ctx, "router", out_dtype=F32,
+    logits, f_router = dense(xr, p["router"], ctx, "router", out_dtype=F32,
                              tag="moe.router")
-    probs = torch.softmax(logits.to(F32), dim=-1)              # (T, E)
+    probs = torch.softmax(logits.reshape(T, E).to(F32), dim=-1)  # (T, E)
     topk_w, topk_i = top_k(probs, K)
     topk_w = topk_w / topk_w.sum(dim=-1, keepdim=True)
     # switch-style load balance over the call's tokens
@@ -115,12 +126,12 @@ def moe_forward(x, p, cfg: ModelConfig, ctx: LayerCtx):
 
     # --- expert GEMMs (SwiGLU), all experts in one protected call each
     up, f1 = batched_dense(buf, p["w_up"], ctx, "expert_up",
-                           tag="moe.expert_up")
+                           tag="moe.expert_up", split_rows=split)
     gate, f2 = batched_dense(buf, p["w_gate"], ctx, "expert_up",
-                             tag="moe.expert_up")
+                             tag="moe.expert_up", split_rows=split)
     h = torch.nn.functional.silu(gate.to(F32)).to(x.dtype) * up
     out_buf, f3 = batched_dense(h, p["w_down"], ctx, "expert_down",
-                                tag="moe.expert_down")
+                                tag="moe.expert_down", split_rows=split)
 
     # --- combine: each (token, k) reads its slot back (a dropped one reads
     # a real row and weighs it 0, as the reference), summed in k order
@@ -137,8 +148,8 @@ def moe_forward(x, p, cfg: ModelConfig, ctx: LayerCtx):
 
     # --- shared experts (dense path, always on)
     if cfg.n_shared_experts:
-        ys, fs = mlp(xf, p["shared"], ctx, act="silu",
+        ys, fs = mlp(xr, p["shared"], ctx, act="silu",
                      tags=("moe.shared_up", "moe.shared_down"))
-        y = y + ys
+        y = y + ys.reshape(T, D)
         flag = or_flags(flag, fs)
     return y.reshape(Bsz, L, D), flag, loss

@@ -28,7 +28,15 @@ hard fault.  The reference retries from its immutable pre-step cache; the
 port writes the KV cache in place, and a retry is sound only because it
 rewrites exactly the (slot, position) cells — or (block, offset) cells
 under unchanged tables — that its attempt wrote, before any of them is
-read.  Block tables change only outside the attempt/retry window.
+read.  Block tables change only outside the attempt/retry window.  A
+Mamba2 layer's per-slot state is read by every decode step, so it is not
+written in place: the decode attempt returns the next state in tensors of
+its own (``Model.decode``), and the engine commits that cache list only
+after ``_resolve`` accepts the attempt; a retry, a sticky-fault retry and
+a shadow rerun all start from the pre-step state, and a hard-fault
+eviction commits nothing.  The commit swaps the list (no copy: the
+attempt allocated the new state anyway).  Prefill overwrites its slots'
+state without reading it, so it stays in place like the KV cells.
 
 Fault campaigns: a ``fault_model`` (core/faults.FaultModel) is polled once
 per ``step()`` when no explicit fault is given.  Every injected fault —
@@ -39,7 +47,9 @@ classified by a shadow run: the cells the faulted attempt wrote are
 gathered, the step re-runs clean (generators restored), tokens and those
 cells are compared, and the faulted cells are scattered back so the
 faulted result stays committed, as in the reference (which compares whole
-pre-/post-step cache trees; nothing else differs).
+pre-/post-step cache trees; nothing else differs).  The cells are the
+attention layers' cells and the state rows of the slots the call
+replaced (``Cells``).
 
 Adaptive protection: an ``ErrorAdaptivePolicy`` is split into one
 immutable (ABFT config, ``LayerCtx``, plan, runner) set per level; each
@@ -96,17 +106,24 @@ fault retries only the window; a sticky one evicts every resident slot
 with ``"hard_fault:verify"``.  Greedy streams equal the unsped engine's
 token for token, on the card too: ``Model.verify`` computes every row in
 the decode step's order.  Speculation needs the plain attention path
-(``flash_attention`` off), as in the reference.
+(``flash_attention`` off), as in the reference.  On a stack with an MoE
+layer the window is the reference's, ``draft_len + 1`` tokens a slot with
+token 0 in the padding and in inactive slots, since the call's row count
+sets each expert's capacity: a sped stream equals the unsped one where no
+expert overflowed.
+
+Stacks with a Mamba2 layer refuse prefix sharing, chunked prefill and
+speculative decoding with the reference's ``ValueError``s.
 
 Options of the reference that this port does not have raise
-``NotImplementedError``: sharding (``mesh``) and ``hints``, and
-speculative decoding on a stack with MoE layers.
+``NotImplementedError``: sharding (``mesh``) and ``hints``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -115,7 +132,7 @@ from repro_torch.core.policy import ErrorAdaptivePolicy
 from repro_torch.core.protected import ABFTConfig
 from repro_torch.models import attention
 from repro_torch.models.layers import LayerCtx, ModelFault
-from repro_torch.models.model import Model, cache_leaf, layer_tags
+from repro_torch.models.model import Model, layer_tags
 from repro_torch.obs.trace import Tracer
 from repro_torch.serve import paged_cache
 from repro_torch.serve.executor import LocalExecutor, resolve_device
@@ -143,6 +160,16 @@ __all__ = ["ServeEngine", "Request", "RecoveryPolicy", "EngineStats",
 
 # shared no-op tracer for engines without telemetry
 _NULL_TRACER = Tracer(enabled=False)
+
+
+class Cells(NamedTuple):
+    """The cache cells one model call wrote: ``kv`` indexes every
+    attention leaf (``leaf[kv]``; None in a stack without attention),
+    ``rows`` the slots whose per-slot state the call replaced (None: it
+    replaced none)."""
+
+    kv: tuple | None
+    rows: torch.Tensor | None = None
 
 
 def _unported(**opts) -> None:
@@ -251,7 +278,7 @@ class ServeEngine:
                 num_blocks = slots * width
             pool: BlockPool | None = BlockPool(num_blocks, block_size,
                                                slots, width)
-            self.executor.init_paged_cache(num_blocks, block_size)
+            self.executor.init_paged_cache(num_blocks, block_size, slots)
         elif cache_kind == "dense":
             pool = None
             self.executor.init_dense_cache(slots, max_len)
@@ -283,13 +310,13 @@ class ServeEngine:
         self.draft_auto = draft_len in (None, "auto")
         self._draft_len_base: int | None = None
         self._last_decode_tokens = 0
+        # under MoE the verify window's width sets the experts' capacity:
+        # such a stack verifies the reference's draft_len + 1 tokens a slot
+        self._moe_window = any(t.split(":")[1] == "moe"
+                               for t in layer_tags(model.cfg))
+        # the cache list a decode attempt returned, until it is committed
+        self._staged = None
         if spec_decode is not None:
-            if any(t.split(":")[1] == "moe" for t in layer_tags(model.cfg)):
-                raise NotImplementedError(
-                    "spec_decode on MoE stacks is not ported yet: the "
-                    "reference pads every verify window to K+1 tokens, "
-                    "the port to the longest proposal, and under MoE the "
-                    "window's width sets the experts' capacity")
             if not model.supports_chunked_prefill:
                 raise ValueError(
                     "spec_decode requires an attention-only decoder (SSM "
@@ -513,17 +540,32 @@ class ServeEngine:
             "phase": phase, "outcome": outcome,
             "kind": entry.get("kind"), "source": entry.get("source")})
 
-    def _leaves(self) -> list:
-        """Every cache leaf of every layer (GQA's k and v, MLA's latent):
-        all index their cells by the same leading two dims."""
-        return [leaf for layer in self.cache for leaf in layer.values()]
+    def _cells(self, kv, rows=None) -> Cells:
+        """``Cells`` of a call: ``kv(pool)`` builds the attention index
+        from the first attention leaf (skipped without one); ``rows`` the
+        slots whose state the call replaced."""
+        pool = self.model.kv_leaf(self.cache)
+        return Cells(None if pool is None else kv(pool), rows)
 
-    def _gather(self, cells) -> list:
-        return [leaf[cells] for leaf in self._leaves()]
+    def _leaves(self, cells: Cells) -> list:
+        """(leaf, index) for every leaf ``cells`` covers: each attention
+        leaf (GQA's k and v, MLA's latent) at ``cells.kv``, each per-slot
+        state leaf at ``cells.rows``; read in the attempt's uncommitted
+        cache while one is staged."""
+        cache = self._staged if self._staged is not None else self.cache
+        out = []
+        for layer, state in zip(cache, self.model.state_layers):
+            idx = cells.rows if state else cells.kv
+            if idx is not None:
+                out += [(leaf, idx) for leaf in layer.values()]
+        return out
 
-    def _scatter(self, cells, values) -> None:
-        for leaf, v in zip(self._leaves(), values):
-            leaf[cells] = v
+    def _gather(self, cells: Cells) -> list:
+        return [leaf[idx] for leaf, idx in self._leaves(cells)]
+
+    def _scatter(self, cells: Cells, values) -> None:
+        for (leaf, idx), v in zip(self._leaves(cells), values):
+            leaf[idx] = v
 
     def _shadow_outcome(self, emitted, cells, rerun) -> tuple:
         """Classify an UNDETECTED injection: keep the cache cells the
@@ -602,7 +644,7 @@ class ServeEngine:
             self.model.copy_paged_blocks(self.cache,
                                          [src for src, _ in cow_pairs],
                                          [dst for _, dst in cow_pairs])
-            sp.fence(cache_leaf(self.cache))
+            sp.fence(self.model.kv_leaf(self.cache))
         self.stats.cow_copies += len(cow_pairs)
 
     def _admit_impl(self, pending: list, fault, fault_uid) -> list:
@@ -649,9 +691,11 @@ class ServeEngine:
 
         def cells():
             if self.pool is None:
-                return attention.prefill_cells(args[3], Lpad)
-            return paged_cache.prefill_cells(cache_leaf(self.cache),
-                                             args[5], args[4], Lpad, starts)
+                return self._cells(
+                    lambda _: attention.prefill_cells(args[3], Lpad),
+                    args[3].long())
+            return self._cells(lambda pool: paged_cache.prefill_cells(
+                pool, args[5], args[4], Lpad, starts), args[3].long())
 
         meta = self._take_injection_meta("admit_fault") \
             if fault is not None else None
@@ -842,10 +886,10 @@ class ServeEngine:
 
         def cells():
             if self.pool is None:
-                return attention.prefill_cells(args[3], Lpad, args[6],
-                                               args[4])
-            return paged_cache.prefill_cells(cache_leaf(self.cache),
-                                             args[5], args[4], Lpad, args[6])
+                return self._cells(lambda _: attention.prefill_cells(
+                    args[3], Lpad, args[6], args[4]))
+            return self._cells(lambda pool: paged_cache.prefill_cells(
+                pool, args[5], args[4], Lpad, args[6]))
 
         with self._tr.span("prefill_chunk",
                            {"rows": A, "tokens": int(lengths.sum())}) as sp:
@@ -919,15 +963,19 @@ class ServeEngine:
 
         def attempt(fa):
             # the retry rewrites the same (slot, pos) cells of every layer
-            # before reading them, and redraws from the same states
+            # before reading them, reads the committed pre-step state, and
+            # redraws from the same generator states
             self._restore_gens(gens, saved)
-            return self.runner.decode(*args, fa, gens)
+            nxt, flag, self._staged = self.runner.decode(*args, fa, gens)
+            return nxt, flag
 
         def cells():
+            every = torch.arange(self.slots, device=self.device)
             if self.pool is None:
-                return attention.decode_cells(args[3])
-            return paged_cache.decode_cells(cache_leaf(self.cache),
-                                            args[5], args[3])
+                return self._cells(lambda _: attention.decode_cells(args[3]),
+                                   every)
+            return self._cells(lambda pool: paged_cache.decode_cells(
+                pool, args[5], args[3]), every)
 
         with self._tr.span("decode_step",
                            {"tokens": len(self.active)}) as sp:
@@ -940,6 +988,7 @@ class ServeEngine:
                 self.stats.blocks_shared_peak, self.pool.blocks_shared)
         nxt, flag = self._resolve("decode", attempt, nxt, flag, meta,
                                   retry_f, cells)
+        staged, self._staged = self._staged, None
         if bool(flag):
             self.stats.hard_faults += 1
             self._tr.instant("hard_fault", {"phase": "decode"})
@@ -950,6 +999,8 @@ class ServeEngine:
             self.active.clear()
             self._finish_evicted(victims, "hard_fault:decode")
             return {}
+        # the flag cleared: commit the accepted attempt's state
+        self.executor.cache = staged
         out = {}
         nxt = nxt.cpu().numpy()
         finished = []
@@ -1018,8 +1069,11 @@ class ServeEngine:
         # the window's width is the longest proposal's (the reference pads
         # every step to draft_len + 1 for one jit shape; eager PyTorch has
         # none to keep, and every row is computed in decode's order at any
-        # T, so a step whose drafts all missed costs what decode does)
-        T = 1 + max(len(proposals[s]) for s in self.active)
+        # T, so a step whose drafts all missed costs what decode does);
+        # under MoE the width sets each expert's capacity, so it is the
+        # reference's
+        T = (self.draft_len + 1 if self._moe_window
+             else 1 + max(len(proposals[s]) for s in self.active))
         toks = np.zeros((self.slots, T), np.int64)
         valid = np.zeros((self.slots,), np.int32)
         for s, req in self.active.items():
@@ -1040,10 +1094,10 @@ class ServeEngine:
 
         def cells():
             if self.pool is None:
-                return attention.verify_cells(args[3], args[4],
-                                              self.max_len)
-            return paged_cache.prefill_cells(cache_leaf(self.cache),
-                                             args[5], args[4], T, args[3])
+                return self._cells(lambda _: attention.verify_cells(
+                    args[3], args[4], self.max_len))
+            return self._cells(lambda pool: paged_cache.prefill_cells(
+                pool, args[5], args[4], T, args[3]))
 
         with self._tr.span("verify_step",
                            {"tokens": window_tokens,

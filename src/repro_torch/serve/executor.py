@@ -38,7 +38,8 @@ def tree_to(tree, device):
 
 
 class LocalExecutor:
-    """Single-device executor: owns params and cache."""
+    """Single-device executor: owns params and cache (the engine swaps in
+    the cache list a decode step commits)."""
 
     model_parallel = 1
 
@@ -63,9 +64,11 @@ class LocalExecutor:
         self.cache = self.model.init_cache(slots, max_len, dtype=self.dtype,
                                            device=self.device)
 
-    def init_paged_cache(self, num_blocks: int, block_size: int) -> None:
+    def init_paged_cache(self, num_blocks: int, block_size: int,
+                         slots: int) -> None:
         self.cache = self.model.init_paged_cache(
-            num_blocks, block_size, dtype=self.dtype, device=self.device)
+            num_blocks, block_size, dtype=self.dtype, device=self.device,
+            slots=slots)
 
     def protection_plan(self, abft, *, slots: int):
         return self.model.protection_plan(

@@ -3,7 +3,7 @@ ops (port of ``repro.serve.paged_cache``).
 
 Per layer the KV tensors are pools ``(num_blocks, block_size, KV, D)``
 (GQA's k and v) or ``(num_blocks, block_size, kv_lora + rope)`` (MLA's
-latent);
+latent); a Mamba2 layer keeps its constant-size state a slot, unpaged;
 the host ``BlockPool`` owns the free list and one block table per slot,
 padded with the out-of-range ``SENTINEL`` (== num_blocks).  A token at
 logical position ``t`` of slot ``s`` lives at
@@ -340,6 +340,16 @@ def init_paged_mla_cache(cfg: ModelConfig, num_blocks: int,
     shape = (num_blocks, block_size,
              cfg.kv_lora_rank + cfg.qk_rope_head_dim)
     return {"latent": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_paged_mamba_cache(cfg: ModelConfig, slots: int, dtype,
+                           device) -> dict:
+    """A Mamba2 layer's state under the paged engine: constant-size a
+    request, so one entry a slot (``mamba.init_mamba_cache``), never
+    paged; the block tables do not reach it."""
+    from repro_torch.models.mamba import init_mamba_cache
+
+    return init_mamba_cache(cfg, slots, dtype, device)
 
 
 def _prefill_index(pool, tables, lengths, L: int, starts=None):

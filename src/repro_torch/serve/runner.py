@@ -60,13 +60,15 @@ class ModelRunner:
     @torch.no_grad()
     def decode(self, p, tok, cache, pos, mask, tables, fault, gens=None):
         """One decode step; returns (next token per slot, -1 where the
-        slot is inactive; flag).  The cache is written in place."""
-        logits, _, flag = self.model.decode(
+        slot is inactive; flag; the cache list the step commits).  The
+        attention layers are written in place; a Mamba2 layer's next
+        state comes back in new tensors (``Model.decode``)."""
+        logits, new_cache, flag = self.model.decode(
             p, tok, cache, pos, dataclasses.replace(self.ctx, fault=fault),
             block_tables=tables)
         nxt = self.sample(logits[:, 0, :], gens)
         nxt = torch.where(mask, nxt, torch.full_like(nxt, -1))
-        return nxt, flag
+        return nxt, flag, new_cache
 
     @torch.no_grad()
     def prefill(self, p, toks, cache, slot_ids, lengths, tables, fault,

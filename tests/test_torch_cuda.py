@@ -1697,3 +1697,96 @@ def test_small_mla_forward_on_the_card_equals_the_cpu(dev):
     assert bool(a.flag) == bool(b.flag.cpu())
     assert abs(float(a.aux_loss) - float(b.aux_loss)) \
         <= 1e-5 * abs(float(a.aux_loss))
+
+
+# ------------------------------------------------------------------ SSM
+
+SSM_ARCHS = {"mamba2-1.3b": {}, "jamba-v0.1-52b": {"n_layers": 8}}
+
+
+@pytest.mark.parametrize("arch", sorted(SSM_ARCHS))
+def test_small_ssm_engine_on_the_card_equals_the_cpu(dev, arch):
+    """Scaled-down f32 mamba2-1.3b and jamba-v0.1-52b (one 8-layer unit):
+    the engine on the card (K1, K3 on jamba's attention layer) and on the
+    CPU (their plain versions), dense and paged, clean and with a decode
+    fault at ``ssm_out``, give the same greedy streams; the faulted card
+    run is retried and ends with the clean card run's state, bit for
+    bit."""
+    from repro_torch.models.layers import ModelFault
+
+    model = Model(scaled_down(get_config(arch), **SSM_ARCHS[arch]))
+    params = model.init_params(3, dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 256, size=int(n)).astype(np.int32)
+               for n in rng.integers(3, 40, size=5)]
+    fault = ModelFault.at(1, "ssm_out", FaultSpec.value(0, 1, 1e5))
+    streams, states = {}, {}
+    for d in ("cpu", dev):
+        for kind, fault_at in (("dense", None), ("paged", None),
+                               ("dense", (3, fault))):
+            eng = ServeEngine(model, params, slots=2, max_len=64,
+                              dtype=torch.float32, device=d,
+                              cache_kind=kind, block_size=8,
+                              abft=ABFTConfig(flash_attention=True))
+            k1 = am.KERNEL.launches
+            key = (str(d), kind, fault_at is not None)
+            streams[key] = eng.run(
+                [Request(uid=i, prompt=p, max_new_tokens=8)
+                 for i, p in enumerate(prompts)], fault_at=fault_at)
+            assert eng.stats.faults_detected == (fault_at is not None)
+            states[key] = [t.cpu() for layer, st in
+                           zip(eng.cache, model.state_layers)
+                           if st for t in layer.values()]
+            if str(d) != "cpu":
+                assert am.KERNEL.launches > k1
+    assert len({str(s) for s in streams.values()}) == 1
+    clean, faulted = states[(str(dev), "dense", False)], \
+        states[(str(dev), "dense", True)]
+    assert all(torch.equal(a, b) for a, b in zip(clean, faulted))
+
+
+def test_small_ssm_forward_on_the_card_equals_the_cpu(dev):
+    """Scaled-down f32 mamba2-1.3b through ``Model.forward`` (L = 21: a
+    padded last chunk): logits on the card within 1e-4 of the CPU's (f32
+    sums in another order), equal flags."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.layers import LayerCtx
+
+    model = Model(scaled_down(get_config("mamba2-1.3b")))
+    params = model.init_params(3, dtype=torch.float32)
+    tokens = torch.from_numpy(
+        np.random.default_rng(5).integers(1, 256, size=(2, 21)))
+    out = {}
+    for d in ("cpu", dev):
+        with torch.no_grad():
+            out[str(d)] = model.forward(tree_map(lambda t: t.to(d), params),
+                                        {"tokens": tokens.to(d)},
+                                        LayerCtx(), device=d)
+    a, b = out["cpu"], out[str(dev)]
+    assert (a.logits - b.logits.cpu()).abs().max().item() <= 1e-4
+    assert bool(a.flag) == bool(b.flag.cpu())
+
+
+def test_small_moe_spec_on_the_card_equals_the_cpu(dev):
+    """Scaled-down f32 qwen2-moe-a2.7b with n-gram speculation at K = 3
+    (the reference's draft_len + 1 window): the card's greedy streams,
+    proposals and acceptance equal the CPU's, and K1 ran batched over the
+    experts in the verify calls."""
+    model = Model(scaled_down(get_config("qwen2-moe-a2.7b")))
+    params = model.init_params(3, dtype=torch.float32)
+    prompts = [np.tile(3 + np.arange(4 + i % 2, dtype=np.int32), 8)[:19 + i]
+               for i in range(3)]
+    out = {}
+    for d in ("cpu", dev):
+        eng = ServeEngine(model, params, slots=2, max_len=64,
+                          dtype=torch.float32, device=d,
+                          spec_decode="ngram", draft_len=3)
+        b = am.BATCHED.launches
+        res = eng.run([Request(uid=i, prompt=p, max_new_tokens=8)
+                       for i, p in enumerate(prompts)])
+        out[str(d)] = (res, eng.stats.draft_proposed,
+                       eng.stats.draft_accepted)
+        if str(d) != "cpu":
+            assert am.BATCHED.launches > b
+    assert out["cpu"] == out[str(dev)]
+    assert out["cpu"][2] > 0

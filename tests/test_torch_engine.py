@@ -163,8 +163,8 @@ def test_unported_options_raise(setup, opt):
     prefill, paged prefix sharing and speculative decoding (both
     proposers) are ported, construct and serve; dense prefix sharing
     raises the reference's ``ValueError``.  Speculative decoding on a
-    stack with MoE layers (GQA or MLA) is not ported and raises
-    ``NotImplementedError``."""
+    stack with MoE layers (GQA or MLA) constructs too, verifying the
+    reference's ``draft_len + 1`` window."""
     _, _, tm, tp, _ = setup
 
     def make():
@@ -173,9 +173,9 @@ def test_unported_options_raise(setup, opt):
     if "spec_decode" in opt:
         for arch in ("qwen2-moe-a2.7b", "deepseek-v3-671b"):
             moe = Model(scaled_down(get_config(arch)))
-            with pytest.raises(NotImplementedError, match="MoE"):
-                ServeEngine(moe, moe.init_params(0, dtype=torch.float32),
-                            slots=1, max_len=16, device="cpu", **opt)
+            eng = ServeEngine(moe, moe.init_params(0, dtype=torch.float32),
+                              slots=1, max_len=16, device="cpu", **opt)
+            assert eng._moe_window and eng.draft_len >= 1
 
     if "mesh" in opt:
         with pytest.raises(NotImplementedError):

@@ -67,7 +67,7 @@ def test_module_walk_finds_the_slice():
                  "repro_torch.kernels.flash_ops",
                  "repro_torch.serve.engine", "repro_torch.launch.serve",
                  "repro_torch.serve.spec_decode",
-                 "repro_torch.models.moe",
+                 "repro_torch.models.moe", "repro_torch.models.mamba",
                  "repro_torch.train.trainer", "repro_torch.launch.train",
                  "repro_torch.checkpoint.checkpoint",
                  "repro_torch.data.pipeline", "repro_torch.runtime.elastic",

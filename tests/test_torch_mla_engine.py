@@ -37,7 +37,12 @@ from repro_torch.core.hardware import TPU_V5E
 from repro_torch.core.policy import IntensityGuidedPolicy
 from repro_torch.core.protected import ABFTConfig
 from repro_torch.models.layers import ModelFault
-from repro_torch.serve.engine import RecoveryPolicy, Request, ServeEngine
+from repro_torch.serve.engine import (
+    Cells,
+    RecoveryPolicy,
+    Request,
+    ServeEngine,
+)
 
 torch.set_num_threads(1)
 
@@ -163,15 +168,17 @@ def test_engine_matches_reference(pair, plain_paged, name):
 
 def test_the_engine_walks_the_latent_leaf(pair):
     """The cache holds one ``latent`` leaf a layer and the engine's
-    gather, scatter and fence walk it."""
+    gather, scatter and fence walk it (its attention cells, ``Cells.kv``:
+    the MLA stack has no per-slot state)."""
     for cache in ("dense", "paged"):
         eng = _engine(True, pair, cache)
         assert all(list(layer) == ["latent"] for layer in eng.cache)
-        assert [t.data_ptr() for t in eng._leaves()] == \
+        cells = Cells(kv=(torch.tensor([1, 0]), torch.tensor([5, 2])),
+                      rows=torch.tensor([0]))
+        assert [t.data_ptr() for t, _ in eng._leaves(cells)] == \
             [layer["latent"].data_ptr() for layer in eng.cache]
-        cells = (torch.tensor([1, 0]), torch.tensor([5, 2]))
         vals = [torch.full((2, leaf.shape[-1]), float(i))
-                for i, leaf in enumerate(eng._leaves())]
+                for i, (leaf, _) in enumerate(eng._leaves(cells))]
         eng._scatter(cells, vals)
         for got, want in zip(eng._gather(cells), vals, strict=True):
             assert torch.equal(got, want)
@@ -272,7 +279,13 @@ def test_spec_on_the_dense_mla_stack_equals_unsped_and_reference(
 
 
 def test_spec_on_the_moe_stack_raises(pair):
+    """Speculation on the MLA + MoE stack is ported (the name is the
+    refusal this test held before): it constructs and serves with the
+    reference's window (``tests/test_torch_moe_spec.py`` holds its
+    streams to the reference's)."""
     jm, jp, tm, tp = pair
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ServeEngine(tm, tp, slots=1, max_len=16, device="cpu",
-                    spec_decode="ngram")
+    eng = ServeEngine(tm, tp, slots=1, max_len=16, device="cpu",
+                      dtype=torch.float32, spec_decode="ngram", draft_len=2)
+    out = eng.run([Request(uid=0, prompt=np.array([5, 6, 5, 6, 5]),
+                           max_new_tokens=4)])
+    assert len(out[0]) == 4 and eng.stats.steps >= 1

@@ -49,7 +49,7 @@ torch.set_num_threads(1)
 
 ARCH = "qwen2-moe-a2.7b"
 SERVED = ("llama3.2-1b", "qwen3-14b", "stablelm-1.6b", "qwen1.5-32b", ARCH,
-          "deepseek-v3-671b")
+          "deepseek-v3-671b", "mamba2-1.3b", "jamba-v0.1-52b")
 SLOTS, MAX_LEN, BS = 3, 32, 8
 
 
@@ -86,7 +86,8 @@ def _ctxs(fault=None, flash=False):
 
 def test_every_config_is_served_or_refused():
     """The port takes GQA stacks with dense and MoE FFNs, full size too
-    (qwen2-moe-a2.7b constructs); the rest raise."""
+    (qwen2-moe-a2.7b constructs), and the SSM family; the rest (whisper,
+    vision) raise."""
     for arch in ALL_ARCHS:
         if arch in SERVED:
             Model(get_config(arch))
@@ -233,12 +234,19 @@ def test_train_step_loss_and_aux_match_reference(stack):
 
 
 def test_verify_refuses_moe_layers(stack):
+    """Verify on the MoE stack is ported (the name is the refusal this
+    test held before): it routes the window's rows through ``moe_forward``
+    (``tests/test_torch_moe_spec.py`` holds the served streams to the
+    reference's)."""
     name, jm, jp, tm, tp = stack
     cache = tm.init_cache(1, 16, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tm.verify(tp, torch.ones(1, 2, dtype=torch.long), cache,
-                  torch.zeros(1, dtype=torch.int32), LayerCtx(),
-                  torch.full((1,), 2))
+    with torch.no_grad():
+        logits, _, flag = tm.verify(
+            tp, torch.ones(1, 2, dtype=torch.long), cache,
+            torch.zeros(1, dtype=torch.int32), LayerCtx(),
+            torch.full((1,), 2))
+    assert logits.shape == (1, 2, tm.cfg.vocab_size) and not bool(flag)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_the_launcher_serves_the_moe_arch(capsys):
@@ -254,13 +262,19 @@ def test_the_launcher_serves_the_moe_arch(capsys):
     assert line["faults_detected"] >= 1
 
 
-def test_the_launcher_refuses_speculation_on_moe():
+def test_the_launcher_refuses_speculation_on_moe(capsys):
+    """Speculation on MoE is ported (the name is the refusal this test
+    held before): the launcher serves with ``--spec-decode``."""
+    import json
+
     from repro_torch.launch import serve
 
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--device", "cpu", "--arch", ARCH, "--spec-decode",
-                    "ngram"])
-    assert "MoE" in str(exc.value)
+    assert serve.main(["--device", "cpu", "--arch", ARCH, "--requests",
+                       "2", "--new-tokens", "4", "--slots", "2",
+                       "--spec-decode", "ngram"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["tokens"] == 8 and line["errors"] == {}
+    assert line["spec_decode"]["draft_len"] >= 1
 
 
 def test_init_routes_dense_and_moe_layers_by_tag():

@@ -101,7 +101,8 @@ def test_unported_architectures_and_sharding_raise():
         == 2
     mla = dataclasses.replace(scaled_down(cfg), attention="mla")
     assert ProtectionPlan.for_model(get_config("deepseek-v3-671b")).entries
-    for bad in (mla, get_config("mamba2-1.3b")):
+    Model(get_config("mamba2-1.3b"))
+    for bad in (mla, get_config("whisper-tiny")):
         with pytest.raises(NotImplementedError):
             Model(bad)
     small = Model(scaled_down(cfg))
