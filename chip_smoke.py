@@ -32,7 +32,10 @@ sharing, chunked prefill and speculation, every greedy stream held to the
 plain run's; ``ssm`` serves, faults and scores the Mamba2 family
 (mamba2-1.3b whole, jamba-v0.1-52b at its published widths and one
 8-layer unit of its interleave), each recovered stream and every slot's
-recurrent state held to the clean run's.  Each phase
+recurrent state held to the clean run's; ``cross`` scores, serves
+(model-level prefill and decode with each request's memory, dense and
+paged) and faults whisper-tiny whole and llama-3.2-vision-11b at its
+published widths and depth, and trains whisper on audio.  Each phase
 prints JSON lines; any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -51,6 +54,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -58,7 +62,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
           "campaign", "profile", "timing", "sharing", "spec", "family",
-          "moe", "mla", "ssm")
+          "moe", "mla", "ssm", "cross")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -619,15 +623,17 @@ def k2_checks(dev) -> dict:
 
 
 def k2_timing(dev, heads=K2_HEADS, L: int = FWD_L,
-              arch: str = ENGINE_ARCH) -> dict:
+              arch: str = ENGINE_ARCH, causal: bool = True) -> dict:
     """K2 at the forward phase's shapes (B=2, L=1024, llama heads, bf16;
-    ``heads`` = (B, H, KV, D) and ``L`` for another path's),
-    one launch: kernel, plain version, ``scaled_dot_product_attention``
-    (causal, GQA) and the bound.  Bytes: q, k, v and o once, and the four
-    (B, H, L) check vectors; operations at the bf16 tensor-core rate: S
-    over every (query, key) pair, since the score check is taken before
-    the causal mask (2 B H L^2 D), and PV over the pairs the mask admits
-    (2 B H D L(L+1)/2), as p is exactly 0 on the others."""
+    ``heads`` = (B, H, KV, D) and ``L`` for another path's; ``causal``
+    off for whisper's encoder), one launch: kernel, plain version,
+    ``scaled_dot_product_attention`` (same mask, GQA) and the bound.
+    Bytes: q, k, v and o once, and the four (B, H, L) check vectors;
+    operations at the bf16 tensor-core rate: S over every (query, key)
+    pair, since the score check is taken before the causal mask
+    (2 B H L^2 D), and PV over the pairs the mask admits (2 B H D
+    L(L+1)/2 causal, as p is exactly 0 on the others; 2 B H L^2 D
+    without the mask)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_kernel,
         flash_attention_ref,
@@ -636,7 +642,7 @@ def k2_timing(dev, heads=K2_HEADS, L: int = FWD_L,
     gen = torch.Generator(device=dev).manual_seed(9)
     B, H, KV, D = heads
     q, k, v = _k2_inputs(gen, dev, B, L, H, KV, D, torch.bfloat16)
-    kw = dict(causal=True, **_k2_blocks(L))
+    kw = dict(causal=causal, **_k2_blocks(L))
     o = flash_attention_kernel(q, k, v, **kw)[0]
     op = flash_attention_ref(q, k, v, **kw)[0]
     err = (o.float() - op.float()).abs().max().item()
@@ -644,12 +650,14 @@ def k2_timing(dev, heads=K2_HEADS, L: int = FWD_L,
 
     def lib():
         torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
 
     byts = 2 * (2 * B * L * H * D + 2 * B * L * KV * D) + 4 * 4 * B * H * L
-    flops = 2.0 * B * H * L * L * D + 2.0 * B * H * D * L * (L + 1) / 2
+    flops = 2.0 * B * H * L * L * D + 2.0 * B * H * D * (
+        L * (L + 1) / 2 if causal else L * L)
     t_b, t_f = byts / HBM_BW, flops / PEAK_BF16
     rec = {"arch": arch, "B": B, "L": L, "H": H, "KV": KV, "D": D,
+           "causal": causal,
            "ms": timed_graph(lambda: flash_attention_kernel(q, k, v, **kw),
                              iters=10),
            "plain_ms": timed_graph(lambda: flash_attention_ref(q, k, v, **kw),
@@ -1044,13 +1052,8 @@ def engine_runs(dev) -> dict:
 def decode_profile(dev, eng_out, steps: int = 4) -> dict:
     """Where a decode step's time goes: ``steps`` decode steps of the
     dense engine (4 slots, the same configuration as the main run) under
-    ``torch.profiler``.  Device ms per step is the sum of the kernels'
-    device time (one stream: no overlap).  The profiler slows the host, so
-    the idle share is taken against the unprofiled median decode step of
-    the main run: 1 - device / that median."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    ``torch.profiler`` (``_profile_steps``), against the unprofiled
+    median decode step of the main run."""
     from repro_torch.core.hardware import NVIDIA_H100_SXM
     from repro_torch.core.protected import ABFTConfig
     from repro_torch.serve.engine import Request, ServeEngine
@@ -1063,22 +1066,39 @@ def decode_profile(dev, eng_out, steps: int = 4) -> dict:
     pending = [Request(uid=i, prompt=p, max_new_tokens=steps + 2)
                for i, p in enumerate(eng_out["prompts"][:4])]
     eng.admit(pending)
-    eng.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(steps):
-            need(eng.step(), "profiled decode step decoded nothing")
+
+    def step():
+        need(eng.step(), "profiled decode step decoded nothing")
+
+    return _profile_steps(step, steps,
+                          eng_out["dense"]["decode_step_ms_median"])
+
+
+def _profile_steps(step, steps: int, step_ms: float) -> dict:
+    """``step()`` once, then ``steps`` more calls under ``torch.profiler``.
+    Device ms per step is the sum of the kernels' device time (one stream:
+    no overlap).  The profiler slows the host, so the idle share is taken
+    against the unprofiled median step ``step_ms``: 1 - device / that
+    median."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     by_name = sorted(((e.key, e.device_time_total / 1e3 / steps,
                        e.count / steps) for e in kernels),
                      key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in by_name)
-    step_ms = eng_out["dense"]["decode_step_ms_median"]
     return {"steps": steps, "profiled_wall_ms_per_step": 1e3 * wall / steps,
             "unprofiled_step_ms": step_ms,
             "device_ms_per_step": dev_ms if kernels else None,
@@ -1592,6 +1612,42 @@ def _gemm_sites(params) -> dict:
     return sites
 
 
+def _k1_site_check(dev, gen, cfg, tag, w, out_dtype, m: int, *,
+                   one_slice: bool = False, faulted: bool = False) -> tuple:
+    """K1 against its plain version at one GEMM site: x (m, K) from
+    ``gen``, mode 1s on the route the path takes (with ``one_slice``, on
+    that plan); y, bounds and no false flag, with ``family_checks``'
+    tolerances; a value fault and a bit flip placed
+    (``_k1_fault_check``) where ``faulted``.  Returns (max abs error of
+    y, max|y|, clean residual / threshold, route)."""
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.abft_matmul import abft_matmul_kernel, route
+    from repro_torch.kernels.ref import abft_matmul_ref
+
+    k, n = w.shape
+    x = torch.randn(m, k, generator=gen, device=dev).to(w.dtype)
+    bm, bk, bn = (min(b, -(-d // 8) * 8) for b, d in
+                  ((256, m), (512, k), (256, n)))
+    kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+    y, _, bnd = abft_matmul_kernel(x, w, **kw, one_slice=one_slice)
+    yp, _, bndp = abft_matmul_ref(x, w, **kw)
+    scale = yp.float().abs().max().item()
+    tol = (1e-4 if out_dtype == torch.float32 else 2 ** -7) * scale
+    err = (y.float() - yp.float()).abs().max().item()
+    need(err <= tol, f"K1 {cfg.name} {tag}: err {err} > {tol}")
+    berr = ((bnd - bndp).abs() / bndp.abs().clamp_min(1e-30)).max()
+    need(berr.item() <= 1e-4, f"K1 {cfg.name} bnd {tag}: {berr.item()}")
+    del y, yp, bnd, bndp
+    _, chk = ops.abft_matmul(x, w, mode="1s", out_dtype=out_dtype,
+                             one_slice=one_slice)
+    need(not bool(chk.flag), f"K1 false flag {cfg.name} {tag} (K={k})")
+    if faulted:
+        _k1_fault_check(ops, FaultSpec, x, w, "1s", out_dtype,
+                        f"{cfg.name} {tag}", one_slice=one_slice)
+    return err, scale, _ratio(chk), route(x, w, bn, "1s")
+
+
 def family_checks(dev, cfg, params, k2: bool = True) -> dict:
     """K1 and K2 against their plain versions at ``cfg``'s shapes, before
     its main path runs.  K1: each 2-D GEMM site's real weights
@@ -1611,15 +1667,11 @@ def family_checks(dev, cfg, params, k2: bool = True) -> dict:
     router's output) at the deepest K; bounds within 1e-4 relative; clean
     residuals under the threshold on both sides."""
     from repro_torch.core.checksums import ATOL, tolerance_scale
-    from repro_torch.core.faults import FaultSpec
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.abft_matmul import abft_matmul_kernel, route
     from repro_torch.kernels.flash_attention import (
         flash_attention_kernel,
         flash_attention_ref,
         tc_path,
     )
-    from repro_torch.kernels.ref import abft_matmul_ref
 
     gemms = _gemm_sites(params)
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1627,37 +1679,16 @@ def family_checks(dev, cfg, params, k2: bool = True) -> dict:
     one_abs = 0.0
     for m, one in ((4, False), (1024, False), (256, True), (1024, True)):
         for name, (w, out_dtype) in gemms.items():
-            k, n = w.shape
-            x = torch.randn(m, k, generator=gen, device=dev).to(w.dtype)
-            bm, bk, bn = (min(b, -(-d // 8) * 8) for b, d in
-                          ((256, m), (512, k), (256, n)))
-            kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
             tag = f"{name}_m{m}" + ("_one_slice" if one else "")
-            y, _, bnd = abft_matmul_kernel(x, w, **kw, one_slice=one)
-            yp, _, bndp = abft_matmul_ref(x, w, **kw)
-            scale = yp.float().abs().max().item()
-            tol = (1e-4 if out_dtype == torch.float32 else 2 ** -7) * scale
-            err = (y.float() - yp.float()).abs().max().item()
-            need(err <= tol, f"K1 {cfg.name} {tag}: err {err} > {tol}")
-            berr = ((bnd - bndp).abs() / bndp.abs().clamp_min(1e-30)).max()
-            need(berr.item() <= 1e-4, f"K1 {cfg.name} bnd {tag}: "
-                 f"{berr.item()}")
-            del y, yp, bnd, bndp
-            _, chk = ops.abft_matmul(x, w, mode="1s", out_dtype=out_dtype,
-                                     one_slice=one)
-            need(not bool(chk.flag), f"K1 false flag {cfg.name} {tag} "
-                 f"(K={k})")
-            ratios[tag] = _ratio(chk)
-            routes_taken[tag] = route(x, w, bn, "1s")
+            err, scale, ratios[tag], routes_taken[tag] = _k1_site_check(
+                dev, gen, cfg, tag, w, out_dtype, m, one_slice=one,
+                faulted=name in ("down", "shared_down", "q_a", "kv_a",
+                                 "ssm_in_x", "ssm_out"))
             worst = max(worst, err / max(scale, 1e-30))
             if one:
                 one_abs = max(one_abs, err)
             else:
                 worst_abs = max(worst_abs, err)
-            if name in ("down", "shared_down", "q_a", "kv_a", "ssm_in_x",
-                        "ssm_out"):
-                _k1_fault_check(ops, FaultSpec, x, w, "1s", out_dtype,
-                                f"{cfg.name} {name}", one_slice=one)
     need(all(v < 1 for v in ratios.values()),
          f"K1 clean residual at or over its threshold: {ratios}")
     rec = {"k1_max_rel_err_y": worst, "k1_max_abs_err": worst_abs,
@@ -1689,24 +1720,29 @@ def family_checks(dev, cfg, params, k2: bool = True) -> dict:
             "k2_worst_clean_residual_over_threshold": k2_ratio}
 
 
-def _forward_f32_layerwise(model, params, tokens):
+def _forward_f32_layerwise(model, params, tokens, mem=None):
     """Final hidden states of ``params`` run in f32, cast one layer at a
     time (the whole model in f32 does not fit beside its bf16 weights at
     14B and 32B): plain matmuls (ABFT off, TF32 off) and chunked
-    attention, through the model's own ``apply_layer``."""
+    attention, through the model's own ``apply_layer``; ``mem`` (f32,
+    ``_memory_f32``) reaches each cross layer, and whisper's embeddings
+    get their sinusoids."""
     from repro_torch.core.protected import ABFTConfig
     from repro_torch.core.tree import tree_map
     from repro_torch.models.layers import LayerCtx, norm
+    from repro_torch.models.model import sinusoid_pos
 
     cfg = model.cfg
     ctx = LayerCtx(abft=ABFTConfig(enabled=False))
     B, L = tokens.shape
     x = params["embed"][tokens].float()
     positions = torch.arange(L, device=tokens.device).expand(B, L)
+    if cfg.is_encoder_decoder:
+        x = x + sinusoid_pos(positions, cfg.d_model)
     for i, lp in enumerate(params["layers"]):
         x, _, _, _ = model.apply_layer(x, tree_map(lambda t: t.float(), lp),
                                        ctx.with_layer(i), positions, "full",
-                                       None)
+                                       None, mem=mem)
     return norm(x, tree_map(lambda t: t.float(), params["final_norm"]),
                 cfg.norm, cfg.norm_eps)
 
@@ -4562,6 +4598,683 @@ def _add_ssm(kernels, ssm) -> None:
             rows[arch] = row
 
 
+# ------------------------------------------------------------------ cross
+
+CROSS_ARCHS = ("whisper-tiny", "llama-3.2-vision-11b")
+# the vision model's cross gates: the reference initialises them to 0,
+# where tanh(0) = 0 and the images never reach the logits, so nothing of
+# the cross path would be held to anything; every gate of the phase is
+# set to this (tanh(0.5) = 0.46 of each cross layer's output passes)
+CROSS_GATE = 0.5
+# whisper's published 30 s window: 3000 log-mel frames, 1500 after the
+# stem; K2's non-causal blocks take no padding (1500 pads to 1536 and
+# raises, as the reference asserts), so the paths on K2 get 2048 mel
+# frames (1024 after the stem, 20.48 s of audio)
+WHISPER_MELS, WHISPER_FLASH_MELS = 3000, 2048
+WHISPER_L = 448                  # whisper's decoder context, the score's L
+# the scores' gates: the bf16 run's memory, and whisper's logits (4
+# layers), against the same weights run in f32 (layer by layer), as a
+# share of each one's scale.  The vision model's logits through 40 bf16
+# layers are held as ``family_score`` holds the dense family's (qwen3-14b's
+# 40 bf16 layers sit 6.4% of the scale off f32 in the ``family`` phase):
+# the flash path against the chunked path's own error
+CROSS_SCORE_TOL = 0.05
+# new tokens a request: whisper 32 decode steps after its prefill's
+# token, the vision model 16 tokens
+CROSS_NEW = {"whisper-tiny": 33, "llama-3.2-vision-11b": 16}
+CROSS_MAX_LEN, CROSS_BS = 512, 16
+# llama-3.2-vision-11b's depth run: all 40 layers (8 cross layers)
+VISION_LAYERS = 40
+
+
+def cross_config(arch):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if cfg.vision_dim and VISION_LAYERS < cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=VISION_LAYERS)
+    return cfg
+
+
+def _memory_inputs(cfg, B, dev, seed, mels=WHISPER_MELS):
+    """Random bf16 memory inputs from ``seed``: whisper's ``audio``
+    (B, mels, 80) log-mel frames, the vision model's ``images`` (B, 1601,
+    1280) patch embeddings (its frontend is a stub in the reference
+    too)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.is_encoder_decoder:
+        shape, name = (B, mels, cfg.n_mels), "audio"
+    else:
+        shape, name = (B, cfg.n_image_tokens, cfg.vision_dim), "images"
+    return {name: torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16)}
+
+
+def _cross_ctx(flash: bool = True, fault=None):
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import IntensityGuidedPolicy
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.models.layers import LayerCtx
+
+    return LayerCtx(abft=ABFTConfig.from_policy(
+        IntensityGuidedPolicy(), hardware=NVIDIA_H100_SXM,
+        flash_attention=flash), fault=fault)
+
+
+def memory_k1_checks(dev, cfg, sites) -> dict:
+    """K1 against its plain version at the memory path's GEMM sites:
+    ``sites`` maps a name to (weight, output dtype, row counts, fault);
+    ``_k1_site_check`` at each row count, its fault where set."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    ratios, routes_taken, worst, worst_abs = {}, {}, 0.0, 0.0
+    for name, (w, out_dtype, ms, faulted) in sites.items():
+        for m in ms:
+            tag = f"{name}_m{m}"
+            err, scale, ratios[tag], routes_taken[tag] = _k1_site_check(
+                dev, gen, cfg, tag, w, out_dtype, m, faulted=faulted)
+            worst = max(worst, err / max(scale, 1e-30))
+            worst_abs = max(worst_abs, err)
+    need(all(v < 1 for v in ratios.values()),
+         f"K1 clean residual at or over its threshold: {ratios}")
+    rec = {"k1_max_rel_err_y": worst, "k1_max_abs_err": worst_abs,
+           "k1_routes": routes_taken,
+           "k1_worst_clean_residual_over_threshold": max(ratios.values()),
+           "faulted_sites": [s for s, v in sites.items() if v[3]]}
+    emit("cross_k1_check", arch=cfg.name, **rec)
+    return rec
+
+
+def k2_noncausal_check(dev, cfg, L: int = 1024, B: int = 2) -> dict:
+    """K2 non-causal at ``cfg``'s heads (whisper: H = KV = 6, D = 64) over
+    L = 1024 frames, bf16, against its plain version (the tolerances of
+    ``k2_checks``: each element within 2^-7 |o_ref| + 1e-5 max|o|, bounds
+    within 1e-4 relative, clean residuals under their thresholds); 1500
+    frames raise in the wrapper, as the reference's assert does."""
+    from repro_torch.core.checksums import ATOL, tolerance_scale
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_kernel,
+        flash_attention_ref,
+        tc_path,
+    )
+    from repro_torch.kernels.flash_ops import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = _k2_inputs(gen, dev, B, L, H, KV, D, torch.bfloat16)
+    kw = dict(causal=False, **_k2_blocks(L))
+    got = flash_attention_kernel(q, k, v, **kw)
+    ref = flash_attention_ref(q, k, v, **kw)
+    o_ref = ref[0].float()
+    share = ((got[0].float() - o_ref).abs()
+             / (2 ** -7 * o_ref.abs() + 1e-5 * o_ref.abs().max())).max()
+    need(share.item() <= 1, f"K2 non-causal {cfg.name}: an element off by "
+         f"{share.item()} x its tolerance")
+    for gi, ri, nm in ((got[2], ref[2], "bnd_s"), (got[4], ref[4], "bnd_pv")):
+        rel = ((gi - ri).abs() / ri.abs().clamp_min(1e-30)).max().item()
+        need(rel <= 1e-4, f"K2 non-causal {cfg.name} {nm}: rel {rel}")
+    ratio = max(
+        (got[1] / (ATOL + tolerance_scale(D) * got[2])).max().item(),
+        (got[3] / (ATOL + tolerance_scale(L) * got[4])).max().item())
+    need(ratio < 1, f"K2 non-causal {cfg.name}: clean residual over "
+         f"threshold")
+    _, chk = flash_attention(q, k, v, causal=False)
+    need(not bool(chk.flag), f"K2 non-causal {cfg.name}: false flag")
+    q15, k15, v15 = _k2_inputs(gen, dev, 1, 1500, H, KV, D, torch.bfloat16)
+    try:
+        flash_attention(q15, k15, v15, causal=False)
+    except ValueError:
+        pass
+    else:
+        fail("K2 non-causal at 1500 frames did not raise")
+    rec = {"B": B, "L": L, "H": H, "KV": KV, "D": D,
+           "tc": tc_path(q, k, v, kw["bk"]),
+           "bf16_worst_err_over_tolerance": share.item(),
+           "max_abs_err": (got[0].float() - o_ref).abs().max().item(),
+           "worst_clean_residual_over_threshold": ratio,
+           "raises_at_1500_frames": True}
+    emit("cross_k2_check", arch=cfg.name, **rec)
+    return rec
+
+
+def _memory_f32(model, params, inputs):
+    """The memory of ``inputs`` run in f32 (ABFT off, TF32 off): the f32
+    stem and encoder (whisper: 8M parameters) or the f32 projection
+    (vision), through the model's own ``_memory``."""
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.layers import LayerCtx
+
+    dev = params["embed"].device
+    f32 = {"embed": torch.zeros(1, device=dev),
+           **{k: tree_map(lambda t: t.float(), params[k])
+              for k in ("encoder", "conv_stem", "vision_proj")
+              if k in params}}
+    mem, _ = model._memory(f32, {k: v.float() for k, v in inputs.items()},
+                           LayerCtx(abft=ABFTConfig(enabled=False)), dev)
+    return mem
+
+
+def memory_score(dev, model, params, tokens, inputs, flash: bool,
+                 label: str, moved_by=None) -> dict:
+    """``Model.forward`` of ``tokens`` with its memory ``inputs`` under
+    ``IntensityGuidedPolicy``, flash on or off: logits finite, f32, no
+    flag; K2 once an attention layer of both stacks with flash on (the
+    encoder's non-causal), never with it off.  The memory (``_memory``)
+    held within ``CROSS_SCORE_TOL`` of its scale; the logits (the head in column chunks) too, unless
+    ``moved_by`` is given (the vision model); both against
+    ``_memory_f32`` and ``_forward_f32_layerwise``.  There the flash run is
+    held as ``family_score`` holds it: the same forward on the chunked
+    path, its error against f32 at most 1.5 x the chunked path's and the
+    two paths apart by at most 2.5 x it; the same inputs again give
+    bit-equal logits, and the other memory inputs ``moved_by`` other
+    logits (the images reach them through the open gates)."""
+    from repro_torch.kernels import abft_matmul, flash_attention
+
+    K1, K2 = abft_matmul.KERNEL, flash_attention.FULL_KERNEL
+    cfg = model.cfg
+    batch = {"tokens": tokens, **inputs}
+
+    def run(on, b=batch):
+        torch.cuda.synchronize()
+        K1.launches = K2.launches = 0
+        t = time.perf_counter()
+        with torch.no_grad():
+            out = model.forward(params, b, _cross_ctx(on), device=dev)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t), {
+            "abft_matmul": K1.launches, "flash_attention": K2.launches}
+
+    ctx = _cross_ctx(flash)
+    out, ms, launches = run(flash)
+    lg = out.logits
+    B, L = tokens.shape
+    need(lg.shape == (B, L, cfg.vocab_size) and lg.dtype == torch.float32,
+         f"{cfg.name} {label}: logits {tuple(lg.shape)}")
+    need(bool(torch.isfinite(lg).all()), f"{cfg.name} {label}: non-finite "
+         f"logits")
+    need(not bool(out.flag), f"{cfg.name} {label}: a clean forward flagged")
+    n_attn = cfg.n_layers + (cfg.n_enc_layers if cfg.is_encoder_decoder
+                             else 0)
+    need(K2.launches == (n_attn if flash else 0), f"{cfg.name} {label}: K2 "
+         f"launched {K2.launches} times, expected {n_attn if flash else 0}")
+    need(K1.launches > 0, f"{cfg.name} {label}: K1 never launched")
+    lc = None
+    if moved_by is not None:
+        chunked, ms_c, _ = run(False)
+        lc = chunked.logits
+        need(not bool(chunked.flag) and bool(torch.isfinite(lc).all()),
+             f"{cfg.name} {label}: the chunked forward flagged or is not "
+             f"finite")
+        again, _, _ = run(flash)
+        same = torch.equal(again.logits, lg)
+        other, _, _ = run(flash, {"tokens": tokens, **moved_by})
+        moved = (other.logits - lg).abs().max().item()
+        del chunked, again, other
+    with torch.no_grad():
+        mem, _ = model._memory(params, inputs, ctx, dev)
+        mem32 = _memory_f32(model, params, inputs)
+        mem_err = (mem.float() - mem32).abs().max().item()
+        mem_scale = mem32.abs().max().item()
+        h32 = _forward_f32_layerwise(model, params, tokens, mem32)
+        del mem, mem32
+        head = params["lm_head"] if "lm_head" in params \
+            else params["embed"].t()
+        err = err_c = diff = 0.0
+        for c0 in range(0, cfg.vocab_size, 16384):
+            c1 = min(c0 + 16384, cfg.vocab_size)
+            l32 = h32 @ head[:, c0:c1].float()
+            err = max(err, (lg[..., c0:c1] - l32).abs().max().item())
+            if lc is not None:
+                err_c = max(err_c, (lc[..., c0:c1] - l32).abs().max().item())
+                diff = max(diff, (lg[..., c0:c1] - lc[..., c0:c1]).abs()
+                           .max().item())
+        del h32, l32
+    scale = lg.abs().max().item()
+    rec = dict(label=label, B=B, L=L, memory_shape=[
+        list(v.shape) for v in inputs.values()], flash=flash,
+        launches=launches, ms=ms, tokens_per_s=B * L / (ms / 1e3),
+        memory_scale=mem_scale, memory_max_abs_err_vs_f32=mem_err,
+        logits_scale=scale, logits_max_abs_err_vs_f32=err,
+        tolerance_share=CROSS_SCORE_TOL)
+    if lc is not None:
+        rec.update(chunked_ms=ms_c, logits_max_abs_err_chunked_vs_f32=err_c,
+                   logits_max_abs_diff_flash_vs_chunked=diff,
+                   same_memory_bit_equal=same,
+                   logits_moved_by_other_memory=moved)
+    del out, lg, lc
+    emit("cross_score", arch=cfg.name, **rec)
+    need(mem_err <= CROSS_SCORE_TOL * mem_scale, f"{cfg.name} {label}: "
+         f"memory vs f32 {mem_err} > {CROSS_SCORE_TOL} x {mem_scale}")
+    if moved_by is None:
+        need(err <= CROSS_SCORE_TOL * scale, f"{cfg.name} {label}: logits "
+             f"vs f32 {err} > {CROSS_SCORE_TOL} x {scale}")
+        return rec
+    need(err <= 1.5 * err_c, f"{cfg.name} {label}: flash vs f32 err {err} "
+         f"> 1.5 x the chunked path's {err_c}")
+    need(diff <= 2.5 * err_c, f"{cfg.name} {label}: flash vs chunked "
+         f"logits {diff} > 2.5 x {err_c} (chunked vs f32)")
+    need(same and moved > 0, f"{cfg.name} {label}: the same images gave "
+         f"bit-equal logits: {same}; other images moved them by {moved}")
+    return rec
+
+
+def _cross_leaves(cache) -> list:
+    return [t.clone() for layer in cache
+            for t in layer.get("cross", {}).values()]
+
+
+def memory_serve(dev, model, params, prompts, inputs, cache_kind, *,
+                 new: int, label: str, prefill_fault=None,
+                 decode_fault=None, profile_steps: int = 0) -> tuple:
+    """Model-level serving (the engine refuses a memory model, as the
+    reference's cannot serve one): the prompts (one request a row, each
+    with its own memory in ``inputs``) prefilled at once into slots
+    0..B-1 of a batch-deep cache or of 16-token pools through a block
+    table, ragged lengths, then ``new - 1`` greedy decode steps of every
+    row, flash on; each call timed to a synchronize, K1/K2/K3 counted
+    from 0.  ``prefill_fault``/``decode_fault``: a ``ModelFault`` on the
+    prefill, or on decode step 3, whose call must be flagged; the clean
+    call is then made again in its place (a prefill rewrites every cell
+    and cross row it wrote, a decode step its cursor's cells).  The cross
+    K/V after the prefill must stay unchanged through decode.
+    ``profile_steps``: that many more decode steps under
+    ``torch.profiler`` after the run (``_profile_steps``).  Returns
+    (streams, record, cache)."""
+    from repro_torch.kernels import abft_matmul, flash_attention
+    from repro_torch.serve.paged_cache import BlockPool
+
+    K1, K2, K3 = (abft_matmul.KERNEL, flash_attention.FULL_KERNEL,
+                  flash_attention.KERNEL)
+    cfg = model.cfg
+    B = len(prompts)
+    lengths = np.array([len(p) for p in prompts], np.int32)
+    toks = np.zeros((B, int(lengths.max())), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    tok_t = torch.from_numpy(toks).to(dev)
+    len_t = torch.from_numpy(lengths).to(dev)
+    slots = torch.arange(B, dtype=torch.int32, device=dev)
+    if cache_kind == "dense":
+        cache = model.init_cache(B, CROSS_MAX_LEN, dtype=torch.bfloat16,
+                                 device=dev)
+        tables = None
+    else:
+        width = CROSS_MAX_LEN // CROSS_BS
+        pool = BlockPool(B * width, CROSS_BS, B, width)
+        for s, n in enumerate(lengths):
+            pool.alloc(s, int(n) + new + profile_steps)
+        cache = model.init_paged_cache(B * width, CROSS_BS,
+                                       dtype=torch.bfloat16, device=dev,
+                                       slots=B)
+        tables = torch.from_numpy(pool.tables).to(dev)
+    ctx = _cross_ctx(True)
+    faults = 0
+
+    def prefill(c):
+        return model.prefill(params, tok_t, cache, c, slots=slots,
+                             lengths=len_t, block_tables=tables,
+                             inputs=inputs)
+
+    torch.cuda.synchronize()
+    K1.launches = K2.launches = K3.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        if prefill_fault is not None:
+            _, _, flag = prefill(_cross_ctx(True, prefill_fault))
+            need(bool(flag), f"{cfg.name} {label}: the prefill fault was "
+                 f"not flagged")
+            faults += 1
+        lg, cache, flag = prefill(ctx)
+        need(not bool(flag), f"{cfg.name} {label}: a clean prefill flagged")
+        tok = lg[:, 0].argmax(-1)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        k2_prefill = K2.launches
+        cross0 = _cross_leaves(cache)
+        streams = [[t] for t in tok.tolist()]
+        pos = len_t.clone()
+        step_ms, k3_steps = [], []
+        for step in range(new - 1):
+            t = time.perf_counter()
+            k3 = K3.launches
+            if decode_fault is not None and step == 3:
+                _, _, flag = model.decode(params, tok[:, None], cache, pos,
+                                          _cross_ctx(True, decode_fault),
+                                          block_tables=tables)
+                need(bool(flag), f"{cfg.name} {label}: the decode fault was "
+                     f"not flagged")
+                faults += 1
+                k3 = K3.launches
+            lg, cache, flag = model.decode(params, tok[:, None], cache, pos,
+                                           ctx, block_tables=tables)
+            need(not bool(flag), f"{cfg.name} {label}: a clean decode step "
+                 f"flagged")
+            tok = lg[:, 0].argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            k3_steps.append(K3.launches - k3)
+            for i, t in enumerate(tok.tolist()):
+                streams[i].append(t)
+            pos = pos + 1
+    seconds = time.perf_counter() - t0
+    need(all(torch.equal(a, b) for a, b in zip(cross0,
+                                               _cross_leaves(cache))),
+         f"{cfg.name} {label}: the cross K/V changed during decode")
+    need(all(0 <= t < cfg.vocab_size for s in streams for t in s),
+         f"{cfg.name} {label}: token out of range")
+    rec = dict(label=label, cache=cache_kind, requests=B,
+               prompt_lengths=lengths.tolist(), new_tokens=new,
+               prefill_ms=prefill_ms, k2_prefill_launches=k2_prefill,
+               decode_step_ms_median=float(np.median(step_ms)),
+               decode_tokens_per_s=B * len(step_ms) / (sum(step_ms) / 1e3),
+               seconds=seconds,
+               launches={"abft_matmul": K1.launches,
+                         "flash_attention": K2.launches,
+                         "flash_decode": K3.launches},
+               flash_decode_per_step=sorted(set(k3_steps)),
+               faults_flagged=faults, cross_unchanged_in_decode=True)
+    if profile_steps:
+        rec["profile"] = _profile_steps(
+            lambda: model.decode(params, tok[:, None], cache, pos, ctx,
+                                 block_tables=tables),
+            profile_steps, rec["decode_step_ms_median"])
+    emit("cross_serve", arch=cfg.name, **rec)
+    return streams, rec, cache
+
+
+def _decode_bound_ms(params, cache, lengths) -> tuple:
+    """The least a decode step of ``cache``'s rows can take: the bytes it
+    must read once (every weight a decode step reads: not the memory path's
+    stem, encoder, projection and cross K/V weights, nor the embedding
+    table beyond its rows; the self-attention K/V at ``lengths``; every
+    cross K/V) over the card's memory rate.  Returns (ms, bytes)."""
+    from repro_torch.core.tree import tree_leaves_with_path
+
+    byts = 0
+    for path, t in tree_leaves_with_path(params):
+        if path[0] in ("embed", "encoder", "conv_stem", "vision_proj") or (
+                "cross" in path and path[-1] in ("wk", "wv")):
+            continue
+        byts += t.numel() * t.element_size()
+    for layer in cache:
+        if "k" in layer:
+            per_tok = layer["k"][0, 0].numel() * layer["k"].element_size()
+            byts += 2 * per_tok * int(sum(lengths))
+        for t in layer.get("cross", {}).values():
+            byts += t.numel() * t.element_size()
+    return byts / HBM_BW * 1e3, byts
+
+
+def whisper_train(dev, cfg) -> dict:
+    """Two f32 train steps of full-size whisper-tiny with ``audio``
+    (``make_train_step``, 2 x 128 tokens, 2 x 3000 x 80 mel frames, flash
+    off: K2 has no backward), each held against the same step from the
+    same state under ``--abft off``: loss within 1e-5 relative, grad norm
+    within 1e-4 (``train_runs``' gate); finite, no flag, K1 launched."""
+    from repro_torch.kernels import abft_matmul
+    from repro_torch.launch.train import abft_config
+    from repro_torch.models.model import Model
+    from repro_torch.train import OptConfig, TrainConfig, make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+
+    K1 = abft_matmul.KERNEL
+    model = Model(cfg)
+    params = model.init_params(0, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(1, cfg.vocab_size, size=(2, 129))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+             "labels": torch.from_numpy(toks[:, 1:]).to(dev),
+             **{k: v.float() for k, v in _memory_inputs(
+                 cfg, 2, dev, 5).items()}}
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4))
+    on = make_train_step(model, abft_config("auto"), tcfg, device=dev)
+    off = make_train_step(model, abft_config("off"), tcfg, device=dev)
+    state = init_opt_state(params, tcfg.opt)
+    steps = []
+    for _ in range(2):
+        K1.launches = 0
+        t = time.perf_counter()
+        p1, s1, m1 = on(params, state, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        k1 = K1.launches
+        _, _, m0 = off(params, state, batch)
+        loss_rel = abs(m1["loss"].item() - m0["loss"].item()) \
+            / abs(m0["loss"].item())
+        gn_rel = abs(m1["grad_norm"].item() - m0["grad_norm"].item()) \
+            / m0["grad_norm"].item()
+        need(np.isfinite(m1["loss"].item()) and not bool(m1["abft_flag"])
+             and k1 > 0, f"whisper train step: {m1['loss'].item()} "
+             f"flag {bool(m1['abft_flag'])} K1 {k1}")
+        need(loss_rel <= 1e-5 and gn_rel <= 1e-4, f"whisper train step vs "
+             f"abft off: loss rel {loss_rel}, grad norm rel {gn_rel}")
+        steps.append(dict(loss=m1["loss"].item(),
+                          grad_norm=m1["grad_norm"].item(),
+                          loss_rel_vs_off=loss_rel,
+                          grad_norm_rel_vs_off=gn_rel, k1_launches=k1,
+                          ms=ms))
+        params, state = p1, s1
+    emit("cross_train", arch=cfg.name, steps=steps)
+    return {"steps": steps}
+
+
+def _cross_prompts(cfg, n: int = 4) -> list:
+    """``engine_inputs``' first ``n`` prompt lengths (16-256 tokens) with
+    tokens of ``cfg``'s vocabulary."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 257, size=8)[:n]
+    return [rng.integers(1, cfg.vocab_size, size=int(m)).astype(np.int32)
+            for m in lens]
+
+
+def cross_arch(dev, arch) -> dict:
+    """One memory config at full size (whisper-tiny whole, the vision
+    model's published widths at ``VISION_LAYERS``; bf16 weights from seed
+    0, made on the card, every vision cross gate at ``CROSS_GATE``): K1 at
+    the new GEMM sites (``memory_k1_checks``), whisper's K2 non-causal
+    (``k2_noncausal_check``); the scores (``memory_score``: whisper at
+    2 x 448 tokens over 3000 mel frames with flash off and over 2048 with
+    flash on, vision at 1 x 1024 tokens with 1601 image tokens, flash on,
+    the images moving the logits); serving (``memory_serve``: 4 requests
+    of 16-256 tokens, each with its own memory, dense and paged, streams
+    equal; whisper with a ``mlp_down`` decode fault, vision with a
+    ``cross_qkv`` prefill fault, each recomputed to the clean streams);
+    whisper's two train steps; the kernels timed at its shapes.  Frees
+    its weights before it returns."""
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.models.model import Model, layer_tags
+
+    t0 = time.perf_counter()
+    cfg = cross_config(arch)
+    model = Model(cfg)
+    whisper = cfg.is_encoder_decoder
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params = model.init_params(0, dtype=torch.bfloat16, device=dev)
+    for lp in params["layers"]:
+        if "cross_gate" in lp:
+            lp["cross_gate"].fill_(CROSS_GATE)
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    tags = layer_tags(cfg)
+    emit("cross_plan", arch=arch, layers=cfg.n_layers,
+         enc_layers=cfg.n_enc_layers if whisper else 0,
+         cross_layers=sum(t.endswith(":1") for t in tags),
+         init_s=time.perf_counter() - t1, weights_gb=weights / 1e9,
+         **family_plan(cfg))
+    bf, f32 = torch.bfloat16, torch.float32
+    gs = _gemm_sites(params)
+    if whisper:
+        enc = params["encoder"]["layers"][0]
+        m_enc = 2 * (WHISPER_MELS // 2)           # 2 x 1500 frames
+        sites = {**{n: (w, od, (4, 2 * WHISPER_L), False)
+                    for n, (w, od) in gs.items()},
+                 "enc_q": (enc["mixer"]["wq"], bf, (m_enc,), False),
+                 "enc_kv": (enc["mixer"]["wk"], bf, (m_enc,), False),
+                 "enc_o": (enc["mixer"]["wo"], bf, (m_enc,), False),
+                 "enc_up": (enc["ffn"]["up"], bf, (m_enc,), False),
+                 "enc_down": (enc["ffn"]["down"], bf, (m_enc,), True)}
+    else:
+        cl = next(lp for lp in params["layers"] if "cross" in lp)["cross"]
+        n_img = cfg.n_image_tokens
+        sites = {"vision_proj": (params["vision_proj"], bf,
+                                 (n_img, 4 * n_img), True),
+                 "cross_q": (cl["wq"], bf, (4, 1024), False),
+                 "cross_kv": (cl["wk"], bf, (n_img, 4 * n_img), True),
+                 "cross_o": (cl["wo"], bf, (4, 1024), False),
+                 "head": (gs["head"][0], f32, (4,), False)}
+    checks = memory_k1_checks(dev, cfg, sites)
+    if whisper:
+        head_routes = {r for t, r in checks["k1_routes"].items()
+                       if t.startswith("head")}
+        need(head_routes == {"tiled"}, f"whisper head (N = "
+             f"{cfg.vocab_size}) took {head_routes}, expected tiled")
+    k2c = k2_noncausal_check(dev, cfg) if whisper else None
+    free_memory()
+    rng = np.random.default_rng(1)
+    scores = {}
+    if whisper:
+        toks = torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, size=(2, WHISPER_L))).to(dev)
+        scores["flash_off"] = memory_score(
+            dev, model, params, toks, _memory_inputs(cfg, 2, dev, 1), False,
+            "score_3000_mels_flash_off")
+        scores["flash_on"] = memory_score(
+            dev, model, params, toks,
+            _memory_inputs(cfg, 2, dev, 1, WHISPER_FLASH_MELS), True,
+            "score_2048_mels_flash_on")
+    else:
+        toks = torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, size=(SCORE_B, SCORE_L))).to(dev)
+        scores["flash_on"] = memory_score(
+            dev, model, params, toks, _memory_inputs(cfg, SCORE_B, dev, 1),
+            True, "score_1024_flash_on",
+            moved_by=_memory_inputs(cfg, SCORE_B, dev, 2))
+    free_memory()
+    prompts = _cross_prompts(cfg)
+    inputs = _memory_inputs(cfg, len(prompts), dev, 3, WHISPER_FLASH_MELS)
+    new = CROSS_NEW[arch]
+
+    def serve(kind, label, **kw):
+        out = memory_serve(dev, model, params, prompts, inputs, kind,
+                           new=new, label=label, **kw)
+        free_memory()
+        return out
+
+    serve("dense", "warmup")
+    dense, rec_dense, cache = serve("dense", "dense", profile_steps=4)
+    # k3_timing reads an engine's model and dense cache
+    t3 = k3_timing(dev, types.SimpleNamespace(model=model, cache=cache),
+                   prompts, long_context=False)
+    bound_ms, bound_bytes = _decode_bound_ms(
+        params, cache, [len(p) + new // 2 for p in prompts])
+    del cache
+    free_memory()
+    paged, rec_paged, _ = serve("paged", "paged")
+    need(paged == dense, f"{arch}: paged streams differ from dense")
+    n_dec = cfg.n_layers
+    for rec in (rec_dense, rec_paged):
+        need(rec["flash_decode_per_step"] == [n_dec], f"{arch} "
+             f"{rec['label']}: K3 launches a decode step "
+             f"{rec['flash_decode_per_step']}, expected {n_dec}")
+        need(rec["launches"]["abft_matmul"] > 0, f"{arch} {rec['label']}: "
+             f"K1 never launched")
+        need(rec["k2_prefill_launches"] == (cfg.n_enc_layers if whisper
+                                            else 0),
+             f"{arch} {rec['label']}: K2 launched "
+             f"{rec['k2_prefill_launches']} times in the prefill")
+    if whisper:
+        fault = ModelFault.at(0, "mlp_down", FaultSpec.value(0, 1, 1e5))
+        faulted, rec_fault, _ = serve("dense", "dense_mlp_down_fault",
+                                      decode_fault=fault)
+    else:
+        fault = ModelFault.at(cfg.cross_attn_every - 2, "cross_qkv",
+                              FaultSpec.value(0, 1, 1e5))
+        faulted, rec_fault, _ = serve("dense", "dense_cross_qkv_fault",
+                                      prefill_fault=fault)
+    need(rec_fault["faults_flagged"] == 1 and faulted == dense,
+         f"{arch}: the faulted run's recompute differs from the clean run")
+    train = whisper_train(dev, cfg) if whisper else None
+    free_memory()
+    t1k = k1_timing(dev, params, 4, arch=arch, per_shape=True)
+    if whisper:
+        t2 = k2_timing(dev, (2, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.resolved_head_dim), 1024, arch=arch,
+                       causal=False)
+    else:
+        t2 = k2_timing(dev, (SCORE_B, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.resolved_head_dim), SCORE_L, arch=arch)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    free_memory()
+    prof = rec_dense.get("profile") or {}
+    rec = dict(
+        arch=arch, layers=cfg.n_layers, weights_gb=weights / 1e9,
+        cross_gate=None if whisper else CROSS_GATE,
+        scores=scores, decode_bound_ms=bound_ms,
+        decode_bound_bytes=bound_bytes,
+        decode_step_ms_median=rec_dense["decode_step_ms_median"],
+        paged_decode_step_ms_median=rec_paged["decode_step_ms_median"],
+        decode_tokens_per_s=rec_dense["decode_tokens_per_s"],
+        paged_decode_tokens_per_s=rec_paged["decode_tokens_per_s"],
+        prefill_ms=rec_dense["prefill_ms"],
+        decode_device_ms=prof.get("device_ms_per_step"),
+        decode_idle_share=prof.get("idle_share"),
+        launches=rec_dense["launches"], paged_launches=rec_paged["launches"],
+        flash_decode_per_step=n_dec, dense_equals_paged=True,
+        fault=rec_fault["label"], train=train,
+        k1_decode_step=t1k, peak_memory_gb=peak / 1e9,
+        seconds=time.perf_counter() - t0)
+    emit("cross", **rec)
+    return {"rec": rec, "checks": checks, "k2_check": k2c, "k1": t1k,
+            "k2": t2, "k3": t3}
+
+
+def cross_runs(dev) -> dict:
+    """whisper-tiny, then llama-3.2-vision-11b (``cross_arch``)."""
+    out = {}
+    for arch in CROSS_ARCHS:
+        out[arch] = cross_arch(dev, arch)
+        free_memory()
+    return out
+
+
+def _add_cross(kernels, cross) -> None:
+    """Each kernel's line gets ``by_arch`` rows for whisper-tiny and
+    llama-3.2-vision-11b: launches on the dense serving run (K1, K3) or
+    the flash-on score (K2: whisper's encoder non-causal and decoder
+    causal; vision's 40 causal), and the time, plain time, bound and
+    library time at the arch's shapes (K1: a decode step's 2-D GEMMs,
+    whisper's with the N = 51865 head on the tiled route; K2: whisper's
+    non-causal 1024 frames, vision's causal score; K3: the decode step's
+    layers on the dense cache).  K1's whisper row adds the head alone."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for entry in kernels:
+        rows = entry.setdefault("by_arch", {})
+        for arch, out in cross.items():
+            rec = out["rec"]
+            if entry["name"] == "abft_matmul":
+                row = {"launches": rec["launches"]["abft_matmul"],
+                       "max_abs_err": out["checks"]["k1_max_abs_err"],
+                       **{k: out["k1"][k] for k in keys}}
+                head = out["k1"]["per_shape"].get("head")
+                if head is not None and arch.startswith("whisper"):
+                    row["head_n51865"] = {k: head[k] for k in keys}
+            else:
+                flash = entry["name"] == "flash_attention"
+                t = out["k2"] if flash else out["k3"]
+                n = (rec["scores"]["flash_on"]["launches"]["flash_attention"]
+                     if flash else rec["launches"]["flash_decode"])
+                row = {"launches": n, "max_abs_err": t["max_abs_err"],
+                       "causal": (not arch.startswith("whisper"))
+                       if flash else None,
+                       **{k: t[k] for k in keys}}
+            rows[arch] = row
+
+
 # ------------------------------------------------------------------ timing
 
 def _gemm_bound(m, k, n, in_bytes, out_bytes, gm_gn_rows):
@@ -4577,9 +5290,11 @@ def _step_gemm_groups(params) -> dict:
     """A step's 2-D GEMM weights, grouped by shape: GQA's ``q``, ``kv``
     and ``o``, MLA's ``q_a``, ``q_b``, ``kv_a`` and ``o``, Mamba2's
     ``ssm_in_zx``, ``ssm_in_bc``, ``ssm_in_dt`` and ``ssm_out``; the dense
-    FFNs' ``up_gate`` and ``down``; the MoE layers' ``router`` (f32 out)
-    and shared experts' ``shared_up_gate`` and ``shared_down``; the head.
-    The expert GEMMs (batched) are timed apart."""
+    FFNs' ``up_gate`` (``up`` alone in a GELU FFN) and ``down``; the MoE
+    layers' ``router`` (f32 out) and shared experts' ``shared_up_gate``
+    and ``shared_down``; the cross layers' ``cross_q`` and ``cross_o``
+    (a decode step reads its cross K/V from the cache); the head.  The
+    expert GEMMs (batched) are timed apart."""
     layers = params["layers"]
     names = {"q": ("wq",), "kv": ("wk", "wv"), "q_a": ("wq_a",),
              "q_b": ("wq_b",), "kv_a": ("wkv_a",), "o": ("wo",),
@@ -4590,7 +5305,10 @@ def _step_gemm_groups(params) -> dict:
     ffns = [l["ffn"] for l in layers if "ffn" in l]
     dense = [f for f in ffns if "router" not in f]
     moe = [f for f in ffns if "router" in f]
-    groups["up_gate"] = [f[w] for f in dense for w in ("up", "gate")]
+    groups["up_gate"] = [f[w] for f in dense for w in ("up", "gate")
+                         if w in f]
+    groups["cross_q"] = [l["cross"]["wq"] for l in layers if "cross" in l]
+    groups["cross_o"] = [l["cross"]["wo"] for l in layers if "cross" in l]
     groups["down"] = [f["down"] for f in dense]
     groups["router"] = [f["router"] for f in moe]
     shared = [f["shared"] for f in moe if "shared" in f]
@@ -4603,7 +5321,8 @@ def _step_gemm_groups(params) -> dict:
 
 def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
               one_slice: bool = False,
-              split_rows: int | None = None) -> dict:
+              split_rows: int | None = None,
+              per_shape: bool = False) -> dict:
     """K1 over one step's GEMMs at M=m, using a run's own weights
     (distinct per layer, so weights come from HBM as in a real step), in
     their dtype: kernel, plain version, torch.matmul, and the bound (bf16
@@ -4618,7 +5337,8 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
     ``one_slice``: the kernel runs one K slice at any M, as the serving
     prefill paths run it, and no fork is timed; ``split_rows``: the K
     split is that row count's, as the speculative verify step runs it
-    (``abft_matmul.plan``), and no fork is timed."""
+    (``abft_matmul.plan``), and no fork is timed.  ``per_shape``: the
+    step's total with each shape group's record beside it."""
     from repro_torch.kernels.abft_matmul import abft_matmul_kernel, routes
     from repro_torch.kernels.ref import abft_matmul_ref
 
@@ -4686,7 +5406,7 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
     emit("k1_timing", arch=arch, m=m, dtype=str(dtype)[6:],
          one_slice=one_slice, split_rows=split_rows, per_shape=per,
          step_total=tot, **({"fork": fork} if fork["gemms"] else {}))
-    return tot
+    return {**tot, "per_shape": per} if per_shape else tot
 
 
 def k3_timing(dev, eng, prompts, long_context: bool = True) -> dict:
@@ -5097,6 +5817,13 @@ def main(argv=None) -> int:
         ssm = ssm_runs(dev)
         if kernels is not None:
             _add_ssm(kernels, ssm)
+    if "cross" in phases:
+        eng_out = fwd = train_params = camp = tr = fam = moe = mla = None
+        ssm = None
+        free_memory()
+        cross = cross_runs(dev)
+        if kernels is not None:
+            _add_cross(kernels, cross)
     for line in smi:
         print(line)
     if kernels is not None:

@@ -14,8 +14,9 @@
 ``--arch`` takes every registered config; the port serves the dense
 family (llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b), the MoE
 qwen2-moe-a2.7b, the MLA deepseek-v3-671b, the SSM mamba2-1.3b and the
-hybrid jamba-v0.1-52b, and exits with the ``NotImplementedError`` message
-on the others (whisper-tiny, llama-3.2-vision-11b); a stack with a Mamba2
+hybrid jamba-v0.1-52b, and exits with the engine's ``NotImplementedError``
+message naming the memory inputs on whisper-tiny and llama-3.2-vision-11b
+(the engine passes only tokens, as the reference's); a stack with a Mamba2
 layer exits with the reference's ``ValueError`` message on
 ``--prefix-sharing``, ``--chunk-tokens`` and ``--spec-decode``.  Runs on
 the CUDA

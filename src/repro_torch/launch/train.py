@@ -4,11 +4,13 @@
       --arch llama3.2-1b --scale full --steps 20 --batch 4 --seq 128 \
       --abft auto|global|block_1s|off [--ckpt-dir DIR] [--resume]
 
-``--arch`` takes every registered config and exits with the
-``NotImplementedError`` message on those the port does not run (whisper-tiny,
-llama-3.2-vision-11b); mamba2-1.3b and jamba-v0.1-52b train through the
-Mamba2 mixer's full-sequence forward.  Runs on
-the CUDA device unless ``--device cpu`` is given.  Params are f32
+``--arch`` takes every registered config; mamba2-1.3b and jamba-v0.1-52b
+train through the Mamba2 mixer's full-sequence forward.  whisper-tiny and
+llama-3.2-vision-11b exit with a message naming their memory inputs: the
+synthetic data gives tokens and labels only, as the reference's pipeline
+does (train them through ``make_train_step`` with the memory in the
+batch).  Runs on the CUDA device unless ``--device cpu`` is given, with
+TF32 off (``executor.strict_f32``).  Params are f32
 (the reference trains in f32 too), random from ``--seed``.  Every
 block-protected forward GEMM runs the fused ABFT kernel on the card; there
 is no switch that routes it elsewhere.  Full-sequence attention is the
@@ -33,7 +35,7 @@ from repro_torch.core.schemes import Scheme
 from repro_torch.core.tree import tree_leaves
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.models.model import Model
-from repro_torch.serve.executor import resolve_device
+from repro_torch.serve.executor import resolve_device, strict_f32
 from repro_torch.train import OptConfig, TrainConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -90,7 +92,14 @@ def main(argv=None) -> int:
         model = Model(cfg)
     except NotImplementedError as e:
         raise SystemExit(f"error: {e}")
+    if model.memory_inputs:
+        raise SystemExit(
+            f"error: {cfg.name} reads a per-request memory "
+            f"({' or '.join(model.memory_inputs)}) beside its tokens; the "
+            f"training data gives only tokens and labels, as the "
+            f"reference's does")
     device = resolve_device(args.device)
+    strict_f32(device)
     params = model.init_params(args.seed, dtype=torch.float32, device=device)
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"arch={cfg.name} scale={args.scale} params~{n_params/1e6:.1f}M "

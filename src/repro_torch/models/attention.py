@@ -1,6 +1,7 @@
 """Attention sublayers (port of ``repro.models.attention``): GQA, with the
 dense family's ``qkv_bias``, ``qk_norm`` and partial rotary, and absorbed
-MLA (deepseek-v3).  Projections run through the ABFT-protected
+MLA (deepseek-v3), and the cross-attention of the vision model's memory
+layers.  Projections run through the ABFT-protected
 ``dense``.  With ``ABFTConfig.flash_attention`` set, GQA's full-sequence
 attention (``gqa_forward``) runs the fused-ABFT flash attention kernel
 (K2) and its decode attention the fused-ABFT flash decode kernel (K3);
@@ -345,6 +346,53 @@ GQA = dict(forward=gqa_forward, prefill=gqa_prefill,
            paged_prefill=gqa_paged_prefill, decode=gqa_decode,
            paged_decode=gqa_paged_decode, verify=gqa_verify,
            paged_verify=gqa_paged_verify)
+
+
+# ---------------------------------------------------------------- cross
+
+def init_cross(cfg: ModelConfig, w) -> dict:
+    """Cross-attention params (the reference's ``init_cross``): queries
+    from the decoder's d_model, keys and values from the memory's (the
+    vision tokens are projected to d_model first)."""
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    return {"wq": w(cfg.d_model, H * hd), "wk": w(cfg.d_model, KV * hd),
+            "wv": w(cfg.d_model, KV * hd), "wo": w(H * hd, cfg.d_model)}
+
+
+def init_cross_cache(cfg: ModelConfig, batch: int, mem_len: int, dtype,
+                     device) -> dict:
+    """A cross layer's K/V: (batch, mem_len, KV, hd) a slot, written once
+    by prefill and read by every decode step; the memory never grows, so
+    it stays a slot under paging too."""
+    shape = (batch, mem_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cross_kv(mem, p, cfg: ModelConfig, ctx: LayerCtx):
+    """The memory (B, S, D) projected to K and V (B, S, KV, hd) once
+    (fault site ``cross_qkv``, tags ``cross.k``/``cross.v``).  Returns
+    (k, v, flag)."""
+    B, S, _ = mem.shape
+    hd = cfg.resolved_head_dim
+    k, f1 = dense(mem, p["wk"], ctx, "cross_qkv", tag="cross.k")
+    v, f2 = dense(mem, p["wv"], ctx, "cross_qkv", tag="cross.v")
+    return (k.reshape(B, S, cfg.n_kv_heads, hd),
+            v.reshape(B, S, cfg.n_kv_heads, hd), or_flags(f1, f2))
+
+
+def cross_forward(x, k, v, p, cfg: ModelConfig, ctx: LayerCtx):
+    """Cross-attention: queries from x (B, L, D) against the memory's K/V,
+    every query sees every memory position (plain chunked attention, as
+    the reference's XLA path: no kernel).  Returns (out, flag)."""
+    B, L, _ = x.shape
+    q, f1 = dense(x, p["wq"], ctx, "cross_qkv", tag="cross.q")
+    q = q.reshape(B, L, cfg.n_heads, cfg.resolved_head_dim)
+    out = chunked_attention(q, k, v, causal=False)
+    out, f2 = dense(out.reshape(B, L, -1), p["wo"], ctx, "cross_out",
+                    tag="cross.o")
+    return out, or_flags(f1, f2)
 
 
 # ---------------------------------------------------------------- MLA

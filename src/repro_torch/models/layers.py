@@ -50,12 +50,16 @@ class ModelFault(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class LayerCtx:
-    """Per-forward context: the ABFT config, the fault target and the
-    current layer index (set by the stack loop)."""
+    """Per-forward context: the ABFT config, the fault target, the
+    current layer index (set by the stack loop) and the prefix of the
+    plan-facing site tags (``"enc."`` inside whisper's encoder; fault
+    matching reads the site and the layer index alone, so an encoder
+    layer i is hit by a fault aimed at decoder layer i)."""
 
     abft: ABFTConfig = ABFTConfig()
     fault: ModelFault | None = None
     layer_idx: int | None = None
+    site_prefix: str = ""
 
     def with_layer(self, idx: int) -> "LayerCtx":
         return dataclasses.replace(self, layer_idx=idx)
@@ -74,7 +78,8 @@ def dense(x, w, ctx: LayerCtx, site: str, b=None, out_dtype=None,
           tag: str | None = None):
     """ABFT-protected ``x @ w (+ b)``.  Returns (y, flag)."""
     y, chk = protected_matmul(x, w, ctx.abft, out_dtype=out_dtype or x.dtype,
-                              fault=_site_fault(ctx, site), site=tag or site)
+                              fault=_site_fault(ctx, site),
+                              site=ctx.site_prefix + (tag or site))
     if b is not None:
         y = y + b.to(y.dtype)
     return y, chk.flag
@@ -345,12 +350,27 @@ def per_step(fn, x, *args, **kw):
 
 def mlp(x, p, ctx: LayerCtx, act: str = "silu",
         tags: tuple = ("mlp.up", "mlp.down")):
-    """SwiGLU MLP; its three GEMMs are ABFT-protected."""
-    if act != "silu":
-        raise NotImplementedError(f"mlp act {act!r} is not ported")
+    """SwiGLU (``silu``) or plain GELU MLP; its GEMMs are ABFT-protected.
+    The GELU branch (whisper) is ``up`` with its bias ``up_b``, GELU in
+    f32 cast back to x's dtype, then ``down`` with ``down_b``; its GELU is
+    the tanh approximation, ``jax.nn.gelu``'s default."""
     up_tag, down_tag = tags
-    up, f1 = dense(x, p["up"], ctx, "mlp_up", tag=up_tag)
-    gate, f2 = dense(x, p["gate"], ctx, "mlp_up", tag=up_tag)
-    h = torch.nn.functional.silu(gate.to(F32)).to(x.dtype) * up
-    out, f3 = dense(h, p["down"], ctx, "mlp_down", tag=down_tag)
-    return out, or_flags(f1, f2, f3)
+    if act == "silu":
+        up, f1 = dense(x, p["up"], ctx, "mlp_up", tag=up_tag)
+        gate, f2 = dense(x, p["gate"], ctx, "mlp_up", tag=up_tag)
+        h = torch.nn.functional.silu(gate.to(F32)).to(x.dtype) * up
+        flags = [f1, f2]
+    else:
+        h, f1 = dense(x, p["up"], ctx, "mlp_up", b=p.get("up_b"),
+                      tag=up_tag)
+        h = gelu(h.to(F32)).to(x.dtype)
+        flags = [f1]
+    out, f3 = dense(h, p["down"], ctx, "mlp_down", b=p.get("down_b"),
+                    tag=down_tag)
+    return out, or_flags(*flags, f3)
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation (the exact erf
+    form differs by up to about 1e-3)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")

@@ -1,10 +1,21 @@
 """Model assembly for decoder stacks of GQA, MLA and Mamba2 mixers with
-dense, MoE or no FFNs (port of the ``{attn,mla,mamba}:{dense,moe,none}:0``
-part of ``repro.models.model``: llama3.2-1b, the dense family qwen3-14b,
-stablelm-1.6b and qwen1.5-32b, qwen2-moe-a2.7b, deepseek-v3-671b with its
-multi-token prediction head, the SSM stack mamba2-1.3b and the hybrid
-jamba-v0.1-52b; mixed dense + MoE stacks such as
-``first_dense_layers=3``).
+dense, MoE or no FFNs, and GQA layers with cross-attention to a
+per-request memory (port of ``repro.models.model``: llama3.2-1b, the
+dense family qwen3-14b, stablelm-1.6b and qwen1.5-32b, qwen2-moe-a2.7b,
+deepseek-v3-671b with its multi-token prediction head, the SSM stack
+mamba2-1.3b and the hybrid jamba-v0.1-52b; mixed dense + MoE stacks such
+as ``first_dense_layers=3``; the encoder-decoder whisper-tiny, whose
+memory is its encoder's output, and llama-3.2-vision-11b, whose memory is
+its projected image tokens, read by a cross layer every 5th layer).
+
+The memory is an input beside the tokens (``Model.forward``'s batch,
+``Model.prefill``'s ``inputs``): ``audio`` log-mel frames through the
+conv stem or ``enc_input`` frames for whisper, ``images`` patch
+embeddings for the vision model.  As in the reference, whisper's decoder
+never reads its encoder's output (no layer of it has cross-attention:
+only the encoder's ABFT flag reaches the result), and a cross layer's
+``cross_gate`` starts at 0, so its images reach the logits only once the
+gate is trained away from 0.
 
 The reference scans stacked per-segment params (``seg_plan``); the port
 keeps one dict of tensors per layer and runs the stack as a Python loop.
@@ -30,6 +41,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     LayerCtx,
     dense,
+    gelu,
     mlp,
     norm,
     or_flags,
@@ -88,7 +100,9 @@ def seg_plan(cfg: ModelConfig) -> list:
 
 
 TAGS = ("attn:dense:0", "attn:moe:0", "mla:dense:0", "mla:moe:0",
-        "mamba:none:0", "mamba:dense:0", "mamba:moe:0")
+        "mamba:none:0", "mamba:dense:0", "mamba:moe:0", "attn:dense:1")
+# a cross layer's gate: an f32 scalar whatever the model's dtype
+F32_LEAVES = mb.F32_LEAVES + ("cross_gate",)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -98,16 +112,22 @@ def check_supported(cfg: ModelConfig) -> None:
     rotary, and at most one multi-token prediction head (llama3.2-1b,
     qwen3-14b, stablelm-1.6b, qwen1.5-32b, qwen2-moe-a2.7b,
     deepseek-v3-671b, mamba2-1.3b, jamba-v0.1-52b); MLA needs its latent
-    ranks and head dims, Mamba2 its state and head dims.  Anything else
-    (encoder-decoder, cross-attention, vision inputs, MTP deeper than 1,
-    TP head padding) is not ported."""
+    ranks and head dims, Mamba2 its state and head dims.  A GQA stack may
+    have dense GELU FFNs with biases, an encoder and its memory
+    (whisper-tiny) or cross-attention layers over projected vision tokens
+    (llama-3.2-vision-11b).  MTP deeper than 1 and TP head padding are
+    not ported."""
     mla_dims = (cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_nope_head_dim,
                 cfg.qk_rope_head_dim, cfg.v_head_dim)
-    ok = (cfg.attention in ("gqa", "mla") and cfg.act == "silu"
+    memory = cfg.is_encoder_decoder or cfg.vision_dim or cfg.cross_attn_every
+    ok = (cfg.attention in ("gqa", "mla")
+          and (cfg.act == "silu" or cfg.act == "gelu" and not cfg.n_experts)
           and (cfg.attention == "gqa" or all(d > 0 for d in mla_dims))
+          and (cfg.attention == "gqa" or not memory)
+          and (not cfg.cross_attn_every or cfg.vision_dim
+               or cfg.is_encoder_decoder)
           and cfg.norm in ("rmsnorm", "layernorm")
           and not cfg.pad_heads_to and not cfg.pad_kv_heads_to
-          and not cfg.is_encoder_decoder and not cfg.vision_dim
           and cfg.mtp_depth <= 1
           and all(t in TAGS for t in layer_tags(cfg))
           and (cfg.ssm_state > 0 and cfg.ssm_head_dim > 0
@@ -116,10 +136,11 @@ def check_supported(cfg: ModelConfig) -> None:
     if not ok:
         raise NotImplementedError(
             f"architecture {cfg.name!r} is not ported: the PyTorch port "
-            f"serves and trains GQA, MLA and Mamba2 decoders with dense, "
-            f"MoE or no FFNs (llama3.2-1b, qwen3-14b, stablelm-1.6b, "
-            f"qwen1.5-32b, qwen2-moe-a2.7b, deepseek-v3-671b, mamba2-1.3b, "
-            f"jamba-v0.1-52b)")
+            f"runs GQA, MLA and Mamba2 decoders with dense, MoE or no FFNs "
+            f"and GQA stacks with encoder or vision memory (llama3.2-1b, "
+            f"qwen3-14b, stablelm-1.6b, qwen1.5-32b, qwen2-moe-a2.7b, "
+            f"deepseek-v3-671b, mamba2-1.3b, jamba-v0.1-52b, whisper-tiny, "
+            f"llama-3.2-vision-11b)")
 
 
 def _to_torch(a, device, dtype):
@@ -133,14 +154,21 @@ def _to_torch(a, device, dtype):
 
 
 def _layer_kind(lp) -> str:
-    """The "mixer:ffn:0" tag a layer's params make: a Mamba2 mixer holds
-    ``A_log``, an MLA one ``wkv_a``; an MoE FFN holds a ``router``; a layer
-    without an FFN has no ``ffn``."""
+    """The "mixer:ffn:cross" tag a layer's params make: a Mamba2 mixer
+    holds ``A_log``, an MLA one ``wkv_a``; an MoE FFN holds a ``router``; a
+    layer without an FFN has no ``ffn``; a cross layer holds ``cross``."""
     mx = lp["mixer"]
     mixer = "mamba" if "A_log" in mx else "mla" if "wkv_a" in mx else "attn"
     ffn = ("none" if "ffn" not in lp
            else "moe" if "router" in lp["ffn"] else "dense")
-    return f"{mixer}:{ffn}:0"
+    return f"{mixer}:{ffn}:{int('cross' in lp)}"
+
+
+def _enc_plan(cfg: ModelConfig) -> list:
+    """The reference's encoder plan: ``n_enc_layers`` GQA layers with
+    dense FFNs, no cross-attention."""
+    return ([Segment(unit=("attn:dense:0",), repeats=cfg.n_enc_layers)]
+            if cfg.is_encoder_decoder else [])
 
 
 def params_from_reference(cfg: ModelConfig, np_params, *, device="cpu",
@@ -150,44 +178,90 @@ def params_from_reference(cfg: ModelConfig, np_params, *, device="cpu",
     segment i; each of its ``pos{q}`` subtrees carries a leading
     ``repeats`` axis, and layer ``off + r * P + q`` is slice r of
     ``pos{q}`` (MoE leaves included: ``router``, ``w_up``, ``w_gate``,
-    ``w_down``, ``shared``).  The MTP head's ``mtp`` subtree (``proj``,
-    ``layer``, ``norm``) has no repeats axis and crosses over whole.  A
-    Mamba2 mixer's ``A_log``, ``D`` and ``dt_bias`` stay f32 whatever
-    ``dtype``, as the reference keeps them; each segment position must
-    hold the mixer and the FFN its tag names."""
+    ``w_down``, ``shared``; a cross layer's ``cross``, ``cross_norm`` and
+    ``cross_gate``).  The MTP head's ``mtp`` subtree (``proj``,
+    ``layer``, ``norm``), the conv stem's ``conv_stem`` and the
+    ``vision_proj`` weight have no repeats axis and cross over whole; the
+    ``encoder``'s segments follow the encoder plan, as the decoder's do
+    ``seg_plan``, beside its ``final_norm``.  A Mamba2 mixer's ``A_log``,
+    ``D`` and ``dt_bias`` and a cross layer's ``cross_gate`` stay f32
+    whatever ``dtype``, as the reference keeps them; each segment position
+    must hold the mixer, the FFN and the cross-attention its tag names."""
     check_supported(cfg)
 
     def conv(tree, r=None, key=None):
         if isinstance(tree, dict):
             return {k: conv(v, r, k) for k, v in tree.items()}
         return _to_torch(tree if r is None else np.asarray(tree)[r],
-                         device, None if key in mb.F32_LEAVES else dtype)
+                         device, None if key in F32_LEAVES else dtype)
 
-    plan = seg_plan(cfg)
-    if len(plan) != len(np_params["segments"]):
-        raise ValueError(f"{len(np_params['segments'])} segments in the "
-                         f"tree, {len(plan)} in {cfg.name!r}'s plan")
-    layers = []
-    for seg, sp in zip(plan, np_params["segments"]):
-        reps = np.asarray(sp["pos0"]["mixer_norm"]["w"]).shape[0]
-        if len(sp) != len(seg.unit) or reps != seg.repeats:
-            raise ValueError(f"segment of {len(sp)} x {reps} layers where "
-                             f"the plan has {len(seg.unit)} x "
-                             f"{seg.repeats}")
-        for q, tag in enumerate(seg.unit):
-            kind = _layer_kind(sp[f"pos{q}"])
-            if kind != tag:
-                raise ValueError(f"segment position {q} holds a {kind} "
-                                 f"layer where the plan has {tag}")
-        for r in range(seg.repeats):
-            for q in range(len(seg.unit)):
-                layers.append(conv(sp[f"pos{q}"], r))
+    def layers(plan, segments):
+        if len(plan) != len(segments):
+            raise ValueError(f"{len(segments)} segments in the tree, "
+                             f"{len(plan)} in {cfg.name!r}'s plan")
+        out = []
+        for seg, sp in zip(plan, segments):
+            reps = np.asarray(sp["pos0"]["mixer_norm"]["w"]).shape[0]
+            if len(sp) != len(seg.unit) or reps != seg.repeats:
+                raise ValueError(f"segment of {len(sp)} x {reps} layers "
+                                 f"where the plan has {len(seg.unit)} x "
+                                 f"{seg.repeats}")
+            for q, tag in enumerate(seg.unit):
+                kind = _layer_kind(sp[f"pos{q}"])
+                if kind != tag:
+                    raise ValueError(f"segment position {q} holds a {kind} "
+                                     f"layer where the plan has {tag}")
+            for r in range(seg.repeats):
+                for q in range(len(seg.unit)):
+                    out.append(conv(sp[f"pos{q}"], r))
+        return out
+
     out = {"embed": conv(np_params["embed"]),
-           "final_norm": conv(np_params["final_norm"]), "layers": layers}
-    for key in ("lm_head", "mtp"):
+           "final_norm": conv(np_params["final_norm"]),
+           "layers": layers(seg_plan(cfg), np_params["segments"])}
+    for key in ("lm_head", "mtp", "conv_stem", "vision_proj"):
         if key in np_params:
             out[key] = conv(np_params[key])
+    if "encoder" in np_params:
+        enc = np_params["encoder"]
+        out["encoder"] = {"layers": layers(_enc_plan(cfg), enc["segments"]),
+                          "final_norm": conv(enc["final_norm"])}
     return out
+
+
+def sinusoid_pos(positions, d_model: int):
+    """Whisper's sinusoidal position encoding (the reference's): positions
+    (B, L) -> (B, L, d_model) f32, ``d_model / 2`` frequencies
+    ``exp(-ln(1e4) i / max(d_model / 2 - 1, 1))``, sines then cosines."""
+    half = d_model // 2
+    dev = positions.device
+    freqs = torch.exp(-torch.log(torch.tensor(10000.0, dtype=F32,
+                                              device=dev))
+                      * torch.arange(half, dtype=F32, device=dev)
+                      / max(half - 1, 1))
+    ang = positions.to(F32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _conv_same(x, w, stride: int):
+    """``lax.conv_general_dilated(..., padding="SAME")`` of x (B, C, T)
+    with a WIO weight (W, C, O): a cross-correlation, as ``F.conv1d`` is,
+    padded as XLA pads SAME, the extra cell (if the total is odd) at the
+    end: a width-3 window at stride 2 pads (0, 1) on an even T and (1, 1)
+    on an odd one (``padding="same"`` refuses a stride).  Returns
+    (B, O, ceil(T / stride))."""
+    T, width = x.shape[-1], w.shape[0]
+    total = max((-(-T // stride) - 1) * stride + width - T, 0)
+    x = torch.nn.functional.pad(x, (total // 2, total - total // 2))
+    return torch.nn.functional.conv1d(x, w.permute(2, 1, 0), stride=stride)
+
+
+def cell_leaves(layer: dict) -> list:
+    """A layer cache's leaves a serving call writes at its cells (GQA's
+    ``k`` and ``v``, MLA's ``latent``) or a slot's recurrent state, in
+    their order: every leaf but a cross layer's ``cross`` K/V, which is
+    written once a request by its prefill and read by decode."""
+    return [t for k, t in layer.items() if k != "cross"]
 
 
 class ForwardOut(NamedTuple):
@@ -198,15 +272,27 @@ class ForwardOut(NamedTuple):
 
 
 class Model:
-    """Eager model wrapper for one GQA or MLA architecture (dense or MoE
-    FFNs, an optional MTP head)."""
+    """Eager model wrapper for one architecture of ``check_supported``."""
 
     def __init__(self, cfg: ModelConfig):
         check_supported(cfg)
         self.cfg = cfg
-        # per layer: whether its cache is a Mamba2 layer's per-slot state
-        self.state_layers = tuple(t.startswith("mamba")
-                                  for t in layer_tags(cfg))
+        tags = layer_tags(cfg)
+        # per layer: whether its cache is a Mamba2 layer's per-slot state,
+        # whether it has cross-attention (and a cross K/V a slot)
+        self.state_layers = tuple(t.startswith("mamba") for t in tags)
+        self.cross_layers = tuple(t.endswith(":1") for t in tags)
+
+    @property
+    def memory_inputs(self) -> tuple:
+        """The batch inputs ``_memory`` reads, besides the tokens:
+        whisper's ``audio`` (log-mel frames, through the conv stem) or
+        ``enc_input`` (frames at d_model), the vision model's ``images``
+        (patch embeddings at ``vision_dim``); none elsewhere."""
+        cfg = self.cfg
+        if cfg.is_encoder_decoder:
+            return ("audio", "enc_input") if cfg.n_mels else ("enc_input",)
+        return ("images",) if cfg.vision_dim else ()
 
     # -------------------------------------------------- init
     def init_params(self, seed: int = 0, dtype=torch.bfloat16,
@@ -217,7 +303,14 @@ class Model:
         GQA, MLA or Mamba2 mixer and a dense, an MoE or no FFN a layer as
         ``layer_tags`` says (``mamba.init_mamba``'s laws for that mixer);
         with ``mtp_depth`` the MTP head (``proj`` (2 d, d), a layer of the
-        last layer's kind, an RMSNorm gain).  A
+        last layer's kind, an RMSNorm gain).  A ``gelu`` FFN has ``up``
+        and ``down`` with zero biases ``up_b`` and ``down_b``; a cross
+        layer has ``cross`` (``attention.init_cross``), ``cross_norm`` and
+        an f32 ``cross_gate`` of 0 (the reference's: its cross-attention
+        adds nothing until the gate moves).  whisper gets its ``encoder``
+        (``n_enc_layers`` layers and a LayerNorm) and, with ``n_mels``,
+        its ``conv_stem`` (WIO weights (3, n_mels, d) and (3, d, d), zero
+        biases); the vision model its ``vision_proj`` (vision_dim, d).  A
         weight of more than ``2**30`` elements (deepseek-v3's expert
         stacks) is drawn in slices of its leading axis, so its f32 draw
         never needs 4 bytes an element beside the model."""
@@ -245,17 +338,29 @@ class Model:
                 p["b"] = vec(cfg.d_model, 0.0)
             return p
 
+        def ffn_dense():
+            if cfg.act == "gelu":
+                return {"up": w(cfg.d_model, cfg.d_ff),
+                        "down": w(cfg.d_ff, cfg.d_model),
+                        "up_b": vec(cfg.d_ff, 0.0),
+                        "down_b": vec(cfg.d_model, 0.0)}
+            return {"up": w(cfg.d_model, cfg.d_ff),
+                    "gate": w(cfg.d_model, cfg.d_ff),
+                    "down": w(cfg.d_ff, cfg.d_model)}
+
         def layer(tag):
-            mixer, ffn, _ = tag.split(":")
+            mixer, ffn, cross = tag.split(":")
             init = {"mla": attn.init_mla, "mamba": mb.init_mamba}.get(
                 mixer, attn.init_gqa)
             lp = {"mixer_norm": norm_p(), "mixer": init(cfg, w, vec)}
+            if cross == "1":
+                lp["cross"] = attn.init_cross(cfg, w)
+                lp["cross_norm"] = norm_p()
+                lp["cross_gate"] = torch.zeros((), dtype=F32, device=device)
             if ffn != "none":
                 lp["ffn_norm"] = norm_p()
-                lp["ffn"] = (moe_mod.init_moe(cfg, w) if ffn == "moe" else
-                             {"up": w(cfg.d_model, cfg.d_ff),
-                              "gate": w(cfg.d_model, cfg.d_ff),
-                              "down": w(cfg.d_ff, cfg.d_model)})
+                lp["ffn"] = (moe_mod.init_moe(cfg, w) if ffn == "moe"
+                             else ffn_dense())
             return lp
 
         tags = layer_tags(cfg)
@@ -264,6 +369,20 @@ class Model:
                   "layers": [layer(tag) for tag in tags]}
         if not cfg.tie_embeddings:
             params["lm_head"] = w(cfg.d_model, cfg.vocab_size)
+        if cfg.is_encoder_decoder:
+            params["encoder"] = {
+                "layers": [layer("attn:dense:0")
+                           for _ in range(cfg.n_enc_layers)],
+                "final_norm": {"w": vec(cfg.d_model, 1.0),
+                               "b": vec(cfg.d_model, 0.0)}}
+            if cfg.n_mels:
+                params["conv_stem"] = {
+                    "w1": w(3, cfg.n_mels, cfg.d_model),
+                    "b1": vec(cfg.d_model, 0.0),
+                    "w2": w(3, cfg.d_model, cfg.d_model),
+                    "b2": vec(cfg.d_model, 0.0)}
+        if cfg.vision_dim:
+            params["vision_proj"] = w(cfg.vision_dim, cfg.d_model)
         if cfg.mtp_depth:
             params["mtp"] = {"proj": w(2 * cfg.d_model, cfg.d_model),
                              "layer": layer(tags[-1]),
@@ -271,35 +390,53 @@ class Model:
         return params
 
     # -------------------------------------------------- cache
+    def _with_cross(self, layers: list, slots, dtype, device,
+                    mem_len) -> list:
+        """A cross layer's dict gains ``cross``: its K/V (slots, mem_len,
+        KV, hd) (``attention.init_cross_cache``); ``mem_len`` defaults to
+        ``enc_seq_len`` (whisper) or ``n_image_tokens`` (vision)."""
+        cfg = self.cfg
+        mem_len = mem_len or (cfg.enc_seq_len if cfg.is_encoder_decoder
+                              else cfg.n_image_tokens)
+        for layer, cross in zip(layers, self.cross_layers):
+            if cross:
+                layer["cross"] = attn.init_cross_cache(cfg, slots, mem_len,
+                                                       dtype, device)
+        return layers
+
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
-                   device="cpu") -> list:
+                   device="cpu", mem_len: int | None = None) -> list:
         """One dict a layer: GQA's ``k`` and ``v`` (B, S, KV, D), MLA's
         ``latent`` (B, S, kv_lora + rope), or a Mamba2 layer's per-slot
-        state (``mamba.init_mamba_cache``)."""
+        state (``mamba.init_mamba_cache``); a cross layer's also holds
+        ``cross`` (``_with_cross``)."""
         make = (attn.init_mla_cache if self.cfg.attention == "mla"
                 else attn.init_gqa_cache)
-        return [mb.init_mamba_cache(self.cfg, batch, dtype, device)
-                if st else make(self.cfg, batch, max_len, dtype, device)
-                for st in self.state_layers]
+        return self._with_cross(
+            [mb.init_mamba_cache(self.cfg, batch, dtype, device)
+             if st else make(self.cfg, batch, max_len, dtype, device)
+             for st in self.state_layers], batch, dtype, device, mem_len)
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          dtype=torch.bfloat16, device="cpu",
-                         slots: int | None = None) -> list:
+                         slots: int | None = None,
+                         mem_len: int | None = None) -> list:
         """Attention layers get (num_blocks, block_size, ...) pools; a
         Mamba2 layer keeps its constant-size state a slot
-        (``paged_cache.init_paged_mamba_cache``), so a stack with one
-        needs ``slots``."""
+        (``paged_cache.init_paged_mamba_cache``) and a cross layer its
+        cross K/V, so a stack with either needs ``slots``."""
         from repro_torch.serve import paged_cache
 
         cfg = self.cfg
-        if slots is None and any(self.state_layers):
-            raise ValueError(f"{cfg.name}: a paged cache with Mamba2 layers "
-                             f"needs the slot count")
+        if slots is None and any(self.state_layers + self.cross_layers):
+            raise ValueError(f"{cfg.name}: a paged cache with Mamba2 or "
+                             f"cross layers needs the slot count")
         make = (paged_cache.init_paged_mla_cache if cfg.attention == "mla"
                 else paged_cache.init_paged_gqa_cache)
-        return [paged_cache.init_paged_mamba_cache(cfg, slots, dtype, device)
-                if st else make(cfg, num_blocks, block_size, dtype, device)
-                for st in self.state_layers]
+        return self._with_cross(
+            [paged_cache.init_paged_mamba_cache(cfg, slots, dtype, device)
+             if st else make(cfg, num_blocks, block_size, dtype, device)
+             for st in self.state_layers], slots, dtype, device, mem_len)
 
     def kv_leaf(self, cache):
         """The first attention layer's first cache leaf, None in a stack
@@ -307,16 +444,18 @@ class Model:
         ``k`` and ``v``, MLA's ``latent``) leads with the same two dims,
         (slots, depth) or (blocks, block size), which is what the cell
         indices and the verify window are built from; a Mamba2 layer's
-        leaves lead with the slot alone."""
+        leaves lead with the slot alone, and so does a cross K/V, which
+        this never returns."""
         for layer, st in zip(cache, self.state_layers):
             if not st:
-                return next(iter(layer.values()))
+                return cell_leaves(layer)[0]
         return None
 
     # -------------------------------------------------- layers
     def apply_layer(self, x, lp, ctx: LayerCtx, positions, mode: str, cache,
                     pos=None, slots=None, lengths=None, tables=None,
-                    prefix_lens=None, spans=None, window=None):
+                    prefix_lens=None, spans=None, window=None, mem=None,
+                    causal: bool = True):
         """One decoder layer (mode: full | prefill | decode | verify), its
         mixer GQA, MLA or Mamba2 as its params say (``_mamba``).
         ``full`` is causal attention over the whole sequence with no cache
@@ -329,6 +468,9 @@ class Model:
         (``per_step``).  An MoE FFN (its params hold a ``router``) routes
         all the call's tokens, padding rows and a verify window's rows
         included, as the reference's; a layer without ``ffn`` has none.
+        ``causal=False`` (whisper's encoder, mode ``full``) lets every
+        position attend every other.  A cross layer (its params hold
+        ``cross``) then attends the memory ``mem`` (``_cross``).
         Returns (x, flag, aux, cache): aux the MoE FFN's load-balance
         loss, None otherwise (only ``forward`` reads it); cache the
         layer's cache after the call: the same dict, written in place,
@@ -343,7 +485,10 @@ class Model:
         else:
             mix = attn.MLA if cfg.attention == "mla" else attn.GQA
             if mode == "full":
-                a, f = mix["forward"](h, lp["mixer"], cfg, ctx, positions)
+                # only whisper's encoder (GQA) lifts the causal mask
+                extra = {} if causal else {"causal": False}
+                a, f = mix["forward"](h, lp["mixer"], cfg, ctx, positions,
+                                      **extra)
             elif mode == "prefill":
                 if tables is not None:
                     a, f = mix["paged_prefill"](h, lp["mixer"], cfg, ctx,
@@ -368,6 +513,9 @@ class Model:
             else:
                 a, f = mix["decode"](h, lp["mixer"], cfg, ctx, pos, cache)
         x = x + a
+        if "cross" in lp:
+            x, f3 = self._cross(x, lp, ctx, mode, cache, mem, slots)
+            f = or_flags(f, f3)
         aux = None
         if "ffn" in lp:
             h = nrm(x, lp["ffn_norm"], cfg.norm, cfg.norm_eps)
@@ -378,6 +526,31 @@ class Model:
             x = x + o
             f = or_flags(f, f2)
         return x, f, aux, cache
+
+    def _cross(self, x, lp, ctx: LayerCtx, mode: str, cache, mem, slots):
+        """A cross layer's sublayer: ``x + tanh(cross_gate) * attention``
+        of the normed x over the memory's K/V.  Modes ``full`` and
+        ``prefill`` project ``mem`` (``attention.cross_kv``); ``prefill``
+        also writes the K/V, cast to the cache's dtype, into the layer's
+        ``cross`` rows ``slots`` (every row without), in place; ``decode``
+        reads them and raises no K/V flag (``verify`` refuses cross
+        stacks).  Returns (x, flag)."""
+        cfg = self.cfg
+        h = norm(x, lp["cross_norm"], cfg.norm, cfg.norm_eps)
+        if mode == "decode":
+            ck, cv = cache["cross"]["k"], cache["cross"]["v"]
+            fkv = torch.zeros((), dtype=torch.bool, device=x.device)
+        else:
+            ck, cv, fkv = attn.cross_kv(mem, lp["cross"], cfg, ctx)
+            if mode == "prefill":
+                cc = cache["cross"]
+                rows = (slice(None) if slots is None
+                        else slots.to(cc["k"].device).long())
+                cc["k"][rows] = ck.to(cc["k"].dtype)
+                cc["v"][rows] = cv.to(cc["v"].dtype)
+        a, f = attn.cross_forward(h, ck, cv, lp["cross"], cfg, ctx)
+        x = x + torch.tanh(lp["cross_gate"]).to(x.dtype) * a
+        return x, or_flags(fkv, f)
 
     def _mamba(self, h, p, ctx: LayerCtx, mode: str, cache, slots, lengths,
                prefix_lens):
@@ -407,8 +580,12 @@ class Model:
     def run_stack(self, x, params, ctx: LayerCtx, positions, mode: str,
                   caches, pos=None, slots=None, lengths=None, tables=None,
                   remat: bool = False, prefix_lens=None, spans=None,
-                  window=None):
-        """The layer loop.  ``caches`` is None in mode ``full``.  ``remat``
+                  window=None, mem=None, causal: bool = True):
+        """The layer loop over ``params["layers"]`` (the decoder's, or the
+        encoder's: ``params["encoder"]``), numbered from 0 either way, as
+        the reference numbers them.  ``mem``: the cross layers' memory;
+        ``causal``: ``apply_layer``'s.  ``caches`` is None in mode
+        ``full``.  ``remat``
         recomputes each layer in the backward pass instead of keeping its
         activations (the reference's ``jax.checkpoint`` per layer); it
         changes no number and applies only while autograd records.
@@ -422,7 +599,8 @@ class Model:
         flags, auxes, out = [], [], []
         for i, (lp, cache) in enumerate(zip(layers, caches)):
             kw = dict(pos=pos, slots=slots, lengths=lengths, tables=tables,
-                      prefix_lens=prefix_lens, spans=spans, window=window)
+                      prefix_lens=prefix_lens, spans=spans, window=window,
+                      mem=mem, causal=causal)
             args = (x, lp, ctx.with_layer(i), positions, mode, cache)
             if remat:
                 x, f, a, c = checkpoint(self.apply_layer, *args,
@@ -442,37 +620,93 @@ class Model:
              else params["lm_head"])
         return dense(x, w, ctx, "lm_head", out_dtype=F32)
 
+    # -------------------------------------------------- memory
+    def _conv_stem(self, params, audio):
+        """Whisper's audio frontend (the reference's): log-mel frames
+        (B, T, n_mels) through two width-3 convs, stride 1 then 2, each
+        followed by its bias and the tanh GELU, in the weights' dtype ->
+        (B, ceil(T / 2), d_model).  Outside ABFT, as in the reference (a
+        library convolution; its TF32 must be off on the card:
+        ``executor.strict_f32``)."""
+        cs = params["conv_stem"]
+        h = audio.to(cs["w1"].dtype).transpose(1, 2)
+        h = gelu(_conv_same(h, cs["w1"], 1) + cs["b1"][:, None])
+        h = gelu(_conv_same(h, cs["w2"], 2) + cs["b2"][:, None])
+        return h.transpose(1, 2)
+
+    def _memory(self, params, inputs, ctx: LayerCtx, dev):
+        """The per-request memory and its flag (the reference's).  whisper:
+        ``audio`` through the conv stem (``enc_input`` frames without one,
+        or without audio), plus sinusoid positions, through the encoder's
+        layers with no causal mask under ``site_prefix="enc."``, then its
+        LayerNorm.  Vision: ``images`` through ``vision_proj`` (fault site
+        ``cross_qkv``, tag ``vision.proj``, no layer index: a fault aimed
+        at any layer's ``cross_qkv`` fires there too).  (None, False)
+        elsewhere.  Inputs are cast to the weights' dtype; a missing one
+        raises ``KeyError``, as the reference's does."""
+        cfg = self.cfg
+        dtype = params["embed"].dtype
+
+        def get(name):
+            if name not in inputs:
+                raise KeyError(f"{cfg.name} reads its memory from "
+                               f"{' or '.join(map(repr, self.memory_inputs))}"
+                               f" beside the tokens; {name!r} is missing")
+            return torch.as_tensor(inputs[name]).to(device=dev, dtype=dtype)
+
+        if cfg.is_encoder_decoder:
+            frames = (self._conv_stem(params, get("audio"))
+                      if "audio" in inputs and "conv_stem" in params
+                      else get("enc_input"))
+            B, S, _ = frames.shape
+            pos = torch.arange(S, device=dev).expand(B, S)
+            h = frames + sinusoid_pos(pos, cfg.d_model).to(frames.dtype)
+            enc = params["encoder"]
+            h, flag, _, _ = self.run_stack(
+                h, enc, dataclasses.replace(ctx, site_prefix="enc."), pos,
+                "full", None, causal=False)
+            return norm(h, enc["final_norm"], "layernorm", cfg.norm_eps), flag
+        if cfg.vision_dim:
+            return dense(get("images"), params["vision_proj"], ctx,
+                         "cross_qkv", tag="vision.proj")
+        return None, torch.zeros((), dtype=torch.bool, device=dev)
+
     # -------------------------------------------------- forward (train)
     def forward(self, params, batch, ctx: LayerCtx,
                 device=None) -> ForwardOut:
         """Full-sequence causal forward (training and scoring).  batch:
-        {"tokens": (B, L)}; returns ForwardOut with f32 logits (B, L, V),
-        the OR of every GEMM's and attention's flag, the MoE layers' aux
-        loss and, with an MTP head in the params, its f32 ``mtp_logits``
-        (B, L, V) (``_mtp``).  Runs on ``device`` (CUDA unless the caller
-        passes ``"cpu"``), where the params must already live.  Encoder
-        memory and vision inputs are not ported."""
+        {"tokens": (B, L)} (``labels`` may ride along, unread) and the
+        model's ``memory_inputs`` (``_memory``); returns ForwardOut with
+        f32 logits (B, L, V), the OR of every GEMM's and attention's flag
+        (the memory's included), the MoE layers' aux loss and, with an MTP
+        head in the params, its f32 ``mtp_logits`` (B, L, V) (``_mtp``).
+        whisper's decoder adds sinusoid positions to its embeddings.  Runs
+        on ``device`` (CUDA unless the caller passes ``"cpu"``), where the
+        params must already live.  An input the model does not read raises
+        ``ValueError``."""
         from repro_torch.serve.executor import resolve_device
 
         dev = resolve_device(device)
         if params["embed"].device.type != dev.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"forward runs on {dev}")
-        extra = set(batch) - {"tokens", "labels"}
+        extra = set(batch) - {"tokens", "labels", *self.memory_inputs}
         if extra:
-            raise NotImplementedError(
-                f"batch inputs {sorted(extra)} (encoder memory / vision) "
-                f"are not ported")
+            raise ValueError(f"batch inputs {sorted(extra)} are not inputs "
+                             f"of {self.cfg.name}")
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"]).to(dev).long()
         B, L = tokens.shape
+        mem, mem_flag = self._memory(params, batch, ctx, dev)
         x = params["embed"][tokens]
         positions = torch.arange(L, device=dev).expand(B, L)
+        if cfg.is_encoder_decoder:
+            x = x + sinusoid_pos(positions, cfg.d_model).to(x.dtype)
         x, flag, aux, _ = self.run_stack(x, params, ctx, positions, "full",
-                                         None, remat=True)
+                                         None, remat=True, mem=mem)
         x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         logits, f_head = self._head(params, x, ctx)
-        flag = or_flags(flag, f_head)
+        flag = or_flags(flag, f_head, mem_flag)
         mtp_logits = None
         if cfg.mtp_depth and "mtp" in params:
             mtp_logits, f_mtp = self._mtp(params, x, tokens, ctx, positions)
@@ -521,18 +755,19 @@ class Model:
     def copy_paged_blocks(self, cache, src, dst) -> list:
         """``pool[dst[i]] <- pool[src[i]]`` on every attention layer's
         pools (k and v, or the latent), in place — the COW payload move.
-        Per-slot state is never touched."""
+        Per-slot state and cross K/V are never touched."""
         dev = self.kv_leaf(cache).device
         src = torch.as_tensor(src, dtype=torch.long, device=dev)
         dst = torch.as_tensor(dst, dtype=torch.long, device=dev)
         for layer, st in zip(cache, self.state_layers):
-            for leaf in ([] if st else layer.values()):
+            for leaf in ([] if st else cell_leaves(layer)):
                 leaf[dst] = leaf[src]
         return cache
 
     # -------------------------------------------------- prefill / decode
     def prefill(self, params, tokens, cache, ctx: LayerCtx, slots=None,
-                lengths=None, block_tables=None, prefix_lens=None):
+                lengths=None, block_tables=None, prefix_lens=None,
+                inputs=None):
         """Prefill ``cache`` from tokens (B, L).  With ``slots``/``lengths``
         the cache is engine-deep and rows are ragged prompts padded to L;
         logits come from each row's last valid token.  ``block_tables``
@@ -542,15 +777,23 @@ class Model:
         ``prefix_lens[b]``; rotary, causal masks and cache targets follow
         the logical positions.  With ``lengths``, attention runs row by row
         (``chunked_attention(spans=...)``) on each row's span, read to the
-        host once here.  Returns (logits (B, 1, V) f32, cache, flag); the
-        cache is updated in place."""
+        host once here.  ``inputs``: the rows' memory inputs, a dict of the
+        reference's batch keys (``memory_inputs``; the memory of row b is
+        written to slot ``slots[b]`` of each cross layer, and whisper's
+        positions get their sinusoids).  Returns (logits (B, 1, V) f32,
+        cache, flag, the memory's included); the cache is updated in
+        place."""
         cfg = self.cfg
         B, L = tokens.shape
+        mem, mem_flag = self._memory(params, inputs or {}, ctx,
+                                     tokens.device)
         x = params["embed"][tokens]
         positions = torch.arange(L, device=tokens.device).expand(B, L)
         if prefix_lens is not None:
             positions = prefix_lens.to(tokens.device).long()[:, None] \
                 + positions
+        if cfg.is_encoder_decoder:
+            x = x + sinusoid_pos(positions, cfg.d_model).to(x.dtype)
         spans = None
         if lengths is not None:
             lens = lengths.tolist()
@@ -560,7 +803,8 @@ class Model:
         x, flag, _, _ = self.run_stack(x, params, ctx, positions, "prefill",
                                        cache, slots=slots, lengths=lengths,
                                        tables=block_tables,
-                                       prefix_lens=prefix_lens, spans=spans)
+                                       prefix_lens=prefix_lens, spans=spans,
+                                       mem=mem)
         x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
         if lengths is not None:
             idx = (lengths.to(x.device).long() - 1).clamp_min(0)
@@ -568,7 +812,7 @@ class Model:
         else:
             last = x[:, -1:, :]
         logits, f_head = self._head(params, last, ctx)
-        return logits, cache, or_flags(flag, f_head)
+        return logits, cache, or_flags(flag, f_head, mem_flag)
 
     def decode(self, params, token, cache, pos, ctx: LayerCtx,
                block_tables=None):
@@ -577,12 +821,17 @@ class Model:
         (logits (B, 1, V) f32, cache, flag): the attention layers' dicts
         of ``cache`` written in place, a Mamba2 layer's next state in a new
         dict, ``cache`` itself left as it was (``mamba.mamba_decode``);
-        the returned list is what the step commits."""
+        the returned list is what the step commits.  A cross layer reads
+        the K/V its slot's prefill wrote; whisper adds the sinusoid of
+        ``pos``."""
         cfg = self.cfg
         B = token.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int32,
                               device=token.device).expand(B).contiguous()
         x = params["embed"][token]
+        if cfg.is_encoder_decoder:
+            x = x + sinusoid_pos(pos.long()[:, None], cfg.d_model).to(
+                x.dtype)
         x, flag, _, cache = self.run_stack(x, params, ctx, None, "decode",
                                            cache, pos=pos,
                                            tables=block_tables)
@@ -606,14 +855,21 @@ class Model:
         that position.  An MoE layer routes the call's B x T rows at once,
         as the reference's: its capacity is the window's, so a row equals
         decode's only where no expert overflowed in either call.  A stack
-        with a Mamba2 layer raises ``ValueError``.  Returns (logits
-        (B, T, V) f32, cache, flag)."""
+        with a Mamba2 layer raises ``ValueError``, one with cross layers
+        ``NotImplementedError`` (the reference's verify calls ``cross_kv``
+        without a memory).  whisper verifies as the reference does:
+        without the sinusoid positions its prefill and decode add.
+        Returns (logits (B, T, V) f32, cache, flag)."""
         from repro_torch.serve.paged_cache import prefill_write_index
 
         cfg = self.cfg
         B, T = tokens.shape
         pos = torch.as_tensor(pos, dtype=torch.int32,
                               device=tokens.device).expand(B).contiguous()
+        if any(self.cross_layers):
+            raise NotImplementedError(
+                f"speculative verify on {cfg.name}'s cross-attention "
+                f"layers: the reference's verify projects no memory")
         if any(self.state_layers):
             raise ValueError("speculative verify cannot roll the SSM "
                              "recurrence state back to the last accepted "

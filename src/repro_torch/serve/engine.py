@@ -115,6 +115,11 @@ expert overflowed.
 Stacks with a Mamba2 layer refuse prefix sharing, chunked prefill and
 speculative decoding with the reference's ``ValueError``s.
 
+A model that reads a per-request memory beside its tokens (whisper-tiny's
+audio, llama-3.2-vision-11b's images: ``Model.memory_inputs``) raises
+``NotImplementedError``: the engine passes only tokens, and the
+reference's fails on its missing memory.
+
 Options of the reference that this port does not have raise
 ``NotImplementedError``: sharding (``mesh``) and ``hints``.
 """
@@ -132,10 +137,14 @@ from repro_torch.core.policy import ErrorAdaptivePolicy
 from repro_torch.core.protected import ABFTConfig
 from repro_torch.models import attention
 from repro_torch.models.layers import LayerCtx, ModelFault
-from repro_torch.models.model import Model, layer_tags
+from repro_torch.models.model import Model, cell_leaves, layer_tags
 from repro_torch.obs.trace import Tracer
 from repro_torch.serve import paged_cache
-from repro_torch.serve.executor import LocalExecutor, resolve_device
+from repro_torch.serve.executor import (
+    LocalExecutor,
+    resolve_device,
+    strict_f32,
+)
 from repro_torch.serve.paged_cache import BlockPool, PrefixIndex, pytree_bytes
 from repro_torch.serve.runner import ModelRunner
 from repro_torch.serve.scheduler import (
@@ -194,14 +203,17 @@ class ServeEngine:
                  draft_len: int | str | None = None, draft_window: int = 8,
                  draft_units: int = 1):
         _unported(mesh=mesh, hints=hints is not None)
+        if model.memory_inputs:
+            raise NotImplementedError(
+                f"{model.cfg.name} reads a per-request memory "
+                f"({' or '.join(model.memory_inputs)}) beside its tokens; "
+                f"the engine passes only tokens, as the reference's does: "
+                f"drive it through Model.prefill(..., inputs=...) and "
+                f"Model.decode")
         if slots < 1:
             raise ValueError("slots must be >= 1")
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # the ABFT thresholds assume f32 accumulation
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cuda.matmul.\
-                allow_bf16_reduced_precision_reduction = False
+        strict_f32(self.device)
         self.model = model
         self.slots = slots
         self.max_len = max_len
@@ -557,7 +569,7 @@ class ServeEngine:
         for layer, state in zip(cache, self.model.state_layers):
             idx = cells.rows if state else cells.kv
             if idx is not None:
-                out += [(leaf, idx) for leaf in layer.values()]
+                out += [(leaf, idx) for leaf in cell_leaves(layer)]
         return out
 
     def _gather(self, cells: Cells) -> list:

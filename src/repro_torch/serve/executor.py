@@ -27,6 +27,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def strict_f32(device) -> None:
+    """On a CUDA device, keep f32 products in f32: no TF32 in cuBLAS
+    matmuls or cuDNN convolutions (whisper's conv stem), no reduced-
+    precision bf16 reductions.  The ABFT thresholds assume f32
+    accumulation.  Process-wide flags of torch; nothing on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.\
+            allow_bf16_reduced_precision_reduction = False
+
+
 def tree_to(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)

@@ -39,7 +39,10 @@ class TrainConfig:
 def make_loss_fn(model: Model, abft: ABFTConfig, tcfg: TrainConfig,
                  hints=None, device=None) -> Callable:
     """loss_fn(params, batch, fault=None) -> (loss, metrics), on
-    ``device`` (CUDA unless the caller passes ``"cpu"``).  With MTP logits
+    ``device`` (CUDA unless the caller passes ``"cpu"``).  The batch's
+    memory inputs (``audio``, ``enc_input``, ``images``) reach
+    ``Model.forward`` beside its tokens, as the reference's loss passes
+    its batch whole.  With MTP logits
     the loss gains ``mtp_loss_coef`` x the MTP head's NLL of token t + 2
     (labels rolled one more step, the mask times its roll), over the main
     loss's denominator, as the reference's.  Sharding hints are not
@@ -77,13 +80,17 @@ def make_loss_fn(model: Model, abft: ABFTConfig, tcfg: TrainConfig,
 def value_and_grad(loss_fn: Callable) -> Callable:
     """(params, *args) -> ((loss, metrics), grads): autograd through
     ``loss_fn`` with respect to every leaf of the params tree (leaves are
-    detached views: nothing is copied)."""
+    detached views: nothing is copied).  A leaf the loss never reads gets
+    a zero gradient, as under ``jax.grad``: whisper's encoder and stem,
+    whose output no decoder layer reads."""
 
     def run(params, *args):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         with torch.enable_grad():
             loss, metrics = loss_fn(tree_unflatten(params, leaves), *args)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
         metrics = {k: v.detach() for k, v in metrics.items()}
         return (loss.detach(), metrics), tree_unflatten(params, grads)
 

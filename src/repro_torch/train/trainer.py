@@ -30,7 +30,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.models.model import Model
 from repro_torch.runtime.elastic import ElasticState
 from repro_torch.runtime.heartbeat import HeartbeatMonitor, StragglerPolicy
-from repro_torch.serve.executor import resolve_device, tree_to
+from repro_torch.serve.executor import resolve_device, strict_f32, tree_to
 from repro_torch.train.optimizer import init_opt_state
 from repro_torch.train.train_step import TrainConfig, make_train_step
 
@@ -53,6 +53,7 @@ class Trainer:
         if hints is not None:
             raise NotImplementedError("sharding hints are not ported")
         self.device = resolve_device(device)
+        strict_f32(self.device)
         self.model = model
         self.params = tree_to(params, self.device)
         self.tcfg = tcfg

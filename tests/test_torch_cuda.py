@@ -1790,3 +1790,93 @@ def test_small_moe_spec_on_the_card_equals_the_cpu(dev):
             assert am.BATCHED.launches > b
     assert out["cpu"] == out[str(dev)]
     assert out["cpu"][2] > 0
+
+
+def _memory_model(arch, seed=3):
+    """A scaled-down whisper-tiny or llama-3.2-vision-11b in f32 with its
+    memory input (audio frames, image embeddings) and, for vision, the
+    cross gates at 0.7 (at their initial 0 the images never reach the
+    logits), on the CPU."""
+    model = Model(scaled_down(get_config(arch)))
+    params = model.init_params(seed, dtype=torch.float32)
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    if cfg.is_encoder_decoder:
+        mem = {"audio": torch.from_numpy(rng.standard_normal(
+            (2, 2 * cfg.enc_seq_len, cfg.n_mels)).astype(np.float32))}
+    else:
+        mem = {"images": torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_image_tokens, cfg.vision_dim)).astype(np.float32))}
+        for lp in params["layers"]:
+            if "cross_gate" in lp:
+                lp["cross_gate"].fill_(0.7)
+    tokens = torch.from_numpy(rng.integers(1, 256, size=(2, 19)))
+    return model, params, {"tokens": tokens, **mem}
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llama-3.2-vision-11b"])
+def test_small_memory_forward_on_the_card_equals_the_cpu(dev, arch):
+    """f32 ``Model.forward`` of the memory path with flash on (whisper's
+    encoder on K2 non-causal over its 16 frames, its decoder causal; the
+    vision model's cross layer on the plain path, as the reference's):
+    logits within 1e-4 of the CPU's (f32 sums in another order), no flag,
+    K1 and K2 launched on the card; a prefill of both rows and a decode
+    step give the CPU's logits and greedy tokens."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.layers import LayerCtx
+
+    model, params, batch = _memory_model(arch)
+    ctx = LayerCtx(abft=ABFTConfig(flash_attention=True))
+    mem = {k: v for k, v in batch.items() if k != "tokens"}
+    out = {}
+    for d in ("cpu", dev):
+        p = tree_map(lambda t: t.to(d), params)
+        k1, k2 = am.KERNEL.launches, fa.FULL_KERNEL.launches
+        with torch.no_grad():
+            fwd = model.forward(p, {k: v.to(d) for k, v in batch.items()},
+                                ctx, device=d)
+            cache = model.init_cache(2, 32, dtype=torch.float32, device=d)
+            lg, cache, flag = model.prefill(p, batch["tokens"].to(d), cache,
+                                            ctx, inputs=mem)
+            tok = lg[:, 0].argmax(-1, keepdim=True)
+            lg2, _, flag2 = model.decode(p, tok, cache,
+                                         torch.full((2,), 19), ctx)
+        out[str(d)] = (fwd, lg.cpu(), tok.cpu(), lg2.cpu())
+        assert not bool(fwd.flag) and not bool(flag) and not bool(flag2)
+        if str(d) != "cpu":
+            assert am.KERNEL.launches > k1 and fa.FULL_KERNEL.launches > k2
+    a, b = out["cpu"], out[str(dev)]
+    assert (a[0].logits - b[0].logits.cpu()).abs().max().item() <= 1e-4
+    assert (a[1] - b[1]).abs().max().item() <= 1e-4
+    assert torch.equal(a[2], b[2])
+    assert (a[3] - b[3]).abs().max().item() <= 1e-4
+
+
+def test_f32_conv_stem_on_the_card_is_f32_not_tf32(dev):
+    """Whisper's conv stem at its published width (80 mels -> 384, 3000
+    frames) in f32 on the card after an engine has set the process's
+    flags (``executor.strict_f32``: cuDNN's TF32, on by default, off)
+    against the same stem in f64 on the CPU: within 1e-5 of the output's
+    scale, f32 rounding over sums of 3 x 384 terms (TF32's 10-bit
+    mantissa is off by about 5e-4 there)."""
+    from repro_torch.core.tree import tree_map
+
+    torch.backends.cudnn.allow_tf32 = True
+    small = Model(scaled_down(get_config("llama3.2-1b")))
+    ServeEngine(small, small.init_params(0, dtype=torch.float32), slots=1,
+                max_len=16, dtype=torch.float32, device=dev)
+    assert torch.backends.cudnn.allow_tf32 is False
+    model = Model(get_config("whisper-tiny"))
+    gen = torch.Generator().manual_seed(4)
+    cs = {"w1": 0.1 * torch.randn(3, 80, 384, generator=gen),
+          "b1": 0.1 * torch.randn(384, generator=gen),
+          "w2": 0.05 * torch.randn(3, 384, 384, generator=gen),
+          "b2": 0.1 * torch.randn(384, generator=gen)}
+    audio = torch.randn(2, 3000, 80, generator=gen)
+    want = model._conv_stem({"conv_stem": tree_map(lambda t: t.double(), cs)},
+                            audio.double())
+    got = model._conv_stem({"conv_stem": tree_map(lambda t: t.to(dev), cs)},
+                           audio.to(dev))
+    assert got.dtype == torch.float32 and got.shape == (2, 1500, 384)
+    err = (got.cpu().double() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err

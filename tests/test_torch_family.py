@@ -108,12 +108,17 @@ def _ctxs(flash, fault, use_pallas=False):
 
 
 def test_the_family_is_served_and_the_rest_is_not():
+    """Every config constructs; the engine serves the family and refuses
+    the two that read a per-request memory."""
     for arch in ("llama3.2-1b", "qwen2-moe-a2.7b", "deepseek-v3-671b",
                  "jamba-v0.1-52b", "mamba2-1.3b") + ARCHS:
-        Model(get_config(arch))
+        assert Model(get_config(arch)).memory_inputs == ()
     for arch in ("whisper-tiny", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError):
-            Model(get_config(arch))
+        model = Model(scaled_down(get_config(arch)))
+        with pytest.raises(NotImplementedError, match="memory"):
+            ServeEngine(model, model.init_params(0, dtype=torch.float32),
+                        slots=1, max_len=16, dtype=torch.float32,
+                        device="cpu")
 
 
 def test_new_leaves_cross_over_nonzero(fam):

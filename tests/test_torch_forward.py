@@ -99,10 +99,12 @@ def test_forward_needs_cuda_or_an_explicit_cpu(models, monkeypatch):
 
 
 def test_unported_inputs_raise(models):
+    """An input the model does not read (encoder frames to llama) is
+    refused, not ignored."""
     _, _, tm, tp, toks = models
     batch = {"tokens": torch.from_numpy(toks),
              "enc_input": torch.zeros(B, 4, 64)}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="enc_input"):
         tm.forward(tp, batch, LayerCtx(), device="cpu")
 
 

@@ -143,15 +143,20 @@ def test_unported_architectures_raise():
     import dataclasses
 
     cfg = scaled_down(get_config("llama3.2-1b"), n_layers=2)
+    moe = dict(n_experts=4, experts_per_token=2, moe_d_ff=32)
     for ok in (dict(qk_norm=True), dict(qkv_bias=True), dict(rope_pct=0.25),
-               dict(norm="layernorm"),
-               dict(n_experts=4, experts_per_token=2, moe_d_ff=32),
-               dict(mtp_depth=1)):
+               dict(norm="layernorm"), moe, dict(mtp_depth=1),
+               dict(act="gelu"), dict(is_encoder_decoder=True),
+               dict(cross_attn_every=2, vision_dim=32)):
         Model(dataclasses.replace(cfg, **ok))
-    # attention="mla" on llama has no latent ranks: not an MLA to run
-    for bad in (dict(act="gelu"), dict(attention="mla"), dict(family="ssm"),
+    # attention="mla" on llama has no latent ranks: not an MLA to run; the
+    # GELU FFN is ported for dense FFNs only, cross-attention for GQA
+    # layers with a memory to read
+    for bad in (dict(act="relu"), dict(attention="mla"), dict(family="ssm"),
                 dict(norm="scalenorm"), dict(pad_heads_to=8),
                 dict(pad_kv_heads_to=4), dict(mtp_depth=2),
-                dict(is_encoder_decoder=True), dict(cross_attn_every=2)):
+                dict(act="gelu", **moe), dict(family="ssm",
+                                              cross_attn_every=2),
+                dict(cross_attn_every=2)):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(cfg, **bad))

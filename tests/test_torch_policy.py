@@ -102,9 +102,12 @@ def test_unported_architectures_and_sharding_raise():
     mla = dataclasses.replace(scaled_down(cfg), attention="mla")
     assert ProtectionPlan.for_model(get_config("deepseek-v3-671b")).entries
     Model(get_config("mamba2-1.3b"))
-    for bad in (mla, get_config("whisper-tiny")):
-        with pytest.raises(NotImplementedError):
-            Model(bad)
+    with pytest.raises(NotImplementedError):
+        Model(mla)
+    whisper = Model(scaled_down(get_config("whisper-tiny")))
+    with pytest.raises(NotImplementedError, match="memory"):
+        ServeEngine(whisper, whisper.init_params(0, dtype=torch.float32),
+                    slots=1, max_len=16, dtype=torch.float32, device="cpu")
     small = Model(scaled_down(cfg))
     params = small.init_params(0, dtype=torch.float32)
     with pytest.raises(NotImplementedError):
