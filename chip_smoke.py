@@ -35,7 +35,13 @@ plain run's; ``ssm`` serves, faults and scores the Mamba2 family
 recurrent state held to the clean run's; ``cross`` scores, serves
 (model-level prefill and decode with each request's memory, dense and
 paged) and faults whisper-tiny whole and llama-3.2-vision-11b at its
-published widths and depth, and trains whisper on audio.  Each phase
+published widths and depth, and trains whisper on audio; ``audit``
+walks every config's served step at full width inside the phases that
+build each model (``repro_torch.analysis``: every GEMM under a registered
+ABFT scheme, the H100 plan and the executed sites a bijection, every
+kernel launch in the op inventory, a decode step's products against
+``models/counting.py``) and holds the scaled-down ``launch/audit.py
+--all`` on the card against the CPU's.  Each phase
 prints JSON lines; any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -62,7 +68,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
           "campaign", "profile", "timing", "sharing", "spec", "family",
-          "moe", "mla", "ssm", "cross")
+          "moe", "mla", "ssm", "cross", "audit")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -1004,6 +1010,7 @@ def engine_runs(dev) -> dict:
 
     intensity = IntensityGuidedPolicy()
     serve("dense", intensity, label="warmup")
+    audit_engine(dev, model, params, prompts)
     dense, rec_dense, eng = serve("dense", intensity, label="dense")
     need(rec_dense["launches"]["abft_matmul"] > 0
          and rec_dense["launches"]["flash_decode"] > 0,
@@ -1856,6 +1863,7 @@ def family_arch(dev, arch: str) -> dict:
                             phase="family_engine", max_new_tokens=new)
 
     serve("dense", label="warmup", reqs=prompts[:1], new=2)
+    audit_served(dev, model, params, prompts, arch)
     free_memory()
     dense, rec_dense, eng = serve("dense", label="dense")
     t3 = k3_timing(dev, eng, prompts, long_context=False)
@@ -3215,6 +3223,7 @@ def moe_runs(dev) -> dict:
                             phase="moe_engine", max_new_tokens=new)
 
     serve("dense", label="warmup", reqs=prompts[:1], new=2)
+    audit_served(dev, model, params, prompts, MOE_ARCH)
     free_memory()
     dense, rec_dense, eng = serve("dense", label="dense")
     prof = decode_profile(dev, {"engine": eng, "params": params,
@@ -4065,6 +4074,7 @@ def mla_runs(dev) -> dict:
                             phase="mla_engine", max_new_tokens=new)
 
     serve("dense", label="warmup", reqs=prompts[:1], new=2)
+    audit_served(dev, model, params, prompts, MLA_ARCH)
     dense, rec_dense, eng = serve("dense", label="dense")
     prof = decode_profile(dev, {"engine": eng, "params": params,
                                 "prompts": prompts, "dense": rec_dense})
@@ -4409,6 +4419,7 @@ def ssm_arch(dev, arch) -> dict:
                             phase="ssm_engine", max_new_tokens=new)
 
     serve(label="warmup", reqs=prompts[:1], new=2)
+    audit_served(dev, model, params, prompts, arch)
     free_memory()
     dense, rec_dense, eng = serve(label="dense")
     clean_state = _ssm_states(eng)
@@ -5165,6 +5176,7 @@ def cross_arch(dev, arch) -> dict:
         return out
 
     serve("dense", "warmup")
+    audit_memory(dev, model, params, prompts, inputs, arch)
     dense, rec_dense, cache = serve("dense", "dense", profile_steps=4)
     # k3_timing reads an engine's model and dense cache
     t3 = k3_timing(dev, types.SimpleNamespace(model=model, cache=cache),
@@ -5273,6 +5285,352 @@ def _add_cross(kernels, cross) -> None:
                        if flash else None,
                        **{k: t[k] for k in keys}}
             rows[arch] = row
+
+
+# ------------------------------------------------------------------ audit
+
+# The full-width audits of the served steps (``audit_served``,
+# ``audit_engine``, ``audit_memory``), collected while the audit phase is
+# on, by the phases that already build each model; None while it is off.
+AUDITS = None
+# prefill-only plan sites: a decode step never runs them
+PREFILL_SITES = ("cross.k", "cross.v", "vision.proj")
+
+
+def _kernel_launches() -> dict:
+    from repro_torch.kernels import abft_matmul, flash_attention
+
+    return {"K1": abft_matmul.KERNEL.launches,
+            "K2": flash_attention.FULL_KERNEL.launches,
+            "K3": flash_attention.KERNEL.launches}
+
+
+def _walked(step: str, fn) -> tuple:
+    """``fn()`` under the op walker, every launch count set to 0 just
+    before and read just after: (ops, launches, seconds, result)."""
+    from repro_torch.analysis.op_walk import OpWalker
+    from repro_torch.kernels import abft_matmul, flash_attention
+
+    torch.cuda.synchronize()
+    abft_matmul.KERNEL.launches = abft_matmul.BATCHED.launches = 0
+    flash_attention.FULL_KERNEL.launches = flash_attention.KERNEL.launches = 0
+    t = time.perf_counter()
+    with OpWalker(step) as walker, torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return walker.ops, _kernel_launches(), time.perf_counter() - t, out
+
+
+def _audit_step(arch: str, step: str, ops, launches, seconds) -> dict:
+    """One walked step's audit line: protected, allowlisted, known-gap and
+    kernel FLOPs and their shares of the step's FLOPs, the records by
+    kernel; gated on a protected fraction of 1.0 with no unprotected op
+    and on the records equal to the launch counters' increments."""
+    from repro_torch.analysis.audit import (
+        PhaseCoverage,
+        classify,
+        kernel_records,
+        product_flops,
+    )
+
+    cov = PhaseCoverage(phase=step, ops=classify(ops))
+    records = kernel_records(ops)
+    total = sum(c.op.flops for c in cov.ops)
+    gaps = cov.known_unprotected
+    rec = dict(
+        arch=arch, step=step, n_ops=len(ops), total_flops=total,
+        protected_flops=cov.protected_flops,
+        allowlisted_flops=cov.allowlisted_flops,
+        known_gap_flops=gaps, kernel_flops=cov.kernel_flops,
+        protected_share=cov.protected_flops / total,
+        allowlisted_share=cov.allowlisted_flops / total,
+        known_gap_share=sum(gaps.values()) / total,
+        kernel_share=cov.kernel_flops / total,
+        product_flops=product_flops(ops),
+        k1_flops=sum(op.flops for op in ops if op.primitive == "K1"),
+        protected_fraction=cov.protected_fraction,
+        records=records, launches=launches, seconds=seconds)
+    need(cov.protected_fraction == 1.0 and not cov.unprotected_ops,
+         f"audit {arch} {step}: unprotected ops "
+         f"{[(c.op.path, c.op.flops) for c in cov.unprotected_ops][:5]}")
+    need(records == launches, f"audit {arch} {step}: kernel records "
+         f"{records} != launches {launches}")
+    emit("audit", **rec)
+    return rec
+
+
+def _decode_counting(cfg, ops, n_tokens: int) -> dict:
+    """A decode step's protected product FLOPs against
+    ``models/counting.py``'s GEMMs at ``n_tokens`` rows, over the sites the
+    step runs (the encoder's, ``vision.proj`` and the cross K/V run only
+    in prefill).  The one difference allowed, and stated, is the MoE
+    capacity padding: an expert GEMM runs at the capacity C rows
+    (``moe.capacity``), where the count takes ``m * top_k / E``."""
+    from repro_torch.analysis.audit import product_flops
+    from repro_torch.analysis.crosscheck import traced_sites
+    from repro_torch.models.counting import layer_gemms
+    from repro_torch.models.moe import capacity
+
+    sites = layer_gemms(cfg, n_tokens, "decode")
+    ran = traced_sites(ops)
+    skipped = sorted(set(sites) - set(ran))
+    need(set(ran) <= set(sites), f"audit {cfg.name}: decode sites "
+         f"{sorted(set(ran) - set(sites))} not in counting.py")
+    need(all(s.startswith("enc.") or s in PREFILL_SITES for s in skipped),
+         f"audit {cfg.name}: the decode step skipped {skipped}")
+    want = sum(d.flops * c for name, (d, c) in sites.items() if name in ran)
+    pad = 0.0
+    if cfg.n_experts:
+        m_e = max(1, n_tokens * cfg.experts_per_token // cfg.n_experts)
+        rows = capacity(cfg, n_tokens) - m_e
+        for name in ("moe.expert_up", "moe.expert_down"):
+            d, c = sites[name]
+            pad += 2.0 * rows * d.k * d.n * c
+    got = product_flops(ops)
+    need(got == want + pad, f"audit {cfg.name}: decode product FLOPs {got} "
+         f"!= counting.py {want} + capacity padding {pad}")
+    return {"counting_flops": want, "product_flops": got,
+            "capacity_padding_flops": pad, "prefill_only_sites": skipped}
+
+
+def _audit_config(arch, model, steps: dict, decode_rows: int,
+                  t0: float) -> None:
+    """The config's walked steps (name -> (ops, launches, seconds)): a
+    line each, the plan crosscheck over their union against the H100 plan
+    compiled for the model (bijective), and the decode step held against
+    ``counting.py``; the summary, with the wall time since ``t0``, joins
+    ``AUDITS``."""
+    from repro_torch.analysis.crosscheck import crosscheck_plan
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+
+    recs = {step: _audit_step(arch, step, *walk)
+            for step, walk in steps.items()}
+    union = [op for ops, _, _ in steps.values() for op in ops]
+    xc = crosscheck_plan(model.protection_plan(NVIDIA_H100_SXM), union,
+                         model=arch)
+    need(xc.bijective, f"audit {arch}: {xc.report()}")
+    counting = _decode_counting(model.cfg, steps["decode"][0], decode_rows)
+    wall = time.perf_counter() - t0
+    emit("audit_config", arch=arch, sites=len(xc.matched),
+         bijective=True, decode=counting, seconds=wall)
+    AUDITS.append({"arch": arch, "steps": recs, "sites": len(xc.matched),
+                   "decode_counting": counting, "seconds": wall})
+
+
+def _audit_engine(model, params, dev, flash=True, **kw):
+    from repro_torch.serve.engine import ServeEngine
+
+    return ServeEngine(model, params, slots=4, max_len=512,
+                       abft=_cross_ctx(flash).abft, dtype=torch.bfloat16,
+                       device=dev, **kw)
+
+
+def _audit_requests(prompts) -> list:
+    from repro_torch.serve.engine import Request
+
+    return [Request(uid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts[:4])]
+
+
+def audit_served(dev, model, params, prompts, arch) -> None:
+    """The served path of ``arch`` at full width, audited (the audit phase
+    only): a bf16 engine of 4 slots, max_len 512, flash on, under the H100
+    plan; its admission prefill of 4 prompts and one decode step each
+    walked (``_audit_config``)."""
+    if AUDITS is None:
+        return
+    t0 = time.perf_counter()
+    eng = _audit_engine(model, params, dev)
+    reqs = _audit_requests(prompts)
+    steps = {"prefill": _walked("prefill", lambda: eng.admit(reqs))[:3]}
+    need(len(eng.active) == 4, f"audit {arch}: {len(eng.active)} of 4 "
+         f"requests admitted")
+    steps["decode"] = _walked("decode", eng.step)[:3]
+    del eng
+    free_memory()
+    _audit_config(arch, model, steps, 4, t0)
+
+
+class _RepeatProposer:
+    """Drafts ``k`` copies of a request's last token: a window of K + 1
+    rows every verify step, whatever the weights (the audit's verify)."""
+
+    name = "repeat"
+
+    def propose(self, req, k):
+        return np.full((k,), req.generated[-1], np.int32)
+
+
+def audit_engine(dev, model, params, prompts) -> None:
+    """The engine path of llama3.2-1b at full width, audited: ``
+    audit_served``'s admission prefill and decode step (flash on), one
+    chunked step of an engine with ``chunk_tokens=256`` (flash on: the
+    chunks' row-wise attention and K1 at the chunk's rows), and one
+    verify step of a 4-token window (flash off, which speculation needs:
+    a proposer drafting 3 tokens every step)."""
+    if AUDITS is None:
+        return
+    t0 = time.perf_counter()
+    eng = _audit_engine(model, params, dev)
+    reqs = _audit_requests(prompts)
+    steps = {"prefill": _walked("prefill", lambda: eng.admit(reqs))[:3],
+             "decode": _walked("decode", eng.step)[:3]}
+    eng = _audit_engine(model, params, dev, chunk_tokens=256)
+    eng.admit(_audit_requests(prompts))
+    steps["chunk"] = _walked("chunk", eng.step)[:3]
+    need(eng.stats.prefill_chunks > 0, "audit: the chunked step ran no "
+         "chunk")
+    eng = _audit_engine(model, params, dev, flash=False,
+                        spec_decode=_RepeatProposer(), draft_len=3)
+    eng.admit(_audit_requests(prompts))
+    steps["verify"] = _walked("verify", eng.step)[:3]
+    need(eng.stats.draft_proposed == 12, f"audit: the verify step drafted "
+         f"{eng.stats.draft_proposed} tokens, expected 4 x 3")
+    del eng
+    free_memory()
+    _audit_config(ENGINE_ARCH, model, steps, 4, t0)
+
+
+def audit_memory(dev, model, params, prompts, inputs, arch) -> None:
+    """A memory model at full size, audited model-level (the engine
+    refuses it): the prefill of ``prompts`` with their memory ``inputs``
+    (whisper's encoder through K2, flash on) and one decode step of every
+    row, as ``memory_serve`` runs them, on the H100 plan."""
+    if AUDITS is None:
+        return
+    t0 = time.perf_counter()
+    B = len(prompts)
+    lengths = np.array([len(p) for p in prompts], np.int32)
+    toks = np.zeros((B, int(lengths.max())), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    tok_t = torch.from_numpy(toks).to(dev)
+    len_t = torch.from_numpy(lengths).to(dev)
+    slots = torch.arange(B, dtype=torch.int32, device=dev)
+    cache = model.init_cache(B, CROSS_MAX_LEN, dtype=torch.bfloat16,
+                             device=dev)
+    ctx = _cross_ctx(True)
+    ops, launches, secs, (lg, cache, _) = _walked(
+        "prefill", lambda: model.prefill(params, tok_t, cache, ctx,
+                                         slots=slots, lengths=len_t,
+                                         inputs=inputs))
+    steps = {"prefill": (ops, launches, secs)}
+    tok = lg[:, 0].argmax(-1)[:, None]
+    steps["decode"] = _walked("decode", lambda: model.decode(
+        params, tok, cache, len_t, ctx))[:3]
+    del cache
+    free_memory()
+    _audit_config(arch, model, steps, B, t0)
+
+
+def _json_diff(a, b, path: str = "") -> list:
+    """Key paths where two JSON trees differ, with both values."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return [d for k in sorted(set(a) | set(b), key=str)
+                for d in _json_diff(a.get(k), b.get(k), f"{path}.{k}")]
+    if isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _json_diff(x, y, f"{path}[{i}]")]
+    return [] if a == b else [f"{path}: {a!r} != {b!r}"]
+
+
+def audit_scaled(dev) -> dict:
+    """``launch/audit.py --all`` on the card (scaled-down configs, f32,
+    the kernels launched) and on the CPU (their plain versions), both
+    under the H100 plan, every count held equal: each phase's FLOPs by
+    class, fraction, sites and bijection, ``flash_consistent``, and
+    ``n_ops``, which may differ only in ``mixed`` and only where the
+    speculative verify step runs a ``none``/``global`` product on the card
+    one window step at a time (``core/protected._plain_dot`` under
+    ``decode_rows``): T products where the CPU runs one."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis.audit import card_split_ops
+    from repro_torch.configs import ALL_ARCHS
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.launch.audit import run_audits, to_payload
+
+    out, secs = {}, {}
+    for where in ("cpu", "cuda"):
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out[where] = run_audits(ALL_ARCHS, "mixed", device=where,
+                                    hardware=NVIDIA_H100_SXM)
+        secs[where] = time.perf_counter() - t
+    pay = {w: to_payload(r, "mixed") for w, r in out.items()}
+    split = 0
+    for arch, rep in out["cpu"].items():
+        want = json.loads(json.dumps(pay["cpu"]["configs"][arch]))
+        got = json.loads(json.dumps(pay["cuda"]["configs"][arch]))
+        extra = card_split_ops(rep)
+        want["phases"]["mixed"]["n_ops"] += extra
+        split += extra
+        need(got == want, f"audit {arch}: the card's scaled-down audit "
+             f"differs from the CPU's at {_json_diff(got, want)[:10]}")
+        need(got["protected_fraction"] == 1.0
+             and got["crosscheck"]["bijective"],
+             f"audit {arch}: scaled-down fraction "
+             f"{got['protected_fraction']}, bijective "
+             f"{got['crosscheck']['bijective']}")
+    rec = dict(configs=len(out["cuda"]), cpu_seconds=secs["cpu"],
+               cuda_seconds=secs["cuda"], verify_split_ops=split,
+               equal=True, flash_consistent={
+                   a: r.flash_consistent for a, r in out["cuda"].items()},
+               known_gap_flops={a: r.known_unprotected
+                                for a, r in out["cuda"].items()})
+    emit("audit_scaled", **rec)
+    return rec
+
+
+def audit_walker_init() -> float:
+    """Seconds of the op walker's first use in the process (PyTorch
+    imports its dispatch-mode machinery then), on a CPU product, so the
+    audited steps' times are the walker's steady cost."""
+    from repro_torch.analysis.op_walk import flop_ops
+
+    t = time.perf_counter()
+    a = torch.ones(2, 2)
+    need([op.primitive for op in flop_ops(lambda: a @ a)] == ["mm"],
+         "audit: the op walker missed a product")
+    return time.perf_counter() - t
+
+
+def audit_summary(scaled, expected: set, walker_s: float) -> dict:
+    """The audit phase's line: every full-width audit's shares, the
+    records by kernel over them (each kernel of the audited steps recorded
+    at least once when every config is audited) and the phase's wall
+    time: the walker's first use, the scaled-down audits and the
+    full-width audits."""
+    rows = {a["arch"]: {step: {k: r[k] for k in (
+        "known_gap_share", "allowlisted_share", "kernel_share",
+        "protected_share", "k1_flops", "records", "seconds")}
+        for step, r in a["steps"].items()} for a in AUDITS}
+    need(set(rows) == expected, f"audit: audited at full width "
+         f"{sorted(rows)}, expected {sorted(expected)}")
+    records = {k: sum(r["records"][k] for a in AUDITS
+                      for r in a["steps"].values()) for k in ("K1", "K2",
+                                                                "K3")}
+    if len(expected) == 10:
+        need(all(records.values()), f"audit: a kernel never launched in "
+             f"the audited steps: {records}")
+    full = sum(a["seconds"] for a in AUDITS)
+    scaled_s = 0.0 if scaled is None else \
+        scaled["cpu_seconds"] + scaled["cuda_seconds"]
+    rec = dict(configs=sorted(rows), by_config=rows, records=records,
+               walker_init_seconds=walker_s, full_width_seconds=full,
+               scaled_seconds=scaled_s, seconds=walker_s + full + scaled_s)
+    emit("audit_phase", **rec)
+    return rec
+
+
+def _add_audit(kernels, audit) -> None:
+    """Each kernel's line gets ``audit_launches``: its launches over the
+    full-width audited steps (each held equal to the walker's records)."""
+    key = {"abft_matmul": "K1", "flash_attention": "K2",
+           "flash_decode": "K3"}
+    for entry in kernels:
+        entry["audit_launches"] = audit["records"][key[entry["name"]]]
 
 
 # ------------------------------------------------------------------ timing
@@ -5663,6 +6021,8 @@ def main(argv=None) -> int:
     phases = set(args.phases.split(","))
     if "timing" in phases and not {"engine", "forward"} <= phases:
         fail("the timing phase needs the engine and forward phases")
+    global AUDITS
+    AUDITS = [] if "audit" in phases else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -5682,6 +6042,7 @@ def main(argv=None) -> int:
     emit("device", name=name, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda)
 
+    walker_s = audit_walker_init() if AUDITS is not None else 0.0
     t = time.perf_counter()
     built = library.build_all(force=True)
     for lib in library.SOURCES:
@@ -5824,6 +6185,17 @@ def main(argv=None) -> int:
         cross = cross_runs(dev)
         if kernels is not None:
             _add_cross(kernels, cross)
+    if "audit" in phases:
+        # the full-width audits ran inside the phases that build each model
+        cross = None
+        free_memory()
+        expected = {arch for phase, archs in (
+            ("engine", (ENGINE_ARCH,)), ("family", FAMILY_ARCHS),
+            ("moe", (MOE_ARCH,)), ("mla", (MLA_ARCH,)), ("ssm", SSM_ARCHS),
+            ("cross", CROSS_ARCHS)) if phase in phases for arch in archs}
+        audit = audit_summary(audit_scaled(dev), expected, walker_s)
+        if kernels is not None:
+            _add_audit(kernels, audit)
     for line in smi:
         print(line)
     if kernels is not None:

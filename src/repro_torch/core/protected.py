@@ -24,6 +24,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.analysis.markers import protection_scope
 from repro_torch.core import checksums
 from repro_torch.core.checksums import CheckResult
 from repro_torch.core.faults import FaultSpec, inject_output_fault
@@ -93,13 +94,17 @@ def protected_matmul(x, w, cfg: ABFTConfig = ABFTConfig(), *, wsums=None,
                      out_dtype=None, fault: FaultSpec | None = None,
                      first_layer: bool = False, site: str = "unlabeled"):
     """ABFT-protected ``y = x @ w``; x: (..., m, k), w: (k, n).  Returns
-    (y, CheckResult).  ``site`` is the plan-facing layer tag."""
+    (y, CheckResult).  ``site`` is the plan-facing layer tag.  The
+    executor runs inside an ``abft[<scheme>][<site>]`` marker scope, which
+    the coverage audit (``repro_torch.analysis``) reads at every op it
+    records; with no audit running the scope is a no-op."""
     out_dtype = out_dtype or x.dtype
     scheme = cfg.resolve(_gemm_dims(x, w, out_dtype),
                          first_layer=first_layer)
     executor = default_registry().executor(scheme)
-    return executor(x, w, cfg, wsums=wsums, out_dtype=out_dtype,
-                    fault=fault)
+    with protection_scope(scheme_name_of(scheme), site):
+        return executor(x, w, cfg, wsums=wsums, out_dtype=out_dtype,
+                        fault=fault)
 
 
 _BLOCK_MODES = {"block_1s": "1s", "block_2s": "2s", "replica": "replica"}
@@ -122,6 +127,12 @@ def protected_matmul_batched(x, w, cfg: ABFTConfig = ABFTConfig(), *,
     expert's)."""
     out_dtype = out_dtype or x.dtype
     name = scheme_name_of(cfg.resolve(_gemm_dims(x[0], w[0], out_dtype)))
+    with protection_scope(name, site):
+        return _batched(x, w, cfg, name, out_dtype, fault, split_rows)
+
+
+def _batched(x, w, cfg, name, out_dtype, fault, split_rows):
+    """``protected_matmul_batched``'s executors, the scheme resolved."""
     if name in _BLOCK_MODES:
         from repro_torch.kernels import ops
 

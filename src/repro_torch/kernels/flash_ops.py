@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import markers
 from repro_torch.core.checksums import ATOL, CheckResult, flag_from, tolerance_scale
 from repro_torch.core.faults import FaultSpec
 from repro_torch.kernels.flash_attention import (
@@ -23,6 +24,15 @@ from repro_torch.kernels.flash_attention import (
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def attn_flops(rows: int, d: int, dv: int, keys: int) -> float:
+    """The FLOPs a K2/K3 call records in the coverage audit
+    (``analysis/op_walk.py``): its score product (``rows`` query rows x
+    depth ``d`` x ``keys``) and its PV product (``rows`` x ``keys`` x
+    ``dv``), over every key, as the plain attention paths' products count
+    them; a query row is one (batch, position, head)."""
+    return 2.0 * rows * keys * (d + dv)
 
 
 def _attn_check(rs, bs, rp, bp, d: int, s: int,
@@ -62,8 +72,12 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
           f32_bits(f.delta))
     run = flash_attention_kernel if (q.is_cuda or k.is_cuda) \
         else flash_attention_ref
-    out, rs, bs, rp, bp = run(q, k, v, fi, bq=bq_eff, bk=bk_eff,
-                              causal=causal, lq_pad=lq_pad, lk_pad=lk_pad)
+    rows, Dv = B * Lq * H, v.shape[-1]
+    with markers.kernel_scope("K2", rows, D, Lk,
+                              attn_flops(rows, D, Dv, Lk)):
+        out, rs, bs, rp, bp = run(q, k, v, fi, bq=bq_eff, bk=bk_eff,
+                                  causal=causal, lq_pad=lq_pad,
+                                  lk_pad=lk_pad)
     return out, _attn_check(rs, bs, rp, bp, D, Lk, c_factor)
 
 
@@ -76,13 +90,16 @@ def flash_decode(q, k_cache, v_cache, lengths, *, bk: int = 128,
                  c_factor: float = 16.0):
     """Decode attention against a ragged dense cache.  q: (B, 1, H, D);
     k_cache/v_cache: (B, S, KV, D[v]); lengths: (B,) valid lengths."""
-    B, _, _, D = q.shape
+    B, _, H, D = q.shape
     S = k_cache.shape[1]
     block = min(bk, _round_up(S, 8))
     run = flash_decode_kernel if (q.is_cuda or k_cache.is_cuda) \
         else flash_decode_ref
-    out, rs, bs, rp, bp = run(q, k_cache, v_cache, None,
-                              _lengths(lengths, B, q.device), block=block)
+    with markers.kernel_scope("K3", B * H, D, S,
+                              attn_flops(B * H, D, v_cache.shape[-1], S)):
+        out, rs, bs, rp, bp = run(q, k_cache, v_cache, None,
+                                  _lengths(lengths, B, q.device),
+                                  block=block)
     return out, _attn_check(rs, bs, rp, bp, D, S, c_factor)
 
 
@@ -91,12 +108,15 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
     """Decode attention against a paged cache.  k_pool/v_pool:
     (NB, BS, KV, D[v]); block_tables: (B, W) int32 (sentinel tails are
     clamped; the lengths mask makes their contribution exactly zero)."""
-    B, _, _, D = q.shape
+    B, _, H, D = q.shape
     BS = v_pool.shape[1]
     W = block_tables.shape[1]
     run = flash_decode_kernel if (q.is_cuda or k_pool.is_cuda) \
         else flash_decode_ref
-    out, rs, bs, rp, bp = run(q, k_pool, v_pool,
-                              block_tables.to(torch.int32).contiguous(),
-                              _lengths(lengths, B, q.device), block=BS)
+    with markers.kernel_scope("K3", B * H, D, W * BS,
+                              attn_flops(B * H, D, v_pool.shape[-1],
+                                         W * BS)):
+        out, rs, bs, rp, bp = run(q, k_pool, v_pool,
+                                  block_tables.to(torch.int32).contiguous(),
+                                  _lengths(lengths, B, q.device), block=BS)
     return out, _attn_check(rs, bs, rp, bp, D, W * BS, c_factor)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import markers
 from repro_torch.core.checksums import ATOL, CheckResult, flag_from, tolerance_scale
 from repro_torch.core.faults import FaultSpec
 from repro_torch.core.schemes import BlockShape
@@ -42,6 +43,15 @@ def _round_up(x: int, mult: int) -> int:
 
 def _clamp_block(dim: int, block: int, align: int = 8) -> int:
     return min(block, _round_up(dim, align))
+
+
+def k1_flops(m: int, k: int, n: int) -> float:
+    """The FLOPs a K1 call records in the coverage audit
+    (``analysis/op_walk.py``): the product, 2 m k n, and the check's two
+    contractions against the weight's row sums, 2 m k each, as the
+    reference's ``use_pallas=False`` emulation counts them for every block
+    mode (``repro/core/protected.py``).  An expert batch folds into m."""
+    return 2.0 * m * k * n + 4.0 * m * k
 
 
 class _AbftMatmul(torch.autograd.Function):
@@ -124,8 +134,9 @@ def abft_matmul(x, w, *, mode: str = "1s", blocks: BlockShape = BlockShape(),
     bn = _clamp_block(n0, blocks.bn)
     fidx = (f.row // bm, f.col // bn, f.row % bm, f.col % bn,
             int(f.enabled), f.bit)
-    y, res, bnd = _AbftMatmul.apply(x2, w, fidx, f.delta, mode, bm, bk, bn,
-                                    out_dtype, one_slice, split_rows)
+    with markers.kernel_scope("K1", m, k0, n0, k1_flops(m, k0, n0)):
+        y, res, bnd = _AbftMatmul.apply(x2, w, fidx, f.delta, mode, bm, bk,
+                                        bn, out_dtype, one_slice, split_rows)
     # the reference takes the depth of its zero-padded operand (a multiple
     # of bk) for the threshold; kept so both packages flag alike
     tau = ATOL + tolerance_scale(_round_up(k0, bk), c=c_factor) * bnd
@@ -168,8 +179,11 @@ def abft_matmul_batched(x, w, *, mode: str = "1s",
             or route(x[0, :split_rows], w[0], bn, mode)
             != route(x[0], w[0], bn, mode)):
         split_rows = None
-    y, res, bnd = _AbftMatmul.apply(x, w, fidx, f.delta, mode, bm, bk, bn,
-                                    out_dtype, one_slice, split_rows)
+    E = x.shape[0]
+    with markers.kernel_scope("K1", E * m0, k0, n0,
+                              k1_flops(E * m0, k0, n0)):
+        y, res, bnd = _AbftMatmul.apply(x, w, fidx, f.delta, mode, bm, bk,
+                                        bn, out_dtype, one_slice, split_rows)
     tau = ATOL + tolerance_scale(_round_up(k0, bk), c=c_factor) * bnd
     return y, CheckResult(flag=flag_from(res, tau), residual=res,
                           threshold=tau)

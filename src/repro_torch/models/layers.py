@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis.markers import coverage_scope, logical_scope
 from repro_torch.core.faults import FaultSpec
 from repro_torch.core.protected import (
     ABFTConfig,
@@ -181,11 +182,30 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0, q_chunk: int = 512,
     shared prefix, or in chunks gets bit-identical KV and logits.  Key
     chunks that every query of a query chunk masks are skipped (an exact
     no-op), and a row with no query of its own (a padding row: keys end
-    at its offset) is zeros.  Returns (B, Lq, H, Dv)."""
-    if spans is not None:
-        return _rowwise_attention(q, k, v, spans, causal=causal,
+    at its offset) is zeros.  Returns (B, Lq, H, Dv).
+
+    Runs inside a ``flops[softmax]`` coverage scope: the score/PV products
+    are outside the matmul-ABFT surface by design (the fused flash-ABFT
+    kernels replace them with ``flash_attention=True``), and the audit
+    allowlists them.  The row-wise path records its logical products, the
+    reference's count, not its padded chunks."""
+    with coverage_scope("softmax"):
+        if spans is not None:
+            B, Lq, H, Dk = q.shape
+            Lk, Dv = v.shape[1], v.shape[3]
+            with logical_scope("rowwise_attention",
+                               ((B * Lq * H, Dk, Lk), (B * Lq * H, Lk, Dv))):
+                return _rowwise_attention(q, k, v, spans, causal=causal,
+                                          q_chunk=q_chunk, k_chunk=k_chunk,
+                                          scale=scale)
+        return _chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
                                   q_chunk=q_chunk, k_chunk=k_chunk,
-                                  scale=scale)
+                                  scale=scale, lengths=lengths)
+
+
+def _chunked_attention(q, k, v, *, causal, q_offset, q_chunk, k_chunk,
+                       scale, lengths):
+    """``chunked_attention`` without ``spans``: every row at once."""
     B, Lq, H, Dk = q.shape
     Lk, KV, Dv = v.shape[1], v.shape[2], v.shape[3]
     G = H // KV
@@ -290,9 +310,12 @@ def _rowwise_attention(q, k, v, spans, *, causal, q_chunk, k_chunk,
 def decode_attention(q, k_cache, v_cache, length, scale=None):
     """Single-token attention against a (B, S, KV, D) cache.
     q: (B, 1, H, Dk); ``length``: (B,) valid positions.  Returns
-    (B, 1, H, Dv)."""
-    return _decode_core(q, k_cache.to(F32), v_cache.to(F32), v_cache.dtype,
-                        length.to(q.device), scale)
+    (B, 1, H, Dv).  Runs inside a ``flops[softmax]`` coverage scope (see
+    ``chunked_attention``): ``flash_decode`` is the fused-ABFT
+    replacement."""
+    with coverage_scope("softmax"):
+        return _decode_core(q, k_cache.to(F32), v_cache.to(F32),
+                            v_cache.dtype, length.to(q.device), scale)
 
 
 def _decode_core(q, kf, vf, v_dtype, length, scale):
@@ -324,12 +347,15 @@ def verify_attention(q, k_cache, v_cache, length, scale=None):
     bit what decode computes at that position on any device: a batched
     product over T * G query rows would let the library pick another
     kernel, and another summation order, than decode's G rows.  T = 1 is
-    ``decode_attention`` exactly."""
-    kf, vf = k_cache.to(F32), v_cache.to(F32)
-    length = length.to(q.device)
-    return torch.cat([
-        _decode_core(q[:, t:t + 1].contiguous(), kf, vf, v_cache.dtype,
-                     length + t, scale) for t in range(q.shape[1])], dim=1)
+    ``decode_attention`` exactly.  A ``flops[softmax]`` region, as
+    decode's."""
+    with coverage_scope("softmax"):
+        kf, vf = k_cache.to(F32), v_cache.to(F32)
+        length = length.to(q.device)
+        return torch.cat([
+            _decode_core(q[:, t:t + 1].contiguous(), kf, vf, v_cache.dtype,
+                         length + t, scale) for t in range(q.shape[1])],
+            dim=1)
 
 
 def per_step(fn, x, *args, **kw):

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.markers import coverage_scope
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import LayerCtx, dense, gated_rms_norm, or_flags
 
@@ -88,7 +89,14 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     softplus); A: (H,) negative; Bm/Cm: (B, L, N) (one group).  Returns y
     (B, L, H, P) f32 and the final state (B, H, P, N) f32.  L is padded to
     a multiple of the chunk Q = min(chunk, L); padded steps have dt = 0,
-    so they neither decay nor feed the state."""
+    so they neither decay nor feed the state.  Its products are
+    weight-free data-data contractions outside the matmul-ABFT surface:
+    a ``flops[ssm_scan]`` region, a known gap of the coverage audit."""
+    with coverage_scope("ssm_scan"):
+        return _ssd_scan(xh, dt, A, Bm, Cm, chunk)
+
+
+def _ssd_scan(xh, dt, A, Bm, Cm, chunk: int):
     Bsz, L, H, P = xh.shape
     N = Bm.shape[-1]
     Q = min(chunk, L)
@@ -216,10 +224,13 @@ def mamba_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, cache, slots=None,
 
 def _conv_step(state, new, w, b):
     """One rolling depthwise conv step.  state: (B, W-1, C); new: (B, C).
-    Returns (silu(conv) f32 (B, C), the next window f32 (B, W-1, C))."""
-    window = torch.cat([state.to(F32), new[:, None, :].to(F32)], dim=1)
-    out = (window * w.to(F32)).sum(dim=1)
-    return F.silu(out + b.to(F32)), window[:, 1:, :]
+    Returns (silu(conv) f32 (B, C), the next window f32 (B, W-1, C)).  A
+    ``flops[ssm_scan]`` region, as the reference's (whose einsum is a
+    contraction; here it is elementwise, with no FLOP-carrying op)."""
+    with coverage_scope("ssm_scan"):
+        window = torch.cat([state.to(F32), new[:, None, :].to(F32)], dim=1)
+        out = (window * w.to(F32)).sum(dim=1)
+        return F.silu(out + b.to(F32)), window[:, 1:, :]
 
 
 def mamba_decode(x, p, cfg: ModelConfig, ctx: LayerCtx, cache):
@@ -239,10 +250,12 @@ def mamba_decode(x, p, cfg: ModelConfig, ctx: LayerCtx, cache):
     dt2 = F.softplus(dt[:, 0].to(F32) + p["dt_bias"])       # (B, H)
     dA = torch.exp(dt2 * -torch.exp(p["A_log"]))
     xh = xs2.reshape(Bsz, H, P)
-    # S' = S dA + (dt x) outer B;  y = S' C
-    upd = (dt2[:, :, None] * xh)[..., None] * Bm2[:, None, None, :]
-    S = cache["ssm"].to(F32) * dA[:, :, None, None] + upd
-    y = (S @ Cm2[:, None, :, None])[..., 0]                # (B, H, P)
+    # S' = S dA + (dt x) outer B;  y = S' C: the decode recurrence, a
+    # ``flops[ssm_scan]`` region
+    with coverage_scope("ssm_scan"):
+        upd = (dt2[:, :, None] * xh)[..., None] * Bm2[:, None, None, :]
+        S = cache["ssm"].to(F32) * dA[:, :, None, None] + upd
+        y = (S @ Cm2[:, None, :, None])[..., 0]            # (B, H, P)
     out, f2 = _mix_out(y, xh, z, x, p, cfg, ctx)
     state = {"conv_x": conv_x.to(cache["conv_x"].dtype),
              "conv_bc": conv_bc.to(cache["conv_bc"].dtype),

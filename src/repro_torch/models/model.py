@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.analysis.markers import coverage_scope, layer_scope
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
@@ -602,11 +603,12 @@ class Model:
                       prefix_lens=prefix_lens, spans=spans, window=window,
                       mem=mem, causal=causal)
             args = (x, lp, ctx.with_layer(i), positions, mode, cache)
-            if remat:
-                x, f, a, c = checkpoint(self.apply_layer, *args,
-                                        use_reentrant=False, **kw)
-            else:
-                x, f, a, c = self.apply_layer(*args, **kw)
+            with layer_scope(ctx.site_prefix, i):
+                if remat:
+                    x, f, a, c = checkpoint(self.apply_layer, *args,
+                                            use_reentrant=False, **kw)
+                else:
+                    x, f, a, c = self.apply_layer(*args, **kw)
             flags.append(f)
             out.append(c)
             if a is not None:
@@ -627,12 +629,14 @@ class Model:
         followed by its bias and the tanh GELU, in the weights' dtype ->
         (B, ceil(T / 2), d_model).  Outside ABFT, as in the reference (a
         library convolution; its TF32 must be off on the card:
-        ``executor.strict_f32``)."""
-        cs = params["conv_stem"]
-        h = audio.to(cs["w1"].dtype).transpose(1, 2)
-        h = gelu(_conv_same(h, cs["w1"], 1) + cs["b1"][:, None])
-        h = gelu(_conv_same(h, cs["w2"], 2) + cs["b2"][:, None])
-        return h.transpose(1, 2)
+        ``executor.strict_f32``): a ``flops[conv_stem]`` region, a known
+        gap of the coverage audit."""
+        with coverage_scope("conv_stem"):
+            cs = params["conv_stem"]
+            h = audio.to(cs["w1"].dtype).transpose(1, 2)
+            h = gelu(_conv_same(h, cs["w1"], 1) + cs["b1"][:, None])
+            h = gelu(_conv_same(h, cs["w2"], 2) + cs["b2"][:, None])
+            return h.transpose(1, 2)
 
     def _memory(self, params, inputs, ctx: LayerCtx, dev):
         """The per-request memory and its flag (the reference's).  whisper:
@@ -886,6 +890,16 @@ class Model:
         x = per_step(norm, x, params["final_norm"], cfg.norm, cfg.norm_eps)
         logits, f_head = self._head(params, x, ctx)
         return logits, cache, or_flags(flag, f_head)
+
+    def audit_coverage(self, phase: str = "mixed", **kw):
+        """Protection-coverage audit (``repro_torch.analysis``): run this
+        model's prefill and decode (and the engine's chunk and verify
+        steps) under the op walker and classify every FLOP-carrying op as
+        protected / allowlisted / known-unprotected / UNPROTECTED, with
+        the plan crosscheck.  Returns an ``AuditReport``."""
+        from repro_torch.analysis.audit import audit_model
+
+        return audit_model(self, phase=phase, **kw)
 
     def protection_plan(self, hw, policy=None, *, phase: str = "serve",
                         n_tokens: int = 1, dtype_bytes: int = 2):

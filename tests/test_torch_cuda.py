@@ -1880,3 +1880,92 @@ def test_f32_conv_stem_on_the_card_is_f32_not_tf32(dev):
     assert got.dtype == torch.float32 and got.shape == (2, 1500, 384)
     err = (got.cpu().double() - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item(), err
+
+
+# ---------------------------------------------------------- coverage audit
+
+def _launches():
+    return {"K1": am.KERNEL.launches, "K2": fa.FULL_KERNEL.launches,
+            "K3": fa.KERNEL.launches}
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_audit_records_equal_the_launch_counters(dev, flash):
+    """On a llama decode step on the card, the walker's K1/K3 records
+    equal the launch counters' increments over the same call: every
+    ``ctypes`` launch is in the inventory, flash on and off."""
+    from repro_torch.analysis.audit import (
+        _audit_abft,
+        _zero_params,
+        kernel_records,
+        trace_decode,
+    )
+
+    model = Model(scaled_down(get_config("llama3.2-1b")))
+    params = _zero_params(model, torch.float32, dev)
+    before = _launches()
+    ops_ = trace_decode(model, params, _audit_abft(flash=flash), device=dev)
+    torch.cuda.synchronize()
+    after = _launches()
+    got = kernel_records(ops_)
+    assert got == {k: after[k] - before[k] for k in got}
+    assert got["K1"] > 0
+    assert got["K3"] == (model.cfg.n_layers if flash else 0)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2-moe-a2.7b",
+                                  "deepseek-v3-671b", "jamba-v0.1-52b",
+                                  "whisper-tiny", "llama-3.2-vision-11b"])
+def test_scaled_audit_on_the_card_equals_the_cpus(dev, arch):
+    """The scaled-down audit (f32, phase mixed, the H100 plan) on the card
+    equals the CPU's in every count of its JSON; ``n_ops`` of ``mixed``
+    only where the verify step's ``none``/``global`` products run one
+    window step at a time on the card (``card_split_ops``)."""
+    from repro_torch.analysis.audit import audit_config, card_split_ops
+
+    cpu = audit_config(arch, "mixed", device="cpu")
+    card = audit_config(arch, "mixed", device=dev)
+    want, got = cpu.to_json(), card.to_json()
+    want["phases"]["mixed"]["n_ops"] += card_split_ops(cpu)
+    assert got == want
+    assert card.protected_fraction == 1.0 and card.crosscheck.bijective
+
+
+@pytest.mark.parametrize("step", ["chunk", "verify"])
+def test_audit_leaves_the_engine_unchanged_on_the_card(dev, step):
+    """An engine stepped under the walker on the card ends with the stats,
+    cursors and cache cells of the same calls run un-audited."""
+    import dataclasses
+    import functools
+
+    from repro_torch.analysis.audit import (
+        _audit_abft,
+        chunk_engine,
+        verify_engine,
+    )
+    from repro_torch.analysis.op_walk import flop_ops
+
+    model = Model(scaled_down(get_config("llama3.2-1b")))
+    params = model.init_params(0, dtype=torch.float32, device=dev)
+    states = []
+    for walk in (True, False):
+        if step == "chunk":
+            eng, rows = chunk_engine(model, params, _audit_abft(),
+                                     device=dev)
+            call = functools.partial(eng._run_prefill_chunk, rows, None)
+        else:
+            eng = verify_engine(model, params, _audit_abft(), device=dev)
+            call = eng._verify_core
+        if walk:
+            assert flop_ops(call)
+        else:
+            call()
+        torch.cuda.synchronize()
+        states.append((dataclasses.asdict(eng.stats), eng.pos.tolist(),
+                       [{k: v.cpu() for k, v in layer.items()}
+                        for layer in eng.cache]))
+    (s1, p1, c1), (s2, p2, c2) = states
+    assert s1 == s2 and p1 == p2
+    for a, b in zip(c1, c2):
+        for key in a:
+            assert torch.equal(a[key], b[key]), key

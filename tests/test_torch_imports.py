@@ -83,6 +83,10 @@ def test_module_walk_finds_the_slice():
                  "repro_torch.configs.jamba_v0_1_52b",
                  "repro_torch.configs.mamba2_1_3b",
                  "repro_torch.configs.whisper_tiny",
-                 "repro_torch.configs.llama3_2_vision_11b"):
+                 "repro_torch.configs.llama3_2_vision_11b",
+                 "repro_torch.analysis", "repro_torch.analysis.markers",
+                 "repro_torch.analysis.op_walk",
+                 "repro_torch.analysis.crosscheck",
+                 "repro_torch.analysis.audit", "repro_torch.launch.audit"):
         assert name in mods
     assert pkgutil  # the subprocess walks packages the same way
