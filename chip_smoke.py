@@ -41,8 +41,14 @@ build each model (``repro_torch.analysis``: every GEMM under a registered
 ABFT scheme, the H100 plan and the executed sites a bijection, every
 kernel launch in the op inventory, a decode step's products against
 ``models/counting.py``) and holds the scaled-down ``launch/audit.py
---all`` on the card against the CPU's.  Each phase
-prints JSON lines; any failure exits non-zero.  The last line is
+--all`` on the card against the CPU's; ``tp`` serves full-width
+llama3.2-1b with tensor parallelism over two ranks sharing the card
+(``repro_torch.distributed.spawn``, gloo), every rank's streams and
+counters equal, dense = paged, faulted = clean, shared + chunked = plain
+and oracle-sped = unsped at TP=2, against the one-process run (logits, and a
+divergent stream only at a near-tie), K1 at the shard shapes against its
+plain version, K1/K3/collectives a decode step a rank, the rank-0 audit.
+Each phase prints JSON lines; any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -68,7 +74,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
           "campaign", "profile", "timing", "sharing", "spec", "family",
-          "moe", "mla", "ssm", "cross", "audit")
+          "moe", "mla", "ssm", "cross", "audit", "tp")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -96,12 +102,26 @@ SCORE_B, SCORE_L = 1, 1024
 # and 10 of its 40 layers (its gates hold the paths at another arch's
 # widths, which the depth does not change; the run keeps to its time)
 SIDE_ARCH, SIDE_LAYERS = "qwen3-14b", 10
+# the llama those two phases serve: full width, 8 of its 16 layers (the
+# same reason; their kernel timings keep the full model's GEMMs)
+SERVED_LAYERS = 8
 
 
 def side_config():
     from repro_torch.configs import get_config
 
     return dataclasses.replace(get_config(SIDE_ARCH), n_layers=SIDE_LAYERS)
+
+
+def served_llama(dev) -> tuple:
+    """The sharing and spec phases' llama3.2-1b: full width,
+    ``SERVED_LAYERS`` layers, bf16 weights from seed 0 on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    model = Model(dataclasses.replace(get_config(ENGINE_ARCH),
+                                      n_layers=SERVED_LAYERS))
+    return model, model.init_params(0, dtype=torch.bfloat16, device=dev)
 
 
 def emit(phase: str, **kw) -> None:
@@ -2120,22 +2140,22 @@ def _same_streams(rec, ref, what, clean: bool = True) -> None:
 
 
 def sharing_llama(dev, params=None) -> dict:
-    """Full-width llama3.2-1b: the prefix and long-prompt traffic through
-    the reference run (paged, neither feature) and every feature, faults
-    included; the gates of the slice (see ``main``'s docstring)."""
-    from repro_torch.configs import get_config
+    """Full-width llama3.2-1b (``served_llama``'s depth): the prefix and
+    long-prompt traffic through the reference run (paged, neither
+    feature) and every feature, faults included; the gates of the slice
+    (see ``main``'s docstring); K1 at a chunk's M over the full model's
+    GEMMs (``params``)."""
     from repro_torch.core.faults import FaultSpec
     from repro_torch.models.layers import ModelFault
-    from repro_torch.models.model import Model
 
-    cfg = get_config(ENGINE_ARCH)
-    model = Model(cfg)
+    model, served = served_llama(dev)
+    cfg = model.cfg
     if params is None:
         params, _ = engine_inputs(dev)
     prefix, long = sharing_traffic(cfg.vocab_size)
 
     def run(traffic, label, **kw):
-        return share_serve(model, params, traffic, dev, label, **kw)
+        return share_serve(model, served, traffic, dev, label, **kw)
 
     run(prefix[:2], "warmup", cache_kind="paged", prefix_sharing=True,
         chunk_tokens=SHARE_CHUNK)
@@ -2234,7 +2254,7 @@ def sharing_llama(dev, params=None) -> dict:
     t_chunk_split = k1_timing(dev, params, SHARE_CHUNK)
     attn = prefill_attention_timing(dev, cfg)
     summary = dict(
-        arch=ENGINE_ARCH,
+        arch=ENGINE_ARCH, layers=SERVED_LAYERS,
         ttft_ms={k: runs[k]["ttft_ms"] for k in (
             "prefix_reference", "prefix_sharing", "prefix_sharing_chunk256",
             "long_reference", "long_chunk256")},
@@ -2356,7 +2376,7 @@ def sharing_runs(dev, params=None) -> dict:
 
 # ------------------------------------------------------------------ spec
 
-SPEC_SLOTS, SPEC_MAX_LEN, SPEC_BLOCK, SPEC_NEW = 4, 1024, 16, 64
+SPEC_SLOTS, SPEC_MAX_LEN, SPEC_BLOCK, SPEC_NEW = 4, 1024, 16, 32
 SPEC_CHUNK = 256
 
 
@@ -2413,7 +2433,7 @@ def spec_serve(model, params, prompts, dev, label, *, policy=None,
                temperature=0.0, top_k=0, phase="spec_run", **kw) -> dict:
     """One full-width bf16 engine run (4 slots, max_len 1024, block 16,
     flash off, ``IntensityGuidedPolicy`` on the H100 unless ``policy``)
-    of ``prompts`` (64 new tokens each, all pending from the start)
+    of ``prompts`` (``SPEC_NEW`` new tokens each, all pending from the start)
     through ``admit``/``step``.  Every step is timed to a synchronize; K1
     and K3 counted from 0 for this run, and K1 must launch on every step
     that ran a verify (or decode) call (not under a fixed plain
@@ -2654,7 +2674,9 @@ def spec_row_order(dev, params, cfg) -> dict:
 
 
 def spec_llama(dev, params=None) -> dict:
-    """Full-width llama3.2-1b: copy and fresh traffic unsped (dense,
+    """Full-width llama3.2-1b (``served_llama``'s depth; K1 at the verify
+    step's M and the row-order observations on the full model's
+    ``params``): copy and fresh traffic unsped (dense,
     paged) and with n-gram drafts at K = 4 and ``"auto"`` (dense, paged);
     on copy traffic also an oracle proposer at K = 4 and 8, self-draft
     (2 layers over 16 tokens), n-gram with sharing and chunks of 256, a
@@ -2667,20 +2689,19 @@ def spec_llama(dev, params=None) -> dict:
     from repro_torch.core.policy import FixedPolicy
     from repro_torch.core.schemes import Scheme
     from repro_torch.models.layers import ModelFault
-    from repro_torch.models.model import Model
 
     cfg = get_config(ENGINE_ARCH)
-    model = Model(cfg)
+    model, served = served_llama(dev)
     if params is None:
         params, _ = engine_inputs(dev)
     traffic = spec_traffic(cfg.vocab_size)
 
     def run(kind, label, **kw):
-        return spec_serve(model, params, traffic[kind], dev,
+        return spec_serve(model, served, traffic[kind], dev,
                           f"{kind} {label}", **kw)
 
     ngram4 = dict(spec_decode="ngram", draft_len=4)
-    spec_serve(model, params, traffic["copy"][:2], dev, "warmup",
+    spec_serve(model, served, traffic["copy"][:2], dev, "warmup",
                **ngram4)
     runs = {}
     for kind in ("copy", "fresh"):
@@ -2733,7 +2754,8 @@ def spec_llama(dev, params=None) -> dict:
     # (seed 6: one onset, at the 7th step, for one step; the next at the
     # 194th, past the run's end)
     fm = FaultModel(transient_rate=0.0, permanent_rate=0.03,
-                    permanent_duration=1, seed=6, layers=cfg.n_layers,
+                    permanent_duration=1, seed=6,
+                    layers=model.cfg.n_layers,
                     dtype=torch.float32, magnitude=1e4,
                     sites=("mlp_down",))
     rec = runs["copy sticky_fault"] = run("copy", "sticky_fault",
@@ -2768,7 +2790,7 @@ def spec_llama(dev, params=None) -> dict:
         plain[scheme.value] = True
     verify_t = k1_timing(dev, params, SPEC_SLOTS * 9, split_rows=SPEC_SLOTS)
     summary = dict(
-        arch=ENGINE_ARCH,
+        arch=ENGINE_ARCH, layers=SERVED_LAYERS,
         tokens_per_s={k: r["tokens_per_s"] for k, r in runs.items()},
         step_ms={k: (r["step_kind"], r["step_ms_median"])
                  for k, r in runs.items()},
@@ -5797,7 +5819,10 @@ def k3_timing(dev, eng, prompts, long_context: bool = True) -> dict:
     gen = torch.Generator(device=dev).manual_seed(6)
     q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(torch.bfloat16)
     S = caches[0]["k"].shape[1]
-    dense_block, BS = min(128, -(-S // 8) * 8), 16
+    # the dense walk's blocks as the engine's decode takes them
+    from repro_torch.models.attention import DENSE_DECODE_BLOCK
+
+    dense_block, BS = min(DENSE_DECODE_BLOCK, -(-S // 8) * 8), 16
     Wp = -(-S // BS)
     perm = torch.randperm(B * Wp, generator=gen, device=dev)
     table = perm.reshape(B, Wp).to(torch.int32).contiguous()
@@ -5915,6 +5940,462 @@ def _k3_long_context(dev, H, KV, D, S=8192) -> dict:
                 "library_ms": sdpa,
                 "bound_ms": 2 * B * S * KV * D * 2 / HBM_BW * 1e3}
     return out
+
+
+# ------------------------------------------------------------------ tp
+
+TP_RANKS = 2
+TP_NEW = 16
+# the TP=2 shard GEMMs of llama3.2-1b at a decode step: (K, N) and whether
+# the output is the f32 partial of a row-parallel site (o, down) or the
+# head's f32 logits
+TP_K1_SHAPES = {"q": (2048, 1024, False), "kv": (2048, 256, False),
+                "o": (1024, 2048, True), "up_gate": (2048, 4096, False),
+                "down": (4096, 2048, True), "head": (2048, 64128, True)}
+
+
+class _Capture:
+    """Wraps an engine's runner: keeps the logits of the first admission
+    prefill and of the first decode step (host f32), and where
+    ``prompts`` is given, the top-1 minus top-2 logit of every emitted
+    token by (uid, step), read off the rows the sampler sees."""
+
+    def __init__(self, eng, prompts=None):
+        self.first = {}
+        self.gaps = {} if prompts is not None else None
+        self.kind, self.rows = None, []
+        uid_of = {p.astype(np.int32).tobytes(): i
+                  for i, p in enumerate(prompts or [])}
+        runner = eng.runner
+        sample, decode, prefill = runner.sample, runner.decode, \
+            runner.prefill
+
+        def cap_sample(logits, gens):
+            if self.kind not in self.first:
+                self.first[self.kind] = logits.float().cpu()
+            if self.gaps is not None:
+                top = torch.topk(logits.float(), 2, dim=-1).values
+                for key, g in zip(self.rows, (top[:, 0] - top[:, 1])
+                                  .tolist()):
+                    if key is not None:
+                        self.gaps[key] = g
+            return sample(logits, gens)
+
+        def cap_decode(p, tok, cache, pos, mask, *a, **k):
+            self.kind = "decode"
+            self.rows = [(eng.active[s].uid, len(eng.active[s].generated))
+                         if s in eng.active else None
+                         for s in range(eng.slots)]
+            return decode(p, tok, cache, pos, mask, *a, **k)
+
+        def cap_prefill(p, toks, cache, slot_ids, lengths, *a, **k):
+            self.kind = "prefill"
+            t = toks.cpu().numpy().astype(np.int32)
+            n = lengths.cpu().numpy()
+            self.rows = [(uid_of[t[i, :n[i]].tobytes()], 0)
+                         if t[i, :n[i]].tobytes() in uid_of else None
+                         for i in range(len(n))]
+            return prefill(p, toks, cache, slot_ids, lengths, *a, **k)
+
+        runner.sample, runner.decode, runner.prefill = \
+            cap_sample, cap_decode, cap_prefill
+
+
+def _tp_faults(cfg) -> dict:
+    """The phase's faults: ``mlp_down`` (row-parallel: rank 0's partial)
+    and ``qkv`` at q's column 3/4 of its width (column-parallel: rank
+    1's at TP=2; beyond k's and v's widths, so q alone)."""
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.models.layers import ModelFault
+
+    col = cfg.n_heads * cfg.resolved_head_dim * 3 // 4
+    return {"down": ModelFault.at(0, "mlp_down", FaultSpec.value(0, 1, 1e5)),
+            "qkv": ModelFault.at(1, "qkv", FaultSpec.value(0, col, 1e5))}
+
+
+def tp_serve(model, params, prompts, dev, label, *, mesh=None,
+             cache_kind="dense", flash=True, fault_at=None,
+             admit_fault_at=None, max_retries=1, capture=None, **kw):
+    """One bf16 engine run of the engine phase's traffic (4 slots,
+    max_len 512, the H100 plan), at ``mesh`` ranks or on one process:
+    its streams, errors and every ``EngineStats`` field (the record every
+    rank must share), and apart its timing: each decode step's ms, K1 and
+    K3 launches and collectives (counted from 0 for this run)."""
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import IntensityGuidedPolicy
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import abft_matmul, flash_attention
+    from repro_torch.serve.engine import RecoveryPolicy, Request, ServeEngine
+
+    K1, K3 = abft_matmul.KERNEL, flash_attention.KERNEL
+    abft = ABFTConfig.from_policy(IntensityGuidedPolicy(),
+                                  hardware=NVIDIA_H100_SXM,
+                                  flash_attention=flash)
+    eng = ServeEngine(model, params, slots=4, max_len=512, abft=abft,
+                      dtype=torch.bfloat16, device=dev,
+                      cache_kind=cache_kind, mesh=mesh,
+                      policy=RecoveryPolicy(max_retries=max_retries,
+                                            evict_on_hard_fault=True), **kw)
+    cap = _Capture(eng, capture) if capture is not False else None
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=TP_NEW)
+            for i, p in enumerate(prompts)]
+    steps = []
+    step = eng.step
+
+    def timed_step(*a, **k):
+        c0, k1, k3 = collectives.COUNTS["calls"], K1.launches, K3.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = step(*a, **k)
+        torch.cuda.synchronize()
+        if r:
+            steps.append((1e3 * (time.perf_counter() - t),
+                          K1.launches - k1, K3.launches - k3,
+                          collectives.COUNTS["calls"] - c0))
+        return r
+
+    eng.step = timed_step
+    K1.launches = K3.launches = 0
+    collectives.reset_counts()
+    eng.run(reqs, fault_at=fault_at, admit_fault_at=admit_fault_at)
+    torch.cuda.synchronize()
+    del eng.step
+    st = dataclasses.asdict(eng.stats)
+    rec = {"label": label,
+           "streams": {r.uid: [int(t) for t in r.generated] for r in reqs},
+           "errors": {r.uid: r.error for r in reqs if r.error},
+           "stats": {k: v for k, v in st.items()
+                     if isinstance(v, (int, float, list, dict))}}
+    timing = {"decode_steps": len(steps),
+              "step_ms": [s[0] for s in steps],
+              "k1_per_step": sorted({s[1] for s in steps}),
+              "k3_per_step": sorted({s[2] for s in steps}),
+              "collectives_per_step": sorted({s[3] for s in steps}),
+              "launches": {"abft_matmul": K1.launches,
+                           "flash_decode": K3.launches}}
+    return eng, rec, timing, cap
+
+
+def tp_rank(prompts) -> dict:
+    """One rank of the ``tp`` phase (``distributed/spawn.py``): full-width
+    llama3.2-1b from seed 0, this rank's shard, served at ``mesh=2``
+    dense and paged, under faults, evicting, with sharing + chunks, and
+    unsped and with oracle speculation (flash off); the collectives of
+    one decode step timed alone; rank 0 also walks one decode step under
+    the op walker (the audit).  Every record is checked equal across the
+    ranks; returns the records, the timings and, on rank 0, the captured
+    logits and the audit."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.models.model import Model
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("tp rank: no CUDA device")
+    dev = torch.device("cuda")
+    cfg = get_config(ENGINE_ARCH)
+    model = Model(cfg)
+    params = model.init_params(0, dtype=torch.bfloat16, device=dev)
+    faults = _tp_faults(cfg)
+    recs, timings = {}, {}
+
+    def run(label, **kw):
+        eng, rec, timing, cap = tp_serve(model, params, prompts, dev, label,
+                                         mesh=TP_RANKS, **kw)
+        collectives.check_same(rec, eng.executor.tp, label)
+        recs[label], timings[label] = rec, timing
+        return eng, cap
+
+    eng, cap = run("dense", capture=None)
+    tp = eng.executor.tp
+    rank = tp.rank
+    out = {"rank": rank, "backend": tp.backend,
+           "device": str(eng.device), "sharded": sorted(tp.sharded),
+           "plan": [{k: r[k] for k in ("layer", "m", "k", "n", "scheme")}
+                    for r in eng.plan.report_rows()]}
+    if rank == 0:
+        out["logits"] = {k: v.numpy() for k, v in cap.first.items()}
+    del eng, cap
+    run("paged", cache_kind="paged", capture=False)
+    run("fault_down", fault_at=(2, faults["down"]),
+        admit_fault_at=(0, faults["down"]), capture=False)
+    run("fault_qkv", fault_at=(3, faults["qkv"]), capture=False)
+    run("hard_fault", fault_at=(1, faults["down"]), max_retries=0,
+        capture=False)
+    run("shared_chunked", cache_kind="paged", prefix_sharing=True,
+        chunk_tokens=256, capture=False)
+    run("unsped", flash=False, capture=False)
+    # on this traffic (random weights, 16 new tokens) the n-gram proposer
+    # drafts nothing; an oracle drafting the unsped run's next tokens puts
+    # K = 4 verify windows of real drafts through the sharded verify path
+    run("oracle", flash=False, spec_decode=_OracleProposer(
+        {int(u): s for u, s in recs["unsped"]["streams"].items()}),
+        draft_len=4, capture=False)
+    out["collective_ms"] = _tp_collective_ms(cfg, tp)
+    out["audit"] = _tp_audit(model, params, prompts, dev, rank)
+    out["records"], out["timings"] = recs, timings
+    return out
+
+
+def _tp_collective_ms(cfg, tp) -> list:
+    """The host ms of one decode step's collectives alone, at its sizes
+    (4 slots): the embedding's and each layer's two (slots, d) f32 sums,
+    the head's (slots, vocab / k) f32 gather and the flag's OR, between
+    two device syncs and a barrier; 20 times."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+
+    slots, reps = 4, 20
+    x = torch.zeros(slots, cfg.d_model, device="cuda")
+    logits = torch.zeros(slots, cfg.vocab_size // tp.size, device="cuda")
+    flag = torch.zeros((), dtype=torch.bool, device="cuda")
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        dist.barrier(group=tp.group)
+        t = time.perf_counter()
+        for _ in range(2 * cfg.n_layers + 1):
+            collectives.all_reduce_sum(x, tp)
+        collectives.gather_last(logits, tp)
+        collectives.or_flag(flag, tp)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t))
+    return out
+
+
+def _tp_audit(model, params, prompts, dev, rank):
+    """One TP=2 decode step, walked on rank 0 (every rank steps, since the
+    step's collectives need them all): protected fraction 1.0, the
+    walker's K1/K3 records equal to rank 0's launch counters, and the
+    per-shard H100 plan bijective with the executed sites."""
+    from repro_torch.analysis.crosscheck import crosscheck_plan
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+
+    eng = _audit_engine(model, params, dev, mesh=TP_RANKS)
+    eng.admit(_audit_requests(prompts))
+    need(len(eng.active) == 4, f"tp audit: {len(eng.active)} of 4 admitted")
+    if rank != 0:
+        eng.step()
+        return None
+    ops, launches, seconds, _ = _walked("decode", eng.step)
+    rec = _audit_step(f"{ENGINE_ARCH}/tp{TP_RANKS}", "decode", ops,
+                      launches, seconds)
+    xc = crosscheck_plan(model.protection_plan(
+        NVIDIA_H100_SXM, n_tokens=4, model_parallel=TP_RANKS), ops,
+        model=ENGINE_ARCH)
+    need(xc.bijective, f"tp audit: {xc.report()}")
+    return {"protected_fraction": rec["protected_fraction"],
+            "sites": len(xc.matched), "bijective": True,
+            "records": rec["records"], "launches": launches,
+            "seconds": seconds}
+
+
+def tp_k1_checks(dev, model, params) -> dict:
+    """K1 against its plain version at the TP=2 shard shapes of a decode
+    step (M = 4), rank 0's shard of the phase's weights, the row-parallel
+    partials (o, down) and the head with f32 out: y and bounds within
+    ``family_checks``' tolerances and no false flag; then the kernel, the
+    plain version and ``torch.matmul`` timed on the shard's GEMMs of each
+    shape (CUDA graphs), beside the bound."""
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.kernels.abft_matmul import abft_matmul_kernel
+    from repro_torch.kernels.ref import abft_matmul_ref
+
+    mesh = Mesh(grid=np.arange(TP_RANKS).reshape(1, TP_RANKS),
+                axis_names=("data", "model"),
+                devices=(dev,) * TP_RANKS, rank=0)
+    shard = model.shard_params(params, mesh)
+    groups = _step_gemm_groups(shard)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    m, out = 4, {}
+    for name, (k, n, f32_out) in TP_K1_SHAPES.items():
+        ws = groups[name]
+        need(tuple(ws[0].shape) == (k, n),
+             f"tp K1 {name}: shard {tuple(ws[0].shape)} != {(k, n)}")
+        out_dtype = torch.float32 if f32_out else torch.bfloat16
+        err, scale, ratio, rt = _k1_site_check(dev, gen, model.cfg,
+                                               f"tp2 {name}", ws[0],
+                                               out_dtype, m)
+        x = torch.randn(m, ws[0].shape[0], generator=gen,
+                        device=dev).to(torch.bfloat16)
+        kk, nn = ws[0].shape
+        bm, bk, bn = (min(b, -(-d // 8) * 8) for b, d in
+                      ((256, m), (512, kk), (256, nn)))
+        kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+
+        def kern():
+            for w in ws:
+                abft_matmul_kernel(x, w, **kw)
+
+        def plain():
+            for w in ws:
+                abft_matmul_ref(x, w, **kw)
+
+        def lib():
+            for w in ws:
+                torch.matmul(x, w)
+
+        b_ms, by = _gemm_bound(m, kk, nn, 2, out_dtype.itemsize,
+                               -(-m // bm) * -(-nn // bn) * bm)
+        out[name] = {"k": kk, "n": nn, "out": str(out_dtype)[6:],
+                     "gemms": len(ws), "route": rt, "max_abs_err": err,
+                     "max_abs_y": scale, "clean_ratio": ratio,
+                     "ms": timed_graph(kern, iters=5),
+                     "plain_ms": timed_graph(plain, iters=2),
+                     "library_ms": timed_graph(lib, iters=5),
+                     "bound_ms": b_ms * len(ws), "bound_by": by}
+    del shard, groups
+    emit("tp_k1", m=m, shapes=out)
+    return out
+
+
+def tp_reference(dev, model, params, prompts) -> dict:
+    """The TP=1 twin on this process (``mesh=None``): the clean dense run
+    (flash on) with its first prefill and decode logits and every emitted
+    token's top-two gap, and the hard-fault eviction run."""
+    faults = _tp_faults(model.cfg)
+    _, rec, timing, cap = tp_serve(model, params, prompts, dev, "tp1",
+                                   capture=prompts)
+    _, hard, _, _ = tp_serve(model, params, prompts, dev, "tp1_hard",
+                             fault_at=(1, faults["down"]), max_retries=0,
+                             capture=False)
+    emit("tp_reference", tokens=rec["stats"]["tokens"],
+         decode_step_ms_median=float(np.median(timing["step_ms"])),
+         k1_per_step=timing["k1_per_step"],
+         k3_per_step=timing["k3_per_step"],
+         evicted=sorted(hard["errors"]))
+    return {"rec": rec, "timing": timing, "hard": hard,
+            "logits": {k: v.numpy() for k, v in cap.first.items()},
+            "gaps": cap.gaps}
+
+
+def tp_runs(dev) -> dict:
+    """The ``tp`` phase: full-width llama3.2-1b served with tensor
+    parallelism over two ranks sharing this one card (gloo), against
+    itself (dense = paged, faulted = clean, shared + chunked = plain,
+    oracle-sped = unsped, every rank agreeing) and against the one-process run
+    (the logits of the first prefill and decode step, the greedy streams
+    or their divergence at a near-tie); K1 at the shard shapes against
+    its plain version; K1 and K3 launches a decode step a rank; the
+    rank-0 audit.  Two ranks time-slicing one card over gloo: the times
+    are not a TP speed."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import spawn
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg = get_config(ENGINE_ARCH)
+    model = Model(cfg)
+    params, prompts = engine_inputs(dev, cfg=cfg)
+    k1 = tp_k1_checks(dev, model, params)
+    ref = tp_reference(dev, model, params, prompts)
+    del params
+    free_memory()
+    t_spawn = time.perf_counter()
+    outs = spawn.run(tp_rank, TP_RANKS, prompts, device=dev.type)
+    spawn_s = time.perf_counter() - t_spawn
+    r0 = outs[0]
+    recs = r0["records"]
+    for o in outs[1:]:
+        need(o["records"] == recs, f"tp: rank {o['rank']}'s records differ "
+             f"from rank 0's")
+    st = {k: v["stats"] for k, v in recs.items()}
+
+    def same(a, b):
+        need(recs[a]["streams"] == recs[b]["streams"],
+             f"tp: {a} streams differ from {b}")
+
+    for label, rec in recs.items():
+        if label != "hard_fault":
+            need(not rec["errors"], f"tp {label}: errors {rec['errors']}")
+            need(all(len(s) == TP_NEW for s in rec["streams"].values()),
+                 f"tp {label}: incomplete streams")
+    same("paged", "dense")
+    same("fault_down", "dense")
+    same("fault_qkv", "dense")
+    same("shared_chunked", "paged")
+    same("oracle", "unsped")
+    need(st["fault_down"]["faults_detected"] >= 2
+         and st["fault_down"]["retries"] >= 2
+         and st["fault_down"]["hard_faults"] == 0,
+         f"tp fault_down: {st['fault_down']}")
+    need(st["fault_qkv"]["faults_detected"] >= 1
+         and st["fault_qkv"]["hard_faults"] == 0,
+         f"tp fault_qkv: {st['fault_qkv']}")
+    need(st["hard_fault"]["hard_faults"] >= 1, "tp: no hard fault")
+    evicted = sorted(int(u) for u in recs["hard_fault"]["errors"])
+    need(evicted == sorted(int(u) for u in ref["hard"]["errors"]),
+         f"tp: evicted {evicted} != TP=1's {sorted(ref['hard']['errors'])}")
+    need(st["shared_chunked"]["prefill_chunks"] > 0, "tp: no chunk ran")
+    need(st["oracle"]["draft_proposed"] > 0 and st["oracle"][
+        "draft_accepted"] == st["oracle"]["draft_proposed"],
+         f"tp oracle: {st['oracle']}")
+    # the step's kernels and collectives, on every rank
+    L = cfg.n_layers
+    for o in outs:
+        t = o["timings"]["dense"]
+        need(t["collectives_per_step"] == [2 * L + 3],
+             f"tp rank {o['rank']}: collectives a step "
+             f"{t['collectives_per_step']} != {2 * L + 3}")
+        need(t["k1_per_step"] == [7 * L + 1] and t["k3_per_step"] == [L],
+             f"tp rank {o['rank']}: K1/K3 a step {t['k1_per_step']}/"
+             f"{t['k3_per_step']} != {7 * L + 1}/{L}")
+        for label, tl in o["timings"].items():
+            need(tl["launches"]["abft_matmul"] > 0, f"tp {label}: no K1")
+    # against TP=1
+    diff = max(float(np.abs(r0["logits"][k] - ref["logits"][k]).max())
+               for k in ("prefill", "decode"))
+    tp1 = ref["rec"]["streams"]
+    tp2 = recs["dense"]["streams"]
+    equal = [u for u in tp1 if tp1[u] == tp2[u]]
+    ties = {}
+    for u in tp1:
+        if u in equal:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(tp1[u], tp2[u]))
+                 if a != b)
+        gap = ref["gaps"][(u, t)]
+        ties[u] = {"step": t, "tp1_top2_gap": gap}
+        need(gap < diff, f"tp: stream {u} diverges from TP=1 at step {t} "
+             f"with a top-two gap {gap} >= the logit difference {diff}")
+    t = r0["timings"]["dense"]
+    res = {"ranks": TP_RANKS, "backend": r0["backend"],
+           "devices": [o["device"] for o in outs],
+           "sharded": r0["sharded"], "plan": r0["plan"],
+           "streams_equal_tp1": len(equal), "streams": len(tp1),
+           "divergent": ties, "max_logit_diff_vs_tp1": diff,
+           "evicted": evicted,
+           "k1_per_step": t["k1_per_step"], "k3_per_step": t["k3_per_step"],
+           "collectives_per_step": t["collectives_per_step"][0],
+           "decode_step_ms_median": float(np.median(t["step_ms"])),
+           "collectives_alone_ms_per_step_median": float(
+               np.median(r0["collective_ms"])),
+           "tp1_decode_step_ms_median": float(
+               np.median(ref["timing"]["step_ms"])),
+           "launches": {k: v["launches"] for k, v in
+                        r0["timings"].items()},
+           "stats": {k: {f: v[f] for f in (
+               "tokens", "faults_detected", "retries", "hard_faults",
+               "evictions", "prefill_chunks", "draft_proposed",
+               "draft_accepted")} for k, v in st.items()},
+           "audit": r0["audit"], "k1": k1, "spawn_seconds": spawn_s,
+           "seconds": time.perf_counter() - t0,
+           "note": "two ranks time-sharing one card over gloo: a "
+                   "correctness run, not a tensor-parallel speed"}
+    emit("tp", **res)
+    return res
+
+
+def _add_tp(kernels, tp) -> None:
+    """The ``tp`` phase's numbers on the kernels line: K1 at the TP=2
+    shard shapes, and K1/K3 launches a decode step a rank."""
+    k1, k3 = kernels[0], kernels[2]
+    k1["tp2_m4"] = {name: {key: rec[key] for key in (
+        "k", "n", "out", "ms", "plain_ms", "bound_ms", "library_ms",
+        "max_abs_err")} for name, rec in tp["k1"].items()}
+    k1["tp_launches_per_step"] = tp["k1_per_step"]
+    k3["tp_launches_per_step"] = tp["k3_per_step"]
 
 
 def k1_max_err(dev, params) -> float:
@@ -6196,6 +6677,12 @@ def main(argv=None) -> int:
         audit = audit_summary(audit_scaled(dev), expected, walker_s)
         if kernels is not None:
             _add_audit(kernels, audit)
+    if "tp" in phases:
+        audit = None
+        free_memory()
+        tp = tp_runs(dev)
+        if kernels is not None:
+            _add_tp(kernels, tp)
     for line in smi:
         print(line)
     if kernels is not None:

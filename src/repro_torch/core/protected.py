@@ -92,14 +92,18 @@ def _gemm_dims(x, w, out_dtype) -> GemmDims:
 
 def protected_matmul(x, w, cfg: ABFTConfig = ABFTConfig(), *, wsums=None,
                      out_dtype=None, fault: FaultSpec | None = None,
-                     first_layer: bool = False, site: str = "unlabeled"):
+                     first_layer: bool = False, site: str = "unlabeled",
+                     select_dtype=None):
     """ABFT-protected ``y = x @ w``; x: (..., m, k), w: (k, n).  Returns
-    (y, CheckResult).  ``site`` is the plan-facing layer tag.  The
+    (y, CheckResult).  ``site`` is the plan-facing layer tag.
+    ``select_dtype``: the output dtype the scheme is selected for, where
+    it differs from ``out_dtype`` (a row-parallel partial runs in f32 and
+    keeps the site's selection).  The
     executor runs inside an ``abft[<scheme>][<site>]`` marker scope, which
     the coverage audit (``repro_torch.analysis``) reads at every op it
     records; with no audit running the scope is a no-op."""
     out_dtype = out_dtype or x.dtype
-    scheme = cfg.resolve(_gemm_dims(x, w, out_dtype),
+    scheme = cfg.resolve(_gemm_dims(x, w, select_dtype or out_dtype),
                          first_layer=first_layer)
     executor = default_registry().executor(scheme)
     with protection_scope(scheme_name_of(scheme), site):

@@ -9,7 +9,8 @@
       [--inject-faults] [--abft auto|global|block_1s|off] \
       [--fault-rate 0.2 --fault-kind transient --adaptive] \
       [--temperature 0.8 --top-k 50] [--plan-out plan.json] \
-      [--metrics-out m.json] [--trace-out t.json] [--log-events]
+      [--metrics-out m.json] [--trace-out t.json] [--log-events] \
+      [--mesh N]
 
 ``--arch`` takes every registered config; the port serves the dense
 family (llama3.2-1b, qwen3-14b, stablelm-1.6b, qwen1.5-32b), the MoE
@@ -44,6 +45,14 @@ or ``self-draft`` through the first UNITS layers over a WINDOW of context,
 for the roofline-tuned K); it needs flash attention off.  The stats line
 then carries a ``spec_decode`` block (proposer, draft length, proposed and
 accepted drafts, acceptance rate, verify retries).
+``--mesh N`` serves with tensor parallelism over N ranks
+(``distributed/spawn.py``: one process a rank, gloo where ranks share a
+device or run on the CPU, NCCL where each has a GPU of its own), each
+holding its shard of the weights (made from the same ``--seed``) and of
+the KV cache; a GQA stack with dense FFNs only.  Rank 0 prints the stats
+line, with the per-shard plan (``shard_plan``), the backend and the ranks
+a device, and writes every artifact; the heartbeat monitor tracks one
+worker a rank.  ``--mesh 1`` runs the mesh executor in this process.
 """
 
 from __future__ import annotations
@@ -88,7 +97,7 @@ def _draft_len(v: str):
     return int(v)
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ALL_ARCHS, default="llama3.2-1b")
     ap.add_argument("--scale", choices=["full", "smoke"], default="smoke")
@@ -170,11 +179,68 @@ def main(argv=None) -> int:
     ap.add_argument("--log-events", action="store_true",
                     help="stream every trace event as a JSON line to "
                          "stderr")
+    ap.add_argument("--mesh", type=int, default=None,
+                    help="tensor-parallel width: N ranks, each serving "
+                         "its shard of the params and the KV cache over a "
+                         "(data=1, model=N) mesh, the protection plan "
+                         "compiled from the per-shard GEMM shapes")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = _parser()
     args = ap.parse_args(argv)
+    if args.draft_model and args.spec_decode != "self-draft":
+        ap.error("--draft-model requires --spec-decode self-draft")
+    if args.mesh is not None and args.mesh < 1:
+        ap.error("--mesh must be >= 1")
+    if args.mesh is None or args.mesh == 1:
+        serve(args, emit=True)
+    else:
+        print(json.dumps(_serve_sharded(args, argv)))
+    return 0
+
+
+def _serve_sharded(args, argv) -> dict:
+    """Check that the config serves sharded, then run ``serve`` on
+    ``--mesh`` ranks; rank 0's stats line."""
+    from repro_torch.distributed import spawn
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.serve.executor import check_shardable
+
+    cfg = get_config(args.arch)
+    if args.scale == "smoke":
+        cfg = scaled_down(cfg)
+    device = resolve_device(args.device)
+    geometry = Mesh(grid=np.arange(args.mesh).reshape(1, args.mesh),
+                    axis_names=("data", "model"),
+                    devices=(device,) * args.mesh)
+    try:
+        Model(cfg)
+        check_shardable(cfg, geometry)
+    except NotImplementedError as e:
+        raise SystemExit(f"error: {e}")
+    lines = spawn.run(_serve_rank, args.mesh,
+                      list(sys.argv[1:] if argv is None else argv),
+                      device=device.type)
+    return lines[0]
+
+
+def _serve_rank(argv) -> dict:
+    """One rank of ``--mesh N``: the whole serve on its shard."""
+    return serve(_parser().parse_args(argv))
+
+
+def serve(args, emit: bool = False) -> dict:
+    """Build the model and the engine, serve the requests; returns the
+    stats line, printed first where ``emit`` (rank 0 of a mesh writes the
+    artifacts)."""
+    import torch.distributed as dist
+
+    rank0 = not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
     draft_units, draft_window = 1, 8
     if args.draft_model:
-        if args.spec_decode != "self-draft":
-            ap.error("--draft-model requires --spec-decode self-draft")
         u, _, w = args.draft_model.partition("@")
         draft_units, draft_window = int(u), int(w or 8)
 
@@ -233,10 +299,20 @@ def main(argv=None) -> int:
             draft_units=draft_units, draft_window=draft_window,
             policy=RecoveryPolicy(
                 max_retries=args.max_retries,
-                evict_on_hard_fault=not args.raise_on_hard_fault))
+                evict_on_hard_fault=not args.raise_on_hard_fault),
+            mesh=args.mesh)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(f"error: {e}")
-    if args.plan_out:
+    heartbeats = None
+    if engine.mesh is not None:
+        # one liveness worker a rank, on the telemetry registry
+        from repro_torch.runtime.heartbeat import HeartbeatMonitor
+
+        heartbeats = HeartbeatMonitor(
+            [f"rank{r}:{d}" for r, d in enumerate(engine.mesh.devices)],
+            registry=telemetry.registry if telemetry is not None
+            else None)
+    if args.plan_out and rank0:
         with open(args.plan_out, "w") as fh:
             fh.write(engine.plan.to_json())
         print(f"wrote protection plan -> {args.plan_out}")
@@ -256,6 +332,17 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    st = engine.stats
+    if heartbeats is not None:
+        from repro_torch.distributed.collectives import check_same
+
+        # every rank reached here with the same streams and counters
+        check_same({"streams": {r.uid: r.generated for r in reqs},
+                    "tokens": st.tokens, "retries": st.retries},
+                   engine.executor.tp, "the served streams")
+        for w in list(heartbeats.workers):
+            heartbeats.beat(w)
+        assert not heartbeats.check()
     if telemetry is not None:
         # TTFT/ITL histograms: the CLI owns arrival time
         for r in reqs:
@@ -263,9 +350,9 @@ def main(argv=None) -> int:
                 telemetry.observe_ttft(r.times[0] - t0)
             for a, b in zip(r.times, r.times[1:]):
                 telemetry.observe_itl(b - a)
-    st = engine.stats
     schemes = sorted({e["scheme"] for e in st.selection_trace})
-    print(json.dumps({
+    tp = engine.executor.tp
+    line = {
         "device": str(device),
         "requests": len(results),
         "tokens": st.tokens,
@@ -303,11 +390,23 @@ def main(argv=None) -> int:
             "verify_retries": st.verify_retries,
         } if engine.spec is not None else None),
         "step_schemes": schemes,
+        "model_parallel": engine.model_parallel,
+        "shard_plan": ([{"layer": r["layer"], "scheme": r["scheme"],
+                         "ai": r["ai"], "bound": r["bound"]}
+                        for r in engine.plan.report_rows()]
+                       if engine.mesh is not None else None),
+        "backend": tp.backend if tp is not None else None,
+        "ranks_per_device": (_ranks_per_device(engine.mesh)
+                             if engine.mesh is not None else None),
         "errors": {r.uid: r.error for r in reqs if r.error},
         "cache": engine.cache_stats(),
         "telemetry": (telemetry.faults.snapshot()
                       if telemetry is not None else None),
-    }))
+    }
+    if not rank0:
+        return line
+    if emit:
+        print(json.dumps(line))
     if args.metrics_out:
         artifact = telemetry.snapshot()
         artifact["engine_stats"] = {
@@ -320,7 +419,12 @@ def main(argv=None) -> int:
         telemetry.tracer.write(args.trace_out)
         print(f"wrote trace ({len(telemetry.tracer.events)} events) -> "
               f"{args.trace_out}")
-    return 0
+    return line
+
+
+def _ranks_per_device(mesh) -> int:
+    devs = [str(d) for d in mesh.devices]
+    return max(devs.count(d) for d in devs)
 
 
 if __name__ == "__main__":

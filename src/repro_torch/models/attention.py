@@ -16,6 +16,16 @@ retried call rewrites exactly the cells its faulted attempt wrote: the
 same (slot, position) rows of the dense cache, or the same (block,
 offset) cells of the pools under unchanged block tables.
 
+Under tensor parallelism (``LayerCtx.tp``) a GQA layer runs this rank's
+shard: its q heads, its kv heads and its rows of ``wo``, the head counts
+read off the shard's leaves, never ``cfg.n_heads``/``n_kv_heads``; the
+output projection is row-parallel (``layers.dense``).  Where the kv heads
+do not divide the model axis the rules still split ``wk``/``wv`` by
+columns, so one kv head spans ranks: the rank gathers k and v whole
+(``collectives.gather_last``), its cache keeps every kv head
+(``cache_specs(kv_fallback="replicate")``, the reference's layout for
+this case), and its q heads attend the kv heads they read (``_kv_heads``).
+
 MLA runs the reference's absorbed form: one latent "KV head" of width
 ``kv_lora_rank + qk_rope_head_dim`` is both the key (all of it) and the
 value (its first ``kv_lora_rank``, a view), cached as the one leaf
@@ -35,6 +45,7 @@ import torch
 
 from repro_torch.analysis.markers import coverage_scope, logical_scope
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import gather_last
 from repro_torch.models.layers import (
     LayerCtx,
     apply_rope,
@@ -45,6 +56,7 @@ from repro_torch.models.layers import (
     per_step,
     rms_norm,
     rope_tables,
+    tp_par,
     verify_attention,
 )
 from repro_torch.serve.paged_cache import (
@@ -64,12 +76,18 @@ def _qkv(x, p, cfg: ModelConfig, ctx: LayerCtx, positions):
     rest passes through, and reaches the cache unrotated)."""
     B, L, _ = x.shape
     hd = cfg.resolved_head_dim
-    q, f1 = dense(x, p["wq"], ctx, "qkv", b=p.get("bq"), tag="attn.q")
-    k, f2 = dense(x, p["wk"], ctx, "qkv", b=p.get("bk"), tag="attn.k")
-    v, f3 = dense(x, p["wv"], ctx, "qkv", b=p.get("bv"), tag="attn.v")
-    q = q.reshape(B, L, cfg.n_heads, hd)
-    k = k.reshape(B, L, cfg.n_kv_heads, hd)
-    v = v.reshape(B, L, cfg.n_kv_heads, hd)
+    q, f1 = dense(x, p["wq"], ctx, "qkv", b=p.get("bq"), tag="attn.q",
+                  par=tp_par(ctx, "wq", "col"))
+    k, f2 = dense(x, p["wk"], ctx, "qkv", b=p.get("bk"), tag="attn.k",
+                  par=tp_par(ctx, "wk", "col"))
+    v, f3 = dense(x, p["wv"], ctx, "qkv", b=p.get("bv"), tag="attn.v",
+                  par=tp_par(ctx, "wv", "col"))
+    if k.shape[-1] % hd:
+        # a kv head split over the ranks: make every kv head whole
+        k, v = gather_last(k, ctx.tp), gather_last(v, ctx.tp)
+    q = q.reshape(B, L, -1, hd)
+    k = k.reshape(B, L, -1, hd)
+    v = v.reshape(B, L, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -79,6 +97,34 @@ def _qkv(x, p, cfg: ModelConfig, ctx: LayerCtx, positions):
         q = apply_rope(q, cos, sin, rot)
         k = apply_rope(k, cos, sin, rot)
     return q, k, v, or_flags(f1, f2, f3)
+
+
+def _kv_heads(q, kv_leaf, cfg: ModelConfig, ctx: LayerCtx):
+    """The kv heads (a slice of dim 2 of a (B|NB, S|BS, KV, hd) leaf) this
+    rank's q heads read, where its leaf holds more kv heads than its q
+    heads group onto (a rank holding every kv head, see the module
+    docstring); None where the leaf's heads are exactly its q heads'."""
+    Hl, KV = q.shape[2], kv_leaf.shape[2]
+    G = cfg.n_heads // cfg.n_kv_heads
+    if Hl == G * KV:
+        return None
+    lo = ctx.tp.rank * Hl // G
+    return slice(lo, lo + max(1, Hl // G))
+
+
+def _sel(t, heads, contiguous: bool = False):
+    if heads is None:
+        return t
+    t = t[:, :, heads]
+    return t.contiguous() if contiguous else t
+
+
+def _out(out, p, ctx: LayerCtx):
+    """The attention output (B, L, Hl, hd) through ``wo``, row-parallel
+    under tensor parallelism."""
+    B, L = out.shape[:2]
+    return dense(out.reshape(B, L, -1), p["wo"], ctx, "attn_out",
+                 tag="attn.o", par=tp_par(ctx, "wo", "row"))
 
 
 def _attend_full(q, k, v, ctx: LayerCtx, causal: bool):
@@ -96,11 +142,11 @@ def _attend_full(q, k, v, ctx: LayerCtx, causal: bool):
 def gqa_forward(x, p, cfg: ModelConfig, ctx: LayerCtx, positions,
                 causal: bool = True):
     """Full-sequence attention (training / scoring).  x: (B, L, D)."""
-    B, L, _ = x.shape
     q, k, v, flag = _qkv(x, p, cfg, ctx, positions)
-    out, f_attn = _attend_full(q, k, v, ctx, causal)
-    out, f = dense(out.reshape(B, L, -1), p["wo"], ctx, "attn_out",
-                   tag="attn.o")
+    heads = _kv_heads(q, k, cfg, ctx)
+    out, f_attn = _attend_full(q, _sel(k, heads, True), _sel(v, heads, True),
+                               ctx, causal)
+    out, f = _out(out, p, ctx)
     return out, or_flags(flag, f_attn, f)
 
 
@@ -184,11 +230,12 @@ def gqa_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, positions, cache,
     prefill).  The chunk's k/v land behind the resident prefix and the
     chunk attends the slot's cache rows with a per-row causal offset.
     ``spans``: ``chunked_attention``'s (row-wise attention)."""
-    B, L, _ = x.shape
+    L = x.shape[1]
     q, k, v, flag = _qkv(x, p, cfg, ctx, positions)
+    heads = _kv_heads(q, cache["k"], cfg, ctx)
     if starts is None:
-        out = chunked_attention(q, k, v, causal=True, lengths=lengths,
-                                spans=spans)
+        out = chunked_attention(q, _sel(k, heads), _sel(v, heads),
+                                causal=True, lengths=lengths, spans=spans)
         if slots is None:
             cache["k"][:, :L] = k.to(cache["k"].dtype)
             cache["v"][:, :L] = v.to(cache["v"].dtype)
@@ -200,31 +247,41 @@ def gqa_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, positions, cache,
         _slot_prefill_write_at(cache["k"], k, slots, starts, lengths)
         _slot_prefill_write_at(cache["v"], v, slots, starts, lengths)
         rows = slots.to(cache["k"].device).long()
-        out = chunked_attention(q, cache["k"][rows], cache["v"][rows],
+        out = chunked_attention(q, _sel(cache["k"][rows], heads),
+                                _sel(cache["v"][rows], heads),
                                 causal=True, q_offset=starts,
                                 lengths=starts + lengths, spans=spans)
-    out, f = dense(out.reshape(B, L, -1), p["wo"], ctx, "attn_out",
-                   tag="attn.o")
+    out, f = _out(out, p, ctx)
     return out, or_flags(flag, f)
+
+
+# K3 walks the dense cache in blocks of the paged engine's default block
+# size (16 keys): its split partition (``decode_splits``) is then the
+# paged pool's at every shape, so dense and paged decode attention sum
+# their keys in one order (at 128-key blocks a 512-deep cache caps the
+# dense walk at 4 splits where the pool takes 8 over 4 kv heads: TP=2)
+DENSE_DECODE_BLOCK = 16
 
 
 def gqa_decode(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache):
     """One-token decode.  x: (B, 1, D); pos: (B,) per-slot cursor; each
     row writes its k/v at its own cursor and attends its own prefix."""
-    B = x.shape[0]
     q, k, v, flag = _qkv(x, p, cfg, ctx, pos[:, None])
     _row_scatter(cache["k"], k, pos)
     _row_scatter(cache["v"], v, pos)
+    heads = _kv_heads(q, cache["k"], cfg, ctx)
     if ctx.abft.flash_attention:
         from repro_torch.kernels.flash_ops import flash_decode
 
-        out, chk = flash_decode(q, cache["k"], cache["v"], pos + 1)
+        out, chk = flash_decode(q, _sel(cache["k"], heads, True),
+                                _sel(cache["v"], heads, True), pos + 1,
+                                bk=DENSE_DECODE_BLOCK)
         f_attn = chk.flag
     else:
-        out = decode_attention(q, cache["k"], cache["v"], pos + 1)
+        out = decode_attention(q, _sel(cache["k"], heads),
+                               _sel(cache["v"], heads), pos + 1)
         f_attn = torch.zeros((), dtype=torch.bool, device=x.device)
-    out, f = dense(out.reshape(B, 1, -1), p["wo"], ctx, "attn_out",
-                   tag="attn.o")
+    out, f = _out(out, p, ctx)
     return out, or_flags(flag, f_attn, f)
 
 
@@ -235,14 +292,15 @@ def gqa_verify(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache, index):
     ``verify_write_index``) and every query attends its own causal prefix
     (``verify_attention``).  Rows past ``valid`` pad shorter windows:
     their writes drop and their logits are discarded."""
-    B, T, _ = x.shape
+    T = x.shape[1]
     positions = pos.long()[:, None] + torch.arange(T, device=x.device)
     q, k, v, flag = _qkv(x, p, cfg, ctx, positions)
     index_write(cache["k"], k, index)
     index_write(cache["v"], v, index)
-    out = verify_attention(q, cache["k"], cache["v"], pos + 1)
-    out, f = dense(out.reshape(B, T, -1), p["wo"], ctx, "attn_out",
-                   tag="attn.o")
+    heads = _kv_heads(q, cache["k"], cfg, ctx)
+    out = verify_attention(q, _sel(cache["k"], heads),
+                           _sel(cache["v"], heads), pos + 1)
+    out, f = _out(out, p, ctx)
     return out, or_flags(flag, f)
 
 
@@ -256,22 +314,21 @@ def gqa_paged_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, positions,
     ``starts[a]``; their k/v scatter behind the resident prefix, then the
     rows attend the slot's gathered logical KV with a per-row causal
     offset and total-length key masking.  ``spans``: ``gqa_prefill``'s."""
-    B, L, _ = x.shape
     q, k, v, flag = _qkv(x, p, cfg, ctx, positions)
+    heads = _kv_heads(q, cache["k"], cfg, ctx)
     if starts is None:
-        out = chunked_attention(q, k, v, causal=True, lengths=lengths,
-                                spans=spans)
+        out = chunked_attention(q, _sel(k, heads), _sel(v, heads),
+                                causal=True, lengths=lengths, spans=spans)
         paged_scatter_prefill(cache["k"], k, tables, lengths)
         paged_scatter_prefill(cache["v"], v, tables, lengths)
     else:
         paged_scatter_prefill(cache["k"], k, tables, lengths, starts=starts)
         paged_scatter_prefill(cache["v"], v, tables, lengths, starts=starts)
         out = chunked_attention(
-            q, paged_gather(cache["k"], tables),
-            paged_gather(cache["v"], tables), causal=True, q_offset=starts,
-            lengths=starts + lengths, spans=spans)
-    out, f = dense(out.reshape(B, L, -1), p["wo"], ctx, "attn_out",
-                   tag="attn.o")
+            q, _sel(paged_gather(cache["k"], tables), heads),
+            _sel(paged_gather(cache["v"], tables), heads), causal=True,
+            q_offset=starts, lengths=starts + lengths, spans=spans)
+    out, f = _out(out, p, ctx)
     return out, or_flags(flag, f)
 
 
@@ -280,22 +337,23 @@ def gqa_paged_decode(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache,
     """Paged one-token decode: scatter at ``tables[b, pos[b] // BS]``,
     then attend through K3 (pools read in place) or gather + plain
     attention."""
-    B = x.shape[0]
     q, k, v, flag = _qkv(x, p, cfg, ctx, pos[:, None])
     paged_scatter_decode(cache["k"], k[:, 0], tables, pos)
     paged_scatter_decode(cache["v"], v[:, 0], tables, pos)
+    heads = _kv_heads(q, cache["k"], cfg, ctx)
     if ctx.abft.flash_attention:
         from repro_torch.kernels.flash_ops import flash_decode_paged
 
-        out, chk = flash_decode_paged(q, cache["k"], cache["v"], tables,
+        out, chk = flash_decode_paged(q, _sel(cache["k"], heads, True),
+                                      _sel(cache["v"], heads, True), tables,
                                       pos + 1)
         f_attn = chk.flag
     else:
-        out = decode_attention(q, paged_gather(cache["k"], tables),
-                               paged_gather(cache["v"], tables), pos + 1)
+        out = decode_attention(
+            q, _sel(paged_gather(cache["k"], tables), heads),
+            _sel(paged_gather(cache["v"], tables), heads), pos + 1)
         f_attn = torch.zeros((), dtype=torch.bool, device=x.device)
-    out, f = dense(out.reshape(B, 1, -1), p["wo"], ctx, "attn_out",
-                   tag="attn.o")
+    out, f = _out(out, p, ctx)
     return out, or_flags(flag, f_attn, f)
 
 
@@ -306,15 +364,16 @@ def gqa_paged_verify(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache,
     scatter's ``prefill_write_index`` with starts at the cursors, rows
     past ``valid`` dropped), then each query attends the gathered logical
     KV as ``gqa_verify``'s do."""
-    B, T, _ = x.shape
+    T = x.shape[1]
     positions = pos.long()[:, None] + torch.arange(T, device=x.device)
     q, k, v, flag = _qkv(x, p, cfg, ctx, positions)
     index_write(cache["k"], k, index)
     index_write(cache["v"], v, index)
-    out = verify_attention(q, paged_gather(cache["k"], tables),
-                           paged_gather(cache["v"], tables), pos + 1)
-    out, f = dense(out.reshape(B, T, -1), p["wo"], ctx, "attn_out",
-                   tag="attn.o")
+    heads = _kv_heads(q, cache["k"], cfg, ctx)
+    out = verify_attention(q, _sel(paged_gather(cache["k"], tables), heads),
+                           _sel(paged_gather(cache["v"], tables), heads),
+                           pos + 1)
+    out, f = _out(out, p, ctx)
     return out, or_flags(flag, f)
 
 

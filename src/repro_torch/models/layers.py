@@ -4,6 +4,15 @@ attention used outside the fused kernels are plain PyTorch, as the
 reference computes them in XLA outside any kernel.  Params are plain
 dicts of tensors; flags are 0-d bool tensors on the compute device, read
 on the host once per engine step.
+
+Tensor parallelism (``LayerCtx.tp``, the rank's ``TPGroup``): a GEMM
+whose weight the sharding rules split on its output dim (``wq``/``wk``/
+``wv``, ``up``/``gate``, the head) is column-parallel, each rank computing
+its columns; one split on its input dim (``wo``, ``down``) is
+row-parallel: each rank computes its partial product in f32, the partials
+are summed over the model axis in f32 and rounded to the site's dtype
+once, after the sum, so the output rounds once as the unsharded GEMM's
+does.  A leaf the rules replicate is computed whole on every rank.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from repro_torch.core.protected import (
     protected_matmul,
     protected_matmul_batched,
 )
+from repro_torch.distributed.collectives import TPGroup, all_reduce_sum
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -50,17 +60,40 @@ class ModelFault(NamedTuple):
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardingHints:
+    """The reference's layer-level sharding hints: ``dp`` the data axes
+    of token dims, ``dp_size`` their product (the MoE dispatch's group
+    count), ``ep`` the expert axes, ``moe_mode`` 'ep' (experts sharded) or
+    'tp' (the expert FFN dim sharded).  ``constrain`` is the identity: the
+    port places its data explicitly, so only ``dp_size`` changes what a
+    layer computes."""
+
+    dp: tuple = ("data",)
+    dp_size: int = 1
+    ep: tuple = ("model",)
+    tp: str = "model"
+    moe_mode: str = "ep"
+
+    def constrain(self, x, *spec):
+        return x
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerCtx:
     """Per-forward context: the ABFT config, the fault target, the
-    current layer index (set by the stack loop) and the prefix of the
+    current layer index (set by the stack loop), the prefix of the
     plan-facing site tags (``"enc."`` inside whisper's encoder; fault
     matching reads the site and the layer index alone, so an encoder
-    layer i is hit by a fault aimed at decoder layer i)."""
+    layer i is hit by a fault aimed at decoder layer i), the sharding
+    ``hints`` and ``tp``, this rank's place on the mesh's model axis
+    (None: unsharded)."""
 
     abft: ABFTConfig = ABFTConfig()
     fault: ModelFault | None = None
     layer_idx: int | None = None
     site_prefix: str = ""
+    hints: ShardingHints | None = None
+    tp: TPGroup | None = None
 
     def with_layer(self, idx: int) -> "LayerCtx":
         return dataclasses.replace(self, layer_idx=idx)
@@ -75,12 +108,47 @@ def _site_fault(ctx: LayerCtx, site: str) -> FaultSpec | None:
     return None
 
 
+def tp_par(ctx: LayerCtx, leaf: str, kind: str) -> str | None:
+    """``kind`` ("col" or "row") when the rank's params hold a shard of
+    the leaf named ``leaf``, else None (unsharded, or replicated)."""
+    return kind if ctx.tp is not None and ctx.tp.splits(leaf) else None
+
+
 def dense(x, w, ctx: LayerCtx, site: str, b=None, out_dtype=None,
-          tag: str | None = None):
-    """ABFT-protected ``x @ w (+ b)``.  Returns (y, flag)."""
-    y, chk = protected_matmul(x, w, ctx.abft, out_dtype=out_dtype or x.dtype,
-                              fault=_site_fault(ctx, site),
-                              site=ctx.site_prefix + (tag or site))
+          tag: str | None = None, par: str | None = None):
+    """ABFT-protected ``x @ w (+ b)``.  Returns (y, flag).
+
+    ``par`` (``tp_par``): "col", ``w`` holds this rank's columns; "row",
+    its rows, and the f32 partials are summed over the model axis before
+    the one rounding to ``out_dtype`` and the bias.  The scheme is
+    selected with the site's ``out_dtype`` (the plan's), never the
+    partial's f32.  A fault names a logical (row, col): at a "col" site it
+    fires on the rank that owns the column, at its local column; at a
+    "row" site on rank 0's partial only, so a value fault reaches the sum
+    as it reaches the unsharded output (a bit flip there flips a bit of
+    the partial, not of the sum)."""
+    out_dtype = out_dtype or x.dtype
+    fault = _site_fault(ctx, site)
+    site = ctx.site_prefix + (tag or site)
+    if par is None:
+        y, chk = protected_matmul(x, w, ctx.abft, out_dtype=out_dtype,
+                                  fault=fault, site=site)
+    elif par == "col":
+        n, lo = w.shape[-1], ctx.tp.rank * w.shape[-1]
+        if fault is not None:
+            fault = (fault._replace(col=fault.col - lo)
+                     if lo <= fault.col < lo + n else None)
+        y, chk = protected_matmul(x, w, ctx.abft, out_dtype=out_dtype,
+                                  fault=fault, site=site)
+    elif par == "row":
+        if ctx.tp.rank != 0:
+            fault = None
+        y, chk = protected_matmul(x, w, ctx.abft, out_dtype=F32,
+                                  select_dtype=out_dtype, fault=fault,
+                                  site=site)
+        y = all_reduce_sum(y, ctx.tp).to(out_dtype)
+    else:
+        raise ValueError(f"par must be 'col', 'row' or None, got {par!r}")
     if b is not None:
         y = y + b.to(y.dtype)
     return y, chk.flag
@@ -381,18 +449,19 @@ def mlp(x, p, ctx: LayerCtx, act: str = "silu",
     f32 cast back to x's dtype, then ``down`` with ``down_b``; its GELU is
     the tanh approximation, ``jax.nn.gelu``'s default."""
     up_tag, down_tag = tags
+    col, row = tp_par(ctx, "up", "col"), tp_par(ctx, "down", "row")
     if act == "silu":
-        up, f1 = dense(x, p["up"], ctx, "mlp_up", tag=up_tag)
-        gate, f2 = dense(x, p["gate"], ctx, "mlp_up", tag=up_tag)
+        up, f1 = dense(x, p["up"], ctx, "mlp_up", tag=up_tag, par=col)
+        gate, f2 = dense(x, p["gate"], ctx, "mlp_up", tag=up_tag, par=col)
         h = torch.nn.functional.silu(gate.to(F32)).to(x.dtype) * up
         flags = [f1, f2]
     else:
         h, f1 = dense(x, p["up"], ctx, "mlp_up", b=p.get("up_b"),
-                      tag=up_tag)
+                      tag=up_tag, par=col)
         h = gelu(h.to(F32)).to(x.dtype)
         flags = [f1]
     out, f3 = dense(h, p["down"], ctx, "mlp_down", b=p.get("down_b"),
-                    tag=down_tag)
+                    tag=down_tag, par=row)
     return out, or_flags(*flags, f3)
 
 

@@ -21,6 +21,13 @@ The reference scans stacked per-segment params (``seg_plan``); the port
 keeps one dict of tensors per layer and runs the stack as a Python loop.
 ``params_from_reference`` turns the reference's ``Model.init_params``
 tree (converted to numpy) into the port's layout, segment by segment.
+
+Tensor parallelism: ``Model.shard_params`` slices a full tree into one
+rank's shard by ``distributed.sharding.param_specs``.  The embedding is
+vocab-sharded (``embed: P("model", d)``): a lookup is a masked local
+lookup, zero where another rank owns the token, summed over the model
+axis (exact: x + 0 = x); the head is column-parallel over the vocab, its
+f32 logits gathered whole for the sampler (``embed_tokens``, ``_head``).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.analysis.markers import coverage_scope, layer_scope
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import all_reduce_sum, gather_last
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
@@ -47,6 +55,7 @@ from repro_torch.models.layers import (
     norm,
     or_flags,
     per_step,
+    tp_par,
 )
 
 F32 = torch.float32
@@ -618,9 +627,46 @@ class Model:
         return x, torch.stack(flags).any(), aux, None if full else out
 
     def _head(self, params, x, ctx):
-        w = (params["embed"].t().to(x.dtype) if self.cfg.tie_embeddings
-             else params["lm_head"])
-        return dense(x, w, ctx, "lm_head", out_dtype=F32)
+        """f32 logits (..., V) and the head's flag; column-parallel over
+        the vocab under tensor parallelism, the logits gathered whole."""
+        tied = self.cfg.tie_embeddings
+        w = params["embed"].t().to(x.dtype) if tied else params["lm_head"]
+        par = tp_par(ctx, "embed" if tied else "lm_head", "col")
+        logits, flag = dense(x, w, ctx, "lm_head", out_dtype=F32, par=par)
+        if par is not None:
+            logits = gather_last(logits, ctx.tp)
+        return logits, flag
+
+    def embed_tokens(self, params, tokens, ctx: LayerCtx):
+        """The embedding rows of ``tokens``.  On a vocab-sharded rank a
+        token another rank owns reads zeros, and the rows are summed over
+        the model axis in f32, exact, then cast back."""
+        emb = params["embed"]
+        if ctx.tp is None or not ctx.tp.splits("embed"):
+            return emb[tokens]
+        n = emb.shape[0]
+        local = tokens - ctx.tp.rank * n
+        own = (local >= 0) & (local < n)
+        x = emb[local.clamp(0, n - 1)].to(F32)
+        x = torch.where(own[..., None], x, torch.zeros_like(x))
+        return all_reduce_sum(x, ctx.tp).to(emb.dtype)
+
+    def shard_params(self, params, mesh) -> dict:
+        """One rank's shard of a full params tree: every leaf sliced by
+        ``param_specs`` at this process's mesh position, contiguous."""
+        from repro_torch.distributed.sharding import (
+            map_with_path,
+            param_specs,
+            shard_slices,
+        )
+
+        specs = param_specs(self.cfg, params, mesh)
+        coords = mesh.coords()
+        flat = {}
+        map_with_path(lambda ps, s: flat.__setitem__(ps, s), specs)
+        return map_with_path(
+            lambda ps, t: t[shard_slices(flat[ps], t.shape, mesh,
+                                         coords)].contiguous(), params)
 
     # -------------------------------------------------- memory
     def _conv_stem(self, params, audio):
@@ -702,7 +748,7 @@ class Model:
         tokens = torch.as_tensor(batch["tokens"]).to(dev).long()
         B, L = tokens.shape
         mem, mem_flag = self._memory(params, batch, ctx, dev)
-        x = params["embed"][tokens]
+        x = self.embed_tokens(params, tokens, ctx)
         positions = torch.arange(L, device=dev).expand(B, L)
         if cfg.is_encoder_decoder:
             x = x + sinusoid_pos(positions, cfg.d_model).to(x.dtype)
@@ -727,7 +773,7 @@ class Model:
         index), so a fault at a site fires there whatever its layer, and
         its MoE aux loss is discarded."""
         mp = params["mtp"]
-        emb_next = params["embed"][torch.roll(tokens, -1, 1)]
+        emb_next = self.embed_tokens(params, torch.roll(tokens, -1, 1), ctx)
         comb = torch.cat([norm(h, mp["norm"], "rmsnorm", self.cfg.norm_eps),
                           emb_next], dim=-1)
         hm, f1 = dense(comb, mp["proj"], ctx, "mlp_up", tag="mtp.proj")
@@ -791,7 +837,7 @@ class Model:
         B, L = tokens.shape
         mem, mem_flag = self._memory(params, inputs or {}, ctx,
                                      tokens.device)
-        x = params["embed"][tokens]
+        x = self.embed_tokens(params, tokens, ctx)
         positions = torch.arange(L, device=tokens.device).expand(B, L)
         if prefix_lens is not None:
             positions = prefix_lens.to(tokens.device).long()[:, None] \
@@ -832,7 +878,7 @@ class Model:
         B = token.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int32,
                               device=token.device).expand(B).contiguous()
-        x = params["embed"][token]
+        x = self.embed_tokens(params, token, ctx)
         if cfg.is_encoder_decoder:
             x = x + sinusoid_pos(pos.long()[:, None], cfg.d_model).to(
                 x.dtype)
@@ -883,7 +929,7 @@ class Model:
         window = (attn.verify_write_index(pos, valid, T, pool.shape[1])
                   if block_tables is None else
                   prefill_write_index(pool, block_tables, valid, T, pos))
-        x = params["embed"][tokens]
+        x = self.embed_tokens(params, tokens, ctx)
         x, flag, _, _ = self.run_stack(x, params, ctx, None, "verify",
                                        cache, pos=pos, tables=block_tables,
                                        window=window)
@@ -902,9 +948,13 @@ class Model:
         return audit_model(self, phase=phase, **kw)
 
     def protection_plan(self, hw, policy=None, *, phase: str = "serve",
-                        n_tokens: int = 1, dtype_bytes: int = 2):
+                        n_tokens: int = 1, dtype_bytes: int = 2,
+                        model_parallel: int = 1):
+        """The ProtectionPlan of this model; ``model_parallel=k`` compiles
+        one shard's post-sharding GEMM shapes."""
         from repro_torch.core.policy import ProtectionPlan
 
         return ProtectionPlan.for_model(self.cfg, hw=hw, policy=policy,
                                         phase=phase, n_tokens=n_tokens,
-                                        dtype_bytes=dtype_bytes)
+                                        dtype_bytes=dtype_bytes,
+                                        model_parallel=model_parallel)

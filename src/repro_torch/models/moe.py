@@ -10,9 +10,13 @@ and a block scheme runs all E experts' GEMMs as one K1 launch
 Tokens over an expert's capacity are dropped (switch-style) and keep only
 their residual path.
 
-The reference's dispatch runs per data-parallel group; the port has no
-sharding hints, so there is one group (G = 1), as the reference without
-hints.  Every shape is static and nothing waits on the device: no
+The dispatch runs per data-parallel group, as the reference's: G =
+``ctx.hints.dp_size`` groups of the call's tokens in order (one group
+without hints, or where G does not divide the token count), each routed
+into its own (E, C, D) buffer with the capacity of its own T / G tokens,
+so which tokens an expert drops depends on the grouping.  The router, its
+softmax and the load-balance loss read every token alike.  Every shape is
+static and nothing waits on the device: no
 ``.item()``, no boolean-mask indexing.  Two orders are pinned where the
 reference's JAX ops pin them and PyTorch's do not:
 
@@ -88,13 +92,16 @@ def moe_forward(x, p, cfg: ModelConfig, ctx: LayerCtx):
     Bsz, L, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     T = Bsz * L
-    C = capacity(cfg, T)
-    dev = x.device
+    G = ctx.hints.dp_size if ctx.hints is not None else 1
+    if G <= 0 or T % G:
+        G = 1
+    C = capacity(cfg, T // G)
     xf = x.reshape(T, D)
     # a verify call's operands keep their (B, T) rows (module docstring)
     pin = ctx.abft.decode_rows
     xr = x if pin is not None else xf
-    split = capacity(cfg, pin) if pin is not None else None
+    split = (capacity(cfg, pin // G) if pin is not None and pin % G == 0
+             else None)
 
     # --- routing: the router GEMM is protected, its output and softmax f32
     logits, f_router = dense(xr, p["router"], ctx, "router", out_dtype=F32,
@@ -111,6 +118,30 @@ def moe_forward(x, p, cfg: ModelConfig, ctx: LayerCtx):
     topk_i, perm = torch.sort(topk_i, dim=-1)
     topk_w = torch.gather(topk_w, -1, perm)
 
+    Tl = T // G
+    parts = [_experts(xf[g * Tl:(g + 1) * Tl], topk_i[g * Tl:(g + 1) * Tl],
+                      topk_w[g * Tl:(g + 1) * Tl], p, cfg, ctx, C, split)
+             for g in range(G)]
+    y = parts[0][0] if G == 1 else torch.cat([y for y, _ in parts])
+    flag = or_flags(f_router, *(f for _, f in parts))
+
+    # --- shared experts (dense path, always on)
+    if cfg.n_shared_experts:
+        ys, fs = mlp(xr, p["shared"], ctx, act="silu",
+                     tags=("moe.shared_up", "moe.shared_down"))
+        y = y + ys.reshape(T, D)
+        flag = or_flags(flag, fs)
+    return y.reshape(Bsz, L, D), flag, loss
+
+
+def _experts(xf, topk_i, topk_w, p, cfg: ModelConfig, ctx: LayerCtx,
+             C: int, split):
+    """One dispatch group's routed experts: its T tokens xf (T, D) with
+    their top-k experts and weights through capacity-C buffers, the
+    expert GEMMs and the combine.  Returns (y (T, D), flag)."""
+    T, D = xf.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    dev = xf.device
     # --- sort-based dispatch into (E * C + 1, D); row E * C takes drops
     flat_e = topk_i.reshape(-1)                                # (T K,)
     order = torch.argsort(flat_e, stable=True)
@@ -120,7 +151,7 @@ def moe_forward(x, p, cfg: ModelConfig, ctx: LayerCtx):
     keep = pos_in_e < C
     slot = torch.where(keep, sorted_e * C + pos_in_e,
                        torch.full_like(sorted_e, E * C))
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
+    buf = torch.zeros((E * C + 1, D), dtype=xf.dtype, device=dev)
     buf[slot] = xf[order // K]
     buf = buf[:-1].reshape(E, C, D)
 
@@ -129,7 +160,7 @@ def moe_forward(x, p, cfg: ModelConfig, ctx: LayerCtx):
                            tag="moe.expert_up", split_rows=split)
     gate, f2 = batched_dense(buf, p["w_gate"], ctx, "expert_up",
                              tag="moe.expert_up", split_rows=split)
-    h = torch.nn.functional.silu(gate.to(F32)).to(x.dtype) * up
+    h = torch.nn.functional.silu(gate.to(F32)).to(xf.dtype) * up
     out_buf, f3 = batched_dense(h, p["w_down"], ctx, "expert_down",
                                 tag="moe.expert_down", split_rows=split)
 
@@ -143,13 +174,4 @@ def moe_forward(x, p, cfg: ModelConfig, ctx: LayerCtx):
     y = contrib[:, 0]
     for k in range(1, K):
         y = y + contrib[:, k]
-    y = y.to(x.dtype)
-    flag = or_flags(f_router, f1, f2, f3)
-
-    # --- shared experts (dense path, always on)
-    if cfg.n_shared_experts:
-        ys, fs = mlp(xr, p["shared"], ctx, act="silu",
-                     tags=("moe.shared_up", "moe.shared_down"))
-        y = y + ys.reshape(T, D)
-        flag = or_flags(flag, fs)
-    return y.reshape(Bsz, L, D), flag, loss
+    return y.to(xf.dtype), or_flags(f1, f2, f3)

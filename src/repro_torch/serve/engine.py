@@ -120,8 +120,21 @@ audio, llama-3.2-vision-11b's images: ``Model.memory_inputs``) raises
 ``NotImplementedError``: the engine passes only tokens, and the
 reference's fails on its missing memory.
 
-Options of the reference that this port does not have raise
-``NotImplementedError``: sharding (``mesh``) and ``hints``.
+Sharded serving: ``mesh=k`` (an int, or a port ``Mesh`` with a
+``model`` axis) serves a GQA stack with dense FFNs with tensor
+parallelism over k process ranks, each running this engine on its shard
+(``executor.MeshExecutor``; ``distributed/spawn.py`` starts the ranks).
+Every rank takes the same host decisions: the runner ORs each call's flag
+over the ranks, tokens come from gathered logits through identically
+seeded generators, and an undetected injection's ``state_match`` holds
+only if it holds on every rank.  ``hints`` takes the reference's
+``ShardingHints`` (the mesh's by default): its ``dp_size`` sets the MoE
+dispatch's group count; hints of another type raise
+``NotImplementedError``.  The plan (``plan_row`` telemetry included) is
+the per-shard plan of ``model_parallel=k``.  One process is one rank:
+``mesh=k > 1`` in a process outside ``torch.distributed`` raises
+``NotImplementedError`` (the reference's single-process multi-device mesh
+has no counterpart).
 """
 
 from __future__ import annotations
@@ -135,13 +148,15 @@ import torch
 
 from repro_torch.core.policy import ErrorAdaptivePolicy
 from repro_torch.core.protected import ABFTConfig
+from repro_torch.distributed.collectives import or_flag
 from repro_torch.models import attention
-from repro_torch.models.layers import LayerCtx, ModelFault
+from repro_torch.models.layers import LayerCtx, ModelFault, ShardingHints
 from repro_torch.models.model import Model, cell_leaves, layer_tags
 from repro_torch.obs.trace import Tracer
 from repro_torch.serve import paged_cache
 from repro_torch.serve.executor import (
     LocalExecutor,
+    MeshExecutor,
     resolve_device,
     strict_f32,
 )
@@ -181,13 +196,6 @@ class Cells(NamedTuple):
     rows: torch.Tensor | None = None
 
 
-def _unported(**opts) -> None:
-    on = [k for k, v in opts.items() if v]
-    if on:
-        raise NotImplementedError(
-            f"ServeEngine options not ported yet: {', '.join(on)}")
-
-
 class ServeEngine:
     def __init__(self, model: Model, params, *, slots: int, max_len: int,
                  abft: ABFTConfig = ABFTConfig(), dtype=torch.bfloat16,
@@ -202,7 +210,6 @@ class ServeEngine:
                  spec_decode=None, mesh=None,
                  draft_len: int | str | None = None, draft_window: int = 8,
                  draft_units: int = 1):
-        _unported(mesh=mesh, hints=hints is not None)
         if model.memory_inputs:
             raise NotImplementedError(
                 f"{model.cfg.name} reads a per-request memory "
@@ -229,8 +236,18 @@ class ServeEngine:
             classify_injections if classify_injections is not None
             else fault_model is not None)
         self._injection_meta: dict | None = None
-        self.executor = LocalExecutor(model, params, dtype=dtype,
-                                      device=self.device)
+        if hints is not None and not isinstance(hints, ShardingHints):
+            raise NotImplementedError(
+                f"hints of type {type(hints).__name__}: the port takes the "
+                f"reference's ShardingHints (models.layers.ShardingHints)")
+        if mesh is not None:
+            self.executor = MeshExecutor(model, params, mesh=mesh,
+                                         dtype=dtype, device=self.device,
+                                         hints=hints)
+            self.device = self.executor.device
+        else:
+            self.executor = LocalExecutor(model, params, dtype=dtype,
+                                          device=self.device, hints=hints)
         # adaptive protection: one immutable (config, ctx, plan, runner)
         # set per level; the mutable policy never rides in a LayerCtx
         eff = abft.effective_policy()
@@ -242,7 +259,9 @@ class ServeEngine:
                 dataclasses.replace(abft, policy=self.adaptive.escalated))
         else:
             level_cfgs = (abft,)
-        self._level_ctx = tuple(LayerCtx(abft=c) for c in level_cfgs)
+        self._level_ctx = tuple(
+            LayerCtx(abft=c, hints=self.executor.hints, tp=self.executor.tp)
+            for c in level_cfgs)
         self.protection_level = 0
         self.ctx = self._level_ctx[0]
         # the adaptive policy reads the fault-rate monitor, so an adaptive
@@ -372,6 +391,11 @@ class ServeEngine:
     @property
     def model_parallel(self) -> int:
         return self.executor.model_parallel
+
+    @property
+    def mesh(self):
+        """The executor's mesh (None on one device)."""
+        return self.executor.mesh
 
     @property
     def stats(self) -> EngineStats:
@@ -588,8 +612,11 @@ class ServeEngine:
         faulted = self._gather(cells)
         s_emitted, _ = rerun()
         tokens_match = bool(torch.equal(emitted, s_emitted))
-        state_match = all(bool(torch.equal(a, b))
+        differs = not all(bool(torch.equal(a, b))
                           for a, b in zip(faulted, self._gather(cells)))
+        # each rank compares its own shard of the cells
+        state_match = not bool(or_flag(
+            torch.tensor(differs, device=emitted.device), self.executor.tp))
         self._scatter(cells, faulted)
         outcome = "masked" if tokens_match else "sdc"
         return outcome, {"tokens_match": tokens_match,

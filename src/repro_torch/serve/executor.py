@@ -1,14 +1,49 @@
-"""Executor layer of the serving engine (port of ``LocalExecutor``): the
-device residency of params, cache and the per-slot sampling generators,
-and the engine's protection plan.  Sharded serving (``MeshExecutor``) is
-not ported."""
+"""Executor layer of the serving engine (port of ``repro.serve.executor``):
+the device residency of params, cache and the per-slot sampling
+generators, and the engine's protection plan.
+
+``LocalExecutor``
+    One device: the full params and cache, ``model_parallel == 1``, the
+    plan from the model's full GEMM shapes.
+
+``MeshExecutor``
+    Tensor-parallel serving over a ``(data=1, model=k)`` mesh of k
+    process ranks (``distributed/mesh.py``; ``distributed/spawn.py``
+    starts them).  This rank holds its shard of the params under the
+    reference's rules (``Model.shard_params``: heads, FFN and vocab over
+    ``model``) and of the KV cache under ``cache_specs``: paged pools
+    shard their kv-head dim and the host block table stays one logical
+    table, the same on every rank.  Where the kv heads do not divide the
+    model axis the cache keeps every kv head on every rank (``cache_specs``'
+    ``kv_fallback="replicate"``; ``models/attention.py``).  The layers
+    run their collectives through the context's ``TPGroup``
+    (``LayerCtx.tp``), the runner ORs every call's flag over the ranks and
+    the sampler reads the gathered logits, so every rank takes the same
+    host decisions step for step.  ``init_generators`` seeds every rank
+    alike.
+
+    The plan is the per-shard plan, ``model_parallel=k``, and it is the
+    one that runs: ``protected_matmul`` selects each scheme from the
+    rank's own GEMM dims, which are the per-shard dims.  (The reference
+    resolves its schemes at trace time on GSPMD's logical shapes, so at
+    ``mesh=k`` it executes the TP=1 selections while its plan reports
+    per-shard ones; the port does not mirror that.)
+
+    A row-parallel GEMM sums f32 partials and rounds once after the sum,
+    so a bf16 model's streams at any width equal the unsharded ones but
+    for a rounding in the last place where the reordered f32 sum crosses
+    a bf16 boundary.  At ``model == 1`` there are no collectives and no
+    f32 partials: the local path bit for bit.  Stacks other than GQA
+    attention with dense FFNs, a mesh with ``data > 1`` and a layout that
+    splits a q head raise ``NotImplementedError`` at ``model > 1``.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, layer_tags
 
 
 def resolve_device(device=None) -> torch.device:
@@ -53,14 +88,17 @@ class LocalExecutor:
     """Single-device executor: owns params and cache (the engine swaps in
     the cache list a decode step commits)."""
 
+    mesh = None
     model_parallel = 1
+    tp = None
 
-    def __init__(self, model: Model, params, *, dtype, device):
+    def __init__(self, model: Model, params, *, dtype, device, hints=None):
         self.model = model
         self.device = device
         self.params = tree_to(params, device)
         self.dtype = dtype
         self.dtype_bytes = dtype.itemsize
+        self.hints = hints
         self.cache = None
         self.gens: list = []
 
@@ -83,6 +121,138 @@ class LocalExecutor:
             slots=slots)
 
     def protection_plan(self, abft, *, slots: int):
+        """The ProtectionPlan for this executor's view: per-shard GEMM
+        shapes under ``model_parallel``-way TP."""
         return self.model.protection_plan(
             hw=abft.hardware, policy=abft.effective_policy(),
-            phase="serve", n_tokens=slots, dtype_bytes=self.dtype_bytes)
+            phase="serve", n_tokens=slots, dtype_bytes=self.dtype_bytes,
+            model_parallel=self.model_parallel)
+
+
+def check_shardable(cfg, mesh) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg`` serves sharded over
+    ``mesh`` (``model > 1``): GQA attention with dense FFNs and no
+    memory, ``data == 1``, and q heads that divide the model axis, with
+    kv heads that divide it or that it divides."""
+    k = int(mesh.shape["model"])
+    tags = set(layer_tags(cfg))
+    if tags != {"attn:dense:0"} or cfg.attention != "gqa" \
+            or cfg.is_encoder_decoder or cfg.vision_dim or cfg.mtp_depth:
+        raise NotImplementedError(
+            f"sharded serving of {cfg.name} ({sorted(tags)}): only GQA "
+            f"attention with dense FFNs serves over model > 1 (MoE, MLA, "
+            f"Mamba2 and cross-attention are ROADMAP A.3b)")
+    if any(mesh.shape[a] > 1 for a in mesh.axis_names if a != "model"):
+        raise NotImplementedError(
+            f"sharded serving over {mesh.shape}: data > 1 (replicas) is "
+            f"ROADMAP A.3b; the mesh must be (data=1, model=k)")
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    if (H * hd) % k == 0 and H % k:
+        raise NotImplementedError(
+            f"{cfg.name}: the rules split a q head over model={k} "
+            f"({H} heads); ROADMAP A.3b")
+    if (KV * hd) % k == 0 and KV % k and k % KV:
+        raise NotImplementedError(
+            f"{cfg.name}: {KV} kv heads over model={k} neither divide nor "
+            f"are divided by the axis; ROADMAP A.3b")
+
+
+class MeshExecutor(LocalExecutor):
+    """Mesh-sharded executor (see the module docstring).  ``mesh``: an
+    int tensor-parallel width (a ``(data=1, model=k)`` mesh over this
+    process's world, its ranks on ``device``'s type) or a prebuilt port
+    ``Mesh``; ``params``: the full tree, the same on every rank (each
+    rank keeps its shard)."""
+
+    def __init__(self, model: Model, params, *, mesh, dtype, device,
+                 hints=None):
+        import torch.distributed as dist
+
+        from repro_torch.distributed.collectives import TPGroup
+        from repro_torch.distributed.mesh import (
+            build_mesh,
+            make_hints,
+            rank_devices,
+        )
+        from repro_torch.distributed.sharding import param_specs
+
+        ranked = dist.is_available() and dist.is_initialized()
+        if isinstance(mesh, int):
+            if mesh > 1 and not ranked:
+                raise NotImplementedError(
+                    f"model_parallel={mesh} in one process: the port runs "
+                    f"one process a rank; start them with "
+                    f"repro_torch.distributed.spawn (the serve CLI's "
+                    f"--mesh N)")
+            mesh = build_mesh(model=mesh, data=1,
+                              devices=rank_devices(device.type))
+        if "model" not in mesh.axis_names:
+            raise ValueError(f"MeshExecutor needs a 'model' axis, mesh has "
+                             f"{mesh.axis_names}")
+        k = int(mesh.shape["model"])
+        self.mesh = mesh
+        self.model_parallel = k
+        if hints is None:
+            hints = make_hints(model.cfg, mesh)
+        if k > 1:
+            check_shardable(model.cfg, mesh)
+            if not ranked:
+                raise NotImplementedError(
+                    f"model_parallel={k} in one process: the port runs one "
+                    f"process a rank; start them with "
+                    f"repro_torch.distributed.spawn")
+            device = mesh.device
+            specs = param_specs(model.cfg, params, mesh)
+            sharded = set()
+            for lp in specs["layers"]:
+                for sub in lp.values():
+                    if isinstance(sub, dict):
+                        sharded |= {n for n, sp in sub.items()
+                                    if "model" in sp}
+            sharded |= {n for n in ("embed", "lm_head")
+                        if n in specs and "model" in specs[n]}
+            self.tp = TPGroup(rank=mesh.model_rank, size=k,
+                              group=mesh.group,
+                              backend=dist.get_backend(mesh.group),
+                              sharded=frozenset(sharded))
+            params = model.shard_params(params, mesh)
+        super().__init__(model, params, dtype=dtype, device=device,
+                         hints=hints)
+
+    def _put_cache(self, cache, *, paged: bool, slots: int) -> list:
+        """The rank's shard of a cache laid out on the meta device:
+        zeros of each leaf's local shape under ``cache_specs`` (every kv
+        head where they do not divide the axis)."""
+        from repro_torch.distributed.sharding import (
+            cache_specs,
+            map_with_path,
+            shard_shape,
+        )
+
+        specs = cache_specs(self.model.cfg, cache, self.mesh, slots,
+                            paged=paged, kv_fallback="replicate")
+        flat = {}
+        map_with_path(lambda ps, s: flat.__setitem__(ps, s), specs)
+        return map_with_path(
+            lambda ps, t: torch.zeros(shard_shape(flat[ps], t.shape,
+                                                  self.mesh),
+                                      dtype=t.dtype, device=self.device),
+            cache)
+
+    def init_dense_cache(self, slots: int, max_len: int) -> None:
+        if self.model_parallel == 1:
+            return super().init_dense_cache(slots, max_len)
+        self.cache = self._put_cache(
+            self.model.init_cache(slots, max_len, dtype=self.dtype,
+                                  device="meta"), paged=False, slots=slots)
+
+    def init_paged_cache(self, num_blocks: int, block_size: int,
+                         slots: int) -> None:
+        if self.model_parallel == 1:
+            return super().init_paged_cache(num_blocks, block_size, slots)
+        self.cache = self._put_cache(
+            self.model.init_paged_cache(num_blocks, block_size,
+                                        dtype=self.dtype, device="meta",
+                                        slots=slots),
+            paged=True, slots=slots)

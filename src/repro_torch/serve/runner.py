@@ -17,6 +17,11 @@ retries, so a slot's draws depend only on its own accepted steps and a
 retry redraws the same token.  The reference's JAX keys give the same
 contract; its draws differ (another generator), so the two agree in law
 only.
+
+Under tensor parallelism every entry point ORs its flag over the model
+axis before it returns (``collectives.or_flag``), so the engine's
+detect->retry decisions see one value on every rank, and the sampler
+draws from the logits the head gathered whole.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed.collectives import or_flag
 from repro_torch.models.layers import LayerCtx
 from repro_torch.models.model import Model
 
@@ -68,7 +74,7 @@ class ModelRunner:
             block_tables=tables)
         nxt = self.sample(logits[:, 0, :], gens)
         nxt = torch.where(mask, nxt, torch.full_like(nxt, -1))
-        return nxt, flag, new_cache
+        return nxt, or_flag(flag, self.ctx.tp), new_cache
 
     @torch.no_grad()
     def prefill(self, p, toks, cache, slot_ids, lengths, tables, fault,
@@ -81,7 +87,7 @@ class ModelRunner:
         logits, _, flag = self.model.prefill(
             p, toks, cache, ctx, slots=slot_ids, lengths=lengths,
             block_tables=tables, prefix_lens=prefix_lens)
-        return self.sample(logits[:, 0, :], gens), flag
+        return self.sample(logits[:, 0, :], gens), or_flag(flag, ctx.tp)
 
     def prefill_prefix(self, p, toks, cache, slot_ids, lengths, tables,
                        prefix_lens, fault, gens=None):
@@ -118,4 +124,4 @@ class ModelRunner:
                                      decode_rows=toks.shape[0]))
         logits, _, flag = self.model.verify(p, toks, cache, pos, ctx, valid,
                                             block_tables=tables)
-        return logits, flag
+        return logits, or_flag(flag, ctx.tp)

@@ -137,7 +137,8 @@ class SelfDraftProposer:
         p = torch.from_numpy(positions).to(dev)
         out = []
         for _ in range(int(k)):
-            x = params["embed"][t][None]                   # (1, W, D)
+            # (1, W, D)
+            x = self.model.embed_tokens(params, t, self.ctx)[None]
             h, _, _, _ = self.model.run_stack(x, sub, self.ctx, p[None],
                                               "full", None)
             h = norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)

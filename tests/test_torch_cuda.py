@@ -1969,3 +1969,47 @@ def test_audit_leaves_the_engine_unchanged_on_the_card(dev, step):
     for a, b in zip(c1, c2):
         for key in a:
             assert torch.equal(a[key], b[key]), key
+
+
+# (K, N, f32 out) of llama3.2-1b's GEMMs at TP=2: rank 0's shard of q, the
+# kv projections, up/gate, the row-parallel partials of o and down, the
+# vocab-sharded head
+TP2_SHARDS = [(2048, 1024, False), (2048, 256, False), (1024, 2048, True),
+              (2048, 4096, False), (4096, 2048, True), (2048, 64128, True)]
+
+
+@pytest.mark.parametrize("k,n,f32_out", TP2_SHARDS)
+def test_k1_at_the_tp2_shard_shapes(dev, k, n, f32_out):
+    """K1 at M = 4 on bf16 operands at a TP=2 shard's shape, the partial
+    and the head with f32 out, against its plain version: y within 1e-4
+    (f32 out) or 2^-7 (bf16) of max|y|, bounds within 1e-5 relative, no
+    false flag."""
+    x, w = _k1_inputs(dev, 4, k, n, torch.bfloat16, seed=k + n)
+    out = torch.float32 if f32_out else torch.bfloat16
+    bm, bk, bn = _blocks(4, k, n)
+    y, _, bnd = am.abft_matmul_kernel(x, w, mode="1s", bm=bm, bk=bk,
+                                      bn=bn, out_dtype=out)
+    yp, _, bndp = abft_matmul_ref(x, w, (0, 0, 0, 0, 0, -1), 0.0,
+                                  mode="1s", bm=bm, bk=bk, bn=bn,
+                                  out_dtype=out)
+    scale = yp.float().abs().max().item()
+    tol = (1e-4 if f32_out else 2 ** -7) * scale
+    assert y.dtype == out
+    assert (y.float() - yp.float()).abs().max().item() <= tol
+    assert ((bnd - bndp).abs() / bndp.abs().clamp_min(1e-30)).max() <= 1e-5
+    _, chk = ops.abft_matmul(x, w, mode="1s", out_dtype=out)
+    assert not bool(chk.flag)
+
+
+def test_tp2_engine_on_the_card_equals_mesh1(dev):
+    """Two gloo ranks sharing the card serve a 2-layer llama3.2-1b at its
+    full width (bf16, the kernels on, flash decode on) through the mesh
+    executor: every rank's greedy streams equal the one-process
+    ``mesh=1`` run's."""
+    from test_torch_mesh_worker import card_streams
+
+    from repro_torch.distributed import spawn
+
+    want = card_streams(1)
+    got = spawn.run(card_streams, 2, 2, device="cuda")
+    assert got == [want, want]

@@ -1,0 +1,278 @@
+"""Sharded serving on the CPU: the port's ``ServeEngine(mesh=k)`` over k
+gloo ranks (``repro_torch.distributed.spawn``) against the local engine,
+on scaled-down llama3.2-1b (2 layers, bf16, the reference's parameters
+through numpy) and the reference's ``_reqs``.
+
+One pool of ranks a mesh width (k = 2 and 4) runs every scenario of the
+reference's ``tests/test_sharded_engine.py::TestMeshEquivalence`` (dense;
+paged + chunked + prefix-shared; faults at a decode step and an admission
+retried; hard-fault eviction) and ``tests/test_spec_decode.py``'s mesh
+case (n-gram speculation against the unsped run), plus a column-parallel
+``qkv`` fault; every stream and ``EngineStats`` counter must equal the
+local run's, on every rank (the ranks also check each record among
+themselves).  ``mesh=1`` is the local engine and the reference's.  At
+k = 4 the scaled model's 2 kv heads do not divide the axis: the rules
+split a kv head, the ranks gather k and v whole and keep every kv head
+(``models/attention.py``).
+
+The per-shard plan is what runs: on the reference's ``SHARD_HW`` the
+schemes ``protected_matmul`` resolves at TP=4 equal the TP=4 plan's rows.
+The reference caveat: its ``protected_matmul`` resolves on the logical
+(TP=1) GEMM shapes at trace time, so at mesh=4 it would execute the TP=1
+schemes on the sites where the plans diverge.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import test_torch_mesh_worker as W
+import torch
+
+from repro.configs import get_config as jget, scaled_down as jscaled
+from repro.core.hardware import HardwareSpec as JHardwareSpec
+from repro.core.intensity import GemmDims as JGemmDims
+from repro.core.protected import ABFTConfig as JABFT
+from repro.models import build_model
+from repro.serve.engine import Request as JRequest, ServeEngine as JEngine
+from repro_torch.core.hardware import DEFAULT, HardwareSpec
+from repro_torch.distributed import spawn
+from repro_torch.distributed.mesh import build_mesh
+from repro_torch.models.model import Model, params_from_reference
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.executor import LocalExecutor, MeshExecutor
+
+torch.set_num_threads(1)
+
+# the reference's crafted point (tests/test_sharded_engine.py)
+SHARD_HW = dict(name="shard-flip", peak_flops=2.4e13, vpu_flops=1e11,
+                hbm_bw=1e12, ici_bw=1e11, hbm_bytes=1 << 34,
+                vmem_bytes=1 << 24, fixed_op_overhead_s=1e-7)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = jscaled(jget("llama3.2-1b"), n_layers=2)
+    jm = build_model(jcfg)
+    jp = jm.init_params(jax.random.PRNGKey(0), dtype=jnp.bfloat16)
+    cfg = W.small_config()
+    params = params_from_reference(
+        cfg, jax.tree_util.tree_map(np.asarray, jp), dtype=torch.bfloat16)
+    return jm, jp, Model(cfg), params
+
+
+@pytest.fixture(scope="module")
+def local(setup):
+    _, _, model, params = setup
+    return W.scenarios(model, params, None)
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["k2", "k4"])
+def ranks(request, setup):
+    """One gloo pool of k ranks running every scenario."""
+    _, _, _, params = setup
+    k = request.param
+    return k, spawn.run(W.mesh_scenarios, k, k, params, SHARD_HW,
+                        device="cpu")
+
+
+@pytest.fixture(scope="module")
+def family_local():
+    return W.family_scenarios(None)
+
+
+# ------------------------------------------------------------- mesh = 1
+def test_mesh1_streams_equal_local_and_reference(setup, local):
+    jm, jp, model, params = setup
+    cfg = model.cfg
+    ref = JEngine(jm, jp, slots=3, max_len=64, dtype=jnp.bfloat16).run(
+        [JRequest(r.uid, r.prompt, r.max_new_tokens) for r in W.reqs(cfg)])
+    loc = local["dense"]["out"]
+    eng = ServeEngine(model, params, slots=3, max_len=64,
+                      dtype=torch.bfloat16, device="cpu", mesh=1)
+    assert eng.model_parallel == 1 and eng.mesh.shape == \
+        {"data": 1, "model": 1}
+    assert eng.run(W.reqs(cfg)) == loc == ref
+
+
+def test_mesh1_executor_matches_local(setup):
+    _, _, model, params = setup
+    from repro_torch.core.protected import ABFTConfig
+
+    dev = torch.device("cpu")
+    loc = LocalExecutor(model, params, dtype=torch.bfloat16, device=dev)
+    m1 = MeshExecutor(model, params, mesh=1, dtype=torch.bfloat16,
+                      device=dev)
+    assert m1.model_parallel == 1 and m1.tp is None
+    assert loc.protection_plan(ABFTConfig(), slots=4).to_json() == \
+        m1.protection_plan(ABFTConfig(), slots=4).to_json()
+    assert all(torch.equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(loc.params),
+        jax.tree_util.tree_leaves(m1.params)))
+
+
+def test_mesh_executor_rejects_meshless_axis(setup):
+    _, _, model, params = setup
+    mesh = build_mesh(model=1, data=1)
+    mesh.axis_names = ("x", "y")
+    with pytest.raises(ValueError, match="model"):
+        MeshExecutor(model, params, mesh=mesh, dtype=torch.bfloat16,
+                     device=torch.device("cpu"))
+
+
+# --------------------------------------------------------- mesh = 2, 4
+SCENARIOS = ("dense", "paged", "shared_chunked", "faulted", "qkv_fault",
+             "hard_fault", "unsped", "sped")
+
+
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_mesh_streams_equal_local(ranks, local, name):
+    k, recs = ranks
+    for r, rec in enumerate(recs):
+        assert rec[name] == local[name], (k, r, name)
+
+
+def test_mesh_scenarios_exercise_their_paths(ranks, local):
+    k, recs = ranks
+    rec = recs[0]
+    st = {n: rec[n]["stats"] for n in SCENARIOS}
+    assert st["shared_chunked"]["prefix_tokens_shared"] > 0
+    assert st["shared_chunked"]["prefill_chunks"] > 0
+    assert rec["shared_chunked"]["blocks_used"] == 0
+    assert st["faulted"]["faults_detected"] >= 2
+    assert st["faulted"]["retries"] >= 2
+    assert st["faulted"]["hard_faults"] == 0
+    assert st["qkv_fault"]["faults_detected"] >= 1
+    assert st["hard_fault"]["hard_faults"] == 1
+    assert st["hard_fault"]["evictions"] >= 1
+    assert st["sped"]["draft_accepted"] > 0
+    assert rec["sped"]["streams"] == rec["unsped"]["streams"]
+    assert rec["faulted"]["streams"] == local["paged"]["streams"]
+
+
+# the local runs of these three are held against the reference's in
+# tests/test_torch_family.py
+FAMILY_SHARDED = {"qwen1.5-32b": {"bq", "bk", "bv"},
+                  "qwen3-14b": set(), "stablelm-1.6b": set()}
+
+
+@pytest.mark.parametrize("arch", W.FAMILY)
+def test_dense_family_at_mesh2_equals_local(ranks, family_local, arch):
+    """qwen1.5-32b's column-sharded q/k/v biases, qwen3-14b's per-head
+    q/k norm on a shard and stablelm-1.6b's LayerNorm and partial rotary
+    serve at k = 2 and 4, dense and paged, equal to their local runs on
+    every rank."""
+    k, recs = ranks
+    want = family_local[arch]
+    assert want["dense"]["stats"]["tokens"] > 0
+    assert want["dense"]["streams"] == want["paged"]["streams"]
+    for r, rec in enumerate(recs):
+        got = rec["family"][arch]
+        assert got["dense"] == want["dense"], (k, r, arch)
+        assert got["paged"] == want["paged"], (k, r, arch)
+    sharded = set(recs[0]["family"][arch]["sharded"])
+    assert {"wq", "wk", "wv", "wo", "up", "down"} | \
+        FAMILY_SHARDED[arch] <= sharded
+
+
+def test_ranks_agree_and_report_the_mesh(ranks):
+    k, recs = ranks
+    assert all(rec == recs[0] for rec in recs)
+    rec = recs[0]
+    assert rec["model_parallel"] == k
+    assert rec["mesh_shape"] == {"data": 1, "model": k}
+    assert rec["backend"] == "gloo"
+
+
+def test_plan_rows_carry_model_parallel(ranks, setup):
+    k, recs = ranks
+    _, _, model, _ = setup
+    rows = recs[0]["plan_rows"]
+    plan = model.protection_plan(hw=DEFAULT, n_tokens=2, model_parallel=k)
+    assert [r["layer"] for r in rows] == \
+        [r["layer"] for r in plan.report_rows()]
+    for row, want in zip(rows, plan.report_rows()):
+        assert row["model_parallel"] == k
+        assert (row["n"], row["k"], row["scheme"]) == \
+            (want["n"], want["k"], want["scheme"])
+
+
+# ------------------------------------------------ the per-shard plan runs
+def _shard_plans(model):
+    return {k: model.protection_plan(hw=HardwareSpec(**SHARD_HW),
+                                     n_tokens=64, model_parallel=k)
+            for k in (1, 2, 4)}
+
+
+def test_executed_schemes_equal_the_plan(ranks, setup):
+    """Each rank's 64-token forward on ``SHARD_HW`` executes, site for
+    site, the scheme of the TP=k plan's row."""
+    k, recs = ranks
+    plans = _shard_plans(setup[2])
+    rows = {r["layer"]: r["scheme"] for r in plans[k].report_rows()}
+    for rec in recs:
+        assert rec["executed"] == {site: [rows[site]] for site in rows}
+    if k == 4:
+        r1 = {r["layer"]: r["scheme"] for r in plans[1].report_rows()}
+        # the crafted point flips at least one site between the widths
+        assert any(r1[s] != rows[s] for s in rows)
+
+
+def test_reference_resolves_logical_shapes(setup):
+    """The reference caveat: at trace time its ``protected_matmul`` sees
+    GSPMD's logical (unsharded) GEMM, so it selects the TP=1 scheme where
+    the TP=4 plan reports another."""
+    plans = _shard_plans(setup[2])
+    hw = JHardwareSpec(**SHARD_HW)
+    r1 = {r["layer"]: r for r in plans[1].report_rows()}
+    r4 = {r["layer"]: r for r in plans[4].report_rows()}
+    diverged = [s for s in r1 if r1[s]["scheme"] != r4[s]["scheme"]]
+    assert diverged
+    for s in diverged:
+        logical = JGemmDims(m=r1[s]["m"], k=r1[s]["k"], n=r1[s]["n"])
+        assert JABFT(hardware=hw).resolve(logical).value == \
+            r1[s]["scheme"] != r4[s]["scheme"]
+
+
+# ------------------------------------------------------------ refusals
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b",
+                                  "mamba2-1.3b"])
+def test_unported_stacks_raise_at_model_gt_1(arch):
+    from repro_torch.configs import get_config, scaled_down
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.serve.executor import check_shardable
+
+    mesh = Mesh(grid=np.arange(2).reshape(1, 2), axis_names=("data",
+                                                              "model"),
+                devices=(torch.device("cpu"),) * 2)
+    with pytest.raises(NotImplementedError, match="A.3b"):
+        check_shardable(scaled_down(get_config(arch)), mesh)
+    dp = Mesh(grid=np.arange(4).reshape(2, 2),
+              axis_names=("data", "model"),
+              devices=(torch.device("cpu"),) * 4)
+    with pytest.raises(NotImplementedError, match="data > 1"):
+        check_shardable(W.small_config(), dp)
+    check_shardable(W.small_config(), mesh)
+
+
+def test_serve_cli_mesh_flag(capsys):
+    """``--mesh 1`` serves through the mesh executor in this process and
+    reports the mesh in the stats line; ``--mesh N`` on a stack that
+    cannot shard exits with the ``NotImplementedError`` message before
+    any rank starts."""
+    import json
+
+    from repro_torch.launch import serve
+
+    assert serve.main(["--device", "cpu", "--mesh", "1", "--requests", "2",
+                       "--new-tokens", "3", "--inject-faults"]) == 0
+    out = capsys.readouterr().out
+    line = next(json.loads(ln) for ln in out.splitlines()
+                if ln.startswith("{"))
+    assert line["model_parallel"] == 1 and line["ranks_per_device"] == 1
+    assert [r["layer"] for r in line["shard_plan"]] == [
+        "attn.q", "attn.k", "attn.v", "attn.o", "mlp.up", "mlp.down",
+        "lm_head"]
+    with pytest.raises(SystemExit, match="A.3b"):
+        serve.main(["--device", "cpu", "--mesh", "2", "--arch",
+                    "qwen2-moe-a2.7b"])
