@@ -47,7 +47,12 @@ llama3.2-1b with tensor parallelism over two ranks sharing the card
 counters equal, dense = paged, faulted = clean, shared + chunked = plain
 and oracle-sped = unsped at TP=2, against the one-process run (logits, and a
 divergent stream only at a near-tie), K1 at the shard shapes against its
-plain version, K1/K3/collectives a decode step a rank, the rank-0 audit.
+plain version, K1/K3/collectives a decode step a rank, the rank-0 audit;
+``tp_hybrid`` does the same for jamba-v0.1-52b at its published widths
+and one 8-layer unit (GQA attention, Mamba2 mixers, dense and
+expert-parallel MoE FFNs), each rank drawing only its shard, with
+``expert_up``, ``ssm_in`` and ``ssm_out`` faults recovered and every
+slot's state held to the clean run's.
 Each phase prints JSON lines; any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -74,7 +79,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
           "campaign", "profile", "timing", "sharing", "spec", "family",
-          "moe", "mla", "ssm", "cross", "audit", "tp")
+          "moe", "mla", "ssm", "cross", "audit", "tp", "tp_hybrid")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -107,25 +112,52 @@ SIDE_ARCH, SIDE_LAYERS = "qwen3-14b", 10
 SERVED_LAYERS = 8
 
 
+# the layers the family and moe phases keep of these archs' published
+# depth (full width; PERF.md §4: the script's time), and the tp phase's
+# llama keeps SERVED_LAYERS
+DEPTH_CUTS = {"qwen3-14b": 20, "qwen1.5-32b": 32, "qwen2-moe-a2.7b": 12}
+
+
 def side_config():
     from repro_torch.configs import get_config
 
     return dataclasses.replace(get_config(SIDE_ARCH), n_layers=SIDE_LAYERS)
 
 
+def cut_config(arch):
+    """``arch`` at full width and its ``DEPTH_CUTS`` depth, if any."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    n = DEPTH_CUTS.get(arch)
+    return dataclasses.replace(cfg, n_layers=n) if n else cfg
+
+
+def served_config():
+    """llama3.2-1b at full width and ``SERVED_LAYERS`` layers (the
+    sharing, spec and tp phases)."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(ENGINE_ARCH),
+                               n_layers=SERVED_LAYERS)
+
+
 def served_llama(dev) -> tuple:
     """The sharing and spec phases' llama3.2-1b: full width,
     ``SERVED_LAYERS`` layers, bf16 weights from seed 0 on the card."""
-    from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
-    model = Model(dataclasses.replace(get_config(ENGINE_ARCH),
-                                      n_layers=SERVED_LAYERS))
+    model = Model(served_config())
     return model, model.init_params(0, dtype=torch.bfloat16, device=dev)
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``t``: the script's seconds so far."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t": round(time.perf_counter() - T0, 1)}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -1850,25 +1882,24 @@ def family_score(dev, model, params) -> dict:
 
 
 def family_arch(dev, arch: str) -> dict:
-    """One dense-family config at full width (published dims, every
-    layer; bf16 weights from seed 0, made on the card): the plan, the
+    """One dense-family config at full width (published dims; its
+    ``DEPTH_CUTS`` depth; bf16 weights from seed 0, made on the card): the plan, the
     kernel checks at its shapes, serving (dense and paged streams equal,
     a clean run raises no flag, an ``mlp_down`` fault is recomputed to
     the clean streams), scoring, and the kernels' times at its shapes.
     Frees its weights before it returns."""
-    from repro_torch.configs import get_config
     from repro_torch.core.faults import FaultSpec
     from repro_torch.core.policy import IntensityGuidedPolicy
     from repro_torch.core.tree import tree_leaves
     from repro_torch.models.layers import ModelFault
     from repro_torch.models.model import Model
 
-    cfg = get_config(arch)
+    cfg = cut_config(arch)
     model = Model(cfg)
     free_memory()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params, prompts = engine_inputs(dev, arch)
+    params, prompts = engine_inputs(dev, cfg=cfg)
     torch.cuda.synchronize()
     weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     emit("family_plan", arch=arch, init_s=time.perf_counter() - t0,
@@ -3063,6 +3094,28 @@ def _routing_log():
         moe_mod.top_k = top_k
 
 
+@contextlib.contextmanager
+def _route_log(log: list):
+    """Appends each MoE layer's routing to ``log`` while the block is
+    open: (top-k expert ids sorted within a token, the router's f32
+    probabilities), as host arrays (they cross process boundaries)."""
+    from repro_torch.models import moe as moe_mod
+
+    top_k = moe_mod.top_k
+
+    def logged(probs, k):
+        vals, idx = top_k(probs, k)
+        log.append((idx.sort(-1).values.cpu().numpy(),
+                    probs.float().cpu().numpy()))
+        return vals, idx
+
+    moe_mod.top_k = logged
+    try:
+        yield log
+    finally:
+        moe_mod.top_k = top_k
+
+
 def _routing_diff(a, b, pos_err, L) -> dict:
     """Two runs' routing logs (one (T, K) entry a layer, T = 1 x L) and one
     run's per-position logit error: the share of tokens whose top-k set
@@ -3200,8 +3253,8 @@ def moe_score(dev, model, params) -> dict:
 
 
 def moe_runs(dev) -> dict:
-    """qwen2-moe-a2.7b at full width (published dims, all 24 layers; bf16
-    weights from seed 0, made on the card): the batched K1 against its
+    """qwen2-moe-a2.7b at full width (published dims, 12 of its 24 layers:
+    ``DEPTH_CUTS``; bf16 weights from seed 0, made on the card): the batched K1 against its
     plain version, the plan, serving (4 slots, max_len 512, 8 requests of
     16-256 tokens, 16 new each, flash on: dense and paged streams equal,
     no clean flag, K1 batched three times a MoE layer each decode step,
@@ -3212,7 +3265,6 @@ def moe_runs(dev) -> dict:
     its heads are held against their plain versions at full width
     (``family_checks``), and K3 on the dense engine's cache layer by layer
     (``k3_timing``).  Frees its weights before it returns."""
-    from repro_torch.configs import get_config
     from repro_torch.core.faults import FaultSpec
     from repro_torch.core.policy import FixedPolicy, IntensityGuidedPolicy
     from repro_torch.core.schemes import Scheme
@@ -3223,13 +3275,13 @@ def moe_runs(dev) -> dict:
     t0 = time.perf_counter()
     checks = moe_k1_checks(dev)
     emit("moe_k1_check", **checks)
-    cfg = get_config(MOE_ARCH)
+    cfg = cut_config(MOE_ARCH)
     model = Model(cfg)
     n_moe = sum(t == "attn:moe:0" for t in layer_tags(cfg))
     free_memory()
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
-    params, prompts = engine_inputs(dev, MOE_ARCH)
+    params, prompts = engine_inputs(dev, cfg=cfg)
     torch.cuda.synchronize()
     weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     emit("moe_plan", arch=MOE_ARCH, init_s=time.perf_counter() - t1,
@@ -3652,7 +3704,7 @@ def _f32_layerwise_routed(model, params, tokens, routes) -> tuple:
                         else widen(v)) for k, v in tree.items()}
         return tree.float()
 
-    def grouped(x_e, w_e, ctx, site, tag=None, split_rows=None):
+    def grouped(x_e, w_e, ctx, site, tag=None, split_rows=None, par=None):
         y = torch.empty(x_e.shape[:2] + (w_e.shape[2],), dtype=x_e.dtype,
                         device=x_e.device)
         for e0 in range(0, w_e.shape[0], 32):
@@ -5964,6 +6016,8 @@ class _Capture:
         self.first = {}
         self.gaps = {} if prompts is not None else None
         self.kind, self.rows = None, []
+        # each model call's rows and, where ``mark`` is set, its mark
+        self.calls, self.mark = [], None
         uid_of = {p.astype(np.int32).tobytes(): i
                   for i, p in enumerate(prompts or [])}
         runner = eng.runner
@@ -5986,6 +6040,7 @@ class _Capture:
             self.rows = [(eng.active[s].uid, len(eng.active[s].generated))
                          if s in eng.active else None
                          for s in range(eng.slots)]
+            self.calls.append((self.rows, self.mark and self.mark()))
             return decode(p, tok, cache, pos, mask, *a, **k)
 
         def cap_prefill(p, toks, cache, slot_ids, lengths, *a, **k):
@@ -5995,6 +6050,7 @@ class _Capture:
             self.rows = [(uid_of[t[i, :n[i]].tobytes()], 0)
                          if t[i, :n[i]].tobytes() in uid_of else None
                          for i in range(len(n))]
+            self.calls.append((self.rows, self.mark and self.mark()))
             return prefill(p, toks, cache, slot_ids, lengths, *a, **k)
 
         runner.sample, runner.decode, runner.prefill = \
@@ -6015,12 +6071,15 @@ def _tp_faults(cfg) -> dict:
 
 def tp_serve(model, params, prompts, dev, label, *, mesh=None,
              cache_kind="dense", flash=True, fault_at=None,
-             admit_fault_at=None, max_retries=1, capture=None, **kw):
+             admit_fault_at=None, max_retries=1, capture=None, routes=None,
+             **kw):
     """One bf16 engine run of the engine phase's traffic (4 slots,
     max_len 512, the H100 plan), at ``mesh`` ranks or on one process:
     its streams, errors and every ``EngineStats`` field (the record every
     rank must share), and apart its timing: each decode step's ms, K1 and
-    K3 launches and collectives (counted from 0 for this run)."""
+    K3 launches and collectives (counted from 0 for this run).
+    ``routes``: a list that gets every MoE routing decision of the run
+    (``_route_log``), each captured call marked with the log's length."""
     from repro_torch.core.hardware import NVIDIA_H100_SXM
     from repro_torch.core.policy import IntensityGuidedPolicy
     from repro_torch.core.protected import ABFTConfig
@@ -6029,6 +6088,7 @@ def tp_serve(model, params, prompts, dev, label, *, mesh=None,
     from repro_torch.serve.engine import RecoveryPolicy, Request, ServeEngine
 
     K1, K3 = abft_matmul.KERNEL, flash_attention.KERNEL
+    K1B = abft_matmul.BATCHED
     abft = ABFTConfig.from_policy(IntensityGuidedPolicy(),
                                   hardware=NVIDIA_H100_SXM,
                                   flash_attention=flash)
@@ -6045,6 +6105,7 @@ def tp_serve(model, params, prompts, dev, label, *, mesh=None,
 
     def timed_step(*a, **k):
         c0, k1, k3 = collectives.COUNTS["calls"], K1.launches, K3.launches
+        k1b = K1B.launches
         torch.cuda.synchronize()
         t = time.perf_counter()
         r = step(*a, **k)
@@ -6052,13 +6113,18 @@ def tp_serve(model, params, prompts, dev, label, *, mesh=None,
         if r:
             steps.append((1e3 * (time.perf_counter() - t),
                           K1.launches - k1, K3.launches - k3,
-                          collectives.COUNTS["calls"] - c0))
+                          collectives.COUNTS["calls"] - c0,
+                          K1B.launches - k1b))
         return r
 
     eng.step = timed_step
-    K1.launches = K3.launches = 0
+    K1.launches = K3.launches = K1B.launches = 0
     collectives.reset_counts()
-    eng.run(reqs, fault_at=fault_at, admit_fault_at=admit_fault_at)
+    with (_route_log(routes) if routes is not None
+          else contextlib.nullcontext()):
+        if routes is not None and cap is not None:
+            cap.mark = lambda: len(routes)
+        eng.run(reqs, fault_at=fault_at, admit_fault_at=admit_fault_at)
     torch.cuda.synchronize()
     del eng.step
     st = dataclasses.asdict(eng.stats)
@@ -6072,6 +6138,7 @@ def tp_serve(model, params, prompts, dev, label, *, mesh=None,
               "k1_per_step": sorted({s[1] for s in steps}),
               "k3_per_step": sorted({s[2] for s in steps}),
               "collectives_per_step": sorted({s[3] for s in steps}),
+              "k1b_per_step": sorted({s[4] for s in steps}),
               "launches": {"abft_matmul": K1.launches,
                            "flash_decode": K3.launches}}
     return eng, rec, timing, cap
@@ -6079,21 +6146,20 @@ def tp_serve(model, params, prompts, dev, label, *, mesh=None,
 
 def tp_rank(prompts) -> dict:
     """One rank of the ``tp`` phase (``distributed/spawn.py``): full-width
-    llama3.2-1b from seed 0, this rank's shard, served at ``mesh=2``
+    llama3.2-1b at ``SERVED_LAYERS`` layers from seed 0, this rank's shard, served at ``mesh=2``
     dense and paged, under faults, evicting, with sharing + chunks, and
     unsped and with oracle speculation (flash off); the collectives of
     one decode step timed alone; rank 0 also walks one decode step under
     the op walker (the audit).  Every record is checked equal across the
     ranks; returns the records, the timings and, on rank 0, the captured
     logits and the audit."""
-    from repro_torch.configs import get_config
     from repro_torch.distributed import collectives
     from repro_torch.models.model import Model
 
     if not torch.cuda.is_available():
         raise RuntimeError("tp rank: no CUDA device")
     dev = torch.device("cuda")
-    cfg = get_config(ENGINE_ARCH)
+    cfg = served_config()
     model = Model(cfg)
     params = model.init_params(0, dtype=torch.bfloat16, device=dev)
     faults = _tp_faults(cfg)
@@ -6137,26 +6203,32 @@ def tp_rank(prompts) -> dict:
     return out
 
 
-def _tp_collective_ms(cfg, tp) -> list:
+def _tp_collective_ms(cfg, tp, n_sum=None, n_sq: int = 0,
+                      dev="cuda") -> list:
     """The host ms of one decode step's collectives alone, at its sizes
-    (4 slots): the embedding's and each layer's two (slots, d) f32 sums,
-    the head's (slots, vocab / k) f32 gather and the flag's OR, between
-    two device syncs and a barrier; 20 times."""
+    (4 slots): ``n_sum`` (slots, d) f32 sums (by default the embedding's
+    and each layer's two), ``n_sq`` (slots, 1) f32 sums (Mamba2's sums of
+    squares), the head's (slots, vocab / k) f32 gather and the flag's OR,
+    between two device syncs and a barrier; 20 times."""
     import torch.distributed as dist
 
     from repro_torch.distributed import collectives
 
     slots, reps = 4, 20
-    x = torch.zeros(slots, cfg.d_model, device="cuda")
-    logits = torch.zeros(slots, cfg.vocab_size // tp.size, device="cuda")
-    flag = torch.zeros((), dtype=torch.bool, device="cuda")
+    n_sum = 2 * cfg.n_layers + 1 if n_sum is None else n_sum
+    x = torch.zeros(slots, cfg.d_model, device=dev)
+    ss = torch.zeros(slots, 1, device=dev)
+    logits = torch.zeros(slots, cfg.vocab_size // tp.size, device=dev)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
     out = []
     for _ in range(reps):
         torch.cuda.synchronize()
         dist.barrier(group=tp.group)
         t = time.perf_counter()
-        for _ in range(2 * cfg.n_layers + 1):
+        for _ in range(n_sum):
             collectives.all_reduce_sum(x, tp)
+        for _ in range(n_sq):
+            collectives.all_reduce_sum(ss, tp)
         collectives.gather_last(logits, tp)
         collectives.or_flag(flag, tp)
         torch.cuda.synchronize()
@@ -6271,8 +6343,8 @@ def tp_reference(dev, model, params, prompts) -> dict:
 
 
 def tp_runs(dev) -> dict:
-    """The ``tp`` phase: full-width llama3.2-1b served with tensor
-    parallelism over two ranks sharing this one card (gloo), against
+    """The ``tp`` phase: full-width llama3.2-1b (``SERVED_LAYERS`` layers)
+    served with tensor parallelism over two ranks sharing this one card (gloo), against
     itself (dense = paged, faulted = clean, shared + chunked = plain,
     oracle-sped = unsped, every rank agreeing) and against the one-process run
     (the logits of the first prefill and decode step, the greedy streams
@@ -6280,12 +6352,11 @@ def tp_runs(dev) -> dict:
     its plain version; K1 and K3 launches a decode step a rank; the
     rank-0 audit.  Two ranks time-slicing one card over gloo: the times
     are not a TP speed."""
-    from repro_torch.configs import get_config
     from repro_torch.distributed import spawn
     from repro_torch.models.model import Model
 
     t0 = time.perf_counter()
-    cfg = get_config(ENGINE_ARCH)
+    cfg = served_config()
     model = Model(cfg)
     params, prompts = engine_inputs(dev, cfg=cfg)
     k1 = tp_k1_checks(dev, model, params)
@@ -6396,6 +6467,479 @@ def _add_tp(kernels, tp) -> None:
         "max_abs_err")} for name, rec in tp["k1"].items()}
     k1["tp_launches_per_step"] = tp["k1_per_step"]
     k3["tp_launches_per_step"] = tp["k3_per_step"]
+
+
+# ------------------------------------------------------------- tp_hybrid
+
+# jamba-v0.1-52b at published widths and one 8-layer unit (``ssm_config``)
+# served over two ranks sharing the card: GQA attention, Mamba2 mixers, dense
+# and MoE FFNs (16 experts: EP, 8 a rank)
+HYBRID_ARCH = "jamba-v0.1-52b"
+# a decode step's collectives by the design: attention wo 1, seven mixers'
+# gated norm and out_proj 14, four dense down 4, four MoE combines 4, the
+# embedding 1, the head's gather 1, the flag 1
+HYBRID_COLLECTIVES = 26
+# the logits' gate against TP=1, as a share of TP=1's logit scale (the score
+# gate's bound, SSM_SCORE_TOL), at the positions of a 1 x HYBRID_SCORE_L
+# score that precede its first token routed to another expert set: one
+# routing flip (a router near-tie the reordered sums tip over) changes a
+# token's FFN output wholesale
+HYBRID_LOGIT_TOL = SSM_SCORE_TOL
+HYBRID_SCORE_L = 256
+# a routing flip is a near-tie where TP=1's router gives the k-th and the
+# (k+1)-th expert probabilities this close
+HYBRID_ROUTER_TIE = 0.02
+
+
+def _hybrid_faults(cfg) -> dict:
+    """``expert_up`` at layer 2 (every local expert of each rank), ``ssm_in``
+    at layer 0 on column 3/4 of ``in_x``/``in_z`` (rank 1's at TP=2),
+    ``ssm_out`` at layer 5 (row-parallel: rank 0's partial), and the
+    sticky ``ssm_out`` at layer 1 of the eviction run."""
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.models.layers import ModelFault
+
+    col = cfg.d_inner * 3 // 4
+    return {"expert_up": ModelFault.at(2, "expert_up",
+                                       FaultSpec.value(0, 1, 1e5)),
+            "ssm_in": ModelFault.at(0, "ssm_in", FaultSpec.value(0, col, 1e5)),
+            "ssm_out": ModelFault.at(5, "ssm_out", FaultSpec.value(0, 1, 1e5)),
+            "hard": ModelFault.at(1, "ssm_out", FaultSpec.value(0, 1, 1e5))}
+
+
+def _state_digest(eng) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in _ssm_states(eng):
+        h.update(t.float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_hybrid_k1(dev, cfg, shard) -> dict:
+    """K1 at this rank's shard shapes of a jamba decode step (M = 4),
+    against its plain version (``_k1_site_check``) and timed: each group
+    of 2-D GEMMs (the row-parallel partials ``o``, ``ssm_out`` and ``down``
+    with f32 out, as the path runs them; the router and head f32 out) by
+    CUDA-graph replay beside its plain version, ``torch.matmul`` and the
+    bound; then K1 batched over the rank's E/2 = 8 experts at C = 4 and an
+    admission's C (``_batched_case``, ``moe_k1_timing``)."""
+    from repro_torch.kernels.abft_matmul import abft_matmul_kernel
+    from repro_torch.kernels.ref import abft_matmul_ref
+    from repro_torch.models.moe import capacity
+
+    f32_out = {"o", "ssm_out", "down", "router", "head"}
+    groups = _step_gemm_groups(shard)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    m, out = 4, {}
+    for name, ws in groups.items():
+        od = torch.float32 if name in f32_out else torch.bfloat16
+        err, scale, ratio, rt = _k1_site_check(dev, gen, cfg, f"tp2 {name}",
+                                               ws[0], od, m)
+        kk, nn = ws[0].shape
+        x = torch.randn(m, kk, generator=gen, device=dev).to(torch.bfloat16)
+        bm, bk, bn = (min(b, -(-d // 8) * 8) for b, d in
+                      ((256, m), (512, kk), (256, nn)))
+        kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=od)
+
+        def kern():
+            for w in ws:
+                abft_matmul_kernel(x, w, **kw)
+
+        def plain():
+            for w in ws:
+                abft_matmul_ref(x, w, **kw)
+
+        def lib():
+            for w in ws:
+                torch.matmul(x, w)
+
+        b_ms, by = _gemm_bound(m, kk, nn, 2, od.itemsize,
+                               -(-m // bm) * -(-nn // bn) * bm)
+        out[name] = {"k": kk, "n": nn, "out": str(od)[6:],
+                     "gemms": len(ws), "route": rt, "max_abs_err": err,
+                     "max_abs_y": scale, "clean_ratio": ratio,
+                     "ms": timed_graph(kern, iters=5),
+                     "plain_ms": timed_graph(plain, iters=2),
+                     "library_ms": timed_graph(lib, iters=5),
+                     "bound_ms": b_ms * len(ws), "bound_by": by}
+    ffn = next(lp["ffn"] for lp in shard["layers"]
+               if "ffn" in lp and "router" in lp["ffn"])
+    caps = (capacity(cfg, 4), capacity(cfg, 4 * 256))
+    worst = ratio = 0.0
+    for wname in ("w_up", "w_down"):
+        for C in caps:
+            err, r = _batched_case(dev, gen, ffn[wname], C,
+                                   f"tp2 jamba {wname} C={C}")
+            worst, ratio = max(worst, err), max(ratio, r)
+    need(ratio < 1, f"tp_hybrid batched K1 clean residual {ratio}")
+    batched = {"E_local": int(ffn["w_up"].shape[0]), "capacities": caps,
+               "max_abs_err": worst, "clean_ratio": ratio,
+               "timing": moe_k1_timing(dev, shard, caps,
+                                       phase="tp_hybrid_k1_batched")}
+    free_memory()
+    emit("tp_hybrid_k1", m=m, shapes=out,
+         batched={k: v for k, v in batched.items() if k != "timing"})
+    return {"shapes": out, "batched": batched}
+
+
+def _hybrid_collective_ms(cfg, tp, dev) -> list:
+    """A jamba decode step's 26 collectives timed alone
+    (``_tp_collective_ms``): the (4, d) sums of the embedding, attention
+    ``wo``, the mixers' ``out_proj``, the dense ``down`` and the MoE
+    combines, and the mixers' (4, 1) sums of squares."""
+    from repro_torch.models.model import layer_tags
+
+    tags = layer_tags(cfg)
+    n_mix = sum(t.startswith("mamba") for t in tags)
+    n_sum = 1 + sum(t.startswith("attn") for t in tags) + n_mix + sum(
+        t.split(":")[1] in ("dense", "moe") for t in tags)
+    need(n_sum + n_mix + 2 == HYBRID_COLLECTIVES,
+         f"tp_hybrid: {n_sum + n_mix + 2} collectives timed")
+    return _tp_collective_ms(cfg, tp, n_sum, n_mix, dev)
+
+
+def _hybrid_audit(model, params, prompts, dev, mesh, rank):
+    """One TP=2 decode step walked on rank 0 by ``analysis.audit.
+    audit_served_step`` (every rank steps: the step's collectives need
+    them all): fraction 1.0, the engine's TP=2 plan bijective with the
+    executed sites, the K1/K3 records equal to rank 0's launch counters."""
+    from repro_torch.analysis.audit import audit_served_step
+
+    eng = _audit_engine(model, params, dev, mesh=mesh)
+    eng.admit(_audit_requests(prompts))
+    need(len(eng.active) == 4, f"tp_hybrid audit: {len(eng.active)} of 4")
+    if rank != 0:
+        eng.step()
+        return None
+    from repro_torch.kernels import abft_matmul, flash_attention
+
+    torch.cuda.synchronize()
+    abft_matmul.KERNEL.launches = abft_matmul.BATCHED.launches = 0
+    flash_attention.FULL_KERNEL.launches = flash_attention.KERNEL.launches = 0
+    t = time.perf_counter()
+    a = audit_served_step(eng, eng.step)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = _kernel_launches()
+    rec = a.to_json()
+    need(rec["protected_fraction"] == 1.0,
+         f"tp_hybrid audit: fraction {rec['protected_fraction']}")
+    need(a.crosscheck.bijective, f"tp_hybrid audit: {a.crosscheck.report()}")
+    need(rec["records"] == launches,
+         f"tp_hybrid audit: records {rec['records']} != launches {launches}")
+    return {"protected_fraction": rec["protected_fraction"],
+            "sites": len(a.crosscheck.matched), "bijective": True,
+            "records": rec["records"], "launches": launches,
+            "seconds": seconds}
+
+
+def tp_hybrid_rank(prompts, device_type: str = "cuda") -> dict:
+    """One rank of the ``tp_hybrid`` phase: jamba at published widths and
+    8 layers, only this rank's shard drawn (``init_params(mesh=)``, seed
+    0); rank 0 holds K1 at the shard shapes against its plain version
+    (``tp_hybrid_k1``); then served at ``mesh=2``: dense (its first logits
+    kept on rank 0), paged, an ``expert_up`` fault at decode step 2 and at
+    the second admission, an ``ssm_in`` fault on rank 1's columns, an
+    ``ssm_out`` fault, hard-fault eviction; each run's state digest; the
+    collectives timed alone; the rank-0 audit; the peak memory.  Every
+    record is checked equal across the ranks."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.mesh import build_mesh, rank_devices
+    from repro_torch.models.model import Model
+
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("tp_hybrid rank: no CUDA device")
+    cfg = ssm_config(HYBRID_ARCH)
+    model = Model(cfg)
+    mesh = build_mesh(model=TP_RANKS, data=1,
+                      devices=rank_devices(device_type))
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = model.init_params(0, dtype=torch.bfloat16, device=dev,
+                               mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    draw_peak = torch.cuda.max_memory_allocated()
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(params))
+    rank = mesh.model_rank
+    k1 = tp_hybrid_k1(dev, cfg, params) if rank == 0 else None
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    faults = _hybrid_faults(cfg)
+    recs, timings, states = {}, {}, {}
+
+    def run(label, **kw):
+        eng, rec, timing, cap = tp_serve(model, params, prompts, dev, label,
+                                         mesh=mesh, **kw)
+        collectives.check_same(rec, eng.executor.tp, label)
+        recs[label], timings[label] = rec, timing
+        states[label] = _state_digest(eng)
+        return eng, cap
+
+    routes = [] if rank == 0 else None
+    eng, cap = run("dense", capture=None, routes=routes)
+    ex = eng.executor
+    tp = ex.tp
+    out = {"rank": rank, "backend": tp.backend, "device": str(eng.device),
+           "sharded": sorted(tp.sharded), "moe_mode": ex.hints.moe_mode,
+           "plan": [{k: r[k] for k in ("layer", "m", "k", "n", "scheme")}
+                    for r in eng.plan.report_rows()]}
+    score = _hybrid_score(model, ex.params, dev, cfg, ex.hints, tp)
+    if rank == 0:
+        out["logits"] = {k: v.numpy() for k, v in cap.first.items()}
+        out["routes"], out["calls"], out["score"] = routes, cap.calls, score
+    del eng, cap, ex
+    run("paged", cache_kind="paged", capture=False)
+    run("fault_expert", fault_at=(2, faults["expert_up"]),
+        admit_fault_at=(1, faults["expert_up"]), capture=False)
+    run("fault_ssm_in", fault_at=(3, faults["ssm_in"]), capture=False)
+    run("fault_ssm_out", fault_at=(3, faults["ssm_out"]), capture=False)
+    run("hard_fault", fault_at=(1, faults["hard"]), max_retries=0,
+        capture=False)
+    out["collective_ms"] = _hybrid_collective_ms(cfg, tp, dev)
+    out["audit"] = _hybrid_audit(model, params, prompts, dev, mesh, rank)
+    out["records"], out["timings"], out["states"] = recs, timings, states
+    out["k1"] = k1
+    out["init_s"], out["weights_gb"] = init_s, weights / 1e9
+    out["draw_peak_gb"] = draw_peak / 1e9
+    out["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _hybrid_score(model, params, dev, cfg, hints=None, tp=None) -> dict:
+    """A 1 x ``HYBRID_SCORE_L`` ``Model.forward`` (flash off, the H100
+    plan; seeded tokens) with its routing logged: f32 logits and the
+    routing on the host.  On a mesh every rank runs it (its collectives)."""
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import IntensityGuidedPolicy
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.models.layers import LayerCtx
+
+    toks = np.random.default_rng(9).integers(
+        1, cfg.vocab_size, size=(1, HYBRID_SCORE_L))
+    ctx = LayerCtx(abft=ABFTConfig.from_policy(
+        IntensityGuidedPolicy(), hardware=NVIDIA_H100_SXM), hints=hints,
+        tp=tp)
+    routes = []
+    with torch.no_grad(), _route_log(routes):
+        logits = model.forward(params, {"tokens": toks}, ctx,
+                               device=dev.type).logits
+    return {"logits": logits[0].float().cpu().numpy(),
+            "routes": [ids for ids, _ in routes]}
+
+
+def _hybrid_vs_tp1(cfg, ref, ref_logits, ref_score, routes, calls, gaps, r0,
+                   dense) -> dict:
+    """TP=2 (rank 0) against the TP=1 twin.  The score: the per-position
+    logit error, the positions routed alike in every MoE layer and the
+    error before the first position routed apart (``_routing_diff``).
+    The engine runs: the first routing decision that differs (its entry,
+    model call and tokens, and TP=1's margin there between the k-th and
+    (k+1)-th expert's probability), and each stream that diverges: the
+    step, the call, TP=1's top-two logit gap there and whether the
+    divergence comes at or after the first routing flip."""
+    K = cfg.experts_per_token
+    s1, s2 = ref_score, r0["score"]
+    pos_err = torch.from_numpy(np.abs(s2["logits"] - s1["logits"]).max(-1))
+    score = _routing_diff([torch.from_numpy(r) for r in s2["routes"]],
+                          [torch.from_numpy(r) for r in s1["routes"]],
+                          pos_err, HYBRID_SCORE_L)
+    score["logit_scale"] = float(np.abs(s1["logits"]).max())
+    score["max_abs_err"] = float(pos_err.max())
+    flip = None
+    for i, ((ia, pa), (ib, pb)) in enumerate(zip(routes, r0["routes"])):
+        differ = (ia != ib).any(-1)
+        if bool(differ.any()):
+            top = -np.sort(-pa, axis=-1)
+            margin = (top[:, K - 1] - top[:, K])[differ]
+            call = max(c for c, (_, mark) in enumerate(calls) if mark <= i)
+            flip = {"entry": i, "call": call,
+                    "tokens": int(differ.sum()),
+                    "tp1_margin_max": float(margin.max()),
+                    "prob_diff_max": float(np.abs(pa - pb).max())}
+            break
+    first_call = {}
+    for c, (rows, _) in enumerate(calls):
+        for key in rows:
+            if key is not None:
+                first_call.setdefault(key, c)
+    diff = max(float(np.abs(r0["logits"][k] - ref_logits[k]).max())
+               for k in ("prefill", "decode"))
+    tp1, tp2 = ref["streams"], dense["streams"]
+    equal = [u for u in tp1 if tp1[u] == tp2[u]]
+    ties = {}
+    for u in tp1:
+        if u in equal:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(tp1[u], tp2[u])) if a != b)
+        c = first_call[(u, t)]
+        ties[u] = {"step": t, "call": c, "tp1_top2_gap": gaps[(u, t)],
+                   "after_routing_flip": flip is not None
+                   and c >= flip["call"]}
+    return {"score": score, "routing_flip": flip,
+            "routing_entries": len(routes),
+            "streams_equal_tp1": len(equal), "streams": len(tp1),
+            "divergent": ties,
+            "first_logits_max_diff_vs_tp1": diff,
+            "first_logits_scale": max(float(np.abs(v).max())
+                                      for v in ref_logits.values())}
+
+
+def _hybrid_gates(vs) -> None:
+    """The ``tp_hybrid`` gates against TP=1 (``_hybrid_vs_tp1``): the
+    score's logits within ``HYBRID_LOGIT_TOL`` of its scale wherever the
+    routing has not yet parted; the engine's first routing flip, if any, a
+    router near-tie (``HYBRID_ROUTER_TIE``); each divergent stream at or
+    after that flip, or where TP=1's top-two gap is below the score's
+    error before the flip (a logit near-tie)."""
+    sc = vs["score"]
+    before = sc["max_abs_err_before_it"]
+    need(sc["first_position_routed_apart"] > 0
+         and before <= HYBRID_LOGIT_TOL * sc["logit_scale"],
+         f"tp_hybrid: score logits off TP=1 by {before} before the first "
+         f"position routed apart ({sc})")
+    flip = vs["routing_flip"]
+    need(flip is None or flip["tp1_margin_max"] <= HYBRID_ROUTER_TIE,
+         f"tp_hybrid: the first routing flip is no router near-tie: {flip}")
+    for u, d in vs["divergent"].items():
+        need(d["after_routing_flip"] or d["tp1_top2_gap"] < before,
+             f"tp_hybrid: stream {u} diverges from TP=1 at step "
+             f"{d['step']} before any routing flip with a top-two gap "
+             f"{d['tp1_top2_gap']} >= {before}")
+
+
+def tp_hybrid_runs(dev) -> dict:
+    """The ``tp_hybrid`` phase: jamba-v0.1-52b at published widths and 8
+    layers served over two ranks sharing this card (gloo), each rank
+    drawing only its shard: against itself (records equal across the
+    ranks; dense = paged = faulted streams; every recovered run's state
+    bit-equal to the clean run's on each rank), against the one-process
+    twin run first here (evictions equal; the first prefill and decode
+    logits within ``HYBRID_LOGIT_TOL`` of its scale; a divergent stream
+    only where the twin's top-two gap is below the logit difference); K1
+    at the shard shapes against its plain version (rank 0); 26
+    collectives, 68 K1 (12 of them batched) and 1 K3 a decode step a
+    rank; the rank-0 audit.  Two ranks time-slicing one card over gloo:
+    the times are not a TP speed."""
+    from repro_torch.distributed import spawn
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg = ssm_config(HYBRID_ARCH)
+    model = Model(cfg)
+    free_memory()
+    params, prompts = engine_inputs(dev, cfg=cfg)
+    faults = _hybrid_faults(cfg)
+    routes = []
+    _, ref, ref_timing, cap = tp_serve(model, params, prompts, dev, "tp1",
+                                       capture=prompts, routes=routes)
+    ref_logits = {k: v.numpy() for k, v in cap.first.items()}
+    gaps, calls = cap.gaps, cap.calls
+    del cap
+    ref_score = _hybrid_score(model, params, dev, cfg)
+    _, hard, _, _ = tp_serve(model, params, prompts, dev, "tp1_hard",
+                             fault_at=(1, faults["hard"]), max_retries=0,
+                             capture=False)
+    emit("tp_hybrid_reference", tokens=ref["stats"]["tokens"],
+         decode_step_ms_median=float(np.median(ref_timing["step_ms"])),
+         k1_per_step=ref_timing["k1_per_step"],
+         k3_per_step=ref_timing["k3_per_step"],
+         evicted=sorted(hard["errors"]))
+    del params
+    free_memory()
+    t_spawn = time.perf_counter()
+    outs = spawn.run(tp_hybrid_rank, TP_RANKS, prompts, dev.type,
+                     device=dev.type)
+    spawn_s = time.perf_counter() - t_spawn
+    r0 = outs[0]
+    recs = r0["records"]
+    for o in outs[1:]:
+        need(o["records"] == recs, f"tp_hybrid: rank {o['rank']}'s records "
+             f"differ from rank 0's")
+    st = {k: v["stats"] for k, v in recs.items()}
+    for label, rec in recs.items():
+        if label != "hard_fault":
+            need(not rec["errors"], f"tp_hybrid {label}: {rec['errors']}")
+            need(all(len(s) == TP_NEW for s in rec["streams"].values()),
+                 f"tp_hybrid {label}: incomplete streams")
+            need(rec["streams"] == recs["dense"]["streams"],
+                 f"tp_hybrid: {label} streams differ from dense")
+    for label in ("fault_expert", "fault_ssm_in", "fault_ssm_out"):
+        need(st[label]["faults_detected"] >= (2 if label == "fault_expert"
+                                              else 1)
+             and st[label]["hard_faults"] == 0,
+             f"tp_hybrid {label}: {st[label]}")
+    need(st["hard_fault"]["hard_faults"] >= 1, "tp_hybrid: no hard fault")
+    evicted = sorted(int(u) for u in recs["hard_fault"]["errors"])
+    need(evicted == sorted(int(u) for u in hard["errors"]),
+         f"tp_hybrid: evicted {evicted} != TP=1's {sorted(hard['errors'])}")
+    for o in outs:
+        s = o["states"]
+        for label in ("paged", "fault_expert", "fault_ssm_in",
+                      "fault_ssm_out"):
+            need(s[label] == s["dense"], f"tp_hybrid rank {o['rank']}: "
+                 f"{label} state differs from the clean run's")
+        t = o["timings"]["dense"]
+        need(t["collectives_per_step"] == [HYBRID_COLLECTIVES],
+             f"tp_hybrid rank {o['rank']}: collectives a step "
+             f"{t['collectives_per_step']}")
+        need(t["k1_per_step"] == ref_timing["k1_per_step"] == [68]
+             and t["k1b_per_step"] == [12] and t["k3_per_step"] == [1],
+             f"tp_hybrid rank {o['rank']}: K1/K1 batched/K3 a step "
+             f"{t['k1_per_step']}/{t['k1b_per_step']}/{t['k3_per_step']}")
+        for label, tl in o["timings"].items():
+            need(tl["launches"]["abft_matmul"] > 0,
+                 f"tp_hybrid {label}: no K1")
+    # against TP=1
+    vs = _hybrid_vs_tp1(cfg, ref, ref_logits, ref_score, routes, calls, gaps,
+                        r0, recs["dense"])
+    t = r0["timings"]["dense"]
+    res = {"arch": HYBRID_ARCH, "layers": cfg.n_layers, "ranks": TP_RANKS,
+           "backend": r0["backend"], "moe_mode": r0["moe_mode"],
+           "devices": [o["device"] for o in outs],
+           "weights_gb_per_rank": [o["weights_gb"] for o in outs],
+           "init_s_per_rank": [o["init_s"] for o in outs],
+           "draw_peak_gb_per_rank": [o["draw_peak_gb"] for o in outs],
+           "serve_peak_gb_per_rank": [o["serve_peak_gb"] for o in outs],
+           **vs, "evicted": evicted,
+           "k1_per_step": t["k1_per_step"],
+           "k1_batched_per_step": t["k1b_per_step"],
+           "k3_per_step": t["k3_per_step"],
+           "collectives_per_step": t["collectives_per_step"][0],
+           "decode_step_ms_median": float(np.median(t["step_ms"])),
+           "collectives_alone_ms_per_step_median": float(
+               np.median(r0["collective_ms"])),
+           "tp1_decode_step_ms_median": float(
+               np.median(ref_timing["step_ms"])),
+           "launches": {k: v["launches"] for k, v in r0["timings"].items()},
+           "stats": {k: {f: v[f] for f in (
+               "tokens", "faults_detected", "retries", "hard_faults",
+               "evictions")} for k, v in st.items()},
+           "audit": r0["audit"], "k1": r0["k1"], "spawn_seconds": spawn_s,
+           "seconds": time.perf_counter() - t0,
+           "note": "two ranks time-sharing one card over gloo: a "
+                   "correctness run, not a tensor-parallel speed"}
+    emit("tp_hybrid", **res)
+    _hybrid_gates(vs)
+    return res
+
+
+def _add_tp_hybrid(kernels, hy) -> None:
+    """The ``tp_hybrid`` phase's numbers on the kernels line: K1 at
+    jamba's TP=2 shard shapes (2-D and batched over 8 experts), and
+    K1/K3 launches a decode step a rank."""
+    k1, k3 = kernels[0], kernels[2]
+    k1["tp2_jamba_m4"] = {name: {key: rec[key] for key in (
+        "k", "n", "out", "gemms", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "max_abs_err")}
+        for name, rec in hy["k1"]["shapes"].items()}
+    k1["tp2_jamba_batched"] = hy["k1"]["batched"]["timing"]
+    k1["tp_hybrid_launches_per_step"] = hy["k1_per_step"]
+    k3["tp_hybrid_launches_per_step"] = hy["k3_per_step"]
 
 
 def k1_max_err(dev, params) -> float:
@@ -6683,6 +7227,12 @@ def main(argv=None) -> int:
         tp = tp_runs(dev)
         if kernels is not None:
             _add_tp(kernels, tp)
+    if "tp_hybrid" in phases:
+        tp = None
+        free_memory()
+        hy = tp_hybrid_runs(dev)
+        if kernels is not None:
+            _add_tp_hybrid(kernels, hy)
     for line in smi:
         print(line)
     if kernels is not None:

@@ -505,3 +505,38 @@ def audit_config(name: str, phase: str = "mixed", **kw) -> AuditReport:
 
     cfg = scaled_down(get_config(resolve_arch(name)))
     return audit_model(Model(cfg), phase=phase, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServedStepAudit:
+    """One served engine call walked: its coverage, the engine's own plan
+    (the per-shard plan under ``model_parallel``) crosschecked against the
+    sites the call executed, and each fused kernel's records."""
+
+    model: str
+    model_parallel: int
+    coverage: PhaseCoverage
+    crosscheck: CrossCheckResult
+    records: dict
+
+    def to_json(self) -> dict:
+        return {"model": self.model, "model_parallel": self.model_parallel,
+                "protected_fraction": self.coverage.protected_fraction,
+                "coverage": self.coverage.to_json(),
+                "crosscheck": self.crosscheck.to_json(),
+                "records": self.records}
+
+
+def audit_served_step(engine, fn, phase: str = "decode") -> ServedStepAudit:
+    """Walk ``fn()`` (an engine's ``step``, or an ``admit``) on ``engine``
+    and audit it against ``engine.plan``.  On a mesh rank this is the
+    rank's own step: its shard's GEMMs under the TP=k plan (every rank
+    must step alike, since the step's collectives need them all)."""
+    with torch.no_grad():
+        ops = flop_ops(fn, entry=phase)
+    cfg = engine.model.cfg
+    return ServedStepAudit(
+        model=cfg.name, model_parallel=engine.model_parallel,
+        coverage=PhaseCoverage(phase=phase, ops=classify(ops)),
+        crosscheck=crosscheck_plan(engine.plan, ops, model=cfg.name),
+        records=kernel_records(ops))

@@ -117,7 +117,8 @@ _BLOCK_MODES = {"block_1s": "1s", "block_2s": "2s", "replica": "replica"}
 def protected_matmul_batched(x, w, cfg: ABFTConfig = ABFTConfig(), *,
                              out_dtype=None, fault: FaultSpec | None = None,
                              site: str = "unlabeled",
-                             split_rows: int | None = None):
+                             split_rows: int | None = None,
+                             select_dtype=None):
     """``protected_matmul`` of E expert GEMMs x (E, C, k) @ w (E, k, n) in
     one call: the reference's ``jax.vmap`` of it over an MoE layer's
     experts.  The scheme is the one the policy picks for one expert's
@@ -127,10 +128,12 @@ def protected_matmul_batched(x, w, cfg: ABFTConfig = ABFTConfig(), *,
     against each expert's weight checksums.  The fault is not batched: it
     lands in every expert.  Schemes registered beyond the built-in ones
     have no batched executor and raise.  ``split_rows``: K1's
-    (``ops.abft_matmul_batched``).  Returns (y (E, C, n), flag: any
-    expert's)."""
+    (``ops.abft_matmul_batched``).  ``select_dtype``: as
+    ``protected_matmul``'s (a row-parallel expert FFN's f32 partial keeps
+    the site's selection).  Returns (y (E, C, n), flag: any expert's)."""
     out_dtype = out_dtype or x.dtype
-    name = scheme_name_of(cfg.resolve(_gemm_dims(x[0], w[0], out_dtype)))
+    name = scheme_name_of(cfg.resolve(_gemm_dims(
+        x[0], w[0], select_dtype or out_dtype)))
     with protection_scope(name, site):
         return _batched(x, w, cfg, name, out_dtype, fault, split_rows)
 

@@ -4,7 +4,9 @@ port places data explicitly, so each layer calls one of these where the
 reference's compiled program would reduce or gather:
 
 - ``all_reduce_sum``: the f32 partials of a row-parallel GEMM (``wo``,
-  ``down``) and the masked embedding lookups;
+  ``down``, ``out_proj``, a sliced expert FFN's ``w_down``), an
+  expert-parallel MoE combine, the masked embedding lookups and a Mamba2
+  gated norm's sums of squares;
 - ``gather_last``: a dim sharded over the model axis made whole (the
   vocab-sharded logits; k/v projections whose kv head is split);
 - ``or_flag``: the ABFT flag of a model call, so every rank takes the
@@ -43,8 +45,11 @@ def reset_counts() -> None:
 class TPGroup:
     """This rank's place on the model axis: its index ``rank`` of
     ``size``, the process ``group`` (None: the default group), the
-    backend, and ``sharded``, the names of the param leaves the sharding
-    rules split over the axis (a replicated leaf is computed whole)."""
+    backend, and ``sharded``, the param leaves the sharding rules split
+    over the axis, each by its path below its layer's dict
+    (``"mixer/wq"``, ``"ffn/shared/up"``) or, outside the layers, by its
+    top-level name (``"embed"``, ``"lm_head"``).  A replicated leaf is
+    computed whole."""
 
     rank: int
     size: int
@@ -52,8 +57,8 @@ class TPGroup:
     backend: str = "gloo"
     sharded: frozenset = frozenset()
 
-    def splits(self, leaf: str) -> bool:
-        return self.size > 1 and leaf in self.sharded
+    def splits(self, path: str) -> bool:
+        return self.size > 1 and path in self.sharded
 
 
 def _active(tp) -> bool:

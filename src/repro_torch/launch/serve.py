@@ -48,8 +48,12 @@ accepted drafts, acceptance rate, verify retries).
 ``--mesh N`` serves with tensor parallelism over N ranks
 (``distributed/spawn.py``: one process a rank, gloo where ranks share a
 device or run on the CPU, NCCL where each has a GPU of its own), each
-holding its shard of the weights (made from the same ``--seed``) and of
-the KV cache; a GQA stack with dense FFNs only.  Rank 0 prints the stats
+drawing only its shard of the weights (the same ``--seed``'s numbers) and
+holding its shard of the KV cache or per-slot state: GQA and Mamba2
+stacks with dense, MoE or no FFNs (the dense family, qwen2-moe-a2.7b,
+mamba2-1.3b, jamba-v0.1-52b); the MLA, encoder-decoder and vision stacks
+exit with the ``NotImplementedError`` message (ROADMAP A.3b-ii) before
+any rank starts.  Rank 0 prints the stats
 line, with the per-shard plan (``shard_plan``), the backend and the ranks
 a device, and writes every artifact; the heartbeat monitor tracks one
 worker a rank.  ``--mesh 1`` runs the mesh executor in this process.
@@ -253,7 +257,16 @@ def serve(args, emit: bool = False) -> dict:
         raise SystemExit(f"error: {e}")
     device = resolve_device(args.device)
     dtype = _DTYPES[args.dtype]
-    params = model.init_params(args.seed, dtype=dtype, device=device)
+    mesh, shard = args.mesh, None
+    if mesh is not None and mesh > 1:
+        # each rank draws its own shard alone (``init_params(mesh=)``)
+        from repro_torch.distributed.mesh import build_mesh, rank_devices
+
+        mesh = shard = build_mesh(model=mesh, data=1,
+                                  devices=rank_devices(device.type))
+        device = mesh.device
+    params = model.init_params(args.seed, dtype=dtype, device=device,
+                               mesh=shard)
     if args.abft == "off":
         abft = ABFTConfig(enabled=False,
                           flash_attention=args.flash_attention)
@@ -300,7 +313,7 @@ def serve(args, emit: bool = False) -> dict:
             policy=RecoveryPolicy(
                 max_retries=args.max_retries,
                 evict_on_hard_fault=not args.raise_on_hard_fault),
-            mesh=args.mesh)
+            mesh=mesh)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(f"error: {e}")
     heartbeats = None

@@ -77,11 +77,11 @@ def _qkv(x, p, cfg: ModelConfig, ctx: LayerCtx, positions):
     B, L, _ = x.shape
     hd = cfg.resolved_head_dim
     q, f1 = dense(x, p["wq"], ctx, "qkv", b=p.get("bq"), tag="attn.q",
-                  par=tp_par(ctx, "wq", "col"))
+                  par=tp_par(ctx, "mixer/wq", "col"))
     k, f2 = dense(x, p["wk"], ctx, "qkv", b=p.get("bk"), tag="attn.k",
-                  par=tp_par(ctx, "wk", "col"))
+                  par=tp_par(ctx, "mixer/wk", "col"))
     v, f3 = dense(x, p["wv"], ctx, "qkv", b=p.get("bv"), tag="attn.v",
-                  par=tp_par(ctx, "wv", "col"))
+                  par=tp_par(ctx, "mixer/wv", "col"))
     if k.shape[-1] % hd:
         # a kv head split over the ranks: make every kv head whole
         k, v = gather_last(k, ctx.tp), gather_last(v, ctx.tp)
@@ -124,7 +124,7 @@ def _out(out, p, ctx: LayerCtx):
     under tensor parallelism."""
     B, L = out.shape[:2]
     return dense(out.reshape(B, L, -1), p["wo"], ctx, "attn_out",
-                 tag="attn.o", par=tp_par(ctx, "wo", "row"))
+                 tag="attn.o", par=tp_par(ctx, "mixer/wo", "row"))
 
 
 def _attend_full(q, k, v, ctx: LayerCtx, causal: bool):

@@ -7,12 +7,15 @@ on the host once per engine step.
 
 Tensor parallelism (``LayerCtx.tp``, the rank's ``TPGroup``): a GEMM
 whose weight the sharding rules split on its output dim (``wq``/``wk``/
-``wv``, ``up``/``gate``, the head) is column-parallel, each rank computing
-its columns; one split on its input dim (``wo``, ``down``) is
-row-parallel: each rank computes its partial product in f32, the partials
-are summed over the model axis in f32 and rounded to the site's dtype
-once, after the sum, so the output rounds once as the unsharded GEMM's
-does.  A leaf the rules replicate is computed whole on every rank.
+``wv``, ``up``/``gate``, ``in_z``/``in_x``/``in_dt``, a sliced expert
+FFN's ``w_up``/``w_gate``, the head) is column-parallel, each rank
+computing its columns; one split on its input dim (``wo``, ``down``,
+``out_proj``, a sliced ``w_down``) is row-parallel: each rank computes its
+partial product in f32, the partials are summed over the model axis in
+f32 and rounded to the site's dtype once, after the sum, so the output
+rounds once as the unsharded GEMM's does.  A leaf the rules replicate is
+computed whole on every rank.  Whether a leaf is split is looked up by
+its path below the layer (``tp_par``).
 """
 
 from __future__ import annotations
@@ -108,10 +111,22 @@ def _site_fault(ctx: LayerCtx, site: str) -> FaultSpec | None:
     return None
 
 
-def tp_par(ctx: LayerCtx, leaf: str, kind: str) -> str | None:
+def tp_par(ctx: LayerCtx, path: str, kind: str) -> str | None:
     """``kind`` ("col" or "row") when the rank's params hold a shard of
-    the leaf named ``leaf``, else None (unsharded, or replicated)."""
-    return kind if ctx.tp is not None and ctx.tp.splits(leaf) else None
+    the leaf at ``path`` below its layer (``"mixer/wq"``,
+    ``"ffn/shared/down"``; ``TPGroup.sharded``), else None (unsharded, or
+    replicated)."""
+    return kind if ctx.tp is not None and ctx.tp.splits(path) else None
+
+
+def _col_fault(fault, ctx: LayerCtx, n: int):
+    """A column-parallel site's fault on this rank: its logical column
+    moved to the rank's local one where the rank owns it (``n`` columns
+    from ``rank * n``), else None."""
+    lo = ctx.tp.rank * n
+    if fault is None or not lo <= fault.col < lo + n:
+        return None
+    return fault._replace(col=fault.col - lo)
 
 
 def dense(x, w, ctx: LayerCtx, site: str, b=None, out_dtype=None,
@@ -134,12 +149,9 @@ def dense(x, w, ctx: LayerCtx, site: str, b=None, out_dtype=None,
         y, chk = protected_matmul(x, w, ctx.abft, out_dtype=out_dtype,
                                   fault=fault, site=site)
     elif par == "col":
-        n, lo = w.shape[-1], ctx.tp.rank * w.shape[-1]
-        if fault is not None:
-            fault = (fault._replace(col=fault.col - lo)
-                     if lo <= fault.col < lo + n else None)
         y, chk = protected_matmul(x, w, ctx.abft, out_dtype=out_dtype,
-                                  fault=fault, site=site)
+                                  fault=_col_fault(fault, ctx, w.shape[-1]),
+                                  site=site)
     elif par == "row":
         if ctx.tp.rank != 0:
             fault = None
@@ -155,15 +167,34 @@ def dense(x, w, ctx: LayerCtx, site: str, b=None, out_dtype=None,
 
 
 def batched_dense(x_e, w_e, ctx: LayerCtx, site: str,
-                  tag: str | None = None, split_rows: int | None = None):
+                  tag: str | None = None, split_rows: int | None = None,
+                  par: str | None = None):
     """Per-expert protected GEMMs x_e (E, C, D) @ w_e (E, D, F) in one
     call (the reference's ``moe._batched_dense``, a ``jax.vmap`` of
     ``dense``): the scheme of one expert's GEMM, the site's fault in
     every expert; ``split_rows`` K1's (``ops.abft_matmul_batched``).
-    Returns (y (E, C, F), flag: any expert's)."""
-    return protected_matmul_batched(x_e, w_e, ctx.abft,
-                                    fault=_site_fault(ctx, site),
-                                    site=tag or site, split_rows=split_rows)
+    ``par`` as ``dense``'s, over each expert's F: "col", ``w_e`` holds
+    this rank's columns of every expert (the fault's column mapped to the
+    owning rank's); "row", its rows, the (E, C, F) f32 partials summed
+    over the model axis and rounded once, the scheme selected at x's
+    dtype, the fault on rank 0's partial only.  Returns (y (E, C, F),
+    flag: any expert's)."""
+    fault = _site_fault(ctx, site)
+    site = tag or site
+    if par is None:
+        return protected_matmul_batched(x_e, w_e, ctx.abft, fault=fault,
+                                        site=site, split_rows=split_rows)
+    if par == "col":
+        return protected_matmul_batched(
+            x_e, w_e, ctx.abft, fault=_col_fault(fault, ctx, w_e.shape[-1]),
+            site=site, split_rows=split_rows)
+    if par != "row":
+        raise ValueError(f"par must be 'col', 'row' or None, got {par!r}")
+    y, flag = protected_matmul_batched(
+        x_e, w_e, ctx.abft, out_dtype=F32, select_dtype=x_e.dtype,
+        fault=fault if ctx.tp.rank == 0 else None, site=site,
+        split_rows=split_rows)
+    return all_reduce_sum(y, ctx.tp).to(x_e.dtype), flag
 
 
 def or_flags(*flags):
@@ -194,11 +225,21 @@ def norm(x, p, kind: str, eps: float):
     return rms_norm(x, p["w"], eps)
 
 
-def gated_rms_norm(x, z, w, eps: float = 1e-6):
+def gated_rms_norm(x, z, w, eps: float = 1e-6, tp: TPGroup | None = None):
     """Mamba2's output norm: ``rms_norm(x * silu(z))``, the gate taken in
-    f32 and cast to x's dtype before the product."""
+    f32 and cast to x's dtype before the product.  ``tp``: x, z and w hold
+    this rank's slice of ``d_inner`` (its heads); the mean of squares is
+    over the whole width, the f32 sum of squares of each rank's slice
+    summed over the model axis (one collective) and divided by the full
+    width."""
     gate = torch.nn.functional.silu(z.to(F32)).to(x.dtype)
-    return rms_norm(x * gate, w, eps)
+    h = x * gate
+    if tp is None or tp.size == 1:
+        return rms_norm(h, w, eps)
+    hf = h.to(F32)
+    ss = all_reduce_sum((hf * hf).sum(dim=-1, keepdim=True), tp)
+    var = ss / (h.shape[-1] * tp.size)
+    return (hf * torch.rsqrt(var + eps)).to(h.dtype) * w.to(h.dtype)
 
 
 # ---------------------------------------------------------------- rope
@@ -443,13 +484,16 @@ def per_step(fn, x, *args, **kw):
 # ---------------------------------------------------------------- mlp
 
 def mlp(x, p, ctx: LayerCtx, act: str = "silu",
-        tags: tuple = ("mlp.up", "mlp.down")):
+        tags: tuple = ("mlp.up", "mlp.down"), path: str = "ffn"):
     """SwiGLU (``silu``) or plain GELU MLP; its GEMMs are ABFT-protected.
     The GELU branch (whisper) is ``up`` with its bias ``up_b``, GELU in
     f32 cast back to x's dtype, then ``down`` with ``down_b``; its GELU is
-    the tanh approximation, ``jax.nn.gelu``'s default."""
+    the tanh approximation, ``jax.nn.gelu``'s default.  ``path``: where
+    ``p`` sits below its layer (``"ffn"``, or ``"ffn/shared"`` for an MoE
+    layer's shared experts), which ``tp_par`` reads."""
     up_tag, down_tag = tags
-    col, row = tp_par(ctx, "up", "col"), tp_par(ctx, "down", "row")
+    col = tp_par(ctx, f"{path}/up", "col")
+    row = tp_par(ctx, f"{path}/down", "row")
     if act == "silu":
         up, f1 = dense(x, p["up"], ctx, "mlp_up", tag=up_tag, par=col)
         gate, f2 = dense(x, p["gate"], ctx, "mlp_up", tag=up_tag, par=col)

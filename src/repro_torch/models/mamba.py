@@ -15,6 +15,16 @@ with it the size of every intermediate, is fixed: at jamba's widths the
 worst order torch could pick would materialise a (B, c, Q, S, H, P)
 product of gigabytes.
 
+Under tensor parallelism (``LayerCtx.tp``) the rank runs its heads:
+``in_z``, ``in_x`` and ``in_dt`` column-parallel, ``in_bc`` (one group's
+B and C) replicated, the conv, the SSD scan and the decode recurrence on
+the rank's channels and heads alone, the gated norm's mean of squares
+over the whole ``d_inner`` (``layers.gated_rms_norm(tp=)``) and
+``out_proj`` row-parallel.  Head and channel counts are read off the
+shard's leaves (``A_log``, ``in_x``), never ``cfg.ssm_heads``/
+``cfg.d_inner``; the cache's ``conv_x`` and ``ssm`` leaves hold the
+rank's channels and heads (``sharding.cache_specs``).
+
 Decode carries a constant-size state a slot: the conv windows ``conv_x``
 (B, W-1, d_inner) and ``conv_bc`` (B, W-1, 2N) in the cache dtype and the
 SSD state ``ssm`` (B, H, P, N) in f32.  Prefill overwrites its slots' state
@@ -31,7 +41,13 @@ import torch.nn.functional as F
 
 from repro_torch.analysis.markers import coverage_scope
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import LayerCtx, dense, gated_rms_norm, or_flags
+from repro_torch.models.layers import (
+    LayerCtx,
+    dense,
+    gated_rms_norm,
+    or_flags,
+    tp_par,
+)
 
 F32 = torch.float32
 # leaves kept in f32 whatever the model's dtype, as the reference keeps them
@@ -66,10 +82,13 @@ def init_mamba(cfg: ModelConfig, w, vec) -> dict:
 def _project_in(x, p, cfg: ModelConfig, ctx: LayerCtx):
     """The four input projections; returns (z, xs, Bm, Cm, dt, flag)."""
     n = cfg.ssm_state
-    z, f1 = dense(x, p["in_z"], ctx, "ssm_in", tag="ssm.in_z")
-    xs, f2 = dense(x, p["in_x"], ctx, "ssm_in", tag="ssm.in_x")
+    z, f1 = dense(x, p["in_z"], ctx, "ssm_in", tag="ssm.in_z",
+                  par=tp_par(ctx, "mixer/in_z", "col"))
+    xs, f2 = dense(x, p["in_x"], ctx, "ssm_in", tag="ssm.in_x",
+                   par=tp_par(ctx, "mixer/in_x", "col"))
     bc, f3 = dense(x, p["in_bc"], ctx, "ssm_in", tag="ssm.in_bc")
-    dt, f4 = dense(x, p["in_dt"], ctx, "ssm_in", tag="ssm.in_dt")
+    dt, f4 = dense(x, p["in_dt"], ctx, "ssm_in", tag="ssm.in_dt",
+                   par=tp_par(ctx, "mixer/in_dt", "col"))
     return z, xs, bc[..., :n], bc[..., n:], dt, or_flags(f1, f2, f3, f4)
 
 
@@ -149,9 +168,11 @@ def _ssd_scan(xh, dt, A, Bm, Cm, chunk: int):
 def _mix_out(y, xh, z, x, p, cfg: ModelConfig, ctx: LayerCtx):
     """Skip term ``D * x``, the gated norm and the output projection."""
     y = y + p["D"][:, None] * xh.to(F32)
-    y = y.reshape(*x.shape[:-1], cfg.d_inner).to(x.dtype)
-    y = gated_rms_norm(y, z, p["out_norm"], cfg.norm_eps)
-    return dense(y, p["out_proj"], ctx, "ssm_out", tag="ssm.out")
+    y = y.reshape(*x.shape[:-1], p["out_norm"].shape[0]).to(x.dtype)
+    row = tp_par(ctx, "mixer/out_proj", "row")
+    y = gated_rms_norm(y, z, p["out_norm"], cfg.norm_eps,
+                       tp=ctx.tp if row is not None else None)
+    return dense(y, p["out_proj"], ctx, "ssm_out", tag="ssm.out", par=row)
 
 
 def _ssm_inputs(xs, bc_in, dt, p, cfg: ModelConfig, valid=None):
@@ -165,7 +186,7 @@ def _ssm_inputs(xs, bc_in, dt, p, cfg: ModelConfig, valid=None):
         dt = dt * valid.to(F32)[..., None]
     A = -torch.exp(p["A_log"])
     Bsz, L = xs.shape[:2]
-    xh = xs.reshape(Bsz, L, cfg.ssm_heads, cfg.ssm_head_dim)
+    xh = xs.reshape(Bsz, L, p["A_log"].shape[0], -1)
     return xh, bc[..., :n], bc[..., n:], dt, A
 
 
@@ -239,7 +260,7 @@ def mamba_decode(x, p, cfg: ModelConfig, ctx: LayerCtx, cache):
     new tensors (the cache's dtypes), the cache left as it was.  The dense
     and the paged engines run it alike."""
     Bsz = x.shape[0]
-    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    H, N = p["A_log"].shape[0], cfg.ssm_state
     z, xs, Bm, Cm, dt, f1 = _project_in(x, p, cfg, ctx)
     xs2, conv_x = _conv_step(cache["conv_x"], xs[:, 0], p["conv_x_w"],
                              p["conv_x_b"])
@@ -249,7 +270,7 @@ def mamba_decode(x, p, cfg: ModelConfig, ctx: LayerCtx, cache):
     Bm2, Cm2 = bc2[:, :N], bc2[:, N:]
     dt2 = F.softplus(dt[:, 0].to(F32) + p["dt_bias"])       # (B, H)
     dA = torch.exp(dt2 * -torch.exp(p["A_log"]))
-    xh = xs2.reshape(Bsz, H, P)
+    xh = xs2.reshape(Bsz, H, -1)
     # S' = S dA + (dt x) outer B;  y = S' C: the decode recurrence, a
     # ``flops[ssm_scan]`` region
     with coverage_scope("ssm_scan"):

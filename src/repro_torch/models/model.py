@@ -23,7 +23,9 @@ keeps one dict of tensors per layer and runs the stack as a Python loop.
 tree (converted to numpy) into the port's layout, segment by segment.
 
 Tensor parallelism: ``Model.shard_params`` slices a full tree into one
-rank's shard by ``distributed.sharding.param_specs``.  The embedding is
+rank's shard by ``distributed.sharding.param_specs``, and
+``Model.init_params(mesh=)`` draws the same shard leaf by leaf without
+ever holding the whole tree.  The embedding is
 vocab-sharded (``embed: P("model", d)``): a lookup is a masked local
 lookup, zero where another rank owns the token, summed over the model
 axis (exact: x + 0 = x); the head is column-parallel over the vocab, its
@@ -274,6 +276,44 @@ def cell_leaves(layer: dict) -> list:
     return [t for k, t in layer.items() if k != "cross"]
 
 
+def _cut(t, index):
+    """``t[index]`` in storage of its own: a slice along the leading dim is
+    a contiguous view that would keep the whole leaf alive; an index that
+    takes all of ``t`` gives ``t``."""
+    part = t[index]
+    if part.numel() == t.numel():
+        return t
+    return part.clone(memory_format=torch.contiguous_format)
+
+
+class _Leaf:
+    """One leaf of ``Model._param_tree``: a weight drawn N(0, ``scale``)
+    in f32 and cast to the init dtype, or (``scale`` None) a constant
+    ``fill``; ``dtype`` None is the init dtype."""
+
+    __slots__ = ("shape", "scale", "fill", "dtype")
+
+    def __init__(self, shape, scale=None, fill=0.0, dtype=None):
+        self.shape, self.scale = tuple(shape), scale
+        self.fill, self.dtype = fill, dtype
+
+    def make(self, gen, dtype, device):
+        dtype = self.dtype or dtype
+        shape = self.shape
+        if self.scale is None:
+            return torch.full(shape, self.fill, dtype=dtype, device=device)
+        if math.prod(shape) <= 1 << 30:
+            return torch.randn(shape, generator=gen, dtype=F32,
+                               device=device).mul_(self.scale).to(dtype)
+        out = torch.empty(shape, dtype=dtype, device=device)
+        step = max(1, (1 << 30) // math.prod(shape[1:]))
+        for i in range(0, shape[0], step):
+            rows = (min(step, shape[0] - i),) + shape[1:]
+            out[i:i + step] = self.scale * torch.randn(
+                rows, generator=gen, dtype=F32, device=device)
+        return out
+
+
 class ForwardOut(NamedTuple):
     logits: torch.Tensor
     flag: torch.Tensor
@@ -306,7 +346,7 @@ class Model:
 
     # -------------------------------------------------- init
     def init_params(self, seed: int = 0, dtype=torch.bfloat16,
-                    device="cpu") -> dict:
+                    device="cpu", mesh=None) -> dict:
         """Seeded N(0, 0.02) weights (the reference's init law; a torch
         generator, so not the reference's numbers), unit norm, q/k norm
         and latent norm gains, zero LayerNorm shifts and QKV biases; a
@@ -323,24 +363,55 @@ class Model:
         biases); the vision model its ``vision_proj`` (vision_dim, d).  A
         weight of more than ``2**30`` elements (deepseek-v3's expert
         stacks) is drawn in slices of its leading axis, so its f32 draw
-        never needs 4 bytes an element beside the model."""
-        cfg = self.cfg
+        never needs 4 bytes an element beside the model.
+
+        ``mesh`` (a port ``Mesh``): this process's shard only, equal bit
+        for bit to ``shard_params(init_params(seed), mesh)``.  Each leaf
+        is drawn whole on ``device``, in the same order from the same
+        generator, its rank's part copied out (``_cut``) and the rest
+        freed before the next leaf, so no more than one full leaf is ever
+        resident beside the shard."""
+        from repro_torch.distributed.sharding import (
+            map_with_path,
+            param_specs,
+            shard_slices,
+        )
+
+        tree = self._param_tree()
         gen = torch.Generator(device=device).manual_seed(int(seed))
+        if mesh is not None:
+            specs, coords = {}, mesh.coords()
+            map_with_path(lambda ps, sp: specs.__setitem__(ps, sp),
+                          param_specs(self.cfg, tree, mesh))
+
+        def make(ps, leaf):
+            t = leaf.make(gen, dtype, device)
+            if mesh is None:
+                return t
+            return _cut(t, shard_slices(specs[ps], t.shape, mesh, coords))
+
+        return map_with_path(make, tree)
+
+    def param_shapes(self, dtype=torch.bfloat16) -> dict:
+        """``init_params``' tree as tensors on the meta device (shapes and
+        dtypes, no data)."""
+        from repro_torch.distributed.sharding import map_with_path
+
+        return map_with_path(
+            lambda _, leaf: torch.empty(leaf.shape, dtype=leaf.dtype or dtype,
+                                        device="meta"), self._param_tree())
+
+    def _param_tree(self) -> dict:
+        """``init_params``' tree with a ``_Leaf`` (what to draw or fill) at
+        each leaf, in the order the weights are drawn: a tree walk meets
+        the weights in the order of the calls that built it."""
+        cfg = self.cfg
 
         def w(*shape, scale=0.02):
-            if math.prod(shape) <= 1 << 30:
-                return (scale * torch.randn(shape, generator=gen, dtype=F32,
-                                            device=device)).to(dtype)
-            out = torch.empty(shape, dtype=dtype, device=device)
-            step = max(1, (1 << 30) // math.prod(shape[1:]))
-            for i in range(0, shape[0], step):
-                rows = (min(step, shape[0] - i),) + shape[1:]
-                out[i:i + step] = scale * torch.randn(
-                    rows, generator=gen, dtype=F32, device=device)
-            return out
+            return _Leaf(shape, scale=scale)
 
-        def vec(n, fill, dtype=dtype):
-            return torch.full((n,), fill, dtype=dtype, device=device)
+        def vec(n, fill, dtype=None):
+            return _Leaf((n,), fill=fill, dtype=dtype)
 
         def norm_p():
             p = {"w": vec(cfg.d_model, 1.0)}
@@ -366,7 +437,7 @@ class Model:
             if cross == "1":
                 lp["cross"] = attn.init_cross(cfg, w)
                 lp["cross_norm"] = norm_p()
-                lp["cross_gate"] = torch.zeros((), dtype=F32, device=device)
+                lp["cross_gate"] = _Leaf((), fill=0.0, dtype=F32)
             if ffn != "none":
                 lp["ffn_norm"] = norm_p()
                 lp["ffn"] = (moe_mod.init_moe(cfg, w) if ffn == "moe"
@@ -652,21 +723,36 @@ class Model:
         return all_reduce_sum(x, ctx.tp).to(emb.dtype)
 
     def shard_params(self, params, mesh) -> dict:
-        """One rank's shard of a full params tree: every leaf sliced by
-        ``param_specs`` at this process's mesh position, contiguous."""
+        """One rank's shard of a params tree: every leaf sliced by
+        ``param_specs`` (of ``init_params``' full shapes) at this process's
+        mesh position, in storage of its own (``_cut``).  A leaf already
+        at its shard's shape (a tree from ``init_params(mesh=)``) is kept
+        as it is; any other shape raises ``ValueError``."""
         from repro_torch.distributed.sharding import (
             map_with_path,
             param_specs,
+            shard_shape,
             shard_slices,
         )
 
-        specs = param_specs(self.cfg, params, mesh)
+        tree = self._param_tree()
         coords = mesh.coords()
-        flat = {}
-        map_with_path(lambda ps, s: flat.__setitem__(ps, s), specs)
-        return map_with_path(
-            lambda ps, t: t[shard_slices(flat[ps], t.shape, mesh,
-                                         coords)].contiguous(), params)
+        flat, full = {}, {}
+        map_with_path(lambda ps, s: flat.__setitem__(ps, s),
+                      param_specs(self.cfg, tree, mesh))
+        map_with_path(lambda ps, leaf: full.__setitem__(ps, leaf.shape),
+                      tree)
+
+        def one(ps, t):
+            shape = tuple(t.shape)
+            if shape == full[ps]:
+                return _cut(t, shard_slices(flat[ps], shape, mesh, coords))
+            if shape == shard_shape(flat[ps], full[ps], mesh):
+                return t
+            raise ValueError(f"param {ps}: shape {shape} is neither the "
+                             f"full {full[ps]} nor this rank's shard")
+
+        return map_with_path(one, params)
 
     # -------------------------------------------------- memory
     def _conv_stem(self, params, audio):

@@ -29,6 +29,27 @@ reference's JAX ops pin them and PyTorch's do not:
   recomputed step, or the paged twin of a dense run, could round
   differently.
 
+Under tensor parallelism (``LayerCtx.tp``) the router, its softmax and
+the dispatch stay replicated: every rank routes every token alike and
+builds the same (E, C, D) buffer, so no all-to-all is needed.  The mode
+is the hints' ``moe_mode`` (``distributed.mesh.make_hints``, from the
+sharding rules):
+
+- ``"ep"`` (the experts divide the model axis): the rank holds experts
+  [r E/k, (r+1) E/k) whole and runs K1 batched over their rows of the
+  buffer; its combine takes only the slots of its own experts (the others
+  selected away by ``torch.where``, not weighed by 0: a faulted row times
+  0 need not be 0), in the same ascending-id order, into a (T, D) f32
+  partial summed over the ranks and rounded once.  At top-2 routing a
+  token's partials hold at most two non-zero terms, so the sum is exact
+  and the routed experts' output equals the unsharded one bit for bit.
+- ``"tp"`` (otherwise): every expert's F is sliced, ``w_up``/``w_gate``
+  column-parallel and ``w_down`` row-parallel (``batched_dense(par=)``),
+  the (E, C, D) f32 partials summed and rounded once before the combine,
+  as the reference rounds ``out_buf`` before it combines.
+
+Shared experts go through ``mlp`` with the rules' ``par``.
+
 A speculative verify call (``ABFTConfig.decode_rows`` set) routes all its
 B x T rows at once, as the reference's, so its capacity is the window's.
 Its GEMMs sum each row in the decode step's order: the router and the
@@ -44,12 +65,14 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import all_reduce_sum
 from repro_torch.models.layers import (
     LayerCtx,
     batched_dense,
     dense,
     mlp,
     or_flags,
+    tp_par,
 )
 
 F32 = torch.float32
@@ -128,20 +151,43 @@ def moe_forward(x, p, cfg: ModelConfig, ctx: LayerCtx):
     # --- shared experts (dense path, always on)
     if cfg.n_shared_experts:
         ys, fs = mlp(xr, p["shared"], ctx, act="silu",
-                     tags=("moe.shared_up", "moe.shared_down"))
+                     tags=("moe.shared_up", "moe.shared_down"),
+                     path="ffn/shared")
         y = y + ys.reshape(T, D)
         flag = or_flags(flag, fs)
     return y.reshape(Bsz, L, D), flag, loss
+
+
+def expert_shard(p, cfg: ModelConfig, ctx: LayerCtx) -> tuple:
+    """This rank's part of the routed experts: (mode, lo) with mode None
+    (every expert whole: unsharded, or replicated by the rules), "ep"
+    (experts [lo, lo + E_local) whole) or "tp" (every expert, F sliced)."""
+    if tp_par(ctx, "ffn/w_up", "col") is None:
+        return None, 0
+    mode = ctx.hints.moe_mode if ctx.hints is not None else "ep"
+    El = p["w_up"].shape[0]
+    if mode == "ep":
+        if El * ctx.tp.size != cfg.n_experts:
+            raise ValueError(f"expert-parallel MoE: {El} experts a rank x "
+                             f"{ctx.tp.size} ranks != {cfg.n_experts}")
+        return "ep", ctx.tp.rank * El
+    if mode != "tp" or El != cfg.n_experts:
+        raise ValueError(f"MoE mode {mode!r} with {El} of "
+                         f"{cfg.n_experts} experts on a rank")
+    return "tp", 0
 
 
 def _experts(xf, topk_i, topk_w, p, cfg: ModelConfig, ctx: LayerCtx,
              C: int, split):
     """One dispatch group's routed experts: its T tokens xf (T, D) with
     their top-k experts and weights through capacity-C buffers, the
-    expert GEMMs and the combine.  Returns (y (T, D), flag)."""
+    expert GEMMs and the combine (the rank's part of them under tensor
+    parallelism: ``expert_shard``, the module docstring).  Returns
+    (y (T, D), flag)."""
     T, D = xf.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     dev = xf.device
+    mode, lo = expert_shard(p, cfg, ctx)
     # --- sort-based dispatch into (E * C + 1, D); row E * C takes drops
     flat_e = topk_i.reshape(-1)                                # (T K,)
     order = torch.argsort(flat_e, stable=True)
@@ -154,24 +200,37 @@ def _experts(xf, topk_i, topk_w, p, cfg: ModelConfig, ctx: LayerCtx,
     buf = torch.zeros((E * C + 1, D), dtype=xf.dtype, device=dev)
     buf[slot] = xf[order // K]
     buf = buf[:-1].reshape(E, C, D)
+    El = p["w_up"].shape[0]
+    if mode == "ep":
+        buf = buf[lo:lo + El]
 
-    # --- expert GEMMs (SwiGLU), all experts in one protected call each
+    # --- expert GEMMs (SwiGLU), all (local) experts in one protected call
+    col, row = ("col", "row") if mode == "tp" else (None, None)
     up, f1 = batched_dense(buf, p["w_up"], ctx, "expert_up",
-                           tag="moe.expert_up", split_rows=split)
+                           tag="moe.expert_up", split_rows=split, par=col)
     gate, f2 = batched_dense(buf, p["w_gate"], ctx, "expert_up",
-                             tag="moe.expert_up", split_rows=split)
+                             tag="moe.expert_up", split_rows=split, par=col)
     h = torch.nn.functional.silu(gate.to(F32)).to(xf.dtype) * up
     out_buf, f3 = batched_dense(h, p["w_down"], ctx, "expert_down",
-                                tag="moe.expert_down", split_rows=split)
+                                tag="moe.expert_down", split_rows=split,
+                                par=row)
 
     # --- combine: each (token, k) reads its slot back (a dropped one reads
     # a real row and weighs it 0, as the reference), summed in k order
     inv = torch.empty_like(order).scatter_(0, order, ar)
     slot_tk = slot[inv].reshape(T, K)
     keep_tk = keep[inv].reshape(T, K).to(F32)
-    rows = out_buf.reshape(E * C, D)[slot_tk.clamp_max(E * C - 1)]
+    local = slot_tk - lo * C
+    rows = out_buf.reshape(El * C, D)[local.clamp(0, El * C - 1)]
     contrib = rows.to(F32) * (topk_w * keep_tk)[..., None]    # (T, K, D)
+    if mode == "ep":
+        # the rank's own experts' slots; the rest (and drops) select 0
+        own = (local >= 0) & (local < El * C)
+        contrib = torch.where(own[..., None], contrib,
+                              torch.zeros((), dtype=F32, device=dev))
     y = contrib[:, 0]
     for k in range(1, K):
         y = y + contrib[:, k]
+    if mode == "ep":
+        y = all_reduce_sum(y, ctx.tp)
     return y.to(xf.dtype), or_flags(f1, f2, f3)

@@ -11,7 +11,9 @@ generators, and the engine's protection plan.
     process ranks (``distributed/mesh.py``; ``distributed/spawn.py``
     starts them).  This rank holds its shard of the params under the
     reference's rules (``Model.shard_params``: heads, FFN and vocab over
-    ``model``) and of the KV cache under ``cache_specs``: paged pools
+    ``model``; experts, or each expert's FFN dim, over ``model``; a Mamba2
+    mixer's heads and channels) and of the KV cache and per-slot state
+    under ``cache_specs``: paged pools
     shard their kv-head dim and the host block table stays one logical
     table, the same on every rank.  Where the kv heads do not divide the
     model axis the cache keeps every kv head on every rank (``cache_specs``'
@@ -33,9 +35,15 @@ generators, and the engine's protection plan.
     so a bf16 model's streams at any width equal the unsharded ones but
     for a rounding in the last place where the reordered f32 sum crosses
     a bf16 boundary.  At ``model == 1`` there are no collectives and no
-    f32 partials: the local path bit for bit.  Stacks other than GQA
-    attention with dense FFNs, a mesh with ``data > 1`` and a layout that
-    splits a q head raise ``NotImplementedError`` at ``model > 1``.
+    f32 partials: the local path bit for bit.
+
+    The stacks that serve sharded: GQA attention and Mamba2 mixers with
+    dense FFNs, MoE FFNs (``models/moe.py``: expert-parallel when the
+    experts divide the axis, else each expert's FFN dim sliced) or none.
+    MLA, the MTP head, cross-attention, encoder-decoder and vision stacks,
+    a mesh with ``data > 1`` and a layout that splits a q head or an SSD
+    head raise ``NotImplementedError`` at ``model > 1`` (ROADMAP
+    A.3b-ii).
 """
 
 from __future__ import annotations
@@ -129,33 +137,61 @@ class LocalExecutor:
             model_parallel=self.model_parallel)
 
 
+SHARDABLE_TAGS = frozenset({"attn:dense:0", "attn:moe:0", "mamba:none:0",
+                            "mamba:dense:0", "mamba:moe:0"})
+
+
 def check_shardable(cfg, mesh) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` serves sharded over
-    ``mesh`` (``model > 1``): GQA attention with dense FFNs and no
-    memory, ``data == 1``, and q heads that divide the model axis, with
-    kv heads that divide it or that it divides."""
+    ``mesh`` (``model > 1``): GQA attention or Mamba2 mixers with dense,
+    MoE or no FFNs (``SHARDABLE_TAGS``), no MTP head and no memory,
+    ``data == 1``; q heads that divide the model axis, kv heads that
+    divide it or that it divides, and SSD heads that divide it wherever
+    the rules split ``d_inner``."""
     k = int(mesh.shape["model"])
     tags = set(layer_tags(cfg))
-    if tags != {"attn:dense:0"} or cfg.attention != "gqa" \
+    if not tags <= SHARDABLE_TAGS or cfg.attention != "gqa" \
             or cfg.is_encoder_decoder or cfg.vision_dim or cfg.mtp_depth:
         raise NotImplementedError(
-            f"sharded serving of {cfg.name} ({sorted(tags)}): only GQA "
-            f"attention with dense FFNs serves over model > 1 (MoE, MLA, "
-            f"Mamba2 and cross-attention are ROADMAP A.3b)")
+            f"sharded serving of {cfg.name} ({sorted(tags)}): GQA "
+            f"attention and Mamba2 with dense or MoE FFNs serve over "
+            f"model > 1; MLA, MTP, cross-attention, encoder-decoder and "
+            f"vision stacks are ROADMAP A.3b-ii")
     if any(mesh.shape[a] > 1 for a in mesh.axis_names if a != "model"):
         raise NotImplementedError(
             f"sharded serving over {mesh.shape}: data > 1 (replicas) is "
-            f"ROADMAP A.3b; the mesh must be (data=1, model=k)")
-    H, KV = cfg.n_heads, cfg.n_kv_heads
-    hd = cfg.resolved_head_dim
-    if (H * hd) % k == 0 and H % k:
+            f"ROADMAP A.3b-ii; the mesh must be (data=1, model=k)")
+    if any(t.startswith("attn") for t in tags):
+        H, KV = cfg.n_heads, cfg.n_kv_heads
+        hd = cfg.resolved_head_dim
+        if (H * hd) % k == 0 and H % k:
+            raise NotImplementedError(
+                f"{cfg.name}: the rules split a q head over model={k} "
+                f"({H} heads); ROADMAP A.3b-ii")
+        if (KV * hd) % k == 0 and KV % k and k % KV:
+            raise NotImplementedError(
+                f"{cfg.name}: {KV} kv heads over model={k} neither divide "
+                f"nor are divided by the axis; ROADMAP A.3b-ii")
+    if any(t.startswith("mamba") for t in tags) \
+            and cfg.d_inner % k == 0 and cfg.ssm_heads % k:
         raise NotImplementedError(
-            f"{cfg.name}: the rules split a q head over model={k} "
-            f"({H} heads); ROADMAP A.3b")
-    if (KV * hd) % k == 0 and KV % k and k % KV:
-        raise NotImplementedError(
-            f"{cfg.name}: {KV} kv heads over model={k} neither divide nor "
-            f"are divided by the axis; ROADMAP A.3b")
+            f"{cfg.name}: the rules split an SSD head over model={k} "
+            f"({cfg.ssm_heads} heads); ROADMAP A.3b-ii")
+
+
+def sharded_paths(specs) -> frozenset:
+    """The leaves a spec tree splits over ``model``: each layer leaf by
+    its path below the layer (``"ffn/shared/up"``), the embedding and
+    head by name (``TPGroup.sharded``)."""
+    from repro_torch.distributed.sharding import map_with_path
+
+    out = set()
+    for lp in specs["layers"]:
+        map_with_path(lambda ps, sp: out.add(ps) if "model" in sp else None,
+                      lp)
+    out |= {n for n in ("embed", "lm_head")
+            if n in specs and "model" in specs[n]}
+    return frozenset(out)
 
 
 class MeshExecutor(LocalExecutor):
@@ -163,7 +199,8 @@ class MeshExecutor(LocalExecutor):
     int tensor-parallel width (a ``(data=1, model=k)`` mesh over this
     process's world, its ranks on ``device``'s type) or a prebuilt port
     ``Mesh``; ``params``: the full tree, the same on every rank (each
-    rank keeps its shard)."""
+    rank keeps its shard), or this rank's shard already
+    (``Model.init_params(mesh=)``)."""
 
     def __init__(self, model: Model, params, *, mesh, dtype, device,
                  hints=None):
@@ -203,19 +240,11 @@ class MeshExecutor(LocalExecutor):
                     f"process a rank; start them with "
                     f"repro_torch.distributed.spawn")
             device = mesh.device
-            specs = param_specs(model.cfg, params, mesh)
-            sharded = set()
-            for lp in specs["layers"]:
-                for sub in lp.values():
-                    if isinstance(sub, dict):
-                        sharded |= {n for n, sp in sub.items()
-                                    if "model" in sp}
-            sharded |= {n for n in ("embed", "lm_head")
-                        if n in specs and "model" in specs[n]}
+            specs = param_specs(model.cfg, model.param_shapes(), mesh)
             self.tp = TPGroup(rank=mesh.model_rank, size=k,
                               group=mesh.group,
                               backend=dist.get_backend(mesh.group),
-                              sharded=frozenset(sharded))
+                              sharded=sharded_paths(specs))
             params = model.shard_params(params, mesh)
         super().__init__(model, params, dtype=dtype, device=device,
                          hints=hints)

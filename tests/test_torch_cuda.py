@@ -2013,3 +2013,68 @@ def test_tp2_engine_on_the_card_equals_mesh1(dev):
     want = card_streams(1)
     got = spawn.run(card_streams, 2, 2, device="cuda")
     assert got == [want, want]
+
+
+# sharded MoE: (E, C, K, N, f32 out) of one rank's expert GEMMs.  EP: the
+# rank's E/k experts whole, read at an offset into the replicated
+# dispatch buffer; expert-FFN TP: every expert's F sliced, w_up's columns
+# (bf16 out) and w_down's rows (the f32 partial)
+MOE_SHARDS = {"ep": (8, 4, 512, 1024, False),
+              "ep_admission": (8, 40, 512, 1024, False),
+              "tp_col": (6, 8, 512, 256, False),
+              "tp_row": (6, 8, 256, 512, True)}
+
+
+@pytest.mark.parametrize("case", sorted(MOE_SHARDS))
+def test_k1_batched_at_the_moe_shard_shapes(dev, case):
+    """K1 batched over a rank's experts against its plain version: y
+    within 2^-7 (bf16) or 1e-4 (f32 out) of max|y|, bounds within 1e-5
+    relative, no false flag, one launch.  The EP cases read the upper half
+    of a 2E-expert buffer in place, as rank 1's ``moe._experts`` does."""
+    from repro_torch.kernels.ref import abft_matmul_batched_ref
+
+    E, C, k, n, f32_out = MOE_SHARDS[case]
+    gen = torch.Generator(device=dev).manual_seed(E * C + k)
+    lead = 2 * E if case.startswith("ep") else E
+    buf = torch.randn(lead, C, k, generator=gen, device=dev).to(
+        torch.bfloat16)
+    x = buf[lead - E:]
+    w = (0.05 * torch.randn(E, k, n, generator=gen, device=dev)).to(
+        torch.bfloat16)
+    out = torch.float32 if f32_out else torch.bfloat16
+    bm, bk, bn = (min(b, -(-d // 8) * 8) for b, d in
+                  ((256, C), (512, k), (256, n)))
+    kw = dict(mode="1s", bm=bm, bk=bk, bn=bn, out_dtype=out)
+    launches = am.BATCHED.launches
+    y, _, bnd = am.abft_matmul_kernel(x, w, **kw)
+    assert am.BATCHED.launches == launches + 1
+    yp, _, bndp = abft_matmul_batched_ref(x.contiguous(), w, **kw)
+    scale = yp.float().abs().max().item()
+    tol = (1e-4 if f32_out else 2 ** -7) * scale
+    assert y.dtype == out and y.shape == (E, C, n)
+    assert (y.float() - yp.float()).abs().max().item() <= tol
+    assert ((bnd - bndp).abs() / bndp.abs().clamp_min(1e-30)).max() <= 1e-5
+    _, chk = ops.abft_matmul_batched(x, w, mode="1s", out_dtype=out)
+    assert not bool(chk.flag)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b"])
+def test_shard_at_draw_equals_shard_params_on_the_card(dev, arch):
+    """``init_params(mesh=)`` on the card, for each rank of a (1, 2) mesh,
+    equals ``shard_params`` of the whole tree drawn there, bit for bit."""
+    from repro_torch.core.tree import tree_leaves_with_path
+    from repro_torch.distributed.mesh import Mesh
+
+    over = {"n_layers": 8} if arch.startswith("jamba") else {}
+    model = Model(scaled_down(get_config(arch), **over))
+    whole = model.init_params(5, dtype=torch.bfloat16, device=dev)
+    for rank in range(2):
+        mesh = Mesh(grid=np.arange(2).reshape(1, 2),
+                    axis_names=("data", "model"), devices=(dev,) * 2,
+                    rank=rank)
+        drawn = tree_leaves_with_path(model.init_params(
+            5, dtype=torch.bfloat16, device=dev, mesh=mesh))
+        cut = tree_leaves_with_path(model.shard_params(whole, mesh))
+        assert [p for p, _ in drawn] == [p for p, _ in cut]
+        assert all(a.dtype == b.dtype and a.is_cuda and torch.equal(a, b)
+                   for (_, a), (_, b) in zip(drawn, cut))

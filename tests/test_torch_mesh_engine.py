@@ -152,7 +152,7 @@ def test_mesh_scenarios_exercise_their_paths(ranks, local):
 
 # the local runs of these three are held against the reference's in
 # tests/test_torch_family.py
-FAMILY_SHARDED = {"qwen1.5-32b": {"bq", "bk", "bv"},
+FAMILY_SHARDED = {"qwen1.5-32b": {"mixer/bq", "mixer/bk", "mixer/bv"},
                   "qwen3-14b": set(), "stablelm-1.6b": set()}
 
 
@@ -171,8 +171,8 @@ def test_dense_family_at_mesh2_equals_local(ranks, family_local, arch):
         assert got["dense"] == want["dense"], (k, r, arch)
         assert got["paged"] == want["paged"], (k, r, arch)
     sharded = set(recs[0]["family"][arch]["sharded"])
-    assert {"wq", "wk", "wv", "wo", "up", "down"} | \
-        FAMILY_SHARDED[arch] <= sharded
+    assert {"mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo", "ffn/up",
+            "ffn/down"} | FAMILY_SHARDED[arch] <= sharded
 
 
 def test_ranks_agree_and_report_the_mesh(ranks):
@@ -235,31 +235,56 @@ def test_reference_resolves_logical_shapes(setup):
 
 
 # ------------------------------------------------------------ refusals
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b",
-                                  "mamba2-1.3b"])
+def _model_mesh(k):
+    from repro_torch.distributed.mesh import Mesh
+
+    return Mesh(grid=np.arange(k).reshape(1, k),
+                axis_names=("data", "model"),
+                devices=(torch.device("cpu"),) * k)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-tiny",
+                                  "llama-3.2-vision-11b"])
 def test_unported_stacks_raise_at_model_gt_1(arch):
+    """MLA + MTP, encoder-decoder and vision (cross-attention) stacks
+    still refuse a model axis wider than 1, naming ROADMAP A.3b-ii, and
+    so does a mesh with data > 1."""
     from repro_torch.configs import get_config, scaled_down
     from repro_torch.distributed.mesh import Mesh
     from repro_torch.serve.executor import check_shardable
 
-    mesh = Mesh(grid=np.arange(2).reshape(1, 2), axis_names=("data",
-                                                              "model"),
-                devices=(torch.device("cpu"),) * 2)
-    with pytest.raises(NotImplementedError, match="A.3b"):
+    mesh = _model_mesh(2)
+    with pytest.raises(NotImplementedError, match="A.3b-ii"):
         check_shardable(scaled_down(get_config(arch)), mesh)
     dp = Mesh(grid=np.arange(4).reshape(2, 2),
               axis_names=("data", "model"),
               devices=(torch.device("cpu"),) * 4)
-    with pytest.raises(NotImplementedError, match="data > 1"):
+    with pytest.raises(NotImplementedError, match="data > 1.*A.3b-ii"):
         check_shardable(W.small_config(), dp)
     check_shardable(W.small_config(), mesh)
 
 
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-1.3b",
+                                  "jamba-v0.1-52b"])
+def test_moe_and_ssm_stacks_shard(arch, k):
+    """The MoE family, the SSM family and the hybrid serve over a model
+    axis of 2 and 4, at full size and scaled down
+    (``tests/test_torch_mesh_moe.py``, ``tests/test_torch_mesh_ssm.py``
+    run them)."""
+    from repro_torch.configs import get_config, scaled_down
+    from repro_torch.serve.executor import check_shardable
+
+    check_shardable(get_config(arch), _model_mesh(k))
+    check_shardable(scaled_down(get_config(arch)), _model_mesh(k))
+
+
 def test_serve_cli_mesh_flag(capsys):
     """``--mesh 1`` serves through the mesh executor in this process and
-    reports the mesh in the stats line; ``--mesh N`` on a stack that
-    cannot shard exits with the ``NotImplementedError`` message before
-    any rank starts."""
+    reports the mesh in the stats line; ``--mesh 2`` serves the MoE
+    family over two ranks; ``--mesh N`` on a stack that cannot shard
+    exits with the ``NotImplementedError`` message before any rank
+    starts."""
     import json
 
     from repro_torch.launch import serve
@@ -273,6 +298,13 @@ def test_serve_cli_mesh_flag(capsys):
     assert [r["layer"] for r in line["shard_plan"]] == [
         "attn.q", "attn.k", "attn.v", "attn.o", "mlp.up", "mlp.down",
         "lm_head"]
-    with pytest.raises(SystemExit, match="A.3b"):
+    assert serve.main(["--device", "cpu", "--mesh", "2", "--arch",
+                       "qwen2-moe-a2.7b", "--requests", "2",
+                       "--new-tokens", "3"]) == 0
+    line = next(json.loads(ln) for ln in capsys.readouterr().out
+                .splitlines() if ln.startswith("{"))
+    assert line["model_parallel"] == 2 and line["tokens"] == 6
+    assert "moe.expert_up" in [r["layer"] for r in line["shard_plan"]]
+    with pytest.raises(SystemExit, match="A.3b-ii"):
         serve.main(["--device", "cpu", "--mesh", "2", "--arch",
-                    "qwen2-moe-a2.7b"])
+                    "deepseek-v3-671b"])

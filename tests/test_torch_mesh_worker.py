@@ -18,6 +18,7 @@ from repro_torch.obs import EngineTelemetry
 from repro_torch.serve.engine import RecoveryPolicy, Request, ServeEngine
 
 BF16 = torch.bfloat16
+F32 = torch.float32
 FAULT = ModelFault.at(0, "mlp_down", FaultSpec.value(0, 1, 1e5))
 # a column-parallel fault: logical column 40 of q, k and v (rank 1's at
 # TP=2 for k and v, rank 2's of q at TP=4)
@@ -160,30 +161,8 @@ def executed_schemes(k: int, params, hw_fields: dict) -> dict:
     """Rank side: {site: scheme} that ``protected_matmul`` resolved in a
     64-token forward of this rank's shard on the hardware ``hw_fields``
     (the shapes of a ``n_tokens=64`` plan)."""
-    from repro_torch.core import protected
-    from repro_torch.core.hardware import HardwareSpec
-    from repro_torch.serve.executor import MeshExecutor
-
-    model = Model(small_config())
-    ex = MeshExecutor(model, params, mesh=k, dtype=BF16,
-                      device=torch.device("cpu"))
-    ctx = LayerCtx(abft=ABFTConfig(hardware=HardwareSpec(**hw_fields)),
-                   tp=ex.tp)
-    seen = {}
-    scope = protected.protection_scope
-
-    def record(scheme, site):
-        seen.setdefault(site, set()).add(scheme)
-        return scope(scheme, site)
-
-    protected.protection_scope = record
-    try:
-        tokens = np.arange(64).reshape(4, 16) % model.cfg.vocab_size
-        with torch.no_grad():
-            model.forward(ex.params, {"tokens": tokens}, ctx, device="cpu")
-    finally:
-        protected.protection_scope = scope
-    return {site: sorted(s) for site, s in seen.items()}
+    return executed_stack_schemes(Model(small_config()), params, k,
+                                  hw_fields, BF16)
 
 
 def card_streams(k: int) -> dict:
@@ -206,3 +185,330 @@ def card_streams(k: int) -> dict:
                       abft=ABFTConfig(hardware=NVIDIA_H100_SXM,
                                       flash_attention=True))
     return {int(u): [int(t) for t in s] for u, s in eng.run(rs).items()}
+
+
+# ------------------------------------------------------ MoE and SSM stacks
+# (tests/test_torch_mesh_moe.py, tests/test_torch_mesh_ssm.py)
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+# expert_up at FFN column 9: rank 0's of a sliced expert FFN at k = 2
+# (16 columns a rank), rank 1's at k = 4 (8); in every local expert under
+# EP.  expert_down (row-parallel when sliced: rank 0's partial) and the
+# replicated router at column 1.
+MOE_FAULTS = {
+    "expert_up": ModelFault.at(0, "expert_up", FaultSpec.value(0, 9, 1e5)),
+    "expert_down": ModelFault.at(1, "expert_down",
+                                 FaultSpec.value(0, 1, 1e5)),
+    "router": ModelFault.at(1, "router", FaultSpec.value(0, 1, 1e5)),
+}
+SSM_ARCHS = {"mamba2-1.3b": {}, "jamba-v0.1-52b": {"n_layers": 8}}
+SSM_LAYER = {"mamba2-1.3b": 1, "jamba-v0.1-52b": 3}
+
+
+def moe_config(**over):
+    """Scaled-down qwen2-moe-a2.7b: 2 MoE layers, 8 experts top 2 with
+    shared experts (``over``: the mode cases' changes)."""
+    return scaled_down(get_config(MOE_ARCH), **over)
+
+
+def ssm_config(arch):
+    return scaled_down(get_config(arch), **SSM_ARCHS[arch])
+
+
+def ssm_faults(cfg) -> dict:
+    """``ssm_in`` at the first column of the upper half of ``in_x`` (and
+    ``in_z``): rank 1's at k = 2, rank 2's at k = 4; ``ssm_out``
+    (row-parallel: rank 0's partial)."""
+    return {"ssm_in": ModelFault.at(0, "ssm_in", FaultSpec.value(
+                0, cfg.d_inner // 2, 1e5)),
+            "ssm_out": ModelFault.at(1, "ssm_out",
+                                     FaultSpec.value(0, 1, 1e5))}
+
+
+class OracleProposer:
+    """Drafts a reference run's own next tokens (``streams`` by uid)."""
+
+    name = "oracle"
+
+    def __init__(self, streams):
+        self.streams = streams
+
+    def propose(self, req, k):
+        n = len(req.generated)
+        return np.asarray(self.streams[int(req.uid)][n:n + k], np.int32)
+
+
+def _stats(eng) -> dict:
+    """Every ``EngineStats`` field."""
+    import dataclasses
+
+    return dataclasses.asdict(eng.stats)
+
+
+def comparable(rec: dict) -> dict:
+    """A ``stack_scenarios`` record without the selection trace's
+    intensities: the engine reads them off the plan that runs, the
+    per-shard plan at TP=k."""
+    stats = dict(rec["stats"])
+    stats["selection_trace"] = [{k: v for k, v in e.items()
+                                 if k != "intensity"}
+                                for e in stats["selection_trace"]]
+    return {**rec, "stats": stats}
+
+
+def _state_digest(eng) -> str:
+    """A digest of every per-slot state leaf of the rank's cache."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for layer, st in zip(eng.cache, eng.model.state_layers):
+        if st:
+            for key in sorted(layer):
+                h.update(layer[key].float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _watch_states(eng) -> list:
+    """Wrap ``eng.step``: (digest before, digest after, evictions so far)
+    a step."""
+    seen, step = [], eng.step
+
+    def watched(*a, **k):
+        before = _state_digest(eng)
+        r = step(*a, **k)
+        seen.append((before, _state_digest(eng), eng.stats.evictions))
+        return r
+
+    eng.step = watched
+    return seen
+
+
+def stack_scenarios(model, params, mesh, names, faults, dtype) -> tuple:
+    """The named scenarios of one stack at ``mesh`` (None: local): the
+    records every rank shares (streams, errors, every ``EngineStats``
+    field, blocks) and, apart, each run's state digests a step
+    (``_watch_states``; a rank's own shard)."""
+    eng_kw = dict(dtype=dtype, device="cpu", mesh=mesh)
+    paged = dict(cache_kind="paged", block_size=8)
+    hard = RecoveryPolicy(max_retries=0, evict_on_hard_fault=True)
+    spec_kw = dict(slots=2, max_len=64, cache_kind="paged", num_blocks=24,
+                   abft=ABFTConfig())
+    cfg = model.cfg
+    table = {
+        "dense": (reqs(cfg), None, dict(slots=3, max_len=64)),
+        "paged": (reqs(cfg), None, dict(slots=3, max_len=64, **paged)),
+        "shared_chunked": (shared_reqs(cfg), None, dict(
+            slots=3, max_len=64, prefix_sharing=True, chunk_tokens=12,
+            **paged)),
+        "moe_faults": (reqs(cfg), {
+            "fault_at": (2, faults.get("expert_up")),
+            "admit_fault_at": (1, faults.get("router"))},
+            dict(slots=3, max_len=64, **paged)),
+        "expert_down": (reqs(cfg), {
+            "fault_at": (2, faults.get("expert_down")),
+            "admit_fault_at": (1, faults.get("expert_up"))},
+            dict(slots=3, max_len=64)),
+        "ssm_in": (reqs(cfg), {"fault_at": (2, faults.get("ssm_in"))},
+                   dict(slots=3, max_len=64)),
+        "ssm_out": (reqs(cfg), {"fault_at": (3, faults.get("ssm_out"))},
+                    dict(slots=3, max_len=64, **paged)),
+        "hard_fault": (reqs(cfg, n=4, seed=5), {"fault_at": (
+            1, faults.get("expert_up") or faults.get("ssm_out"))},
+            dict(slots=2, max_len=64, policy=hard)),
+        "unsped": (periodic_reqs(), None, spec_kw),
+        "ngram": (periodic_reqs(), None, dict(
+            spec_decode="ngram", draft_len=3, **spec_kw)),
+    }
+    recs, states = {}, {}
+    for name in names:
+        if name == "oracle":
+            rs, run_kw = periodic_reqs(), None
+            kw = dict(spec_decode=OracleProposer(recs["unsped"]["streams"]),
+                      draft_len=3, **spec_kw)
+        else:
+            rs, run_kw, kw = table[name]
+            rs = [Request(uid=r.uid, prompt=r.prompt,
+                          max_new_tokens=r.max_new_tokens) for r in rs]
+        eng = ServeEngine(model, params, **eng_kw, **kw)
+        seen = _watch_states(eng)
+        out = eng.run(rs, **(run_kw or {}))
+        rec = _record(eng, rs, out)
+        rec["stats"] = _stats(eng)
+        recs[name], states[name] = rec, seen
+    return recs, states
+
+
+def routed_output(model, params, mesh, dtype) -> np.ndarray:
+    """The routed experts' output alone (the first MoE FFN without its
+    shared experts) of a seeded (2, 5, D) input, at ``mesh`` (None:
+    local), as f32."""
+    import dataclasses
+
+    from repro_torch.models.moe import moe_forward
+    from repro_torch.serve.executor import LocalExecutor, MeshExecutor
+
+    cfg = model.cfg
+    dev = torch.device("cpu")
+    ex = (MeshExecutor(model, params, mesh=mesh, dtype=dtype, device=dev)
+          if mesh is not None else
+          LocalExecutor(model, params, dtype=dtype, device=dev))
+    ctx = LayerCtx(abft=ABFTConfig(), hints=ex.hints, tp=ex.tp)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 5, cfg.d_model, generator=gen).to(dtype)
+    layer = next(lp for lp in ex.params["layers"]
+                 if "w_up" in lp.get("ffn", {}))
+    with torch.no_grad():
+        y, _, _ = moe_forward(x, layer["ffn"], dataclasses.replace(
+            cfg, n_shared_experts=0), ctx)
+    return y.float().numpy()
+
+
+def routing_log(model, params, mesh, dtype) -> list:
+    """Every ``top_k`` routing decision (expert ids) of a dense run of
+    ``reqs``, in call order."""
+    from repro_torch.models import moe
+
+    log, top_k = [], moe.top_k
+
+    def logged(probs, k):
+        vals, idx = top_k(probs, k)
+        log.append(idx.tolist())
+        return vals, idx
+
+    moe.top_k = logged
+    try:
+        eng = ServeEngine(model, params, slots=3, max_len=64, dtype=dtype,
+                          device="cpu", mesh=mesh)
+        eng.run(reqs(model.cfg))
+    finally:
+        moe.top_k = top_k
+    return log
+
+
+def executed_stack_schemes(model, params, k, hw_fields, dtype) -> dict:
+    """{site: schemes} that ``protected_matmul`` and
+    ``protected_matmul_batched`` resolve in a 64-token forward of this
+    rank's shard on the hardware ``hw_fields``."""
+    from repro_torch.core import protected
+    from repro_torch.core.hardware import HardwareSpec
+    from repro_torch.serve.executor import MeshExecutor
+
+    ex = MeshExecutor(model, params, mesh=k, dtype=dtype,
+                      device=torch.device("cpu"))
+    ctx = LayerCtx(abft=ABFTConfig(hardware=HardwareSpec(**hw_fields)),
+                   hints=ex.hints, tp=ex.tp)
+    seen = {}
+    scope = protected.protection_scope
+
+    def record(scheme, site):
+        seen.setdefault(site, set()).add(scheme)
+        return scope(scheme, site)
+
+    protected.protection_scope = record
+    try:
+        tokens = np.arange(64).reshape(4, 16) % model.cfg.vocab_size
+        with torch.no_grad():
+            model.forward(ex.params, {"tokens": tokens}, ctx, device="cpu")
+    finally:
+        protected.protection_scope = scope
+    return {site: sorted(s) for site, s in seen.items()}
+
+
+def shard_draw_equal(model, k, dtype) -> bool:
+    """``init_params(mesh=)`` on this rank equals ``shard_params`` of the
+    whole tree bit for bit (seed 4)."""
+    from repro_torch.core.tree import tree_leaves_with_path
+    from repro_torch.distributed.mesh import build_mesh, rank_devices
+
+    mesh = build_mesh(model=k, data=1, devices=rank_devices("cpu"))
+    drawn = tree_leaves_with_path(model.init_params(4, dtype=dtype,
+                                                    mesh=mesh))
+    cut = tree_leaves_with_path(model.shard_params(
+        model.init_params(4, dtype=dtype), mesh))
+    return [p for p, _ in drawn] == [p for p, _ in cut] and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for (_, a), (_, b) in zip(drawn, cut))
+
+
+def audit_step(model, params, k, dtype) -> dict:
+    """This rank's served decode step at ``mesh=k`` walked by the coverage
+    audit (``analysis.audit.audit_served_step``) after an admission."""
+    from repro_torch.analysis.audit import audit_served_step
+
+    eng = ServeEngine(model, params, slots=2, max_len=32, dtype=dtype,
+                      device="cpu", mesh=k)
+    eng.admit(reqs(model.cfg, n=2, new_tokens=4))
+    return audit_served_step(eng, eng.step).to_json()
+
+
+MOE_NAMES = ("dense", "shared_chunked", "moe_faults", "hard_fault",
+             "unsped", "ngram", "oracle")
+SSM_NAMES = ("dense", "paged", "ssm_in", "ssm_out", "hard_fault")
+
+
+def moe_rank(k, variants, hw) -> dict:
+    """Rank side of ``tests/test_torch_mesh_moe.py``: each variant
+    (name -> (config overrides, params, scenario names)) at ``mesh=k``,
+    its routed output, routing log, executed schemes, the shard-at-draw
+    check and the audit of a served step; every record checked equal
+    across the ranks."""
+    out = {}
+    for name, (over, params, names) in variants.items():
+        model = Model(moe_config(**over))
+        recs, _ = stack_scenarios(model, params, k, names, MOE_FAULTS, BF16)
+        rec = {"scenarios": recs,
+               "routing": routing_log(model, params, k, BF16),
+               "executed": executed_stack_schemes(model, params, k, hw,
+                                                  BF16),
+               "shard_draw": shard_draw_equal(model, k, BF16),
+               "audit": audit_step(model, params, k, BF16)}
+        ex = ServeEngine(model, params, slots=1, max_len=16, dtype=BF16,
+                         device="cpu", mesh=k).executor
+        ex_tp = ex.tp
+        rec["sharded"] = sorted(ex_tp.sharded)
+        rec["moe_mode"] = ex.hints.moe_mode
+        for key, val in rec.items():
+            collectives.check_same(val, ex_tp, f"{name}/{key}")
+        rec["routed"] = routed_output(model, params, k, BF16)
+        out[name] = rec
+    return out
+
+
+def ssm_rank(k, stacks, hw, norm_inputs) -> dict:
+    """Rank side of ``tests/test_torch_mesh_ssm.py``: each arch (-> its
+    params) at ``mesh=k`` through ``SSM_NAMES`` (f32), its executed
+    schemes, the shard-at-draw check and the audit; the shared records
+    checked across the ranks, the state digests kept per rank; and the
+    rank's slice of ``gated_rms_norm(tp=)`` of ``norm_inputs``."""
+    out = {"norm": norm_rank(k, *norm_inputs)}
+    for arch, params in stacks.items():
+        model = Model(ssm_config(arch))
+        recs, states = stack_scenarios(model, params, k, SSM_NAMES,
+                                       ssm_faults(model.cfg), F32)
+        rec = {"scenarios": recs,
+               "executed": executed_stack_schemes(model, params, k, hw,
+                                                  F32),
+               "shard_draw": shard_draw_equal(model, k, F32),
+               "audit": audit_step(model, params, k, F32)}
+        eng = ServeEngine(model, params, slots=1, max_len=16, dtype=F32,
+                          device="cpu", mesh=k)
+        rec["sharded"] = sorted(eng.executor.tp.sharded)
+        for key, val in rec.items():
+            collectives.check_same(val, eng.executor.tp, f"{arch}/{key}")
+        rec["states"] = states
+        out[arch] = rec
+    return out
+
+
+def norm_rank(k, x, z, w) -> np.ndarray:
+    """``gated_rms_norm(tp=)`` of this rank's slice of the last dim."""
+    from repro_torch.distributed.mesh import build_mesh, rank_devices
+    from repro_torch.distributed.collectives import TPGroup
+    from repro_torch.models.layers import gated_rms_norm
+
+    mesh = build_mesh(model=k, data=1, devices=rank_devices("cpu"))
+    tp = TPGroup(rank=mesh.model_rank, size=k, group=mesh.group)
+    n = x.shape[-1] // k
+    cut = slice(tp.rank * n, (tp.rank + 1) * n)
+    y = gated_rms_norm(x[..., cut], z[..., cut], w[cut], 1e-5, tp=tp)
+    return y.float().numpy()

@@ -274,3 +274,30 @@ def test_import_guard_walks_the_slice():
             "repro_torch.distributed.collectives",
             "repro_torch.distributed.spawn",
             "repro_torch.launch.mesh"} <= _expected_modules()
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b"])
+def test_shards_own_their_storage(arch):
+    """A rank's shard (``init_params(mesh=)``, ``shard_params``) holds no
+    view of a whole leaf: a leading-dim slice would otherwise keep the
+    whole leaf's storage alive beside the shard."""
+    import numpy as np
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.models.model import Model
+
+    over = {"n_layers": 8} if arch.startswith("jamba") else {}
+    model = Model(scaled_down(get_config(arch), **over))
+    mesh = Mesh(grid=np.arange(2).reshape(1, 2), axis_names=("data", "model"),
+                devices=(torch.device("cpu"),) * 2, rank=1)
+    whole = model.init_params(0, dtype=torch.bfloat16)
+    full = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in tree_leaves(whole)}
+    for tree in (model.init_params(0, dtype=torch.bfloat16, mesh=mesh),
+                 model.shard_params(whole, mesh)):
+        for t in tree_leaves(tree):
+            st = t.untyped_storage()
+            assert st.nbytes() == t.numel() * t.element_size()
+            if st.data_ptr() in full:     # a replicated leaf, kept whole
+                assert st.nbytes() == full[st.data_ptr()]
