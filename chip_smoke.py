@@ -52,7 +52,14 @@ plain version, K1/K3/collectives a decode step a rank, the rank-0 audit;
 and one 8-layer unit (GQA attention, Mamba2 mixers, dense and
 expert-parallel MoE FFNs), each rank drawing only its shard, with
 ``expert_up``, ``ssm_in`` and ``ssm_out`` faults recovered and every
-slot's state held to the clean run's.
+slot's state held to the clean run's; ``tp_mla`` does the same for
+deepseek-v3-671b as ``mla`` serves it (MLA's heads split, its latent
+replicated, 128 experts a rank, the MTP head), against the TP=1 run the
+``mla`` phase keeps on the host, with a ``mla.q_b`` fault on rank 1's
+columns and an ``expert_up`` fault recovered, the latent cache held to
+the clean run's, the score's ``mtp_logits`` held to TP=1's; and the
+``tp`` phase holds llama with its heads padded for TP (40 / 10, K2 and
+K3 at the padded heads) against the unpadded model.
 Each phase prints JSON lines; any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -79,7 +86,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
           "campaign", "profile", "timing", "sharing", "spec", "family",
-          "moe", "mla", "ssm", "cross", "audit", "tp", "tp_hybrid")
+          "moe", "mla", "ssm", "cross", "audit", "tp", "tp_hybrid",
+          "tp_mla")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -113,9 +121,9 @@ SERVED_LAYERS = 8
 
 
 # the layers the family and moe phases keep of these archs' published
-# depth (full width; PERF.md §4: the script's time), and the tp phase's
-# llama keeps SERVED_LAYERS
-DEPTH_CUTS = {"qwen3-14b": 20, "qwen1.5-32b": 32, "qwen2-moe-a2.7b": 12}
+# depth (full width; PERF.md §4: the script's time, each cut with the run
+# that forced it), and the tp phase's llama keeps SERVED_LAYERS
+DEPTH_CUTS = {"qwen3-14b": 12, "qwen1.5-32b": 16, "qwen2-moe-a2.7b": 12}
 
 
 def side_config():
@@ -1600,6 +1608,17 @@ def free_memory() -> None:
     its weights and cache), then hand the cached blocks back."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def emit_memory(where: str) -> None:
+    """This process's allocated and reserved device memory and the card's
+    free memory, after ``free_memory``: what a later phase's ranks find."""
+    free_memory()
+    free, total = torch.cuda.mem_get_info()
+    emit("memory", where=where,
+         allocated_gb=torch.cuda.memory_allocated() / 1e9,
+         reserved_gb=torch.cuda.memory_reserved() / 1e9,
+         card_free_gb=free / 1e9, card_total_gb=total / 1e9)
 
 
 def family_plan(cfg) -> dict:
@@ -4122,6 +4141,7 @@ def mla_runs(dev) -> dict:
 
     t0 = time.perf_counter()
     batched = mla_k1_checks(dev)
+    emit_memory("mla_k1_checks")
     cfg = mla_config()
     model = Model(cfg)
     n_moe = sum(t.endswith(":moe:0") for t in layer_tags(cfg))
@@ -4202,6 +4222,8 @@ def mla_runs(dev) -> dict:
     free_memory()
     score = mla_score(dev, model, params)
     free_memory()
+    tp1 = mla_tp1(dev, model, params, prompts)
+    emit_memory("mla_tp1")
     t1 = k1_timing(dev, params, 4, arch=MLA_ARCH)
     observe = {"absorb_row_order": absorb_row_order(dev, params),
                "norm_row_order": norm_row_order(
@@ -4244,7 +4266,34 @@ def mla_runs(dev) -> dict:
         seconds=time.perf_counter() - t0)
     emit("mla", **rec)
     return {"rec": rec, "batched": batched, "family_checks": fchecks,
-            "k1": t1, "stack": stack, "spec": spec4}
+            "k1": t1, "stack": stack, "spec": spec4, "tp1": tp1,
+            "prompts": prompts}
+
+
+def mla_tp1(dev, model, params, prompts) -> dict:
+    """The TP=1 side of the ``tp_mla`` phase, kept on the host so that the
+    4-layer model need not be drawn twice: ``tp_serve``'s dense run of the
+    engine cell's traffic (its first prefill and decode logits, every
+    emitted token's top-two gap, every model call, every routing decision
+    with the router's probabilities), its eviction run under
+    ``_mla_tp_faults``' hard fault, and the 1 x ``HYBRID_SCORE_L`` score
+    with its ``mtp_logits`` and routing (``_hybrid_score``)."""
+    faults = _mla_tp_faults(model.cfg)
+    routes = []
+    _, rec, timing, cap = tp_serve(model, params, prompts, dev, "tp1",
+                                   capture=prompts, routes=routes)
+    _, hard, _, _ = tp_serve(model, params, prompts, dev, "tp1_hard",
+                             fault_at=(1, faults["hard"]), max_retries=0,
+                             capture=False)
+    score = _hybrid_score(model, params, dev, model.cfg)
+    emit("tp_mla_reference", tokens=rec["stats"]["tokens"],
+         decode_step_ms_median=float(np.median(timing["step_ms"])),
+         k1_per_step=timing["k1_per_step"],
+         k1_batched_per_step=timing["k1b_per_step"],
+         evicted=sorted(hard["errors"]), routing_entries=len(routes))
+    return {"rec": rec, "timing": timing, "hard": hard, "score": score,
+            "logits": {k: v.numpy() for k, v in cap.first.items()},
+            "gaps": cap.gaps, "calls": cap.calls, "routes": routes}
 
 
 def _add_mla(kernels, mla) -> None:
@@ -5860,12 +5909,14 @@ def k3_timing(dev, eng, prompts, long_context: bool = True) -> dict:
         flash_decode_kernel,
         flash_decode_ref,
     )
+    from repro_torch.models.attention import eff_counts
 
     cfg = eng.model.cfg
     caches = [c for c, st in zip(eng.cache, eng.model.state_layers)
               if not st]               # the attention layers' caches
     B = 4
-    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    H, KV = eff_counts(cfg)             # the caches' (padded) heads
+    D = cfg.resolved_head_dim
     lengths = torch.tensor([len(p) + 15 for p in prompts[:B]],
                            dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -5905,7 +5956,8 @@ def k3_timing(dev, eng, prompts, long_context: bool = True) -> dict:
     flops = len(caches) * 4.0 * valid * H * D
     t_b, t_f = byts / HBM_BW, flops / PEAK_BF16
     library_ms = timed_graph(lib, iters=10)
-    rec = {"arch": cfg.name, "launches_timed": len(caches), "B": B, "S": S,
+    rec = {"arch": cfg.name, "H": H, "KV": KV, "launches_timed": len(caches),
+           "B": B, "S": S,
            "lengths": lengths.tolist(), "library_ms": library_ms,
            "bound_ms": max(t_b, t_f) * 1e3,
            "bound_by": "bytes" if t_b >= t_f else "operations"}
@@ -6342,6 +6394,143 @@ def tp_reference(dev, model, params, prompts) -> dict:
             "gaps": cap.gaps}
 
 
+# TP head padding (the reference's pad_heads_to / pad_kv_heads_to) on the
+# tp phase's llama: 32 q and 8 kv heads padded to 40 and 10, G stays 4
+PAD_HEADS = (40, 10)
+# the padded model against the unpadded one on the same logical weights:
+# logits within this share of their scale, the score gates' bound (bf16
+# through 8 layers; only the sums' order moves, where a kernel's split
+# depends on the head count or on K; a padded head that reached the
+# residual would move them by the scale itself)
+PAD_LOGIT_TOL = MLA_SCORE_TOL
+
+
+def _pad_score(model, params, dev):
+    """``Model.forward`` at ``SCORE_B`` x ``SCORE_L`` with K2 on under the
+    H100 plan: (f32 logits on the card, K2 launches)."""
+    from repro_torch.core.hardware import NVIDIA_H100_SXM
+    from repro_torch.core.policy import IntensityGuidedPolicy
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models.layers import LayerCtx
+
+    toks = np.random.default_rng(1).integers(
+        1, model.cfg.vocab_size, size=(SCORE_B, SCORE_L))
+    ctx = LayerCtx(abft=ABFTConfig.from_policy(
+        IntensityGuidedPolicy(), hardware=NVIDIA_H100_SXM,
+        flash_attention=True))
+    K2 = flash_attention.FULL_KERNEL
+    torch.cuda.synchronize()
+    K2.launches = 0
+    with torch.no_grad():
+        out = model.forward(params, {"tokens": toks}, ctx, device=dev)
+    torch.cuda.synchronize()
+    need(not bool(out.flag), f"padding score {model.cfg.name}: a flag")
+    return out.logits, K2.launches
+
+
+def padding_gate(dev, model, params, prompts, ref) -> dict:
+    """TP head padding on one process: the tp phase's llama
+    (``served_config``) padded to ``PAD_HEADS``, drawn from the same seed
+    (the same logical weights, zero in the padded slots: checked), held
+    against the unpadded model: K2 at the padded heads against its plain
+    version (``k2_timing``), a 1 x 1024 score on K2 (one launch a layer)
+    with its logits within ``PAD_LOGIT_TOL`` of the unpadded score's
+    scale; served dense and paged with flash on (K3 at the padded kv
+    heads, one launch a layer a decode step; K3 against its plain version
+    layer by layer on the dense engine's cache, ``k3_timing``): the first
+    prefill and decode logits within ``PAD_LOGIT_TOL`` of the unpadded
+    TP=1 run's (``tp_reference``), paged = dense, each stream equal to
+    the unpadded one's or parting where its top-two gap is below the
+    logit error measured."""
+    from repro_torch.models.attention import eff_counts
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(model.cfg, pad_heads_to=PAD_HEADS[0],
+                              pad_kv_heads_to=PAD_HEADS[1])
+    need(eff_counts(cfg) == PAD_HEADS, f"padding: {eff_counts(cfg)}")
+    pm = Model(cfg)
+    pp = pm.init_params(0, dtype=torch.bfloat16, device=dev)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    KV, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    for i, (lp, lu) in enumerate(zip(pp["layers"], params["layers"])):
+        wq = lp["mixer"]["wq"].reshape(d, PAD_HEADS[1], G, hd)
+        wo = lp["mixer"]["wo"].reshape(PAD_HEADS[1], G, hd, d)
+        need(torch.equal(wq[:, :KV].reshape(d, -1), lu["mixer"]["wq"])
+             and torch.equal(wo[:KV].reshape(-1, d), lu["mixer"]["wo"])
+             and not bool(wq[:, KV:].any()) and not bool(wo[KV:].any()),
+             f"padding: layer {i}'s wq/wo are not the logical ones padded")
+    t2 = k2_timing(dev, (SCORE_B, *PAD_HEADS, hd), L=SCORE_L,
+                   arch=f"{ENGINE_ARCH} padded")
+    lu, k2_u = _pad_score(model, params, dev)
+    lp_, k2_p = _pad_score(pm, pp, dev)
+    need(k2_u == k2_p == cfg.n_layers, f"padding score: K2 {k2_p} times, "
+         f"unpadded {k2_u}")
+    scale = lu.abs().max().item()
+    score_err = (lp_ - lu).abs().max().item()
+    del lu, lp_
+    need(score_err <= PAD_LOGIT_TOL * scale, f"padding score: logits off "
+         f"the unpadded ones by {score_err} (scale {scale})")
+    eng, dense, dtime, cap = tp_serve(pm, pp, prompts, dev, "pad_dense",
+                                      capture=None)
+    t3 = k3_timing(dev, eng, prompts, long_context=False)
+    first = {k: v.numpy() for k, v in cap.first.items()}
+    del eng, cap
+    _, paged, ptime, _ = tp_serve(pm, pp, prompts, dev, "pad_paged",
+                                  cache_kind="paged", capture=False)
+    del pp
+    free_memory()
+    first_err = max(float(np.abs(first[k] - ref["logits"][k]).max())
+                    for k in ("prefill", "decode"))
+    first_scale = max(float(np.abs(v).max()) for v in ref["logits"].values())
+    need(first_err <= PAD_LOGIT_TOL * first_scale, f"padding: first logits "
+         f"off the unpadded ones by {first_err} (scale {first_scale})")
+    need(paged["streams"] == dense["streams"],
+         "padding: paged streams differ from dense")
+    for label, tm in (("dense", dtime), ("paged", ptime)):
+        need(tm["k3_per_step"] == [cfg.n_layers]
+             and tm["k1_per_step"] == [7 * cfg.n_layers + 1],
+             f"padding {label}: K1/K3 a step {tm['k1_per_step']}/"
+             f"{tm['k3_per_step']}")
+    err = max(first_err, score_err)
+    tp1 = ref["rec"]["streams"]
+    equal = [u for u in tp1 if tp1[u] == dense["streams"][u]]
+    ties = {}
+    for u in tp1:
+        if u in equal:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(tp1[u],
+                                                  dense["streams"][u]))
+                 if a != b)
+        ties[u] = {"step": t, "tp1_top2_gap": ref["gaps"][(u, t)]}
+        need(ref["gaps"][(u, t)] < err, f"padding: stream {u} parts from "
+             f"the unpadded one at step {t}, top-two gap "
+             f"{ref['gaps'][(u, t)]} >= the logit error {err}")
+    rec = {"heads": list(PAD_HEADS), "logical_heads": [cfg.n_heads, KV],
+           "score_max_abs_err": score_err, "score_scale": scale,
+           "score_k2_launches": k2_p,
+           "first_logits_max_abs_err": first_err,
+           "first_logits_scale": first_scale,
+           "streams_equal_unpadded": len(equal), "streams": len(tp1),
+           "divergent": ties,
+           "k1_per_step": dtime["k1_per_step"],
+           "k3_per_step": dtime["k3_per_step"],
+           "launches": {"dense": dtime["launches"],
+                        "paged": ptime["launches"]},
+           "decode_step_ms_median": float(np.median(dtime["step_ms"])),
+           "k2": {k: t2[k] for k in ("H", "KV", "D", "L", "ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by",
+                                     "max_abs_err")},
+           "k3": {k: t3[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "max_abs_err")}
+           | {"paged_ms": t3["paged"]["ms"],
+              "splits": t3["dense"]["splits"]},
+           "seconds": time.perf_counter() - t0}
+    emit("padding", **rec)
+    return rec
+
+
 def tp_runs(dev) -> dict:
     """The ``tp`` phase: full-width llama3.2-1b (``SERVED_LAYERS`` layers)
     served with tensor parallelism over two ranks sharing this one card (gloo), against
@@ -6361,6 +6550,7 @@ def tp_runs(dev) -> dict:
     params, prompts = engine_inputs(dev, cfg=cfg)
     k1 = tp_k1_checks(dev, model, params)
     ref = tp_reference(dev, model, params, prompts)
+    padding = padding_gate(dev, model, params, prompts, ref)
     del params
     free_memory()
     t_spawn = time.perf_counter()
@@ -6451,7 +6641,7 @@ def tp_runs(dev) -> dict:
                "evictions", "prefill_chunks", "draft_proposed",
                "draft_accepted")} for k, v in st.items()},
            "audit": r0["audit"], "k1": k1, "spawn_seconds": spawn_s,
-           "seconds": time.perf_counter() - t0,
+           "padding": padding, "seconds": time.perf_counter() - t0,
            "note": "two ranks time-sharing one card over gloo: a "
                    "correctness run, not a tensor-parallel speed"}
     emit("tp", **res)
@@ -6467,6 +6657,13 @@ def _add_tp(kernels, tp) -> None:
         "max_abs_err")} for name, rec in tp["k1"].items()}
     k1["tp_launches_per_step"] = tp["k1_per_step"]
     k3["tp_launches_per_step"] = tp["k3_per_step"]
+    pad = tp["padding"]
+    kernels[1]["padded_heads"] = {**pad["k2"],
+                                  "launches": pad["score_k2_launches"]}
+    k3["padded_heads"] = {**pad["k3"], "heads": pad["heads"],
+                          "launches_per_step": pad["k3_per_step"],
+                          "launches": pad["launches"]["dense"][
+                              "flash_decode"]}
 
 
 # ------------------------------------------------------------- tp_hybrid
@@ -6516,21 +6713,21 @@ def _state_digest(eng) -> str:
     return h.hexdigest()
 
 
-def tp_hybrid_k1(dev, cfg, shard) -> dict:
-    """K1 at this rank's shard shapes of a jamba decode step (M = 4),
-    against its plain version (``_k1_site_check``) and timed: each group
-    of 2-D GEMMs (the row-parallel partials ``o``, ``ssm_out`` and ``down``
-    with f32 out, as the path runs them; the router and head f32 out) by
-    CUDA-graph replay beside its plain version, ``torch.matmul`` and the
-    bound; then K1 batched over the rank's E/2 = 8 experts at C = 4 and an
-    admission's C (``_batched_case``, ``moe_k1_timing``)."""
+def shard_k1(dev, cfg, shard, phase, f32_out, seed, extra=None) -> dict:
+    """K1 at a TP rank's shard shapes of a decode step (M = 4), against
+    its plain version (``_k1_site_check``) and timed: each group of 2-D
+    GEMMs (``_step_gemm_groups`` and ``extra``, name -> weights; the
+    groups in ``f32_out`` with f32 out: the row-parallel partials, the
+    router and the head, as the path runs them) by CUDA-graph replay
+    beside its plain version, ``torch.matmul`` and the bound; then K1
+    batched over the rank's experts at C = 4 and an admission's C
+    (``_batched_case``, ``moe_k1_timing``)."""
     from repro_torch.kernels.abft_matmul import abft_matmul_kernel
     from repro_torch.kernels.ref import abft_matmul_ref
     from repro_torch.models.moe import capacity
 
-    f32_out = {"o", "ssm_out", "down", "router", "head"}
-    groups = _step_gemm_groups(shard)
-    gen = torch.Generator(device=dev).manual_seed(41)
+    groups = {**_step_gemm_groups(shard), **(extra or {})}
+    gen = torch.Generator(device=dev).manual_seed(seed)
     m, out = 4, {}
     for name, ws in groups.items():
         od = torch.float32 if name in f32_out else torch.bfloat16
@@ -6570,15 +6767,15 @@ def tp_hybrid_k1(dev, cfg, shard) -> dict:
     for wname in ("w_up", "w_down"):
         for C in caps:
             err, r = _batched_case(dev, gen, ffn[wname], C,
-                                   f"tp2 jamba {wname} C={C}")
+                                   f"tp2 {cfg.name} {wname} C={C}")
             worst, ratio = max(worst, err), max(ratio, r)
-    need(ratio < 1, f"tp_hybrid batched K1 clean residual {ratio}")
+    need(ratio < 1, f"{phase} batched K1 clean residual {ratio}")
     batched = {"E_local": int(ffn["w_up"].shape[0]), "capacities": caps,
                "max_abs_err": worst, "clean_ratio": ratio,
                "timing": moe_k1_timing(dev, shard, caps,
-                                       phase="tp_hybrid_k1_batched")}
+                                       phase=f"{phase}_k1_batched")}
     free_memory()
-    emit("tp_hybrid_k1", m=m, shapes=out,
+    emit(f"{phase}_k1", m=m, shapes=out,
          batched={k: v for k, v in batched.items() if k != "timing"})
     return {"shapes": out, "batched": batched}
 
@@ -6599,16 +6796,18 @@ def _hybrid_collective_ms(cfg, tp, dev) -> list:
     return _tp_collective_ms(cfg, tp, n_sum, n_mix, dev)
 
 
-def _hybrid_audit(model, params, prompts, dev, mesh, rank):
+def _hybrid_audit(model, params, prompts, dev, mesh, rank,
+                  phase="tp_hybrid"):
     """One TP=2 decode step walked on rank 0 by ``analysis.audit.
     audit_served_step`` (every rank steps: the step's collectives need
     them all): fraction 1.0, the engine's TP=2 plan bijective with the
-    executed sites, the K1/K3 records equal to rank 0's launch counters."""
+    executed sites, the K1/K3 records equal to rank 0's launch counters;
+    the known gaps' FLOPs (MLA's core) beside."""
     from repro_torch.analysis.audit import audit_served_step
 
     eng = _audit_engine(model, params, dev, mesh=mesh)
     eng.admit(_audit_requests(prompts))
-    need(len(eng.active) == 4, f"tp_hybrid audit: {len(eng.active)} of 4")
+    need(len(eng.active) == 4, f"{phase} audit: {len(eng.active)} of 4")
     if rank != 0:
         eng.step()
         return None
@@ -6624,13 +6823,16 @@ def _hybrid_audit(model, params, prompts, dev, mesh, rank):
     launches = _kernel_launches()
     rec = a.to_json()
     need(rec["protected_fraction"] == 1.0,
-         f"tp_hybrid audit: fraction {rec['protected_fraction']}")
-    need(a.crosscheck.bijective, f"tp_hybrid audit: {a.crosscheck.report()}")
+         f"{phase} audit: fraction {rec['protected_fraction']}")
+    need(a.crosscheck.bijective, f"{phase} audit: {a.crosscheck.report()}")
     need(rec["records"] == launches,
-         f"tp_hybrid audit: records {rec['records']} != launches {launches}")
+         f"{phase} audit: records {rec['records']} != launches {launches}")
     return {"protected_fraction": rec["protected_fraction"],
             "sites": len(a.crosscheck.matched), "bijective": True,
             "records": rec["records"], "launches": launches,
+            "known_gap_flops": {k: v["flops"] for k, v in rec["coverage"][
+                "known_unprotected"].items()},
+            "protected_flops": rec["coverage"]["protected_flops"],
             "seconds": seconds}
 
 
@@ -6638,7 +6840,7 @@ def tp_hybrid_rank(prompts, device_type: str = "cuda") -> dict:
     """One rank of the ``tp_hybrid`` phase: jamba at published widths and
     8 layers, only this rank's shard drawn (``init_params(mesh=)``, seed
     0); rank 0 holds K1 at the shard shapes against its plain version
-    (``tp_hybrid_k1``); then served at ``mesh=2``: dense (its first logits
+    (``shard_k1``); then served at ``mesh=2``: dense (its first logits
     kept on rank 0), paged, an ``expert_up`` fault at decode step 2 and at
     the second admission, an ``ssm_in`` fault on rank 1's columns, an
     ``ssm_out`` fault, hard-fault eviction; each run's state digest; the
@@ -6666,7 +6868,9 @@ def tp_hybrid_rank(prompts, device_type: str = "cuda") -> dict:
     weights = sum(t.numel() * t.element_size()
                   for t in tree_leaves(params))
     rank = mesh.model_rank
-    k1 = tp_hybrid_k1(dev, cfg, params) if rank == 0 else None
+    k1 = shard_k1(dev, cfg, params, "tp_hybrid",
+                  {"o", "ssm_out", "down", "router", "head"},
+                  seed=41) if rank == 0 else None
     free_memory()
     torch.cuda.reset_peak_memory_stats()
     faults = _hybrid_faults(cfg)
@@ -6712,8 +6916,9 @@ def tp_hybrid_rank(prompts, device_type: str = "cuda") -> dict:
 
 def _hybrid_score(model, params, dev, cfg, hints=None, tp=None) -> dict:
     """A 1 x ``HYBRID_SCORE_L`` ``Model.forward`` (flash off, the H100
-    plan; seeded tokens) with its routing logged: f32 logits and the
-    routing on the host.  On a mesh every rank runs it (its collectives)."""
+    plan; seeded tokens) with its routing logged: f32 logits (and the MTP
+    head's ``mtp_logits`` where the model has one) and the routing on the
+    host.  On a mesh every rank runs it (its collectives)."""
     from repro_torch.core.hardware import NVIDIA_H100_SXM
     from repro_torch.core.policy import IntensityGuidedPolicy
     from repro_torch.core.protected import ABFTConfig
@@ -6726,10 +6931,13 @@ def _hybrid_score(model, params, dev, cfg, hints=None, tp=None) -> dict:
         tp=tp)
     routes = []
     with torch.no_grad(), _route_log(routes):
-        logits = model.forward(params, {"tokens": toks}, ctx,
-                               device=dev.type).logits
-    return {"logits": logits[0].float().cpu().numpy(),
-            "routes": [ids for ids, _ in routes]}
+        out = model.forward(params, {"tokens": toks}, ctx, device=dev.type)
+    need(not bool(out.flag), f"{cfg.name} score: a clean forward flagged")
+    rec = {"logits": out.logits[0].float().cpu().numpy(),
+           "routes": [ids for ids, _ in routes]}
+    if out.mtp_logits is not None:
+        rec["mtp_logits"] = out.mtp_logits[0].float().cpu().numpy()
+    return rec
 
 
 def _hybrid_vs_tp1(cfg, ref, ref_logits, ref_score, routes, calls, gaps, r0,
@@ -6789,7 +6997,7 @@ def _hybrid_vs_tp1(cfg, ref, ref_logits, ref_score, routes, calls, gaps, r0,
                                       for v in ref_logits.values())}
 
 
-def _hybrid_gates(vs) -> None:
+def _hybrid_gates(vs, phase="tp_hybrid") -> None:
     """The ``tp_hybrid`` gates against TP=1 (``_hybrid_vs_tp1``): the
     score's logits within ``HYBRID_LOGIT_TOL`` of its scale wherever the
     routing has not yet parted; the engine's first routing flip, if any, a
@@ -6800,14 +7008,14 @@ def _hybrid_gates(vs) -> None:
     before = sc["max_abs_err_before_it"]
     need(sc["first_position_routed_apart"] > 0
          and before <= HYBRID_LOGIT_TOL * sc["logit_scale"],
-         f"tp_hybrid: score logits off TP=1 by {before} before the first "
+         f"{phase}: score logits off TP=1 by {before} before the first "
          f"position routed apart ({sc})")
     flip = vs["routing_flip"]
     need(flip is None or flip["tp1_margin_max"] <= HYBRID_ROUTER_TIE,
-         f"tp_hybrid: the first routing flip is no router near-tie: {flip}")
+         f"{phase}: the first routing flip is no router near-tie: {flip}")
     for u, d in vs["divergent"].items():
         need(d["after_routing_flip"] or d["tp1_top2_gap"] < before,
-             f"tp_hybrid: stream {u} diverges from TP=1 at step "
+             f"{phase}: stream {u} diverges from TP=1 at step "
              f"{d['step']} before any routing flip with a top-two gap "
              f"{d['tp1_top2_gap']} >= {before}")
 
@@ -6942,6 +7150,342 @@ def _add_tp_hybrid(kernels, hy) -> None:
     k3["tp_hybrid_launches_per_step"] = hy["k3_per_step"]
 
 
+# ---------------------------------------------------------------- tp_mla
+
+# deepseek-v3-671b as the mla phase serves it (published widths, 4 layers:
+# 3 dense + 1 MoE, the MTP head) over two ranks sharing the card: MLA's
+# q heads, w_uk/w_uv and wo split, the latent replicated, 128 of the 256
+# experts a rank (EP), the shared expert column- and row-parallel.  A
+# decode step's collectives by the design: the embedding 1, each layer's
+# wo 1 and dense down 1 (3 layers), the MoE layer's wo, EP combine and
+# shared down 3, the head's gather 1, the flag 1
+MLA_TP_COLLECTIVES = 12
+# K1 a decode step a rank: q_a, q_b, kv_a, o and the FFN's up, gate, down
+# in each dense layer; q_a, q_b, kv_a, o, the router, the three batched
+# expert GEMMs and the shared expert's three in the MoE layer; the head
+MLA_TP_K1, MLA_TP_K1_BATCHED = 3 * 7 + 11 + 1, 3
+
+
+def _mla_tp_faults(cfg) -> dict:
+    """``mla.q_b`` (site ``qkv``) at layer 1 on column 3/4 of its width
+    (column-parallel: rank 1's at TP=2), ``expert_up`` at the MoE layer 3
+    (the reference's unbatched fault: every expert the rank holds, rank
+    1's 128..255 among them), and the eviction run's ``mlp_down`` at
+    layer 0 (row-parallel: rank 0's partial)."""
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.models.layers import ModelFault
+
+    col = cfg.n_heads * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) \
+        * 3 // 4
+    return {"q_b": ModelFault.at(1, "qkv", FaultSpec.value(0, col, 1e5)),
+            "expert_up": ModelFault.at(3, "expert_up",
+                                       FaultSpec.value(0, 1, 1e5)),
+            "hard": ModelFault.at(0, "mlp_down", FaultSpec.value(0, 1, 1e5))}
+
+
+def _latent_digest(eng) -> str:
+    """A digest of every layer's latent cache leaf on this rank."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for layer in eng.cache:
+        h.update(layer["latent"].float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_mla_k1(dev, model) -> dict:
+    """K1 at rank 0's TP=2 shard shapes of a deepseek decode step, on the
+    card alone once the ranks have ended: rank 0's shard drawn here
+    (``init_params(mesh=)``, seed 0) and checked and timed by ``shard_k1``
+    (the row-parallel ``o``, ``down`` and ``shared_down`` partials, the
+    router and the head with f32 out; the MTP head's ``proj`` beside), then
+    freed."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed.mesh import Mesh
+
+    mesh = Mesh(grid=np.arange(TP_RANKS).reshape(1, TP_RANKS),
+                axis_names=("data", "model"),
+                devices=(dev,) * TP_RANKS, rank=0)
+    shard = model.init_params(0, dtype=torch.bfloat16, device=dev, mesh=mesh)
+    gb = sum(t.numel() * t.element_size() for t in tree_leaves(shard)) / 1e9
+    out = shard_k1(dev, model.cfg, shard, "tp_mla",
+                   {"o", "down", "shared_down", "router", "head"}, seed=43,
+                   extra={"mtp_proj": [shard["mtp"]["proj"]]})
+    out["shard_gb"] = gb
+    del shard
+    free_memory()
+    return out
+
+
+def tp_mla_rank(prompts, device_type: str = "cuda") -> dict:
+    """One rank of the ``tp_mla`` phase: deepseek-v3-671b at published
+    widths and ``MLA_LAYERS`` layers with its MTP head, only this rank's
+    shard drawn (``init_params(mesh=)``, seed 0); served at ``mesh=2``:
+    dense (its first logits, gaps, calls and routing kept on rank 0),
+    paged, a ``mla.q_b`` fault on rank 1's columns at decode step 2 with
+    an ``expert_up`` fault at the second admission, hard-fault eviction;
+    each run's latent-cache digest; the 1 x ``HYBRID_SCORE_L`` score with
+    ``mtp_logits``; the collectives timed alone; the rank-0 audit; the
+    peak memory.  Every record is checked equal across the ranks."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.mesh import build_mesh, rank_devices
+    from repro_torch.models.model import Model
+
+    import torch.distributed as dist
+
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("tp_mla rank: no CUDA device")
+    cfg = mla_config()
+    model = Model(cfg)
+    mesh = build_mesh(model=TP_RANKS, data=1,
+                      devices=rank_devices(device_type))
+    dev = mesh.device
+    rank = mesh.model_rank
+    # one rank draws at a time: each draw's transient (one f32 slice of
+    # 2**30 elements, 4.3 GB) beside both shards, never two of them
+    for r in range(TP_RANKS):
+        if r == rank:
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            params = model.init_params(0, dtype=torch.bfloat16, device=dev,
+                                       mesh=mesh)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t
+            draw_peak = torch.cuda.max_memory_allocated()
+            free_memory()
+        dist.barrier(group=mesh.group)
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(params))
+    card_free = torch.cuda.mem_get_info()[0]
+    torch.cuda.reset_peak_memory_stats()
+    faults = _mla_tp_faults(cfg)
+    recs, timings, digests = {}, {}, {}
+
+    def run(label, **kw):
+        eng, rec, timing, cap = tp_serve(model, params, prompts, dev, label,
+                                         mesh=mesh, **kw)
+        rec = {**rec, "latent": _latent_digest(eng)}
+        collectives.check_same(rec, eng.executor.tp, label)
+        recs[label], timings[label] = rec, timing
+        return eng, cap
+
+    routes = [] if rank == 0 else None
+    eng, cap = run("dense", capture=None, routes=routes)
+    ex = eng.executor
+    tp = ex.tp
+    out = {"rank": rank, "backend": tp.backend, "device": str(eng.device),
+           "sharded": sorted(tp.sharded), "moe_mode": ex.hints.moe_mode,
+           "plan": [{k: r[k] for k in ("layer", "m", "k", "n", "scheme")}
+                    for r in eng.plan.report_rows()]}
+    score = _hybrid_score(model, ex.params, dev, cfg, ex.hints, tp)
+    if rank == 0:
+        out["logits"] = {k: v.numpy() for k, v in cap.first.items()}
+        out["routes"], out["calls"], out["score"] = routes, cap.calls, score
+    del eng, cap, ex
+    run("paged", cache_kind="paged", capture=False)
+    run("faults", fault_at=(2, faults["q_b"]),
+        admit_fault_at=(1, faults["expert_up"]), capture=False)
+    run("hard_fault", fault_at=(1, faults["hard"]), max_retries=0,
+        capture=False)
+    out["collective_ms"] = _tp_collective_ms(
+        cfg, tp, MLA_TP_COLLECTIVES - 2, 0, dev)
+    out["audit"] = _hybrid_audit(model, params, prompts, dev, mesh, rank,
+                                 phase="tp_mla")
+    out["records"], out["timings"] = recs, timings
+    out["init_s"], out["weights_gb"] = init_s, weights / 1e9
+    out["draw_peak_gb"] = draw_peak / 1e9
+    out["card_free_gb_after_draws"] = card_free / 1e9
+    out["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _mtp_vs_tp1(ref_score, score) -> dict:
+    """The score's ``mtp_logits`` at TP=2 against TP=1's: the per-position
+    error, its scale, and the error before the first position routed apart
+    in either MoE layer (layer 3's and the MTP head's)."""
+    pos_err = torch.from_numpy(np.abs(score["mtp_logits"]
+                                      - ref_score["mtp_logits"]).max(-1))
+    rec = _routing_diff([torch.from_numpy(r) for r in score["routes"]],
+                        [torch.from_numpy(r) for r in ref_score["routes"]],
+                        pos_err, HYBRID_SCORE_L)
+    rec["logit_scale"] = float(np.abs(ref_score["mtp_logits"]).max())
+    rec["max_abs_err"] = float(pos_err.max())
+    return rec
+
+
+def tp_mla_runs(dev, tp1, prompts) -> dict:
+    """The ``tp_mla`` phase: deepseek-v3-671b at published widths and 4
+    layers with its MTP head served over two ranks sharing this card
+    (gloo), each drawing only its 26.9 GB shard, against the TP=1 run the
+    mla phase kept on the host (``mla_tp1``) and against itself: K1 at
+    rank 0's shard shapes against its plain version (``tp_mla_k1``, after
+    the ranks); records and latent digests equal across the ranks; dense
+    = paged = faulted streams, each fault detected and retried, the
+    faulted run's latent cache equal to the clean run's; evictions as at
+    TP=1; 12 collectives, 33 K1 (3 batched) and no K2 or K3 a decode step
+    a rank; against TP=1 the score's logits and ``mtp_logits`` within
+    ``MLA_SCORE_TOL`` of their scale before the first position routed
+    apart, the first routing flip a router near-tie, each divergent
+    stream after a flip or at a logit near-tie (``_hybrid_gates``); the
+    rank-0 audit at fraction 1.0 with MLA's core the known gap.  Two ranks
+    time-slicing one card over gloo: the times are not a TP speed."""
+    from repro_torch.distributed import spawn
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg = mla_config()
+    emit_memory("tp_mla")
+    t_spawn = time.perf_counter()
+    outs = spawn.run(tp_mla_rank, TP_RANKS, prompts, dev.type,
+                     device=dev.type)
+    spawn_s = time.perf_counter() - t_spawn
+    free_memory()
+    k1 = tp_mla_k1(dev, Model(cfg))
+    r0 = outs[0]
+    recs = r0["records"]
+    for o in outs[1:]:
+        need(o["records"] == recs, f"tp_mla: rank {o['rank']}'s records "
+             f"differ from rank 0's")
+    st = {k: v["stats"] for k, v in recs.items()}
+    shard_gb = cfg_weights_gb(cfg, TP_RANKS)
+    for label, rec in recs.items():
+        if label != "hard_fault":
+            need(not rec["errors"], f"tp_mla {label}: {rec['errors']}")
+            need(all(len(s) == TP_NEW for s in rec["streams"].values()),
+                 f"tp_mla {label}: incomplete streams")
+            need(rec["streams"] == recs["dense"]["streams"],
+                 f"tp_mla: {label} streams differ from dense")
+    need(st["faults"]["faults_detected"] >= 2
+         and st["faults"]["retries"] >= 2
+         and st["faults"]["hard_faults"] == 0,
+         f"tp_mla faults: {st['faults']}")
+    need(recs["faults"]["latent"] == recs["dense"]["latent"],
+         "tp_mla: the faulted run's latent cache differs from the clean "
+         "run's")
+    need(st["hard_fault"]["hard_faults"] >= 1, "tp_mla: no hard fault")
+    evicted = sorted(int(u) for u in recs["hard_fault"]["errors"])
+    need(evicted == sorted(int(u) for u in tp1["hard"]["errors"]),
+         f"tp_mla: evicted {evicted} != TP=1's "
+         f"{sorted(tp1['hard']['errors'])}")
+    for o in outs:
+        t = o["timings"]["dense"]
+        need(t["collectives_per_step"] == [MLA_TP_COLLECTIVES],
+             f"tp_mla rank {o['rank']}: collectives a step "
+             f"{t['collectives_per_step']}")
+        need(t["k1_per_step"] == tp1["timing"]["k1_per_step"] == [MLA_TP_K1]
+             and t["k1b_per_step"] == [MLA_TP_K1_BATCHED]
+             and t["k3_per_step"] == [0],
+             f"tp_mla rank {o['rank']}: K1/K1 batched/K3 a step "
+             f"{t['k1_per_step']}/{t['k1b_per_step']}/{t['k3_per_step']}")
+        for label, tl in o["timings"].items():
+            need(tl["launches"]["abft_matmul"] > 0, f"tp_mla {label}: no K1")
+            need(tl["launches"]["flash_decode"] == 0,
+                 f"tp_mla {label}: K3 launched on the MLA path")
+        need(abs(o["weights_gb"] - shard_gb) < 1e-9,
+             f"tp_mla rank {o['rank']}: {o['weights_gb']} GB drawn, its "
+             f"shard is {shard_gb} GB")
+    audit = r0["audit"]
+    need(audit["known_gap_flops"].get("mla", 0) > 0,
+         f"tp_mla audit: MLA's core is not the known gap: {audit}")
+    # against TP=1
+    vs = _hybrid_vs_tp1(cfg, tp1["rec"], tp1["logits"], tp1["score"],
+                        tp1["routes"], tp1["calls"], tp1["gaps"], r0,
+                        recs["dense"])
+    mtp = _mtp_vs_tp1(tp1["score"], r0["score"])
+    t = r0["timings"]["dense"]
+    res = {"arch": MLA_ARCH, "layers": cfg.n_layers, "ranks": TP_RANKS,
+           "backend": r0["backend"], "moe_mode": r0["moe_mode"],
+           "devices": [o["device"] for o in outs], "sharded": r0["sharded"],
+           "plan": r0["plan"],
+           "weights_gb_per_rank": [o["weights_gb"] for o in outs],
+           "init_s_per_rank": [o["init_s"] for o in outs],
+           "draw_peak_gb_per_rank": [o["draw_peak_gb"] for o in outs],
+           "card_free_gb_after_draws": r0["card_free_gb_after_draws"],
+           "serve_peak_gb_per_rank": [o["serve_peak_gb"] for o in outs],
+           **vs, "mtp_score": mtp, "evicted": evicted,
+           "routing_flips_engine": _count_flips(tp1["routes"],
+                                                r0["routes"]),
+           "k1_per_step": t["k1_per_step"],
+           "k1_batched_per_step": t["k1b_per_step"],
+           "k3_per_step": t["k3_per_step"],
+           "collectives_per_step": t["collectives_per_step"][0],
+           "decode_step_ms_median": float(np.median(t["step_ms"])),
+           "collectives_alone_ms_per_step_median": float(
+               np.median(r0["collective_ms"])),
+           "tp1_decode_step_ms_median": float(
+               np.median(tp1["timing"]["step_ms"])),
+           "launches": {k: v["launches"] for k, v in r0["timings"].items()},
+           "stats": {k: {f: v[f] for f in (
+               "tokens", "faults_detected", "retries", "hard_faults",
+               "evictions")} for k, v in st.items()},
+           "audit": audit, "k1": k1, "spawn_seconds": spawn_s,
+           "seconds": time.perf_counter() - t0,
+           "note": "two ranks time-sharing one card over gloo: a "
+                   "correctness run, not a tensor-parallel speed"}
+    emit("tp_mla", **res)
+    _hybrid_gates(vs, phase="tp_mla")
+    need(mtp["first_position_routed_apart"] > 0
+         and mtp["max_abs_err_before_it"] <= MLA_SCORE_TOL
+         * mtp["logit_scale"],
+         f"tp_mla: mtp_logits off TP=1 by {mtp['max_abs_err_before_it']} "
+         f"before the first position routed apart ({mtp})")
+    return res
+
+
+def cfg_weights_gb(cfg, k: int = 1) -> float:
+    """The bf16 weights of one rank's shard of ``cfg`` at TP=k (the whole
+    model at k = 1): ``Model.param_shapes`` cut by ``param_specs``."""
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.sharding import (
+        map_with_path,
+        param_specs,
+        shard_shape,
+    )
+    from repro_torch.models.model import Model
+
+    shapes = Model(cfg).param_shapes()
+    mesh = Mesh(grid=np.arange(k).reshape(1, k), axis_names=("data", "model"),
+                devices=(torch.device("cpu"),) * k)
+    specs, leaves = [], []
+    map_with_path(lambda _, sp: specs.append(sp),
+                  param_specs(cfg, shapes, mesh))
+    map_with_path(lambda _, t: leaves.append(t), shapes)
+    return sum(int(np.prod(shard_shape(sp, t.shape, mesh)))
+               * t.element_size() for sp, t in zip(specs, leaves)) / 1e9
+
+
+def _count_flips(a, b) -> dict:
+    """Two engine runs' routing logs entry by entry while their calls
+    agree in shape: the entries and tokens routed to another expert set."""
+    entries = tokens = compared = 0
+    for (ia, _), (ib, _) in zip(a, b):
+        if ia.shape != ib.shape:
+            break
+        compared += 1
+        differ = (ia != ib).any(-1)
+        entries += int(differ.any())
+        tokens += int(differ.sum())
+    return {"entries_compared": compared, "entries_apart": entries,
+            "tokens_apart": tokens}
+
+
+def _add_tp_mla(kernels, res) -> None:
+    """The ``tp_mla`` phase's numbers on the kernels line: K1 at
+    deepseek's TP=2 shard shapes (2-D and batched over 128 experts), and
+    K1/K3 launches a decode step a rank (K2 and K3: 0 on MLA)."""
+    k1, k2, k3 = kernels
+    k1["tp2_deepseek_m4"] = {name: {key: rec[key] for key in (
+        "k", "n", "out", "gemms", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "max_abs_err")}
+        for name, rec in res["k1"]["shapes"].items()}
+    k1["tp2_deepseek_batched"] = res["k1"]["batched"]["timing"]
+    k1["tp_mla_launches_per_step"] = res["k1_per_step"]
+    k1["tp_mla_batched_launches_per_step"] = res["k1_batched_per_step"]
+    k2["tp_mla_launches"] = 0
+    k3["tp_mla_launches_per_step"] = res["k3_per_step"]
+
+
 def k1_max_err(dev, params) -> float:
     """K1 vs plain at the decode step's shapes (M=4, first layer + head)."""
     from repro_torch.kernels.abft_matmul import abft_matmul_kernel
@@ -7046,6 +7590,8 @@ def main(argv=None) -> int:
     phases = set(args.phases.split(","))
     if "timing" in phases and not {"engine", "forward"} <= phases:
         fail("the timing phase needs the engine and forward phases")
+    if "tp_mla" in phases and "mla" not in phases:
+        fail("the tp_mla phase needs the mla phase (its TP=1 side)")
     global AUDITS
     AUDITS = [] if "audit" in phases else None
     if not torch.cuda.is_available():
@@ -7059,6 +7605,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
     dev = torch.device("cuda")
+    # the libraries' workspaces (cuBLAS, cuBLASLt) allocated first, in small
+    # segments: carved later out of a freed multi-GB transient (the plain
+    # versions' f32 weights) they would pin it for the rest of the run
+    for dt in (torch.bfloat16, torch.float32):
+        a = torch.ones(8, 8, dtype=dt, device=dev)
+        torch.matmul(a, a)
+        torch.bmm(a[None], a[None])
+    torch.cuda.synchronize()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7195,6 +7749,7 @@ def main(argv=None) -> int:
         eng_out = fwd = train_params = camp = tr = fam = None
         free_memory()
         mla = mla_runs(dev)
+        mla_side, mla_prompts = mla.pop("tp1"), mla.pop("prompts")
         if kernels is not None:
             _add_mla(kernels, mla)
     if "ssm" in phases:
@@ -7233,6 +7788,13 @@ def main(argv=None) -> int:
         hy = tp_hybrid_runs(dev)
         if kernels is not None:
             _add_tp_hybrid(kernels, hy)
+    if "tp_mla" in phases:
+        tp = hy = None
+        free_memory()
+        tm = tp_mla_runs(dev, mla_side, mla_prompts)
+        mla_side = None
+        if kernels is not None:
+            _add_tp_mla(kernels, tm)
     for line in smi:
         print(line)
     if kernels is not None:

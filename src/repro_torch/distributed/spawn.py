@@ -17,11 +17,13 @@ stderr.  On CUDA the parent builds the kernels (``library.build_all``)
 before it starts the ranks, so k ``nvcc`` builds never race in
 ``kernels/build/``.
 
-A rank that raises, or dies, fails the run: its traceback is raised in the
-parent as ``RuntimeError`` and the other ranks are terminated (a rank
-blocked in a collective with a dead peer would wait for the process
-group's timeout otherwise).  Every started process is joined or killed
-before ``run`` returns.
+A rank that raises, or dies, fails the run: the parent waits up to
+``GRACE_S`` for the other ranks' outcomes (a peer of a failed rank fails
+too, on the closed connection, and may report first), raises one
+``RuntimeError`` with every failed rank's traceback, and terminates the
+ranks still running (a rank blocked in a collective with a dead peer
+would wait for the process group's timeout otherwise).  Every started
+process is joined or killed before ``run`` returns.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import traceback
 import torch
 
 TIMEOUT_S = 600.0
+GRACE_S = 10.0
 
 
 def pick_backend(k: int, device_type: str) -> str:
@@ -96,26 +99,40 @@ def run(fn, k: int, *args, device=None) -> list:
         for p in procs:
             p.start()
         deadline = time.monotonic() + TIMEOUT_S
+        failed: dict = {}
         try:
-            while len(results) < k:
+            while len(results) + len(failed) < k:
                 try:
                     rank, ok, res = out.get(timeout=1.0)
                 except queue.Empty:
                     dead = [r for r, p in enumerate(procs)
                             if p.exitcode not in (None, 0)
-                            and r not in results]
-                    if dead:
+                            and r not in results and r not in failed]
+                    if dead and not failed:
                         raise RuntimeError(
                             f"rank(s) {dead} died (exit codes "
                             f"{[procs[r].exitcode for r in dead]})")
                     if time.monotonic() > deadline:
+                        if failed:
+                            break
                         raise RuntimeError(
                             f"ranks timed out after {TIMEOUT_S:.0f} s; "
                             f"{sorted(results)} finished")
                     continue
-                if not ok:
-                    raise RuntimeError(f"rank {rank} failed:\n{res}")
-                results[rank] = res
+                if ok:
+                    results[rank] = res
+                    continue
+                if not failed:
+                    deadline = time.monotonic() + GRACE_S
+                failed[rank] = res
+            if failed:
+                silent = [r for r in range(k)
+                          if r not in results and r not in failed]
+                raise RuntimeError("\n".join(
+                    [f"rank {r} failed:\n{tb}" for r, tb in
+                     sorted(failed.items())]
+                    + [f"rank {r}: no result (exit code "
+                       f"{procs[r].exitcode})" for r in silent]))
         finally:
             for p in procs:
                 if len(results) < k and p.is_alive():

@@ -49,14 +49,15 @@ accepted drafts, acceptance rate, verify retries).
 (``distributed/spawn.py``: one process a rank, gloo where ranks share a
 device or run on the CPU, NCCL where each has a GPU of its own), each
 drawing only its shard of the weights (the same ``--seed``'s numbers) and
-holding its shard of the KV cache or per-slot state: GQA and Mamba2
-stacks with dense, MoE or no FFNs (the dense family, qwen2-moe-a2.7b,
-mamba2-1.3b, jamba-v0.1-52b); the MLA, encoder-decoder and vision stacks
-exit with the ``NotImplementedError`` message (ROADMAP A.3b-ii) before
-any rank starts.  Rank 0 prints the stats
-line, with the per-shard plan (``shard_plan``), the backend and the ranks
-a device, and writes every artifact; the heartbeat monitor tracks one
-worker a rank.  ``--mesh 1`` runs the mesh executor in this process.
+holding its shard of the KV cache or per-slot state: GQA, MLA and
+Mamba2 stacks with dense, MoE or no FFNs (the dense family,
+qwen2-moe-a2.7b, deepseek-v3-671b, mamba2-1.3b, jamba-v0.1-52b); the
+encoder-decoder and vision stacks, and a layout the port does not shard
+(``data > 1``, a q head split with no padding: ROADMAP A.3b-ii), exit
+with the ``NotImplementedError`` message before any rank starts.  Rank 0
+prints the stats line, with the per-shard plan (``shard_plan``), the
+backend and the ranks a device, and writes every artifact; the heartbeat
+monitor tracks one worker a rank.  ``--mesh 1`` runs the mesh executor in this process.
 """
 
 from __future__ import annotations

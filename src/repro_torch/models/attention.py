@@ -26,6 +26,13 @@ columns, so one kv head spans ranks: the rank gathers k and v whole
 (``cache_specs(kv_fallback="replicate")``, the reference's layout for
 this case), and its q heads attend the kv heads they read (``_kv_heads``).
 
+TP head padding (``pad_heads_to``/``pad_kv_heads_to``, the reference's):
+a GQA layer runs ``eff_counts`` heads, its logical ones zero-padded in the
+kv-major (kv, group) layout, the padded heads' ``wo`` rows zero, so the
+padded model computes the logical one's output; a padded kv head's keys
+and values are 0 and its q heads attend them uniformly, a garbage that
+the zero rows of ``wo`` drop.  The caches hold the padded kv heads.
+
 MLA runs the reference's absorbed form: one latent "KV head" of width
 ``kv_lora_rank + qk_rope_head_dim`` is both the key (all of it) and the
 value (its first ``kv_lora_rank``, a view), cached as the one leaf
@@ -37,6 +44,13 @@ config says.  They run in f32 (TF32 off on the card) in a fixed order
 where a bit identity needs it: the serving prefill runs them at one row
 block shape (``ABSORB_ROWS``), a verify step one step at a time at the
 decode step's shape, with its latent norms.
+
+Under tensor parallelism MLA follows the same rules: ``wq_b`` is
+column-parallel, so a rank holds its q heads' columns and its heads of
+``w_uk``/``w_uv`` (the head count read off the shard's leaves), and
+``wo`` is row-parallel; ``wq_a``, ``wkv_a`` and their norms are
+replicated, so every rank computes the same latent bit for bit and keeps
+the whole latent cache (``cache_specs``).
 """
 
 from __future__ import annotations
@@ -105,7 +119,8 @@ def _kv_heads(q, kv_leaf, cfg: ModelConfig, ctx: LayerCtx):
     heads group onto (a rank holding every kv head, see the module
     docstring); None where the leaf's heads are exactly its q heads'."""
     Hl, KV = q.shape[2], kv_leaf.shape[2]
-    G = cfg.n_heads // cfg.n_kv_heads
+    H, KVp = eff_counts(cfg)
+    G = H // KVp
     if Hl == G * KV:
         return None
     lo = ctx.tp.rank * Hl // G
@@ -377,18 +392,61 @@ def gqa_paged_verify(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache,
     return out, or_flags(flag, f)
 
 
+def eff_counts(cfg: ModelConfig) -> tuple:
+    """(H_eff, KV_eff): the head counts after TP padding (the reference's).
+    Padding keeps the kv-major (kv, group) head layout, so the padded
+    model is the logical one (padded ``wo`` rows are zero)."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    Hp, KVp = max(cfg.pad_heads_to, H), max(cfg.pad_kv_heads_to, KV)
+    G, Gp = H // max(KV, 1), Hp // max(KVp, 1)
+    if KVp * Gp != Hp or Gp < G:
+        raise ValueError(f"invalid head padding H={H}->{Hp}, KV={KV}->{KVp}")
+    return Hp, KVp
+
+
+def _pad_heads(t, dim: int, KV: int, G: int, KVp: int, Gp: int):
+    """``t`` with its dim ``dim`` of KV * G * hd columns (or rows) laid out
+    again as KVp * Gp * hd, the logical heads at their kv-major places and
+    zeros in the padded ones (the reference's ``_pad_heads_in``,
+    ``_pad_heads_out``, ``_pad_bias``)."""
+    if (KV, G) == (KVp, Gp):
+        return t
+    shape = t.shape
+    hd = shape[dim] // (KV * G)
+    t4 = t.reshape(shape[:dim] + (KV, G, hd) + shape[dim + 1:])
+    after = len(shape) - dim - 1
+    t4 = torch.nn.functional.pad(
+        t4, (0, 0) * (after + 1) + (0, Gp - G, 0, KVp - KV))
+    return t4.reshape(shape[:dim] + (KVp * Gp * hd,) + shape[dim + 1:])
+
+
 def init_gqa(cfg: ModelConfig, w, vec) -> dict:
     """GQA params from the model's leaf makers: ``w(*shape)`` a seeded
-    weight, ``vec(n, fill)`` a constant vector (the reference's
-    ``init_gqa``: biases start at 0, q/k norm gains at 1)."""
+    weight, ``vec(n, fill)`` a constant vector, each a leaf with
+    ``then(fn)``, a post-draw transform (the reference's ``init_gqa``:
+    biases start at 0, q/k norm gains at 1).  Under head padding each
+    projection and bias is drawn at its logical shape, in the same order,
+    then zero-padded (``_pad_heads``): a padded model's logical weights
+    are the unpadded model's of the same seed."""
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    p = {"wq": w(cfg.d_model, H * hd), "wk": w(cfg.d_model, KV * hd),
-         "wv": w(cfg.d_model, KV * hd), "wo": w(H * hd, cfg.d_model)}
+    Hp, KVp = eff_counts(cfg)
+    G, Gp = H // KV, Hp // KVp
+
+    def pad(leaf, dim, group):
+        if (H, KV) == (Hp, KVp):
+            return leaf
+        g, gp = (G, Gp) if group else (1, 1)
+        return leaf.then(lambda t: _pad_heads(t, dim, KV, g, KVp, gp))
+
+    p = {"wq": pad(w(cfg.d_model, H * hd), 1, True),
+         "wk": pad(w(cfg.d_model, KV * hd), 1, False),
+         "wv": pad(w(cfg.d_model, KV * hd), 1, False),
+         "wo": pad(w(H * hd, cfg.d_model), 0, True)}
     if cfg.qkv_bias:
-        p["bq"] = vec(H * hd, 0.0)
-        p["bk"] = vec(KV * hd, 0.0)
-        p["bv"] = vec(KV * hd, 0.0)
+        p["bq"] = pad(vec(H * hd, 0.0), 0, True)
+        p["bk"] = pad(vec(KV * hd, 0.0), 0, False)
+        p["bv"] = pad(vec(KV * hd, 0.0), 0, False)
     if cfg.qk_norm:
         p["q_norm"] = vec(hd, 1.0)
         p["k_norm"] = vec(hd, 1.0)
@@ -397,7 +455,8 @@ def init_gqa(cfg: ModelConfig, w, vec) -> dict:
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    device) -> dict:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    """(batch, max_len, KV_eff, hd) ``k`` and ``v``: the padded kv heads."""
+    shape = (batch, max_len, eff_counts(cfg)[1], cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -503,8 +562,10 @@ def _mla_q(x, p, cfg: ModelConfig, ctx: LayerCtx, positions, order=None):
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     qa, f1 = dense(x, p["wq_a"], ctx, "q_a", tag="mla.q_a")
     qa = _latent_norm(qa, p["q_a_norm"], cfg.norm_eps, order)
-    q, f2 = dense(qa, p["wq_b"], ctx, "qkv", tag="mla.q_b")
-    q = q.reshape(B, L, cfg.n_heads, dn + dr)
+    q, f2 = dense(qa, p["wq_b"], ctx, "qkv", tag="mla.q_b",
+                  par=tp_par(ctx, "mixer/wq_b", "col"))
+    # the rank's heads (all of them unsharded): wq_b's columns, w_uk's rows
+    q = q.reshape(B, L, -1, dn + dr)
     cos, sin, rot = rope_tables(positions, dr, cfg.rope_theta)
     q_pe = apply_rope(q[..., dn:], cos, sin, rot)
     # a weight-bearing product outside the matmul-ABFT surface: a known
@@ -553,7 +614,7 @@ def _mla_attend(q_full, scale, latent, p, cfg: ModelConfig, ctx: LayerCtx,
                                   spans=spans)
         out = _absorb(o, p["w_uv"], q_full.dtype, order)
     return dense(out.reshape(B, L, -1), p["wo"], ctx, "attn_out",
-                 tag="mla.out")
+                 tag="mla.out", par=tp_par(ctx, "mixer/wo", "row"))
 
 
 def mla_forward(x, p, cfg: ModelConfig, ctx: LayerCtx, positions):

@@ -127,8 +127,9 @@ def check_supported(cfg: ModelConfig) -> None:
     ranks and head dims, Mamba2 its state and head dims.  A GQA stack may
     have dense GELU FFNs with biases, an encoder and its memory
     (whisper-tiny) or cross-attention layers over projected vision tokens
-    (llama-3.2-vision-11b).  MTP deeper than 1 and TP head padding are
-    not ported."""
+    (llama-3.2-vision-11b).  A GQA stack may pad its heads for TP
+    (``pad_heads_to``/``pad_kv_heads_to``, ``attention.eff_counts``).  MTP
+    deeper than 1 is not ported."""
     mla_dims = (cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_nope_head_dim,
                 cfg.qk_rope_head_dim, cfg.v_head_dim)
     memory = cfg.is_encoder_decoder or cfg.vision_dim or cfg.cross_attn_every
@@ -139,7 +140,6 @@ def check_supported(cfg: ModelConfig) -> None:
           and (not cfg.cross_attn_every or cfg.vision_dim
                or cfg.is_encoder_decoder)
           and cfg.norm in ("rmsnorm", "layernorm")
-          and not cfg.pad_heads_to and not cfg.pad_kv_heads_to
           and cfg.mtp_depth <= 1
           and all(t in TAGS for t in layer_tags(cfg))
           and (cfg.ssm_state > 0 and cfg.ssm_head_dim > 0
@@ -286,31 +286,61 @@ def _cut(t, index):
     return part.clone(memory_format=torch.contiguous_format)
 
 
+# a weight of more elements is drawn in slices of its leading axis of at
+# most this many (its f32 draw never needs 4 bytes an element beside the
+# model)
+DRAW_SLICE = 1 << 30
+
+
 class _Leaf:
     """One leaf of ``Model._param_tree``: a weight drawn N(0, ``scale``)
     in f32 and cast to the init dtype, or (``scale`` None) a constant
-    ``fill``; ``dtype`` None is the init dtype."""
+    ``fill``; ``dtype`` None is the init dtype.  ``then(fn)``: the same
+    draw followed by ``fn`` (TP head padding), ``shape`` the result's."""
 
-    __slots__ = ("shape", "scale", "fill", "dtype")
+    __slots__ = ("shape", "scale", "fill", "dtype", "draw", "post")
 
     def __init__(self, shape, scale=None, fill=0.0, dtype=None):
-        self.shape, self.scale = tuple(shape), scale
-        self.fill, self.dtype = fill, dtype
+        self.shape = self.draw = tuple(shape)
+        self.scale, self.fill, self.dtype = scale, fill, dtype
+        self.post = None
 
-    def make(self, gen, dtype, device):
+    def then(self, fn) -> "_Leaf":
+        out = _Leaf(self.draw, self.scale, self.fill, self.dtype)
+        out.post = fn
+        out.shape = tuple(fn(torch.empty(self.draw, device="meta")).shape)
+        return out
+
+    def make(self, gen, dtype, device, rows=slice(None)):
+        """The leaf, or only its ``rows`` (a slice of dim 0: a rank's shard)
+        in storage of their own; either way ``gen`` advances as for the
+        whole leaf, so the leaves after it draw the same numbers.  Rows
+        of a weight drawn in slices (above ``DRAW_SLICE`` elements) are
+        copied out slice by slice: the whole leaf is never resident."""
         dtype = self.dtype or dtype
-        shape = self.shape
+        if self.post is not None:
+            return _cut(self.post(self._make(gen, dtype, device,
+                                             slice(None))), (rows,))
+        return self._make(gen, dtype, device, rows)
+
+    def _make(self, gen, dtype, device, rows):
+        shape = self.draw
+        lo, hi, _ = rows.indices(shape[0]) if shape else (0, 0, 1)
+        part = ((hi - lo,) + shape[1:]) if shape else shape
         if self.scale is None:
-            return torch.full(shape, self.fill, dtype=dtype, device=device)
-        if math.prod(shape) <= 1 << 30:
-            return torch.randn(shape, generator=gen, dtype=F32,
-                               device=device).mul_(self.scale).to(dtype)
-        out = torch.empty(shape, dtype=dtype, device=device)
-        step = max(1, (1 << 30) // math.prod(shape[1:]))
+            return torch.full(part, self.fill, dtype=dtype, device=device)
+        if math.prod(shape) <= DRAW_SLICE:
+            t = torch.randn(shape, generator=gen, dtype=F32, device=device)
+            return _cut(t.mul_(self.scale).to(dtype), (rows,))
+        out = torch.empty(part, dtype=dtype, device=device)
+        step = max(1, DRAW_SLICE // math.prod(shape[1:]))
         for i in range(0, shape[0], step):
-            rows = (min(step, shape[0] - i),) + shape[1:]
-            out[i:i + step] = self.scale * torch.randn(
-                rows, generator=gen, dtype=F32, device=device)
+            n = min(step, shape[0] - i)
+            chunk = torch.randn((n,) + shape[1:], generator=gen, dtype=F32,
+                                device=device).mul_(self.scale)
+            a, b = max(i, lo), min(i + n, hi)
+            if a < b:
+                out[a - lo:b - lo] = chunk[a - i:b - i]
         return out
 
 
@@ -326,6 +356,8 @@ class Model:
 
     def __init__(self, cfg: ModelConfig):
         check_supported(cfg)
+        if cfg.pad_heads_to or cfg.pad_kv_heads_to:
+            attn.eff_counts(cfg)        # a valid TP head padding, or raise
         self.cfg = cfg
         tags = layer_tags(cfg)
         # per layer: whether its cache is a Mamba2 layer's per-slot state,
@@ -361,16 +393,19 @@ class Model:
         (``n_enc_layers`` layers and a LayerNorm) and, with ``n_mels``,
         its ``conv_stem`` (WIO weights (3, n_mels, d) and (3, d, d), zero
         biases); the vision model its ``vision_proj`` (vision_dim, d).  A
-        weight of more than ``2**30`` elements (deepseek-v3's expert
+        weight of more than ``DRAW_SLICE`` elements (deepseek-v3's expert
         stacks) is drawn in slices of its leading axis, so its f32 draw
         never needs 4 bytes an element beside the model.
 
         ``mesh`` (a port ``Mesh``): this process's shard only, equal bit
         for bit to ``shard_params(init_params(seed), mesh)``.  Each leaf
-        is drawn whole on ``device``, in the same order from the same
-        generator, its rank's part copied out (``_cut``) and the rest
-        freed before the next leaf, so no more than one full leaf is ever
-        resident beside the shard."""
+        is drawn on ``device`` in the same order from the same generator:
+        a leaf split along its first dim keeps only its rows (a weight
+        drawn in slices, deepseek-v3's expert stacks, one slice at a
+        time), any other is drawn whole, its rank's part copied out
+        (``_cut``) and the rest freed before the next leaf, so no more
+        than one full leaf of ``DRAW_SLICE`` elements is ever resident
+        beside the shard."""
         from repro_torch.distributed.sharding import (
             map_with_path,
             param_specs,
@@ -384,11 +419,23 @@ class Model:
             map_with_path(lambda ps, sp: specs.__setitem__(ps, sp),
                           param_specs(self.cfg, tree, mesh))
 
+        cuda = torch.device(device).type == "cuda"
+
         def make(ps, leaf):
-            t = leaf.make(gen, dtype, device)
             if mesh is None:
-                return t
-            return _cut(t, shard_slices(specs[ps], t.shape, mesh, coords))
+                return leaf.make(gen, dtype, device)
+            index = shard_slices(specs[ps], leaf.shape, mesh, coords)
+            if index and all(s == slice(None) for s in index[1:]):
+                t = leaf.make(gen, dtype, device, rows=index[0])
+            else:
+                t = _cut(leaf.make(gen, dtype, device), index)
+            if cuda:
+                # hand the leaf's transients back to the card at once: the
+                # other ranks sharing it draw beside this one, and a later
+                # small allocation carved from a cached transient would pin
+                # it for good
+                torch.cuda.empty_cache()
+            return t
 
         return map_with_path(make, tree)
 

@@ -137,37 +137,52 @@ class LocalExecutor:
             model_parallel=self.model_parallel)
 
 
-SHARDABLE_TAGS = frozenset({"attn:dense:0", "attn:moe:0", "mamba:none:0",
-                            "mamba:dense:0", "mamba:moe:0"})
+SHARDABLE_TAGS = frozenset({"attn:dense:0", "attn:moe:0", "mla:dense:0",
+                            "mla:moe:0", "mamba:none:0", "mamba:dense:0",
+                            "mamba:moe:0"})
 
 
 def check_shardable(cfg, mesh) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` serves sharded over
-    ``mesh`` (``model > 1``): GQA attention or Mamba2 mixers with dense,
-    MoE or no FFNs (``SHARDABLE_TAGS``), no MTP head and no memory,
-    ``data == 1``; q heads that divide the model axis, kv heads that
-    divide it or that it divides, and SSD heads that divide it wherever
-    the rules split ``d_inner``."""
+    ``mesh`` (``model > 1``): GQA or MLA attention or Mamba2 mixers with
+    dense, MoE or no FFNs (``SHARDABLE_TAGS``), at most one MTP head,
+    ``data == 1``; q heads (after TP head padding, ``eff_counts``) that
+    divide the model axis, kv heads that divide it or that it divides,
+    and SSD heads that divide it wherever the rules split ``d_inner``.
+    Stacks with a memory (cross-attention, encoder-decoder, vision) raise
+    too: the engine serves them at no width, as the reference's cannot."""
+    from repro_torch.models.attention import eff_counts
+
     k = int(mesh.shape["model"])
     tags = set(layer_tags(cfg))
-    if not tags <= SHARDABLE_TAGS or cfg.attention != "gqa" \
-            or cfg.is_encoder_decoder or cfg.vision_dim or cfg.mtp_depth:
+    if cfg.is_encoder_decoder or cfg.vision_dim or cfg.cross_attn_every:
         raise NotImplementedError(
-            f"sharded serving of {cfg.name} ({sorted(tags)}): GQA "
-            f"attention and Mamba2 with dense or MoE FFNs serve over "
-            f"model > 1; MLA, MTP, cross-attention, encoder-decoder and "
-            f"vision stacks are ROADMAP A.3b-ii")
+            f"sharded serving of {cfg.name}: the engine serves stacks with "
+            f"a memory (cross-attention, encoder-decoder, vision) at no "
+            f"width, as the reference's cannot (it passes only tokens); "
+            f"drive them through Model.forward/prefill/decode")
+    if not tags <= SHARDABLE_TAGS or cfg.mtp_depth > 1:
+        raise NotImplementedError(
+            f"sharded serving of {cfg.name} ({sorted(tags)}): GQA, MLA and "
+            f"Mamba2 mixers with dense, MoE or no FFNs serve over model > 1")
     if any(mesh.shape[a] > 1 for a in mesh.axis_names if a != "model"):
         raise NotImplementedError(
             f"sharded serving over {mesh.shape}: data > 1 (replicas) is "
             f"ROADMAP A.3b-ii; the mesh must be (data=1, model=k)")
+    if any(t.startswith("mla") for t in tags):
+        if cfg.n_heads % k:
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.n_heads} MLA heads do not divide "
+                f"model={k}: the rules would split a q head; ROADMAP "
+                f"A.3b-ii")
     if any(t.startswith("attn") for t in tags):
-        H, KV = cfg.n_heads, cfg.n_kv_heads
+        H, KV = eff_counts(cfg)
         hd = cfg.resolved_head_dim
         if (H * hd) % k == 0 and H % k:
             raise NotImplementedError(
                 f"{cfg.name}: the rules split a q head over model={k} "
-                f"({H} heads); ROADMAP A.3b-ii")
+                f"({H} heads; pad_heads_to pads them to a multiple); "
+                f"ROADMAP A.3b-ii")
         if (KV * hd) % k == 0 and KV % k and k % KV:
             raise NotImplementedError(
                 f"{cfg.name}: {KV} kv heads over model={k} neither divide "
@@ -181,12 +196,16 @@ def check_shardable(cfg, mesh) -> None:
 
 def sharded_paths(specs) -> frozenset:
     """The leaves a spec tree splits over ``model``: each layer leaf by
-    its path below the layer (``"ffn/shared/up"``), the embedding and
-    head by name (``TPGroup.sharded``)."""
+    its path below the layer (``"ffn/shared/up"``), the MTP head's layer
+    (``mtp/layer``) among them, the embedding and head by name
+    (``TPGroup.sharded``)."""
     from repro_torch.distributed.sharding import map_with_path
 
     out = set()
-    for lp in specs["layers"]:
+    layers = list(specs["layers"])
+    if "mtp" in specs:
+        layers.append(specs["mtp"]["layer"])
+    for lp in layers:
         map_with_path(lambda ps, sp: out.add(ps) if "model" in sp else None,
                       lp)
     out |= {n for n in ("embed", "lm_head")

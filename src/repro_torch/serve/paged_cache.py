@@ -326,8 +326,12 @@ class PrefixIndex:
 
 def init_paged_gqa_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                          dtype, device) -> dict:
+    """The (NB, BS, KV_eff, hd) ``k`` and ``v`` pools: the padded kv
+    heads (``attention.eff_counts``)."""
+    from repro_torch.models.attention import eff_counts
+
     hd = cfg.resolved_head_dim
-    shape = (num_blocks, block_size, cfg.n_kv_heads, hd)
+    shape = (num_blocks, block_size, eff_counts(cfg)[1], hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -283,11 +283,13 @@ def _watch_states(eng) -> list:
     return seen
 
 
-def stack_scenarios(model, params, mesh, names, faults, dtype) -> tuple:
+def stack_scenarios(model, params, mesh, names, faults, dtype,
+                    abft=None) -> tuple:
     """The named scenarios of one stack at ``mesh`` (None: local): the
     records every rank shares (streams, errors, every ``EngineStats``
     field, blocks) and, apart, each run's state digests a step
-    (``_watch_states``; a rank's own shard)."""
+    (``_watch_states``; a rank's own shard).  ``abft``: the engines'
+    ``ABFTConfig`` but for the speculative runs' (flash off)."""
     eng_kw = dict(dtype=dtype, device="cpu", mesh=mesh)
     paged = dict(cache_kind="paged", block_size=8)
     hard = RecoveryPolicy(max_retries=0, evict_on_hard_fault=True)
@@ -308,12 +310,16 @@ def stack_scenarios(model, params, mesh, names, faults, dtype) -> tuple:
             "fault_at": (2, faults.get("expert_down")),
             "admit_fault_at": (1, faults.get("expert_up"))},
             dict(slots=3, max_len=64)),
+        "qkv_faults": (reqs(cfg), {"fault_at": (2, faults.get("qkv")),
+                                 "admit_fault_at": (1, faults.get("qkv"))},
+                       dict(slots=3, max_len=64)),
         "ssm_in": (reqs(cfg), {"fault_at": (2, faults.get("ssm_in"))},
                    dict(slots=3, max_len=64)),
         "ssm_out": (reqs(cfg), {"fault_at": (3, faults.get("ssm_out"))},
                     dict(slots=3, max_len=64, **paged)),
         "hard_fault": (reqs(cfg, n=4, seed=5), {"fault_at": (
-            1, faults.get("expert_up") or faults.get("ssm_out"))},
+            1, faults.get("expert_up") or faults.get("ssm_out")
+            or faults.get("qkv"))},
             dict(slots=2, max_len=64, policy=hard)),
         "unsped": (periodic_reqs(), None, spec_kw),
         "ngram": (periodic_reqs(), None, dict(
@@ -329,6 +335,8 @@ def stack_scenarios(model, params, mesh, names, faults, dtype) -> tuple:
             rs, run_kw, kw = table[name]
             rs = [Request(uid=r.uid, prompt=r.prompt,
                           max_new_tokens=r.max_new_tokens) for r in rs]
+        if abft is not None:
+            kw = {"abft": abft, **kw}
         eng = ServeEngine(model, params, **eng_kw, **kw)
         seen = _watch_states(eng)
         out = eng.run(rs, **(run_kw or {}))
@@ -512,3 +520,157 @@ def norm_rank(k, x, z, w) -> np.ndarray:
     cut = slice(tp.rank * n, (tp.rank + 1) * n)
     y = gated_rms_norm(x[..., cut], z[..., cut], w[cut], 1e-5, tp=tp)
     return y.float().numpy()
+
+
+# ------------------------------------------------- MLA with its MTP head
+# (tests/test_torch_mesh_mla.py)
+
+MLA_ARCH = "deepseek-v3-671b"
+# mla.q_b (site qkv) at column 60 of its 96 (4 heads x 24): rank 1's at
+# k = 2, rank 2's at k = 4; layer 1 is the MoE layer (1 dense + 1 MoE)
+MLA_FAULTS = {
+    "qkv": ModelFault.at(0, "qkv", FaultSpec.value(0, 60, 1e5)),
+    "expert_up": ModelFault.at(1, "expert_up", FaultSpec.value(0, 9, 1e5)),
+    "router": ModelFault.at(1, "router", FaultSpec.value(0, 1, 1e5)),
+}
+MLA_NAMES = ("dense", "shared_chunked", "qkv_faults", "moe_faults",
+             "hard_fault", "unsped", "ngram", "oracle")
+
+
+def mla_config(**over):
+    """Scaled-down deepseek-v3-671b: 2 layers (1 dense + 1 MoE), 4 MLA
+    heads, 8 experts top 2 with a shared expert, the MTP head (``over``:
+    the top-4 case)."""
+    return scaled_down(get_config(MLA_ARCH), **over)
+
+
+def forward_logits(model, params, mesh, dtype) -> dict:
+    """``Model.forward`` of a seeded (2, 12) batch at ``mesh`` (None:
+    local) on the rank's shard: its f32 logits and ``mtp_logits``."""
+    from repro_torch.serve.executor import LocalExecutor, MeshExecutor
+
+    dev = torch.device("cpu")
+    ex = (MeshExecutor(model, params, mesh=mesh, dtype=dtype, device=dev)
+          if mesh is not None else
+          LocalExecutor(model, params, dtype=dtype, device=dev))
+    ctx = LayerCtx(abft=ABFTConfig(), hints=ex.hints, tp=ex.tp)
+    tokens = np.random.default_rng(5).integers(
+        1, model.cfg.vocab_size, size=(2, 12))
+    with torch.no_grad():
+        out = model.forward(ex.params, {"tokens": tokens}, ctx, device="cpu")
+    return {"logits": out.logits.numpy(),
+            "mtp_logits": out.mtp_logits.numpy(), "flag": bool(out.flag)}
+
+
+def mla_rank(k, variants, hw) -> dict:
+    """Rank side of ``tests/test_torch_mesh_mla.py``: each variant (name ->
+    (config overrides, params, scenario names)) at ``mesh=k``, its routed
+    output, routing log and forward logits with ``mtp_logits``; the first
+    variant's executed schemes, shard-at-draw check and audit of a served
+    step (the routing width changes none of them); the shared records
+    checked equal across the ranks."""
+    out = {}
+    for i, (name, (over, params, names)) in enumerate(variants.items()):
+        model = Model(mla_config(**over))
+        recs, _ = stack_scenarios(model, params, k, names, MLA_FAULTS, BF16)
+        rec = {"scenarios": recs,
+               "routing": routing_log(model, params, k, BF16)}
+        if i == 0:
+            rec["executed"] = executed_stack_schemes(model, params, k, hw,
+                                                     BF16)
+            rec["shard_draw"] = shard_draw_equal(model, k, BF16)
+            rec["audit"] = audit_step(model, params, k, BF16)
+        ex = ServeEngine(model, params, slots=1, max_len=16, dtype=BF16,
+                         device="cpu", mesh=k).executor
+        rec["sharded"] = sorted(ex.tp.sharded)
+        rec["moe_mode"] = ex.hints.moe_mode
+        rec["mtp_shapes"] = {p: list(t.shape) for p, t in _leaves(
+            ex.params["mtp"])}
+        for key, val in rec.items():
+            collectives.check_same(val, ex.tp, f"{name}/{key}")
+        rec["routed"] = routed_output(model, params, k, BF16)
+        rec["forward"] = forward_logits(model, params, k, BF16)
+        out[name] = rec
+    return out
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for key, val in tree.items():
+            yield from _leaves(val, f"{path}/{key}" if path else key)
+    else:
+        yield path, tree
+
+
+# ------------------------------------------------------ TP head padding
+# (tests/test_torch_head_padding.py)
+
+# q, k and v at column 60 of the padded 96 (6 heads x 16): rank 1's at
+# k = 2 (48 a rank) and at k = 3 (32 a rank)
+PAD_FAULTS = {"qkv": ModelFault.at(1, "qkv", FaultSpec.value(0, 60, 1e5))}
+PAD_NAMES = ("dense", "paged", "shared_chunked", "qkv_faults", "hard_fault")
+
+
+def pad_configs():
+    """A 5-head qwen1.5-32b stack (q/k/v biases, 5 kv heads, head dim 16)
+    and the same padded to 6 / 6 heads (the reference's test case)."""
+    import dataclasses
+
+    base = scaled_down(get_config("qwen1.5-32b"), n_heads=5, n_kv_heads=5,
+                       head_dim=16)
+    return base, dataclasses.replace(base, pad_heads_to=6,
+                                     pad_kv_heads_to=6)
+
+
+def padding_rank(k, params, flash: bool) -> dict:
+    """Rank side: the padded stack's ``PAD_NAMES`` at ``mesh=k``, flash
+    attention on or off; every record checked across the ranks."""
+    model = Model(pad_configs()[1])
+    recs, _ = stack_scenarios(model, params, k, PAD_NAMES, PAD_FAULTS, BF16,
+                              abft=ABFTConfig(flash_attention=flash))
+    eng = ServeEngine(model, params, slots=1, max_len=16, dtype=BF16,
+                      device="cpu", mesh=k)
+    rec = {"scenarios": recs, "sharded": sorted(eng.executor.tp.sharded),
+           "wq": list(eng.executor.params["layers"][0]["mixer"]["wq"].shape),
+           "cache": list(eng.cache[0]["k"].shape)}
+    collectives.check_same(rec, eng.executor.tp, "padding")
+    return rec
+
+
+# ------------------------------------- stream equality across TP widths
+# (tests/test_torch_mesh_engine.py::test_tp_widths_part_at_near_ties)
+
+def wide_config(d: int):
+    """Scaled-down llama3.2-1b (2 layers) at d_model ``d``: 4 heads of
+    ``d / 4``, d_ff ``4 d``."""
+    return scaled_down(get_config("llama3.2-1b"), n_layers=2, d_model=d,
+                       d_ff=4 * d, head_dim=d // 4)
+
+
+def decode_logits(d: int, params, mesh) -> tuple:
+    """(every decode step's f32 logits stacked, the streams) of a dense
+    bf16 run of ``reqs`` at ``mesh`` (None: local) on ``wide_config(d)``."""
+    model = Model(wide_config(d))
+    log, decode = [], model.decode
+
+    def logged(*a, **kw):
+        logits, cache, flag = decode(*a, **kw)
+        log.append(logits.float().numpy().copy())
+        return logits, cache, flag
+
+    model.decode = logged
+    eng = ServeEngine(model, params, slots=3, max_len=64, dtype=BF16,
+                      device="cpu", mesh=mesh)
+    rs = reqs(model.cfg)
+    out = eng.run(rs)
+    return np.stack(log), np.array([list(out[r.uid]) for r in rs])
+
+
+def failing_rank() -> None:
+    """Rank 1 raises while rank 0 waits in a barrier, which then fails on
+    the closed connection (``tests/test_torch_mesh_engine.py``)."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == 1:
+        raise ValueError("rank 1 fails first")
+    dist.barrier()

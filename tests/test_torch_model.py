@@ -147,14 +147,18 @@ def test_unported_architectures_raise():
     for ok in (dict(qk_norm=True), dict(qkv_bias=True), dict(rope_pct=0.25),
                dict(norm="layernorm"), moe, dict(mtp_depth=1),
                dict(act="gelu"), dict(is_encoder_decoder=True),
-               dict(cross_attn_every=2, vision_dim=32)):
+               dict(cross_attn_every=2, vision_dim=32),
+               dict(pad_heads_to=8), dict(pad_heads_to=8, pad_kv_heads_to=4)):
         Model(dataclasses.replace(cfg, **ok))
+    # TP head padding that breaks the kv-major groups (4 q heads over 4 kv
+    # heads where 2 share one): the reference's assert, as a ValueError
+    with pytest.raises(ValueError, match="invalid head padding"):
+        Model(dataclasses.replace(cfg, pad_kv_heads_to=4))
     # attention="mla" on llama has no latent ranks: not an MLA to run; the
     # GELU FFN is ported for dense FFNs only, cross-attention for GQA
     # layers with a memory to read
     for bad in (dict(act="relu"), dict(attention="mla"), dict(family="ssm"),
-                dict(norm="scalenorm"), dict(pad_heads_to=8),
-                dict(pad_kv_heads_to=4), dict(mtp_depth=2),
+                dict(norm="scalenorm"), dict(mtp_depth=2),
                 dict(act="gelu", **moe), dict(family="ssm",
                                               cross_attn_every=2),
                 dict(cross_attn_every=2)):

@@ -301,3 +301,43 @@ def test_shards_own_their_storage(arch):
             assert st.nbytes() == t.numel() * t.element_size()
             if st.data_ptr() in full:     # a replicated leaf, kept whole
                 assert st.nbytes() == full[st.data_ptr()]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "qwen1.5-32b"])
+def test_slice_drawn_shards_equal_the_whole_draw(monkeypatch, arch, dtype):
+    """With ``DRAW_SLICE`` small enough that the expert stacks, the
+    embedding and the FFNs are drawn in slices, each rank's
+    ``init_params(mesh=)`` (a leading-dim shard copied out slice by slice,
+    never the whole leaf) equals ``shard_params`` of the whole draw bit
+    for bit, in storage of its own, at k = 2 and 4; qwen1.5-32b padded
+    from 5 to 8 heads takes the pad-then-cut path of its q/k/v/o."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.tree import tree_leaves_with_path
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.models import model as model_mod
+
+    monkeypatch.setattr(model_mod, "DRAW_SLICE", 1000)
+    cfg = scaled_down(get_config(arch))
+    if arch == "qwen1.5-32b":
+        cfg = dataclasses.replace(cfg, n_heads=5, n_kv_heads=5,
+                                  pad_heads_to=8, pad_kv_heads_to=8)
+    model = model_mod.Model(cfg)
+    whole = model.init_params(3, dtype=dtype)
+    for k in (2, 4):
+        for rank in range(k):
+            mesh = Mesh(grid=np.arange(k).reshape(1, k),
+                        axis_names=("data", "model"),
+                        devices=(torch.device("cpu"),) * k, rank=rank)
+            drawn = tree_leaves_with_path(model.init_params(
+                3, dtype=dtype, mesh=mesh))
+            cut = tree_leaves_with_path(model.shard_params(whole, mesh))
+            assert [p for p, _ in drawn] == [p for p, _ in cut]
+            for (path, a), (_, b) in zip(drawn, cut):
+                assert a.dtype == b.dtype and torch.equal(a, b), (k, path)
+                assert a.untyped_storage().nbytes() == \
+                    a.numel() * a.element_size(), (k, path)

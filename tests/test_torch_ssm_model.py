@@ -322,3 +322,41 @@ def test_the_launchers_serve_and_train_the_ssm_archs(capsys, arch):
         serve.main(["--device", "cpu", "--arch", arch, "--spec-decode",
                     "ngram"])
     assert "SSM recurrence" in str(exc.value)
+
+
+# ROADMAP C's mamba2 precision check: the port's bf16 error against its
+# own f32 run, over the reference's bf16 error against its f32 run, on
+# the same weights.  Both round the same products to bf16, in other
+# places (XLA fuses elementwise chains in f32 where eager torch rounds
+# each op's output): a ratio up to 1.5 is the same precision; an SSD path
+# that lost precision (a bf16 scan state, a bf16 chunk sum) would show as
+# several times the reference's error.
+PRECISION_RATIO = 1.5
+
+
+def test_mamba2_bf16_error_against_f32_matches_the_reference():
+    over = dict(n_layers=8, d_model=256)
+    jm = build_model(jscaled(jget("mamba2-1.3b"), **over))
+    cfg = scaled_down(get_config("mamba2-1.3b"), **over)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               size=(2, 64))
+    jctx = JCtx(abft=JABFT(use_pallas=False))
+    fwd = jax.jit(lambda p, t: jm.forward(p, {"tokens": t}, jctx).logits)
+    ref, port = {}, {}
+    for name, jdt, tdt in (("f32", jnp.float32, torch.float32),
+                           ("bf16", jnp.bfloat16, torch.bfloat16)):
+        jp = jm.init_params(jax.random.PRNGKey(0), dtype=jdt)
+        ref[name] = np.asarray(fwd(jp, jnp.asarray(tokens)), np.float32)
+        params = params_from_reference(
+            cfg, jax.tree_util.tree_map(np.asarray, jp), dtype=tdt)
+        with torch.no_grad():
+            port[name] = Model(cfg).forward(
+                params, {"tokens": tokens}, LayerCtx(abft=ABFTConfig()),
+                device="cpu").logits.float().numpy()
+    np.testing.assert_allclose(port["f32"], ref["f32"], **TOL)
+
+    def err(run):
+        return float(np.abs(run["bf16"] - run["f32"]).max()
+                     / np.abs(run["f32"]).max())
+
+    assert 0 < err(port) <= PRECISION_RATIO * err(ref)
