@@ -59,7 +59,16 @@ replicated, 128 experts a rank, the MTP head), against the TP=1 run the
 columns and an ``expert_up`` fault recovered, the latent cache held to
 the clean run's, the score's ``mtp_logits`` held to TP=1's; and the
 ``tp`` phase holds llama with its heads padded for TP (40 / 10, K2 and
-K3 at the padded heads) against the unpadded model.
+K3 at the padded heads) against the unpadded model.  ``dp`` serves the
+same llama over a (data=2, model=2) mesh of four ranks sharing the card
+(each data rank decoding its two of four slots, the logits gathered over
+``data``): dense against the TP=1 twin, shared + chunked = paged with a
+512-token prefix shared across the data ranks, a decode fault on data
+rank 1's row recovered, eviction; a one-slot 2048-token cell whose dense
+cache splits its positions over the data ranks (K3 with its
+log-sum-exp, the partials merged); and qwen1.5-32b at 2 layers under
+FSDP (each rank a quarter of each weight), each against its one-process
+twin.
 Each phase prints JSON lines; any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -87,7 +96,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
           "campaign", "profile", "timing", "sharing", "spec", "family",
           "moe", "mla", "ssm", "cross", "audit", "tp", "tp_hybrid",
-          "tp_mla")
+          "tp_mla", "dp")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -112,24 +121,30 @@ TRAIN_B, TRAIN_L, TRAIN_STEPS = 4, 128, 4
 FAMILY_ARCHS = ("stablelm-1.6b", "qwen3-14b", "qwen1.5-32b")
 SCORE_B, SCORE_L = 1, 1024
 # the second arch of the sharing and spec phases: qwen3-14b at full width
-# and 10 of its 40 layers (its gates hold the paths at another arch's
-# widths, which the depth does not change; the run keeps to its time)
-SIDE_ARCH, SIDE_LAYERS = "qwen3-14b", 10
-# the llama those two phases serve: full width, 8 of its 16 layers (the
-# same reason; their kernel timings keep the full model's GEMMs)
-SERVED_LAYERS = 8
+# and 5 of its 40 layers (its gates hold the paths at another arch's
+# widths, which the depth does not change; the run keeps to its time:
+# PERF.md §4, each cut with the run that forced it)
+SIDE_ARCH, SIDE_LAYERS = "qwen3-14b", 5
+# the llama those two phases, tp and dp serve: full width, 4 of its 16
+# layers (the same reason; their kernel timings keep the full model's
+# GEMMs)
+SERVED_LAYERS = 4
+# the spec phase keeps llama at 8 and qwen3-14b at 10 layers: at 4
+# layers its copy traffic's n-gram proposer drafts nothing, and its gates
+# need drafts (measured on one H100)
+SPEC_LAYERS, SPEC_SIDE_LAYERS = 8, 10
 
 
 # the layers the family and moe phases keep of these archs' published
 # depth (full width; PERF.md §4: the script's time, each cut with the run
 # that forced it), and the tp phase's llama keeps SERVED_LAYERS
-DEPTH_CUTS = {"qwen3-14b": 12, "qwen1.5-32b": 16, "qwen2-moe-a2.7b": 12}
+DEPTH_CUTS = {"qwen3-14b": 6, "qwen1.5-32b": 8, "qwen2-moe-a2.7b": 8}
 
 
-def side_config():
+def side_config(layers: int = SIDE_LAYERS):
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(SIDE_ARCH), n_layers=SIDE_LAYERS)
+    return dataclasses.replace(get_config(SIDE_ARCH), n_layers=layers)
 
 
 def cut_config(arch):
@@ -141,21 +156,20 @@ def cut_config(arch):
     return dataclasses.replace(cfg, n_layers=n) if n else cfg
 
 
-def served_config():
-    """llama3.2-1b at full width and ``SERVED_LAYERS`` layers (the
-    sharing, spec and tp phases)."""
+def served_config(layers: int = SERVED_LAYERS):
+    """llama3.2-1b at full width and ``layers`` layers (the sharing, tp
+    and dp phases' ``SERVED_LAYERS``; the spec phase's ``SPEC_LAYERS``)."""
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(ENGINE_ARCH),
-                               n_layers=SERVED_LAYERS)
+    return dataclasses.replace(get_config(ENGINE_ARCH), n_layers=layers)
 
 
-def served_llama(dev) -> tuple:
-    """The sharing and spec phases' llama3.2-1b: full width,
-    ``SERVED_LAYERS`` layers, bf16 weights from seed 0 on the card."""
+def served_llama(dev, layers: int = SERVED_LAYERS) -> tuple:
+    """The sharing and spec phases' llama3.2-1b: full width, ``layers``
+    layers, bf16 weights from seed 0 on the card."""
     from repro_torch.models.model import Model
 
-    model = Model(served_config())
+    model = Model(served_config(layers))
     return model, model.init_params(0, dtype=torch.bfloat16, device=dev)
 
 
@@ -2741,7 +2755,7 @@ def spec_llama(dev, params=None) -> dict:
     from repro_torch.models.layers import ModelFault
 
     cfg = get_config(ENGINE_ARCH)
-    model, served = served_llama(dev)
+    model, served = served_llama(dev, SPEC_LAYERS)
     if params is None:
         params, _ = engine_inputs(dev)
     traffic = spec_traffic(cfg.vocab_size)
@@ -2840,7 +2854,7 @@ def spec_llama(dev, params=None) -> dict:
         plain[scheme.value] = True
     verify_t = k1_timing(dev, params, SPEC_SLOTS * 9, split_rows=SPEC_SLOTS)
     summary = dict(
-        arch=ENGINE_ARCH, layers=SERVED_LAYERS,
+        arch=ENGINE_ARCH, layers=SPEC_LAYERS,
         tokens_per_s={k: r["tokens_per_s"] for k, r in runs.items()},
         step_ms={k: (r["step_kind"], r["step_ms_median"])
                  for k, r in runs.items()},
@@ -2860,14 +2874,14 @@ def spec_llama(dev, params=None) -> dict:
 
 
 def spec_qwen(dev) -> dict:
-    """qwen3-14b at full width (G = 5, q/k norm; ``SIDE_LAYERS`` layers):
-    copy traffic unsped, with ngram ``"auto"`` and with the oracle at K =
+    """qwen3-14b at full width (G = 5, q/k norm; ``SPEC_SIDE_LAYERS``
+    layers): copy traffic unsped, with ngram ``"auto"`` and with the oracle at K =
     8 (every step at T > 1 while a draft is left: the batched q/k norms at
     4 x 9 rows), dense; streams equal."""
     from repro_torch.models.model import Model
 
     arch = SIDE_ARCH
-    cfg = side_config()
+    cfg = side_config(SPEC_SIDE_LAYERS)
     model = Model(cfg)
     free_memory()
     params, _ = engine_inputs(dev, cfg=cfg)
@@ -6124,14 +6138,16 @@ def _tp_faults(cfg) -> dict:
 def tp_serve(model, params, prompts, dev, label, *, mesh=None,
              cache_kind="dense", flash=True, fault_at=None,
              admit_fault_at=None, max_retries=1, capture=None, routes=None,
-             **kw):
+             slots=4, max_len=512, new=None, on_engine=None, **kw):
     """One bf16 engine run of the engine phase's traffic (4 slots,
     max_len 512, the H100 plan), at ``mesh`` ranks or on one process:
     its streams, errors and every ``EngineStats`` field (the record every
     rank must share), and apart its timing: each decode step's ms, K1 and
-    K3 launches and collectives (counted from 0 for this run).
-    ``routes``: a list that gets every MoE routing decision of the run
-    (``_route_log``), each captured call marked with the log's length."""
+    K3 launches and collectives, in all and by kind (counted from 0 for
+    this run).  ``routes``: a list that gets every MoE routing decision
+    of the run (``_route_log``), each captured call marked with the log's
+    length.  ``new``: each prompt's new tokens (``TP_NEW`` each by
+    default); ``on_engine(eng)`` runs before the traffic."""
     from repro_torch.core.hardware import NVIDIA_H100_SXM
     from repro_torch.core.policy import IntensityGuidedPolicy
     from repro_torch.core.protected import ABFTConfig
@@ -6144,20 +6160,24 @@ def tp_serve(model, params, prompts, dev, label, *, mesh=None,
     abft = ABFTConfig.from_policy(IntensityGuidedPolicy(),
                                   hardware=NVIDIA_H100_SXM,
                                   flash_attention=flash)
-    eng = ServeEngine(model, params, slots=4, max_len=512, abft=abft,
-                      dtype=torch.bfloat16, device=dev,
+    eng = ServeEngine(model, params, slots=slots, max_len=max_len,
+                      abft=abft, dtype=torch.bfloat16, device=dev,
                       cache_kind=cache_kind, mesh=mesh,
                       policy=RecoveryPolicy(max_retries=max_retries,
                                             evict_on_hard_fault=True), **kw)
     cap = _Capture(eng, capture) if capture is not False else None
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=TP_NEW)
-            for i, p in enumerate(prompts)]
-    steps = []
+    if on_engine is not None:
+        on_engine(eng)
+    new = new or [TP_NEW] * len(prompts)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(prompts, new))]
+    steps, kinds = [], []
     step = eng.step
 
     def timed_step(*a, **k):
         c0, k1, k3 = collectives.COUNTS["calls"], K1.launches, K3.launches
         k1b = K1B.launches
+        by = dict(collectives.COUNTS)
         torch.cuda.synchronize()
         t = time.perf_counter()
         r = step(*a, **k)
@@ -6167,6 +6187,8 @@ def tp_serve(model, params, prompts, dev, label, *, mesh=None,
                           K1.launches - k1, K3.launches - k3,
                           collectives.COUNTS["calls"] - c0,
                           K1B.launches - k1b))
+            kinds.append({n: collectives.COUNTS[n] - by[n]
+                          for n in collectives.KINDS})
         return r
 
     eng.step = timed_step
@@ -6191,6 +6213,8 @@ def tp_serve(model, params, prompts, dev, label, *, mesh=None,
               "k3_per_step": sorted({s[2] for s in steps}),
               "collectives_per_step": sorted({s[3] for s in steps}),
               "k1b_per_step": sorted({s[4] for s in steps}),
+              "kinds_per_step": {n: sorted({c[n] for c in kinds})
+                                 for n in collectives.KINDS},
               "launches": {"abft_matmul": K1.launches,
                            "flash_decode": K3.launches}}
     return eng, rec, timing, cap
@@ -6198,13 +6222,15 @@ def tp_serve(model, params, prompts, dev, label, *, mesh=None,
 
 def tp_rank(prompts) -> dict:
     """One rank of the ``tp`` phase (``distributed/spawn.py``): full-width
-    llama3.2-1b at ``SERVED_LAYERS`` layers from seed 0, this rank's shard, served at ``mesh=2``
-    dense and paged, under faults, evicting, with sharing + chunks, and
-    unsped and with oracle speculation (flash off); the collectives of
-    one decode step timed alone; rank 0 also walks one decode step under
-    the op walker (the audit).  Every record is checked equal across the
-    ranks; returns the records, the timings and, on rank 0, the captured
-    logits and the audit."""
+    llama3.2-1b at ``SERVED_LAYERS`` layers from seed 0, this rank's
+    shard, served at ``mesh=2`` dense and paged, under a column-parallel
+    ``qkv`` fault, and unsped and with oracle speculation (flash off);
+    the collectives of one decode step timed alone; rank 0 also walks one
+    decode step under the op walker (the audit).  (The row-parallel
+    fault, the eviction and sharing + chunks run at model = 2 inside the
+    ``dp`` phase's (2, 2) mesh.)  Every record is checked equal across
+    the ranks; returns the records, the timings and, on rank 0, the
+    captured logits and the audit."""
     from repro_torch.distributed import collectives
     from repro_torch.models.model import Model
 
@@ -6235,13 +6261,7 @@ def tp_rank(prompts) -> dict:
         out["logits"] = {k: v.numpy() for k, v in cap.first.items()}
     del eng, cap
     run("paged", cache_kind="paged", capture=False)
-    run("fault_down", fault_at=(2, faults["down"]),
-        admit_fault_at=(0, faults["down"]), capture=False)
     run("fault_qkv", fault_at=(3, faults["qkv"]), capture=False)
-    run("hard_fault", fault_at=(1, faults["down"]), max_retries=0,
-        capture=False)
-    run("shared_chunked", cache_kind="paged", prefix_sharing=True,
-        chunk_tokens=256, capture=False)
     run("unsped", flash=False, capture=False)
     # on this traffic (random weights, 16 new tokens) the n-gram proposer
     # drafts nothing; an oracle drafting the unsped run's next tokens puts
@@ -6315,13 +6335,15 @@ def _tp_audit(model, params, prompts, dev, rank):
             "seconds": seconds}
 
 
-def tp_k1_checks(dev, model, params) -> dict:
+def tp_k1_checks(dev, model, params, m: int = 4,
+                 phase: str = "tp_k1") -> dict:
     """K1 against its plain version at the TP=2 shard shapes of a decode
-    step (M = 4), rank 0's shard of the phase's weights, the row-parallel
-    partials (o, down) and the head with f32 out: y and bounds within
-    ``family_checks``' tolerances and no false flag; then the kernel, the
-    plain version and ``torch.matmul`` timed on the shard's GEMMs of each
-    shape (CUDA graphs), beside the bound."""
+    step (M = ``m``: 4, or a data rank's 2 of 4 slots), rank 0's shard of
+    the phase's weights, the row-parallel partials (o, down) and the head
+    with f32 out: y and bounds within ``family_checks``' tolerances and
+    no false flag; then the kernel, the plain version and
+    ``torch.matmul`` timed on the shard's GEMMs of each shape (CUDA
+    graphs), beside the bound."""
     from repro_torch.distributed.mesh import Mesh
     from repro_torch.kernels.abft_matmul import abft_matmul_kernel
     from repro_torch.kernels.ref import abft_matmul_ref
@@ -6332,14 +6354,14 @@ def tp_k1_checks(dev, model, params) -> dict:
     shard = model.shard_params(params, mesh)
     groups = _step_gemm_groups(shard)
     gen = torch.Generator(device=dev).manual_seed(11)
-    m, out = 4, {}
+    out = {}
     for name, (k, n, f32_out) in TP_K1_SHAPES.items():
         ws = groups[name]
         need(tuple(ws[0].shape) == (k, n),
              f"tp K1 {name}: shard {tuple(ws[0].shape)} != {(k, n)}")
         out_dtype = torch.float32 if f32_out else torch.bfloat16
         err, scale, ratio, rt = _k1_site_check(dev, gen, model.cfg,
-                                               f"tp2 {name}", ws[0],
+                                               f"{phase} {name}", ws[0],
                                                out_dtype, m)
         x = torch.randn(m, ws[0].shape[0], generator=gen,
                         device=dev).to(torch.bfloat16)
@@ -6370,7 +6392,7 @@ def tp_k1_checks(dev, model, params) -> dict:
                      "library_ms": timed_graph(lib, iters=5),
                      "bound_ms": b_ms * len(ws), "bound_by": by}
     del shard, groups
-    emit("tp_k1", m=m, shapes=out)
+    emit(phase, m=m, shapes=out)
     return out
 
 
@@ -6399,9 +6421,9 @@ def tp_reference(dev, model, params, prompts) -> dict:
 PAD_HEADS = (40, 10)
 # the padded model against the unpadded one on the same logical weights:
 # logits within this share of their scale, the score gates' bound (bf16
-# through 8 layers; only the sums' order moves, where a kernel's split
-# depends on the head count or on K; a padded head that reached the
-# residual would move them by the scale itself)
+# through SERVED_LAYERS layers; only the sums' order moves, where a
+# kernel's split depends on the head count or on K; a padded head that
+# reached the residual would move them by the scale itself)
 PAD_LOGIT_TOL = MLA_SCORE_TOL
 
 
@@ -6534,8 +6556,9 @@ def padding_gate(dev, model, params, prompts, ref) -> dict:
 def tp_runs(dev) -> dict:
     """The ``tp`` phase: full-width llama3.2-1b (``SERVED_LAYERS`` layers)
     served with tensor parallelism over two ranks sharing this one card (gloo), against
-    itself (dense = paged, faulted = clean, shared + chunked = plain,
-    oracle-sped = unsped, every rank agreeing) and against the one-process run
+    itself (dense = paged, qkv-faulted = clean, oracle-sped = unsped,
+    every rank agreeing; the row-parallel fault, eviction and sharing +
+    chunks at model = 2 run in ``dp``) and against the one-process run
     (the logits of the first prefill and decode step, the greedy streams
     or their divergence at a near-tie); K1 at the shard shapes against
     its plain version; K1 and K3 launches a decode step a rank; the
@@ -6568,27 +6591,15 @@ def tp_runs(dev) -> dict:
              f"tp: {a} streams differ from {b}")
 
     for label, rec in recs.items():
-        if label != "hard_fault":
-            need(not rec["errors"], f"tp {label}: errors {rec['errors']}")
-            need(all(len(s) == TP_NEW for s in rec["streams"].values()),
-                 f"tp {label}: incomplete streams")
+        need(not rec["errors"], f"tp {label}: errors {rec['errors']}")
+        need(all(len(s) == TP_NEW for s in rec["streams"].values()),
+             f"tp {label}: incomplete streams")
     same("paged", "dense")
-    same("fault_down", "dense")
     same("fault_qkv", "dense")
-    same("shared_chunked", "paged")
     same("oracle", "unsped")
-    need(st["fault_down"]["faults_detected"] >= 2
-         and st["fault_down"]["retries"] >= 2
-         and st["fault_down"]["hard_faults"] == 0,
-         f"tp fault_down: {st['fault_down']}")
     need(st["fault_qkv"]["faults_detected"] >= 1
          and st["fault_qkv"]["hard_faults"] == 0,
          f"tp fault_qkv: {st['fault_qkv']}")
-    need(st["hard_fault"]["hard_faults"] >= 1, "tp: no hard fault")
-    evicted = sorted(int(u) for u in recs["hard_fault"]["errors"])
-    need(evicted == sorted(int(u) for u in ref["hard"]["errors"]),
-         f"tp: evicted {evicted} != TP=1's {sorted(ref['hard']['errors'])}")
-    need(st["shared_chunked"]["prefill_chunks"] > 0, "tp: no chunk ran")
     need(st["oracle"]["draft_proposed"] > 0 and st["oracle"][
         "draft_accepted"] == st["oracle"]["draft_proposed"],
          f"tp oracle: {st['oracle']}")
@@ -6608,25 +6619,14 @@ def tp_runs(dev) -> dict:
     diff = max(float(np.abs(r0["logits"][k] - ref["logits"][k]).max())
                for k in ("prefill", "decode"))
     tp1 = ref["rec"]["streams"]
-    tp2 = recs["dense"]["streams"]
-    equal = [u for u in tp1 if tp1[u] == tp2[u]]
-    ties = {}
-    for u in tp1:
-        if u in equal:
-            continue
-        t = next(i for i, (a, b) in enumerate(zip(tp1[u], tp2[u]))
-                 if a != b)
-        gap = ref["gaps"][(u, t)]
-        ties[u] = {"step": t, "tp1_top2_gap": gap}
-        need(gap < diff, f"tp: stream {u} diverges from TP=1 at step {t} "
-             f"with a top-two gap {gap} >= the logit difference {diff}")
+    equal, ties = _near_tie_gate(tp1, recs["dense"]["streams"], ref["gaps"],
+                                 diff, "tp")
     t = r0["timings"]["dense"]
     res = {"ranks": TP_RANKS, "backend": r0["backend"],
            "devices": [o["device"] for o in outs],
            "sharded": r0["sharded"], "plan": r0["plan"],
            "streams_equal_tp1": len(equal), "streams": len(tp1),
            "divergent": ties, "max_logit_diff_vs_tp1": diff,
-           "evicted": evicted,
            "k1_per_step": t["k1_per_step"], "k3_per_step": t["k3_per_step"],
            "collectives_per_step": t["collectives_per_step"][0],
            "decode_step_ms_median": float(np.median(t["step_ms"])),
@@ -6645,7 +6645,28 @@ def tp_runs(dev) -> dict:
            "note": "two ranks time-sharing one card over gloo: a "
                    "correctness run, not a tensor-parallel speed"}
     emit("tp", **res)
+    # the TP=1 twin, for the dp phase
+    res["tp1"] = ref
     return res
+
+
+def _near_tie_gate(tp1, got, gaps, diff, phase) -> tuple:
+    """Streams ``got`` against the TP=1 twin's ``tp1``: each stream that
+    parts from the twin's must part at a logit near-tie, where the twin's
+    top-two gap is below ``diff`` (the largest logit difference measured
+    between the two).  Returns (the equal uids, {uid: the parting})."""
+    equal = [u for u in tp1 if tp1[u] == got[u]]
+    ties = {}
+    for u in tp1:
+        if u in equal:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(tp1[u], got[u]))
+                 if a != b)
+        gap = gaps[(u, t)]
+        ties[u] = {"step": t, "tp1_top2_gap": gap}
+        need(gap < diff, f"{phase}: stream {u} diverges from TP=1 at step "
+             f"{t} with a top-two gap {gap} >= the logit difference {diff}")
+    return equal, ties
 
 
 def _add_tp(kernels, tp) -> None:
@@ -7433,6 +7454,585 @@ def tp_mla_runs(dev, tp1, prompts) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ dp
+
+# (data, model) of the phase: four gloo ranks sharing the card, two
+# replicas (data) of two tensor-parallel ranks (model)
+DP_SHAPE = (2, 2)
+# mlp_down at logical row 3 of a 4-slot decode step: data rank 1's row 1
+DP_ROW = 3
+# the sequence-sharded cell: one slot, a 2048-token prompt, a dense cache
+# of 2560 positions (1280 a data rank: rank 0 holds the prompt's head,
+# rank 1 its tail and the new tokens)
+DP_SEQ_PROMPT, DP_SEQ_LEN = 2048, 2560
+# its first decode step's logits against the one-slot TP=1 twin's, as a
+# share of the twin's logit scale: the ranks merge bf16 attention
+# partials, each normalized over its half (probabilities rounded to bf16
+# a half at a time), so the sums part from the twin's by a few bf16 ulps
+DP_SEQ_LOGIT_TOL = 0.02
+# the FSDP cell: qwen1.5-32b at published widths, 2 of its 64 layers
+# (5.2 GB in bf16, 1.3 GB a rank), four requests of 4 new tokens: each
+# step gathers every weight's model shard over gloo through the host
+DP_FSDP_ARCH, DP_FSDP_LAYERS, DP_FSDP_NEW = "qwen1.5-32b", 2, 4
+# the sharing traffic: a 512-token system prefix (SYS_LEN) in requests 0
+# and 4; request 2 (slot 2, data rank 1's) finishes first, so request 4
+# takes slot 2 and shares what request 0 (slot 0, data rank 0's)
+# prefilled
+DP_SHARE_NEW = (TP_NEW, TP_NEW, 2, TP_NEW, TP_NEW)
+
+
+def dp_share_traffic(vocab: int) -> list:
+    rng = np.random.default_rng(27)
+    sys_ = rng.integers(1, vocab, size=SYS_LEN)
+    tail = [rng.integers(1, vocab, size=n) for n in (20, 100, 30, 60, 15)]
+    out = [np.concatenate([sys_, tail[0]]), tail[1], tail[2], tail[3],
+           np.concatenate([sys_, tail[4]])]
+    return [p.astype(np.int32) for p in out]
+
+
+def dp_fsdp_config():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(DP_FSDP_ARCH),
+                               n_layers=DP_FSDP_LAYERS)
+
+
+def _dp_cache_digest(eng) -> str:
+    """A digest of every leaf of the rank's cache shard."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for layer in eng.cache:
+        for key in sorted(layer):
+            h.update(layer[key].float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_slot_log(slots: dict):
+    """An ``on_engine`` hook: {uid: slot} of every admitted request."""
+    def hook(eng):
+        admit = eng.admit
+
+        def logged(*a, **k):
+            out = admit(*a, **k)
+            for s, req in eng.active.items():
+                slots.setdefault(int(req.uid), int(s))
+            for s, cur in eng._prefill_cursors.items():
+                slots.setdefault(int(cur.req.uid), int(s))
+            return out
+
+        eng.admit = logged
+    return hook
+
+
+def _dp_collective_ms(cfg, tp, dp, world, dev) -> list:
+    """The host ms of a (2, 2) decode step's collectives alone at its
+    sizes (a data rank's 2 rows): the embedding's and each layer's two
+    (2, d) f32 model sums, the head's (2, vocab / 2) model gather, the
+    logits' (2, vocab) data gather and the flag's OR over the world,
+    between two device syncs and a barrier; 20 times."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+
+    x = torch.zeros(2, cfg.d_model, device=dev)
+    half = torch.zeros(2, 1, cfg.vocab_size // 2, device=dev)
+    whole = torch.zeros(2, 1, cfg.vocab_size, device=dev)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    out = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(2 * cfg.n_layers + 1):
+            collectives.all_reduce_sum(x, tp)
+        collectives.gather_last(half, tp)
+        collectives.gather_first(whole, dp)
+        collectives.or_flag(flag, world)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t))
+    return out
+
+
+def _dp_gather_ms(fn, reps: int) -> list:
+    """Host ms of ``fn()`` (a step's collectives of one kind, alone)
+    between a barrier and two device syncs, ``reps`` times."""
+    import torch.distributed as dist
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t))
+    return out
+
+
+def _dp_k3_shard(eng, dev, n: int) -> dict:
+    """K3 on this rank's sequence shard (layer 0's k/v, the rank's part of
+    the ``n`` cells the run wrote, a seeded bf16 q at its heads) with its
+    lse,
+    against the plain version: the partial output within 2^-7 of its
+    scale (one bf16 rounding of either side) and the lse within 1e-3
+    absolute (f32 sums of bf16 scores)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_decode_kernel,
+        flash_decode_ref,
+    )
+
+    sp = eng.executor.cache_split
+    kc, vc = eng.cache[0]["k"], eng.cache[0]["v"]
+    local = max(0, min(sp.n, n - sp.lo))
+    heads = eng.executor.params["layers"][0]["mixer"]["wq"].shape[1] // \
+        kc.shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q = torch.randn(1, 1, heads, kc.shape[-1], generator=gen,
+                    device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([local], dtype=torch.int32, device=dev)
+    got = flash_decode_kernel(q, kc, vc, None, lengths, block=16, lse=True)
+    ref = flash_decode_ref(q, kc, vc, None, lengths, block=16, lse=True)
+    err = float((got[0].float() - ref[0].float()).abs().max())
+    scale = float(ref[0].float().abs().max())
+    lse_err = float((got[-1] - ref[-1]).abs().max()) if local else 0.0
+    need(err <= 2 ** -7 * max(scale, 1e-6) and lse_err <= 1e-3
+         and (local > 0 or bool(torch.isneginf(got[-1]).all())),
+         f"dp K3 lse on the shard: err {err} (scale {scale}), lse {lse_err}")
+    return {"keys_held": int(kc.shape[1]), "valid": local,
+            "max_abs_err": err, "lse_max_abs_err": lse_err}
+
+
+def dp_rank(prompts, share, seq_prompt, fsdp_prompts, fsdp_thr) -> dict:
+    """One rank of the ``dp`` phase (``distributed/spawn.py``, four ranks
+    on the one card): llama3.2-1b at full width and ``SERVED_LAYERS``
+    layers, this rank's shard drawn from seed 0, served at
+    ``(data=2, model=2)``: dense (its first logits kept on rank 0), paged
+    and paged + shared + chunked on the sharing traffic, a decode fault
+    on logical row 3 (data rank 1's row 1) with an admission fault, a
+    hard fault; the sequence-sharded cell (one slot, a 2048-token prompt,
+    K3's lse on the rank's shard); the collectives timed alone; the
+    rank-0 audit; then, with ``sharding.FSDP_THRESHOLD`` lowered to
+    ``fsdp_thr`` in this process, qwen1.5-32b at 2 layers drawn and
+    served under FSDP.  Every record is checked equal over the world."""
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.distributed.mesh import build_mesh, rank_devices
+    from repro_torch.models import layers
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.models.model import Model
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("dp rank: no CUDA device")
+    mesh = build_mesh(data=DP_SHAPE[0], model=DP_SHAPE[1],
+                      devices=rank_devices("cuda"))
+    dev = mesh.device
+    cfg = served_config()
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(0, dtype=torch.bfloat16, device=dev,
+                               mesh=mesh)
+    world = collectives.world_group()
+    recs, timings, digests, extra = {}, {}, {}, {}
+
+    def run(label, model_=model, params_=params, prompts_=prompts, **kw):
+        eng, rec, timing, cap = tp_serve(model_, params_, prompts_, dev,
+                                         label, mesh=mesh, **kw)
+        collectives.check_same(rec, world, label)
+        recs[label], timings[label] = rec, timing
+        digests[label] = _dp_cache_digest(eng)
+        return eng, cap
+
+    eng, cap = run("dense", capture=None)
+    ex = eng.executor
+    out = {"rank": mesh.rank, "data_rank": mesh.data_rank,
+           "model_rank": mesh.model_rank, "device": str(eng.device),
+           "backend": ex.dp.backend, "rows": list(ex.rows),
+           "cache_rows": int(eng.cache[0]["k"].shape[0]),
+           "plan": [{k: r[k] for k in ("layer", "m", "k", "n", "scheme")}
+                    for r in eng.plan.report_rows()]}
+    if mesh.rank == 0:
+        out["logits"] = {k: v.numpy() for k, v in cap.first.items()}
+    tp, dp = ex.tp, ex.dp
+    del eng, cap, ex
+    run("paged", prompts_=share, new=list(DP_SHARE_NEW), max_len=1024,
+        cache_kind="paged", capture=False)
+    slots = {}
+    run("shared", prompts_=share, new=list(DP_SHARE_NEW), max_len=1024,
+        cache_kind="paged", prefix_sharing=True, chunk_tokens=SHARE_CHUNK,
+        capture=False, on_engine=_dp_slot_log(slots))
+    extra["shared_slots"] = slots
+    row = ModelFault.at(0, "mlp_down", FaultSpec.value(DP_ROW, 1, 1e5))
+    down = _tp_faults(cfg)["down"]
+    fired, row_fault = [], layers._row_fault
+
+    def logged(fault, x, w, ctx, out_dtype):
+        got = row_fault(fault, x, w, ctx, out_dtype)
+        if fault is not None and fault.row == DP_ROW and ctx.rows:
+            fired.append(None if got is None else got.row)
+        return got
+
+    layers._row_fault = logged
+    try:
+        run("fault", fault_at=(2, row), admit_fault_at=(0, down),
+            capture=False)
+    finally:
+        layers._row_fault = row_fault
+    out["row_fault_local_rows"] = sorted(set(fired), key=str)
+    run("hard_fault", fault_at=(1, row), max_retries=0, capture=False)
+    # the sequence-sharded cell
+    eng, cap = run("seq", prompts_=[seq_prompt], slots=1,
+                   max_len=DP_SEQ_LEN, capture=None)
+    sp = eng.executor.cache_split
+    out["seq_shard"] = [sp.kind, sp.lo, sp.n,
+                        list(eng.cache[0]["k"].shape)]
+    # the cells written: the prompt and every new token but the last
+    out["seq_k3"] = _dp_k3_shard(eng, dev, DP_SEQ_PROMPT + TP_NEW - 1)
+    # a one-slot decode step's LSE combines alone: one a layer, each a
+    # (1, 1, heads, head_dim) partial and its lse
+    part = torch.zeros(1, 1, cfg.n_heads // DP_SHAPE[1],
+                       cfg.resolved_head_dim, device=dev)
+    lse = torch.zeros(1, 1, cfg.n_heads // DP_SHAPE[1], device=dev)
+    def combines():
+        for _ in range(cfg.n_layers):
+            collectives.lse_combine(part, lse, dp)
+
+    out["lse_combine_ms"] = _dp_gather_ms(combines, 20)
+    if mesh.rank == 0:
+        out["seq_logits"] = {k: v.numpy() for k, v in cap.first.items()}
+    del eng, cap
+    out["collective_ms"] = _dp_collective_ms(cfg, tp, dp, world, dev)
+    out["audit"] = _hybrid_audit(model, params, prompts, dev, mesh,
+                                 mesh.rank, phase="dp")
+    out["llama_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    for key, val in extra.items():
+        collectives.check_same(val, world, key)
+    out.update(extra)
+    del params
+    free_memory()
+    # FSDP: the cut qwen1.5-32b over the threshold this process lowers
+    sharding.FSDP_THRESHOLD = fsdp_thr
+    fcfg = dp_fsdp_config()
+    fmodel = Model(fcfg)
+    torch.cuda.reset_peak_memory_stats()
+    fparams = fmodel.init_params(0, dtype=torch.bfloat16, device=dev,
+                                 mesh=mesh)
+    draw_peak = torch.cuda.max_memory_allocated()
+    full = {}
+    sharding.map_with_path(lambda ps, t: full.__setitem__(ps, t.numel()),
+                           fmodel.param_shapes())
+    shares = {}
+    sharding.map_with_path(
+        lambda ps, t: shares.__setitem__(ps, full[ps] // t.numel()), fparams)
+    out["fsdp_shares"] = shares
+    out["fsdp_weights_gb"] = sum(
+        full[ps] // shares[ps] for ps in full) * 2 / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    eng, cap = run("fsdp", model_=fmodel, params_=fparams,
+                   prompts_=fsdp_prompts,
+                   new=[DP_FSDP_NEW] * len(fsdp_prompts), capture=None)
+    out["fsdp_paths"] = sorted(eng.executor.dp.sharded)
+    out["fsdp_serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # a decode step's FSDP gathers alone: every FSDP leaf once, each
+    # gathered leaf freed before the next, as a step frees it
+    fdp = eng.executor.dp
+    flat = {}
+    sharding.map_with_path(lambda ps, t: flat.__setitem__(ps, t), fparams)
+    leaves = [(t, fdp.dims[ps.split("/", 2)[-1] if ps.startswith(
+        "layers/") else ps]) for ps, t in flat.items()
+        if (ps.split("/", 2)[-1] if ps.startswith("layers/") else ps)
+        in fdp.dims]
+    def gathers():
+        for t, dim in leaves:
+            collectives.fsdp_gather(t, fdp, dim)
+
+    out["fsdp_gather_ms"] = _dp_gather_ms(gathers, 3)
+    out["fsdp_gathers_timed"] = len(leaves)
+    if mesh.rank == 0:
+        out["fsdp_logits"] = {k: v.numpy() for k, v in cap.first.items()}
+    out["fsdp_draw_peak_gb"] = draw_peak / 1e9
+    del eng, cap, fparams
+    out["records"], out["timings"], out["digests"] = recs, timings, digests
+    return out
+
+
+def dp_k3_timing(dev, cfg) -> dict:
+    """K3 with its lse at a sequence shard's shapes: one slot, 1280 keys
+    (a data rank's half of 2560), a model rank's 4 kv heads and 16 q heads
+    of llama (bf16), held against the plain version, timed (CUDA graphs)
+    beside the lse-less launch, the plain version, SDPA and the bound
+    (K and V read once)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_decode_kernel,
+        flash_decode_ref,
+    )
+
+    S = DP_SEQ_LEN // DP_SHAPE[0]
+    KV, D = cfg.n_kv_heads // DP_SHAPE[1], cfg.resolved_head_dim
+    H = cfg.n_heads // DP_SHAPE[1]
+    gen = torch.Generator(device=dev).manual_seed(29)
+    q = torch.randn(1, 1, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn(1, S, KV, D, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    lengths = torch.full((1,), S, dtype=torch.int32, device=dev)
+    got = flash_decode_kernel(q, kc, vc, None, lengths, block=16, lse=True)
+    ref = flash_decode_ref(q, kc, vc, None, lengths, block=16, lse=True)
+    _k3_close(got[:5], ref[:5], 2 ** -7, "dp K3 shard")
+    lse_err = float((got[-1] - ref[-1]).abs().max())
+    need(lse_err <= 1e-3, f"dp K3 shard lse err {lse_err}")
+    qt = q.transpose(1, 2)
+    res = {"keys": S, "kv_heads": KV, "heads": H,
+           "max_abs_err": float((got[0].float() - ref[0].float())
+                                .abs().max()),
+           "lse_max_abs_err": lse_err,
+           "ms": timed_graph(lambda: flash_decode_kernel(
+               q, kc, vc, None, lengths, block=16, lse=True), iters=20),
+           "ms_without_lse": timed_graph(lambda: flash_decode_kernel(
+               q, kc, vc, None, lengths, block=16), iters=20),
+           "plain_ms": timed_graph(lambda: flash_decode_ref(
+               q, kc, vc, None, lengths, block=16, lse=True), iters=2),
+           "library_ms": timed_graph(
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kc.transpose(1, 2), vc.transpose(1, 2),
+                   enable_gqa=True), iters=20),
+           "bound_ms": 2 * S * KV * D * 2 / HBM_BW * 1e3,
+           "bound_by": "bytes"}
+    emit("dp_k3", **res)
+    return res
+
+
+def dp_runs(dev, tp_ref=None) -> dict:
+    """The ``dp`` phase: data-parallel serving over a (data=2, model=2)
+    mesh of four gloo ranks sharing this card.  In this process: K1 at a
+    rank's split-decode shapes (M = 2 of the 4 slots) against its plain
+    version; K3's lse at a sequence shard's shapes; the one-process twins
+    (the ``tp`` phase's TP=1 llama run, or one made here; the one-slot
+    2048-token run; qwen1.5-32b at 2 layers).  Then the ranks
+    (``dp_rank``) and the gates: records equal on all four ranks; dense
+    against the twin (first logits; a divergent stream only at a
+    near-tie); shared + chunked = paged, with request 4 in data rank 1's
+    slot 2 sharing the 512-token prefix request 0 prefilled from slot 0;
+    the row-3 fault fired on data rank 1 alone at its row 1 and was
+    recovered (streams and the cache shard equal the clean run's);
+    evictions equal the twin's; each rank holding 2 slots (1280 positions
+    in the one-slot cell), the combined decode logits within
+    ``DP_SEQ_LOGIT_TOL`` of the one-slot twin's; under FSDP each rank
+    holding a quarter of each weight split on both axes, FSDP gathers a
+    step, streams near-tie equal to the twin; K1, K3 and collectives a
+    step by kind; the rank-0 audit at 1.0; peak memory a rank.  Four
+    ranks time-sharing one card over gloo: the times are not a
+    data-parallel speed."""
+    from repro_torch.distributed import spawn
+    from repro_torch.models.counting import count_params
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg = served_config()
+    model = Model(cfg)
+    params, prompts = engine_inputs(dev, cfg=cfg)
+    k1 = tp_k1_checks(dev, model, params, m=2, phase="dp_k1")
+    ref = tp_ref or tp_reference(dev, model, params, prompts)
+    share = dp_share_traffic(cfg.vocab_size)
+    rng = np.random.default_rng(28)
+    seq_prompt = rng.integers(1, cfg.vocab_size,
+                              size=DP_SEQ_PROMPT).astype(np.int32)
+    _, seq_ref, seq_timing, seq_cap = tp_serve(
+        model, params, [seq_prompt], dev, "seq_tp1", slots=1,
+        max_len=DP_SEQ_LEN, capture=[seq_prompt])
+    seq_ref_logits = {k: v.numpy() for k, v in seq_cap.first.items()}
+    seq_gaps = seq_cap.gaps
+    del seq_cap
+    k3 = dp_k3_timing(dev, cfg)
+    del params
+    free_memory()
+    fcfg = dp_fsdp_config()
+    fmodel = Model(fcfg)
+    fparams = fmodel.init_params(0, dtype=torch.bfloat16, device=dev)
+    frng = np.random.default_rng(30)
+    fsdp_prompts = [frng.integers(1, fcfg.vocab_size, size=int(n)).astype(
+        np.int32) for n in frng.integers(16, 129, size=4)]
+    _, fsdp_ref, fsdp_timing, fcap = tp_serve(
+        fmodel, fparams, fsdp_prompts, dev, "fsdp_tp1",
+        new=[DP_FSDP_NEW] * 4, capture=fsdp_prompts)
+    fsdp_ref_logits = {k: v.numpy() for k, v in fcap.first.items()}
+    fsdp_gaps = fcap.gaps
+    del fparams, fcap
+    free_memory()
+    thr = count_params(fcfg) - 1
+    t_spawn = time.perf_counter()
+    outs = spawn.run(dp_rank, DP_SHAPE[0] * DP_SHAPE[1], prompts, share,
+                     seq_prompt, fsdp_prompts, thr, device=dev.type)
+    spawn_s = time.perf_counter() - t_spawn
+    r0 = outs[0]
+    recs = r0["records"]
+    for o in outs[1:]:
+        need(o["records"] == recs, f"dp: rank {o['rank']}'s records differ "
+             f"from rank 0's")
+    st = {k: v["stats"] for k, v in recs.items()}
+    # each replica's two model ranks hold the same cache shard; the two
+    # replicas hold other slots
+    by_data = {}
+    for o in outs:
+        by_data.setdefault(o["data_rank"], []).append(o)
+        need(o["rows"] == [2 * o["data_rank"], 2] and o["cache_rows"] == 2,
+             f"dp rank {o['rank']}: rows {o['rows']}, cache rows "
+             f"{o['cache_rows']}")
+        need(o["seq_shard"][:3] == ["seq", 1280 * o["data_rank"], 1280]
+             and o["seq_shard"][3][:2] == [1, 1280],
+             f"dp rank {o['rank']}: sequence shard {o['seq_shard']}")
+    for label, rec in recs.items():
+        if label != "hard_fault":
+            need(not rec["errors"], f"dp {label}: errors {rec['errors']}")
+    need(recs["shared"]["streams"] == recs["paged"]["streams"],
+         "dp: shared + chunked streams differ from the paged run's")
+    need(st["shared"]["prefix_tokens_shared"] >= SYS_LEN
+         and st["shared"]["prefill_chunks"] > 0,
+         f"dp shared: {st['shared']}")
+    slots = r0["shared_slots"]
+    need(slots[0] == 0 and slots[4] == 2,
+         f"dp shared: requests in slots {slots}, not 0 and 2")
+    need(recs["fault"]["streams"] == recs["dense"]["streams"],
+         "dp: the faulted streams differ from the clean run's")
+    need(st["fault"]["faults_detected"] >= 2 and st["fault"]["retries"] >= 2
+         and st["fault"]["hard_faults"] == 0, f"dp fault: {st['fault']}")
+    for o in outs:
+        want = [1] if o["data_rank"] == 1 else [None]
+        need(o["row_fault_local_rows"] == want,
+             f"dp rank {o['rank']}: the row-{DP_ROW} fault landed at "
+             f"{o['row_fault_local_rows']}, not {want}")
+        need(o["digests"]["fault"] == o["digests"]["dense"],
+             f"dp rank {o['rank']}: the recovered cache differs")
+    evicted = sorted(int(u) for u in recs["hard_fault"]["errors"])
+    need(st["hard_fault"]["hard_faults"] >= 1
+         and evicted == sorted(int(u) for u in ref["hard"]["errors"]),
+         f"dp: evicted {evicted} != TP=1's {sorted(ref['hard']['errors'])}")
+    # against the twins
+    diff = max(float(np.abs(r0["logits"][k] - ref["logits"][k]).max())
+               for k in ("prefill", "decode"))
+    equal, ties = _near_tie_gate(ref["rec"]["streams"],
+                                 recs["dense"]["streams"], ref["gaps"],
+                                 diff, "dp")
+    seq_scale = float(np.abs(seq_ref_logits["decode"]).max())
+    seq_diff = float(np.abs(r0["seq_logits"]["decode"]
+                            - seq_ref_logits["decode"]).max())
+    need(seq_diff <= DP_SEQ_LOGIT_TOL * seq_scale,
+         f"dp seq: decode logits off the twin's by {seq_diff} "
+         f"(scale {seq_scale})")
+    seq_equal, seq_ties = _near_tie_gate(
+        seq_ref["streams"], recs["seq"]["streams"], seq_gaps,
+        max(seq_diff, float(np.abs(r0["seq_logits"]["prefill"]
+                                   - seq_ref_logits["prefill"]).max())),
+        "dp seq")
+    fdiff = max(float(np.abs(r0["fsdp_logits"][k] - fsdp_ref_logits[k])
+                      .max()) for k in ("prefill", "decode"))
+    f_equal, f_ties = _near_tie_gate(fsdp_ref["streams"],
+                                     recs["fsdp"]["streams"], fsdp_gaps,
+                                     fdiff, "dp fsdp")
+    for o in outs:
+        sh = o["fsdp_shares"]
+        need(sh["layers/0/mixer/wq"] == 4 and sh["layers/0/ffn/down"] == 4
+             and sh["embed"] == 4 and sh["lm_head"] == 4,
+             f"dp fsdp rank {o['rank']}: shares {sh}")
+    # the step's kernels and collectives, on every rank
+    L = cfg.n_layers
+    for o in outs:
+        t = o["timings"]["dense"]
+        kinds = t["kinds_per_step"]
+        need(kinds["model_sum"] == [2 * L + 1]
+             and kinds["model_gather"] == [1]
+             and kinds["data_gather"] == [1] and kinds["flag"] == [1]
+             and kinds["fsdp_gather"] == [0],
+             f"dp rank {o['rank']}: collectives a step {kinds}")
+        need(t["k1_per_step"] == [7 * L + 1] and t["k3_per_step"] == [L],
+             f"dp rank {o['rank']}: K1/K3 a step {t['k1_per_step']}/"
+             f"{t['k3_per_step']}")
+        ts = o["timings"]["seq"]
+        need(ts["kinds_per_step"]["lse_combine"] == [L]
+             and ts["k3_per_step"] == [L],
+             f"dp rank {o['rank']}: seq step {ts['kinds_per_step']}")
+        tf = o["timings"]["fsdp"]
+        need(min(tf["kinds_per_step"]["fsdp_gather"]) > 0,
+             f"dp rank {o['rank']}: no FSDP gather a step")
+        for label, tl in o["timings"].items():
+            need(tl["launches"]["abft_matmul"] > 0, f"dp {label}: no K1")
+    t = r0["timings"]
+    res = {"mesh": list(DP_SHAPE), "backend": r0["backend"],
+           "devices": [o["device"] for o in outs],
+           "plan": r0["plan"], "streams_equal_tp1": len(equal),
+           "streams": len(ref["rec"]["streams"]), "divergent": ties,
+           "max_logit_diff_vs_tp1": diff, "evicted": evicted,
+           "shared_slots": slots,
+           "row_fault_local_rows": {o["rank"]: o["row_fault_local_rows"]
+                                    for o in outs},
+           "seq": {"shard": [o["seq_shard"] for o in outs],
+                   "k3_on_shard": [o["seq_k3"] for o in outs],
+                   "decode_logit_diff_vs_tp1": seq_diff,
+                   "logit_scale": seq_scale,
+                   "stream_equal_tp1": bool(seq_equal),
+                   "divergent": seq_ties,
+                   "k3_per_step": t["seq"]["k3_per_step"],
+                   "decode_step_ms_median": float(np.median(
+                       t["seq"]["step_ms"])),
+                   "tp1_decode_step_ms_median": float(np.median(
+                       seq_timing["step_ms"]))},
+           "fsdp": {"arch": DP_FSDP_ARCH, "layers": DP_FSDP_LAYERS,
+                    "threshold_lowered_to": thr,
+                    "paths": r0["fsdp_paths"],
+                    "weights_gb_a_rank": r0["fsdp_weights_gb"],
+                    "draw_peak_gb": [o["fsdp_draw_peak_gb"] for o in outs],
+                    "serve_peak_gb": [o["fsdp_serve_peak_gb"]
+                                      for o in outs],
+                    "streams_equal_tp1": len(f_equal), "divergent": f_ties,
+                    "max_logit_diff_vs_tp1": fdiff,
+                    "gathers_per_step": t["fsdp"]["kinds_per_step"][
+                        "fsdp_gather"],
+                    "decode_step_ms_median": float(np.median(
+                        t["fsdp"]["step_ms"])),
+                    "tp1_decode_step_ms_median": float(np.median(
+                        fsdp_timing["step_ms"]))},
+           "k1_per_step": t["dense"]["k1_per_step"],
+           "k3_per_step": t["dense"]["k3_per_step"],
+           "collectives_per_step": t["dense"]["kinds_per_step"],
+           "seq_collectives_per_step": t["seq"]["kinds_per_step"],
+           "decode_step_ms_median": float(np.median(
+               t["dense"]["step_ms"])),
+           "collectives_alone_ms_per_step_median": float(
+               np.median(r0["collective_ms"])),
+           "lse_combines_alone_ms_per_step_median": float(
+               np.median(r0["lse_combine_ms"])),
+           "fsdp_gathers_alone_ms_per_step_median": float(
+               np.median(r0["fsdp_gather_ms"])),
+           "fsdp_gathers_timed": r0["fsdp_gathers_timed"],
+           "tp1_decode_step_ms_median": float(
+               np.median(ref["timing"]["step_ms"])),
+           "launches": {k: v["launches"] for k, v in t.items()},
+           "stats": {k: {f: v[f] for f in (
+               "tokens", "faults_detected", "retries", "hard_faults",
+               "evictions", "prefill_chunks", "prefix_tokens_shared")}
+               for k, v in st.items()},
+           "llama_peak_gb": [o["llama_peak_gb"] for o in outs],
+           "audit": r0["audit"], "k1": k1, "k3": k3,
+           "spawn_seconds": spawn_s, "seconds": time.perf_counter() - t0,
+           "note": "four ranks time-sharing one card over gloo: a "
+                   "correctness run, not a data-parallel speed"}
+    emit("dp", **res)
+    return res
+
+
+def _add_dp(kernels, dp) -> None:
+    """The ``dp`` phase's numbers on the kernels line: K1 at a rank's
+    split-decode shapes (M = 2), K3 with its lse on a sequence shard, and
+    K1/K3 launches a decode step a rank."""
+    k1, k3 = kernels[0], kernels[2]
+    k1["dp_m2"] = {name: {key: rec[key] for key in (
+        "k", "n", "out", "ms", "plain_ms", "bound_ms", "library_ms",
+        "max_abs_err")} for name, rec in dp["k1"].items()}
+    k1["dp_launches_per_step"] = dp["k1_per_step"]
+    k3["dp_launches_per_step"] = dp["k3_per_step"]
+    k3["dp_seq_shard"] = {**dp["k3"],
+                          "launches_per_step": dp["seq"]["k3_per_step"]}
+
+
 def cfg_weights_gb(cfg, k: int = 1) -> float:
     """The bf16 weights of one rank's shard of ``cfg`` at TP=k (the whole
     model at k = 1): ``Model.param_shapes`` cut by ``param_specs``."""
@@ -7544,7 +8144,7 @@ def _add_spec(kernels, spec) -> None:
         key = entry["name"]
         entry["spec_launches"] = {
             **{k: v[key] for k, v in runs.items()},
-            **{f"{SIDE_ARCH} ({SIDE_LAYERS} layers) {k}": v[key]
+            **{f"{SIDE_ARCH} ({SPEC_SIDE_LAYERS} layers) {k}": v[key]
                for k, v in fam.items()}}
         if key == "abft_matmul":
             t = spec["llama"]["k1_verify_m36"]
@@ -7776,10 +8376,12 @@ def main(argv=None) -> int:
         audit = audit_summary(audit_scaled(dev), expected, walker_s)
         if kernels is not None:
             _add_audit(kernels, audit)
+    tp1 = None
     if "tp" in phases:
         audit = None
         free_memory()
         tp = tp_runs(dev)
+        tp1 = tp.pop("tp1")
         if kernels is not None:
             _add_tp(kernels, tp)
     if "tp_hybrid" in phases:
@@ -7795,6 +8397,13 @@ def main(argv=None) -> int:
         mla_side = None
         if kernels is not None:
             _add_tp_mla(kernels, tm)
+    if "dp" in phases:
+        tp = hy = tm = None
+        free_memory()
+        dp = dp_runs(dev, tp1)
+        tp1 = None
+        if kernels is not None:
+            _add_dp(kernels, dp)
     for line in smi:
         print(line)
     if kernels is not None:

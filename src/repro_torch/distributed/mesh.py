@@ -7,9 +7,10 @@ on its own ``torch.device`` (k ranks may share one card), joined by
 ``torch.distributed`` (``distributed/spawn.py`` starts them).  It carries
 what JAX's carries for the sharding rules, ``shape`` (a dict) and
 ``axis_names``, plus the grid of ranks, each rank's device, this
-process's rank and the process group of its ``model`` axis (None when the
-axis is one wide or spans the whole world: the collectives then use the
-default group, or are the identity).
+process's rank and the process groups of its ``model`` axis (its row of
+the grid) and its ``data`` axis (its column), each None when the axis is
+one wide or spans the whole world (the collectives then use the default
+group, or are the identity).
 
 Functions only: importing this module touches no device and no process
 group.
@@ -33,6 +34,7 @@ class Mesh:
     devices: tuple              # torch.device of each rank, rank order
     rank: int = 0               # this process's rank
     group: object = None        # this rank's model-axis process group
+    data_group: object = None   # this rank's data-axis process group
 
     @property
     def shape(self) -> dict:
@@ -49,6 +51,10 @@ class Mesh:
     @property
     def model_rank(self) -> int:
         return self.coords()["model"] if "model" in self.axis_names else 0
+
+    @property
+    def data_rank(self) -> int:
+        return self.coords()["data"] if "data" in self.axis_names else 0
 
     @property
     def device(self) -> torch.device:
@@ -89,8 +95,10 @@ def build_mesh(*, model: int = 1, data: int | None = None,
     by default: this process's world).  Raises ``ValueError`` on
     ``model < 1`` and ``RuntimeError`` when the devices cannot host the
     shape; never clamps ``model``.  Under ``torch.distributed`` this
-    process's rank and its model-axis group come with the mesh (every
-    rank must build the same mesh: the groups are made collectively)."""
+    process's rank and its model- and data-axis groups come with the mesh
+    (every rank must build the same mesh: the groups are made
+    collectively, every row of the grid and then every column, in grid
+    order, by every rank)."""
     devices = rank_devices() if devices is None else list(devices)
     n = len(devices)
     if model < 1:
@@ -110,18 +118,32 @@ def build_mesh(*, model: int = 1, data: int | None = None,
             f"mesh shape {shape} needs {need} devices, have {n}")
     grid = np.arange(need).reshape(shape)
     dist = _dist()
-    rank, group = 0, None
+    rank, group, data_group = 0, None, None
     if dist is not None:
         rank = dist.get_rank()
         world = dist.get_world_size()
-        if model > 1 and model < world:
-            rows = grid.reshape(-1, model)
-            for row in rows:
-                g = dist.new_group([int(r) for r in row])
-                if rank in row:
-                    group = g
+        group = _axis_groups(dist, grid, axes.index("model"), rank, world)
+        data_group = _axis_groups(dist, grid, axes.index("data"), rank,
+                                  world)
     return Mesh(grid=grid, axis_names=axes,
-                devices=tuple(devices[:need]), rank=rank, group=group)
+                devices=tuple(devices[:need]), rank=rank, group=group,
+                data_group=data_group)
+
+
+def _axis_groups(dist, grid, axis: int, rank: int, world: int):
+    """One process group for each line of ``grid`` along ``axis`` (the
+    ranks that differ in that coordinate alone), made in grid order by
+    every rank; returns this rank's (None where the axis is one wide or
+    spans the whole world)."""
+    n = grid.shape[axis]
+    if n == 1 or n >= world:
+        return None
+    mine = None
+    for line in np.moveaxis(grid, axis, -1).reshape(-1, n):
+        g = dist.new_group([int(r) for r in line])
+        if rank in line:
+            mine = g
+    return mine
 
 
 def make_hints(cfg, mesh):

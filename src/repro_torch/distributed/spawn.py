@@ -17,6 +17,8 @@ stderr.  On CUDA the parent builds the kernels (``library.build_all``)
 before it starts the ranks, so k ``nvcc`` builds never race in
 ``kernels/build/``.
 
+A rank that returns waits at a barrier for every rank to return, and
+hands its result to the parent before it destroys its process groups.
 A rank that raises, or dies, fails the run: the parent waits up to
 ``GRACE_S`` for the other ranks' outcomes (a peer of a failed rank fails
 too, on the closed connection, and may report first), raises one
@@ -65,11 +67,20 @@ def _worker(rank, k, store_path, backend, device_type, fn, args, out):
             world_size=k, timeout=datetime.timedelta(seconds=TIMEOUT_S))
         try:
             res = fn(*args)
-        finally:
+            # no rank tears its groups down while a peer is still in the
+            # last collective
+            dist.barrier()
+        except BaseException:
             dist.destroy_process_group()
-        out.put((rank, True, res))
+            raise
     except BaseException:
         out.put((rank, False, traceback.format_exc()))
+        return
+    # the result reaches the parent before the teardown
+    out.put((rank, True, res))
+    out.close()
+    out.join_thread()
+    dist.destroy_process_group()
 
 
 def run(fn, k: int, *args, device=None) -> list:

@@ -210,7 +210,7 @@ flash_decode_split(const TI* __restrict__ q, const TI* __restrict__ kc,
                    TI* __restrict__ out, float* __restrict__ rs,
                    float* __restrict__ bs, float* __restrict__ rp,
                    float* __restrict__ bp, float* __restrict__ scratch,
-                   int* __restrict__ tickets) {
+                   int* __restrict__ tickets, float* __restrict__ lse) {
   using U = typename Unit<TI>::T;
   constexpr int VPU = Unit<TI>::VPU;
   const int b = blockIdx.x, hy = blockIdx.y, sp = blockIdx.z;
@@ -697,6 +697,10 @@ flash_decode_split(const TI* __restrict__ q, const TI* __restrict__ kc,
       bp[qbase + g] = f[3];
       rs[qbase + g] = f[4];
       bs[qbase + g] = f[5];
+      // the log-sum-exp of the row's scaled scores: -inf where no key was
+      // valid (l = 0; the output is 0 there)
+      if (lse) lse[qbase + g] = f[1] > 0.f ? f[0] + logf(f[1])
+                                  : __int_as_float(0xff800000);
     }
   }
 }
@@ -705,7 +709,8 @@ template <typename TI, int G>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
                    const int* table, const int* lengths, const Args& a,
                    void* out, float* rs, float* bs, float* rp, float* bp,
-                   float* scratch, int* tickets, cudaStream_t st) {
+                   float* scratch, int* tickets, float* lse,
+                   cudaStream_t st) {
   const int smem = decode_smem(G, a.DP, a.DVP, sizeof(TI), a.nstage);
   static unsigned long long capped = 0;   // devices, one bit each
   cudaError_t err =
@@ -714,7 +719,7 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
   dim3 grid(a.B, a.KV * a.NSG, a.splits);
   flash_decode_split<TI, G><<<grid, NT, smem, st>>>(
       (const TI*)q, (const TI*)kc, (const TI*)vc, table, lengths, a,
-      (TI*)out, rs, bs, rp, bp, scratch, tickets);
+      (TI*)out, rs, bs, rp, bp, scratch, tickets, lse);
   return cudaGetLastError();
 }
 
@@ -722,16 +727,17 @@ template <typename TI>
 cudaError_t dispatch(const void* q, const void* kc, const void* vc,
                      const int* table, const int* lengths, const Args& a,
                      void* out, float* rs, float* bs, float* rp, float* bp,
-                     float* scratch, int* tickets, cudaStream_t st) {
+                     float* scratch, int* tickets, float* lse,
+                     cudaStream_t st) {
   switch (pow2_at_least(a.HG)) {
     case 1: return launch<TI, 1>(q, kc, vc, table, lengths, a, out, rs, bs,
-                                 rp, bp, scratch, tickets, st);
+                                 rp, bp, scratch, tickets, lse, st);
     case 2: return launch<TI, 2>(q, kc, vc, table, lengths, a, out, rs, bs,
-                                 rp, bp, scratch, tickets, st);
+                                 rp, bp, scratch, tickets, lse, st);
     case 4: return launch<TI, 4>(q, kc, vc, table, lengths, a, out, rs, bs,
-                                 rp, bp, scratch, tickets, st);
+                                 rp, bp, scratch, tickets, lse, st);
     case 8: return launch<TI, 8>(q, kc, vc, table, lengths, a, out, rs, bs,
-                                 rp, bp, scratch, tickets, st);
+                                 rp, bp, scratch, tickets, lse, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -792,12 +798,15 @@ extern "C" long long flash_decode_scratch_floats(int B, int KV, int G, int DV,
 // CTAs a (row, kv head), each over `per` blocks; with splits > 1, scratch
 // holds flash_decode_scratch_floats floats and tickets B x KV x ceil(G / 8)
 // int32 zeros (each launch leaves them zero); splits <= 64.  Any G; D and
-// DV rows of whole 16-byte units, at most 512 bytes.  Returns
-// cudaGetLastError() after the launch.
+// DV rows of whole 16-byte units, at most 512 bytes.  lse, where not null,
+// gets each (row, kv head, head) m + log(l) of the merged state: the
+// log-sum-exp of its scaled scores over the valid keys, -inf for none.
+// Returns cudaGetLastError() after the launch.
 extern "C" int flash_decode_launch(
     const void* q, const void* kc, const void* vc, const int* table,
     const int* lengths, void* out, float* rs, float* bs, float* rp,
-    float* bp, float* scratch, int* tickets, int B, int KV, int G, int D,
+    float* bp, float* scratch, int* tickets, float* lse, int B, int KV,
+    int G, int D,
     int DV, int T, int W, int NB, int dense, int splits, int per,
     long long tstride, float scale, int dtype, void* stream) {
   const int esz = dtype == 1 ? 2 : 4;
@@ -811,8 +820,8 @@ extern "C" int flash_decode_launch(
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = dtype == 1
       ? dispatch<__nv_bfloat16>(q, kc, vc, table, lengths, a, out, rs, bs,
-                                rp, bp, scratch, tickets, st)
+                                rp, bp, scratch, tickets, lse, st)
       : dispatch<float>(q, kc, vc, table, lengths, a, out, rs, bs, rp, bp,
-                        scratch, tickets, st);
+                        scratch, tickets, lse, st);
   return (int)err;
 }

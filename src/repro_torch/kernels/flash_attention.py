@@ -20,7 +20,11 @@ Shapes follow the reference's wrappers: q (B, 1, H, D) with heads stored
 kv-major (kv, group); a dense cache (B, S, KV, D) or paged pools
 (NB, BS, KV, D) with a (B, W) int32 block table; lengths (B,) int32.
 Returns (out (B, 1, H, Dv), res_s, bnd_s, res_pv, bnd_pv), the four check
-vectors of shape (B, KV, G).  The kernel splits each row's block walk
+vectors of shape (B, KV, G), and on request (``lse=True``) the (B, KV, G)
+f32 log-sum-exp of each head's scaled scores over the row's valid keys,
+m + log(l) of the merged state (-inf, with a zero output, for a row of
+no valid key): a sequence shard's partial, which the data ranks merge
+(``collectives.lse_combine``).  The kernel splits each row's block walk
 over ``decode_splits`` CTAs and merges them (flash decoding);
 ``flash_decode_split_ref`` is that split and merge in plain PyTorch,
 ``flash_decode_ref`` the sequential walk.
@@ -215,7 +219,7 @@ def flash_attention_ref(q, k, v, fault=(0, 0, 0, 0, 0, 0), *, bq: int,
 
 def flash_decode_kernel(q, k_cache, v_cache, table, lengths, *, block: int,
                         scale: float | None = None,
-                        splits: int | None = None):
+                        splits: int | None = None, lse: bool = False):
     """Launch K3.  ``table is None`` selects the dense cache (identity
     table over ``block``-sized k-blocks); otherwise the pools' block size
     is ``block`` and sentinel table entries are clamped in the kernel.
@@ -223,7 +227,8 @@ def flash_decode_kernel(q, k_cache, v_cache, table, lengths, *, block: int,
     time one count against another; 1 is the single-CTA walk); a count
     outside 1..min(W, 64) raises.  Rows of q, K and V are read in whole
     16-byte units, at most 32 of them; any G = H / KV (at most 8 heads a
-    CTA)."""
+    CTA).  ``lse``: also return the rows' log-sum-exps (module
+    docstring)."""
     B, _, H, D = q.shape
     dense = table is None
     KV, DV = k_cache.shape[2], v_cache.shape[3]
@@ -271,6 +276,8 @@ def flash_decode_kernel(q, k_cache, v_cache, table, lengths, *, block: int,
     out = torch.empty((B, 1, H, DV), dtype=q.dtype, device=dev)
     rs, bs, rp, bp = (torch.empty((B, KV, G), dtype=F32, device=dev)
                       for _ in range(4))
+    lse_out = (torch.empty((B, KV, G), dtype=F32, device=dev) if lse
+               else None)
     scratch = torch.empty((lib.flash_decode_scratch_floats(
         B, KV, G, DV, esz, splits),), dtype=F32, device=dev)
     tickets = (_tickets(lib, dev, B * KV * -(-G // DECODE_HEADS))
@@ -279,11 +286,13 @@ def flash_decode_kernel(q, k_cache, v_cache, table, lengths, *, block: int,
     err = lib.flash_decode_launch(
         P(q), P(k_cache), P(v_cache), P(table) if not dense else None,
         P(lengths), P(out), P(rs), P(bs), P(rp), P(bp), P(scratch),
-        P(tickets) if tickets is not None else None, B, KV, G, D, DV, block, W, NB, int(dense), splits, per,
-        tstride, float(scale), _DTYPES[q.dtype], library.stream())
+        P(tickets) if tickets is not None else None,
+        P(lse_out) if lse else None, B, KV, G, D, DV, block, W, NB,
+        int(dense), splits, per, tstride, float(scale), _DTYPES[q.dtype],
+        library.stream())
     library.check(err, KERNEL.name)
     KERNEL.launches += 1
-    return out, rs, bs, rp, bp
+    return (out, rs, bs, rp, bp) + ((lse_out,) if lse else ())
 
 
 def _decode_blocks(q, k_cache, v_cache, table, block: int):
@@ -346,11 +355,15 @@ def _decode_walk(qf, kb, vb, lens, block: int, j_lo: int, j_hi: int,
     return m, l, acc, chk, bndc, ress, bnds
 
 
-def _decode_finish(q, acc, l, chk, bndc, ress, bnds):
+def _decode_finish(q, m, acc, l, chk, bndc, ress, bnds, lse: bool):
     B, _, H, _ = q.shape
     out = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
     rp = (chk - acc.sum(-1)).abs()
-    return out.reshape(B, 1, H, acc.shape[-1]), ress, bnds, rp, bndc
+    res = (out.reshape(B, 1, H, acc.shape[-1]), ress, bnds, rp, bndc)
+    if not lse:
+        return res
+    neg = torch.full((), float("-inf"), dtype=F32, device=q.device)
+    return res + (torch.where(l > 0, m + torch.log(l), neg),)
 
 
 def _decode_inputs(q, k_cache, v_cache, table, lengths, block, scale):
@@ -364,19 +377,20 @@ def _decode_inputs(q, k_cache, v_cache, table, lengths, block, scale):
 
 
 def flash_decode_ref(q, k_cache, v_cache, table, lengths, *, block: int,
-                     scale: float | None = None):
+                     scale: float | None = None, lse: bool = False):
     """Plain version of K3 (the Pallas body's arithmetic, block by block,
-    every block of the table walked as the TPU grid does)."""
+    every block of the table walked as the TPU grid does); ``lse`` as
+    the kernel's."""
     qf, kb, vb, lens, scale = _decode_inputs(q, k_cache, v_cache, table,
                                              lengths, block, scale)
     m, l, acc, chk, bndc, ress, bnds = _decode_walk(
         qf, kb, vb, lens, block, 0, kb.shape[1], scale)
-    return _decode_finish(q, acc, l, chk, bndc, ress, bnds)
+    return _decode_finish(q, m, acc, l, chk, bndc, ress, bnds, lse)
 
 
 def flash_decode_split_ref(q, k_cache, v_cache, table, lengths, *,
                            block: int, splits: int,
-                           scale: float | None = None):
+                           scale: float | None = None, lse: bool = False):
     """Plain version of K3's split walk and merge: split s walks blocks
     [s * per, (s + 1) * per) with per = ceil(W / splits), from a fresh
     state; the splits merge in order: m = max m_s, w_s = exp(m_s - m), l,
@@ -400,4 +414,4 @@ def flash_decode_split_ref(q, k_cache, v_cache, table, lengths, *,
     bndc = sum(w * p[4] for w, p in zip(wts, parts))
     ress = torch.stack([p[5] for p in parts]).amax(0)
     bnds = torch.stack([p[6] for p in parts]).amax(0)
-    return _decode_finish(q, acc, l, chk, bndc, ress, bnds)
+    return _decode_finish(q, m, acc, l, chk, bndc, ress, bnds, lse)

@@ -86,10 +86,18 @@ def _lengths(lengths, B: int, device) -> torch.Tensor:
         device).expand(B).contiguous()
 
 
+def _lse(on: bool) -> dict:
+    """The kernel's ``lse`` keyword where the caller asks for it."""
+    return {"lse": True} if on else {}
+
+
 def flash_decode(q, k_cache, v_cache, lengths, *, bk: int = 128,
-                 c_factor: float = 16.0):
+                 c_factor: float = 16.0, return_lse: bool = False):
     """Decode attention against a ragged dense cache.  q: (B, 1, H, D);
-    k_cache/v_cache: (B, S, KV, D[v]); lengths: (B,) valid lengths."""
+    k_cache/v_cache: (B, S, KV, D[v]); lengths: (B,) valid lengths.
+    Returns (out, CheckResult), and with ``return_lse`` the (B, KV, G)
+    f32 log-sum-exp of each head's scores over the valid keys (-inf and a
+    zero output for a row of none: a sequence shard's partial)."""
     B, _, H, D = q.shape
     S = k_cache.shape[1]
     block = min(bk, _round_up(S, 8))
@@ -97,17 +105,18 @@ def flash_decode(q, k_cache, v_cache, lengths, *, bk: int = 128,
         else flash_decode_ref
     with markers.kernel_scope("K3", B * H, D, S,
                               attn_flops(B * H, D, v_cache.shape[-1], S)):
-        out, rs, bs, rp, bp = run(q, k_cache, v_cache, None,
-                                  _lengths(lengths, B, q.device),
-                                  block=block)
-    return out, _attn_check(rs, bs, rp, bp, D, S, c_factor)
+        out, rs, bs, rp, bp, *lse = run(q, k_cache, v_cache, None,
+                                        _lengths(lengths, B, q.device),
+                                        block=block, **_lse(return_lse))
+    return (out, _attn_check(rs, bs, rp, bp, D, S, c_factor), *lse)
 
 
 def flash_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
-                       c_factor: float = 16.0):
+                       c_factor: float = 16.0, return_lse: bool = False):
     """Decode attention against a paged cache.  k_pool/v_pool:
     (NB, BS, KV, D[v]); block_tables: (B, W) int32 (sentinel tails are
-    clamped; the lengths mask makes their contribution exactly zero)."""
+    clamped; the lengths mask makes their contribution exactly zero).
+    ``return_lse`` as ``flash_decode``'s."""
     B, _, H, D = q.shape
     BS = v_pool.shape[1]
     W = block_tables.shape[1]
@@ -116,7 +125,7 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
     with markers.kernel_scope("K3", B * H, D, W * BS,
                               attn_flops(B * H, D, v_pool.shape[-1],
                                          W * BS)):
-        out, rs, bs, rp, bp = run(q, k_pool, v_pool,
-                                  block_tables.to(torch.int32).contiguous(),
-                                  _lengths(lengths, B, q.device), block=BS)
-    return out, _attn_check(rs, bs, rp, bp, D, W * BS, c_factor)
+        out, rs, bs, rp, bp, *lse = run(
+            q, k_pool, v_pool, block_tables.to(torch.int32).contiguous(),
+            _lengths(lengths, B, q.device), block=BS, **_lse(return_lse))
+    return (out, _attn_check(rs, bs, rp, bp, D, W * BS, c_factor), *lse)

@@ -102,7 +102,7 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
             fn.restype = i
     else:
         fn = lib.flash_decode_launch
-        fn.argtypes = [p] * 12 + [i] * 11 + [ll, f, i, p]
+        fn.argtypes = [p] * 13 + [i] * 11 + [ll, f, i, p]
         fn.restype = i
         lib.flash_decode_smem_bytes.argtypes = [i] * 4
         lib.flash_decode_smem_bytes.restype = i

@@ -45,7 +45,8 @@ or ``self-draft`` through the first UNITS layers over a WINDOW of context,
 for the roofline-tuned K); it needs flash attention off.  The stats line
 then carries a ``spec_decode`` block (proposer, draft length, proposed and
 accepted drafts, acceptance rate, verify retries).
-``--mesh N`` serves with tensor parallelism over N ranks
+``--mesh N`` serves with tensor parallelism over N ranks, a
+``(data=1, model=N)`` mesh as the reference's CLI builds
 (``distributed/spawn.py``: one process a rank, gloo where ranks share a
 device or run on the CPU, NCCL where each has a GPU of its own), each
 drawing only its shard of the weights (the same ``--seed``'s numbers) and
@@ -53,8 +54,11 @@ holding its shard of the KV cache or per-slot state: GQA, MLA and
 Mamba2 stacks with dense, MoE or no FFNs (the dense family,
 qwen2-moe-a2.7b, deepseek-v3-671b, mamba2-1.3b, jamba-v0.1-52b); the
 encoder-decoder and vision stacks, and a layout the port does not shard
-(``data > 1``, a q head split with no padding: ROADMAP A.3b-ii), exit
-with the ``NotImplementedError`` message before any rank starts.  Rank 0
+(a q head split with no padding: ROADMAP A.3b-ii), exit with the
+``NotImplementedError`` message before any rank starts.  Data-parallel
+replicas (``data > 1``) have no flag here, as the reference's CLI has
+none: they serve through ``ServeEngine(mesh=build_mesh(data=d,
+model=k))`` on each rank (``executor.MeshExecutor``).  Rank 0
 prints the stats line, with the per-shard plan (``shard_plan``), the
 backend and the ranks a device, and writes every artifact; the heartbeat
 monitor tracks one worker a rank.  ``--mesh 1`` runs the mesh executor in this process.

@@ -51,6 +51,17 @@ column-parallel, so a rank holds its q heads' columns and its heads of
 ``wo`` is row-parallel; ``wq_a``, ``wkv_a`` and their norms are
 replicated, so every rank computes the same latent bit for bit and keeps
 the whole latent cache (``cache_specs``).
+
+Under data parallelism (``LayerCtx.cache_split``) a dense cache holds
+the rank's slots or, with fewer slots than data ranks, the rank's run of
+positions (``k``/``v``, MLA's ``latent``).  A whole-batch call (prefill,
+a prompt chunk) writes only the cells the rank holds (``put_cells``);
+a chunk that reads the slot's earlier cells gathers them from the ranks
+that hold them for that call alone (``_slot_rows``).  Over a
+sequence-sharded cache a decode step attends each rank's positions (K3,
+or the plain path, on the shard, with its log-sum-exp) and merges the
+partials in f32 (``collectives.lse_combine``): no rank ever holds the
+whole sequence.  Paged pools stay whole on every data rank.
 """
 
 from __future__ import annotations
@@ -59,7 +70,12 @@ import torch
 
 from repro_torch.analysis.markers import coverage_scope, logical_scope
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import gather_last
+from repro_torch.distributed.collectives import (
+    fsdp_gather,
+    gather_first,
+    gather_last,
+    lse_combine,
+)
 from repro_torch.models.layers import (
     LayerCtx,
     apply_rope,
@@ -68,6 +84,7 @@ from repro_torch.models.layers import (
     dense,
     or_flags,
     per_step,
+    put_cells,
     rms_norm,
     rope_tables,
     tp_par,
@@ -207,19 +224,22 @@ def verify_cells(pos, valid, depth: int) -> tuple:
     return verify_write_index(pos, valid, int(valid.max()), depth)[0]
 
 
-def _row_scatter(cache_leaf, new, pos) -> None:
-    """Per-row decode write: ``new[b, 0]`` lands at ``cache_leaf[b, pos[b]]``."""
-    cache_leaf[decode_cells(pos.to(cache_leaf.device))] = \
-        new[:, 0].to(cache_leaf.dtype)
+def _row_scatter(cache_leaf, new, pos, ctx: LayerCtx) -> None:
+    """Per-row decode write: ``new[b, 0]`` lands at ``cache_leaf[b, pos[b]]``
+    (on a sequence-sharded cache, on the rank that holds the position)."""
+    put_cells(cache_leaf, decode_cells(pos.to(cache_leaf.device)),
+              new[:, 0], ctx)
 
 
-def _slot_prefill_write(cache_leaf, new, slots, L: int) -> None:
+def _slot_prefill_write(cache_leaf, new, slots, L: int,
+                        ctx: LayerCtx) -> None:
     """Write ``new`` (A, L, ...) into rows ``slots`` at positions [0, L)."""
-    cache_leaf[prefill_cells(slots.to(cache_leaf.device), L)] = \
-        new.to(cache_leaf.dtype)
+    put_cells(cache_leaf, prefill_cells(slots.to(cache_leaf.device), L),
+              new, ctx)
 
 
-def _slot_prefill_write_at(cache_leaf, new, slots, starts, lengths) -> None:
+def _slot_prefill_write_at(cache_leaf, new, slots, starts, lengths,
+                           ctx: LayerCtx) -> None:
     """Write ``new`` (A, L, ...) into rows ``slots`` at per-row offsets:
     ``new[a, t]`` lands at ``starts[a] + t`` for ``t < lengths[a]``.
     Padding positions (and padding rows, lengths 0) are masked out and
@@ -229,7 +249,48 @@ def _slot_prefill_write_at(cache_leaf, new, slots, starts, lengths) -> None:
                           lengths.to(dev))
     keep = (torch.arange(new.shape[1], device=dev)[None, :]
             < lengths.to(dev)[:, None])
-    cache_leaf[cells] = new[keep].to(cache_leaf.dtype)
+    put_cells(cache_leaf, cells, new[keep], ctx)
+
+
+def _slot_rows(cache_leaf, slots, ctx: LayerCtx):
+    """The cache rows of ``slots`` (A, S, ...), every position, for a
+    whole-batch call (a prompt chunk attending its slot's earlier cells).
+    A split cache's rows come from the ranks that hold them, for this
+    call alone: slot-sharded, each rank fills the rows it holds (zeros
+    elsewhere) and every row is taken from its owner's part of the
+    gather; sequence-sharded, the rows' positions are gathered in rank
+    order."""
+    sp = ctx.cache_split
+    slots = slots.to(cache_leaf.device).long()
+    if sp is None or ctx.rows is not None:
+        return cache_leaf[slots]
+    if sp.kind == "seq":
+        return fsdp_gather(cache_leaf[slots], ctx.dp, 1, kind="data_gather")
+    own = sp.owns(slots)
+    local = cache_leaf[torch.where(own, slots - sp.lo, 0)]
+    local = torch.where(own.reshape((-1,) + (1,) * (local.dim() - 1)),
+                        local, torch.zeros((), dtype=local.dtype,
+                                           device=local.device))
+    every = gather_first(local, ctx.dp).reshape(
+        (ctx.dp.size,) + tuple(local.shape))
+    return every[slots // sp.n, torch.arange(len(slots),
+                                             device=slots.device)]
+
+
+def _seq_len(length, ctx: LayerCtx):
+    """A sequence-sharded rank's valid keys of each row: its positions
+    below ``length``; None on any other layout."""
+    sp = ctx.cache_split
+    if sp is None or sp.kind != "seq":
+        return None
+    return (length - sp.lo).clamp(0, sp.n).to(length.dtype)
+
+
+def _merge(out, lse, ctx: LayerCtx):
+    """A sequence-sharded decode's output: the ranks' partial ``out``
+    (B, 1, H, Dv) merged by their ``lse`` (B, KV, G) in f32, cast back."""
+    B, _, H, _ = out.shape
+    return lse_combine(out, lse.reshape(B, 1, H), ctx.dp).to(out.dtype)
 
 
 def gqa_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, positions, cache,
@@ -252,18 +313,17 @@ def gqa_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, positions, cache,
         out = chunked_attention(q, _sel(k, heads), _sel(v, heads),
                                 causal=True, lengths=lengths, spans=spans)
         if slots is None:
-            cache["k"][:, :L] = k.to(cache["k"].dtype)
-            cache["v"][:, :L] = v.to(cache["v"].dtype)
-        else:
-            _slot_prefill_write(cache["k"], k, slots, L)
-            _slot_prefill_write(cache["v"], v, slots, L)
+            slots = torch.arange(x.shape[0], device=x.device)
+        _slot_prefill_write(cache["k"], k, slots, L, ctx)
+        _slot_prefill_write(cache["v"], v, slots, L, ctx)
     else:
         assert slots is not None, "chunked prefill needs slot targets"
-        _slot_prefill_write_at(cache["k"], k, slots, starts, lengths)
-        _slot_prefill_write_at(cache["v"], v, slots, starts, lengths)
-        rows = slots.to(cache["k"].device).long()
-        out = chunked_attention(q, _sel(cache["k"][rows], heads),
-                                _sel(cache["v"][rows], heads),
+        _slot_prefill_write_at(cache["k"], k, slots, starts, lengths, ctx)
+        _slot_prefill_write_at(cache["v"], v, slots, starts, lengths, ctx)
+        out = chunked_attention(q, _sel(_slot_rows(cache["k"], slots, ctx),
+                                        heads),
+                                _sel(_slot_rows(cache["v"], slots, ctx),
+                                     heads),
                                 causal=True, q_offset=starts,
                                 lengths=starts + lengths, spans=spans)
     out, f = _out(out, p, ctx)
@@ -282,20 +342,27 @@ def gqa_decode(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache):
     """One-token decode.  x: (B, 1, D); pos: (B,) per-slot cursor; each
     row writes its k/v at its own cursor and attends its own prefix."""
     q, k, v, flag = _qkv(x, p, cfg, ctx, pos[:, None])
-    _row_scatter(cache["k"], k, pos)
-    _row_scatter(cache["v"], v, pos)
+    _row_scatter(cache["k"], k, pos, ctx)
+    _row_scatter(cache["v"], v, pos, ctx)
     heads = _kv_heads(q, cache["k"], cfg, ctx)
+    # a sequence-sharded rank attends its own positions, then merges
+    local = _seq_len(pos + 1, ctx)
+    length = pos + 1 if local is None else local
     if ctx.abft.flash_attention:
         from repro_torch.kernels.flash_ops import flash_decode
 
-        out, chk = flash_decode(q, _sel(cache["k"], heads, True),
-                                _sel(cache["v"], heads, True), pos + 1,
-                                bk=DENSE_DECODE_BLOCK)
+        out, chk, *lse = flash_decode(
+            q, _sel(cache["k"], heads, True), _sel(cache["v"], heads, True),
+            length, bk=DENSE_DECODE_BLOCK, return_lse=local is not None)
         f_attn = chk.flag
     else:
         out = decode_attention(q, _sel(cache["k"], heads),
-                               _sel(cache["v"], heads), pos + 1)
+                               _sel(cache["v"], heads), length,
+                               return_lse=local is not None)
+        out, *lse = out if local is not None else (out,)
         f_attn = torch.zeros((), dtype=torch.bool, device=x.device)
+    if local is not None:
+        out = _merge(out, lse[0], ctx)
     out, f = _out(out, p, ctx)
     return out, or_flags(flag, f_attn, f)
 
@@ -597,15 +664,23 @@ def _mla_attend(q_full, scale, latent, p, cfg: ModelConfig, ctx: LayerCtx,
     are all of it, the values its first ``kv_lora_rank`` (a view, no
     copy); then the values' un-absorption through ``w_uv`` and ``wo``.
     ``verify_len``, ``decode_len`` or neither pick verify, decode or
-    chunked attention (``spans``: row-wise), never a flash kernel."""
+    chunked attention (``spans``: row-wise), never a flash kernel.  A
+    decode over a sequence-sharded latent attends the rank's positions
+    and merges the ranks' partials (``_merge``) before ``w_uv``."""
     B, L = q_full.shape[:2]
     kv = latent[:, :, None, :]
     vv = latent[:, :, None, :cfg.kv_lora_rank]
     # the attention core and the values' un-absorption: no fused ABFT
     # kernel, a known gap of the coverage audit (``flops[mla]``)
     with coverage_scope("mla"):
+        local = (_seq_len(decode_len, ctx) if decode_len is not None
+                 else None)
         if verify_len is not None:
             o = verify_attention(q_full, kv, vv, verify_len, scale=scale)
+        elif local is not None:
+            o, lse = decode_attention(q_full, kv, vv, local, scale=scale,
+                                      return_lse=True)
+            o = _merge(o, lse, ctx)
         elif decode_len is not None:
             o = decode_attention(q_full, kv, vv, decode_len, scale=scale)
         else:
@@ -639,13 +714,12 @@ def mla_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, positions, cache,
         out, f3 = _mla_attend(q, scale, latent, p, cfg, ctx,
                               lengths=lengths, spans=spans, order=order)
         if slots is None:
-            leaf[:, :x.shape[1]] = latent.to(leaf.dtype)
-        else:
-            _slot_prefill_write(leaf, latent, slots, x.shape[1])
+            slots = torch.arange(x.shape[0], device=x.device)
+        _slot_prefill_write(leaf, latent, slots, x.shape[1], ctx)
     else:
         assert slots is not None, "chunked prefill needs slot targets"
-        _slot_prefill_write_at(leaf, latent, slots, starts, lengths)
-        out, f3 = _mla_attend(q, scale, leaf[slots.to(leaf.device).long()],
+        _slot_prefill_write_at(leaf, latent, slots, starts, lengths, ctx)
+        out, f3 = _mla_attend(q, scale, _slot_rows(leaf, slots, ctx),
                               p, cfg, ctx, lengths=starts + lengths,
                               q_offset=starts, spans=spans, order=order)
     return out, or_flags(f1, f2, f3)
@@ -656,7 +730,7 @@ def mla_decode(x, p, cfg: ModelConfig, ctx: LayerCtx, pos, cache):
     attends its own prefix."""
     q, scale, f1 = _mla_q(x, p, cfg, ctx, pos[:, None])
     latent, f2 = _mla_latent(x, p, cfg, ctx, pos[:, None])
-    _row_scatter(cache["latent"], latent, pos)
+    _row_scatter(cache["latent"], latent, pos, ctx)
     out, f3 = _mla_attend(q, scale, cache["latent"], p, cfg, ctx,
                           decode_len=pos + 1)
     return out, or_flags(f1, f2, f3)

@@ -16,6 +16,19 @@ f32 and rounded to the site's dtype once, after the sum, so the output
 rounds once as the unsharded GEMM's does.  A leaf the rules replicate is
 computed whole on every rank.  Whether a leaf is split is looked up by
 its path below the layer (``tp_par``).
+
+Data parallelism (``LayerCtx.dp``, the rank's data-axis ``TPGroup``):
+a leaf the rules shard over ``data`` as well (FSDP, models of at least
+``sharding.FSDP_THRESHOLD`` parameters) is gathered whole along its data
+dim just before its GEMM and freed after it (``fsdp_view``), so the GEMM
+sees the model-shard dims it sees at ``data == 1``.  A serving call runs
+either the whole batch on every data rank (prefill) or, where the cache
+splits its slots over ``data``, only the rank's own slots
+(``LayerCtx.rows``: a split decode or verify); ``LayerCtx.cache_split``
+says how the dense cache's per-slot leaves lie over the data ranks
+(``CacheSplit``), which the cache writes and reads follow.  A fault's
+logical row on a split call lands on the data rank that owns it, at its
+local row (``dense``).
 """
 
 from __future__ import annotations
@@ -32,7 +45,11 @@ from repro_torch.core.protected import (
     protected_matmul,
     protected_matmul_batched,
 )
-from repro_torch.distributed.collectives import TPGroup, all_reduce_sum
+from repro_torch.distributed.collectives import (
+    TPGroup,
+    all_reduce_sum,
+    fsdp_gather,
+)
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -82,6 +99,38 @@ class ShardingHints:
 
 
 @dataclasses.dataclass(frozen=True)
+class CacheSplit:
+    """How a dense cache's per-slot leaves lie over the data ranks
+    (``sharding.cache_specs``): ``kind`` ``"slot"`` (data rank r holds
+    slots [lo, lo + n): every per-slot leaf, GQA's ``k``/``v``, MLA's
+    ``latent``, a Mamba2 layer's state) or ``"seq"`` (fewer slots than
+    data ranks: rank r holds positions [lo, lo + n) of the attention
+    leaves ``k``/``v``/``latent``, and every per-slot state whole).  A
+    paged pool is never split over ``data``: its cells are written whole
+    by a whole-batch call and by a split call's own slots."""
+
+    kind: str
+    lo: int
+    n: int
+
+    def owns(self, idx):
+        """A bool mask: which of ``idx`` (slots, or positions) the rank
+        holds."""
+        return (idx >= self.lo) & (idx < self.lo + self.n)
+
+    def local(self, cells: tuple) -> tuple:
+        """Dense cache cells (rows, positions: index tensors broadcast to
+        one shape) cut to those the rank holds: (their local index, the
+        mask of the kept cells)."""
+        r, p = torch.broadcast_tensors(*cells)
+        which = 0 if self.kind == "slot" else 1
+        keep = self.owns((r, p)[which])
+        idx = [r[keep], p[keep]]
+        idx[which] = idx[which] - self.lo
+        return tuple(idx), keep
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerCtx:
     """Per-forward context: the ABFT config, the fault target, the
     current layer index (set by the stack loop), the prefix of the
@@ -89,7 +138,13 @@ class LayerCtx:
     matching reads the site and the layer index alone, so an encoder
     layer i is hit by a fault aimed at decoder layer i), the sharding
     ``hints`` and ``tp``, this rank's place on the mesh's model axis
-    (None: unsharded)."""
+    (None: unsharded).  Data parallelism: ``dp``, the rank's place on the
+    data axis; ``cache_split`` (``CacheSplit``, None: the dense cache is
+    whole on every data rank); ``rows`` (lo, n): the call runs the
+    logical slots [lo, lo + n) alone (a split decode or verify), None the
+    whole batch; ``moe_groups``: the MoE dispatch's group count for this
+    call, None for the hints' ``dp_size`` (a split call holds exactly one
+    group, its slots, and sets 1)."""
 
     abft: ABFTConfig = ABFTConfig()
     fault: ModelFault | None = None
@@ -97,6 +152,10 @@ class LayerCtx:
     site_prefix: str = ""
     hints: ShardingHints | None = None
     tp: TPGroup | None = None
+    dp: TPGroup | None = None
+    cache_split: CacheSplit | None = None
+    rows: tuple | None = None
+    moe_groups: int | None = None
 
     def with_layer(self, idx: int) -> "LayerCtx":
         return dataclasses.replace(self, layer_idx=idx)
@@ -117,6 +176,92 @@ def tp_par(ctx: LayerCtx, path: str, kind: str) -> str | None:
     ``"ffn/shared/down"``; ``TPGroup.sharded``), else None (unsharded, or
     replicated)."""
     return kind if ctx.tp is not None and ctx.tp.splits(path) else None
+
+
+def fsdp_leaf(t, ctx: LayerCtx, path: str):
+    """``t`` (the leaf at ``path``) whole along its FSDP dim: gathered
+    over the data axis where the rules shard it there, else ``t``."""
+    dp = ctx.dp
+    if dp is None or not dp.splits(path):
+        return t
+    return fsdp_gather(t, dp, dp.dims[path])
+
+
+class FSDPView(dict):
+    """A read-only view of a layer's params whose FSDP leaves come back
+    gathered (``fsdp_leaf``) each time they are read: a GEMM's weight is
+    gathered as its call evaluates its arguments and freed when the call
+    returns.  ``raw(key)`` reads a leaf as stored (its shape for a
+    count that the data dim does not change)."""
+
+    def __init__(self, tree: dict, ctx: LayerCtx, prefix: str = ""):
+        super().__init__(tree)
+        self._ctx, self._prefix = ctx, prefix
+
+    def __getitem__(self, key):
+        val = super().__getitem__(key)
+        path = f"{self._prefix}{key}"
+        if isinstance(val, dict):
+            return FSDPView(val, self._ctx, path + "/")
+        return fsdp_leaf(val, self._ctx, path)
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+    def raw(self, key):
+        return super().__getitem__(key)
+
+
+def fsdp_view(tree: dict, ctx: LayerCtx):
+    """``tree`` (a layer's params) as an ``FSDPView`` where the context's
+    data axis holds FSDP leaves, else ``tree`` itself."""
+    dp = ctx.dp
+    if dp is None or dp.size == 1 or not dp.sharded:
+        return tree
+    return FSDPView(tree, ctx)
+
+
+def raw(p, key):
+    """``p[key]`` as stored (no FSDP gather)."""
+    return p.raw(key) if isinstance(p, FSDPView) else p[key]
+
+
+def put_cells(leaf, cells: tuple, values, ctx: LayerCtx) -> None:
+    """``leaf[cells] = values`` on a dense cache leaf (rows, then
+    positions; index tensors broadcastable to ``values``' leading dims),
+    the cells this data rank holds alone, at their local index, where a
+    whole-batch call writes a split cache (``LayerCtx.cache_split``); a
+    split call's cells are the rank's own already."""
+    sp = ctx.cache_split
+    values = values.to(leaf.dtype)
+    if sp is None or ctx.rows is not None:
+        leaf[cells] = values
+        return
+    idx, keep = sp.local(cells)
+    leaf[idx] = values[keep]
+
+
+def _row_fault(fault, x, w, ctx: LayerCtx, out_dtype):
+    """A split call's fault on this data rank: its logical row moved to
+    the rank's local one where the rank runs it, else None.  The row
+    indexes the flattened (slot, position) rows of a block scheme's GEMM,
+    or of a 2-D operand; on the plain and global paths a (B, L, k)
+    operand's fault row is its position, in every slot (the reference's
+    broadcast), and lands on every rank unchanged."""
+    if fault is None or ctx.rows is None:
+        return fault
+    from repro_torch.core.policy import scheme_name_of
+    from repro_torch.core.protected import _BLOCK_MODES, _gemm_dims
+
+    if x.dim() > 2 and scheme_name_of(ctx.abft.resolve(
+            _gemm_dims(x, w, out_dtype))) not in _BLOCK_MODES:
+        return fault
+    lo, n = ctx.rows
+    m = x.numel() // x.shape[-1]
+    row = fault.row - lo * (m // n)
+    if not 0 <= row < m:
+        return None
+    return fault._replace(row=row)
 
 
 def _col_fault(fault, ctx: LayerCtx, n: int):
@@ -143,7 +288,7 @@ def dense(x, w, ctx: LayerCtx, site: str, b=None, out_dtype=None,
     as it reaches the unsharded output (a bit flip there flips a bit of
     the partial, not of the sum)."""
     out_dtype = out_dtype or x.dtype
-    fault = _site_fault(ctx, site)
+    fault = _row_fault(_site_fault(ctx, site), x, w, ctx, out_dtype)
     site = ctx.site_prefix + (tag or site)
     if par is None:
         y, chk = protected_matmul(x, w, ctx.abft, out_dtype=out_dtype,
@@ -416,18 +561,23 @@ def _rowwise_attention(q, k, v, spans, *, causal, q_chunk, k_chunk,
     return torch.cat(rows, dim=0)
 
 
-def decode_attention(q, k_cache, v_cache, length, scale=None):
+def decode_attention(q, k_cache, v_cache, length, scale=None,
+                     return_lse: bool = False):
     """Single-token attention against a (B, S, KV, D) cache.
     q: (B, 1, H, Dk); ``length``: (B,) valid positions.  Returns
-    (B, 1, H, Dv).  Runs inside a ``flops[softmax]`` coverage scope (see
+    (B, 1, H, Dv), and with ``return_lse`` also the (B, KV, G) f32
+    log-sum-exp of each head's scaled scores over its valid keys (a
+    sequence shard's partial: a row with no valid key gives -inf and a
+    zero output).  Runs inside a ``flops[softmax]`` coverage scope (see
     ``chunked_attention``): ``flash_decode`` is the fused-ABFT
     replacement."""
     with coverage_scope("softmax"):
         return _decode_core(q, k_cache.to(F32), v_cache.to(F32),
-                            v_cache.dtype, length.to(q.device), scale)
+                            v_cache.dtype, length.to(q.device), scale,
+                            return_lse)
 
 
-def _decode_core(q, kf, vf, v_dtype, length, scale):
+def _decode_core(q, kf, vf, v_dtype, length, scale, return_lse=False):
     """``decode_attention`` on caches already widened to f32 (``v_dtype``:
     the cache's own type, which the probabilities round through)."""
     B, _, H, Dk = q.shape
@@ -441,7 +591,15 @@ def _decode_core(q, kf, vf, v_dtype, length, scale):
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskv->bkgv", p.to(v_dtype).to(F32), vf)
-    return out.reshape(B, 1, H, Dv).to(q.dtype)
+    out = out.reshape(B, 1, H, Dv).to(q.dtype)
+    if not return_lse:
+        return out
+    some = (length.reshape(-1) > 0)
+    lse = torch.where(some[:, None, None], torch.logsumexp(s, dim=-1),
+                      torch.full((), float("-inf"), device=q.device))
+    out = torch.where(some[:, None, None, None], out,
+                      torch.zeros((), dtype=out.dtype, device=q.device))
+    return out, lse
 
 
 def verify_attention(q, k_cache, v_cache, length, scale=None):

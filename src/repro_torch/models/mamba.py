@@ -23,7 +23,10 @@ over the whole ``d_inner`` (``layers.gated_rms_norm(tp=)``) and
 ``out_proj`` row-parallel.  Head and channel counts are read off the
 shard's leaves (``A_log``, ``in_x``), never ``cfg.ssm_heads``/
 ``cfg.d_inner``; the cache's ``conv_x`` and ``ssm`` leaves hold the
-rank's channels and heads (``sharding.cache_specs``).
+rank's channels and heads (``sharding.cache_specs``).  Over the data axis
+a slot-sharded state holds the rank's slots: a prefill run whole on
+every data rank writes the rows the rank holds, a split decode steps
+them alone.
 
 Decode carries a constant-size state a slot: the conv windows ``conv_x``
 (B, W-1, d_inner) and ``conv_bc`` (B, W-1, 2N) in the cache dtype and the
@@ -236,10 +239,16 @@ def mamba_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, cache, slots=None,
     xh, Bm2, Cm2, dt2, A = _ssm_inputs(xs, bc_in, dt, p, cfg, valid)
     y, S = _ssd_chunked(xh, dt2, A, Bm2, Cm2, cfg.ssm_chunk)
     out, f2 = _mix_out(y, xh, z, x, p, cfg, ctx)
-    rows = (slice(0, Bsz) if slots is None
+    rows = (torch.arange(Bsz, device=cache["ssm"].device) if slots is None
             else slots.to(cache["ssm"].device).long())
+    keep = slice(None)
+    sp = ctx.cache_split
+    if sp is not None and sp.kind == "slot" and ctx.rows is None:
+        # a slot-sharded state: the rank writes the rows it holds
+        keep = sp.owns(rows)
+        rows = rows[keep] - sp.lo
     for key, new in (("conv_x", conv_x), ("conv_bc", conv_bc), ("ssm", S)):
-        cache[key][rows] = new.to(cache[key].dtype)
+        cache[key][rows] = new[keep].to(cache[key].dtype)
     return out, or_flags(f1, f2)
 
 

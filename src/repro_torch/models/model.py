@@ -52,6 +52,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     LayerCtx,
     dense,
+    fsdp_leaf,
+    fsdp_view,
     gelu,
     mlp,
     norm,
@@ -311,27 +313,33 @@ class _Leaf:
         out.shape = tuple(fn(torch.empty(self.draw, device="meta")).shape)
         return out
 
-    def make(self, gen, dtype, device, rows=slice(None)):
-        """The leaf, or only its ``rows`` (a slice of dim 0: a rank's shard)
-        in storage of their own; either way ``gen`` advances as for the
-        whole leaf, so the leaves after it draw the same numbers.  Rows
-        of a weight drawn in slices (above ``DRAW_SLICE`` elements) are
-        copied out slice by slice: the whole leaf is never resident."""
+    def make(self, gen, dtype, device, index=()):
+        """The leaf, or only its part ``index`` (a tuple of slices, one a
+        leading dim: a rank's shard) in storage of its own; either way
+        ``gen`` advances as for the whole leaf, so the leaves after it
+        draw the same numbers.  The part of a weight drawn in slices
+        (above ``DRAW_SLICE`` elements) is copied out slice by slice, its
+        other dims cut from each slice: the whole leaf is never resident,
+        whichever of its dims the shard splits.  A padded leaf (``then``)
+        is drawn whole and cut."""
         dtype = self.dtype or dtype
+        index = tuple(index)
         if self.post is not None:
-            return _cut(self.post(self._make(gen, dtype, device,
-                                             slice(None))), (rows,))
-        return self._make(gen, dtype, device, rows)
+            return _cut(self.post(self._make(gen, dtype, device, ())),
+                        index)
+        return self._make(gen, dtype, device, index)
 
-    def _make(self, gen, dtype, device, rows):
+    def _make(self, gen, dtype, device, index):
         shape = self.draw
-        lo, hi, _ = rows.indices(shape[0]) if shape else (0, 0, 1)
-        part = ((hi - lo,) + shape[1:]) if shape else shape
+        full = tuple(index) + (slice(None),) * (len(shape) - len(index))
+        part = tuple(len(range(*sl.indices(n))) for sl, n in zip(full, shape))
         if self.scale is None:
             return torch.full(part, self.fill, dtype=dtype, device=device)
         if math.prod(shape) <= DRAW_SLICE:
             t = torch.randn(shape, generator=gen, dtype=F32, device=device)
-            return _cut(t.mul_(self.scale).to(dtype), (rows,))
+            return _cut(t.mul_(self.scale).to(dtype), full)
+        lo, hi, _ = full[0].indices(shape[0])
+        rest = (slice(None),) + full[1:]
         out = torch.empty(part, dtype=dtype, device=device)
         step = max(1, DRAW_SLICE // math.prod(shape[1:]))
         for i in range(0, shape[0], step):
@@ -340,7 +348,7 @@ class _Leaf:
                                 device=device).mul_(self.scale)
             a, b = max(i, lo), min(i + n, hi)
             if a < b:
-                out[a - lo:b - lo] = chunk[a - i:b - i]
+                out[a - lo:b - lo] = chunk[a - i:b - i][rest]
         return out
 
 
@@ -400,12 +408,15 @@ class Model:
         ``mesh`` (a port ``Mesh``): this process's shard only, equal bit
         for bit to ``shard_params(init_params(seed), mesh)``.  Each leaf
         is drawn on ``device`` in the same order from the same generator:
-        a leaf split along its first dim keeps only its rows (a weight
-        drawn in slices, deepseek-v3's expert stacks, one slice at a
-        time), any other is drawn whole, its rank's part copied out
-        (``_cut``) and the rest freed before the next leaf, so no more
-        than one full leaf of ``DRAW_SLICE`` elements is ever resident
-        beside the shard."""
+        a leaf of at most ``DRAW_SLICE`` elements is drawn whole, its
+        rank's part copied out (``_cut``) and the rest freed before the
+        next leaf; a larger one (deepseek-v3's expert stacks) is drawn one
+        slice of its leading axis at a time, the rank's part of each slice
+        kept, whichever dims the shard splits (under FSDP the data axis
+        splits a dim other than the first: ``embed`` (vocab, d) over
+        ``("model", "data")``, the experts' D).  So no more than one
+        leaf's f32 draw of ``DRAW_SLICE`` elements is ever resident beside
+        the shard (``draw_transient``)."""
         from repro_torch.distributed.sharding import (
             map_with_path,
             param_specs,
@@ -424,11 +435,8 @@ class Model:
         def make(ps, leaf):
             if mesh is None:
                 return leaf.make(gen, dtype, device)
-            index = shard_slices(specs[ps], leaf.shape, mesh, coords)
-            if index and all(s == slice(None) for s in index[1:]):
-                t = leaf.make(gen, dtype, device, rows=index[0])
-            else:
-                t = _cut(leaf.make(gen, dtype, device), index)
+            t = leaf.make(gen, dtype, device,
+                          shard_slices(specs[ps], leaf.shape, mesh, coords))
             if cuda:
                 # hand the leaf's transients back to the card at once: the
                 # other ranks sharing it draw beside this one, and a later
@@ -438,6 +446,29 @@ class Model:
             return t
 
         return map_with_path(make, tree)
+
+    def draw_transient(self) -> tuple:
+        """(bytes, path) of the largest transient ``init_params`` holds
+        beside the shard it keeps, whatever the mesh: a leaf of at most
+        ``DRAW_SLICE`` elements drawn whole in f32 beside its cast copy
+        (6 bytes an element at bf16; a padded leaf's, before padding), or
+        one f32 slice of a larger leaf's leading axis."""
+        from repro_torch.distributed.sharding import map_with_path
+
+        out = []
+
+        def one(ps, leaf):
+            if leaf.scale is None:
+                return
+            n = math.prod(leaf.draw)
+            if n > DRAW_SLICE:
+                row = math.prod(leaf.draw[1:])
+                out.append((max(1, DRAW_SLICE // row) * row * 4, ps))
+            else:
+                out.append((n * 6, ps))
+
+        map_with_path(one, self._param_tree())
+        return max(out)
 
     def param_shapes(self, dtype=torch.bfloat16) -> dict:
         """``init_params``' tree as tensors on the meta device (shapes and
@@ -605,6 +636,7 @@ class Model:
         except after a Mamba2 decode step, whose next state comes back in
         a new dict (None in mode ``full``)."""
         cfg = self.cfg
+        lp = fsdp_view(lp, ctx)
         nrm = functools.partial(per_step, norm) if mode == "verify" else norm
         h = nrm(x, lp["mixer_norm"], cfg.norm, cfg.norm_eps)
         if "A_log" in lp["mixer"]:
@@ -746,10 +778,13 @@ class Model:
 
     def _head(self, params, x, ctx):
         """f32 logits (..., V) and the head's flag; column-parallel over
-        the vocab under tensor parallelism, the logits gathered whole."""
+        the vocab under tensor parallelism, the logits gathered whole; an
+        FSDP head gathered over the data axis before its GEMM."""
         tied = self.cfg.tie_embeddings
-        w = params["embed"].t().to(x.dtype) if tied else params["lm_head"]
-        par = tp_par(ctx, "embed" if tied else "lm_head", "col")
+        name = "embed" if tied else "lm_head"
+        w = fsdp_leaf(params[name], ctx, name)
+        w = w.t().to(x.dtype) if tied else w
+        par = tp_par(ctx, name, "col")
         logits, flag = dense(x, w, ctx, "lm_head", out_dtype=F32, par=par)
         if par is not None:
             logits = gather_last(logits, ctx.tp)
@@ -758,8 +793,10 @@ class Model:
     def embed_tokens(self, params, tokens, ctx: LayerCtx):
         """The embedding rows of ``tokens``.  On a vocab-sharded rank a
         token another rank owns reads zeros, and the rows are summed over
-        the model axis in f32, exact, then cast back."""
-        emb = params["embed"]
+        the model axis in f32, exact, then cast back.  An FSDP embedding is
+        gathered over the data axis first (a split call's data ranks look
+        up different tokens)."""
+        emb = fsdp_leaf(params["embed"], ctx, "embed")
         if ctx.tp is None or not ctx.tp.splits("embed"):
             return emb[tokens]
         n = emb.shape[0]

@@ -11,10 +11,14 @@ Tokens over an expert's capacity are dropped (switch-style) and keep only
 their residual path.
 
 The dispatch runs per data-parallel group, as the reference's: G =
-``ctx.hints.dp_size`` groups of the call's tokens in order (one group
-without hints, or where G does not divide the token count), each routed
+``ctx.moe_groups`` groups of the call's tokens in order, or the hints'
+``dp_size`` where the context sets none (one group without hints, or
+where G does not divide the token count), each routed
 into its own (E, C, D) buffer with the capacity of its own T / G tokens,
-so which tokens an expert drops depends on the grouping.  The router, its
+so which tokens an expert drops depends on the grouping.  A data rank's
+split decode or verify holds one of the reference's groups, its own
+slots, and runs with ``moe_groups = 1``; a prefill run whole on every
+data rank keeps G = ``dp_size``.  The router, its
 softmax and the load-balance loss read every token alike.  Every shape is
 static and nothing waits on the device: no
 ``.item()``, no boolean-mask indexing.  Two orders are pinned where the
@@ -72,6 +76,7 @@ from repro_torch.models.layers import (
     dense,
     mlp,
     or_flags,
+    raw,
     tp_par,
 )
 
@@ -115,7 +120,9 @@ def moe_forward(x, p, cfg: ModelConfig, ctx: LayerCtx):
     Bsz, L, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     T = Bsz * L
-    G = ctx.hints.dp_size if ctx.hints is not None else 1
+    G = ctx.moe_groups
+    if G is None:
+        G = ctx.hints.dp_size if ctx.hints is not None else 1
     if G <= 0 or T % G:
         G = 1
     C = capacity(cfg, T // G)
@@ -165,7 +172,7 @@ def expert_shard(p, cfg: ModelConfig, ctx: LayerCtx) -> tuple:
     if tp_par(ctx, "ffn/w_up", "col") is None:
         return None, 0
     mode = ctx.hints.moe_mode if ctx.hints is not None else "ep"
-    El = p["w_up"].shape[0]
+    El = raw(p, "w_up").shape[0]
     if mode == "ep":
         if El * ctx.tp.size != cfg.n_experts:
             raise ValueError(f"expert-parallel MoE: {El} experts a rank x "
@@ -200,7 +207,7 @@ def _experts(xf, topk_i, topk_w, p, cfg: ModelConfig, ctx: LayerCtx,
     buf = torch.zeros((E * C + 1, D), dtype=xf.dtype, device=dev)
     buf[slot] = xf[order // K]
     buf = buf[:-1].reshape(E, C, D)
-    El = p["w_up"].shape[0]
+    El = raw(p, "w_up").shape[0]
     if mode == "ep":
         buf = buf[lo:lo + El]
 

@@ -120,21 +120,26 @@ audio, llama-3.2-vision-11b's images: ``Model.memory_inputs``) raises
 ``NotImplementedError``: the engine passes only tokens, and the
 reference's fails on its missing memory.
 
-Sharded serving: ``mesh=k`` (an int, or a port ``Mesh`` with a
-``model`` axis) serves a GQA stack with dense FFNs with tensor
-parallelism over k process ranks, each running this engine on its shard
+Sharded serving: ``mesh=k`` (an int: a ``(data=1, model=k)`` mesh) or
+a port ``Mesh`` (``build_mesh(data=d, model=k)``) serves over the mesh's
+process ranks, each running this engine on its shard
 (``executor.MeshExecutor``; ``distributed/spawn.py`` starts the ranks).
 Every rank takes the same host decisions: the runner ORs each call's flag
-over the ranks, tokens come from gathered logits through identically
+over the world, tokens come from gathered logits through identically
 seeded generators, and an undetected injection's ``state_match`` holds
-only if it holds on every rank.  ``hints`` takes the reference's
+only if it holds on every rank.  Over ``data`` the ranks split the slots
+(``executor.layout``): a decode or verify step runs the rank's own slots
+and gathers the logits; cache cells (``_cells``: the retry and shadow
+runs' cells) are mapped from a logical slot to the rank that holds it;
+prefills run whole on every data rank; a COW copy runs on every rank
+(paged pools are whole on each).  ``hints`` takes the reference's
 ``ShardingHints`` (the mesh's by default): its ``dp_size`` sets the MoE
-dispatch's group count; hints of another type raise
-``NotImplementedError``.  The plan (``plan_row`` telemetry included) is
-the per-shard plan of ``model_parallel=k``.  One process is one rank:
-``mesh=k > 1`` in a process outside ``torch.distributed`` raises
-``NotImplementedError`` (the reference's single-process multi-device mesh
-has no counterpart).
+dispatch's group count for a whole-batch call; hints of another type
+raise ``NotImplementedError``.  The plan (``plan_row`` telemetry
+included) is the per-shard plan of ``model_parallel=k`` at the rows a
+rank decodes.  One process is one rank: a mesh wider than 1 in a process
+outside ``torch.distributed`` raises ``NotImplementedError`` (the
+reference's single-process multi-device mesh has no counterpart).
 """
 
 from __future__ import annotations
@@ -248,6 +253,14 @@ class ServeEngine:
         else:
             self.executor = LocalExecutor(model, params, dtype=dtype,
                                           device=self.device, hints=hints)
+        # how the slots lie over the data ranks (split decode, split cache)
+        self.executor.layout(slots, max_len, cache_kind == "paged")
+        if spec_decode is not None and self.executor.cache_split is not None \
+                and self.executor.cache_split.kind == "seq":
+            raise NotImplementedError(
+                "spec_decode over a sequence-sharded cache (fewer slots "
+                "than data ranks): the verify step's per-query merge is "
+                "not ported; serve with slots divisible by the data axis")
         # adaptive protection: one immutable (config, ctx, plan, runner)
         # set per level; the mutable policy never rides in a LayerCtx
         eff = abft.effective_policy()
@@ -260,7 +273,9 @@ class ServeEngine:
         else:
             level_cfgs = (abft,)
         self._level_ctx = tuple(
-            LayerCtx(abft=c, hints=self.executor.hints, tp=self.executor.tp)
+            LayerCtx(abft=c, hints=self.executor.hints, tp=self.executor.tp,
+                     dp=self.executor.dp,
+                     cache_split=self.executor.cache_split)
             for c in level_cfgs)
         self.protection_level = 0
         self.ctx = self._level_ctx[0]
@@ -330,7 +345,8 @@ class ServeEngine:
                                    stats=EngineStats(), tracer=self._tr,
                                    pool=pool, index=index)
         self._level_runners = tuple(
-            ModelRunner(model, ctx, temperature=temperature, top_k=top_k)
+            ModelRunner(model, ctx, temperature=temperature, top_k=top_k,
+                        rows=self.executor.rows, world=self.executor.world)
             for ctx in self._level_ctx)
         self.runner = self._level_runners[0]
         # speculative decoding: drafts run unprotected (a wrong draft costs
@@ -579,9 +595,13 @@ class ServeEngine:
     def _cells(self, kv, rows=None) -> Cells:
         """``Cells`` of a call: ``kv(pool)`` builds the attention index
         from the first attention leaf (skipped without one); ``rows`` the
-        slots whose state the call replaced."""
+        slots whose state the call replaced; both in logical slots, then
+        cut to the cells this rank holds, at its local index
+        (``executor.local_cells``: a data rank's slots or positions)."""
         pool = self.model.kv_leaf(self.cache)
-        return Cells(None if pool is None else kv(pool), rows)
+        return self.executor.local_cells(
+            Cells(None if pool is None else kv(pool), rows),
+            self.pool is not None)
 
     def _leaves(self, cells: Cells) -> list:
         """(leaf, index) for every leaf ``cells`` covers: each attention
@@ -616,7 +636,8 @@ class ServeEngine:
                           for a, b in zip(faulted, self._gather(cells)))
         # each rank compares its own shard of the cells
         state_match = not bool(or_flag(
-            torch.tensor(differs, device=emitted.device), self.executor.tp))
+            torch.tensor(differs, device=emitted.device),
+            self.executor.world))
         self._scatter(cells, faulted)
         outcome = "masked" if tokens_match else "sdc"
         return outcome, {"tokens_match": tokens_match,

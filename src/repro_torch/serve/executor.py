@@ -7,43 +7,60 @@ generators, and the engine's protection plan.
     plan from the model's full GEMM shapes.
 
 ``MeshExecutor``
-    Tensor-parallel serving over a ``(data=1, model=k)`` mesh of k
-    process ranks (``distributed/mesh.py``; ``distributed/spawn.py``
-    starts them).  This rank holds its shard of the params under the
+    Sharded serving over a ``(data=d, model=k)`` mesh of d x k process
+    ranks (``distributed/mesh.py``; ``distributed/spawn.py`` starts
+    them).  This rank holds its shard of the params under the
     reference's rules (``Model.shard_params``: heads, FFN and vocab over
     ``model``; experts, or each expert's FFN dim, over ``model``; a Mamba2
-    mixer's heads and channels) and of the KV cache and per-slot state
-    under ``cache_specs``: paged pools
-    shard their kv-head dim and the host block table stays one logical
-    table, the same on every rank.  Where the kv heads do not divide the
-    model axis the cache keeps every kv head on every rank (``cache_specs``'
-    ``kv_fallback="replicate"``; ``models/attention.py``).  The layers
-    run their collectives through the context's ``TPGroup``
-    (``LayerCtx.tp``), the runner ORs every call's flag over the ranks and
-    the sampler reads the gathered logits, so every rank takes the same
-    host decisions step for step.  ``init_generators`` seeds every rank
-    alike.
+    mixer's heads and channels; and, for a model of at least
+    ``sharding.FSDP_THRESHOLD`` parameters, each weight's other dim over
+    ``data`` as well: FSDP) and of the KV cache and per-slot state under
+    ``cache_specs``: paged pools shard their kv-head dim and the host
+    block table stays one logical table, the same on every rank.  Where
+    the kv heads do not divide the model axis the cache keeps every kv
+    head on every rank (``cache_specs``' ``kv_fallback="replicate"``;
+    ``models/attention.py``).  The layers run their collectives through
+    the context's groups (``LayerCtx.tp``, ``LayerCtx.dp``), the runner
+    ORs every call's flag over the world and the sampler reads the
+    gathered logits, so every rank takes the same host decisions step for
+    step.  ``init_generators`` seeds every rank alike.
 
-    The plan is the per-shard plan, ``model_parallel=k``, and it is the
-    one that runs: ``protected_matmul`` selects each scheme from the
-    rank's own GEMM dims, which are the per-shard dims.  (The reference
-    resolves its schemes at trace time on GSPMD's logical shapes, so at
-    ``mesh=k`` it executes the TP=1 selections while its plan reports
-    per-shard ones; the port does not mirror that.)
+    Over ``data`` the ranks are replicas that split the slots
+    (``layout``): where the slots divide the data axis, data rank r
+    holds slots [r B/d, (r + 1) B/d) of a dense cache (and of every
+    per-slot state) and a decode or verify step runs those rows alone,
+    its logits gathered over ``data``; a prefill, a prefix prefill and a
+    chunk run the whole admission batch on every data rank (the MoE
+    dispatch groups follow the batch's token order), each rank writing
+    the cells it holds, and a paged pool stays whole on every data rank.
+    With fewer slots than data ranks a dense cache splits its positions
+    instead (``cache_specs``' sequence shard) and every rank runs every
+    slot, a decode step merging the ranks' attention partials; with
+    slots that the axis does not divide, every data rank holds and runs
+    everything.
+
+    The plan is the per-shard plan, ``model_parallel=k``, at the rows a
+    rank runs (``n_tokens = slots // d`` where decode is split), and it
+    is the one that runs: ``protected_matmul`` selects each scheme from
+    the rank's own GEMM dims.  (The reference resolves its schemes at
+    trace time on GSPMD's logical shapes, so at ``mesh=k`` it executes
+    the TP=1 selections while its plan reports per-shard ones, and its
+    plan takes ``n_tokens=slots`` at any data width; the port does not
+    mirror either.)
 
     A row-parallel GEMM sums f32 partials and rounds once after the sum,
     so a bf16 model's streams at any width equal the unsharded ones but
     for a rounding in the last place where the reordered f32 sum crosses
-    a bf16 boundary.  At ``model == 1`` there are no collectives and no
-    f32 partials: the local path bit for bit.
+    a bf16 boundary.  At ``model == 1`` there are no such collectives and
+    no f32 partials.
 
-    The stacks that serve sharded: GQA attention and Mamba2 mixers with
-    dense FFNs, MoE FFNs (``models/moe.py``: expert-parallel when the
-    experts divide the axis, else each expert's FFN dim sliced) or none.
-    MLA, the MTP head, cross-attention, encoder-decoder and vision stacks,
-    a mesh with ``data > 1`` and a layout that splits a q head or an SSD
-    head raise ``NotImplementedError`` at ``model > 1`` (ROADMAP
-    A.3b-ii).
+    The stacks that serve sharded: GQA and MLA attention (with one MTP
+    head) and Mamba2 mixers with dense FFNs, MoE FFNs (``models/moe.py``:
+    expert-parallel when the experts divide the axis, else each expert's
+    FFN dim sliced) or none.  Cross-attention, encoder-decoder and vision
+    stacks, a ``pod`` axis wider than 1, and a layout that splits a q
+    head or an SSD head raise ``NotImplementedError`` (ROADMAP
+    A.3b-ii); so does speculation over a sequence-sharded cache.
 """
 
 from __future__ import annotations
@@ -98,7 +115,12 @@ class LocalExecutor:
 
     mesh = None
     model_parallel = 1
-    tp = None
+    data_parallel = 1
+    tp = dp = world = None
+    # the logical slots a split call runs (lo, n), and the dense cache's
+    # layout over the data ranks (``layers.CacheSplit``): None, whole
+    rows = None
+    cache_split = None
 
     def __init__(self, model: Model, params, *, dtype, device, hints=None):
         self.model = model
@@ -128,12 +150,23 @@ class LocalExecutor:
             num_blocks, block_size, dtype=self.dtype, device=self.device,
             slots=slots)
 
+    def layout(self, slots: int, max_len: int, paged: bool) -> None:
+        """Settle how the slots lie over the data ranks (``rows``,
+        ``cache_split``); one device holds them all."""
+
+    def local_cells(self, cells, paged: bool):
+        """The cells of ``cells`` (``engine.Cells``) this rank holds, at
+        its local index; one device holds them all."""
+        return cells
+
     def protection_plan(self, abft, *, slots: int):
         """The ProtectionPlan for this executor's view: per-shard GEMM
-        shapes under ``model_parallel``-way TP."""
+        shapes under ``model_parallel``-way TP, at the rows a decode step
+        of this rank runs (its own slots where decode is split)."""
+        n = self.rows[1] if self.rows is not None else slots
         return self.model.protection_plan(
             hw=abft.hardware, policy=abft.effective_policy(),
-            phase="serve", n_tokens=slots, dtype_bytes=self.dtype_bytes,
+            phase="serve", n_tokens=n, dtype_bytes=self.dtype_bytes,
             model_parallel=self.model_parallel)
 
 
@@ -144,9 +177,10 @@ SHARDABLE_TAGS = frozenset({"attn:dense:0", "attn:moe:0", "mla:dense:0",
 
 def check_shardable(cfg, mesh) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` serves sharded over
-    ``mesh`` (``model > 1``): GQA or MLA attention or Mamba2 mixers with
-    dense, MoE or no FFNs (``SHARDABLE_TAGS``), at most one MTP head,
-    ``data == 1``; q heads (after TP head padding, ``eff_counts``) that
+    ``mesh`` (``model > 1`` or ``data > 1``): GQA or MLA attention or
+    Mamba2 mixers with dense, MoE or no FFNs (``SHARDABLE_TAGS``), at
+    most one MTP head, no ``pod`` axis wider than 1; q heads (after TP
+    head padding, ``eff_counts``) that
     divide the model axis, kv heads that divide it or that it divides,
     and SSD heads that divide it wherever the rules split ``d_inner``.
     Stacks with a memory (cross-attention, encoder-decoder, vision) raise
@@ -165,10 +199,11 @@ def check_shardable(cfg, mesh) -> None:
         raise NotImplementedError(
             f"sharded serving of {cfg.name} ({sorted(tags)}): GQA, MLA and "
             f"Mamba2 mixers with dense, MoE or no FFNs serve over model > 1")
-    if any(mesh.shape[a] > 1 for a in mesh.axis_names if a != "model"):
+    if any(mesh.shape[a] > 1 for a in mesh.axis_names
+           if a not in ("data", "model")):
         raise NotImplementedError(
-            f"sharded serving over {mesh.shape}: data > 1 (replicas) is "
-            f"ROADMAP A.3b-ii; the mesh must be (data=1, model=k)")
+            f"sharded serving over {mesh.shape}: a pod axis is not "
+            f"ported; the mesh must be (data=d, model=k)")
     if any(t.startswith("mla") for t in tags):
         if cfg.n_heads % k:
             raise NotImplementedError(
@@ -213,19 +248,42 @@ def sharded_paths(specs) -> frozenset:
     return frozenset(out)
 
 
+def fsdp_dims(specs) -> dict:
+    """The leaves a spec tree splits over ``data`` (FSDP), each by the
+    path ``sharded_paths`` gives it, with the dim the axis splits."""
+    from repro_torch.distributed.sharding import map_with_path
+
+    out = {}
+
+    def one(ps, sp):
+        for i, e in enumerate(sp):
+            if e == "data" or (isinstance(e, tuple) and "data" in e):
+                out[ps] = i
+
+    layers = list(specs["layers"])
+    if "mtp" in specs:
+        layers.append(specs["mtp"]["layer"])
+    for lp in layers:
+        map_with_path(one, lp)
+    for n in ("embed", "lm_head"):
+        if n in specs:
+            one(n, specs[n])
+    return out
+
+
 class MeshExecutor(LocalExecutor):
     """Mesh-sharded executor (see the module docstring).  ``mesh``: an
     int tensor-parallel width (a ``(data=1, model=k)`` mesh over this
     process's world, its ranks on ``device``'s type) or a prebuilt port
-    ``Mesh``; ``params``: the full tree, the same on every rank (each
-    rank keeps its shard), or this rank's shard already
-    (``Model.init_params(mesh=)``)."""
+    ``Mesh`` (``build_mesh(data=d, model=k)``); ``params``: the full
+    tree, the same on every rank (each rank keeps its shard), or this
+    rank's shard already (``Model.init_params(mesh=)``)."""
 
     def __init__(self, model: Model, params, *, mesh, dtype, device,
                  hints=None):
         import torch.distributed as dist
 
-        from repro_torch.distributed.collectives import TPGroup
+        from repro_torch.distributed.collectives import TPGroup, world_group
         from repro_torch.distributed.mesh import (
             build_mesh,
             make_hints,
@@ -247,26 +305,74 @@ class MeshExecutor(LocalExecutor):
             raise ValueError(f"MeshExecutor needs a 'model' axis, mesh has "
                              f"{mesh.axis_names}")
         k = int(mesh.shape["model"])
+        d = int(mesh.shape.get("data", 1))
         self.mesh = mesh
-        self.model_parallel = k
+        self.model_parallel, self.data_parallel = k, d
         if hints is None:
             hints = make_hints(model.cfg, mesh)
-        if k > 1:
+        self.sharded = k > 1 or d > 1
+        if self.sharded:
             check_shardable(model.cfg, mesh)
             if not ranked:
                 raise NotImplementedError(
-                    f"model_parallel={k} in one process: the port runs one "
-                    f"process a rank; start them with "
+                    f"a {mesh.shape} mesh in one process: the port runs "
+                    f"one process a rank; start them with "
                     f"repro_torch.distributed.spawn")
             device = mesh.device
             specs = param_specs(model.cfg, model.param_shapes(), mesh)
-            self.tp = TPGroup(rank=mesh.model_rank, size=k,
-                              group=mesh.group,
-                              backend=dist.get_backend(mesh.group),
-                              sharded=sharded_paths(specs))
+            if k > 1:
+                self.tp = TPGroup(rank=mesh.model_rank, size=k,
+                                  group=mesh.group,
+                                  backend=dist.get_backend(mesh.group),
+                                  sharded=sharded_paths(specs))
+            if d > 1:
+                dims = fsdp_dims(specs)
+                self.dp = TPGroup(rank=mesh.data_rank, size=d,
+                                  group=mesh.data_group,
+                                  backend=dist.get_backend(mesh.data_group),
+                                  sharded=frozenset(dims), axis="data",
+                                  dims=dims)
+            self.world = world_group()
             params = model.shard_params(params, mesh)
         super().__init__(model, params, dtype=dtype, device=device,
                          hints=hints)
+
+    def layout(self, slots: int, max_len: int, paged: bool) -> None:
+        """Where the slots divide the data axis, rank r holds and runs
+        slots [r B/d, (r + 1) B/d) (``rows``; a dense cache's per-slot
+        leaves and every per-slot state split so); with fewer slots than
+        ranks a dense cache's positions split instead, where the axis
+        divides ``max_len`` (a paged pool never splits); else every data
+        rank holds everything (``cache_specs``' rules, read off its
+        ``sanitize_spec``)."""
+        from repro_torch.models.layers import CacheSplit
+
+        d = self.data_parallel
+        if d == 1:
+            return
+        r = self.mesh.data_rank
+        if slots % d == 0:
+            n = slots // d
+            self.rows = (r * n, n)
+            self.cache_split = CacheSplit("slot", r * n, n)
+        elif slots < d and not paged and max_len % d == 0:
+            n = max_len // d
+            self.cache_split = CacheSplit("seq", r * n, n)
+
+    def local_cells(self, cells, paged: bool):
+        """The rank's own cells of ``cells`` at their local index: the
+        rows of slot-split state leaves, and on a split dense cache the
+        (slot, position) cells the rank holds; a paged pool's cells are
+        the same on every rank."""
+        sp = self.cache_split
+        if sp is None:
+            return cells
+        kv, rows = cells.kv, cells.rows
+        if rows is not None and sp.kind == "slot":
+            rows = rows[sp.owns(rows)] - sp.lo
+        if kv is not None and not paged:
+            kv = sp.local(kv)[0]
+        return cells._replace(kv=kv, rows=rows)
 
     def _put_cache(self, cache, *, paged: bool, slots: int) -> list:
         """The rank's shard of a cache laid out on the meta device:
@@ -289,7 +395,7 @@ class MeshExecutor(LocalExecutor):
             cache)
 
     def init_dense_cache(self, slots: int, max_len: int) -> None:
-        if self.model_parallel == 1:
+        if not self.sharded:
             return super().init_dense_cache(slots, max_len)
         self.cache = self._put_cache(
             self.model.init_cache(slots, max_len, dtype=self.dtype,
@@ -297,7 +403,7 @@ class MeshExecutor(LocalExecutor):
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          slots: int) -> None:
-        if self.model_parallel == 1:
+        if not self.sharded:
             return super().init_paged_cache(num_blocks, block_size, slots)
         self.cache = self._put_cache(
             self.model.init_paged_cache(num_blocks, block_size,

@@ -18,10 +18,17 @@ retry redraws the same token.  The reference's JAX keys give the same
 contract; its draws differ (another generator), so the two agree in law
 only.
 
-Under tensor parallelism every entry point ORs its flag over the model
-axis before it returns (``collectives.or_flag``), so the engine's
+Under sharding every entry point ORs its flag over the whole world
+before it returns (``collectives.or_flag``), so the engine's
 detect->retry decisions see one value on every rank, and the sampler
-draws from the logits the head gathered whole.
+draws from the logits the head gathered whole.  Over the data axis
+(``rows``, the executor's ``layout``) ``decode`` and ``verify`` split
+their rows: data rank r runs its own slots [lo, lo + n) against its
+cache shard (one MoE dispatch group: ``LayerCtx.moe_groups = 1``, and a
+fault's logical row lands on its owner), then the logits rows are
+gathered over ``data`` and every rank samples every slot, so the
+generators stay identical.  The prefill entry points run the whole
+batch on every data rank.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.distributed.collectives import or_flag
+from repro_torch.distributed.collectives import gather_first, or_flag
 from repro_torch.models.layers import LayerCtx
 from repro_torch.models.model import Model
 
@@ -39,11 +46,26 @@ class ModelRunner:
     """Prefill/decode entry points for one model + layer context."""
 
     def __init__(self, model: Model, ctx: LayerCtx, *,
-                 temperature: float = 0.0, top_k: int = 0):
+                 temperature: float = 0.0, top_k: int = 0, rows=None,
+                 world=None):
         self.model = model
         self.ctx = ctx
         self.temperature = float(temperature)
         self.top_k = int(top_k)
+        # the rank's own slots of a split decode or verify (lo, n), and
+        # the group every flag is ORed over
+        self.rows = rows
+        self.world = world if world is not None else ctx.tp
+
+    def _split(self, ctx, *rows):
+        """A split call's context (its rows, one MoE group) and its row
+        inputs cut to the rank's slots; the inputs as given elsewhere."""
+        if self.rows is None:
+            return (ctx,) + rows
+        lo, n = self.rows
+        ctx = dataclasses.replace(ctx, rows=(lo, n), moe_groups=1)
+        return (ctx,) + tuple(None if t is None else t[lo:lo + n]
+                              for t in rows)
 
     def sample(self, logits, gens) -> torch.Tensor:
         """logits: (n, V) -> (n,) int32 token ids; ``gens[i] is None``
@@ -69,12 +91,14 @@ class ModelRunner:
         slot is inactive; flag; the cache list the step commits).  The
         attention layers are written in place; a Mamba2 layer's next
         state comes back in new tensors (``Model.decode``)."""
-        logits, new_cache, flag = self.model.decode(
-            p, tok, cache, pos, dataclasses.replace(self.ctx, fault=fault),
-            block_tables=tables)
+        ctx, tok, pos, tables = self._split(
+            dataclasses.replace(self.ctx, fault=fault), tok, pos, tables)
+        logits, new_cache, flag = self.model.decode(p, tok, cache, pos, ctx,
+                                                    block_tables=tables)
+        logits = gather_first(logits, ctx.dp) if self.rows else logits
         nxt = self.sample(logits[:, 0, :], gens)
         nxt = torch.where(mask, nxt, torch.full_like(nxt, -1))
-        return nxt, or_flag(flag, self.ctx.tp), new_cache
+        return nxt, or_flag(flag, self.world), new_cache
 
     @torch.no_grad()
     def prefill(self, p, toks, cache, slot_ids, lengths, tables, fault,
@@ -87,7 +111,7 @@ class ModelRunner:
         logits, _, flag = self.model.prefill(
             p, toks, cache, ctx, slots=slot_ids, lengths=lengths,
             block_tables=tables, prefix_lens=prefix_lens)
-        return self.sample(logits[:, 0, :], gens), or_flag(flag, ctx.tp)
+        return self.sample(logits[:, 0, :], gens), or_flag(flag, self.world)
 
     def prefill_prefix(self, p, toks, cache, slot_ids, lengths, tables,
                        prefix_lens, fault, gens=None):
@@ -118,10 +142,13 @@ class ModelRunner:
         run on the host (``serve/spec_decode.py``), so the call draws
         nothing and a retry redraws nothing.  Inactive rows (valid 0)
         write nothing; their logits are never read."""
+        ctx, toks, pos, valid, tables = self._split(
+            dataclasses.replace(self.ctx, fault=fault), toks, pos, valid,
+            tables)
         ctx = dataclasses.replace(
-            self.ctx, fault=fault,
-            abft=dataclasses.replace(self.ctx.abft,
-                                     decode_rows=toks.shape[0]))
+            ctx, abft=dataclasses.replace(ctx.abft,
+                                          decode_rows=toks.shape[0]))
         logits, _, flag = self.model.verify(p, toks, cache, pos, ctx, valid,
                                             block_tables=tables)
-        return logits, or_flag(flag, ctx.tp)
+        logits = gather_first(logits, ctx.dp) if self.rows else logits
+        return logits, or_flag(flag, self.world)

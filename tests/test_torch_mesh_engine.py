@@ -247,8 +247,9 @@ def _model_mesh(k):
 def test_unported_stacks_raise_at_model_gt_1(arch):
     """Encoder-decoder and vision (cross-attention) stacks refuse a model
     axis wider than 1, saying that the engine serves them at no width (as
-    the reference's cannot); a mesh with data > 1 still raises naming
-    ROADMAP A.3b-ii."""
+    the reference's cannot); a mesh with data > 1 is admitted
+    (``tests/test_torch_mesh_data.py`` serves it), and on it an unpadded
+    split q head still raises naming ROADMAP A.3b-ii."""
     from repro_torch.configs import get_config, scaled_down
     from repro_torch.distributed.mesh import Mesh
     from repro_torch.serve.executor import check_shardable
@@ -256,11 +257,16 @@ def test_unported_stacks_raise_at_model_gt_1(arch):
     mesh = _model_mesh(2)
     with pytest.raises(NotImplementedError, match="at no width"):
         check_shardable(scaled_down(get_config(arch)), mesh)
-    dp = Mesh(grid=np.arange(4).reshape(2, 2),
-              axis_names=("data", "model"),
-              devices=(torch.device("cpu"),) * 4)
-    with pytest.raises(NotImplementedError, match="data > 1.*A.3b-ii"):
-        check_shardable(W.small_config(), dp)
+
+    def dp(k):
+        return Mesh(grid=np.arange(2 * k).reshape(2, k),
+                    axis_names=("data", "model"),
+                    devices=(torch.device("cpu"),) * (2 * k))
+
+    check_shardable(W.small_config(), dp(2))
+    # the scaled llama's 4 q heads over model = 8 would split one
+    with pytest.raises(NotImplementedError, match="split a q head.*A.3b-ii"):
+        check_shardable(W.small_config(), dp(8))
     check_shardable(W.small_config(), mesh)
 
 
