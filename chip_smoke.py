@@ -96,7 +96,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
           "campaign", "profile", "timing", "sharing", "spec", "family",
           "moe", "mla", "ssm", "cross", "audit", "tp", "tp_hybrid",
-          "tp_mla", "dp")
+          "tp_mla", "dp", "dp_train")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -8033,6 +8033,496 @@ def _add_dp(kernels, dp) -> None:
                           "launches_per_step": dp["seq"]["k3_per_step"]}
 
 
+# ------------------------------------------------------------ dp_train
+
+# sharded training: llama3.2-1b at full width and SERVED_LAYERS layers,
+# f32, over a (data=2, model=2) mesh of four gloo ranks sharing the card,
+# global batches of TRAIN_B x TRAIN_L (2 rows a data rank), three AdamW
+# steps at lr 3e-4 under --abft auto
+DP_TRAIN_STEPS = 3
+# mlp_down at logical batch row 3 (position 5): the flattened row of a
+# block scheme's (row, position) GEMM rows, data rank 1's local row
+# TRAIN_L + 5
+DP_TRAIN_ROW = 3 * TRAIN_L + 5
+
+
+def dp_train_config():
+    return served_config()
+
+
+def dp_train_k1(dev, cfg) -> dict:
+    """K1 at the sharded train step's GEMMs: f32, M = TRAIN_B * TRAIN_L
+    / 2 rows (a data rank's), rank 0's model = 2 shard of seed 0's f32
+    weights (q, kv, o, up/gate, down, the head): each against its plain
+    version (``_k1_site_check``: y within 1e-4 of its scale, bounds, no
+    false flag), then timed beside the plain version, ``torch.matmul``
+    and the bound (``k1_timing``, CUDA graphs)."""
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.models.model import Model
+
+    model = Model(cfg)
+    m = TRAIN_B * TRAIN_L // DP_SHAPE[0]
+    mesh = Mesh(grid=np.arange(DP_SHAPE[1]).reshape(1, DP_SHAPE[1]),
+                axis_names=("data", "model"),
+                devices=(dev,) * DP_SHAPE[1], rank=0)
+    shard = model.init_params(0, dtype=torch.float32, device=dev, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    checks = {}
+    for name, ws in _step_gemm_groups(shard).items():
+        err, scale, ratio, rt = _k1_site_check(
+            dev, gen, cfg, f"dp_train {name}", ws[0], torch.float32, m)
+        checks[name] = {"k": int(ws[0].shape[0]), "n": int(ws[0].shape[1]),
+                        "route": rt, "max_abs_err": err, "max_abs_y": scale,
+                        "clean_ratio": ratio}
+    timing = k1_timing(dev, shard, m, per_shape=True)
+    del shard
+    free_memory()
+    out = {"m": m, "checks": checks, "step_total": {
+        k: v for k, v in timing.items() if k != "per_shape"},
+        "per_shape": timing["per_shape"]}
+    emit("dp_train_k1", **out)
+    return out
+
+
+def _dp_train_twin(dev, cfg, workdir: str) -> dict:
+    """The one-process twin: ``Trainer`` on seed 0's f32 weights and the
+    phase's batches, three steps; each step's loss, grad norm and ms; the
+    first step's update of every leaf kept on the host (by path) for the
+    ranks' gathered updates.  Freed before the ranks start."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import abft_config
+    from repro_torch.models.model import Model
+    from repro_torch.train import OptConfig, TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    model = Model(cfg)
+    params = model.init_params(0, dtype=torch.float32, device=dev)
+    tr = Trainer(model, params, TrainConfig(opt=OptConfig(lr=3e-4)),
+                 DataConfig(global_batch=TRAIN_B, seq_len=TRAIN_L,
+                            vocab_size=cfg.vocab_size),
+                 TrainerConfig(steps=1, ckpt_every=10 ** 9,
+                               ckpt_dir=workdir),
+                 abft=abft_config("auto"), device=dev)
+    norms = _record_grad_norms(tr)
+    p0 = _flat_host(tr.params)
+    tr.run()
+    upd = {k: v - p0[k] for k, v in _flat_host(tr.params).items()}
+    del p0
+    tr.rcfg.steps = DP_TRAIN_STEPS
+    tr.run()
+    out = {"losses": [h["loss"] for h in tr.history], "grad_norms": norms,
+           "step_ms": [1e3 * h["time_s"] for h in tr.history],
+           "update": upd}
+    del tr, params
+    free_memory()
+    return out
+
+
+def _record_grad_norms(tr) -> list:
+    """Wrap ``tr.step_fn``: the grad norm of each step's last attempt."""
+    norms, base = [], tr.step_fn
+
+    def step(*a, **k):
+        out = base(*a, **k)
+        if len(norms) == tr.step:
+            norms.append(None)
+        norms[tr.step] = float(out[2]["grad_norm"])
+        return out
+
+    tr.step_fn = step
+    return norms
+
+
+def _flat_host(tree) -> dict:
+    from repro_torch.distributed.sharding import map_with_path
+
+    out = {}
+    map_with_path(lambda ps, t: out.__setitem__(ps, t.detach().float()
+                                                .cpu()), tree)
+    return out
+
+
+def _dp_train_collective_ms(tr, cfg, grads, dev) -> dict:
+    """Host ms of the (2, 2) train step's collectives alone, by kind, at
+    this rank's sizes (``grads``: a tree shaped as its gradients), between a barrier and two device syncs: the
+    gradient all-reduce over ``data`` (every leaf of the rank's shard,
+    bucketed), the ZeRO-1 gather (the rank's slices), and the model
+    axis's activation sums of a step (``model_sum`` + ``model_grad``, each
+    a (B / 2, L, d) f32 tensor) with the head's gather; 3 times each."""
+    import torch.distributed as dist
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed import collectives
+
+    pl = tr.placement
+    leaves = tree_leaves(grads)
+    summed = [leaves[i] for i in pl.summed]
+    cut = [i for i, d in enumerate(pl.shards.zero) if d is not None]
+    slices = [pl.shards.cut(i, leaves[i]).contiguous() for i in cut]
+    dims = [pl.shards.zero[i] for i in cut]
+    b = TRAIN_B // DP_SHAPE[0]
+    act = torch.zeros(b, TRAIN_L, cfg.d_model, device=dev)
+    head = torch.zeros(b, TRAIN_L, cfg.vocab_size // DP_SHAPE[1], device=dev)
+    n_act = 9 * cfg.n_layers + 2      # model_sum 4L + 1, model_grad 5L + 1
+
+    def acts():
+        for _ in range(n_act):
+            collectives.all_reduce_sum(act, pl.tp)
+        collectives.gather_last(head, pl.tp)
+
+    out = {}
+    for kind, fn in (("grad_sum", lambda: collectives.sum_grads(summed,
+                                                                pl.dp)),
+                     ("zero_gather", lambda: collectives.gather_zero(
+                         slices, dims, pl.dp)),
+                     ("model_axis", acts)):
+        ms = []
+        for _ in range(3):
+            _sync(dev)
+            dist.barrier()
+            t = time.perf_counter()
+            fn()
+            _sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t))
+        out[kind] = ms
+    out["grad_sum_bytes"] = sum(4 * t.numel() for t in summed)
+    out["zero_gather_bytes"] = sum(t.numel() * t.element_size()
+                                   for t in slices) * DP_SHAPE[0]
+    return out
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gb(dev) -> float | None:
+    if torch.device(dev).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _digest_tree(tree) -> str:
+    import hashlib
+
+    from repro_torch.core.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_train_rank(workdir: str, device_type: str = "cuda") -> dict:
+    """One rank of the ``dp_train`` phase (four ranks on the card): its
+    shard of seed 0's f32 llama drawn at ``(data=2, model=2)``
+    (``init_params(mesh=)``), a ``Trainer(mesh=)`` over the phase's
+    batches: steps 1-2 saving a checkpoint after step 2 (under the
+    trainer's step index 1), step 3 with its
+    first attempt faulted at logical row 3 (the world's flag; retried),
+    then step 3 again, clean, from the step-2 state (its state must equal
+    the retried one bit for bit); K1 launches and collectives by kind a
+    step; the first step's update of each leaf written for the parent
+    (data rank 0's ranks); the moments' shapes and bytes; the collectives
+    timed alone.  Then the step-2 checkpoint restored onto a (data=1,
+    model=2) mesh of ranks 0 and 1 (``plan_remesh(2, 2)``) and step 3
+    run there.  Every record is checked equal over the world."""
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.mesh import build_mesh, rank_devices
+    from repro_torch.distributed.sharding import (
+        map_with_path,
+        opt_state_specs,
+        shard_shape,
+    )
+    from repro_torch.kernels import abft_matmul
+    from repro_torch.launch.train import abft_config
+    from repro_torch.models import layers
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.elastic import plan_remesh
+    from repro_torch.train import OptConfig, TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    K1 = abft_matmul.KERNEL
+    mesh = build_mesh(data=DP_SHAPE[0], model=DP_SHAPE[1],
+                      devices=rank_devices(device_type))
+    dev = mesh.device
+    cfg = dp_train_config()
+    model = Model(cfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(0, dtype=torch.float32, device=dev, mesh=mesh)
+    world = collectives.world_group()
+    ckpt = os.path.join(workdir, "ckpt")
+    tr = Trainer(model, params, TrainConfig(opt=OptConfig(lr=3e-4)),
+                 DataConfig(global_batch=TRAIN_B, seq_len=TRAIN_L,
+                            vocab_size=cfg.vocab_size),
+                 TrainerConfig(steps=1, ckpt_every=1, ckpt_dir=ckpt),
+                 abft=abft_config("auto"), mesh=mesh)
+    del params
+    raw = tr.step_fn
+    norms = _record_grad_norms(tr)
+    fault = ModelFault.at(0, "mlp_down",
+                          FaultSpec.value(DP_TRAIN_ROW, 1, 1e5))
+    base, per_step, flags = tr.step_fn, [], []
+
+    def step(p, o, batch):
+        # the first attempt of step 3 is faulted; every attempt counted
+        first = tr.step == 2 and not [s for s in per_step if s["step"] == 2]
+        K1.launches = 0
+        collectives.reset_counts()
+        _sync(dev)
+        t = time.perf_counter()
+        out = base(p, o, batch, fault=fault if first else None)
+        _sync(dev)
+        per_step.append({"step": tr.step, "faulted": first,
+                         "ms": 1e3 * (time.perf_counter() - t),
+                         "k1": K1.launches,
+                         "collectives": {k: v for k, v in
+                                         collectives.COUNTS.items() if v}})
+        flags.append(bool(out[2]["abft_flag"]))
+        return out
+
+    tr.step_fn = step
+    p0 = _flat_host(tr.params) if mesh.data_rank == 0 else None
+    tr.run()                                     # step 1
+    if p0 is not None:
+        upd = {k: (v - p0[k]).numpy() for k, v in
+               _flat_host(tr.params).items()}
+        np.savez(os.path.join(workdir, f"update_m{mesh.model_rank}.npz"),
+                 **{k.replace("/", "|"): v for k, v in upd.items()})
+        del upd, p0
+    tr.rcfg.steps = 2
+    tr.run()                                     # step 2, saved after it
+    s2 = (tr.params, tr.opt_state)
+    tr.rcfg.steps, tr.rcfg.ckpt_every = DP_TRAIN_STEPS, 10 ** 9
+    fired, row_fault = [], layers._row_fault
+
+    def logged(f, *a, **k):
+        got = row_fault(f, *a, **k)
+        if f is not None:
+            fired.append(None if got is None else int(got.row))
+        return got
+
+    layers._row_fault = logged
+    try:
+        tr.run()                                 # step 3, faulted, retried
+    finally:
+        layers._row_fault = row_fault
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in tr.data.batch(DP_TRAIN_STEPS - 1).items()}
+    clean_p, clean_o, _ = raw(*s2, batch)
+    same = (_digest_tree(clean_p) == _digest_tree(tr.params)
+            and _digest_tree(clean_o.mu) == _digest_tree(tr.opt_state.mu)
+            and _digest_tree(clean_o.nu) == _digest_tree(tr.opt_state.nu))
+    del clean_p, clean_o, s2
+    # the ZeRO-1 shards
+    shapes = model.param_shapes()
+    full, ospec = {}, {}
+    map_with_path(lambda ps, t: full.__setitem__(ps, tuple(t.shape)), shapes)
+    map_with_path(lambda ps, s: ospec.__setitem__(ps, s),
+                  opt_state_specs(cfg, shapes, mesh))
+    mu = _flat_host(tr.opt_state.mu)
+    zero_ok = all(tuple(mu[k].shape) == shard_shape(ospec[k], full[k], mesh)
+                  for k in mu)
+    share = {k: int(np.prod(full[k])) // max(1, mu[k].numel())
+             for k in ("embed", "layers/0/mixer/wq", "layers/0/ffn/down",
+                       "final_norm/w")}
+    moment_bytes = 2 * sum(t.numel() * 4 for t in tree_leaves(
+        tr.opt_state.mu))
+    del mu
+    coll_ms = _dp_train_collective_ms(tr, cfg, tr.params, dev)
+    rec = {"losses": [h["loss"] for h in tr.history], "grad_norms": norms,
+           "retries": [h["retries"] for h in tr.history],
+           "events": [list(e) for e in tr.events], "flags": flags,
+           "retry_equals_clean": same, "zero1_shapes_ok": zero_ok}
+    collectives.check_same(rec, world, "dp_train records")
+    out = {"rank": mesh.rank, "data_rank": mesh.data_rank,
+           "model_rank": mesh.model_rank, "device": str(dev),
+           "backend": world.backend, "records": rec,
+           "per_step": per_step, "step_ms": [1e3 * h["time_s"]
+                                             for h in tr.history],
+           "fault_rows": sorted(set(fired), key=str),
+           "moment_shares": share, "moment_bytes": moment_bytes,
+           "param_bytes": sum(t.numel() * 4 for t in tree_leaves(
+               tr.params)),
+           "collective_ms": coll_ms, "train_peak_gb": _peak_gb(dev)}
+    # reshard-on-restore: the checkpoint after step 2 onto the plan's mesh
+    plan = plan_remesh(2, model_parallel=DP_SHAPE[1])
+    like = tr.params
+    del tr
+    free_memory()
+    mesh12 = build_mesh(data=plan.data, model=plan.model,
+                        devices=rank_devices(device_type)[:plan.devices_used])
+    if mesh.rank < plan.devices_used:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(model, like, TrainConfig(opt=OptConfig(lr=3e-4)),
+                     DataConfig(global_batch=TRAIN_B, seq_len=TRAIN_L,
+                                vocab_size=cfg.vocab_size),
+                     TrainerConfig(steps=DP_TRAIN_STEPS, ckpt_dir=ckpt),
+                     abft=abft_config("auto"), mesh=mesh12)
+        del like
+        t = time.perf_counter()
+        state, step = tr.ckpt.restore(
+            {"params": tr.params, "opt": tr.opt_state}, step=1,
+            shardings=tr.shardings)
+        restore_s = time.perf_counter() - t
+        tr.params, tr.opt_state, tr.step = state["params"], state["opt"], 2
+        del state
+        K1.launches = 0
+        hist = tr.run()
+        out["restore"] = {"plan": list(plan.shape), "step": step,
+                          "seconds": restore_s,
+                          "step3_loss": hist[0]["loss"],
+                          "step3_ms": 1e3 * hist[0]["time_s"],
+                          "k1": K1.launches, "peak_gb": _peak_gb(dev)}
+        del tr
+    else:
+        del like
+    free_memory()
+    return out
+
+
+def dp_train_runs(dev) -> dict:
+    """The ``dp_train`` phase: sharded training of llama3.2-1b at full
+    width and ``SERVED_LAYERS`` layers, f32, over a (data=2, model=2)
+    mesh of four gloo ranks sharing this card (``dp_train_rank``).  In
+    this process first: K1 at the rank's shard shapes (``dp_train_k1``)
+    and the one-process twin (``_dp_train_twin``), freed.  The gates
+    (the ``train`` phase's tolerances): every step's loss within 1e-5
+    relative of the twin's, ``grad_norm`` within 1e-4 relative, each
+    leaf's first-step update (gathered from the ranks) within 1e-3 of its
+    norm; records equal on the four ranks; each rank's moments its ZeRO-1
+    shard (a quarter of every two-axis leaf); the row-3 fault fired on
+    data rank 1 alone, flagged on all four, retried to the clean state;
+    the step-2 checkpoint restored onto (1, 2) continuing within 1e-5
+    relative of the (2, 2) run's step 3; K1 launched on every rank.
+    Four ranks time-share one card over gloo: no data-parallel speed."""
+    import tempfile
+
+    from repro_torch.distributed import spawn
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.sharding import (
+        map_with_path,
+        param_specs,
+        shard_slices,
+    )
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg = dp_train_config()
+    k1 = dp_train_k1(dev, cfg)
+    with tempfile.TemporaryDirectory(prefix="dp_train_") as workdir:
+        twin = _dp_train_twin(dev, cfg, workdir)
+        t_spawn = time.perf_counter()
+        outs = spawn.run(dp_train_rank, DP_SHAPE[0] * DP_SHAPE[1], workdir,
+                         dev.type, device=dev.type)
+        spawn_s = time.perf_counter() - t_spawn
+        # the first step's updates, gathered from data rank 0's ranks
+        geom = Mesh(grid=np.arange(4).reshape(DP_SHAPE),
+                    axis_names=("data", "model"), devices=(dev,) * 4)
+        specs = {}
+        map_with_path(lambda ps, s: specs.__setitem__(ps, s),
+                      param_specs(cfg, Model(cfg).param_shapes(), geom))
+        worst = 0.0
+        for m in range(DP_SHAPE[1]):
+            with np.load(os.path.join(workdir, f"update_m{m}.npz")) as z:
+                for key in z.files:
+                    path = key.replace("|", "/")
+                    want = twin["update"][path]
+                    idx = shard_slices(specs[path], tuple(want.shape), geom,
+                                       {"data": 0, "model": m})
+                    w = want[idx].numpy()
+                    rel = float(np.linalg.norm(z[key] - w)
+                                / max(np.linalg.norm(w), 1e-30))
+                    worst = max(worst, rel)
+    twin.pop("update")
+    recs = outs[0]["records"]
+    need(all(o["records"] == recs for o in outs),
+         "dp_train: the ranks' records differ")
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(recs["losses"],
+                                                    twin["losses"])]
+    gn_rel = [abs(a - b) / abs(b) for a, b in zip(recs["grad_norms"],
+                                                  twin["grad_norms"])]
+    need(len(recs["losses"]) == DP_TRAIN_STEPS and max(loss_rel) <= 1e-5
+         and max(gn_rel) <= 1e-4 and worst <= 1e-3,
+         f"dp_train vs the twin: loss {loss_rel}, grad_norm {gn_rel}, "
+         f"update {worst}")
+    need(recs["retries"] == [0, 0, 1] and recs["flags"] == [False, False,
+                                                             True, False]
+         and recs["events"] == [["checkpoint", 1], ["abft_retry", 2]]
+         and recs["retry_equals_clean"] and recs["zero1_shapes_ok"],
+         f"dp_train records {recs}")
+    for o in outs:
+        want = [TRAIN_L + 5] if o["data_rank"] == 1 else [None]
+        need(o["fault_rows"] == want,
+             f"dp_train rank {o['rank']}: the row fault landed at "
+             f"{o['fault_rows']}, not {want}")
+        sh = o["moment_shares"]
+        need(sh["layers/0/mixer/wq"] == 4 and sh["layers/0/ffn/down"] == 4
+             and sh["embed"] == 4 and sh["final_norm/w"] == 1,
+             f"dp_train rank {o['rank']}: moment shares {sh}")
+        need(all(s["k1"] > 0 for s in o["per_step"]),
+             f"dp_train rank {o['rank']}: a step launched no K1")
+    step3 = recs["losses"][2]
+    for o in outs[:2]:
+        r = o["restore"]
+        rel = abs(r["step3_loss"] - step3) / abs(step3)
+        need(r["plan"] == [1, 2] and r["step"] == 1 and rel <= 1e-5
+             and r["k1"] > 0,
+             f"dp_train restore onto (1, 2) on rank {o['rank']}: {r}, "
+             f"loss off by {rel}")
+    r0 = outs[0]
+    clean = [s for s in r0["per_step"] if not s["faulted"]]
+    res = {"mesh": list(DP_SHAPE), "backend": r0["backend"],
+           "devices": [o["device"] for o in outs],
+           "config": {"arch": ENGINE_ARCH, "layers": cfg.n_layers,
+                      "dtype": "float32", "batch": [TRAIN_B, TRAIN_L],
+                      "rows_a_data_rank": TRAIN_B // DP_SHAPE[0]},
+           "losses": recs["losses"], "twin_losses": twin["losses"],
+           "loss_rel_vs_twin": loss_rel, "grad_norm_rel_vs_twin": gn_rel,
+           "update_rel_worst_leaf": worst,
+           "step_ms_per_rank": {o["rank"]: o["step_ms"] for o in outs},
+           "twin_step_ms": twin["step_ms"],
+           "k1_per_step": {o["rank"]: [s["k1"] for s in o["per_step"]]
+                           for o in outs},
+           "collectives_per_step": clean[-1]["collectives"],
+           "collectives_alone_ms": r0["collective_ms"],
+           "moment_bytes_per_rank": [o["moment_bytes"] for o in outs],
+           "param_bytes_per_rank": [o["param_bytes"] for o in outs],
+           "moment_shares": r0["moment_shares"],
+           "fault_rows": {o["rank"]: o["fault_rows"] for o in outs},
+           "retries": recs["retries"],
+           "retry_equals_clean": recs["retry_equals_clean"],
+           "restore": {o["rank"]: o["restore"] for o in outs[:2]},
+           "peak_gb_per_rank": [o["train_peak_gb"] for o in outs],
+           "k1": {"m": k1["m"], "step_total": k1["step_total"]},
+           "spawn_seconds": spawn_s,
+           "seconds": time.perf_counter() - t0,
+           "note": "four ranks time-sharing one card over gloo: a "
+                   "correctness run, not a data-parallel speed"}
+    emit("dp_train", **res)
+    return {**res, "k1_shapes": k1["per_shape"],
+            "k1_checks": k1["checks"]}
+
+
+def _add_dp_train(kernels, dpt) -> None:
+    """The ``dp_train`` phase's numbers on the kernels line: K1 at the
+    sharded train step's shapes (f32, M = 256, the model = 2 shard) and
+    its launches a step on each rank."""
+    k1 = kernels[0]
+    k1["dp_train_f32_m256"] = {name: {key: rec[key] for key in (
+        "k", "n", "gemms", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")} for name, rec in dpt["k1_shapes"].items()}
+    k1["dp_train_max_abs_err"] = max(c["max_abs_err"]
+                                     for c in dpt["k1_checks"].values())
+    k1["dp_train_launches_per_step"] = dpt["k1_per_step"]
+
+
 def cfg_weights_gb(cfg, k: int = 1) -> float:
     """The bf16 weights of one rank's shard of ``cfg`` at TP=k (the whole
     model at k = 1): ``Model.param_shapes`` cut by ``param_specs``."""
@@ -8404,6 +8894,12 @@ def main(argv=None) -> int:
         tp1 = None
         if kernels is not None:
             _add_dp(kernels, dp)
+    if "dp_train" in phases:
+        dp = None
+        free_memory()
+        dpt = dp_train_runs(dev)
+        if kernels is not None:
+            _add_dp_train(kernels, dpt)
     for line in smi:
         print(line)
     if kernels is not None:

@@ -10,7 +10,9 @@ what JAX's carries for the sharding rules, ``shape`` (a dict) and
 process's rank and the process groups of its ``model`` axis (its row of
 the grid) and its ``data`` axis (its column), each None when the axis is
 one wide or spans the whole world (the collectives then use the default
-group, or are the identity).
+group, or are the identity), and of the whole grid where it holds fewer
+ranks than the world (a restore onto a smaller mesh inside one world:
+the ranks off the grid take no part in its collectives).
 
 Functions only: importing this module touches no device and no process
 group.
@@ -35,6 +37,9 @@ class Mesh:
     rank: int = 0               # this process's rank
     group: object = None        # this rank's model-axis process group
     data_group: object = None   # this rank's data-axis process group
+    # every rank of the grid, where the grid holds fewer ranks than the
+    # world (None: the default group)
+    grid_group: object = None
 
     @property
     def shape(self) -> dict:
@@ -59,6 +64,10 @@ class Mesh:
     @property
     def device(self) -> torch.device:
         return self.devices[self.rank]
+
+    def holds(self, rank: int) -> bool:
+        """Whether ``rank`` is on the grid."""
+        return bool((self.grid == rank).any())
 
 
 def _dist():
@@ -118,16 +127,18 @@ def build_mesh(*, model: int = 1, data: int | None = None,
             f"mesh shape {shape} needs {need} devices, have {n}")
     grid = np.arange(need).reshape(shape)
     dist = _dist()
-    rank, group, data_group = 0, None, None
+    rank, group, data_group, grid_group = 0, None, None, None
     if dist is not None:
         rank = dist.get_rank()
         world = dist.get_world_size()
         group = _axis_groups(dist, grid, axes.index("model"), rank, world)
         data_group = _axis_groups(dist, grid, axes.index("data"), rank,
                                   world)
+        if 1 < need < world:
+            grid_group = dist.new_group(list(range(need)))
     return Mesh(grid=grid, axis_names=axes,
                 devices=tuple(devices[:need]), rank=rank, group=group,
-                data_group=data_group)
+                data_group=data_group, grid_group=grid_group)
 
 
 def _axis_groups(dist, grid, axis: int, rank: int, world: int):

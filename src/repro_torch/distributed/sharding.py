@@ -72,7 +72,9 @@ def expert_axes(cfg: ModelConfig, mesh) -> tuple:
     return ("model",)
 
 
-def _axes_size(mesh, entry) -> int:
+def axes_size(mesh, entry) -> int:
+    """How many parts a spec entry (None, an axis, a tuple of axes) cuts
+    a dim into on ``mesh``."""
     if entry is None:
         return 1
     if isinstance(entry, (tuple, list)):
@@ -91,7 +93,7 @@ def sanitize_spec(spec, shape, mesh) -> P:
         if entry is None or i >= len(shape):
             out.append(entry if i < len(shape) else None)
             continue
-        if shape[i] % _axes_size(mesh, entry) == 0:
+        if shape[i] % axes_size(mesh, entry) == 0:
             out.append(entry)
         else:
             out.append(None)
@@ -105,7 +107,7 @@ def _param_rule(path: str, ndim: int, cfg: ModelConfig, mesh,
     name = path.split("/")[-1]
     e_ax = expert_axes(cfg, mesh)
     # experts that don't divide the EP axes fall back to intra-expert TP
-    ep_fits = cfg.n_experts % _axes_size(mesh, e_ax) == 0 \
+    ep_fits = cfg.n_experts % axes_size(mesh, e_ax) == 0 \
         if cfg.n_experts else True
     d = "data" if fsdp else None
 
@@ -153,12 +155,16 @@ def _param_rule(path: str, ndim: int, cfg: ModelConfig, mesh,
 
 
 def map_with_path(fn, tree, path: tuple = ()):
-    """``fn("a/0/b", leaf)`` over every leaf of a tree of dicts and lists,
-    the same structure back (``jax.tree_util.tree_map_with_path``'s walk
+    """``fn("a/0/b", leaf)`` over every leaf of a tree of dicts, lists and
+    NamedTuples, the same structure back (``jax.tree_util.tree_map_with_path``'s walk
     with the reference's path strings)."""
     if isinstance(tree, dict):
         return {k: map_with_path(fn, v, path + (str(k),))
                 for k, v in tree.items()}
+    if hasattr(tree, "_fields") and not isinstance(tree, NamedSharding):
+        # a NamedTuple (the optimizer's state): its fields by name
+        return type(tree)(*(map_with_path(fn, getattr(tree, f), path + (f,))
+                            for f in tree._fields))
     if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
         return type(tree)(map_with_path(fn, v, path + (str(i),))
                           for i, v in enumerate(tree))
@@ -281,5 +287,5 @@ def shard_slices(spec, shape, mesh, coords: dict) -> tuple:
 
 def shard_shape(spec, shape, mesh) -> tuple:
     """A leaf's local shape under ``spec``."""
-    return tuple(n // _axes_size(mesh, spec[i] if i < len(spec) else None)
+    return tuple(n // axes_size(mesh, spec[i] if i < len(spec) else None)
                  for i, n in enumerate(shape))

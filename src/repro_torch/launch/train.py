@@ -14,8 +14,19 @@ TF32 off (``executor.strict_f32``).  Params are f32
 (the reference trains in f32 too), random from ``--seed``.  Every
 block-protected forward GEMM runs the fused ABFT kernel on the card; there
 is no switch that routes it elsewhere.  Full-sequence attention is the
-plain chunked path: the flash kernel has no backward.  ``--distributed``
-is not ported.
+plain chunked path: the flash kernel has no backward.
+
+``--distributed`` (in place of the reference's
+``jax.distributed.initialize()``): each process joins the process group
+from its launcher's environment, as ``torchrun`` sets it (``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), and the world trains
+data-parallel over ``build_mesh(data=world)``: each rank draws its shard
+of the same seeded params (``init_params(mesh=)``), takes its rows of
+the same global batch and keeps its ZeRO-1 share of the optimizer state
+(``Trainer(mesh=)``); rank 0 prints the record.  The reference's flags
+name no model axis, so none is added.  Rank r runs on
+``cuda:{r % cards}`` (or the CPU under ``--device cpu``), over NCCL where
+every rank has a card of its own and gloo otherwise.
 """
 
 from __future__ import annotations
@@ -32,8 +43,8 @@ from repro_torch.configs import ALL_ARCHS, get_config, scaled_down
 from repro_torch.core.policy import FixedPolicy, IntensityGuidedPolicy
 from repro_torch.core.protected import ABFTConfig
 from repro_torch.core.schemes import Scheme
-from repro_torch.core.tree import tree_leaves
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.models.counting import count_params
 from repro_torch.models.model import Model
 from repro_torch.serve.executor import resolve_device, strict_f32
 from repro_torch.train import OptConfig, TrainConfig
@@ -85,8 +96,7 @@ def main(argv=None) -> int:
     ap.add_argument("--distributed", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.distributed:
-        raise NotImplementedError("--distributed training is not ported")
+    mesh = join_world(args.device) if args.distributed else None
     cfg = scale_config(get_config(args.arch), args.scale)
     try:
         model = Model(cfg)
@@ -98,12 +108,17 @@ def main(argv=None) -> int:
             f"({' or '.join(model.memory_inputs)}) beside its tokens; the "
             f"training data gives only tokens and labels, as the "
             f"reference's does")
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(
+        args.device)
     strict_f32(device)
-    params = model.init_params(args.seed, dtype=torch.float32, device=device)
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    print(f"arch={cfg.name} scale={args.scale} params~{n_params/1e6:.1f}M "
-          f"abft={args.abft} device={device}")
+    params = model.init_params(args.seed, dtype=torch.float32, device=device,
+                               mesh=mesh)
+    n_params = count_params(cfg)
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        print(f"arch={cfg.name} scale={args.scale} "
+              f"params~{n_params/1e6:.1f}M abft={args.abft} device={device}"
+              + (f" mesh={mesh.shape}" if mesh is not None else ""))
 
     tcfg = TrainConfig(opt=OptConfig(lr=args.lr),
                        microbatches=args.microbatches)
@@ -111,8 +126,12 @@ def main(argv=None) -> int:
                       vocab_size=cfg.vocab_size)
     rcfg = TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every,
                          ckpt_dir=args.ckpt_dir)
-    trainer = Trainer(model, params, tcfg, dcfg, rcfg,
-                      abft=abft_config(args.abft), device=device)
+    try:
+        trainer = Trainer(model, params, tcfg, dcfg, rcfg,
+                          abft=abft_config(args.abft), device=device,
+                          mesh=mesh)
+    except NotImplementedError as e:
+        raise SystemExit(f"error: {e}")
     if args.resume:
         trainer.maybe_restore()
 
@@ -122,15 +141,49 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     toks = len(hist) * args.batch * args.seq
-    print(json.dumps({
-        "device": str(device),
-        "first_loss": hist[0]["loss"] if hist else None,
-        "last_loss": hist[-1]["loss"] if hist else None,
-        "steps": len(hist),
-        "tokens_per_s": toks / dt,
-        "events": trainer.events,
-    }, default=str))
+    if lead:
+        print(json.dumps({
+            "device": str(device),
+            "first_loss": hist[0]["loss"] if hist else None,
+            "last_loss": hist[-1]["loss"] if hist else None,
+            "losses": [h["loss"] for h in hist],
+            "steps": len(hist),
+            "tokens_per_s": toks / dt,
+            "events": trainer.events,
+            "world": 1 if mesh is None else int(mesh.grid.size),
+        }, default=str))
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
+
+
+LAUNCH_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def join_world(device=None):
+    """Join the process group from the launcher's environment
+    (``LAUNCH_ENV``) and return the ``(data=world, model=1)`` mesh.
+    Raises ``SystemExit`` naming what is missing."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import build_mesh, rank_devices
+    from repro_torch.distributed.spawn import pick_backend
+
+    missing = [k for k in LAUNCH_ENV if not os.environ.get(k)]
+    if missing:
+        raise SystemExit(
+            f"error: --distributed joins the process group from the "
+            f"launcher's environment, as torchrun sets it; "
+            f"{', '.join(missing)} not set")
+    world = int(os.environ["WORLD_SIZE"])
+    kind = resolve_device(device).type
+    if kind == "cuda":
+        torch.cuda.set_device(int(os.environ["RANK"])
+                              % torch.cuda.device_count())
+    dist.init_process_group(pick_backend(world, kind), init_method="env://")
+    return build_mesh(data=world, model=1, devices=rank_devices(kind))
 
 
 if __name__ == "__main__":

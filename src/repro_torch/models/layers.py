@@ -29,6 +29,13 @@ says how the dense cache's per-slot leaves lie over the data ranks
 (``CacheSplit``), which the cache writes and reads follow.  A fault's
 logical row on a split call lands on the data rank that owns it, at its
 local row (``dense``).
+
+Training (``train/train_step.py``) runs each data rank's own rows of the
+global batch (``LayerCtx.rows``) and differentiates through the
+collectives (``distributed/collectives.py``): a column-parallel GEMM's
+replicated input passes through ``copy_to_model``, so its gradient is
+summed over the model axis and every rank holds a replicated
+activation's whole gradient.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from repro_torch.core.protected import (
 from repro_torch.distributed.collectives import (
     TPGroup,
     all_reduce_sum,
+    copy_to_model,
     fsdp_gather,
 )
 
@@ -144,7 +152,9 @@ class LayerCtx:
     logical slots [lo, lo + n) alone (a split decode or verify), None the
     whole batch; ``moe_groups``: the MoE dispatch's group count for this
     call, None for the hints' ``dp_size`` (a split call holds exactly one
-    group, its slots, and sets 1)."""
+    group, its slots, and sets 1).  ``aux_over_data``: a training
+    forward whose data ranks run their own rows, so the MoE load-balance
+    loss takes its means over every data rank's tokens (``moe.py``)."""
 
     abft: ABFTConfig = ABFTConfig()
     fault: ModelFault | None = None
@@ -156,6 +166,7 @@ class LayerCtx:
     cache_split: CacheSplit | None = None
     rows: tuple | None = None
     moe_groups: int | None = None
+    aux_over_data: bool = False
 
     def with_layer(self, idx: int) -> "LayerCtx":
         return dataclasses.replace(self, layer_idx=idx)
@@ -278,9 +289,10 @@ def dense(x, w, ctx: LayerCtx, site: str, b=None, out_dtype=None,
           tag: str | None = None, par: str | None = None):
     """ABFT-protected ``x @ w (+ b)``.  Returns (y, flag).
 
-    ``par`` (``tp_par``): "col", ``w`` holds this rank's columns; "row",
-    its rows, and the f32 partials are summed over the model axis before
-    the one rounding to ``out_dtype`` and the bias.  The scheme is
+    ``par`` (``tp_par``): "col", ``w`` holds this rank's columns (``x``
+    through ``copy_to_model``: its gradient summed over the model axis);
+    "row", its rows, and the f32 partials are summed over the model axis
+    before the one rounding to ``out_dtype`` and the bias.  The scheme is
     selected with the site's ``out_dtype`` (the plan's), never the
     partial's f32.  A fault names a logical (row, col): at a "col" site it
     fires on the rank that owns the column, at its local column; at a
@@ -294,7 +306,8 @@ def dense(x, w, ctx: LayerCtx, site: str, b=None, out_dtype=None,
         y, chk = protected_matmul(x, w, ctx.abft, out_dtype=out_dtype,
                                   fault=fault, site=site)
     elif par == "col":
-        y, chk = protected_matmul(x, w, ctx.abft, out_dtype=out_dtype,
+        y, chk = protected_matmul(copy_to_model(x, ctx.tp), w, ctx.abft,
+                                  out_dtype=out_dtype,
                                   fault=_col_fault(fault, ctx, w.shape[-1]),
                                   site=site)
     elif par == "row":
@@ -322,8 +335,9 @@ def batched_dense(x_e, w_e, ctx: LayerCtx, site: str,
     this rank's columns of every expert (the fault's column mapped to the
     owning rank's); "row", its rows, the (E, C, F) f32 partials summed
     over the model axis and rounded once, the scheme selected at x's
-    dtype, the fault on rank 0's partial only.  Returns (y (E, C, F),
-    flag: any expert's)."""
+    dtype, the fault on rank 0's partial only; "col" passes ``x_e``
+    through ``copy_to_model``.  Returns (y (E, C, F), flag: any
+    expert's)."""
     fault = _site_fault(ctx, site)
     site = tag or site
     if par is None:
@@ -331,8 +345,9 @@ def batched_dense(x_e, w_e, ctx: LayerCtx, site: str,
                                         site=site, split_rows=split_rows)
     if par == "col":
         return protected_matmul_batched(
-            x_e, w_e, ctx.abft, fault=_col_fault(fault, ctx, w_e.shape[-1]),
-            site=site, split_rows=split_rows)
+            copy_to_model(x_e, ctx.tp), w_e, ctx.abft,
+            fault=_col_fault(fault, ctx, w_e.shape[-1]), site=site,
+            split_rows=split_rows)
     if par != "row":
         raise ValueError(f"par must be 'col', 'row' or None, got {par!r}")
     y, flag = protected_matmul_batched(

@@ -41,7 +41,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.analysis.markers import coverage_scope, layer_scope
 from repro_torch.configs.base import ModelConfig
@@ -748,7 +748,11 @@ class Model:
         ``full``.  ``remat``
         recomputes each layer in the backward pass instead of keeping its
         activations (the reference's ``jax.checkpoint`` per layer); it
-        changes no number and applies only while autograd records.
+        changes no number and applies only while autograd records.  On a
+        sharded rank (``ctx.tp`` or ``ctx.dp``) the recompute runs the
+        whole layer (no early stop), so every rank re-issues the layer's
+        collectives in the same order, whatever a fault added to one
+        rank's graph.
         Returns (x, flag, aux, caches): aux the MoE layers' load-balance
         losses summed (0 without any); caches a new list of each layer's
         cache after the call (``apply_layer``), None in mode ``full``."""
@@ -756,6 +760,7 @@ class Model:
         full = caches is None
         caches = [None] * len(layers) if full else caches
         remat = remat and torch.is_grad_enabled()
+        sharded = any(g is not None and g.size > 1 for g in (ctx.tp, ctx.dp))
         flags, auxes, out = [], [], []
         for i, (lp, cache) in enumerate(zip(layers, caches)):
             kw = dict(pos=pos, slots=slots, lengths=lengths, tables=tables,
@@ -764,8 +769,9 @@ class Model:
             args = (x, lp, ctx.with_layer(i), positions, mode, cache)
             with layer_scope(ctx.site_prefix, i):
                 if remat:
-                    x, f, a, c = checkpoint(self.apply_layer, *args,
-                                            use_reentrant=False, **kw)
+                    with set_checkpoint_early_stop(not sharded):
+                        x, f, a, c = checkpoint(self.apply_layer, *args,
+                                                use_reentrant=False, **kw)
                 else:
                     x, f, a, c = self.apply_layer(*args, **kw)
             flags.append(f)

@@ -54,6 +54,16 @@ sharding rules):
 
 Shared experts go through ``mlp`` with the rules' ``par``.
 
+Training: with ``LayerCtx.aux_over_data`` (each data rank runs its own
+rows) the load-balance loss's means ``me`` and ``ce`` are averaged over
+the data ranks (one f32 sum) before their product, so it is the global
+batch's, as the reference's.  Under expert parallelism a rank's combine
+reads only its own experts' slots, so the gradient it returns to the
+dispatched tokens and to the combine weights covers those experts alone:
+both pass through ``copy_to_model`` (the gradient summed over the model
+axis), and the replicated router's gradient comes out whole and equal on
+every rank.
+
 A speculative verify call (``ABFTConfig.decode_rows`` set) routes all its
 B x T rows at once, as the reference's, so its capacity is the window's.
 Its GEMMs sum each row in the decode step's order: the router and the
@@ -69,7 +79,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import all_reduce_sum
+from repro_torch.distributed.collectives import all_reduce_sum, copy_to_model
 from repro_torch.models.layers import (
     LayerCtx,
     batched_dense,
@@ -142,14 +152,22 @@ def moe_forward(x, p, cfg: ModelConfig, ctx: LayerCtx):
     # switch-style load balance over the call's tokens
     me = probs.mean(dim=0)
     ce = torch.nn.functional.one_hot(topk_i, E).to(F32).sum(1).mean(0)
+    if ctx.aux_over_data and ctx.dp is not None and ctx.dp.size > 1:
+        # every data rank routes as many tokens: the global means are
+        # the ranks' means averaged
+        mc = all_reduce_sum(torch.stack([me, ce]), ctx.dp) / ctx.dp.size
+        me, ce = mc[0], mc[1]
     loss = E * torch.sum(me * ce) / K
     # each token's experts in ascending id: the combine's summation order;
     # the dispatch does not depend on the order within a token
     topk_i, perm = torch.sort(topk_i, dim=-1)
     topk_w = torch.gather(topk_w, -1, perm)
+    xd = xf
+    if expert_shard(p, cfg, ctx)[0] == "ep":
+        xd, topk_w = copy_to_model(xf, ctx.tp), copy_to_model(topk_w, ctx.tp)
 
     Tl = T // G
-    parts = [_experts(xf[g * Tl:(g + 1) * Tl], topk_i[g * Tl:(g + 1) * Tl],
+    parts = [_experts(xd[g * Tl:(g + 1) * Tl], topk_i[g * Tl:(g + 1) * Tl],
                       topk_w[g * Tl:(g + 1) * Tl], p, cfg, ctx, C, split)
              for g in range(G)]
     y = parts[0][0] if G == 1 else torch.cat([y for y, _ in parts])

@@ -11,8 +11,9 @@ Failure-recovery flow (the trainer integrates all of it):
      layout compatibility); the data axis shrinks/grows.
   3. The global batch is re-split over the new data axis
      (``rescale_batch``) so optimization semantics are preserved.
-  4. ``Checkpointer.restore`` brings the state back.  Resharding onto the
-     new mesh waits for the port's sharding (one card today).
+  4. ``Checkpointer.restore(shardings=)`` brings the state back,
+     resharded onto the new mesh (each rank keeps its slice of every
+     whole leaf).
 
 The device set is simulated; the logic and tests exercise the control
 plane.

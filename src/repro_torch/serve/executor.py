@@ -271,6 +271,33 @@ def fsdp_dims(specs) -> dict:
     return out
 
 
+def axis_groups(model: Model, mesh) -> tuple:
+    """This rank's ``TPGroup`` on each axis of a sharded ``mesh``: (tp,
+    dp), each None where its axis is one wide.  ``tp.sharded``: the
+    leaves the rules split over ``model`` (``sharded_paths``);
+    ``dp.sharded``/``dp.dims``: those they split over ``data`` (FSDP,
+    ``fsdp_dims``)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import TPGroup
+    from repro_torch.distributed.sharding import param_specs
+
+    k = int(mesh.shape["model"])
+    d = int(mesh.shape.get("data", 1))
+    specs = param_specs(model.cfg, model.param_shapes(), mesh)
+    tp = dp = None
+    if k > 1:
+        tp = TPGroup(rank=mesh.model_rank, size=k, group=mesh.group,
+                     backend=dist.get_backend(mesh.group),
+                     sharded=sharded_paths(specs))
+    if d > 1:
+        dims = fsdp_dims(specs)
+        dp = TPGroup(rank=mesh.data_rank, size=d, group=mesh.data_group,
+                     backend=dist.get_backend(mesh.data_group),
+                     sharded=frozenset(dims), axis="data", dims=dims)
+    return tp, dp
+
+
 class MeshExecutor(LocalExecutor):
     """Mesh-sharded executor (see the module docstring).  ``mesh``: an
     int tensor-parallel width (a ``(data=1, model=k)`` mesh over this
@@ -283,13 +310,12 @@ class MeshExecutor(LocalExecutor):
                  hints=None):
         import torch.distributed as dist
 
-        from repro_torch.distributed.collectives import TPGroup, world_group
+        from repro_torch.distributed.collectives import world_group
         from repro_torch.distributed.mesh import (
             build_mesh,
             make_hints,
             rank_devices,
         )
-        from repro_torch.distributed.sharding import param_specs
 
         ranked = dist.is_available() and dist.is_initialized()
         if isinstance(mesh, int):
@@ -319,19 +345,7 @@ class MeshExecutor(LocalExecutor):
                     f"one process a rank; start them with "
                     f"repro_torch.distributed.spawn")
             device = mesh.device
-            specs = param_specs(model.cfg, model.param_shapes(), mesh)
-            if k > 1:
-                self.tp = TPGroup(rank=mesh.model_rank, size=k,
-                                  group=mesh.group,
-                                  backend=dist.get_backend(mesh.group),
-                                  sharded=sharded_paths(specs))
-            if d > 1:
-                dims = fsdp_dims(specs)
-                self.dp = TPGroup(rank=mesh.data_rank, size=d,
-                                  group=mesh.data_group,
-                                  backend=dist.get_backend(mesh.data_group),
-                                  sharded=frozenset(dims), axis="data",
-                                  dims=dims)
+            self.tp, self.dp = axis_groups(model, mesh)
             self.world = world_group()
             params = model.shard_params(params, mesh)
         super().__init__(model, params, dtype=dtype, device=device,

@@ -12,6 +12,17 @@ layout*, where the per-layer params are stacked along a leading repeats
 axis (``jax.lax.scan``): every leaf under ``params["layers"]`` counts one
 dim more, so the per-layer norm gains are decayed there and here, and
 only the top-level vectors (the final norm) are not.
+
+Over a ``(data, model)`` mesh (``Shards``, built by the train step) each
+rank holds its params' model shard, gradients already summed over
+``data``.  ``global_norm`` sums each leaf's squares once over the mesh:
+over ``model`` where the leaf is split there, once where it is
+replicated.  ``compress_int8``'s amax is the max over the logical
+tensor, and the error-feedback state shards like its param.  ZeRO-1: a
+rank keeps only its ``opt_state_specs`` shard of ``mu`` and ``nu`` (the
+leaf's slice along the dim those specs put on ``data``), updates the
+matching slice of the param and all-gathers the slices over ``data``
+(``collectives.gather_zero``).
 """
 
 from __future__ import annotations
@@ -46,6 +57,32 @@ class OptConfig:
     compress_grads: bool = False      # int8 + error feedback
 
 
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """How a params tree lies over a ``(data, model)`` mesh, a tuple
+    entry a leaf in tree order: ``first``, whether this rank counts the
+    leaf's squares in the global norm (the first rank of each axis the
+    leaf is replicated over); ``zero``, the dim ZeRO-1 splits its
+    moments on over ``data`` (None: the moments are the whole local
+    leaf); this rank's ``data_rank`` of ``data``; ``dp``, the data-axis
+    group, and ``world``, every rank of the mesh (``collectives``)."""
+
+    first: tuple
+    zero: tuple
+    data_rank: int = 0
+    data: int = 1
+    dp: object = None
+    world: object = None
+
+    def cut(self, i: int, t):
+        """Leaf ``i``'s ZeRO-1 slice of ``t`` (``t`` where it has none)."""
+        d = self.zero[i]
+        if d is None:
+            return t
+        n = t.shape[d] // self.data
+        return t.narrow(d, self.data_rank * n, n)
+
+
 class AdamWState(NamedTuple):
     step: torch.Tensor
     mu: object
@@ -70,42 +107,63 @@ def decayed(params):
         for path, p in tree_leaves_with_path(params)])
 
 
-def init_opt_state(params, cfg: OptConfig) -> AdamWState:
+def init_opt_state(params, cfg: OptConfig,
+                   shards: Shards | None = None) -> AdamWState:
+    """Zero moments (``shards``: each of the rank's ZeRO-1 slice) and
+    error-feedback residuals (each the shape of its local param)."""
     mdt = _MOMENT_DTYPES[cfg.moment_dtype]
-    dev = tree_leaves(params)[0].device
+    leaves = tree_leaves(params)
+    dev = leaves[0].device
 
-    def zeros(dtype):
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=dtype,
-                                              device=p.device), params)
+    def zeros(dtype, cut=False):
+        return tree_unflatten(params, [
+            torch.zeros((shards.cut(i, p) if cut and shards else p).shape,
+                        dtype=dtype, device=p.device)
+            for i, p in enumerate(leaves)])
 
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
-        mu=zeros(mdt),
-        nu=zeros(mdt),
+        mu=zeros(mdt, cut=True),
+        nu=zeros(mdt, cut=True),
         err=(zeros(torch.bfloat16) if cfg.compress_grads else tree_map(
             lambda p: torch.zeros((), dtype=F32, device=p.device), params)),
     )
 
 
-def global_norm(tree) -> torch.Tensor:
-    total = 0
-    for leaf in tree_leaves(tree):
-        total = total + torch.sum(leaf.to(F32) ** 2)
-    return torch.sqrt(total)
+def global_norm(tree, shards: Shards | None = None) -> torch.Tensor:
+    """The gradients' global norm, f32; over a mesh each leaf's squares
+    counted once (``Shards.first``) in one sum over every rank."""
+    if shards is None or shards.world is None:
+        total = 0
+        for leaf in tree_leaves(tree):
+            total = total + torch.sum(leaf.to(F32) ** 2)
+        return torch.sqrt(total)
+    from repro_torch.distributed.collectives import world_reduce
+
+    sq = torch.stack([torch.sum(leaf.to(F32) ** 2) if first else
+                      torch.zeros((), dtype=F32, device=leaf.device)
+                      for leaf, first in zip(tree_leaves(tree),
+                                             shards.first)])
+    return torch.sqrt(torch.sum(world_reduce(sq, shards.world)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float,
+                        shards: Shards | None = None):
+    norm = global_norm(grads, shards)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.to(F32) * scale).to(g.dtype), grads), norm
 
 
 # ------------------------------------------------------- gradient compression
 
-def compress_int8(g: torch.Tensor):
-    """Symmetric per-tensor int8 quantization.  Returns (q, scale)."""
+def compress_int8(g: torch.Tensor, amax=None):
+    """Symmetric per-tensor int8 quantization.  Returns (q, scale).
+    ``amax``: the logical tensor's max magnitude where ``g`` is a shard
+    of it (its own otherwise)."""
     gf = g.to(F32)
-    amax = torch.clamp(gf.abs().max(), min=1e-12)
+    if amax is None:
+        amax = gf.abs().max()
+    amax = torch.clamp(amax, min=1e-12)
     scale = amax / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -115,27 +173,71 @@ def decompress_int8(q, scale):
     return q.to(F32) * scale
 
 
-def compress_with_feedback(g, err):
+def compress_with_feedback(g, err, amax=None):
     """Error-feedback compression: quantize (g + residual), carry the
-    quantization error to the next step."""
+    quantization error to the next step (``amax`` as
+    ``compress_int8``'s, of g + residual)."""
     gf = g.to(F32) + err.to(F32)
-    q, scale = compress_int8(gf)
+    q, scale = compress_int8(gf, amax)
     deq = decompress_int8(q, scale)
     new_err = (gf - deq).to(err.dtype)
     return deq.to(g.dtype), new_err
 
 
+def _compress(grads, err, shards: Shards | None):
+    """``compress_with_feedback`` leaf by leaf; over a mesh each leaf's
+    amax is the max over every rank's shard (one reduction)."""
+    if shards is None or shards.world is None:
+        return _unzip(tree_map(compress_with_feedback, grads, err), 2)
+    from repro_torch.distributed.collectives import world_reduce
+
+    gs, es = tree_leaves(grads), tree_leaves(err)
+    amax = world_reduce(torch.stack([(g.to(F32) + e.to(F32)).abs().max()
+                                     for g, e in zip(gs, es)]),
+                        shards.world, op="max")
+    pairs = [compress_with_feedback(g, e, amax[i])
+             for i, (g, e) in enumerate(zip(gs, es))]
+    return (tree_unflatten(grads, [p[0] for p in pairs]),
+            tree_unflatten(err, [p[1] for p in pairs]))
+
+
+def _zero_update(upd, params, grads, moments, extra, shards):
+    """``upd(p, g, *m, *x) -> (p', *m')`` leaf by leaf, on each leaf's
+    ZeRO-1 slice of p and g where ``shards`` gives one, the updated
+    slices then gathered over ``data``.  Returns (params', [moments'])."""
+    ps, gs = tree_leaves(params), tree_leaves(grads)
+    ms = [tree_leaves(m) for m in moments]
+    xs = [tree_leaves(x) for x in extra]
+    outs = []
+    for i, (p, g) in enumerate(zip(ps, gs)):
+        if shards is not None:
+            p, g = shards.cut(i, p), shards.cut(i, g)
+        outs.append(upd(p, g, *(m[i] for m in ms), *(x[i] for x in xs)))
+    new_p = [o[0] for o in outs]
+    if shards is not None:
+        from repro_torch.distributed.collectives import gather_zero
+
+        cut = [i for i, d in enumerate(shards.zero) if d is not None]
+        whole = gather_zero([new_p[i] for i in cut],
+                            [shards.zero[i] for i in cut], shards.dp)
+        for i, t in zip(cut, whole):
+            new_p[i] = t
+    return (tree_unflatten(params, new_p),
+            [tree_unflatten(m, [o[j + 1] for o in outs])
+             for j, m in enumerate(moments)])
+
+
 # ------------------------------------------------------- adamw
 
 @torch.no_grad()
-def adamw_update(grads, state: AdamWState, params, cfg: OptConfig):
+def adamw_update(grads, state: AdamWState, params, cfg: OptConfig,
+                 shards: Shards | None = None):
     """One AdamW step.  Returns (new_params, new_state, metrics)."""
     if cfg.compress_grads:
-        grads, new_err = _unzip(
-            tree_map(compress_with_feedback, grads, state.err), 2)
+        grads, new_err = _compress(grads, state.err, shards)
     else:
         new_err = state.err
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, shards)
     step = state.step + 1
     stepf = step.to(F32)
     b1c = 1.0 - torch.pow(cfg.b1, stepf)
@@ -169,16 +271,16 @@ def adamw_update(grads, state: AdamWState, params, cfg: OptConfig):
         torch.sub(p.to(F32), delta, out=t)
         return t.to(p.dtype), m_new.to(mdt), v_new.to(mdt)
 
-    new_params, new_mu, new_nu = _unzip(
-        tree_map(upd, params, grads, state.mu, state.nu, decayed(params)),
-        3)
+    new_params, (new_mu, new_nu) = _zero_update(
+        upd, params, grads, (state.mu, state.nu), (decayed(params),), shards)
     new_state = AdamWState(step=step, mu=new_mu, nu=new_nu, err=new_err)
     return new_params, new_state, {"grad_norm": gnorm}
 
 
 @torch.no_grad()
-def sgd_update(grads, state: AdamWState, params, cfg: OptConfig):
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+def sgd_update(grads, state: AdamWState, params, cfg: OptConfig,
+               shards: Shards | None = None):
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, shards)
     step = state.step + 1
 
     def upd(p, g, m):
@@ -186,16 +288,20 @@ def sgd_update(grads, state: AdamWState, params, cfg: OptConfig):
         p_new = p.to(F32) - cfg.lr * m_new
         return p_new.to(p.dtype), m_new.to(m.dtype)
 
-    new_params, new_mu = _unzip(tree_map(upd, params, grads, state.mu), 2)
+    new_params, (new_mu,) = _zero_update(upd, params, grads, (state.mu,),
+                                         (), shards)
     return new_params, state._replace(step=step, mu=new_mu), {
         "grad_norm": gnorm}
 
 
-def update(grads, state, params, cfg: OptConfig):
+def update(grads, state, params, cfg: OptConfig,
+           shards: Shards | None = None):
+    """One step of ``cfg.name``'s optimizer (``shards``: over a mesh, the
+    module docstring)."""
     if cfg.name == "adamw":
-        return adamw_update(grads, state, params, cfg)
+        return adamw_update(grads, state, params, cfg, shards)
     if cfg.name == "sgd":
-        return sgd_update(grads, state, params, cfg)
+        return sgd_update(grads, state, params, cfg, shards)
     raise ValueError(f"unknown optimizer {cfg.name!r}")
 
 

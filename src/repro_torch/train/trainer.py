@@ -10,9 +10,15 @@
   * deterministic, restart-safe data (the step index is the only data
     state).
 
-The loop runs on one device; the failure and straggler paths are driven
-through the ``simulate`` hooks.  The flag is read on the host once per
-attempt.
+The loop runs on one device, or (``mesh=``) on every rank of a
+``(data, model)`` port mesh, each rank holding its shard of the params
+and its ZeRO-1 shard of the optimizer state (``train_step``'s
+``Placement``): every rank reads the world's flag and so takes the same
+retry and hard-fault decision, and every rank saves on the cadence (a
+sharded save: each leaf gathered whole, one writer) and restores its
+shard at this mesh (``Checkpointer.restore(shardings=)``).  The failure
+and straggler paths are driven through the ``simulate`` hooks.  The flag
+is read on the host once per attempt.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from repro_torch.models.model import Model
 from repro_torch.runtime.elastic import ElasticState
 from repro_torch.runtime.heartbeat import HeartbeatMonitor, StragglerPolicy
 from repro_torch.serve.executor import resolve_device, strict_f32, tree_to
-from repro_torch.train.optimizer import init_opt_state
+from repro_torch.train.optimizer import AdamWState, init_opt_state
 from repro_torch.train.train_step import TrainConfig, make_train_step
 
 
@@ -45,22 +51,57 @@ class TrainerConfig:
     max_retries: int = 2
 
 
+def state_shardings(model: Model, mesh) -> dict:
+    """The ``make_sharding`` tree of a trainer's checkpointed state
+    ``{"params", "opt"}`` on ``mesh``: the params and the error-feedback
+    residuals by ``param_specs`` (a 0-d residual is whole under any
+    spec), the moments by ``opt_state_specs`` (ZeRO-1), the step
+    whole."""
+    from repro_torch.distributed.sharding import (
+        NamedSharding,
+        P,
+        make_sharding,
+        opt_state_specs,
+        param_specs,
+    )
+
+    shapes = model.param_shapes()
+    params = make_sharding(mesh, param_specs(model.cfg, shapes, mesh))
+    moments = make_sharding(mesh, opt_state_specs(model.cfg, shapes, mesh))
+    return {"params": params,
+            "opt": AdamWState(step=NamedSharding(mesh, P()), mu=moments,
+                              nu=moments, err=params)}
+
+
 class Trainer:
+    """The loop of the module docstring.  ``mesh`` (a port ``Mesh``):
+    train on this process's rank of it, ``params`` the full tree (each
+    rank keeps its shard) or the rank's shard already
+    (``Model.init_params(mesh=)``); ``hints`` as ``make_train_step``'s;
+    ``placement``: the step's ``Placement`` (None unsharded)."""
+
     def __init__(self, model: Model, params, tcfg: TrainConfig,
                  dcfg: DataConfig, rcfg: TrainerConfig,
                  abft: ABFTConfig = ABFTConfig(), hints=None,
-                 workers=None, spares=None, device=None):
-        if hints is not None:
-            raise NotImplementedError("sharding hints are not ported")
-        self.device = resolve_device(device)
+                 workers=None, spares=None, device=None, mesh=None):
+        self.step_fn = make_train_step(model, abft, tcfg, hints=hints,
+                                       device=device, mesh=mesh)
+        pl = self.placement = self.step_fn.placement
+        self.mesh = mesh
+        self.device = (torch.device(mesh.device) if mesh is not None
+                       else resolve_device(device))
         strict_f32(self.device)
         self.model = model
+        if pl is not None:
+            params = model.shard_params(params, mesh)
         self.params = tree_to(params, self.device)
         self.tcfg = tcfg
         self.rcfg = rcfg
         self.data = SyntheticLM(dcfg)
-        self.opt_state = init_opt_state(self.params, tcfg.opt)
-        self.step_fn = make_train_step(model, abft, tcfg, device=self.device)
+        self.opt_state = init_opt_state(self.params, tcfg.opt,
+                                        pl.shards if pl else None)
+        self.shardings = (state_shardings(model, mesh)
+                          if pl is not None else None)
         self.ckpt = Checkpointer(rcfg.ckpt_dir)
         self.step = 0
         self.history: list = []
@@ -82,7 +123,7 @@ class Trainer:
         if latest is None:
             return False
         state = {"params": self.params, "opt": self.opt_state}
-        restored, step = self.ckpt.restore(state)
+        restored, step = self.ckpt.restore(state, shardings=self.shardings)
         self.params = restored["params"]
         self.opt_state = restored["opt"]
         self.step = step
@@ -121,7 +162,8 @@ class Trainer:
                                  "time_s": dt, "retries": retries})
             if self.step and self.step % self.rcfg.ckpt_every == 0:
                 self.ckpt.save_async(
-                    self.step, {"params": self.params, "opt": self.opt_state})
+                    self.step, {"params": self.params, "opt": self.opt_state},
+                    shardings=self.shardings)
                 self.events.append(("checkpoint", self.step))
             self.step += 1
         self.ckpt.wait()

@@ -427,11 +427,38 @@ def test_checkpoint_async_overlap_snapshots_the_tree(tmp_path):
 
 
 def test_checkpoint_reshard_waits_for_sharding(tmp_path):
+    """Reshard-on-restore at a one-rank mesh (no process group): every
+    leaf comes back whole and bit-equal under any spec, the sharded
+    save in one process is the plain one, and specs that split a leaf
+    over an axis keep that axis' part at the rank's coordinates (a
+    (1, 2) geometry seen from model rank 1)."""
+    from repro_torch.distributed.mesh import Mesh, build_mesh
+    from repro_torch.distributed.sharding import P, make_sharding
+
     ck = Checkpointer(tmp_path)
     tree = _tree()
-    ck.save(2, tree)
-    with pytest.raises(NotImplementedError):
-        ck.restore(tree, shardings={})
+    specs = {"params": {"w": P(None, "model"), "b": P("model"),
+                        "h": P("data", None)},
+             "opt": topt.AdamWState(step=P(), mu=[P(None)],
+                                    nu=[P(None)], err=[P()])}
+    one = build_mesh(data=1, model=1, devices=[torch.device("cpu")])
+    ck.save(2, tree, shardings=make_sharding(one, specs))
+    restored, step = ck.restore(tree, shardings=make_sharding(one, specs))
+    assert step == 2
+    for a, b in zip(tree_leaves(restored), tree_leaves(tree)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    half = Mesh(grid=np.arange(2).reshape(1, 2), axis_names=("data",
+                                                             "model"),
+                devices=(torch.device("cpu"),) * 2, rank=1)
+    like = dict(tree, params={"w": tree["params"]["w"][:, 8:],
+                              "b": tree["params"]["b"][8:],
+                              "h": tree["params"]["h"]})
+    got, _ = ck.restore(like, shardings=make_sharding(half, specs))
+    assert torch.equal(got["params"]["w"], tree["params"]["w"][:, 8:])
+    assert torch.equal(got["params"]["b"], tree["params"]["b"][8:])
+    assert torch.equal(got["params"]["h"], tree["params"]["h"])
+    assert int(got["opt"].step) == 7
+    assert torch.equal(got["opt"].mu[0], tree["opt"].mu[0])
 
 
 # ------------------------------------------------------------ runtime
@@ -469,7 +496,7 @@ def test_elastic_and_heartbeat_control_plane():
     assert sp.stragglers() == ["slow"]
 
 
-def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
+def test_train_cli_runs_on_the_cpu(tmp_path, capsys, monkeypatch):
     from repro_torch.launch import train
 
     assert train.main(["--device", "cpu", "--steps", "2", "--batch", "2",
@@ -479,7 +506,13 @@ def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
 
     rec = json.loads(out)
     assert rec["steps"] == 2 and np.isfinite(rec["last_loss"])
-    with pytest.raises(NotImplementedError):
+    assert rec["losses"][-1] == rec["last_loss"] and rec["world"] == 1
+    # --distributed joins the launcher's process group: without its
+    # environment it exits naming what is missing
+    for key in train.LAUNCH_ENV:
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(SystemExit, match="RANK, WORLD_SIZE, MASTER_ADDR, "
+                       "MASTER_PORT not set"):
         train.main(["--device", "cpu", "--distributed"])
 
 
