@@ -68,7 +68,12 @@ rank 1's row recovered, eviction; a one-slot 2048-token cell whose dense
 cache splits its positions over the data ranks (K3 with its
 log-sum-exp, the partials merged); and qwen1.5-32b at 2 layers under
 FSDP (each rank a quarter of each weight), each against its one-process
-twin.
+twin.  ``dp_train`` trains that llama, f32, over the same mesh (ZeRO-1,
+a faulted step retried, a checkpoint restored onto (1, 2)), and
+``dp_train_families`` trains mamba2-1.3b, deepseek-v3-671b's first layer
+with its MTP head and llama-3.2-vision-11b's first cross layer at their
+published widths over (2, 2) and (1, 2) meshes, each against its
+one-process twin.
 Each phase prints JSON lines; any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -96,7 +101,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
           "campaign", "profile", "timing", "sharing", "spec", "family",
           "moe", "mla", "ssm", "cross", "audit", "tp", "tp_hybrid",
-          "tp_mla", "dp", "dp_train")
+          "tp_mla", "dp", "dp_train", "dp_train_families")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -125,20 +130,23 @@ SCORE_B, SCORE_L = 1, 1024
 # widths, which the depth does not change; the run keeps to its time:
 # PERF.md §4, each cut with the run that forced it)
 SIDE_ARCH, SIDE_LAYERS = "qwen3-14b", 5
-# the llama those two phases, tp and dp serve: full width, 4 of its 16
-# layers (the same reason; their kernel timings keep the full model's
-# GEMMs)
-SERVED_LAYERS = 4
+# the llama those two phases, tp, dp and the training phases serve: full
+# width, 2 of its 16 layers (the same reason; their kernel timings keep
+# the full model's GEMMs; PR 29 cut 4 to 2 after a 1301 s run on a slow
+# host)
+SERVED_LAYERS = 2
 # the spec phase keeps llama at 8 and qwen3-14b at 10 layers: at 4
 # layers its copy traffic's n-gram proposer drafts nothing, and its gates
 # need drafts (measured on one H100)
 SPEC_LAYERS, SPEC_SIDE_LAYERS = 8, 10
 
 
-# the layers the family and moe phases keep of these archs' published
-# depth (full width; PERF.md §4: the script's time, each cut with the run
-# that forced it), and the tp phase's llama keeps SERVED_LAYERS
-DEPTH_CUTS = {"qwen3-14b": 6, "qwen1.5-32b": 8, "qwen2-moe-a2.7b": 8}
+# the layers the family, moe and ssm phases keep of these archs'
+# published depth (full width; PERF.md §4: the script's time, each cut
+# with the run that forced it: PR 29 halved them after a 1301 s run on a
+# slow host), and the tp phase's llama keeps SERVED_LAYERS
+DEPTH_CUTS = {"qwen3-14b": 3, "qwen1.5-32b": 4, "qwen2-moe-a2.7b": 4,
+              "mamba2-1.3b": 24}
 
 
 def side_config(layers: int = SIDE_LAYERS):
@@ -4359,7 +4367,7 @@ JAMBA_LAYERS = 8
 # a share of the logits' scale (MLA_SCORE_TOL's bound)
 SSM_SCORE_TOL = 0.05
 # decode-time faults a stack's engine cell recovers: (layer, site)
-SSM_FAULTS = {"mamba2-1.3b": ((1, "ssm_in"), (47, "ssm_out")),
+SSM_FAULTS = {"mamba2-1.3b": ((1, "ssm_in"), (23, "ssm_out")),
               "jamba-v0.1-52b": ((0, "ssm_in"), (2, "expert_up"),
                                  (4, "qkv"))}
 
@@ -4370,6 +4378,8 @@ def ssm_config(arch):
     cfg = get_config(arch)
     if arch.startswith("jamba"):
         cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS)
+    elif arch in DEPTH_CUTS:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH_CUTS[arch])
     return cfg
 
 
@@ -4771,8 +4781,9 @@ CROSS_SCORE_TOL = 0.05
 # token, the vision model 16 tokens
 CROSS_NEW = {"whisper-tiny": 33, "llama-3.2-vision-11b": 16}
 CROSS_MAX_LEN, CROSS_BS = 512, 16
-# llama-3.2-vision-11b's depth run: all 40 layers (8 cross layers)
-VISION_LAYERS = 40
+# llama-3.2-vision-11b's depth run: 20 of its 40 layers (4 cross layers;
+# PR 29 cut 40 to 20 after a 1301 s run on a slow host)
+VISION_LAYERS = 20
 
 
 def cross_config(arch):
@@ -5817,7 +5828,7 @@ def _step_gemm_groups(params) -> dict:
 def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
               one_slice: bool = False,
               split_rows: int | None = None,
-              per_shape: bool = False) -> dict:
+              per_shape: bool = False, groups: dict | None = None) -> dict:
     """K1 over one step's GEMMs at M=m, using a run's own weights
     (distinct per layer, so weights come from HBM as in a real step), in
     their dtype: kernel, plain version, torch.matmul, and the bound (bf16
@@ -5833,17 +5844,19 @@ def k1_timing(dev, params, m: int, arch: str = ENGINE_ARCH,
     prefill paths run it, and no fork is timed; ``split_rows``: the K
     split is that row count's, as the speculative verify step runs it
     (``abft_matmul.plan``), and no fork is timed.  ``per_shape``: the
-    step's total with each shape group's record beside it."""
+    step's total with each shape group's record beside it.  ``groups``:
+    {name: weights of one shape} timed in place of the step's
+    (``_step_gemm_groups(params)``; ``params`` then unread)."""
     from repro_torch.kernels.abft_matmul import abft_matmul_kernel, routes
     from repro_torch.kernels.ref import abft_matmul_ref
 
-    groups = _step_gemm_groups(params)
+    groups = _step_gemm_groups(params) if groups is None else groups
     gen = torch.Generator(device=dev).manual_seed(4)
     per = {}
     tot = {"ms": 0.0, "ms_eager": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "bound_ms": 0.0, "gemms": 0}
     bound_by = set()
-    dtype = params["embed"].dtype
+    dtype = next(iter(groups.values()))[0].dtype
     bf16 = dtype == torch.bfloat16
     forced = "gemv" if bf16 and m <= 8 else ("tiled" if not bf16 and m > 8
                                              else None)
@@ -8142,52 +8155,57 @@ def _flat_host(tree) -> dict:
     return out
 
 
-def _dp_train_collective_ms(tr, cfg, grads, dev) -> dict:
-    """Host ms of the (2, 2) train step's collectives alone, by kind, at
-    this rank's sizes (``grads``: a tree shaped as its gradients), between a barrier and two device syncs: the
+def _dp_train_collective_ms(pl, grads, dev, act_shape, head_shape,
+                            n_act: int, reps: int = 3,
+                            data_axis: bool = True) -> dict:
+    """Host ms of a sharded train step's collectives alone, by kind, at
+    this rank's sizes (``pl``: the step's ``Placement``; ``grads``: a tree
+    shaped as its gradients), between a barrier and two device syncs: the
     gradient all-reduce over ``data`` (every leaf of the rank's shard,
     bucketed), the ZeRO-1 gather (the rank's slices), and the model
-    axis's activation sums of a step (``model_sum`` + ``model_grad``, each
-    a (B / 2, L, d) f32 tensor) with the head's gather; 3 times each."""
+    axis's ``n_act`` activation sums of a step (``model_sum`` +
+    ``model_grad``, each an ``act_shape`` f32 tensor) with the head's
+    gather of ``head_shape`` (None: a replicated head); ``reps`` times
+    each (the model axis's alone without ``data_axis``)."""
     import torch.distributed as dist
 
     from repro_torch.core.tree import tree_leaves
     from repro_torch.distributed import collectives
 
-    pl = tr.placement
     leaves = tree_leaves(grads)
     summed = [leaves[i] for i in pl.summed]
     cut = [i for i, d in enumerate(pl.shards.zero) if d is not None]
     slices = [pl.shards.cut(i, leaves[i]).contiguous() for i in cut]
     dims = [pl.shards.zero[i] for i in cut]
-    b = TRAIN_B // DP_SHAPE[0]
-    act = torch.zeros(b, TRAIN_L, cfg.d_model, device=dev)
-    head = torch.zeros(b, TRAIN_L, cfg.vocab_size // DP_SHAPE[1], device=dev)
-    n_act = 9 * cfg.n_layers + 2      # model_sum 4L + 1, model_grad 5L + 1
+    act = torch.zeros(act_shape, device=dev)
+    head = (torch.zeros(head_shape, device=dev) if head_shape is not None
+            else None)
 
     def acts():
         for _ in range(n_act):
             collectives.all_reduce_sum(act, pl.tp)
-        collectives.gather_last(head, pl.tp)
+        if head is not None:
+            collectives.gather_last(head, pl.tp)
 
     out = {}
-    for kind, fn in (("grad_sum", lambda: collectives.sum_grads(summed,
-                                                                pl.dp)),
-                     ("zero_gather", lambda: collectives.gather_zero(
-                         slices, dims, pl.dp)),
-                     ("model_axis", acts)):
+    kinds = (("grad_sum", lambda: collectives.sum_grads(summed, pl.dp)),
+             ("zero_gather", lambda: collectives.gather_zero(
+                 list(slices), dims, pl.dp)),
+             ("model_axis", acts))
+    for kind, fn in kinds if data_axis else kinds[2:]:
         ms = []
-        for _ in range(3):
+        for _ in range(reps):
             _sync(dev)
-            dist.barrier()
+            dist.barrier(group=pl.world.group if pl.world else None)
             t = time.perf_counter()
             fn()
             _sync(dev)
             ms.append(1e3 * (time.perf_counter() - t))
         out[kind] = ms
-    out["grad_sum_bytes"] = sum(4 * t.numel() for t in summed)
+    out["grad_sum_bytes"] = sum(4 * t.numel() for t in summed) \
+        if pl.data > 1 else 0
     out["zero_gather_bytes"] = sum(t.numel() * t.element_size()
-                                   for t in slices) * DP_SHAPE[0]
+                                   for t in slices) * pl.data
     return out
 
 
@@ -8334,7 +8352,11 @@ def dp_train_rank(workdir: str, device_type: str = "cuda") -> dict:
     moment_bytes = 2 * sum(t.numel() * 4 for t in tree_leaves(
         tr.opt_state.mu))
     del mu
-    coll_ms = _dp_train_collective_ms(tr, cfg, tr.params, dev)
+    b = TRAIN_B // DP_SHAPE[0]
+    # model_sum 4 L + 1, model_grad 5 L + 1 a step
+    coll_ms = _dp_train_collective_ms(
+        tr.placement, tr.params, dev, (b, TRAIN_L, cfg.d_model),
+        (b, TRAIN_L, cfg.vocab_size // DP_SHAPE[1]), 9 * cfg.n_layers + 2)
     rec = {"losses": [h["loss"] for h in tr.history], "grad_norms": norms,
            "retries": [h["retries"] for h in tr.history],
            "events": [list(e) for e in tr.events], "flags": flags,
@@ -8521,6 +8543,630 @@ def _add_dp_train(kernels, dpt) -> None:
     k1["dp_train_max_abs_err"] = max(c["max_abs_err"]
                                      for c in dpt["k1_checks"].values())
     k1["dp_train_launches_per_step"] = dpt["k1_per_step"]
+
+
+# ------------------------------------------------------ dp_train_families
+
+# sharded training of the MLA, Mamba2 and memory families at published
+# widths, f32, by four gloo ranks sharing the card (one spawn): (arch,
+# layers kept, (data, model)).  deepseek's first layer (``mla:dense:0``)
+# and its MTP head over (1, 2) on ranks 0-1 (at data = 2 its replicated
+# state would not fit four ranks on one card), first, so its twin, the
+# longest, runs while the fresh ranks warm up; mamba2 at SERVED_LAYERS of
+# 48 over both axes; the vision model's first cross layer (layer 3) and
+# the three before it over (2, 2)
+DPF_MODELS = (("deepseek-v3-671b", 1, (1, 2)),
+              ("mamba2-1.3b", SERVED_LAYERS, (2, 2)),
+              ("llama-3.2-vision-11b", 4, (2, 2)))
+# vision takes one step: its second (13.7-17.2 s a rank over gloo) went
+# for the script's time after a 1301 s run on a slow host
+DPF_STEPS = {"mamba2-1.3b": 2, "deepseek-v3-671b": 2,
+             "llama-3.2-vision-11b": 1}
+# the data axis's collectives are timed alone on mamba2's ranks (gloo's
+# rate); vision's 3.95 GB a rank would take 12 s more
+# moments in bf16 (the reference's dry run keeps deepseek's so): with
+# f32 ones deepseek's twin and the vision model's four ranks would not
+# fit the card beside the functional update's new params and moments
+DPF_MOMENTS = {"deepseek-v3-671b": "bfloat16",
+               "llama-3.2-vision-11b": "bfloat16"}
+DPF_DATA_TIMED = ("mamba2-1.3b",)
+# mamba2's second step: a value fault at ssm_out (row-parallel: model
+# rank 0's partial) in logical batch row 3, data rank 1's local row
+# TRAIN_L + 5
+DPF_FAULT_ARCH = "mamba2-1.3b"
+# the K1 shapes timed beside the plain version and torch.matmul: (arch,
+# group, leaf paths below the layer); the rest are checked only
+DPF_TIMED = (("deepseek-v3-671b", "ffn_up_gate", ("ffn/up", "ffn/gate")),
+             ("deepseek-v3-671b", "q_b", ("mixer/wq_b",)),
+             ("llama-3.2-vision-11b", "cross_kv", ("cross/wk", "cross/wv")))
+# the ranks wait this long for the parent's twin of a model
+DPF_WAIT_S = 420.0
+# the worst leaf's first update against the twin's, relative to its
+# norm: AdamW's first step moves each entry by lr g / (|g| + eps), so an
+# entry with |g| near eps = 1e-8 turns the f32 sums' order into an
+# lr-sized move either way (deepseek's embedding: 1.08e-3 on the card);
+# a sign error in a leaf's gradients moves it by O(1), and a scale error
+# shows in the grad norm and the second step's loss
+DPF_UPDATE_TOL = 1e-2
+# the leaves a train step multiplies by (2-D GEMM weights)
+DPF_GEMMS = ("wq", "wk", "wv", "wo", "wq_a", "wq_b", "wkv_a", "in_z",
+             "in_x", "in_bc", "in_dt", "out_proj", "up", "gate", "down",
+             "lm_head", "embed", "proj", "vision_proj")
+
+
+def dpf_config(arch):
+    from repro_torch.configs import get_config
+
+    layers = {a: n for a, n, _ in DPF_MODELS}[arch]
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+def _dpf_tag(arch) -> str:
+    return arch.split("-")[0]
+
+
+def _dpf_params(model, dev, mesh=None):
+    """Seed 0's f32 weights (the rank's shard with ``mesh``), every cross
+    gate at ``CROSS_GATE``, so the images reach the loss."""
+    params = model.init_params(0, dtype=torch.float32, device=dev,
+                               mesh=mesh)
+    for lp in params["layers"]:
+        if "cross_gate" in lp:
+            lp["cross_gate"].fill_(CROSS_GATE)
+    return params
+
+
+def _dpf_batches(cfg, dev) -> list:
+    """The phase's global batches: ``SyntheticLM``'s TRAIN_B x TRAIN_L
+    tokens and labels, and (vision) TRAIN_B x 1601 x 1280 f32 image
+    embeddings from seed 7, made on the host and moved."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    data = SyntheticLM(DataConfig(global_batch=TRAIN_B, seq_len=TRAIN_L,
+                                  vocab_size=cfg.vocab_size))
+    gen = torch.Generator().manual_seed(7)
+    out = []
+    for s in range(DPF_STEPS[cfg.name]):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(s).items()}
+        if cfg.vision_dim:
+            b["images"] = torch.randn(
+                TRAIN_B, cfg.n_image_tokens, cfg.vision_dim,
+                generator=gen).to(dev)
+        out.append(b)
+    return out
+
+
+def _dpf_step(model, mesh=None, dev=None):
+    from repro_torch.launch.train import abft_config
+    from repro_torch.train import OptConfig, TrainConfig
+    from repro_torch.train.train_step import make_train_step
+
+    opt = OptConfig(lr=3e-4, moment_dtype=DPF_MOMENTS.get(model.cfg.name,
+                                                          "float32"))
+    tcfg = TrainConfig(opt=opt)
+    return make_train_step(model, abft_config("auto"), tcfg,
+                           device=None if mesh is not None else dev,
+                           mesh=mesh), tcfg
+
+
+def _metrics(met) -> dict:
+    return {k: (bool(v) if k == "abft_flag" else float(v))
+            for k, v in met.items()}
+
+
+def _dpf_twin(dev, arch, outdir: str) -> dict:
+    """The one-process twin of one model: seed 0's whole f32 model, the
+    phase's steps through ``make_train_step``; each step's metrics and
+    ms; the first step's update of every leaf written to ``outdir`` (one
+    ``.npy`` a leaf, in tree order) for the ranks.  Freed after."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.model import Model
+    from repro_torch.train import optimizer as opt_lib
+
+    os.makedirs(outdir, exist_ok=True)
+    cfg = dpf_config(arch)
+    model = Model(cfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params = _dpf_params(model, dev)
+    step, tcfg = _dpf_step(model, dev=dev)
+    state = opt_lib.init_opt_state(params, tcfg.opt)
+    rec = {"steps": [], "ms": []}
+    for s, batch in enumerate(_dpf_batches(cfg, dev)):
+        _sync(dev)
+        t = time.perf_counter()
+        new_p, new_s, met = step(params, state, batch)
+        _sync(dev)
+        rec["ms"].append(1e3 * (time.perf_counter() - t))
+        rec["steps"].append(_metrics(met))
+        if s == 0:
+            for i, (a, b) in enumerate(zip(tree_leaves(params),
+                                           tree_leaves(new_p))):
+                np.save(os.path.join(outdir, f"{i}.npy"),
+                        (b - a).float().cpu().numpy())
+        params, state = new_p, new_s
+        del new_p, new_s
+    rec["peak_gb"] = _peak_gb(dev)
+    del params, state, step
+    free_memory()
+    return rec
+
+
+def _dpf_k1_predicted(shard, abft, m: int, mem_m: int) -> int:
+    """K1 launches a sharded train step makes on a rank, from its layer
+    list: each layer's block-protected GEMMs (the policy's scheme at the
+    rank's rows ``m`` and the shard's (K, N); a cross layer's K/V at the
+    memory's ``mem_m`` rows) twice, as the recompute runs every layer
+    again; the memory's ``vision_proj`` and the head once; the MTP head's
+    ``proj``, layer and head once more."""
+    from repro_torch.core.intensity import GemmDims
+    from repro_torch.core.policy import scheme_name_of
+    from repro_torch.core.protected import _BLOCK_MODES
+
+    def k1(rows, w) -> int:
+        dims = GemmDims(m=rows, k=int(w.shape[0]), n=int(w.shape[1]),
+                        batch=1, dtype_bytes=4, out_dtype_bytes=4)
+        return int(scheme_name_of(abft.resolve(dims)) in _BLOCK_MODES)
+
+    def layer(lp) -> int:
+        n = sum(k1(m, lp["mixer"][w]) for w in (
+            "wq", "wk", "wv", "wo", "wq_a", "wq_b", "wkv_a", "in_z", "in_x",
+            "in_bc", "in_dt", "out_proj") if w in lp["mixer"])
+        if "cross" in lp:
+            c = lp["cross"]
+            n += k1(m, c["wq"]) + k1(mem_m, c["wk"]) + k1(mem_m, c["wv"]) \
+                + k1(m, c["wo"])
+        n += sum(k1(m, lp["ffn"][w]) for w in ("up", "gate", "down")
+                 if w in lp.get("ffn", {}))
+        return n
+
+    head = shard["lm_head"] if "lm_head" in shard else shard["embed"].t()
+    total = 2 * sum(layer(lp) for lp in shard["layers"]) + k1(m, head)
+    if "vision_proj" in shard:
+        total += k1(mem_m, shard["vision_proj"])
+    if "mtp" in shard:
+        total += k1(m, shard["mtp"]["proj"]) + layer(shard["mtp"]["layer"]) \
+            + k1(m, head)
+    return total
+
+
+def _dpf_wait(path: str, stop) -> None:
+    """Wait for ``path`` to exist; raise on ``DPF_WAIT_S`` or where
+    ``stop()`` says the other side has failed."""
+    t = time.monotonic()
+    while not os.path.exists(path):
+        if stop():
+            raise RuntimeError(f"dp_train_families: gave up on {path}")
+        if time.monotonic() - t > DPF_WAIT_S:
+            raise RuntimeError(f"dp_train_families: {path} never came")
+        time.sleep(0.2)
+
+
+def _dpf_update_err(old, new, mesh, model, twindir) -> tuple:
+    """(worst relative error, its leaf): this rank's first update of each
+    leaf against the twin's (its shard of the twin's whole update, read
+    from ``twindir``), ||a - b|| / ||b||."""
+    from repro_torch.core.tree import tree_leaves, tree_leaves_with_path
+    from repro_torch.distributed.sharding import (
+        map_with_path,
+        param_specs,
+        shard_slices,
+    )
+
+    specs = {}
+    map_with_path(lambda ps, sp: specs.__setitem__(ps, sp),
+                  param_specs(model.cfg, model.param_shapes(), mesh))
+    coords = mesh.coords()
+    worst, at = 0.0, None
+    for i, ((path, a), b) in enumerate(zip(tree_leaves_with_path(old),
+                                           tree_leaves(new))):
+        key = "/".join(str(k) for k in path)
+        whole = np.load(os.path.join(twindir, f"{i}.npy"), mmap_mode="r")
+        idx = shard_slices(specs[key], whole.shape, mesh, coords)
+        want = torch.from_numpy(np.array(whole[idx])).to(b.device)
+        got = (b - a).float()
+        rel = float(torch.linalg.vector_norm(got - want)
+                    / torch.linalg.vector_norm(want).clamp_min(1e-30))
+        if rel >= worst:
+            worst, at = rel, key
+        del want, got
+    return worst, at
+
+
+def _dpf_rank_model(arch, mesh, workdir) -> dict:
+    """One model on this rank of ``mesh``: its shard drawn
+    (``init_params(mesh=)``), the phase's steps through
+    ``make_train_step(mesh=)`` after the parent's twin is written; the
+    replicated leaves' gradients hashed once summed (the first step);
+    K1 launches and collectives by kind each attempt; the first update
+    held against the twin's (data rank 0); mamba2's second step faulted
+    first, then retried, then run clean again from the same state (its
+    result must be the retry's bit for bit); the collectives timed
+    alone; peak memory."""
+    import hashlib
+
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.tree import tree_leaves_with_path
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import map_with_path, param_specs
+    from repro_torch.kernels import abft_matmul
+    from repro_torch.launch.train import abft_config
+    from repro_torch.models import layers
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.models.model import Model
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    K1 = abft_matmul.KERNEL
+    dev = mesh.device
+    cfg = dpf_config(arch)
+    model = Model(cfg)
+    tag = _dpf_tag(arch)
+    # the twin's card memory is free before this rank draws
+    _dpf_wait(os.path.join(workdir, tag, "READY"), lambda: os.path.exists(
+        os.path.join(workdir, "ABORT")))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = _dpf_params(model, dev, mesh)
+    draw_s = time.perf_counter() - t
+    step, tcfg = _dpf_step(model, mesh)
+    pl = step.placement
+    state = opt_lib.init_opt_state(params, tcfg.opt, pl.shards)
+    predicted = _dpf_k1_predicted(
+        params, abft_config("auto"), TRAIN_B // pl.data * TRAIN_L,
+        TRAIN_B // pl.data * cfg.n_image_tokens)
+    batches = _dpf_batches(cfg, dev)
+    split = {}
+    map_with_path(lambda ps, sp: split.__setitem__(
+        ps, "model" in ts._axes(sp)),
+        param_specs(cfg, model.param_shapes(), mesh))
+    digests, base_sum = {}, ts._sum_over_data
+
+    def hashed(grads, placement):
+        out = base_sum(grads, placement)
+        if not digests:
+            for path, g in tree_leaves_with_path(out):
+                key = "/".join(str(k) for k in path)
+                if not split[key]:
+                    digests[key] = hashlib.sha256(
+                        g.detach().cpu().numpy().tobytes()).hexdigest()
+        return out
+
+    fault = ModelFault.at(0, "ssm_out", FaultSpec.value(DP_TRAIN_ROW, 1,
+                                                        1e5))
+    fired, row_fault = [], layers._row_fault
+
+    def logged(f, *a, **k):
+        got = row_fault(f, *a, **k)
+        if f is not None:
+            fired.append(None if got is None else int(got.row))
+        return got
+
+    attempts, rec = [], {"steps": []}
+
+    def attempt(s, p, o, batch, f=None):
+        K1.launches = 0
+        collectives.reset_counts()
+        _sync(dev)
+        t = time.perf_counter()
+        out = step(p, o, batch, fault=f)
+        _sync(dev)
+        attempts.append({"step": s, "faulted": f is not None,
+                         "ms": 1e3 * (time.perf_counter() - t),
+                         "k1": K1.launches,
+                         "collectives": {k: v for k, v in
+                                         collectives.COUNTS.items() if v},
+                         "flag": bool(out[2]["abft_flag"])})
+        return out
+
+    ts._sum_over_data, layers._row_fault = hashed, logged
+    try:
+        for s, batch in enumerate(batches):
+            if arch == DPF_FAULT_ARCH and s == 1:
+                attempt(s, params, state, batch, fault)
+                layers._row_fault = row_fault
+                new_p, new_s, met = attempt(s, params, state, batch)
+                again = attempt(s, params, state, batch)
+                rec["retry_equals_clean"] = (
+                    _digest_tree(again[0]) == _digest_tree(new_p)
+                    and _digest_tree(again[1].mu) == _digest_tree(new_s.mu)
+                    and _digest_tree(again[1].nu) == _digest_tree(new_s.nu))
+                del again
+            else:
+                new_p, new_s, met = attempt(s, params, state, batch)
+            rec["steps"].append(_metrics(met))
+            if s == 0 and mesh.data_rank == 0:
+                rec["update_err"] = _dpf_update_err(
+                    params, new_p, mesh, model, os.path.join(workdir, tag))
+            params, state = new_p, new_s
+            del new_p, new_s
+    finally:
+        ts._sum_over_data, layers._row_fault = base_sum, row_fault
+    clean = [a for a in attempts if not a["faulted"]][-1]["collectives"]
+    b = TRAIN_B // pl.data
+    vocab_split = pl.tp is not None and pl.tp.splits(
+        "embed" if cfg.tie_embeddings else "lm_head")
+    coll_ms = _dp_train_collective_ms(
+        pl, params, dev, (b, TRAIN_L, cfg.d_model),
+        (b, TRAIN_L, cfg.vocab_size // mesh.shape["model"])
+        if vocab_split else None,
+        clean.get("model_sum", 0) + clean.get("model_grad", 0), reps=1,
+        data_axis=arch in DPF_DATA_TIMED)
+    rec.update({
+        "rank": mesh.rank, "coords": mesh.coords(), "draw_s": draw_s,
+        "attempts": attempts, "k1_predicted": predicted,
+        "replicated_grads": digests, "fault_rows": sorted(set(fired),
+                                                          key=str),
+        "param_gb": sum(t.numel() * 4 for _, t in
+                        tree_leaves_with_path(params)) / 1e9,
+        "moment_gb": sum(t.numel() * t.element_size() for _, t in
+                         tree_leaves_with_path(state.mu)) * 2 / 1e9,
+        "collective_ms": coll_ms, "peak_gb": _peak_gb(dev)})
+    del params, state, step, batches
+    return rec
+
+
+def _warm_remat() -> None:
+    """A process's first checkpointed backward imports torch's compiler
+    stack (≈ 10 s of host time on the card's host, more on a slow one):
+    taken here on a scalar while the parent runs the first twin."""
+    from torch.utils.checkpoint import checkpoint
+
+    x = torch.ones(2, requires_grad=True)
+    checkpoint(lambda a: (a * a).sum(), x, use_reentrant=False).backward()
+
+
+def dpf_rank(workdir: str, device_type: str = "cuda") -> dict:
+    """One rank of the ``dp_train_families`` phase (four ranks sharing
+    the card): each model of ``DPF_MODELS`` in turn on its mesh (ranks
+    2-3 sit deepseek's (1, 2) out), each after the parent has written its
+    twin (``READY``); rank 0 says when the ranks are done with it
+    (``DONE``)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import build_mesh, rank_devices
+
+    rank = dist.get_rank()
+    out = {"rank": rank, "models": {}}
+    _warm_remat()
+    for arch, _, (d, k) in DPF_MODELS:
+        mesh = build_mesh(data=d, model=k,
+                          devices=rank_devices(device_type)[:d * k])
+        if mesh.holds(rank):
+            out["models"][arch] = _dpf_rank_model(arch, mesh, workdir)
+        free_memory()
+        dist.barrier()
+        if rank == 0:
+            open(os.path.join(workdir, _dpf_tag(arch), "DONE"), "w").close()
+    return out
+
+
+def dpf_k1(dev) -> dict:
+    """K1 at the phase's f32 shard shapes, before the ranks run: every
+    2-D GEMM of each model's rank-0 shard (seeded N(0, 0.02) weights at
+    the shard's (K, N)) at the rank's rows (a (2, 2) rank's 256, a (1, 2)
+    rank's 512; a cross layer's K/V and ``vision_proj`` at the memory's
+    2 x 1601) against its plain version (``_k1_site_check``), then the
+    ``DPF_TIMED`` shapes timed beside the plain version,
+    ``torch.matmul`` and the bound (``k1_timing``)."""
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.sharding import (
+        map_with_path,
+        param_specs,
+        shard_shape,
+    )
+    from repro_torch.models.model import Model
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    checks, timing = {}, {}
+    for arch, _, (d, k) in DPF_MODELS:
+        cfg = dpf_config(arch)
+        model = Model(cfg)
+        geom = Mesh(grid=np.arange(d * k).reshape(d, k),
+                    axis_names=("data", "model"), devices=(dev,) * (d * k))
+        shapes = {}
+        map_with_path(lambda ps, t: shapes.__setitem__(ps, tuple(t.shape)),
+                      model.param_shapes())
+        specs = {}
+        map_with_path(lambda ps, sp: specs.__setitem__(ps, sp),
+                      param_specs(cfg, model.param_shapes(), geom))
+        m, mem_m = TRAIN_B // d * TRAIN_L, TRAIN_B // d * cfg.n_image_tokens
+        seen = {}
+        for path, full in shapes.items():
+            name = path.split("/")[-1]
+            if name not in DPF_GEMMS or (name == "embed"
+                                         and "lm_head" in shapes):
+                continue
+            kn = shard_shape(specs[path], full, geom)
+            if name == "embed":             # the tied head: embed.T
+                kn = kn[::-1]
+            rows = mem_m if name in ("vision_proj",) or path.endswith(
+                ("cross/wk", "cross/wv")) else m
+            seen.setdefault((rows,) + tuple(kn), path)
+        for (rows, kk, nn), path in seen.items():
+            w = (torch.randn(kk, nn, generator=gen, device=dev) * 0.02)
+            err, scale, ratio, rt = _k1_site_check(
+                dev, gen, cfg, f"dp_train_families {path}", w,
+                torch.float32, rows)
+            checks[f"{_dpf_tag(arch)} {path}"] = {
+                "m": rows, "k": kk, "n": nn, "route": rt,
+                "max_abs_err": err, "max_abs_y": scale,
+                "clean_ratio": ratio}
+            del w
+        for t_arch, group, leaves in DPF_TIMED:
+            if t_arch != arch:
+                continue
+            ws = []
+            for leaf in leaves:
+                path = next(p for p in shapes if p.startswith("layers/")
+                            and p.endswith(leaf))
+                kk, nn = shard_shape(specs[path], shapes[path], geom)
+                ws.append(torch.randn(kk, nn, generator=gen, device=dev)
+                          * 0.02)
+            rows = mem_m if group == "cross_kv" else m
+            rec = k1_timing(dev, None, rows, arch=arch, per_shape=True,
+                            groups={group: ws})["per_shape"][group]
+            timing[f"{_dpf_tag(arch)}_{group}"] = rec
+            del ws
+        free_memory()
+    out = {"checks": checks, "timing": timing}
+    emit("dp_train_families_k1", **out)
+    return out
+
+
+def dp_train_families_runs(dev) -> dict:
+    """The ``dp_train_families`` phase: sharded training of mamba2-1.3b,
+    deepseek-v3-671b with its MTP head and llama-3.2-vision-11b at their
+    published widths (``DPF_MODELS``), f32, by four gloo ranks sharing
+    this card, spawned once (``dpf_rank``).  First K1 at the shard shapes
+    (``dpf_k1``).  Then, model by model, the one-process twin in this
+    process (``_dpf_twin``) while the ranks wait, its first update
+    written for them, freed before they draw (``READY``); the ranks say
+    when they are done with it (``DONE``), and a failure on this side
+    stops them (``ABORT``).  The gates (``dp_train``'s
+    tolerances): every step's loss, MTP loss and ``grad_norm`` within
+    1e-5 / 1e-5 / 1e-4 relative of the twin's, the aux loss equal, the
+    worst leaf's first update within ``DPF_UPDATE_TOL`` of its norm;
+    records equal on
+    the ranks of a mesh; every replicated leaf's summed gradient
+    bit-equal on them; K1 launches a step equal to the count predicted
+    from the layer list; mamba2's fault fired on data rank 1 alone,
+    flagged on all four ranks and retried to the clean state.  Ranks
+    time-share one card over gloo: no data-parallel speed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.distributed import spawn
+
+    t0 = time.perf_counter()
+    k1 = dpf_k1(dev)
+    twins, outs = {}, None
+    # the ranks' allocators grow segments in place: four processes
+    # sharing the card return freed transients to one another
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    with tempfile.TemporaryDirectory(prefix="dp_train_families_") as wd:
+        pool = ThreadPoolExecutor(1)
+        t_spawn = time.perf_counter()
+        fut = pool.submit(spawn.run, dpf_rank, 4, wd, dev.type,
+                          device=dev.type)
+        try:
+            for arch, _, _ in DPF_MODELS:
+                tdir = os.path.join(wd, _dpf_tag(arch))
+                t = time.perf_counter()
+                twins[arch] = _dpf_twin(dev, arch, tdir)
+                twins[arch]["seconds"] = time.perf_counter() - t
+                emit_memory(f"dp_train_families twin {_dpf_tag(arch)}")
+                open(os.path.join(tdir, "READY"), "w").close()
+                _dpf_wait(os.path.join(tdir, "DONE"), fut.done)
+                shutil.rmtree(tdir)
+            outs = fut.result()
+        except BaseException:
+            open(os.path.join(wd, "ABORT"), "w").close()
+            if fut.done():
+                fut.result()          # the ranks' failure, if theirs
+            raise
+        finally:
+            pool.shutdown(wait=True)
+            if alloc is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        spawn_s = time.perf_counter() - t_spawn
+    res = {"models": {}, "spawn_seconds": spawn_s}
+    bad = []                     # every failed gate, read after the line
+    for arch, _, shape in DPF_MODELS:
+        twin = twins[arch]
+        recs = [o["models"][arch] for o in outs if arch in o["models"]]
+        need(len(recs) == shape[0] * shape[1],
+             f"dp_train_families {arch}: {len(recs)} ranks ran it")
+        steps = recs[0]["steps"]
+        if not all(r["steps"] == steps for r in recs):
+            bad.append(f"{arch}: the ranks' records differ")
+        rel = {k: [abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                   for a, b in zip(steps, twin["steps"])]
+               for k in ("loss", "total_loss", "grad_norm", "aux_loss",
+                         "mtp_loss") if k in steps[0]}
+        if not (len(steps) == DPF_STEPS[arch]
+                and max(rel["loss"]) <= 1e-5
+                and max(rel["total_loss"]) <= 1e-5
+                and max(rel["grad_norm"]) <= 1e-4
+                and max(rel.get("mtp_loss", [0])) <= 1e-5
+                and all(a["aux_loss"] == b["aux_loss"]
+                        for a, b in zip(steps, twin["steps"]))
+                and not any(s["abft_flag"] for s in steps)):
+            bad.append(f"{arch} vs the twin: {rel}")
+        worst = max(r["update_err"] for r in recs if "update_err" in r)
+        if worst[0] > DPF_UPDATE_TOL:
+            bad.append(f"{arch}: first update off by {worst}")
+        digests = recs[0]["replicated_grads"]
+        if not (digests and all(r["replicated_grads"] == digests
+                                for r in recs)):
+            bad.append(f"{arch}: a replicated leaf's gradient differs "
+                       f"between ranks")
+        for r in recs:
+            k1s = [a["k1"] for a in r["attempts"]]
+            if any(n != r["k1_predicted"] for n in k1s):
+                bad.append(f"{arch} rank {r['rank']}: K1 {k1s}, predicted "
+                           f"{r['k1_predicted']}")
+        if arch == DPF_FAULT_ARCH:
+            for r in recs:
+                flags = [a["flag"] for a in r["attempts"]]
+                want = [TRAIN_L + 5] if r["coords"]["data"] == 1 else [None]
+                if not (flags == [False, True, False, False]
+                        and r["retry_equals_clean"]
+                        and r["fault_rows"] == want):
+                    bad.append(f"{arch} rank {r['rank']}: flags {flags}, "
+                               f"retry_equals_clean "
+                               f"{r['retry_equals_clean']}, fault rows "
+                               f"{r['fault_rows']} (want {want})")
+        clean = [a for a in recs[0]["attempts"] if not a["faulted"]]
+        res["models"][arch] = {
+            "layers": dpf_config(arch).n_layers, "mesh": list(shape),
+            "moments": DPF_MOMENTS.get(arch, "float32"),
+            "losses": [s["loss"] for s in steps],
+            "mtp_losses": [s["mtp_loss"] for s in steps
+                           if "mtp_loss" in s],
+            "twin_losses": [s["loss"] for s in twin["steps"]],
+            "rel_vs_twin": rel, "update_rel_worst_leaf": worst,
+            "update_rel_by_rank": {r["rank"]: r["update_err"] for r in recs
+                                   if "update_err" in r},
+            "replicated_leaves": len(digests),
+            "step_ms_per_rank": {r["rank"]: [a["ms"] for a in r["attempts"]]
+                                 for r in recs},
+            "twin_step_ms": twin["ms"], "twin_peak_gb": twin["peak_gb"],
+            "twin_seconds": twin["seconds"],
+            "k1_per_step": clean[-1]["k1"],
+            "k1_predicted": recs[0]["k1_predicted"],
+            "collectives_per_step": clean[-1]["collectives"],
+            "collectives_alone_ms": recs[0]["collective_ms"],
+            "draw_s": [r["draw_s"] for r in recs],
+            "param_gb_per_rank": [r["param_gb"] for r in recs],
+            "moment_gb_per_rank": [r["moment_gb"] for r in recs],
+            "peak_gb_per_rank": [r["peak_gb"] for r in recs]}
+        if arch == DPF_FAULT_ARCH:
+            res["models"][arch]["fault_rows"] = {
+                r["rank"]: r["fault_rows"] for r in recs}
+    res["seconds"] = time.perf_counter() - t0
+    res["note"] = ("four ranks time-sharing one card over gloo: a "
+                   "correctness run, not a data-parallel speed")
+    emit("dp_train_families", **res)
+    need(not bad, f"dp_train_families: {bad}")
+    return {**res, "k1": k1}
+
+
+def _add_dp_train_families(kernels, dpf) -> None:
+    """The ``dp_train_families`` phase's numbers on the kernels line: K1
+    at its timed f32 shard shapes, the worst error of its checks, and its
+    launches a step on each model's ranks."""
+    k1 = kernels[0]
+    k1["dp_train_families_f32"] = {name: {key: rec[key] for key in (
+        "m", "k", "n", "gemms", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")} for name, rec in dpf["k1"]["timing"].items()}
+    k1["dp_train_families_max_abs_err"] = max(
+        c["max_abs_err"] for c in dpf["k1"]["checks"].values())
+    k1["dp_train_families_launches_per_step"] = {
+        arch: rec["k1_per_step"] for arch, rec in dpf["models"].items()}
 
 
 def cfg_weights_gb(cfg, k: int = 1) -> float:
@@ -8900,6 +9546,12 @@ def main(argv=None) -> int:
         dpt = dp_train_runs(dev)
         if kernels is not None:
             _add_dp_train(kernels, dpt)
+    if "dp_train_families" in phases:
+        dp = dpt = None
+        free_memory()
+        dpf = dp_train_families_runs(dev)
+        if kernels is not None:
+            _add_dp_train_families(kernels, dpf)
     for line in smi:
         print(line)
     if kernels is not None:

@@ -43,6 +43,13 @@ backward sums the gradient over the axis and ``fsdp_gather``'s sums it
 and then takes the slice.  ``copy_to_model`` is the identity forward
 whose backward sums over ``model``: a column-parallel GEMM's replicated
 input gets each rank's partial gradient, and the sum makes it whole.
+One rule covers every replicated value: ``all_reduce_sum``'s identity
+backward is right only where what reads the sum is the same on every
+model rank, so a replicated value that only the rank's own heads or
+channels read (Mamba2's B and C, MLA's latent, the gated norm's sum of
+squares, a column-parallel GEMM's input) passes ``copy_to_model`` first,
+and every leaf upstream of it gets the whole gradient, equal on every
+model rank.
 The train step's own collectives: ``sum_grads`` (the data-axis gradient
 all-reduce, f32, in buckets of ``BUCKET_BYTES``), ``gather_zero`` (the
 ZeRO-1 all-gather of updated param slices over ``data``, bucketed the
@@ -70,6 +77,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 
 import torch
 
@@ -327,12 +335,15 @@ def gather_zero(parts: list, dims: list, dp) -> list:
     """ZeRO-1's all-gather: ``parts[i]`` this data rank's slice of a
     leaf along dim ``dims[i]`` (rank r's the r-th of ``dp.size`` equal
     slices), every leaf made whole on every data rank, bucketed: one
-    all-gather a bucket of one dtype."""
+    all-gather a bucket of one dtype.  Each entry of ``parts`` is
+    released (set to None) once its bucket is packed, so a caller that
+    keeps no other reference frees the slices as the whole leaves
+    arrive."""
     if not _active(dp):
         return parts
     import torch.distributed as dist
 
-    out = list(parts)
+    out = [None] * len(parts)
     groups: dict = {}
     for i, p in enumerate(parts):
         groups.setdefault(p.dtype, []).append(i)
@@ -340,15 +351,20 @@ def gather_zero(parts: list, dims: list, dp) -> list:
         for run in _buckets([parts[i] for i in ids]):
             idx = [ids[j] for j in run]
             flat = torch.cat([parts[i].reshape(-1) for i in idx])
+            shapes = [parts[i].shape for i in idx]
+            for i in idx:
+                parts[i] = None
             bufs = [torch.empty_like(flat) for _ in range(dp.size)]
             _count("zero_gather")
             dist.all_gather(bufs, flat, group=dp.group)
+            del flat
             off = 0
-            for i in idx:
-                p, n = parts[i], parts[i].numel()
-                out[i] = torch.cat([b[off:off + n].view(p.shape)
+            for i, shape in zip(idx, shapes):
+                n = math.prod(shape)
+                out[i] = torch.cat([b[off:off + n].view(shape)
                                     for b in bufs], dim=dims[i])
                 off += n
+            del bufs
     return out
 
 

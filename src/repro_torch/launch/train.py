@@ -23,7 +23,10 @@ from its launcher's environment, as ``torchrun`` sets it (``RANK``,
 data-parallel over ``build_mesh(data=world)``: each rank draws its shard
 of the same seeded params (``init_params(mesh=)``), takes its rows of
 the same global batch and keeps its ZeRO-1 share of the optimizer state
-(``Trainer(mesh=)``); rank 0 prints the record.  The reference's flags
+(``Trainer(mesh=)``); rank 0 prints the record.  Every token-only
+family trains so (deepseek-v3-671b with its MTP head, mamba2-1.3b,
+jamba-v0.1-52b among them); whisper-tiny and llama-3.2-vision-11b exit
+as above.  The reference's flags
 name no model axis, so none is added.  Rank r runs on
 ``cuda:{r % cards}`` (or the CPU under ``--device cpu``), over NCCL where
 every rank has a card of its own and gloo otherwise.

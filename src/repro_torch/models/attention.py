@@ -71,6 +71,7 @@ import torch
 from repro_torch.analysis.markers import coverage_scope, logical_scope
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import (
+    copy_to_model,
     fsdp_gather,
     gather_first,
     gather_last,
@@ -558,26 +559,43 @@ def init_cross_cache(cfg: ModelConfig, batch: int, mem_len: int, dtype,
 
 def cross_kv(mem, p, cfg: ModelConfig, ctx: LayerCtx):
     """The memory (B, S, D) projected to K and V (B, S, KV, hd) once
-    (fault site ``cross_qkv``, tags ``cross.k``/``cross.v``).  Returns
-    (k, v, flag)."""
+    (fault site ``cross_qkv``, tags ``cross.k``/``cross.v``).  Under
+    tensor parallelism ``wk``/``wv`` are column-parallel (the memory
+    through ``copy_to_model``) and K/V hold the rank's kv heads, or every
+    kv head where one spans ranks (gathered whole, as ``_qkv``'s).
+    Returns (k, v, flag)."""
     B, S, _ = mem.shape
     hd = cfg.resolved_head_dim
-    k, f1 = dense(mem, p["wk"], ctx, "cross_qkv", tag="cross.k")
-    v, f2 = dense(mem, p["wv"], ctx, "cross_qkv", tag="cross.v")
-    return (k.reshape(B, S, cfg.n_kv_heads, hd),
-            v.reshape(B, S, cfg.n_kv_heads, hd), or_flags(f1, f2))
+    k, f1 = dense(mem, p["wk"], ctx, "cross_qkv", tag="cross.k",
+                  par=tp_par(ctx, "cross/wk", "col"))
+    v, f2 = dense(mem, p["wv"], ctx, "cross_qkv", tag="cross.v",
+                  par=tp_par(ctx, "cross/wv", "col"))
+    if k.shape[-1] % hd:
+        k, v = gather_last(k, ctx.tp), gather_last(v, ctx.tp)
+    return (k.reshape(B, S, -1, hd), v.reshape(B, S, -1, hd),
+            or_flags(f1, f2))
 
 
 def cross_forward(x, k, v, p, cfg: ModelConfig, ctx: LayerCtx):
     """Cross-attention: queries from x (B, L, D) against the memory's K/V,
     every query sees every memory position (plain chunked attention, as
-    the reference's XLA path: no kernel).  Returns (out, flag)."""
+    the reference's XLA path: no kernel).  Under tensor parallelism the
+    rank runs its q heads (``wq`` column-parallel), against the kv heads
+    they read, and ``wo`` is row-parallel.  Returns (out, flag)."""
     B, L, _ = x.shape
-    q, f1 = dense(x, p["wq"], ctx, "cross_qkv", tag="cross.q")
-    q = q.reshape(B, L, cfg.n_heads, cfg.resolved_head_dim)
+    hd = cfg.resolved_head_dim
+    q, f1 = dense(x, p["wq"], ctx, "cross_qkv", tag="cross.q",
+                  par=tp_par(ctx, "cross/wq", "col"))
+    q = q.reshape(B, L, -1, hd)
+    G = cfg.n_heads // cfg.n_kv_heads
+    Hl = q.shape[2]
+    if Hl != G * k.shape[2]:
+        # every kv head on the rank: the ones its q heads group onto
+        lo = ctx.tp.rank * Hl // G
+        k, v = (t[:, :, lo:lo + max(1, Hl // G)] for t in (k, v))
     out = chunked_attention(q, k, v, causal=False)
     out, f2 = dense(out.reshape(B, L, -1), p["wo"], ctx, "cross_out",
-                    tag="cross.o")
+                    tag="cross.o", par=tp_par(ctx, "cross/wo", "row"))
     return out, or_flags(f1, f2)
 
 
@@ -666,8 +684,13 @@ def _mla_attend(q_full, scale, latent, p, cfg: ModelConfig, ctx: LayerCtx,
     ``verify_len``, ``decode_len`` or neither pick verify, decode or
     chunked attention (``spans``: row-wise), never a flash kernel.  A
     decode over a sequence-sharded latent attends the rank's positions
-    and merges the ranks' partials (``_merge``) before ``w_uv``."""
+    and merges the ranks' partials (``_merge``) before ``w_uv``.  The
+    latent is replicated and read by the rank's heads alone: in training
+    it passes ``copy_to_model``, so ``wkv_a``, ``kv_a_norm`` and the
+    residual stream get whole gradients."""
     B, L = q_full.shape[:2]
+    if tp_par(ctx, "mixer/wq_b", "col") is not None:
+        latent = copy_to_model(latent, ctx.tp)
     kv = latent[:, :, None, :]
     vv = latent[:, :, None, :cfg.kv_lora_rank]
     # the attention core and the values' un-absorption: no fused ABFT

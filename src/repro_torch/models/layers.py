@@ -391,13 +391,16 @@ def gated_rms_norm(x, z, w, eps: float = 1e-6, tp: TPGroup | None = None):
     this rank's slice of ``d_inner`` (its heads); the mean of squares is
     over the whole width, the f32 sum of squares of each rank's slice
     summed over the model axis (one collective) and divided by the full
-    width."""
+    width.  Each rank's slice alone reads the sum, so in training its
+    gradient passes ``copy_to_model``: every rank's ``x`` and ``z`` get
+    the whole width's share of ``d var``."""
     gate = torch.nn.functional.silu(z.to(F32)).to(x.dtype)
     h = x * gate
     if tp is None or tp.size == 1:
         return rms_norm(h, w, eps)
     hf = h.to(F32)
-    ss = all_reduce_sum((hf * hf).sum(dim=-1, keepdim=True), tp)
+    ss = copy_to_model(all_reduce_sum(
+        (hf * hf).sum(dim=-1, keepdim=True), tp), tp)
     var = ss / (h.shape[-1] * tp.size)
     return (hf * torch.rsqrt(var + eps)).to(h.dtype) * w.to(h.dtype)
 

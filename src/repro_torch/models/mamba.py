@@ -17,8 +17,10 @@ product of gigabytes.
 
 Under tensor parallelism (``LayerCtx.tp``) the rank runs its heads:
 ``in_z``, ``in_x`` and ``in_dt`` column-parallel, ``in_bc`` (one group's
-B and C) replicated, the conv, the SSD scan and the decode recurrence on
-the rank's channels and heads alone, the gated norm's mean of squares
+B and C) replicated (in training B and C pass ``copy_to_model`` before
+the scan, which reads them with the rank's heads only), the conv, the
+SSD scan and the decode recurrence on the rank's channels and heads
+alone, the gated norm's mean of squares
 over the whole ``d_inner`` (``layers.gated_rms_norm(tp=)``) and
 ``out_proj`` row-parallel.  Head and channel counts are read off the
 shard's leaves (``A_log``, ``in_x``), never ``cfg.ssm_heads``/
@@ -44,6 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.analysis.markers import coverage_scope
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import copy_to_model
 from repro_torch.models.layers import (
     LayerCtx,
     dense,
@@ -178,12 +181,22 @@ def _mix_out(y, xh, z, x, p, cfg: ModelConfig, ctx: LayerCtx):
     return dense(y, p["out_proj"], ctx, "ssm_out", tag="ssm.out", par=row)
 
 
-def _ssm_inputs(xs, bc_in, dt, p, cfg: ModelConfig, valid=None):
+def _heads_tp(ctx: LayerCtx):
+    """The model-axis group where the rank holds a shard of the SSD heads
+    (the rules split ``in_x``), else None."""
+    return ctx.tp if tp_par(ctx, "mixer/in_x", "col") is not None else None
+
+
+def _ssm_inputs(xs, bc_in, dt, p, cfg: ModelConfig, valid=None, tp=None):
     """The conv'd x, B and C, softplus(dt + bias) (zeroed where ``valid``
-    is False) and A, for the scan."""
+    is False) and A, for the scan.  B and C are replicated and read by
+    the rank's heads alone: in training they reach the scan through
+    ``copy_to_model`` (``tp``), so ``in_bc``, ``conv_bc_*`` and the
+    residual stream get whole gradients."""
     n = cfg.ssm_state
     xs = _causal_conv(xs, p["conv_x_w"], p["conv_x_b"])
-    bc = _causal_conv(bc_in, p["conv_bc_w"], p["conv_bc_b"])
+    bc = copy_to_model(_causal_conv(bc_in, p["conv_bc_w"], p["conv_bc_b"]),
+                       tp)
     dt = F.softplus(dt.to(F32) + p["dt_bias"])
     if valid is not None:
         dt = dt * valid.to(F32)[..., None]
@@ -198,7 +211,7 @@ def mamba_forward(x, p, cfg: ModelConfig, ctx: LayerCtx):
     (out (B, L, D), flag)."""
     z, xs, Bm, Cm, dt, f1 = _project_in(x, p, cfg, ctx)
     xh, Bm, Cm, dt, A = _ssm_inputs(xs, torch.cat([Bm, Cm], dim=-1), dt, p,
-                                    cfg)
+                                    cfg, tp=_heads_tp(ctx))
     y, _ = _ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
     out, f2 = _mix_out(y, xh, z, x, p, cfg, ctx)
     return out, or_flags(f1, f2)
@@ -236,7 +249,8 @@ def mamba_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, cache, slots=None,
             pad_xs, 1, idx[..., None].expand(-1, -1, pad_xs.shape[-1]))
         conv_bc = torch.gather(
             pad_bc, 1, idx[..., None].expand(-1, -1, pad_bc.shape[-1]))
-    xh, Bm2, Cm2, dt2, A = _ssm_inputs(xs, bc_in, dt, p, cfg, valid)
+    xh, Bm2, Cm2, dt2, A = _ssm_inputs(xs, bc_in, dt, p, cfg, valid,
+                                       _heads_tp(ctx))
     y, S = _ssd_chunked(xh, dt2, A, Bm2, Cm2, cfg.ssm_chunk)
     out, f2 = _mix_out(y, xh, z, x, p, cfg, ctx)
     rows = (torch.arange(Bsz, device=cache["ssm"].device) if slots is None

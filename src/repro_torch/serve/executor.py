@@ -173,46 +173,48 @@ class LocalExecutor:
 SHARDABLE_TAGS = frozenset({"attn:dense:0", "attn:moe:0", "mla:dense:0",
                             "mla:moe:0", "mamba:none:0", "mamba:dense:0",
                             "mamba:moe:0"})
+# the layer kinds the sharding rules lay out over a mesh: the engine's,
+# and the vision model's cross layers, which train sharded
+LAYOUT_TAGS = SHARDABLE_TAGS | {"attn:dense:1"}
 
 
-def check_shardable(cfg, mesh) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` serves sharded over
-    ``mesh`` (``model > 1`` or ``data > 1``): GQA or MLA attention or
-    Mamba2 mixers with dense, MoE or no FFNs (``SHARDABLE_TAGS``), at
-    most one MTP head, no ``pod`` axis wider than 1; q heads (after TP
-    head padding, ``eff_counts``) that
-    divide the model axis, kv heads that divide it or that it divides,
-    and SSD heads that divide it wherever the rules split ``d_inner``.
-    Stacks with a memory (cross-attention, encoder-decoder, vision) raise
-    too: the engine serves them at no width, as the reference's cannot."""
+def check_layout(cfg, mesh) -> None:
+    """Raise ``NotImplementedError`` unless the rules lay ``cfg`` out over
+    ``mesh`` as the port runs it (``model > 1`` or ``data > 1``): GQA or
+    MLA attention or Mamba2 mixers with dense, MoE or no FFNs, cross
+    layers over a memory (``LAYOUT_TAGS``), at most one MTP head, no
+    ``pod`` axis wider than 1; q heads (after TP head padding,
+    ``eff_counts``) that divide the model axis, kv heads that divide it
+    or that it divides, and SSD heads that divide it wherever the rules
+    split ``d_inner``; a cross layer's unpadded heads likewise.  What
+    stays refused names its ROADMAP item."""
     from repro_torch.models.attention import eff_counts
 
     k = int(mesh.shape["model"])
     tags = set(layer_tags(cfg))
-    if cfg.is_encoder_decoder or cfg.vision_dim or cfg.cross_attn_every:
+    if not tags <= LAYOUT_TAGS or cfg.mtp_depth > 1:
         raise NotImplementedError(
-            f"sharded serving of {cfg.name}: the engine serves stacks with "
-            f"a memory (cross-attention, encoder-decoder, vision) at no "
-            f"width, as the reference's cannot (it passes only tokens); "
-            f"drive them through Model.forward/prefill/decode")
-    if not tags <= SHARDABLE_TAGS or cfg.mtp_depth > 1:
-        raise NotImplementedError(
-            f"sharded serving of {cfg.name} ({sorted(tags)}): GQA, MLA and "
-            f"Mamba2 mixers with dense, MoE or no FFNs serve over model > 1")
+            f"sharding {cfg.name} ({sorted(tags)}): GQA, MLA and Mamba2 "
+            f"mixers with dense, MoE or no FFNs, cross layers and one MTP "
+            f"head shard over a mesh")
     if any(mesh.shape[a] > 1 for a in mesh.axis_names
            if a not in ("data", "model")):
         raise NotImplementedError(
-            f"sharded serving over {mesh.shape}: a pod axis is not "
-            f"ported; the mesh must be (data=d, model=k)")
+            f"sharding over {mesh.shape}: a pod axis is not ported; the "
+            f"mesh must be (data=d, model=k); ROADMAP A.3b-ii")
     if any(t.startswith("mla") for t in tags):
         if cfg.n_heads % k:
             raise NotImplementedError(
                 f"{cfg.name}: {cfg.n_heads} MLA heads do not divide "
                 f"model={k}: the rules would split a q head; ROADMAP "
                 f"A.3b-ii")
+    hd = cfg.resolved_head_dim
+    heads = []
     if any(t.startswith("attn") for t in tags):
-        H, KV = eff_counts(cfg)
-        hd = cfg.resolved_head_dim
+        heads.append(eff_counts(cfg))
+    if any(t.endswith(":1") for t in tags):
+        heads.append((cfg.n_heads, cfg.n_kv_heads))
+    for H, KV in heads:
         if (H * hd) % k == 0 and H % k:
             raise NotImplementedError(
                 f"{cfg.name}: the rules split a q head over model={k} "
@@ -229,18 +231,41 @@ def check_shardable(cfg, mesh) -> None:
             f"({cfg.ssm_heads} heads); ROADMAP A.3b-ii")
 
 
-def sharded_paths(specs) -> frozenset:
-    """The leaves a spec tree splits over ``model``: each layer leaf by
-    its path below the layer (``"ffn/shared/up"``), the MTP head's layer
-    (``mtp/layer``) among them, the embedding and head by name
-    (``TPGroup.sharded``)."""
-    from repro_torch.distributed.sharding import map_with_path
+def check_shardable(cfg, mesh) -> None:
+    """Raise ``NotImplementedError`` unless the engine serves ``cfg``
+    sharded over ``mesh``: stacks with a memory (cross-attention,
+    encoder-decoder, vision) raise, as the engine serves them at no width
+    (the reference's cannot: it passes only tokens); the rest as
+    ``check_layout``."""
+    if cfg.is_encoder_decoder or cfg.vision_dim or cfg.cross_attn_every:
+        raise NotImplementedError(
+            f"sharded serving of {cfg.name}: the engine serves stacks with "
+            f"a memory (cross-attention, encoder-decoder, vision) at no "
+            f"width, as the reference's cannot (it passes only tokens); "
+            f"drive them through Model.forward/prefill/decode")
+    check_layout(cfg, mesh)
 
-    out = set()
+
+def _layer_specs(specs) -> list:
+    """Every layer's spec dict: the decoder's, the MTP head's layer and
+    the encoder's (their leaves share the paths below a layer)."""
     layers = list(specs["layers"])
     if "mtp" in specs:
         layers.append(specs["mtp"]["layer"])
-    for lp in layers:
+    if "encoder" in specs:
+        layers += list(specs["encoder"]["layers"])
+    return layers
+
+
+def sharded_paths(specs) -> frozenset:
+    """The leaves a spec tree splits over ``model``: each layer leaf by
+    its path below the layer (``"ffn/shared/up"``), the MTP head's layer
+    (``mtp/layer``) and the encoder's layers among them, the embedding
+    and head by name (``TPGroup.sharded``)."""
+    from repro_torch.distributed.sharding import map_with_path
+
+    out = set()
+    for lp in _layer_specs(specs):
         map_with_path(lambda ps, sp: out.add(ps) if "model" in sp else None,
                       lp)
     out |= {n for n in ("embed", "lm_head")
@@ -260,10 +285,7 @@ def fsdp_dims(specs) -> dict:
             if e == "data" or (isinstance(e, tuple) and "data" in e):
                 out[ps] = i
 
-    layers = list(specs["layers"])
-    if "mtp" in specs:
-        layers.append(specs["mtp"]["layer"])
-    for lp in layers:
+    for lp in _layer_specs(specs):
         map_with_path(one, lp)
     for n in ("embed", "lm_head"):
         if n in specs:

@@ -9,9 +9,11 @@ can be re-executed from the same state.
 
 Weight decay applies to leaves of two or more dims *in the reference's
 layout*, where the per-layer params are stacked along a leading repeats
-axis (``jax.lax.scan``): every leaf under ``params["layers"]`` counts one
-dim more, so the per-layer norm gains are decayed there and here, and
-only the top-level vectors (the final norm) are not.
+axis (``jax.lax.scan``): every leaf under ``params["layers"]`` (and
+whisper's ``params["encoder"]["layers"]``) counts one dim more, so the
+per-layer norm gains are decayed there and here, and only the top-level
+vectors (the final norms, the MTP head's layer, which the reference does
+not stack) are not.
 
 Over a ``(data, model)`` mesh (``Shards``, built by the train step) each
 rank holds its params' model shard, gradients already summed over
@@ -100,10 +102,16 @@ def _unzip(tree, n: int) -> list:
             for i in range(n)]
 
 
+def _stacked(path) -> bool:
+    """Whether the reference stacks the leaf at ``path`` along a repeats
+    axis: a decoder layer's, or (whisper) an encoder layer's."""
+    return path[:1] == ("layers",) or path[:2] == ("encoder", "layers")
+
+
 def decayed(params):
     """A bool tree: which leaves take weight decay (see the module note)."""
     return tree_unflatten(params, [
-        p.dim() + (1 if path[:1] == ("layers",) else 0) >= 2
+        p.dim() + (1 if _stacked(path) else 0) >= 2
         for path, p in tree_leaves_with_path(params)])
 
 
@@ -147,11 +155,22 @@ def global_norm(tree, shards: Shards | None = None) -> torch.Tensor:
     return torch.sqrt(torch.sum(world_reduce(sq, shards.world)))
 
 
+def _clip_scale(grads, max_norm: float, shards: Shards | None = None):
+    """(the factor global-norm clipping scales every gradient by, the
+    global norm)."""
+    norm = global_norm(grads, shards)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-12),
+                       max=1.0), norm
+
+
+def _clipped(g, scale):
+    return (g.to(F32) * scale).to(g.dtype)
+
+
 def clip_by_global_norm(grads, max_norm: float,
                         shards: Shards | None = None):
-    norm = global_norm(grads, shards)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return tree_map(lambda g: (g.to(F32) * scale).to(g.dtype), grads), norm
+    scale, norm = _clip_scale(grads, max_norm, shards)
+    return tree_map(lambda g: _clipped(g, scale), grads), norm
 
 
 # ------------------------------------------------------- gradient compression
@@ -214,17 +233,21 @@ def _zero_update(upd, params, grads, moments, extra, shards):
             p, g = shards.cut(i, p), shards.cut(i, g)
         outs.append(upd(p, g, *(m[i] for m in ms), *(x[i] for x in xs)))
     new_p = [o[0] for o in outs]
+    new_m = [[o[j + 1] for o in outs] for j in range(len(moments))]
+    del outs
     if shards is not None:
         from repro_torch.distributed.collectives import gather_zero
 
         cut = [i for i, d in enumerate(shards.zero) if d is not None]
-        whole = gather_zero([new_p[i] for i in cut],
-                            [shards.zero[i] for i in cut], shards.dp)
+        parts = [new_p[i] for i in cut]
+        for i in cut:
+            new_p[i] = None     # the gather frees each slice as it goes
+        whole = gather_zero(parts, [shards.zero[i] for i in cut],
+                            shards.dp)
         for i, t in zip(cut, whole):
             new_p[i] = t
     return (tree_unflatten(params, new_p),
-            [tree_unflatten(m, [o[j + 1] for o in outs])
-             for j, m in enumerate(moments)])
+            [tree_unflatten(m, ms) for m, ms in zip(moments, new_m)])
 
 
 # ------------------------------------------------------- adamw
@@ -237,7 +260,9 @@ def adamw_update(grads, state: AdamWState, params, cfg: OptConfig,
         grads, new_err = _compress(grads, state.err, shards)
     else:
         new_err = state.err
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, shards)
+    # the clip runs leaf by leaf inside the update: a clipped copy of the
+    # whole gradient tree never sits beside the gradients
+    scale, gnorm = _clip_scale(grads, cfg.grad_clip, shards)
     step = state.step + 1
     stepf = step.to(F32)
     b1c = 1.0 - torch.pow(cfg.b1, stepf)
@@ -251,13 +276,14 @@ def adamw_update(grads, state: AdamWState, params, cfg: OptConfig,
         #   p' = p - lr delta
         # in place on this call's own temporaries (inputs are never
         # written): the same roundings with a third of the allocations
-        gf = g.to(F32)
+        gf = _clipped(g, scale).to(F32)
         m_new = m.to(F32) * cfg.b1
         t = gf * (1 - cfg.b1)
         m_new += t
         v_new = v.to(F32) * cfg.b2
         torch.mul(gf, 1 - cfg.b2, out=t)
         t *= gf
+        del gf
         v_new += t
         delta = m_new / b1c
         torch.div(v_new, b2c, out=t)
@@ -280,11 +306,11 @@ def adamw_update(grads, state: AdamWState, params, cfg: OptConfig,
 @torch.no_grad()
 def sgd_update(grads, state: AdamWState, params, cfg: OptConfig,
                shards: Shards | None = None):
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, shards)
+    scale, gnorm = _clip_scale(grads, cfg.grad_clip, shards)
     step = state.step + 1
 
     def upd(p, g, m):
-        m_new = cfg.b1 * m.to(F32) + g.to(F32)
+        m_new = cfg.b1 * m.to(F32) + _clipped(g, scale).to(F32)
         p_new = p.to(F32) - cfg.lr * m_new
         return p_new.to(p.dtype), m_new.to(m.dtype)
 

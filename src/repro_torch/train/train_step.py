@@ -30,9 +30,13 @@ hand (``Placement``):
 - the flag is OR-ed over every rank of the mesh, so every rank takes the
   same retry decision; the update is ZeRO-1 (``optimizer.Shards``).
 
-Sharded training covers GQA stacks with dense or MoE FFNs
-(``TRAINABLE_TAGS``); MLA with its MTP head, Mamba2 mixers and stacks
-with a memory raise ``NotImplementedError`` (ROADMAP A.3c-ii).
+Sharded training covers every layer kind the rules lay out
+(``executor.check_layout``): GQA and MLA attention (MLA with its MTP
+head, whose NLL joins the sums over ``data``), Mamba2 mixers, dense, MoE
+or no FFNs, and stacks with a memory (whisper's encoder, the vision
+model's cross layers), whose inputs (``audio``, ``enc_input``,
+``images``) split over ``data`` by row with the tokens.  What stays
+refused raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,16 +55,11 @@ from repro_torch.core.tree import (
 )
 from repro_torch.distributed.collectives import or_flag
 from repro_torch.models.layers import LayerCtx, ModelFault
-from repro_torch.models.model import Model, layer_tags
+from repro_torch.models.model import Model
 from repro_torch.serve.executor import resolve_device
 from repro_torch.train import optimizer as opt_lib
 
 F32 = torch.float32
-
-# the layer kinds that train sharded (the reference's own sharded test
-# trains a GQA stack with MoE FFNs)
-TRAINABLE_TAGS = frozenset({"attn:dense:0", "attn:moe:0"})
-
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -73,19 +72,11 @@ class TrainConfig:
 
 def check_trainable(cfg, mesh) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` trains sharded over
-    ``mesh``: GQA stacks with dense or MoE FFNs, no MTP head, no memory,
-    and the heads, experts and axes ``executor.check_shardable`` admits."""
-    from repro_torch.serve.executor import check_shardable
+    ``mesh``: the layouts ``executor.check_layout`` admits, memory stacks
+    included (the engine's refusal of them is the engine's alone)."""
+    from repro_torch.serve.executor import check_layout
 
-    tags = set(layer_tags(cfg))
-    if (cfg.is_encoder_decoder or cfg.vision_dim or cfg.cross_attn_every
-            or cfg.mtp_depth or not tags <= TRAINABLE_TAGS):
-        raise NotImplementedError(
-            f"sharded training of {cfg.name} ({sorted(tags)}"
-            f"{', MTP' if cfg.mtp_depth else ''}): MLA with its MTP head, "
-            f"Mamba2 mixers and stacks with a memory (cross-attention, "
-            f"encoder-decoder, vision) wait for ROADMAP A.3c-ii")
-    check_shardable(cfg, mesh)
+    check_layout(cfg, mesh)
 
 
 def _axes(spec) -> set:
@@ -143,12 +134,12 @@ def placement(model: Model, mesh, hints=None) -> Placement | None:
     cfg = model.cfg
     check_trainable(cfg, mesh)
     hints = hints if hints is not None else make_hints(cfg, mesh)
-    tp, dp = axis_groups(model, mesh)
-    d = dp.size if dp is not None else 1
+    d = int(mesh.shape.get("data", 1))
     if hints.dp_size % d:
         raise NotImplementedError(
             f"hints.dp_size={hints.dp_size} over data={d}: each data rank "
             f"must hold whole MoE dispatch groups of the global batch")
+    tp, dp = axis_groups(model, mesh)
     shapes = model.param_shapes()
     pspec, ospec = {}, {}
     map_with_path(lambda ps, sp: pspec.__setitem__(ps, sp),
@@ -242,42 +233,64 @@ def make_loss_fn(model: Model, abft: ABFTConfig, tcfg: TrainConfig,
         logp = torch.gather(logits, -1,
                             labels.clamp_min(0)[..., None])[..., 0] - logz
         mask = (labels >= 0).to(F32)
+        mtp = (_mtp_logp(out.mtp_logits, labels, mask)
+               if out.mtp_logits is not None else None)
         if dp is not None:
-            return _data_loss(tcfg, out, logp, logz, mask, dp)
+            return _data_loss(tcfg, out, logp, logz, mask, mtp, dp)
         denom = torch.clamp(mask.sum(), min=1.0)
         nll = -torch.sum(logp * mask) / denom
         loss = nll + tcfg.z_loss_coef * torch.sum((logz ** 2) * mask) / denom
         loss = loss + tcfg.aux_loss_coef * out.aux_loss
-        if out.mtp_logits is not None:
-            l2 = torch.roll(labels, -1, 1)
-            m2 = mask * torch.roll(mask, -1, 1)
-            lp2 = torch.gather(torch.log_softmax(out.mtp_logits.to(F32), -1),
-                               -1, l2.clamp_min(0)[..., None])[..., 0]
-            loss = loss - tcfg.mtp_loss_coef * torch.sum(lp2 * m2) / denom
         metrics = {"loss": nll, "aux_loss": out.aux_loss,
                    "abft_flag": out.flag}
+        if mtp is not None:
+            loss = loss - tcfg.mtp_loss_coef * mtp / denom
+            metrics["mtp_loss"] = -mtp / denom
         return loss, metrics
 
     return loss_fn
 
 
-def _data_loss(tcfg, out, logp, logz, mask, dp) -> tuple:
-    """A data rank's share of the loss: its rows' NLL and z-loss sums
-    over the global denominator, and the (global) aux loss over ``data``,
-    so the shares sum to the unsharded loss; the metrics' ``loss`` and
-    ``total_loss`` are the global values (one sum over ``data``)."""
+def _mtp_logp(mtp_logits, labels, mask):
+    """The MTP head's summed log-likelihood of token t + 2 (labels rolled
+    one more step, the mask times its roll), as the reference's loss."""
+    l2 = torch.roll(labels, -1, 1)
+    m2 = mask * torch.roll(mask, -1, 1)
+    lp2 = torch.gather(torch.log_softmax(mtp_logits.to(F32), -1),
+                       -1, l2.clamp_min(0)[..., None])[..., 0]
+    return torch.sum(lp2 * m2)
+
+
+def _data_loss(tcfg, out, logp, logz, mask, mtp, dp) -> tuple:
+    """A data rank's share of the loss: its rows' NLL, z-loss and (with
+    an MTP head, ``mtp`` its rows' summed log-likelihood) MTP NLL sums
+    over the global denominator, and the (global) aux loss over
+    ``data``, so the shares sum to the unsharded loss; the metrics'
+    ``loss``, ``mtp_loss`` and ``total_loss`` are the global values (one
+    sum over ``data``)."""
     from repro_torch.distributed.collectives import data_stats
 
     nll_s = -torch.sum(logp * mask)
     z_s = torch.sum((logz ** 2) * mask)
-    st = data_stats(torch.stack([mask.sum(), nll_s, z_s]), dp)
+    sums = [mask.sum(), nll_s, z_s]
+    if mtp is not None:
+        sums.append(-mtp)
+    st = data_stats(torch.stack(sums), dp)
     denom = torch.clamp(st[0], min=1.0)
     aux = tcfg.aux_loss_coef * out.aux_loss
-    loss = (nll_s + tcfg.z_loss_coef * z_s) / denom + aux / dp.size
+    share = nll_s + tcfg.z_loss_coef * z_s
+    if mtp is not None:
+        share = share - tcfg.mtp_loss_coef * mtp
+    loss = share / denom + aux / dp.size
     nll = st[1] / denom
     total = nll + tcfg.z_loss_coef * st[2] / denom + aux.detach()
-    return loss, {"loss": nll, "aux_loss": out.aux_loss,
-                  "abft_flag": out.flag, "total_loss": total}
+    metrics = {"loss": nll, "aux_loss": out.aux_loss,
+               "abft_flag": out.flag}
+    if mtp is not None:
+        metrics["mtp_loss"] = st[3] / denom
+        total = total + tcfg.mtp_loss_coef * metrics["mtp_loss"]
+    metrics["total_loss"] = total
+    return loss, metrics
 
 
 def value_and_grad(loss_fn: Callable) -> Callable:

@@ -457,24 +457,7 @@ def test_reference_sharded_moe_test_at_2x2(ranks, ref):
         assert got["experts_here"] == 2 and got["router_shape"] == [64, 4]
 
 
-# ------------------------------------------------------------ refusals, CLI
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "mamba2-1.3b",
-                                  "jamba-v0.1-52b", "whisper-tiny",
-                                  "llama-3.2-vision-11b"])
-def test_sharded_training_refuses_a3c_ii_stacks(arch):
-    from repro_torch.data.pipeline import DataConfig
-    from repro_torch.train.train_step import TrainConfig, make_train_step
-    from repro_torch.train.trainer import Trainer, TrainerConfig
-
-    model = Model(scaled_down(get_config(arch)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3c-ii"):
-        make_train_step(model, TW.abft(), TrainConfig(), mesh=GEOM,
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3c-ii"):
-        Trainer(model, {}, TrainConfig(), DataConfig(4, 16, 256),
-                TrainerConfig(steps=1), device="cpu", mesh=GEOM)
-
-
+# ------------------------------------------------------------ CLI
 def test_train_cli_distributed_prints_the_one_process_losses(setup,
                                                              capsys):
     from repro_torch.launch import train
