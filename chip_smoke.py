@@ -73,7 +73,13 @@ a faulted step retried, a checkpoint restored onto (1, 2)), and
 ``dp_train_families`` trains mamba2-1.3b, deepseek-v3-671b's first layer
 with its MTP head and llama-3.2-vision-11b's first cross layer at their
 published widths over (2, 2) and (1, 2) meshes, each against its
-one-process twin.
+one-process twin.  ``roofline`` walks full-width llama3.2-1b's 4-slot
+decode step and 512-token prefill under the roofline's cost walker
+(``repro_torch.roofline``) twice, on the card and on the meta device,
+holds the two walks equal op for op and the kernels' records equal to
+their launches, sets the predicted terms beside the step's measured
+device time and peak memory, and runs the dry run's decode_32k cell at
+(16, 16) (``launch/dryrun.py``).
 Each phase prints JSON lines; any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -86,6 +92,7 @@ import dataclasses
 import gc
 import json
 import os
+import pathlib
 import re
 import shutil
 import subprocess
@@ -101,7 +108,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
           "campaign", "profile", "timing", "sharing", "spec", "family",
           "moe", "mla", "ssm", "cross", "audit", "tp", "tp_hybrid",
-          "tp_mla", "dp", "dp_train", "dp_train_families")
+          "tp_mla", "dp", "dp_train", "dp_train_families", "roofline")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -9169,6 +9176,156 @@ def _add_dp_train_families(kernels, dpf) -> None:
         arch: rec["k1_per_step"] for arch, rec in dpf["models"].items()}
 
 
+# the roofline phase's shapes: a decode step of 4 slots at this cursor in
+# a cache this deep, and one prompt of this many tokens
+ROOF_SLOTS, ROOF_DEPTH, ROOF_POS, ROOF_PROMPT = 4, 1024, 600, 512
+
+
+def roofline_walk(model, abft, dev, params) -> dict:
+    """The roofline phase's two steps of ``model`` on ``dev`` (the card
+    or the meta device), each run once under ``analysis.analyze_step``:
+    a decode step of ``ROOF_SLOTS`` slots and a prefill of one
+    ``ROOF_PROMPT``-token prompt.  Returns {step: (record, ops, fn,
+    args, argument bytes counted here)}."""
+    from repro_torch.models.layers import LayerCtx
+    from repro_torch.roofline.analysis import analyze_step
+
+    ctx = LayerCtx(abft=abft)
+    dtype = torch.bfloat16
+    steps = {
+        "decode": (lambda p, t, c, pos: model.decode(p, t, c, pos, ctx), (
+            params,
+            torch.zeros((ROOF_SLOTS, 1), dtype=torch.int32, device=dev),
+            model.init_cache(ROOF_SLOTS, ROOF_DEPTH, dtype=dtype,
+                             device=dev),
+            torch.full((ROOF_SLOTS,), ROOF_POS, dtype=torch.int32,
+                       device=dev))),
+        "prefill": (lambda p, t, c: model.prefill(p, t, c, ctx), (
+            params,
+            torch.zeros((1, ROOF_PROMPT), dtype=torch.int32, device=dev),
+            model.init_cache(1, ROOF_PROMPT, dtype=dtype, device=dev))),
+    }
+    out = {}
+    for name, (fn, args) in steps.items():
+        from repro_torch.roofline.op_cost import _tensors
+
+        counted = sum(t.numel() * t.element_size() for t in _tensors(args))
+        with torch.no_grad():
+            rec, ops = analyze_step(fn, args, entry=name)
+        out[name] = (rec, ops, fn, args, counted)
+    return out
+
+
+def roofline_runs(dev) -> dict:
+    """The ``roofline`` phase: llama3.2-1b at full width and
+    ``SERVED_LAYERS`` layers, bf16, flash attention on (K3 in decode),
+    the default policy on the H100 (K1 where it picks a block scheme).
+    Walks each step on the card and on the meta device and gates: the
+    two walks' records equal op for op (kind, geometry, FLOPs, bytes);
+    the card walk's K1 and K3 records equal those kernels' launches in
+    it; the argument bytes equal the card tensors' bytes.  Then times
+    each step with CUDA events against its bound (the largest of the
+    three predicted terms), sets ``max_memory_allocated`` beside the
+    walk's predicted peak, ranks the decode step's byte contributors
+    (``roofline.profile``) and runs the dry run's llama3.2-1b
+    decode_32k cell at (16, 16) on the meta device."""
+    from repro_torch.core.protected import ABFTConfig
+    from repro_torch.kernels import abft_matmul, flash_attention
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import Model
+    from repro_torch.roofline import profile
+
+    t0 = time.perf_counter()
+    K1, K2, K3 = (abft_matmul.KERNEL, flash_attention.FULL_KERNEL,
+                  flash_attention.KERNEL)
+    model = Model(served_config())
+    abft = ABFTConfig(flash_attention=True)
+    params = model.init_params(0, dtype=torch.bfloat16, device=dev)
+    # warm the card's paths (kernels, cuBLAS) before the walked run
+    roofline_walk(model, abft, dev, params)
+    torch.cuda.synchronize()
+    l0 = (K1.launches, K2.launches, K3.launches)
+    card = roofline_walk(model, abft, dev, params)
+    torch.cuda.synchronize()
+    launches = dict(zip(("K1", "K2", "K3"), (
+        K1.launches - l0[0], K2.launches - l0[1], K3.launches - l0[2])))
+    meta = roofline_walk(model, abft, torch.device("meta"),
+                         model.param_shapes(torch.bfloat16))
+    steps = {}
+    for name in ("decode", "prefill"):
+        rec, ops, fn, args, counted = card[name]
+        mrec, mops, _, _, _ = meta[name]
+        sig = [(o.kind, tuple(o.geometry), o.flops, o.bytes) for o in ops]
+        msig = [(o.kind, tuple(o.geometry), o.flops, o.bytes) for o in mops]
+        first = next((i for i, (a, b) in enumerate(zip(sig, msig))
+                      if a != b), None)
+        need(sig == msig, f"roofline {name}: the card's walk ({len(sig)} "
+             f"ops) and the meta walk ({len(msig)}) differ first at "
+             f"{first}: {sig[first] if first is not None else None} vs "
+             f"{msig[first] if first is not None else None}")
+        mem = rec["memory"]
+        need(mem["argument_size_in_bytes"] == counted
+             == mrec["memory"]["argument_size_in_bytes"],
+             f"roofline {name}: argument bytes {mem} against the card "
+             f"tensors' {counted} and the meta walk's "
+             f"{mrec['memory']['argument_size_in_bytes']}")
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn(*args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - resident
+            ms = timed(lambda: fn(*args), iters=10, warmup=2)
+        bound_ms = rec["t_bound_s"] * 1e3
+        steps[name] = {
+            "ops": len(ops),
+            "records": {k: sum(o.kind == k for o in ops)
+                        for k in ("K1", "K2", "K3")},
+            "flops": rec["flops_per_device"],
+            "bytes": rec["bytes_per_device"],
+            "compute_ms": rec["compute_s"] * 1e3,
+            "memory_ms": rec["memory_s"] * 1e3,
+            "collective_ms": rec["collective_s"] * 1e3,
+            "bottleneck": rec["bottleneck"], "bound_ms": bound_ms,
+            "ms": ms, "measured_over_bound": ms / bound_ms,
+            "argument_bytes": mem["argument_size_in_bytes"],
+            "predicted_peak_bytes": mem["temp_size_in_bytes"]
+            + mem["output_size_in_bytes"] - mem["alias_size_in_bytes"],
+            "max_memory_allocated_over_resident": peak,
+        }
+    records = {k: steps["decode"]["records"][k]
+               + steps["prefill"]["records"][k] for k in ("K1", "K2", "K3")}
+    need(records == launches, f"roofline: kernel records {records} against "
+         f"launches {launches}")
+    need(launches["K1"] > 0 and launches["K3"] > 0,
+         f"roofline: K1 and K3 must launch: {launches}")
+    top = profile.format_rows(profile.top_contributors(
+        card["decode"][1], 10), 10)
+    for line in top:
+        print(line)
+    with tempfile.TemporaryDirectory() as out:
+        cell = dryrun.run_cell("llama3.2-1b", "decode_32k", "single",
+                               pathlib.Path(out), force=True)
+    need(cell["status"] == "ok", f"dry-run cell: {cell}")
+    cell = {k: v for k, v in cell.items() if k != "traceback"}
+    emit("roofline_cell", **cell)
+    del card, meta, params
+    free_memory()
+    out = {"steps": steps, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    emit("roofline", **out)
+    return out
+
+
+def _add_roofline(kernels, rl) -> None:
+    """The ``roofline`` phase's launches on the kernels line: K1's and
+    K3's in its walked decode step and prefill."""
+    kernels[0]["roofline_launches"] = rl["launches"]["K1"]
+    kernels[1]["roofline_launches"] = rl["launches"]["K2"]
+    kernels[2]["roofline_launches"] = rl["launches"]["K3"]
+
+
 def cfg_weights_gb(cfg, k: int = 1) -> float:
     """The bf16 weights of one rank's shard of ``cfg`` at TP=k (the whole
     model at k = 1): ``Model.param_shapes`` cut by ``param_specs``."""
@@ -9552,6 +9709,12 @@ def main(argv=None) -> int:
         dpf = dp_train_families_runs(dev)
         if kernels is not None:
             _add_dp_train_families(kernels, dpf)
+    if "roofline" in phases:
+        dpf = None
+        free_memory()
+        rl = roofline_runs(dev)
+        if kernels is not None:
+            _add_roofline(kernels, rl)
     for line in smi:
         print(line)
     if kernels is not None:

@@ -23,9 +23,12 @@ Three marker families, the first two the reference's strings:
 ``kernel[K1|K2|K3]``
     The port's own: opened by each fused-kernel entry point
     (``kernels/ops.py``, ``kernels/flash_ops.py``), which records itself
-    as ONE op with its logical shape and declared FLOPs, on the card (a
-    ``ctypes`` launch no dispatch mode sees) and on the CPU (its plain
-    version) alike.  The walker drops every aten op inside the scope.
+    as ONE op with its logical shape, declared FLOPs and declared bytes
+    (what the kernel reads and writes once each), on the card (a
+    ``ctypes`` launch no dispatch mode sees), on the CPU (its plain
+    version) and on the meta device (its outputs' allocation) alike.
+    The walker drops every aten op inside the scope; ``op_walk.OpWalker``
+    ignores the bytes, the roofline's ``op_cost.CostWalker`` reads them.
 
 Two structural frames go on the same stack and into the op's ``path``:
 ``layer[i]`` (``enc.layer[i]`` in whisper's encoder), pushed by the
@@ -37,6 +40,10 @@ products) and drops its aten ops, as a kernel scope does.
 Scopes cost nothing while no walker records: every opener tests one
 module-level list and returns a shared no-op context.  Scope names may
 not contain '/'.
+
+``collective`` tells the walkers of one collective's per-rank result
+payload (``distributed/collectives.py`` calls it for every collective it
+runs, over a process group or a virtual one).
 """
 
 from __future__ import annotations
@@ -62,8 +69,10 @@ _WALKERS: list = []
 
 class _Scope:
     """Push ``name`` for the duration of the ``with``; ``records``, if
-    any, are (primitive, flops, m, k, n) tuples recorded as ops at entry,
-    and ``opaque`` makes every walker drop the aten ops inside."""
+    any, are (primitive, flops, m, k, n, nbytes) tuples recorded as ops
+    at entry (``nbytes`` None: a logical region, whose traffic is its aten
+    ops'), and ``opaque`` makes every walker drop the FLOPs of the aten
+    ops inside (``"kernel"``: their bytes too, a plain version's)."""
 
     __slots__ = ("name", "records", "opaque")
 
@@ -79,13 +88,13 @@ class _Scope:
                 w.record(*rec)
         if self.opaque:
             for w in _WALKERS:
-                w.opaque += 1
+                w.enter_opaque(self.opaque)
         return self
 
     def __exit__(self, *exc):
         if self.opaque:
             for w in _WALKERS:
-                w.opaque -= 1
+                w.leave_opaque(self.opaque)
         _STACK.pop()
         return False
 
@@ -108,14 +117,19 @@ def coverage_scope(kind: str):
     return _Scope(f"flops[{kind}]")
 
 
-def kernel_scope(kernel: str, m: int, k: int, n: int, flops: float):
+def kernel_scope(kernel: str, m: int, k: int, n: int, flops: float,
+                 nbytes: float = 0.0):
     """Scope of one fused-kernel call: records one op ``kernel`` of
-    geometry (m, k, n) and ``flops`` declared FLOPs, and hides the aten
-    ops inside (a plain version's padded products never count)."""
+    geometry (m, k, n), ``flops`` declared FLOPs and ``nbytes`` declared
+    bytes, and hides the aten ops inside (a plain version's padded
+    products and copies never count).  On the meta device the wrapper
+    allocates the kernel's outputs inside this scope and launches
+    nothing: the meta route of the dry run, not a fallback (a CUDA
+    tensor takes the kernel or raises)."""
     if not _WALKERS:
         return _NULL
-    return _Scope(f"kernel[{kernel}]", ((kernel, flops, m, k, n),),
-                  opaque=True)
+    return _Scope(f"kernel[{kernel}]", ((kernel, flops, m, k, n, nbytes),),
+                  opaque="kernel")
 
 
 def logical_scope(what: str, contractions):
@@ -126,8 +140,8 @@ def logical_scope(what: str, contractions):
     if not _WALKERS:
         return _NULL
     return _Scope(f"logical[{what}]",
-                  tuple((what, 2.0 * m * k * n, m, k, n)
-                        for m, k, n in contractions), opaque=True)
+                  tuple((what, 2.0 * m * k * n, m, k, n, None)
+                        for m, k, n in contractions), opaque="logical")
 
 
 def layer_scope(prefix: str, idx: int):
@@ -140,6 +154,15 @@ def layer_scope(prefix: str, idx: int):
 
 def name_stack() -> str:
     return "/".join(_STACK)
+
+
+def collective(op: str, kind: str, nbytes: float) -> None:
+    """Tell every walker of one collective: ``op`` its kind in the
+    reference's HLO names (``all-reduce``, ``all-gather``), ``kind`` the
+    port's (``collectives.KINDS``), ``nbytes`` its per-rank result
+    payload."""
+    for w in _WALKERS:
+        w.collective(op, kind, nbytes)
 
 
 class Marker(NamedTuple):

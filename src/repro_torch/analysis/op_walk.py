@@ -83,6 +83,7 @@ class OpWalker(TorchDispatchMode):
         self.entry = entry
         self.ops: list = []
         self.opaque = 0            # depth of kernel/logical scopes
+        self.sealed = 0            # depth of kernel scopes alone
 
     def __enter__(self):
         markers._WALKERS.append(self)
@@ -102,11 +103,25 @@ class OpWalker(TorchDispatchMode):
         frames = [s for s in markers._STACK if "layer[" in s]
         return "/".join([self.entry, *frames, primitive])
 
+    def enter_opaque(self, kind: str) -> None:
+        """A kernel (``"kernel"``) or logical (``"logical"``) scope
+        opens: the aten ops inside carry no FLOPs of their own."""
+        self.opaque += 1
+        self.sealed += kind == "kernel"
+
+    def leave_opaque(self, kind: str) -> None:
+        self.opaque -= 1
+        self.sealed -= kind == "kernel"
+
+    def collective(self, op: str, kind: str, nbytes: float) -> None:
+        """A collective ran (``markers.collective``): no FLOPs."""
+
     def record(self, primitive: str, flops: float, m: int, k: int,
-               n: int) -> None:
+               n: int, nbytes: float | None = None) -> None:
         """Add one op of declared FLOPs at the current marker stack (a
         kernel's or a logical region's record); nothing inside an
-        opaque scope, which declared its own."""
+        opaque scope, which declared its own.  ``nbytes`` (a kernel's
+        declared traffic) is not an inventory field."""
         if self.opaque:
             return
         self.ops.append(TracedOp(

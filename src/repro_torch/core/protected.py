@@ -167,7 +167,10 @@ def _plain_dot(x, w, out_dtype, fault, decode_rows=None):
     tied head) returns the f32 accumulator itself, as the reference's
     ``preferred_element_type=f32`` does: on the card through cuBLAS's
     ``mm(..., out_dtype=f32)``, on the CPU (which has no such kernel) as
-    an f32 product of the widened operands.
+    an f32 product of the widened operands (on the meta device as on the
+    card, so a dry run walks the card's ops).  ``mm(..., out_dtype=)``
+    has no derivative, so a product autograd records (a bf16 training
+    step's tied head) takes the widened operands on every device.
 
     ``decode_rows`` (a speculative verify step on the card, x of shape
     (B, T, k) with B == ``decode_rows``): each step t runs as its own
@@ -179,7 +182,10 @@ def _plain_dot(x, w, out_dtype, fault, decode_rows=None):
                                   None) for t in range(x.shape[1])], dim=1)
     elif out_dtype == F32 and x.dtype != F32:
         x2 = x.reshape(-1, x.shape[-1])
-        if x2.is_cuda:
+        grad = torch.is_grad_enabled() and (x2.requires_grad
+                                             or w.requires_grad)
+        if x2.device.type in ("cuda", "meta") and not grad:
+            # the meta device (the dry run's shapes) takes the card's op
             y = torch.mm(x2, w, out_dtype=F32)
         else:
             y = x2.float() @ w.float()

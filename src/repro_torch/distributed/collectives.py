@@ -65,6 +65,16 @@ identity calls excepted), ``COUNTS[kind]`` each kind apart: ``model_sum``,
 ``fsdp_grad`` and ``data_grad`` (the data axis's backward sums),
 ``grad_sum``, ``zero_gather`` and ``world`` (``world_reduce``) in
 training; ``checkpoint`` (``gather_to_root``, a sharded save's).
+``BYTES[kind]`` sums each kind's per-rank result payload (an
+all-reduce's operand, an all-gather's whole result), and every
+collective tells the op walkers of itself (``markers.collective``), by
+kind and by the reference's HLO name.
+
+A virtual mesh (``mesh.virtual_mesh``, the dry run's) holds
+``VirtualGroup``s in place of process groups: a collective over one
+takes meta tensors only, returns its result's shape and records its
+payload as above, and raises on any other tensor, so a dry run never
+moves data and never stands in for a real group.
 
 The backends: gloo takes CUDA tensors for all of these on the card's
 torch (2.11: ``all_gather`` and ``all_reduce`` of CUDA tensors checked on
@@ -81,6 +91,8 @@ import math
 
 import torch
 
+from repro_torch.analysis import markers
+
 F32 = torch.float32
 
 KINDS = ("model_sum", "model_gather", "data_gather", "fsdp_gather",
@@ -91,16 +103,60 @@ KINDS = ("model_sum", "model_gather", "data_gather", "fsdp_gather",
 # host) is small beside the bytes, small enough to bound the copy
 BUCKET_BYTES = 64 << 20
 COUNTS = {"calls": 0, **{k: 0 for k in KINDS}}
+BYTES = {k: 0 for k in KINDS}
 
 
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+    for k in BYTES:
+        BYTES[k] = 0
 
 
-def _count(kind: str) -> None:
+class VirtualGroup:
+    """The group of a virtual mesh's axis (``mesh.virtual_mesh``): the
+    ranks of its line, and no transport (the module docstring)."""
+
+    def __init__(self, ranks):
+        self.ranks = tuple(int(r) for r in ranks)
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def __repr__(self) -> str:
+        return f"VirtualGroup({list(self.ranks)})"
+
+
+def backend_of(group) -> str:
+    """``group``'s backend: ``"virtual"`` for a ``VirtualGroup``."""
+    if isinstance(group, VirtualGroup):
+        return "virtual"
+    import torch.distributed as dist
+
+    return dist.get_backend(group)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _account(g, kind: str, op: str, nbytes: int, *tensors) -> bool:
+    """Count one collective of ``kind`` over ``g`` (``op``: its HLO
+    name, ``nbytes``: its per-rank result payload) and say whether it
+    must still run: False over a virtual group, whose tensors must
+    be meta (else ``RuntimeError``)."""
+    virtual = isinstance(g.group, VirtualGroup)
+    if virtual and not all(t.is_meta for t in tensors):
+        raise RuntimeError(
+            f"{kind} over a virtual mesh takes meta tensors (a dry run "
+            f"moves no data), got "
+            f"{sorted({str(t.device) for t in tensors})}")
     COUNTS["calls"] += 1
     COUNTS[kind] += 1
+    BYTES[kind] += int(nbytes)
+    markers.collective(op, kind, float(nbytes))
+    return not virtual
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -155,10 +211,8 @@ def grid_group(mesh) -> TPGroup | None:
         return None
     if mesh.grid_group is None:
         return world_group()
-    import torch.distributed as dist
-
     return TPGroup(rank=int(mesh.rank), size=n, group=mesh.grid_group,
-                   backend=dist.get_backend(mesh.grid_group), axis="world")
+                   backend=backend_of(mesh.grid_group), axis="world")
 
 
 def _active(tp) -> bool:
@@ -175,8 +229,8 @@ def _sum(x, g, kind: str):
     import torch.distributed as dist
 
     x = x.contiguous()
-    _count(kind)
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g.group)
+    if _account(g, kind, "all-reduce", _nbytes(x), x):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g.group)
     return x
 
 
@@ -236,9 +290,9 @@ def _gather(x, g, dim: int, kind: str):
     import torch.distributed as dist
 
     x = x.contiguous()
-    _count(kind)
     parts = [torch.empty_like(x) for _ in range(g.size)]
-    dist.all_gather(parts, x, group=g.group)
+    if _account(g, kind, "all-gather", g.size * _nbytes(x), x):
+        dist.all_gather(parts, x, group=g.group)
     return torch.cat(parts, dim=dim)
 
 
@@ -319,8 +373,8 @@ def sum_grads(grads: list, dp) -> list:
     out = list(grads)
     for idx in _buckets(grads):
         flat = torch.cat([grads[i].reshape(-1).to(F32) for i in idx])
-        _count("grad_sum")
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=dp.group)
+        if _account(dp, "grad_sum", "all-reduce", _nbytes(flat), flat):
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=dp.group)
         off = 0
         for i in idx:
             n = grads[i].numel()
@@ -355,8 +409,9 @@ def gather_zero(parts: list, dims: list, dp) -> list:
             for i in idx:
                 parts[i] = None
             bufs = [torch.empty_like(flat) for _ in range(dp.size)]
-            _count("zero_gather")
-            dist.all_gather(bufs, flat, group=dp.group)
+            if _account(dp, "zero_gather", "all-gather",
+                      dp.size * _nbytes(flat), flat):
+                dist.all_gather(bufs, flat, group=dp.group)
             del flat
             off = 0
             for i, shape in zip(idx, shapes):
@@ -384,13 +439,16 @@ def gather_to_root(t, world) -> list | None:
     gloo, on the device under NCCL."""
     import torch.distributed as dist
 
+    if isinstance(world.group, VirtualGroup):
+        raise NotImplementedError("a checkpoint over a virtual mesh: a "
+                                  "dry run saves nothing")
     if world.backend != "nccl":
         t = t.cpu()
     root = 0
     mine = dist.get_rank() == root
     parts = [torch.empty_like(t) for _ in range(world.size)] if mine \
         else None
-    _count("checkpoint")
+    _account(world, "checkpoint", "all-gather", world.size * _nbytes(t), t)
     dist.gather(t, parts, dst=root, group=world.group)
     return parts
 
@@ -404,9 +462,9 @@ def world_reduce(x, world, op: str = "sum"):
     import torch.distributed as dist
 
     x = x.detach().to(F32).clone()
-    _count("world")
-    dist.all_reduce(x, op=dist.ReduceOp.SUM if op == "sum"
-                    else dist.ReduceOp.MAX, group=world.group)
+    if _account(world, "world", "all-reduce", _nbytes(x), x):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=world.group)
     return x
 
 
@@ -424,10 +482,11 @@ def lse_combine(out, lse, dp):
         return o
     import torch.distributed as dist
 
-    _count("lse_combine")
     packed = torch.cat([o, lse.to(F32)[..., None]], dim=-1).contiguous()
     parts = [torch.empty_like(packed) for _ in range(dp.size)]
-    dist.all_gather(parts, packed, group=dp.group)
+    if _account(dp, "lse_combine", "all-gather", dp.size * _nbytes(packed),
+              packed):
+        dist.all_gather(parts, packed, group=dp.group)
     allp = torch.stack(parts)
     return merge_partials(allp[..., :-1], allp[..., -1])
 
@@ -453,15 +512,15 @@ def or_flag(flag, tp):
     import torch.distributed as dist
 
     t = flag.reshape(1).to(torch.int32)
-    _count("flag")
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=tp.group)
+    if _account(tp, "flag", "all-reduce", _nbytes(t), t):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=tp.group)
     return t[0].bool()
 
 
 def check_same(record, tp, what: str = "record") -> None:
     """Raise ``RuntimeError`` unless every rank of ``tp`` (an axis, or
     the world group) holds the same JSON-serializable ``record``."""
-    if not _active(tp):
+    if not _active(tp) or isinstance(tp.group, VirtualGroup):
         return
     import torch.distributed as dist
 

@@ -14,6 +14,14 @@ group, or are the identity), and of the whole grid where it holds fewer
 ranks than the world (a restore onto a smaller mesh inside one world:
 the ranks off the grid take no part in its collectives).
 
+``virtual_mesh`` builds one rank's view of a grid with no process group
+at all (the dry run's production meshes, ``launch/dryrun.py``): its
+groups are ``collectives.VirtualGroup``s and its devices the meta
+device, so the sharding rules, ``Model.init_params(mesh=)``,
+``Model.param_shapes``, the serving executor's layout and the training
+``Placement`` read it as they read a real mesh, while its collectives
+take meta tensors only.
+
 Functions only: importing this module touches no device and no process
 group.
 """
@@ -40,6 +48,8 @@ class Mesh:
     # every rank of the grid, where the grid holds fewer ranks than the
     # world (None: the default group)
     grid_group: object = None
+    # no process group behind it (``virtual_mesh``)
+    virtual: bool = False
 
     @property
     def shape(self) -> dict:
@@ -95,7 +105,8 @@ def rank_devices(device_type: str | None = None) -> list:
 
 
 def build_mesh(*, model: int = 1, data: int | None = None,
-               pod: int | None = None, devices=None) -> Mesh:
+               pod: int | None = None, devices=None,
+               virtual: bool = False) -> Mesh:
     """Build a (data, model) — or (pod, data, model) — mesh.
 
     ``model``: the tensor-parallel width (the axis ABFT plans are keyed
@@ -107,7 +118,12 @@ def build_mesh(*, model: int = 1, data: int | None = None,
     process's rank and its model- and data-axis groups come with the mesh
     (every rank must build the same mesh: the groups are made
     collectively, every row of the grid and then every column, in grid
-    order, by every rank)."""
+    order, by every rank).  ``virtual``: rank 0's view of the shape with
+    no process group (``virtual_mesh``); ``data`` is then required."""
+    if virtual:
+        if data is None:
+            raise ValueError("a virtual mesh needs its data width")
+        devices = [torch.device("meta")] * (model * data * (pod or 1))
     devices = rank_devices() if devices is None else list(devices)
     n = len(devices)
     if model < 1:
@@ -126,6 +142,8 @@ def build_mesh(*, model: int = 1, data: int | None = None,
         raise RuntimeError(
             f"mesh shape {shape} needs {need} devices, have {n}")
     grid = np.arange(need).reshape(shape)
+    if virtual:
+        return _virtual(grid, axes, devices[:need], 0)
     dist = _dist()
     rank, group, data_group, grid_group = 0, None, None, None
     if dist is not None:
@@ -139,6 +157,38 @@ def build_mesh(*, model: int = 1, data: int | None = None,
     return Mesh(grid=grid, axis_names=axes,
                 devices=tuple(devices[:need]), rank=rank, group=group,
                 data_group=data_group, grid_group=grid_group)
+
+
+def virtual_mesh(*, model: int = 1, data: int = 1, pod: int | None = None,
+                 rank: int = 0) -> Mesh:
+    """Rank ``rank``'s view of a (data, model) — or (pod, data, model) —
+    grid with no process group, by ``build_mesh``'s rules: every rank on
+    the meta device, each axis wider than one a ``VirtualGroup`` of the
+    rank's line, the grid one of all its ranks (the module docstring).
+    Raises ``ValueError`` on a rank off the grid."""
+    mesh = build_mesh(model=model, data=data, pod=pod, virtual=True)
+    if not 0 <= rank < mesh.grid.size:
+        raise ValueError(f"rank {rank} is not on the mesh {mesh.shape}")
+    return _virtual(mesh.grid, mesh.axis_names, mesh.devices, rank)
+
+
+def _virtual(grid, axes, devices, rank: int) -> Mesh:
+    from repro_torch.distributed.collectives import VirtualGroup
+
+    pos = tuple(int(i) for i in np.argwhere(grid == rank)[0])
+
+    def line(axis: str):
+        a = axes.index(axis)
+        if grid.shape[a] == 1:
+            return None
+        idx = list(pos)
+        idx[a] = slice(None)
+        return VirtualGroup(grid[tuple(idx)].reshape(-1).tolist())
+
+    return Mesh(grid=grid, axis_names=axes, devices=tuple(devices),
+                rank=rank, group=line("model"), data_group=line("data"),
+                grid_group=(VirtualGroup(range(grid.size))
+                            if grid.size > 1 else None), virtual=True)
 
 
 def _axis_groups(dist, grid, axis: int, rank: int, world: int):

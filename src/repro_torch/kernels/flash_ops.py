@@ -2,8 +2,13 @@
 ``flash_attention`` over a full sequence (K2) and ``flash_decode`` /
 ``flash_decode_paged`` for decode (K3), all in ``kernels/flash_attention.py``.
 CUDA tensors launch the kernel or raise; CPU tensors take its plain
-version.  q/k/v and the dense cache are read in place: no kv-head repeat
-and no pad copy (the reference wrapper does both before its kernel).
+version.  Meta tensors (the dry run's) take the kernel's allocation
+without its launch: outputs of its shapes and dtypes and no values,
+inside the call's kernel scope (``markers.kernel_scope``), where the
+plain version would walk every key block op by op (the meta route, not a
+fallback).  q/k/v and the dense cache are read in place: no kv-head
+repeat and no pad copy (the reference wrapper does both before its
+kernel).
 """
 
 from __future__ import annotations
@@ -33,6 +38,40 @@ def attn_flops(rows: int, d: int, dv: int, keys: int) -> float:
     ``dv``), over every key, as the plain attention paths' products count
     them; a query row is one (batch, position, head)."""
     return 2.0 * rows * keys * (d + dv)
+
+
+def attn_bytes(q, k, v, lq_pad: int) -> float:
+    """The bytes a K2 call records for the roofline
+    (``roofline/op_cost.py``): q, k and v read once, the output (q's
+    shape at v's depth, q's dtype) written once, and the four f32 check
+    arrays, (B, H, lq_pad) each."""
+    B, Lq, H, _ = q.shape
+    out = B * Lq * H * v.shape[-1] * q.element_size()
+    return float(_nbytes(q) + _nbytes(k) + _nbytes(v) + out
+                 + 4 * B * H * lq_pad * 4)
+
+
+def decode_bytes(q, k, v, keys: int, table_entries: int = 0,
+                 lse: bool = False) -> float:
+    """The bytes a K3 call records for the roofline: q read once, each
+    row's ``keys`` keys and values at the cache's capacity (the dense
+    cache's depth, or the table's blocks times their size), the lengths
+    and the table (``table_entries`` int32), the output written once, the
+    four f32 check arrays and the log-sum-exps where asked, (B, KV, G)
+    each.  An upper bound at a full cache: the kernel reads only the keys
+    below each row's length, but the count is the same on the meta device
+    and on the card, so the two walks agree."""
+    B, _, H, _ = q.shape
+    KV = k.shape[2]
+    esz = k.element_size()
+    kv = B * keys * KV * (k.shape[-1] + v.shape[-1]) * esz
+    out = B * H * v.shape[-1] * q.element_size()
+    return float(_nbytes(q) + kv + 4 * (B + table_entries) + out
+                 + (4 + lse) * B * H * 4)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
 
 
 def _attn_check(rs, bs, rp, bp, d: int, s: int,
@@ -70,15 +109,46 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
     f = fault if fault is not None else FaultSpec.none()
     fi = (f.row // bq_eff, 0, f.row % bq_eff, f.col, int(f.enabled),
           f32_bits(f.delta))
-    run = flash_attention_kernel if (q.is_cuda or k.is_cuda) \
-        else flash_attention_ref
+    run = _route(flash_attention_kernel, flash_attention_ref,
+                 _attention_meta, q, k)
     rows, Dv = B * Lq * H, v.shape[-1]
     with markers.kernel_scope("K2", rows, D, Lk,
-                              attn_flops(rows, D, Dv, Lk)):
+                              attn_flops(rows, D, Dv, Lk),
+                              attn_bytes(q, k, v, lq_pad)):
         out, rs, bs, rp, bp = run(q, k, v, fi, bq=bq_eff, bk=bk_eff,
                                   causal=causal, lq_pad=lq_pad,
                                   lk_pad=lk_pad)
     return out, _attn_check(rs, bs, rp, bp, D, Lk, c_factor)
+
+
+def _attention_meta(q, k, v, fi, *, bq, bk, causal, lq_pad, lk_pad):
+    """K2's outputs on the meta device: out (B, Lq, H, Dv) in q's dtype
+    and the four f32 check arrays (B, H, lq_pad / bq, bq)."""
+    B, Lq, H, _ = q.shape
+    out = torch.empty((B, Lq, H, v.shape[-1]), dtype=q.dtype,
+                      device=q.device)
+    return (out, *(torch.empty((B, H, lq_pad // bq, bq), dtype=torch.float32,
+                               device=q.device) for _ in range(4)))
+
+
+def _decode_meta(q, k_cache, v_cache, table, lengths, *, block, lse=False):
+    """K3's outputs on the meta device: out (B, 1, H, Dv) in q's dtype,
+    the four f32 check arrays and, with ``lse``, the log-sum-exps, (B,
+    KV, G) each."""
+    B, _, H, _ = q.shape
+    KV = k_cache.shape[2]
+    out = torch.empty((B, 1, H, v_cache.shape[-1]), dtype=q.dtype,
+                      device=q.device)
+    return (out, *(torch.empty((B, KV, H // KV), dtype=torch.float32,
+                               device=q.device) for _ in range(4 + lse)))
+
+
+def _route(kernel, ref, meta, *tensors):
+    """The kernel for CUDA tensors, the meta route for meta ones, else
+    the plain version."""
+    if any(t.is_cuda for t in tensors):
+        return kernel
+    return meta if tensors[0].is_meta else ref
 
 
 def _lengths(lengths, B: int, device) -> torch.Tensor:
@@ -101,10 +171,12 @@ def flash_decode(q, k_cache, v_cache, lengths, *, bk: int = 128,
     B, _, H, D = q.shape
     S = k_cache.shape[1]
     block = min(bk, _round_up(S, 8))
-    run = flash_decode_kernel if (q.is_cuda or k_cache.is_cuda) \
-        else flash_decode_ref
+    run = _route(flash_decode_kernel, flash_decode_ref, _decode_meta, q,
+                 k_cache)
     with markers.kernel_scope("K3", B * H, D, S,
-                              attn_flops(B * H, D, v_cache.shape[-1], S)):
+                              attn_flops(B * H, D, v_cache.shape[-1], S),
+                              decode_bytes(q, k_cache, v_cache, S,
+                                           lse=return_lse)):
         out, rs, bs, rp, bp, *lse = run(q, k_cache, v_cache, None,
                                         _lengths(lengths, B, q.device),
                                         block=block, **_lse(return_lse))
@@ -120,11 +192,13 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
     B, _, H, D = q.shape
     BS = v_pool.shape[1]
     W = block_tables.shape[1]
-    run = flash_decode_kernel if (q.is_cuda or k_pool.is_cuda) \
-        else flash_decode_ref
+    run = _route(flash_decode_kernel, flash_decode_ref, _decode_meta, q,
+                 k_pool)
     with markers.kernel_scope("K3", B * H, D, W * BS,
                               attn_flops(B * H, D, v_pool.shape[-1],
-                                         W * BS)):
+                                         W * BS),
+                              decode_bytes(q, k_pool, v_pool, W * BS,
+                                           B * W, lse=return_lse)):
         out, rs, bs, rp, bp, *lse = run(
             q, k_pool, v_pool, block_tables.to(torch.int32).contiguous(),
             _lengths(lengths, B, q.device), block=BS, **_lse(return_lse))

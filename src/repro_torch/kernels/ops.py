@@ -4,8 +4,13 @@ Clamps the logical blocks for thin GEMMs (aligned to 8), translates the
 fault's output coordinates to (block, offset) pairs and turns the
 per-block residual/bound into a threshold and a NaN-safe flag.  A CUDA
 operand launches K1 (``kernels/abft_matmul.py``) or raises; CPU operands
-take its plain version (``kernels/ref.py``).  Nothing is padded here: the
-kernel masks ragged edges itself.
+take its plain version (``kernels/ref.py``).  Meta operands (the dry
+run's, ``launch/dryrun.py``) take the kernel's allocation without its
+launch: outputs of the kernel's shapes and dtypes and no values, inside
+the call's kernel scope (``markers.kernel_scope``), where the plain
+version would walk its k blocks op by op.  That is the meta route, not a
+fallback: a CUDA operand still launches K1 or raises.  Nothing is padded
+here: the kernel masks ragged edges itself.
 
 ``abft_matmul_batched`` is the same over an expert axis, x (E, C, k) @ w
 (E, k, n) in one launch: the reference's ``jax.vmap`` of ``abft_matmul``
@@ -54,6 +59,43 @@ def k1_flops(m: int, k: int, n: int) -> float:
     return 2.0 * m * k * n + 4.0 * m * k
 
 
+def k1_bytes(m: int, k: int, n: int, dtypes, *, mode: str, bm: int,
+             bn: int, experts: int = 1) -> float:
+    """The bytes a K1 call records for the roofline
+    (``roofline/op_cost.py``): x (m, k), w (k, n) and y (m, n) each read
+    or written once, at ``dtypes`` = (x, w, y) bytes an element, and the
+    f32 residual and bound arrays, (gm, gn, bm) each for '1s'/'replica'
+    and (gm, gn) for '2s'; all of it ``experts`` times for a batched
+    call (m is one expert's rows there)."""
+    xb, wb, yb = dtypes
+    checks = -(-m // bm) * -(-n // bn) * (1 if mode == "2s" else bm)
+    return float(experts * (m * k * xb + k * n * wb + m * n * yb
+                            + 2 * 4 * checks))
+
+
+def _k1_scope(x2, w, m, k, n, mode, bm, bn, out_dtype, experts=1):
+    """The kernel scope of one K1 call (``markers.kernel_scope``): an
+    expert batch folds into m for the FLOPs."""
+    return markers.kernel_scope(
+        "K1", experts * m, k, n, k1_flops(experts * m, k, n),
+        k1_bytes(m, k, n, (x2.element_size(), w.element_size(),
+                           out_dtype.itemsize), mode=mode, bm=bm, bn=bn,
+                 experts=experts))
+
+
+def _meta_outputs(x2, w, *, mode, bm, bk, bn, out_dtype):
+    """K1's outputs on the meta device: y (..., M, N) and the residual
+    and bound, (..., gm, gn, bm) or, for '2s', (..., gm, gn), f32 (the
+    plain version's shapes; the module docstring's meta route)."""
+    *lead, m, _ = x2.shape
+    n = w.shape[-1]
+    checks = (*lead, -(-m // bm), -(-n // bn)) + (() if mode == "2s"
+                                                  else (bm,))
+    y = torch.empty((*lead, m, n), dtype=out_dtype, device=x2.device)
+    return (y, torch.empty(checks, dtype=torch.float32, device=x2.device),
+            torch.empty(checks, dtype=torch.float32, device=x2.device))
+
+
 class _AbftMatmul(torch.autograd.Function):
     """K1 (CUDA operands) or its plain version (CPU operands) with the
     reference's backward, for x2 (M, K) @ w (K, N) or, batched over
@@ -68,6 +110,8 @@ class _AbftMatmul(torch.autograd.Function):
             y, res, bnd = abft_matmul_kernel(x2, w, fidx, delta, **kw,
                                              one_slice=one_slice,
                                              split_rows=split_rows)
+        elif x2.is_meta:
+            y, res, bnd = _meta_outputs(x2, w, **kw)
         elif x2.dim() == 3:
             y, res, bnd = abft_matmul_batched_ref(x2, w, fidx, delta, **kw)
         else:
@@ -134,7 +178,7 @@ def abft_matmul(x, w, *, mode: str = "1s", blocks: BlockShape = BlockShape(),
     bn = _clamp_block(n0, blocks.bn)
     fidx = (f.row // bm, f.col // bn, f.row % bm, f.col % bn,
             int(f.enabled), f.bit)
-    with markers.kernel_scope("K1", m, k0, n0, k1_flops(m, k0, n0)):
+    with _k1_scope(x2, w, m, k0, n0, mode, bm, bn, out_dtype):
         y, res, bnd = _AbftMatmul.apply(x2, w, fidx, f.delta, mode, bm, bk,
                                         bn, out_dtype, one_slice, split_rows)
     # the reference takes the depth of its zero-padded operand (a multiple
@@ -180,8 +224,7 @@ def abft_matmul_batched(x, w, *, mode: str = "1s",
             != route(x[0], w[0], bn, mode)):
         split_rows = None
     E = x.shape[0]
-    with markers.kernel_scope("K1", E * m0, k0, n0,
-                              k1_flops(E * m0, k0, n0)):
+    with _k1_scope(x, w, m0, k0, n0, mode, bm, bn, out_dtype, E):
         y, res, bnd = _AbftMatmul.apply(x, w, fidx, f.delta, mode, bm, bk,
                                         bn, out_dtype, one_slice, split_rows)
     tau = ATOL + tolerance_scale(_round_up(k0, bk), c=c_factor) * bnd

@@ -7,13 +7,16 @@ from __future__ import annotations
 
 from repro_torch.distributed.mesh import build_mesh, rank_devices
 
+PRODUCTION = {False: dict(data=16, model=16),
+              True: dict(pod=2, data=16, model=16)}
 
-def make_production_mesh(*, multi_pod: bool = False):
+
+def make_production_mesh(*, multi_pod: bool = False, virtual: bool = False):
     """The production mesh: one pod = 16 x 16 ranks, multi-pod = 2 pods
-    with a leading 'pod' data-parallel axis."""
-    if multi_pod:
-        return build_mesh(pod=2, data=16, model=16)
-    return build_mesh(data=16, model=16)
+    with a leading 'pod' data-parallel axis.  ``virtual``: rank 0's view
+    of the same layout with no process group (``mesh.virtual_mesh``, the
+    dry run's), built by the same rules."""
+    return build_mesh(**PRODUCTION[bool(multi_pod)], virtual=virtual)
 
 
 def make_host_mesh():

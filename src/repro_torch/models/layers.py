@@ -129,9 +129,15 @@ class CacheSplit:
     def local(self, cells: tuple) -> tuple:
         """Dense cache cells (rows, positions: index tensors broadcast to
         one shape) cut to those the rank holds: (their local index, the
-        mask of the kept cells)."""
+        mask of the kept cells).  On the meta device (a dry run: no
+        values to mask by) every cell counts as the rank's, clamped into
+        its range: an upper bound on the write, of the same shapes."""
         r, p = torch.broadcast_tensors(*cells)
         which = 0 if self.kind == "slot" else 1
+        if r.is_meta:
+            idx = [r, p]
+            idx[which] = (idx[which] - self.lo).clamp(0, self.n - 1)
+            return tuple(idx), slice(None)
         keep = self.owns((r, p)[which])
         idx = [r[keep], p[keep]]
         idx[which] = idx[which] - self.lo

@@ -299,9 +299,7 @@ def axis_groups(model: Model, mesh) -> tuple:
     leaves the rules split over ``model`` (``sharded_paths``);
     ``dp.sharded``/``dp.dims``: those they split over ``data`` (FSDP,
     ``fsdp_dims``)."""
-    import torch.distributed as dist
-
-    from repro_torch.distributed.collectives import TPGroup
+    from repro_torch.distributed.collectives import TPGroup, backend_of
     from repro_torch.distributed.sharding import param_specs
 
     k = int(mesh.shape["model"])
@@ -310,12 +308,12 @@ def axis_groups(model: Model, mesh) -> tuple:
     tp = dp = None
     if k > 1:
         tp = TPGroup(rank=mesh.model_rank, size=k, group=mesh.group,
-                     backend=dist.get_backend(mesh.group),
+                     backend=backend_of(mesh.group),
                      sharded=sharded_paths(specs))
     if d > 1:
         dims = fsdp_dims(specs)
         dp = TPGroup(rank=mesh.data_rank, size=d, group=mesh.data_group,
-                     backend=dist.get_backend(mesh.data_group),
+                     backend=backend_of(mesh.data_group),
                      sharded=frozenset(dims), axis="data", dims=dims)
     return tp, dp
 
@@ -326,13 +324,22 @@ class MeshExecutor(LocalExecutor):
     process's world, its ranks on ``device``'s type) or a prebuilt port
     ``Mesh`` (``build_mesh(data=d, model=k)``); ``params``: the full
     tree, the same on every rank (each rank keeps its shard), or this
-    rank's shard already (``Model.init_params(mesh=)``)."""
+    rank's shard already (``Model.init_params(mesh=)``).
+
+    A virtual mesh (``mesh.virtual_mesh``: the dry run's, on the meta
+    device) needs no process group and is checked by ``check_layout``
+    alone: the dry run drives ``Model.prefill``/``decode`` with the
+    memory inputs the engine does not pass.  Its collectives take meta
+    tensors only."""
 
     def __init__(self, model: Model, params, *, mesh, dtype, device,
                  hints=None):
         import torch.distributed as dist
 
-        from repro_torch.distributed.collectives import world_group
+        from repro_torch.distributed.collectives import (
+            grid_group,
+            world_group,
+        )
         from repro_torch.distributed.mesh import (
             build_mesh,
             make_hints,
@@ -360,15 +367,18 @@ class MeshExecutor(LocalExecutor):
             hints = make_hints(model.cfg, mesh)
         self.sharded = k > 1 or d > 1
         if self.sharded:
-            check_shardable(model.cfg, mesh)
-            if not ranked:
-                raise NotImplementedError(
-                    f"a {mesh.shape} mesh in one process: the port runs "
-                    f"one process a rank; start them with "
-                    f"repro_torch.distributed.spawn")
+            if mesh.virtual:
+                check_layout(model.cfg, mesh)
+            else:
+                check_shardable(model.cfg, mesh)
+                if not ranked:
+                    raise NotImplementedError(
+                        f"a {mesh.shape} mesh in one process: the port "
+                        f"runs one process a rank; start them with "
+                        f"repro_torch.distributed.spawn")
             device = mesh.device
             self.tp, self.dp = axis_groups(model, mesh)
-            self.world = world_group()
+            self.world = grid_group(mesh) if mesh.virtual else world_group()
             params = model.shard_params(params, mesh)
         super().__init__(model, params, dtype=dtype, device=device,
                          hints=hints)
