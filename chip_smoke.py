@@ -9,7 +9,8 @@ ways: served through ``repro_torch.serve.engine.ServeEngine`` on the dense
 and the paged cache (with a fault-injected run and a ``global``-scheme
 run), a full-sequence ``Model.forward`` with the flash attention kernel on
 and off, and four f32 training steps through
-``repro_torch.train.trainer.Trainer``.  The ``campaign`` phase runs the
+``repro_torch.train.trainer.Trainer`` (and one bf16 step of the scaled
+llama held against the CPU's).  The ``campaign`` phase runs the
 reference's fault-campaign protocol on the served path (seeded fault
 models, shadow classification, hard faults, adaptive escalation,
 sampling, the cost of tracing) and ``profile`` times ``block_1s`` against
@@ -73,7 +74,13 @@ a faulted step retried, a checkpoint restored onto (1, 2)), and
 ``dp_train_families`` trains mamba2-1.3b, deepseek-v3-671b's first layer
 with its MTP head and llama-3.2-vision-11b's first cross layer at their
 published widths over (2, 2) and (1, 2) meshes, each against its
-one-process twin.  ``roofline`` walks full-width llama3.2-1b's 4-slot
+one-process twin.  ``pod`` lays a ``pod`` axis out as the reference
+does (the batch over pod x data, FSDP, ZeRO-1 and sequence shards over
+data): full-width llama at (pod=2, data=1, model=2) served bit-equal to
+(2, 2) with a decode fault on pod rank 1 recovered, trained in f32 at
+(2, 2, 1) against its twin, and whisper-tiny trained at (1, 4) with its
+6 / 6 heads padded to 8 / 8 by default, bit-equal to an explicit
+``pad_heads_to``.  ``roofline`` walks full-width llama3.2-1b's 4-slot
 decode step and 512-token prefill under the roofline's cost walker
 (``repro_torch.roofline``) twice, on the card and on the meta device,
 holds the two walks equal op for op and the kernels' records equal to
@@ -108,7 +115,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "k1", "k2", "k3", "engine", "forward", "train",
           "campaign", "profile", "timing", "sharing", "spec", "family",
           "moe", "mla", "ssm", "cross", "audit", "tp", "tp_hybrid",
-          "tp_mla", "dp", "dp_train", "dp_train_families", "roofline")
+          "tp_mla", "dp", "dp_train", "dp_train_families", "pod",
+          "roofline")
 HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12          # f32 outside the tensor cores (TF32 off)
@@ -878,7 +886,10 @@ def train_runs(dev, workdir: str) -> dict:
     3e-4 under ``--abft auto`` (every forward GEMM on K1).  The loss is
     finite and falls; a ``mlp_down`` fault raises the step's flag; two
     clean steps from one state give bit-identical params.  K1 launches
-    per step count the forward twice (the per-layer recompute).
+    per step count the forward twice (the per-layer recompute) but each
+    layer's FFN ``down`` once (it runs outside the recomputed region).
+    One bf16 AdamW step of scaled llama3.2-1b (tied head) on the card is
+    held against the same step on the CPU (``train_bf16_gate``).
 
     One clean step from the trained state is held against the same step
     under ``--abft off`` (plain ``torch.matmul`` on the card), which
@@ -978,10 +989,97 @@ def train_runs(dev, workdir: str) -> dict:
                forward_gemms=7 * cfg.n_layers + 1,
                faulted_step_flagged=True, clean_steps_bit_identical=True,
                step_vs_abft_off=vs_off)
+    rec["k1_launches_predicted"] = 2 * 7 * cfg.n_layers - cfg.n_layers + 1
+    need(per_step == rec["k1_launches_predicted"],
+         f"train: K1 launched {per_step} times a step, the layer list "
+         f"predicts {rec['k1_launches_predicted']}")
+    rec["bf16"] = train_bf16_gate(dev)
     emit("train", **rec)
     out = {"rec": rec, "params": trainer.params}
     del trainer
     return out
+
+
+# the bf16 train step's bounds against the CPU's (``train_bf16_gate``):
+# the two sum bf16 GEMMs' f32 partials in other orders and round
+# activations to bf16 (2^-8 relative) at other points
+BF16_LOSS_TOL = 1e-2        # relative
+BF16_GRAD_NORM_TOL = 2e-2   # relative
+# each leaf's gradient, |g_card - g_cpu| / |g_cpu| (norms): bf16 against
+# f32 on the CPU differ by at most 0.0066 a leaf at this size; a wrong or
+# sign-flipped gradient by 1 or more
+BF16_GRAD_TOL = 3e-2
+
+
+def train_bf16_gate(dev) -> dict:
+    """One AdamW step of scaled-down llama3.2-1b (2 layers, tied head) in
+    bf16 from seed 5's bf16 params and one batch, on the card (K1) and on
+    the CPU (its plain version): each leaf's gradient within
+    ``BF16_GRAD_TOL`` of the CPU's (norm-relative), the loss within
+    ``BF16_LOSS_TOL`` and the grad norm within ``BF16_GRAD_NORM_TOL``
+    relative, every param within 2 lr plus one bf16 step (2^-7 relative)
+    of the CPU's (AdamW's first step moves an entry by lr sign(g), and a
+    gradient near 0 may take the other sign), no flag, K1 launched."""
+    from repro_torch.configs import get_config, scaled_down
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import abft_matmul
+    from repro_torch.launch.train import abft_config
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.models.model import Model
+    from repro_torch.serve.executor import tree_to
+    from repro_torch.train import (
+        OptConfig,
+        TrainConfig,
+        init_opt_state,
+        make_train_step,
+    )
+    from repro_torch.train.train_step import make_grad_fn
+
+    cfg = scaled_down(get_config(ENGINE_ARCH), n_layers=2)
+    need(cfg.tie_embeddings, "the bf16 gate's llama has no tied head")
+    model = Model(cfg)
+    params = model.init_params(5, dtype=torch.bfloat16)
+    batch = SyntheticLM(DataConfig(global_batch=2, seq_len=64,
+                                   vocab_size=cfg.vocab_size)).batch(0)
+    ocfg = OptConfig(lr=3e-4)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        p = tree_to(params, d)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        _, _, grads = make_grad_fn(model, abft_config("auto"),
+                                   TrainConfig(opt=ocfg), device=d)(
+            p, b, ModelFault.none())
+        step = make_train_step(model, abft_config("auto"),
+                               TrainConfig(opt=ocfg), device=d)
+        k1 = abft_matmul.KERNEL.launches
+        newp, _, met = step(p, init_opt_state(p, ocfg), b)
+        out[d.type] = {"loss": float(met["loss"]),
+                       "grad_norm": float(met["grad_norm"]),
+                       "flag": bool(met["abft_flag"]),
+                       "k1": abft_matmul.KERNEL.launches - k1,
+                       "grads": [t.float().cpu() for t in tree_leaves(grads)],
+                       "params": [t.float().cpu() for t in tree_leaves(newp)]}
+    cpu, card = out["cpu"], out["cuda"]
+    rec = {"loss": card["loss"], "cpu_loss": cpu["loss"],
+           "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+           "grad_norm_rel": abs(card["grad_norm"] - cpu["grad_norm"])
+           / cpu["grad_norm"], "k1": card["k1"], "worst_grad_rel": 0.0,
+           "worst_param_excess": 0.0}
+    for a, b in zip(card["grads"], cpu["grads"]):
+        rec["worst_grad_rel"] = max(rec["worst_grad_rel"], float(
+            (a - b).norm() / b.norm().clamp_min(1e-30)))
+    for a, b in zip(card["params"], cpu["params"]):
+        bound = 2 * ocfg.lr + 2.0 ** -7 * b.abs()
+        rec["worst_param_excess"] = max(rec["worst_param_excess"], float(
+            ((a - b).abs() - bound).max()))
+    need(np.isfinite(card["loss"]) and not card["flag"] and not cpu["flag"]
+         and card["k1"] > 0 and rec["loss_rel"] <= BF16_LOSS_TOL
+         and rec["grad_norm_rel"] <= BF16_GRAD_NORM_TOL
+         and rec["worst_grad_rel"] <= BF16_GRAD_TOL
+         and rec["worst_param_excess"] <= 0.0,
+         f"bf16 train step on the card against the CPU: {rec}")
+    return rec
 
 
 # ------------------------------------------------------------------ engine
@@ -8704,8 +8802,11 @@ def _dpf_k1_predicted(shard, abft, m: int, mem_m: int) -> int:
     list: each layer's block-protected GEMMs (the policy's scheme at the
     rank's rows ``m`` and the shard's (K, N); a cross layer's K/V at the
     memory's ``mem_m`` rows) twice, as the recompute runs every layer
-    again; the memory's ``vision_proj`` and the head once; the MTP head's
-    ``proj``, layer and head once more."""
+    again, but for its last projection, which runs outside the recomputed
+    region (a dense FFN's ``down``; the SSD ``out_proj`` of a Mamba2
+    layer with no FFN): once; the memory's ``vision_proj``, the encoder's
+    layers (at ``mem_m`` rows, not recomputed) and the head once; the MTP
+    head's ``proj``, layer and head once more."""
     from repro_torch.core.intensity import GemmDims
     from repro_torch.core.policy import scheme_name_of
     from repro_torch.core.protected import _BLOCK_MODES
@@ -8715,7 +8816,7 @@ def _dpf_k1_predicted(shard, abft, m: int, mem_m: int) -> int:
                         batch=1, dtype_bytes=4, out_dtype_bytes=4)
         return int(scheme_name_of(abft.resolve(dims)) in _BLOCK_MODES)
 
-    def layer(lp) -> int:
+    def layer(lp, m=m) -> int:
         n = sum(k1(m, lp["mixer"][w]) for w in (
             "wq", "wk", "wv", "wo", "wq_a", "wq_b", "wkv_a", "in_z", "in_x",
             "in_bc", "in_dt", "out_proj") if w in lp["mixer"])
@@ -8727,10 +8828,21 @@ def _dpf_k1_predicted(shard, abft, m: int, mem_m: int) -> int:
                  if w in lp.get("ffn", {}))
         return n
 
+    def tail(lp) -> int:
+        ffn = lp.get("ffn", {})
+        if "down" in ffn:
+            return k1(m, ffn["down"])
+        if not ffn and "cross" not in lp and "out_proj" in lp["mixer"]:
+            return k1(m, lp["mixer"]["out_proj"])
+        return 0
+
     head = shard["lm_head"] if "lm_head" in shard else shard["embed"].t()
-    total = 2 * sum(layer(lp) for lp in shard["layers"]) + k1(m, head)
+    total = sum(2 * layer(lp) - tail(lp) for lp in shard["layers"]) \
+        + k1(m, head)
     if "vision_proj" in shard:
         total += k1(mem_m, shard["vision_proj"])
+    if "encoder" in shard:
+        total += sum(layer(lp, mem_m) for lp in shard["encoder"]["layers"])
     if "mtp" in shard:
         total += k1(m, shard["mtp"]["proj"]) + layer(shard["mtp"]["layer"]) \
             + k1(m, head)
@@ -9174,6 +9286,444 @@ def _add_dp_train_families(kernels, dpf) -> None:
         c["max_abs_err"] for c in dpf["k1"]["checks"].values())
     k1["dp_train_families_launches_per_step"] = {
         arch: rec["k1_per_step"] for arch, rec in dpf["models"].items()}
+
+
+# ------------------------------------------------------------------ pod
+
+# the pod phase's meshes of four gloo ranks sharing the card: serving at
+# (pod, data, model) against DP_SHAPE's (data, model) run of the same
+# seed; training at (pod, data, model), ZeRO-1 over data; whisper-tiny's
+# 6 q and 6 kv heads trained at (1, POD_PAD_K), padded to POD_PAD_HEADS
+# by default, against an explicit padding and the one-process twin
+POD_SERVE = (2, 1, 2)
+POD_TRAIN = (2, 2, 1)
+POD_TRAIN_STEPS = 2
+POD_PAD_ARCH, POD_PAD_K, POD_PAD_HEADS = "whisper-tiny", 4, 8
+POD_PAD_B, POD_PAD_L = 2, 64
+
+
+def pod_whisper_batches(cfg) -> list:
+    """The padding gate's batches: ``POD_PAD_B`` x ``POD_PAD_L`` tokens
+    and labels and 2 x ``enc_seq_len`` mel frames a row (numpy, seed 9)."""
+    rng = np.random.default_rng(9)
+    out = []
+    for _ in range(POD_TRAIN_STEPS):
+        t = rng.integers(0, cfg.vocab_size, (POD_PAD_B, POD_PAD_L + 1))
+        out.append({"tokens": t[:, :-1].astype(np.int32),
+                    "labels": t[:, 1:].astype(np.int32),
+                    "audio": rng.standard_normal(
+                        (POD_PAD_B, 2 * cfg.enc_seq_len, cfg.n_mels))
+                    .astype(np.float32)})
+    return out
+
+
+def pod_train(cfg, params, batches, dev, mesh=None) -> dict:
+    """``len(batches)`` f32 AdamW steps at lr 3e-4 under ``--abft auto``
+    at ``mesh`` (None: this process alone): each step's loss, grad norm,
+    flag and K1 launches; on a mesh the K1 launches the layer list
+    predicts (``_dpf_k1_predicted``), the groups' ranks, the moments'
+    shares and the first layer's ``wq`` shard."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import map_with_path
+    from repro_torch.kernels import abft_matmul
+    from repro_torch.launch.train import abft_config
+    from repro_torch.models.model import Model
+    from repro_torch.train import (
+        OptConfig,
+        TrainConfig,
+        init_opt_state,
+        make_train_step,
+    )
+
+    model = Model(cfg)
+    ocfg = OptConfig(lr=3e-4)
+    abft = abft_config("auto")
+    step = make_train_step(model, abft, TrainConfig(opt=ocfg), mesh=mesh,
+                           device=None if mesh is not None else dev)
+    pl = step.placement
+    if pl is not None:
+        params = pl.model.shard_params(params, mesh)
+    state = init_opt_state(params, ocfg, pl.shards if pl else None)
+    rec = {"loss": [], "grad_norm": [], "flag": [], "k1": []}
+    for b in batches:
+        b = {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+        k1 = abft_matmul.KERNEL.launches
+        params, state, met = step(params, state, b)
+        rec["k1"].append(abft_matmul.KERNEL.launches - k1)
+        rec["loss"].append(float(met["loss"]))
+        rec["grad_norm"].append(float(met["grad_norm"]))
+        rec["flag"].append(bool(met["abft_flag"]))
+    if pl is not None:
+        rows = batches[0]["tokens"].shape[0] // pl.data
+        rec["k1_predicted"] = _dpf_k1_predicted(
+            params, abft, rows * batches[0]["tokens"].shape[1],
+            rows * cfg.enc_seq_len if cfg.is_encoder_decoder else 0)
+
+        def ranks(g):
+            if g is None:
+                return []
+            return (list(range(dist.get_world_size())) if g.group is None
+                    else sorted(dist.get_process_group_ranks(g.group)))
+
+        rec["groups"] = {n: ranks(getattr(pl, n)) for n in ("dp", "bp",
+                                                            "pp")}
+        full = {}
+        map_with_path(lambda ps, t: full.__setitem__(ps, t.numel()),
+                      pl.model.param_shapes())
+        shares = {}
+        map_with_path(lambda ps, t: shares.__setitem__(
+            ps, full[ps] // t.numel()), state.mu)
+        rec["moment_shares"] = {k: shares[k] for k in (
+            "layers/0/mixer/wq", "embed")}
+        rec["wq"] = list(params["layers"][0]["mixer"]["wq"].shape)
+        rec["heads"] = [pl.model.cfg.eff_heads, pl.model.cfg.eff_kv_heads]
+    del params, state
+    free_memory()
+    return rec
+
+
+def _k1_call_log(calls: dict, where: list):
+    """Wraps the K1 wrapper's launch (``ops.abft_matmul_kernel``) to note
+    each distinct call it makes: operand shapes, strides and dtypes, the
+    output dtype, mode, blocks and K plan, first seen under ``where[0]``.
+    Returns the original, to put back."""
+    from repro_torch.kernels import ops
+
+    kern = ops.abft_matmul_kernel
+
+    def logged(x, w, *a, **k):
+        sig = (tuple(x.shape), tuple(x.stride()), tuple(w.shape),
+               tuple(w.stride()), str(x.dtype)[6:], str(k["out_dtype"])[6:],
+               k["mode"], k["bm"], k["bk"], k["bn"], k["one_slice"],
+               k["split_rows"])
+        calls.setdefault(sig, where[0])
+        return kern(x, w, *a, **k)
+
+    ops.abft_matmul_kernel = logged
+    return kern
+
+
+def pod_k1(dev, calls: dict) -> dict:
+    """K1 against its plain version at every call the ``pod`` phase's
+    ranks made (``_k1_call_log``): operands drawn at the call's shapes,
+    strides and dtype (x N(0, 1), w N(0, 0.02), seed 14), the kernel run
+    with the call's mode, blocks and K plan; y within 1e-4 (f32) or
+    2^-7 (bf16) of max|y|, the bounds within 1e-4 relative, no false
+    flag at the residual's threshold (c = 16)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.abft_matmul import abft_matmul_kernel, plan
+    from repro_torch.kernels.ref import (
+        abft_matmul_batched_ref,
+        abft_matmul_ref,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    checks = []
+    for sig, where in calls.items():
+        xs, xst, ws, wst, dtype, out, mode, bm, bk, bn, one, rows = sig
+
+        def draw(shape, stride, std):
+            t = torch.empty_strided(shape, stride, dtype=dt[dtype],
+                                    device=dev)
+            t.copy_(torch.randn(shape, generator=gen, device=dev) * std)
+            return t
+
+        x, w = draw(xs, xst, 1.0), draw(ws, wst, 0.02)
+        kw = dict(mode=mode, bm=bm, bk=bk, bn=bn, out_dtype=dt[out])
+        y, res, bnd = abft_matmul_kernel(x, w, **kw, one_slice=one,
+                                         split_rows=rows)
+        ref = abft_matmul_batched_ref if len(xs) == 3 else abft_matmul_ref
+        yp, _, bndp = ref(x, w, **kw)
+        scale = yp.float().abs().max().item()
+        err = (y.float() - yp.float()).abs().max().item()
+        tol = (1e-4 if out == "float32" else 2 ** -7) * scale
+        berr = ((bnd - bndp).abs() / bndp.abs().clamp_min(1e-30)).max().item()
+        tau = ops.ATOL + ops.tolerance_scale(-(-xs[-1] // bk) * bk,
+                                             c=16.0) * bnd
+        ratio = (res.abs() / tau).max().item()
+        rec = {"where": where, "x": list(xs), "w": list(ws), "dtype": dtype,
+               "out_dtype": out, "mode": mode, "blocks": [bm, bk, bn],
+               "route": plan(x[0] if len(xs) == 3 else x,
+                             w[0] if len(ws) == 3 else w, mode=mode, bm=bm,
+                             bk=bk, bn=bn, one_slice=one, split_rows=rows,
+                             experts=xs[0] if len(xs) == 3 else 1).route,
+               "max_abs_err": err, "max_abs_y": scale, "bnd_rel_err": berr,
+               "clean_ratio": ratio}
+        checks.append(rec)
+        need(err <= tol and berr <= 1e-4 and ratio <= 1.0,
+             f"pod: K1 at a main-path call against its plain version: {rec}")
+        del x, w, y, res, bnd, yp, bndp
+    free_memory()
+    out = {"calls": len(checks), "checks": checks,
+           "max_abs_err": max(c["max_abs_err"] for c in checks),
+           "max_rel_err": max(c["max_abs_err"] / c["max_abs_y"]
+                              for c in checks)}
+    emit("pod_k1", **out)
+    return out
+
+
+def pod_rank(prompts, device_type: str = "cuda") -> dict:
+    """One rank of the ``pod`` phase (four ranks on the card): llama3.2-1b
+    at full width and ``SERVED_LAYERS`` layers, this rank's shard of seed
+    0's bf16 weights, served dense (first logits kept on rank 0) and with
+    a decode fault at logical row ``DP_ROW`` at (data, model) =
+    ``DP_SHAPE`` and at (pod, data, model) = ``POD_SERVE`` (the fault is
+    pod rank 1's row 1 there), each mesh's K1 and K3 a decode step; the
+    same llama in f32 trained ``POD_TRAIN_STEPS`` steps at ``POD_TRAIN``;
+    whisper-tiny trained at (1, ``POD_PAD_K``) with its heads padded by
+    default and with an explicit ``pad_heads_to``.  Every record is
+    checked equal over the world.  ``k1_calls``: each distinct K1 call of
+    these runs (``_k1_call_log``), for the parent's checks."""
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.distributed.mesh import build_mesh, rank_devices
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.models.model import Model
+
+    devs = rank_devices(device_type)
+    meshes = {"dp": build_mesh(data=DP_SHAPE[0], model=DP_SHAPE[1],
+                               devices=devs),
+              "pod": build_mesh(pod=POD_SERVE[0], data=POD_SERVE[1],
+                                model=POD_SERVE[2], devices=devs)}
+    mtr = build_mesh(pod=POD_TRAIN[0], data=POD_TRAIN[1],
+                     model=POD_TRAIN[2], devices=devs)
+    mpad = build_mesh(data=1, model=POD_PAD_K, devices=devs)
+    dev = mtr.device
+    cfg = served_config()
+    model = Model(cfg)
+    row = ModelFault.at(0, "mlp_down", FaultSpec.value(DP_ROW, 1, 1e5))
+    out = {"rank": mtr.rank, "pod_rank": meshes["pod"].pod_rank,
+           "serve": {}, "timing": {}, "logits": {}}
+    calls, where = {}, ["serve"]
+    kern = _k1_call_log(calls, where)
+    try:
+        _pod_rank_runs(out, meshes, mtr, mpad, model, cfg, row, prompts,
+                       dev, where)
+    finally:
+        ops.abft_matmul_kernel = kern
+    out["k1_calls"] = calls
+    free_memory()
+    return out
+
+
+def _pod_rank_runs(out, meshes, mtr, mpad, model, cfg, row, prompts, dev,
+                   where) -> None:
+    """``pod_rank``'s runs, into ``out``; ``where[0]`` names the run."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import collectives
+    from repro_torch.models import layers
+    from repro_torch.models.model import Model
+
+    world = collectives.world_group()
+    for name, mesh in meshes.items():
+        where[0] = f"serve {name}"
+        params = model.init_params(0, dtype=torch.bfloat16, device=dev,
+                                   mesh=mesh)
+        eng, dense, timing, cap = tp_serve(model, params, prompts, dev,
+                                           "dense", mesh=mesh, capture=None)
+        if mesh.rank == 0:
+            out["logits"][name] = {k: v.numpy() for k, v in
+                                   cap.first.items()}
+        out["timing"][name] = timing
+        if name == "pod":
+            out["rows"] = list(eng.executor.rows)
+            out["batch_group"] = eng.executor.bp.size
+        del eng, cap
+        fired, row_fault = [], layers._row_fault
+
+        def logged(fault, x, w, ctx, out_dtype):
+            got = row_fault(fault, x, w, ctx, out_dtype)
+            if fault is not None and fault.row == DP_ROW and ctx.rows:
+                fired.append(None if got is None else got.row)
+            return got
+
+        layers._row_fault = logged
+        try:
+            _, fault, _, _ = tp_serve(model, params, prompts, dev, "fault",
+                                      mesh=mesh, fault_at=(2, row),
+                                      capture=False)
+        finally:
+            layers._row_fault = row_fault
+        recs = {"dense": dense, "fault": fault}
+        collectives.check_same(recs, world, f"pod {name}")
+        out["serve"][name] = recs
+        out[f"fault_rows_{name}"] = sorted(set(fired), key=str)
+        del params
+        free_memory()
+    data = SyntheticLM(DataConfig(global_batch=TRAIN_B, seq_len=TRAIN_L,
+                                  vocab_size=cfg.vocab_size))
+    batches = [data.batch(s) for s in range(POD_TRAIN_STEPS)]
+    where[0] = "train"
+    out["train"] = pod_train(cfg, model.init_params(
+        0, dtype=torch.float32, device=dev), batches, dev, mtr)
+    wcfg = get_config(POD_PAD_ARCH)
+    wparams = Model(wcfg).init_params(0, dtype=torch.float32, device=dev)
+    wb = pod_whisper_batches(wcfg)
+    where[0] = "pad"
+    out["pad"] = {
+        name: pod_train(c, wparams, wb, dev, mpad) for name, c in (
+            ("default", wcfg),
+            ("explicit", dc.replace(wcfg, pad_heads_to=POD_PAD_HEADS,
+                                    pad_kv_heads_to=POD_PAD_HEADS)))}
+    del wparams
+    collectives.check_same({k: v for k, v in out["train"].items()
+                            if k != "groups"}, world, "train")
+    collectives.check_same(out["pad"], world, "pad")
+
+
+def pod_runs(dev) -> dict:
+    """The ``pod`` phase: the reference's multi-pod layout (the batch over
+    ``pod`` x ``data``; FSDP, ZeRO-1 and sequence shards over ``data``
+    alone) over four gloo ranks sharing this card (``pod_rank``), and the
+    default head padding.  In this process: the prompts, the f32 llama
+    twin and the whisper twin (one process each), freed.  The gates:
+    records equal on the four ranks; at ``POD_SERVE`` the dense and the
+    faulted streams, errors and counters and the first logits bit-equal
+    to the ``DP_SHAPE`` run of the same seed (a rank computes the same
+    thing: its two slots, its model shard); the fault fired on pod rank
+    1 alone, at its row 1, and was recovered (its streams the dense
+    run's); K1 and K3 a decode step the layer list's 7 L + 1 and L; the
+    training losses within 1e-5 and grad norms within 1e-4 relative of
+    the twin's, K1 a step the predicted count on every rank, the data
+    group the rank's pod's data line, the batch group the grid, the pod
+    group its pod line, each moment of ``wq`` half its leaf (ZeRO-1 over
+    ``data``); whisper padded to 8 / 8 by default, its losses and grad
+    norms bit-equal to the explicit padding's and within 1e-5 / 1e-4 of
+    the twin's, K1 a step the predicted count; K1 at every distinct call the ranks made, in serving,
+    training and the padded whisper, against its plain version
+    (``pod_k1``).  Ranks time-share one card over gloo: no speed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import spawn
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg = served_config()
+    params, prompts = engine_inputs(dev, cfg=cfg)
+    del params
+    free_memory()
+    data = SyntheticLM(DataConfig(global_batch=TRAIN_B, seq_len=TRAIN_L,
+                                  vocab_size=cfg.vocab_size))
+    twin = pod_train(cfg, Model(cfg).init_params(
+        0, dtype=torch.float32, device=dev),
+        [data.batch(s) for s in range(POD_TRAIN_STEPS)], dev)
+    wcfg = get_config(POD_PAD_ARCH)
+    wtwin = pod_train(wcfg, Model(wcfg).init_params(
+        0, dtype=torch.float32, device=dev), pod_whisper_batches(wcfg), dev)
+    t_spawn = time.perf_counter()
+    outs = spawn.run(pod_rank, 4, prompts, dev.type, device=dev.type)
+    spawn_s = time.perf_counter() - t_spawn
+    calls = {}
+    for o in outs:
+        for sig, where in o.pop("k1_calls").items():
+            calls.setdefault(sig, where)
+    k1 = pod_k1(dev, calls)
+    L = cfg.n_layers
+    r0 = outs[0]
+    dp, pod = r0["serve"]["dp"], r0["serve"]["pod"]
+    need(dp == pod, "pod: the (2, 1, 2) records differ from (2, 2)'s")
+    need(all(np.array_equal(r0["logits"]["dp"][k], r0["logits"]["pod"][k])
+             for k in r0["logits"]["dp"]),
+         "pod: the (2, 1, 2) first logits differ from (2, 2)'s")
+    st = pod["fault"]["stats"]
+    need(st["faults_detected"] >= 1 and st["hard_faults"] == 0
+         and pod["fault"]["streams"] == pod["dense"]["streams"],
+         f"pod: the decode fault was not recovered: {st}")
+    for o in outs:
+        want = [1] if o["pod_rank"] == 1 else [None]
+        need(o["fault_rows_pod"] == want,
+             f"pod rank {o['rank']}: the row fault landed at "
+             f"{o['fault_rows_pod']}, not {want}")
+        t = o["timing"]["pod"]
+        need(t["k1_per_step"] == [7 * L + 1] and t["k3_per_step"] == [L],
+             f"pod rank {o['rank']}: K1/K3 a decode step {t['k1_per_step']}"
+             f"/{t['k3_per_step']}, the layer list predicts "
+             f"{7 * L + 1}/{L}")
+        need(o["rows"] == [2 * o["pod_rank"], 2] and o["batch_group"] == 2,
+             f"pod rank {o['rank']}: rows {o['rows']}")
+        tr = o["train"]
+        p, d = divmod(o["rank"], POD_TRAIN[1])
+        need(tr["groups"] == {"dp": [2 * p, 2 * p + 1], "bp": [0, 1, 2, 3],
+                              "pp": [d, 2 + d]}
+             and tr["moment_shares"]["layers/0/mixer/wq"] == 2
+             and all(k == tr["k1_predicted"] for k in tr["k1"]),
+             f"pod rank {o['rank']}: training groups {tr['groups']}, "
+             f"moment shares {tr['moment_shares']}, K1 {tr['k1']} against "
+             f"{tr['k1_predicted']}")
+        pd, pe = o["pad"]["default"], o["pad"]["explicit"]
+        need(pd["loss"] == pe["loss"] and pd["grad_norm"] == pe["grad_norm"]
+             and pd["heads"] == [POD_PAD_HEADS] * 2
+             and pd["wq"][1] == POD_PAD_HEADS * wcfg.resolved_head_dim
+             // POD_PAD_K
+             and all(k == pd["k1_predicted"] for k in pd["k1"]),
+             f"pod rank {o['rank']}: default padding {pd['loss']} "
+             f"{pd['heads']} {pd['wq']} K1 {pd['k1']} (predicted "
+             f"{pd['k1_predicted']}) against explicit {pe['loss']}")
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    tr, pd = r0["train"], r0["pad"]["default"]
+    gates = {"train_loss_rel": rel(tr["loss"], twin["loss"]),
+             "train_grad_norm_rel": rel(tr["grad_norm"], twin["grad_norm"]),
+             "pad_loss_rel": rel(pd["loss"], wtwin["loss"]),
+             "pad_grad_norm_rel": rel(pd["grad_norm"], wtwin["grad_norm"])}
+    need(max(gates["train_loss_rel"]) <= 1e-5
+         and max(gates["train_grad_norm_rel"]) <= 1e-4
+         and max(gates["pad_loss_rel"]) <= 1e-5
+         and max(gates["pad_grad_norm_rel"]) <= 1e-4
+         and not any(tr["flag"] + pd["flag"]),
+         f"pod: training against the twins: {gates}")
+    res = {"serve_mesh": list(POD_SERVE), "train_mesh": list(POD_TRAIN),
+           "pad_mesh": [1, POD_PAD_K],
+           "config": {"arch": ENGINE_ARCH, "layers": L,
+                      "pad_arch": POD_PAD_ARCH},
+           "serve_equals_dp": True, "first_logits_bit_equal": True,
+           "fault": {"stats": {k: st[k] for k in ("faults_detected",
+                                                  "retries", "hard_faults")},
+                     "rows": {o["rank"]: o["fault_rows_pod"] for o in outs}},
+           "k1_per_decode_step": r0["timing"]["pod"]["k1_per_step"],
+           "k3_per_decode_step": r0["timing"]["pod"]["k3_per_step"],
+           "collectives_per_decode_step":
+               r0["timing"]["pod"]["collectives_per_step"],
+           "decode_step_ms_median": float(np.median(
+               r0["timing"]["pod"]["step_ms"])),
+           "train": {"losses": tr["loss"], "twin": twin["loss"],
+                     "k1_per_step": tr["k1"],
+                     "k1_predicted": tr["k1_predicted"],
+                     "groups": {o["rank"]: o["train"]["groups"]
+                                for o in outs}},
+           "pad": {"losses": pd["loss"], "twin": wtwin["loss"],
+                   "heads": pd["heads"], "wq_shard": pd["wq"],
+                   "k1_per_step": pd["k1"],
+                   "k1_predicted": pd["k1_predicted"]},
+           "k1_checks": {"calls": k1["calls"],
+                         "max_abs_err": k1["max_abs_err"],
+                         "max_rel_err": k1["max_rel_err"]},
+           **gates, "spawn_seconds": spawn_s,
+           "seconds": time.perf_counter() - t0,
+           "note": "four ranks time-sharing one card over gloo: a "
+                   "correctness run, not a data-parallel speed"}
+    emit("pod", **res)
+    return res
+
+
+def _add_pod(kernels, pod) -> None:
+    """The ``pod`` phase's launches on the kernels line: K1 and K3 a
+    decode step at (pod, data, model), K1 a train step at ``POD_TRAIN``
+    and of the padded whisper; K1's checks at the ranks' calls."""
+    kernels[0]["pod_launches_per_step"] = {
+        "decode": pod["k1_per_decode_step"],
+        "train": pod["train"]["k1_per_step"],
+        "pad_train": pod["pad"]["k1_per_step"]}
+    kernels[0]["pod_checks"] = pod["k1_checks"]
+    kernels[2]["pod_launches_per_step"] = {
+        "decode": pod["k3_per_decode_step"]}
 
 
 # the roofline phase's shapes: a decode step of 4 slots at this cursor in
@@ -9709,8 +10259,14 @@ def main(argv=None) -> int:
         dpf = dp_train_families_runs(dev)
         if kernels is not None:
             _add_dp_train_families(kernels, dpf)
-    if "roofline" in phases:
+    if "pod" in phases:
         dpf = None
+        free_memory()
+        pod = pod_runs(dev)
+        if kernels is not None:
+            _add_pod(kernels, pod)
+    if "roofline" in phases:
+        dpf = pod = None
         free_memory()
         rl = roofline_runs(dev)
         if kernels is not None:

@@ -117,6 +117,12 @@ def coverage_scope(kind: str):
     return _Scope(f"flops[{kind}]")
 
 
+def recording() -> bool:
+    """Whether a walker records (the scopes below are null when none
+    does, so a caller may skip the reckoning it would hand them)."""
+    return bool(_WALKERS)
+
+
 def kernel_scope(kernel: str, m: int, k: int, n: int, flops: float,
                  nbytes: float = 0.0):
     """Scope of one fused-kernel call: records one op ``kernel`` of

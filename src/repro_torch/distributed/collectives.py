@@ -9,7 +9,8 @@ axis:
   expert-parallel MoE combine, the masked embedding lookups and a Mamba2
   gated norm's sums of squares;
 - ``gather_last``: a dim sharded over the model axis made whole (the
-  vocab-sharded logits; k/v projections whose kv head is split).
+  vocab-sharded logits; k/v projections whose kv head is split);
+- ``all_reduce_max``: the vocab-parallel loss's row max (no gradient).
 
 Over the data axis:
 
@@ -59,7 +60,7 @@ rank).
 
 ``COUNTS["calls"]`` counts the collectives since ``reset_counts`` (the
 identity calls excepted), ``COUNTS[kind]`` each kind apart: ``model_sum``,
-``model_gather``, ``data_gather``, ``fsdp_gather``, ``lse_combine`` and
+``model_gather``, ``model_max``, ``data_gather``, ``fsdp_gather``, ``lse_combine`` and
 ``flag`` forward; ``data_sum`` (a data-axis ``all_reduce_sum`` and
 ``data_stats``), ``model_grad`` (``copy_to_model``'s backward),
 ``fsdp_grad`` and ``data_grad`` (the data axis's backward sums),
@@ -95,7 +96,7 @@ from repro_torch.analysis import markers
 
 F32 = torch.float32
 
-KINDS = ("model_sum", "model_gather", "data_gather", "fsdp_gather",
+KINDS = ("model_sum", "model_gather", "model_max", "data_gather", "fsdp_gather",
          "lse_combine", "flag", "data_sum", "model_grad", "fsdp_grad",
          "data_grad", "grad_sum", "zero_gather", "world", "checkpoint")
 # a bucket of the train step's gradient all-reduce and ZeRO-1 gather:
@@ -325,6 +326,22 @@ def gather_last(x, tp):
     if not _active(tp):
         return x
     return _gather_any(x, tp, -1, "model_gather")
+
+
+@torch.no_grad()
+def all_reduce_max(x, tp):
+    """The elementwise max of ``x`` over the axis of ``tp``, in f32, with
+    no gradient (a vocab-parallel softmax's shift, which its log-sum-exp
+    does not depend on)."""
+    x = x.detach().to(F32)
+    if not _active(tp):
+        return x
+    import torch.distributed as dist
+
+    x = x.contiguous().clone()
+    if _account(tp, "model_max", "all-reduce", _nbytes(x), x):
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=tp.group)
+    return x
 
 
 def gather_first(x, dp):

@@ -14,6 +14,14 @@ group, or are the identity), and of the whole grid where it holds fewer
 ranks than the world (a restore onto a smaller mesh inside one world:
 the ranks off the grid take no part in its collectives).
 
+A ``(pod, data, model)`` mesh lays ``pod`` out as the reference does:
+outer data parallelism.  The batch splits over ``pod`` x ``data`` (the
+batch group: ``batch_group``, the ranks of one model index), while FSDP
+weights, ZeRO-1 moments and a sequence-sharded cache split over ``data``
+alone and are replicated over ``pod`` (``pod_group``: the ranks that
+differ in their pod index alone).  Without a pod axis wider than one the
+batch group is the data group.
+
 ``virtual_mesh`` builds one rank's view of a grid with no process group
 at all (the dry run's production meshes, ``launch/dryrun.py``): its
 groups are ``collectives.VirtualGroup``s and its devices the meta
@@ -45,6 +53,10 @@ class Mesh:
     rank: int = 0               # this process's rank
     group: object = None        # this rank's model-axis process group
     data_group: object = None   # this rank's data-axis process group
+    pod_group: object = None    # this rank's pod-axis process group
+    # this rank's pod x data plane (the batch); None where it is the
+    # data group or the whole world
+    batch_group: object = None
     # every rank of the grid, where the grid holds fewer ranks than the
     # world (None: the default group)
     grid_group: object = None
@@ -70,6 +82,17 @@ class Mesh:
     @property
     def data_rank(self) -> int:
         return self.coords()["data"] if "data" in self.axis_names else 0
+
+    @property
+    def pod_rank(self) -> int:
+        return self.coords()["pod"] if "pod" in self.axis_names else 0
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's index on the batch (pod-major, as a dim sharded
+        over ("pod", "data") lays its parts out)."""
+        return self.pod_rank * int(self.shape.get("data", 1)) \
+            + self.data_rank
 
     @property
     def device(self) -> torch.device:
@@ -115,10 +138,11 @@ def build_mesh(*, model: int = 1, data: int | None = None,
     by default: this process's world).  Raises ``ValueError`` on
     ``model < 1`` and ``RuntimeError`` when the devices cannot host the
     shape; never clamps ``model``.  Under ``torch.distributed`` this
-    process's rank and its model- and data-axis groups come with the mesh
+    process's rank and its model- and data-axis groups come with the mesh,
+    and with ``pod > 1`` its pod-axis group and its pod x data batch group
     (every rank must build the same mesh: the groups are made
-    collectively, every row of the grid and then every column, in grid
-    order, by every rank).  ``virtual``: rank 0's view of the shape with
+    collectively, every row of the grid, then every column, then every
+    pod line and every batch plane, in grid order, by every rank).  ``virtual``: rank 0's view of the shape with
     no process group (``virtual_mesh``); ``data`` is then required."""
     if virtual:
         if data is None:
@@ -146,17 +170,23 @@ def build_mesh(*, model: int = 1, data: int | None = None,
         return _virtual(grid, axes, devices[:need], 0)
     dist = _dist()
     rank, group, data_group, grid_group = 0, None, None, None
+    pod_group = batch_group = None
     if dist is not None:
         rank = dist.get_rank()
         world = dist.get_world_size()
-        group = _axis_groups(dist, grid, axes.index("model"), rank, world)
-        data_group = _axis_groups(dist, grid, axes.index("data"), rank,
+        group = _axis_groups(dist, grid, (axes.index("model"),), rank,
+                             world)
+        data_group = _axis_groups(dist, grid, (axes.index("data"),), rank,
                                   world)
+        if (pod or 1) > 1:
+            pod_group = _axis_groups(dist, grid, (0,), rank, world)
+            batch_group = _axis_groups(dist, grid, (0, 1), rank, world)
         if 1 < need < world:
             grid_group = dist.new_group(list(range(need)))
     return Mesh(grid=grid, axis_names=axes,
                 devices=tuple(devices[:need]), rank=rank, group=group,
-                data_group=data_group, grid_group=grid_group)
+                data_group=data_group, pod_group=pod_group,
+                batch_group=batch_group, grid_group=grid_group)
 
 
 def virtual_mesh(*, model: int = 1, data: int = 1, pod: int | None = None,
@@ -177,30 +207,39 @@ def _virtual(grid, axes, devices, rank: int) -> Mesh:
 
     pos = tuple(int(i) for i in np.argwhere(grid == rank)[0])
 
-    def line(axis: str):
-        a = axes.index(axis)
-        if grid.shape[a] == 1:
-            return None
+    def line(*names: str):
         idx = list(pos)
-        idx[a] = slice(None)
+        n = 1
+        for a in names:
+            idx[axes.index(a)] = slice(None)
+            n *= grid.shape[axes.index(a)]
+        if n == 1:
+            return None
         return VirtualGroup(grid[tuple(idx)].reshape(-1).tolist())
 
+    pods = "pod" in axes and grid.shape[0] > 1
     return Mesh(grid=grid, axis_names=axes, devices=tuple(devices),
                 rank=rank, group=line("model"), data_group=line("data"),
+                pod_group=line("pod") if pods else None,
+                batch_group=line("pod", "data") if pods else None,
                 grid_group=(VirtualGroup(range(grid.size))
                             if grid.size > 1 else None), virtual=True)
 
 
-def _axis_groups(dist, grid, axis: int, rank: int, world: int):
-    """One process group for each line of ``grid`` along ``axis`` (the
-    ranks that differ in that coordinate alone), made in grid order by
-    every rank; returns this rank's (None where the axis is one wide or
-    spans the whole world)."""
-    n = grid.shape[axis]
+def _axis_groups(dist, grid, axes: tuple, rank: int, world: int):
+    """One process group for each line (one axis) or plane (two) of
+    ``grid`` along ``axes`` (the ranks that differ in those coordinates
+    alone, laid out in the axes' order), made in grid order by every
+    rank; returns this rank's (None where the axes are one wide or span
+    the whole world)."""
+    n = 1
+    for a in axes:
+        n *= grid.shape[a]
     if n == 1 or n >= world:
         return None
     mine = None
-    for line in np.moveaxis(grid, axis, -1).reshape(-1, n):
+    last = tuple(range(grid.ndim - len(axes), grid.ndim))
+    for line in np.moveaxis(grid, axes, last).reshape(-1, n):
         g = dist.new_group([int(r) for r in line])
         if rank in line:
             mine = g

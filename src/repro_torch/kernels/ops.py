@@ -75,7 +75,10 @@ def k1_bytes(m: int, k: int, n: int, dtypes, *, mode: str, bm: int,
 
 def _k1_scope(x2, w, m, k, n, mode, bm, bn, out_dtype, experts=1):
     """The kernel scope of one K1 call (``markers.kernel_scope``): an
-    expert batch folds into m for the FLOPs."""
+    expert batch folds into m for the FLOPs.  With no walker recording,
+    the null scope, the reckoning skipped."""
+    if not markers.recording():
+        return markers.kernel_scope("K1", m, k, n, 0.0)
     return markers.kernel_scope(
         "K1", experts * m, k, n, k1_flops(experts * m, k, n),
         k1_bytes(m, k, n, (x2.element_size(), w.element_size(),

@@ -27,27 +27,35 @@ The cells:
   optimizer shards and the global batch (each data rank takes its rows);
 - prefill: ``Model.prefill`` without ``lengths`` (no host read), a fresh
   batch of B prompts into a dense cache.  Where the batch divides the
-  data axis it runs as a split call (``LayerCtx.rows``: data rank r its
-  own B/d rows and cache slots, the logits gathered over ``data``), the
-  reference's batch sharding and the split decode's mechanism; else every
-  data rank runs the batch (the engine's whole-batch admission);
+  batch ranks (``pod`` x ``data``) it runs as a split call
+  (``LayerCtx.rows``: batch rank r its own B/b rows and cache slots, the
+  logits gathered over the batch), the reference's batch sharding and
+  the split decode's mechanism; else every rank runs the batch (the
+  engine's whole-batch admission);
 - decode: the serving ``ModelRunner.decode`` step, one token a slot at
-  ``pos = seq - 1`` against a seq-deep dense cache, split over ``data``
+  ``pos = seq - 1`` against a seq-deep dense cache, split over the batch
   as the executor lays the slots out.
 
 Decode attention runs through K3 (``ABFTConfig(flash_attention=True)``);
 prefill attention is the chunked attention the serving prefill runs (the
 reference's too), and a train step's the plain attention, as K2 has no
-backward.
+backward; whisper's encoder runs the plain attention too
+(``dryrun_abft``).
 
 Each cell writes ``<arch>__<shape>__<mesh>.json`` with the reference's
 record keys (``hlo_flops_global`` is the per-device FLOPs times the
 ranks; ``lower_s`` is the cell's build, ``compile_s`` its walk) and, in
 place of the reference's ``.hlo.txt.gz``, the walk's records as
 ``.ops.jsonl.gz`` (``roofline/reanalyze.py``, ``roofline/profile.py``).
-A layout the port refuses (``serve/executor.py::check_layout``: a pod
-axis, an unpadded head split) is ``status: "skipped"`` with reason
-``"not ported: <the refusal>"``; any other exception is an ``error``.
+A layout the port refuses (``serve/executor.py::check_layout``: an MLA
+or SSD head split, which no config reaches at ``model=16``) is
+``status: "skipped"`` with reason ``"not ported: <the refusal>"``; any
+other exception is an ``error``.  The multi-pod mesh splits the batch
+over ``pod`` x ``data`` and keeps FSDP, ZeRO-1 and sequence shards on
+``data`` (``distributed/mesh.py``).  Where the rules would split a GQA
+head the cell runs with its heads padded, as serving and training do
+(``executor.layout_config``); its ``model_flops`` count the logical
+heads.
 The terms are predictions from the H100 SXM data sheet
 (``core/hardware.py``), not measurements.
 """
@@ -112,13 +120,16 @@ def check_variant() -> None:
 def dryrun_abft(arch: str, kind: str = "decode") -> ABFTConfig:
     """ABFT policy used inside the dry run's step: intensity-guided
     selection on the H100 (the ProtectionPolicy API), the kernels on
-    their meta route (``markers.kernel_scope``), the fused attention
-    kernels on (decode through K3; a train step's attention runs plain,
-    as K2 has no backward; ``abft=off`` runs no check at all)."""
+    their meta route (``markers.kernel_scope``), decode attention through
+    K3.  A train step's and a prefill's full-sequence attention (whisper's
+    encoder: a serving prefill attends its prompt chunked whatever the
+    flag) runs plain: K2 has no backward, and no K2 takes the encoder's
+    1500 frames, the reference's (non-causal padding asserts) nor the
+    port's.  ``abft=off`` runs no check at all."""
     mode = VARIANT.get("abft", "auto")
     if mode == "off":
         return ABFTConfig(enabled=False)
-    flash = kind != "train"
+    flash = kind == "decode"
     if mode == "auto":
         return ABFTConfig.from_policy(IntensityGuidedPolicy(),
                                       flash_attention=flash)
@@ -160,13 +171,17 @@ def build_cell(arch: str, shape: str, mesh):
     the layout."""
     from repro_torch.models.layers import LayerCtx
     from repro_torch.models.model import Model
-    from repro_torch.serve.executor import MeshExecutor, check_layout
+    from repro_torch.serve.executor import (
+        MeshExecutor,
+        check_layout,
+        layout_config,
+    )
 
     check_variant()
-    cfg = cell_config(arch)
+    cfg = layout_config(cell_config(arch), mesh)
     spec = SHAPES[shape]
-    model = Model(cfg)
     check_layout(cfg, mesh)
+    model = Model(cfg)
     abft = dryrun_abft(arch, spec["kind"])
     B, S = spec["batch"], spec["seq"]
 
@@ -193,7 +208,7 @@ def build_cell(arch: str, shape: str, mesh):
     ex.layout(B, S, paged=False)
     ex.init_dense_cache(B, S)
     ctx = LayerCtx(abft=abft, hints=ex.hints, tp=ex.tp, dp=ex.dp,
-                   cache_split=ex.cache_split)
+                   bp=ex.bp, cache_split=ex.cache_split)
     n = ex.rows[1] if ex.rows is not None else B
 
     if spec["kind"] == "prefill":
@@ -208,7 +223,7 @@ def build_cell(arch: str, shape: str, mesh):
             logits, cache, flag = model.prefill(params, tokens, cache, ctx,
                                                 inputs=inputs)
             if ex.rows is not None:
-                logits = gather_first(logits, ctx.dp)
+                logits = gather_first(logits, ctx.batch)
             return logits, cache, flag
 
         args = (ex.params, tokens, ex.cache, batch)

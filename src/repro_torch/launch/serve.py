@@ -54,8 +54,9 @@ holding its shard of the KV cache or per-slot state: GQA, MLA and
 Mamba2 stacks with dense, MoE or no FFNs (the dense family,
 qwen2-moe-a2.7b, deepseek-v3-671b, mamba2-1.3b, jamba-v0.1-52b); the
 encoder-decoder and vision stacks, and a layout the port does not shard
-(a q head split with no padding: ROADMAP A.3b-ii), exit with the
-``NotImplementedError`` message before any rank starts.  Data-parallel
+(an MLA or SSD head split: ROADMAP A.3b-ii), exit with the
+``NotImplementedError`` message before any rank starts; GQA heads the
+ranks would split are padded (``executor.layout_config``).  Data-parallel
 replicas (``data > 1``) have no flag here, as the reference's CLI has
 none: they serve through ``ServeEngine(mesh=build_mesh(data=d,
 model=k))`` on each rank (``executor.MeshExecutor``).  Rank 0
@@ -215,7 +216,7 @@ def _serve_sharded(args, argv) -> dict:
     ``--mesh`` ranks; rank 0's stats line."""
     from repro_torch.distributed import spawn
     from repro_torch.distributed.mesh import Mesh
-    from repro_torch.serve.executor import check_shardable
+    from repro_torch.serve.executor import check_shardable, layout_config
 
     cfg = get_config(args.arch)
     if args.scale == "smoke":
@@ -226,7 +227,7 @@ def _serve_sharded(args, argv) -> dict:
                     devices=(device,) * args.mesh)
     try:
         Model(cfg)
-        check_shardable(cfg, geometry)
+        check_shardable(layout_config(cfg, geometry), geometry)
     except NotImplementedError as e:
         raise SystemExit(f"error: {e}")
     lines = spawn.run(_serve_rank, args.mesh,

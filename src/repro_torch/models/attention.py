@@ -272,8 +272,8 @@ def _slot_rows(cache_leaf, slots, ctx: LayerCtx):
     local = torch.where(own.reshape((-1,) + (1,) * (local.dim() - 1)),
                         local, torch.zeros((), dtype=local.dtype,
                                            device=local.device))
-    every = gather_first(local, ctx.dp).reshape(
-        (ctx.dp.size,) + tuple(local.shape))
+    every = gather_first(local, ctx.batch).reshape(
+        (ctx.batch.size,) + tuple(local.shape))
     return every[slots // sp.n, torch.arange(len(slots),
                                              device=slots.device)]
 
@@ -486,6 +486,33 @@ def _pad_heads(t, dim: int, KV: int, G: int, KVp: int, Gp: int):
     t4 = torch.nn.functional.pad(
         t4, (0, 0) * (after + 1) + (0, Gp - G, 0, KVp - KV))
     return t4.reshape(shape[:dim] + (KVp * Gp * hd,) + shape[dim + 1:])
+
+
+# a GQA mixer's leaves that head padding lays out again: (dim, whether
+# the dim holds the q heads' groups)
+_PADDED = {"wq": (1, True), "wk": (1, False), "wv": (1, False),
+           "wo": (0, True), "bq": (0, True), "bk": (0, False),
+           "bv": (0, False)}
+
+
+def pad_logical(path: str, t, cfg: ModelConfig):
+    """The leaf at ``path`` (``".../mixer/wq"``) of a padded model's
+    params, zero-padded (``_pad_heads``) where ``t`` holds the logical
+    heads, as ``init_gqa`` pads its draws; ``t`` itself elsewhere (a leaf
+    at the padded or a shard's shape, any other leaf)."""
+    parts = path.split("/")
+    name = parts[-1]
+    if name not in _PADDED or len(parts) < 2 or parts[-2] != "mixer":
+        return t
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    Hp, KVp = eff_counts(cfg)
+    dim, group = _PADDED[name]
+    heads = H if group else KV
+    if t.dim() <= dim or (H, KV) == (Hp, KVp) \
+            or t.shape[dim] != heads * cfg.resolved_head_dim:
+        return t
+    g, gp = (H // KV, Hp // KVp) if group else (1, 1)
+    return _pad_heads(t, dim, KV, g, KVp, gp)
 
 
 def init_gqa(cfg: ModelConfig, w, vec) -> dict:

@@ -28,7 +28,9 @@ splits its slots over ``data``, only the rank's own slots
 says how the dense cache's per-slot leaves lie over the data ranks
 (``CacheSplit``), which the cache writes and reads follow.  A fault's
 logical row on a split call lands on the data rank that owns it, at its
-local row (``dense``).
+local row (``dense``).  Over a ``pod`` axis the batch splits over ``pod``
+x ``data`` (``LayerCtx.bp``; ``LayerCtx.batch``), while FSDP leaves and
+a sequence-sharded cache stay on ``dp``.
 
 Training (``train/train_step.py``) runs each data rank's own rows of the
 global batch (``LayerCtx.rows``) and differentiates through the
@@ -41,7 +43,7 @@ activation's whole gradient.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -160,7 +162,12 @@ class LayerCtx:
     call, None for the hints' ``dp_size`` (a split call holds exactly one
     group, its slots, and sets 1).  ``aux_over_data``: a training
     forward whose data ranks run their own rows, so the MoE load-balance
-    loss takes its means over every data rank's tokens (``moe.py``)."""
+    loss takes its means over every data rank's tokens (``moe.py``).
+    ``bp``: the rank's place on the batch (``pod`` x ``data``), None where
+    that is ``dp`` (no pod axis wider than one; ``batch``).
+    ``vocab_parallel``: the head's logits stay this rank's vocab slice
+    where the rules shard the vocab over ``model`` (a sharded training
+    loss; ``Model.vocab_sharded``), else they are gathered whole."""
 
     abft: ABFTConfig = ABFTConfig()
     fault: ModelFault | None = None
@@ -173,9 +180,16 @@ class LayerCtx:
     rows: tuple | None = None
     moe_groups: int | None = None
     aux_over_data: bool = False
+    bp: TPGroup | None = None
+    vocab_parallel: bool = False
 
     def with_layer(self, idx: int) -> "LayerCtx":
         return dataclasses.replace(self, layer_idx=idx)
+
+    @property
+    def batch(self) -> TPGroup | None:
+        """The group the batch's rows split over: ``bp``, else ``dp``."""
+        return self.bp if self.bp is not None else self.dp
 
 
 def _site_fault(ctx: LayerCtx, site: str) -> FaultSpec | None:
@@ -665,14 +679,26 @@ def per_step(fn, x, *args, **kw):
 
 # ---------------------------------------------------------------- mlp
 
+class Tail(NamedTuple):
+    """A layer's last projection, deferred past the recomputed region of
+    a checkpointed layer (``Model.run_stack``): ``run(inp)`` is the
+    GEMM (its fault site, flag and collectives included) -> (out, flag),
+    which the backward never recomputes."""
+
+    inp: torch.Tensor
+    run: Callable
+
+
 def mlp(x, p, ctx: LayerCtx, act: str = "silu",
-        tags: tuple = ("mlp.up", "mlp.down"), path: str = "ffn"):
+        tags: tuple = ("mlp.up", "mlp.down"), path: str = "ffn",
+        defer: bool = False):
     """SwiGLU (``silu``) or plain GELU MLP; its GEMMs are ABFT-protected.
     The GELU branch (whisper) is ``up`` with its bias ``up_b``, GELU in
     f32 cast back to x's dtype, then ``down`` with ``down_b``; its GELU is
     the tanh approximation, ``jax.nn.gelu``'s default.  ``path``: where
     ``p`` sits below its layer (``"ffn"``, or ``"ffn/shared"`` for an MoE
-    layer's shared experts), which ``tp_par`` reads."""
+    layer's shared experts), which ``tp_par`` reads.  ``defer``: return
+    (``Tail`` of ``down``, the up GEMMs' flag) in place of (out, flag)."""
     up_tag, down_tag = tags
     col = tp_par(ctx, f"{path}/up", "col")
     row = tp_par(ctx, f"{path}/down", "row")
@@ -686,8 +712,14 @@ def mlp(x, p, ctx: LayerCtx, act: str = "silu",
                       tag=up_tag, par=col)
         h = gelu(h.to(F32)).to(x.dtype)
         flags = [f1]
-    out, f3 = dense(h, p["down"], ctx, "mlp_down", b=p.get("down_b"),
-                    tag=down_tag, par=row)
+
+    def down(t):
+        return dense(t, p["down"], ctx, "mlp_down", b=p.get("down_b"),
+                     tag=down_tag, par=row)
+
+    if defer:
+        return Tail(h, down), or_flags(*flags)
+    out, f3 = down(h)
     return out, or_flags(*flags, f3)
 
 

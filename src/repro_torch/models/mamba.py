@@ -49,6 +49,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import copy_to_model
 from repro_torch.models.layers import (
     LayerCtx,
+    Tail,
     dense,
     gated_rms_norm,
     or_flags,
@@ -171,14 +172,21 @@ def _ssd_scan(xh, dt, A, Bm, Cm, chunk: int):
     return y, S
 
 
-def _mix_out(y, xh, z, x, p, cfg: ModelConfig, ctx: LayerCtx):
-    """Skip term ``D * x``, the gated norm and the output projection."""
+def _mix_out(y, xh, z, x, p, cfg: ModelConfig, ctx: LayerCtx,
+             defer: bool = False):
+    """Skip term ``D * x``, the gated norm and the output projection
+    (``defer``: its ``Tail`` and no flag in place of (out, flag))."""
     y = y + p["D"][:, None] * xh.to(F32)
     y = y.reshape(*x.shape[:-1], p["out_norm"].shape[0]).to(x.dtype)
     row = tp_par(ctx, "mixer/out_proj", "row")
     y = gated_rms_norm(y, z, p["out_norm"], cfg.norm_eps,
                        tp=ctx.tp if row is not None else None)
-    return dense(y, p["out_proj"], ctx, "ssm_out", tag="ssm.out", par=row)
+
+    def out(t):
+        return dense(t, p["out_proj"], ctx, "ssm_out", tag="ssm.out",
+                     par=row)
+
+    return (Tail(y, out), None) if defer else out(y)
 
 
 def _heads_tp(ctx: LayerCtx):
@@ -206,15 +214,17 @@ def _ssm_inputs(xs, bc_in, dt, p, cfg: ModelConfig, valid=None, tp=None):
     return xh, bc[..., :n], bc[..., n:], dt, A
 
 
-def mamba_forward(x, p, cfg: ModelConfig, ctx: LayerCtx):
+def mamba_forward(x, p, cfg: ModelConfig, ctx: LayerCtx,
+                  defer: bool = False):
     """Full-sequence mixer (training and scoring).  x: (B, L, D) ->
-    (out (B, L, D), flag)."""
+    (out (B, L, D), flag); ``defer``: (the output projection's ``Tail``,
+    the flag before it)."""
     z, xs, Bm, Cm, dt, f1 = _project_in(x, p, cfg, ctx)
     xh, Bm, Cm, dt, A = _ssm_inputs(xs, torch.cat([Bm, Cm], dim=-1), dt, p,
                                     cfg, tp=_heads_tp(ctx))
     y, _ = _ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
-    out, f2 = _mix_out(y, xh, z, x, p, cfg, ctx)
-    return out, or_flags(f1, f2)
+    out, f2 = _mix_out(y, xh, z, x, p, cfg, ctx, defer)
+    return out, (f1 if defer else or_flags(f1, f2))
 
 
 def mamba_prefill(x, p, cfg: ModelConfig, ctx: LayerCtx, cache, slots=None,

@@ -384,6 +384,16 @@ class Model:
             return ("audio", "enc_input") if cfg.n_mels else ("enc_input",)
         return ("images",) if cfg.vision_dim else ()
 
+    def for_mesh(self, mesh) -> "Model":
+        """This model as ``mesh`` lays it out: ``self``, or a model of
+        ``executor.layout_config``'s config (GQA heads padded where the
+        rules would split one).  Its params are the logical model's,
+        zero-padded (``shard_params`` pads a logical tree)."""
+        from repro_torch.serve.executor import layout_config
+
+        cfg = layout_config(self.cfg, mesh)
+        return self if cfg is self.cfg else Model(cfg)
+
     # -------------------------------------------------- init
     def init_params(self, seed: int = 0, dtype=torch.bfloat16,
                     device="cpu", mesh=None) -> dict:
@@ -416,13 +426,18 @@ class Model:
         splits a dim other than the first: ``embed`` (vocab, d) over
         ``("model", "data")``, the experts' D).  So no more than one
         leaf's f32 draw of ``DRAW_SLICE`` elements is ever resident beside
-        the shard (``draw_transient``)."""
+        the shard (``draw_transient``).  The shard is of ``for_mesh``'s
+        model: heads padded where the mesh needs it."""
         from repro_torch.distributed.sharding import (
             map_with_path,
             param_specs,
             shard_slices,
         )
 
+        if mesh is not None:
+            laid = self.for_mesh(mesh)
+            if laid is not self:
+                return laid.init_params(seed, dtype, device, mesh=mesh)
         tree = self._param_tree()
         gen = torch.Generator(device=device).manual_seed(int(seed))
         if mesh is not None:
@@ -614,7 +629,7 @@ class Model:
     def apply_layer(self, x, lp, ctx: LayerCtx, positions, mode: str, cache,
                     pos=None, slots=None, lengths=None, tables=None,
                     prefix_lens=None, spans=None, window=None, mem=None,
-                    causal: bool = True):
+                    causal: bool = True, defer: bool = False):
         """One decoder layer (mode: full | prefill | decode | verify), its
         mixer GQA, MLA or Mamba2 as its params say (``_mamba``).
         ``full`` is causal attention over the whole sequence with no cache
@@ -634,12 +649,23 @@ class Model:
         loss, None otherwise (only ``forward`` reads it); cache the
         layer's cache after the call: the same dict, written in place,
         except after a Mamba2 decode step, whose next state comes back in
-        a new dict (None in mode ``full``)."""
+        a new dict (None in mode ``full``).  ``defer`` (mode ``full``):
+        (x, flag, aux, cache, tail), the layer's last projection left out
+        where it is a dense FFN's ``down`` or, in a Mamba2 layer with
+        neither FFN nor cross layer, the SSD ``out_proj``: ``tail`` its
+        ``Tail`` (None elsewhere), the layer's output ``x + tail.run(
+        tail.inp)[0]`` (``run_stack``'s remat)."""
         cfg = self.cfg
         lp = fsdp_view(lp, ctx)
         nrm = functools.partial(per_step, norm) if mode == "verify" else norm
         h = nrm(x, lp["mixer_norm"], cfg.norm, cfg.norm_eps)
+        tail = None
         if "A_log" in lp["mixer"]:
+            if defer and mode == "full" and "ffn" not in lp \
+                    and "cross" not in lp:
+                tail, f = mb.mamba_forward(h, lp["mixer"], cfg, ctx,
+                                           defer=True)
+                return x, f, None, cache, tail
             a, f, cache = self._mamba(h, lp["mixer"], ctx, mode, cache,
                                       slots, lengths, prefix_lens)
         else:
@@ -681,10 +707,15 @@ class Model:
             h = nrm(x, lp["ffn_norm"], cfg.norm, cfg.norm_eps)
             if "router" in lp["ffn"]:
                 o, f2, aux = moe_mod.moe_forward(h, lp["ffn"], cfg, ctx)
+            elif defer:
+                tail, f2 = mlp(h, lp["ffn"], ctx, act=cfg.act, defer=True)
             else:
                 o, f2 = mlp(h, lp["ffn"], ctx, act=cfg.act)
-            x = x + o
+            if tail is None:
+                x = x + o
             f = or_flags(f, f2)
+        if defer:
+            return x, f, aux, cache, tail
         return x, f, aux, cache
 
     def _cross(self, x, lp, ctx: LayerCtx, mode: str, cache, mem, slots):
@@ -748,11 +779,15 @@ class Model:
         ``full``.  ``remat``
         recomputes each layer in the backward pass instead of keeping its
         activations (the reference's ``jax.checkpoint`` per layer); it
-        changes no number and applies only while autograd records.  On a
-        sharded rank (``ctx.tp`` or ``ctx.dp``) the recompute runs the
-        whole layer (no early stop), so every rank re-issues the layer's
-        collectives in the same order, whatever a fault added to one
-        rank's graph.
+        changes no number and applies only while autograd records.  The
+        recomputed region ends at the input of the layer's last projection
+        (``apply_layer``'s ``defer``), which runs outside it: the backward
+        reads that GEMM's input, never its output, so XLA's dead-code
+        elimination drops its recompute in the reference, and here it is
+        never recomputed.  On a sharded rank (``ctx.tp``, ``ctx.dp`` or
+        ``ctx.bp``) the recompute runs the whole region (no early stop),
+        so every rank re-issues the layer's collectives in the same
+        order, whatever a fault added to one rank's graph.
         Returns (x, flag, aux, caches): aux the MoE layers' load-balance
         losses summed (0 without any); caches a new list of each layer's
         cache after the call (``apply_layer``), None in mode ``full``."""
@@ -760,7 +795,8 @@ class Model:
         full = caches is None
         caches = [None] * len(layers) if full else caches
         remat = remat and torch.is_grad_enabled()
-        sharded = any(g is not None and g.size > 1 for g in (ctx.tp, ctx.dp))
+        sharded = any(g is not None and g.size > 1
+                      for g in (ctx.tp, ctx.dp, ctx.bp))
         flags, auxes, out = [], [], []
         for i, (lp, cache) in enumerate(zip(layers, caches)):
             kw = dict(pos=pos, slots=slots, lengths=lengths, tables=tables,
@@ -770,8 +806,13 @@ class Model:
             with layer_scope(ctx.site_prefix, i):
                 if remat:
                     with set_checkpoint_early_stop(not sharded):
-                        x, f, a, c = checkpoint(self.apply_layer, *args,
-                                                use_reentrant=False, **kw)
+                        x, f, a, c, tail = checkpoint(
+                            self.apply_layer, *args, use_reentrant=False,
+                            defer=True, **kw)
+                    if tail is not None:
+                        o, f2 = tail.run(tail.inp)
+                        x = x + o
+                        f = or_flags(f, f2)
                 else:
                     x, f, a, c = self.apply_layer(*args, **kw)
             flags.append(f)
@@ -782,17 +823,26 @@ class Model:
                else torch.zeros((), dtype=F32, device=x.device))
         return x, torch.stack(flags).any(), aux, None if full else out
 
+    def vocab_sharded(self, ctx) -> bool:
+        """Whether the head's logits under ``ctx`` are this rank's vocab
+        slice (rank r's the r-th of ``tp.size`` equal slices): a context
+        that asks for them (``LayerCtx.vocab_parallel``) on a rank whose
+        head the rules split over ``model``."""
+        name = "embed" if self.cfg.tie_embeddings else "lm_head"
+        return ctx.vocab_parallel and tp_par(ctx, name, "col") is not None
+
     def _head(self, params, x, ctx):
         """f32 logits (..., V) and the head's flag; column-parallel over
-        the vocab under tensor parallelism, the logits gathered whole; an
-        FSDP head gathered over the data axis before its GEMM."""
+        the vocab under tensor parallelism, the logits gathered whole
+        (this rank's slice where ``vocab_sharded``); an FSDP head gathered
+        over the data axis before its GEMM."""
         tied = self.cfg.tie_embeddings
         name = "embed" if tied else "lm_head"
         w = fsdp_leaf(params[name], ctx, name)
         w = w.t().to(x.dtype) if tied else w
         par = tp_par(ctx, name, "col")
         logits, flag = dense(x, w, ctx, "lm_head", out_dtype=F32, par=par)
-        if par is not None:
+        if par is not None and not ctx.vocab_parallel:
             logits = gather_last(logits, ctx.tp)
         return logits, flag
 
@@ -817,7 +867,9 @@ class Model:
         ``param_specs`` (of ``init_params``' full shapes) at this process's
         mesh position, in storage of its own (``_cut``).  A leaf already
         at its shard's shape (a tree from ``init_params(mesh=)``) is kept
-        as it is; any other shape raises ``ValueError``."""
+        as it is; under head padding a leaf at the logical model's shape
+        is zero-padded first (``attention.pad_logical``); any other shape
+        raises ``ValueError``."""
         from repro_torch.distributed.sharding import (
             map_with_path,
             param_specs,
@@ -832,8 +884,12 @@ class Model:
                       param_specs(self.cfg, tree, mesh))
         map_with_path(lambda ps, leaf: full.__setitem__(ps, leaf.shape),
                       tree)
+        padded = self.cfg.eff_heads != self.cfg.n_heads \
+            or self.cfg.eff_kv_heads != self.cfg.n_kv_heads
 
         def one(ps, t):
+            if padded:
+                t = attn.pad_logical(ps, t, self.cfg)
             shape = tuple(t.shape)
             if shape == full[ps]:
                 return _cut(t, shard_slices(flat[ps], shape, mesh, coords))

@@ -152,10 +152,11 @@ def moe_forward(x, p, cfg: ModelConfig, ctx: LayerCtx):
     # switch-style load balance over the call's tokens
     me = probs.mean(dim=0)
     ce = torch.nn.functional.one_hot(topk_i, E).to(F32).sum(1).mean(0)
-    if ctx.aux_over_data and ctx.dp is not None and ctx.dp.size > 1:
-        # every data rank routes as many tokens: the global means are
+    bg = ctx.batch
+    if ctx.aux_over_data and bg is not None and bg.size > 1:
+        # every batch rank routes as many tokens: the global means are
         # the ranks' means averaged
-        mc = all_reduce_sum(torch.stack([me, ce]), ctx.dp) / ctx.dp.size
+        mc = all_reduce_sum(torch.stack([me, ce]), bg) / bg.size
         me, ce = mc[0], mc[1]
     loss = E * torch.sum(me * ce) / K
     # each token's experts in ascending id: the combine's summation order;

@@ -250,6 +250,9 @@ class ServeEngine:
                                          dtype=dtype, device=self.device,
                                          hints=hints)
             self.device = self.executor.device
+            # the model as the mesh lays it out (heads padded where the
+            # rules would split one: ``Model.for_mesh``)
+            model = self.model = self.executor.model
         else:
             self.executor = LocalExecutor(model, params, dtype=dtype,
                                           device=self.device, hints=hints)
@@ -274,7 +277,7 @@ class ServeEngine:
             level_cfgs = (abft,)
         self._level_ctx = tuple(
             LayerCtx(abft=c, hints=self.executor.hints, tp=self.executor.tp,
-                     dp=self.executor.dp,
+                     dp=self.executor.dp, bp=self.executor.bp,
                      cache_split=self.executor.cache_split)
             for c in level_cfgs)
         self.protection_level = 0

@@ -58,12 +58,23 @@ generators, and the engine's protection plan.
     head) and Mamba2 mixers with dense FFNs, MoE FFNs (``models/moe.py``:
     expert-parallel when the experts divide the axis, else each expert's
     FFN dim sliced) or none.  Cross-attention, encoder-decoder and vision
-    stacks, a ``pod`` axis wider than 1, and a layout that splits a q
-    head or an SSD head raise ``NotImplementedError`` (ROADMAP
-    A.3b-ii); so does speculation over a sequence-sharded cache.
+    stacks, and a layout that splits an MLA or an SSD head raise
+    ``NotImplementedError`` (ROADMAP A.3b-ii); so does speculation over a
+    sequence-sharded cache.
+
+    A ``(pod, data, model)`` mesh splits the slots over ``pod`` x
+    ``data`` (the batch group), as the reference's ``batch_axes`` do,
+    while FSDP leaves and a sequence-sharded cache split over ``data``
+    alone (``distributed/mesh.py``).  Where the rules would split a GQA q
+    head, or kv heads neither divide the model axis nor are divided by
+    it, the executor serves the model with its heads padded
+    (``layout_config``, ``Model.for_mesh``): a logical params tree is
+    padded as it is sharded, and the plan stays at logical heads.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -116,7 +127,8 @@ class LocalExecutor:
     mesh = None
     model_parallel = 1
     data_parallel = 1
-    tp = dp = world = None
+    batch_parallel = 1
+    tp = dp = bp = world = None
     # the logical slots a split call runs (lo, n), and the dense cache's
     # layout over the data ranks (``layers.CacheSplit``): None, whole
     rows = None
@@ -178,30 +190,66 @@ SHARDABLE_TAGS = frozenset({"attn:dense:0", "attn:moe:0", "mla:dense:0",
 LAYOUT_TAGS = SHARDABLE_TAGS | {"attn:dense:1"}
 
 
+def _splits_head(n: int, hd: int, k: int) -> bool:
+    """Whether the rules cut one of ``n`` heads of ``hd`` over ``k``
+    ranks (the columns divide the axis, the heads do not)."""
+    return (n * hd) % k == 0 and n % k != 0
+
+
+def layout_config(cfg, mesh):
+    """``cfg`` as the port lays it out over ``mesh``: where the rules
+    would split a GQA q head over the model axis, or kv heads neither
+    divide the axis nor are divided by it, the heads padded
+    (``pad_heads_to``/``pad_kv_heads_to``, ``attention.eff_counts``) to
+    the least counts that fit: kv heads to the next multiple of the axis
+    where they must pad, then q heads to the least multiple of the kv
+    heads, at least the logical group, that the axis does not cut.  The
+    one place serving (``MeshExecutor``), training (``train_step.
+    placement``) and the dry run pad heads (``Model.for_mesh``).  ``cfg``
+    itself where nothing splits, where it has no GQA layer, and where it
+    pads its heads already: an explicit padding wins."""
+    import dataclasses
+
+    k = int(mesh.shape.get("model", 1))
+    if k == 1 or cfg.pad_heads_to or cfg.pad_kv_heads_to \
+            or not any(t.startswith("attn") for t in layer_tags(cfg)):
+        return cfg
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    kv_split = _splits_head(KV, hd, k) and k % KV != 0
+    if not (_splits_head(H, hd, k) or kv_split):
+        return cfg
+    KVp = -(-KV // k) * k if kv_split else KV
+    Gp = max(H // KV, -(-H // KVp))
+    while _splits_head(KVp * Gp, hd, k):
+        Gp += 1
+    return dataclasses.replace(cfg, pad_heads_to=KVp * Gp,
+                               pad_kv_heads_to=KVp)
+
+
 def check_layout(cfg, mesh) -> None:
     """Raise ``NotImplementedError`` unless the rules lay ``cfg`` out over
-    ``mesh`` as the port runs it (``model > 1`` or ``data > 1``): GQA or
-    MLA attention or Mamba2 mixers with dense, MoE or no FFNs, cross
-    layers over a memory (``LAYOUT_TAGS``), at most one MTP head, no
-    ``pod`` axis wider than 1; q heads (after TP head padding,
-    ``eff_counts``) that divide the model axis, kv heads that divide it
-    or that it divides, and SSD heads that divide it wherever the rules
-    split ``d_inner``; a cross layer's unpadded heads likewise.  What
-    stays refused names its ROADMAP item."""
+    ``mesh`` as the port runs it (``model > 1``, ``data > 1`` or ``pod >
+    1``): GQA or MLA attention or Mamba2 mixers with dense, MoE or no
+    FFNs, cross layers over a memory (``LAYOUT_TAGS``), at most one MTP
+    head; q heads (after TP head padding, ``eff_counts``: ``cfg`` as
+    ``layout_config`` pads it) that divide the model axis, kv heads that
+    divide it or that it divides, and MLA and SSD heads that divide it
+    wherever the rules split them; a cross layer's unpadded heads
+    likewise.  What stays refused names its ROADMAP item."""
     from repro_torch.models.attention import eff_counts
 
     k = int(mesh.shape["model"])
     tags = set(layer_tags(cfg))
-    if not tags <= LAYOUT_TAGS or cfg.mtp_depth > 1:
+    if cfg.mtp_depth > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: mtp_depth={cfg.mtp_depth}: one MTP head is "
+            f"ported; ROADMAP A.3")
+    if not tags <= LAYOUT_TAGS:
         raise NotImplementedError(
             f"sharding {cfg.name} ({sorted(tags)}): GQA, MLA and Mamba2 "
             f"mixers with dense, MoE or no FFNs, cross layers and one MTP "
             f"head shard over a mesh")
-    if any(mesh.shape[a] > 1 for a in mesh.axis_names
-           if a not in ("data", "model")):
-        raise NotImplementedError(
-            f"sharding over {mesh.shape}: a pod axis is not ported; the "
-            f"mesh must be (data=d, model=k); ROADMAP A.3b-ii")
     if any(t.startswith("mla") for t in tags):
         if cfg.n_heads % k:
             raise NotImplementedError(
@@ -215,12 +263,12 @@ def check_layout(cfg, mesh) -> None:
     if any(t.endswith(":1") for t in tags):
         heads.append((cfg.n_heads, cfg.n_kv_heads))
     for H, KV in heads:
-        if (H * hd) % k == 0 and H % k:
+        if _splits_head(H, hd, k):
             raise NotImplementedError(
                 f"{cfg.name}: the rules split a q head over model={k} "
                 f"({H} heads; pad_heads_to pads them to a multiple); "
                 f"ROADMAP A.3b-ii")
-        if (KV * hd) % k == 0 and KV % k and k % KV:
+        if _splits_head(KV, hd, k) and k % KV:
             raise NotImplementedError(
                 f"{cfg.name}: {KV} kv heads over model={k} neither divide "
                 f"nor are divided by the axis; ROADMAP A.3b-ii")
@@ -293,19 +341,34 @@ def fsdp_dims(specs) -> dict:
     return out
 
 
-def axis_groups(model: Model, mesh) -> tuple:
-    """This rank's ``TPGroup`` on each axis of a sharded ``mesh``: (tp,
-    dp), each None where its axis is one wide.  ``tp.sharded``: the
-    leaves the rules split over ``model`` (``sharded_paths``);
-    ``dp.sharded``/``dp.dims``: those they split over ``data`` (FSDP,
-    ``fsdp_dims``)."""
+class AxisGroups(NamedTuple):
+    """This rank's ``TPGroup`` on each axis of a sharded mesh, each None
+    where it is one wide: ``tp`` over ``model``; ``dp`` over ``data``
+    (FSDP leaves, ZeRO-1 slices, a sequence-sharded cache); ``bp`` over
+    ``pod`` x ``data``, the batch (a split call's rows, the loss's sums,
+    the gradients of leaves ``data`` does not split), ``dp`` itself
+    without a pod axis wider than one; ``pp`` over ``pod`` alone (the
+    gradients of the leaves ``data`` splits)."""
+
+    tp: object
+    dp: object
+    bp: object
+    pp: object
+
+
+def axis_groups(model: Model, mesh) -> AxisGroups:
+    """This rank's groups on a sharded ``mesh`` (``AxisGroups``).
+    ``tp.sharded``: the leaves the rules split over ``model``
+    (``sharded_paths``); ``dp.sharded``/``dp.dims``: those they split over
+    ``data`` (FSDP, ``fsdp_dims``)."""
     from repro_torch.distributed.collectives import TPGroup, backend_of
     from repro_torch.distributed.sharding import param_specs
 
     k = int(mesh.shape["model"])
     d = int(mesh.shape.get("data", 1))
+    pods = int(mesh.shape.get("pod", 1))
     specs = param_specs(model.cfg, model.param_shapes(), mesh)
-    tp = dp = None
+    tp = dp = pp = None
     if k > 1:
         tp = TPGroup(rank=mesh.model_rank, size=k, group=mesh.group,
                      backend=backend_of(mesh.group),
@@ -315,7 +378,14 @@ def axis_groups(model: Model, mesh) -> tuple:
         dp = TPGroup(rank=mesh.data_rank, size=d, group=mesh.data_group,
                      backend=backend_of(mesh.data_group),
                      sharded=frozenset(dims), axis="data", dims=dims)
-    return tp, dp
+    bp = dp
+    if pods > 1:
+        pp = TPGroup(rank=mesh.pod_rank, size=pods, group=mesh.pod_group,
+                     backend=backend_of(mesh.pod_group), axis="pod")
+        bp = TPGroup(rank=mesh.batch_rank, size=pods * d,
+                     group=mesh.batch_group,
+                     backend=backend_of(mesh.batch_group), axis="batch")
+    return AxisGroups(tp, dp, bp, pp)
 
 
 class MeshExecutor(LocalExecutor):
@@ -330,16 +400,17 @@ class MeshExecutor(LocalExecutor):
     device) needs no process group and is checked by ``check_layout``
     alone: the dry run drives ``Model.prefill``/``decode`` with the
     memory inputs the engine does not pass.  Its collectives take meta
-    tensors only."""
+    tensors only.
+
+    ``model`` is the executor's model as the mesh lays it out
+    (``Model.for_mesh``: heads padded where the rules would split one);
+    the engine serves through it."""
 
     def __init__(self, model: Model, params, *, mesh, dtype, device,
                  hints=None):
         import torch.distributed as dist
 
-        from repro_torch.distributed.collectives import (
-            grid_group,
-            world_group,
-        )
+        from repro_torch.distributed.collectives import grid_group
         from repro_torch.distributed.mesh import (
             build_mesh,
             make_hints,
@@ -363,9 +434,11 @@ class MeshExecutor(LocalExecutor):
         d = int(mesh.shape.get("data", 1))
         self.mesh = mesh
         self.model_parallel, self.data_parallel = k, d
+        self.batch_parallel = d * int(mesh.shape.get("pod", 1))
+        model = model.for_mesh(mesh)
         if hints is None:
             hints = make_hints(model.cfg, mesh)
-        self.sharded = k > 1 or d > 1
+        self.sharded = mesh.grid.size > 1
         if self.sharded:
             if mesh.virtual:
                 check_layout(model.cfg, mesh)
@@ -377,33 +450,35 @@ class MeshExecutor(LocalExecutor):
                         f"runs one process a rank; start them with "
                         f"repro_torch.distributed.spawn")
             device = mesh.device
-            self.tp, self.dp = axis_groups(model, mesh)
-            self.world = grid_group(mesh) if mesh.virtual else world_group()
+            self.tp, self.dp, self.bp, _ = axis_groups(model, mesh)
+            # every rank of the grid: the flags' OR (the world where the
+            # grid is the world; a grid of fewer ranks serves alone)
+            self.world = grid_group(mesh)
             params = model.shard_params(params, mesh)
         super().__init__(model, params, dtype=dtype, device=device,
                          hints=hints)
 
     def layout(self, slots: int, max_len: int, paged: bool) -> None:
-        """Where the slots divide the data axis, rank r holds and runs
-        slots [r B/d, (r + 1) B/d) (``rows``; a dense cache's per-slot
-        leaves and every per-slot state split so); with fewer slots than
-        ranks a dense cache's positions split instead, where the axis
-        divides ``max_len`` (a paged pool never splits); else every data
-        rank holds everything (``cache_specs``' rules, read off its
+        """Where the slots divide the batch (``pod`` x ``data``: b ranks),
+        batch rank r holds and runs slots [r B/b, (r + 1) B/b) (``rows``;
+        a dense cache's per-slot leaves and every per-slot state split
+        so); with fewer slots than batch ranks a dense cache's positions
+        split over ``data`` instead, where that axis divides ``max_len``
+        (a paged pool never splits); else every batch rank holds
+        everything (``cache_specs``' rules, read off its
         ``sanitize_spec``)."""
         from repro_torch.models.layers import CacheSplit
 
-        d = self.data_parallel
-        if d == 1:
+        b, d = self.batch_parallel, self.data_parallel
+        if b == 1:
             return
-        r = self.mesh.data_rank
-        if slots % d == 0:
-            n = slots // d
+        if slots % b == 0:
+            r, n = self.mesh.batch_rank, slots // b
             self.rows = (r * n, n)
             self.cache_split = CacheSplit("slot", r * n, n)
-        elif slots < d and not paged and max_len % d == 0:
+        elif slots < b and d > 1 and not paged and max_len % d == 0:
             n = max_len // d
-            self.cache_split = CacheSplit("seq", r * n, n)
+            self.cache_split = CacheSplit("seq", self.mesh.data_rank * n, n)
 
     def local_cells(self, cells, paged: bool):
         """The rank's own cells of ``cells`` at their local index: the

@@ -95,7 +95,7 @@ class ModelRunner:
             dataclasses.replace(self.ctx, fault=fault), tok, pos, tables)
         logits, new_cache, flag = self.model.decode(p, tok, cache, pos, ctx,
                                                     block_tables=tables)
-        logits = gather_first(logits, ctx.dp) if self.rows else logits
+        logits = gather_first(logits, ctx.batch) if self.rows else logits
         nxt = self.sample(logits[:, 0, :], gens)
         nxt = torch.where(mask, nxt, torch.full_like(nxt, -1))
         return nxt, or_flag(flag, self.world), new_cache
@@ -150,5 +150,5 @@ class ModelRunner:
                                           decode_rows=toks.shape[0]))
         logits, _, flag = self.model.verify(p, toks, cache, pos, ctx, valid,
                                             block_tables=tables)
-        logits = gather_first(logits, ctx.dp) if self.rows else logits
+        logits = gather_first(logits, ctx.batch) if self.rows else logits
         return logits, or_flag(flag, self.world)

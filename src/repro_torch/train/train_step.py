@@ -9,8 +9,8 @@ their backward is plain ``torch.matmul``, unprotected, as the reference's
 XLA backward of its emulation is.  The flag of the *forward* pass is in
 the metrics; the trainer re-executes a flagged step.
 
-Over a ``(data, model)`` port mesh (``mesh=``, built by
-``distributed.mesh.build_mesh``; the reference's step runs under an
+Over a ``(data, model)`` or ``(pod, data, model)`` port mesh (``mesh=``,
+built by ``distributed.mesh.build_mesh``; the reference's step runs under an
 ambient ``with mesh:``), every rank runs this step on its shard of the
 params (``Model.shard_params`` or ``init_params(mesh=)``) and its
 optimizer state (``init_opt_state(shards=)``), the same global batch in
@@ -28,7 +28,17 @@ hand (``Placement``):
   gradients are summed over ``data`` (f32, bucketed:
   ``collectives.sum_grads``) before the update;
 - the flag is OR-ed over every rank of the mesh, so every rank takes the
-  same retry decision; the update is ZeRO-1 (``optimizer.Shards``).
+  same retry decision; the update is ZeRO-1 (``optimizer.Shards``);
+- under a ``model`` axis the loss is vocab-parallel (``_logp``): each
+  rank keeps its vocab slice of the logits and the MTP head's, and only
+  each row's max, sum of exponentials and label logit cross the axis.
+
+With a ``pod`` axis the batch (the rows, the loss's sums, the aux
+loss's means and the gradient sums of leaves ``data`` does not split)
+spans ``pod`` x ``data``, while FSDP, ZeRO-1 and sequence shards stay on
+``data`` and are replicated over ``pod``, as the reference's specs lay
+them out; an FSDP leaf's gradient is then summed over ``pod``.  Heads
+are padded where the rules would split one (``Model.for_mesh``).
 
 Sharded training covers every layer kind the rules lay out
 (``executor.check_layout``): GQA and MLA attention (MLA with its MTP
@@ -88,32 +98,42 @@ def _axes(spec) -> set:
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
-    """This rank's place in sharded training: the ``mesh``, its model-
-    and data-axis groups ``tp``/``dp`` and ``world`` (every rank of the
+    """This rank's place in sharded training: the ``mesh``, the ``model``
+    the step runs (``Model.for_mesh``: heads padded where the rules
+    would split one), its groups (``executor.AxisGroups``: ``tp`` over
+    ``model``, ``dp`` over ``data``, ``bp`` over the batch, ``pod`` x
+    ``data``, and ``pp`` over ``pod``) and ``world`` (every rank of the
     mesh), the ``hints``, the optimizer's ``shards`` (``optimizer.
-    Shards``) and ``summed``, the leaves (tree order) whose gradients are
-    summed over ``data`` (every leaf not split there: an FSDP leaf's
-    gradient comes back from its gather's backward already summed)."""
+    Shards``: ZeRO-1 over ``data``, replicated over ``pod``) and
+    ``summed``, the leaves (tree order) whose gradients are summed over
+    the batch (every leaf not split over ``data``); an FSDP leaf's
+    gradient comes back from its gather's backward summed over ``data``
+    and is then summed over ``pod`` (``pod_summed``)."""
 
     mesh: object
+    model: Model
     tp: object
     dp: object
+    bp: object
+    pp: object
     world: object
     hints: object
     shards: opt_lib.Shards
     summed: tuple
+    pod_summed: tuple
 
     @property
     def data(self) -> int:
-        return self.dp.size if self.dp is not None else 1
+        """The batch's width: ``pod`` x ``data``."""
+        return self.bp.size if self.bp is not None else 1
 
     def rows(self, b: int) -> tuple:
-        """(lo, n): this data rank's rows of a batch of ``b`` rows."""
+        """(lo, n): this batch rank's rows of a batch of ``b`` rows."""
         if b % self.data:
             raise ValueError(f"a batch of {b} rows does not split over "
-                             f"data={self.data}")
+                             f"the batch's {self.data} ranks")
         n = b // self.data
-        return self.shards.data_rank * n, n
+        return self.mesh.batch_rank * n, n
 
 
 def placement(model: Model, mesh, hints=None) -> Placement | None:
@@ -131,15 +151,18 @@ def placement(model: Model, mesh, hints=None) -> Placement | None:
 
     if mesh is None or mesh.grid.size == 1:
         return None
+    model = model.for_mesh(mesh)
     cfg = model.cfg
     check_trainable(cfg, mesh)
     hints = hints if hints is not None else make_hints(cfg, mesh)
     d = int(mesh.shape.get("data", 1))
-    if hints.dp_size % d:
+    b = d * int(mesh.shape.get("pod", 1))
+    if hints.dp_size % b:
         raise NotImplementedError(
-            f"hints.dp_size={hints.dp_size} over data={d}: each data rank "
-            f"must hold whole MoE dispatch groups of the global batch")
-    tp, dp = axis_groups(model, mesh)
+            f"hints.dp_size={hints.dp_size} over a batch of {b} ranks: "
+            f"each batch rank must hold whole MoE dispatch groups of the "
+            f"global batch")
+    tp, dp, bp, pp = axis_groups(model, mesh)
     shapes = model.param_shapes()
     pspec, ospec = {}, {}
     map_with_path(lambda ps, sp: pspec.__setitem__(ps, sp),
@@ -147,7 +170,7 @@ def placement(model: Model, mesh, hints=None) -> Placement | None:
     map_with_path(lambda ps, sp: ospec.__setitem__(ps, sp),
                   opt_state_specs(cfg, shapes, mesh))
     coords = mesh.coords()
-    first, zero, summed = [], [], []
+    first, zero, summed, pod_summed = [], [], [], []
     for i, (path, _) in enumerate(tree_leaves_with_path(shapes)):
         key = "/".join(str(k) for k in path)
         p_ax, o_sp = _axes(pspec[key]), ospec[key]
@@ -155,6 +178,8 @@ def placement(model: Model, mesh, hints=None) -> Placement | None:
                          for a in mesh.axis_names))
         if "data" not in p_ax:
             summed.append(i)
+        elif pp is not None:
+            pod_summed.append(i)
         zd = None
         if d > 1:
             for j, e in enumerate(o_sp):
@@ -168,8 +193,9 @@ def placement(model: Model, mesh, hints=None) -> Placement | None:
     shards = opt_lib.Shards(first=tuple(first), zero=tuple(zero),
                             data_rank=coords.get("data", 0), data=d, dp=dp,
                             world=grid_group(mesh))
-    return Placement(mesh=mesh, tp=tp, dp=dp, world=shards.world,
-                     hints=hints, shards=shards, summed=tuple(summed))
+    return Placement(mesh=mesh, model=model, tp=tp, dp=dp, bp=bp, pp=pp,
+                     world=shards.world, hints=hints, shards=shards,
+                     summed=tuple(summed), pod_summed=tuple(pod_summed))
 
 
 def _device(mesh, device):
@@ -212,31 +238,32 @@ def make_loss_fn(model: Model, abft: ABFTConfig, tcfg: TrainConfig,
     caller holds it): ``batch`` is the global batch and the loss this
     data rank's share of the global loss (the module docstring), to
     differentiate; ``metrics`` hold the global ``loss`` (NLL),
-    ``aux_loss`` and ``total_loss``."""
+    ``aux_loss`` and ``total_loss``.  Under a ``model`` axis the loss is
+    vocab-parallel (``_logp``): no rank gathers the logits whole."""
     if pl is None and mesh is not None:
         pl = placement(model, mesh, hints)
     if pl is not None:
-        hints = pl.hints
+        hints, model = pl.hints, pl.model
     dev = _device(mesh if pl is None else pl.mesh, device)
-    dp = pl.dp if pl is not None else None
+    bp = pl.bp if pl is not None else None
     groups = hints.dp_size // pl.data if pl is not None else None
 
     def loss_fn(params, batch, fault=None):
         local, rows = _rows(batch, pl)
         ctx = LayerCtx(abft=abft, fault=fault, hints=hints,
-                       tp=pl.tp if pl else None, dp=dp, rows=rows,
-                       moe_groups=groups, aux_over_data=rows is not None)
+                       tp=pl.tp if pl else None, dp=pl.dp if pl else None,
+                       bp=bp, rows=rows, moe_groups=groups,
+                       aux_over_data=rows is not None,
+                       vocab_parallel=pl is not None)
         out = model.forward(params, local, ctx, device=dev)
-        logits = out.logits.to(F32)
         labels = torch.as_tensor(local["labels"]).to(dev).long()
-        logz = torch.logsumexp(logits, dim=-1)
-        logp = torch.gather(logits, -1,
-                            labels.clamp_min(0)[..., None])[..., 0] - logz
+        tp = ctx.tp if model.vocab_sharded(ctx) else None
+        logp, logz = _logp(out.logits, labels, tp)
         mask = (labels >= 0).to(F32)
-        mtp = (_mtp_logp(out.mtp_logits, labels, mask)
+        mtp = (_mtp_logp(out.mtp_logits, labels, mask, tp)
                if out.mtp_logits is not None else None)
-        if dp is not None:
-            return _data_loss(tcfg, out, logp, logz, mask, mtp, dp)
+        if bp is not None:
+            return _data_loss(tcfg, out, logp, logz, mask, mtp, bp)
         denom = torch.clamp(mask.sum(), min=1.0)
         nll = -torch.sum(logp * mask) / denom
         loss = nll + tcfg.z_loss_coef * torch.sum((logz ** 2) * mask) / denom
@@ -251,23 +278,57 @@ def make_loss_fn(model: Model, abft: ABFTConfig, tcfg: TrainConfig,
     return loss_fn
 
 
-def _mtp_logp(mtp_logits, labels, mask):
+def _logp(logits, labels, tp=None) -> tuple:
+    """(log p(label), log Z) of each row of f32 ``logits`` (..., V).
+    ``tp``: the rows are this model rank's vocab slice (rank r's the r-th
+    of ``tp.size``; ``Model.vocab_sharded``), and the loss is vocab-
+    parallel, as the reference's GSPMD reduces it over its vocab-sharded
+    logits: the row max (no gradient), the sum of exponentials and the
+    label's logit (0 off the rank's slice), each reduced over ``model``,
+    so no rank holds a whole row."""
+    from repro_torch.distributed.collectives import (
+        all_reduce_max,
+        all_reduce_sum,
+    )
+
+    logits = logits.to(F32)
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        lab = torch.gather(logits, -1, labels.clamp_min(0)[..., None])
+        return lab[..., 0] - logz, logz
+    n = logits.shape[-1]
+    m = all_reduce_max(logits.amax(-1), tp)
+    se = all_reduce_sum(torch.exp(logits - m[..., None]).sum(-1), tp)
+    local = labels - tp.rank * n
+    own = (local >= 0) & (local < n)
+    lab = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    lab = all_reduce_sum(torch.where(own, lab, torch.zeros_like(lab)), tp)
+    logz = m + torch.log(se)
+    return lab - logz, logz
+
+
+def _mtp_logp(mtp_logits, labels, mask, tp=None):
     """The MTP head's summed log-likelihood of token t + 2 (labels rolled
-    one more step, the mask times its roll), as the reference's loss."""
+    one more step, the mask times its roll), as the reference's loss
+    (``tp``: vocab-parallel, as ``_logp``)."""
     l2 = torch.roll(labels, -1, 1)
     m2 = mask * torch.roll(mask, -1, 1)
-    lp2 = torch.gather(torch.log_softmax(mtp_logits.to(F32), -1),
-                       -1, l2.clamp_min(0)[..., None])[..., 0]
+    if tp is not None:
+        lp2 = _logp(mtp_logits, l2, tp)[0]
+    else:
+        lp2 = torch.gather(torch.log_softmax(mtp_logits.to(F32), -1),
+                           -1, l2.clamp_min(0)[..., None])[..., 0]
     return torch.sum(lp2 * m2)
 
 
 def _data_loss(tcfg, out, logp, logz, mask, mtp, dp) -> tuple:
-    """A data rank's share of the loss: its rows' NLL, z-loss and (with
-    an MTP head, ``mtp`` its rows' summed log-likelihood) MTP NLL sums
-    over the global denominator, and the (global) aux loss over
-    ``data``, so the shares sum to the unsharded loss; the metrics'
-    ``loss``, ``mtp_loss`` and ``total_loss`` are the global values (one
-    sum over ``data``)."""
+    """A batch rank's share of the loss (``dp``: the batch group, ``pod``
+    x ``data``): its rows' NLL, z-loss and (with an MTP head, ``mtp`` its
+    rows' summed log-likelihood) MTP NLL sums over the global
+    denominator, and the (global) aux loss over the batch ranks, so the
+    shares sum to the unsharded loss; the metrics' ``loss``,
+    ``mtp_loss`` and ``total_loss`` are the global values (one sum over
+    the batch)."""
     from repro_torch.distributed.collectives import data_stats
 
     nll_s = -torch.sum(logp * mask)
@@ -314,15 +375,17 @@ def value_and_grad(loss_fn: Callable) -> Callable:
 
 
 def _sum_over_data(grads, pl: Placement | None):
-    """The gradients summed over ``data`` (``Placement.summed``)."""
-    if pl is None or pl.dp is None:
+    """The gradients summed over the batch (``Placement.summed``; the
+    FSDP leaves over ``pod``, ``Placement.pod_summed``)."""
+    if pl is None or pl.bp is None:
         return grads
     from repro_torch.distributed.collectives import sum_grads
 
     leaves = tree_leaves(grads)
-    done = sum_grads([leaves[i] for i in pl.summed], pl.dp)
-    for i, g in zip(pl.summed, done):
-        leaves[i] = g
+    for idx, g in ((pl.summed, pl.bp), (pl.pod_summed, pl.pp)):
+        done = sum_grads([leaves[i] for i in idx], g)
+        for i, t in zip(idx, done):
+            leaves[i] = t
     return tree_unflatten(grads, leaves)
 
 

@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from test_torch_shared_runners import shared_runners
 import torch
 
 from repro.configs import get_config as jget, scaled_down as jscaled
@@ -48,6 +49,17 @@ from repro_torch.serve.engine import RecoveryPolicy, Request, ServeEngine
 from repro_torch.serve.scheduler import EngineStats
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_reference_runners():
+    """The reference's engines share their jitted steps
+    (``test_torch_shared_runners``); the port's shared runs are dropped
+    with the module."""
+    with shared_runners():
+        yield
+    _PORT_RUNS.clear()
+
 
 ARCHS = ("llama3.2-1b", "qwen3-14b", "stablelm-1.6b", "qwen1.5-32b")
 SLOTS, MAX_LEN, BLOCK = 3, 64, 4
@@ -113,11 +125,26 @@ def _engine(port: bool, m, p, cache, chunk, share, retries):
                    **kw)
 
 
+# the port's runs without hooks, shared by the file's cases (one run of a
+# scenario serves the reference match and the port's self-checks)
+_PORT_RUNS: dict = {}
+
+
 def drive(port: bool, models_arch, name, late=True, pre=None, post=None):
     """run()'s loop, with the two long prompts pending from iteration 3
     (``late``) and one fault at iteration ``fault step``; ``pre(eng)`` and
     ``post(eng)`` run around each step.  Returns (streams, errors,
-    counters, trace, snapshots, engine)."""
+    counters, trace, snapshots, engine); a port run without hooks is run
+    once a module (``_PORT_RUNS``)."""
+    key = (id(models_arch[2]), name, late)
+    if port and pre is None and post is None:
+        if key not in _PORT_RUNS:
+            _PORT_RUNS[key] = _drive(port, models_arch, name, late)
+        return _PORT_RUNS[key]
+    return _drive(port, models_arch, name, late, pre, post)
+
+
+def _drive(port: bool, models_arch, name, late=True, pre=None, post=None):
     jm, jp, tm, tp = models_arch
     cache, chunk, share, retries, fstep, site = SCENARIOS[name]
     eng = _engine(port, tm if port else jm, tp if port else jp, cache,

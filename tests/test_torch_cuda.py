@@ -370,6 +370,58 @@ def test_small_train_step_on_the_card_equals_the_cpu(dev):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 
 
+def test_small_bf16_train_step_on_the_card_equals_the_cpu(dev):
+    """Scaled-down llama3.2-1b (tied head) in bf16, one AdamW step from
+    the same bf16 params and batch on the card (K1) and on the CPU (its
+    plain version): the gate ``chip_smoke.py``'s ``train`` phase runs
+    (``train_bf16_gate``), with its bounds: each leaf's gradient within
+    3e-2 of the CPU's, norm-relative (bf16 against f32 on the CPU differ
+    by 0.0066 at most; a wrong or sign-flipped gradient by 1 or more),
+    the loss within 1e-2 and the grad norm within 2e-2 relative (bf16
+    activations rounded at 2^-8 at other points), every param within 2 lr
+    (AdamW's first step moves an entry by lr sign(g)) plus one bf16 step
+    of the CPU's."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.layers import ModelFault
+    from repro_torch.serve.executor import tree_to
+    from repro_torch.train import OptConfig, TrainConfig, init_opt_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import make_grad_fn
+
+    cfg = scaled_down(get_config("llama3.2-1b"), n_layers=2)
+    assert cfg.tie_embeddings
+    model = Model(cfg)
+    params = model.init_params(5, dtype=torch.bfloat16)
+    batch = SyntheticLM(DataConfig(global_batch=2, seq_len=64,
+                                   vocab_size=cfg.vocab_size)).batch(0)
+    ocfg = OptConfig(lr=3e-4)
+    out = {}
+    for d in ("cpu", dev):
+        p = tree_to(params, d)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        _, _, grads = make_grad_fn(model, ABFTConfig(), TrainConfig(opt=ocfg),
+                                   device=d)(p, b, ModelFault.none())
+        step = make_train_step(model, ABFTConfig(), TrainConfig(opt=ocfg),
+                               device=d)
+        k1 = am.KERNEL.launches
+        newp, _, met = step(p, init_opt_state(p, ocfg), b)
+        if str(d) != "cpu":
+            assert am.KERNEL.launches > k1
+        assert not bool(met["abft_flag"])
+        assert all(t.dtype == torch.bfloat16 for t in tree_leaves(newp))
+        out[str(d)] = (float(met["loss"]), float(met["grad_norm"]),
+                       [t.float().cpu() for t in tree_leaves(newp)],
+                       [t.float().cpu() for t in tree_leaves(grads)])
+    (lc, gc, pc, dc), (lg, gg, pg, dg) = out["cpu"], out[str(dev)]
+    for a, b in zip(dg, dc):
+        assert (a - b).norm() <= 3e-2 * b.norm()
+    assert abs(lg - lc) <= 1e-2 * abs(lc)
+    assert abs(gg - gc) <= 2e-2 * gc
+    for a, b in zip(pg, pc):
+        assert ((a - b).abs() <= 2 * ocfg.lr + 2.0 ** -7 * b.abs()).all()
+
+
 # ------------------------------------------- tensor-core routes (K1, K2)
 
 BF16 = torch.bfloat16

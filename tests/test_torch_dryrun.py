@@ -27,14 +27,17 @@ What is held, and how close:
 * decode at (2, 2): the port's split decode is exactly half the (1, 2)
   cell's (each data rank its own slots), and never above the reference's,
   whose compiled step keeps part of its products unsplit over ``data``.
-* train: the port's FLOPs are the reference's plus at most 8% (3.2–7.3%
-  on the three archs when measured once; held here on llama): eager
-  ``torch.utils.checkpoint`` recomputes each layer's whole forward in
-  the backward, products whose results the backward never reads (a
-  layer's last projection: the FFN's ``down``, the SSD mixer's ``out``)
-  included, while XLA's dead-code elimination drops them; the gap is one
-  such product a layer (llama: exactly two FFN ``down`` GEMMs at two
-  layers).
+* train: the port's FLOPs equal the reference's on llama, at (1, 2)
+  and on the pod cell (2, 1, 2): a layer's last projection (the FFN's
+  ``down``, the SSD mixer's ``out``) runs outside the recomputed region
+  of ``run_stack``'s checkpoint, as XLA's dead-code elimination drops
+  its recompute.  ``TRAIN_GAP`` bounds what remains, 4%: an MoE layer
+  ends in the experts' combine, whose inputs the backward reads (the
+  router weights' gradient), so its recomputed region takes in the
+  shared experts' ``down`` too, which XLA drops (qwen2-moe: exactly two
+  such GEMMs, 3.33% at (1, 2) and 3.17% at (2, 2) when measured once;
+  mamba2 within 1.2%, by the conv window below); 3.33% plus a margin of
+  0.67 points.
 * ``abft=auto`` decode: the reference emulates the block schemes with
   per-block checksum products (``use_pallas=False``) that cost more FLOPs
   than the fused kernel's declared check (``ops.k1_flops``: 2 m k twice),
@@ -75,16 +78,20 @@ SHAPES = {"train_4k": dict(kind="train", seq=32, batch=4),
           "decode_32k": dict(kind="decode", seq=64, batch=4)}
 CELLS = [(a, s, d, m, ab) for a in ARCHS for d, m in MESHES for s in SHAPES
          for ab in ("off", "auto")]
-# the reference compiles only these (one subprocess, ≈ 20 s; the suite's
-# time is tight): every relation below is held on one arch or two
+# the reference compiles only these (one subprocess, ≈ 30 s; the suite's
+# time is tight): every relation below is held on one arch or two; a
+# data entry [pod, data] is a (pod, data, model) mesh
 REF_CELLS = [("llama3.2-1b", "prefill_32k", 1, 2, "off"),
              ("mamba2-1.3b", "prefill_32k", 2, 2, "auto"),
              ("qwen2-moe-a2.7b", "decode_32k", 1, 2, "off"),
              ("mamba2-1.3b", "decode_32k", 1, 2, "off"),
              ("llama3.2-1b", "decode_32k", 2, 2, "off"),
-             ("llama3.2-1b", "train_4k", 1, 2, "off")]
+             ("llama3.2-1b", "train_4k", 1, 2, "off"),
+             ("qwen2-moe-a2.7b", "train_4k", 1, 2, "off"),
+             ("llama3.2-1b", "train_4k", (2, 1), 2, "off")]
+CELLS += [c for c in REF_CELLS if isinstance(c[2], tuple)]
 # the train gap's bound (the module docstring)
-TRAIN_GAP = 0.08
+TRAIN_GAP = 0.04
 PRODUCTION = (dryrun.get_config, dict(dryrun.SHAPES), dryrun.dryrun_abft)
 
 _REF = r"""
@@ -105,11 +112,13 @@ out = {}
 for arch, shape, d, m, abft in cells:
     D.VARIANT.clear()
     D.VARIANT["abft"] = abft
-    mesh = build_mesh(data=d, model=m)
+    mesh = (build_mesh(pod=d[0], data=d[1], model=m) if isinstance(d, list)
+            else build_mesh(data=d, model=m))
     fn, args, in_sh, out_sh, meta = D.build_cell(arch, shape, mesh)
     with mesh:
         compiled = jax.jit(fn, in_shardings=in_sh,
                            out_shardings=out_sh).lower(*args).compile()
+    d = tuple(d) if isinstance(d, list) else d
     out["|".join(map(str, (arch, shape, d, m, abft)))] = \
         analyze_compiled(compiled)["flops_per_device"]
 json.dump(out, sys.stdout)
@@ -118,6 +127,14 @@ json.dump(out, sys.stdout)
 
 def _key(cell) -> str:
     return "|".join(map(str, cell))
+
+
+def _mesh(d, m):
+    """The virtual mesh of a cell's (data, model), data a (pod, data)
+    pair for a pod cell."""
+    if isinstance(d, tuple):
+        return virtual_mesh(pod=d[0], data=d[1], model=m)
+    return virtual_mesh(data=d, model=m)
 
 
 @pytest.fixture(scope="module")
@@ -161,8 +178,7 @@ def port(scaled):
         arch, shape, d, m, abft = cell
         dryrun.VARIANT.clear()
         dryrun.VARIANT["abft"] = abft
-        fn, args, meta = dryrun.build_cell(arch, shape,
-                                           virtual_mesh(data=d, model=m))
+        fn, args, meta = dryrun.build_cell(arch, shape, _mesh(d, m))
         rec, ops = analyze_step(fn, args, entry=shape)
         out[_key(cell)] = dict(rec=rec, ops=ops, args=args, meta=meta)
     dryrun.VARIANT.clear()
@@ -228,12 +244,38 @@ def test_split_decode_never_above_reference(port, ref_flops):
 
 
 def test_train_flops_within_the_recompute_gap(port, ref_flops):
-    key = _key(("llama3.2-1b", "train_4k", 1, 2, "off"))
+    """llama's train step at (1, 2) and on the pod cell: the port's FLOPs
+    are the reference's, exactly (no FFN ``down`` is recomputed)."""
+    for d in (1, (2, 1)):
+        key = _key(("llama3.2-1b", "train_4k", d, 2, "off"))
+        got, ref = port[key]["rec"]["flops_per_device"], ref_flops[key]
+        assert ref <= got <= (1 + TRAIN_GAP) * ref
+        assert got == ref, d
+
+
+def test_moe_train_gap_is_the_shared_experts_down(port, ref_flops):
+    """The gap that remains (the module docstring): qwen2-moe's two
+    shared-expert ``down`` GEMMs recomputed inside the MoE layers'
+    checkpointed region: tokens 4 x 32, the shared d_ff 128 split over 2,
+    d_model 64."""
+    key = _key(("qwen2-moe-a2.7b", "train_4k", 1, 2, "off"))
     got, ref = port[key]["rec"]["flops_per_device"], ref_flops[key]
-    assert ref <= got <= (1 + TRAIN_GAP) * ref
-    # two layers' FFN down projections, recomputed for nothing: tokens
-    # 4 x 32, d_ff 128 split over 2, d_model 64
+    assert ref < got <= (1 + TRAIN_GAP) * ref
     assert got - ref == 2 * (2 * 128 * 64 * 64)
+
+
+@pytest.mark.parametrize("d", [1, 2, (2, 1)])
+def test_sharded_train_walk_holds_no_whole_vocab_logits(port, d):
+    """The vocab-parallel loss: no op of a sharded train step's walk at
+    model = 2 outputs the whole vocab (the head's logits and the loss's
+    ops stay at the rank's half), while the unsharded-vocab reckoning of
+    the same step would hold (rows, 32, vocab) f32 tensors."""
+    from repro_torch.configs import get_config, scaled_down
+
+    vocab = scaled_down(get_config("llama3.2-1b")).vocab_size
+    ops = port[_key(("llama3.2-1b", "train_4k", d, 2, "off"))]["ops"]
+    assert not [o for o in ops if o.geometry and o.geometry[-1] == vocab]
+    assert [o for o in ops if o.geometry and o.geometry[-1] == vocab // 2]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -320,19 +362,31 @@ def production(monkeypatch):
     monkeypatch.setattr(dryrun, "dryrun_abft", PRODUCTION[2])
     dryrun.VARIANT.clear()
 
-@pytest.mark.parametrize("arch,shape,mesh,needle", [
-    ("llama3.2-1b", "decode_32k", "pod", "a pod axis is not ported"),
-    ("whisper-tiny", "train_4k", "single", "q head"),
-    ("whisper-tiny", "decode_32k", "single", "q head"),
+@pytest.mark.parametrize("arch,shape,mesh,over,needle", [
+    ("deepseek-v3-671b", "decode_32k", "single", {"n_heads": 40},
+     "40 MLA heads do not divide model=16.*ROADMAP A.3b-ii"),
+    ("mamba2-1.3b", "train_4k", "pod", {"ssm_head_dim": 512},
+     "split an SSD head over model=16.*ROADMAP A.3b-ii"),
+    ("deepseek-v3-671b", "prefill_32k", "pod", {"mtp_depth": 2},
+     "one MTP head is ported; ROADMAP A.3$"),
 ])
 def test_refused_layouts_are_skipped_naming_the_roadmap(production,
+                                                        monkeypatch,
                                                         tmp_path, arch,
-                                                        shape, mesh,
+                                                        shape, mesh, over,
                                                         needle):
+    """What the port still refuses, on configs no published one reaches
+    (the pod axis and GQA head splits are laid out since): an MLA head
+    split, an SSD head split and a second MTP head, each skipped naming
+    its ROADMAP item."""
+    import re
+
+    monkeypatch.setattr(dryrun, "get_config", lambda a: dataclasses.replace(
+        PRODUCTION[0](a), **over))
     rec = dryrun.run_cell(arch, shape, mesh, tmp_path, force=True)
     assert rec["status"] == "skipped"
     assert rec["reason"].startswith("not ported: ")
-    assert needle in rec["reason"] and "ROADMAP A.3b-ii" in rec["reason"]
+    assert re.search(needle, rec["reason"]), rec["reason"]
 
 
 def test_reference_skips_stay_reference_skips(production, tmp_path):

@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from test_torch_shared_runners import shared_runners
 import torch
 
 from repro.configs import get_config as jget, scaled_down as jscaled
@@ -58,6 +59,15 @@ from repro_torch.train.train_step import (
 )
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_reference_runners():
+    """The reference's engines share their jitted steps
+    (``test_torch_shared_runners``)."""
+    with shared_runners():
+        yield
+
 
 WHISPER, VISION = "whisper-tiny", "llama-3.2-vision-11b"
 # (arch, the memory input it reads)
@@ -110,6 +120,24 @@ def _memory_inputs(cfg, name, B, seed=0):
              "audio": (B, 2 * cfg.enc_seq_len, cfg.n_mels),
              "images": (B, cfg.n_image_tokens, cfg.vision_dim)}[name]
     return {name: rng.standard_normal(shape).astype(np.float32)}
+
+
+# the reference's entry points jitted, one compile a (model, entry,
+# context) (its op-by-op run through the encoder or the cross layers
+# takes several times longer); the positions of ``ctx`` in each call
+_CTX_AT = {"_memory": 2, "forward": 2, "prefill": 3, "decode": 4}
+_JITTED: dict = {}
+
+
+def _ref(jm, entry: str, jctx):
+    """``jm.<entry>`` with ``jctx`` in its place, under ``jax.jit`` (the
+    context keyed by its repr: a fault holds arrays)."""
+    key = (id(jm), entry, repr(jctx))
+    if key not in _JITTED:
+        fn, n = getattr(jm, entry), _CTX_AT[entry]
+        _JITTED[key] = (jm, jax.jit(
+            lambda *a, **kw: fn(*a[:n], jctx, *a[n:], **kw)))
+    return _JITTED[key][1]
 
 
 def _batches(toks, mem):
@@ -214,8 +242,8 @@ def test_memory_and_forward_match_reference(pairs, variant, fault):
         np.int32)
     jb, tb = _batches(toks, _memory_inputs(tm.cfg, name, B))
     jctx, tctx = _ctxs(fault)
-    jmem, jmf = jm._memory(jp, jb, jctx)
-    jo = jm.forward(jp, jb, jctx)
+    jmem, jmf = _ref(jm, "_memory", jctx)(jp, jb)
+    jo = _ref(jm, "forward", jctx)(jp, jb)
     with torch.no_grad():
         tmem, tmf = tm._memory(tp, tb, tctx, torch.device("cpu"))
         to = tm.forward(tp, tb, tctx, device="cpu")
@@ -299,8 +327,8 @@ def test_prefill_and_decode_match_reference(pairs, variant, kind):
         tcache = tm.init_cache(SLOTS, MAX_LEN, dtype=torch.float32)
         pre_tab = dec_tab = None
     jctx, tctx = _ctxs()
-    jl, jcache, jf = jm.prefill(
-        jp, jb, jcache, jctx, slots=jnp.asarray(slots),
+    jl, jcache, jf = _ref(jm, "prefill", jctx)(
+        jp, jb, jcache, slots=jnp.asarray(slots),
         lengths=jnp.asarray(lengths),
         block_tables=None if pre_tab is None else jnp.asarray(pre_tab))
     with torch.no_grad():
@@ -323,8 +351,8 @@ def test_prefill_and_decode_match_reference(pairs, variant, kind):
     tok[slots, 0] = np.asarray(jl)[:, 0].argmax(-1)
     assert (tok[slots, 0] == tl[:, 0].argmax(-1).numpy()).all()
     for _ in range(steps):
-        jl, jcache, jf = jm.decode(
-            jp, jnp.asarray(tok), jcache, jnp.asarray(pos), jctx,
+        jl, jcache, jf = _ref(jm, "decode", jctx)(
+            jp, jnp.asarray(tok), jcache, jnp.asarray(pos),
             block_tables=None if dec_tab is None else jnp.asarray(dec_tab))
         with torch.no_grad():
             tl, tcache, tf = tm.decode(
@@ -360,8 +388,8 @@ def test_faulted_prefill_is_flagged_and_recomputes_clean(pairs, arch):
     for f in (fault, None, None):
         jctx, tctx = _ctxs(f)
         jc = jm.init_cache(SLOTS, MAX_LEN, dtype=jnp.float32)
-        _, _, jf = jm.prefill(jp, jb, jc, jctx, slots=jnp.asarray(slots),
-                              lengths=jnp.asarray([10]))
+        _, _, jf = _ref(jm, "prefill", jctx)(
+            jp, jb, jc, slots=jnp.asarray(slots), lengths=jnp.asarray([10]))
         tc = tm.init_cache(SLOTS, MAX_LEN, dtype=torch.float32) \
             if not outs else outs[0][1]
         with torch.no_grad():

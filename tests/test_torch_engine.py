@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from test_torch_shared_runners import shared_runners
 import torch
 
 from repro.configs import get_config as jget, scaled_down as jscaled
@@ -47,6 +48,15 @@ from repro_torch.serve import executor
 from repro_torch.serve.engine import RecoveryPolicy, Request, ServeEngine
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_reference_runners():
+    """The reference's engines share their jitted steps
+    (``test_torch_shared_runners``)."""
+    with shared_runners():
+        yield
+
 
 COUNTERS = ("faults_detected", "retries", "hard_faults", "evictions",
             "rejections", "steps", "tokens")

@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from test_torch_shared_runners import shared_runners
 import torch
 
 from repro.configs import get_config as jget, scaled_down as jscaled
@@ -55,6 +56,15 @@ from repro_torch.train import optimizer as topt
 from repro_torch.train.train_step import TrainConfig, make_train_step
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_reference_runners():
+    """The reference's engines share their jitted steps
+    (``test_torch_shared_runners``)."""
+    with shared_runners():
+        yield
+
 
 ARCHS = ("qwen3-14b", "stablelm-1.6b", "qwen1.5-32b")
 # the leaves the dense family adds, and which of them are gains
@@ -154,7 +164,9 @@ def test_forward_logits_and_flag_match_reference(fam, flash, fault):
     # a faulted run compares with the reference's Pallas K1 (interpret
     # mode), which corrupts flattened row ``row`` only, as the port does
     jctx, tctx = _ctxs(flash, fault, use_pallas=fault)
-    jo = jm.forward(jp, {"tokens": jnp.asarray(toks)}, jctx)
+    # the reference jitted (its op-by-op run takes several times longer)
+    jo = jax.jit(lambda p, b: jm.forward(p, b, jctx))(
+        jp, {"tokens": jnp.asarray(toks)})
     with torch.no_grad():
         to = tm.forward(tp, {"tokens": torch.from_numpy(toks)}, tctx,
                         device="cpu")

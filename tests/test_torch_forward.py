@@ -63,7 +63,9 @@ def _forward(models, flash, fault):
                     fault=ModelFault.at(1, "attn_out",
                                         FaultSpec.value(0, 2, 1e4))
                     if fault else None)
-    jo = jm.forward(jp, {"tokens": jnp.asarray(toks)}, jctx)
+    # the reference jitted (its op-by-op run takes several times longer)
+    jo = jax.jit(lambda p, b: jm.forward(p, b, jctx))(
+        jp, {"tokens": jnp.asarray(toks)})
     with torch.no_grad():
         to = tm.forward(tp, {"tokens": torch.from_numpy(toks)}, tctx,
                         device="cpu")

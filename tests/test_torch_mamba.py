@@ -125,7 +125,9 @@ def test_mamba_forward(mixer, fault):
     jcfg, cfg, jp, tp = mixer
     x = _x((1 if fault else 2, 13, cfg.d_model), 6)
     jctx, tctx = _ctxs(fault)
-    jo, jf = jmb.mamba_forward(jnp.asarray(x), jp, jcfg, jctx)
+    # the reference jitted (its op-by-op run takes several times longer)
+    jo, jf = jax.jit(lambda a, p: jmb.mamba_forward(a, p, jcfg, jctx))(
+        jnp.asarray(x), jp)
     with torch.no_grad():
         to, tf = tmb.mamba_forward(torch.from_numpy(x), tp, cfg, tctx)
     _close(to, jo)
@@ -140,8 +142,9 @@ def test_whole_prefill_writes_the_final_state(mixer):
     jcfg, cfg, jp, tp = mixer
     x = _x((2, 11, cfg.d_model), 7)
     jctx, tctx = _ctxs()
-    jo, jc, _ = jmb.mamba_prefill(jnp.asarray(x), jp, jcfg, jctx,
-                                  jmb.init_mamba_cache(jcfg, 2, jnp.float32))
+    jo, jc, _ = jax.jit(
+        lambda a, p, c: jmb.mamba_prefill(a, p, jcfg, jctx, c))(
+        jnp.asarray(x), jp, jmb.init_mamba_cache(jcfg, 2, jnp.float32))
     cache = _cache(cfg, 2)
     with torch.no_grad():
         to, _ = tmb.mamba_prefill(torch.from_numpy(x), tp, cfg, tctx, cache)
@@ -160,10 +163,11 @@ def test_ragged_prefill_scatters_into_its_slots(mixer, lengths):
     x = _x((3, 16, cfg.d_model), 8)
     slots, lens = np.array([3, 0, 2], np.int32), np.array(lengths, np.int32)
     jctx, tctx = _ctxs()
-    jo, jc, _ = jmb.mamba_prefill(
-        jnp.asarray(x), jp, jcfg, jctx,
-        jmb.init_mamba_cache(jcfg, 4, jnp.float32),
-        slots=jnp.asarray(slots), lengths=jnp.asarray(lens))
+    jo, jc, _ = jax.jit(
+        lambda a, p, c, s, n: jmb.mamba_prefill(a, p, jcfg, jctx, c,
+                                                slots=s, lengths=n))(
+        jnp.asarray(x), jp, jmb.init_mamba_cache(jcfg, 4, jnp.float32),
+        jnp.asarray(slots), jnp.asarray(lens))
     cache = _cache(cfg, 4)
     with torch.no_grad():
         to, _ = tmb.mamba_prefill(torch.from_numpy(x), tp, cfg, tctx, cache,
@@ -200,8 +204,9 @@ def test_decode_returns_the_next_state_and_leaves_the_cache(mixer, fault):
     before = {k: v.clone() for k, v in cache.items()}
     x = _x((B, 1, cfg.d_model), 12)
     jctx, tctx = _ctxs(fault)
-    jo, jc, jf = jmb.mamba_decode(
-        jnp.asarray(x), jp, jcfg, jctx,
+    jo, jc, jf = jax.jit(
+        lambda a, p, c: jmb.mamba_decode(a, p, jcfg, jctx, c))(
+        jnp.asarray(x), jp,
         {k: jnp.asarray(v.numpy()) for k, v in cache.items()})
     with torch.no_grad():
         to, tf, state = tmb.mamba_decode(torch.from_numpy(x), tp, cfg, tctx,

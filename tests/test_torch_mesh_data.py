@@ -361,18 +361,20 @@ def test_fsdp_draw_gather_and_streams(ranks, local):
 
 
 def test_check_shardable_admits_data():
-    """``check_shardable`` admits a (2, 2) mesh; a pod axis still
-    raises."""
+    """``check_shardable`` admits a (2, 2) mesh and a (pod, data, model)
+    one (``tests/test_torch_mesh_pod.py`` serves it); an MLA head split
+    still raises, naming ROADMAP A.3b-ii."""
     from repro_torch.serve.executor import check_shardable
 
     cpu = (torch.device("cpu"),) * 4
     check_shardable(W.small_config(), Mesh(
         grid=np.arange(4).reshape(2, 2), axis_names=("data", "model"),
         devices=cpu))
-    with pytest.raises(NotImplementedError, match="pod"):
-        check_shardable(W.small_config(), Mesh(
-            grid=np.arange(4).reshape(2, 2, 1),
-            axis_names=("pod", "data", "model"), devices=cpu))
+    pod = Mesh(grid=np.arange(4).reshape(2, 1, 2),
+               axis_names=("pod", "data", "model"), devices=cpu)
+    check_shardable(W.small_config(), pod)
+    with pytest.raises(NotImplementedError, match="MLA heads.*A.3b-ii"):
+        check_shardable(W.mla_config(n_heads=3), pod)
 
 
 def test_draw_transient_at_published_widths():

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import test_torch_mesh_worker as W
+from test_torch_shared_runners import shared_runners
 import torch
 
 from repro.configs import get_config as jget, scaled_down as jscaled
@@ -43,6 +44,15 @@ from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.executor import LocalExecutor, MeshExecutor
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_reference_runners():
+    """The reference's engines share their jitted steps
+    (``test_torch_shared_runners``)."""
+    with shared_runners():
+        yield
+
 
 # the reference's crafted point (tests/test_sharded_engine.py)
 SHARD_HW = dict(name="shard-flip", peak_flops=2.4e13, vpu_flops=1e11,
@@ -248,11 +258,14 @@ def test_unported_stacks_raise_at_model_gt_1(arch):
     """Encoder-decoder and vision (cross-attention) stacks refuse a model
     axis wider than 1, saying that the engine serves them at no width (as
     the reference's cannot); a mesh with data > 1 is admitted
-    (``tests/test_torch_mesh_data.py`` serves it), and on it an unpadded
-    split q head still raises naming ROADMAP A.3b-ii."""
+    (``tests/test_torch_mesh_data.py`` serves it).  On it the scaled
+    llama's 4 q heads over model = 8 would split a head: unpadded they
+    still raise naming ROADMAP A.3b-ii, and the executor's layout pads
+    them to 8 (``layout_config``), which shards; an MLA head split, which
+    no padding mends, raises naming the same item."""
     from repro_torch.configs import get_config, scaled_down
     from repro_torch.distributed.mesh import Mesh
-    from repro_torch.serve.executor import check_shardable
+    from repro_torch.serve.executor import check_shardable, layout_config
 
     mesh = _model_mesh(2)
     with pytest.raises(NotImplementedError, match="at no width"):
@@ -264,9 +277,13 @@ def test_unported_stacks_raise_at_model_gt_1(arch):
                     devices=(torch.device("cpu"),) * (2 * k))
 
     check_shardable(W.small_config(), dp(2))
-    # the scaled llama's 4 q heads over model = 8 would split one
     with pytest.raises(NotImplementedError, match="split a q head.*A.3b-ii"):
         check_shardable(W.small_config(), dp(8))
+    padded = layout_config(W.small_config(), dp(8))
+    assert padded.eff_heads == 8
+    check_shardable(padded, dp(8))
+    with pytest.raises(NotImplementedError, match="MLA heads.*A.3b-ii"):
+        check_shardable(W.mla_config(n_heads=6), dp(4))
     check_shardable(W.small_config(), mesh)
 
 
@@ -289,9 +306,10 @@ def test_serve_cli_mesh_flag(capsys):
     """``--mesh 1`` serves through the mesh executor in this process and
     reports the mesh in the stats line; ``--mesh 2`` serves the MoE
     family and MLA with its MTP head over two ranks; ``--mesh N`` on a
-    layout the port does not shard (8 ranks over the smoke llama's 4 q
-    heads would split one) or a stack the engine serves at no width exits
-    with the ``NotImplementedError`` message before any rank starts."""
+    layout the port does not shard (3 ranks over the smoke deepseek's 4
+    MLA heads would split one; a GQA stack's heads would be padded) or a
+    stack the engine serves at no width exits with the
+    ``NotImplementedError`` message before any rank starts."""
     import json
 
     from repro_torch.launch import serve
@@ -314,8 +332,9 @@ def test_serve_cli_mesh_flag(capsys):
                     .splitlines() if ln.startswith("{"))
         assert line["model_parallel"] == 2 and line["tokens"] == 6
         assert site in [r["layer"] for r in line["shard_plan"]]
-    with pytest.raises(SystemExit, match="split a q head.*A.3b-ii"):
-        serve.main(["--device", "cpu", "--mesh", "8"])
+    with pytest.raises(SystemExit, match="MLA heads.*A.3b-ii"):
+        serve.main(["--device", "cpu", "--mesh", "3", "--arch",
+                    "deepseek-v3-671b"])
     with pytest.raises(SystemExit, match="at no width"):
         serve.main(["--device", "cpu", "--mesh", "2", "--arch",
                     "whisper-tiny"])

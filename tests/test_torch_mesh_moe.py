@@ -37,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import test_torch_mesh_worker as W
+from test_torch_shared_runners import shared_runners
 import torch
 
 from repro.configs import get_config as jget, scaled_down as jscaled
@@ -47,6 +48,15 @@ from repro_torch.distributed import spawn
 from repro_torch.models.model import Model, params_from_reference
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_reference_runners():
+    """The reference's engines share their jitted steps
+    (``test_torch_shared_runners``)."""
+    with shared_runners():
+        yield
+
 
 # the reference's crafted point (tests/test_sharded_engine.py)
 SHARD_HW = dict(name="shard-flip", peak_flops=2.4e13, vpu_flops=1e11,

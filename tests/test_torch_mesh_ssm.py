@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import test_torch_mesh_worker as W
 from test_torch_ssm_model import build_pair
+from test_torch_shared_runners import shared_runners
 import torch
 
 from repro.serve.engine import Request as JRequest, ServeEngine as JEngine
@@ -41,6 +42,15 @@ from repro_torch.models.layers import gated_rms_norm
 from repro_torch.models.model import Model
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_reference_runners():
+    """The reference's engines share their jitted steps
+    (``test_torch_shared_runners``)."""
+    with shared_runners():
+        yield
+
 
 SHARD_HW = dict(name="shard-flip", peak_flops=2.4e13, vpu_flops=1e11,
                 hbm_bw=1e12, ici_bw=1e11, hbm_bytes=1 << 34,

@@ -371,10 +371,33 @@ def test_collectives_of_the_step(ranks):
     on every rank."""
     counts = ranks[0]["counts"]
     assert all(r["counts"] == counts for r in ranks)
-    for kind in ("model_sum", "model_gather", "model_grad", "data_sum",
+    for kind in ("model_sum", "model_max", "model_grad", "data_sum",
                  "grad_sum", "zero_gather", "world", "flag", "fsdp_gather",
                  "fsdp_grad"):
         assert counts[kind] > 0, kind
+    # the loss is vocab-parallel: no logits are gathered over ``model``
+    assert counts["model_gather"] == 0
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+def test_vocab_parallel_loss_matches_the_gathered_loss(ranks, mesh):
+    """The vocab-parallel loss (each rank's vocab slice of the logits and
+    the MTP head's; the row max, the sum of exponentials and the label's
+    logit reduced over ``model``) against the one-process loss over whole
+    logits, on llama with an MTP head: loss, NLL and MTP NLL within 1e-5
+    relative, each rank's gradient shards within 1e-4 of their leaf's
+    largest magnitude (this file's tolerances) of the one-process
+    gradients cut to the rank's shards.  The vocab-parallel step gathers
+    no logits and takes one row max a head."""
+    recs = [r["vocab"][mesh] for r in ranks if mesh in r["vocab"]]
+    assert len(recs) == (2 if mesh == "1x2" else 4)
+    for rec in recs:
+        vp, whole = rec["vocab"], rec["whole"]
+        for k in ("loss", "nll", "mtp"):
+            np.testing.assert_allclose(vp[k], whole[k], rtol=1e-5)
+        _close(vp["grads"], whole["grads"], rel_to_max=1e-4)
+        assert vp["counts"]["model_gather"] == 0
+        assert vp["counts"]["model_max"] == 2
 
 
 # ------------------------------------------------------------ trainer

@@ -392,12 +392,15 @@ def test_checkpoint_restores_onto_1x2(setup, ranks):
 
 def test_collectives_of_the_families(ranks):
     """Every kind of the train step's collectives ran (the whole-leaf
-    save's gathers too), the same number on every rank."""
+    save's gathers too), the same number on every rank; the loss is
+    vocab-parallel, so no logits are gathered over ``model`` and each
+    vocab-sharded head takes a row max there."""
     counts = ranks[0]["counts"]
     assert all(r["counts"] == counts for r in ranks)
-    for kind in ("model_sum", "model_gather", "model_grad", "data_sum",
+    for kind in ("model_sum", "model_max", "model_grad", "data_sum",
                  "grad_sum", "zero_gather", "world", "flag", "checkpoint"):
         assert counts[kind] > 0, kind
+    assert counts["model_gather"] == 0
 
 
 # ------------------------------------------------------------ admission
@@ -418,8 +421,11 @@ def _refused(case):
         cfg = scaled_down(get_config("deepseek-v3-671b"))
         return dataclasses.replace(cfg, mtp_depth=2), None, "not ported"
     if case == "unpadded_q_heads":
-        cfg = dataclasses.replace(scaled_down(get_config("llama3.2-1b")),
-                                  n_heads=5, n_kv_heads=1)
+        # a GQA stack's heads are padded (``layout_config``); a cross
+        # layer's are not
+        cfg = dataclasses.replace(
+            scaled_down(get_config("llama-3.2-vision-11b")), n_heads=5,
+            n_kv_heads=1)
         return cfg, None, "split a q head.*A.3b-ii"
     cfg = scaled_down(get_config("qwen2-moe-a2.7b"))
     return cfg, ShardingHints(dp_size=3), "dp_size=3"
@@ -429,8 +435,9 @@ def _refused(case):
                                   "dp_size_3"])
 def test_sharded_training_refuses_what_stays_unported(case):
     """``mtp_depth = 2`` (the model itself, and the layout check), an
-    unpadded split q head (ROADMAP A.3b-ii) and a ``hints.dp_size`` that
-    ``data`` does not divide raise ``NotImplementedError``."""
+    unpadded split q head of a cross layer (ROADMAP A.3b-ii; a GQA
+    stack's heads are padded) and a ``hints.dp_size`` that ``data`` does
+    not divide raise ``NotImplementedError``."""
     from repro_torch.train.train_step import check_trainable, make_train_step
 
     cfg, hints, pattern = _refused(case)

@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from test_torch_shared_runners import shared_runners
 import torch
 
 from repro.configs import get_config as jget, scaled_down as jscaled
@@ -40,6 +41,15 @@ from repro_torch.models.model import Model
 from repro_torch.serve import paged_cache as tpc
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_reference_runners():
+    """The reference's engines share their jitted steps
+    (``test_torch_shared_runners``)."""
+    with shared_runners():
+        yield
+
 
 ARCH = "deepseek-v3-671b"
 B, S, BS = 3, 32, 8          # slots, cache depth, block size
@@ -98,6 +108,12 @@ def _caches(cfg, jcfg, kind, fill_seed=None):
     return jc, tc
 
 
+def _jit(fn, jcfg, jctx):
+    """The reference's ``fn(x, p, jcfg, jctx, ...)`` jitted over the rest
+    (its op-by-op run takes several times longer)."""
+    return jax.jit(lambda x, p, *a, **kw: fn(x, p, jcfg, jctx, *a, **kw))
+
+
 def _same(t, j):
     np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), **TOL)
 
@@ -124,8 +140,8 @@ def test_forward_matches_reference(mla, site):
     x = _x(cfg, 2, 16)
     pos = np.broadcast_to(np.arange(16), (2, 16))
     jctx, tctx = _ctxs(site)
-    jo, jf = jattn.mla_forward(jnp.asarray(x), jp, jcfg, jctx,
-                               jnp.asarray(pos))
+    jo, jf = _jit(jattn.mla_forward, jcfg, jctx)(jnp.asarray(x), jp,
+                                                  jnp.asarray(pos))
     to, tf = tattn.mla_forward(torch.from_numpy(x), tp, cfg, tctx,
                                torch.from_numpy(pos.copy()))
     _same(to, jo)
@@ -155,8 +171,8 @@ def test_prefill_matches_reference(mla, kind):
     kw = {} if kind == "whole" else dict(slots=slots, lengths=lengths)
     if starts is not None:
         kw["starts"] = starts
-    jo, jnew, _ = jattn.mla_prefill(
-        jnp.asarray(x), jp, jcfg, jctx, jnp.asarray(pos), jc,
+    jo, jnew, _ = _jit(jattn.mla_prefill, jcfg, jctx)(
+        jnp.asarray(x), jp, jnp.asarray(pos), jc,
         **{k: jnp.asarray(v) for k, v in kw.items()})
     to, tf = tattn.mla_prefill(
         torch.from_numpy(x), tp, cfg, tctx, torch.from_numpy(pos.copy()),
@@ -184,15 +200,15 @@ def test_decode_matches_reference(mla, kind):
     jctx, tctx = _ctxs()
     tab = _tables()
     if kind == "paged":
-        jo, jnew, _ = jattn.mla_paged_decode(
-            jnp.asarray(x), jp, jcfg, jctx, jnp.asarray(pos), jc,
+        jo, jnew, _ = _jit(jattn.mla_paged_decode, jcfg, jctx)(
+            jnp.asarray(x), jp, jnp.asarray(pos), jc,
             jnp.asarray(tab))
         to, _ = tattn.mla_paged_decode(
             torch.from_numpy(x), tp, cfg, tctx, torch.from_numpy(pos), tc,
             torch.from_numpy(tab))
     else:
-        jo, jnew, _ = jattn.mla_decode(jnp.asarray(x), jp, jcfg, jctx,
-                                       jnp.asarray(pos), jc)
+        jo, jnew, _ = _jit(jattn.mla_decode, jcfg, jctx)(
+            jnp.asarray(x), jp, jnp.asarray(pos), jc)
         to, _ = tattn.mla_decode(torch.from_numpy(x), tp, cfg, tctx,
                                  torch.from_numpy(pos), tc)
     _same(to, jo)
@@ -213,17 +229,16 @@ def test_verify_matches_reference(mla, kind):
     tab = _tables()
     tx, tpos, tvalid = (torch.from_numpy(a) for a in (x, pos, valid))
     if kind == "paged":
-        jo, jnew, _ = jattn.mla_paged_verify(
-            jnp.asarray(x), jp, jcfg, jctx, jnp.asarray(pos), jc,
+        jo, jnew, _ = _jit(jattn.mla_paged_verify, jcfg, jctx)(
+            jnp.asarray(x), jp, jnp.asarray(pos), jc,
             jnp.asarray(valid), jnp.asarray(tab))
         index = tpc.prefill_write_index(tc["latent"], torch.from_numpy(tab),
                                         tvalid, T, tpos)
         to, _ = tattn.mla_paged_verify(tx, tp, cfg, tctx, tpos, tc, index,
                                        torch.from_numpy(tab))
     else:
-        jo, jnew, _ = jattn.mla_verify(jnp.asarray(x), jp, jcfg, jctx,
-                                       jnp.asarray(pos), jc,
-                                       jnp.asarray(valid))
+        jo, jnew, _ = _jit(jattn.mla_verify, jcfg, jctx)(
+            jnp.asarray(x), jp, jnp.asarray(pos), jc, jnp.asarray(valid))
         index = tattn.verify_write_index(tpos, tvalid, T, S)
         to, _ = tattn.mla_verify(tx, tp, cfg, tctx, tpos, tc, index)
     for b, n in enumerate(valid):
@@ -244,8 +259,8 @@ def test_paged_prefill_matches_reference(mla, kind):
                      fill_seed=13 if kind == "starts" else None)
     tab = _tables()
     jctx, tctx = _ctxs()
-    jo, jnew, _ = jattn.mla_paged_prefill(
-        jnp.asarray(x), jp, jcfg, jctx, jnp.asarray(pos), jc,
+    jo, jnew, _ = _jit(jattn.mla_paged_prefill, jcfg, jctx)(
+        jnp.asarray(x), jp, jnp.asarray(pos), jc,
         jnp.asarray(tab), jnp.asarray(lengths),
         starts=None if starts is None else jnp.asarray(starts))
     to, _ = tattn.mla_paged_prefill(

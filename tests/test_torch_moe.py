@@ -294,7 +294,9 @@ def test_moe_forward_matches_reference(case):
     x = np.random.default_rng(5).standard_normal((B, L, 64)).astype(
         np.float32)
     jctx, tctx = _ctxs()
-    jy, jf, ja = jmoe.moe_forward(jnp.asarray(x), p, jcfg, jctx)
+    # the reference jitted (its op-by-op run takes several times longer)
+    jy, jf, ja = jax.jit(lambda a, q: jmoe.moe_forward(a, q, jcfg, jctx))(
+        jnp.asarray(x), p)
     with torch.no_grad():
         ty, tf, ta = moe.moe_forward(torch.from_numpy(x), tp, tcfg, tctx)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5,

@@ -131,7 +131,9 @@ def test_forward_logits_flag_and_aux_match_reference(stack, fault):
     toks = np.random.default_rng(3).integers(1, 256, size=(2, 16)).astype(
         np.int32)
     jctx, tctx = _ctxs(fault)
-    jo = jm.forward(jp, {"tokens": jnp.asarray(toks)}, jctx)
+    # the reference jitted (its op-by-op run takes longer)
+    jo = jax.jit(lambda p, b: jm.forward(p, b, jctx))(
+        jp, {"tokens": jnp.asarray(toks)})
     with torch.no_grad():
         to = tm.forward(tp, {"tokens": torch.from_numpy(toks)}, tctx,
                         device="cpu")
@@ -162,10 +164,12 @@ def _prefill_decode(stack, kind, fault=None, flash=False):
         tcache = tm.init_cache(SLOTS, MAX_LEN, dtype=torch.float32)
         pre_tab = dec_tab = None
     jctx, tctx = _ctxs(fault, flash)
-    jl, jcache, jf = jm.prefill(
-        jp, {"tokens": jnp.asarray(toks)}, jcache, jctx,
-        slots=jnp.asarray(slots), lengths=jnp.asarray(lengths),
-        block_tables=None if pre_tab is None else jnp.asarray(pre_tab))
+    jl, jcache, jf = jax.jit(
+        lambda p, b, c, s, n, t: jm.prefill(p, b, c, jctx, slots=s,
+                                            lengths=n, block_tables=t))(
+        jp, {"tokens": jnp.asarray(toks)}, jcache, jnp.asarray(slots),
+        jnp.asarray(lengths),
+        None if pre_tab is None else jnp.asarray(pre_tab))
     with torch.no_grad():
         tl, tcache, tf = tm.prefill(
             tp, torch.from_numpy(toks).long(), tcache, tctx,
@@ -177,9 +181,10 @@ def _prefill_decode(stack, kind, fault=None, flash=False):
     pos = np.zeros((SLOTS,), np.int32)
     pos[slots] = lengths
     tok = rng.integers(1, 256, size=(SLOTS, 1)).astype(np.int32)
-    jl, _, jf = jm.decode(
-        jp, jnp.asarray(tok), jcache, jnp.asarray(pos), jctx,
-        block_tables=None if dec_tab is None else jnp.asarray(dec_tab))
+    jl, _, jf = jax.jit(
+        lambda p, k, c, q, t: jm.decode(p, k, c, q, jctx, block_tables=t))(
+        jp, jnp.asarray(tok), jcache, jnp.asarray(pos),
+        None if dec_tab is None else jnp.asarray(dec_tab))
     with torch.no_grad():
         tl, _, tf = tm.decode(
             tp, torch.from_numpy(tok).long(), tcache,

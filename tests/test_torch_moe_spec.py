@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 from test_torch_mla_model import build_pair as mla_pair
 from test_torch_moe_model import build_pair as moe_pair
+from test_torch_shared_runners import shared_runners
 import torch
 
 from repro.core import FaultSpec as JFault
@@ -39,6 +40,15 @@ from repro_torch.models.layers import ModelFault
 from repro_torch.serve.engine import RecoveryPolicy, Request, ServeEngine
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_reference_runners():
+    """The reference's engines share their jitted steps
+    (``test_torch_shared_runners``)."""
+    with shared_runners():
+        yield
+
 
 COUNTERS = ("faults_detected", "retries", "hard_faults", "evictions",
             "steps", "tokens", "draft_proposed", "draft_accepted",

@@ -12,10 +12,12 @@ order): logits within 1e-4 absolute and relative, ``aux_loss`` within
 1e-5 relative; flags and greedy streams equal.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 from test_torch_moe_model import _ctxs, _prefill_decode, build_pair
+from test_torch_shared_runners import shared_runners
 import torch
 
 from repro.core.hardware import TPU_V5E as JTPU
@@ -29,6 +31,15 @@ from repro_torch.models import model as tmodel
 from repro_torch.serve.engine import Request, ServeEngine
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_reference_runners():
+    """The reference's engines share their jitted steps
+    (``test_torch_shared_runners``)."""
+    with shared_runners():
+        yield
+
 
 OVER = dict(n_layers=13, first_dense_layers=1)
 
@@ -58,7 +69,9 @@ def test_forward_matches_reference(stack, fault):
     toks = np.random.default_rng(3).integers(1, 256, size=(2, 16)).astype(
         np.int32)
     jctx, tctx = _ctxs(fault)
-    jo = jm.forward(jp, {"tokens": jnp.asarray(toks)}, jctx)
+    # the reference jitted (its op-by-op run of 13 layers takes longer)
+    jo = jax.jit(lambda p, b: jm.forward(p, b, jctx))(
+        jp, {"tokens": jnp.asarray(toks)})
     with torch.no_grad():
         to = tm.forward(tp, {"tokens": torch.from_numpy(toks)}, tctx,
                         device="cpu")

@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from test_torch_shared_runners import shared_runners
 import torch
 
 from repro.configs import get_config as jget, scaled_down as jscaled
@@ -78,6 +79,15 @@ from repro_torch.serve.spec_decode import (
 )
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_reference_runners():
+    """The reference's engines share their jitted steps
+    (``test_torch_shared_runners``)."""
+    with shared_runners():
+        yield
+
 
 # the reference test's crafted roofline: the scaled model's (64, 128) f32
 # step projection picks block_1s below 18 tokens a step and global from

@@ -20,6 +20,7 @@ engine, where the two agree.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from test_torch_shared_runners import shared_runners
 from test_torch_ssm_model import build_pair
 import torch
 
@@ -61,6 +62,14 @@ MAMBA2, JAMBA = "mamba2-1.3b", "jamba-v0.1-52b"
 CASES = [(MAMBA2, n) for n in sorted(SCENARIOS)] + [
     (JAMBA, n) for n in ("dense", "paged", "ssm_in_fault")]
 _PAIRS: dict = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shared_reference_runners():
+    """The reference's engines share their jitted steps
+    (``test_torch_shared_runners``)."""
+    with shared_runners():
+        yield
 
 
 def _pair(arch):

@@ -175,7 +175,9 @@ def test_forward_logits_and_flag_match_reference(stack, fault):
     toks = np.random.default_rng(3).integers(1, 256, size=(B, 13)).astype(
         np.int32)
     jctx, tctx = _ctxs(None if fault is None else (1, fault))
-    jo = jm.forward(jp, {"tokens": jnp.asarray(toks)}, jctx)
+    # the reference jitted: its op-by-op run of jamba's 8 layers takes 4x
+    jo = jax.jit(lambda p, b: jm.forward(p, b, jctx))(
+        jp, {"tokens": jnp.asarray(toks)})
     with torch.no_grad():
         to = tm.forward(tp, {"tokens": torch.from_numpy(toks)}, tctx,
                         device="cpu")
@@ -224,10 +226,13 @@ def test_prefill_and_decode_match_reference(stack, kind):
         tcache = tm.init_cache(SLOTS, MAX_LEN, dtype=torch.float32)
         pre_tab = dec_tab = None
     jctx, tctx = _ctxs()
-    jl, jcache, jf = jm.prefill(
-        jp, {"tokens": jnp.asarray(toks)}, jcache, jctx,
-        slots=jnp.asarray(slots), lengths=jnp.asarray(lengths),
-        block_tables=None if pre_tab is None else jnp.asarray(pre_tab))
+    # the reference jitted (its op-by-op run takes several times longer)
+    jl, jcache, jf = jax.jit(
+        lambda p, b, c, s, n, t: jm.prefill(p, b, c, jctx, slots=s,
+                                            lengths=n, block_tables=t))(
+        jp, {"tokens": jnp.asarray(toks)}, jcache, jnp.asarray(slots),
+        jnp.asarray(lengths),
+        None if pre_tab is None else jnp.asarray(pre_tab))
     with torch.no_grad():
         tl, tcache, tf = tm.prefill(
             tp, torch.from_numpy(toks).long(), tcache, tctx,
@@ -242,9 +247,10 @@ def test_prefill_and_decode_match_reference(stack, kind):
     pos = np.zeros((SLOTS,), np.int32)
     pos[slots] = lengths
     tok = rng.integers(1, 256, size=(SLOTS, 1)).astype(np.int32)
-    jl, jcache, jf = jm.decode(
-        jp, jnp.asarray(tok), jcache, jnp.asarray(pos), jctx,
-        block_tables=None if dec_tab is None else jnp.asarray(dec_tab))
+    jl, jcache, jf = jax.jit(
+        lambda p, k, c, q, t: jm.decode(p, k, c, q, jctx, block_tables=t))(
+        jp, jnp.asarray(tok), jcache, jnp.asarray(pos),
+        None if dec_tab is None else jnp.asarray(dec_tab))
     before = [t.clone() for layer, st in zip(tcache, tm.state_layers)
               if st for t in layer.values()]
     with torch.no_grad():
@@ -298,7 +304,10 @@ def test_verify_and_mid_prompt_prefill_refuse_ssm_layers(stack):
 
 
 def test_init_draws_the_mixers_laws():
-    p = Model(get_config("mamba2-1.3b")).init_params(0, dtype=torch.float32)
+    # the published widths; the laws are read off layer 0, so one layer
+    # of the 48 is drawn
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=1)
+    p = Model(cfg).init_params(0, dtype=torch.float32)
     mx = p["layers"][0]["mixer"]
     assert abs(mx["in_x"].std().item() - 0.02) < 1e-3
     assert abs(mx["conv_x_w"].std().item() - 0.5) < 0.02

@@ -233,6 +233,42 @@ def moe_run(model, params, mesh) -> dict:
     return rec
 
 
+def vocab_loss_runs(llama_cfg, rank: int) -> dict:
+    """The vocab-parallel loss against the one-process loss (no mesh, the
+    logits whole) on one batch, at (1, 2) (ranks 0 and 1) and (2, 2):
+    llama with an MTP head (seed 3, f32), each rank's loss, NLL, MTP NLL
+    and gradients (its shards) and the collectives its step ran, beside
+    the one-process step's values and gradients cut to the rank's
+    shards."""
+    import dataclasses
+
+    from repro_torch.models.model import Model
+
+    model = Model(dataclasses.replace(llama_cfg, mtp_depth=1))
+    params = model.init_params(3, dtype=torch.float32)
+    batch = _t(batches(1, seed=2)[0])
+    loss, met, grads = make_grad_fn(model, abft(), TrainConfig(),
+                                    device="cpu")(params, batch,
+                                                  ModelFault.none())
+    out = {}
+    for name, mesh in (("1x2", mesh_of(1, 2, n=2)), ("2x2", mesh_of(2, 2))):
+        if not mesh.holds(rank):
+            continue
+        rec = {"whole": {"loss": float(loss), "nll": float(met["loss"]),
+                         "mtp": float(met["mtp_loss"]),
+                         "grads": flat(model.shard_params(grads, mesh))}}
+        grad_fn = make_grad_fn(model, abft(), TrainConfig(), mesh=mesh,
+                               device="cpu")
+        collectives.reset_counts()
+        sl, sm, sg = grad_fn(model.shard_params(params, mesh), batch,
+                             ModelFault.none())
+        rec["vocab"] = {"loss": float(sl), "nll": float(sm["loss"]),
+                        "mtp": float(sm["mtp_loss"]), "grads": flat(sg),
+                        "counts": dict(collectives.COUNTS)}
+        out[name] = rec
+    return out
+
+
 def train_rank(llama_cfg, llama_params, moe_cfg, moe_params, ckpt_dir,
                fsdp_thr) -> dict:
     """Every scenario of the (2, 2) mesh on this rank."""
@@ -254,6 +290,7 @@ def train_rank(llama_cfg, llama_params, moe_cfg, moe_params, ckpt_dir,
     out["trainer"] = trainer_run(model, llama_params, mesh, ckpt_dir)
     out["restore"] = restore_runs(model, llama_params, ckpt_dir, rank)
     out["moe"] = moe_run(Model(moe_cfg), moe_params, mesh)
+    out["vocab"] = vocab_loss_runs(llama_cfg, rank)
     collectives.check_same([out["dense"]["adamw"]["loss"],
                             out["trainer"]["history"], out["moe"]["loss"]],
                            collectives.world_group(), "train records")
